@@ -1,0 +1,69 @@
+"""The ViT trunk, as ``vit_cifar_tpu/models/vit.py``.
+
+patchify (NHWC) -> ``emb`` -> cls token (broadcast, cast) -> + ``pos_emb``
+-> ``enc0`` .. ``enc{L-1}`` -> cls token (or the token mean without one) ->
+``fc_norm`` -> ``fc``.  Parameter names are the flax names, so carrying
+weights across is a transpose and a rename (``utils/transplant.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch import nn
+
+from ..ops.common import EncoderBlock, LayerNorm
+from ..ops.init import Linear, normal
+from ..ops.patchify import to_words
+
+
+class ViT(nn.Module):
+    def __init__(self, mixer: Callable[[], nn.Module], num_classes: int = 10,
+                 img_size: int = 32, patch: int = 8, num_layers: int = 7,
+                 hidden: int = 384, mlp_hidden: int = 384,
+                 dropout: float = 0.0, use_encoder_mlp: bool = True,
+                 is_cls_token: bool = True, in_c: int = 3, *,
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32, device=None,
+                 remat: bool = False, seq_pad: int = 0, act_constraint=None,
+                 mlp_factory=None):
+        super().__init__()
+        for name, value in (("remat", remat), ("seq_pad", seq_pad),
+                            ("act_constraint", act_constraint),
+                            ("mlp_factory", mlp_factory)):
+            if value:
+                raise NotImplementedError(
+                    f"ViT({name}=...) is not ported yet (ROADMAP queue 1)")
+        self.patch, self.dtype = patch, dtype
+        self.is_cls_token = is_cls_token
+        self.num_layers = num_layers
+        ps = img_size // patch
+        self.emb = Linear(ps * ps * in_c, hidden, generator=generator,
+                          dtype=dtype, device=device)
+        seq = patch * patch
+        if is_cls_token:
+            self.cls_token = nn.Parameter(
+                normal((1, 1, hidden), generator).to(device))
+            seq += 1
+        self.pos_emb = nn.Parameter(normal((1, seq, hidden), generator).to(device))
+        for i in range(num_layers):
+            self.add_module(f"enc{i}", EncoderBlock(
+                hidden, mlp_hidden, mixer, use_encoder_mlp, dropout,
+                generator=generator, dtype=dtype, device=device))
+        self.fc_norm = LayerNorm(hidden, dtype=dtype, device=device)
+        self.fc = Linear(hidden, num_classes, generator=generator,
+                         dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True):
+        """(B, H, W, C) images, already normalized -> (B, num_classes)
+        logits in the compute dtype."""
+        out = self.emb(to_words(x.to(self.dtype), self.patch))
+        if self.is_cls_token:
+            cls = self.cls_token.to(self.dtype).expand(out.shape[0], 1, -1)
+            out = torch.cat([cls, out], dim=1)
+        out = out + self.pos_emb.to(self.dtype)
+        for i in range(self.num_layers):
+            out = getattr(self, f"enc{i}")(out, deterministic=deterministic)
+        out = out[:, 0] if self.is_cls_token else out.mean(dim=1)
+        return self.fc(self.fc_norm(out))

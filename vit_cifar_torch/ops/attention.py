@@ -1,0 +1,79 @@
+"""Multi-head self-attention with the reference's exact semantics.
+
+As in ``vit_cifar_tpu/ops/attention.py``:
+  * the softmax scale is ``1/sqrt(features)`` over the FULL model dim, not
+    ``1/sqrt(head_dim)`` (reference layers.py:79,97);
+  * separate Wq/Wk/Wv projections with bias;
+  * dropout only after the output projection.
+
+Every forward goes through the fused attention (``ops/cuda/attention.py``:
+the CUDA kernel on the card, its plain version on the CPU) except where the
+JAX module, too, takes its einsum path: ``save_attn_map`` (the map is kept on
+``self.attn_map``, the reference's attribute), ``valid_len`` key masking, and
+``pallas_kernel="einsum"``, which forces the plain path.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .common import dropout
+from .cuda.attention import fused_attention
+from .init import Linear
+
+
+class MultiHeadSelfAttention(nn.Module):
+    def __init__(self, features: int, head: int = 8, dropout: float = 0.0, *,
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32,
+                 save_attn_map: bool = False, pallas_kernel: str | None = None,
+                 valid_len: int | None = None, device=None):
+        super().__init__()
+        if pallas_kernel not in (None, "", "einsum", "fused", "flash"):
+            raise ValueError(f"pallas_kernel={pallas_kernel!r}: expected "
+                             "'einsum', 'fused', or 'flash'")
+        if pallas_kernel == "flash":
+            raise NotImplementedError(
+                "pallas_kernel='flash': the tiled flash kernel is not ported "
+                "yet (ROADMAP queue 2)")
+        if features % head:
+            raise ValueError(f"features={features} is not a multiple of "
+                             f"head={head}")
+        self.features, self.head, self.rate = features, head, dropout
+        self.dtype = dtype
+        self.save_attn_map = save_attn_map
+        self.force_einsum = pallas_kernel == "einsum"
+        self.valid_len = valid_len
+        self.attn_map: torch.Tensor | None = None
+        lin = dict(generator=generator, dtype=dtype, device=device)
+        self.Wq = Linear(features, features, **lin)
+        self.Wk = Linear(features, features, **lin)
+        self.Wv = Linear(features, features, **lin)
+        self.out_project = Linear(features, features, **lin)
+
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True):
+        B, T, F = x.shape
+        hd = F // self.head
+        q, k, v = (lin(x).reshape(B, T, self.head, hd).transpose(1, 2)
+                   for lin in (self.Wq, self.Wk, self.Wv))
+
+        masked = self.valid_len is not None and self.valid_len < T
+        if self.force_einsum or self.save_attn_map or masked:
+            # (B,H,T,T) logits in the compute dtype, divided by sqrt(F) as
+            # the JAX einsum path does
+            sqrt_d = torch.tensor(F**0.5, dtype=self.dtype, device=x.device)
+            logits = torch.einsum("bhif,bhjf->bhij", q, k) / sqrt_d
+            if masked:
+                key_ok = torch.arange(T, device=x.device) < self.valid_len
+                fill = torch.tensor(torch.finfo(torch.float32).min,
+                                    device=x.device).to(logits.dtype)
+                logits = torch.where(key_ok, logits, fill)
+            attn = torch.softmax(logits.to(torch.float32), -1).to(self.dtype)
+            if self.save_attn_map:
+                self.attn_map = attn
+            out = torch.einsum("bhij,bhjf->bihf", attn, v)
+        else:
+            out = fused_attention(q, k, v, 1.0 / float(F**0.5))
+
+        out = self.out_project(out.reshape(B, T, F))
+        return dropout(out, self.rate, deterministic)

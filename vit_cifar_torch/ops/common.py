@@ -1,0 +1,85 @@
+"""Shared building blocks: LayerNorm, the encoder MLP and the pre-LN encoder
+block.
+
+As in ``vit_cifar_tpu/ops/common.py``: the MLP is Linear -> GELU -> Dropout
+-> Linear -> GELU -> Dropout, a GELU after the *second* linear too
+(reference layers.py:32-39), and blocks are pre-LN with residuals.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .init import Linear
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
+    """flax ``nn.Dropout``; only the deterministic form is ported so far."""
+    if deterministic or rate == 0.0:
+        return x
+    raise NotImplementedError(
+        "dropout in training is ported with the training slice")
+
+
+class LayerNorm(nn.Module):
+    """flax ``LayerNorm(epsilon, dtype)`` with f32 parameters: statistics and
+    the affine map in f32, the result cast to ``dtype`` (flax's
+    ``force_float32_reductions``).  Written with explicit casts; autocast
+    would leave the result in f32."""
+
+    def __init__(self, features: int, eps: float = 1e-5, *,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.to(torch.float32), self.weight.shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(self.dtype)
+
+
+class EncoderMLP(nn.Module):
+    """Reference layers.py:32-39 — note the trailing GELU."""
+
+    def __init__(self, mlp_hidden: int, features: int, dropout: float = 0.0, *,
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.rate = dropout
+        lin = dict(generator=generator, dtype=dtype, device=device)
+        self.fc1 = Linear(features, mlp_hidden, **lin)
+        self.fc2 = Linear(mlp_hidden, features, **lin)
+
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True):
+        x = dropout(F.gelu(self.fc1(x)), self.rate, deterministic)
+        return dropout(F.gelu(self.fc2(x)), self.rate, deterministic)
+
+
+class EncoderBlock(nn.Module):
+    """Pre-LN encoder block around a token mixer made by ``mixer()``."""
+
+    def __init__(self, features: int, mlp_hidden: int,
+                 mixer: Callable[[], nn.Module], use_mlp: bool = True,
+                 dropout: float = 0.0, *, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.la1 = LayerNorm(features, dtype=dtype, device=device)
+        self.mixer = mixer()
+        self.use_mlp = use_mlp
+        if use_mlp:
+            self.la2 = LayerNorm(features, dtype=dtype, device=device)
+            self.mlp = EncoderMLP(mlp_hidden, features, dropout,
+                                  generator=generator, dtype=dtype,
+                                  device=device)
+
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True):
+        x = x + self.mixer(self.la1(x), deterministic=deterministic)
+        if self.use_mlp:
+            x = x + self.mlp(self.la2(x), deterministic=deterministic)
+        return x
