@@ -2,17 +2,32 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
 
-1. Kernel phase: builds the fused-attention kernel from
-   ``vit_cifar_torch/csrc/`` with nvcc and holds it against its plain PyTorch
-   version on the card, at the model's shape and the JAX tests' ragged
-   shapes, in f32 and bf16; times both at the model's shape.
-2. Slice phase: the serving path at the full width of the README recipe
+1. Kernel phase: builds the attention kernels from ``vit_cifar_torch/csrc/``
+   with nvcc (one process per source, all at once) and holds each against
+   its plain PyTorch version on the card, at the model's shape and the JAX
+   tests' ragged shapes, in f32 and bf16: the inference forward, the
+   forward with logsumexp, the dq pass and the dk/dv pass, and the autograd
+   Function's gradients against autograd through the plain forward.  Times
+   each kernel and its plain version, and attention forward+backward, at
+   the model's shape.
+2. Serving phase: the serving path at the full width of the README recipe
    model (7 layers, hidden 384, 12 heads; random weights from the config's
    seed): ``get_model`` -> ``save_checkpoint`` -> ``export_inference`` ->
    ``make_http_server``, then POST /predict requests (raw .npy at B=1, 8 and
    128, and one JSON body), each checked against the in-process forward with
    the attention forced to the plain version, and the kernel's launch
    counter checked to rise by one per attention layer and request.
+3. Training phase: the README recipe without AutoAugment (7 layers, batch
+   128, bf16-mixed with f32 params, label smoothing; ``warmup_epoch=0`` so
+   that epoch 0 trains) on synthetic c10 resident on the card:
+   ``load_dataset`` -> ``get_model`` -> ``make_optimizer`` -> ``init_state``
+   -> ``make_train_step`` / ``make_eval_step``.  One step's loss and
+   gradients are held against the plain-attention (``einsum``) model; then
+   one epoch of 390 steps must give finite, falling losses with each
+   training kernel launched 7 times a step, and the padded test set (40
+   batches of 256) must reach val accuracy >= 0.5 with the inference kernel
+   launched 7 times a batch.  Prints the step time, img/s and the device's
+   busy share (torch.profiler).
 
 Prints the card's name and power limit, every check and time, then a JSON
 line of the kernels and, last, ``{"ok": true, "device": {...}}``.  Any
@@ -39,13 +54,21 @@ import torch
 
 from vit_cifar_torch import Config, torch_dtype
 from vit_cifar_torch.data.augment import normalize
+from vit_cifar_torch.data.datasets import load_dataset
 from vit_cifar_torch.deploy import (ServingModel, export_inference,
                                     make_http_server)
 from vit_cifar_torch.models import get_model
-from vit_cifar_torch.ops.cuda.attention import (fused_attention,
-                                                fused_attention_reference)
-from vit_cifar_torch.ops.cuda.build import library_path, load_library
+from vit_cifar_torch.ops.cuda.attention import (
+    KERNEL_WRAPPERS, flash_bwd_dkv, flash_bwd_dkv_reference, flash_bwd_dq,
+    flash_bwd_dq_reference, fused_attention, fused_attention_lse,
+    fused_attention_lse_reference, fused_attention_reference)
+from vit_cifar_torch.ops.cuda.build import build_libraries, library_path
 from vit_cifar_torch.train.checkpoint import save_checkpoint
+from vit_cifar_torch.train.loop import _pad_eval, init_state
+from vit_cifar_torch.train.losses import make_criterion
+from vit_cifar_torch.train.optim import make_optimizer
+from vit_cifar_torch.train.steps import (make_eval_step, make_metrics_zeros,
+                                         make_train_step)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -56,6 +79,33 @@ SHAPES = [(128, 12, 65, 32), (2, 4, 9, 16), (2, 3, 65, 32), (1, 2, 130, 64),
 # bf16 the output may round one bf16 step (2**-7 relative) the other way
 KERNEL_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
               torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+# backward kernels vs plain versions: f32 sums chained twice over T (ds,
+# then ds.k), so 1e-4 relative; bf16 as above
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+           torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+# the Function's grads vs autograd through the plain forward: in bf16 the
+# backward reads the forward's output rounded to bf16 where autograd keeps
+# f32 probabilities (measured on the CPU: at most 4e-3 at these shapes)
+GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# one full-width bf16 training step, kernel path vs the plain-attention
+# (einsum) path from the same weights and batch: the einsum path rounds
+# logits and probabilities to bf16, the kernels keep them in f32.  Measured
+# on the CPU at batch 16: loss 5.5e-4 apart, flat gradient 3.2e-3 apart
+# (relative L2); the bounds leave a 6x margin or more
+STEP_LOSS_ATOL = 1e-2
+STEP_GRAD_REL_L2 = 2e-2
+KERNELS = ("mhsa_fwd", "mhsa_bwd_dq", "mhsa_bwd_dkv")
+REPLACES = {
+    "mhsa_fwd": "vit_cifar_tpu/ops/pallas/attention.py:90",
+    "mhsa_fwd_lse": "vit_cifar_tpu/ops/pallas/attention.py:90",
+    "mhsa_bwd_dq": "vit_cifar_tpu/ops/pallas/attention.py:338",
+    "mhsa_bwd_dkv": "vit_cifar_tpu/ops/pallas/attention.py:383",
+}
+SOURCES = {"mhsa_fwd": "mhsa_fwd", "mhsa_fwd_lse": "mhsa_fwd",
+           "mhsa_bwd_dq": "mhsa_bwd_dq", "mhsa_bwd_dkv": "mhsa_bwd_dkv"}
+TRAIN_STEPS = 390  # one epoch of c10 at batch 128
+MIN_VAL_ACC = 0.5
 # served logits (kernel path) vs the plain path in bf16-mixed: the plain
 # path rounds logits and probabilities to bf16, the kernel keeps them in
 # f32; through 7 layers that is a few bf16 steps at logits of order 1
@@ -99,16 +149,31 @@ def host_ms(fn, iters: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(card: str) -> dict:
+def build_kernels() -> None:
+    """Build every kernel library at once and print ptxas's report."""
     t0 = time.perf_counter()
-    load_library("mhsa_fwd")
-    print(f"built {os.path.relpath(library_path('mhsa_fwd'), ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    log = library_path("mhsa_fwd").with_suffix(".log")
-    for line in log.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    build_libraries(KERNELS)
+    print(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s "
+          "(one nvcc each, in parallel)")
+    for name in KERNELS:
+        log = library_path(name).with_suffix(".log")
+        print(f"  {os.path.relpath(library_path(name), ROOT)}")
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
 
+
+def in_turns(fns: dict, rounds: int = 3) -> dict:
+    """Median ms of each of two functions, timed in turns A, B, B, A."""
+    a, b = fns
+    times = {a: [], b: []}
+    for _ in range(rounds):
+        for name in (a, b, b, a):
+            times[name].append(cuda_ms(fns[name]))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def kernel_phase(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_err = None
     for shape in SHAPES:
@@ -151,6 +216,271 @@ def kernel_phase(card: str) -> dict:
             "plain_ms": ms["plain"]}
 
 
+def _max_err(got, want) -> float:
+    return max((g.float() - w.float()).abs().max().item()
+               for g, w in zip(got, want))
+
+
+def training_kernel_phase(card: str) -> list[dict]:
+    """The forward with lse, dq and dk/dv kernels against their plain
+    versions, the Function against autograd, and their times."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    errs = {}
+    for shape in SHAPES:
+        B, H, T, D = shape
+        scale = 1.0 / math.sqrt(H * D)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(3))
+            g = torch.randn((B, T, H, D), generator=gen,
+                            device="cuda").to(dtype)
+            out, lse = fused_attention_lse(q, k, v, scale)
+            want_out, want_lse = fused_attention_lse_reference(q, k, v, scale)
+            # each backward kernel reads the plain forward's out and lse, so
+            # that it is held against its plain version on equal inputs
+            dq = flash_bwd_dq(q, k, v, want_out, g, want_lse, scale)
+            dk, dv = flash_bwd_dkv(q, k, v, want_out, g, want_lse, scale)
+            want_dq = flash_bwd_dq_reference(q, k, v, want_out, g, want_lse,
+                                             scale)
+            want_dk, want_dv = flash_bwd_dkv_reference(
+                q, k, v, want_out, g, want_lse, scale)
+
+            def grads(fn):
+                leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+                return torch.autograd.grad(fn(*leaves, scale), leaves, g)
+
+            fn_grads = grads(fused_attention)
+            ag_grads = grads(fused_attention_reference)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, want_out, **KERNEL_TOL[dtype])
+            torch.testing.assert_close(lse, want_lse,
+                                       **KERNEL_TOL[torch.float32])
+            torch.testing.assert_close(dq, want_dq, **BWD_TOL[dtype])
+            torch.testing.assert_close(dk, want_dk, **BWD_TOL[dtype])
+            torch.testing.assert_close(dv, want_dv, **BWD_TOL[dtype])
+            for a, w in zip(fn_grads, ag_grads):
+                torch.testing.assert_close(a, w, **GRAD_TOL[dtype])
+            e = {"mhsa_fwd_lse": _max_err((out, lse), (want_out, want_lse)),
+                 "mhsa_bwd_dq": _max_err((dq,), (want_dq,)),
+                 "mhsa_bwd_dkv": _max_err((dk, dv), (want_dk, want_dv)),
+                 "function": _max_err(fn_grads, ag_grads)}
+            print(f"training kernels {shape} {str(dtype)[6:]}: max_abs_err "
+                  + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
+                  + f" (tolerances: fwd {KERNEL_TOL[dtype]}, bwd "
+                  f"{BWD_TOL[dtype]}, Function {GRAD_TOL[dtype]})")
+            if shape == SHAPES[0] and dtype == torch.bfloat16:
+                errs = e
+
+    # the model's shape in bf16, each kernel against its plain version
+    B, H, T, D = SHAPES[0]
+    scale = 1.0 / math.sqrt(H * D)
+    q, k, v = (torch.randn(SHAPES[0], generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    g = torch.randn((B, T, H, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    out, lse = fused_attention_lse_reference(q, k, v, scale)
+    pairs = {
+        "mhsa_fwd_lse": (lambda: fused_attention_lse(q, k, v, scale),
+                         lambda: fused_attention_lse_reference(q, k, v,
+                                                               scale)),
+        "mhsa_bwd_dq": (
+            lambda: flash_bwd_dq(q, k, v, out, g, lse, scale),
+            lambda: flash_bwd_dq_reference(q, k, v, out, g, lse, scale)),
+        "mhsa_bwd_dkv": (
+            lambda: flash_bwd_dkv(q, k, v, out, g, lse, scale),
+            lambda: flash_bwd_dkv_reference(q, k, v, out, g, lse, scale)),
+    }
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(*leaves, scale), leaves, g)
+
+    pairs["attention fwd+bwd"] = (fwd_bwd(fused_attention),
+                                  fwd_bwd(fused_attention_reference))
+    rows = []
+    for name, (kernel, plain) in pairs.items():
+        ms = in_turns({"kernel": kernel, "plain": plain})
+        print(f"{name} {SHAPES[0]} bf16: kernel {ms['kernel']:.4f} ms, "
+              f"plain {ms['plain']:.4f} ms (median of 6 windows of 100; "
+              f"{card})")
+        if name in REPLACES:
+            rows.append({"name": name, "route": "cuda",
+                         "source": f"vit_cifar_torch/csrc/{SOURCES[name]}.cu",
+                         "replaces": REPLACES[name],
+                         "max_abs_err": errs[name], "ms": ms["kernel"],
+                         "plain_ms": ms["plain"]})
+    return rows
+
+
+def device_activity(trace_path: str) -> tuple[float, int]:
+    """(us of device activity, kernel launches) in a chrome trace; the
+    activity is the union of kernel, copy and memset spans."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in e)
+    if not spans:
+        raise AssertionError("the profiler saw no device activity")
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    return busy, kernels
+
+
+def training_phase(card: str) -> dict:
+    cfg = Config(model_name="vit", num_layers=7, hidden=384, mlp_hidden=384,
+                 head=12, batch_size=128, label_smoothing=True,
+                 warmup_epoch=0, synthetic_data=True)
+    t0 = time.perf_counter()
+    raw = load_dataset(cfg.dataset, cfg.data_dir, cfg.synthetic_data)
+    x_train = torch.from_numpy(raw.x_train).cuda()
+    y_train = torch.from_numpy(raw.y_train).cuda()
+    steps_per_epoch = len(raw.x_train) // cfg.batch_size
+    if steps_per_epoch != TRAIN_STEPS:
+        raise AssertionError(f"{steps_per_epoch} steps per epoch")
+    print(f"synthetic c10 on the card: x_train {tuple(x_train.shape)} uint8, "
+          f"x_test {raw.x_test.shape}; {time.perf_counter() - t0:.1f} s")
+
+    model, _ = get_model(cfg, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != PARAMS:
+        raise AssertionError(f"{n_params} params, expected {PARAMS}")
+    plain, _ = get_model(cfg.replace(pallas_kernel="einsum"), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    tx = make_optimizer(cfg, steps_per_epoch)
+    state = init_state(cfg, model, tx)
+    state.metrics_acc = make_metrics_zeros(cfg, "cuda")
+    train_step = make_train_step(cfg, model, tx)
+    eval_step = make_eval_step(cfg, model)
+    perm = torch.randperm(len(raw.x_train), device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(cfg.seed + 1))
+    print(f"train: vit, 7 layers, hidden 384, 12 heads, {n_params} params, "
+          f"{cfg.precision}, batch {cfg.batch_size}, label smoothing, "
+          f"adam lr {cfg.lr}, warmup_epoch 0, no AutoAugment")
+
+    # one step's loss and gradients, kernel path vs plain attention
+    img, label, _, _ = train_step.make_batch(state, x_train, y_train, perm, 0)
+    criterion = make_criterion(cfg)
+
+    def loss_and_grad(m):
+        loss = criterion(m(img, deterministic=False), label)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        return loss.item(), torch.cat([g.reshape(-1) for g in grads])
+
+    loss_k, grad_k = loss_and_grad(model)
+    loss_p, grad_p = loss_and_grad(plain)
+    rel = ((grad_k - grad_p).norm() / grad_p.norm()).item()
+    print(f"one step, kernel vs einsum path: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3e}, bound "
+          f"{STEP_LOSS_ATOL}); gradient relative L2 {rel:.3e} (bound "
+          f"{STEP_GRAD_REL_L2})")
+    if not (abs(loss_k - loss_p) <= STEP_LOSS_ATOL and rel <= STEP_GRAD_REL_L2):
+        raise AssertionError("kernel path and einsum path disagree")
+    del plain, grad_k, grad_p
+
+    # the main path starts here: every launch counted from now until the
+    # last eval batch is the training path's
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    losses = torch.empty(TRAIN_STEPS, device="cuda")
+    warm = 10
+    for i in range(TRAIN_STEPS):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        state, metrics = train_step(state, x_train, y_train, perm, i)
+        losses[i] = metrics["loss"]
+        if i == 0:
+            first = {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t_start) * 1e3 / (TRAIN_STEPS - warm)
+    train_launches = {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
+    want = {"mhsa_fwd": 0, "mhsa_fwd_lse": cfg.num_layers,
+            "mhsa_bwd_dq": cfg.num_layers, "mhsa_bwd_dkv": cfg.num_layers}
+    if first != want or train_launches != {
+            n: c * TRAIN_STEPS for n, c in want.items()}:
+        raise AssertionError(f"launches: first step {first}, epoch "
+                             f"{train_launches}, expected {want} a step")
+    losses = losses.cpu()
+    acc = {k: v.item() for k, v in state.metrics_acc.items()}
+    head, tail = losses[:20].mean().item(), losses[-20:].mean().item()
+    print(f"epoch 0: {TRAIN_STEPS} steps, launches per step {first}; loss "
+          f"first 20 steps {head:.4f}, last 20 {tail:.4f}; epoch-mean loss "
+          f"{acc['loss'] / TRAIN_STEPS:.4f}, acc "
+          f"{acc['acc'] / TRAIN_STEPS:.4f}, skipped "
+          f"{acc['skipped_nonfinite']:.0f}")
+    if not torch.isfinite(losses).all():
+        raise AssertionError("a training loss is not finite")
+    if not tail < head or acc["skipped_nonfinite"] != 0:
+        raise AssertionError("training loss did not fall")
+    print(f"train step: {step_ms:.3f} ms mean over steps {warm}-"
+          f"{TRAIN_STEPS - 1} (host clock, synchronized), "
+          f"{cfg.batch_size / step_ms * 1e3:.1f} img/s at B={cfg.batch_size}"
+          f" without AutoAugment ({card})")
+
+    x_test, y_test, mask, n_eval = _pad_eval(raw.x_test, raw.y_test,
+                                             cfg.eval_batch_size)
+    x_test, y_test, mask = (torch.from_numpy(a).cuda()
+                            for a in (x_test, y_test, mask))
+    eb = cfg.eval_batch_size
+    sums = {"loss_sum": 0.0, "correct_sum": 0.0, "count": 0.0}
+    for b in range(n_eval):
+        out = eval_step(x_test[b * eb:(b + 1) * eb],
+                        y_test[b * eb:(b + 1) * eb], mask[b * eb:(b + 1) * eb])
+        sums = {k: sums[k] + out[k] for k in sums}
+    sums = {k: float(v) for k, v in sums.items()}
+    launches = {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
+    eval_launches = launches["mhsa_fwd"]
+    val_acc = sums["correct_sum"] / sums["count"]
+    val_loss = sums["loss_sum"] / sums["count"]
+    print(f"eval: {n_eval} batches of {eb} ({int(sums['count'])} images, "
+          f"last batch masked), {eval_launches} launches of mhsa_fwd; "
+          f"val_loss {val_loss:.4f}, val_acc {val_acc:.4f}")
+    if n_eval != 40 or sums["count"] != len(raw.x_test):
+        raise AssertionError(f"eval over {n_eval} batches, {sums['count']}")
+    if eval_launches != cfg.num_layers * n_eval or {
+            n: c for n, c in launches.items() if n != "mhsa_fwd"} != {
+            n: c for n, c in train_launches.items() if n != "mhsa_fwd"}:
+        raise AssertionError(f"eval launches {launches}")
+    if not (math.isfinite(val_loss) and val_acc >= MIN_VAL_ACC):
+        raise AssertionError(f"val_acc {val_acc} under {MIN_VAL_ACC}")
+
+    # device busy share and top device ops over 20 more steps
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 20
+    trace = os.path.join(WORK, "train_trace.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_prof):
+            state, _ = train_step(state, x_train, y_train, perm, i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    prof.export_chrome_trace(trace)
+    busy_us, n_kernels = device_activity(trace)
+    device_ms = busy_us / 1e3 / n_prof
+    print(f"profiled {n_prof} train steps: {n_kernels / n_prof:.1f} kernels "
+          f"and {device_ms:.3f} ms of device activity a step; "
+          f"{wall_us / 1e3 / n_prof:.3f} ms a step under the profiler (busy "
+          f"share {busy_us / wall_us:.3f}); against the unprofiled step, "
+          f"device busy share {device_ms / step_ms:.3f} ({card})")
+    # device kernels only (their rows carry no CPU time), by device time
+    kernels = [a for a in prof.key_averages()
+               if a.self_device_time_total > 0 and a.self_cpu_time_total == 0]
+    kernels.sort(key=lambda a: a.self_device_time_total, reverse=True)
+    for a in kernels[:12]:
+        print(f"  {a.self_device_time_total / 1e3 / n_prof:8.4f} ms/step "
+              f"{a.count / n_prof:6.1f}x/step  {a.key[:90]}")
+    return launches
+
+
 def _post(url: str, kind: str, imgs: np.ndarray) -> dict:
     if kind == "npy":
         buf = io.BytesIO()
@@ -170,7 +500,7 @@ def _get(url: str) -> dict:
         return json.loads(resp.read())
 
 
-def slice_phase(card: str) -> int:
+def serving_phase(card: str) -> int:
     # the main path starts here: every launch counted from now until the last
     # request is the served model's
     fused_attention.launches = 0
@@ -279,11 +609,17 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmul and cuDNN: f32 references run in full f32")
 
-    kernel = kernel_phase(card)
-    kernel["launches"] = slice_phase(card)
-    if kernel["launches"] < 1:
-        raise AssertionError("the main path never launched mhsa_fwd")
-    print(json.dumps({"kernels": [kernel]}))
+    build_kernels()
+    rows = [kernel_phase(card), *training_kernel_phase(card)]
+    serving = serving_phase(card)
+    training = training_phase(card)
+    for row in rows:
+        # each path's launches, counted from zero just before it
+        row["launches"] = training[row["name"]] + (
+            serving if row["name"] == "mhsa_fwd" else 0)
+        if row["launches"] < 1:
+            raise AssertionError(f"the main path never launched {row['name']}")
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

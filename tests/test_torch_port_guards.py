@@ -26,7 +26,11 @@ def _run(args, cwd):
 
 
 def test_port_and_smoke_script_load_no_jax():
-    code = ("import sys, vit_cifar_torch, vit_cifar_torch.deploy, chip_smoke\n"
+    code = ("import importlib, pkgutil, sys, vit_cifar_torch, chip_smoke\n"
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "vit_cifar_torch.__path__, 'vit_cifar_torch.')]\n"
+            "assert 'vit_cifar_torch.train.steps' in mods, mods\n"
+            "for m in mods: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vit_cifar_tpu'))\n"
             "assert not bad, bad\n"

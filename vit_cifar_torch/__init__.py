@@ -3,8 +3,9 @@ NVIDIA H100.
 
 Module names follow the JAX package, so each module's counterpart is found
 under the same path.  The port imports torch and never jax; its kernels are
-hand-written for Hopper (``csrc/``) and built at first use.  The slice ported
-so far is the serving path of the ``vit`` model (``deploy.py``).
+hand-written for Hopper (``csrc/``) and built at first use.  The slices
+ported so far are the serving path of the ``vit`` model (``deploy.py``) and
+its training step without AutoAugment (``train/steps.py``).
 """
 
 from .config import Config, torch_dtype

@@ -171,6 +171,10 @@ class Config:
         return DATASET_INFO[self.dataset]["size"]
 
     @property
+    def padding(self) -> int:
+        return DATASET_INFO[self.dataset]["padding"]
+
+    @property
     def mean(self) -> tuple[float, ...]:
         return DATASET_INFO[self.dataset]["mean"]
 

@@ -1,10 +1,16 @@
-// Fused multi-head self-attention, inference forward, for Hopper (sm_90a).
+// Fused multi-head self-attention forward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel vit_cifar_tpu/ops/pallas/attention.py::_mhsa_kernel
-// (its inference variant, reached through fused_attention).  For every
+// in both its variants: the inference one (kernel3, reached through
+// fused_attention) and the training one (kernel3l, reached through the
+// custom VJP's _fwd), which also writes the row logsumexp.  For every
 // (batch, head): s = q.k^T * scale, p = exp(s - rowmax), o = (p / rowsum).v,
 // all in f32 whatever the input type, and o is written in the (B, T, H, D)
-// layout that fused_attention returns.
+// layout that fused_attention returns.  When `lse` is given, each row also
+// writes lse = rowmax + log(rowsum) in f32, the one residual the backward
+// kernels (mhsa_bwd_dq.cu, mhsa_bwd_dkv.cu) need besides q, k, v and o.  It
+// is (B, H, T), not the TPU's lane-broadcast (B, H, Tp, 128), which existed
+// only for the TPU's tiling.
 //
 // What bounds it on this card: at the model's shape (T=65, head_dim=32) one
 // head is two 65x65x32 products, about 0.5 MFLOP against 12 KB of q/k/v in
@@ -14,8 +20,8 @@
 // logits and probabilities out of device memory altogether: each block
 // stages one head's K and V in shared memory, each warp works one query row
 // at a time with its logits in shared memory, and device memory sees only
-// q, k, v in and the context out.  There is no padding: every loop is bound
-// by T and D, so any T and D work up to the shared-memory limit.
+// q, k, v in and the context (and lse) out.  There is no padding: every loop
+// is bound by T and D, so any T and D work up to the shared-memory limit.
 //
 // Layout of the work: one block per (b, h), kWarps warps.  Warp w takes the
 // query rows w, w + kWarps, ...; for a row, lanes run over keys for the
@@ -28,43 +34,15 @@
 //        -Xcompiler -fPIC
 // and bound through the plain C function mhsa_fwd below (ctypes).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
 
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+using namespace attn;
 
 // Dynamic shared memory, in floats:
 //   K    T * (D + 1)   (padded row stride against bank conflicts)
@@ -74,8 +52,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     mhsa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ out, int H,
-                    int seq, int D, float scale) {
+                    const T* __restrict__ v, T* __restrict__ out,
+                    float* __restrict__ lse, int H, int seq, int D,
+                    float scale) {
   extern __shared__ float smem[];
   const int ks = D + 1;
   float* k_s = smem;
@@ -123,6 +102,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     l = warp_sum(l);
     for (int j = lane; j < seq; j += 32) prow[j] /= l;
+    if (lse != nullptr && lane == 0)
+      lse[static_cast<int64_t>(bh) * seq + i] = m + logf(l);
     __syncwarp();
 
     T* orow = out + ((static_cast<int64_t>(b) * seq + i) * H + h) * D;
@@ -143,33 +124,30 @@ size_t smem_bytes(int seq, int D) {
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int seq, int D, float scale,
+                   void* lse, int B, int H, int seq, int D, float scale,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes(seq, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      mhsa_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  mhsa_fwd_kernel<T><<<B * H, kThreads, smem, stream>>>(
+  return launch_with_smem(
+      mhsa_fwd_kernel<T>, B * H, smem_bytes(seq, D), stream,
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, seq, D, scale);
-  return cudaGetLastError();
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse), H, seq, D, scale);
 }
 
 }  // namespace
 
-// q, k, v: (B, H, T, D) contiguous; out: (B, T, H, D) contiguous, same type.
+// q, k, v: (B, H, T, D) contiguous; out: (B, T, H, D) contiguous, same type;
+// lse: (B, H, T) float32 contiguous, or null for the inference variant.
 // dtype 0 is float32, 1 is bfloat16.  Returns the cudaError_t of the launch
 // (0 on success); the caller checks shapes and the shared-memory bound.
 extern "C" int mhsa_fwd(const void* q, const void* k, const void* v,
-                        void* out, int B, int H, int T, int D, float scale,
-                        int dtype, void* stream) {
+                        void* out, void* lse, int B, int H, int T, int D,
+                        float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(q, k, v, out, B, H, T, D, scale, s);
+      return launch<float>(q, k, v, out, lse, B, H, T, D, scale, s);
     case 1:
-      return launch<__nv_bfloat16>(q, k, v, out, B, H, T, D, scale, s);
+      return launch<__nv_bfloat16>(q, k, v, out, lse, B, H, T, D, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,12 +1,26 @@
-"""Input normalization (the eval and serving preprocessing).
+"""On-device data augmentation, as ``vit_cifar_tpu/data/augment.py``.
 
-Only ``normalize`` is ported so far; the training augmentations of
-``vit_cifar_tpu/data/augment.py`` come with the training slice.
+* ``normalize``: ToTensor + Normalize (reference utils.py:353-356);
+* ``random_crop_flip``: RandomCrop(size, padding=4, zero fill) +
+  RandomHorizontalFlip (utils.py:340-342);
+* ``cutmix``: CutMix (da.py:51-78), with the float floor-div quirk of its
+  box arithmetic (``r_w // 2`` on a float);
+* ``mixup``: MixUp (da.py:81-93).
+
+Each random op is split in two: ``*_draws`` takes a ``torch.Generator`` and
+draws every random number the op needs, on the generator's device, and
+``apply_*`` takes those draws.  The op itself is the two in a row.  Tests
+hand ``apply_*`` the JAX package's draws, since the two frameworks' random
+streams never agree.  ``random_crop_paste`` and ``augment_dataset`` come
+with the AutoAugment slice.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+_AA_ITEM = "ROADMAP queue 1, item 4 (augmentation with AutoAugment)"
 
 
 def normalize(x: torch.Tensor, mean, std) -> torch.Tensor:
@@ -16,3 +30,127 @@ def normalize(x: torch.Tensor, mean, std) -> torch.Tensor:
     mean = torch.as_tensor(mean, dtype=torch.float32, device=x.device)
     std = torch.as_tensor(std, dtype=torch.float32, device=x.device)
     return (x - mean) / std
+
+
+def uniform(generator: torch.Generator, shape=()) -> torch.Tensor:
+    """U(0, 1) draws from ``generator``, on its device."""
+    return torch.rand(shape, generator=generator, device=generator.device)
+
+
+# -- random crop and flip ---------------------------------------------------
+
+def crop_flip_draws(generator: torch.Generator, batch: int, padding: int,
+                    flip: bool = True):
+    """(off_y, off_x) in [0, 2*padding] and, with ``flip``, the flip mask
+    (p=0.5), each of shape (batch,)."""
+    hi = 2 * padding + 1
+    dev = generator.device
+    off_y = torch.randint(0, hi, (batch,), generator=generator, device=dev)
+    off_x = torch.randint(0, hi, (batch,), generator=generator, device=dev)
+    do_flip = uniform(generator, (batch,)) < 0.5 if flip else None
+    return off_y, off_x, do_flip
+
+
+def apply_crop_flip(x: torch.Tensor, padding: int, off_y: torch.Tensor,
+                    off_x: torch.Tensor,
+                    do_flip: torch.Tensor | None) -> torch.Tensor:
+    """Crop (B, H, W, C) images out of their zero-padded borders at the
+    given offsets, then flip the rows of ``do_flip`` left to right."""
+    B, H, W, C = x.shape
+    xp = F.pad(x, (0, 0, padding, padding, padding, padding))
+    rows = off_y[:, None] + torch.arange(H, device=x.device)  # (B, H)
+    cols = off_x[:, None] + torch.arange(W, device=x.device)  # (B, W)
+    b = torch.arange(B, device=x.device)[:, None, None]
+    out = xp[b, rows[:, :, None], cols[:, None, :]]
+    if do_flip is not None:
+        out = torch.where(do_flip[:, None, None, None], out.flip(2), out)
+    return out
+
+
+def random_crop_flip(generator: torch.Generator, x: torch.Tensor,
+                     padding: int, flip: bool = True) -> torch.Tensor:
+    """Per-image random crop from zero-padded borders + horizontal flip
+    p=0.5.  x: (B, H, W, C), any dtype (the step's is uint8)."""
+    return apply_crop_flip(x, padding,
+                           *crop_flip_draws(generator, x.shape[0], padding,
+                                            flip))
+
+
+# -- CutMix -----------------------------------------------------------------
+
+def cutmix_draws(generator: torch.Generator, batch: int, size: int):
+    """(lam0 ~ Beta(1, 1), r_x, r_y ~ U(0, size), perm) as tensors.  The
+    reference's CutMix and MixUp draw Beta(1, 1), which is U(0, 1)."""
+    lam0 = uniform(generator)
+    r_x = uniform(generator) * size
+    r_y = uniform(generator) * size
+    perm = torch.randperm(batch, generator=generator, device=generator.device)
+    return lam0, r_x, r_y, perm
+
+
+def apply_cutmix(img: torch.Tensor, label: torch.Tensor, size: int,
+                 lam0: torch.Tensor, r_x: torch.Tensor, r_y: torch.Tensor,
+                 perm: torch.Tensor):
+    """da.py:51-78 with the given draws: the box [x1, x2) x [y1, y2) of
+    each image comes from image ``perm``; x slices the H axis, as the
+    reference's NCHW ``img[:, :, x1:x2, y1:y2]`` does.  Returns (img,
+    label, label[perm], lam), lam = 1 - box area / size^2 from the clipped
+    box."""
+    f32 = dict(dtype=torch.float32, device=img.device)
+    lam0, r_x, r_y = (torch.as_tensor(a, **f32) for a in (lam0, r_x, r_y))
+    r_w = size * torch.sqrt(1.0 - lam0)
+    half = torch.floor(r_w / 2.0)  # float floor-div quirk: r_w // 2
+    x1 = torch.floor(torch.clamp(r_x - half, 0, size))
+    x2 = torch.floor(torch.clamp(r_x + half, 0, size))
+    y1 = torch.floor(torch.clamp(r_y - half, 0, size))
+    y2 = torch.floor(torch.clamp(r_y + half, 0, size))
+    r = torch.arange(size, **f32)
+    mask_h = (r >= x1) & (r < x2)
+    mask_w = (r >= y1) & (r < y2)
+    box = (mask_h[:, None] & mask_w[None, :])[None, :, :, None]
+    perm = perm.to(img.device)
+    img = torch.where(box, img[perm], img)
+    lam = 1.0 - (x2 - x1) * (y2 - y1) / float(size * size)
+    return img, label, label[perm], lam
+
+
+def cutmix(generator: torch.Generator, img: torch.Tensor,
+           label: torch.Tensor, size: int):
+    return apply_cutmix(img, label, size,
+                        *cutmix_draws(generator, img.shape[0], size))
+
+
+# -- MixUp ------------------------------------------------------------------
+
+def mixup_draws(generator: torch.Generator, batch: int):
+    """(lam ~ Beta(1, 1), perm)."""
+    lam = uniform(generator)
+    perm = torch.randperm(batch, generator=generator, device=generator.device)
+    return lam, perm
+
+
+def apply_mixup(img: torch.Tensor, label: torch.Tensor, lam: torch.Tensor,
+                perm: torch.Tensor):
+    """da.py:81-93 with the given draws: one lambda for the whole batch.
+    Returns (mixed, label, label[perm], lam)."""
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=img.device)
+    perm = perm.to(img.device)
+    mixed = lam * img + (1.0 - lam) * img[perm]
+    return mixed, label, label[perm], lam
+
+
+def mixup(generator: torch.Generator, img: torch.Tensor, label: torch.Tensor):
+    return apply_mixup(img, label, *mixup_draws(generator, img.shape[0]))
+
+
+# -- not ported yet ---------------------------------------------------------
+
+def random_crop_paste(*args, **kwargs):
+    raise NotImplementedError(
+        f"random_crop_paste (--rcpaste) is not ported to torch yet: {_AA_ITEM}")
+
+
+def augment_dataset(*args, **kwargs):
+    raise NotImplementedError(
+        "augment_dataset (--preaugment-epoch) is not ported to torch yet: "
+        f"{_AA_ITEM}")

@@ -55,15 +55,18 @@ class ViT(nn.Module):
         self.fc = Linear(hidden, num_classes, generator=generator,
                          dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, *, deterministic: bool = True):
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                generator: torch.Generator | None = None):
         """(B, H, W, C) images, already normalized -> (B, num_classes)
-        logits in the compute dtype."""
+        logits in the compute dtype.  In training (``deterministic=False``)
+        dropout draws from ``generator``."""
         out = self.emb(to_words(x.to(self.dtype), self.patch))
         if self.is_cls_token:
             cls = self.cls_token.to(self.dtype).expand(out.shape[0], 1, -1)
             out = torch.cat([cls, out], dim=1)
         out = out + self.pos_emb.to(self.dtype)
         for i in range(self.num_layers):
-            out = getattr(self, f"enc{i}")(out, deterministic=deterministic)
+            out = getattr(self, f"enc{i}")(out, deterministic=deterministic,
+                                           generator=generator)
         out = out[:, 0] if self.is_cls_token else out.mean(dim=1)
         return self.fc(self.fc_norm(out))

@@ -6,8 +6,9 @@ As in ``vit_cifar_tpu/ops/attention.py``:
   * separate Wq/Wk/Wv projections with bias;
   * dropout only after the output projection.
 
-Every forward goes through the fused attention (``ops/cuda/attention.py``:
-the CUDA kernel on the card, its plain version on the CPU) except where the
+Every forward, in training as in inference, goes through the fused
+attention (``ops/cuda/attention.py``: the CUDA kernels on the card, forward
+and backward, their plain versions on the CPU) except where the
 JAX module, too, takes its einsum path: ``save_attn_map`` (the map is kept on
 ``self.attn_map``, the reference's attribute), ``valid_len`` key masking, and
 ``pallas_kernel="einsum"``, which forces the plain path.
@@ -51,7 +52,8 @@ class MultiHeadSelfAttention(nn.Module):
         self.Wv = Linear(features, features, **lin)
         self.out_project = Linear(features, features, **lin)
 
-    def forward(self, x: torch.Tensor, *, deterministic: bool = True):
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                generator: torch.Generator | None = None):
         B, T, F = x.shape
         hd = F // self.head
         q, k, v = (lin(x).reshape(B, T, self.head, hd).transpose(1, 2)
@@ -76,4 +78,4 @@ class MultiHeadSelfAttention(nn.Module):
             out = fused_attention(q, k, v, 1.0 / float(F**0.5))
 
         out = self.out_project(out.reshape(B, T, F))
-        return dropout(out, self.rate, deterministic)
+        return dropout(out, self.rate, deterministic, generator)

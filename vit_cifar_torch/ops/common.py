@@ -17,12 +17,22 @@ from torch import nn
 from .init import Linear
 
 
-def dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
-    """flax ``nn.Dropout``; only the deterministic form is ported so far."""
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale the kept ones by 1/(1 - rate), in x's dtype.  Draws come from
+    ``generator`` (on x's device).  Rate 0, or ``deterministic``, is the
+    identity."""
     if deterministic or rate == 0.0:
         return x
-    raise NotImplementedError(
-        "dropout in training is ported with the training slice")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 class LayerNorm(nn.Module):
@@ -56,9 +66,11 @@ class EncoderMLP(nn.Module):
         self.fc1 = Linear(features, mlp_hidden, **lin)
         self.fc2 = Linear(mlp_hidden, features, **lin)
 
-    def forward(self, x: torch.Tensor, *, deterministic: bool = True):
-        x = dropout(F.gelu(self.fc1(x)), self.rate, deterministic)
-        return dropout(F.gelu(self.fc2(x)), self.rate, deterministic)
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                generator: torch.Generator | None = None):
+        x = dropout(F.gelu(self.fc1(x)), self.rate, deterministic, generator)
+        return dropout(F.gelu(self.fc2(x)), self.rate, deterministic,
+                       generator)
 
 
 class EncoderBlock(nn.Module):
@@ -78,8 +90,10 @@ class EncoderBlock(nn.Module):
                                   generator=generator, dtype=dtype,
                                   device=device)
 
-    def forward(self, x: torch.Tensor, *, deterministic: bool = True):
-        x = x + self.mixer(self.la1(x), deterministic=deterministic)
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                generator: torch.Generator | None = None):
+        kw = dict(deterministic=deterministic, generator=generator)
+        x = x + self.mixer(self.la1(x), **kw)
         if self.use_mlp:
-            x = x + self.mlp(self.la2(x), deterministic=deterministic)
+            x = x + self.mlp(self.la2(x), **kw)
         return x

@@ -1,13 +1,28 @@
-"""Fused multi-head self-attention forward: the CUDA kernel and its plain
-PyTorch version.
+"""Fused multi-head self-attention, forward and backward: the CUDA kernels
+and their plain PyTorch versions.
 
 ``fused_attention`` is the port of ``vit_cifar_tpu/ops/pallas/attention.py::
-fused_attention`` for inference: (B, H, T, D) q, k, v -> (B, T, H, D)
-context, softmax and products in f32, output in q's dtype.  On a CUDA tensor
-it launches the hand-written kernel ``csrc/mhsa_fwd.cu`` (built at first
-use) or raises; on a CPU tensor it runs :func:`fused_attention_reference`.
-There is no fallback between the two.  The backward kernels come with
-training, so the kernel refuses inputs that would need a gradient.
+fused_attention``: (B, H, T, D) q, k, v -> (B, T, H, D) context, softmax and
+products in f32, output in q's dtype.  Where a gradient is needed it runs
+:class:`FusedAttentionFunction`, the counterpart of the JAX custom VJP
+(``fused_attention.defvjp(_fwd, _bwd)``): its forward runs the kernel that
+also writes the row logsumexp and saves only (q, k, v, out, lse), never a
+(B, H, T, T) tensor; its backward runs the dq kernel, then the dk/dv kernel.
+Without a gradient it runs the inference kernel.
+
+Each wrapper takes its kernel's plain version for a CPU tensor, and for a
+CUDA tensor launches the hand-written kernel (``csrc/``, built at first use)
+or raises; there is no fallback between the two.  Each wrapper counts its
+launches in ``<wrapper>.launches``.
+
+=======================  ===================  ===============================
+wrapper                  kernel               plain version
+=======================  ===================  ===============================
+``fused_attention``      ``mhsa_fwd.cu``      ``fused_attention_reference``
+``fused_attention_lse``  ``mhsa_fwd.cu`` +lse ``fused_attention_lse_reference``
+``flash_bwd_dq``         ``mhsa_bwd_dq.cu``   ``flash_bwd_dq_reference``
+``flash_bwd_dkv``        ``mhsa_bwd_dkv.cu``  ``flash_bwd_dkv_reference``
+=======================  ===================  ===============================
 """
 
 from __future__ import annotations
@@ -20,7 +35,14 @@ import torch
 # Hopper's opt-in maximum of dynamic shared memory for one block.
 MAX_SMEM_BYTES = 232_448
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# pointer arguments of each kernel's C entry point; all of them then take
+# B, H, T, D, scale, dtype and the stream
+_POINTERS = {"mhsa_fwd": 5, "mhsa_bwd_dq": 7, "mhsa_bwd_dkv": 8}
 
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
 
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -30,17 +52,85 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bhij,bhjd->bihd", p, vf).to(q.dtype)
 
 
+def fused_attention_lse_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, scale: float):
+    """Plain version of the training forward: (out (B, T, H, D) in q's
+    dtype, lse (B, H, T) f32), lse = rowmax + log(rowsum) of the scaled
+    logits, as ``_mhsa_kernel`` writes it."""
+    qf, kf, vf = (a.to(torch.float32) for a in (q, k, v))
+    s = torch.einsum("bhid,bhjd->bhij", qf, kf) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhij,bhjd->bihd", e / l, vf).to(q.dtype)
+    return out, (m + torch.log(l)).squeeze(-1)
+
+
+def _bwd_terms(q, k, v, o, do, lse, scale):
+    """p and ds of the flash backward, in f32, from the formulas of
+    ``_flash_bwd_dq_kernel``: p = exp(s - lse), dp = do.v^T,
+    delta = rowsum(do * o), ds = p * (dp - delta) * scale."""
+    qf, kf, vf = (a.to(torch.float32) for a in (q, k, v))
+    of, dof = (a.to(torch.float32).transpose(1, 2) for a in (o, do))
+    s = torch.einsum("bhid,bhjd->bhij", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhid,bhjd->bhij", dof, vf)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    return qf, kf, dof, p, p * (dp - delta) * scale
+
+
+def flash_bwd_dq_reference(q, k, v, o, do, lse, scale: float) -> torch.Tensor:
+    """Plain version of the dq pass: dq = ds.k, (B, H, T, D) in q's dtype.
+    ``o`` and ``do`` are (B, T, H, D); ``lse`` is (B, H, T) f32."""
+    _, kf, _, _, ds = _bwd_terms(q, k, v, o, do, lse, scale)
+    return torch.einsum("bhij,bhjd->bhid", ds, kf).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, o, do, lse, scale: float):
+    """Plain version of the dk/dv pass: dk = ds^T.q, dv = p^T.do, both
+    (B, H, T, D) in k's and v's dtype."""
+    qf, _, dof, p, ds = _bwd_terms(q, k, v, o, do, lse, scale)
+    dk = torch.einsum("bhij,bhid->bhjd", ds, qf).to(k.dtype)
+    dv = torch.einsum("bhij,bhid->bhjd", p, dof).to(v.dtype)
+    return dk, dv
+
+
+# --------------------------------------------------------------------------
+# kernels
+# --------------------------------------------------------------------------
+
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library(name: str) -> ctypes.CDLL:
     from .build import load_library
 
-    lib = load_library("mhsa_fwd")
-    lib.mhsa_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    lib.mhsa_fwd.restype = ctypes.c_int
-    lib.mhsa_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.mhsa_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib = load_library(name)
+    entry = getattr(lib, name)
+    entry.argtypes = [ctypes.c_void_p] * _POINTERS[name] + [ctypes.c_int] * 4 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    smem = getattr(lib, f"{name}_smem_bytes")
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.restype = ctypes.c_longlong
     return lib
+
+
+def _launch(name: str, pointers, q: torch.Tensor, scale: float) -> None:
+    """Launch kernel ``name`` on q's device and current stream; raises if
+    the shape needs too much shared memory or the launch fails."""
+    B, H, T, D = q.shape
+    lib = _library(name)
+    smem = getattr(lib, f"{name}_smem_bytes")(T, D)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{name} at T={T}, D={D} needs {smem} bytes of shared memory, "
+            f"over the {MAX_SMEM_BYTES} a block may use")
+    with torch.cuda.device(q.device):
+        err = getattr(lib, name)(
+            *(None if t is None else t.data_ptr() for t in pointers),
+            B, H, T, D, float(scale), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -56,43 +146,117 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{q.device}, {k.device}, {v.device}")
     if min(q.shape) < 1:
         raise ValueError(f"empty shape {tuple(q.shape)}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no fused_attention for device {q.device}")
+
+
+def _check_bwd(q, k, v, o, do, lse) -> None:
+    _check(q, k, v)
+    B, H, T, D = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != (B, T, H, D) or t.dtype != q.dtype \
+                or t.device != q.device:
+            raise ValueError(
+                f"{name} must be {(B, T, H, D)} {q.dtype} on {q.device}, got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if lse.shape != (B, H, T) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"lse must be {(B, H, T)} float32 on {q.device}, "
+                         f"got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
+
+
+def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float):
+    """Training forward: (B, H, T, D)^3 -> (out (B, T, H, D), lse (B, H, T)
+    f32).  Launches counted in ``fused_attention_lse.launches``."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return fused_attention_lse_reference(q, k, v, scale)
+    q, k, v = (a.contiguous() for a in (q, k, v))
+    B, H, T, D = q.shape
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    _launch("mhsa_fwd", (q, k, v, out, lse), q, scale)
+    fused_attention_lse.launches += 1
+    return out, lse
+
+
+def flash_bwd_dq(q, k, v, o, do, lse, scale: float) -> torch.Tensor:
+    """dq of the fused attention, (B, H, T, D) in q's dtype.  Launches
+    counted in ``flash_bwd_dq.launches``."""
+    _check_bwd(q, k, v, o, do, lse)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, o, do, lse, scale)
+    q, k, v, o, do, lse = (a.contiguous() for a in (q, k, v, o, do, lse))
+    dq = torch.empty_like(q)
+    _launch("mhsa_bwd_dq", (q, k, v, o, do, lse, dq), q, scale)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, o, do, lse, scale: float):
+    """(dk, dv) of the fused attention, each (B, H, T, D) in the input
+    dtype.  Launches counted in ``flash_bwd_dkv.launches``."""
+    _check_bwd(q, k, v, o, do, lse)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, o, do, lse, scale)
+    q, k, v, o, do, lse = (a.contiguous() for a in (q, k, v, o, do, lse))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("mhsa_bwd_dkv", (q, k, v, o, do, lse, dk, dv), q, scale)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class FusedAttentionFunction(torch.autograd.Function):
+    """The custom VJP of ``fused_attention``: the forward saves exactly
+    (q, k, v, out, lse); the backward runs the dq pass, then the dk/dv
+    pass.  ``scale`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        q, k, v = (a.contiguous() for a in (q, k, v))
+        out, lse = fused_attention_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq = flash_bwd_dq(q, k, v, out, g, lse, ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, out, g, lse, ctx.scale)
+        return dq, dk, dv, None
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """(B, H, T, D)^3 -> (B, T, H, D) attention context.
 
-    CPU tensors go to the plain version; CUDA tensors to the kernel, whose
-    launches are counted in ``fused_attention.launches``.
+    Where a gradient is needed: :class:`FusedAttentionFunction`.  Otherwise
+    CPU tensors go to the plain version and CUDA tensors to the inference
+    kernel, whose launches are counted in ``fused_attention.launches``.
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no fused_attention for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError(
-            "fused_attention has no backward on CUDA yet: backward kernels "
-            "are ported with training; run inference under torch.no_grad()")
+        return FusedAttentionFunction.apply(q, k, v, scale)
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, k, v, scale)
     q, k, v = (a.contiguous() for a in (q, k, v))
     B, H, T, D = q.shape
-    lib = _library()
-    smem = lib.mhsa_fwd_smem_bytes(T, D)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"fused_attention at T={T}, D={D} needs {smem} bytes of shared "
-            f"memory, over the {MAX_SMEM_BYTES} a block may use")
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.mhsa_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), B, H, T, D, float(scale),
-                           _DTYPE_CODES[q.dtype],
-                           torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"mhsa_fwd launch failed: cudaError {err}")
+    _launch("mhsa_fwd", (q, k, v, out, None), q, scale)
     fused_attention.launches += 1
     return out
 
 
-fused_attention.launches = 0
+for _wrapper in (fused_attention, fused_attention_lse, flash_bwd_dq,
+                 flash_bwd_dkv):
+    _wrapper.launches = 0
+del _wrapper
+
+# the launch counters of every kernel wrapper, by kernel name
+KERNEL_WRAPPERS = {"mhsa_fwd": fused_attention,
+                   "mhsa_fwd_lse": fused_attention_lse,
+                   "mhsa_bwd_dq": flash_bwd_dq,
+                   "mhsa_bwd_dkv": flash_bwd_dkv}

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  It is
-compiled by ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the
-root of the checkout, under a name keyed by a hash of the source and the
-flags, so a stale library is never loaded.  Nothing is built at import time:
-the CPU-only test machine has no ``nvcc``.
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface (the
+headers ``csrc/*.cuh`` it includes are shared).  It is compiled by ``nvcc``
+for Hopper (``sm_90a``) into ``build/kernels/`` at the root of the checkout,
+under a name keyed by a hash of the source, the headers and the flags, so a
+stale library is never loaded.  :func:`build_libraries` starts one ``nvcc``
+per source, all at once.  Nothing is built at import time: the CPU-only test
+machine has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -41,28 +43,45 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives: keyed by a
-    hash of the source and the compiler flags."""
+    hash of the source, the shared headers and the compiler flags."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-@functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it.
-
-    The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside the library as ``<library>.log``.
-    """
-    lib = library_path(name)
-    if not lib.exists():
+def build_libraries(names) -> None:
+    """Compile every missing library of ``names``, one ``nvcc`` each, all
+    started together.  The compiler's report (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside each library as
+    ``<library>.log``."""
+    jobs = []
+    for name in dict.fromkeys(names):
+        lib = library_path(name)
+        if lib.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{res.stderr}")
-        os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
-    return ctypes.CDLL(str(lib))
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, lib, tmp, proc))
+    failed = []
+    for name, lib, tmp, proc in jobs:
+        report, _ = proc.communicate()
+        lib.with_suffix(".log").write_text(report)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{report}")
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
+    build_libraries([name])
+    return ctypes.CDLL(str(library_path(name)))

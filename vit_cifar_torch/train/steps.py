@@ -1,0 +1,166 @@
+"""The train and eval steps, as ``vit_cifar_tpu/train/steps.py``.
+
+The dataset is resident on the device as uint8; a step receives the
+epoch's permutation and its index in the epoch, gathers its batch, and
+augments it on the device: random crop/flip -> normalize -> CutMix, or
+MixUp behind the p=0.8 gate -> cast to the compute dtype.  Then the forward
+in training mode, the lambda-mixed criterion, the backward, the non-finite
+guard and the optimizer update on the flat parameter vector.  Metrics stay
+on the device; no step reads anything back to the host.
+
+Parity details (reference network.py:149-220, 388-395):
+  * mixup is applied with probability 0.8; otherwise lambda=1 and the
+    random label is all zeros, without data-dependent control flow;
+  * mixed loss = lam * CE(out, y) + (1 - lam) * CE(out, y_rand);
+  * accuracy is measured against the original labels;
+  * the guard skips a step whose loss or any gradient is not finite: the
+    parameters, both moments and the optimizer's count (hence the lr) keep
+    their old values.
+
+The batch is a seam: ``train_step.make_batch`` gathers and augments, and
+``train_step.on_batch`` trains on a batch it is handed, so a test can feed
+it the JAX package's augmented batch.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..config import Config, torch_dtype
+from ..data import augment
+from .losses import make_criterion, make_per_example_loss
+from .optim import FlatOptimizer
+from .state import TrainState
+
+_ZOO_ITEM = "ROADMAP queue 1, item 7 (zoo mixers)"
+_AA_ITEM = "ROADMAP queue 1, item 4 (augmentation with AutoAugment)"
+
+
+def _check_supported(cfg: Config) -> None:
+    """The branches of the JAX step that the port has no model for yet."""
+    zoo = {
+        "AE models and the aece criterion": cfg.model_name.startswith("ae")
+        or cfg.criterion == "aece",
+        "unsupervised AE steps": cfg.unsupervised_steps > 0,
+        "MoE": cfg.moe_experts > 0,
+        "NNMF layers": cfg.use_nnmf_layers or cfg.model_name.startswith(
+            "gnnmf"),
+    }
+    for what, on in zoo.items():
+        if on:
+            raise NotImplementedError(
+                f"the train step for {what} is not ported to torch yet: "
+                f"{_ZOO_ITEM}")
+    for flag in ("autoaugment", "rcpaste", "preaugment_epoch"):
+        if getattr(cfg, flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported to torch yet: "
+                f"{_AA_ITEM}")
+
+
+def make_metrics_zeros(cfg: Config, device=None) -> dict[str, torch.Tensor]:
+    """Zero accumulator matching the train step's metrics."""
+    names = ["loss", "acc"] + (["skipped_nonfinite"]
+                               if cfg.nonfinite_guard else [])
+    return {n: torch.zeros((), dtype=torch.float32, device=device)
+            for n in names}
+
+
+def make_train_step(cfg: Config, model, tx: FlatOptimizer) -> Callable:
+    """``train_step(state, x_all, y_all, perm, i) -> (state, metrics)``.
+
+    ``x_all`` (N, H, W, C) uint8 and ``y_all`` (N,) are the dataset on the
+    device, ``perm`` the epoch's permutation (on the device) and ``i`` the
+    step's index in the epoch.  ``state`` (whose ``model`` is ``model``)
+    is updated in place and returned.
+    """
+    _check_supported(cfg)
+    criterion = make_criterion(cfg)
+    dtype = torch_dtype(cfg)
+    B = cfg.batch_size
+
+    def make_batch(state: TrainState, x_all, y_all, perm, i: int):
+        """Gather and augment step ``i``'s batch: (img in the compute
+        dtype, label, rand_label or None, lam or None)."""
+        gen = state.generator
+        idx = perm[i * B:(i + 1) * B]
+        img, label = x_all.index_select(0, idx), y_all.index_select(0, idx)
+        img = augment.random_crop_flip(gen, img, cfg.padding,
+                                       flip=cfg.dataset != "svhn")
+        img = augment.normalize(img, cfg.mean, cfg.std)
+        rand_label = lam = None
+        if cfg.cutmix:
+            img, label, rand_label, lam = augment.cutmix(gen, img, label,
+                                                         cfg.img_size)
+        elif cfg.mixup:
+            mixed, _, rand_m, lam_m = augment.mixup(gen, img, label)
+            gate = augment.uniform(gen) <= 0.8
+            img = torch.where(gate, mixed, img)
+            rand_label = torch.where(gate, rand_m, torch.zeros_like(label))
+            lam = torch.where(gate, lam_m, torch.ones_like(lam_m))
+        return img.to(dtype), label, rand_label, lam
+
+    def on_batch(state: TrainState, img, label, rand_label=None, lam=None):
+        """Forward, loss, backward, guard and update on a given batch."""
+        params = list(model.parameters())
+        logits = model(img, deterministic=False, generator=state.generator)
+        loss = criterion(logits, label)
+        if rand_label is not None:
+            loss = loss * lam + criterion(logits, rand_label) * (1.0 - lam)
+        grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
+        with torch.no_grad():
+            flat_g = torch.cat([g.reshape(-1) for g in grads])
+            del grads
+            if cfg.nonfinite_guard:
+                ok = torch.isfinite(loss) & torch.isfinite(flat_g).all()
+                flat_g = torch.where(ok, flat_g, torch.zeros_like(flat_g))
+            updates, opt_state = tx.update(flat_g, state.opt_state,
+                                           state.params)
+            new_params = state.params + updates
+            metrics = {"loss": loss,
+                       "acc": (logits.argmax(-1) == label).float().mean()}
+            if cfg.nonfinite_guard:
+                # zeroed grads still move the moments and the count: keep
+                # the old state entirely on a skipped step
+                new_params = torch.where(ok, new_params, state.params)
+                opt_state = {k: torch.where(ok, v, state.opt_state[k])
+                             for k, v in opt_state.items()}
+                metrics["skipped_nonfinite"] = 1.0 - ok.float()
+            state.params.copy_(new_params)  # the model's weights are views
+            state.opt_state = opt_state
+            if state.metrics_acc is not None:
+                state.metrics_acc = {k: a + metrics[k].to(a.dtype)
+                                     for k, a in state.metrics_acc.items()}
+        state.step += 1
+        return state, metrics
+
+    def train_step(state: TrainState, x_all, y_all, perm, i: int):
+        return on_batch(state, *make_batch(state, x_all, y_all, perm, i))
+
+    train_step.make_batch = make_batch
+    train_step.on_batch = on_batch
+    return train_step
+
+
+def make_eval_step(cfg: Config, model) -> Callable:
+    """``eval_step(img_u8, label, mask) -> {loss_sum, correct_sum, count}``,
+    masked sums over one batch on the device, from ``model``'s current
+    weights, with no gradient (the inference kernel)."""
+    per_example_loss = make_per_example_loss(cfg)
+    dtype = torch_dtype(cfg)
+
+    @torch.no_grad()
+    def eval_step(img, label, mask):
+        x = augment.normalize(img, cfg.mean, cfg.std).to(dtype)
+        logits = model(x, deterministic=True)
+        per_ex = per_example_loss(logits, label)
+        correct = (logits.argmax(-1) == label).to(torch.float32)
+        m = mask.to(torch.float32)
+        return {"loss_sum": torch.sum(per_ex * m),
+                "correct_sum": torch.sum(correct * m),
+                "count": torch.sum(m)}
+
+    return eval_step
