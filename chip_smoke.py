@@ -28,6 +28,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    batches of 256) must reach val accuracy >= 0.5 with the inference kernel
    launched 7 times a batch.  Prints the step time, img/s and the device's
    busy share (torch.profiler).
+4. Flash kernel phase: the tiled kernels (inference forward, forward with
+   logsumexp, tiled dq, tiled dk/dv) and the autograd Function's gradients
+   against their plain versions, at the pixel-token ViT's shape
+   (128, 12, 1025, 32), the flagship's (128, 12, 65, 32) forced through
+   them, the JAX flash tests' tile-splitting shapes and one long sequence
+   (8, 1, 4096, 128), in f32 and bf16; times each kernel and its plain
+   version at the pixel shape, and ``F.scaled_dot_product_attention`` as
+   the library's yardstick (timed only; the port never calls it).  Then
+   times each whole-head kernel against its tiled counterpart at
+   (128, 12, T, 32) bf16 for T = 65, 257 and 685.
+5. Pixel serving phase: the same serving path for the README recipe model
+   at ``patch=32`` (one pixel a token, T=1025, 6,620,170 params); each
+   request must launch the tiled forward 7 times and no whole-head kernel,
+   and match the plain-attention forward.
+6. Pixel training phase: that model at B=128 (bf16-mixed, label smoothing,
+   ``warmup_epoch=0``, synthetic c10 on the card): one step's loss and
+   gradients at B=8 against the plain-attention model, then 20 steps with
+   each training flash kernel launched 7 times a step, finite and falling
+   losses, eval over 4 padded batches of 256, the step time, img/s, the
+   device's busy share and its top ops (torch.profiler over 5 steps).
+
+Every kernel is held against its plain version, and the counts of launches
+of each path are set to 0 just before it and read just after.  The bound
+of a kernel (``bound_ms``) is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its operations: its products
+over the bf16 tensor-core peak (989 TFLOP/s) and its exps over the
+special-function units' peak (16 a clock on each of 132 SMs at 1.98 GHz).
 
 Prints the card's name and power limit, every check and time, then a JSON
 line of the kernels and, last, ``{"ok": true, "device": {...}}``.  Any
@@ -51,6 +78,7 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vit_cifar_torch import Config, torch_dtype
 from vit_cifar_torch.data.augment import normalize
@@ -58,11 +86,17 @@ from vit_cifar_torch.data.datasets import load_dataset
 from vit_cifar_torch.deploy import (ServingModel, export_inference,
                                     make_http_server)
 from vit_cifar_torch.models import get_model
+from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.ops.cuda.attention import (
-    KERNEL_WRAPPERS, flash_bwd_dkv, flash_bwd_dkv_reference, flash_bwd_dq,
+    flash_bwd_dkv, flash_bwd_dkv_reference, flash_bwd_dq,
     flash_bwd_dq_reference, fused_attention, fused_attention_lse,
     fused_attention_lse_reference, fused_attention_reference)
 from vit_cifar_torch.ops.cuda.build import build_libraries, library_path
+from vit_cifar_torch.ops.cuda.flash_attention import (
+    flash_attention, flash_attention_lse, flash_attention_lse_reference,
+    flash_attention_reference, flash_tiled_bwd_dkv,
+    flash_tiled_bwd_dkv_reference, flash_tiled_bwd_dq,
+    flash_tiled_bwd_dq_reference)
 from vit_cifar_torch.train.checkpoint import save_checkpoint
 from vit_cifar_torch.train.loop import _pad_eval, init_state
 from vit_cifar_torch.train.losses import make_criterion
@@ -88,6 +122,13 @@ BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
 # f32 probabilities (measured on the CPU: at most 4e-3 at these shapes)
 GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# the flash phase's bf16 limits, as a fraction of the reference's largest
+# magnitude: kernel and plain version round one f32 value to bf16, so they
+# differ by at most one bf16 step, 2**-7 (0.78%) of a value; the Function's
+# grads read the kernel's rounded output where the plain passes read the
+# plain forward's, hence 2%.  A fixed atol would not follow the values: at
+# T=1025 they are about 4x smaller than at T=65 (|out| ~0.03, |dq| ~0.01)
+FLASH_BF16_FRACTION = {"fwd": 1e-2, "bwd": 1e-2, "grad": 2e-2}
 # one full-width bf16 training step, kernel path vs the plain-attention
 # (einsum) path from the same weights and batch: the einsum path rounds
 # logits and probabilities to bf16, the kernels keep them in f32.  Measured
@@ -95,15 +136,34 @@ GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
 # (relative L2); the bounds leave a 6x margin or more
 STEP_LOSS_ATOL = 1e-2
 STEP_GRAD_REL_L2 = 2e-2
-KERNELS = ("mhsa_fwd", "mhsa_bwd_dq", "mhsa_bwd_dkv")
+KERNELS = ("mhsa_fwd", "mhsa_bwd_dq", "mhsa_bwd_dkv", "flash_fwd",
+           "flash_bwd_dq", "flash_bwd_dkv")
 REPLACES = {
     "mhsa_fwd": "vit_cifar_tpu/ops/pallas/attention.py:90",
     "mhsa_fwd_lse": "vit_cifar_tpu/ops/pallas/attention.py:90",
     "mhsa_bwd_dq": "vit_cifar_tpu/ops/pallas/attention.py:338",
     "mhsa_bwd_dkv": "vit_cifar_tpu/ops/pallas/attention.py:383",
+    "flash_fwd": "vit_cifar_tpu/ops/pallas/attention.py:203",
+    "flash_fwd_lse": "vit_cifar_tpu/ops/pallas/attention.py:203",
+    "flash_bwd_dq_tiled": "vit_cifar_tpu/ops/pallas/attention.py:338",
+    "flash_bwd_dkv_tiled": "vit_cifar_tpu/ops/pallas/attention.py:383",
 }
 SOURCES = {"mhsa_fwd": "mhsa_fwd", "mhsa_fwd_lse": "mhsa_fwd",
-           "mhsa_bwd_dq": "mhsa_bwd_dq", "mhsa_bwd_dkv": "mhsa_bwd_dkv"}
+           "mhsa_bwd_dq": "mhsa_bwd_dq", "mhsa_bwd_dkv": "mhsa_bwd_dkv",
+           "flash_fwd": "flash_fwd", "flash_fwd_lse": "flash_fwd",
+           "flash_bwd_dq_tiled": "flash_bwd_dq",
+           "flash_bwd_dkv_tiled": "flash_bwd_dkv"}
+# what each kernel computes, for its bound: "fwd" (two T x T x D products,
+# q, k, v in and o out), "fwd_lse" (the same and lse out), "dq" (three
+# products; q, k, v, o, do and lse in, dq out), "dkv" (four products; dk
+# and dv out)
+KERNEL_WORK = {"mhsa_fwd": "fwd", "mhsa_fwd_lse": "fwd_lse",
+               "mhsa_bwd_dq": "dq", "mhsa_bwd_dkv": "dkv", "flash_fwd": "fwd",
+               "flash_fwd_lse": "fwd_lse", "flash_bwd_dq_tiled": "dq",
+               "flash_bwd_dkv_tiled": "dkv"}
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+BF16_FLOP_PER_S = 989e12    # H100 SXM tensor cores, dense bf16
+EXP_PER_S = 132 * 16 * 1.98e9  # special-function units: 16/clk/SM, boost
 TRAIN_STEPS = 390  # one epoch of c10 at batch 128
 MIN_VAL_ACC = 0.5
 # served logits (kernel path) vs the plain path in bf16-mixed: the plain
@@ -112,6 +172,21 @@ MIN_VAL_ACC = 0.5
 LOGIT_TOL = dict(rtol=5e-2, atol=5e-2)
 REQUESTS = [("npy", 1), ("npy", 8), ("npy", 128), ("json", 4)]
 PARAMS = 6_268_810
+# the pixel-token ViT: the README recipe at patch=32, one pixel a token
+PIXEL_PARAMS = 6_620_170
+PIXEL_SHAPE = (128, 12, 1025, 32)
+# the flash kernels' shapes: the pixel model's, the flagship's forced
+# through them, the JAX flash tests' tile-splitting shapes, a long sequence
+FLASH_SHAPES = [PIXEL_SHAPE, (128, 12, 65, 32), (2, 3, 65, 32),
+                (1, 2, 130, 64), (2, 2, 257, 128), (1, 1, 8, 128),
+                (1, 2, 300, 32), (8, 1, 4096, 128)]
+PIXEL_STEPS = 20
+PIXEL_STEP_BATCH = 8  # the einsum path's (B, H, T, T) tensors bound it
+PIXEL_REQUESTS = (1, 32)
+PIXEL_EVAL_IMAGES = 1000  # 4 padded batches of 256
+# where the whole-head kernels are timed against the tiled ones: the
+# flagship's T, and up to the longest T the whole-head kernels train at
+ROUTE_T = (65, 257, 685)
 
 
 def card_line() -> str:
@@ -163,17 +238,86 @@ def build_kernels() -> None:
                 print("    ptxas:", line.strip())
 
 
-def in_turns(fns: dict, rounds: int = 3) -> dict:
+def in_turns(fns: dict, rounds: int = 3, iters: int = 100) -> dict:
     """Median ms of each of two functions, timed in turns A, B, B, A."""
     a, b = fns
     times = {a: [], b: []}
     for _ in range(rounds):
         for name in (a, b, b, a):
-            times[name].append(cuda_ms(fns[name]))
+            times[name].append(cuda_ms(fns[name], iters, min(10, iters)))
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def kernel_phase(card: str) -> dict:
+def bound(name: str, shape) -> dict:
+    """The least time the card could take for kernel ``name``'s work at
+    (B, H, T, D) in bf16: the larger of its bytes over the memory rate and
+    its operations (products on the tensor cores, exps on the
+    special-function units) over their peaks."""
+    B, H, T, D = shape
+    work = KERNEL_WORK[name]
+    n, rows = 2 * B * H * T * D, 4 * B * H * T  # bytes of a bf16 tensor, lse
+    product = 2 * B * H * T * T * D  # one T x T x D product, in FLOP
+    moved = {"fwd": 4 * n, "fwd_lse": 4 * n + rows, "dq": 6 * n + rows,
+             "dkv": 7 * n + rows}[work]
+    flops = {"fwd": 2, "fwd_lse": 2, "dq": 3, "dkv": 4}[work] * product
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = max(flops / BF16_FLOP_PER_S, B * H * T * T / EXP_PER_S)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def device_kernels(fn) -> str:
+    """The device kernels one call of ``fn`` runs, by device time: the
+    backend a library call took."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [a for a in prof.key_averages()
+               if a.self_device_time_total > 0 and a.self_cpu_time_total == 0]
+    kernels.sort(key=lambda a: a.self_device_time_total, reverse=True)
+    return "; ".join(a.key[:80] for a in kernels[:3])
+
+
+def library_ms(shape, gen, iters: int, card: str) -> dict:
+    """ms of the library's calls on bf16 (B, H, T, D) inputs, timed here
+    and called nowhere in the port: ``F.scaled_dot_product_attention``
+    forward ("fwd") and forward plus backward ("fwd+bwd"), and
+    ``aten._scaled_dot_product_flash_attention`` ("fwd_lse"), the forward
+    that also returns the (B, H, T) f32 logsumexp.  Prints each call's
+    kernels (its backend) and how far its lse is from the plain
+    version's."""
+    B, H, T, D = shape
+    scale = 1.0 / math.sqrt(H * D)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    calls = {
+        "fwd": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+        "fwd+bwd": lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves, scale=scale), leaves, g),
+        "fwd_lse": lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            q, k, v, scale=scale)[:2],
+    }
+    ms = {name: cuda_ms(fn, iters, min(10, iters))
+          for name, fn in calls.items()}
+    lse = calls["fwd_lse"]()[1]
+    want = flash_attention_lse_reference(q, k, v, scale)[1]
+    lse_err = (lse.float() - want).abs().max().item() \
+        if lse.shape == want.shape else f"shape {tuple(lse.shape)}"
+    for name, fn in calls.items():
+        print(f"library {name} {shape} bf16: {ms[name]:.4f} ms (windows of "
+              f"{iters}; {card}); kernels: {device_kernels(fn)}")
+    print(f"library lse vs the plain version's: max_abs_err {lse_err}")
+    return ms
+
+
+def kernel_phase(card: str) -> tuple[dict, dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_err = None
     for shape in SHAPES:
@@ -209,11 +353,23 @@ def kernel_phase(card: str) -> dict:
         print(f"fused attention fwd {SHAPES[0]} bf16, {name}: "
               f"{ms[name]:.4f} ms (median of {len(times[name])} windows of "
               f"100; {card})")
+    library = library_ms(SHAPES[0], gen, 100, card)
     return {"name": "mhsa_fwd", "route": "cuda",
             "source": "vit_cifar_torch/csrc/mhsa_fwd.cu",
             "replaces": "vit_cifar_tpu/ops/pallas/attention.py:90",
             "max_abs_err": main_err, "ms": ms["kernel"],
-            "plain_ms": ms["plain"]}
+            "plain_ms": ms["plain"], **bound("mhsa_fwd", SHAPES[0]),
+            "library_ms": library["fwd"]}, library
+
+
+def flash_tol(kind: str, dtype, want: torch.Tensor) -> dict:
+    """The flash phase's limit for ``kind`` ("fwd", "bwd" or "grad"):
+    f32 as the earlier phases; bf16 a fraction of max |want|."""
+    if dtype == torch.float32:
+        return {"fwd": KERNEL_TOL, "bwd": BWD_TOL,
+                "grad": GRAD_TOL}[kind][dtype]
+    return dict(rtol=0.0, atol=FLASH_BF16_FRACTION[kind]
+                * want.float().abs().max().item())
 
 
 def _max_err(got, want) -> float:
@@ -221,9 +377,10 @@ def _max_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
-def training_kernel_phase(card: str) -> list[dict]:
+def training_kernel_phase(card: str, library: dict) -> list[dict]:
     """The forward with lse, dq and dk/dv kernels against their plain
-    versions, the Function against autograd, and their times."""
+    versions, the Function against autograd, and their times; ``library``
+    holds the library's times at the model's shape."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
     for shape in SHAPES:
@@ -304,11 +461,13 @@ def training_kernel_phase(card: str) -> list[dict]:
               f"plain {ms['plain']:.4f} ms (median of 6 windows of 100; "
               f"{card})")
         if name in REPLACES:
+            # no one PyTorch call computes dq or dk/dv alone
             rows.append({"name": name, "route": "cuda",
                          "source": f"vit_cifar_torch/csrc/{SOURCES[name]}.cu",
                          "replaces": REPLACES[name],
                          "max_abs_err": errs[name], "ms": ms["kernel"],
-                         "plain_ms": ms["plain"]})
+                         "plain_ms": ms["plain"], **bound(name, SHAPES[0]),
+                         "library_ms": library.get(KERNEL_WORK[name])})
     return rows
 
 
@@ -400,8 +559,10 @@ def training_phase(card: str) -> dict:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t_start) * 1e3 / (TRAIN_STEPS - warm)
     train_launches = {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
-    want = {"mhsa_fwd": 0, "mhsa_fwd_lse": cfg.num_layers,
-            "mhsa_bwd_dq": cfg.num_layers, "mhsa_bwd_dkv": cfg.num_layers}
+    want = {n: 0 for n in KERNEL_WRAPPERS}
+    want.update({"mhsa_fwd_lse": cfg.num_layers,
+                 "mhsa_bwd_dq": cfg.num_layers,
+                 "mhsa_bwd_dkv": cfg.num_layers})
     if first != want or train_launches != {
             n: c * TRAIN_STEPS for n, c in want.items()}:
         raise AssertionError(f"launches: first step {first}, epoch "
@@ -451,16 +612,25 @@ def training_phase(card: str) -> dict:
         raise AssertionError(f"val_acc {val_acc} under {MIN_VAL_ACC}")
 
     # device busy share and top device ops over 20 more steps
+    profile_steps(lambda i: train_step(state, x_train, y_train, perm, i), 20,
+                  "train_trace.json", step_ms, card)
+    return launches
+
+
+def profile_steps(step, n_prof: int, trace_name: str, step_ms: float,
+                  card: str) -> None:
+    """Run ``step(i)`` ``n_prof`` times under torch.profiler; print the
+    device activity a step, the busy share against the unprofiled
+    ``step_ms`` and the top device kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    n_prof = 20
-    trace = os.path.join(WORK, "train_trace.json")
+    trace = os.path.join(WORK, trace_name)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n_prof):
-            state, _ = train_step(state, x_train, y_train, perm, i)
+            step(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     prof.export_chrome_trace(trace)
@@ -478,7 +648,6 @@ def training_phase(card: str) -> dict:
     for a in kernels[:12]:
         print(f"  {a.self_device_time_total / 1e3 / n_prof:8.4f} ms/step "
               f"{a.count / n_prof:6.1f}x/step  {a.key[:90]}")
-    return launches
 
 
 def _post(url: str, kind: str, imgs: np.ndarray) -> dict:
@@ -597,6 +766,374 @@ def serving_phase(card: str) -> int:
     return launches
 
 
+def flash_kernel_phase(card: str) -> list[dict]:
+    """The tiled kernels and the Function against their plain versions at
+    every shape of ``FLASH_SHAPES`` in f32 and bf16, then their times, and
+    the library's, at the pixel model's shape in bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errs = {}
+    for shape in FLASH_SHAPES:
+        B, H, T, D = shape
+        scale = 1.0 / math.sqrt(H * D)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(3))
+            g = torch.randn((B, T, H, D), generator=gen,
+                            device="cuda").to(dtype)
+            inference = flash_attention(q, k, v, scale)
+            out, lse = flash_attention_lse(q, k, v, scale)
+            want_out, want_lse = flash_attention_lse_reference(q, k, v, scale)
+            # each backward kernel reads the plain forward's out and lse, so
+            # that it is held against its plain version on equal inputs
+            args = (q, k, v, want_out, g, want_lse, scale)
+            dq = flash_tiled_bwd_dq(*args)
+            dk, dv = flash_tiled_bwd_dkv(*args)
+            want = (flash_tiled_bwd_dq_reference(*args),
+                    *flash_tiled_bwd_dkv_reference(*args))
+            # the Function's plain version is the plain forward, then the
+            # plain passes: ``want``
+            leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+            fn_grads = torch.autograd.grad(flash_attention(*leaves, scale),
+                                           leaves, g)
+            del leaves
+            torch.cuda.synchronize()
+            tol = {"fwd": flash_tol("fwd", dtype, want_out),
+                   "bwd": [flash_tol("bwd", dtype, w) for w in want],
+                   "grad": [flash_tol("grad", dtype, w) for w in want]}
+            torch.testing.assert_close(inference, want_out, **tol["fwd"])
+            torch.testing.assert_close(out, want_out, **tol["fwd"])
+            torch.testing.assert_close(lse, want_lse,
+                                       **KERNEL_TOL[torch.float32])
+            for got, w, t in zip((dq, dk, dv), want, tol["bwd"]):
+                torch.testing.assert_close(got, w, **t)
+            for got, w, t in zip(fn_grads, want, tol["grad"]):
+                torch.testing.assert_close(got, w, **t)
+            e = {"flash_fwd": _max_err((inference,), (want_out,)),
+                 "flash_fwd_lse": _max_err((out, lse), (want_out, want_lse)),
+                 "flash_bwd_dq_tiled": _max_err((dq,), want[:1]),
+                 "flash_bwd_dkv_tiled": _max_err((dk, dv), want[1:]),
+                 "function": _max_err(fn_grads, want)}
+            print(f"flash kernels {shape} {str(dtype)[6:]}: max_abs_err "
+                  + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
+                  + f" (atol: fwd {tol['fwd']['atol']:.3e}, dq/dk/dv "
+                  + "/".join(f"{t['atol']:.3e}" for t in tol["bwd"])
+                  + ", Function "
+                  + "/".join(f"{t['atol']:.3e}" for t in tol["grad"])
+                  + f"; rtol {tol['fwd']['rtol']}, {tol['bwd'][0]['rtol']},"
+                  f" {tol['grad'][0]['rtol']})")
+            if shape == PIXEL_SHAPE and dtype == torch.bfloat16:
+                errs = e
+            del q, k, v, g, inference, out, lse, want_out, want_lse, args, \
+                dq, dk, dv, want, fn_grads, tol
+        torch.cuda.empty_cache()
+
+    # the pixel model's shape in bf16, each kernel against its plain
+    # version in turns; a launch takes tens of ms, so windows of 3
+    B, H, T, D = PIXEL_SHAPE
+    scale = 1.0 / math.sqrt(H * D)
+    q, k, v = (torch.randn(PIXEL_SHAPE, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    g = torch.randn((B, T, H, D), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    out, lse = flash_attention_lse_reference(q, k, v, scale)
+    args = (q, k, v, out, g, lse, scale)
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+
+    def plain_fwd_bwd():
+        o, l = flash_attention_lse_reference(q, k, v, scale)
+        flash_tiled_bwd_dq_reference(q, k, v, o, g, l, scale)
+        flash_tiled_bwd_dkv_reference(q, k, v, o, g, l, scale)
+
+    pairs = {
+        "flash_fwd": (lambda: flash_attention(q, k, v, scale),
+                      lambda: flash_attention_reference(q, k, v, scale)),
+        "flash_fwd_lse": (lambda: flash_attention_lse(q, k, v, scale),
+                          lambda: flash_attention_lse_reference(q, k, v,
+                                                                scale)),
+        "flash_bwd_dq_tiled": (lambda: flash_tiled_bwd_dq(*args),
+                               lambda: flash_tiled_bwd_dq_reference(*args)),
+        "flash_bwd_dkv_tiled": (lambda: flash_tiled_bwd_dkv(*args),
+                                lambda: flash_tiled_bwd_dkv_reference(*args)),
+        "flash attention fwd+bwd": (
+            lambda: torch.autograd.grad(flash_attention(*leaves, scale),
+                                        leaves, g),
+            plain_fwd_bwd),
+    }
+    library = library_ms(PIXEL_SHAPE, gen, 10, card)
+    rows = []
+    for name, (kernel, plain) in pairs.items():
+        ms = in_turns({"kernel": kernel, "plain": plain}, rounds=2, iters=3)
+        line = (f"{name} {PIXEL_SHAPE} bf16: kernel {ms['kernel']:.4f} ms, "
+                f"plain {ms['plain']:.4f} ms (median of 4 windows of 3")
+        if name not in REPLACES:
+            print(f"{line}; SDPA fwd+bwd {library['fwd+bwd']:.4f} ms; "
+                  f"{card})")
+            continue
+        b = bound(name, PIXEL_SHAPE)
+        print(f"{line}; bound {b['bound_ms']:.4f} ms by {b['bound_by']}; "
+              f"{card})")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"vit_cifar_torch/csrc/{SOURCES[name]}.cu",
+                     "replaces": REPLACES[name], "max_abs_err": errs[name],
+                     "ms": ms["kernel"], "plain_ms": ms["plain"], **b,
+                     # no one PyTorch call computes dq or dk/dv alone
+                     "library_ms": library.get(KERNEL_WORK[name])})
+    return rows
+
+
+def tiled_vs_whole_head(card: str) -> None:
+    """Each whole-head kernel against its tiled counterpart, in turns, at
+    (128, 12, T, 32) bf16 for each T of ``ROUTE_T``: the measurement behind
+    ``route``'s choice of the whole-head kernels wherever they fit."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for T in ROUTE_T:
+        B, H, D = 128, 12, 32
+        scale = 1.0 / math.sqrt(H * D)
+        q, k, v = (torch.randn((B, H, T, D), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        g = torch.randn((B, T, H, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out, lse = flash_attention_lse_reference(q, k, v, scale)
+        args = (q, k, v, out, g, lse, scale)
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn(*leaves, scale), leaves, g)
+
+        pairs = {
+            "fwd": (lambda: fused_attention(q, k, v, scale),
+                    lambda: flash_attention(q, k, v, scale)),
+            "fwd_lse": (lambda: fused_attention_lse(q, k, v, scale),
+                        lambda: flash_attention_lse(q, k, v, scale)),
+            "dq": (lambda: flash_bwd_dq(*args),
+                   lambda: flash_tiled_bwd_dq(*args)),
+            "dkv": (lambda: flash_bwd_dkv(*args),
+                    lambda: flash_tiled_bwd_dkv(*args)),
+            "fwd+bwd": (fwd_bwd(fused_attention), fwd_bwd(flash_attention)),
+        }
+        iters = max(3, round(100 * (65 / T) ** 2))
+        for name, (whole, tiled) in pairs.items():
+            ms = in_turns({"whole-head": whole, "tiled": tiled}, rounds=2,
+                          iters=iters)
+            print(f"route timing ({B}, {H}, {T}, {D}) bf16 {name}: "
+                  f"whole-head {ms['whole-head']:.4f} ms, tiled "
+                  f"{ms['tiled']:.4f} ms, tiled/whole-head "
+                  f"{ms['tiled'] / ms['whole-head']:.3f} (median of 4 "
+                  f"windows of {iters}; {card})")
+        del q, k, v, g, out, lse, args, leaves, pairs
+
+
+def _pixel_cfg(**kw) -> Config:
+    """The README recipe model at patch=32: one pixel a token, T=1025."""
+    return Config(model_name="vit", num_layers=7, hidden=384, mlp_hidden=384,
+                  head=12, patch=32, **kw)
+
+
+def _launch_counts() -> dict:
+    return {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
+
+
+def pixel_serving_phase(card: str) -> dict:
+    cfg = _pixel_cfg()
+    model, _ = get_model(cfg, generator=torch.Generator().manual_seed(cfg.seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != PIXEL_PARAMS:
+        raise AssertionError(f"{n_params} params, expected {PIXEL_PARAMS}")
+    print(f"pixel model: vit, patch 32 (T=1025), 7 layers, hidden 384, 12 "
+          f"heads, {n_params} params, {cfg.precision}")
+    work = os.path.join(WORK, "pixel")
+    shutil.rmtree(work, ignore_errors=True)
+    ckpt = os.path.join(work, "ckpt")
+    save_checkpoint(ckpt, {"params": model.state_dict()}, cfg)
+    art = export_inference(ckpt, os.path.join(work, "art"), device="cuda")
+
+    plain, _ = get_model(cfg.replace(pallas_kernel="einsum"), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    plain.eval().requires_grad_(False)
+    dtype = torch_dtype(cfg)
+    rng = np.random.default_rng(1)
+    batches = [rng.integers(0, 256, (B, 32, 32, 3), dtype=np.uint8)
+               for B in PIXEL_REQUESTS]
+    want = {n: 0 for n in KERNEL_WRAPPERS}
+    want["flash_fwd"] = cfg.num_layers
+
+    srv = make_http_server(art, port=0, device="cuda")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        # the main path starts here
+        for wrapper in KERNEL_WRAPPERS.values():
+            wrapper.launches = 0
+        responses, per_request = [], []
+        for imgs in batches:
+            before = _launch_counts()
+            responses.append(_post(f"{base}/predict", "npy", imgs))
+            per_request.append({n: c - before[n]
+                                for n, c in _launch_counts().items()})
+        launches = _launch_counts()
+
+        for B, imgs, resp, n in zip(PIXEL_REQUESTS, batches, responses,
+                                    per_request):
+            logits = np.asarray(resp["logits"], np.float64)
+            if logits.shape != (B, cfg.num_classes) \
+                    or not np.isfinite(logits).all():
+                raise AssertionError(f"logits {logits.shape}, not finite")
+            if n != want:
+                raise AssertionError(f"launches for one request {n}, "
+                                     f"expected {want}")
+            with torch.inference_mode():
+                x = normalize(torch.from_numpy(imgs).cuda(), cfg.mean, cfg.std)
+                ref = plain(x.to(dtype)).float().cpu().numpy()
+            np.testing.assert_allclose(logits, ref, **LOGIT_TOL)
+            agree = float((logits.argmax(-1) == ref.argmax(-1)).mean())
+            print(f"pixel POST /predict npy B={B}: logits ({B}, 10) finite, "
+                  f"{n['flash_fwd']} launches of flash_fwd and none of "
+                  f"another kernel, max |served - plain| "
+                  f"{np.abs(logits - ref).max():.3e} within "
+                  f"rtol={LOGIT_TOL['rtol']} atol={LOGIT_TOL['atol']}, "
+                  f"top-1 agreement {agree:.3f}")
+        print(f"pixel main path: {launches['flash_fwd']} launches of "
+              f"flash_fwd over {len(PIXEL_REQUESTS)} requests")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+
+    served = ServingModel(art, device="cuda")
+    for B in (1, 128):
+        x = torch.from_numpy(rng.integers(0, 256, (B, 32, 32, 3),
+                                          dtype=np.uint8)).cuda()
+
+        def forward():
+            with torch.inference_mode():
+                served.infer(x).cpu()
+
+        print(f"pixel latency B={B}: in-process forward median "
+              f"{host_ms(forward, 10):.3f} ms (10 calls; {card})")
+    return launches
+
+
+def pixel_training_phase(card: str) -> dict:
+    cfg = _pixel_cfg(batch_size=128, label_smoothing=True, warmup_epoch=0,
+                     synthetic_data=True)
+    raw = load_dataset(cfg.dataset, cfg.data_dir, cfg.synthetic_data)
+    x_train = torch.from_numpy(raw.x_train).cuda()
+    y_train = torch.from_numpy(raw.y_train).cuda()
+    model, _ = get_model(cfg, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != PIXEL_PARAMS:
+        raise AssertionError(f"{n_params} params, expected {PIXEL_PARAMS}")
+    plain, _ = get_model(cfg.replace(pallas_kernel="einsum"), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    tx = make_optimizer(cfg, len(raw.x_train) // cfg.batch_size)
+    state = init_state(cfg, model, tx)
+    state.metrics_acc = make_metrics_zeros(cfg, "cuda")
+    train_step = make_train_step(cfg, model, tx)
+    eval_step = make_eval_step(cfg, model)
+    perm = torch.randperm(len(raw.x_train), device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(cfg.seed + 1))
+    print(f"pixel train: vit, patch 32 (T=1025), 7 layers, hidden 384, 12 "
+          f"heads, {n_params} params, {cfg.precision}, batch "
+          f"{cfg.batch_size}, label smoothing, adam lr {cfg.lr}, "
+          f"warmup_epoch 0, no AutoAugment")
+
+    # one step's loss and gradients at B=8, flash path vs plain attention:
+    # at B=128 the einsum path's saved (B, H, T, T) tensors need ~90 GB
+    img, label, _, _ = train_step.make_batch(state, x_train, y_train, perm, 0)
+    img, label = img[:PIXEL_STEP_BATCH], label[:PIXEL_STEP_BATCH]
+    criterion = make_criterion(cfg)
+
+    def loss_and_grad(m):
+        loss = criterion(m(img, deterministic=False), label)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        return loss.item(), torch.cat([g.reshape(-1) for g in grads])
+
+    loss_k, grad_k = loss_and_grad(model)
+    loss_p, grad_p = loss_and_grad(plain)
+    rel = ((grad_k - grad_p).norm() / grad_p.norm()).item()
+    print(f"pixel step at B={PIXEL_STEP_BATCH}, flash vs einsum path: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3e}, "
+          f"bound {STEP_LOSS_ATOL}); gradient relative L2 {rel:.3e} (bound "
+          f"{STEP_GRAD_REL_L2})")
+    if not (abs(loss_k - loss_p) <= STEP_LOSS_ATOL and rel <= STEP_GRAD_REL_L2):
+        raise AssertionError("flash path and einsum path disagree")
+    del plain, grad_k, grad_p
+    torch.cuda.empty_cache()
+
+    # the main path starts here
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    losses = torch.empty(PIXEL_STEPS, device="cuda")
+    warm = 3
+    for i in range(PIXEL_STEPS):
+        if i == warm:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        state, metrics = train_step(state, x_train, y_train, perm, i)
+        losses[i] = metrics["loss"]
+        if i == 0:
+            first = _launch_counts()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t_start) * 1e3 / (PIXEL_STEPS - warm)
+    train_launches = _launch_counts()
+    want = {n: 0 for n in KERNEL_WRAPPERS}
+    want.update({"flash_fwd_lse": cfg.num_layers,
+                 "flash_bwd_dq_tiled": cfg.num_layers,
+                 "flash_bwd_dkv_tiled": cfg.num_layers})
+    if first != want or train_launches != {
+            n: c * PIXEL_STEPS for n, c in want.items()}:
+        raise AssertionError(f"launches: first step {first}, all "
+                             f"{train_launches}, expected {want} a step")
+    losses = losses.cpu()
+    acc = {k: v.item() for k, v in state.metrics_acc.items()}
+    head, tail = losses[:5].mean().item(), losses[-5:].mean().item()
+    print(f"pixel train: {PIXEL_STEPS} steps, launches per step "
+          f"{ {n: c for n, c in first.items() if c} }; loss first 5 steps "
+          f"{head:.4f}, last 5 {tail:.4f}; losses "
+          + " ".join(f"{x:.4f}" for x in losses.tolist())
+          + f"; skipped {acc['skipped_nonfinite']:.0f}")
+    if not torch.isfinite(losses).all():
+        raise AssertionError("a training loss is not finite")
+    if not tail < head or acc["skipped_nonfinite"] != 0:
+        raise AssertionError("training loss did not fall")
+    print(f"pixel train step: {step_ms:.3f} ms mean over steps {warm}-"
+          f"{PIXEL_STEPS - 1} (host clock, synchronized), "
+          f"{cfg.batch_size / step_ms * 1e3:.1f} img/s at B={cfg.batch_size}"
+          f" without AutoAugment ({card})")
+
+    x_test, y_test, mask, n_eval = _pad_eval(
+        raw.x_test[:PIXEL_EVAL_IMAGES], raw.y_test[:PIXEL_EVAL_IMAGES],
+        cfg.eval_batch_size)
+    x_test, y_test, mask = (torch.from_numpy(a).cuda()
+                            for a in (x_test, y_test, mask))
+    eb = cfg.eval_batch_size
+    sums = {"loss_sum": 0.0, "correct_sum": 0.0, "count": 0.0}
+    for b in range(n_eval):
+        out = eval_step(x_test[b * eb:(b + 1) * eb],
+                        y_test[b * eb:(b + 1) * eb], mask[b * eb:(b + 1) * eb])
+        sums = {k: sums[k] + out[k] for k in sums}
+    sums = {k: float(v) for k, v in sums.items()}
+    launches = _launch_counts()
+    val_acc = sums["correct_sum"] / sums["count"]
+    val_loss = sums["loss_sum"] / sums["count"]
+    print(f"pixel eval: {n_eval} batches of {eb} ({int(sums['count'])} "
+          f"images, last batch masked), {launches['flash_fwd']} launches of "
+          f"flash_fwd; val_loss {val_loss:.4f}, val_acc {val_acc:.4f}")
+    want_eval = dict(train_launches, flash_fwd=cfg.num_layers * n_eval)
+    if n_eval != 4 or sums["count"] != PIXEL_EVAL_IMAGES \
+            or launches != want_eval:
+        raise AssertionError(f"eval over {n_eval} batches, {sums['count']} "
+                             f"images, launches {launches}")
+    if not (math.isfinite(val_loss) and math.isfinite(val_acc)):
+        raise AssertionError(f"val_loss {val_loss}, val_acc {val_acc}")
+
+    profile_steps(lambda i: train_step(state, x_train, y_train, perm, i), 5,
+                  "pixel_train_trace.json", step_ms, card)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -609,16 +1146,21 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmul and cuDNN: f32 references run in full f32")
 
+    t0 = time.perf_counter()
     build_kernels()
-    rows = [kernel_phase(card), *training_kernel_phase(card)]
-    serving = serving_phase(card)
-    training = training_phase(card)
+    fwd_row, library = kernel_phase(card)
+    rows = [fwd_row, *training_kernel_phase(card, library),
+            *flash_kernel_phase(card)]
+    tiled_vs_whole_head(card)
+    # each path's launches, counted from zero just before it
+    paths = [{"mhsa_fwd": serving_phase(card)}, training_phase(card),
+             pixel_serving_phase(card), pixel_training_phase(card)]
     for row in rows:
-        # each path's launches, counted from zero just before it
-        row["launches"] = training[row["name"]] + (
-            serving if row["name"] == "mhsa_fwd" else 0)
+        row["launches"] = sum(p.get(row["name"], 0) for p in paths)
         if row["launches"] < 1:
             raise AssertionError(f"the main path never launched {row['name']}")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} "
+          "s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

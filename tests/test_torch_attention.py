@@ -73,10 +73,11 @@ def _mhsa_pair(seed=0, features=32, head=4, T=9, jax_kw=None, torch_kw=None,
 @pytest.mark.parametrize("precision", sorted(DTYPES))
 @pytest.mark.parametrize("jax_kernel,torch_kernel",
                          [("einsum", "einsum"), ("fused", "fused"),
-                          ("fused", None)])
+                          ("fused", None), ("flash", "flash")])
 def test_mhsa_matches_jax(jax_kernel, torch_kernel, precision):
-    """The port's module on its plain path and on its kernel path (the
-    default) against the JAX module's einsum and fused paths."""
+    """The port's module on its plain path and on its kernel paths (the
+    default, and the forced tiled one) against the JAX module's einsum,
+    fused and flash paths."""
     jm, variables, tm, x = _mhsa_pair(
         jax_kw=dict(pallas_kernel=jax_kernel),
         torch_kw=dict(pallas_kernel=torch_kernel), precision=precision)
@@ -113,9 +114,12 @@ def test_valid_len_masks_padded_keys_like_jax():
 
 
 def test_flash_kernel_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="flash"):
-        MultiHeadSelfAttention(32, 4, generator=torch.Generator(),
+    """The tiled flash kernel is ported: ``"flash"`` is taken, and only a
+    name the JAX module does not know raises."""
+    m = MultiHeadSelfAttention(32, 4, generator=torch.Generator(),
                                pallas_kernel="flash")
+    with torch.no_grad():
+        assert m(torch.zeros(1, 9, 32)).shape == (1, 9, 32)
     with pytest.raises(ValueError, match="pallas_kernel"):
         MultiHeadSelfAttention(32, 4, generator=torch.Generator(),
                                pallas_kernel="sdpa")

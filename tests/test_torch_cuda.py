@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions.
+versions: the whole-head kernels (``ops/cuda/attention.py``) and the tiled
+flash kernels (``ops/cuda/flash_attention.py``), with the launches a model
+makes through each and the route the default config takes at patch 32.
 
 Marked ``gpu``: skipped where there is no CUDA card.  This file imports no
 jax, so it also runs on a machine without the JAX package:
@@ -9,7 +11,9 @@ backward f32 rtol 1e-4 / atol 1e-5 (two chained sums over T); bf16 1e-2
 against the plain version (one bf16 rounding step either way); the
 Function's bf16 grads against autograd through the plain forward 2e-2 (the
 backward reads the forward's output rounded to bf16, autograd its f32
-probabilities).
+probabilities).  The flash kernels' bf16 limit is 1e-2 of the reference's
+largest magnitude, since one bf16 step is at most 2**-7 of a value and the
+values shrink as T grows (about 4x from T=65 to T=1025).
 """
 
 import math
@@ -19,10 +23,18 @@ import torch
 
 from vit_cifar_torch import Config
 from vit_cifar_torch.models import get_model
+from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
+from vit_cifar_torch.ops.cuda import attention as whole_head
 from vit_cifar_torch.ops.cuda.attention import (
-    KERNEL_WRAPPERS, flash_bwd_dkv, flash_bwd_dkv_reference, flash_bwd_dq,
-    flash_bwd_dq_reference, fused_attention, fused_attention_lse,
-    fused_attention_lse_reference, fused_attention_reference)
+    WHOLE_HEAD_SMEM_BYTES, flash_bwd_dkv,
+    flash_bwd_dkv_reference, flash_bwd_dq, flash_bwd_dq_reference,
+    fused_attention, fused_attention_lse, fused_attention_lse_reference,
+    fused_attention_reference)
+from vit_cifar_torch.ops.cuda.flash_attention import (
+    flash_attention, flash_attention_lse, flash_attention_lse_reference,
+    flash_attention_reference, flash_tiled_bwd_dkv,
+    flash_tiled_bwd_dkv_reference, flash_tiled_bwd_dq,
+    flash_tiled_bwd_dq_reference)
 from vit_cifar_torch.train.loop import init_state
 from vit_cifar_torch.train.optim import make_optimizer
 from vit_cifar_torch.train.steps import make_train_step
@@ -31,12 +43,25 @@ pytestmark = pytest.mark.gpu
 
 SHAPES = [(128, 12, 65, 32), (2, 4, 9, 16), (2, 3, 65, 32), (1, 2, 130, 64),
           (2, 2, 96, 128)]
+# the flash kernels: the JAX flash tests' tile-splitting shapes, the
+# pixel-token ViT's T=1025 and a long sequence
+FLASH_SHAPES = [(2, 3, 65, 32), (1, 2, 130, 64), (2, 2, 257, 128),
+                (1, 1, 8, 128), (1, 2, 300, 32), (4, 12, 1025, 32),
+                (2, 1, 4096, 128)]
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
        torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
            torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def flash_tol(tol: dict, dtype, want: torch.Tensor) -> dict:
+    """``tol[dtype]`` in f32; in bf16 one percent of max |want|."""
+    if dtype == torch.float32:
+        return tol[dtype]
+    return dict(rtol=0.0, atol=1e-2 * want.float().abs().max().item())
+
 dtypes = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                                  ids=["f32", "bf16"])
 shapes = pytest.mark.parametrize("shape", SHAPES,
@@ -151,7 +176,9 @@ def test_vit_training_step_launches_each_kernel_once_per_layer(cuda):
     launched = {n: w.launches - before[n] for n, w in KERNEL_WRAPPERS.items()}
     assert launched == {"mhsa_fwd": 0, "mhsa_fwd_lse": cfg.num_layers,
                         "mhsa_bwd_dq": cfg.num_layers,
-                        "mhsa_bwd_dkv": cfg.num_layers}
+                        "mhsa_bwd_dkv": cfg.num_layers, "flash_fwd": 0,
+                        "flash_fwd_lse": 0, "flash_bwd_dq_tiled": 0,
+                        "flash_bwd_dkv_tiled": 0}
     assert torch.isfinite(metrics["loss"]) and metrics["skipped_nonfinite"] == 0
     assert int(state.opt_state["count"]) == 1
 
@@ -166,3 +193,114 @@ def test_model_forward_launches_once_per_layer(cuda):
         out = model(torch.randn(2, 32, 32, 3, device=cuda))
     assert fused_attention.launches == before + cfg.num_layers
     assert out.shape == (2, 10) and torch.isfinite(out.float()).all()
+
+
+flash_shapes = pytest.mark.parametrize("shape", FLASH_SHAPES,
+                                       ids=lambda s: "x".join(map(str, s)))
+
+
+@dtypes
+@flash_shapes
+def test_flash_forward_kernels_match_plain_versions(cuda, shape, dtype):
+    q, k, v, _, scale = _inputs(cuda, shape, dtype, seed=3)
+    before = (flash_attention.launches, flash_attention_lse.launches)
+    got = flash_attention(q, k, v, scale)
+    out, lse = flash_attention_lse(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_lse.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_out, want_lse = flash_attention_lse_reference(q, k, v, scale)
+    want = flash_attention_reference(q, k, v, scale)
+    torch.testing.assert_close(got, want, **flash_tol(TOL, dtype, want))
+    torch.testing.assert_close(out, want_out,
+                               **flash_tol(TOL, dtype, want_out))
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+@dtypes
+@flash_shapes
+def test_flash_backward_kernels_match_plain_versions(cuda, shape, dtype):
+    q, k, v, g, scale = _inputs(cuda, shape, dtype, seed=4)
+    out, lse = flash_attention_lse_reference(q, k, v, scale)
+    args = (q, k, v, out, g, lse, scale)
+    before = (flash_tiled_bwd_dq.launches, flash_tiled_bwd_dkv.launches)
+    dq = flash_tiled_bwd_dq(*args)
+    dk, dv = flash_tiled_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert (flash_tiled_bwd_dq.launches, flash_tiled_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = [flash_tiled_bwd_dq_reference(*args),
+            *flash_tiled_bwd_dkv_reference(*args)]
+    for got, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got, w, **flash_tol(BWD_TOL, dtype, w))
+
+
+@dtypes
+@pytest.mark.parametrize("shape", [(2, 3, 65, 32), (1, 2, 300, 32),
+                                   (2, 2, 257, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_function_grads_match_autograd_of_plain_forward(cuda, shape,
+                                                              dtype):
+    q, k, v, g, scale = _inputs(cuda, shape, dtype, seed=5)
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves, scale), leaves, g)
+
+    for got, w in zip(grads(flash_attention),
+                      grads(fused_attention_reference)):
+        torch.testing.assert_close(got, w, **GRAD_TOL[dtype])
+
+
+def test_whole_head_shared_memory_formulas_match_the_kernels(cuda):
+    for name, formula in WHOLE_HEAD_SMEM_BYTES.items():
+        lib_bytes = getattr(whole_head._library(name), f"{name}_smem_bytes")
+        for T, D in ((65, 32), (792, 32), (1025, 32), (215, 128), (9, 16)):
+            assert lib_bytes(T, D) == formula(T, D), (name, T, D)
+
+
+def _pixel_cfg(**kw):
+    return Config(model_name="vit", num_layers=2, hidden=64, mlp_hidden=64,
+                  head=2, patch=32, **kw)
+
+
+def test_pixel_vit_training_step_launches_each_flash_kernel_per_layer(cuda):
+    cfg = _pixel_cfg(batch_size=4, label_smoothing=True, warmup_epoch=0)
+    model, _ = get_model(cfg, device=cuda)
+    tx = make_optimizer(cfg, 2)
+    state = init_state(cfg, model, tx)
+    step = make_train_step(cfg, model, tx)
+    x = torch.randint(0, 256, (8, 32, 32, 3), dtype=torch.uint8, device=cuda)
+    y = torch.randint(0, 10, (8,), device=cuda)
+    perm = torch.randperm(8, device=cuda)
+    before = {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
+    state, metrics = step(state, x, y, perm, 0)
+    torch.cuda.synchronize()
+    launched = {n: w.launches - before[n] for n, w in KERNEL_WRAPPERS.items()}
+    assert launched == {"mhsa_fwd": 0, "mhsa_fwd_lse": 0, "mhsa_bwd_dq": 0,
+                        "mhsa_bwd_dkv": 0, "flash_fwd": 0,
+                        "flash_fwd_lse": cfg.num_layers,
+                        "flash_bwd_dq_tiled": cfg.num_layers,
+                        "flash_bwd_dkv_tiled": cfg.num_layers}
+    assert torch.isfinite(metrics["loss"]) and metrics["skipped_nonfinite"] == 0
+
+
+def test_default_config_at_patch_32_routes_to_flash_on_the_card(cuda):
+    """At T=1025 the whole-head kernels would raise; the default config
+    takes the tiled kernel instead, once per layer, and agrees with the
+    einsum path."""
+    cfg = _pixel_cfg(precision="32")
+    model, _ = get_model(cfg, device=cuda)
+    model.eval().requires_grad_(False)
+    plain, _ = get_model(cfg.replace(pallas_kernel="einsum"), device=cuda)
+    plain.load_state_dict(model.state_dict())
+    plain.eval().requires_grad_(False)
+    x = torch.randn(2, 32, 32, 3, device=cuda)
+    before = {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
+    with torch.inference_mode():
+        out = model(x)
+        want = plain(x)
+    launched = {n: w.launches - before[n] for n, w in KERNEL_WRAPPERS.items()}
+    assert launched["flash_fwd"] == cfg.num_layers
+    assert sum(launched.values()) == cfg.num_layers
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)

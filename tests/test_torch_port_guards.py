@@ -30,6 +30,7 @@ def test_port_and_smoke_script_load_no_jax():
             "mods = [m.name for m in pkgutil.walk_packages("
             "vit_cifar_torch.__path__, 'vit_cifar_torch.')]\n"
             "assert 'vit_cifar_torch.train.steps' in mods, mods\n"
+            "assert 'vit_cifar_torch.ops.cuda.flash_attention' in mods, mods\n"
             "for m in mods: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vit_cifar_tpu'))\n"
@@ -83,3 +84,13 @@ def test_library_is_keyed_by_source_and_flags(monkeypatch):
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.library_path("mhsa_fwd") != path
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"])
+def test_flash_libraries_are_keyed_by_their_sources(name):
+    path = build.library_path(name)
+    assert (build.CSRC_DIR / f"{name}.cu").exists()
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith(f"{name}-") and path.suffix == ".so"
+    assert path != build.library_path("mhsa_fwd")

@@ -34,7 +34,7 @@ from vit_cifar_torch.data import augment as taug
 from vit_cifar_torch.data.datasets import _synthetic, load_dataset
 from vit_cifar_torch.models import get_model
 from vit_cifar_torch.ops.common import dropout
-from vit_cifar_torch.ops.cuda.attention import KERNEL_WRAPPERS
+from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.train import losses as tlosses
 from vit_cifar_torch.train.loop import _pad_eval, init_state
 from vit_cifar_torch.train.optim import (flatten_params, make_optimizer,

@@ -16,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.ops.cuda.attention import (
-    FusedAttentionFunction, KERNEL_WRAPPERS, flash_bwd_dkv,
+    FusedAttentionFunction, flash_bwd_dkv,
     flash_bwd_dkv_reference, flash_bwd_dq, flash_bwd_dq_reference,
     fused_attention, fused_attention_lse, fused_attention_lse_reference,
     fused_attention_reference)
@@ -167,4 +168,6 @@ def test_cpu_training_attention_counts_no_launch():
                         torch.from_numpy(g))
     assert {n: w.launches for n, w in KERNEL_WRAPPERS.items()} == before
     assert set(KERNEL_WRAPPERS) == {"mhsa_fwd", "mhsa_fwd_lse", "mhsa_bwd_dq",
-                                    "mhsa_bwd_dkv"}
+                                    "mhsa_bwd_dkv", "flash_fwd",
+                                    "flash_fwd_lse", "flash_bwd_dq_tiled",
+                                    "flash_bwd_dkv_tiled"}

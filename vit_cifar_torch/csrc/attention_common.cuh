@@ -1,6 +1,6 @@
-// Helpers shared by the attention kernels (mhsa_fwd.cu, mhsa_bwd_dq.cu,
-// mhsa_bwd_dkv.cu): the block shape, conversions between the storage type
-// and f32, and warp reductions.
+// Helpers shared by the attention kernels (mhsa_*.cu, flash_*.cu): the
+// block shape, conversions between the storage type and f32, and warp
+// reductions.
 
 #pragma once
 
@@ -11,6 +11,9 @@ namespace attn {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+// the tiled kernels keep a row of D values spread over a warp's lanes, at
+// most four a lane
+constexpr int kMaxHeadDim = 128;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

@@ -6,10 +6,10 @@ As in ``vit_cifar_tpu/ops/attention.py``:
   * separate Wq/Wk/Wv projections with bias;
   * dropout only after the output projection.
 
-Every forward, in training as in inference, goes through the fused
-attention (``ops/cuda/attention.py``: the CUDA kernels on the card, forward
-and backward, their plain versions on the CPU) except where the
-JAX module, too, takes its einsum path: ``save_attn_map`` (the map is kept on
+Every forward, in training as in inference, goes through an attention
+kernel (the CUDA kernels on the card, forward and backward, their plain
+versions on the CPU) chosen by :func:`route`, except where the JAX module,
+too, takes its einsum path: ``save_attn_map`` (the map is kept on
 ``self.attn_map``, the reference's attribute), ``valid_len`` key masking, and
 ``pallas_kernel="einsum"``, which forces the plain path.
 """
@@ -20,8 +20,31 @@ import torch
 from torch import nn
 
 from .common import dropout
-from .cuda.attention import fused_attention
+from .cuda.attention import fused_attention, whole_head_fits
+from .cuda.flash_attention import flash_attention
 from .init import Linear
+
+
+def route(T: int, D: int, pallas_kernel: str | None, training: bool) -> str:
+    """The attention path at sequence length T and head_dim D: "einsum"
+    (plain PyTorch), "fused" (the whole-head kernels, ``fused_attention``)
+    or "flash" (the tiled kernels, ``flash_attention``).
+
+    ``"einsum"`` and ``"flash"`` are taken as asked, at any T.  The default
+    (``""`` or None) takes the whole-head kernels while their shared memory
+    holds a head at (T, D) -- the forward alone, or with ``training`` the
+    forward and both backward kernels -- and the tiled kernels beyond.
+    ``"fused"`` beyond that raises."""
+    if pallas_kernel in ("einsum", "flash"):
+        return pallas_kernel
+    if whole_head_fits(T, D, training):
+        return "fused"
+    if pallas_kernel == "fused":
+        raise ValueError(
+            f"pallas_kernel='fused': the whole-head kernels cannot hold "
+            f"T={T}, head_dim={D}{' for training' if training else ''} in "
+            "a block's shared memory; use 'flash' or the default")
+    return "flash"
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -33,17 +56,13 @@ class MultiHeadSelfAttention(nn.Module):
         if pallas_kernel not in (None, "", "einsum", "fused", "flash"):
             raise ValueError(f"pallas_kernel={pallas_kernel!r}: expected "
                              "'einsum', 'fused', or 'flash'")
-        if pallas_kernel == "flash":
-            raise NotImplementedError(
-                "pallas_kernel='flash': the tiled flash kernel is not ported "
-                "yet (ROADMAP queue 2)")
         if features % head:
             raise ValueError(f"features={features} is not a multiple of "
                              f"head={head}")
         self.features, self.head, self.rate = features, head, dropout
         self.dtype = dtype
         self.save_attn_map = save_attn_map
-        self.force_einsum = pallas_kernel == "einsum"
+        self.pallas_kernel = pallas_kernel
         self.valid_len = valid_len
         self.attn_map: torch.Tensor | None = None
         lin = dict(generator=generator, dtype=dtype, device=device)
@@ -60,7 +79,10 @@ class MultiHeadSelfAttention(nn.Module):
                    for lin in (self.Wq, self.Wk, self.Wv))
 
         masked = self.valid_len is not None and self.valid_len < T
-        if self.force_einsum or self.save_attn_map or masked:
+        path = "einsum" if self.save_attn_map or masked else route(
+            T, hd, self.pallas_kernel, torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)))
+        if path == "einsum":
             # (B,H,T,T) logits in the compute dtype, divided by sqrt(F) as
             # the JAX einsum path does
             sqrt_d = torch.tensor(F**0.5, dtype=self.dtype, device=x.device)
@@ -75,7 +97,8 @@ class MultiHeadSelfAttention(nn.Module):
                 self.attn_map = attn
             out = torch.einsum("bhij,bhjf->bihf", attn, v)
         else:
-            out = fused_attention(q, k, v, 1.0 / float(F**0.5))
+            kernel = fused_attention if path == "fused" else flash_attention
+            out = kernel(q, k, v, 1.0 / float(F**0.5))
 
         out = self.out_project(out.reshape(B, T, F))
         return dropout(out, self.rate, deterministic, generator)

@@ -35,9 +35,25 @@ import torch
 # Hopper's opt-in maximum of dynamic shared memory for one block.
 MAX_SMEM_BYTES = 232_448
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# pointer arguments of each kernel's C entry point; all of them then take
-# B, H, T, D, scale, dtype and the stream
-_POINTERS = {"mhsa_fwd": 5, "mhsa_bwd_dq": 7, "mhsa_bwd_dkv": 8}
+# The whole-head kernels' dynamic shared memory in bytes at (T, D): the
+# formulas of ``smem_bytes`` in each source (8 warps, f32), which hold a
+# whole head and so grow with T.  The card tests hold them equal to the
+# libraries' ``<name>_smem_bytes``.
+WHOLE_HEAD_SMEM_BYTES = {
+    "mhsa_fwd": lambda T, D: 4 * (T * (D + 1) + T * D + 8 * D + 8 * T),
+    "mhsa_bwd_dq": lambda T, D: 4 * (2 * T * (D + 1) + 16 * D + 8 * T),
+    "mhsa_bwd_dkv": lambda T, D: 4 * (2 * T * (D + 1) + 2 * T + 16 * D
+                                      + 16 * T),
+}
+
+
+def whole_head_fits(T: int, D: int, training: bool) -> bool:
+    """Whether the whole-head kernels can run attention at (T, D): the
+    inference forward alone, or with ``training`` the forward and both
+    backward kernels, within a block's shared memory."""
+    names = WHOLE_HEAD_SMEM_BYTES if training else ("mhsa_fwd",)
+    return all(WHOLE_HEAD_SMEM_BYTES[n](T, D) <= MAX_SMEM_BYTES
+               for n in names)
 
 
 # --------------------------------------------------------------------------
@@ -104,10 +120,7 @@ def _library(name: str) -> ctypes.CDLL:
     from .build import load_library
 
     lib = load_library(name)
-    entry = getattr(lib, name)
-    entry.argtypes = [ctypes.c_void_p] * _POINTERS[name] + [ctypes.c_int] * 4 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    entry.restype = ctypes.c_int
+    getattr(lib, name).restype = ctypes.c_int
     smem = getattr(lib, f"{name}_smem_bytes")
     smem.argtypes = [ctypes.c_int, ctypes.c_int]
     smem.restype = ctypes.c_longlong
@@ -124,11 +137,15 @@ def _launch(name: str, pointers, q: torch.Tensor, scale: float) -> None:
         raise ValueError(
             f"{name} at T={T}, D={D} needs {smem} bytes of shared memory, "
             f"over the {MAX_SMEM_BYTES} a block may use")
+    # every entry point takes its tensors' pointers (null for an absent
+    # output), then B, H, T, D, scale, the dtype code and the stream
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
-            *(None if t is None else t.data_ptr() for t in pointers),
-            B, H, T, D, float(scale), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            *(ctypes.c_void_p(None if t is None else t.data_ptr())
+              for t in pointers),
+            *(ctypes.c_int(n) for n in (B, H, T, D)), ctypes.c_float(scale),
+            ctypes.c_int(_DTYPE_CODES[q.dtype]),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
@@ -254,9 +271,3 @@ for _wrapper in (fused_attention, fused_attention_lse, flash_bwd_dq,
                  flash_bwd_dkv):
     _wrapper.launches = 0
 del _wrapper
-
-# the launch counters of every kernel wrapper, by kernel name
-KERNEL_WRAPPERS = {"mhsa_fwd": fused_attention,
-                   "mhsa_fwd_lse": fused_attention_lse,
-                   "mhsa_bwd_dq": flash_bwd_dq,
-                   "mhsa_bwd_dkv": flash_bwd_dkv}

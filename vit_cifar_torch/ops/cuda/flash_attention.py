@@ -1,0 +1,227 @@
+"""Tiled ("flash") multi-head self-attention, forward and backward, at any
+sequence length: the CUDA kernels and their plain PyTorch versions.
+
+``flash_attention`` is the port of ``vit_cifar_tpu/ops/pallas/attention.py::
+flash_attention``: (B, H, T, D) q, k, v -> (B, T, H, D) context, softmax and
+products in f32, output in q's dtype.  Where a gradient is needed it runs
+:class:`FlashAttentionFunction`, the counterpart of the JAX custom VJP
+(``flash_attention.defvjp(_flash_fwd, _flash_bwd)``): its forward runs the
+kernel that also writes the row logsumexp and saves only (q, k, v, out,
+lse), never a (B, H, T, T) tensor; its backward runs the tiled dq kernel,
+then the tiled dk/dv kernel (``_flash_bwd_impl``'s two passes).  Without a
+gradient it runs the inference kernel.
+
+Unlike the whole-head kernels of ``attention.py``, whose shared memory
+grows with T, these tile both the queries and the keys, so they run at any
+T (for D <= 128).  The kernels tile 64 queries by 64 keys; the plain
+versions take every query row at once and tile the keys by ``BLOCK_KV``.
+The JAX signature's ``block_q`` and ``block_kv`` are not taken: they change
+the result only through the order of f32 sums.  lse is (B, H, T) f32, not
+the TPU's lane-broadcast (B, H, Tq, 128).
+
+Each wrapper takes its kernel's plain version for a CPU tensor, and for a
+CUDA tensor launches the hand-written kernel (``csrc/flash_*.cu``, built at
+first use) or raises; there is no fallback between the two.  Each wrapper
+counts its launches in ``<wrapper>.launches``.
+
+=========================  ====================  =================================
+wrapper                    kernel                plain version
+=========================  ====================  =================================
+``flash_attention``        ``flash_fwd.cu``      ``flash_attention_reference``
+``flash_attention_lse``    ``flash_fwd.cu`` +lse ``flash_attention_lse_reference``
+``flash_tiled_bwd_dq``     ``flash_bwd_dq.cu``   ``flash_tiled_bwd_dq_reference``
+``flash_tiled_bwd_dkv``    ``flash_bwd_dkv.cu``  ``flash_tiled_bwd_dkv_reference``
+=========================  ====================  =================================
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .attention import _bwd_terms, _check, _check_bwd, _launch
+
+# the tiled kernels spread a row of D values over a warp's lanes, at most
+# four a lane (``kMaxHeadDim`` in ``csrc/attention_common.cuh``)
+MAX_HEAD_DIM = 128
+# the plain versions' key tile, the JAX kernels' default ``block_kv``;
+# (B, H, T, BLOCK_KV) is the largest tensor they form
+BLOCK_KV = 512
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, scale: float):
+    """Plain version of the training forward: the online softmax of
+    ``_flash_fwd_body`` over key tiles of ``BLOCK_KV``, every query row at
+    once.  Returns (out (B, T, H, D) in q's dtype, lse (B, H, T) f32).
+
+    The running max m, normaliser l and unnormalised context acc are kept
+    as the TPU kernel keeps them; the last tile is padded and its missing
+    keys masked to -inf, and a fully masked tile leaves m at -inf without
+    a NaN (``safe_m`` and ``corr``)."""
+    B, H, T, D = q.shape
+    bk = min(BLOCK_KV, T)
+    qf, kf, vf = (a.to(torch.float32) for a in (q, k, v))
+    m = torch.full((B, H, T, 1), -torch.inf, device=q.device)
+    l = torch.zeros((B, H, T, 1), device=q.device)
+    acc = torch.zeros((B, H, T, D), device=q.device)
+    for k0 in range(0, T, bk):
+        pad = (0, 0, 0, k0 + bk - min(T, k0 + bk))
+        kt, vt = (F.pad(a[:, :, k0:k0 + bk], pad) for a in (kf, vf))
+        s = torch.einsum("bhid,bhjd->bhij", qf, kt) * scale
+        col = torch.arange(k0, k0 + bk, device=q.device)
+        s = torch.where(col < T, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - safe_m)
+        corr = torch.exp(torch.where(torch.isfinite(m), m - safe_m,
+                                     -torch.inf))
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhij,bhjd->bhid", p, vt)
+        m = m_new
+    out = (acc / l).transpose(1, 2).to(q.dtype)
+    return out, (m + torch.log(l)).squeeze(-1)
+
+
+def flash_attention_reference(q, k, v, scale: float) -> torch.Tensor:
+    """Plain version of the inference forward: (B, T, H, D) in q's dtype."""
+    return flash_attention_lse_reference(q, k, v, scale)[0]
+
+
+def _kv_tiles(T: int):
+    return [slice(k0, k0 + BLOCK_KV) for k0 in range(0, T, BLOCK_KV)]
+
+
+def flash_tiled_bwd_dq_reference(q, k, v, o, do, lse,
+                                 scale: float) -> torch.Tensor:
+    """Plain version of the tiled dq pass: dq = sum over key tiles of
+    ds.k, (B, H, T, D) in q's dtype; nothing larger than (B, H, T,
+    BLOCK_KV) is formed.  ``o`` and ``do`` are (B, T, H, D); ``lse`` is
+    (B, H, T) f32."""
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for t in _kv_tiles(q.shape[2]):
+        _, kf, _, _, ds = _bwd_terms(q, k[:, :, t], v[:, :, t], o, do, lse,
+                                     scale)
+        dq += torch.einsum("bhij,bhjd->bhid", ds, kf)
+    return dq.to(q.dtype)
+
+
+def flash_tiled_bwd_dkv_reference(q, k, v, o, do, lse, scale: float):
+    """Plain version of the tiled dk/dv pass, key tile by key tile: dk =
+    ds^T.q, dv = p^T.do, both (B, H, T, D) in k's and v's dtype."""
+    dk, dv = [], []
+    for t in _kv_tiles(q.shape[2]):
+        qf, _, dof, p, ds = _bwd_terms(q, k[:, :, t], v[:, :, t], o, do, lse,
+                                       scale)
+        dk.append(torch.einsum("bhij,bhid->bhjd", ds, qf))
+        dv.append(torch.einsum("bhij,bhid->bhjd", p, dof))
+    return torch.cat(dk, dim=2).to(k.dtype), torch.cat(dv, dim=2).to(v.dtype)
+
+
+# --------------------------------------------------------------------------
+# kernels
+# --------------------------------------------------------------------------
+
+def _check_head_dim(q: torch.Tensor) -> None:
+    if q.device.type == "cuda" and q.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernels take head_dim <= {MAX_HEAD_DIM}, "
+                         f"got {q.shape[3]}")
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float):
+    """Training forward: (B, H, T, D)^3 -> (out (B, T, H, D), lse (B, H, T)
+    f32).  Launches counted in ``flash_attention_lse.launches``."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_lse_reference(q, k, v, scale)
+    _check_head_dim(q)
+    q, k, v = (a.contiguous() for a in (q, k, v))
+    B, H, T, D = q.shape
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", (q, k, v, out, lse), q, scale)
+    flash_attention_lse.launches += 1
+    return out, lse
+
+
+def flash_tiled_bwd_dq(q, k, v, o, do, lse, scale: float) -> torch.Tensor:
+    """dq of the flash attention, (B, H, T, D) in q's dtype.  Launches
+    counted in ``flash_tiled_bwd_dq.launches``."""
+    _check_bwd(q, k, v, o, do, lse)
+    if q.device.type == "cpu":
+        return flash_tiled_bwd_dq_reference(q, k, v, o, do, lse, scale)
+    _check_head_dim(q)
+    q, k, v, o, do, lse = (a.contiguous() for a in (q, k, v, o, do, lse))
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", (q, k, v, o, do, lse, dq), q, scale)
+    flash_tiled_bwd_dq.launches += 1
+    return dq
+
+
+def flash_tiled_bwd_dkv(q, k, v, o, do, lse, scale: float):
+    """(dk, dv) of the flash attention, each (B, H, T, D) in the input
+    dtype.  Launches counted in ``flash_tiled_bwd_dkv.launches``."""
+    _check_bwd(q, k, v, o, do, lse)
+    if q.device.type == "cpu":
+        return flash_tiled_bwd_dkv_reference(q, k, v, o, do, lse, scale)
+    _check_head_dim(q)
+    q, k, v, o, do, lse = (a.contiguous() for a in (q, k, v, o, do, lse))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv", (q, k, v, o, do, lse, dk, dv), q, scale)
+    flash_tiled_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The custom VJP of ``flash_attention``: the forward saves exactly
+    (q, k, v, out, lse); the backward runs the tiled dq pass, then the
+    tiled dk/dv pass.  ``scale`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        q, k, v = (a.contiguous() for a in (q, k, v))
+        out, lse = flash_attention_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq = flash_tiled_bwd_dq(q, k, v, out, g, lse, ctx.scale)
+        dk, dv = flash_tiled_bwd_dkv(q, k, v, out, g, lse, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """(B, H, T, D)^3 -> (B, T, H, D) attention context, at any T.
+
+    Where a gradient is needed: :class:`FlashAttentionFunction`.  Otherwise
+    CPU tensors go to the plain version and CUDA tensors to the inference
+    kernel, whose launches are counted in ``flash_attention.launches``.
+    """
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, scale)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    _check_head_dim(q)
+    q, k, v = (a.contiguous() for a in (q, k, v))
+    B, H, T, D = q.shape
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    _launch("flash_fwd", (q, k, v, out, None), q, scale)
+    flash_attention.launches += 1
+    return out
+
+
+for _wrapper in (flash_attention, flash_attention_lse, flash_tiled_bwd_dq,
+                 flash_tiled_bwd_dkv):
+    _wrapper.launches = 0
+del _wrapper
