@@ -36,7 +36,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    (8, 1, 4096, 128), in f32 and bf16; times each kernel and its plain
    version at the pixel shape, and ``F.scaled_dot_product_attention`` as
    the library's yardstick (timed only; the port never calls it).  Then
-   times each whole-head kernel against its tiled counterpart at
+   the ragged-edge phase: the bf16 (tensor-core, ``mma.sync``) instances
+   of both forwards, with and without lse, against their plain versions
+   at (2, 3, T, D) for 13 T from 1 to 129 and D in 16, 24, 32, 64, 128.
+   Then times each whole-head kernel against its tiled counterpart at
    (128, 12, T, 32) bf16 for T = 65, 257 and 685.
 5. Pixel serving phase: the same serving path for the README recipe model
    at ``patch=32`` (one pixel a token, T=1025, 6,620,170 params); each
@@ -49,8 +52,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    losses, eval over 4 padded batches of 256, the step time, img/s, the
    device's busy share and its top ops (torch.profiler over 5 steps).
 
+The library's yardsticks, timed at both main shapes and called nowhere in
+the port: SDPA forward and forward+backward,
+``aten._scaled_dot_product_flash_attention`` (the forward with lse) and
+``aten._scaled_dot_product_flash_attention_backward`` (dq, dk and dv from
+the residuals, the work of the dq + dk/dv kernel pair).
+
 Every kernel is held against its plain version, and the counts of launches
-of each path are set to 0 just before it and read just after.  The bound
+of each path are set to 0 just before it and read just after.  Each kernel
+row names its design: the forwards' bf16 instances run on the tensor cores
+("mma.sync bf16"), the backward kernels on the CUDA cores ("cuda cores
+f32"); the forwards' f32 instances keep the CUDA-core design, since the
+tensor cores would take f32 only as TF32.  The bound
 of a kernel (``bound_ms``) is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations: its products
 over the bf16 tensor-core peak (989 TFLOP/s) and its exps over the
@@ -68,6 +81,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -187,6 +201,24 @@ PIXEL_EVAL_IMAGES = 1000  # 4 padded batches of 256
 # where the whole-head kernels are timed against the tiled ones: the
 # flagship's T, and up to the longest T the whole-head kernels train at
 ROUTE_T = (65, 257, 685)
+# the ragged-edge phase: every T where a 16-row tile, a 64-key chunk or a
+# 64-row block ends or begins, at head dims that are and are not a multiple
+# of 16, for the bf16 (tensor-core) instances of the two forwards
+RAGGED_T = (1, 7, 8, 15, 16, 17, 63, 64, 65, 66, 127, 128, 129)
+RAGGED_D = (16, 24, 32, 64, 128)
+RAGGED_BH = (2, 3)
+# how each kernel row's bf16 instance computes (the f32 instances of the
+# forwards run on the CUDA cores: the tensor cores would need TF32)
+DESIGN = {"mhsa_fwd": "mma.sync bf16", "mhsa_fwd_lse": "mma.sync bf16",
+          "flash_fwd": "mma.sync bf16", "flash_fwd_lse": "mma.sync bf16",
+          "mhsa_bwd_dq": "cuda cores f32", "mhsa_bwd_dkv": "cuda cores f32",
+          "flash_bwd_dq_tiled": "cuda cores f32",
+          "flash_bwd_dkv_tiled": "cuda cores f32"}
+# the bf16 max_abs_err of the forwards' first, CUDA-core design at the main
+# shapes, from its own chip runs (PERF.md): it matched the plain version's
+# rounding exactly at T=65 and was one bf16 step off at T=1025
+EARLIER_MAX_ABS_ERR = {"mhsa_fwd": 0.0, "mhsa_fwd_lse": 0.0,
+                       "flash_fwd": 4.9e-4, "flash_fwd_lse": 4.9e-4}
 
 
 def card_line() -> str:
@@ -233,9 +265,18 @@ def build_kernels() -> None:
     for name in KERNELS:
         log = library_path(name).with_suffix(".log")
         print(f"  {os.path.relpath(library_path(name), ROOT)}")
+        instance = spills = ""
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("    ptxas:", line.strip())
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:  # ...19flash_fwd_mma_kernelILi32EEEv... -> <Li32>
+                m = re.search(r"([a-z_]+_kernel)I(\w+?)EE", entry.group(1))
+                instance = f"{m.group(1)}<{m.group(2)}>" if m \
+                    else entry.group(1)
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                print(f"    ptxas: {instance}: "
+                      f"{line.split(':', 1)[1].strip()}; {spills}")
 
 
 def in_turns(fns: dict, rounds: int = 3, iters: int = 100) -> dict:
@@ -297,12 +338,20 @@ def library_ms(shape, gen, iters: int, card: str) -> dict:
                .to(torch.bfloat16) for _ in range(3))
     g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
     leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    aten = torch.ops.aten
+    o, lse, cq, ck, mq, mk, seed, offset, _ = \
+        aten._scaled_dot_product_flash_attention(q, k, v, scale=scale)
     calls = {
         "fwd": lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
         "fwd+bwd": lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(*leaves, scale=scale), leaves, g),
-        "fwd_lse": lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+        "fwd_lse": lambda: aten._scaled_dot_product_flash_attention(
             q, k, v, scale=scale)[:2],
+        # dq, dk and dv from (do, q, k, v, out, lse): the work of the dq
+        # kernel and the dk/dv kernel together
+        "bwd_pair": lambda: aten._scaled_dot_product_flash_attention_backward(
+            g, q, k, v, o, lse, cq, ck, mq, mk, 0.0, False, seed, offset,
+            scale=scale),
     }
     ms = {name: cuda_ms(fn, iters, min(10, iters))
           for name, fn in calls.items()}
@@ -314,6 +363,16 @@ def library_ms(shape, gen, iters: int, card: str) -> dict:
         print(f"library {name} {shape} bf16: {ms[name]:.4f} ms (windows of "
               f"{iters}; {card}); kernels: {device_kernels(fn)}")
     print(f"library lse vs the plain version's: max_abs_err {lse_err}")
+    # the pair's yardstick computes what the plain passes compute
+    out_bthd = o.transpose(1, 2)
+    g_bthd = g.transpose(1, 2)
+    want_lse = flash_attention_lse_reference(q, k, v, scale)[1]
+    args = (q, k, v, out_bthd, g_bthd, want_lse, scale)
+    want = (flash_tiled_bwd_dq_reference(*args),
+            *flash_tiled_bwd_dkv_reference(*args))
+    print("library bwd_pair (dq, dk, dv) vs the plain passes: max_abs_err "
+          + ", ".join(f"{_max_err((a,), (w,)):.3e}"
+                      for a, w in zip(calls["bwd_pair"](), want)))
     return ms
 
 
@@ -354,7 +413,8 @@ def kernel_phase(card: str) -> tuple[dict, dict]:
               f"{ms[name]:.4f} ms (median of {len(times[name])} windows of "
               f"100; {card})")
     library = library_ms(SHAPES[0], gen, 100, card)
-    return {"name": "mhsa_fwd", "route": "cuda",
+    print_against_earlier("mhsa_fwd", main_err)
+    return {"name": "mhsa_fwd", "route": "cuda", "design": DESIGN["mhsa_fwd"],
             "source": "vit_cifar_torch/csrc/mhsa_fwd.cu",
             "replaces": "vit_cifar_tpu/ops/pallas/attention.py:90",
             "max_abs_err": main_err, "ms": ms["kernel"],
@@ -454,15 +514,23 @@ def training_kernel_phase(card: str, library: dict) -> list[dict]:
 
     pairs["attention fwd+bwd"] = (fwd_bwd(fused_attention),
                                   fwd_bwd(fused_attention_reference))
-    rows = []
+    rows, pair_ms = [], {}
     for name, (kernel, plain) in pairs.items():
         ms = in_turns({"kernel": kernel, "plain": plain})
         print(f"{name} {SHAPES[0]} bf16: kernel {ms['kernel']:.4f} ms, "
               f"plain {ms['plain']:.4f} ms (median of 6 windows of 100; "
               f"{card})")
+        if name == "mhsa_bwd_dkv":
+            print(f"library dq+dk/dv pair {SHAPES[0]} bf16: "
+                  f"{library['bwd_pair']:.4f} ms against the kernels' "
+                  f"{pair_ms['mhsa_bwd_dq'] + ms['kernel']:.4f} ms ({card})")
+        pair_ms[name] = ms["kernel"]
         if name in REPLACES:
+            if name in EARLIER_MAX_ABS_ERR:
+                print_against_earlier(name, errs[name])
             # no one PyTorch call computes dq or dk/dv alone
             rows.append({"name": name, "route": "cuda",
+                         "design": DESIGN[name],
                          "source": f"vit_cifar_torch/csrc/{SOURCES[name]}.cu",
                          "replaces": REPLACES[name],
                          "max_abs_err": errs[name], "ms": ms["kernel"],
@@ -867,18 +935,67 @@ def flash_kernel_phase(card: str) -> list[dict]:
                 f"plain {ms['plain']:.4f} ms (median of 4 windows of 3")
         if name not in REPLACES:
             print(f"{line}; SDPA fwd+bwd {library['fwd+bwd']:.4f} ms; "
+                  f"library dq+dk/dv pair {library['bwd_pair']:.4f} ms; "
                   f"{card})")
             continue
         b = bound(name, PIXEL_SHAPE)
         print(f"{line}; bound {b['bound_ms']:.4f} ms by {b['bound_by']}; "
               f"{card})")
-        rows.append({"name": name, "route": "cuda",
+        if name in EARLIER_MAX_ABS_ERR:
+            print_against_earlier(name, errs[name])
+        rows.append({"name": name, "route": "cuda", "design": DESIGN[name],
                      "source": f"vit_cifar_torch/csrc/{SOURCES[name]}.cu",
                      "replaces": REPLACES[name], "max_abs_err": errs[name],
                      "ms": ms["kernel"], "plain_ms": ms["plain"], **b,
                      # no one PyTorch call computes dq or dk/dv alone
                      "library_ms": library.get(KERNEL_WORK[name])})
     return rows
+
+
+def print_against_earlier(name: str, err: float) -> None:
+    print(f"{name} bf16 at its main shape: max_abs_err {err:.3e} (mma.sync "
+          f"design) against {EARLIER_MAX_ABS_ERR[name]:.3e} (the CUDA-core "
+          "design's, PERF.md)")
+
+
+def ragged_edge_phase() -> None:
+    """The bf16 (tensor-core) instances of both forwards, with and without
+    lse, against their plain versions at every (T, D) of RAGGED_T x
+    RAGGED_D: ``KERNEL_TOL`` for the whole-head kernel, ``flash_tol`` for
+    the tiled one, lse at f32's 1e-5."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, H = RAGGED_BH
+    worst = {}
+    for T in RAGGED_T:
+        for D in RAGGED_D:
+            scale = 1.0 / math.sqrt(H * D)
+            q, k, v = (torch.randn((B, H, T, D), generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(3))
+            got = {"mhsa_fwd": (fused_attention(q, k, v, scale),),
+                   "mhsa_fwd_lse": fused_attention_lse(q, k, v, scale),
+                   "flash_fwd": (flash_attention(q, k, v, scale),),
+                   "flash_fwd_lse": flash_attention_lse(q, k, v, scale)}
+            want = {"mhsa": fused_attention_lse_reference(q, k, v, scale),
+                    "flash": flash_attention_lse_reference(q, k, v, scale)}
+            torch.cuda.synchronize()
+            for name, outs in got.items():
+                want_out, want_lse = want[name.split("_")[0]]
+                tol = (KERNEL_TOL[torch.bfloat16] if name.startswith("mhsa")
+                       else flash_tol("fwd", torch.bfloat16, want_out))
+                torch.testing.assert_close(outs[0], want_out, **tol,
+                                           msg=lambda m: f"{name} T={T} "
+                                           f"D={D}: {m}")
+                if len(outs) == 2:
+                    torch.testing.assert_close(
+                        outs[1], want_lse, **KERNEL_TOL[torch.float32],
+                        msg=lambda m: f"{name} lse T={T} D={D}: {m}")
+                err = _max_err(outs, (want_out, want_lse)[:len(outs)])
+                worst[name] = max(worst.get(name, 0.0), err)
+    print(f"ragged edges: {len(RAGGED_T) * len(RAGGED_D)} shapes ({B}, {H}, "
+          f"T, D), T in {RAGGED_T}, D in {RAGGED_D}, bf16: every redesigned "
+          "instance within its limits (mhsa_* rtol=atol=1e-2, flash_* 1% of "
+          "max |out|, lse 1e-5); worst max_abs_err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in worst.items()))
 
 
 def tiled_vs_whole_head(card: str) -> None:
@@ -1151,6 +1268,7 @@ def main() -> None:
     fwd_row, library = kernel_phase(card)
     rows = [fwd_row, *training_kernel_phase(card, library),
             *flash_kernel_phase(card)]
+    ragged_edge_phase()
     tiled_vs_whole_head(card)
     # each path's launches, counted from zero just before it
     paths = [{"mhsa_fwd": serving_phase(card)}, training_phase(card),

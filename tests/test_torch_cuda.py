@@ -11,9 +11,12 @@ backward f32 rtol 1e-4 / atol 1e-5 (two chained sums over T); bf16 1e-2
 against the plain version (one bf16 rounding step either way); the
 Function's bf16 grads against autograd through the plain forward 2e-2 (the
 backward reads the forward's output rounded to bf16, autograd its f32
-probabilities).  The flash kernels' bf16 limit is 1e-2 of the reference's
-largest magnitude, since one bf16 step is at most 2**-7 of a value and the
-values shrink as T grows (about 4x from T=65 to T=1025).
+probabilities).  The forwards' bf16 instances run on the tensor cores and
+their f32 instances on the CUDA cores; both are held to the same limits,
+and the bf16 ones also at ragged T and D.  The flash kernels' bf16 limit
+is 1e-2 of the reference's largest magnitude, since one bf16 step is at
+most 2**-7 of a value and the values shrink as T grows (about 4x from T=65
+to T=1025).
 """
 
 import math
@@ -250,6 +253,35 @@ def test_flash_function_grads_match_autograd_of_plain_forward(cuda, shape,
     for got, w in zip(grads(flash_attention),
                       grads(fused_attention_reference)):
         torch.testing.assert_close(got, w, **GRAD_TOL[dtype])
+
+
+# every T where a 16-row tile, a 64-key chunk or a 64-row block of the
+# tensor-core forwards ends or begins
+RAGGED_T = (1, 7, 8, 15, 16, 17, 63, 64, 65, 66, 127, 128, 129)
+
+
+@pytest.mark.parametrize("kernel", ["mhsa", "flash"])
+@pytest.mark.parametrize("T", RAGGED_T)
+def test_bf16_forwards_match_plain_versions_at_ragged_edges(cuda, T, kernel):
+    """The bf16 (tensor-core) instances of both forwards, with and without
+    lse, at head dims that are and are not a multiple of 16."""
+    fwd, fwd_lse, plain = {
+        "mhsa": (fused_attention, fused_attention_lse,
+                 fused_attention_lse_reference),
+        "flash": (flash_attention, flash_attention_lse,
+                  flash_attention_lse_reference)}[kernel]
+    for D in (16, 24, 32, 64, 128):
+        q, k, v, _, scale = _inputs(cuda, (2, 3, T, D), torch.bfloat16,
+                                    seed=T + D)
+        got = fwd(q, k, v, scale)
+        out, lse = fwd_lse(q, k, v, scale)
+        torch.cuda.synchronize()
+        want_out, want_lse = plain(q, k, v, scale)
+        tol = (TOL[torch.bfloat16] if kernel == "mhsa"
+               else flash_tol(TOL, torch.bfloat16, want_out))
+        torch.testing.assert_close(got, want_out, **tol)
+        torch.testing.assert_close(out, want_out, **tol)
+        torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
 
 
 def test_whole_head_shared_memory_formulas_match_the_kernels(cuda):

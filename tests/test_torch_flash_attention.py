@@ -13,6 +13,11 @@ split where the JAX kernel's is.  Tolerances are the JAX tests' own: rtol
 1e-5 / atol 1e-6 for the forward (the same online softmax, sums in another
 order) and rtol 1e-4 / atol 1e-5 for the gradients (sums chained twice over
 T).
+
+``mma_forward_model`` models the arithmetic of the bf16 tensor-core
+forwards (``csrc/mma_attention.cuh``), which no CPU can run, and holds it
+against JAX's flash and fused kernels in bf16 and against the plain
+versions at ragged T: lse within 1e-5, outputs within one bf16 step.
 """
 
 import jax
@@ -24,8 +29,9 @@ import torch
 from vit_cifar_torch.ops.attention import MultiHeadSelfAttention, route
 from vit_cifar_torch.ops.cuda import flash_attention as flash_module
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
-from vit_cifar_torch.ops.cuda.attention import (fused_attention_reference,
-                                                whole_head_fits)
+from vit_cifar_torch.ops.cuda.attention import (
+    WHOLE_HEAD_SMEM_BYTES, fused_attention_lse_reference,
+    fused_attention_reference, whole_head_fits)
 from vit_cifar_torch.ops.cuda.flash_attention import (
     FlashAttentionFunction, flash_attention, flash_attention_lse,
     flash_attention_lse_reference, flash_attention_reference,
@@ -33,6 +39,10 @@ from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_tiled_bwd_dq_reference)
 from vit_cifar_tpu.ops.pallas.attention import \
     _flash_forward_impl as jax_flash_forward_impl
+from vit_cifar_tpu.ops.pallas.attention import \
+    _fused_attention_fwd_impl as jax_fused_forward_impl
+from vit_cifar_tpu.ops.pallas.attention import \
+    fused_attention as jax_fused_attention
 from vit_cifar_tpu.ops.pallas.attention import \
     flash_attention as jax_flash_attention
 
@@ -113,6 +123,114 @@ def test_flash_grads_match_jax_vjp(case, monkeypatch):
                                        err_msg=f"{name} via {how}")
 
 
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+MMA_CHUNK = 64  # keys per online-softmax step in csrc/mma_attention.cuh
+
+
+def mma_forward_model(q, k, v, scale: float):
+    """A torch model of the arithmetic of the bf16 tensor-core forwards
+    (``csrc/mma_attention.cuh``, run by ``flash_fwd.cu`` and
+    ``mhsa_fwd.cu``): s = q.k^T of bf16 values summed in f32, scaled once by
+    the f32 product scale*log2(e); the online softmax over chunks of 64
+    keys with exp2 and the ``safe_m``/``corr`` guard; p split into bf16
+    hi = rn(p) and lo = rn(p - hi), both multiplied into v; lse = m*ln(2) +
+    log(l).  Returns (out (B, T, H, D) bf16, lse (B, H, T) f32, and out
+    before its rounding to bf16)."""
+    B, H, T, D = q.shape
+    qf, kf, vf = (a.to(torch.float32) for a in (q, k, v))
+    c = float(np.float32(scale) * np.float32(LOG2E))
+    m = torch.full((B, H, T, 1), -torch.inf)
+    l = torch.zeros((B, H, T, 1))
+    acc = torch.zeros((B, H, T, D))
+    for k0 in range(0, T, MMA_CHUNK):
+        kt, vt = kf[:, :, k0:k0 + MMA_CHUNK], vf[:, :, k0:k0 + MMA_CHUNK]
+        s = torch.einsum("bhid,bhjd->bhij", qf, kt) * c
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp2(m - safe_m), 0.0)
+        p = torch.exp2(s - safe_m)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        hi = p.to(torch.bfloat16).to(torch.float32)
+        lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+        acc = acc * corr + torch.einsum("bhij,bhjd->bhid", hi, vt) \
+            + torch.einsum("bhij,bhjd->bhid", lo, vt)
+        m = m_new
+    out = (acc / l).transpose(1, 2)
+    return out.to(torch.bfloat16), (m * LN2 + torch.log(l)).squeeze(-1), out
+
+
+def _bf16_inputs(B, H, T, D, seed):
+    """q, k, v rounded to bf16, as numpy f32 (exact) and torch bf16."""
+    q, k, v, _, scale = _inputs(B, H, T, D, seed)
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    return [a.to(torch.float32).numpy() for a in t], t, scale
+
+
+def _assert_within_one_bf16_step(got, want, what):
+    """|got - want| <= the bf16 spacing at want, 2**(floor(log2|want|) - 7),
+    plus 2e-6 of max |want|: near zero one bf16 step is finer than the f32
+    sums' own difference before rounding."""
+    got, want = (np.asarray(a, np.float32) for a in (got, want))
+    step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                   - 7)
+    worst = np.max(np.abs(got - want)
+                   / (step + 2e-6 * np.abs(want).max()))
+    assert worst <= 1.0, f"{what}: {worst:.2f} bf16 steps apart"
+
+
+@cases
+@pytest.mark.parametrize("path", ["flash", "fused"])
+def test_mma_forward_model_matches_jax_in_bf16(case, path):
+    """The tensor-core forwards' arithmetic, modelled in torch, against
+    JAX's ``flash_attention`` (at the case's tile split) and
+    ``fused_attention`` in interpret mode on the same bf16 inputs: lse
+    within 1e-5, the bf16 output within one bf16 step, and the output
+    before rounding within 1e-5 of max |out| of the plain f32 version's --
+    the hi/lo split keeps p.v at f32 accuracy (p rounded to bf16 alone
+    misses by about 1e-3)."""
+    B, H, T, D, bq, bk = case
+    (q, k, v), (tq, tk, tv), scale = _bf16_inputs(B, H, T, D, seed=9)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    if path == "flash":
+        jout, jlse = jax_flash_forward_impl(jq, jk, jv, scale, bq, bk,
+                                            with_lse=True)
+        want = np.asarray(jax_flash_attention(jq, jk, jv, scale, bq, bk),
+                          np.float32)
+    else:
+        jout, jlse = jax_fused_forward_impl(jq, jk, jv, scale, with_lse=True)
+        want = np.asarray(jax_fused_attention(jq, jk, jv, scale), np.float32)
+    want_lse = np.asarray(jlse)[:, :, :T, 0]
+    assert jout.dtype == jnp.bfloat16
+
+    out, lse, unrounded = mma_forward_model(tq, tk, tv, scale)
+    assert out.shape == (B, T, H, D) and lse.shape == (B, H, T)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-5, atol=1e-5)
+    _assert_within_one_bf16_step(out.to(torch.float32).numpy(), want, path)
+    exact = flash_attention_lse_reference(*(torch.from_numpy(a)
+                                            for a in (q, k, v)), scale)[0]
+    np.testing.assert_allclose(unrounded.numpy(), exact.numpy(), rtol=0,
+                               atol=1e-5 * exact.abs().max().item())
+
+
+@pytest.mark.parametrize("T", [1, 7, 8, 15, 16, 17, 63, 64, 65, 66, 127, 128,
+                               129])
+def test_mma_forward_model_matches_the_plain_versions_at_ragged_edges(T):
+    """The chunks of 64 keys split a row at every T of the card's
+    ragged-edge phase; the model stays within one bf16 step and 1e-5 of
+    lse of the plain versions, at head dims that are and are not a
+    multiple of 16."""
+    for D in (16, 24, 32, 64, 128):
+        _, (tq, tk, tv), scale = _bf16_inputs(1, 2, T, D, seed=T + D)
+        out, lse, _ = mma_forward_model(tq, tk, tv, scale)
+        for plain in (fused_attention_lse_reference,
+                      flash_attention_lse_reference):
+            want_out, want_lse = plain(tq, tk, tv, scale)
+            torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+            _assert_within_one_bf16_step(out.to(torch.float32).numpy(),
+                                         want_out.to(torch.float32).numpy(),
+                                         f"{plain.__name__} T={T} D={D}")
+
+
 def test_flash_matches_the_whole_head_plain_version_in_bf16():
     """In bf16 the online softmax keeps f32 inside and rounds only its
     output, as the one-block plain version does: one bf16 step apart."""
@@ -187,6 +305,20 @@ def test_route(T, D, kernel, training, want):
     assert route(T, D, kernel, training) == want
     if kernel in ("", None):
         assert whole_head_fits(T, D, training) == (want == "fused")
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 5, 7, 8, 9, 16, 17, 24, 31, 32, 40,
+                               64, 100, 128, 200, 256])
+def test_whole_head_bf16_layout_never_needs_more_than_the_f32_formula(D):
+    """``csrc/mhsa_fwd.cu``'s bf16 instance stages K and V as T rows of
+    ``stride_elems(D)`` bf16 each plus a 16-byte chunk of zeros
+    (``mma_smem_bytes``); ``route`` reads the f32 formula, so the router
+    chooses as before only if that is never smaller, at any T."""
+    width = (D + 7) // 8 * 8  # staged_width(D)
+    stride = 8 * ((width // 8) | 1)  # stride_elems(D): odd 16-byte chunks
+    T = np.arange(1, 8193)
+    bf16 = 2 * (8 + 2 * T * stride)
+    assert (bf16 <= WHOLE_HEAD_SMEM_BYTES["mhsa_fwd"](T, D)).all()
 
 
 @pytest.mark.parametrize("T,D,training", [(1025, 32, False), (700, 32, True),

@@ -66,7 +66,7 @@ def _jax_side():
 def _port(pallas_kernel=""):
     *_, jstate, _ = _jax_side()
     tcfg = tconfig.Config(**dict(PIXEL, pallas_kernel=pallas_kernel))
-    tmodel, _ = get_model(tcfg)
+    tmodel, _ = get_model(tcfg, device="cpu")
     tmodel.load_state_dict(state_dict_from_flax(jstate.params))
     return tcfg, tmodel
 
@@ -94,7 +94,7 @@ def test_pixel_vit_full_width_param_count_and_route():
     config takes the tiled kernels in serving and in training."""
     cfg = tconfig.Config(model_name="vit", num_layers=7, hidden=384,
                          mlp_hidden=384, head=12, patch=32)
-    model, _ = get_model(cfg)
+    model, _ = get_model(cfg, device="cpu")
     assert sum(p.numel() for p in model.parameters()) == 6_620_170
     assert model.emb.weight.shape == (384, 3)
     assert model.pos_emb.shape == (1, 1025, 384)

@@ -60,7 +60,7 @@ def test_smoke_script_fails_alone(tmp_path):
 def test_cpu_path_counts_no_launch():
     cfg = Config(model_name="vit", num_layers=2, hidden=32, mlp_hidden=32,
                  head=4)
-    model, _ = get_model(cfg)
+    model, _ = get_model(cfg, device="cpu")
     before = fused_attention.launches
     with torch.no_grad():
         out = model(torch.from_numpy(

@@ -167,7 +167,7 @@ def test_madam_raises():
 
 
 def test_flatten_params_makes_parameters_views():
-    model, _ = get_model(tconfig.Config(**TINY))
+    model, _ = get_model(tconfig.Config(**TINY), device="cpu")
     before = [p.detach().clone() for p in model.parameters()]
     flat = flatten_params(model)
     assert flat.numel() == sum(p.numel() for p in model.parameters())
@@ -341,7 +341,7 @@ def _tiny_pair(kernel: str, port_kernel: str | None = None):
     a small uint8 dataset."""
     jside = _jax_side(kernel)
     tcfg = tconfig.Config(**dict(TINY, pallas_kernel=port_kernel or kernel))
-    tmodel, _ = get_model(tcfg)
+    tmodel, _ = get_model(tcfg, device="cpu")
     tmodel.load_state_dict(state_dict_from_flax(jside[2].params))
     ttx = make_optimizer(tcfg, N_TRAIN // tcfg.batch_size)
     tstate = init_state(tcfg, tmodel, ttx)
@@ -403,7 +403,7 @@ def test_train_steps_match_jax(kernel, n_steps):
 def test_nonfinite_guard_leaves_params_moments_and_count():
     _, (tcfg, tmodel, ttx, tstate), (x, y, perm) = _tiny_pair("einsum",
                                                               "fused")
-    tstate.metrics_acc = make_metrics_zeros(tcfg)
+    tstate.metrics_acc = make_metrics_zeros(tcfg, device="cpu")
     tstep = make_train_step(tcfg, tmodel, ttx)
     xt, yt, pt = (torch.from_numpy(a) for a in (x, y, perm))
     tstate, _ = tstep(tstate, xt, yt, pt, 0)  # one applied step first
@@ -429,10 +429,10 @@ def test_nonfinite_guard_leaves_params_moments_and_count():
 def test_train_step_with_batch_mixing(mix):
     kw = dict(TINY, **{mix: True})
     tcfg = tconfig.Config(**kw)
-    model, _ = get_model(tcfg)
+    model, _ = get_model(tcfg, device="cpu")
     tx = make_optimizer(tcfg, 4)
     state = init_state(tcfg, model, tx)
-    state.metrics_acc = make_metrics_zeros(tcfg)
+    state.metrics_acc = make_metrics_zeros(tcfg, device="cpu")
     step = make_train_step(tcfg, model, tx)
     rng = np.random.default_rng(8)
     xt = torch.from_numpy(rng.integers(0, 256, (32, 32, 32, 3), np.uint8))
@@ -499,7 +499,7 @@ def test_cpu_training_path_counts_no_launch():
 
 def test_init_state_starts_at_zero():
     tcfg = tconfig.Config(**TINY)
-    model, _ = get_model(tcfg)
+    model, _ = get_model(tcfg, device="cpu")
     state = init_state(tcfg, model, make_optimizer(tcfg, 4))
     assert state.step == 0 and int(state.opt_state["count"]) == 0
     assert state.params.numel() == sum(p.numel() for p in model.parameters())

@@ -26,6 +26,7 @@ from vit_cifar_torch.models.vit import ViT
 from vit_cifar_torch.ops.attention import MultiHeadSelfAttention
 from vit_cifar_torch.ops.common import EncoderBlock
 from vit_cifar_torch.ops.patchify import from_words, to_words
+from vit_cifar_torch.train.steps import make_metrics_zeros
 from vit_cifar_torch.utils.transplant import (flax_from_state_dict,
                                               state_dict_from_flax)
 from vit_cifar_tpu.data.augment import normalize as jax_normalize
@@ -53,7 +54,7 @@ def _pair(seed=0, **cfg_kw):
     jmodel, _ = jax_get_model(jcfg)
     params = jmodel.init(jax.random.PRNGKey(seed),
                          jnp.zeros((1, 32, 32, 3), jnp.float32))["params"]
-    tmodel, _ = get_model(tconfig.Config(**cfg_kw))
+    tmodel, _ = get_model(tconfig.Config(**cfg_kw), device="cpu")
     tmodel.load_state_dict(state_dict_from_flax(params))
     return jcfg, jmodel, params, tmodel
 
@@ -146,7 +147,7 @@ def test_state_dict_round_trip_and_param_count():
                          + ["no_such_model"])
 def test_get_model_raises_for_models_not_ported(name):
     with pytest.raises(NotImplementedError):
-        get_model(tconfig.Config(model_name=name))
+        get_model(tconfig.Config(model_name=name), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(remat=True), dict(seq_pad=1),
@@ -163,12 +164,33 @@ def test_vit_options_not_ported_raise(kw):
 
 def test_get_model_is_seeded():
     cfg = tconfig.Config(**TINY)
-    a = get_model(cfg)[0].state_dict()
-    b = get_model(cfg, generator=torch.Generator().manual_seed(cfg.seed))[0]
-    c = get_model(cfg.replace(seed=cfg.seed + 1))[0].state_dict()
+    a = get_model(cfg, device="cpu")[0].state_dict()
+    b = get_model(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(cfg.seed))[0]
+    c = get_model(cfg.replace(seed=cfg.seed + 1), device="cpu")[0].state_dict()
     for key, val in b.state_dict().items():
         torch.testing.assert_close(val, a[key], rtol=0, atol=0)
     assert not torch.equal(a["emb.weight"], c["emb.weight"])
+
+
+@pytest.mark.parametrize("make", ["get_model", "make_metrics_zeros"])
+def test_port_entry_points_default_to_the_card(make):
+    """``get_model`` and ``make_metrics_zeros`` build on the CUDA card
+    unless the caller asks for the CPU; without a card the default raises
+    and ``device="cpu"`` builds."""
+    cfg = tconfig.Config(**TINY)
+
+    def tensors(**kw):
+        if make == "get_model":
+            return list(get_model(cfg, **kw)[0].parameters())
+        return list(make_metrics_zeros(cfg, **kw).values())
+
+    assert {t.device.type for t in tensors(device="cpu")} == {"cpu"}
+    if torch.cuda.is_available():
+        assert {t.device.type for t in tensors()} == {"cuda"}
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            tensors()
 
 
 def test_config_matches_jax_config():

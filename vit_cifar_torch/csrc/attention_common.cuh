@@ -42,16 +42,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Sets the block's dynamic shared memory and launches; returns the launch's
-// cudaError_t.
+// Sets the block's dynamic shared memory and launches blocks of `threads`
+// threads; returns the launch's cudaError_t.
 template <typename Kernel, typename... Args>
-cudaError_t launch_with_smem(Kernel kernel, int blocks, size_t smem,
-                             cudaStream_t stream, Args... args) {
+cudaError_t launch_with_smem(Kernel kernel, int blocks, int threads,
+                             size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<blocks, kThreads, smem, stream>>>(args...);
+  kernel<<<blocks, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

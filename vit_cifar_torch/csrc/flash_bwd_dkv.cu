@@ -200,7 +200,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    float scale, cudaStream_t stream) {
   const int tiles = (seq + kTileK - 1) / kTileK;
   return launch_with_smem(
-      flash_bwd_dkv_kernel<T, kCols>, B * H * tiles, smem_bytes(D), stream,
+      flash_bwd_dkv_kernel<T, kCols>, B * H * tiles, kThreads, smem_bytes(D),
+      stream,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
       static_cast<const T*>(dout), static_cast<const float*>(lse),

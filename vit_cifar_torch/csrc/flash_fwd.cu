@@ -5,38 +5,49 @@
 // flash_attention) and the training one (reached through the custom VJP's
 // _flash_fwd), which also writes the row logsumexp.  For every (batch,
 // head): s = q.k^T * scale, then the online softmax over key tiles --
-// running row max m, normaliser l and unnormalised context acc, rescaled by
-// exp(m_old - m_new) whenever a tile raises the max -- and finally
-// o = acc / l and lse = m + log(l), all in f32 whatever the input type.  o
-// is written in the (B, T, H, D) layout that flash_attention returns; lse,
-// when given, is (B, H, T) f32, not the TPU's lane-broadcast (B, H, Tp, 128).
+// running row max m, normaliser l and unnormalised context acc, rescaled
+// whenever a tile raises the max -- and finally o = acc / l and
+// lse = m + log(l), with f32 softmax and sums whatever the input type.  o is
+// written in the (B, T, H, D) layout that flash_attention returns; lse, when
+// given, is (B, H, T) f32, not the TPU's lane-broadcast (B, H, Tp, 128).
+// Offsets into q, k, v and o are int64; nothing is padded in device memory.
 //
 // What bounds it on this card: at the pixel-token ViT's shape (B, H, T, D)
 // = (128, 12, 1025, 32), one head is two 1025x1025x32 products and 1.05 M
 // exps against 262 KB of q, k, v and o in bf16, some 500 FLOP per byte --
-// above the ~295 FLOP per byte at which the tensor cores and not device
-// memory become the limit, and the exps alone (one per logit, on the
-// special-function units) take longer than either.  This first version
-// runs the products on the CUDA cores in f32, each FMA reading shared
-// memory, and that is what bounds it; the tensor cores are later work.
-// Its shared memory does not grow with T: a block holds one tile of 64
-// query rows and one tile of 64 keys and values at a time, so any T works
-// (the whole-head kernel mhsa_fwd.cu stops at T=792 for D=32).
+// compute-bound, and the exps (one per logit, 16 a clock per SM on the
+// special-function units) take longer than the products at the tensor
+// cores' peak.  So the bf16 instance keeps every logit in registers and
+// spends as little as it can besides one exp2f per logit:
 //
-// Layout of the work: one block per (b, h, tile of kRows*kWarps = 64 query
-// rows); warp w owns rows w*kRows .. w*kRows+kRows-1 of the tile and keeps
-// their m, l and acc in registers (acc spread over lanes by d).  The TPU's
-// sequential innermost kv grid axis is the loop over key tiles inside the
-// block; nothing carries from one block to another.  For each key tile the
-// block stages K (row stride D+1, so that 32 lanes reading 32 keys at one d
-// hit 32 banks) and V in shared memory; for each of its rows a warp
-// computes the logits of the tile's keys (lanes over keys), the tile max
-// and sum with warp shuffles, then p.V (lanes over d).  The last key tile
-// is ragged: its missing keys are never read, and their logits are -inf.
-// As in the TPU kernel, a tile whose logits are all -inf keeps m at -inf
-// and must not turn it into NaN: exp(s - m_new) uses m_new = 0 there and
-// the rescale factor of an empty history is 0.  Query rows past T are
-// neither computed nor written.  Offsets into q, k, v and o are int64.
+//   bf16 (dtype 1), on the tensor cores (mma_attention.cuh).  One block of
+//   4 warps per (b, h, 64 query rows); a warp owns 16 rows, their q as mma
+//   A fragments read once from device memory, and m, l and o in
+//   accumulator registers.  K and V tiles of 64 keys are staged as bf16 in
+//   shared memory with cp.async, two stages deep, so the next tile loads
+//   while this one computes; their rows are an odd number of 16-byte
+//   chunks apart, so ldmatrix is free of bank conflicts.  s = q.k^T and
+//   o += p.v are mma.sync.m16n8k16 (bf16 in, f32 accumulate), V through
+//   ldmatrix.trans; p is split into bf16 hi + lo and both go through the
+//   tensor cores, so p.v keeps p at f32 accuracy as the TPU kernel does.
+//   The softmax runs on the accumulator fragments (row max and sum over a
+//   quad of lanes), with scale*log2(e) folded into one multiply so that
+//   each exp is one exp2f.  Keys past T read zeros and get -inf logits;
+//   columns past D read zeros (any D <= 128); rows past T in a warp's
+//   16 are zero rows that are never written, and a warp whose 16 rows all
+//   lie past T computes nothing.
+//
+//   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
+//   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
+//   to; so f32 keeps the first design: one block of 8 warps per 64 query
+//   rows, q, K and V converted into f32 shared memory, each warp walking
+//   its 8 rows with lanes over keys for the logits and over d for p.v.
+//   This is a dispatch by dtype, not a fallback.
+//
+// Both instances keep the TPU kernel's guard: a tile whose logits are all
+// -inf keeps m at -inf and must not turn it into NaN, so exp uses m_new = 0
+// there and the rescale factor of an empty history is 0.  Shared memory
+// does not grow with T, so any T runs.
 //
 // Built by vit_cifar_torch/ops/cuda/build.py (nvcc, sm_90a, plain C
 // interface bound with ctypes).
@@ -46,6 +57,7 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
+#include "mma_attention.cuh"
 
 namespace {
 
@@ -55,6 +67,7 @@ constexpr int kRows = 8;                 // query rows per warp
 constexpr int kTileQ = kRows * kWarps;   // query rows per block
 constexpr int kTileK = 64;               // keys per tile: two per lane
 
+// ---- f32: the CUDA-core instance -----------------------------------------
 // Dynamic shared memory, in floats:
 //   Q    kTileQ * D         (the block's query rows)
 //   K    kTileK * (D + 1)   (the key tile, padded row stride)
@@ -171,28 +184,129 @@ size_t smem_bytes(int D) {
                           static_cast<size_t>(kTileK) * D + kWarps * kTileK);
 }
 
-template <typename T, int kCols>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int B, int H, int seq, int D, float scale,
-                   cudaStream_t stream) {
+template <int kCols>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       void* lse, int B, int H, int seq, int D, float scale,
+                       cudaStream_t stream) {
   const int tiles = (seq + kTileQ - 1) / kTileQ;
   return launch_with_smem(
-      flash_fwd_kernel<T, kCols>, B * H * tiles, smem_bytes(D), stream,
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
+      flash_fwd_kernel<float, kCols>, B * H * tiles, kThreads, smem_bytes(D),
+      stream, static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), H, seq, D, scale);
 }
 
-template <typename T>
-cudaError_t launch_for_d(const void* q, const void* k, const void* v,
-                         void* out, void* lse, int B, int H, int seq, int D,
-                         float scale, cudaStream_t stream) {
-  if (D <= 32)
-    return launch<T, 1>(q, k, v, out, lse, B, H, seq, D, scale, stream);
-  if (D <= 64)
-    return launch<T, 2>(q, k, v, out, lse, B, H, seq, D, scale, stream);
+// ---- bf16: the tensor-core instance --------------------------------------
+constexpr int kMmaWarps = 4;
+constexpr int kMmaTileQ = 16 * kMmaWarps;  // query rows per block
+constexpr int kMmaThreads = 32 * kMmaWarps;
+
+// Dynamic shared memory, in bf16: 8 zeros (the chunk that rows past a tile
+// and columns past D read), then K stage 0, K stage 1, V stage 0, V stage 1,
+// each kChunk rows of stride_elems(D).
+size_t mma_smem_bytes(int D) {
+  return sizeof(__nv_bfloat16) *
+         (8 + 4 * static_cast<size_t>(attn_mma::kChunk) *
+                  attn_mma::stride_elems(D));
+}
+
+template <int kDp>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ lse, int H, int seq, int D,
+                         float c, bool vec) {
+  using namespace attn_mma;
+  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
+  const int tile = kChunk * stride_elems(D);
+  __nv_bfloat16* zeros = smem_bf16;
+  __nv_bfloat16* k_s = smem_bf16 + 8;  // stage i at k_s + i * tile
+  __nv_bfloat16* v_s = k_s + 2 * tile;
+
+  const int tiles = (seq + kMmaTileQ - 1) / kMmaTileQ;
+  const int bh = blockIdx.x / tiles;  // b * H + h
+  const int q0 = (blockIdx.x - bh * tiles) * kMmaTileQ;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int64_t head = static_cast<int64_t>(bh) * seq * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = q0 + 16 * warp;
+  const bool active = row0 < seq;  // warp-uniform
+
+  auto stage = [&](int it) {
+    const int k0 = it * kChunk;
+    const int n = min(kChunk, seq - k0);
+    const int64_t off = head + static_cast<int64_t>(k0) * D;
+    stage_rows(k_s + (it & 1) * tile, k + off, n, D, vec, threadIdx.x,
+               kMmaThreads);
+    stage_rows(v_s + (it & 1) * tile, v + off, n, D, vec, threadIdx.x,
+               kMmaThreads);
+    cp_async_commit();
+  };
+
+  const int nkt = (seq + kChunk - 1) / kChunk;
+  stage(0);
+  if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
+  RowTile<kDp> st;
+  start_rows(st, q + head, row0, seq, D, lane);
+  for (int it = 0; it < nkt; ++it) {
+    if (it + 1 < nkt) {
+      stage(it + 1);  // its buffer was last read before the previous sync
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it has landed for every thread
+    if (active) {
+      const int n = min(kChunk, seq - it * kChunk);
+      attend_chunk(st, k_s + (it & 1) * tile, v_s + (it & 1) * tile, 0, n, n,
+                   D, zeros, c, lane);
+    }
+    __syncthreads();  // tile it is no longer read
+  }
+  if (active) finish_rows(st, out, lse, b, h, H, bh, row0, seq, D, lane);
+}
+
+template <int kDp>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
+                       void* lse, int B, int H, int seq, int D, float scale,
+                       cudaStream_t stream) {
+  const int tiles = (seq + kMmaTileQ - 1) / kMmaTileQ;
+  const bool vec = attn_mma::can_copy_chunks(D, k, v);
+  return launch_with_smem(
+      flash_fwd_mma_kernel<kDp>, B * H * tiles, kMmaThreads, mma_smem_bytes(D),
+      stream, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), H, seq, D, scale * attn_mma::kLog2e, vec);
+}
+
+cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
+                             void* out, void* lse, int B, int H, int seq,
+                             int D, float scale, cudaStream_t stream) {
+  if (D <= 32) return launch_f32<1>(q, k, v, out, lse, B, H, seq, D, scale,
+                                    stream);
+  if (D <= 64) return launch_f32<2>(q, k, v, out, lse, B, H, seq, D, scale,
+                                    stream);
   if (D <= kMaxHeadDim)
-    return launch<T, 4>(q, k, v, out, lse, B, H, seq, D, scale, stream);
+    return launch_f32<4>(q, k, v, out, lse, B, H, seq, D, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_mma_for_d(const void* q, const void* k, const void* v,
+                             void* out, void* lse, int B, int H, int seq,
+                             int D, float scale, cudaStream_t stream) {
+  if (D <= 16) return launch_mma<16>(q, k, v, out, lse, B, H, seq, D, scale,
+                                     stream);
+  if (D <= 32) return launch_mma<32>(q, k, v, out, lse, B, H, seq, D, scale,
+                                     stream);
+  if (D <= 64) return launch_mma<64>(q, k, v, out, lse, B, H, seq, D, scale,
+                                     stream);
+  if (D <= kMaxHeadDim)
+    return launch_mma<128>(q, k, v, out, lse, B, H, seq, D, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -208,18 +322,20 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_for_d<float>(q, k, v, out, lse, B, H, T, D, scale, s);
+      return launch_f32_for_d(q, k, v, out, lse, B, H, T, D, scale, s);
     case 1:
-      return launch_for_d<__nv_bfloat16>(q, k, v, out, lse, B, H, T, D,
-                                         scale, s);
+      return launch_mma_for_d(q, k, v, out, lse, B, H, T, D, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The dynamic shared memory one launch needs, in bytes; it depends on D
-// alone (T is taken for the interface the whole-head kernels share).
+// The dynamic shared memory one launch needs, in bytes: the larger of the
+// two instances' needs, which depend on D alone (T is taken for the
+// interface the whole-head kernels share).
 extern "C" long long flash_fwd_smem_bytes(int T, int D) {
   (void)T;
-  return static_cast<long long>(smem_bytes(D));
+  return static_cast<long long>(smem_bytes(D) > mma_smem_bytes(D)
+                                    ? smem_bytes(D)
+                                    : mma_smem_bytes(D));
 }

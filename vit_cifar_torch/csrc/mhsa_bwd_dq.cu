@@ -124,7 +124,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* dq, int B, int H, int seq, int D, float scale,
                    cudaStream_t stream) {
   return launch_with_smem(
-      mhsa_bwd_dq_kernel<T>, B * H, smem_bytes(seq, D), stream,
+      mhsa_bwd_dq_kernel<T>, B * H, kThreads, smem_bytes(seq, D), stream,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
       static_cast<const T*>(dout), static_cast<const float*>(lse),

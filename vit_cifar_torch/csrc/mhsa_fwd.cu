@@ -5,29 +5,49 @@
 // fused_attention) and the training one (kernel3l, reached through the
 // custom VJP's _fwd), which also writes the row logsumexp.  For every
 // (batch, head): s = q.k^T * scale, p = exp(s - rowmax), o = (p / rowsum).v,
-// all in f32 whatever the input type, and o is written in the (B, T, H, D)
-// layout that fused_attention returns.  When `lse` is given, each row also
-// writes lse = rowmax + log(rowsum) in f32, the one residual the backward
-// kernels (mhsa_bwd_dq.cu, mhsa_bwd_dkv.cu) need besides q, k, v and o.  It
-// is (B, H, T), not the TPU's lane-broadcast (B, H, Tp, 128), which existed
-// only for the TPU's tiling.
+// with f32 softmax and sums whatever the input type, and o is written in the
+// (B, T, H, D) layout that fused_attention returns.  When `lse` is given,
+// each row also writes lse = rowmax + log(rowsum) in f32, the one residual
+// the backward kernels (mhsa_bwd_dq.cu, mhsa_bwd_dkv.cu) need besides q, k,
+// v and o.  It is (B, H, T), not the TPU's lane-broadcast (B, H, Tp, 128).
 //
 // What bounds it on this card: at the model's shape (T=65, head_dim=32) one
 // head is two 65x65x32 products, about 0.5 MFLOP against 12 KB of q/k/v in
-// bf16, some 45 FLOP per byte -- far under the ~295 FLOP/byte at which the
-// tensor cores and not device memory become the limit.  The kernel is bound
-// by memory traffic and by latency.  So the design keeps the (H, T, T)
-// logits and probabilities out of device memory altogether: each block
-// stages one head's K and V in shared memory, each warp works one query row
-// at a time with its logits in shared memory, and device memory sees only
-// q, k, v in and the context (and lse) out.  There is no padding: every loop
-// is bound by T and D, so any T and D work up to the shared-memory limit.
+// bf16, some 45 FLOP per byte -- under the ~295 FLOP/byte at which the
+// tensor cores and not device memory become the limit, so the bound is the
+// bytes.  The design keeps the (H, T, T) logits out of device memory: one
+// block per (b, h) stages the head's K and V in shared memory once, and
+// device memory sees only q, k, v in and the context (and lse) out.  What
+// held the first version back was not the bytes but the shared-memory
+// loads of its f32 FMAs, and a key loop of 32 lanes over 65 keys whose last
+// pass had one lane working.  So the bf16 instance moves the arithmetic
+// into registers and onto the tensor cores:
 //
-// Layout of the work: one block per (b, h), kWarps warps.  Warp w takes the
-// query rows w, w + kWarps, ...; for a row, lanes run over keys for the
-// logits and reduce max and sum with warp shuffles, then lanes run over D
-// for p.v.  K is stored with a row stride of D+1 (odd for even D) so that
-// 32 lanes reading 32 different keys at the same d hit 32 different banks.
+//   bf16 (dtype 1), on the tensor cores (mma_attention.cuh).  K and V are
+//   staged once as bf16 with cp.async, rows an odd number of 16-byte chunks
+//   apart (ldmatrix without bank conflicts), nothing past T stored: keys
+//   past T read a chunk of zeros.  The block has one warp per 16-row query
+//   tile, at most 8 (at T=65: five warps, one tile each), and a warp takes
+//   the tiles w, w + warps, ...  A tile's q are mma A fragments read from
+//   device memory; it walks the keys in chunks of 64 with the online
+//   softmax on the accumulator fragments -- s = q.k^T and o += p.v on
+//   mma.sync.m16n8k16, p split into bf16 hi + lo so that p.v keeps p at
+//   f32 accuracy as the TPU kernel does, scale*log2(e) folded into one
+//   multiply so that each exp is one exp2f, lse returned in natural log.
+//   Rows past T are zero rows that are never written.  Its shared memory,
+//   4 * T * stride_elems(D) + 16 bytes, is never more than the f32
+//   formula's 4 * (T * (D + 1) + T * D + 8 * D + 8 * T), which
+//   mhsa_fwd_smem_bytes reports and the router reads: stride_elems(D) is
+//   8 for D <= 8 and at most D + 15 beyond, and 4 * (D + 15) <= 8 * D + 36
+//   for D >= 6.  Head dims past 128 take the f32 design below in bf16.
+//
+//   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
+//   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
+//   to; so f32 keeps the first design: K (row stride D+1) and V in f32
+//   shared memory, kWarps warps, warp w taking the query rows w,
+//   w + kWarps, ..., lanes over keys for the logits (max and sum by warp
+//   shuffles), then lanes over D for p.v.  This is a dispatch by dtype,
+//   not a fallback.
 //
 // Built by vit_cifar_torch/ops/cuda/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -39,11 +59,13 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
+#include "mma_attention.cuh"
 
 namespace {
 
 using namespace attn;
 
+// ---- f32 (and bf16 past D = 128): the CUDA-core instance -----------------
 // Dynamic shared memory, in floats:
 //   K    T * (D + 1)   (padded row stride against bank conflicts)
 //   V    T * D
@@ -127,10 +149,87 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int H, int seq, int D, float scale,
                    cudaStream_t stream) {
   return launch_with_smem(
-      mhsa_fwd_kernel<T>, B * H, smem_bytes(seq, D), stream,
+      mhsa_fwd_kernel<T>, B * H, kThreads, smem_bytes(seq, D), stream,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), H, seq, D, scale);
+}
+
+// ---- bf16: the tensor-core instance --------------------------------------
+// Dynamic shared memory, in bf16: 8 zeros (the chunk that keys past T and
+// columns past D read), then K and V, T rows of stride_elems(D) each.
+size_t mma_smem_bytes(int seq, int D) {
+  return sizeof(__nv_bfloat16) *
+         (8 + 2 * static_cast<size_t>(seq) * attn_mma::stride_elems(D));
+}
+
+template <int kDp>
+__global__ void __launch_bounds__(kThreads)
+    mhsa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse, int H, int seq, int D,
+                        float c, bool vec) {
+  using namespace attn_mma;
+  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
+  __nv_bfloat16* zeros = smem_bf16;
+  __nv_bfloat16* k_s = smem_bf16 + 8;
+  __nv_bfloat16* v_s = k_s + seq * stride_elems(D);
+
+  const int bh = blockIdx.x;  // b * H + h
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int64_t head = static_cast<int64_t>(bh) * seq * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+
+  stage_rows(k_s, k + head, seq, D, vec, threadIdx.x, blockDim.x);
+  stage_rows(v_s, v + head, seq, D, vec, threadIdx.x, blockDim.x);
+  cp_async_commit();
+  if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int row0 = 16 * warp; row0 < seq; row0 += 16 * warps) {
+    RowTile<kDp> st;
+    start_rows(st, q + head, row0, seq, D, lane);
+    for (int j0 = 0; j0 < seq; j0 += kChunk)
+      attend_chunk(st, k_s, v_s, j0, min(kChunk, seq - j0), seq, D, zeros, c,
+                   lane);
+    finish_rows(st, out, lse, b, h, H, bh, row0, seq, D, lane);
+  }
+}
+
+template <int kDp>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
+                       void* lse, int B, int H, int seq, int D, float scale,
+                       cudaStream_t stream) {
+  // one warp per 16-row query tile, at most kWarps
+  const int warps = min((seq + 15) / 16, kWarps);
+  const bool vec = attn_mma::can_copy_chunks(D, k, v);
+  return launch_with_smem(
+      mhsa_fwd_mma_kernel<kDp>, B * H, 32 * warps, mma_smem_bytes(seq, D),
+      stream, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), H, seq, D, scale * attn_mma::kLog2e, vec);
+}
+
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* out, void* lse, int B, int H, int seq, int D,
+                        float scale, cudaStream_t stream) {
+  if (D <= 16) return launch_mma<16>(q, k, v, out, lse, B, H, seq, D, scale,
+                                     stream);
+  if (D <= 32) return launch_mma<32>(q, k, v, out, lse, B, H, seq, D, scale,
+                                     stream);
+  if (D <= 64) return launch_mma<64>(q, k, v, out, lse, B, H, seq, D, scale,
+                                     stream);
+  if (D <= kMaxHeadDim)
+    return launch_mma<128>(q, k, v, out, lse, B, H, seq, D, scale, stream);
+  return launch<__nv_bfloat16>(q, k, v, out, lse, B, H, seq, D, scale,
+                               stream);
 }
 
 }  // namespace
@@ -147,14 +246,15 @@ extern "C" int mhsa_fwd(const void* q, const void* k, const void* v,
     case 0:
       return launch<float>(q, k, v, out, lse, B, H, T, D, scale, s);
     case 1:
-      return launch<__nv_bfloat16>(q, k, v, out, lse, B, H, T, D, scale, s);
+      return launch_bf16(q, k, v, out, lse, B, H, T, D, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The dynamic shared memory one launch needs, in bytes, so that the caller
-// can refuse a shape before launching.
+// The dynamic shared memory one launch needs at most, in bytes, so that the
+// caller can refuse a shape before launching: the f32 instance's, which is
+// never less than the bf16 one's (see the note at the top).
 extern "C" long long mhsa_fwd_smem_bytes(int T, int D) {
   return static_cast<long long>(smem_bytes(T, D));
 }

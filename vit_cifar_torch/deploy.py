@@ -38,7 +38,9 @@ def export_inference(ckpt_dir: str, out_dir: str, which: str = "best",
     ``device`` is recorded as the device the artifact is meant to serve on.
     """
     payload, cfg = load_checkpoint(ckpt_dir, prefer=which)
-    model, _ = get_model(cfg)
+    # built on the CPU whatever ``device`` says: it only checks names and
+    # shapes and writes the state dict
+    model, _ = get_model(cfg, device="cpu")
     model.load_state_dict(payload["params"])  # checks names and shapes
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, _ARTIFACT)

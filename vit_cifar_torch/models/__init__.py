@@ -18,9 +18,10 @@ from .vit import ViT
 _ZOO_ITEM = "ROADMAP queue 1, item 7 (zoo mixers)"
 
 
-def get_model(cfg: Config, *, device=None,
+def get_model(cfg: Config, *, device="cuda",
               generator: torch.Generator | None = None):
-    """Build the model of ``cfg`` on ``device`` (default CPU).
+    """Build the model of ``cfg`` on ``device`` (default the CUDA card;
+    pass ``device="cpu"`` for the CPU).  Without a card the default raises.
 
     Weights are drawn from ``generator`` (default: a CPU generator seeded
     with ``cfg.seed``), always on the CPU, so a seed gives one set of weights

@@ -15,6 +15,13 @@ CUDA tensor launches the hand-written kernel (``csrc/``, built at first use)
 or raises; there is no fallback between the two.  Each wrapper counts its
 launches in ``<wrapper>.launches``.
 
+The forward kernel dispatches by dtype: bf16 runs on the tensor cores
+(``mma.sync``, with p split into bf16 hi + lo so that p.v keeps f32
+accuracy), f32 on the CUDA cores in full f32, since the tensor cores would
+take f32 only as TF32 and miss the f32 limit of 1e-5.  Head dims past 128
+take the CUDA-core design in bf16 too.  The backward kernels run on the
+CUDA cores in f32 for both dtypes.
+
 =======================  ===================  ===============================
 wrapper                  kernel               plain version
 =======================  ===================  ===============================
@@ -185,7 +192,9 @@ def _check_bwd(q, k, v, o, do, lse) -> None:
 def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float):
     """Training forward: (B, H, T, D)^3 -> (out (B, T, H, D), lse (B, H, T)
-    f32).  Launches counted in ``fused_attention_lse.launches``."""
+    f32).  Launches counted in ``fused_attention_lse.launches``.  bf16 runs on
+    the tensor cores, f32 on the CUDA cores (a dispatch by dtype; see
+    above)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return fused_attention_lse_reference(q, k, v, scale)
@@ -251,7 +260,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Where a gradient is needed: :class:`FusedAttentionFunction`.  Otherwise
     CPU tensors go to the plain version and CUDA tensors to the inference
-    kernel, whose launches are counted in ``fused_attention.launches``.
+    kernel, whose launches are counted in ``fused_attention.launches``: bf16 on
+    the tensor cores, f32 on the CUDA cores (a dispatch by dtype).
     """
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

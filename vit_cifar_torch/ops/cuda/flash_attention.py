@@ -24,6 +24,13 @@ CUDA tensor launches the hand-written kernel (``csrc/flash_*.cu``, built at
 first use) or raises; there is no fallback between the two.  Each wrapper
 counts its launches in ``<wrapper>.launches``.
 
+The forward kernel dispatches by dtype: bf16 runs on the tensor cores
+(``mma.sync``, 16 query rows a warp, K/V tiles staged by ``cp.async``, p
+split into bf16 hi + lo so that p.v keeps f32 accuracy), f32 on the CUDA
+cores in full f32, since the tensor cores would take f32 only as TF32 and
+miss the f32 limit of 1e-5.  The backward kernels run on the CUDA cores in
+f32 for both dtypes.
+
 =========================  ====================  =================================
 wrapper                    kernel                plain version
 =========================  ====================  =================================
@@ -135,7 +142,9 @@ def _check_head_dim(q: torch.Tensor) -> None:
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float):
     """Training forward: (B, H, T, D)^3 -> (out (B, T, H, D), lse (B, H, T)
-    f32).  Launches counted in ``flash_attention_lse.launches``."""
+    f32).  Launches counted in ``flash_attention_lse.launches``.  bf16 runs on
+    the tensor cores, f32 on the CUDA cores (a dispatch by dtype; see
+    above)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_lse_reference(q, k, v, scale)
@@ -204,7 +213,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Where a gradient is needed: :class:`FlashAttentionFunction`.  Otherwise
     CPU tensors go to the plain version and CUDA tensors to the inference
-    kernel, whose launches are counted in ``flash_attention.launches``.
+    kernel, whose launches are counted in ``flash_attention.launches``: bf16 on
+    the tensor cores, f32 on the CUDA cores (a dispatch by dtype).
     """
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -60,8 +60,10 @@ def _check_supported(cfg: Config) -> None:
                 f"{_AA_ITEM}")
 
 
-def make_metrics_zeros(cfg: Config, device=None) -> dict[str, torch.Tensor]:
-    """Zero accumulator matching the train step's metrics."""
+def make_metrics_zeros(cfg: Config,
+                       device="cuda") -> dict[str, torch.Tensor]:
+    """Zero accumulator matching the train step's metrics, on ``device``
+    (default the CUDA card; pass ``device="cpu"`` for the CPU)."""
     names = ["loss", "acc"] + (["skipped_nonfinite"]
                                if cfg.nonfinite_guard else [])
     return {n: torch.zeros((), dtype=torch.float32, device=device)
