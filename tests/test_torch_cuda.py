@@ -11,9 +11,10 @@ backward f32 rtol 1e-4 / atol 1e-5 (two chained sums over T); bf16 1e-2
 against the plain version (one bf16 rounding step either way); the
 Function's bf16 grads against autograd through the plain forward 2e-2 (the
 backward reads the forward's output rounded to bf16, autograd its f32
-probabilities).  The forwards' bf16 instances run on the tensor cores and
-their f32 instances on the CUDA cores; both are held to the same limits,
-and the bf16 ones also at ragged T and D.  The flash kernels' bf16 limit
+probabilities).  The bf16 instances of the forwards and of the tiled
+backward pair run on the tensor cores and their f32 instances on the CUDA
+cores; both are held to the same limits, and the bf16 ones also at ragged
+T and D.  The flash kernels' bf16 limit
 is 1e-2 of the reference's largest magnitude, since one bf16 step is at
 most 2**-7 of a value and the values shrink as T grows (about 4x from T=65
 to T=1025).
@@ -26,6 +27,7 @@ import torch
 
 from vit_cifar_torch import Config
 from vit_cifar_torch.models import get_model
+from vit_cifar_torch.ops.attention import MultiHeadSelfAttention
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.ops.cuda import attention as whole_head
 from vit_cifar_torch.ops.cuda.attention import (
@@ -282,6 +284,56 @@ def test_bf16_forwards_match_plain_versions_at_ragged_edges(cuda, T, kernel):
         torch.testing.assert_close(got, want_out, **tol)
         torch.testing.assert_close(out, want_out, **tol)
         torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+# at T=1 the softmax over one key is constant, so dq and dk are 0 in exact
+# arithmetic and kernel and plain version both return f32 rounding noise
+# (6e-8 measured): the backward's ragged-edge limit is 1% of max |grad|
+# but no tighter than this
+RAGGED_BWD_ATOL_FLOOR = 1e-6
+
+
+@pytest.mark.parametrize("T", RAGGED_T)
+def test_bf16_flash_backward_matches_plain_versions_at_ragged_edges(cuda, T):
+    """The bf16 (tensor-core) instances of the tiled dq and dk/dv kernels,
+    where a 16-row tile and a 64-row tile of keys or query rows end, at
+    head dims that are and are not a multiple of 16."""
+    for D in (16, 24, 32, 64, 128):
+        q, k, v, g, scale = _inputs(cuda, (2, 3, T, D), torch.bfloat16,
+                                    seed=T + D)
+        out, lse = flash_attention_lse_reference(q, k, v, scale)
+        args = (q, k, v, out, g, lse, scale)
+        got = (flash_tiled_bwd_dq(*args), *flash_tiled_bwd_dkv(*args))
+        torch.cuda.synchronize()
+        want = (flash_tiled_bwd_dq_reference(*args),
+                *flash_tiled_bwd_dkv_reference(*args))
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            tol = flash_tol(BWD_TOL, torch.bfloat16, w)
+            tol["atol"] = max(tol["atol"], RAGGED_BWD_ATOL_FLOOR)
+            torch.testing.assert_close(
+                a, w, **tol, msg=lambda m: f"{name} T={T} D={D}: {m}")
+
+
+def test_default_config_past_the_tiled_head_dim_trains_on_the_card(cuda):
+    """hidden 384 in 2 heads (head_dim 192) at T=257: no kernel takes that
+    head in training, so the default config takes the einsum path (where
+    the tiled kernels would raise) and launches no kernel; forward and
+    backward run and match the einsum module."""
+    kw = dict(generator=torch.Generator().manual_seed(0), device=cuda)
+    m = MultiHeadSelfAttention(384, 2, **kw)
+    ref = MultiHeadSelfAttention(384, 2, pallas_kernel="einsum", **kw)
+    ref.load_state_dict(m.state_dict())
+    x = torch.randn(2, 257, 384, device=cuda)
+    g = torch.randn(2, 257, 384, device=cuda)
+    before = {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
+    grads = [torch.autograd.grad(mod(x), list(mod.parameters()), g)
+             for mod in (m, ref)]
+    torch.cuda.synchronize()
+    assert {n: w.launches for n, w in KERNEL_WRAPPERS.items()} == before
+    for a, w in zip(*grads):
+        torch.testing.assert_close(a, w, **TOL[torch.float32])
+    with pytest.raises(ValueError, match="head_dim"):
+        MultiHeadSelfAttention(384, 2, pallas_kernel="flash", **kw)(x)
 
 
 def test_whole_head_shared_memory_formulas_match_the_kernels(cuda):

@@ -14,10 +14,12 @@ split where the JAX kernel's is.  Tolerances are the JAX tests' own: rtol
 order) and rtol 1e-4 / atol 1e-5 for the gradients (sums chained twice over
 T).
 
-``mma_forward_model`` models the arithmetic of the bf16 tensor-core
-forwards (``csrc/mma_attention.cuh``), which no CPU can run, and holds it
-against JAX's flash and fused kernels in bf16 and against the plain
-versions at ragged T: lse within 1e-5, outputs within one bf16 step.
+``mma_forward_model`` and ``mma_backward_model`` model the arithmetic of
+the bf16 tensor-core forwards and of the tiled backward pair
+(``csrc/mma_attention.cuh``), which no CPU can run, and hold it against
+JAX's kernels in bf16 and against the plain versions at ragged T: lse
+within 1e-5, outputs and grads within one bf16 step, and before their
+rounding within 1e-5 of the largest value of the f32 plain versions.
 """
 
 import jax
@@ -26,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from vit_cifar_torch.ops import attention as attention_module
 from vit_cifar_torch.ops.attention import MultiHeadSelfAttention, route
 from vit_cifar_torch.ops.cuda import flash_attention as flash_module
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
@@ -37,6 +40,9 @@ from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention_lse_reference, flash_attention_reference,
     flash_tiled_bwd_dkv, flash_tiled_bwd_dkv_reference, flash_tiled_bwd_dq,
     flash_tiled_bwd_dq_reference)
+from vit_cifar_torch.utils.transplant import state_dict_from_flax
+from vit_cifar_tpu.ops.attention import \
+    MultiHeadSelfAttention as JaxMultiHeadSelfAttention
 from vit_cifar_tpu.ops.pallas.attention import \
     _flash_forward_impl as jax_flash_forward_impl
 from vit_cifar_tpu.ops.pallas.attention import \
@@ -231,6 +237,104 @@ def test_mma_forward_model_matches_the_plain_versions_at_ragged_edges(T):
                                          f"{plain.__name__} T={T} D={D}")
 
 
+def mma_backward_model(q, k, v, o, do, lse, scale: float):
+    """A torch model of the arithmetic of the bf16 tensor-core backward
+    kernels (``csrc/flash_bwd_dq.cu``, ``csrc/flash_bwd_dkv.cu``): s = q.k^T
+    and dp = do.v^T of bf16 values summed in f32; p = exp2(s*c -
+    lse*log2(e)) with c the f32 product scale*log2(e); delta = rowsum(do*o)
+    and ds = p*(dp - delta)*scale in f32; p and ds split into bf16 hi =
+    rn(x) and lo = rn(x - hi), both multiplied into k (dq), q (dk) and do
+    (dv), summed over tiles of 64 keys (dq) or query rows (dk, dv) in the
+    kernels' order.  ``o`` and ``do`` are (B, T, H, D), ``lse`` (B, H, T)
+    f32.  Returns ((dq, dk, dv) in bf16, the same before their rounding)."""
+    T = q.shape[2]
+    qf, kf, vf = (a.to(torch.float32) for a in (q, k, v))
+    of, dof = (a.to(torch.float32).transpose(1, 2) for a in (o, do))
+    c = float(np.float32(scale) * np.float32(LOG2E))
+    lse2 = lse[..., None] * float(np.float32(LOG2E))
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    p = torch.exp2(torch.einsum("bhid,bhjd->bhij", qf, kf) * c - lse2)
+    ds = p * (torch.einsum("bhid,bhjd->bhij", dof, vf) - delta) * scale
+
+    def hi_lo(x):
+        hi = x.to(torch.bfloat16).to(torch.float32)
+        return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for t0 in range(0, T, MMA_CHUNK):
+        t = slice(t0, t0 + MMA_CHUNK)
+        for half in hi_lo(ds[..., t]):  # dq: a tile of 64 keys
+            dq += torch.einsum("bhij,bhjd->bhid", half, kf[:, :, t])
+        for half in hi_lo(ds[:, :, t]):  # dk: a tile of 64 query rows
+            dk += torch.einsum("bhij,bhid->bhjd", half, qf[:, :, t])
+        for half in hi_lo(p[:, :, t]):
+            dv += torch.einsum("bhij,bhid->bhjd", half, dof[:, :, t])
+    return tuple(a.to(torch.bfloat16) for a in (dq, dk, dv)), (dq, dk, dv)
+
+
+def _bf16_cotangent(B, H, T, D, seed):
+    return torch.from_numpy(_inputs(B, H, T, D, seed)[3]).to(torch.bfloat16)
+
+
+def _plain_passes(*args):
+    return (flash_tiled_bwd_dq_reference(*args),
+            *flash_tiled_bwd_dkv_reference(*args))
+
+
+@cases
+def test_mma_backward_model_matches_jax_vjp_in_bf16(case):
+    """The tensor-core backward's arithmetic, modelled in torch, against
+    ``jax.vjp`` of JAX's ``flash_attention`` (interpret mode, at the case's
+    tile split) on the same bf16 inputs, reading JAX's own forward output
+    and lse: dq, dk and dv each within one bf16 step, and before rounding
+    within 1e-5 of max |grad| of the f32 plain passes (the hi/lo split
+    keeps p and ds at f32 accuracy: 2-5e-6 apart here, where p and ds
+    rounded to bf16 alone miss by about 2e-3)."""
+    B, H, T, D, bq, bk = case
+    (q, k, v), (tq, tk, tv), scale = _bf16_inputs(B, H, T, D, seed=10)
+    g = _bf16_cotangent(B, H, T, D, seed=11)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    jg = jnp.asarray(g.to(torch.float32).numpy(), jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(a, b, c, scale, bq,
+                                                         bk), jq, jk, jv)
+    want = [np.asarray(w, np.float32) for w in vjp(jg)]
+    jout, jlse = jax_flash_forward_impl(jq, jk, jv, scale, bq, bk,
+                                        with_lse=True)
+    o = torch.from_numpy(np.asarray(
+        jout[:, :, :T, :D].transpose(0, 2, 1, 3), np.float32)).to(
+            torch.bfloat16)
+    lse = torch.from_numpy(np.asarray(jlse)[:, :, :T, 0].copy())
+
+    got, unrounded = mma_backward_model(tq, tk, tv, o, g, lse, scale)
+    exact = _plain_passes(*(a.to(torch.float32) for a in (tq, tk, tv, o, g)),
+                          lse, scale)
+    for name, a, u, w, e in zip(("dq", "dk", "dv"), got, unrounded, want,
+                                exact):
+        assert a.shape == (B, H, T, D) and a.dtype == torch.bfloat16
+        _assert_within_one_bf16_step(a.to(torch.float32).numpy(), w, name)
+        np.testing.assert_allclose(u.numpy(), e.numpy(), rtol=0,
+                                   atol=1e-5 * e.abs().max().item(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("T", [1, 7, 8, 15, 16, 17, 63, 64, 65, 66, 127, 128,
+                               129])
+def test_mma_backward_model_matches_the_plain_passes_at_ragged_edges(T):
+    """Tiles of 16 and 64 keys or query rows end at every T of the card's
+    ragged-edge phase; the model's grads stay within one bf16 step of the
+    plain passes' at head dims that are and are not a multiple of 16."""
+    for D in (16, 24, 32, 64, 128):
+        _, (tq, tk, tv), scale = _bf16_inputs(1, 2, T, D, seed=T + D)
+        g = _bf16_cotangent(1, 2, T, D, seed=T + D + 1)
+        o, lse = flash_attention_lse_reference(tq, tk, tv, scale)
+        args = (tq, tk, tv, o, g, lse, scale)
+        got, _ = mma_backward_model(*args)
+        for name, a, w in zip(("dq", "dk", "dv"), got, _plain_passes(*args)):
+            _assert_within_one_bf16_step(a.to(torch.float32).numpy(),
+                                         w.to(torch.float32).numpy(),
+                                         f"{name} T={T} D={D}")
+
+
 def test_flash_matches_the_whole_head_plain_version_in_bf16():
     """In bf16 the online softmax keeps f32 inside and rounds only its
     output, as the one-block plain version does: one bf16 step apart."""
@@ -300,6 +404,13 @@ def test_flash_function_saves_no_t_by_t_tensor():
     (1025, 32, "einsum", True, "einsum"),
     (65, 32, "einsum", False, "einsum"),
     (700, 32, "fused", False, "fused"),
+    # past the tiled kernels' head_dim: the JAX module's default path
+    (257, 192, "", True, "einsum"),
+    (257, 192, None, False, "einsum"),
+    (136, 192, "", True, "fused"),       # the last T the whole head holds
+    (137, 192, "", True, "einsum"),
+    (257, 192, "flash", True, "flash"),  # forced: raises on the card
+    (257, 128, "", True, "flash"),
 ])
 def test_route(T, D, kernel, training, want):
     assert route(T, D, kernel, training) == want
@@ -319,6 +430,46 @@ def test_whole_head_bf16_layout_never_needs_more_than_the_f32_formula(D):
     T = np.arange(1, 8193)
     bf16 = 2 * (8 + 2 * T * stride)
     assert (bf16 <= WHOLE_HEAD_SMEM_BYTES["mhsa_fwd"](T, D)).all()
+
+
+def test_default_module_past_the_tiled_head_dim_matches_jax(monkeypatch):
+    """hidden 384 in 2 heads (head_dim 192) at T=257 (patch 16): the
+    whole-head kernels cannot hold the head for training and the tiled
+    kernels stop at head_dim 128, so the default config takes the einsum
+    path -- the JAX module's default -- and never the tiled one; its
+    output and grads (input and every parameter) match the JAX module's in
+    f32 (the order of sums differs: rtol 1e-4 / atol 1e-5)."""
+    features, head, T = 384, 2, 257
+    assert route(T, features // head, None, True) == "einsum"
+
+    def refuse(*args):
+        raise AssertionError("the tiled path was taken")
+
+    monkeypatch.setattr(attention_module, "flash_attention", refuse)
+    rng = np.random.default_rng(12)
+    x, g = (rng.normal(size=(2, T, features)).astype(np.float32)
+            for _ in range(2))
+    jm = JaxMultiHeadSelfAttention(features=features, head=head)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    want, vjp = jax.vjp(lambda p, a: jm.apply({"params": p}, a), params,
+                        jnp.asarray(x))
+    want_params, want_x = vjp(jnp.asarray(g))
+
+    tm = MultiHeadSelfAttention(features, head, generator=torch.Generator())
+    tm.load_state_dict(state_dict_from_flax(params))
+    tx = torch.from_numpy(x).requires_grad_()
+    out = tm(tx)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               **GRAD_TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_x),
+                               **GRAD_TOL)
+    want_grads = state_dict_from_flax(want_params)
+    assert set(want_grads) == {n for n, _ in tm.named_parameters()}
+    for name, param in tm.named_parameters():
+        np.testing.assert_allclose(param.grad.numpy(),
+                                   want_grads[name].numpy(), **GRAD_TOL,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("T,D,training", [(1025, 32, False), (700, 32, True),

@@ -15,39 +15,61 @@
 // What bounds it on this card: at the pixel-token ViT's shape (128, 12,
 // 1025, 32) one head is four 1025x1025x32 products (q.k, do.v, p^T.do,
 // ds^T.q) and 1.05 M exps against about 0.46 MB in and out in bf16, some
-// 900 FLOP per byte: arithmetic, not device memory, bounds it.  This first
-// version runs the products on the CUDA cores in f32, each FMA reading
-// shared memory, and that is its limit.  Unlike mhsa_bwd_dkv.cu, which
-// holds a whole head's Q and dO in shared memory and stops at T=685 for
-// D=32, its shared memory does not grow with T.
+// 900 FLOP per byte: arithmetic, not device memory, bounds it, the
+// products at the tensor cores' peak a little more than the exps.
 //
-// Layout of the work: one block per (b, h, tile of 64 keys); warp w owns 8
-// keys and keeps their dk and dv accumulators in registers (spread over
-// lanes by d).  The TPU's sequential innermost q grid axis is the loop over
-// query tiles inside the block, so no block depends on another and no
-// atomics are needed.  For each tile of 64 query rows the block stages Q
-// and dO in shared memory with a row stride of D+1 (32 lanes reading 32
-// rows at one d hit 32 banks), the rows' lse, and their delta, which it
-// recomputes from o and dO for every query tile, as the TPU kernel does:
-// the dq pass (flash_bwd_dq.cu) computes it too, but passing it on would
-// need a (B, H, T) buffer between the two launches for a few percent of
-// this kernel's work.  Then for each of its keys a warp computes p and ds
-// for the tile's rows (lanes over rows) into two buffers in shared memory,
-// then p^T.dO and ds^T.Q (lanes over d).  The last query tile is ragged:
-// its missing rows are never read and their p and ds are 0.  Keys past T
-// are neither computed nor written.  Offsets are int64.
+//   bf16 (dtype 1), on the tensor cores (mma_attention.cuh): the forward
+//   with the roles of the rows swapped.  One block of 4 warps per (b, h,
+//   64 keys); a warp owns 16 keys, their K and V rows as A fragments and
+//   their dk and dv accumulators in registers.  The loop runs over tiles
+//   of 64 query rows: Q and dO (row stride H*D, do being (B, T, H, D)) are
+//   staged as bf16 by cp.async, two stages deep, and beside them the
+//   tile's lse (times log2(e)) and delta in shared memory.  delta is
+//   recomputed for every query tile from o and dO, as the TPU kernel does:
+//   the dq pass computes it too, but handing it over would need a (B, H,
+//   T) buffer between the two launches, for under 1% of this kernel's
+//   products.  For each 16 query rows of a tile: s^T = k.q^T and dp^T =
+//   v.dO^T (mma.sync.m16n8k16, Q and dO through ldmatrix), p^T =
+//   exp2(s^T * scale*log2(e) - lse*log2(e)) with the columns' lse, ds^T =
+//   p^T * (dp^T - delta) * scale, then dv += p^T.dO and dk += ds^T.Q with
+//   p^T and ds^T repacked as A fragments and split into bf16 hi + lo (so
+//   that both keep f32 accuracy, as the TPU kernel keeps them), dO and Q
+//   through ldmatrix.trans.  No atomics, and no block depends on another.
+//   Query rows past T read zeros and get lse = +inf and delta = 0, so p^T
+//   and ds^T are 0 there; keys past T are never written, and a warp whose
+//   16 keys all lie past T computes nothing; columns past D read zeros
+//   (any D <= 128).  Up to D = 64 a warp keeps its K and V fragments in
+//   registers for the whole loop; at D = 128 it reloads them from shared
+//   memory for every 16 query rows, which keeps its registers (dk and dv
+//   alone take 128 a thread there) under the limit.
+//
+//   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
+//   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
+//   to; so f32 keeps the first design: one block of 8 warps per 64 keys,
+//   K, V, Q and dO converted into f32 shared memory (Q and dO with a row
+//   stride of D+1), each warp walking its 8 keys with lanes over query
+//   rows for p and ds and over d for p^T.dO and ds^T.Q.  This is a
+//   dispatch by dtype, not a fallback.
+//
+// Shared memory does not grow with T, so any T runs, unlike
+// mhsa_bwd_dkv.cu, which holds a whole head's Q and dO and stops at T=685
+// for D=32.  Offsets are int64; nothing is padded in device memory.
 //
 // Built by vit_cifar_torch/ops/cuda/build.py (nvcc, sm_90a, plain C
 // interface bound with ctypes).
 
+#include <math_constants.h>
+
 #include <cstdint>
 
 #include "attention_common.cuh"
+#include "mma_attention.cuh"
 
 namespace {
 
 using namespace attn;
 
+// ---- f32: the CUDA-core instance -----------------------------------------
 constexpr int kRows = 8;                 // keys per warp
 constexpr int kTileK = kRows * kWarps;   // keys per block
 constexpr int kTileQ = 64;               // query rows per tile: two per lane
@@ -193,35 +215,251 @@ size_t smem_bytes(int D) {
                           2 * kTileQ + 2 * kWarps * kTileQ);
 }
 
-template <typename T, int kCols>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, const void* lse,
-                   void* dk, void* dv, int B, int H, int seq, int D,
-                   float scale, cudaStream_t stream) {
+template <int kCols>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const void* lse,
+                       void* dk, void* dv, int B, int H, int seq, int D,
+                       float scale, cudaStream_t stream) {
   const int tiles = (seq + kTileK - 1) / kTileK;
   return launch_with_smem(
-      flash_bwd_dkv_kernel<T, kCols>, B * H * tiles, kThreads, smem_bytes(D),
-      stream,
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, seq, D, scale);
+      flash_bwd_dkv_kernel<float, kCols>, B * H * tiles, kThreads,
+      smem_bytes(D), stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, seq, D, scale);
 }
 
-template <typename T>
-cudaError_t launch_for_d(const void* q, const void* k, const void* v,
-                         const void* o, const void* dout, const void* lse,
-                         void* dk, void* dv, int B, int H, int seq, int D,
-                         float scale, cudaStream_t s) {
+// ---- bf16: the tensor-core instance --------------------------------------
+constexpr int kMmaWarps = 4;
+constexpr int kMmaTileK = 16 * kMmaWarps;  // keys per block
+constexpr int kMmaThreads = 32 * kMmaWarps;
+static_assert(kMmaThreads == 2 * attn_mma::kChunk,
+              "stage() gives each query row of a tile two threads");
+
+// Dynamic shared memory: in bf16, 8 zeros (the chunk that rows past a tile
+// and columns past D read), then the block's K rows, its V rows, Q stage 0,
+// Q stage 1, dO stage 0, dO stage 1, each kChunk rows of stride_elems(D);
+// then in f32 the query tiles' lse (log2 units) and delta, kChunk each for
+// each of the two stages.
+size_t mma_smem_bytes(int D) {
+  return sizeof(__nv_bfloat16) *
+             (8 + 6 * static_cast<size_t>(attn_mma::kChunk) *
+                      attn_mma::stride_elems(D)) +
+         sizeof(float) * 4 * attn_mma::kChunk;
+}
+
+// acc + the dot product of 8 bf16 pairs, x and y 16 bytes each, in f32.
+__device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // a bf16 is the top half of the f32 of the same value
+    acc = fmaf(__uint_as_float(xs[i] << 16), __uint_as_float(ys[i] << 16),
+               acc);
+    acc = fmaf(__uint_as_float(xs[i] & 0xffff0000u),
+               __uint_as_float(ys[i] & 0xffff0000u), acc);
+  }
+  return acc;
+}
+
+// kRegs: the warp keeps its K and V fragments in registers for the whole
+// loop (else it reloads them from shared memory for every 16 query rows).
+template <int kDp, bool kRegs>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ o,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, int H, int seq,
+                             int D, float scale, float c, bool vec) {
+  using namespace attn_mma;
+  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
+  const int tile = kChunk * stride_elems(D);
+  __nv_bfloat16* zeros = smem_bf16;
+  __nv_bfloat16* k_s = smem_bf16 + 8;
+  __nv_bfloat16* v_s = k_s + tile;
+  __nv_bfloat16* q_s = v_s + tile;   // stage i at q_s + i * tile
+  __nv_bfloat16* do_s = q_s + 2 * tile;
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * tile);  // + i * kChunk
+  float* delta_s = lse_s + 2 * kChunk;
+
+  const int tiles = (seq + kMmaTileK - 1) / kMmaTileK;
+  const int bh = blockIdx.x / tiles;  // b * H + h
+  const int k0 = (blockIdx.x - bh * tiles) * kMmaTileK;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int64_t head = static_cast<int64_t>(bh) * seq * D;
+  const int64_t ld = static_cast<int64_t>(H) * D;  // row stride of o, do
+  // (b, 0, h) in the (B, T, H, D) layout of o and do
+  const int64_t bthd = (static_cast<int64_t>(b) * seq * H + h) * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int nk = min(kMmaTileK, seq - k0);
+  const int key0 = 16 * warp;  // this warp's first key in the block's tile
+  const bool active = key0 < nk;  // warp-uniform
+
+  // query tile it: Q and dO by cp.async, then the rows' lse and delta (two
+  // threads a row, each over every other 8-column chunk, or every other
+  // column without vec), +inf and 0 past T
+  auto stage = [&](int it) {
+    const int q0 = it * kChunk;
+    const int n = min(kChunk, seq - q0);
+    stage_rows(q_s + (it & 1) * tile, q + head + static_cast<int64_t>(q0) * D,
+               D, n, D, vec, threadIdx.x, kMmaThreads);
+    stage_rows(do_s + (it & 1) * tile, dout + bthd + q0 * ld, ld, n, D, vec,
+               threadIdx.x, kMmaThreads);
+    cp_async_commit();
+    const int r = threadIdx.x >> 1;
+    float a = 0.f;
+    if (r < n) {
+      const int64_t row = bthd + (q0 + r) * ld;
+      if (vec) {
+        for (int ch = threadIdx.x & 1; ch < D / 8; ch += 2)
+          a = dot8(*reinterpret_cast<const uint4*>(dout + row + 8 * ch),
+                   *reinterpret_cast<const uint4*>(o + row + 8 * ch), a);
+      } else {
+        for (int d = threadIdx.x & 1; d < D; d += 2)
+          a = fmaf(__bfloat162float(dout[row + d]),
+                   __bfloat162float(o[row + d]), a);
+      }
+    }
+    a += __shfl_xor_sync(0xffffffffu, a, 1);
+    if ((threadIdx.x & 1) == 0) {
+      lse_s[(it & 1) * kChunk + r] =
+          r < n ? lse[static_cast<int64_t>(bh) * seq + q0 + r] * kLog2e
+                : CUDART_INF_F;
+      delta_s[(it & 1) * kChunk + r] = a;
+    }
+  };
+
+  if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
+  stage_rows(k_s, k + head + static_cast<int64_t>(k0) * D, D, nk, D, vec,
+             threadIdx.x, kMmaThreads);
+  stage_rows(v_s, v + head + static_cast<int64_t>(k0) * D, D, nk, D, vec,
+             threadIdx.x, kMmaThreads);
+  stage(0);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int t = lane & 3;
+  uint32_t ka[kDp / 16][4], va[kDp / 16][4];
+  if constexpr (kRegs) {
+    if (active) {
+      load_a<kDp>(ka, k_s, key0, nk, D, zeros, lane);
+      load_a<kDp>(va, v_s, key0, nk, D, zeros, lane);
+    }
+  }
+  float dk_acc[kDp / 8][4], dv_acc[kDp / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < kDp / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nb][e] = dv_acc[nb][e] = 0.f;
+
+  const int nqt = (seq + kChunk - 1) / kChunk;
+  for (int it = 0; it < nqt; ++it) {
+    if (it + 1 < nqt) {
+      stage(it + 1);  // its buffers were last read before the previous sync
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it has landed for every thread
+    if (active) {
+      const int n = min(kChunk, seq - it * kChunk);
+      const __nv_bfloat16* qt = q_s + (it & 1) * tile;
+      const __nv_bfloat16* dot_s = do_s + (it & 1) * tile;
+      const float* lt = lse_s + (it & 1) * kChunk;
+      const float* dlt = delta_s + (it & 1) * kChunk;
+#pragma unroll
+      for (int kb = 0; kb < kChunk / 16; ++kb) {
+        if (16 * kb >= n) break;  // warp-uniform
+        float s[2][4] = {}, dp[2][4] = {};
+        if constexpr (!kRegs) load_a<kDp>(ka, k_s, key0, nk, D, zeros, lane);
+        mma_a_bt<kDp>(s[0], s[1], ka, qt, 16 * kb, n, D, zeros, lane);
+        if constexpr (!kRegs) load_a<kDp>(va, v_s, key0, nk, D, zeros, lane);
+        mma_a_bt<kDp>(dp[0], dp[1], va, dot_s, 16 * kb, n, D, zeros, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          // this thread's columns 2t and 2t+1 of the 8 at 16kb + 8j
+          const int col = 16 * kb + 8 * j + 2 * t;
+          const float2 l2 = *reinterpret_cast<const float2*>(lt + col);
+          const float2 d2 = *reinterpret_cast<const float2*>(dlt + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lc = e & 1 ? l2.y : l2.x;
+            const float dc = e & 1 ? d2.y : d2.x;
+            const float p = exp2f(s[j][e] * c - lc);  // lse +inf: p = 0
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - dc) * scale;  // ds^T
+          }
+        }
+        mma_p_b<kDp>(dv_acc, s[0], s[1], dot_s, 16 * kb, n, D, zeros, lane);
+        mma_p_b<kDp>(dk_acc, dp[0], dp[1], qt, 16 * kb, n, D, zeros, lane);
+      }
+    }
+    __syncthreads();  // tile it is no longer read
+  }
+  if (active) {
+    const int64_t out = head + static_cast<int64_t>(k0) * D;
+    store_rows<kDp>(dk_acc, dk + out, key0, nk, D, lane);
+    store_rows<kDp>(dv_acc, dv + out, key0, nk, D, lane);
+  }
+}
+
+template <int kDp>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const void* lse,
+                       void* dk, void* dv, int B, int H, int seq, int D,
+                       float scale, cudaStream_t stream) {
+  const int tiles = (seq + kMmaTileK - 1) / kMmaTileK;
+  const bool vec = attn_mma::can_copy_chunks(D, q, k, v, o, dout);
+  return launch_with_smem(
+      flash_bwd_dkv_mma_kernel<kDp, (kDp <= 64)>, B * H * tiles, kMmaThreads,
+      mma_smem_bytes(D), stream, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, seq,
+      D, scale, scale * attn_mma::kLog2e, vec);
+}
+
+cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const void* lse,
+                             void* dk, void* dv, int B, int H, int seq, int D,
+                             float scale, cudaStream_t s) {
   if (D <= 32)
-    return launch<T, 1>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
-                        s);
+    return launch_f32<1>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
+                         s);
   if (D <= 64)
-    return launch<T, 2>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
-                        s);
+    return launch_f32<2>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
+                         s);
   if (D <= kMaxHeadDim)
-    return launch<T, 4>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
-                        s);
+    return launch_f32<4>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
+                         s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_mma_for_d(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const void* lse,
+                             void* dk, void* dv, int B, int H, int seq, int D,
+                             float scale, cudaStream_t s) {
+  if (D <= 16)
+    return launch_mma<16>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
+                          s);
+  if (D <= 32)
+    return launch_mma<32>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
+                          s);
+  if (D <= 64)
+    return launch_mma<64>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
+                          s);
+  if (D <= kMaxHeadDim)
+    return launch_mma<128>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
+                           s);
   return cudaErrorInvalidValue;
 }
 
@@ -238,18 +476,21 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_for_d<float>(q, k, v, o, dout, lse, dk, dv, B, H, T, D,
-                                 scale, s);
+      return launch_f32_for_d(q, k, v, o, dout, lse, dk, dv, B, H, T, D,
+                              scale, s);
     case 1:
-      return launch_for_d<__nv_bfloat16>(q, k, v, o, dout, lse, dk, dv, B, H,
-                                         T, D, scale, s);
+      return launch_mma_for_d(q, k, v, o, dout, lse, dk, dv, B, H, T, D,
+                              scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Dynamic shared memory of one launch, in bytes; it depends on D alone.
+// The dynamic shared memory one launch needs, in bytes: the larger of the
+// two instances' needs, which depend on D alone.
 extern "C" long long flash_bwd_dkv_smem_bytes(int T, int D) {
   (void)T;
-  return static_cast<long long>(smem_bytes(D));
+  return static_cast<long long>(smem_bytes(D) > mma_smem_bytes(D)
+                                    ? smem_bytes(D)
+                                    : mma_smem_bytes(D));
 }

@@ -17,24 +17,42 @@
 // What bounds it on this card: at the pixel-token ViT's shape (128, 12,
 // 1025, 32) one head is three 1025x1025x32 products (q.k, do.v, ds.k) and
 // 1.05 M exps against some 0.4 MB in and out in bf16, about 750 FLOP per
-// byte: not device memory but arithmetic bounds it.  This first version
-// runs the products on the CUDA cores in f32, each FMA reading shared
-// memory, and that is its limit.  Unlike mhsa_bwd_dq.cu, which holds a
-// whole head's K and V in shared memory and stops at T=778 for D=32, its
-// shared memory does not grow with T.
+// byte: not device memory but arithmetic bounds it, and the exps (16 a
+// clock per SM on the special-function units) take longer than the
+// products at the tensor cores' peak.  So the bf16 instance keeps every
+// logit in registers and spends one exp2f per logit:
 //
-// Layout of the work: one block per (b, h, tile of 64 query rows); warp w
-// owns 8 rows and keeps their dq accumulators in registers (spread over
-// lanes by d), their delta (computed once per row, when the block starts)
-// and their lse.  The TPU's sequential innermost kv grid axis is the loop
-// over key tiles inside the block, so no block depends on another and no
-// atomics are needed.  For each tile of 64 keys the block stages K and V
-// in shared memory with a row stride of D+1 (32 lanes reading 32 keys at
-// one d hit 32 banks); for each of its rows a warp computes s and dp for
-// the tile's keys (lanes over keys), ds into a row buffer in shared
-// memory, then ds.K (lanes over d).  The last key tile is ragged: its
-// missing keys are never read and their ds is 0.  Query rows past T are
-// neither computed nor written.  Offsets are int64.
+//   bf16 (dtype 1), on the tensor cores (mma_attention.cuh): the forward's
+//   shape with V used twice.  One block of 4 warps per (b, h, 64 query
+//   rows); a warp owns 16 rows.  The block's q rows and dO rows (row
+//   stride H*D, do being (B, T, H, D)) are staged once by cp.async; each
+//   warp takes its rows' A fragments from them, its rows' lse (times
+//   log2(e)) and delta, computed once from o and dO as the TPU kernel does
+//   at j == 0.  K and V tiles of 64 keys are staged as bf16 by cp.async,
+//   two stages deep.  For each 16 keys of a tile: s = q.k^T and dp =
+//   dO.v^T (mma.sync.m16n8k16, K and V through ldmatrix), p = exp2(s *
+//   scale*log2(e) - lse*log2(e)) with keys past T masked to 0, ds = p *
+//   (dp - delta) * scale in the accumulator registers, and dq += ds.K with
+//   ds repacked as A fragments, split into bf16 hi + lo (so that ds keeps
+//   f32 accuracy, as the TPU kernel keeps it) and K through ldmatrix.trans.
+//   The accumulators of dq stay in registers; no atomics, and no block
+//   depends on another.  Rows past T read zeros (lse 0, delta 0, so ds is
+//   0) and are never written; columns past D read zeros (any D <= 128).
+//   Up to D = 64 a warp keeps its q and dO fragments in registers for the
+//   whole loop; at D = 128 it reloads them from shared memory for every 16
+//   keys, which keeps its registers under the limit.
+//
+//   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
+//   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
+//   to; so f32 keeps the first design: one block of 8 warps per 64 query
+//   rows, q, dO, K and V converted into f32 shared memory (K and V with a
+//   row stride of D+1), each warp walking its 8 rows with lanes over keys
+//   for s and dp and over d for ds.K.  This is a dispatch by dtype, not a
+//   fallback.
+//
+// Shared memory does not grow with T, so any T runs, unlike mhsa_bwd_dq.cu,
+// which holds a whole head's K and V and stops at T=778 for D=32.  Offsets
+// are int64; nothing is padded in device memory.
 //
 // Built by vit_cifar_torch/ops/cuda/build.py (nvcc, sm_90a, plain C
 // interface bound with ctypes).
@@ -42,11 +60,13 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
+#include "mma_attention.cuh"
 
 namespace {
 
 using namespace attn;
 
+// ---- f32: the CUDA-core instance -----------------------------------------
 constexpr int kRows = 8;                 // query rows per warp
 constexpr int kTileQ = kRows * kWarps;   // query rows per block
 constexpr int kTileK = 64;               // keys per tile: two per lane
@@ -178,32 +198,195 @@ size_t smem_bytes(int D) {
                           kWarps * kTileK);
 }
 
-template <typename T, int kCols>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, const void* lse,
-                   void* dq, int B, int H, int seq, int D, float scale,
-                   cudaStream_t stream) {
+template <int kCols>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const void* lse,
+                       void* dq, int B, int H, int seq, int D, float scale,
+                       cudaStream_t stream) {
   const int tiles = (seq + kTileQ - 1) / kTileQ;
   return launch_with_smem(
-      flash_bwd_dq_kernel<T, kCols>, B * H * tiles, kThreads, smem_bytes(D),
-      stream,
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dq), H, seq, D, scale);
+      flash_bwd_dq_kernel<float, kCols>, B * H * tiles, kThreads,
+      smem_bytes(D), stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(dq), H, seq, D,
+      scale);
 }
 
-template <typename T>
-cudaError_t launch_for_d(const void* q, const void* k, const void* v,
-                         const void* o, const void* dout, const void* lse,
-                         void* dq, int B, int H, int seq, int D, float scale,
-                         cudaStream_t s) {
+// ---- bf16: the tensor-core instance --------------------------------------
+constexpr int kMmaWarps = 4;
+constexpr int kMmaTileQ = 16 * kMmaWarps;  // query rows per block
+constexpr int kMmaThreads = 32 * kMmaWarps;
+
+// Dynamic shared memory, in bf16: 8 zeros (the chunk that rows past a tile
+// and columns past D read), then the block's q rows, its dO rows, K stage
+// 0, K stage 1, V stage 0, V stage 1, each kChunk rows of stride_elems(D).
+size_t mma_smem_bytes(int D) {
+  return sizeof(__nv_bfloat16) *
+         (8 + 6 * static_cast<size_t>(attn_mma::kChunk) *
+                  attn_mma::stride_elems(D));
+}
+
+// kRegs: the warp keeps its q and dO fragments in registers for the whole
+// loop (else it reloads them from shared memory for every 16 keys).
+template <int kDp, bool kRegs>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const __nv_bfloat16* __restrict__ o,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            __nv_bfloat16* __restrict__ dq, int H, int seq,
+                            int D, float scale, float c, bool vec) {
+  using namespace attn_mma;
+  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
+  const int tile = kChunk * stride_elems(D);
+  __nv_bfloat16* zeros = smem_bf16;
+  __nv_bfloat16* q_s = smem_bf16 + 8;
+  __nv_bfloat16* do_s = q_s + tile;
+  __nv_bfloat16* k_s = do_s + tile;  // stage i at k_s + i * tile
+  __nv_bfloat16* v_s = k_s + 2 * tile;
+
+  const int tiles = (seq + kMmaTileQ - 1) / kMmaTileQ;
+  const int bh = blockIdx.x / tiles;  // b * H + h
+  const int q0 = (blockIdx.x - bh * tiles) * kMmaTileQ;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int64_t head = static_cast<int64_t>(bh) * seq * D;
+  const int64_t ld = static_cast<int64_t>(H) * D;  // row stride of o, do
+  // (b, q0, h) in the (B, T, H, D) layout of o and do
+  const int64_t bthd = ((static_cast<int64_t>(b) * seq + q0) * H + h) * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int nq = min(kMmaTileQ, seq - q0);
+  const int row0 = 16 * warp;  // this warp's first row in the block's tile
+  const bool active = row0 < nq;  // warp-uniform
+
+  auto stage = [&](int it) {
+    const int k0 = it * kChunk;
+    const int n = min(kChunk, seq - k0);
+    const int64_t off = head + static_cast<int64_t>(k0) * D;
+    stage_rows(k_s + (it & 1) * tile, k + off, D, n, D, vec, threadIdx.x,
+               kMmaThreads);
+    stage_rows(v_s + (it & 1) * tile, v + off, D, n, D, vec, threadIdx.x,
+               kMmaThreads);
+    cp_async_commit();
+  };
+
+  if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
+  stage_rows(q_s, q + head + static_cast<int64_t>(q0) * D, D, nq, D, vec,
+             threadIdx.x, kMmaThreads);
+  stage_rows(do_s, dout + bthd, ld, nq, D, vec, threadIdx.x, kMmaThreads);
+  stage(0);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // rows g and g+8 of the warp's 16: lse in log2 units and delta, both 0
+  // past T (so that ds is 0 there)
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t qa[kDp / 16][4], da[kDp / 16][4];
+  float lse2[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  if (active) {
+    if constexpr (kRegs) load_a<kDp>(qa, q_s, row0, nq, D, zeros, lane);
+    load_a<kDp>(da, do_s, row0, nq, D, zeros, lane);
+    rows_dot<kDp>(delta, da, o + bthd, ld, row0, nq, D, lane);
+    const float* lse_rows = lse + static_cast<int64_t>(bh) * seq + q0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + g + 8 * i;
+      if (r < nq) lse2[i] = lse_rows[r] * kLog2e;
+    }
+  }
+  float acc[kDp / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < kDp / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+
+  const int nkt = (seq + kChunk - 1) / kChunk;
+  for (int it = 0; it < nkt; ++it) {
+    if (it + 1 < nkt) {
+      stage(it + 1);  // its buffer was last read before the previous sync
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it has landed for every thread
+    if (active) {
+      const int n = min(kChunk, seq - it * kChunk);
+      const __nv_bfloat16* kt = k_s + (it & 1) * tile;
+      const __nv_bfloat16* vt = v_s + (it & 1) * tile;
+#pragma unroll
+      for (int kb = 0; kb < kChunk / 16; ++kb) {
+        if (16 * kb >= n) break;  // warp-uniform
+        float s[2][4] = {}, dp[2][4] = {};
+        if constexpr (!kRegs) load_a<kDp>(qa, q_s, row0, nq, D, zeros, lane);
+        mma_a_bt<kDp>(s[0], s[1], qa, kt, 16 * kb, n, D, zeros, lane);
+        if constexpr (!kRegs) load_a<kDp>(da, do_s, row0, nq, D, zeros, lane);
+        mma_a_bt<kDp>(dp[0], dp[1], da, vt, 16 * kb, n, D, zeros, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = 16 * kb + 8 * j + 2 * t + (e & 1);
+            const float p =
+                key < n ? exp2f(s[j][e] * c - lse2[e >> 1]) : 0.f;
+            s[j][e] = p * (dp[j][e] - delta[e >> 1]) * scale;  // ds
+          }
+        mma_p_b<kDp>(acc, s[0], s[1], kt, 16 * kb, n, D, zeros, lane);
+      }
+    }
+    __syncthreads();  // tile it is no longer read
+  }
+  if (active)
+    store_rows<kDp>(acc, dq + head + static_cast<int64_t>(q0) * D, row0, nq,
+                    D, lane);
+}
+
+template <int kDp>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const void* lse,
+                       void* dq, int B, int H, int seq, int D, float scale,
+                       cudaStream_t stream) {
+  const int tiles = (seq + kMmaTileQ - 1) / kMmaTileQ;
+  const bool vec = attn_mma::can_copy_chunks(D, q, k, v, dout);
+  return launch_with_smem(
+      flash_bwd_dq_mma_kernel<kDp, (kDp <= 64)>, B * H * tiles, kMmaThreads,
+      mma_smem_bytes(D), stream, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<__nv_bfloat16*>(dq), H, seq, D, scale,
+      scale * attn_mma::kLog2e, vec);
+}
+
+cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const void* lse,
+                             void* dq, int B, int H, int seq, int D,
+                             float scale, cudaStream_t s) {
   if (D <= 32)
-    return launch<T, 1>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
+    return launch_f32<1>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
   if (D <= 64)
-    return launch<T, 2>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
+    return launch_f32<2>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
   if (D <= kMaxHeadDim)
-    return launch<T, 4>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
+    return launch_f32<4>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_mma_for_d(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const void* lse,
+                             void* dq, int B, int H, int seq, int D,
+                             float scale, cudaStream_t s) {
+  if (D <= 16)
+    return launch_mma<16>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
+  if (D <= 32)
+    return launch_mma<32>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
+  if (D <= 64)
+    return launch_mma<64>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
+  if (D <= kMaxHeadDim)
+    return launch_mma<128>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -219,18 +402,21 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_for_d<float>(q, k, v, o, dout, lse, dq, B, H, T, D,
-                                 scale, s);
+      return launch_f32_for_d(q, k, v, o, dout, lse, dq, B, H, T, D, scale,
+                              s);
     case 1:
-      return launch_for_d<__nv_bfloat16>(q, k, v, o, dout, lse, dq, B, H, T,
-                                         D, scale, s);
+      return launch_mma_for_d(q, k, v, o, dout, lse, dq, B, H, T, D, scale,
+                              s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Dynamic shared memory of one launch, in bytes; it depends on D alone.
+// The dynamic shared memory one launch needs, in bytes: the larger of the
+// two instances' needs, which depend on D alone.
 extern "C" long long flash_bwd_dq_smem_bytes(int T, int D) {
   (void)T;
-  return static_cast<long long>(smem_bytes(D));
+  return static_cast<long long>(smem_bytes(D) > mma_smem_bytes(D)
+                                    ? smem_bytes(D)
+                                    : mma_smem_bytes(D));
 }

@@ -240,9 +240,9 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int k0 = it * kChunk;
     const int n = min(kChunk, seq - k0);
     const int64_t off = head + static_cast<int64_t>(k0) * D;
-    stage_rows(k_s + (it & 1) * tile, k + off, n, D, vec, threadIdx.x,
+    stage_rows(k_s + (it & 1) * tile, k + off, D, n, D, vec, threadIdx.x,
                kMmaThreads);
-    stage_rows(v_s + (it & 1) * tile, v + off, n, D, vec, threadIdx.x,
+    stage_rows(v_s + (it & 1) * tile, v + off, D, n, D, vec, threadIdx.x,
                kMmaThreads);
     cp_async_commit();
   };

@@ -185,8 +185,8 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x % 32;
   const int warps = blockDim.x / 32;
 
-  stage_rows(k_s, k + head, seq, D, vec, threadIdx.x, blockDim.x);
-  stage_rows(v_s, v + head, seq, D, vec, threadIdx.x, blockDim.x);
+  stage_rows(k_s, k + head, D, seq, D, vec, threadIdx.x, blockDim.x);
+  stage_rows(v_s, v + head, D, seq, D, vec, threadIdx.x, blockDim.x);
   cp_async_commit();
   if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
   cp_async_wait<0>();

@@ -1,21 +1,27 @@
-// Tensor-core building blocks of the bf16 attention forwards (flash_fwd.cu,
-// mhsa_fwd.cu): cp.async staging of K and V as bf16 in shared memory,
-// ldmatrix fragments, mma.sync.m16n8k16 (bf16 in, f32 accumulate), and the
-// online softmax of one warp's 16 query rows over a chunk of up to 64 keys.
+// Tensor-core building blocks of the bf16 attention kernels (flash_fwd.cu,
+// mhsa_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu): cp.async staging of rows
+// as bf16 in shared memory, ldmatrix fragments, mma.sync.m16n8k16 (bf16 in,
+// f32 accumulate), the two products every kernel is made of (a 16-row tile
+// against 16 staged rows transposed, and an accumulator tile split into
+// bf16 hi + lo times 16 staged rows), and the online softmax of one warp's
+// 16 query rows over a chunk of up to 64 keys.
 //
 // Fragment layout (PTX ISA, mma.m16n8k16 with .bf16): lane = 4g + t.  A
 // (16 rows x 16 k) holds (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..),
 // (g+8, 2t+8..); B (16 k x 8 cols) holds (2t..2t+1, g) and (2t+8.., g); the
 // f32 accumulator (16 x 8) holds (g, 2t..2t+1) and (g+8, 2t..2t+1).  So a
-// thread owns two query rows, g and g+8, and the row max and row sum of a
-// chunk reduce over the four lanes of a quad.
+// thread owns two rows, g and g+8, and a row's max or sum over a tile
+// reduces over the four lanes of a quad.  Two accumulator tiles side by
+// side (16 x 16) are, element for element, the A fragment of a 16 x 16
+// matrix: that is how p and ds go from one product into the next.
 //
 // Numerics.  s = q.k^T is exact bf16 products summed in f32.  The logits
 // are scaled once by scale*log2(e), so that every exp is one exp2f; lse is
-// returned in natural log.  p stays f32 for the row sum; for p.v it is
-// split into bf16 hi = rn(p) and lo = rn(p - hi), and both halves go
-// through the tensor cores, so p.v carries about 16 bits of p instead of
-// bf16's 8 -- the TPU kernels keep p in f32.
+// returned in natural log.  p (and in the backward ds) stays f32; for the
+// product that follows it is split into bf16 hi = rn(p) and lo =
+// rn(p - hi), and both halves go through the tensor cores, so the product
+// carries about 16 bits of p instead of bf16's 8 -- the TPU kernels keep
+// p and ds in f32.
 //
 // Staged matrices.  A (n, D) matrix is staged as n rows of W = D rounded up
 // to 8 columns (zero past D) with a row stride of an odd number of 16-byte
@@ -49,12 +55,14 @@ __host__ __device__ constexpr int stride_elems(int D) {
   return 8 * ((staged_width(D) / 8) | 1);
 }
 
-// Whether K and V can be staged by cp.async in whole 16-byte chunks: rows
-// of D % 8 == 0 elements from 16-byte aligned bases (else stage_rows copies
-// element by element).
-inline bool can_copy_chunks(int D, const void* k, const void* v) {
-  return D % 8 == 0 && ((reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v)) % 16) == 0;
+// Whether matrices can be staged by cp.async in whole 16-byte chunks: rows
+// of D % 8 == 0 elements (so any row stride that is a multiple of D keeps
+// them aligned) from 16-byte aligned bases (else stage_rows copies element
+// by element).
+template <typename... Ptr>
+bool can_copy_chunks(int D, const Ptr*... bases) {
+  return D % 8 == 0 &&
+         ((reinterpret_cast<uintptr_t>(bases) | ...) % 16) == 0;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -117,30 +125,28 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = as_u32(__floats2bfloat162_rn(a - hf.x, b - hf.y));
 }
 
-// Stages rows [0, n) of the (n, D) matrix at g (already offset to its first
-// row) into s, row stride stride_elems(D), columns [0, staged_width(D)),
-// zero past D.  With vec (D % 8 == 0 and g 16-byte aligned) every row is
-// D / 8 cp.async copies of 16 bytes, which the caller commits and waits
-// for; otherwise it is element by element.
+// Stages rows [0, n) of the matrix at g (already offset to its first row;
+// rows ld elements apart, D columns) into s, row stride stride_elems(D),
+// columns [0, staged_width(D)), zero past D.  With vec (can_copy_chunks)
+// every row is D / 8 cp.async copies of 16 bytes, which the caller commits
+// and waits for; otherwise it is element by element.
 __device__ __forceinline__ void stage_rows(bf16* s, const bf16* __restrict__ g,
-                                           int n, int D, bool vec, int tid,
-                                           int nthreads) {
+                                           int64_t ld, int n, int D, bool vec,
+                                           int tid, int nthreads) {
   const int stride = stride_elems(D);
   if (vec) {
     const int per_row = D / 8;
     for (int i = tid; i < n * per_row; i += nthreads) {
       const int r = i / per_row;
       const int c = i - r * per_row;
-      cp_async16(s + r * stride + 8 * c,
-                 g + static_cast<int64_t>(r) * D + 8 * c);
+      cp_async16(s + r * stride + 8 * c, g + r * ld + 8 * c);
     }
   } else {
     const int W = staged_width(D);
     for (int i = tid; i < n * W; i += nthreads) {
       const int r = i / W;
       const int d = i - r * W;
-      s[r * stride + d] =
-          d < D ? g[static_cast<int64_t>(r) * D + d] : __float2bfloat16(0.f);
+      s[r * stride + d] = d < D ? g[r * ld + d] : __float2bfloat16(0.f);
     }
   }
 }
@@ -196,6 +202,66 @@ __device__ __forceinline__ const bf16* chunk_at(const bf16* s, int r, int c,
                                             : zeros;
 }
 
+// The A fragments of rows r0 .. r0+15 of a staged matrix of n rows, all
+// kDp columns: matrix i of each x4 load is rows 8(i%2).., columns
+// 16kc + 8(i/2)..
+template <int kDp>
+__device__ __forceinline__ void load_a(uint32_t (&a)[kDp / 16][4],
+                                       const bf16* s, int r0, int n, int D,
+                                       const bf16* zeros, int lane) {
+  const int r = r0 + (lane & 7) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int kc = 0; kc < kDp / 16; ++kc)
+    ldmatrix_x4(a[kc], chunk_at(s, r, 2 * kc + (lane >> 4), n, D, zeros));
+}
+
+// c0, c1 += a . s[j0 .. j0+15]^T: the 16-row tile whose A fragments are a
+// against rows j0 .. j0+15 of a staged matrix of n rows, over kDp columns;
+// c0 holds the products with rows j0 .. j0+7, c1 with j0+8 .. j0+15.
+// Matrix i of each x4 load is rows j0 + 8(i/2).., column half i%2.
+template <int kDp>
+__device__ __forceinline__ void mma_a_bt(float (&c0)[4], float (&c1)[4],
+                                         const uint32_t (&a)[kDp / 16][4],
+                                         const bf16* s, int j0, int n, int D,
+                                         const bf16* zeros, int lane) {
+  const int r = j0 + (lane & 7) + ((lane >> 4) << 3);
+#pragma unroll
+  for (int kc = 0; kc < kDp / 16; ++kc) {
+    uint32_t b[4];
+    ldmatrix_x4(b, chunk_at(s, r, 2 * kc + ((lane >> 3) & 1), n, D, zeros));
+    mma_bf16(c0, a[kc], b[0], b[1]);
+    mma_bf16(c1, a[kc], b[2], b[3]);
+  }
+}
+
+// acc += p . s[j0 .. j0+15]: the 16 x 16 f32 tile p (its columns j0 ..
+// j0+7 in p0, j0+8 .. j0+15 in p1, as mma_a_bt leaves them), split into
+// bf16 hi + lo, times rows j0 .. j0+15 of a staged matrix of n rows, all
+// kDp columns.  Matrix i of each x4.trans load is rows j0 + 8(i%2)..,
+// column block 16nd + 8(i/2)..
+template <int kDp>
+__device__ __forceinline__ void mma_p_b(float (&acc)[kDp / 8][4],
+                                        const float (&p0)[4],
+                                        const float (&p1)[4], const bf16* s,
+                                        int j0, int n, int D,
+                                        const bf16* zeros, int lane) {
+  uint32_t hi[4], lo[4];
+  split_bf16(p0[0], p0[1], hi[0], lo[0]);
+  split_bf16(p0[2], p0[3], hi[1], lo[1]);
+  split_bf16(p1[0], p1[1], hi[2], lo[2]);
+  split_bf16(p1[2], p1[3], hi[3], lo[3]);
+  const int r = j0 + (lane & 7) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int nd = 0; nd < kDp / 16; ++nd) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, chunk_at(s, r, 2 * nd + (lane >> 4), n, D, zeros));
+    mma_bf16(acc[2 * nd], hi, b[0], b[1]);
+    mma_bf16(acc[2 * nd], lo, b[0], b[1]);
+    mma_bf16(acc[2 * nd + 1], hi, b[2], b[3]);
+    mma_bf16(acc[2 * nd + 1], lo, b[2], b[3]);
+  }
+}
+
 // One online-softmax step: the tile's 16 rows against keys j0 .. j0+nk-1
 // (nk <= kChunk) of the staged K and V (n rows each).  c = scale*log2(e).
 template <int kDp>
@@ -211,19 +277,12 @@ __device__ __forceinline__ void attend_chunk(RowTile<kDp>& st, const bf16* k_s,
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
 
-  // s = q.k^T: matrix i of the x4 load is keys 8(i/2).., d-half i%2
+  // s = q.k^T
 #pragma unroll
   for (int kb = 0; kb < kChunk / 16; ++kb) {
     if (kb >= groups) break;  // warp-uniform
-    const int r = j0 + 16 * kb + (lane & 7) + ((lane >> 4) << 3);
-#pragma unroll
-    for (int kc = 0; kc < kDp / 16; ++kc) {
-      uint32_t b[4];
-      ldmatrix_x4(b, chunk_at(k_s, r, 2 * kc + ((lane >> 3) & 1), n, D,
-                              zeros));
-      mma_bf16(s[2 * kb], st.q[kc], b[0], b[1]);
-      mma_bf16(s[2 * kb + 1], st.q[kc], b[2], b[3]);
-    }
+    mma_a_bt<kDp>(s[2 * kb], s[2 * kb + 1], st.q, k_s, j0 + 16 * kb, n, D,
+                  zeros, lane);
   }
 
   // scale into log2 units, mask keys past nk, and take the chunk's row max
@@ -268,27 +327,12 @@ __device__ __forceinline__ void attend_chunk(RowTile<kDp>& st, const bf16* k_s,
     st.o[n2][3] *= corr[1];
   }
 
-  // o += p.v with p = hi + lo; matrix i of the x4.trans load is keys
-  // 8(i%2).., d-block i/2
+  // o += p.v with p = hi + lo
 #pragma unroll
   for (int kb = 0; kb < kChunk / 16; ++kb) {
     if (kb >= groups) break;  // warp-uniform
-    uint32_t hi[4], lo[4];
-    split_bf16(s[2 * kb][0], s[2 * kb][1], hi[0], lo[0]);
-    split_bf16(s[2 * kb][2], s[2 * kb][3], hi[1], lo[1]);
-    split_bf16(s[2 * kb + 1][0], s[2 * kb + 1][1], hi[2], lo[2]);
-    split_bf16(s[2 * kb + 1][2], s[2 * kb + 1][3], hi[3], lo[3]);
-    const int r = j0 + 16 * kb + (lane & 7) + (((lane >> 3) & 1) << 3);
-#pragma unroll
-    for (int nd = 0; nd < kDp / 16; ++nd) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, chunk_at(v_s, r, 2 * nd + (lane >> 4), n, D,
-                                    zeros));
-      mma_bf16(st.o[2 * nd], hi, b[0], b[1]);
-      mma_bf16(st.o[2 * nd], lo, b[0], b[1]);
-      mma_bf16(st.o[2 * nd + 1], hi, b[2], b[3]);
-      mma_bf16(st.o[2 * nd + 1], lo, b[2], b[3]);
-    }
+    mma_p_b<kDp>(st.o, s[2 * kb], s[2 * kb + 1], v_s, j0 + 16 * kb, n, D,
+                 zeros, lane);
   }
 }
 
@@ -317,6 +361,63 @@ __device__ __forceinline__ void finish_rows(RowTile<kDp>& st,
     }
     if (lse != nullptr && t == 0)
       lse[static_cast<int64_t>(bh) * seq + row] = st.m[i] * kLn2 + logf(l);
+  }
+}
+
+// For the tile's rows g and g+8 (row0 + g + 8i below n), the sum over the
+// D columns of x (A fragments, as load_a gives them) times the same rows of
+// y (device memory, rows ld elements apart, offset to row 0), in f32; 0
+// for rows past n.  The quad of lanes that shares a row holds all its
+// columns.
+template <int kDp>
+__device__ __forceinline__ void rows_dot(float (&out)[2],
+                                         const uint32_t (&x)[kDp / 16][4],
+                                         const bf16* __restrict__ y,
+                                         int64_t ld, int row0, int n, int D,
+                                         int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  out[0] = out[1] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < kDp / 16; ++kc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e & 1;
+      const int r = row0 + g + 8 * i;
+      const int d = 16 * kc + 2 * t + ((e >> 1) << 3);
+      if (r >= n) continue;
+      // a bf16 is the top half of the f32 of the same value
+      const float x0 = __uint_as_float(x[kc][e] << 16);
+      const float x1 = __uint_as_float(x[kc][e] & 0xffff0000u);
+      const bf16* yr = y + r * ld + d;
+      if (d < D) out[i] = fmaf(x0, __bfloat162float(yr[0]), out[i]);
+      if (d + 1 < D) out[i] = fmaf(x1, __bfloat162float(yr[1]), out[i]);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    out[i] += __shfl_xor_sync(0xffffffffu, out[i], 1);
+    out[i] += __shfl_xor_sync(0xffffffffu, out[i], 2);
+  }
+}
+
+// Writes the accumulator tile acc (16 rows x kDp columns) as bf16 to rows
+// row0 .. row0+15 below n of the (n, D) matrix at out; rows past n and
+// columns past D are not written.
+template <int kDp>
+__device__ __forceinline__ void store_rows(const float (&acc)[kDp / 8][4],
+                                           bf16* __restrict__ out, int row0,
+                                           int n, int D, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    if (r >= n) continue;
+    bf16* orow = out + static_cast<int64_t>(r) * D;
+#pragma unroll
+    for (int nb = 0; nb < kDp / 8; ++nb) {
+      const int d = 8 * nb + 2 * t;
+      if (d < D) orow[d] = __float2bfloat16(acc[nb][2 * i]);
+      if (d + 1 < D) orow[d + 1] = __float2bfloat16(acc[nb][2 * i + 1]);
+    }
   }
 }
 

@@ -10,8 +10,11 @@ Every forward, in training as in inference, goes through an attention
 kernel (the CUDA kernels on the card, forward and backward, their plain
 versions on the CPU) chosen by :func:`route`, except where the JAX module,
 too, takes its einsum path: ``save_attn_map`` (the map is kept on
-``self.attn_map``, the reference's attribute), ``valid_len`` key masking, and
-``pallas_kernel="einsum"``, which forces the plain path.
+``self.attn_map``, the reference's attribute), ``valid_len`` key masking,
+``pallas_kernel="einsum"``, which forces the plain path, and the default
+config at a shape no kernel takes (head_dim past the tiled kernels' 128 and
+a head the whole-head kernels cannot hold), which is the JAX module's
+default path at every shape.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from torch import nn
 
 from .common import dropout
 from .cuda.attention import fused_attention, whole_head_fits
-from .cuda.flash_attention import flash_attention
+from .cuda.flash_attention import MAX_HEAD_DIM, flash_attention
 from .init import Linear
 
 
@@ -30,11 +33,14 @@ def route(T: int, D: int, pallas_kernel: str | None, training: bool) -> str:
     (plain PyTorch), "fused" (the whole-head kernels, ``fused_attention``)
     or "flash" (the tiled kernels, ``flash_attention``).
 
-    ``"einsum"`` and ``"flash"`` are taken as asked, at any T.  The default
-    (``""`` or None) takes the whole-head kernels while their shared memory
-    holds a head at (T, D) -- the forward alone, or with ``training`` the
-    forward and both backward kernels -- and the tiled kernels beyond.
-    ``"fused"`` beyond that raises."""
+    ``"einsum"`` and ``"flash"`` are taken as asked, at any T (``"flash"``
+    raises on the card past head_dim ``MAX_HEAD_DIM``).  The default (``""``
+    or None) takes the whole-head kernels while their shared memory holds a
+    head at (T, D) -- the forward alone, or with ``training`` the forward
+    and both backward kernels -- and beyond that the tiled kernels up to
+    head_dim ``MAX_HEAD_DIM``, and the einsum path past it, as the JAX
+    module's default takes at every shape.  ``"fused"`` beyond the
+    whole-head kernels' shared memory raises."""
     if pallas_kernel in ("einsum", "flash"):
         return pallas_kernel
     if whole_head_fits(T, D, training):
@@ -44,7 +50,7 @@ def route(T: int, D: int, pallas_kernel: str | None, training: bool) -> str:
             f"pallas_kernel='fused': the whole-head kernels cannot hold "
             f"T={T}, head_dim={D}{' for training' if training else ''} in "
             "a block's shared memory; use 'flash' or the default")
-    return "flash"
+    return "flash" if D <= MAX_HEAD_DIM else "einsum"
 
 
 class MultiHeadSelfAttention(nn.Module):

@@ -24,12 +24,13 @@ CUDA tensor launches the hand-written kernel (``csrc/flash_*.cu``, built at
 first use) or raises; there is no fallback between the two.  Each wrapper
 counts its launches in ``<wrapper>.launches``.
 
-The forward kernel dispatches by dtype: bf16 runs on the tensor cores
-(``mma.sync``, 16 query rows a warp, K/V tiles staged by ``cp.async``, p
-split into bf16 hi + lo so that p.v keeps f32 accuracy), f32 on the CUDA
-cores in full f32, since the tensor cores would take f32 only as TF32 and
-miss the f32 limit of 1e-5.  The backward kernels run on the CUDA cores in
-f32 for both dtypes.
+Every kernel dispatches by dtype: bf16 runs on the tensor cores
+(``mma.sync``, 16 rows a warp, tiles staged by ``cp.async``; p, and in the
+backward ds, split into bf16 hi + lo so that the product that follows keeps
+f32 accuracy), f32 on the CUDA cores in full f32, since the tensor cores
+would take f32 only as TF32 and miss the f32 limit of 1e-5.  The dq kernel
+holds 64 query rows a block against tiles of 64 keys, the dk/dv kernel 64
+keys against tiles of 64 query rows.
 
 =========================  ====================  =================================
 wrapper                    kernel                plain version
@@ -160,7 +161,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_tiled_bwd_dq(q, k, v, o, do, lse, scale: float) -> torch.Tensor:
     """dq of the flash attention, (B, H, T, D) in q's dtype.  Launches
-    counted in ``flash_tiled_bwd_dq.launches``."""
+    counted in ``flash_tiled_bwd_dq.launches``.  bf16 runs on the tensor
+    cores, f32 on the CUDA cores (a dispatch by dtype; see above)."""
     _check_bwd(q, k, v, o, do, lse)
     if q.device.type == "cpu":
         return flash_tiled_bwd_dq_reference(q, k, v, o, do, lse, scale)
@@ -174,7 +176,8 @@ def flash_tiled_bwd_dq(q, k, v, o, do, lse, scale: float) -> torch.Tensor:
 
 def flash_tiled_bwd_dkv(q, k, v, o, do, lse, scale: float):
     """(dk, dv) of the flash attention, each (B, H, T, D) in the input
-    dtype.  Launches counted in ``flash_tiled_bwd_dkv.launches``."""
+    dtype.  Launches counted in ``flash_tiled_bwd_dkv.launches``.  bf16 runs
+    on the tensor cores, f32 on the CUDA cores (a dispatch by dtype)."""
     _check_bwd(q, k, v, o, do, lse)
     if q.device.type == "cpu":
         return flash_tiled_bwd_dkv_reference(q, k, v, o, do, lse, scale)
