@@ -4,12 +4,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
 
 1. Kernel phase: builds the attention kernels from ``vit_cifar_torch/csrc/``
    with nvcc (one process per source, all at once) and holds each against
-   its plain PyTorch version on the card, at the model's shape and the JAX
-   tests' ragged shapes, in f32 and bf16: the inference forward, the
-   forward with logsumexp, the dq pass and the dk/dv pass, and the autograd
-   Function's gradients against autograd through the plain forward.  Times
-   each kernel and its plain version, and attention forward+backward, at
-   the model's shape.
+   its plain PyTorch version on the card, at the model's shape, the JAX
+   tests' ragged shapes and heads past the kernels' 128-column chunks, in
+   f32 and bf16: the whole-head inference forward and forward with
+   logsumexp, the tiled dq and dk/dv passes on its residuals (the fused
+   Function's backward), and the Function's gradients against autograd
+   through the plain forward.  Times each kernel and its plain version, and
+   attention forward+backward, at the model's shape.
 2. Serving phase: the serving path at the full width of the README recipe
    model (7 layers, hidden 384, 12 heads; random weights from the config's
    seed): ``get_model`` -> ``save_checkpoint`` -> ``export_inference`` ->
@@ -23,8 +24,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    ``load_dataset`` -> ``get_model`` -> ``make_optimizer`` -> ``init_state``
    -> ``make_train_step`` / ``make_eval_step``.  One step's loss and
    gradients are held against the plain-attention (``einsum``) model; then
-   one epoch of 390 steps must give finite, falling losses with each
-   training kernel launched 7 times a step, and the padded test set (40
+   one epoch of 390 steps must give finite, falling losses with the
+   forward with lse and the tiled dq and dk/dv kernels launched 7 times a
+   step each, and the padded test set (40
    batches of 256) must reach val accuracy >= 0.5 with the inference kernel
    launched 7 times a batch.  Prints the step time, img/s and the device's
    busy share (torch.profiler).
@@ -32,16 +34,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    logsumexp, tiled dq, tiled dk/dv) and the autograd Function's gradients
    against their plain versions, at the pixel-token ViT's shape
    (128, 12, 1025, 32), the flagship's (128, 12, 65, 32) forced through
-   them, the JAX flash tests' tile-splitting shapes and one long sequence
-   (8, 1, 4096, 128), in f32 and bf16; times each kernel and its plain
+   them, the JAX flash tests' tile-splitting shapes, one long sequence
+   (8, 1, 4096, 128) and head dims 129, 136, 192, 256 and 384 (cut into
+   128-column chunks), in f32 and bf16; times each kernel and its plain
    version at the pixel shape, and ``F.scaled_dot_product_attention`` as
    the library's yardstick (timed only; the port never calls it).  Then
    the ragged-edge phase: the bf16 (tensor-core, ``mma.sync``) instances
    of both forwards, with and without lse, and of the tiled dq and dk/dv
    kernels against their plain versions at (2, 3, T, D) for 13 T from 1
-   to 129 and D in 16, 24, 32, 64, 128.
-   Then times each whole-head kernel against its tiled counterpart at
-   (128, 12, T, 32) bf16 for T = 65, 257 and 685.
+   to 129 and D in 16, 24, 32, 64, 128, 129, 136, 192, 256, 384.  Then
+   times the whole-head forwards and the fused Function against their
+   tiled counterparts at (128, 12, T, 32) bf16 for T = 65, 257 and 685, and
+   the tiled kernels beside the library's calls at (128, 8, 512, D) and
+   (16, 2, 2048, D) for D = 128, 192, 256.
 5. Pixel serving phase: the same serving path for the README recipe model
    at ``patch=32`` (one pixel a token, T=1025, 6,620,170 params); each
    request must launch the tiled forward 7 times and no whole-head kernel,
@@ -52,6 +57,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    each training flash kernel launched 7 times a step, finite and falling
    losses, eval over 4 padded batches of 256, the step time, img/s, the
    device's busy share and its top ops (torch.profiler over 5 steps).
+7. Wide-head phase: the README recipe's width in 2 heads at ``patch=2``
+   (T=257, head_dim 192), 2 layers, ``pallas_kernel="fused"``: one
+   training step's loss and gradients against the plain-attention model,
+   then served logits at B=8 against it with 2 launches of the whole-head
+   forward a batch, and 3 steps with the forward with lse and the tiled
+   pair launched twice a step each.
 
 The library's yardsticks, timed at both main shapes and called nowhere in
 the port: SDPA forward and forward+backward,
@@ -61,11 +72,9 @@ the residuals, the work of the dq + dk/dv kernel pair).
 
 Every kernel is held against its plain version, and the counts of launches
 of each path are set to 0 just before it and read just after.  Each kernel
-row names its design: the bf16 instances of the forwards and of the tiled
-backward pair run on the tensor cores ("mma.sync bf16"), the whole-head
-backward kernels on the CUDA cores ("cuda cores f32"); every f32 instance
-keeps the CUDA-core design, since the tensor cores would take f32 only as
-TF32.  The bound
+row names its design: the bf16 instances run on the tensor cores
+("mma.sync bf16"); every f32 instance keeps the CUDA-core design, since the
+tensor cores would take f32 only as TF32.  The bound
 of a kernel (``bound_ms``) is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations: its products
 over the bf16 tensor-core peak (989 TFLOP/s) and its exps over the
@@ -104,9 +113,8 @@ from vit_cifar_torch.deploy import (ServingModel, export_inference,
 from vit_cifar_torch.models import get_model
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.ops.cuda.attention import (
-    flash_bwd_dkv, flash_bwd_dkv_reference, flash_bwd_dq,
-    flash_bwd_dq_reference, fused_attention, fused_attention_lse,
-    fused_attention_lse_reference, fused_attention_reference)
+    fused_attention, fused_attention_lse, fused_attention_lse_reference,
+    fused_attention_reference)
 from vit_cifar_torch.ops.cuda.build import build_libraries, library_path
 from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention, flash_attention_lse, flash_attention_lse_reference,
@@ -122,9 +130,11 @@ from vit_cifar_torch.train.steps import (make_eval_step, make_metrics_zeros,
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-# the model's attention shape first, then the JAX kernel tests' ragged shapes
+# the model's attention shape first, then the JAX kernel tests' ragged
+# shapes, then heads past the 128-column chunks (the whole-head forward's
+# column-chunk layout, up to its last T at head_dim 384)
 SHAPES = [(128, 12, 65, 32), (2, 4, 9, 16), (2, 3, 65, 32), (1, 2, 130, 64),
-          (2, 2, 96, 128)]
+          (2, 2, 96, 128), (2, 2, 257, 192), (1, 1, 142, 384)]
 # kernel vs plain version: the same f32 math with sums in another order; in
 # bf16 the output may round one bf16 step (2**-7 relative) the other way
 KERNEL_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -152,20 +162,16 @@ FLASH_BF16_FRACTION = {"fwd": 1e-2, "bwd": 1e-2, "grad": 2e-2}
 # (relative L2); the bounds leave a 6x margin or more
 STEP_LOSS_ATOL = 1e-2
 STEP_GRAD_REL_L2 = 2e-2
-KERNELS = ("mhsa_fwd", "mhsa_bwd_dq", "mhsa_bwd_dkv", "flash_fwd",
-           "flash_bwd_dq", "flash_bwd_dkv")
+KERNELS = ("mhsa_fwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 REPLACES = {
     "mhsa_fwd": "vit_cifar_tpu/ops/pallas/attention.py:90",
     "mhsa_fwd_lse": "vit_cifar_tpu/ops/pallas/attention.py:90",
-    "mhsa_bwd_dq": "vit_cifar_tpu/ops/pallas/attention.py:338",
-    "mhsa_bwd_dkv": "vit_cifar_tpu/ops/pallas/attention.py:383",
     "flash_fwd": "vit_cifar_tpu/ops/pallas/attention.py:203",
     "flash_fwd_lse": "vit_cifar_tpu/ops/pallas/attention.py:203",
     "flash_bwd_dq_tiled": "vit_cifar_tpu/ops/pallas/attention.py:338",
     "flash_bwd_dkv_tiled": "vit_cifar_tpu/ops/pallas/attention.py:383",
 }
 SOURCES = {"mhsa_fwd": "mhsa_fwd", "mhsa_fwd_lse": "mhsa_fwd",
-           "mhsa_bwd_dq": "mhsa_bwd_dq", "mhsa_bwd_dkv": "mhsa_bwd_dkv",
            "flash_fwd": "flash_fwd", "flash_fwd_lse": "flash_fwd",
            "flash_bwd_dq_tiled": "flash_bwd_dq",
            "flash_bwd_dkv_tiled": "flash_bwd_dkv"}
@@ -174,9 +180,8 @@ SOURCES = {"mhsa_fwd": "mhsa_fwd", "mhsa_fwd_lse": "mhsa_fwd",
 # products; q, k, v, o, do and lse in, dq out), "dkv" (four products; dk
 # and dv out)
 KERNEL_WORK = {"mhsa_fwd": "fwd", "mhsa_fwd_lse": "fwd_lse",
-               "mhsa_bwd_dq": "dq", "mhsa_bwd_dkv": "dkv", "flash_fwd": "fwd",
-               "flash_fwd_lse": "fwd_lse", "flash_bwd_dq_tiled": "dq",
-               "flash_bwd_dkv_tiled": "dkv"}
+               "flash_fwd": "fwd", "flash_fwd_lse": "fwd_lse",
+               "flash_bwd_dq_tiled": "dq", "flash_bwd_dkv_tiled": "dkv"}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12    # H100 SXM tensor cores, dense bf16
 EXP_PER_S = 132 * 16 * 1.98e9  # special-function units: 16/clk/SM, boost
@@ -195,32 +200,50 @@ PIXEL_SHAPE = (128, 12, 1025, 32)
 # through them, the JAX flash tests' tile-splitting shapes, a long sequence
 FLASH_SHAPES = [PIXEL_SHAPE, (128, 12, 65, 32), (2, 3, 65, 32),
                 (1, 2, 130, 64), (2, 2, 257, 128), (1, 1, 8, 128),
-                (1, 2, 300, 32), (8, 1, 4096, 128)]
+                (1, 2, 300, 32), (8, 1, 4096, 128), (2, 2, 300, 129),
+                (2, 2, 257, 136), (2, 2, 257, 192), (1, 2, 130, 256),
+                (1, 1, 200, 384)]
 PIXEL_STEPS = 20
 PIXEL_STEP_BATCH = 8  # the einsum path's (B, H, T, T) tensors bound it
 PIXEL_REQUESTS = (1, 32)
 PIXEL_EVAL_IMAGES = 1000  # 4 padded batches of 256
-# where the whole-head kernels are timed against the tiled ones: the
-# flagship's T, and up to the longest T the whole-head kernels train at
+# where the whole-head forward is timed against the tiled one: the
+# flagship's T, and two longer heads it holds
 ROUTE_T = (65, 257, 685)
+# the tiled kernels beside the library's at head dims up to 256 (the
+# library's flash attention takes no wider head): the docs/PERFORMANCE.md
+# cells (128, 8, 512, 128) and (16, 2, 2048, 128), and the same at 192, 256
+HEAD_DIM_SHAPES = [(128, 8, 512, D) for D in (128, 192, 256)] + [
+    (16, 2, 2048, D) for D in (128, 192, 256)]
+# the wide-head phase: hidden 384 in 2 heads at patch 2 (T=257, head_dim
+# 192), 2 layers, through the whole-head forward
+WIDE_LAYERS = 2
+WIDE_BATCH = 8
+WIDE_STEPS = 3
 # the ragged-edge phase: every T where a 16-row tile, a 64-key chunk or a
 # 64-row block ends or begins, at head dims that are and are not a multiple
 # of 16, for the bf16 (tensor-core) instances of the two forwards and of
 # the tiled backward pair
 RAGGED_T = (1, 7, 8, 15, 16, 17, 63, 64, 65, 66, 127, 128, 129)
-RAGGED_D = (16, 24, 32, 64, 128)
+RAGGED_D = (16, 24, 32, 64, 128, 129, 136, 192, 256, 384)
 RAGGED_BH = (2, 3)
 # the ragged-edge phase holds the backward pair to the flash "bwd" limit,
-# but no tighter than this: at T=1 the softmax over one key is constant, so
-# dq and dk are 0 in exact arithmetic and kernel and plain version both
-# return f32 rounding noise of dp - delta (6e-8 measured on the card);
-# wherever a grad is not 0 the limit is 1% of it, far above this floor
+# but no tighter than this floor per 128 columns: at T=1 the softmax over one
+# key is constant, so dq and dk are 0 in exact arithmetic and kernel and
+# plain version both return f32 rounding noise of dp - delta, sums over D
+# terms (6e-8 measured on the card at D <= 128, 1.3e-6 at D=384); wherever
+# a grad is not 0 the limit is 1% of it, far above this floor
 RAGGED_BWD_ATOL_FLOOR = 1e-6
+
+
+def ragged_bwd_floor(D: int) -> float:
+    """``RAGGED_BWD_ATOL_FLOOR`` for head_dim D: the noise grows with the
+    number of terms in dp and delta."""
+    return RAGGED_BWD_ATOL_FLOOR * max(1.0, D / 128)
 # how each kernel row's bf16 instance computes (every f32 instance runs on
 # the CUDA cores: the tensor cores would need TF32)
 DESIGN = {"mhsa_fwd": "mma.sync bf16", "mhsa_fwd_lse": "mma.sync bf16",
           "flash_fwd": "mma.sync bf16", "flash_fwd_lse": "mma.sync bf16",
-          "mhsa_bwd_dq": "cuda cores f32", "mhsa_bwd_dkv": "cuda cores f32",
           "flash_bwd_dq_tiled": "mma.sync bf16",
           "flash_bwd_dkv_tiled": "mma.sync bf16"}
 # the bf16 max_abs_err of the first, CUDA-core designs at the main shapes
@@ -320,21 +343,33 @@ def bound(name: str, shape) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def device_kernels(fn) -> str:
-    """The device kernels one call of ``fn`` runs, by device time: the
-    backend a library call took."""
+def device_ms(fn, n: int = 20) -> tuple[float, str]:
+    """(device ms a call, its top kernels) of ``fn`` over ``n`` calls under
+    torch.profiler: the device time of the kernels themselves, which an
+    event window does not show where the host launches them more slowly
+    than the card runs them (T=65), and the backend a library call took.
+    The time is None where the profiler recorded no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
+    # device rows carry no CPU time
     kernels = [a for a in prof.key_averages()
                if a.self_device_time_total > 0 and a.self_cpu_time_total == 0]
     kernels.sort(key=lambda a: a.self_device_time_total, reverse=True)
-    return "; ".join(a.key[:80] for a in kernels[:3])
+    total = sum(a.self_device_time_total for a in kernels) / 1e3 / n
+    return total or None, "; ".join(a.key[:80] for a in kernels[:3])
+
+
+def ms_text(ms: float | None) -> str:
+    """A device time as printed: ``device_ms`` gives None where the
+    profiler recorded no kernel of the call."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def library_ms(shape, gen, iters: int, card: str) -> dict:
@@ -342,9 +377,9 @@ def library_ms(shape, gen, iters: int, card: str) -> dict:
     and called nowhere in the port: ``F.scaled_dot_product_attention``
     forward ("fwd") and forward plus backward ("fwd+bwd"), and
     ``aten._scaled_dot_product_flash_attention`` ("fwd_lse"), the forward
-    that also returns the (B, H, T) f32 logsumexp.  Prints each call's
-    kernels (its backend) and how far its lse is from the plain
-    version's."""
+    that also returns the (B, H, T) f32 logsumexp; each also as device time
+    (key ``"<name> device"``).  Prints each call's kernels (its backend)
+    and how far its lse is from the plain version's."""
     B, H, T, D = shape
     scale = 1.0 / math.sqrt(H * D)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda")
@@ -373,8 +408,10 @@ def library_ms(shape, gen, iters: int, card: str) -> dict:
     lse_err = (lse.float() - want).abs().max().item() \
         if lse.shape == want.shape else f"shape {tuple(lse.shape)}"
     for name, fn in calls.items():
+        dev, kernels = device_ms(fn)
+        ms[f"{name} device"] = dev
         print(f"library {name} {shape} bf16: {ms[name]:.4f} ms (windows of "
-              f"{iters}; {card}); kernels: {device_kernels(fn)}")
+              f"{iters}), device {ms_text(dev)} ({card}); kernels: {kernels}")
     print(f"library lse vs the plain version's: max_abs_err {lse_err}")
     # the pair's yardstick computes what the plain passes compute
     out_bthd = o.transpose(1, 2)
@@ -424,7 +461,7 @@ def kernel_phase(card: str) -> tuple[dict, dict]:
     for name in ("kernel", "plain"):
         print(f"fused attention fwd {SHAPES[0]} bf16, {name}: "
               f"{ms[name]:.4f} ms (median of {len(times[name])} windows of "
-              f"100; {card})")
+              f"100), device {ms_text(device_ms(fns[name])[0])} ({card})")
     library = library_ms(SHAPES[0], gen, 100, card)
     print_against_earlier("mhsa_fwd", main_err)
     return {"name": "mhsa_fwd", "route": "cuda", "design": DESIGN["mhsa_fwd"],
@@ -451,9 +488,11 @@ def _max_err(got, want) -> float:
 
 
 def training_kernel_phase(card: str, library: dict) -> list[dict]:
-    """The forward with lse, dq and dk/dv kernels against their plain
-    versions, the Function against autograd, and their times; ``library``
-    holds the library's times at the model's shape."""
+    """The whole-head forward with lse, the tiled dq and dk/dv passes on its
+    residuals (the fused Function's backward), and the Function against
+    autograd through the plain forward; then their times at the model's
+    shape, where ``library`` holds the library's.  The tiled kernels' rows
+    come from the flash phase, at the pixel model's shape."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
     for shape in SHAPES:
@@ -468,12 +507,11 @@ def training_kernel_phase(card: str, library: dict) -> list[dict]:
             want_out, want_lse = fused_attention_lse_reference(q, k, v, scale)
             # each backward kernel reads the plain forward's out and lse, so
             # that it is held against its plain version on equal inputs
-            dq = flash_bwd_dq(q, k, v, want_out, g, want_lse, scale)
-            dk, dv = flash_bwd_dkv(q, k, v, want_out, g, want_lse, scale)
-            want_dq = flash_bwd_dq_reference(q, k, v, want_out, g, want_lse,
-                                             scale)
-            want_dk, want_dv = flash_bwd_dkv_reference(
-                q, k, v, want_out, g, want_lse, scale)
+            args = (q, k, v, want_out, g, want_lse, scale)
+            dq = flash_tiled_bwd_dq(*args)
+            dk, dv = flash_tiled_bwd_dkv(*args)
+            want_dq = flash_tiled_bwd_dq_reference(*args)
+            want_dk, want_dv = flash_tiled_bwd_dkv_reference(*args)
 
             def grads(fn):
                 leaves = [a.clone().requires_grad_() for a in (q, k, v)]
@@ -491,8 +529,8 @@ def training_kernel_phase(card: str, library: dict) -> list[dict]:
             for a, w in zip(fn_grads, ag_grads):
                 torch.testing.assert_close(a, w, **GRAD_TOL[dtype])
             e = {"mhsa_fwd_lse": _max_err((out, lse), (want_out, want_lse)),
-                 "mhsa_bwd_dq": _max_err((dq,), (want_dq,)),
-                 "mhsa_bwd_dkv": _max_err((dk, dv), (want_dk, want_dv)),
+                 "flash_bwd_dq_tiled": _max_err((dq,), (want_dq,)),
+                 "flash_bwd_dkv_tiled": _max_err((dk, dv), (want_dk, want_dv)),
                  "function": _max_err(fn_grads, ag_grads)}
             print(f"training kernels {shape} {str(dtype)[6:]}: max_abs_err "
                   + ", ".join(f"{n} {x:.3e}" for n, x in e.items())
@@ -508,17 +546,19 @@ def training_kernel_phase(card: str, library: dict) -> list[dict]:
                .to(torch.bfloat16) for _ in range(3))
     g = torch.randn((B, T, H, D), generator=gen,
                     device="cuda").to(torch.bfloat16)
+    # out contiguous, as the forward kernel writes it for the main path's
+    # backward: the plain forward's strided out would add a copy to every
+    # backward launch
     out, lse = fused_attention_lse_reference(q, k, v, scale)
+    args = (q, k, v, out.contiguous(), g, lse, scale)
     pairs = {
         "mhsa_fwd_lse": (lambda: fused_attention_lse(q, k, v, scale),
                          lambda: fused_attention_lse_reference(q, k, v,
                                                                scale)),
-        "mhsa_bwd_dq": (
-            lambda: flash_bwd_dq(q, k, v, out, g, lse, scale),
-            lambda: flash_bwd_dq_reference(q, k, v, out, g, lse, scale)),
-        "mhsa_bwd_dkv": (
-            lambda: flash_bwd_dkv(q, k, v, out, g, lse, scale),
-            lambda: flash_bwd_dkv_reference(q, k, v, out, g, lse, scale)),
+        "flash_bwd_dq_tiled": (lambda: flash_tiled_bwd_dq(*args),
+                               lambda: flash_tiled_bwd_dq_reference(*args)),
+        "flash_bwd_dkv_tiled": (lambda: flash_tiled_bwd_dkv(*args),
+                                lambda: flash_tiled_bwd_dkv_reference(*args)),
     }
     leaves = [a.clone().requires_grad_() for a in (q, k, v)]
 
@@ -527,21 +567,29 @@ def training_kernel_phase(card: str, library: dict) -> list[dict]:
 
     pairs["attention fwd+bwd"] = (fwd_bwd(fused_attention),
                                   fwd_bwd(fused_attention_reference))
-    rows, pair_ms = [], {}
+    rows, pair_ms, pair_dev = [], {}, {}
     for name, (kernel, plain) in pairs.items():
         ms = in_turns({"kernel": kernel, "plain": plain})
-        print(f"{name} {SHAPES[0]} bf16: kernel {ms['kernel']:.4f} ms, "
-              f"plain {ms['plain']:.4f} ms (median of 6 windows of 100; "
-              f"{card})")
-        if name == "mhsa_bwd_dkv":
-            print(f"library dq+dk/dv pair {SHAPES[0]} bf16: "
-                  f"{library['bwd_pair']:.4f} ms against the kernels' "
-                  f"{pair_ms['mhsa_bwd_dq'] + ms['kernel']:.4f} ms ({card})")
+        pair_dev[name] = device_ms(kernel)[0]
+        line = (f"{name} {SHAPES[0]} bf16: kernel {ms['kernel']:.4f} ms, "
+                f"plain {ms['plain']:.4f} ms (median of 6 windows of 100); "
+                f"kernel device {ms_text(pair_dev[name])}")
+        if name in KERNEL_WORK:
+            b = bound(name, SHAPES[0])
+            line += f"; bound {b['bound_ms']:.4f} ms by {b['bound_by']}"
+        print(f"{line} ({card})")
         pair_ms[name] = ms["kernel"]
-        if name in REPLACES:
-            if name in EARLIER_MAX_ABS_ERR:
-                print_against_earlier(name, errs[name])
-            # no one PyTorch call computes dq or dk/dv alone
+        if name == "flash_bwd_dkv_tiled":
+            print(f"library dq+dk/dv pair {SHAPES[0]} bf16: "
+                  f"{library['bwd_pair']:.4f} ms, device "
+                  f"{ms_text(library['bwd_pair device'])}, against the tiled "
+                  f"kernels' "
+                  f"{pair_ms['flash_bwd_dq_tiled'] + ms['kernel']:.4f} ms, "
+                  f"device "
+                  f"{pair_dev['flash_bwd_dq_tiled'] + pair_dev[name]:.4f} ms "
+                  f"({card})")
+        if name == "mhsa_fwd_lse":
+            print_against_earlier(name, errs[name])
             rows.append({"name": name, "route": "cuda",
                          "design": DESIGN[name],
                          "source": f"vit_cifar_torch/csrc/{SOURCES[name]}.cu",
@@ -549,6 +597,9 @@ def training_kernel_phase(card: str, library: dict) -> list[dict]:
                          "max_abs_err": errs[name], "ms": ms["kernel"],
                          "plain_ms": ms["plain"], **bound(name, SHAPES[0]),
                          "library_ms": library.get(KERNEL_WORK[name])})
+    print(f"tiled pair at {SHAPES[0]} bf16 (the fused Function's backward): "
+          f"max_abs_err dq {errs['flash_bwd_dq_tiled']:.3e}, dk/dv "
+          f"{errs['flash_bwd_dkv_tiled']:.3e}")
     return rows
 
 
@@ -571,40 +622,46 @@ def device_activity(trace_path: str) -> tuple[float, int]:
     return busy, kernels
 
 
-def training_phase(card: str) -> dict:
-    cfg = Config(model_name="vit", num_layers=7, hidden=384, mlp_hidden=384,
-                 head=12, batch_size=128, label_smoothing=True,
-                 warmup_epoch=0, synthetic_data=True)
-    t0 = time.perf_counter()
-    raw = load_dataset(cfg.dataset, cfg.data_dir, cfg.synthetic_data)
-    x_train = torch.from_numpy(raw.x_train).cuda()
-    y_train = torch.from_numpy(raw.y_train).cuda()
-    steps_per_epoch = len(raw.x_train) // cfg.batch_size
-    if steps_per_epoch != TRAIN_STEPS:
-        raise AssertionError(f"{steps_per_epoch} steps per epoch")
-    print(f"synthetic c10 on the card: x_train {tuple(x_train.shape)} uint8, "
-          f"x_test {raw.x_test.shape}; {time.perf_counter() - t0:.1f} s")
+def flagship_cfg(**kw) -> Config:
+    """The README recipe without AutoAugment, trained from epoch 0 on
+    synthetic c10 at B=128 (``patch`` 8, T=65, unless ``kw`` says)."""
+    return Config(**{"model_name": "vit", "num_layers": 7, "hidden": 384,
+                     "mlp_hidden": 384, "head": 12, "batch_size": 128,
+                     "label_smoothing": True, "warmup_epoch": 0,
+                     "synthetic_data": True, **kw})
 
+
+def training_setup(cfg: Config, n_train: int | None = None):
+    """What a training run of ``cfg`` needs, on the card, from the entry
+    points a user calls: (raw data, x_train, y_train, model, state,
+    train_step, perm), over the first ``n_train`` training images (all
+    by default)."""
+    raw = load_dataset(cfg.dataset, cfg.data_dir, cfg.synthetic_data)
+    x_train = torch.from_numpy(raw.x_train[:n_train]).cuda()
+    y_train = torch.from_numpy(raw.y_train[:n_train]).cuda()
     model, _ = get_model(cfg, device="cuda")
-    n_params = sum(p.numel() for p in model.parameters())
-    if n_params != PARAMS:
-        raise AssertionError(f"{n_params} params, expected {PARAMS}")
-    plain, _ = get_model(cfg.replace(pallas_kernel="einsum"), device="cuda")
-    plain.load_state_dict(model.state_dict())
-    tx = make_optimizer(cfg, steps_per_epoch)
+    tx = make_optimizer(cfg, len(x_train) // cfg.batch_size)
     state = init_state(cfg, model, tx)
     state.metrics_acc = make_metrics_zeros(cfg, "cuda")
     train_step = make_train_step(cfg, model, tx)
-    eval_step = make_eval_step(cfg, model)
-    perm = torch.randperm(len(raw.x_train), device="cuda",
+    perm = torch.randperm(len(x_train), device="cuda",
                           generator=torch.Generator(device="cuda")
                           .manual_seed(cfg.seed + 1))
-    print(f"train: vit, 7 layers, hidden 384, 12 heads, {n_params} params, "
-          f"{cfg.precision}, batch {cfg.batch_size}, label smoothing, "
-          f"adam lr {cfg.lr}, warmup_epoch 0, no AutoAugment")
+    return raw, x_train, y_train, model, state, train_step, perm
 
-    # one step's loss and gradients, kernel path vs plain attention
-    img, label, _, _ = train_step.make_batch(state, x_train, y_train, perm, 0)
+
+def plain_twin(cfg: Config, model):
+    """``model``'s weights in the plain-attention (einsum) model."""
+    plain, _ = get_model(cfg.replace(pallas_kernel="einsum"), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    return plain
+
+
+def check_step(cfg: Config, model, plain, img, label, what: str) -> None:
+    """One step's loss and flat gradient on (img, label), the kernel path
+    against the plain-attention path, within the step bounds.  Run it
+    before a path's launch counts are set to 0: its launches are not the
+    path's."""
     criterion = make_criterion(cfg)
 
     def loss_and_grad(m):
@@ -615,13 +672,34 @@ def training_phase(card: str) -> dict:
     loss_k, grad_k = loss_and_grad(model)
     loss_p, grad_p = loss_and_grad(plain)
     rel = ((grad_k - grad_p).norm() / grad_p.norm()).item()
-    print(f"one step, kernel vs einsum path: loss {loss_k:.6f} vs "
-          f"{loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3e}, bound "
-          f"{STEP_LOSS_ATOL}); gradient relative L2 {rel:.3e} (bound "
-          f"{STEP_GRAD_REL_L2})")
+    print(f"{what}, kernel vs einsum path: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(|diff| {abs(loss_k - loss_p):.3e}, bound {STEP_LOSS_ATOL}); "
+          f"gradient relative L2 {rel:.3e} (bound {STEP_GRAD_REL_L2})")
     if not (abs(loss_k - loss_p) <= STEP_LOSS_ATOL and rel <= STEP_GRAD_REL_L2):
-        raise AssertionError("kernel path and einsum path disagree")
-    del plain, grad_k, grad_p
+        raise AssertionError(f"{what}: kernel path and einsum path disagree")
+
+
+def training_phase(card: str) -> dict:
+    cfg = flagship_cfg()
+    t0 = time.perf_counter()
+    raw, x_train, y_train, model, state, train_step, perm = \
+        training_setup(cfg)
+    steps_per_epoch = len(raw.x_train) // cfg.batch_size
+    if steps_per_epoch != TRAIN_STEPS:
+        raise AssertionError(f"{steps_per_epoch} steps per epoch")
+    print(f"synthetic c10 on the card: x_train {tuple(x_train.shape)} uint8, "
+          f"x_test {raw.x_test.shape}; set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != PARAMS:
+        raise AssertionError(f"{n_params} params, expected {PARAMS}")
+    eval_step = make_eval_step(cfg, model)
+    print(f"train: vit, 7 layers, hidden 384, 12 heads, {n_params} params, "
+          f"{cfg.precision}, batch {cfg.batch_size}, label smoothing, "
+          f"adam lr {cfg.lr}, warmup_epoch 0, no AutoAugment")
+
+    img, label, _, _ = train_step.make_batch(state, x_train, y_train, perm, 0)
+    check_step(cfg, model, plain_twin(cfg, model), img, label, "one step")
 
     # the main path starts here: every launch counted from now until the
     # last eval batch is the training path's
@@ -641,9 +719,10 @@ def training_phase(card: str) -> dict:
     step_ms = (time.perf_counter() - t_start) * 1e3 / (TRAIN_STEPS - warm)
     train_launches = {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
     want = {n: 0 for n in KERNEL_WRAPPERS}
+    # the fused Function: the whole-head forward, then the tiled pair
     want.update({"mhsa_fwd_lse": cfg.num_layers,
-                 "mhsa_bwd_dq": cfg.num_layers,
-                 "mhsa_bwd_dkv": cfg.num_layers})
+                 "flash_bwd_dq_tiled": cfg.num_layers,
+                 "flash_bwd_dkv_tiled": cfg.num_layers})
     if first != want or train_launches != {
             n: c * TRAIN_STEPS for n, c in want.items()}:
         raise AssertionError(f"launches: first step {first}, epoch "
@@ -699,13 +778,16 @@ def training_phase(card: str) -> dict:
 
 
 def profile_steps(step, n_prof: int, trace_name: str, step_ms: float,
-                  card: str) -> None:
+                  card: str) -> dict:
     """Run ``step(i)`` ``n_prof`` times under torch.profiler; print the
     device activity a step, the busy share against the unprofiled
-    ``step_ms`` and the top device kernels."""
+    ``step_ms`` and the top device kernels, and return them a step:
+    ``device_ms``, ``profiled_ms``, ``kernels``, ``busy`` and
+    ``by_kernel`` (device ms of each kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     trace = os.path.join(WORK, trace_name)
+    os.makedirs(WORK, exist_ok=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -716,12 +798,12 @@ def profile_steps(step, n_prof: int, trace_name: str, step_ms: float,
         wall_us = (time.perf_counter() - t0) * 1e6
     prof.export_chrome_trace(trace)
     busy_us, n_kernels = device_activity(trace)
-    device_ms = busy_us / 1e3 / n_prof
+    dev_ms = busy_us / 1e3 / n_prof
     print(f"profiled {n_prof} train steps: {n_kernels / n_prof:.1f} kernels "
-          f"and {device_ms:.3f} ms of device activity a step; "
+          f"and {dev_ms:.3f} ms of device activity a step; "
           f"{wall_us / 1e3 / n_prof:.3f} ms a step under the profiler (busy "
           f"share {busy_us / wall_us:.3f}); against the unprofiled step, "
-          f"device busy share {device_ms / step_ms:.3f} ({card})")
+          f"device busy share {dev_ms / step_ms:.3f} ({card})")
     # device kernels only (their rows carry no CPU time), by device time
     kernels = [a for a in prof.key_averages()
                if a.self_device_time_total > 0 and a.self_cpu_time_total == 0]
@@ -729,6 +811,10 @@ def profile_steps(step, n_prof: int, trace_name: str, step_ms: float,
     for a in kernels[:12]:
         print(f"  {a.self_device_time_total / 1e3 / n_prof:8.4f} ms/step "
               f"{a.count / n_prof:6.1f}x/step  {a.key[:90]}")
+    return {"device_ms": dev_ms, "profiled_ms": wall_us / 1e3 / n_prof,
+            "kernels": n_kernels / n_prof, "busy": dev_ms / step_ms,
+            "by_kernel": {a.key: a.self_device_time_total / 1e3 / n_prof
+                          for a in kernels}}
 
 
 def _post(url: str, kind: str, imgs: np.ndarray) -> dict:
@@ -917,7 +1003,7 @@ def flash_kernel_phase(card: str) -> list[dict]:
     g = torch.randn((B, T, H, D), generator=gen,
                     device="cuda").to(torch.bfloat16)
     out, lse = flash_attention_lse_reference(q, k, v, scale)
-    args = (q, k, v, out, g, lse, scale)
+    args = (q, k, v, out.contiguous(), g, lse, scale)  # as the forward writes
     leaves = [a.clone().requires_grad_() for a in (q, k, v)]
 
     def plain_fwd_bwd():
@@ -1011,7 +1097,7 @@ def ragged_edge_phase() -> None:
                         tol = KERNEL_TOL[torch.bfloat16]
                     elif "bwd" in name:
                         tol = flash_tol("bwd", torch.bfloat16, want)
-                        tol["atol"] = max(tol["atol"], RAGGED_BWD_ATOL_FLOOR)
+                        tol["atol"] = max(tol["atol"], ragged_bwd_floor(D))
                     else:
                         tol = flash_tol("fwd", torch.bfloat16, want)
                     torch.testing.assert_close(
@@ -1021,15 +1107,17 @@ def ragged_edge_phase() -> None:
     print(f"ragged edges: {len(RAGGED_T) * len(RAGGED_D)} shapes ({B}, {H}, "
           f"T, D), T in {RAGGED_T}, D in {RAGGED_D}, bf16: every redesigned "
           "instance within its limits (mhsa_* rtol=atol=1e-2, flash_* 1% of "
-          f"max |out| or max |grad| (at least {RAGGED_BWD_ATOL_FLOOR}), lse "
+          f"max |out| or max |grad| (at least {RAGGED_BWD_ATOL_FLOOR} per 128 "
+          "columns), lse "
           "1e-5); worst max_abs_err "
           + ", ".join(f"{n} {e:.3e}" for n, e in worst.items()))
 
 
 def tiled_vs_whole_head(card: str) -> None:
-    """Each whole-head kernel against its tiled counterpart, in turns, at
+    """The whole-head forwards, and the fused Function (whole-head forward,
+    tiled backward), against their tiled counterparts, in turns, at
     (128, 12, T, 32) bf16 for each T of ``ROUTE_T``: the measurement behind
-    ``route``'s choice of the whole-head kernels wherever they fit."""
+    ``route``'s choice of the whole-head forward wherever it fits."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     for T in ROUTE_T:
         B, H, D = 128, 12, 32
@@ -1038,8 +1126,6 @@ def tiled_vs_whole_head(card: str) -> None:
                    .to(torch.bfloat16) for _ in range(3))
         g = torch.randn((B, T, H, D), generator=gen,
                         device="cuda").to(torch.bfloat16)
-        out, lse = flash_attention_lse_reference(q, k, v, scale)
-        args = (q, k, v, out, g, lse, scale)
         leaves = [a.clone().requires_grad_() for a in (q, k, v)]
 
         def fwd_bwd(fn):
@@ -1050,10 +1136,6 @@ def tiled_vs_whole_head(card: str) -> None:
                     lambda: flash_attention(q, k, v, scale)),
             "fwd_lse": (lambda: fused_attention_lse(q, k, v, scale),
                         lambda: flash_attention_lse(q, k, v, scale)),
-            "dq": (lambda: flash_bwd_dq(*args),
-                   lambda: flash_tiled_bwd_dq(*args)),
-            "dkv": (lambda: flash_bwd_dkv(*args),
-                    lambda: flash_tiled_bwd_dkv(*args)),
             "fwd+bwd": (fwd_bwd(fused_attention), fwd_bwd(flash_attention)),
         }
         iters = max(3, round(100 * (65 / T) ** 2))
@@ -1065,13 +1147,130 @@ def tiled_vs_whole_head(card: str) -> None:
                   f"{ms['tiled']:.4f} ms, tiled/whole-head "
                   f"{ms['tiled'] / ms['whole-head']:.3f} (median of 4 "
                   f"windows of {iters}; {card})")
-        del q, k, v, g, out, lse, args, leaves, pairs
+        del q, k, v, g, leaves, pairs
 
 
-def _pixel_cfg(**kw) -> Config:
-    """The README recipe model at patch=32: one pixel a token, T=1025."""
-    return Config(model_name="vit", num_layers=7, hidden=384, mlp_hidden=384,
-                  head=12, patch=32, **kw)
+def einsum_attention(q, k, v, scale: float) -> torch.Tensor:
+    """The einsum path of ``ops/attention.py``: logits in the input dtype,
+    an f32 softmax cast back, the (B, T, H, D) context."""
+    logits = torch.einsum("bhid,bhjd->bhij", q, k) * scale
+    attn = torch.softmax(logits.float(), -1).to(q.dtype)
+    return torch.einsum("bhij,bhjd->bihd", attn, v)
+
+
+def head_dim_timing(card: str) -> None:
+    """The tiled kernels at ``HEAD_DIM_SHAPES`` in bf16, each beside its
+    bound and the library's call on the same inputs, and the tiled
+    Function's forward+backward beside the einsum path's and SDPA's: up to
+    128 columns one block holds a row's whole head, past it each 128-column
+    chunk of the output has its own block."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for shape in HEAD_DIM_SHAPES:
+        B, H, T, D = shape
+        scale = 1.0 / math.sqrt(H * D)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        g = torch.randn((B, T, H, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out, lse = flash_attention_lse(q, k, v, scale)
+        args = (q, k, v, out, g, lse, scale)
+        iters = 20
+        ms = {"flash_fwd": cuda_ms(lambda: flash_attention(q, k, v, scale),
+                                   iters),
+              "flash_fwd_lse": cuda_ms(
+                  lambda: flash_attention_lse(q, k, v, scale), iters),
+              "flash_bwd_dq_tiled": cuda_ms(lambda: flash_tiled_bwd_dq(*args),
+                                            iters),
+              "flash_bwd_dkv_tiled": cuda_ms(
+                  lambda: flash_tiled_bwd_dkv(*args), iters)}
+        library = library_ms(shape, gen, iters, card)
+        lib_of = {"flash_fwd": library["fwd"],
+                  "flash_fwd_lse": library["fwd_lse"]}
+        for name, t in ms.items():
+            b = bound(name, shape)
+            lib = lib_of.get(name)
+            print(f"head dim {shape} bf16 {name}: {t:.4f} ms (windows of "
+                  f"{iters}); bound {b['bound_ms']:.4f} ms by "
+                  f"{b['bound_by']}; library "
+                  + (f"{lib:.4f} ms" if lib is not None else "none alone")
+                  + f" ({card})")
+        print(f"head dim {shape} bf16 dq + dk/dv pair: "
+              f"{ms['flash_bwd_dq_tiled'] + ms['flash_bwd_dkv_tiled']:.4f} "
+              f"ms; library backward {library['bwd_pair']:.4f} ms ({card})")
+        # forward + backward of the tiled Function against the plain einsum
+        # attention of ``ops/attention.py`` (bf16 logits and probabilities)
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        fwd_bwd = {
+            name: cuda_ms(lambda fn=fn: torch.autograd.grad(
+                fn(*leaves, scale), leaves, g), iters)
+            for name, fn in (("tiled", flash_attention),
+                             ("einsum", einsum_attention))}
+        print(f"head dim {shape} bf16 fwd+bwd: tiled Function "
+              f"{fwd_bwd['tiled']:.4f} ms, einsum path {fwd_bwd['einsum']:.4f}"
+              f" ms, SDPA {library['fwd+bwd']:.4f} ms ({card})")
+        del q, k, v, g, out, lse, args, leaves
+        torch.cuda.empty_cache()
+
+
+def wide_head_phase(card: str) -> dict:
+    """``pallas_kernel="fused"`` at T=257, head_dim 192: one step's loss and
+    gradients against the plain-attention model, then serving and training
+    through the whole-head forward's column-chunk layout and the tiled
+    pair."""
+    cfg = flagship_cfg(num_layers=WIDE_LAYERS, head=2, patch=2,
+                       pallas_kernel="fused", batch_size=WIDE_BATCH)
+    _, x_train, y_train, model, state, train_step, perm = \
+        training_setup(cfg, 256)
+    plain = plain_twin(cfg, model)
+    print(f"wide heads: vit, patch 2 (T=257), {WIDE_LAYERS} layers, hidden "
+          f"384, 2 heads (head_dim 192), pallas_kernel 'fused', "
+          f"{cfg.precision}")
+    img, label, _, _ = train_step.make_batch(state, x_train, y_train, perm, 0)
+    check_step(cfg, model, plain, img, label, "wide heads, one step")
+
+    # the main path starts here: serving, then training
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    x = normalize(x_train[:WIDE_BATCH], cfg.mean, cfg.std).to(
+        torch_dtype(cfg))
+    model.eval()
+    plain.eval()
+    with torch.inference_mode():
+        logits = model(x).float()
+        want = plain(x).float()
+    served = _launch_counts()
+    if served != dict({n: 0 for n in KERNEL_WRAPPERS},
+                      mhsa_fwd=WIDE_LAYERS):
+        raise AssertionError(f"serving launches {served}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits")
+    torch.testing.assert_close(logits, want, **LOGIT_TOL)
+    print(f"wide heads, serving B={WIDE_BATCH}: logits finite, max |kernel - "
+          f"plain| {(logits - want).abs().max().item():.3e} within "
+          f"rtol={LOGIT_TOL['rtol']} atol={LOGIT_TOL['atol']}, "
+          f"{served['mhsa_fwd']} launches of mhsa_fwd")
+
+    del plain
+    model.train()
+    before = _launch_counts()
+    losses = []
+    for i in range(WIDE_STEPS):
+        state, metrics = train_step(state, x_train, y_train, perm, i)
+        losses.append(metrics["loss"].item())
+    launches = _launch_counts()
+    per_step = {n: (c - before[n]) / WIDE_STEPS for n, c in launches.items()}
+    want_step = dict({n: 0 for n in KERNEL_WRAPPERS},
+                     mhsa_fwd_lse=WIDE_LAYERS, flash_bwd_dq_tiled=WIDE_LAYERS,
+                     flash_bwd_dkv_tiled=WIDE_LAYERS)
+    if per_step != want_step:
+        raise AssertionError(f"launches a step {per_step}, expected "
+                             f"{want_step}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses {losses}")
+    print(f"wide heads, {WIDE_STEPS} training steps at B={WIDE_BATCH}: "
+          f"losses {' '.join(f'{x:.4f}' for x in losses)}, launches a step "
+          f"{ {n: c for n, c in per_step.items() if c} }")
+    return launches
 
 
 def _launch_counts() -> dict:
@@ -1079,7 +1278,7 @@ def _launch_counts() -> dict:
 
 
 def pixel_serving_phase(card: str) -> dict:
-    cfg = _pixel_cfg()
+    cfg = flagship_cfg(patch=32)  # one pixel a token, T=1025
     model, _ = get_model(cfg, generator=torch.Generator().manual_seed(cfg.seed))
     n_params = sum(p.numel() for p in model.parameters())
     if n_params != PIXEL_PARAMS:
@@ -1160,51 +1359,24 @@ def pixel_serving_phase(card: str) -> dict:
 
 
 def pixel_training_phase(card: str) -> dict:
-    cfg = _pixel_cfg(batch_size=128, label_smoothing=True, warmup_epoch=0,
-                     synthetic_data=True)
-    raw = load_dataset(cfg.dataset, cfg.data_dir, cfg.synthetic_data)
-    x_train = torch.from_numpy(raw.x_train).cuda()
-    y_train = torch.from_numpy(raw.y_train).cuda()
-    model, _ = get_model(cfg, device="cuda")
+    cfg = flagship_cfg(patch=32)
+    raw, x_train, y_train, model, state, train_step, perm = \
+        training_setup(cfg)
     n_params = sum(p.numel() for p in model.parameters())
     if n_params != PIXEL_PARAMS:
         raise AssertionError(f"{n_params} params, expected {PIXEL_PARAMS}")
-    plain, _ = get_model(cfg.replace(pallas_kernel="einsum"), device="cuda")
-    plain.load_state_dict(model.state_dict())
-    tx = make_optimizer(cfg, len(raw.x_train) // cfg.batch_size)
-    state = init_state(cfg, model, tx)
-    state.metrics_acc = make_metrics_zeros(cfg, "cuda")
-    train_step = make_train_step(cfg, model, tx)
     eval_step = make_eval_step(cfg, model)
-    perm = torch.randperm(len(raw.x_train), device="cuda",
-                          generator=torch.Generator(device="cuda")
-                          .manual_seed(cfg.seed + 1))
     print(f"pixel train: vit, patch 32 (T=1025), 7 layers, hidden 384, 12 "
           f"heads, {n_params} params, {cfg.precision}, batch "
           f"{cfg.batch_size}, label smoothing, adam lr {cfg.lr}, "
           f"warmup_epoch 0, no AutoAugment")
 
-    # one step's loss and gradients at B=8, flash path vs plain attention:
-    # at B=128 the einsum path's saved (B, H, T, T) tensors need ~90 GB
+    # one step at B=8: at B=128 the einsum path's saved (B, H, T, T)
+    # tensors need ~90 GB
     img, label, _, _ = train_step.make_batch(state, x_train, y_train, perm, 0)
-    img, label = img[:PIXEL_STEP_BATCH], label[:PIXEL_STEP_BATCH]
-    criterion = make_criterion(cfg)
-
-    def loss_and_grad(m):
-        loss = criterion(m(img, deterministic=False), label)
-        grads = torch.autograd.grad(loss, list(m.parameters()))
-        return loss.item(), torch.cat([g.reshape(-1) for g in grads])
-
-    loss_k, grad_k = loss_and_grad(model)
-    loss_p, grad_p = loss_and_grad(plain)
-    rel = ((grad_k - grad_p).norm() / grad_p.norm()).item()
-    print(f"pixel step at B={PIXEL_STEP_BATCH}, flash vs einsum path: loss "
-          f"{loss_k:.6f} vs {loss_p:.6f} (|diff| {abs(loss_k - loss_p):.3e}, "
-          f"bound {STEP_LOSS_ATOL}); gradient relative L2 {rel:.3e} (bound "
-          f"{STEP_GRAD_REL_L2})")
-    if not (abs(loss_k - loss_p) <= STEP_LOSS_ATOL and rel <= STEP_GRAD_REL_L2):
-        raise AssertionError("flash path and einsum path disagree")
-    del plain, grad_k, grad_p
+    check_step(cfg, model, plain_twin(cfg, model), img[:PIXEL_STEP_BATCH],
+               label[:PIXEL_STEP_BATCH],
+               f"pixel step at B={PIXEL_STEP_BATCH}")
     torch.cuda.empty_cache()
 
     # the main path starts here
@@ -1298,9 +1470,11 @@ def main() -> None:
             *flash_kernel_phase(card)]
     ragged_edge_phase()
     tiled_vs_whole_head(card)
+    head_dim_timing(card)
     # each path's launches, counted from zero just before it
     paths = [{"mhsa_fwd": serving_phase(card)}, training_phase(card),
-             pixel_serving_phase(card), pixel_training_phase(card)]
+             pixel_serving_phase(card), pixel_training_phase(card),
+             wide_head_phase(card)]
     for row in rows:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
         if row["launches"] < 1:

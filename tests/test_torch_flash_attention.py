@@ -33,8 +33,9 @@ from vit_cifar_torch.ops.attention import MultiHeadSelfAttention, route
 from vit_cifar_torch.ops.cuda import flash_attention as flash_module
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.ops.cuda.attention import (
-    WHOLE_HEAD_SMEM_BYTES, fused_attention_lse_reference,
-    fused_attention_reference, whole_head_fits)
+    fused_attention_lse_reference, fused_attention_reference, whole_head_fits,
+    whole_head_smem_bytes)
+from vit_cifar_torch.ops.cuda.common import COL_CHUNK
 from vit_cifar_torch.ops.cuda.flash_attention import (
     FlashAttentionFunction, flash_attention, flash_attention_lse,
     flash_attention_lse_reference, flash_attention_reference,
@@ -125,6 +126,47 @@ def test_flash_grads_match_jax_vjp(case, monkeypatch):
                      ("Function", through_function)):
         for name, a, w in zip(("dq", "dk", "dv"), got, want):
             assert a.shape == (B, H, T, D) and a.dtype == torch.float32
+            np.testing.assert_allclose(a.numpy(), w, **GRAD_TOL,
+                                       err_msg=f"{name} via {how}")
+
+
+# heads wider than the kernels' 128-column chunks, at ragged T: the JAX
+# kernels pad D to a multiple of 128 (``_flash_tiles``), the port's kernels
+# cut it into chunks; the plain versions take any D as it is
+WIDE_CASES = [(1, 2, 130, 192, 64, 64), (2, 1, 97, 256, 32, 128)]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_tiled_plain_versions_past_128_columns_match_jax(case, monkeypatch):
+    """The forward with lse and the tiled dq and dk/dv passes (plain
+    versions; on the CPU the wrappers are the same) against JAX's
+    ``flash_attention`` and ``jax.vjp`` of it at head_dim 192 and 256, in
+    f32 at rtol 1e-4 / atol 1e-5."""
+    B, H, T, D, bq, bk = case
+    assert D > COL_CHUNK
+    monkeypatch.setattr(flash_module, "BLOCK_KV", bk)
+    q, k, v, g, scale = _inputs(B, H, T, D, seed=13)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(a, b, c, scale,
+                                                            bq, bk), jq, jk, jv)
+    want_grads = [np.asarray(w) for w in vjp(jnp.asarray(g))]
+    _, jlse = jax_flash_forward_impl(jq, jk, jv, scale, bq, bk, with_lse=True)
+
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    for fn in (flash_attention_lse_reference, flash_attention_lse):
+        out, lse = fn(tq, tk, tv, scale)
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), **GRAD_TOL,
+                                   err_msg=fn.__name__)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :, :T, 0],
+                                   **GRAD_TOL, err_msg=fn.__name__)
+    args = (tq, tk, tv, out, tg, lse, scale)
+    for how, got in (("plain", [flash_tiled_bwd_dq_reference(*args),
+                                *flash_tiled_bwd_dkv_reference(*args)]),
+                     ("wrapper", [flash_tiled_bwd_dq(*args),
+                                  *flash_tiled_bwd_dkv(*args)])):
+        for name, a, w in zip(("dq", "dk", "dv"), got, want_grads):
+            assert a.shape == (B, H, T, D)
             np.testing.assert_allclose(a.numpy(), w, **GRAD_TOL,
                                        err_msg=f"{name} via {how}")
 
@@ -388,34 +430,41 @@ def test_flash_function_saves_no_t_by_t_tensor():
     assert not any(len(s) >= 2 and s[-2:] == (T, T) for s in saved), saved
 
 
-@pytest.mark.parametrize("T,D,kernel,training,want", [
-    (65, 32, "", False, "fused"),        # the flagship ViT, serving
-    (65, 32, None, True, "fused"),       # the flagship ViT, training
-    (1025, 32, "", False, "flash"),      # the pixel-token ViT, serving
-    (1025, 32, None, True, "flash"),     # the pixel-token ViT, training
-    (792, 32, "", False, "fused"),       # the last T the forward holds
-    (793, 32, "", False, "flash"),
-    (685, 32, "", True, "fused"),        # the last T dk/dv holds
-    (686, 32, "", True, "flash"),
-    (215, 128, "", False, "fused"),
-    (216, 128, "", False, "flash"),
-    (65, 32, "flash", True, "flash"),    # forced: any T
-    (4096, 128, "flash", False, "flash"),
-    (1025, 32, "einsum", True, "einsum"),
-    (65, 32, "einsum", False, "einsum"),
-    (700, 32, "fused", False, "fused"),
-    # past the tiled kernels' head_dim: the JAX module's default path
-    (257, 192, "", True, "einsum"),
-    (257, 192, None, False, "einsum"),
-    (136, 192, "", True, "fused"),       # the last T the whole head holds
-    (137, 192, "", True, "einsum"),
-    (257, 192, "flash", True, "flash"),  # forced: raises on the card
-    (257, 128, "", True, "flash"),
+@pytest.mark.parametrize("T,D,kernel,want", [
+    (65, 32, "", "fused"),            # the flagship ViT
+    (65, 32, None, "fused"),
+    (1025, 32, "", "flash"),          # the pixel-token ViT
+    (1025, 32, None, "flash"),
+    (792, 32, "", "fused"),           # the last T the forward holds
+    (793, 32, "", "flash"),
+    (685, 32, None, "fused"),         # the backward no longer limits it
+    (686, 32, None, "fused"),
+    (215, 128, "", "fused"),
+    (216, 128, "", "flash"),
+    (65, 32, "flash", "flash"),       # forced: any T
+    (4096, 128, "flash", "flash"),
+    (1025, 32, "einsum", "einsum"),
+    (65, 32, "einsum", "einsum"),
+    (700, 32, "fused", "fused"),
+    # past COL_CHUNK columns the default takes the tiled kernels ...
+    (257, 192, "", "flash"),
+    (257, 192, None, "flash"),
+    (136, 192, "", "flash"),
+    (9, 384, None, "flash"),
+    (257, 192, "flash", "flash"),
+    (257, 128, "", "flash"),
+    # ... and "fused" runs while its column-chunk layout holds the head
+    (257, 192, "fused", "fused"),
+    (279, 192, "fused", "fused"),
+    (213, 256, "fused", "fused"),
+    (142, 384, "fused", "fused"),
 ])
-def test_route(T, D, kernel, training, want):
-    assert route(T, D, kernel, training) == want
+def test_route(T, D, kernel, want):
+    assert route(T, D, kernel) == want
     if kernel in ("", None):
-        assert whole_head_fits(T, D, training) == (want == "fused")
+        assert (D <= COL_CHUNK and whole_head_fits(T, D)) == (want == "fused")
+    elif kernel == "fused":
+        assert whole_head_fits(T, D)
 
 
 @pytest.mark.parametrize("D", [1, 2, 3, 5, 7, 8, 9, 16, 17, 24, 31, 32, 40,
@@ -423,29 +472,42 @@ def test_route(T, D, kernel, training, want):
 def test_whole_head_bf16_layout_never_needs_more_than_the_f32_formula(D):
     """``csrc/mhsa_fwd.cu``'s bf16 instance stages K and V as T rows of
     ``stride_elems(D)`` bf16 each plus a 16-byte chunk of zeros
-    (``mma_smem_bytes``); ``route`` reads the f32 formula, so the router
-    chooses as before only if that is never smaller, at any T."""
-    width = (D + 7) // 8 * 8  # staged_width(D)
-    stride = 8 * ((width // 8) | 1)  # stride_elems(D): odd 16-byte chunks
+    (``mma_smem_bytes``); up to COL_CHUNK columns the router reads the f32
+    formula, so it chooses as before only if that is never smaller, at any
+    T.  Past COL_CHUNK the bf16 layout stages K and V by 128-column chunk,
+    and the formula is the larger of that layout and the f32 tile's."""
+    def stride(width):  # stride_elems: an odd number of 16-byte chunks
+        return 8 * (((width + 7) // 8) | 1)
+
     T = np.arange(1, 8193)
-    bf16 = 2 * (8 + 2 * T * stride)
-    assert (bf16 <= WHOLE_HEAD_SMEM_BYTES["mhsa_fwd"](T, D)).all()
+    formula = np.array([whole_head_smem_bytes(int(t), D) for t in T])
+    if D <= COL_CHUNK:
+        bf16 = 2 * (8 + 2 * T * stride(D))
+        assert (bf16 <= formula).all()
+        assert (formula == 4 * (T * (D + 1) + T * D + 8 * D + 8 * T)).all()
+    else:
+        widths = [min(COL_CHUNK, D - c) for c in range(0, D, COL_CHUNK)]
+        bf16 = 2 * (8 + 2 * T * sum(stride(w) for w in widths))
+        f32_tile = 4 * (64 * 128 + 64 * 129 + 64 * 128 + 8 * 64)
+        assert (formula == np.maximum(bf16, f32_tile)).all()
 
 
 def test_default_module_past_the_tiled_head_dim_matches_jax(monkeypatch):
-    """hidden 384 in 2 heads (head_dim 192) at T=257 (patch 16): the
-    whole-head kernels cannot hold the head for training and the tiled
-    kernels stop at head_dim 128, so the default config takes the einsum
-    path -- the JAX module's default -- and never the tiled one; its
-    output and grads (input and every parameter) match the JAX module's in
-    f32 (the order of sums differs: rtol 1e-4 / atol 1e-5)."""
+    """hidden 384 in 2 heads (head_dim 192) at T=257 (patch 2): the default
+    config takes the tiled kernels, which cut the head into column chunks
+    (it took the einsum path while they stopped at head_dim 128); the
+    module's output and grads (input and every parameter) on that path
+    match the JAX module's in f32 (the order of sums differs: rtol 1e-4 /
+    atol 1e-5)."""
     features, head, T = 384, 2, 257
-    assert route(T, features // head, None, True) == "einsum"
+    assert route(T, features // head, None) == "flash"
+    calls = []
 
-    def refuse(*args):
-        raise AssertionError("the tiled path was taken")
+    def spy(*args):
+        calls.append(args[0].shape)
+        return flash_attention(*args)
 
-    monkeypatch.setattr(attention_module, "flash_attention", refuse)
+    monkeypatch.setattr(attention_module, "flash_attention", spy)
     rng = np.random.default_rng(12)
     x, g = (rng.normal(size=(2, T, features)).astype(np.float32)
             for _ in range(2))
@@ -470,13 +532,14 @@ def test_default_module_past_the_tiled_head_dim_matches_jax(monkeypatch):
         np.testing.assert_allclose(param.grad.numpy(),
                                    want_grads[name].numpy(), **GRAD_TOL,
                                    err_msg=name)
+    assert calls == [(2, head, T, features // head)]
 
 
-@pytest.mark.parametrize("T,D,training", [(1025, 32, False), (700, 32, True),
-                                          (4096, 128, False)])
-def test_route_refuses_fused_beyond_shared_memory(T, D, training):
+@pytest.mark.parametrize("T,D", [(1025, 32), (793, 32), (4096, 128),
+                                 (280, 192), (143, 384)])
+def test_route_refuses_fused_beyond_shared_memory(T, D):
     with pytest.raises(ValueError, match="fused"):
-        route(T, D, "fused", training)
+        route(T, D, "fused")
 
 
 def test_pixel_token_attention_module_routes_to_flash_and_matches_einsum():

@@ -90,7 +90,7 @@ def test_pixel_tokens_match_jax():
 def test_pixel_vit_full_width_param_count_and_route():
     """The README recipe's width at patch 32: Linear(3 -> 384) embedding and
     a (1, 1025, 384) position table, 6,620,170 parameters; its attention
-    (T=1025, head_dim 32) is past the whole-head kernels, so the default
+    (T=1025, head_dim 32) is past the whole-head forward, so the default
     config takes the tiled kernels in serving and in training."""
     cfg = tconfig.Config(model_name="vit", num_layers=7, hidden=384,
                          mlp_hidden=384, head=12, patch=32)
@@ -98,9 +98,7 @@ def test_pixel_vit_full_width_param_count_and_route():
     assert sum(p.numel() for p in model.parameters()) == 6_620_170
     assert model.emb.weight.shape == (384, 3)
     assert model.pos_emb.shape == (1, 1025, 384)
-    for training in (False, True):
-        assert route(1025, cfg.hidden // cfg.head, cfg.pallas_kernel,
-                     training) == "flash"
+    assert route(1025, cfg.hidden // cfg.head, cfg.pallas_kernel) == "flash"
 
 
 @pytest.mark.parametrize("pallas_kernel", ["", "flash"],

@@ -1,6 +1,7 @@
-"""The port's training attention -- the forward with logsumexp, the dq and
-dk/dv passes, and the autograd Function around them -- against the JAX
-package's ``fused_attention`` and its custom VJP, on the CPU.
+"""The port's training attention -- the whole-head forward with logsumexp,
+the tiled dq and dk/dv passes that its backward runs (as the JAX ``_bwd``
+runs ``_flash_bwd_impl``), and the autograd Function around them -- against
+the JAX package's ``fused_attention`` and its custom VJP, on the CPU.
 
 Inputs and cotangents are made with numpy from a seed and fed to both
 sides.  The JAX side runs its Pallas kernels in interpret mode, as
@@ -17,11 +18,13 @@ import pytest
 import torch
 
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
+from vit_cifar_torch.ops.cuda import attention as attention_module
 from vit_cifar_torch.ops.cuda.attention import (
-    FusedAttentionFunction, flash_bwd_dkv,
-    flash_bwd_dkv_reference, flash_bwd_dq, flash_bwd_dq_reference,
-    fused_attention, fused_attention_lse, fused_attention_lse_reference,
-    fused_attention_reference)
+    FusedAttentionFunction, fused_attention, fused_attention_lse,
+    fused_attention_lse_reference, fused_attention_reference)
+from vit_cifar_torch.ops.cuda.flash_attention import (
+    flash_tiled_bwd_dkv, flash_tiled_bwd_dkv_reference, flash_tiled_bwd_dq,
+    flash_tiled_bwd_dq_reference)
 from vit_cifar_tpu.ops.pallas.attention import \
     _fused_attention_fwd_impl as jax_fwd_impl
 from vit_cifar_tpu.ops.pallas.attention import \
@@ -89,10 +92,11 @@ def test_backward_passes_match_jax_vjp(shape, dtype):
 
     tq, tk, tv, tg = (torch.from_numpy(a).to(tdt) for a in (q, k, v, g))
     out, lse = fused_attention_lse(tq, tk, tv, scale)
-    plain = [flash_bwd_dq_reference(tq, tk, tv, out, tg, lse, scale),
-             *flash_bwd_dkv_reference(tq, tk, tv, out, tg, lse, scale)]
-    wrapped = [flash_bwd_dq(tq, tk, tv, out, tg, lse, scale),
-               *flash_bwd_dkv(tq, tk, tv, out, tg, lse, scale)]
+    # the tiled passes on the whole-head forward's residuals
+    plain = [flash_tiled_bwd_dq_reference(tq, tk, tv, out, tg, lse, scale),
+             *flash_tiled_bwd_dkv_reference(tq, tk, tv, out, tg, lse, scale)]
+    wrapped = [flash_tiled_bwd_dq(tq, tk, tv, out, tg, lse, scale),
+               *flash_tiled_bwd_dkv(tq, tk, tv, out, tg, lse, scale)]
     leaves = [a.clone().requires_grad_() for a in (tq, tk, tv)]
     through_function = torch.autograd.grad(
         fused_attention(*leaves, scale), leaves, tg)
@@ -102,6 +106,41 @@ def test_backward_passes_match_jax_vjp(shape, dtype):
             assert a.shape == shape and a.dtype == tdt
             np.testing.assert_allclose(_f32(a), w, **tol,
                                        err_msg=f"{name} via {how}")
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 65, 32), (1, 2, 257, 192)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_function_backward_runs_the_tiled_pair_and_matches_jax(shape,
+                                                              monkeypatch):
+    """``FusedAttentionFunction``'s grads against ``jax.vjp`` of JAX's
+    ``fused_attention`` in f32 (rtol 1e-4 / atol 1e-5) at the flagship's
+    head and at head_dim 192, which the tiled passes cut into column chunks
+    on the card; a spy shows that the backward runs ``flash_tiled_bwd_dq``
+    and then ``flash_tiled_bwd_dkv``, once each, as the JAX ``_bwd`` runs
+    ``_flash_bwd_impl``."""
+    q, k, v, g, scale = _inputs(shape, seed=7)
+    _, vjp = jax.vjp(lambda a, b, c: jax_fused_attention(a, b, c, scale),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(g))]
+    calls = []
+
+    def spy(fn):
+        def wrapped(*args):
+            calls.append(fn.__name__)
+            return fn(*args)
+        return wrapped
+
+    for name in ("flash_tiled_bwd_dq", "flash_tiled_bwd_dkv"):
+        monkeypatch.setattr(attention_module, name,
+                            spy(getattr(attention_module, name)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = fused_attention(*leaves, scale)
+    assert out.grad_fn.name() == "FusedAttentionFunctionBackward"
+    assert calls == []
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    assert calls == ["flash_tiled_bwd_dq", "flash_tiled_bwd_dkv"]
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), w, **F32_TOL, err_msg=name)
 
 
 def test_function_matches_autograd_of_the_plain_forward():
@@ -155,7 +194,7 @@ def test_backward_wrappers_check_their_inputs(bad):
         tg = tg.to(torch.bfloat16)
     else:
         lse = lse[..., None]
-    for fn in (flash_bwd_dq, flash_bwd_dkv):
+    for fn in (flash_tiled_bwd_dq, flash_tiled_bwd_dkv):
         with pytest.raises(ValueError):
             fn(tq, tk, tv, out, tg, lse, scale)
 
@@ -167,7 +206,6 @@ def test_cpu_training_attention_counts_no_launch():
     torch.autograd.grad(fused_attention(*leaves, scale), leaves,
                         torch.from_numpy(g))
     assert {n: w.launches for n, w in KERNEL_WRAPPERS.items()} == before
-    assert set(KERNEL_WRAPPERS) == {"mhsa_fwd", "mhsa_fwd_lse", "mhsa_bwd_dq",
-                                    "mhsa_bwd_dkv", "flash_fwd",
+    assert set(KERNEL_WRAPPERS) == {"mhsa_fwd", "mhsa_fwd_lse", "flash_fwd",
                                     "flash_fwd_lse", "flash_bwd_dq_tiled",
                                     "flash_bwd_dkv_tiled"}

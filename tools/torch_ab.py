@@ -1,0 +1,186 @@
+"""A/B of two checkouts of the PyTorch port on one CUDA card, in turns.
+
+    python3 tools/torch_ab.py A_DIR B_DIR [--rounds 2]
+
+runs A, B, B, A (per round) in fresh processes, each importing
+``vit_cifar_torch`` from its own checkout and building its kernels there, and
+prints one JSON line per run and a table of medians.  Both sides are measured
+by the helpers of this checkout's ``chip_smoke.py`` (``cuda_ms``,
+``device_ms``, ``training_setup``, ``profile_steps``), so that only the
+package differs.  Each run measures, in bf16:
+
+- the tiled kernels (forward, forward with lse, dq, dk/dv) at the pixel
+  model's (128, 12, 1025, 32) and at (128, 8, 512, 128), and the whole-head
+  forward with and without lse and the tiled kernels at the flagship's
+  (128, 12, 65, 32): CUDA-event means over windows of launches and, under
+  torch.profiler, device ms a call;
+- the flagship training step (README recipe without AutoAugment, B=128):
+  host ms a step (synchronized), and under torch.profiler the device
+  activity a step, the kernels a step and the busy share against the
+  unprofiled step; the attention kernels' device ms a step;
+- the pixel-token training step (patch 32, T=1025, B=128): the same.
+
+Every number is the card's; the card's name and power limit are printed
+with them.  Work files go to ``build/chip_smoke/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNEL_SHAPES = {"pixel": (128, 12, 1025, 32), "d128": (128, 8, 512, 128),
+                 "flagship": (128, 12, 65, 32)}
+
+
+def _smoke():
+    """This checkout's ``chip_smoke.py``, loaded by its path: its
+    ``vit_cifar_torch`` imports resolve to the checkout under test."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _kernel_times(smoke, torch) -> dict:
+    from vit_cifar_torch.ops.cuda.attention import (fused_attention,
+                                                    fused_attention_lse)
+    from vit_cifar_torch.ops.cuda.flash_attention import (
+        flash_attention, flash_attention_lse, flash_tiled_bwd_dkv,
+        flash_tiled_bwd_dq)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for tag, shape in KERNEL_SHAPES.items():
+        B, H, T, D = shape
+        scale = 1.0 / (H * D) ** 0.5
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        g = torch.randn((B, T, H, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        iters = 100 if T <= 65 else 10
+        o, lse = flash_attention_lse(q, k, v, scale)
+        args = (q, k, v, o, g, lse, scale)
+        fns = {"flash_fwd": lambda: flash_attention(q, k, v, scale),
+               "flash_fwd_lse": lambda: flash_attention_lse(q, k, v, scale),
+               "flash_bwd_dq_tiled": lambda: flash_tiled_bwd_dq(*args),
+               "flash_bwd_dkv_tiled": lambda: flash_tiled_bwd_dkv(*args)}
+        if tag == "flagship":
+            fns = {"mhsa_fwd": lambda: fused_attention(q, k, v, scale),
+                   "mhsa_fwd_lse": lambda: fused_attention_lse(q, k, v, scale),
+                   **fns}
+        for name, fn in fns.items():
+            out[f"{name} {tag}"] = smoke.cuda_ms(fn, iters, 5)
+            out[f"{name} {tag} device"] = smoke.device_ms(fn)[0]
+    return out
+
+
+def _train(smoke, torch, card: str, patch: int, steps: int,
+           n_prof: int) -> dict:
+    cfg = smoke.flagship_cfg(patch=patch)
+    _, x, y, _, state, train_step, perm = smoke.training_setup(cfg)
+    box = [state]
+
+    def step(i):
+        box[0], _ = train_step(box[0], x, y, perm, i)
+
+    warm = 3 if patch == 32 else 10
+    for i in range(warm):
+        step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step(warm + i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    prof = smoke.profile_steps(lambda i: step(warm + steps + i), n_prof,
+                               f"ab_trace_{os.getpid()}.json", step_ms, card)
+    attention = {}
+    for key, ms in prof.pop("by_kernel").items():
+        if "mhsa" in key or "flash_" in key:
+            found = re.search(r"\w+_kernel", key)
+            name = found.group(0) if found else key[:60]
+            attention[name] = attention.get(name, 0.0) + ms
+    return {"step_ms": step_ms, **prof, "attention_ms": attention}
+
+
+def worker(checkout: str) -> None:
+    sys.path.insert(0, os.path.abspath(checkout))
+    import torch
+    import vit_cifar_torch
+    from vit_cifar_torch.ops.cuda.build import CSRC_DIR, build_libraries
+
+    where = os.path.dirname(os.path.abspath(vit_cifar_torch.__file__))
+    if not where.startswith(os.path.abspath(checkout)):
+        raise SystemExit(f"imported vit_cifar_torch from {where}")
+    smoke = _smoke()
+    card = smoke.card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    build_libraries(sorted(p.stem for p in CSRC_DIR.glob("*.cu")))
+    build_s = time.perf_counter() - t0
+    result = {"checkout": checkout, "build_s": build_s,
+              "kernels_ms": _kernel_times(smoke, torch),
+              "flagship": _train(smoke, torch, card, 8, 30, 20),
+              "pixel": _train(smoke, torch, card, 32, 8, 3)}
+    print(json.dumps(result))
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("a")
+    parser.add_argument("b", nargs="?")
+    parser.add_argument("--rounds", type=int, default=1)
+    parser.add_argument("--worker", action="store_true")
+    args = parser.parse_args()
+    if args.worker:
+        worker(args.a)
+        return
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_ab: torch.cuda.is_available() is false")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    runs = {args.a: [], args.b: []}
+    for _ in range(args.rounds):
+        for checkout in (args.a, args.b, args.b, args.a):
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), checkout,
+                 "--worker"], capture_output=True, text=True, cwd=ROOT)
+            if proc.returncode != 0:
+                raise SystemExit(f"{checkout} failed:\n{proc.stderr[-4000:]}")
+            line = proc.stdout.strip().splitlines()[-1]
+            print(line, flush=True)
+            runs[checkout].append(json.loads(line))
+
+    def med(checkout, get):
+        return statistics.median(get(r) for r in runs[checkout])
+
+    rows = [(k, lambda r, k=k: r["kernels_ms"].get(k, float("nan")))
+            for k in runs[args.a][0]["kernels_ms"]]
+    for model in ("flagship", "pixel"):
+        for key in ("step_ms", "device_ms", "busy", "kernels"):
+            rows.append((f"{model} {key}",
+                         lambda r, m=model, k=key: r[m][k]))
+    print(f"median of {2 * args.rounds} runs each ({card}):")
+    for name, get in rows:
+        a, b = med(args.a, get), med(args.b, get)
+        print(f"  {name:32s} {args.a}: {a:10.4f}   {args.b}: {b:10.4f}   "
+              f"b/a {b / a:.3f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
-// Helpers shared by the attention kernels (mhsa_*.cu, flash_*.cu): the
-// block shape, conversions between the storage type and f32, and warp
-// reductions.
+// Helpers shared by the attention kernels (mhsa_fwd.cu, flash_*.cu): the
+// block shape, the column chunks of wide heads, conversions between the
+// storage type and f32, and warp reductions.
 
 #pragma once
 
@@ -11,9 +11,21 @@ namespace attn {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-// the tiled kernels keep a row of D values spread over a warp's lanes, at
-// most four a lane
-constexpr int kMaxHeadDim = 128;
+// The widest head every kernel holds whole: a row of D values spread over a
+// warp's lanes at most four a lane, or 128 columns of mma fragments.  A
+// wider head is cut into column chunks of this many columns (the last one
+// narrower): the products that sum over D (q.k, do.v) run chunk by chunk,
+// and each output chunk has its own block or pass.
+constexpr int kColChunk = 128;
+
+__host__ __device__ constexpr int col_chunks(int D) {
+  return (D + kColChunk - 1) / kColChunk;
+}
+
+// The width of column chunk e of a head of D columns.
+__host__ __device__ constexpr int chunk_width(int D, int e) {
+  return D - e * kColChunk < kColChunk ? D - e * kColChunk : kColChunk;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -42,10 +54,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Sets the block's dynamic shared memory and launches blocks of `threads`
-// threads; returns the launch's cudaError_t.
+// Sets the block's dynamic shared memory and launches a grid of `blocks`
+// blocks of `threads` threads; returns the launch's cudaError_t.
 template <typename Kernel, typename... Args>
-cudaError_t launch_with_smem(Kernel kernel, int blocks, int threads,
+cudaError_t launch_with_smem(Kernel kernel, dim3 blocks, int threads,
                              size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

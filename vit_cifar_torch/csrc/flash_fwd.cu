@@ -44,10 +44,23 @@
 //   its 8 rows with lanes over keys for the logits and over d for p.v.
 //   This is a dispatch by dtype, not a fallback.
 //
-// Both instances keep the TPU kernel's guard: a tile whose logits are all
+// Heads wider than kColChunk = 128 columns (the TPU kernel pads D to a
+// multiple of 128 and runs any D) are cut into column chunks of 128.  A
+// second grid axis gives each output chunk its own block, whose registers
+// and shared memory are those of a 128-column head whatever D is: the
+// logits are summed over the chunks, one staged chunk of K (and of q) at a
+// time, and the block accumulates only its own chunk of o.  Every output
+// chunk recomputes the softmax (exps and q.k^T), ceil(D/128) times in all.
+//   bf16: each 64-key tile takes ceil(D/128) pipeline steps, one K chunk
+//   each (two stages by cp.async), the block's own chunk last, whose step
+//   also stages the V chunk; q's fragments for a chunk are read from device
+//   memory at each step, so nothing of the block grows with D.
+//   f32: fwd_f32_chunk.cuh, shared with mhsa_fwd.cu.
+//
+// Every instance keeps the TPU kernel's guard: a tile whose logits are all
 // -inf keeps m at -inf and must not turn it into NaN, so exp uses m_new = 0
 // there and the rescale factor of an empty history is 0.  Shared memory
-// does not grow with T, so any T runs.
+// does not grow with T, so any T and any D run.
 //
 // Built by vit_cifar_torch/ops/cuda/build.py (nvcc, sm_90a, plain C
 // interface bound with ctypes).
@@ -57,6 +70,7 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
+#include "fwd_f32_chunk.cuh"
 #include "mma_attention.cuh"
 
 namespace {
@@ -267,7 +281,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     __syncthreads();  // tile it is no longer read
   }
-  if (active) finish_rows(st, out, lse, b, h, H, bh, row0, seq, D, lane);
+  if (active) finish_rows(st, out, lse, b, h, H, bh, row0, seq, D, D, lane);
 }
 
 template <int kDp>
@@ -284,6 +298,114 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<float*>(lse), H, seq, D, scale * attn_mma::kLog2e, vec);
 }
 
+// ---- past kColChunk columns: one block per (b, h, query tile, column
+// chunk) -------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_chunk_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, float* __restrict__ lse,
+                           int H, int seq, int D, float scale) {
+  extern __shared__ float smem[];
+  const int tiles = (seq + kChunkTileQ - 1) / kChunkTileQ;
+  const int bh = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - bh * tiles) * kChunkTileQ;
+  fwd_f32_chunk_tile(q, k, v, out, lse, H, seq, D, scale, bh, q0,
+                     static_cast<int>(blockIdx.y), smem);
+}
+
+// Dynamic shared memory, in bf16: 8 zeros, then two stages, each a K chunk
+// and a V chunk of kChunk rows of stride_elems(kColChunk).
+size_t chunk_mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) *
+         (8 + 4 * static_cast<size_t>(attn_mma::kChunk) *
+                  attn_mma::stride_elems(kColChunk));
+}
+
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               __nv_bfloat16* __restrict__ out,
+                               float* __restrict__ lse, int H, int seq, int D,
+                               float c, bool vec) {
+  using namespace attn_mma;
+  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
+  const int tile = kChunk * stride_elems(kColChunk);
+  __nv_bfloat16* zeros = smem_bf16;
+  __nv_bfloat16* ring = smem_bf16 + 8;  // stage i: K at + 2i*tile, then V
+
+  const int tiles = (seq + kMmaTileQ - 1) / kMmaTileQ;
+  const int bh = blockIdx.x / tiles;  // b * H + h
+  const int q0 = (blockIdx.x - bh * tiles) * kMmaTileQ;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int64_t head = static_cast<int64_t>(bh) * seq * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = q0 + 16 * warp;
+  const bool active = row0 < seq;  // warp-uniform
+  const int nc = col_chunks(D);
+  const int cc = blockIdx.y;  // the block's output chunk
+  const int c0 = cc * kColChunk;
+  const int wc = chunk_width(D, cc);
+
+  // step i: key tile i / nc against column chunk (cc + 1 + i % nc) % nc, so
+  // that a tile's last step is the block's own chunk, which also stages the
+  // tile's V chunk
+  auto chunk_of = [&](int i) { return (cc + 1 + i % nc) % nc; };
+  auto stage = [&](int i) {
+    const int k0 = i / nc * kChunk;
+    const int n = min(kChunk, seq - k0);
+    const int e = chunk_of(i);
+    const int64_t off = head + static_cast<int64_t>(k0) * D;
+    __nv_bfloat16* dst = ring + (i & 1) * 2 * tile;
+    stage_rows(dst, k + off + e * kColChunk, D, n, chunk_width(D, e), vec,
+               threadIdx.x, kMmaThreads);
+    if (e == cc)
+      stage_rows(dst + tile, v + off + c0, D, n, wc, vec, threadIdx.x,
+                 kMmaThreads);
+    cp_async_commit();
+  };
+
+  const int steps = (seq + kChunk - 1) / kChunk * nc;
+  stage(0);
+  if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
+  RowTile<kColChunk> st;  // st.q holds one chunk of q at a time
+  clear_rows(st);
+  float s[kChunk / 8][4];
+  for (int i = 0; i < steps; ++i) {
+    if (i + 1 < steps) {
+      stage(i + 1);  // its buffer was last read before the previous sync
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // step i has landed for every thread
+    if (active) {
+      const int n = min(kChunk, seq - i / nc * kChunk);
+      const int e = chunk_of(i);
+      const int we = chunk_width(D, e);
+      const __nv_bfloat16* kt = ring + (i & 1) * 2 * tile;
+      if (i % nc == 0) {
+#pragma unroll
+        for (int nb = 0; nb < kChunk / 8; ++nb)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) s[nb][x] = 0.f;
+      }
+      load_rows_a<kColChunk>(st.q, q + head + e * kColChunk, D, row0, seq,
+                             we, lane);
+      chunk_logits<kColChunk>(s, st.q, kt, 0, n, n, we, zeros, lane);
+      if (e == cc)
+        softmax_pv<kColChunk>(st, s, kt + tile, 0, n, n, wc, zeros, c, lane);
+    }
+    __syncthreads();  // step i is no longer read
+  }
+  if (active)
+    finish_rows(st, out + c0, cc == 0 ? lse : nullptr, b, h, H, bh, row0, seq,
+                D, wc, lane);
+}
+
 cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int H, int seq,
                              int D, float scale, cudaStream_t stream) {
@@ -291,9 +413,14 @@ cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
                                     stream);
   if (D <= 64) return launch_f32<2>(q, k, v, out, lse, B, H, seq, D, scale,
                                     stream);
-  if (D <= kMaxHeadDim)
+  if (D <= kColChunk)
     return launch_f32<4>(q, k, v, out, lse, B, H, seq, D, scale, stream);
-  return cudaErrorInvalidValue;
+  const int tiles = (seq + kChunkTileQ - 1) / kChunkTileQ;
+  return launch_with_smem(
+      flash_fwd_chunk_kernel, dim3(B * H * tiles, col_chunks(D)), kThreads,
+      fwd_f32_chunk_smem_bytes(), stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), H, seq, D, scale);
 }
 
 cudaError_t launch_mma_for_d(const void* q, const void* k, const void* v,
@@ -305,16 +432,24 @@ cudaError_t launch_mma_for_d(const void* q, const void* k, const void* v,
                                      stream);
   if (D <= 64) return launch_mma<64>(q, k, v, out, lse, B, H, seq, D, scale,
                                      stream);
-  if (D <= kMaxHeadDim)
+  if (D <= kColChunk)
     return launch_mma<128>(q, k, v, out, lse, B, H, seq, D, scale, stream);
-  return cudaErrorInvalidValue;
+  const int tiles = (seq + kMmaTileQ - 1) / kMmaTileQ;
+  const bool vec = attn_mma::can_copy_chunks(D, k, v);
+  return launch_with_smem(
+      flash_fwd_chunk_mma_kernel, dim3(B * H * tiles, col_chunks(D)),
+      kMmaThreads, chunk_mma_smem_bytes(), stream,
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), H, seq, D, scale * attn_mma::kLog2e, vec);
 }
 
 }  // namespace
 
 // q, k, v: (B, H, T, D) contiguous; out: (B, T, H, D) contiguous, same type;
 // lse: (B, H, T) float32 contiguous, or null for the inference variant.
-// D <= 128; dtype 0 is float32, 1 is bfloat16.  Returns the cudaError_t of
+// Any D; dtype 0 is float32, 1 is bfloat16.  Returns the cudaError_t of
 // the launch (0 on success); the caller checks shapes.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int H, int T, int D,
@@ -331,11 +466,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
 }
 
 // The dynamic shared memory one launch needs, in bytes: the larger of the
-// two instances' needs, which depend on D alone (T is taken for the
-// interface the whole-head kernels share).
+// two instances' needs, which depend on D alone and stop growing past
+// kColChunk (T is taken for the interface the whole-head kernel shares).
 extern "C" long long flash_fwd_smem_bytes(int T, int D) {
   (void)T;
-  return static_cast<long long>(smem_bytes(D) > mma_smem_bytes(D)
-                                    ? smem_bytes(D)
-                                    : mma_smem_bytes(D));
+  const size_t f32 =
+      D <= kColChunk ? smem_bytes(D) : fwd_f32_chunk_smem_bytes();
+  const size_t bf16 =
+      D <= kColChunk ? mma_smem_bytes(D) : chunk_mma_smem_bytes();
+  return static_cast<long long>(f32 > bf16 ? f32 : bf16);
 }

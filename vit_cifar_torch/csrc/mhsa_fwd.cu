@@ -8,8 +8,9 @@
 // with f32 softmax and sums whatever the input type, and o is written in the
 // (B, T, H, D) layout that fused_attention returns.  When `lse` is given,
 // each row also writes lse = rowmax + log(rowsum) in f32, the one residual
-// the backward kernels (mhsa_bwd_dq.cu, mhsa_bwd_dkv.cu) need besides q, k,
-// v and o.  It is (B, H, T), not the TPU's lane-broadcast (B, H, Tp, 128).
+// the backward kernels (the tiled flash_bwd_dq.cu and flash_bwd_dkv.cu, as
+// the TPU kernel's custom VJP runs them) need besides q, k, v and o.  It is
+// (B, H, T), not the TPU's lane-broadcast (B, H, Tp, 128).
 //
 // What bounds it on this card: at the model's shape (T=65, head_dim=32) one
 // head is two 65x65x32 products, about 0.5 MFLOP against 12 KB of q/k/v in
@@ -39,7 +40,7 @@
 //   formula's 4 * (T * (D + 1) + T * D + 8 * D + 8 * T), which
 //   mhsa_fwd_smem_bytes reports and the router reads: stride_elems(D) is
 //   8 for D <= 8 and at most D + 15 beyond, and 4 * (D + 15) <= 8 * D + 36
-//   for D >= 6.  Head dims past 128 take the f32 design below in bf16.
+//   for D >= 6.
 //
 //   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
 //   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
@@ -48,6 +49,21 @@
 //   w + kWarps, ..., lanes over keys for the logits (max and sum by warp
 //   shuffles), then lanes over D for p.v.  This is a dispatch by dtype,
 //   not a fallback.
+//
+// Heads wider than kColChunk = 128 columns (the TPU kernel pads D to a
+// multiple of 128 and holds such heads too) keep one block per (b, h), and
+// cut the head into column chunks of 128; each output chunk is one pass
+// that recomputes the softmax, its logits summed over the chunks.
+//   bf16: K and V are staged whole, each as ceil(D/128) matrices of T rows
+//   (one per column chunk, 136 elements a row), so that the mma helpers of
+//   a 128-column head apply; a warp's q fragments of a chunk are read from
+//   device memory for every 64 keys.  Shared memory 2 * (8 + 2 * T *
+//   (136 * (ceil(D/128) - 1) + stride_elems(last chunk))) bytes: at D=192
+//   T <= 279, at D=256 T <= 213, at D=384 T <= 142.
+//   f32: K and V in f32 would not fit, so the block walks them in tiles of
+//   64 keys with the online softmax, every 64 query rows and column chunk
+//   in turn (fwd_f32_chunk.cuh, the tile flash_fwd.cu runs a block):
+//   100,608 bytes of shared memory at any T.
 //
 // Built by vit_cifar_torch/ops/cuda/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -59,13 +75,14 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
+#include "fwd_f32_chunk.cuh"
 #include "mma_attention.cuh"
 
 namespace {
 
 using namespace attn;
 
-// ---- f32 (and bf16 past D = 128): the CUDA-core instance -----------------
+// ---- f32: the CUDA-core instance -----------------------------------------
 // Dynamic shared memory, in floats:
 //   K    T * (D + 1)   (padded row stride against bank conflicts)
 //   V    T * D
@@ -198,7 +215,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j0 = 0; j0 < seq; j0 += kChunk)
       attend_chunk(st, k_s, v_s, j0, min(kChunk, seq - j0), seq, D, zeros, c,
                    lane);
-    finish_rows(st, out, lse, b, h, H, bh, row0, seq, D, lane);
+    finish_rows(st, out, lse, b, h, H, bh, row0, seq, D, D, lane);
   }
 }
 
@@ -217,6 +234,108 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<float*>(lse), H, seq, D, scale * attn_mma::kLog2e, vec);
 }
 
+// ---- past kColChunk columns ----------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+    mhsa_fwd_chunk_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ out,
+                          float* __restrict__ lse, int H, int seq, int D,
+                          float scale) {
+  extern __shared__ float smem[];
+  for (int q0 = 0; q0 < seq; q0 += kChunkTileQ)
+    for (int cc = 0; cc < col_chunks(D); ++cc)
+      fwd_f32_chunk_tile(q, k, v, out, lse, H, seq, D, scale,
+                         static_cast<int>(blockIdx.x), q0, cc, smem);
+}
+
+// Dynamic shared memory, in bf16: 8 zeros, then K and V, each one matrix of
+// T rows per column chunk, stride_elems(kColChunk) a row but the last
+// chunk's, stride_elems(its width).
+__host__ __device__ size_t chunk_mma_head_elems(int seq, int D) {
+  const int nc = col_chunks(D);
+  return static_cast<size_t>(seq) *
+         ((nc - 1) * attn_mma::stride_elems(kColChunk) +
+          attn_mma::stride_elems(chunk_width(D, nc - 1)));
+}
+
+size_t chunk_mma_smem_bytes(int seq, int D) {
+  return sizeof(__nv_bfloat16) * (8 + 2 * chunk_mma_head_elems(seq, D));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    mhsa_fwd_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              __nv_bfloat16* __restrict__ out,
+                              float* __restrict__ lse, int H, int seq, int D,
+                              float c, bool vec) {
+  using namespace attn_mma;
+  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
+  const int nc = col_chunks(D);
+  // column chunk e of K (of V) starts e * chunk rows of 136 in
+  const int64_t chunk = static_cast<int64_t>(seq) * stride_elems(kColChunk);
+  __nv_bfloat16* zeros = smem_bf16;
+  __nv_bfloat16* k_s = smem_bf16 + 8;
+  __nv_bfloat16* v_s = k_s + chunk_mma_head_elems(seq, D);
+
+  const int bh = blockIdx.x;  // b * H + h
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int64_t head = static_cast<int64_t>(bh) * seq * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+
+  for (int e = 0; e < nc; ++e) {
+    stage_rows(k_s + e * chunk, k + head + e * kColChunk, D, seq,
+               chunk_width(D, e), vec, threadIdx.x, blockDim.x);
+    stage_rows(v_s + e * chunk, v + head + e * kColChunk, D, seq,
+               chunk_width(D, e), vec, threadIdx.x, blockDim.x);
+  }
+  cp_async_commit();
+  if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int row0 = 16 * warp; row0 < seq; row0 += 16 * warps) {
+    for (int cc = 0; cc < nc; ++cc) {
+      RowTile<kColChunk> st;  // st.q holds one chunk of q at a time
+      clear_rows(st);
+      for (int j0 = 0; j0 < seq; j0 += kChunk) {
+        const int nk = min(kChunk, seq - j0);
+        float s[kChunk / 8][4];
+#pragma unroll
+        for (int nb = 0; nb < kChunk / 8; ++nb)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) s[nb][x] = 0.f;
+        for (int e = 0; e < nc; ++e) {
+          const int we = chunk_width(D, e);
+          load_rows_a<kColChunk>(st.q, q + head + e * kColChunk, D, row0,
+                                 seq, we, lane);
+          chunk_logits<kColChunk>(s, st.q, k_s + e * chunk, j0, nk, seq, we,
+                                  zeros, lane);
+        }
+        softmax_pv<kColChunk>(st, s, v_s + cc * chunk, j0, nk, seq,
+                              chunk_width(D, cc), zeros, c, lane);
+      }
+      finish_rows(st, out + cc * kColChunk, cc == 0 ? lse : nullptr, b, h, H,
+                  bh, row0, seq, D, chunk_width(D, cc), lane);
+    }
+  }
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       void* lse, int B, int H, int seq, int D, float scale,
+                       cudaStream_t stream) {
+  if (D <= kColChunk)
+    return launch<float>(q, k, v, out, lse, B, H, seq, D, scale, stream);
+  return launch_with_smem(
+      mhsa_fwd_chunk_kernel, B * H, kThreads, fwd_f32_chunk_smem_bytes(),
+      stream, static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), H, seq, D, scale);
+}
+
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, void* lse, int B, int H, int seq, int D,
                         float scale, cudaStream_t stream) {
@@ -226,10 +345,18 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                                      stream);
   if (D <= 64) return launch_mma<64>(q, k, v, out, lse, B, H, seq, D, scale,
                                      stream);
-  if (D <= kMaxHeadDim)
+  if (D <= kColChunk)
     return launch_mma<128>(q, k, v, out, lse, B, H, seq, D, scale, stream);
-  return launch<__nv_bfloat16>(q, k, v, out, lse, B, H, seq, D, scale,
-                               stream);
+  // one warp per 16-row query tile, at most kWarps
+  const int warps = min((seq + 15) / 16, kWarps);
+  const bool vec = attn_mma::can_copy_chunks(D, k, v);
+  return launch_with_smem(
+      mhsa_fwd_chunk_mma_kernel, B * H, 32 * warps,
+      chunk_mma_smem_bytes(seq, D), stream,
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), H, seq, D, scale * attn_mma::kLog2e, vec);
 }
 
 }  // namespace
@@ -244,7 +371,7 @@ extern "C" int mhsa_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(q, k, v, out, lse, B, H, T, D, scale, s);
+      return launch_f32(q, k, v, out, lse, B, H, T, D, scale, s);
     case 1:
       return launch_bf16(q, k, v, out, lse, B, H, T, D, scale, s);
     default:
@@ -253,8 +380,14 @@ extern "C" int mhsa_fwd(const void* q, const void* k, const void* v,
 }
 
 // The dynamic shared memory one launch needs at most, in bytes, so that the
-// caller can refuse a shape before launching: the f32 instance's, which is
-// never less than the bf16 one's (see the note at the top).
+// caller can refuse a shape before launching: up to kColChunk columns the
+// f32 instance's, which is never less than the bf16 one's (see the note at
+// the top); past it the larger of the two column-chunk layouts'.  The
+// formula takes no dtype: past kColChunk it limits f32 heads by the bf16
+// layout, which grows with T, although the f32 tile does not.
 extern "C" long long mhsa_fwd_smem_bytes(int T, int D) {
-  return static_cast<long long>(smem_bytes(T, D));
+  if (D <= kColChunk) return static_cast<long long>(smem_bytes(T, D));
+  const size_t bf16 = chunk_mma_smem_bytes(T, D);
+  const size_t f32 = fwd_f32_chunk_smem_bytes();
+  return static_cast<long long>(bf16 > f32 ? bf16 : f32);
 }

@@ -163,34 +163,50 @@ struct RowTile {
   float l[2];
 };
 
-// Loads rows row0 .. row0+15 of the (seq, D) head qh into the tile's A
-// fragments straight from device memory (each thread reads its own pairs),
-// and clears the running state.
+// The A fragments of rows row0 .. row0+15 of the (n, D) matrix at g (rows
+// ld elements apart), straight from device memory (each thread reads its own
+// pairs); zero past D and past n.
 template <int kDp>
-__device__ __forceinline__ void start_rows(RowTile<kDp>& st,
-                                           const bf16* __restrict__ qh,
-                                           int row0, int seq, int D,
-                                           int lane) {
-  const int g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void load_rows_a(uint32_t (&a)[kDp / 16][4],
+                                            const bf16* __restrict__ g,
+                                            int64_t ld, int row0, int n,
+                                            int D, int lane) {
+  const int g4 = lane >> 2, t = lane & 3;
   const bf16 zero = __float2bfloat16(0.f);
 #pragma unroll
   for (int kc = 0; kc < kDp / 16; ++kc) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = row0 + g + ((e & 1) << 3);
+      const int r = row0 + g4 + ((e & 1) << 3);
       const int d = 16 * kc + 2 * t + ((e >> 1) << 3);
-      const bf16* p = qh + static_cast<int64_t>(r) * D + d;
-      const bool row_ok = r < seq;
-      st.q[kc][e] = as_u32(__halves2bfloat162(
+      const bf16* p = g + r * ld + d;
+      const bool row_ok = r < n;
+      a[kc][e] = as_u32(__halves2bfloat162(
           row_ok && d < D ? p[0] : zero, row_ok && d + 1 < D ? p[1] : zero));
     }
   }
+}
+
+// Clears the running state of a tile: o, m and l.
+template <int kDp>
+__device__ __forceinline__ void clear_rows(RowTile<kDp>& st) {
 #pragma unroll
   for (int n = 0; n < kDp / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) st.o[n][e] = 0.f;
   st.m[0] = st.m[1] = -CUDART_INF_F;
   st.l[0] = st.l[1] = 0.f;
+}
+
+// Loads rows row0 .. row0+15 of the (seq, D) head qh into the tile's A
+// fragments straight from device memory, and clears the running state.
+template <int kDp>
+__device__ __forceinline__ void start_rows(RowTile<kDp>& st,
+                                           const bf16* __restrict__ qh,
+                                           int row0, int seq, int D,
+                                           int lane) {
+  load_rows_a<kDp>(st.q, qh, D, row0, seq, D, lane);
+  clear_rows(st);
 }
 
 // The shared-memory address of columns [8c, 8c+8) of row r of a staged
@@ -262,30 +278,37 @@ __device__ __forceinline__ void mma_p_b(float (&acc)[kDp / 8][4],
   }
 }
 
-// One online-softmax step: the tile's 16 rows against keys j0 .. j0+nk-1
-// (nk <= kChunk) of the staged K and V (n rows each).  c = scale*log2(e).
+// s += a . k[j0 .. j0+nk-1]^T for the 16-row tile whose A fragments are a,
+// against keys j0 .. j0+nk-1 (nk <= kChunk) of the staged K (n rows), over
+// kDp columns: s[nb] holds keys j0 + 8nb .. j0 + 8nb + 7.  Groups of 16 keys
+// past nk are not computed.
 template <int kDp>
-__device__ __forceinline__ void attend_chunk(RowTile<kDp>& st, const bf16* k_s,
-                                             const bf16* v_s, int j0, int nk,
+__device__ __forceinline__ void chunk_logits(float (&s)[kChunk / 8][4],
+                                             const uint32_t (&a)[kDp / 16][4],
+                                             const bf16* k_s, int j0, int nk,
                                              int n, int D, const bf16* zeros,
-                                             float c, int lane) {
-  const int t = lane & 3;
+                                             int lane) {
   const int groups = (nk + 15) / 16;  // groups of 16 keys holding a key
-  float s[kChunk / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < kChunk / 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-
-  // s = q.k^T
 #pragma unroll
   for (int kb = 0; kb < kChunk / 16; ++kb) {
     if (kb >= groups) break;  // warp-uniform
-    mma_a_bt<kDp>(s[2 * kb], s[2 * kb + 1], st.q, k_s, j0 + 16 * kb, n, D,
+    mma_a_bt<kDp>(s[2 * kb], s[2 * kb + 1], a, k_s, j0 + 16 * kb, n, D,
                   zeros, lane);
   }
+}
 
-  // scale into log2 units, mask keys past nk, and take the chunk's row max
+// The online-softmax step that follows chunk_logits: scale the logits s
+// into log2 units (c = scale*log2(e)), mask keys past nk, update the running
+// max and normaliser, rescale o, and o += p.v[j0 .. j0+nk-1] with p = hi + lo
+// (V staged with n rows and D columns).
+template <int kDp>
+__device__ __forceinline__ void softmax_pv(RowTile<kDp>& st,
+                                           float (&s)[kChunk / 8][4],
+                                           const bf16* v_s, int j0, int nk,
+                                           int n, int D, const bf16* zeros,
+                                           float c, int lane) {
+  const int t = lane & 3;
+  const int groups = (nk + 15) / 16;
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
   for (int nb = 0; nb < kChunk / 8; ++nb)
@@ -336,14 +359,33 @@ __device__ __forceinline__ void attend_chunk(RowTile<kDp>& st, const bf16* k_s,
   }
 }
 
+// One online-softmax step: the tile's 16 rows against keys j0 .. j0+nk-1
+// (nk <= kChunk) of the staged K and V (n rows each).  c = scale*log2(e).
+template <int kDp>
+__device__ __forceinline__ void attend_chunk(RowTile<kDp>& st, const bf16* k_s,
+                                             const bf16* v_s, int j0, int nk,
+                                             int n, int D, const bf16* zeros,
+                                             float c, int lane) {
+  float s[kChunk / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < kChunk / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+  chunk_logits<kDp>(s, st.q, k_s, j0, nk, n, D, zeros, lane);
+  softmax_pv<kDp>(st, s, v_s, j0, nk, n, D, zeros, c, lane);
+}
+
 // o / l for the tile's rows below seq, written to out (B, T, H, D) bf16 at
-// (b, row, h); lse (B, H, T) f32 at bh * seq + row unless it is null.
+// (b, row, h), columns [0, width) (out offset to the tile's first column;
+// width = D unless o holds one column chunk); lse (B, H, T) f32 at
+// bh * seq + row unless it is null.
 template <int kDp>
 __device__ __forceinline__ void finish_rows(RowTile<kDp>& st,
                                             bf16* __restrict__ out,
                                             float* __restrict__ lse, int b,
                                             int h, int H, int bh, int row0,
-                                            int seq, int D, int lane) {
+                                            int seq, int D, int width,
+                                            int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -356,8 +398,9 @@ __device__ __forceinline__ void finish_rows(RowTile<kDp>& st,
 #pragma unroll
     for (int n = 0; n < kDp / 8; ++n) {
       const int d = 8 * n + 2 * t;
-      if (d < D) orow[d] = __float2bfloat16(st.o[n][2 * i] / l);
-      if (d + 1 < D) orow[d + 1] = __float2bfloat16(st.o[n][2 * i + 1] / l);
+      if (d < width) orow[d] = __float2bfloat16(st.o[n][2 * i] / l);
+      if (d + 1 < width)
+        orow[d + 1] = __float2bfloat16(st.o[n][2 * i + 1] / l);
     }
     if (lse != nullptr && t == 0)
       lse[static_cast<int64_t>(bh) * seq + row] = st.m[i] * kLn2 + logf(l);
@@ -400,18 +443,18 @@ __device__ __forceinline__ void rows_dot(float (&out)[2],
 }
 
 // Writes the accumulator tile acc (16 rows x kDp columns) as bf16 to rows
-// row0 .. row0+15 below n of the (n, D) matrix at out; rows past n and
-// columns past D are not written.
+// row0 .. row0+15 below n of the (n, D) matrix at out, rows ld elements
+// apart; rows past n and columns past D are not written.
 template <int kDp>
 __device__ __forceinline__ void store_rows(const float (&acc)[kDp / 8][4],
-                                           bf16* __restrict__ out, int row0,
-                                           int n, int D, int lane) {
+                                           bf16* __restrict__ out, int64_t ld,
+                                           int row0, int n, int D, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + g + 8 * i;
     if (r >= n) continue;
-    bf16* orow = out + static_cast<int64_t>(r) * D;
+    bf16* orow = out + r * ld;
 #pragma unroll
     for (int nb = 0; nb < kDp / 8; ++nb) {
       const int d = 8 * nb + 2 * t;

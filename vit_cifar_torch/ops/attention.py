@@ -11,10 +11,7 @@ kernel (the CUDA kernels on the card, forward and backward, their plain
 versions on the CPU) chosen by :func:`route`, except where the JAX module,
 too, takes its einsum path: ``save_attn_map`` (the map is kept on
 ``self.attn_map``, the reference's attribute), ``valid_len`` key masking,
-``pallas_kernel="einsum"``, which forces the plain path, and the default
-config at a shape no kernel takes (head_dim past the tiled kernels' 128 and
-a head the whole-head kernels cannot hold), which is the JAX module's
-default path at every shape.
+and ``pallas_kernel="einsum"``, which forces the plain path.
 """
 
 from __future__ import annotations
@@ -24,33 +21,38 @@ from torch import nn
 
 from .common import dropout
 from .cuda.attention import fused_attention, whole_head_fits
-from .cuda.flash_attention import MAX_HEAD_DIM, flash_attention
+from .cuda.common import COL_CHUNK
+from .cuda.flash_attention import flash_attention
 from .init import Linear
 
 
-def route(T: int, D: int, pallas_kernel: str | None, training: bool) -> str:
+def route(T: int, D: int, pallas_kernel: str | None) -> str:
     """The attention path at sequence length T and head_dim D: "einsum"
-    (plain PyTorch), "fused" (the whole-head kernels, ``fused_attention``)
-    or "flash" (the tiled kernels, ``flash_attention``).
+    (plain PyTorch), "fused" (the whole-head forward, ``fused_attention``,
+    whose backward is the tiled pair) or "flash" (the tiled kernels,
+    ``flash_attention``).
 
-    ``"einsum"`` and ``"flash"`` are taken as asked, at any T (``"flash"``
-    raises on the card past head_dim ``MAX_HEAD_DIM``).  The default (``""``
-    or None) takes the whole-head kernels while their shared memory holds a
-    head at (T, D) -- the forward alone, or with ``training`` the forward
-    and both backward kernels -- and beyond that the tiled kernels up to
-    head_dim ``MAX_HEAD_DIM``, and the einsum path past it, as the JAX
-    module's default takes at every shape.  ``"fused"`` beyond the
-    whole-head kernels' shared memory raises."""
+    ``"einsum"`` and ``"flash"`` are taken as asked, at any (T, D).  The
+    default (``""`` or None) takes the whole-head forward where its shared
+    memory holds an un-split head (head_dim up to ``COL_CHUNK``: T <= 792
+    at head_dim 32, 215 at 128), and the tiled kernels everywhere else.
+    ``"fused"`` runs the whole-head forward wherever its shared memory holds
+    the head: past ``COL_CHUNK`` it stages K and V in bf16 by column chunk,
+    which holds T <= 279 at head_dim 192, 213 at 256 and 142 at 384.  Beyond
+    that limit ``"fused"`` raises, in f32 too: the limit is the bf16
+    layout's, applied to both dtypes, although the f32 instance (which walks
+    K and V in key tiles) would run at any T."""
     if pallas_kernel in ("einsum", "flash"):
         return pallas_kernel
-    if whole_head_fits(T, D, training):
-        return "fused"
+    fits = whole_head_fits(T, D)
     if pallas_kernel == "fused":
-        raise ValueError(
-            f"pallas_kernel='fused': the whole-head kernels cannot hold "
-            f"T={T}, head_dim={D}{' for training' if training else ''} in "
-            "a block's shared memory; use 'flash' or the default")
-    return "flash" if D <= MAX_HEAD_DIM else "einsum"
+        if not fits:
+            raise ValueError(
+                f"pallas_kernel='fused': the whole-head forward cannot hold "
+                f"T={T}, head_dim={D} in a block's shared memory; use "
+                "'flash' or the default")
+        return "fused"
+    return "fused" if fits and D <= COL_CHUNK else "flash"
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -86,8 +88,7 @@ class MultiHeadSelfAttention(nn.Module):
 
         masked = self.valid_len is not None and self.valid_len < T
         path = "einsum" if self.save_attn_map or masked else route(
-            T, hd, self.pallas_kernel, torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)))
+            T, hd, self.pallas_kernel)
         if path == "einsum":
             # (B,H,T,T) logits in the compute dtype, divided by sqrt(F) as
             # the JAX einsum path does

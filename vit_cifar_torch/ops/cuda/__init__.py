@@ -1,14 +1,13 @@
 """The hand-written CUDA kernels of the port and their wrappers:
-``attention`` (the whole-head kernels) and ``flash_attention`` (the tiled
-kernels).  ``KERNEL_WRAPPERS`` maps each kernel's name to the wrapper that
-counts its launches in ``<wrapper>.launches``."""
+``attention`` (the whole-head forward, whose autograd Function takes the
+tiled backward) and ``flash_attention`` (the tiled kernels).
+``KERNEL_WRAPPERS`` maps each kernel's name to the wrapper that counts its
+launches in ``<wrapper>.launches``."""
 
 from . import attention, flash_attention
 
 KERNEL_WRAPPERS = {"mhsa_fwd": attention.fused_attention,
                    "mhsa_fwd_lse": attention.fused_attention_lse,
-                   "mhsa_bwd_dq": attention.flash_bwd_dq,
-                   "mhsa_bwd_dkv": attention.flash_bwd_dkv,
                    "flash_fwd": flash_attention.flash_attention,
                    "flash_fwd_lse": flash_attention.flash_attention_lse,
                    "flash_bwd_dq_tiled": flash_attention.flash_tiled_bwd_dq,

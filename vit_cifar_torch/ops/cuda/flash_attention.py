@@ -11,10 +11,12 @@ lse), never a (B, H, T, T) tensor; its backward runs the tiled dq kernel,
 then the tiled dk/dv kernel (``_flash_bwd_impl``'s two passes).  Without a
 gradient it runs the inference kernel.
 
-Unlike the whole-head kernels of ``attention.py``, whose shared memory
-grows with T, these tile both the queries and the keys, so they run at any
-T (for D <= 128).  The kernels tile 64 queries by 64 keys; the plain
-versions take every query row at once and tile the keys by ``BLOCK_KV``.
+Unlike the whole-head forward of ``attention.py``, whose shared memory
+grows with T, these tile both the queries and the keys, and cut heads
+wider than ``COL_CHUNK`` columns into column chunks with a block each, so
+they run at any T and any D.  The kernels tile 64 queries by 64 keys; the
+plain versions take every query row at once and tile the keys by
+``BLOCK_KV``.
 The JAX signature's ``block_q`` and ``block_kv`` are not taken: they change
 the result only through the order of f32 sums.  lse is (B, H, T) f32, not
 the TPU's lane-broadcast (B, H, Tq, 128).
@@ -30,7 +32,8 @@ backward ds, split into bf16 hi + lo so that the product that follows keeps
 f32 accuracy), f32 on the CUDA cores in full f32, since the tensor cores
 would take f32 only as TF32 and miss the f32 limit of 1e-5.  The dq kernel
 holds 64 query rows a block against tiles of 64 keys, the dk/dv kernel 64
-keys against tiles of 64 query rows.
+keys against tiles of 64 query rows.  The tiled dq and dk/dv passes are
+also the backward of ``attention.py``'s ``FusedAttentionFunction``.
 
 =========================  ====================  =================================
 wrapper                    kernel                plain version
@@ -47,11 +50,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .attention import _bwd_terms, _check, _check_bwd, _launch
+from .common import bwd_terms, check, check_bwd, launch
 
-# the tiled kernels spread a row of D values over a warp's lanes, at most
-# four a lane (``kMaxHeadDim`` in ``csrc/attention_common.cuh``)
-MAX_HEAD_DIM = 128
 # the plain versions' key tile, the JAX kernels' default ``block_kv``;
 # (B, H, T, BLOCK_KV) is the largest tensor they form
 BLOCK_KV = 512
@@ -112,7 +112,7 @@ def flash_tiled_bwd_dq_reference(q, k, v, o, do, lse,
     (B, H, T) f32."""
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     for t in _kv_tiles(q.shape[2]):
-        _, kf, _, _, ds = _bwd_terms(q, k[:, :, t], v[:, :, t], o, do, lse,
+        _, kf, _, _, ds = bwd_terms(q, k[:, :, t], v[:, :, t], o, do, lse,
                                      scale)
         dq += torch.einsum("bhij,bhjd->bhid", ds, kf)
     return dq.to(q.dtype)
@@ -123,7 +123,7 @@ def flash_tiled_bwd_dkv_reference(q, k, v, o, do, lse, scale: float):
     ds^T.q, dv = p^T.do, both (B, H, T, D) in k's and v's dtype."""
     dk, dv = [], []
     for t in _kv_tiles(q.shape[2]):
-        qf, _, dof, p, ds = _bwd_terms(q, k[:, :, t], v[:, :, t], o, do, lse,
+        qf, _, dof, p, ds = bwd_terms(q, k[:, :, t], v[:, :, t], o, do, lse,
                                        scale)
         dk.append(torch.einsum("bhij,bhid->bhjd", ds, qf))
         dv.append(torch.einsum("bhij,bhid->bhjd", p, dof))
@@ -134,27 +134,20 @@ def flash_tiled_bwd_dkv_reference(q, k, v, o, do, lse, scale: float):
 # kernels
 # --------------------------------------------------------------------------
 
-def _check_head_dim(q: torch.Tensor) -> None:
-    if q.device.type == "cuda" and q.shape[3] > MAX_HEAD_DIM:
-        raise ValueError(f"the flash kernels take head_dim <= {MAX_HEAD_DIM}, "
-                         f"got {q.shape[3]}")
-
-
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float):
     """Training forward: (B, H, T, D)^3 -> (out (B, T, H, D), lse (B, H, T)
     f32).  Launches counted in ``flash_attention_lse.launches``.  bf16 runs on
     the tensor cores, f32 on the CUDA cores (a dispatch by dtype; see
     above)."""
-    _check(q, k, v)
+    check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_lse_reference(q, k, v, scale)
-    _check_head_dim(q)
     q, k, v = (a.contiguous() for a in (q, k, v))
     B, H, T, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", (q, k, v, out, lse), q, scale)
+    launch("flash_fwd", (q, k, v, out, lse), q, scale)
     flash_attention_lse.launches += 1
     return out, lse
 
@@ -163,13 +156,12 @@ def flash_tiled_bwd_dq(q, k, v, o, do, lse, scale: float) -> torch.Tensor:
     """dq of the flash attention, (B, H, T, D) in q's dtype.  Launches
     counted in ``flash_tiled_bwd_dq.launches``.  bf16 runs on the tensor
     cores, f32 on the CUDA cores (a dispatch by dtype; see above)."""
-    _check_bwd(q, k, v, o, do, lse)
+    check_bwd(q, k, v, o, do, lse)
     if q.device.type == "cpu":
         return flash_tiled_bwd_dq_reference(q, k, v, o, do, lse, scale)
-    _check_head_dim(q)
     q, k, v, o, do, lse = (a.contiguous() for a in (q, k, v, o, do, lse))
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", (q, k, v, o, do, lse, dq), q, scale)
+    launch("flash_bwd_dq", (q, k, v, o, do, lse, dq), q, scale)
     flash_tiled_bwd_dq.launches += 1
     return dq
 
@@ -178,13 +170,12 @@ def flash_tiled_bwd_dkv(q, k, v, o, do, lse, scale: float):
     """(dk, dv) of the flash attention, each (B, H, T, D) in the input
     dtype.  Launches counted in ``flash_tiled_bwd_dkv.launches``.  bf16 runs
     on the tensor cores, f32 on the CUDA cores (a dispatch by dtype)."""
-    _check_bwd(q, k, v, o, do, lse)
+    check_bwd(q, k, v, o, do, lse)
     if q.device.type == "cpu":
         return flash_tiled_bwd_dkv_reference(q, k, v, o, do, lse, scale)
-    _check_head_dim(q)
     q, k, v, o, do, lse = (a.contiguous() for a in (q, k, v, o, do, lse))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", (q, k, v, o, do, lse, dk, dv), q, scale)
+    launch("flash_bwd_dkv", (q, k, v, o, do, lse, dk, dv), q, scale)
     flash_tiled_bwd_dkv.launches += 1
     return dk, dv
 
@@ -219,17 +210,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel, whose launches are counted in ``flash_attention.launches``: bf16 on
     the tensor cores, f32 on the CUDA cores (a dispatch by dtype).
     """
-    _check(q, k, v)
+    check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, scale)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
-    _check_head_dim(q)
     q, k, v = (a.contiguous() for a in (q, k, v))
     B, H, T, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    _launch("flash_fwd", (q, k, v, out, None), q, scale)
+    launch("flash_fwd", (q, k, v, out, None), q, scale)
     flash_attention.launches += 1
     return out
 
