@@ -63,6 +63,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    then served logits at B=8 against it with 2 launches of the whole-head
    forward a batch, and 3 steps with the forward with lse and the tiled
    pair launched twice a step each.
+8. Full-recipe phase, last: the README recipe with AutoAugment through the
+   user's entry point ``train()`` (7 layers, hidden 384, 12 heads, B=128,
+   bf16-mixed, label smoothing, ``--autoaugment``, synthetic c10,
+   ``warmup_epoch=0``, 2 epochs of 390 steps).  First ``apply_autoaugment``
+   at B=128 (cifar10 and svhn policies) on the card against the CPU on the
+   same draws, from a card generator.  Then run (a) straight through, and
+   run (b) stopped after epoch 1 and resumed from its checkpoint for epoch
+   2: finite losses, falling from epoch 1 to 2, val accuracy >= 0.5, the
+   resumed run trains one epoch to the same step count, its params and
+   moments within ``RESUME_REL_L2`` of run (a)'s, and each run launches the
+   training kernels 7 times a step and the inference kernel 7 times an
+   eval batch and a probe forward (the layer-output histograms, once an
+   epoch).  Then one epoch with ``--preaugment-epoch``, with the same
+   launch checks.  Prints the recipe's ms a step and img/s beside the
+   no-AutoAugment step of phase 3, AutoAugment's device ms and launches a
+   batch (torch.profiler) and the recipe step's busy share.
 
 The library's yardsticks, timed at both main shapes and called nowhere in
 the port: SDPA forward and forward+backward,
@@ -107,6 +123,9 @@ import torch.nn.functional as F
 
 from vit_cifar_torch import Config, torch_dtype
 from vit_cifar_torch.data.augment import normalize
+from vit_cifar_torch.data.autoaugment import (apply_autoaugment,
+                                              autoaugment_batch,
+                                              autoaugment_draws)
 from vit_cifar_torch.data.datasets import load_dataset
 from vit_cifar_torch.deploy import (ServingModel, export_inference,
                                     make_http_server)
@@ -121,8 +140,8 @@ from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention_reference, flash_tiled_bwd_dkv,
     flash_tiled_bwd_dkv_reference, flash_tiled_bwd_dq,
     flash_tiled_bwd_dq_reference)
-from vit_cifar_torch.train.checkpoint import save_checkpoint
-from vit_cifar_torch.train.loop import _pad_eval, init_state
+from vit_cifar_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from vit_cifar_torch.train.loop import _pad_eval, init_state, train
 from vit_cifar_torch.train.losses import make_criterion
 from vit_cifar_torch.train.optim import make_optimizer
 from vit_cifar_torch.train.steps import (make_eval_step, make_metrics_zeros,
@@ -220,6 +239,18 @@ HEAD_DIM_SHAPES = [(128, 8, 512, D) for D in (128, 192, 256)] + [
 WIDE_LAYERS = 2
 WIDE_BATCH = 8
 WIDE_STEPS = 3
+# the full-recipe phase: 2 epochs (the resumed run trains the second)
+RECIPE_EPOCHS = 2
+AA_BATCH = 128
+# AutoAugment on the card against the CPU on the same draws: shear sums its
+# four taps in another order and rotate floors coordinates from the card's
+# cos/sin, so a tie may round a value one level apart or move a pixel, and a
+# second stage (solarize's threshold, equalize's lut) may carry it further
+AA_CARD_SHARE = 1e-3
+# resumed run (b) against the straight run (a), relative L2 of the flat
+# params and of each moment: the same draws and the same kernels, but
+# cuBLAS and the reductions need not sum in one order from run to run
+RESUME_REL_L2 = 1e-2
 # the ragged-edge phase: every T where a 16-row tile, a 64-key chunk or a
 # 64-row block ends or begins, at head dims that are and are not a multiple
 # of 16, for the bf16 (tensor-core) instances of the two forwards and of
@@ -774,7 +805,7 @@ def training_phase(card: str) -> dict:
     # device busy share and top device ops over 20 more steps
     profile_steps(lambda i: train_step(state, x_train, y_train, perm, i), 20,
                   "train_trace.json", step_ms, card)
-    return launches
+    return launches, step_ms
 
 
 def profile_steps(step, n_prof: int, trace_name: str, step_ms: float,
@@ -1451,6 +1482,192 @@ def pixel_training_phase(card: str) -> dict:
     return launches
 
 
+def aa_card_against_cpu(card: str) -> None:
+    """``apply_autoaugment`` at B=128 on the card and on the CPU, on the
+    same images and the same draws (from a card generator)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    imgs = torch.randint(0, 256, (AA_BATCH, 32, 32, 3), dtype=torch.uint8,
+                         device="cuda", generator=gen)
+    for policy in ("cifar10", "svhn"):
+        draws = autoaugment_draws(gen, AA_BATCH, policy)
+        got = apply_autoaugment(imgs, *draws, policy).cpu()
+        want = apply_autoaugment(imgs.cpu(), *(d.cpu() for d in draws),
+                                 policy)
+        diff = (got.int() - want.int()).abs()
+        share = (diff > 0).float().mean().item()
+        changed = (want != imgs.cpu()).float().mean().item()
+        print(f"AutoAugment {policy} B={AA_BATCH}, card vs CPU on the same "
+              f"draws: {int((diff > 0).sum())} of {diff.numel()} values "
+              f"differ (share {share:.2e}, limit {AA_CARD_SHARE}), max "
+              f"{int(diff.max())} levels; {changed:.3f} of the values "
+              f"changed by the policy")
+        if share > AA_CARD_SHARE:
+            raise AssertionError(f"AutoAugment {policy}: card and CPU differ "
+                                 f"on {share:.2e} of the values")
+
+
+def aa_profile(card: str) -> dict:
+    """AutoAugment's device ms and kernels a B=128 batch (cifar10 policy)
+    under torch.profiler, and its event ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    imgs = torch.randint(0, 256, (AA_BATCH, 32, 32, 3), dtype=torch.uint8,
+                         device="cuda", generator=gen)
+
+    def batch():
+        autoaugment_batch(gen, imgs, "cifar10")
+
+    ms = cuda_ms(batch, 20, 3)
+    n = 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            batch()
+        torch.cuda.synchronize()
+    os.makedirs(WORK, exist_ok=True)
+    trace = os.path.join(WORK, "aa_trace.json")
+    prof.export_chrome_trace(trace)
+    busy_us, kernels = device_activity(trace)
+    out = {"device_ms": busy_us / 1e3 / n, "kernels": kernels / n, "ms": ms}
+    print(f"AutoAugment cifar10 B={AA_BATCH}: {out['kernels']:.1f} kernels "
+          f"and {out['device_ms']:.3f} ms of device activity a batch "
+          f"(profiler, {n} batches); {ms:.3f} ms a batch by events "
+          f"(windows of 20; {card})")
+    return out
+
+
+def recipe_cfg(**kw) -> Config:
+    """The README recipe with AutoAugment, as ``train()`` takes it."""
+    return flagship_cfg(**{"autoaugment": True, "max_epochs": RECIPE_EPOCHS,
+                           "log_dir": os.path.join(WORK, "logs"),
+                           "ckpt_dir": os.path.join(WORK, "models"), **kw})
+
+
+def run_train(cfg: Config, what: str, stop_after: int | None = None):
+    """``train()`` on the card with the launch counts set to 0 just before;
+    checks the launches of its steps, eval batches and probe forwards.
+    Returns (result, launches)."""
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    res = train(cfg, verbose=False, stop_after=stop_after)
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    epochs = len(res["history"])
+    steps = epochs * TRAIN_STEPS
+    # 40 eval batches an epoch, and one probe forward of the layer-output
+    # histograms an epoch (max_epochs // 10 rounds up to every epoch)
+    forwards = epochs * (40 + 1)
+    want = dict({n: 0 for n in KERNEL_WRAPPERS},
+                mhsa_fwd=cfg.num_layers * forwards,
+                mhsa_fwd_lse=cfg.num_layers * steps,
+                flash_bwd_dq_tiled=cfg.num_layers * steps,
+                flash_bwd_dkv_tiled=cfg.num_layers * steps)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    if torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("train() left its matmul precision behind")
+    for e, row in enumerate(res["history"]):
+        print(f"{what}, epoch {e}: loss {row['loss']:.4f} acc "
+              f"{row['acc']:.4f} val_loss {row['val_loss']:.4f} val_acc "
+              f"{row['val_acc']:.4f} lr_0 {row['lr_0']:.6f}, "
+              f"{row['epoch_time']:.3f} s ({row['images_per_sec']:.1f} "
+              f"img/s), eval {row['eval_time']:.3f} s, skipped "
+              f"{row['skipped_nonfinite']}")
+    print(f"{what}: {epochs} epochs of {TRAIN_STEPS} steps in {seconds:.1f} s "
+          f"(data set-up included), launches {launches}: 7 a step of each "
+          "training kernel, 7 an eval batch and probe forward of mhsa_fwd")
+    if not all(math.isfinite(row["loss"]) and row["skipped_nonfinite"] == 0
+               for row in res["history"]):
+        raise AssertionError(f"{what}: a loss is not finite")
+    return res, launches
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def full_recipe_phase(card: str, no_aa_step_ms: float) -> dict:
+    aa_card_against_cpu(card)
+    aa = aa_profile(card)
+    shutil.rmtree(os.path.join(WORK, "models"), ignore_errors=True)
+    shutil.rmtree(os.path.join(WORK, "logs"), ignore_errors=True)
+
+    cfg = recipe_cfg()
+    print(f"full recipe through train(): vit, 7 layers, hidden 384, 12 "
+          f"heads, {cfg.precision}, batch {cfg.batch_size}, label smoothing, "
+          f"AutoAugment (cifar10 policy), warmup_epoch 0, {RECIPE_EPOCHS} "
+          f"epochs, matmul precision {cfg.matmul_precision}")
+    res_a, launches = run_train(cfg, "run (a)")
+    hist = res_a["history"]
+    if not hist[1]["loss"] < hist[0]["loss"]:
+        raise AssertionError("the recipe's loss did not fall")
+    if not hist[-1]["val_acc"] >= MIN_VAL_ACC:
+        raise AssertionError(f"val_acc {hist[-1]['val_acc']}")
+    step_ms = hist[1]["epoch_time"] * 1e3 / TRAIN_STEPS
+    print(f"full-recipe step: {step_ms:.3f} ms a step, "
+          f"{hist[1]['images_per_sec']:.1f} img/s at B={cfg.batch_size} "
+          f"(epoch 1 of run (a), host clock over the epoch, synchronized by "
+          f"its metric read); without AutoAugment (phase 3, same call) "
+          f"{no_aa_step_ms:.3f} ms a step, "
+          f"{cfg.batch_size / no_aa_step_ms * 1e3:.1f} img/s ({card})")
+
+    res_b1, b1 = run_train(cfg, "run (b), stopped after epoch 1",
+                           stop_after=1)
+    res_b2, b2 = run_train(recipe_cfg(resume=res_b1["ckpt_dir"]),
+                           "run (b), resumed")
+    if len(res_b1["history"]) != 1 or len(res_b2["history"]) != 1:
+        raise AssertionError("the resumed run did not train one epoch")
+    pa = load_checkpoint(res_a["ckpt_dir"], prefer="last")[0]
+    pb = load_checkpoint(res_b2["ckpt_dir"], prefer="last")[0]
+    if not pa["step"] == pb["step"] == RECIPE_EPOCHS * TRAIN_STEPS:
+        raise AssertionError(f"steps {pa['step']} and {pb['step']}")
+    flat_a, flat_b = (torch.cat([t.reshape(-1) for t in p["params"].values()])
+                      for p in (pa, pb))
+    gaps = {"params": _rel_l2(flat_b, flat_a)}
+    gaps.update({k: _rel_l2(pb["opt_state"][k], pa["opt_state"][k])
+                 for k in ("mu", "nu")})
+    exact = torch.equal(flat_a, flat_b) and all(
+        torch.equal(pa["opt_state"][k], pb["opt_state"][k])
+        for k in ("count", "mu", "nu"))
+    print(f"resume: run (b) ends at step {pb['step']} as run (a) at "
+          f"{pa['step']}; relative L2 to run (a): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + f" (limit {RESUME_REL_L2}); max |params diff| "
+          f"{(flat_a - flat_b).abs().max().item():.3e}; bit for bit: {exact}"
+          f"; epoch 2 loss {hist[1]['loss']:.6f} vs resumed "
+          f"{res_b2['history'][0]['loss']:.6f}")
+    if int(pb["opt_state"]["count"]) != pb["step"] or max(
+            gaps.values()) > RESUME_REL_L2:
+        raise AssertionError(f"resumed run away from run (a): {gaps}")
+
+    pre, pre_launches = run_train(
+        recipe_cfg(max_epochs=1, preaugment_epoch=True),
+        "--preaugment-epoch --autoaugment")
+    row = pre["history"][0]
+    print(f"--preaugment-epoch: {row['epoch_time'] * 1e3 / TRAIN_STEPS:.3f} "
+          f"ms a step with the dataset pass, {row['images_per_sec']:.1f} "
+          f"img/s ({card})")
+
+    # busy share of the recipe step, over 20 steps of its train_step
+    rcfg = flagship_cfg(autoaugment=True)
+    _, x_train, y_train, _, state, train_step, perm = training_setup(rcfg)
+    for i in range(3):
+        train_step(state, x_train, y_train, perm, i)
+    prof = profile_steps(
+        lambda i: train_step(state, x_train, y_train, perm, i + 3), 20,
+        "recipe_trace.json", step_ms, card)
+    print(f"AutoAugment in the recipe step: {aa['kernels']:.1f} kernels and "
+          f"{aa['device_ms']:.3f} device ms a batch alone; the step "
+          f"{prof['kernels']:.1f} kernels and {prof['device_ms']:.3f} device "
+          f"ms ({card})")
+    return {n: launches[n] + b1[n] + b2[n] + pre_launches[n]
+            for n in launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1472,9 +1689,10 @@ def main() -> None:
     tiled_vs_whole_head(card)
     head_dim_timing(card)
     # each path's launches, counted from zero just before it
-    paths = [{"mhsa_fwd": serving_phase(card)}, training_phase(card),
+    train_launches, no_aa_step_ms = training_phase(card)
+    paths = [{"mhsa_fwd": serving_phase(card)}, train_launches,
              pixel_serving_phase(card), pixel_training_phase(card),
-             wide_head_phase(card)]
+             wide_head_phase(card), full_recipe_phase(card, no_aa_step_ms)]
     for row in rows:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
         if row["launches"] < 1:

@@ -3,7 +3,9 @@ versions: the whole-head forward (``ops/cuda/attention.py``), whose
 autograd Function runs the tiled backward pair, and the tiled flash kernels
 (``ops/cuda/flash_attention.py``), at head dims up to and past their
 128-column chunks, with the launches a model makes through each and the
-route the default config takes at patch 32 and at head_dim 192.
+route the default config takes at patch 32 and at head_dim 192; and
+AutoAugment on the card against the CPU, and ``train()`` with
+``--autoaugment`` for 2 epochs that resumes.
 
 Marked ``gpu``: skipped where there is no CUDA card.  This file imports no
 jax, so it also runs on a machine without the JAX package:
@@ -24,10 +26,14 @@ to T=1025).
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
 from vit_cifar_torch import Config
+from vit_cifar_torch.data.autoaugment import (apply_autoaugment,
+                                              autoaugment_draws)
+from vit_cifar_torch.data.datasets import RawData
 from vit_cifar_torch.models import get_model
 from vit_cifar_torch.ops.attention import MultiHeadSelfAttention
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
@@ -40,6 +46,8 @@ from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention_reference, flash_tiled_bwd_dkv,
     flash_tiled_bwd_dkv_reference, flash_tiled_bwd_dq,
     flash_tiled_bwd_dq_reference)
+from vit_cifar_torch.train import loop
+from vit_cifar_torch.train.checkpoint import load_checkpoint
 from vit_cifar_torch.train.loop import init_state
 from vit_cifar_torch.train.optim import make_optimizer
 from vit_cifar_torch.train.steps import make_train_step
@@ -446,3 +454,69 @@ def test_default_config_at_patch_32_routes_to_flash_on_the_card(cuda):
     assert launched["flash_fwd"] == cfg.num_layers
     assert sum(launched.values()) == cfg.num_layers
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+
+
+# AutoAugment on the card against the CPU on the same draws: the shear's
+# four-tap sum may round a tie one level apart, rotate's cos/sin may move a
+# pixel at a tie, and a second stage may carry such a value further
+AA_CARD_SHARE = 1e-3
+
+
+@pytest.mark.parametrize("policy", ["cifar10", "svhn", "imagenet"])
+def test_autoaugment_on_the_card_matches_the_cpu(cuda, policy):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    imgs = torch.randint(0, 256, (64, 32, 32, 3), dtype=torch.uint8,
+                         device=cuda, generator=gen)
+    draws = autoaugment_draws(gen, 64, policy)
+    got = apply_autoaugment(imgs, *draws, policy)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    want = apply_autoaugment(imgs.cpu(), *(d.cpu() for d in draws), policy)
+    assert (got.cpu() != want).float().mean().item() <= AA_CARD_SHARE
+
+
+def test_train_with_autoaugment_resumes_on_the_card(cuda, tmp_path,
+                                                    monkeypatch):
+    """2 epochs of a 2-layer ViT with AutoAugment through ``train()``,
+    straight and stopped after epoch 1 then resumed: the same step count,
+    the training kernels launched once a layer and step, and params within
+    1e-2 relative L2 of the straight run (the card's reductions need not
+    sum in one order from run to run)."""
+    rng = np.random.default_rng(0)
+    data = RawData(rng.integers(0, 256, (256, 32, 32, 3), dtype=np.uint8),
+                   rng.integers(0, 10, 256).astype(np.int32),
+                   rng.integers(0, 256, (100, 32, 32, 3), dtype=np.uint8),
+                   rng.integers(0, 10, 100).astype(np.int32), 10, True)
+    monkeypatch.setattr(loop, "load_dataset", lambda *a, **k: data)
+    cfg = Config(model_name="vit", num_layers=2, hidden=64, mlp_hidden=64,
+                 head=4, batch_size=32, eval_batch_size=50,
+                 label_smoothing=True, warmup_epoch=0, max_epochs=2,
+                 autoaugment=True, log_dir=str(tmp_path / "logs"))
+
+    def run(name, **kw):
+        before = {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
+        res = loop.train(cfg.replace(ckpt_dir=str(tmp_path / name), **kw),
+                         verbose=False)
+        steps = 8 * len(res["history"])
+        launched = {n: w.launches - before[n]
+                    for n, w in KERNEL_WRAPPERS.items()}
+        assert launched["mhsa_fwd_lse"] == launched["flash_bwd_dq_tiled"] \
+            == launched["flash_bwd_dkv_tiled"] == 2 * steps
+        return res, load_checkpoint(res["ckpt_dir"], prefer="last")[0]
+
+    precision = torch.get_float32_matmul_precision()
+    res_a, pa = run("a")
+    assert all(math.isfinite(r["loss"]) for r in res_a["history"])
+    before = {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
+    res_b1 = loop.train(cfg.replace(ckpt_dir=str(tmp_path / "b1")),
+                        verbose=False, stop_after=1)
+    assert len(res_b1["history"]) == 1
+    assert KERNEL_WRAPPERS["mhsa_fwd_lse"].launches \
+        - before["mhsa_fwd_lse"] == 2 * 8
+    res_b2, pb = run("b2", resume=res_b1["ckpt_dir"])
+    assert len(res_b2["history"]) == 1
+    assert pa["step"] == pb["step"] == 16
+    assert int(pb["opt_state"]["count"]) == 16
+    flat = [torch.cat([t.reshape(-1) for t in p["params"].values()])
+            for p in (pa, pb)]
+    assert ((flat[1] - flat[0]).norm() / flat[0].norm()).item() <= 1e-2
+    assert torch.get_float32_matmul_precision() == precision

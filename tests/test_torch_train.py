@@ -260,12 +260,6 @@ def test_mixup_matches_jax():
         np.testing.assert_allclose(_np(g), np.asarray(w), **EXACT)
 
 
-def test_unported_augmentations_raise():
-    for fn in (taug.random_crop_paste, taug.augment_dataset):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(None, None)
-
-
 # -- datasets ---------------------------------------------------------------
 
 def test_synthetic_c10_is_bit_equal_to_jax():
@@ -450,8 +444,7 @@ def test_train_step_with_batch_mixing(mix):
 
 
 @pytest.mark.parametrize("kw", [dict(model_name="ae"), dict(moe_experts=2),
-                                dict(use_nnmf_layers=True),
-                                dict(autoaugment=True), dict(rcpaste=True)],
+                                dict(use_nnmf_layers=True)],
                          ids=lambda kw: next(iter(kw)))
 def test_unported_step_branches_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

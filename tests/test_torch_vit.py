@@ -150,11 +150,10 @@ def test_get_model_raises_for_models_not_ported(name):
         get_model(tconfig.Config(model_name=name), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(remat=True), dict(seq_pad=1),
+@pytest.mark.parametrize("kw", [dict(seq_pad=1),
                                 dict(act_constraint=lambda h: h),
                                 dict(mlp_factory=object)],
-                         ids=["remat", "seq_pad", "act_constraint",
-                              "mlp_factory"])
+                         ids=["seq_pad", "act_constraint", "mlp_factory"])
 def test_vit_options_not_ported_raise(kw):
     g = torch.Generator()
     with pytest.raises(NotImplementedError, match=next(iter(kw))):

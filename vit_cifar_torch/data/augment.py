@@ -5,14 +5,16 @@
   RandomHorizontalFlip (utils.py:340-342);
 * ``cutmix``: CutMix (da.py:51-78), with the float floor-div quirk of its
   box arithmetic (``r_w // 2`` on a float);
-* ``mixup``: MixUp (da.py:81-93).
+* ``mixup``: MixUp (da.py:81-93);
+* ``random_crop_paste``: RandomCropPaste (da.py:4-49);
+* ``augment_dataset``: the once-per-epoch whole-dataset pass of
+  ``--preaugment-epoch``.
 
 Each random op is split in two: ``*_draws`` takes a ``torch.Generator`` and
 draws every random number the op needs, on the generator's device, and
 ``apply_*`` takes those draws.  The op itself is the two in a row.  Tests
 hand ``apply_*`` the JAX package's draws, since the two frameworks' random
-streams never agree.  ``random_crop_paste`` and ``augment_dataset`` come
-with the AutoAugment slice.
+streams never agree.  AutoAugment itself is ``data/autoaugment.py``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-_AA_ITEM = "ROADMAP queue 1, item 4 (augmentation with AutoAugment)"
+from .autoaugment import apply_autoaugment, autoaugment_draws
 
 
 def normalize(x: torch.Tensor, mean, std) -> torch.Tensor:
@@ -143,14 +145,107 @@ def mixup(generator: torch.Generator, img: torch.Tensor, label: torch.Tensor):
     return apply_mixup(img, label, *mixup_draws(generator, img.shape[0]))
 
 
-# -- not ported yet ---------------------------------------------------------
+# -- random crop-paste ------------------------------------------------------
 
-def random_crop_paste(*args, **kwargs):
-    raise NotImplementedError(
-        f"random_crop_paste (--rcpaste) is not ported to torch yet: {_AA_ITEM}")
+def crop_paste_draws(generator: torch.Generator, batch: int, size: int):
+    """Per image: lam ~ Beta(1, 1), which is U(0, 1); the crop's center
+    (cx, cy), integers in [0, size); two uniforms for the paste origin; the
+    front and background flips (p=0.5); the blend weight ~ U(0, 1)."""
+    dev = generator.device
+    lam = uniform(generator, (batch,))
+    cx = torch.randint(0, size, (batch,), generator=generator, device=dev)
+    cy = torch.randint(0, size, (batch,), generator=generator, device=dev)
+    u_px = uniform(generator, (batch,))
+    u_py = uniform(generator, (batch,))
+    flip_front = uniform(generator, (batch,)) <= 0.5
+    flip_bg = uniform(generator, (batch,)) <= 0.5
+    mix = uniform(generator, (batch,))
+    return lam, cx, cy, u_px, u_py, flip_front, flip_bg, mix
 
 
-def augment_dataset(*args, **kwargs):
-    raise NotImplementedError(
-        "augment_dataset (--preaugment-epoch) is not ported to torch yet: "
-        f"{_AA_ITEM}")
+def apply_crop_paste(x: torch.Tensor, lam, cx, cy, u_px, u_py, flip_front,
+                     flip_bg, mix) -> torch.Tensor:
+    """RandomCropPaste (da.py:4-49) with the given draws, on (B, H, W, C)
+    float images: crop a box of side floor(W*sqrt(1 - lam)) around (cx,
+    cy), clipped to the image, flip it, and blend it into the (flipped)
+    background at a random origin: bg*mix + front*(1 - mix) inside the
+    box.  The origin's range is clamped to >= 1 (the reference crashes when
+    the crop spans the whole image)."""
+    B, H, W, C = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    cut = torch.floor(W * torch.sqrt(1.0 - lam))  # np.int truncation
+    half = torch.floor(cut / 2.0)
+    cx, cy = cx.to(torch.float32), cy.to(torch.float32)
+    fx1, fx2 = torch.clamp(cx - half, 0, W), torch.clamp(cx + half, 0, W)
+    fy1, fy2 = torch.clamp(cy - half, 0, H), torch.clamp(cy + half, 0, H)
+    fw, fh = fx2 - fx1, fy2 - fy1
+    px1 = torch.floor(u_px * torch.clamp(W - fw, min=1.0))
+    py1 = torch.floor(u_py * torch.clamp(H - fh, min=1.0))
+
+    yy = torch.arange(H, **f32)[None, :, None]
+    xx = torch.arange(W, **f32)[None, None, :]
+
+    def b(a):
+        return a[:, None, None]
+
+    in_box = ((yy >= b(py1)) & (yy < b(py1 + fh)) & (xx >= b(px1))
+              & (xx < b(px1 + fw)))  # (B, H, W)
+    src_y = yy - b(py1) + b(fy1)
+    src_x = torch.where(b(flip_front), b(fx2) - 1.0 - (xx - b(px1)),
+                        xx - b(px1) + b(fx1))
+    iy = torch.clamp(src_y, 0, H - 1).to(torch.int64).expand(B, H, W)
+    ix = torch.clamp(src_x, 0, W - 1).to(torch.int64).expand(B, H, W)
+    flat = (iy * W + ix).reshape(B, H * W, 1).expand(B, H * W, C)
+    front = torch.gather(x.reshape(B, H * W, C), 1, flat).view(B, H, W, C)
+    bg = torch.where(flip_bg[:, None, None, None], x.flip(2), x)
+    m = mix[:, None, None, None]
+    blended = bg * m + front * (1.0 - m)
+    return torch.where(in_box[..., None], blended, bg)
+
+
+def random_crop_paste(generator: torch.Generator,
+                      x: torch.Tensor) -> torch.Tensor:
+    """RandomCropPaste on a (B, H, W, C) float batch, every image with its
+    own draws."""
+    return apply_crop_paste(x, *crop_paste_draws(generator, x.shape[0],
+                                                 x.shape[2]))
+
+
+# -- the per-epoch pass over the dataset ------------------------------------
+
+def augment_dataset_draws(generator: torch.Generator, n: int, padding: int,
+                          flip: bool = True,
+                          autoaugment_policy: str | None = None):
+    """The draws of one epoch's pass over ``n`` images: the crop/flip
+    draws, then (with a policy) the AutoAugment draws of every image."""
+    crop = crop_flip_draws(generator, n, padding, flip)
+    aa = (autoaugment_draws(generator, n, autoaugment_policy)
+          if autoaugment_policy is not None else None)
+    return crop, aa
+
+
+def apply_augment_dataset(xs: torch.Tensor, padding: int, crop, aa,
+                          autoaugment_policy: str | None = None,
+                          chunk: int = 2500) -> torch.Tensor:
+    """Crop/flip the whole (N, H, W, C) uint8 dataset with the given draws,
+    then AutoAugment it ``chunk`` images at a time (which bounds the memory
+    of every op's output for a whole chunk); returns uint8."""
+    x = apply_crop_flip(xs, padding, *crop)
+    if autoaugment_policy is None:
+        return x
+    return torch.cat([
+        apply_autoaugment(x[i:i + chunk], *(d[i:i + chunk] for d in aa),
+                          autoaugment_policy)
+        for i in range(0, len(x), chunk)])
+
+
+def augment_dataset(generator: torch.Generator, xs: torch.Tensor,
+                    padding: int, flip: bool = True,
+                    autoaugment_policy: str | None = None,
+                    chunk: int = 2500) -> torch.Tensor:
+    """The once-per-epoch whole-dataset crop/flip(/AutoAugment) pass of
+    ``--preaugment-epoch``: (N, H, W, C) uint8 -> uint8, on xs's device."""
+    crop, aa = augment_dataset_draws(generator, len(xs), padding, flip,
+                                     autoaugment_policy)
+    return apply_augment_dataset(xs, padding, crop, aa, autoaugment_policy,
+                                 chunk)

@@ -4,6 +4,10 @@ patchify (NHWC) -> ``emb`` -> cls token (broadcast, cast) -> + ``pos_emb``
 -> ``enc0`` .. ``enc{L-1}`` -> cls token (or the token mean without one) ->
 ``fc_norm`` -> ``fc``.  Parameter names are the flax names, so carrying
 weights across is a transpose and a rename (``utils/transplant.py``).
+
+``remat`` recomputes each encoder block in the backward
+(``torch.utils.checkpoint``) instead of keeping its activations, as the JAX
+package's ``nn.remat`` does.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.common import EncoderBlock, LayerNorm
 from ..ops.init import Linear, normal
@@ -29,13 +34,13 @@ class ViT(nn.Module):
                  remat: bool = False, seq_pad: int = 0, act_constraint=None,
                  mlp_factory=None):
         super().__init__()
-        for name, value in (("remat", remat), ("seq_pad", seq_pad),
+        for name, value in (("seq_pad", seq_pad),
                             ("act_constraint", act_constraint),
                             ("mlp_factory", mlp_factory)):
             if value:
                 raise NotImplementedError(
                     f"ViT({name}=...) is not ported yet (ROADMAP queue 1)")
-        self.patch, self.dtype = patch, dtype
+        self.patch, self.dtype, self.remat = patch, dtype, remat
         self.is_cls_token = is_cls_token
         self.num_layers = num_layers
         ps = img_size // patch
@@ -66,7 +71,38 @@ class ViT(nn.Module):
             out = torch.cat([cls, out], dim=1)
         out = out + self.pos_emb.to(self.dtype)
         for i in range(self.num_layers):
-            out = getattr(self, f"enc{i}")(out, deterministic=deterministic,
-                                           generator=generator)
+            block = getattr(self, f"enc{i}")
+            if self.remat and torch.is_grad_enabled():
+                out = _recomputed(block, out, deterministic, generator)
+            else:
+                out = block(out, deterministic=deterministic,
+                            generator=generator)
         out = out[:, 0] if self.is_cls_token else out.mean(dim=1)
         return self.fc(self.fc_norm(out))
+
+
+def _recomputed(block: nn.Module, x: torch.Tensor, deterministic: bool,
+                generator: torch.Generator | None) -> torch.Tensor:
+    """``block(x)`` under ``torch.utils.checkpoint``.  The recomputation in
+    the backward redraws the block's dropout masks from ``generator``: it
+    is rewound to where the forward found it, and left afterwards where
+    the backward found it, so both passes see the same masks and the
+    generator's stream is unchanged."""
+    if generator is None:
+        return checkpoint(block, x, deterministic=deterministic,
+                          use_reentrant=False)
+    start = generator.get_state()
+    first = [True]
+
+    def run(x):
+        if first[0]:
+            first[0] = False
+            return block(x, deterministic=deterministic, generator=generator)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return block(x, deterministic=deterministic, generator=generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False)

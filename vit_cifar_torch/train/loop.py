@@ -1,17 +1,65 @@
-"""Pieces of the training harness, as ``vit_cifar_tpu/train/loop.py``:
-``init_state`` and the eval padding.  The epoch loop, logging, best/last
-checkpoints and resume come with the AutoAugment slice (ROADMAP queue 1,
-items 4-5).
+"""The training harness, as ``vit_cifar_tpu/train/loop.py``, on one device.
+
+Reference: the Lightning ``Trainer`` and the ``Net`` hooks (main.py:196-243,
+network.py).  ``train`` keeps their behaviour:
+
+  * the per-epoch warmup -> cosine schedule, its lr logged as ``lr_0``;
+  * the NaN-parameter guard that stops training (network.py:226-228), read
+    with the eval's sums and checked before the epoch's histograms;
+  * the val loop's val_loss and val_acc over the padded, masked test set;
+  * the best checkpoint by val_loss and a last one, each the full training
+    state, so ``--resume`` continues a run where it stopped;
+  * the parameter count, the model summary, experiment naming and tags,
+    weight and layer-output histograms each epoch (every
+    ``max_epochs // 10`` epochs without Comet), gradient histograms every
+    ``log_gradients_interval`` steps;
+  * ``dry_run`` (fast_dev_run): one train step and one eval batch.
+
+The dataset lives on the device as uint8.  Each epoch draws its permutation
+from the state's generator, optionally augments the whole dataset once
+(``--preaugment-epoch``), runs its steps with no host read, then reads the
+epoch's metric sums and the eval's sums once each.
+
+Not written by the port's loop: the model-graph artifacts and the input
+grid image of the JAX loop; they come with the analysis tools (ROADMAP
+queue 1, item 9).  What the port has no model for raises
+``NotImplementedError`` naming its ROADMAP item: a mesh of more than one
+device and multihost runs, ``--semi-supervised`` and the zoo.  The TPU
+relay's knobs (``compile_cache_dir``, ``donate_buffers``) and the switches
+of paths the port always takes (``device_data``, ``flat_optimizer``,
+``use_pallas``) are accepted and ignored, and the JAX step's
+``contiguous_batches`` has no counterpart (ROADMAP "Not to port").
 """
 
 from __future__ import annotations
 
+import math
+import time
+from typing import Any
+
 import numpy as np
 import torch
 
-from ..config import Config
-from .optim import FlatOptimizer, flatten_params
+from ..config import Config, torch_dtype
+from ..data.augment import augment_dataset, normalize
+from ..data.autoaugment import policy_for_dataset
+from ..data.datasets import load_dataset
+from ..models import get_model
+from ..utils.logging import get_experiment_name, make_logger
+from ..utils.observability import (get_layer_outputs, log_histograms,
+                                   model_summary, profile_trace)
+from .checkpoint import BestCheckpointer, load_checkpoint
+from .optim import (FlatOptimizer, flatten_params, make_optimizer,
+                    warmup_cosine_epoch_schedule)
 from .state import TrainState
+from .steps import make_eval_step, make_metrics_zeros, make_train_step
+
+_PARALLEL_ITEM = "ROADMAP queue 1, item 8 (parallel modes)"
+_ZOO_ITEM = "ROADMAP queue 1, item 7 (zoo mixers)"
+
+
+def count_params(model: torch.nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
 
 
 def init_state(cfg: Config, model: torch.nn.Module,
@@ -26,6 +74,42 @@ def init_state(cfg: Config, model: torch.nn.Module,
                       opt_state=tx.init(params), generator=gen)
 
 
+def _full_payload(state: TrainState, epoch: int,
+                  best_val_loss: float) -> dict[str, Any]:
+    """Everything a resumed run needs, as Lightning's checkpoints embed the
+    optimizer and scheduler state: the weights (named views of one copy of
+    the flat vector, so they are stored once and load as the model's state
+    dict), the optimizer state (count and moments), the step, the epoch,
+    the best val_loss and the generator's state.  The lr needs no state of
+    its own: the schedule is a function of the restored count."""
+    flat = state.params.detach().to("cpu", copy=True)
+    params, offset = {}, 0
+    for name, p in state.model.named_parameters():
+        params[name] = flat[offset:offset + p.numel()].view(p.shape)
+        offset += p.numel()
+    return {"params": params,
+            "opt_state": {k: v.detach().to("cpu", copy=True)
+                          for k, v in state.opt_state.items()},
+            "step": state.step, "epoch": epoch,
+            "best_val_loss": float(best_val_loss),
+            "generator": state.generator.get_state()}
+
+
+def _restore_state(cfg: Config, state: TrainState):
+    """Load the last checkpoint of ``cfg.resume`` into a fresh state, in
+    place; returns (state, the epoch to start at)."""
+    payload, _ = load_checkpoint(cfg.resume, prefer="last")
+    dev = state.params.device
+    with torch.no_grad():
+        state.params.copy_(torch.cat([
+            payload["params"][name].reshape(-1)
+            for name, _ in state.model.named_parameters()]))
+    state.opt_state = {k: v.to(dev) for k, v in payload["opt_state"].items()}
+    state.generator.set_state(payload["generator"])
+    state.step = int(payload["step"])
+    return state, int(payload["epoch"]) + 1
+
+
 def _pad_eval(x: np.ndarray, y: np.ndarray, batch: int):
     """Pad eval data to a whole number of batches; returns (x, y, mask,
     steps)."""
@@ -37,3 +121,215 @@ def _pad_eval(x: np.ndarray, y: np.ndarray, batch: int):
         x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
         y = np.concatenate([y, np.zeros((pad,), y.dtype)])
     return x, y, mask, steps
+
+
+def _check_run_supported(cfg: Config) -> None:
+    if int(np.prod(cfg.mesh_shape or (1,))) > 1 or cfg.multihost:
+        raise NotImplementedError(
+            f"training over more than one device (mesh {cfg.mesh_shape}, "
+            f"multihost {cfg.multihost}) is not ported to torch yet: "
+            f"{_PARALLEL_ITEM}")
+    if cfg.semi_supervised:
+        raise NotImplementedError(
+            f"--semi-supervised is not ported to torch yet: {_ZOO_ITEM}")
+
+
+def train(cfg: Config, verbose: bool = True, stop_after: int | None = None,
+          *, device="cuda") -> dict[str, Any]:
+    """Train ``cfg`` on ``device`` (default the CUDA card; pass
+    ``device="cpu"`` for the CPU) and return the run's result dict.
+
+    ``stop_after`` stops after that (absolute) epoch has finished, as a
+    preemption would, without changing the lr schedule (which depends on
+    ``max_epochs``).  ``cfg.matmul_precision`` is set with
+    ``torch.set_float32_matmul_precision`` for the run, and the previous
+    setting is restored on return."""
+    previous = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(cfg.matmul_precision)
+    try:
+        return _train(cfg, verbose, stop_after, torch.device(device))
+    finally:
+        torch.set_float32_matmul_precision(previous)
+
+
+def _train(cfg: Config, verbose: bool, stop_after: int | None,
+           device: torch.device) -> dict[str, Any]:
+    _check_run_supported(cfg)
+    raw = load_dataset(cfg.dataset, cfg.data_dir, cfg.synthetic_data)
+    experiment = get_experiment_name(cfg)
+    logger = make_logger(cfg, experiment)
+    logger.log_text("config.json", cfg.to_json())
+
+    model, _ = get_model(cfg, device=device)
+    steps_per_epoch = len(raw.x_train) // cfg.batch_size
+    tx = make_optimizer(cfg, steps_per_epoch)
+    state = init_state(cfg, model, tx)
+    start_epoch = 0
+    if cfg.resume:
+        state, start_epoch = _restore_state(cfg, state)
+        if verbose:
+            print(f"[resume] restored {cfg.resume}, continuing at epoch "
+                  f"{start_epoch}")
+    n_params = count_params(model)
+    if verbose:
+        print(f"[{experiment}] params: {n_params:,} | device: {device} | "
+              f"steps/epoch: {steps_per_epoch}")
+    logger.log(0, 0, trainable_params=n_params, total_params=n_params)
+    summary = model_summary(model.named_parameters(), cfg.model_summary_depth)
+    logger.log_text("model_summary.txt", summary)
+    if verbose:
+        print(summary)
+
+    x_train = torch.from_numpy(raw.x_train).to(device)
+    y_train = torch.from_numpy(raw.y_train).to(device)
+    *test, eval_steps = _pad_eval(raw.x_test, raw.y_test,
+                                  cfg.eval_batch_size)
+    x_test, y_test, eval_mask = (torch.from_numpy(a).to(device) for a in test)
+    state.metrics_acc = make_metrics_zeros(cfg, device)
+
+    max_epochs = 1 if cfg.dry_run else cfg.max_epochs
+    epoch_steps = 1 if cfg.dry_run else steps_per_epoch
+    n_eval_steps = 1 if cfg.dry_run else eval_steps
+    train_step = make_train_step(cfg, model, tx,
+                                 pre_augmented=cfg.preaugment_epoch)
+    eval_step = make_eval_step(cfg, model)
+    aa_policy = policy_for_dataset(cfg.dataset) if cfg.autoaugment else None
+    lr_sched = warmup_cosine_epoch_schedule(
+        cfg.lr, cfg.min_lr, cfg.warmup_epoch, cfg.max_epochs, steps_per_epoch)
+    # the fixed 10-image probe of the layer-output histograms (main.py:
+    # 187-194, ``_sample_input_data``)
+    probe_img = normalize(x_train[:10], cfg.mean, cfg.std).to(
+        torch_dtype(cfg))
+    # the reference emits histograms to Comet every epoch; the CSV path
+    # writes .npz snapshots on a bounded cadence
+    hist_every = 1 if cfg.comet_api_key else max(1, cfg.max_epochs // 10)
+    names = [n for n, _ in model.named_parameters()]
+
+    ckpt = BestCheckpointer(cfg.ckpt_dir, experiment, cfg)
+    if cfg.resume:
+        ckpt.seed_best_from(cfg.resume)
+
+    def run_eval():
+        """(val_loss, val_acc, any parameter NaN), in one host read."""
+        eb = cfg.eval_batch_size
+        sums = torch.zeros(3, device=device)
+        for b in range(n_eval_steps):
+            sl = slice(b * eb, (b + 1) * eb)
+            out = eval_step(x_test[sl], y_test[sl], eval_mask[sl])
+            sums += torch.stack([out["loss_sum"], out["correct_sum"],
+                                 out["count"]])
+        nan = torch.isnan(state.params).any().to(sums.dtype)
+        loss_sum, correct, count, nan = torch.cat([sums, nan[None]]).tolist()
+        return loss_sum / count, correct / count, bool(nan)
+
+    history = []
+    t_start = time.time()
+    images_seen = 0
+    last_epoch = max_epochs - 1
+    for epoch in range(start_epoch, max_epochs):
+        t_ep = time.time()
+        perm = torch.randperm(len(x_train), generator=state.generator,
+                              device=device)
+        x_epoch = x_train
+        if cfg.preaugment_epoch:
+            x_epoch = augment_dataset(state.generator, x_train, cfg.padding,
+                                      flip=cfg.dataset != "svhn",
+                                      autoaugment_policy=aa_policy)
+        # one steady epoch under the profiler
+        profiled = bool(cfg.profile_dir) and epoch == min(1, max_epochs - 1)
+        with profile_trace(cfg.profile_dir if profiled else ""):
+            for i in range(epoch_steps):
+                gstep = epoch * epoch_steps + i
+                if (cfg.log_gradients and not cfg.dry_run
+                        and gstep % cfg.log_gradients_interval == 0):
+                    # the very gradients of this step: the generator is
+                    # rewound so that the step draws the same batch
+                    rewind = state.generator.get_state()
+                    batch = train_step.make_batch(state, x_epoch, y_train,
+                                                  perm, i)
+                    grads = train_step.loss_and_grads(state, *batch)[2]
+                    state.generator.set_state(rewind)
+                    log_histograms(logger, dict(zip(names, grads)), "grads",
+                                   gstep, epoch)
+                state, _ = train_step(state, x_epoch, y_train, perm, i)
+            # epoch means of the metrics the step accumulates; also syncs
+            keys = list(state.metrics_acc)
+            sums = torch.stack([state.metrics_acc[k] for k in keys]).tolist()
+        metrics = {k: v / epoch_steps for k, v in zip(keys, sums)}
+        state.metrics_acc = {k: torch.zeros_like(v)
+                             for k, v in state.metrics_acc.items()}
+        images_seen += epoch_steps * cfg.batch_size
+        ep_time = time.time() - t_ep
+
+        t_eval = time.time()
+        val_loss, val_acc, param_nan = run_eval()
+        eval_time = time.time() - t_eval
+        # before the histograms, as the reference orders them
+        if param_nan:
+            raise ValueError(f"[ERROR] NaN parameter detected at epoch "
+                             f"{epoch}. Training stopped.")
+        if cfg.log_weights and not cfg.dry_run and epoch % hist_every == 0:
+            log_histograms(logger, dict(model.named_parameters()), "weights",
+                           epoch, epoch)
+            try:
+                outs = get_layer_outputs(model, probe_img)
+                log_histograms(logger, outs, "layer_outputs", epoch, epoch)
+            except Exception as e:  # the reference's IndexError fallback
+                print(f"[vit_cifar_torch] layer-output histograms failed: "
+                      f"{e}")
+        lr_now = float(lr_sched(torch.tensor(epoch * steps_per_epoch + 1)))
+        row = dict(
+            loss=metrics["loss"], acc=metrics["acc"], val_loss=val_loss,
+            val_acc=val_acc, lr_0=lr_now, epoch_time=round(ep_time, 3),
+            eval_time=round(eval_time, 3),
+            images_per_sec=round(
+                epoch_steps * cfg.batch_size / max(ep_time, 1e-9), 1))
+        if "skipped_nonfinite" in metrics:
+            row["skipped_nonfinite"] = metrics["skipped_nonfinite"]
+        history.append(row)
+        logger.log(state.step, epoch, **row)
+        logger.flush()
+        if verbose:
+            print(f"epoch {epoch:3d} | loss {row['loss']:.4f} acc "
+                  f"{row['acc']:.4f} | val_loss {val_loss:.4f} val_acc "
+                  f"{val_acc:.4f} | {row['images_per_sec']:.0f} img/s")
+        if val_loss < ckpt.best_val_loss:  # the payload only on improvement
+            ckpt.maybe_save_best(val_loss, epoch,
+                                 _full_payload(state, epoch, val_loss))
+        last_epoch = epoch
+        if stop_after is not None and epoch + 1 >= stop_after:
+            break
+
+    if not history:
+        # resume of a finished run: evaluate the restored model
+        val_loss, val_acc, _ = run_eval()
+        history.append(dict(val_loss=val_loss, val_acc=val_acc,
+                            loss=math.nan, acc=math.nan, lr_0=0.0,
+                            epoch_time=0.0, eval_time=0.0,
+                            images_per_sec=0.0))
+        if verbose:
+            print(f"[resume] nothing left to train (epoch {start_epoch} >= "
+                  f"{max_epochs}); evaluated restored model: val_loss="
+                  f"{val_loss:.4f} val_acc={val_acc:.4f}")
+
+    total_time = time.time() - t_start
+    ckpt.save_last(_full_payload(state, last_epoch, ckpt.best_val_loss))
+    if getattr(logger, "comet", None) is not None:  # main.py:239-242
+        try:
+            logger.comet.log_model(experiment, ckpt.root)
+        except Exception as e:
+            print(f"[vit_cifar_torch] comet model upload failed: {e}")
+    logger.finalize()
+    return {
+        "experiment": experiment,
+        "history": history,
+        "val_loss": history[-1]["val_loss"],
+        "val_acc": history[-1]["val_acc"],
+        "best_val_loss": ckpt.best_val_loss,
+        "total_time_s": total_time,
+        "images_per_sec": images_seen / max(total_time, 1e-9),
+        "n_params": n_params,
+        "ckpt_dir": ckpt.root,
+        "log_dir": logger.dir,
+        "synthetic_data": raw.synthetic,
+    }

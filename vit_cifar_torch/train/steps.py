@@ -2,8 +2,12 @@
 
 The dataset is resident on the device as uint8; a step receives the
 epoch's permutation and its index in the epoch, gathers its batch, and
-augments it on the device: random crop/flip -> normalize -> CutMix, or
-MixUp behind the p=0.8 gate -> cast to the compute dtype.  Then the forward
+augments it on the device in the reference's order (utils.py:337-367):
+random crop/flip -> AutoAugment -> normalize -> RandomCropPaste -> CutMix,
+or MixUp behind the p=0.8 gate -> cast to the compute dtype.  With
+``pre_augmented`` the crop/flip and AutoAugment already ran once for the
+epoch over the whole dataset (``augment.augment_dataset``) and the step
+skips them.  Then the forward
 in training mode, the lambda-mixed criterion, the backward, the non-finite
 guard and the optimizer update on the flat parameter vector.  Metrics stay
 on the device; no step reads anything back to the host.
@@ -19,7 +23,9 @@ Parity details (reference network.py:149-220, 388-395):
 
 The batch is a seam: ``train_step.make_batch`` gathers and augments, and
 ``train_step.on_batch`` trains on a batch it is handed, so a test can feed
-it the JAX package's augmented batch.
+it the JAX package's augmented batch.  ``train_step.loss_and_grads`` is the
+forward and backward of ``on_batch`` alone (the loop's gradient
+histograms).
 """
 
 from __future__ import annotations
@@ -30,12 +36,12 @@ import torch
 
 from ..config import Config, torch_dtype
 from ..data import augment
+from ..data.autoaugment import autoaugment_batch, policy_for_dataset
 from .losses import make_criterion, make_per_example_loss
 from .optim import FlatOptimizer
 from .state import TrainState
 
 _ZOO_ITEM = "ROADMAP queue 1, item 7 (zoo mixers)"
-_AA_ITEM = "ROADMAP queue 1, item 4 (augmentation with AutoAugment)"
 
 
 def _check_supported(cfg: Config) -> None:
@@ -53,11 +59,6 @@ def _check_supported(cfg: Config) -> None:
             raise NotImplementedError(
                 f"the train step for {what} is not ported to torch yet: "
                 f"{_ZOO_ITEM}")
-    for flag in ("autoaugment", "rcpaste", "preaugment_epoch"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to torch yet: "
-                f"{_AA_ITEM}")
 
 
 def make_metrics_zeros(cfg: Config,
@@ -70,13 +71,15 @@ def make_metrics_zeros(cfg: Config,
             for n in names}
 
 
-def make_train_step(cfg: Config, model, tx: FlatOptimizer) -> Callable:
+def make_train_step(cfg: Config, model, tx: FlatOptimizer,
+                    pre_augmented: bool = False) -> Callable:
     """``train_step(state, x_all, y_all, perm, i) -> (state, metrics)``.
 
     ``x_all`` (N, H, W, C) uint8 and ``y_all`` (N,) are the dataset on the
     device, ``perm`` the epoch's permutation (on the device) and ``i`` the
     step's index in the epoch.  ``state`` (whose ``model`` is ``model``)
-    is updated in place and returned.
+    is updated in place and returned.  With ``pre_augmented`` the step
+    takes ``x_all`` as already cropped, flipped and AutoAugmented.
     """
     _check_supported(cfg)
     criterion = make_criterion(cfg)
@@ -89,9 +92,15 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer) -> Callable:
         gen = state.generator
         idx = perm[i * B:(i + 1) * B]
         img, label = x_all.index_select(0, idx), y_all.index_select(0, idx)
-        img = augment.random_crop_flip(gen, img, cfg.padding,
-                                       flip=cfg.dataset != "svhn")
+        if not pre_augmented:
+            img = augment.random_crop_flip(gen, img, cfg.padding,
+                                           flip=cfg.dataset != "svhn")
+            if cfg.autoaugment:
+                img = autoaugment_batch(gen, img,
+                                        policy_for_dataset(cfg.dataset))
         img = augment.normalize(img, cfg.mean, cfg.std)
+        if cfg.rcpaste:
+            img = augment.random_crop_paste(gen, img)
         rand_label = lam = None
         if cfg.cutmix:
             img, label, rand_label, lam = augment.cutmix(gen, img, label,
@@ -104,15 +113,21 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer) -> Callable:
             lam = torch.where(gate, lam_m, torch.ones_like(lam_m))
         return img.to(dtype), label, rand_label, lam
 
-    def on_batch(state: TrainState, img, label, rand_label=None, lam=None):
-        """Forward, loss, backward, guard and update on a given batch."""
-        params = list(model.parameters())
+    def loss_and_grads(state: TrainState, img, label, rand_label=None,
+                       lam=None):
+        """(loss, logits, one gradient per parameter) of a given batch, in
+        training mode; dropout draws from the state's generator."""
         logits = model(img, deterministic=False, generator=state.generator)
         loss = criterion(logits, label)
         if rand_label is not None:
             loss = loss * lam + criterion(logits, rand_label) * (1.0 - lam)
-        grads = torch.autograd.grad(loss, params)
-        loss = loss.detach()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return loss.detach(), logits.detach(), grads
+
+    def on_batch(state: TrainState, img, label, rand_label=None, lam=None):
+        """Forward, loss, backward, guard and update on a given batch."""
+        loss, logits, grads = loss_and_grads(state, img, label, rand_label,
+                                             lam)
         with torch.no_grad():
             flat_g = torch.cat([g.reshape(-1) for g in grads])
             del grads
@@ -143,6 +158,7 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer) -> Callable:
         return on_batch(state, *make_batch(state, x_all, y_all, perm, i))
 
     train_step.make_batch = make_batch
+    train_step.loss_and_grads = loss_and_grads
     train_step.on_batch = on_batch
     return train_step
 
