@@ -79,6 +79,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    launch checks.  Prints the recipe's ms a step and img/s beside the
    no-AutoAugment step of phase 3, AutoAugment's device ms and launches a
    batch (torch.profiler) and the recipe step's busy share.
+9. Zoo phase (seed 2045, bf16-mixed, synthetic c10): the default run
+   through the user's entry point, ``python -m vit_cifar_torch --dataset
+   c10 --synthetic-data --max-epochs 1`` with no model flag (``cli.main``;
+   AEViT, 1 layer, hidden 384, ffn 768, AE hidden 128, B=128, 390 steps;
+   ``--warmup-epoch 0`` so that the epoch trains): its train and val loss
+   must fall below the untrained model's val_loss; prints ms a step, img/s,
+   val_acc and, over 20 more steps under torch.profiler, kernels a step and
+   the busy share.  Then the heads AE (chunked eye mask) at 7 layers and 12
+   heads with ``aece`` and one unsupervised step, 20 steps at B=128; one
+   f32 step of the default model and of that one on the card and on the
+   CPU from the same weights and batch (params, both moments and the AE
+   optimizer's, in relative L2); under ``ce`` the AE entries left bit for
+   bit where the unsupervised loop wrote them; ``ae_baseline``, ``aftfull``,
+   ``aftsimple``, ``gmlp``, ``wgmlp`` and ``linear`` at the README width,
+   20 steps each; one ``--semi-supervised`` epoch (310 steps) and an
+   unsupervised run stopped after epoch 1 and resumed, equal to the
+   straight run.  These mixers are plain PyTorch: the phase checks that no
+   attention kernel launches.
 
 The library's yardsticks, timed at both main shapes and called nowhere in
 the port: SDPA forward and forward+backward,
@@ -121,7 +139,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vit_cifar_torch import Config, torch_dtype
+from vit_cifar_torch import Config, cli, torch_dtype
+from vit_cifar_torch.config import config_from_args
 from vit_cifar_torch.data.augment import normalize
 from vit_cifar_torch.data.autoaugment import (apply_autoaugment,
                                               autoaugment_batch,
@@ -143,9 +162,11 @@ from vit_cifar_torch.ops.cuda.flash_attention import (
 from vit_cifar_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from vit_cifar_torch.train.loop import _pad_eval, init_state, train
 from vit_cifar_torch.train.losses import make_criterion
-from vit_cifar_torch.train.optim import make_optimizer
+from vit_cifar_torch.train.optim import flat_mask, make_optimizer
 from vit_cifar_torch.train.steps import (make_eval_step, make_metrics_zeros,
                                          make_train_step)
+from vit_cifar_torch.train.unsupervised import (is_ae_param,
+                                                make_unsupervised_update)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -247,10 +268,33 @@ AA_BATCH = 128
 # cos/sin, so a tie may round a value one level apart or move a pixel, and a
 # second stage (solarize's threshold, equalize's lut) may carry it further
 AA_CARD_SHARE = 1e-3
+# profiler windows tried before a device time is "not measured"
+PROFILE_TRIES = 3
 # resumed run (b) against the straight run (a), relative L2 of the flat
 # params and of each moment: the same draws and the same kernels, but
 # cuBLAS and the reductions need not sum in one order from run to run
 RESUME_REL_L2 = 1e-2
+# the zoo phase (bf16-mixed, synthetic c10, seed 2045): the default model
+# (AEViT, 1 layer) through the CLI for one epoch, the heads AE at the README
+# depth, the other mixers at the README width, ZOO_STEPS steps each (the
+# first ZOO_WARM untimed)
+ZOO_SEED = 2045
+ZOO_STEPS = 20
+ZOO_WARM = 3
+ZOO_MIXERS = ("ae_baseline", "aftfull", "aftsimple", "gmlp", "wgmlp",
+              "linear")
+# one f32 step on the card against the CPU from the same weights and batch:
+# relative L2 of the params after it and of the main moments; the same f32
+# math (TF32 off) with sums in another order
+ZOO_CARD_CPU_REL_L2 = 1e-4
+# ... and of the AE optimizer's moments, whose gradient (the MSE of a
+# ReLU'd reconstruction over 7 layers' inputs) magnifies the card's and the
+# CPU's rounding of those inputs: the first chip run read 7.0e-5 here where
+# the main moments agreed to 4.9e-6
+ZOO_AE_CARD_CPU_REL_L2 = 1e-3
+# --semi-supervised on c10: 4,000 labeled images (31 steps at B=128) and
+# 41,000 unlabeled, so 10 passes an epoch
+SEMI_STEPS = 310
 # the ragged-edge phase: every T where a 16-row tile, a 64-key chunk or a
 # 64-row block ends or begins, at head dims that are and are not a multiple
 # of 16, for the bf16 (tensor-core) instances of the two forwards and of
@@ -380,21 +424,48 @@ def device_ms(fn, n: int = 20) -> tuple[float, str]:
     event window does not show where the host launches them more slowly
     than the card runs them (T=65), and the backend a library call took.
     The time is None where the profiler recorded no kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
-    # device rows carry no CPU time
-    kernels = [a for a in prof.key_averages()
-               if a.self_device_time_total > 0 and a.self_cpu_time_total == 0]
-    kernels.sort(key=lambda a: a.self_device_time_total, reverse=True)
+
+    kernels, _ = profiled(run)
+    if kernels is None:
+        return None, "not measured"
     total = sum(a.self_device_time_total for a in kernels) / 1e3 / n
-    return total or None, "; ".join(a.key[:80] for a in kernels[:3])
+    return total, "; ".join(a.key[:80] for a in kernels[:3])
+
+
+def profiled(run, trace: str | None = None):
+    """(device kernel rows by device time, wall us) of ``run()`` under
+    torch.profiler, and its chrome trace written to ``trace``.  The
+    profiler at times hands back a window with none of the card's kernels
+    in it; such a window is run again, up to ``PROFILE_TRIES`` times, and
+    (None, None) comes back where every one was empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # device rows carry no CPU time
+        kernels = [a for a in prof.key_averages()
+                   if a.self_device_time_total > 0
+                   and a.self_cpu_time_total == 0]
+        if kernels:
+            kernels.sort(key=lambda a: a.self_device_time_total,
+                         reverse=True)
+            if trace:
+                prof.export_chrome_trace(trace)
+            return kernels, wall_us
+    print(f"the profiler recorded no kernel of the card in "
+          f"{PROFILE_TRIES} windows: not measured")
+    return None, None
 
 
 def ms_text(ms: float | None) -> str:
@@ -611,14 +682,14 @@ def training_kernel_phase(card: str, library: dict) -> list[dict]:
         print(f"{line} ({card})")
         pair_ms[name] = ms["kernel"]
         if name == "flash_bwd_dkv_tiled":
+            devs = (pair_dev["flash_bwd_dq_tiled"], pair_dev[name])
+            pair_sum = None if None in devs else sum(devs)
             print(f"library dq+dk/dv pair {SHAPES[0]} bf16: "
                   f"{library['bwd_pair']:.4f} ms, device "
                   f"{ms_text(library['bwd_pair device'])}, against the tiled "
                   f"kernels' "
                   f"{pair_ms['flash_bwd_dq_tiled'] + ms['kernel']:.4f} ms, "
-                  f"device "
-                  f"{pair_dev['flash_bwd_dq_tiled'] + pair_dev[name]:.4f} ms "
-                  f"({card})")
+                  f"device {ms_text(pair_sum)} ({card})")
         if name == "mhsa_fwd_lse":
             print_against_earlier(name, errs[name])
             rows.append({"name": name, "route": "cuda",
@@ -662,12 +733,13 @@ def flagship_cfg(**kw) -> Config:
                      "synthetic_data": True, **kw})
 
 
-def training_setup(cfg: Config, n_train: int | None = None):
+def training_setup(cfg: Config, n_train: int | None = None, raw=None):
     """What a training run of ``cfg`` needs, on the card, from the entry
     points a user calls: (raw data, x_train, y_train, model, state,
     train_step, perm), over the first ``n_train`` training images (all
-    by default)."""
-    raw = load_dataset(cfg.dataset, cfg.data_dir, cfg.synthetic_data)
+    by default) of ``raw`` (default: ``cfg``'s data set, loaded here)."""
+    if raw is None:
+        raw = load_dataset(cfg.dataset, cfg.data_dir, cfg.synthetic_data)
     x_train = torch.from_numpy(raw.x_train[:n_train]).cuda()
     y_train = torch.from_numpy(raw.y_train[:n_train]).cuda()
     model, _ = get_model(cfg, device="cuda")
@@ -814,20 +886,21 @@ def profile_steps(step, n_prof: int, trace_name: str, step_ms: float,
     device activity a step, the busy share against the unprofiled
     ``step_ms`` and the top device kernels, and return them a step:
     ``device_ms``, ``profiled_ms``, ``kernels``, ``busy`` and
-    ``by_kernel`` (device ms of each kernel)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    ``by_kernel`` (device ms of each kernel), each None where the profiler
+    recorded no kernel (``profiled``)."""
     trace = os.path.join(WORK, trace_name)
     os.makedirs(WORK, exist_ok=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for i in range(n_prof):
             step(i)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    prof.export_chrome_trace(trace)
+
+    kernels, wall_us = profiled(run, trace)
+    if kernels is None:
+        print(f"profiled {n_prof} train steps: device activity not measured "
+              f"({card})")
+        return dict.fromkeys(("device_ms", "profiled_ms", "kernels", "busy",
+                              "by_kernel"))
     busy_us, n_kernels = device_activity(trace)
     dev_ms = busy_us / 1e3 / n_prof
     print(f"profiled {n_prof} train steps: {n_kernels / n_prof:.1f} kernels "
@@ -835,10 +908,6 @@ def profile_steps(step, n_prof: int, trace_name: str, step_ms: float,
           f"{wall_us / 1e3 / n_prof:.3f} ms a step under the profiler (busy "
           f"share {busy_us / wall_us:.3f}); against the unprofiled step, "
           f"device busy share {dev_ms / step_ms:.3f} ({card})")
-    # device kernels only (their rows carry no CPU time), by device time
-    kernels = [a for a in prof.key_averages()
-               if a.self_device_time_total > 0 and a.self_cpu_time_total == 0]
-    kernels.sort(key=lambda a: a.self_device_time_total, reverse=True)
     for a in kernels[:12]:
         print(f"  {a.self_device_time_total / 1e3 / n_prof:8.4f} ms/step "
               f"{a.count / n_prof:6.1f}x/step  {a.key[:90]}")
@@ -1508,9 +1577,8 @@ def aa_card_against_cpu(card: str) -> None:
 
 def aa_profile(card: str) -> dict:
     """AutoAugment's device ms and kernels a B=128 batch (cifar10 policy)
-    under torch.profiler, and its event ms."""
-    from torch.profiler import ProfilerActivity, profile
-
+    under torch.profiler (None where it recorded no kernel), and its event
+    ms."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     imgs = torch.randint(0, 256, (AA_BATCH, 32, 32, 3), dtype=torch.uint8,
                          device="cuda", generator=gen)
@@ -1520,15 +1588,18 @@ def aa_profile(card: str) -> dict:
 
     ms = cuda_ms(batch, 20, 3)
     n = 10
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(n):
             batch()
-        torch.cuda.synchronize()
+
     os.makedirs(WORK, exist_ok=True)
     trace = os.path.join(WORK, "aa_trace.json")
-    prof.export_chrome_trace(trace)
+    if profiled(run, trace)[0] is None:
+        print(f"AutoAugment cifar10 B={AA_BATCH}: device activity not "
+              f"measured; {ms:.3f} ms a batch by events (windows of 20; "
+              f"{card})")
+        return {"device_ms": None, "kernels": None, "ms": ms}
     busy_us, kernels = device_activity(trace)
     out = {"device_ms": busy_us / 1e3 / n, "kernels": kernels / n, "ms": ms}
     print(f"AutoAugment cifar10 B={AA_BATCH}: {out['kernels']:.1f} kernels "
@@ -1660,12 +1731,265 @@ def full_recipe_phase(card: str, no_aa_step_ms: float) -> dict:
     prof = profile_steps(
         lambda i: train_step(state, x_train, y_train, perm, i + 3), 20,
         "recipe_trace.json", step_ms, card)
-    print(f"AutoAugment in the recipe step: {aa['kernels']:.1f} kernels and "
-          f"{aa['device_ms']:.3f} device ms a batch alone; the step "
-          f"{prof['kernels']:.1f} kernels and {prof['device_ms']:.3f} device "
-          f"ms ({card})")
+    if None not in (aa["kernels"], prof["kernels"]):
+        print(f"AutoAugment in the recipe step: {aa['kernels']:.1f} kernels "
+              f"and {aa['device_ms']:.3f} device ms a batch alone; the step "
+              f"{prof['kernels']:.1f} kernels and {prof['device_ms']:.3f} "
+              f"device ms ({card})")
     return {n: launches[n] + b1[n] + b2[n] + pre_launches[n]
             for n in launches}
+
+
+def zoo_cfg(**kw) -> Config:
+    """The default model (AEViT: 1 layer, hidden 384, ffn 768, AE hidden
+    128; bf16-mixed, B=128) on synthetic c10 from epoch 0, seed 2045."""
+    return Config(**{"seed": ZOO_SEED, "synthetic_data": True,
+                     "warmup_epoch": 0,
+                     "log_dir": os.path.join(WORK, "zoo_logs"),
+                     "ckpt_dir": os.path.join(WORK, "zoo_models"), **kw})
+
+
+def readme_cfg(**kw) -> Config:
+    """``zoo_cfg`` at the README recipe's depth and width (7 layers,
+    hidden 384, 12 heads, MLP 384, label smoothing)."""
+    return zoo_cfg(**{"num_layers": 7, "hidden": 384, "mlp_hidden": 384,
+                      "head": 12, "label_smoothing": True, **kw})
+
+
+def check_no_launch(what: str) -> None:
+    """The zoo's mixers are plain PyTorch: no attention kernel launches."""
+    launches = {n: c for n, c in _launch_counts().items() if c}
+    if launches:
+        raise AssertionError(f"{what} launched attention kernels: "
+                             f"{launches}")
+
+
+def evaluate(cfg: Config, model, raw) -> tuple[float, float]:
+    """(val_loss, val_acc) of ``model`` over the padded test set."""
+    eval_step = make_eval_step(cfg, model)
+    eb = cfg.eval_batch_size
+    x, y, mask, n = _pad_eval(raw.x_test, raw.y_test, eb)
+    x, y, mask = (torch.from_numpy(a).cuda() for a in (x, y, mask))
+    sums = torch.zeros(3, device="cuda")
+    for b in range(n):
+        sl = slice(b * eb, (b + 1) * eb)
+        out = eval_step(x[sl], y[sl], mask[sl])
+        sums += torch.stack([out["loss_sum"], out["correct_sum"],
+                             out["count"]])
+    loss, correct, count = sums.tolist()
+    return loss / count, correct / count
+
+
+def zoo_default_run(card: str, raw) -> dict:
+    """``python -m vit_cifar_torch`` with no model flag, one epoch: the
+    loss must fall from the untrained model's, which the same seed gives."""
+    argv = ["--dataset", "c10", "--synthetic-data", "--max-epochs", "1",
+            # the default warmup of 5 epochs would train epoch 0 at lr 0
+            "--warmup-epoch", "0", "--seed", str(ZOO_SEED),
+            "--log-dir", os.path.join(WORK, "zoo_logs"),
+            "--ckpt-dir", os.path.join(WORK, "zoo_models")]
+    cfg = config_from_args(argv)
+    if (cfg.model_name, cfg.num_layers, cfg.hidden, cfg.ffn_features,
+            cfg.ae_hidden_features, cfg.precision) != (
+            "ae", 1, 384, 768, 128, "bf16-mixed"):
+        raise AssertionError(f"the default config changed: {cfg}")
+    untrained, _ = get_model(cfg)
+    val0, acc0 = evaluate(cfg, untrained, raw)
+    del untrained
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    check_no_launch("the default run")
+    row = res["history"][0]
+    step_ms = row["epoch_time"] * 1e3 / TRAIN_STEPS
+    print(f"default run (AEViT, 1 layer, {res['n_params']} params) through "
+          f"`python -m vit_cifar_torch`: {seconds:.1f} s (data set-up "
+          f"included); train loss {row['loss']:.4f} (epoch mean), val_loss "
+          f"{row['val_loss']:.4f}, val_acc {row['val_acc']:.4f}, from the "
+          f"untrained model's val_loss {val0:.4f} (val_acc {acc0:.4f}); "
+          f"{step_ms:.3f} ms a step, {row['images_per_sec']:.1f} img/s "
+          f"(host clock over the epoch; {card})")
+    if not (math.isfinite(row["loss"]) and row["skipped_nonfinite"] == 0
+            and row["loss"] < val0 and row["val_loss"] < val0):
+        raise AssertionError("the default run's loss did not fall")
+    _, x, y, _, state, step, perm = training_setup(cfg, raw=raw)
+    for i in range(ZOO_WARM):
+        step(state, x, y, perm, i)
+    prof = profile_steps(lambda i: step(state, x, y, perm, i + ZOO_WARM), 20,
+                         "zoo_default_trace.json", step_ms, card)
+    return {"ms": step_ms, "img_s": row["images_per_sec"],
+            "val_acc": row["val_acc"], **prof}
+
+
+def zoo_steps(cfg: Config, raw, what: str, card: str,
+              trace: str | None = None) -> float:
+    """``ZOO_STEPS`` training steps of ``cfg`` on the card: finite losses,
+    no attention kernel; returns the ms a step after ``ZOO_WARM``.  With
+    ``trace``, 5 more steps under the profiler (``profile_steps``)."""
+    _, x, y, model, state, step, perm = training_setup(cfg, raw=raw)
+    n_params = sum(p.numel() for p in model.parameters())
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    metrics = []
+    for i in range(ZOO_STEPS):
+        if i == ZOO_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = step(state, x, y, perm, i)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (ZOO_STEPS - ZOO_WARM)
+    check_no_launch(what)
+    losses = torch.stack([m["loss"] for m in metrics]).float().cpu()
+    text = f"loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+    if "unsupervised_loss" in metrics[0]:
+        unsup = torch.stack([m["unsupervised_loss"] for m in metrics]).cpu()
+        text += f", unsupervised_loss {unsup[0]:.4f} -> {unsup[-1]:.4f}"
+        if not torch.isfinite(unsup).all():
+            raise AssertionError(f"{what}: an unsupervised loss is not finite")
+    print(f"{what}: {n_params} params, {ZOO_STEPS} steps at "
+          f"B={cfg.batch_size}, {text}; {ms:.3f} ms a step (steps "
+          f"{ZOO_WARM}-{ZOO_STEPS - 1}, host clock, synchronized; {card})")
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"{what}: a loss is not finite")
+    if trace:
+        profile_steps(lambda i: step(state, x, y, perm, ZOO_STEPS + i), 5,
+                      trace, ms, card)
+    return ms
+
+
+def zoo_card_against_cpu(raw) -> dict:
+    """One f32 step on the card and on the CPU from the same weights and
+    batch: the default model, and the heads AE (aece, 1 unsupervised step)
+    at the README depth."""
+    gaps = {}
+    for what, cfg in (
+            ("default", zoo_cfg(precision="32")),
+            ("heads", readme_cfg(ae_type="heads", unsupervised_steps=1,
+                                 criterion="aece", precision="32"))):
+        B = cfg.batch_size
+        img = normalize(torch.from_numpy(raw.x_train[:B]), cfg.mean, cfg.std)
+        label = torch.from_numpy(raw.y_train[:B])
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model, _ = get_model(cfg, device=dev)
+            tx = make_optimizer(cfg, TRAIN_STEPS)
+            state = init_state(cfg, model, tx)
+            step = make_train_step(cfg, model, tx)
+            t0 = time.perf_counter()
+            state, m = step.on_batch(state, img.to(dev), label.to(dev))
+            tensors = {"params": state.params, **state.opt_state}
+            if state.ae_opt_state is not None:
+                tensors.update({f"ae_{k}": v
+                                for k, v in state.ae_opt_state.items()})
+            out[dev] = {k: v.float().cpu() for k, v in tensors.items()
+                        if v.dim()}
+            out[dev]["loss"] = m["loss"].item()
+            out[dev]["s"] = time.perf_counter() - t0
+        gap = {k: _rel_l2(out["cuda"][k], out["cpu"][k])
+               for k in out["cpu"] if k not in ("loss", "s")}
+        limit = {k: ZOO_AE_CARD_CPU_REL_L2 if k.startswith("ae_")
+                 else ZOO_CARD_CPU_REL_L2 for k in gap}
+        print(f"card vs CPU, one f32 step of the {what} model at B={B}: loss "
+              f"{out['cuda']['loss']:.6f} vs {out['cpu']['loss']:.6f}; "
+              f"relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                          gap.items())
+              + f" (limit {ZOO_CARD_CPU_REL_L2}, {ZOO_AE_CARD_CPU_REL_L2} "
+              f"for ae_*); the CPU step took {out['cpu']['s']:.1f} s")
+        if any(gap[k] > limit[k] for k in gap):
+            raise AssertionError(f"{what}: card and CPU disagree: {gap}")
+        gaps[what] = max(gap.values())
+    return gaps
+
+
+def zoo_ce_leaves_the_ae(raw) -> None:
+    """Under ``ce``, on the card: the main update leaves the AE entries
+    exactly where the unsupervised loop wrote them (the loop run alone on
+    the same forward's inputs), and their main moments at zero."""
+    cfg = zoo_cfg(unsupervised_steps=1)
+    _, x, y, model, state, step, perm = training_setup(cfg, raw=raw)
+    img, label = step.make_batch(state, x, y, perm, 0)[:2]
+    before = state.params.clone()
+    ae_state = {k: v.clone() for k, v in state.ae_opt_state.items()}
+    with torch.no_grad():
+        model(img, deterministic=False, generator=state.generator)
+    make_unsupervised_update(cfg, model)[1](state)
+    alone = state.params.clone()
+    state.params.copy_(before)
+    state.ae_opt_state = ae_state
+    state, _ = step.on_batch(state, img, label)
+    ae = flat_mask(model, is_ae_param)
+    moved = not torch.equal(alone[ae], before[ae])
+    exact = torch.equal(state.params[ae], alone[ae])
+    zero = not any(torch.any(state.opt_state[k][ae]) for k in ("mu", "nu"))
+    print(f"ce + 1 unsupervised step on the card: the inner loop moved the "
+          f"AE's {int(ae.sum())} entries: {moved}; the step left them where "
+          f"the loop wrote them, bit for bit: {exact}; their main moments "
+          f"zero: {zero}")
+    if not (moved and exact and zero):
+        raise AssertionError("the main update moved the AE entries")
+
+
+def zoo_semi_and_resume(card: str) -> None:
+    """One ``--semi-supervised`` epoch of the default model, then an
+    unsupervised run stopped after epoch 1 and resumed, against the
+    straight run."""
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    semi = train(zoo_cfg(semi_supervised=True, max_epochs=1), verbose=False)
+    row = semi["history"][0]
+    step = load_checkpoint(semi["ckpt_dir"], prefer="last")[0]["step"]
+    print(f"--semi-supervised, one epoch: {step} steps (10 passes over the "
+          f"4,000 labeled images), loss {row['loss']:.4f}, val_acc "
+          f"{row['val_acc']:.4f}, {row['epoch_time'] * 1e3 / step:.3f} ms a "
+          f"step ({card})")
+    if step != SEMI_STEPS or not math.isfinite(row["loss"]):
+        raise AssertionError(f"--semi-supervised: {step} steps, {row}")
+    cfg = zoo_cfg(unsupervised_steps=1, max_epochs=2)
+    runs = {}
+    for name, kw, stop in (("a", {}, None), ("b1", {}, 1), ("b2", None, None)):
+        kw = {"resume": runs["b1"]["ckpt_dir"]} if kw is None else kw
+        runs[name] = train(cfg.replace(
+            ckpt_dir=os.path.join(WORK, "zoo_models", name), **kw),
+            verbose=False, stop_after=stop)
+    check_no_launch("the semi-supervised and resume runs")
+    pa, pb = (load_checkpoint(runs[n]["ckpt_dir"], prefer="last")[0]
+              for n in ("a", "b2"))
+    flat_a, flat_b = (torch.cat([t.reshape(-1) for t in p["params"].values()])
+                      for p in (pa, pb))
+    pairs = {"params": (flat_a, flat_b)}
+    for key in ("opt_state", "ae_opt_state"):
+        pairs.update({f"{key}.{k}": (pa[key][k], pb[key][k])
+                      for k in ("count", "mu", "nu")})
+    exact = {k: torch.equal(a, b) for k, (a, b) in pairs.items()}
+    print(f"unsupervised run resumed after epoch 1: step {pb['step']} as "
+          f"the straight run's {pa['step']}; equal to it: {exact}; "
+          f"unsupervised_loss of epoch 2 "
+          f"{runs['a']['history'][1]['unsupervised_loss']:.6f} vs "
+          f"{runs['b2']['history'][0]['unsupervised_loss']:.6f}")
+    if pa["step"] != pb["step"] or not all(exact.values()):
+        raise AssertionError("the resumed unsupervised run is not the "
+                             "straight run")
+
+
+def zoo_phase(card: str) -> dict:
+    shutil.rmtree(os.path.join(WORK, "zoo_models"), ignore_errors=True)
+    shutil.rmtree(os.path.join(WORK, "zoo_logs"), ignore_errors=True)
+    raw = load_dataset("c10", "data", synthetic=True)
+    out = {"default": zoo_default_run(card, raw)}
+    out["heads"] = zoo_steps(
+        readme_cfg(ae_type="heads", unsupervised_steps=1, criterion="aece"),
+        raw, "AEViT heads (chunked eye mask), 7 layers, 12 heads, aece, 1 "
+        "unsupervised step", card, trace="zoo_heads_trace.json")
+    out["card_vs_cpu"] = zoo_card_against_cpu(raw)
+    zoo_ce_leaves_the_ae(raw)
+    for name in ZOO_MIXERS:
+        out[name] = zoo_steps(readme_cfg(model_name=name), raw,
+                              f"{name}, 7 layers, README width", card)
+    zoo_semi_and_resume(card)
+    return out
 
 
 def main() -> None:
@@ -1693,6 +2017,8 @@ def main() -> None:
     paths = [{"mhsa_fwd": serving_phase(card)}, train_launches,
              pixel_serving_phase(card), pixel_training_phase(card),
              wide_head_phase(card), full_recipe_phase(card, no_aa_step_ms)]
+    # last: the zoo, which launches none of the attention kernels
+    zoo_phase(card)
     for row in rows:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
         if row["launches"] < 1:

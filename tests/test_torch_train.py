@@ -106,11 +106,6 @@ def test_label_smoothing_is_not_torchs():
     assert not torch.allclose(ours, torchs)
 
 
-def test_aece_criterion_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlosses.make_criterion(tconfig.Config(criterion="aece"))
-
-
 # -- schedule and optimizers ------------------------------------------------
 
 @pytest.mark.parametrize("warmup", [0, 1, 5])
@@ -443,7 +438,8 @@ def test_train_step_with_batch_mixing(mix):
     assert int(state.opt_state["count"]) == 4
 
 
-@pytest.mark.parametrize("kw", [dict(model_name="ae"), dict(moe_experts=2),
+@pytest.mark.parametrize("kw", [dict(model_name="gnnmf_sbs"),
+                                dict(moe_experts=2),
                                 dict(use_nnmf_layers=True)],
                          ids=lambda kw: next(iter(kw)))
 def test_unported_step_branches_raise(kw):

@@ -133,7 +133,7 @@ def test_state_dict_round_trip_and_param_count():
     sd = tmodel.state_dict()
     assert sum(v.numel() for v in sd.values()) == 6_268_810
     assert len(sd) == 120
-    back = flax_from_state_dict(sd)
+    back = flax_from_state_dict(tmodel, sd)
     flat = jax.tree_util.tree_leaves_with_path(params)
     assert len(flat) == 120
     for path, leaf in flat:
@@ -143,11 +143,23 @@ def test_state_dict_round_trip_and_param_count():
         np.testing.assert_array_equal(node, np.asarray(leaf))
 
 
-@pytest.mark.parametrize("name", [n for n in jconfig.MODEL_NAMES if n != "vit"]
-                         + ["no_such_model"])
+PORTED = ("vit", "ae", "ae_baseline", "aftfull", "aftsimple", "gmlp", "wgmlp",
+          "linear")
+
+
+@pytest.mark.parametrize("name", [n for n in jconfig.MODEL_NAMES
+                                  if n not in PORTED] + ["no_such_model"])
 def test_get_model_raises_for_models_not_ported(name):
     with pytest.raises(NotImplementedError):
         get_model(tconfig.Config(model_name=name), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(use_nnmf_layers=True),
+                                dict(moe_experts=2)],
+                         ids=lambda kw: next(iter(kw)))
+def test_get_model_raises_for_options_not_ported(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_model(tconfig.Config(**kw), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(seq_pad=1),

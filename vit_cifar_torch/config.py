@@ -187,6 +187,11 @@ class Config:
     def std(self) -> tuple[float, ...]:
         return DATASET_INFO[self.dataset]["std"]
 
+    @property
+    def seq_len(self) -> int:
+        # main.py:184
+        return self.patch**2 + 1 if self.is_cls_token else self.patch**2
+
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 

@@ -132,3 +132,30 @@ def load_dataset(dataset: str, data_dir: str = "data",
               f"{data_dir!r} -- using deterministic synthetic data with "
               "identical shapes.")
     return _synthetic(dataset)
+
+
+def semi_supervised_split(raw: RawData, n_valid: int = 500,
+                          n_labeled: int = 400) -> dict:
+    """Per-class quota split in dataset order (datasets.py:116-133): the
+    first ``n_valid`` images of each class are "valid", the next
+    ``n_labeled`` "labeled", the rest "unlabeled", with -1 labels (the
+    reference means to set them, but its line is a no-op expression,
+    datasets.py:215).  Returns {"labeled": (x, y), "valid": (x, y),
+    "unlabeled": (x, -1), "test": (x, y)}."""
+    y = np.asarray(raw.y_train)
+    # each image's rank among the images of its class, in dataset order
+    order = np.argsort(y, kind="stable")
+    rank = np.empty(len(y), np.int64)
+    starts = np.searchsorted(y[order], y[order])
+    rank[order] = np.arange(len(y)) - starts
+    split = np.where(rank < n_valid, 0, np.where(rank < n_valid + n_labeled,
+                                                 1, 2))
+    out = {}
+    for sid, name in ((1, "labeled"), (0, "valid"), (2, "unlabeled")):
+        m = split == sid
+        labels = y[m].copy()
+        if name == "unlabeled":
+            labels[:] = -1
+        out[name] = (raw.x_train[m], labels)
+    out["test"] = (raw.x_test, raw.y_test)
+    return out

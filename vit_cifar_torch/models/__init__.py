@@ -1,8 +1,16 @@
 """Model factory: ``get_model(cfg) -> (model, can_learn_unsupervised)``, as
-``vit_cifar_tpu/models/__init__.py``.
+``vit_cifar_tpu/models/__init__.py``: one ViT trunk and a registry of token
+mixers.
 
-Only ``vit`` is ported so far.  Every other model of the zoo raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+Ported: ``vit``, ``ae`` (``AEAttention``, or ``AEAttentionHeads`` for
+``ae_type="heads"`` without ``--legacy-heads``), ``ae_baseline``,
+``aftfull``, ``aftsimple``, ``gmlp``, ``wgmlp`` and ``linear``.  The JAX
+factory's deviations from reference bugs are kept: AFT's head is pinned to 1
+(the reference crashes for head > 1, layers.py:128), AFT-Simple's gate is
+always on (layers.py:233), and ``ae_baseline`` is the working equivalent of
+the reference's crashing model.  Every other name, ``--moe-experts`` and
+``--use-nnmf-layers`` raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -12,10 +20,72 @@ import functools
 import torch
 
 from ..config import MODEL_NAMES, Config, torch_dtype
+from ..ops.ae_attention import (AEAttention, AEAttentionHeads,
+                                BaselineAEAttention)
+from ..ops.aft import AFT
 from ..ops.attention import MultiHeadSelfAttention
+from ..ops.autoencoders import NNMF_ITEM
+from ..ops.gmlp import GatedMLP, LinearAttention, WeightGatedMLP
 from .vit import ViT
 
-_ZOO_ITEM = "ROADMAP queue 1, item 7 (zoo mixers)"
+_HAMBURGER_ITEM = "ROADMAP queue 1, item 7 (zoo mixers: hamburger)"
+_CNN_ITEM = "ROADMAP queue 1, item 7 (zoo mixers: CNN and BatchNorm)"
+_MOE_ITEM = "ROADMAP queue 1, item 7 (zoo mixers: MoE)"
+_UNPORTED = {
+    "hamburger": _HAMBURGER_ITEM, "hamburger_attention": _HAMBURGER_ITEM,
+    "gnnmf_ham": NNMF_ITEM, "gnnmf_sbs": NNMF_ITEM, "gnnmf_sbsed": NNMF_ITEM,
+    "lgcnn": _CNN_ITEM, "wlgcnn": _CNN_ITEM, "cnn_baseline": _CNN_ITEM,
+}
+AFT_MODES = {"aftfull": "full", "aftsimple": "simple"}
+
+
+def _make_mixer(cfg: Config, dtype: torch.dtype, generator, device):
+    """The mixer factory of ``cfg.model_name``, with the factory arguments
+    of the JAX package's ``_make_mixer``."""
+    name, h = cfg.model_name, cfg.hidden
+    common = dict(generator=generator, dtype=dtype, device=device)
+    if name == "vit":
+        return functools.partial(
+            MultiHeadSelfAttention, h, cfg.head, cfg.dropout,
+            save_attn_map=cfg.save_attn_map,
+            pallas_kernel=cfg.pallas_kernel or None, **common)
+    if name in AFT_MODES:
+        return functools.partial(
+            AFT, h, cfg.seq_len, mode=AFT_MODES[name],
+            factorize=cfg.factorize,
+            factorization_dimension=cfg.factorization_dimension,
+            head=1,  # pinned: the reference's AFT crashes for head > 1
+            dropout=cfg.dropout,
+            # the encoder never forwards --no-query to AFTSimple
+            query=cfg.query if name == "aftfull" else True, **common)
+    gated = {"gmlp": GatedMLP, "wgmlp": WeightGatedMLP,
+             "linear": LinearAttention}
+    if name in gated:
+        return functools.partial(gated[name], h, cfg.ffn_features,
+                                 cfg.seq_len, **common)
+    if name == "ae":
+        if cfg.ae_type == "heads" and not cfg.legacy_heads:
+            return functools.partial(
+                AEAttentionHeads, h, cfg.seq_len, cfg.ffn_features,
+                heads=cfg.head, ae_hidden_seq_len=cfg.ae_hidden_seq_len,
+                mask_type=cfg.mask_type, chunk=cfg.chunk,
+                use_nnmf_layers=cfg.use_nnmf_layers,
+                save_attn_map=cfg.save_attn_map,
+                mask_chunk=cfg.ae_mask_chunk, **common)
+        return functools.partial(
+            AEAttention, h, cfg.seq_len, cfg.ffn_features, head=cfg.head,
+            ae_type=cfg.ae_type, ae_hidden_features=cfg.ae_hidden_features,
+            ae_hidden_seq_len=cfg.ae_hidden_seq_len, order_2d=cfg.order_2d,
+            mask_type=cfg.mask_type, chunk=cfg.chunk,
+            legacy_heads=cfg.legacy_heads,
+            use_nnmf_layers=cfg.use_nnmf_layers,
+            save_attn_map=cfg.save_attn_map, **common)
+    if name == "ae_baseline":
+        return functools.partial(
+            BaselineAEAttention, h, cfg.seq_len, cfg.ffn_features,
+            ae_hidden_features=cfg.ae_hidden_features,
+            save_attn_map=cfg.save_attn_map, **common)
+    raise NotImplementedError(f"{name} is not implemented yet...")
 
 
 def get_model(cfg: Config, *, device="cuda",
@@ -30,24 +100,28 @@ def get_model(cfg: Config, *, device="cuda",
     name = cfg.model_name
     if name not in MODEL_NAMES:
         raise NotImplementedError(f"{name} is not implemented yet...")
-    if name != "vit":
+    if name in _UNPORTED:
         raise NotImplementedError(
-            f"model {name!r} is not ported to torch yet: {_ZOO_ITEM}")
+            f"model {name!r} is not ported to torch yet: {_UNPORTED[name]}")
     if cfg.moe_experts > 0:
         raise NotImplementedError(
-            f"--moe-experts is not ported to torch yet: {_ZOO_ITEM}")
+            f"--moe-experts is not ported to torch yet: {_MOE_ITEM}")
+    if cfg.use_nnmf_layers:
+        raise NotImplementedError(
+            f"--use-nnmf-layers is not ported to torch yet: {NNMF_ITEM}")
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     dtype = torch_dtype(cfg)
-    mixer = functools.partial(
-        MultiHeadSelfAttention, cfg.hidden, cfg.head, cfg.dropout,
-        generator=generator, dtype=dtype, save_attn_map=cfg.save_attn_map,
-        pallas_kernel=cfg.pallas_kernel or None, device=device)
     model = ViT(
-        mixer, num_classes=cfg.num_classes, img_size=cfg.img_size,
+        _make_mixer(cfg, dtype, generator, device),
+        num_classes=cfg.num_classes, img_size=cfg.img_size,
         patch=cfg.patch, num_layers=cfg.num_layers, hidden=cfg.hidden,
         mlp_hidden=cfg.mlp_hidden, dropout=cfg.dropout,
         use_encoder_mlp=cfg.use_encoder_mlp, is_cls_token=cfg.is_cls_token,
-        in_c=cfg.in_c, generator=generator, dtype=dtype, device=device,
-        remat=cfg.remat)
-    return model, False
+        in_c=cfg.in_c,
+        # the plain ViT has no pos_emb flag (reference vit.py:19-48); every
+        # other transformer model takes it
+        pos_emb=True if name == "vit" else cfg.pos_emb,
+        generator=generator, dtype=dtype, device=device, remat=cfg.remat)
+    # only the AEViT can learn unsupervised (reference utils.py:279)
+    return model, name == "ae"

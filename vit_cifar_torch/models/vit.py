@@ -5,6 +5,10 @@ patchify (NHWC) -> ``emb`` -> cls token (broadcast, cast) -> + ``pos_emb``
 ``fc_norm`` -> ``fc``.  Parameter names are the flax names, so carrying
 weights across is a transpose and a rename (``utils/transplant.py``).
 
+``pos_emb=False`` (reachable from the non-``vit`` models only) freezes the
+embedding at zeros: there is no parameter and nothing is added (reference
+vit.py:143-144).
+
 ``remat`` recomputes each encoder block in the backward
 (``torch.utils.checkpoint``) instead of keeping its activations, as the JAX
 package's ``nn.remat`` does.
@@ -28,7 +32,8 @@ class ViT(nn.Module):
                  img_size: int = 32, patch: int = 8, num_layers: int = 7,
                  hidden: int = 384, mlp_hidden: int = 384,
                  dropout: float = 0.0, use_encoder_mlp: bool = True,
-                 is_cls_token: bool = True, in_c: int = 3, *,
+                 is_cls_token: bool = True, in_c: int = 3,
+                 pos_emb: bool = True, *,
                  generator: torch.Generator,
                  dtype: torch.dtype = torch.float32, device=None,
                  remat: bool = False, seq_pad: int = 0, act_constraint=None,
@@ -51,7 +56,8 @@ class ViT(nn.Module):
             self.cls_token = nn.Parameter(
                 normal((1, 1, hidden), generator).to(device))
             seq += 1
-        self.pos_emb = nn.Parameter(normal((1, seq, hidden), generator).to(device))
+        self.pos_emb = nn.Parameter(normal((1, seq, hidden), generator).to(
+            device)) if pos_emb else None
         for i in range(num_layers):
             self.add_module(f"enc{i}", EncoderBlock(
                 hidden, mlp_hidden, mixer, use_encoder_mlp, dropout,
@@ -69,7 +75,8 @@ class ViT(nn.Module):
         if self.is_cls_token:
             cls = self.cls_token.to(self.dtype).expand(out.shape[0], 1, -1)
             out = torch.cat([cls, out], dim=1)
-        out = out + self.pos_emb.to(self.dtype)
+        if self.pos_emb is not None:
+            out = out + self.pos_emb.to(self.dtype)
         for i in range(self.num_layers):
             block = getattr(self, f"enc{i}")
             if self.remat and torch.is_grad_enabled():

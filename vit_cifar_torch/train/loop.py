@@ -24,7 +24,15 @@ Not written by the port's loop: the model-graph artifacts and the input
 grid image of the JAX loop; they come with the analysis tools (ROADMAP
 queue 1, item 9).  What the port has no model for raises
 ``NotImplementedError`` naming its ROADMAP item: a mesh of more than one
-device and multihost runs, ``--semi-supervised`` and the zoo.  The TPU
+device, multihost runs, and the zoo models not yet ported.
+
+``--semi-supervised`` (c10 only, utils.py:404-416) trains on the
+400-per-class labeled split of ``semi_supervised_split``; with
+``ss_combined_epoch`` an epoch runs |unlabeled| // |labeled| passes over
+it, each with its own permutation (the reference's CombinedLoader is paced
+by the larger loader, utils.py:419-436), and the schedule counts those
+steps as the epoch's.  The unlabeled batches feed a no-op hook in the
+reference (network.py:213-214), so nothing is computed for them.  The TPU
 relay's knobs (``compile_cache_dir``, ``donate_buffers``) and the switches
 of paths the port always takes (``device_data``, ``flat_optimizer``,
 ``use_pallas``) are accepted and ignored, and the JAX step's
@@ -43,7 +51,7 @@ import torch
 from ..config import Config, torch_dtype
 from ..data.augment import augment_dataset, normalize
 from ..data.autoaugment import policy_for_dataset
-from ..data.datasets import load_dataset
+from ..data.datasets import load_dataset, semi_supervised_split
 from ..models import get_model
 from ..utils.logging import get_experiment_name, make_logger
 from ..utils.observability import (get_layer_outputs, log_histograms,
@@ -53,9 +61,9 @@ from .optim import (FlatOptimizer, flatten_params, make_optimizer,
                     warmup_cosine_epoch_schedule)
 from .state import TrainState
 from .steps import make_eval_step, make_metrics_zeros, make_train_step
+from .unsupervised import make_unsupervised_update, uses_unsupervised
 
 _PARALLEL_ITEM = "ROADMAP queue 1, item 8 (parallel modes)"
-_ZOO_ITEM = "ROADMAP queue 1, item 7 (zoo mixers)"
 
 
 def count_params(model: torch.nn.Module) -> int:
@@ -65,13 +73,17 @@ def count_params(model: torch.nn.Module) -> int:
 def init_state(cfg: Config, model: torch.nn.Module,
                tx: FlatOptimizer) -> TrainState:
     """The state of a fresh run: ``model``'s parameters become views of one
-    flat f32 vector on their device, the optimizer state starts at zero,
-    and every random draw of the steps comes from a generator on that
-    device seeded with ``cfg.seed``."""
+    flat f32 vector on their device, the optimizer states (the AE-internal
+    one too, with ``--unsupervised-steps``) start at zero, and every random
+    draw of the steps comes from a generator on that device seeded with
+    ``cfg.seed``."""
     params = flatten_params(model)
     gen = torch.Generator(device=params.device).manual_seed(cfg.seed)
+    ae_opt_state = (make_unsupervised_update(cfg, model)[0](params)
+                    if uses_unsupervised(cfg) else None)
     return TrainState(step=0, model=model, params=params,
-                      opt_state=tx.init(params), generator=gen)
+                      opt_state=tx.init(params), generator=gen,
+                      ae_opt_state=ae_opt_state)
 
 
 def _full_payload(state: TrainState, epoch: int,
@@ -79,20 +91,27 @@ def _full_payload(state: TrainState, epoch: int,
     """Everything a resumed run needs, as Lightning's checkpoints embed the
     optimizer and scheduler state: the weights (named views of one copy of
     the flat vector, so they are stored once and load as the model's state
-    dict), the optimizer state (count and moments), the step, the epoch,
-    the best val_loss and the generator's state.  The lr needs no state of
-    its own: the schedule is a function of the restored count."""
+    dict), the optimizer state (count and moments) and the AE-internal
+    one where there is one, the step, the epoch, the best val_loss and the
+    generator's state.  The lr needs no state of its own: the schedule is a
+    function of the restored count."""
     flat = state.params.detach().to("cpu", copy=True)
     params, offset = {}, 0
     for name, p in state.model.named_parameters():
         params[name] = flat[offset:offset + p.numel()].view(p.shape)
         offset += p.numel()
-    return {"params": params,
-            "opt_state": {k: v.detach().to("cpu", copy=True)
-                          for k, v in state.opt_state.items()},
-            "step": state.step, "epoch": epoch,
-            "best_val_loss": float(best_val_loss),
-            "generator": state.generator.get_state()}
+    payload = {"params": params,
+               "opt_state": _to_cpu(state.opt_state),
+               "step": state.step, "epoch": epoch,
+               "best_val_loss": float(best_val_loss),
+               "generator": state.generator.get_state()}
+    if state.ae_opt_state is not None:
+        payload["ae_opt_state"] = _to_cpu(state.ae_opt_state)
+    return payload
+
+
+def _to_cpu(tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
 def _restore_state(cfg: Config, state: TrainState):
@@ -105,6 +124,9 @@ def _restore_state(cfg: Config, state: TrainState):
             payload["params"][name].reshape(-1)
             for name, _ in state.model.named_parameters()]))
     state.opt_state = {k: v.to(dev) for k, v in payload["opt_state"].items()}
+    if "ae_opt_state" in payload:
+        state.ae_opt_state = {k: v.to(dev)
+                              for k, v in payload["ae_opt_state"].items()}
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     return state, int(payload["epoch"]) + 1
@@ -129,9 +151,10 @@ def _check_run_supported(cfg: Config) -> None:
             f"training over more than one device (mesh {cfg.mesh_shape}, "
             f"multihost {cfg.multihost}) is not ported to torch yet: "
             f"{_PARALLEL_ITEM}")
-    if cfg.semi_supervised:
+    if cfg.semi_supervised and cfg.dataset != "c10":
+        # parity: only c10 is implemented (utils.py:404-416)
         raise NotImplementedError(
-            f"--semi-supervised is not ported to torch yet: {_ZOO_ITEM}")
+            f"{cfg.dataset} is not implemented yet for semi-supervised.")
 
 
 def train(cfg: Config, verbose: bool = True, stop_after: int | None = None,
@@ -156,13 +179,25 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
            device: torch.device) -> dict[str, Any]:
     _check_run_supported(cfg)
     raw = load_dataset(cfg.dataset, cfg.data_dir, cfg.synthetic_data)
+    train_x, train_y, test_x, test_y = (raw.x_train, raw.y_train,
+                                        raw.x_test, raw.y_test)
+    epoch_passes = 1
+    if cfg.semi_supervised:
+        splits = semi_supervised_split(raw)
+        train_x, train_y = splits["labeled"]
+        test_x, test_y = splits["test"]
+        if cfg.ss_combined_epoch:
+            epoch_passes = max(1, len(splits["unlabeled"][0]) // len(train_x))
     experiment = get_experiment_name(cfg)
     logger = make_logger(cfg, experiment)
     logger.log_text("config.json", cfg.to_json())
 
     model, _ = get_model(cfg, device=device)
-    steps_per_epoch = len(raw.x_train) // cfg.batch_size
-    tx = make_optimizer(cfg, steps_per_epoch)
+    steps_per_epoch = len(train_x) // cfg.batch_size
+    # the schedule's epoch is count // sched_steps: the optimizer steps of
+    # a whole epoch, all its passes
+    sched_steps = steps_per_epoch * epoch_passes
+    tx = make_optimizer(cfg, sched_steps)
     state = init_state(cfg, model, tx)
     start_epoch = 0
     if cfg.resume:
@@ -180,10 +215,9 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
     if verbose:
         print(summary)
 
-    x_train = torch.from_numpy(raw.x_train).to(device)
-    y_train = torch.from_numpy(raw.y_train).to(device)
-    *test, eval_steps = _pad_eval(raw.x_test, raw.y_test,
-                                  cfg.eval_batch_size)
+    x_train = torch.from_numpy(train_x).to(device)
+    y_train = torch.from_numpy(train_y).to(device)
+    *test, eval_steps = _pad_eval(test_x, test_y, cfg.eval_batch_size)
     x_test, y_test, eval_mask = (torch.from_numpy(a).to(device) for a in test)
     state.metrics_acc = make_metrics_zeros(cfg, device)
 
@@ -194,8 +228,9 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
                                  pre_augmented=cfg.preaugment_epoch)
     eval_step = make_eval_step(cfg, model)
     aa_policy = policy_for_dataset(cfg.dataset) if cfg.autoaugment else None
+    passes = 1 if cfg.dry_run else epoch_passes
     lr_sched = warmup_cosine_epoch_schedule(
-        cfg.lr, cfg.min_lr, cfg.warmup_epoch, cfg.max_epochs, steps_per_epoch)
+        cfg.lr, cfg.min_lr, cfg.warmup_epoch, cfg.max_epochs, sched_steps)
     # the fixed 10-image probe of the layer-output histograms (main.py:
     # 187-194, ``_sample_input_data``)
     probe_img = normalize(x_train[:10], cfg.mean, cfg.std).to(
@@ -237,28 +272,36 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
                                       autoaugment_policy=aa_policy)
         # one steady epoch under the profiler
         profiled = bool(cfg.profile_dir) and epoch == min(1, max_epochs - 1)
+        n_steps = epoch_steps * passes
         with profile_trace(cfg.profile_dir if profiled else ""):
-            for i in range(epoch_steps):
-                gstep = epoch * epoch_steps + i
-                if (cfg.log_gradients and not cfg.dry_run
-                        and gstep % cfg.log_gradients_interval == 0):
-                    # the very gradients of this step: the generator is
-                    # rewound so that the step draws the same batch
-                    rewind = state.generator.get_state()
-                    batch = train_step.make_batch(state, x_epoch, y_train,
-                                                  perm, i)
-                    grads = train_step.loss_and_grads(state, *batch)[2]
-                    state.generator.set_state(rewind)
-                    log_histograms(logger, dict(zip(names, grads)), "grads",
-                                   gstep, epoch)
-                state, _ = train_step(state, x_epoch, y_train, perm, i)
+            # passes > 1 only under semi-supervised pacing: the labeled
+            # split again, with a new permutation
+            for p in range(passes):
+                if p:
+                    perm = torch.randperm(len(x_train),
+                                          generator=state.generator,
+                                          device=device)
+                for i in range(epoch_steps):
+                    gstep = (epoch * passes + p) * epoch_steps + i
+                    if (cfg.log_gradients and not cfg.dry_run
+                            and gstep % cfg.log_gradients_interval == 0):
+                        # the very gradients of this step: the generator
+                        # is rewound so that the step draws the same batch
+                        rewind = state.generator.get_state()
+                        batch = train_step.make_batch(state, x_epoch,
+                                                      y_train, perm, i)
+                        grads = train_step.loss_and_grads(state, *batch)[2]
+                        state.generator.set_state(rewind)
+                        log_histograms(logger, dict(zip(names, grads)),
+                                       "grads", gstep, epoch)
+                    state, _ = train_step(state, x_epoch, y_train, perm, i)
             # epoch means of the metrics the step accumulates; also syncs
             keys = list(state.metrics_acc)
             sums = torch.stack([state.metrics_acc[k] for k in keys]).tolist()
-        metrics = {k: v / epoch_steps for k, v in zip(keys, sums)}
+        metrics = {k: v / n_steps for k, v in zip(keys, sums)}
         state.metrics_acc = {k: torch.zeros_like(v)
                              for k, v in state.metrics_acc.items()}
-        images_seen += epoch_steps * cfg.batch_size
+        images_seen += n_steps * cfg.batch_size
         ep_time = time.time() - t_ep
 
         t_eval = time.time()
@@ -277,15 +320,16 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
             except Exception as e:  # the reference's IndexError fallback
                 print(f"[vit_cifar_torch] layer-output histograms failed: "
                       f"{e}")
-        lr_now = float(lr_sched(torch.tensor(epoch * steps_per_epoch + 1)))
+        lr_now = float(lr_sched(torch.tensor(epoch * sched_steps + 1)))
         row = dict(
             loss=metrics["loss"], acc=metrics["acc"], val_loss=val_loss,
             val_acc=val_acc, lr_0=lr_now, epoch_time=round(ep_time, 3),
             eval_time=round(eval_time, 3),
             images_per_sec=round(
-                epoch_steps * cfg.batch_size / max(ep_time, 1e-9), 1))
-        if "skipped_nonfinite" in metrics:
-            row["skipped_nonfinite"] = metrics["skipped_nonfinite"]
+                n_steps * cfg.batch_size / max(ep_time, 1e-9), 1))
+        for k in ("unsupervised_loss", "skipped_nonfinite"):
+            if k in metrics:
+                row[k] = metrics[k]
         history.append(row)
         logger.log(state.step, epoch, **row)
         logger.flush()

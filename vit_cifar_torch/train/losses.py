@@ -4,8 +4,14 @@
 the off-target mass is ``smoothing/(classes-1)`` and the target gets
 ``1-smoothing``.  torch's ``cross_entropy(label_smoothing=...)`` puts
 ``smoothing/classes`` on every class, so it is not used.  Logits are taken
-to f32 before the log-softmax.  The ``aece`` criterion (the sparse
-autoencoder term) comes with the AE models.
+to f32 before the log-softmax.
+
+``aece`` (criterions.py:22-61) is plain CE plus a sparse-autoencoder term
+per AE block: ``MSE(out, in) + l1_reg * L1``, where L1 always holds
+``L1(out, in)`` and, with ``aece_l1_outputs``, the L1-to-zero of the hidden
+and output activations.  The AE tensors arrive as ``aux["ae"]``, a list of
+(hidden, input, output) triples that the train step collects from the AE
+mixers after the forward.
 """
 
 from __future__ import annotations
@@ -14,8 +20,6 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config
-
-_ZOO_ITEM = "ROADMAP queue 1, item 7 (zoo mixers)"
 
 
 def _smoothed_nll(logp: torch.Tensor, labels: torch.Tensor,
@@ -44,6 +48,19 @@ def label_smoothing_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(_smoothed_nll(logp, labels, smoothing))
 
 
+def sparse_autoencoder_loss(ae_hidden, ae_input, ae_output,
+                            l1_regularization: float,
+                            l1_outputs: bool) -> torch.Tensor:
+    """criterions.py:48-61, in f32."""
+    hidden, inp, out = (t.to(torch.float32)
+                        for t in (ae_hidden, ae_input, ae_output))
+    mse = torch.mean((out - inp) ** 2)
+    l1 = torch.mean(torch.abs(out - inp))
+    if l1_outputs:
+        l1 = l1 + torch.mean(torch.abs(hidden)) + torch.mean(torch.abs(out))
+    return mse + l1_regularization * l1
+
+
 def make_per_example_loss(cfg: Config):
     """Per-example criterion for the masked eval sums (plain CE under
     ``aece``, as in the JAX package)."""
@@ -70,7 +87,16 @@ def make_criterion(cfg: Config):
                 return cross_entropy(logits, labels)
         return ce
     if cfg.criterion == "aece":
-        raise NotImplementedError(
-            f"criterion 'aece' is not ported to torch yet: it needs the AE "
-            f"models, {_ZOO_ITEM}")
+        def aece(logits, labels, aux=None):
+            loss = cross_entropy(logits, labels)
+            ae_terms = (aux or {}).get("ae", [])
+            if not ae_terms:
+                raise ValueError(
+                    "the aece criterion needs a model exposing AE tensors")
+            for hidden, inp, out in ae_terms:
+                loss = loss + sparse_autoencoder_loss(
+                    hidden, inp, out, cfg.aece_l1_regularization,
+                    cfg.aece_l1_outputs)
+            return loss
+        return aece
     raise NotImplementedError(f"Unknown criterion: {cfg.criterion}")

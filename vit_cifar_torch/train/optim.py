@@ -26,6 +26,13 @@ with a ``torch.where`` and no host read:
 The schedule's count lives in the optimizer state, as in optax, so a step
 that the guard skips rolls it back with the moments: the lr follows the
 count of applied updates, not the step counter.
+
+``frozen_mask`` is the JAX package's ``main_optimizer_frozen_fn`` on the
+flat vector: torch's optimizers skip a parameter whose ``.grad`` is None,
+and under ``ae`` + ``ce`` the AE and (except heads without ``--chunk``)
+``norm1`` have no gradient path.  Their gradients are zeros here; the train
+step also zeroes their entries of the parameters it hands the decay term,
+so that their update is exactly zero and their moments stay zero.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from torch import nn
 
 from ..config import Config
 
-_ZOO_ITEM = "ROADMAP queue 1, item 7 (zoo mixers)"
+_MADAM_ITEM = "ROADMAP queue 1, item 7 (zoo mixers: NNMF, Madam, gated_nnmf)"
 
 
 def warmup_cosine_epoch_schedule(base_lr: float, min_lr: float,
@@ -84,7 +91,35 @@ def flatten_params(model: nn.Module) -> torch.Tensor:
     return flat
 
 
-def _adam(schedule, b1: float, b2: float, eps: float, weight_decay: float):
+def frozen_mask(cfg: Config, model: nn.Module) -> torch.Tensor | None:
+    """A bool vector over the flat parameters, True where the main
+    optimizer must leave an entry alone (see the module docstring); None
+    where it leaves none alone."""
+    if cfg.model_name != "ae" or cfg.criterion == "aece":
+        return None
+    norm1_has_path = (cfg.ae_type == "heads" and not cfg.legacy_heads
+                      and not cfg.chunk)
+    frozen = ("AE",) if norm1_has_path else ("AE", "norm1")
+
+    def is_frozen(name: str) -> bool:
+        parts = name.split(".")
+        return any(a == "mixer" and b in frozen
+                   for a, b in zip(parts, parts[1:]))
+
+    mask = flat_mask(model, is_frozen)
+    return mask if bool(mask.any()) else None
+
+
+def flat_mask(model: nn.Module, select: Callable[[str], bool]) -> torch.Tensor:
+    """A bool vector over ``model``'s flat parameters (``flatten_params``
+    order), True at the entries of the parameters whose name ``select``
+    takes."""
+    return torch.cat([
+        torch.full((p.numel(),), select(n), dtype=torch.bool,
+                   device=p.device) for n, p in model.named_parameters()])
+
+
+def adam(schedule, b1: float, b2: float, eps: float, weight_decay: float):
     def init(params):
         return {"count": torch.zeros((), dtype=torch.int32,
                                      device=params.device),
@@ -123,11 +158,11 @@ def make_optimizer(cfg: Config, steps_per_epoch: int) -> FlatOptimizer:
     schedule = warmup_cosine_epoch_schedule(
         cfg.lr, cfg.min_lr, cfg.warmup_epoch, cfg.max_epochs, steps_per_epoch)
     if cfg.optimizer == "adam":
-        return _adam(schedule, cfg.beta1, cfg.beta2, 1e-8, cfg.weight_decay)
+        return adam(schedule, cfg.beta1, cfg.beta2, 1e-8, cfg.weight_decay)
     if cfg.optimizer == "sgd":
         return _sgd(schedule, cfg.beta1, cfg.weight_decay)
     if cfg.optimizer == "madam":
         raise NotImplementedError(
             f"optimizer 'madam' is not ported to torch yet: it comes with "
-            f"the NNMF models, {_ZOO_ITEM}")
+            f"the NNMF models, {_MADAM_ITEM}")
     raise NotImplementedError(f"Unknown optimizer: {cfg.optimizer}")

@@ -21,6 +21,8 @@ class TrainState:
     params: torch.Tensor  # flat f32 master weights (optim.flatten_params)
     opt_state: dict[str, torch.Tensor]  # the optimizer's, count included
     generator: torch.Generator  # every random draw of the step, on device
+    # the AE-internal optimizer's (train/unsupervised.py), or None
+    ae_opt_state: dict[str, torch.Tensor] | None = None
     # running per-epoch metric sums, accumulated on the device inside the
     # step; None when the caller does not want accumulation
     metrics_acc: dict[str, torch.Tensor] | None = None

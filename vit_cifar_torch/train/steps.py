@@ -21,6 +21,15 @@ Parity details (reference network.py:149-220, 388-395):
     parameters, both moments and the optimizer's count (hence the lr) keep
     their old values.
 
+The AE family (JAX :32-50, :232-262): the forward's AE tensors, collected
+from the mixers, feed the ``aece`` criterion; with ``--unsupervised-steps``
+the AE-internal steps run BEFORE the main update, which is computed from the
+forward's gradients and added on top of the AE-updated values.  Parameters
+outside the loss's graph (the AE and ``norm1`` under ``ce``: z and the
+softmax are detached) get zero gradients, and under ``ae`` + ``ce`` the
+decay term sees those entries as zero (``optim.frozen_mask``), so that the
+main update leaves them exactly where the AE steps put them.
+
 The batch is a seam: ``train_step.make_batch`` gathers and augments, and
 ``train_step.on_batch`` trains on a batch it is handed, so a test can feed
 it the JAX package's augmented batch.  ``train_step.loss_and_grads`` is the
@@ -38,35 +47,35 @@ from ..config import Config, torch_dtype
 from ..data import augment
 from ..data.autoaugment import autoaugment_batch, policy_for_dataset
 from .losses import make_criterion, make_per_example_loss
-from .optim import FlatOptimizer
+from .optim import FlatOptimizer, frozen_mask
 from .state import TrainState
-
-_ZOO_ITEM = "ROADMAP queue 1, item 7 (zoo mixers)"
-
+from .unsupervised import (collect_ae_terms, make_unsupervised_update,
+                           uses_unsupervised)
 
 def _check_supported(cfg: Config) -> None:
     """The branches of the JAX step that the port has no model for yet."""
-    zoo = {
-        "AE models and the aece criterion": cfg.model_name.startswith("ae")
-        or cfg.criterion == "aece",
-        "unsupervised AE steps": cfg.unsupervised_steps > 0,
-        "MoE": cfg.moe_experts > 0,
-        "NNMF layers": cfg.use_nnmf_layers or cfg.model_name.startswith(
-            "gnnmf"),
+    unported = {
+        "MoE": (cfg.moe_experts > 0, "MoE"),
+        "NNMF layers": (cfg.use_nnmf_layers
+                        or cfg.model_name.startswith("gnnmf"),
+                        "NNMF, Madam, gated_nnmf"),
     }
-    for what, on in zoo.items():
+    for what, (on, item) in unported.items():
         if on:
             raise NotImplementedError(
                 f"the train step for {what} is not ported to torch yet: "
-                f"{_ZOO_ITEM}")
+                f"ROADMAP queue 1, item 7 (zoo mixers: {item})")
 
 
 def make_metrics_zeros(cfg: Config,
                        device="cuda") -> dict[str, torch.Tensor]:
     """Zero accumulator matching the train step's metrics, on ``device``
     (default the CUDA card; pass ``device="cpu"`` for the CPU)."""
-    names = ["loss", "acc"] + (["skipped_nonfinite"]
-                               if cfg.nonfinite_guard else [])
+    names = ["loss", "acc"]
+    if cfg.nonfinite_guard:
+        names.append("skipped_nonfinite")
+    if uses_unsupervised(cfg):
+        names.append("unsupervised_loss")
     return {n: torch.zeros((), dtype=torch.float32, device=device)
             for n in names}
 
@@ -85,6 +94,11 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
     criterion = make_criterion(cfg)
     dtype = torch_dtype(cfg)
     B = cfg.batch_size
+    needs_ae = cfg.criterion == "aece"
+    unsupervised = uses_unsupervised(cfg)
+    run_ae_steps = (make_unsupervised_update(cfg, model)[1]
+                    if unsupervised else None)
+    frozen = frozen_mask(cfg, model)
 
     def make_batch(state: TrainState, x_all, y_all, perm, i: int):
         """Gather and augment step ``i``'s batch: (img in the compute
@@ -116,26 +130,36 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
     def loss_and_grads(state: TrainState, img, label, rand_label=None,
                        lam=None):
         """(loss, logits, one gradient per parameter) of a given batch, in
-        training mode; dropout draws from the state's generator."""
+        training mode; dropout and the random AE mask draw from the state's
+        generator.  A parameter outside the loss's graph gets zeros."""
         logits = model(img, deterministic=False, generator=state.generator)
-        loss = criterion(logits, label)
+        aux = {"ae": collect_ae_terms(model)} if needs_ae else None
+        loss = criterion(logits, label, aux)
         if rand_label is not None:
-            loss = loss * lam + criterion(logits, rand_label) * (1.0 - lam)
-        grads = torch.autograd.grad(loss, list(model.parameters()))
+            loss = loss * lam + criterion(logits, rand_label, aux) * (1.0 - lam)
+        params = list(model.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
         return loss.detach(), logits.detach(), grads
 
     def on_batch(state: TrainState, img, label, rand_label=None, lam=None):
         """Forward, loss, backward, guard and update on a given batch."""
         loss, logits, grads = loss_and_grads(state, img, label, rand_label,
                                              lam)
+        # the AE-internal steps first: they write the AE entries of
+        # state.params, on which the main update then lands
+        unsup_loss = run_ae_steps(state) if unsupervised else None
         with torch.no_grad():
             flat_g = torch.cat([g.reshape(-1) for g in grads])
             del grads
             if cfg.nonfinite_guard:
                 ok = torch.isfinite(loss) & torch.isfinite(flat_g).all()
                 flat_g = torch.where(ok, flat_g, torch.zeros_like(flat_g))
+            decay_params = state.params if frozen is None else torch.where(
+                frozen, torch.zeros_like(state.params), state.params)
             updates, opt_state = tx.update(flat_g, state.opt_state,
-                                           state.params)
+                                           decay_params)
             new_params = state.params + updates
             metrics = {"loss": loss,
                        "acc": (logits.argmax(-1) == label).float().mean()}
@@ -146,6 +170,8 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
                 opt_state = {k: torch.where(ok, v, state.opt_state[k])
                              for k, v in opt_state.items()}
                 metrics["skipped_nonfinite"] = 1.0 - ok.float()
+            if unsupervised:
+                metrics["unsupervised_loss"] = unsup_loss
             state.params.copy_(new_params)  # the model's weights are views
             state.opt_state = opt_state
             if state.metrics_acc is not None:

@@ -45,7 +45,11 @@ def model_summary(named_params, depth: int = -1) -> str:
 def get_layer_outputs(model: nn.Module, x: torch.Tensor,
                       **forward_kwargs) -> dict[str, torch.Tensor]:
     """Every submodule's tensor output on ``x`` (deterministic forward),
-    keyed by module path, captured with forward hooks."""
+    keyed by module path, captured with forward hooks: a tuple's first
+    tensor under the path, the i-th under ``path.i`` (an AE's
+    reconstruction and hidden activity), and the tensors an AE mixer keeps
+    (``ae_input``, ``ae_output``, ``ae_hidden``) under ``path.<name>``, as
+    the JAX package's capture of the intermediates gives them."""
     out: dict[str, torch.Tensor] = {}
     handles = []
     for name, mod in model.named_modules():
@@ -53,8 +57,11 @@ def get_layer_outputs(model: nn.Module, x: torch.Tensor,
             continue
 
         def hook(_mod, _inp, output, name=name):
-            if isinstance(output, torch.Tensor):
-                out[name] = output.detach()
+            outputs = output if isinstance(output, tuple) else (output,)
+            for i, t in enumerate(outputs):
+                if isinstance(t, torch.Tensor):  # a module's first call
+                    out.setdefault(name if i == 0 else f"{name}.{i}",
+                                   t.detach())
 
         handles.append(mod.register_forward_hook(hook))
     try:
@@ -62,6 +69,11 @@ def get_layer_outputs(model: nn.Module, x: torch.Tensor,
     finally:
         for h in handles:
             h.remove()
+    for name, mod in model.named_modules():
+        for key in ("ae_input", "ae_output", "ae_hidden"):
+            t = getattr(mod, key, None)
+            if isinstance(t, torch.Tensor):
+                out[f"{name}.{key}" if name else key] = t.detach()
     return out
 
 

@@ -3,13 +3,20 @@
 A flax ``params`` tree is a nested dict of arrays (what ``jax.device_get``
 or orbax give).  The port's parameters have the flax names joined by dots;
 a Linear's flax ``kernel`` (in, out) is the port's ``weight`` (out, in), and
-a LayerNorm's ``scale`` is its ``weight``.  numpy and torch only.
+a LayerNorm's ``scale`` is its ``weight``.  Every other parameter keeps its
+name and layout, whatever its rank: GatedMLP's TxT ``weight`` is a
+``weight`` on both sides, AFT's ``w``, ``u`` and ``v`` are themselves.
+numpy and torch only.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
+
+from ..ops.common import LayerNorm
+from ..ops.init import Linear
 
 
 def _flatten(tree, prefix=()):
@@ -34,14 +41,23 @@ def state_dict_from_flax(params) -> dict[str, torch.Tensor]:
     return out
 
 
-def flax_from_state_dict(state_dict) -> dict:
-    """The port's ``state_dict`` -> nested flax params of numpy arrays."""
+def flax_from_state_dict(model: nn.Module, state_dict=None) -> dict:
+    """The port's ``state_dict`` (default ``model``'s own) -> nested flax
+    params of numpy arrays.  ``model`` names the module that owns each
+    parameter: a Linear's ``weight`` becomes a transposed ``kernel``, a
+    LayerNorm's a ``scale``, anything else keeps its name."""
+    if state_dict is None:
+        state_dict = model.state_dict()
+    owners = dict(model.named_modules())
     out: dict = {}
     for key, val in state_dict.items():
         *mod, leaf = key.split(".")
         arr = val.detach().cpu().numpy()
-        if leaf == "weight":
-            leaf, arr = ("kernel", arr.T) if arr.ndim == 2 else ("scale", arr)
+        owner = owners[".".join(mod)]
+        if leaf == "weight" and isinstance(owner, Linear):
+            leaf, arr = "kernel", arr.T
+        elif leaf == "weight" and isinstance(owner, LayerNorm):
+            leaf = "scale"
         node = out
         for m in mod:
             node = node.setdefault(m, {})
