@@ -97,6 +97,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    unsupervised run stopped after epoch 1 and resumed, equal to the
    straight run.  These mixers are plain PyTorch: the phase checks that no
    attention kernel launches.
+10. NNMF phase (seed 2045, bf16-mixed, synthetic c10, B=128, the README
+   depth and width): ``gnnmf_sbs --optimizer madam --train-md-bases`` for
+   one uncut epoch through ``train()`` (its loss must fall below the
+   untrained model's, no step skipped, every ``nnmf_weights`` column at
+   sum 1 and above its after-care floor; ms a step, img/s, val_acc, and
+   kernels, device ms and busy share under torch.profiler);
+   ``gnnmf_sbsed`` and ``gnnmf_ham`` with and without ``--train-md-bases``,
+   ``ae --use-nnmf-layers`` (1 layer; the reference's forward is not
+   finite, so the guard skips its steps) and the heads NNMF AE (7 layers,
+   12 heads, one unsupervised step), 20 steps each, with the skipped steps
+   counted; one f32 step of ``gnnmf_sbs`` and of the heads NNMF AE on the
+   card and on the CPU (params, moments and the AE's Madam moments in
+   relative L2, beside the card's own spread under a one-ulp change of the
+   input); and a short ``gnnmf_ham --train-md-bases`` run stopped after
+   epoch 1 and resumed, bit for bit with its bases.  No attention kernel
+   launches in it.
 
 The library's yardsticks, timed at both main shapes and called nowhere in
 the port: SDPA forward and forward+backward,
@@ -122,6 +138,7 @@ non-zero at once.  Work files go to ``build/chip_smoke/`` in the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -292,6 +309,27 @@ ZOO_CARD_CPU_REL_L2 = 1e-4
 # CPU's rounding of those inputs: the first chip run read 7.0e-5 here where
 # the main moments agreed to 4.9e-6
 ZOO_AE_CARD_CPU_REL_L2 = 1e-3
+# the NNMF phase (bf16-mixed, synthetic c10, seed 2045, B=128): gnnmf_sbs
+# with madam and --train-md-bases for one epoch through train(), the other
+# NNMF models NNMF_STEPS steps each (the first ZOO_WARM untimed)
+NNMF_STEPS = 20
+NNMF_PROFILE_STEPS = 10
+# one f32 step card vs CPU, relative L2 of params and moments.  The heads
+# NNMF AE's main step meets the zoo's limits (its AE's Madam moments: the
+# gradient of a 7-layer reconstruction MSE, as the zoo's AE moments).  A
+# gnnmf_sbs step is far more sensitive to rounding (the NNMF layer's
+# iterate and its max-normalized backward): card vs CPU read 2.0e-4 to
+# 5.6e-4 on an H100 at 700 W, where the card's own step with its input one
+# f32 ulp larger moved by 6.3e-5 to 1.5e-4 (the phase prints both); it is
+# held to 2e-3
+NNMF_CARD_CPU_REL_L2 = {"gnnmf_sbs": 2e-3, "heads NNMF AE": 1e-4}
+NNMF_AE_CARD_CPU_REL_L2 = 1e-3
+# the heads NNMF AE L1-normalizes its LayerNormed, signed input, and where
+# a column's sum is small its iterate is chaotic (one f32 ulp of input
+# moves the reference's own reconstruction loss several-fold); its
+# card-vs-CPU step starts from norm1 biases raised by this much, which
+# makes the AE's input positive
+NNMF_NORM1_SHIFT = 4.0
 # --semi-supervised on c10: 4,000 labeled images (31 steps at B=128) and
 # 41,000 unlabeled, so 10 passes an epoch
 SEMI_STEPS = 310
@@ -743,7 +781,7 @@ def training_setup(cfg: Config, n_train: int | None = None, raw=None):
     x_train = torch.from_numpy(raw.x_train[:n_train]).cuda()
     y_train = torch.from_numpy(raw.y_train[:n_train]).cuda()
     model, _ = get_model(cfg, device="cuda")
-    tx = make_optimizer(cfg, len(x_train) // cfg.batch_size)
+    tx = make_optimizer(cfg, len(x_train) // cfg.batch_size, model)
     state = init_state(cfg, model, tx)
     state.metrics_acc = make_metrics_zeros(cfg, "cuda")
     train_step = make_train_step(cfg, model, tx)
@@ -1992,6 +2030,246 @@ def zoo_phase(card: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def train_precision(cfg: Config):
+    """``cfg.matmul_precision`` for f32 products, as ``train()`` sets it
+    for its run; the previous setting is restored on exit."""
+    previous = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(cfg.matmul_precision)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(previous)
+
+
+def nnmf_epoch(card: str, raw) -> dict:
+    """``gnnmf_sbs --optimizer madam --train-md-bases`` for one uncut epoch
+    through ``train()``: the loss falls from the untrained model's, no step
+    is skipped, and after the epoch every ``nnmf_weights`` column sums to 1
+    and sits at or above its after-care floor; then its step under the
+    profiler, at ``train()``'s matmul precision."""
+    cfg = readme_cfg(model_name="gnnmf_sbs", optimizer="madam",
+                     train_md_bases=True, max_epochs=1)
+    untrained, _ = get_model(cfg)
+    val0, acc0 = evaluate(cfg, untrained, raw)
+    del untrained
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    res = train(cfg, verbose=False)
+    seconds = time.perf_counter() - t0
+    check_no_launch("the gnnmf_sbs epoch")
+    row = res["history"][0]
+    step_ms = row["epoch_time"] * 1e3 / TRAIN_STEPS
+    params = load_checkpoint(res["ckpt_dir"], prefer="last")[0]["params"]
+    thr = cfg.nnmf_learning_rate_threshold_w
+    weights = {n: w for n, w in params.items() if n.endswith("nnmf_weights")}
+    col_err = max(float((w.sum(0) - 1).abs().max()) for w in weights.values())
+    floor_gap = min(float(w.min()) - thr / (1 + w.shape[0] * thr)
+                    for w in weights.values())
+    print(f"gnnmf_sbs + madam + --train-md-bases, 7 layers, one epoch "
+          f"through train(): {res['n_params']} params, {seconds:.1f} s "
+          f"(data set-up included); train loss {row['loss']:.4f} (epoch "
+          f"mean), val_loss {row['val_loss']:.4f}, val_acc "
+          f"{row['val_acc']:.4f}, from the untrained model's val_loss "
+          f"{val0:.4f} (val_acc {acc0:.4f}); lr_0 {row['lr_0']:.6f}, lr_1 "
+          f"{row['lr_1']:.6f}; skipped {row['skipped_nonfinite']}; "
+          f"{step_ms:.3f} ms a step, {row['images_per_sec']:.1f} img/s "
+          f"(host clock over the epoch; {card})")
+    print(f"after the epoch, {len(weights)} nnmf_weights: largest |column "
+          f"sum - 1| {col_err:.3e}; smallest entry minus the after-care "
+          f"floor thr/(1 + C thr) {floor_gap:.3e}")
+    if not (math.isfinite(row["loss"]) and row["skipped_nonfinite"] == 0
+            and row["loss"] < val0 and row["val_loss"] < val0):
+        raise AssertionError("the gnnmf_sbs epoch's loss did not fall, or "
+                             "it skipped a step")
+    if len(weights) != cfg.num_layers or col_err > 1e-5 or floor_gap < -1e-9:
+        raise AssertionError("the after-care did not hold the nnmf_weights")
+    with train_precision(cfg):
+        _, x, y, _, state, step, perm = training_setup(cfg, raw=raw)
+        for i in range(ZOO_WARM):
+            step(state, x, y, perm, i)
+        prof = profile_steps(
+            lambda i: step(state, x, y, perm, i + ZOO_WARM),
+            NNMF_PROFILE_STEPS, "nnmf_sbs_trace.json", step_ms, card)
+    return {"ms": step_ms, "img_s": row["images_per_sec"],
+            "val_acc": row["val_acc"], **prof}
+
+
+def nnmf_steps(cfg: Config, raw, what: str, card: str,
+               finite: bool = True) -> dict:
+    """``NNMF_STEPS`` training steps of ``cfg`` on the card at ``train()``'s
+    matmul precision, no attention kernel; ms a step after ``ZOO_WARM`` and
+    the steps the guard skipped.  With ``finite``, every loss must be
+    finite and no step skipped."""
+    with train_precision(cfg):
+        _, x, y, model, state, step, perm = training_setup(cfg, raw=raw)
+        n_params = sum(p.numel() for p in model.parameters())
+        for wrapper in KERNEL_WRAPPERS.values():
+            wrapper.launches = 0
+        metrics = []
+        for i in range(NNMF_STEPS):
+            if i == ZOO_WARM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = step(state, x, y, perm, i)
+            metrics.append(m)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (NNMF_STEPS - ZOO_WARM)
+    check_no_launch(what)
+    losses = torch.stack([m["loss"] for m in metrics]).float().cpu()
+    skipped = int(sum(float(m["skipped_nonfinite"]) for m in metrics))
+    text = (f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, finite "
+            f"{int(torch.isfinite(losses).sum())}/{NNMF_STEPS}, skipped "
+            f"{skipped}")
+    if "unsupervised_loss" in metrics[0]:
+        unsup = torch.stack([m["unsupervised_loss"] for m in metrics]).cpu()
+        text += f", unsupervised_loss {unsup[0]:.4f} -> {unsup[-1]:.4f}"
+    print(f"{what}: {n_params} params, {NNMF_STEPS} steps at "
+          f"B={cfg.batch_size}, matmul precision {cfg.matmul_precision}, "
+          f"{text}; {ms:.3f} ms a step (steps {ZOO_WARM}-{NNMF_STEPS - 1}, "
+          f"host clock, synchronized; {card})")
+    if finite and (skipped or not torch.isfinite(losses).all()):
+        raise AssertionError(f"{what}: a loss is not finite")
+    return {"ms": ms, "skipped": skipped}
+
+
+def nnmf_card_against_cpu(raw) -> dict:
+    """One f32 step of gnnmf_sbs (madam, --train-md-bases) and of the heads
+    NNMF AE (7 layers, 12 heads, one unsupervised step; norm1 biases
+    raised by ``NNMF_NORM1_SHIFT``) on the card and on the CPU from the
+    same weights and batch: params, both moments and the AE's Madam
+    moments, in relative L2."""
+    gaps = {}
+    for what, cfg in (
+            ("gnnmf_sbs", readme_cfg(model_name="gnnmf_sbs",
+                                     optimizer="madam", train_md_bases=True,
+                                     precision="32")),
+            # B=32: its masked rows' W.W^T products take about 5.6 TFLOP
+            # of f32 a step at B=128, tens of seconds on the host's cores
+            ("heads NNMF AE", readme_cfg(ae_type="heads",
+                                         use_nnmf_layers=True,
+                                         unsupervised_steps=1,
+                                         precision="32", batch_size=32))):
+        B = cfg.batch_size
+        img = normalize(torch.from_numpy(raw.x_train[:B]), cfg.mean, cfg.std)
+        label = torch.from_numpy(raw.y_train[:B])
+        out = {}
+        # the card again with the input one ulp larger: the step's spread
+        for run, dev, scale in (("cuda", "cuda", 1.0), ("cpu", "cpu", 1.0),
+                                ("ulp", "cuda", 1.0 + 2.0 ** -23)):
+            model, _ = get_model(cfg, device=dev)
+            if cfg.use_nnmf_layers:
+                with torch.no_grad():
+                    for m in model.modules():
+                        if hasattr(m, "ae_input"):
+                            m.norm1.bias += NNMF_NORM1_SHIFT
+            tx = make_optimizer(cfg, TRAIN_STEPS, model)
+            state = init_state(cfg, model, tx)
+            step = make_train_step(cfg, model, tx)
+            t0 = time.perf_counter()
+            state, m = step.on_batch(state, (img * scale).to(dev),
+                                     label.to(dev))
+            tensors = {"params": state.params, **state.opt_state}
+            if state.ae_opt_state is not None:
+                tensors.update({f"ae_{k}": v
+                                for k, v in state.ae_opt_state.items()})
+            out[run] = {k: v.float().cpu() for k, v in tensors.items()
+                        if v.dim()}
+            out[run]["loss"] = m["loss"].item()
+            out[run]["skipped"] = m["skipped_nonfinite"].item()
+            out[run]["s"] = time.perf_counter() - t0
+        keys = [k for k in out["cpu"] if k not in ("loss", "skipped", "s")]
+        gap = {k: _rel_l2(out["cuda"][k], out["cpu"][k]) for k in keys}
+        spread = {k: _rel_l2(out["ulp"][k], out["cuda"][k]) for k in keys}
+        limit = {k: NNMF_AE_CARD_CPU_REL_L2 if k.startswith("ae_")
+                 else NNMF_CARD_CPU_REL_L2[what] for k in gap}
+        print(f"card vs CPU, one f32 step of {what} at B={B}: loss "
+              f"{out['cuda']['loss']:.6f} vs {out['cpu']['loss']:.6f}, "
+              f"skipped {out['cuda']['skipped']} vs {out['cpu']['skipped']}; "
+              f"relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                          gap.items())
+              + f" (limit {NNMF_CARD_CPU_REL_L2[what]}, "
+              f"{NNMF_AE_CARD_CPU_REL_L2} for ae_*); the card's own step "
+              "with the input one ulp larger: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in spread.items())
+              + f"; the CPU step took {out['cpu']['s']:.1f} s")
+        if any(gap[k] > limit[k] for k in gap) or out["cuda"]["skipped"] \
+                or out["cpu"]["skipped"]:
+            raise AssertionError(f"{what}: card and CPU disagree: {gap}")
+        gaps[what] = max(gap.values())
+    return gaps
+
+
+def nnmf_resume(card: str) -> None:
+    """A short gnnmf_ham --train-md-bases (madam) run, 2 epochs over the
+    4,000 labeled images of ``--semi-supervised`` without the combined
+    pacing (31 steps an epoch): stopped after epoch 1 and resumed, it must
+    equal the straight run bit for bit, its bases included."""
+    cfg = zoo_cfg(model_name="gnnmf_ham", train_md_bases=True,
+                  optimizer="madam", semi_supervised=True,
+                  ss_combined_epoch=False, max_epochs=2)
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    runs = {}
+    for name, kw, stop in (("a", {}, None), ("b1", {}, 1), ("b2", None, None)):
+        kw = {"resume": runs["b1"]["ckpt_dir"]} if kw is None else kw
+        runs[name] = train(cfg.replace(
+            ckpt_dir=os.path.join(WORK, "nnmf_models", name), **kw),
+            verbose=False, stop_after=stop)
+    check_no_launch("the gnnmf_ham resume runs")
+    pa, pb = (load_checkpoint(runs[n]["ckpt_dir"], prefer="last")[0]
+              for n in ("a", "b2"))
+    pairs = {f"{key}.{k}": (pa[key][k], pb[key][k])
+             for key in ("params", "model_state", "opt_state")
+             for k in pa[key]}
+    exact = all(torch.equal(a, b) for a, b in pairs.values())
+    moved = not torch.equal(
+        pa["model_state"]["enc0.mixer.NNMF.bases"],
+        load_checkpoint(runs["b1"]["ckpt_dir"], prefer="last")[0][
+            "model_state"]["enc0.mixer.NNMF.bases"])
+    row_a, row_b = runs["a"]["history"][1], runs["b2"]["history"][0]
+    print(f"gnnmf_ham --train-md-bases, resumed after epoch 1: step "
+          f"{pb['step']} as the straight run's {pa['step']}; params, "
+          f"{len(pa['model_state'])} bases buffer(s) and optimizer state "
+          f"equal to it bit for bit: {exact}; the bases moved in epoch 2: "
+          f"{moved}; epoch 2 loss {row_a['loss']:.6f} vs {row_b['loss']:.6f}"
+          f", lr_1 {row_a['lr_1']:.6f} vs {row_b['lr_1']:.6f}, "
+          f"{row_a['epoch_time'] * 1e3 / pa['step'] * 2:.3f} ms a step "
+          f"({card})")
+    if pa["step"] != pb["step"] or not exact or not moved:
+        raise AssertionError("the resumed gnnmf_ham run is not the straight "
+                             "run")
+
+
+def nnmf_phase(card: str) -> dict:
+    """The NNMF family (seed 2045, bf16-mixed, synthetic c10, B=128): no
+    attention kernel launches in any of it."""
+    t0 = time.perf_counter()
+    shutil.rmtree(os.path.join(WORK, "nnmf_models"), ignore_errors=True)
+    raw = load_dataset("c10", "data", synthetic=True)
+    out = {"gnnmf_sbs": nnmf_epoch(card, raw)}
+    for name, kw in (("gnnmf_sbsed", {}), ("gnnmf_ham", {}),
+                     ("gnnmf_ham", {"train_md_bases": True})):
+        what = name + (" --train-md-bases" if kw else "") + ", 7 layers"
+        out[what] = nnmf_steps(readme_cfg(model_name=name, **kw), raw, what,
+                               card)
+    # the feature-dim AE of NNMF layers is not finite in the reference
+    # (NNMFLinear L1-normalizes the LayerNormed input): the guard skips
+    out["ae_nnmf"] = nnmf_steps(
+        zoo_cfg(use_nnmf_layers=True), raw,
+        "ae --use-nnmf-layers (AEViT, 1 layer)", card, finite=False)
+    out["heads_nnmf"] = nnmf_steps(
+        readme_cfg(ae_type="heads", use_nnmf_layers=True,
+                   unsupervised_steps=1), raw,
+        "heads NNMF AE, 7 layers, 12 heads, 1 unsupervised step", card,
+        finite=False)
+    out["card_vs_cpu"] = nnmf_card_against_cpu(raw)
+    nnmf_resume(card)
+    print(f"the NNMF phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2017,8 +2295,10 @@ def main() -> None:
     paths = [{"mhsa_fwd": serving_phase(card)}, train_launches,
              pixel_serving_phase(card), pixel_training_phase(card),
              wide_head_phase(card), full_recipe_phase(card, no_aa_step_ms)]
-    # last: the zoo, which launches none of the attention kernels
+    # last: the zoo and the NNMF family, which launch none of the
+    # attention kernels
     zoo_phase(card)
+    nnmf_phase(card)
     for row in rows:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
         if row["launches"] < 1:

@@ -26,6 +26,7 @@ import torch
 
 from vit_cifar_torch.ops import ae_attention as tae
 from vit_cifar_torch.ops import autoencoders as tautoenc
+from vit_cifar_torch.ops.nnmf.layers import AutoNNMFLayer
 from vit_cifar_torch.utils.observability import get_layer_outputs
 from vit_cifar_torch.utils.transplant import (flax_from_state_dict,
                                               state_dict_from_flax)
@@ -120,18 +121,79 @@ def test_autoencoders_match_jax(kind):
                                        err_msg=name)
 
 
+NNMF = jautoenc.NNMFParams(number_of_iterations=5, w_trainable=True)
+T_NNMF = tautoenc.NNMFParams(number_of_iterations=5, w_trainable=True)
+NNMF_AUTOENCODERS = {
+    "simple": (lambda: jautoenc.Autoencoder(12, 5, nnmf=True,
+                                            nnmf_params=NNMF),
+               lambda: tautoenc.Autoencoder(12, 5, nnmf=True,
+                                            nnmf_params=T_NNMF,
+                                            generator=_g()),
+               [(2, 7, 12), (2, 7, 7, 12)]),
+    "transpose": (lambda: jautoenc.AutoencoderT(7, 3, nnmf=True,
+                                                nnmf_params=NNMF),
+                  lambda: tautoenc.AutoencoderT(7, 3, nnmf=True,
+                                                nnmf_params=T_NNMF,
+                                                generator=_g()),
+                  [(2, 7, 12)]),
+    "heads": (lambda: jautoenc.AutoencoderH(14, 4, 2, nnmf=True,
+                                            nnmf_params=NNMF),
+              lambda: tautoenc.AutoencoderH(14, 4, 2, nnmf=True,
+                                            nnmf_params=T_NNMF,
+                                            generator=_g()),
+              [(2, 7, 6), (2, 7, 7, 6)]),
+    "2d_sffs_frozen": (
+        lambda: jautoenc.Autoencoder2D("sffs", 7, 12, 3, 5, nnmf=True),
+        lambda: tautoenc.Autoencoder2D("sffs", 7, 12, 3, 5, nnmf=True,
+                                       generator=_g()),
+        [(2, 7, 12)]),
+    "auto_nnmf": (lambda: jautoenc.AutoNNMF((7, 12), 4, 5),
+                  lambda: tautoenc.AutoNNMF((7, 12), 4, 5, generator=_g()),
+                  [(2, 7, 12), (2, 3, 7, 12)]),
+}
+
+
+@pytest.mark.parametrize("kind", list(NNMF_AUTOENCODERS))
+def test_nnmf_autoencoders_match_jax(kind):
+    """The AEs built of NNMF layers (``--use-nnmf-layers``: an NNMFLinear
+    per block, no ReLU) and ``AutoNNMF``, on a non-negative input: outputs,
+    hidden activity and the gradients of every weight (zeros where the
+    layers are not trainable)."""
+    make_j, make_t, shapes = NNMF_AUTOENCODERS[kind]
+    jmod, tmod = make_j(), make_t()
+    params = flax_from_state_dict(tmod)
+    assert all(n.endswith("nnmf_weights") for n, _ in tmod.named_parameters())
+    for shape in shapes:
+        x = np.random.default_rng(1).uniform(size=shape).astype(np.float32)
+        (want_out, want_h), want_g = _jax_run(jmod, params, x)
+        got_out, got_h = tmod(torch.from_numpy(x))
+        np.testing.assert_allclose(_np(got_out), _np(want_out), **F32_TOL)
+        if want_h is None:
+            assert got_h is None
+        else:
+            np.testing.assert_allclose(_np(got_h), _np(want_h), **F32_TOL)
+        got_g = _grads_by_name(tmod, got_out)
+        assert set(got_g) == set(want_g)
+        for name, g in want_g.items():
+            np.testing.assert_allclose(_np(got_g[name]), _np(g), **F32_TOL,
+                                       err_msg=name)
+            if kind.endswith("frozen"):
+                assert not torch.any(got_g[name]), name
+
+
 def test_nnmf_branches_raise():
+    """What the NNMF branches still refuse, as the JAX package does: an
+    AutoNNMF input that is neither 3-D nor 4-D, and an input of the wrong
+    width or framing for the NNMF layer."""
     g = _g()
-    with pytest.raises(NotImplementedError, match="NNMF"):
-        tautoenc.DenseBlock(4, 4, nnmf=True, generator=g)
-    with pytest.raises(NotImplementedError, match="NNMF"):
-        tautoenc.AutoNNMF((4, 4), 2, 3)
-    with pytest.raises(NotImplementedError, match="NNMF"):
-        tae.build_ae(ae_type="heads", seq_len=T, ffn_features=FFN,
-                     heads=HEADS, nnmf=True, generator=g)
-    with pytest.raises(NotImplementedError, match="NNMF"):
-        tae.AEAttentionHeads(FEAT, T, FFN, heads=HEADS, use_nnmf_layers=True,
-                             generator=g)
+    with pytest.raises(NotImplementedError, match="AutoNNMF"):
+        tautoenc.AutoNNMF((4, 4), 2, 3, generator=g)(torch.ones(4, 4))
+    with pytest.raises(ValueError, match="NNMFLinear"):
+        tautoenc.DenseBlock(4, 4, nnmf=True, generator=g)(torch.ones(2, 5))
+    ae = tae.build_ae(ae_type="heads", seq_len=T, ffn_features=FFN,
+                      heads=HEADS, nnmf=True, generator=g)
+    with pytest.raises(ValueError, match="NNMF layer"):
+        ae(torch.ones(2, 1, T, FFN // HEADS))
 
 
 # -- the AE mixers -----------------------------------------------------------
@@ -200,6 +262,71 @@ def test_ae_attention_heads_matches_jax(chunk, mask_type, mask_chunk):
                        mask_type, x)
     # without --chunk, x itself is normalized: norm1 has a gradient path
     _check_mixer(*case, {"U", "V"} if chunk else {"U", "V", "norm1"})
+
+
+def _raise_norm1_bias(tmod):
+    """+4 on norm1's bias: the AE's input, LayerNormed, becomes positive.
+    An NNMF layer L1-normalizes its input as it is, and on a signed one
+    its iterate is ill-conditioned (JAX's own outputs move by far more
+    than the f32 limits when the input moves by one ulp), so the mixers of
+    NNMF AEs are compared from there."""
+    with torch.no_grad():
+        tmod.norm1.bias += 4.0
+    return tmod
+
+
+NNMF_AE_CASES = [("simple", "zeros"), ("simple", "random"),
+                 ("transpose", "zeros"), ("2d_sffs", "zeros"),
+                 ("legacy_heads", "random")]
+
+
+@pytest.mark.parametrize("ae,mask_type", NNMF_AE_CASES,
+                         ids=[f"{a}-{m}" for a, m in NNMF_AE_CASES])
+def test_ae_attention_of_nnmf_layers_matches_jax(ae, mask_type):
+    ae_type = {"legacy_heads": "heads"}.get(ae, ae.split("_")[0])
+    kw = dict(head=HEADS, ae_type=ae_type, mask_type=mask_type,
+              ae_hidden_features=6, ae_hidden_seq_len=5,
+              use_nnmf_layers=True, **AE_TYPES[ae])
+    tmod = _raise_norm1_bias(tae.AEAttention(FEAT, T, FFN, generator=_g(),
+                                             **kw))
+    x = _x(2, (B, T, FEAT))
+    jmod = jae.AEAttention(features=FEAT, seq_len=T, ffn_features=FFN, **kw)
+    if mask_type == "random":
+        tmod.mask_noise = _jax_noise(FFN)
+    (want, state), want_g = _jax_run(jmod, flax_from_state_dict(tmod), x,
+                                     mutable=["intermediates"])
+    got = tmod(torch.from_numpy(x))
+    assert bool((tmod.ae_input > 0).all())
+    _check_mixer(want, state["intermediates"], want_g, tmod, got, {"U", "V"})
+
+
+@pytest.mark.parametrize("mask_type,mask_chunk", [
+    ("zeros", 16), ("zeros", 0), ("random", 16)],
+    ids=["zeros_chunked", "zeros_whole", "random"])
+@pytest.mark.parametrize("chunk", [False, True], ids=["whole", "chunk"])
+def test_ae_attention_heads_of_nnmf_layers_matches_jax(chunk, mask_type,
+                                                      mask_chunk):
+    """The heads AE as one AutoNNMFLayer over (B, 1, heads*T, F/heads),
+    its code kept as ``ae_hidden``, and the W.W^T shortcut over the masked
+    rows on both the chunked and the materializing path."""
+    kw = dict(heads=HEADS, ae_hidden_seq_len=5, mask_type=mask_type,
+              chunk=chunk, mask_chunk=mask_chunk, use_nnmf_layers=True)
+    tmod = _raise_norm1_bias(tae.AEAttentionHeads(FEAT, T, FFN,
+                                                  generator=_g(), **kw))
+    assert isinstance(tmod.AE, AutoNNMFLayer)
+    if mask_type == "random":
+        tmod.mask_noise = _jax_noise(FFN // 2 if chunk else FFN)
+    jmod = jae.AEAttentionHeads(features=FEAT, seq_len=T, ffn_features=FFN,
+                                **kw)
+    x = _x(3, (B, T, FEAT))
+    (want, state), want_g = _jax_run(jmod, flax_from_state_dict(tmod), x,
+                                     mutable=["intermediates"])
+    got = tmod(torch.from_numpy(x))
+    inter = dict(state["intermediates"])
+    inter["ae_hidden"] = inter["AE"]["hidden_activity"]
+    assert tmod.ae_input.shape == (B, 1, HEADS * T, tmod.ae_input.shape[-1])
+    _check_mixer(want, inter, want_g, tmod, got,
+                 {"U", "V"} if chunk else {"U", "V", "norm1"})
 
 
 def test_heads_chunked_path_equals_the_materializing_one():

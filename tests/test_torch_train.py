@@ -156,11 +156,6 @@ def test_optimizer_matches_optax_on_identical_grads(optimizer):
     assert int(tstate["count"]) == int(inner[2].count) == n
 
 
-def test_madam_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(tconfig.Config(optimizer="madam"), 10)
-
-
 def test_flatten_params_makes_parameters_views():
     model, _ = get_model(tconfig.Config(**TINY), device="cpu")
     before = [p.detach().clone() for p in model.parameters()]
@@ -438,9 +433,7 @@ def test_train_step_with_batch_mixing(mix):
     assert int(state.opt_state["count"]) == 4
 
 
-@pytest.mark.parametrize("kw", [dict(model_name="gnnmf_sbs"),
-                                dict(moe_experts=2),
-                                dict(use_nnmf_layers=True)],
+@pytest.mark.parametrize("kw", [dict(moe_experts=2)],
                          ids=lambda kw: next(iter(kw)))
 def test_unported_step_branches_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -144,7 +144,7 @@ def test_state_dict_round_trip_and_param_count():
 
 
 PORTED = ("vit", "ae", "ae_baseline", "aftfull", "aftsimple", "gmlp", "wgmlp",
-          "linear")
+          "linear", "gnnmf_ham", "gnnmf_sbs", "gnnmf_sbsed")
 
 
 @pytest.mark.parametrize("name", [n for n in jconfig.MODEL_NAMES
@@ -154,8 +154,7 @@ def test_get_model_raises_for_models_not_ported(name):
         get_model(tconfig.Config(model_name=name), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(use_nnmf_layers=True),
-                                dict(moe_experts=2)],
+@pytest.mark.parametrize("kw", [dict(moe_experts=2)],
                          ids=lambda kw: next(iter(kw)))
 def test_get_model_raises_for_options_not_ported(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

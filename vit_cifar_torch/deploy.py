@@ -1,9 +1,10 @@
 """Serving: checkpoint -> serving artifact -> logits over HTTP.
 
 The port's counterpart of ``vit_cifar_tpu/deploy.py``.  The artifact is a
-directory with ``serving.pt`` (the model's weights, ``torch.save`` of its
-``state_dict``) and ``serving.json`` (metadata and the full config), and the
-serving process rebuilds the model from the config with this package.
+directory with ``serving.pt`` (the model's weights and buffers,
+``torch.save`` of its ``state_dict``) and ``serving.json`` (metadata and
+the full config), and the serving process rebuilds the model from the
+config with this package.
 Inference is exactly the eval path: uint8 (B, H, W, C) -> ``normalize`` ->
 cast to the compute dtype -> deterministic forward -> f32 logits.  On a CUDA
 device every attention layer runs the hand-written fused-attention kernel.
@@ -41,7 +42,10 @@ def export_inference(ckpt_dir: str, out_dir: str, which: str = "best",
     # built on the CPU whatever ``device`` says: it only checks names and
     # shapes and writes the state dict
     model, _ = get_model(cfg, device="cpu")
-    model.load_state_dict(payload["params"])  # checks names and shapes
+    # checks names and shapes; the buffers (the persistent bases of
+    # --train-md-bases) are the payload's model state, where it has one
+    model.load_state_dict({**payload["params"],
+                           **payload.get("model_state", {})})
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, _ARTIFACT)
     torch.save(model.state_dict(), path)

@@ -3,14 +3,15 @@
 mixers.
 
 Ported: ``vit``, ``ae`` (``AEAttention``, or ``AEAttentionHeads`` for
-``ae_type="heads"`` without ``--legacy-heads``), ``ae_baseline``,
-``aftfull``, ``aftsimple``, ``gmlp``, ``wgmlp`` and ``linear``.  The JAX
+``ae_type="heads"`` without ``--legacy-heads``; with or without
+``--use-nnmf-layers``), ``ae_baseline``, ``aftfull``, ``aftsimple``,
+``gmlp``, ``wgmlp``, ``linear`` and the gated-NNMF models ``gnnmf_ham``,
+``gnnmf_sbs`` and ``gnnmf_sbsed``.  The JAX
 factory's deviations from reference bugs are kept: AFT's head is pinned to 1
 (the reference crashes for head > 1, layers.py:128), AFT-Simple's gate is
 always on (layers.py:233), and ``ae_baseline`` is the working equivalent of
-the reference's crashing model.  Every other name, ``--moe-experts`` and
-``--use-nnmf-layers`` raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+the reference's crashing model.  Every other name and ``--moe-experts`` raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -24,19 +25,28 @@ from ..ops.ae_attention import (AEAttention, AEAttentionHeads,
                                 BaselineAEAttention)
 from ..ops.aft import AFT
 from ..ops.attention import MultiHeadSelfAttention
-from ..ops.autoencoders import NNMF_ITEM
+from ..ops.autoencoders import NNMFParams
+from ..ops.gated_nnmf import GatedNNMF
 from ..ops.gmlp import GatedMLP, LinearAttention, WeightGatedMLP
 from .vit import ViT
 
-_HAMBURGER_ITEM = "ROADMAP queue 1, item 7 (zoo mixers: hamburger)"
-_CNN_ITEM = "ROADMAP queue 1, item 7 (zoo mixers: CNN and BatchNorm)"
+_BATCHNORM_ITEM = ("ROADMAP queue 1, item 7 (zoo mixers: BatchNorm, with "
+                   "the hamburger burgers and the CNN models)")
 _MOE_ITEM = "ROADMAP queue 1, item 7 (zoo mixers: MoE)"
 _UNPORTED = {
-    "hamburger": _HAMBURGER_ITEM, "hamburger_attention": _HAMBURGER_ITEM,
-    "gnnmf_ham": NNMF_ITEM, "gnnmf_sbs": NNMF_ITEM, "gnnmf_sbsed": NNMF_ITEM,
-    "lgcnn": _CNN_ITEM, "wlgcnn": _CNN_ITEM, "cnn_baseline": _CNN_ITEM,
+    "hamburger": _BATCHNORM_ITEM, "hamburger_attention": _BATCHNORM_ITEM,
+    "lgcnn": _BATCHNORM_ITEM, "wlgcnn": _BATCHNORM_ITEM,
+    "cnn_baseline": _BATCHNORM_ITEM,
 }
 AFT_MODES = {"aftfull": "full", "aftsimple": "simple"}
+
+
+def nnmf_params_from_cfg(cfg: Config) -> NNMFParams:
+    """The reference's ``_nnmf_params`` dict (network.py:19-33)."""
+    return NNMFParams(
+        number_of_iterations=cfg.md_iter, w_trainable=cfg.train_md_bases,
+        local_learning=cfg.nnmf_local_learning,
+        disable_scale_grade=not cfg.nnmf_scale_grade)
 
 
 def _make_mixer(cfg: Config, dtype: torch.dtype, generator, device):
@@ -63,23 +73,30 @@ def _make_mixer(cfg: Config, dtype: torch.dtype, generator, device):
     if name in gated:
         return functools.partial(gated[name], h, cfg.ffn_features,
                                  cfg.seq_len, **common)
+    if name.startswith("gnnmf"):
+        return functools.partial(
+            GatedNNMF, h, cfg.ffn_features, cfg.seq_len,
+            nnmf_type=name.split("_")[1],  # utils.py:150
+            md_iter=cfg.md_iter, depthwise=cfg.depthwise,
+            train_bases=cfg.train_md_bases,
+            local_learning=cfg.local_learning, **common)
+    nnmf = dict(use_nnmf_layers=cfg.use_nnmf_layers,
+                nnmf_params=nnmf_params_from_cfg(cfg))
     if name == "ae":
         if cfg.ae_type == "heads" and not cfg.legacy_heads:
             return functools.partial(
                 AEAttentionHeads, h, cfg.seq_len, cfg.ffn_features,
                 heads=cfg.head, ae_hidden_seq_len=cfg.ae_hidden_seq_len,
                 mask_type=cfg.mask_type, chunk=cfg.chunk,
-                use_nnmf_layers=cfg.use_nnmf_layers,
                 save_attn_map=cfg.save_attn_map,
-                mask_chunk=cfg.ae_mask_chunk, **common)
+                mask_chunk=cfg.ae_mask_chunk, **nnmf, **common)
         return functools.partial(
             AEAttention, h, cfg.seq_len, cfg.ffn_features, head=cfg.head,
             ae_type=cfg.ae_type, ae_hidden_features=cfg.ae_hidden_features,
             ae_hidden_seq_len=cfg.ae_hidden_seq_len, order_2d=cfg.order_2d,
             mask_type=cfg.mask_type, chunk=cfg.chunk,
             legacy_heads=cfg.legacy_heads,
-            use_nnmf_layers=cfg.use_nnmf_layers,
-            save_attn_map=cfg.save_attn_map, **common)
+            save_attn_map=cfg.save_attn_map, **nnmf, **common)
     if name == "ae_baseline":
         return functools.partial(
             BaselineAEAttention, h, cfg.seq_len, cfg.ffn_features,
@@ -106,9 +123,6 @@ def get_model(cfg: Config, *, device="cuda",
     if cfg.moe_experts > 0:
         raise NotImplementedError(
             f"--moe-experts is not ported to torch yet: {_MOE_ITEM}")
-    if cfg.use_nnmf_layers:
-        raise NotImplementedError(
-            f"--use-nnmf-layers is not ported to torch yet: {NNMF_ITEM}")
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     dtype = torch_dtype(cfg)

@@ -94,22 +94,34 @@ def _recomputed(block: nn.Module, x: torch.Tensor, deterministic: bool,
     the backward redraws the block's dropout masks from ``generator``: it
     is rewound to where the forward found it, and left afterwards where
     the backward found it, so both passes see the same masks and the
-    generator's stream is unchanged."""
-    if generator is None:
-        return checkpoint(block, x, deterministic=deterministic,
-                          use_reentrant=False)
-    start = generator.get_state()
+    generator's stream is unchanged.  The block's buffers are treated the
+    same way: the recomputation reads the values the forward read (which
+    the forward may have updated, as the persistent bases' EMA does), and
+    leaves the buffers as the backward found them."""
+    start = None if generator is None else generator.get_state()
+    read = [b.clone() for b in block.buffers()]
     first = [True]
 
     def run(x):
         if first[0]:
             first[0] = False
             return block(x, deterministic=deterministic, generator=generator)
-        now = generator.get_state()
-        generator.set_state(start)
+        now = None if generator is None else generator.get_state()
+        left = [b.clone() for b in block.buffers()]
+        _load_buffers(block, read)
+        if generator is not None:
+            generator.set_state(start)
         try:
             return block(x, deterministic=deterministic, generator=generator)
         finally:
-            generator.set_state(now)
+            if generator is not None:
+                generator.set_state(now)
+            _load_buffers(block, left)
 
     return checkpoint(run, x, use_reentrant=False)
+
+
+@torch.no_grad()
+def _load_buffers(block: nn.Module, values: list[torch.Tensor]) -> None:
+    for b, v in zip(block.buffers(), values):
+        b.copy_(v)

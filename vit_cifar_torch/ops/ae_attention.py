@@ -23,6 +23,12 @@ structured path (two O(B*T*F) terms and one AE call on a zero vector in
 place of the (B,T,T,F) eye-masked tensor), and ``AEAttentionHeads`` with
 the zeros mask builds the eye-masked rows ``mask_chunk`` at a time.
 
+With ``--use-nnmf-layers`` the AEs are built from NNMF layers: each
+DenseBlock is an ``NNMFLinear``, and the heads AE is one ``AutoNNMFLayer``
+over (B, 1, heads*T, F/heads), always trainable, whose code
+(``hidden_activity``) is kept as ``ae_hidden``; its masked rows take the
+reference's W.W^T shortcut (layers.py:1026-1029) in place of AE calls.
+
 ``mask_type="random"`` fills the masked entries with N(mean(z), std(z))
 noise.  The standard-normal draw comes from the step's generator; without
 one (the eval step) from a generator seeded 0 on z's device, where JAX
@@ -36,20 +42,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .autoencoders import (NNMF_ITEM, Autoencoder, Autoencoder2D,
-                           AutoencoderH, AutoencoderT)
+from .autoencoders import (Autoencoder, Autoencoder2D, AutoencoderH,
+                           AutoencoderT, NNMFParams)
 from .common import LayerNorm
 from .init import Linear
+from .nnmf.layers import AutoNNMFLayer
 
 
 def build_ae(*, ae_type: str, seq_len: int, ffn_features: int, heads: int = 1,
              chunk: bool = False, legacy_heads: bool = False,
              ae_hidden_features: int = 128, ae_hidden_seq_len: int = 8,
              order_2d: str = "sfsf", nnmf: bool = False,
+             nnmf_params: NNMFParams = NNMFParams(),
              generator: torch.Generator, device=None) -> nn.Module:
     """The AE of ``ae_type`` (layers.py:1113-1196), in f32."""
     width = ffn_features // 2 if chunk else ffn_features
-    kw = dict(nnmf=nnmf, generator=generator, device=device)
+    kw = dict(nnmf=nnmf, nnmf_params=nnmf_params, generator=generator,
+              device=device)
     if ae_type == "simple":
         return Autoencoder(width, ae_hidden_features, **kw)
     if ae_type == "transpose":
@@ -59,9 +68,11 @@ def build_ae(*, ae_type: str, seq_len: int, ffn_features: int, heads: int = 1,
             return AutoencoderH(seq_len * heads, ae_hidden_features, heads,
                                 **kw)
         if nnmf:
-            raise NotImplementedError(
-                f"the heads AE's AutoNNMFLayer is not ported to torch yet: "
-                f"{NNMF_ITEM}")
+            return AutoNNMFLayer(
+                1, ae_hidden_seq_len, (seq_len * heads, width // heads),
+                (seq_len * heads, 1), nnmf_params.number_of_iterations,
+                local_learning=nnmf_params.local_learning, w_trainable=True,
+                disable_scale_grade=False, generator=generator, device=device)
         return AutoencoderT(seq_len * heads, ae_hidden_seq_len, **kw)
     if ae_type == "2d":
         return Autoencoder2D(order_2d, seq_len, width, ae_hidden_seq_len,
@@ -108,8 +119,9 @@ class AEAttention(_AEMixer):
                  ae_hidden_features: int = 128, ae_hidden_seq_len: int = 8,
                  order_2d: str = "sfsf", mask_type: str = "zeros",
                  chunk: bool = False, legacy_heads: bool = False,
-                 use_nnmf_layers: bool = False, save_attn_map: bool = False,
-                 *, generator: torch.Generator,
+                 use_nnmf_layers: bool = False,
+                 nnmf_params: NNMFParams = NNMFParams(),
+                 save_attn_map: bool = False, *, generator: torch.Generator,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         if mask_type not in ("zeros", "random"):
@@ -126,7 +138,8 @@ class AEAttention(_AEMixer):
             heads=head, chunk=chunk, legacy_heads=legacy_heads,
             ae_hidden_features=ae_hidden_features,
             ae_hidden_seq_len=ae_hidden_seq_len, order_2d=order_2d,
-            nnmf=use_nnmf_layers, generator=generator, device=device)
+            nnmf=use_nnmf_layers, nnmf_params=nnmf_params,
+            generator=generator, device=device)
         self.V = Linear(width, features, **lin)
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
@@ -171,16 +184,15 @@ class AEAttentionHeads(_AEMixer):
     def __init__(self, features: int, seq_len: int, ffn_features: int,
                  heads: int = 1, ae_hidden_seq_len: int = 8,
                  mask_type: str = "zeros", chunk: bool = False,
-                 use_nnmf_layers: bool = False, save_attn_map: bool = False,
-                 mask_chunk: int = 16, *, generator: torch.Generator,
+                 use_nnmf_layers: bool = False,
+                 nnmf_params: NNMFParams = NNMFParams(),
+                 save_attn_map: bool = False, mask_chunk: int = 16, *,
+                 generator: torch.Generator,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         if mask_type not in ("zeros", "random"):
             raise ValueError(f"mask_type={mask_type!r}")
-        if use_nnmf_layers:
-            raise NotImplementedError(
-                f"AEAttentionHeads with NNMF layers (its W.W^T shortcut) is "
-                f"not ported to torch yet: {NNMF_ITEM}")
+        self.nnmf = use_nnmf_layers
         self.heads, self.mask_type, self.chunk = heads, mask_type, chunk
         self.mask_chunk = mask_chunk
         self.save_attn_map, self.dtype = save_attn_map, dtype
@@ -192,6 +204,7 @@ class AEAttentionHeads(_AEMixer):
         self.AE = build_ae(
             ae_type="heads", seq_len=seq_len, ffn_features=ffn_features,
             heads=heads, chunk=chunk, ae_hidden_seq_len=ae_hidden_seq_len,
+            nnmf=use_nnmf_layers, nnmf_params=nnmf_params,
             generator=generator, device=device)
         self.V = Linear(width, features, **lin)
 
@@ -216,7 +229,18 @@ class AEAttentionHeads(_AEMixer):
         Fh, S = width // self.heads, self.heads * T
         x_heads, z_heads = self._to_heads(x1), self._to_heads(z)
         ae_input = z_heads.reshape(B, S, Fh)
-        ae_out, ae_hidden = self.AE(ae_input)
+        if self.nnmf:
+            ae_input = ae_input[:, None]  # (B, 1, h*T, F/h)
+            ae_out = self.AE(ae_input)
+            ae_hidden = self.AE.hidden_activity
+            w = self.AE.nnmf_weights.detach()
+            wwt = w @ w.T
+            # the W.W^T shortcut over the masked rows (layers.py:1026-1029)
+            preds_of = lambda zm: torch.einsum(  # noqa: E731
+                "cd,bidf->bicf", wwt, zm)
+        else:
+            ae_out, ae_hidden = self.AE(ae_input)
+            preds_of = lambda zm: self.AE(zm)[0]  # noqa: E731
         self.ae_input, self.ae_output, self.ae_hidden = (ae_input, ae_out,
                                                          ae_hidden)
         with torch.no_grad():
@@ -231,7 +255,7 @@ class AEAttentionHeads(_AEMixer):
                     eye_c = (rows[:, None] == col[None, :]).to(z.dtype)
                     # (B, c, heads, T, F/h)
                     zm = eye_c[None, :, None, :, None] * z_heads[:, None]
-                    preds = self.AE(zm.reshape(B, len(rows), S, Fh))[0]
+                    preds = preds_of(zm.reshape(B, len(rows), S, Fh))
                     preds = preds.reshape(zm.shape)
                     parts.append(torch.sum(preds * z_heads[:, None], dim=-1))
                 dist = torch.cat(parts, dim=1)  # (B,T,h,T)
@@ -239,7 +263,7 @@ class AEAttentionHeads(_AEMixer):
                 noise = None if self.mask_type == "zeros" else self._noise(
                     (B, T, T, width), z.device, generator)
                 zm = self._to_heads(_eye_mask(z, self.mask_type, noise))
-                preds = self.AE(zm.reshape(B, T, S, Fh))[0].reshape(zm.shape)
+                preds = preds_of(zm.reshape(B, T, S, Fh)).reshape(zm.shape)
                 dist = torch.sum(preds * z_heads[:, None], dim=-1)
             attn_map = torch.softmax(dist.transpose(1, 2), dim=-1)
         if self.save_attn_map:

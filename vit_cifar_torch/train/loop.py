@@ -3,7 +3,8 @@
 Reference: the Lightning ``Trainer`` and the ``Net`` hooks (main.py:196-243,
 network.py).  ``train`` keeps their behaviour:
 
-  * the per-epoch warmup -> cosine schedule, its lr logged as ``lr_0``;
+  * the per-epoch warmup -> cosine schedule, its lr logged as ``lr_0``
+    (and, under ``madam``, the NNMF group's as ``lr_1``);
   * the NaN-parameter guard that stops training (network.py:226-228), read
     with the eval's sums and checked before the epoch's histograms;
   * the val loop's val_loss and val_acc over the padded, masked test set;
@@ -91,10 +92,11 @@ def _full_payload(state: TrainState, epoch: int,
     """Everything a resumed run needs, as Lightning's checkpoints embed the
     optimizer and scheduler state: the weights (named views of one copy of
     the flat vector, so they are stored once and load as the model's state
-    dict), the optimizer state (count and moments) and the AE-internal
-    one where there is one, the step, the epoch, the best val_loss and the
-    generator's state.  The lr needs no state of its own: the schedule is a
-    function of the restored count."""
+    dict), the model's buffers where it has any (``model_state``), the
+    optimizer state (count and moments) and the AE-internal one where there
+    is one, the step, the epoch, the best val_loss and the generator's
+    state.  The lr needs no state of its own: the schedule is a function of
+    the restored count."""
     flat = state.params.detach().to("cpu", copy=True)
     params, offset = {}, 0
     for name, p in state.model.named_parameters():
@@ -107,6 +109,9 @@ def _full_payload(state: TrainState, epoch: int,
                "generator": state.generator.get_state()}
     if state.ae_opt_state is not None:
         payload["ae_opt_state"] = _to_cpu(state.ae_opt_state)
+    buffers = dict(state.model.named_buffers())
+    if buffers:
+        payload["model_state"] = _to_cpu(buffers)
     return payload
 
 
@@ -127,6 +132,9 @@ def _restore_state(cfg: Config, state: TrainState):
     if "ae_opt_state" in payload:
         state.ae_opt_state = {k: v.to(dev)
                               for k, v in payload["ae_opt_state"].items()}
+    with torch.no_grad():
+        for name, buf in state.model.named_buffers():
+            buf.copy_(payload["model_state"][name])
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     return state, int(payload["epoch"]) + 1
@@ -197,7 +205,7 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
     # the schedule's epoch is count // sched_steps: the optimizer steps of
     # a whole epoch, all its passes
     sched_steps = steps_per_epoch * epoch_passes
-    tx = make_optimizer(cfg, sched_steps)
+    tx = make_optimizer(cfg, sched_steps, model)
     state = init_state(cfg, model, tx)
     start_epoch = 0
     if cfg.resume:
@@ -231,6 +239,10 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
     passes = 1 if cfg.dry_run else epoch_passes
     lr_sched = warmup_cosine_epoch_schedule(
         cfg.lr, cfg.min_lr, cfg.warmup_epoch, cfg.max_epochs, sched_steps)
+    # the NNMF parameter group's lr under madam (network.py:98-105)
+    lr_sched_nnmf = warmup_cosine_epoch_schedule(
+        cfg.lr_nnmf, cfg.min_lr, cfg.warmup_epoch, cfg.max_epochs,
+        sched_steps) if cfg.optimizer == "madam" else None
     # the fixed 10-image probe of the layer-output histograms (main.py:
     # 187-194, ``_sample_input_data``)
     probe_img = normalize(x_train[:10], cfg.mean, cfg.std).to(
@@ -286,12 +298,17 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
                     if (cfg.log_gradients and not cfg.dry_run
                             and gstep % cfg.log_gradients_interval == 0):
                         # the very gradients of this step: the generator
-                        # is rewound so that the step draws the same batch
+                        # and the buffers are rewound so that the step
+                        # draws the same batch from the same state
                         rewind = state.generator.get_state()
+                        buffers = [b.clone() for b in model.buffers()]
                         batch = train_step.make_batch(state, x_epoch,
                                                       y_train, perm, i)
                         grads = train_step.loss_and_grads(state, *batch)[2]
                         state.generator.set_state(rewind)
+                        with torch.no_grad():
+                            for b, old in zip(model.buffers(), buffers):
+                                b.copy_(old)
                         log_histograms(logger, dict(zip(names, grads)),
                                        "grads", gstep, epoch)
                     state, _ = train_step(state, x_epoch, y_train, perm, i)
@@ -320,13 +337,15 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
             except Exception as e:  # the reference's IndexError fallback
                 print(f"[vit_cifar_torch] layer-output histograms failed: "
                       f"{e}")
-        lr_now = float(lr_sched(torch.tensor(epoch * sched_steps + 1)))
+        first = torch.tensor(epoch * sched_steps + 1)
         row = dict(
             loss=metrics["loss"], acc=metrics["acc"], val_loss=val_loss,
-            val_acc=val_acc, lr_0=lr_now, epoch_time=round(ep_time, 3),
-            eval_time=round(eval_time, 3),
+            val_acc=val_acc, lr_0=float(lr_sched(first)),
+            epoch_time=round(ep_time, 3), eval_time=round(eval_time, 3),
             images_per_sec=round(
                 n_steps * cfg.batch_size / max(ep_time, 1e-9), 1))
+        if lr_sched_nnmf is not None:
+            row["lr_1"] = float(lr_sched_nnmf(first))
         for k in ("unsupervised_loss", "skipped_nonfinite"):
             if k in metrics:
                 row[k] = metrics[k]

@@ -22,17 +22,26 @@ with a ``torch.where`` and no host read:
   i.e. torch's ``Adam(weight_decay=...)``: L2 added to the gradient before
   the moments, not AdamW.
 * ``sgd``: ``add_decayed_weights`` -> ``trace(decay=beta1)`` -> lr.
+* ``madam``: the entries of parameters whose name, in lower case, holds
+  ``nnmf`` or ``_weights`` (the reference's NNMF group, network.py:90-96)
+  take Madam (``ops/nnmf/optimizer.py``) under the ``lr_nnmf`` schedule;
+  the others take the Adam chain under ``lr``.  One count serves both, as
+  JAX's guard rolls its two counts back together, and one pair of moment
+  vectors holds each entry's own.
 
 The schedule's count lives in the optimizer state, as in optax, so a step
 that the guard skips rolls it back with the moments: the lr follows the
 count of applied updates, not the step counter.
 
 ``frozen_mask`` is the JAX package's ``main_optimizer_frozen_fn`` on the
-flat vector: torch's optimizers skip a parameter whose ``.grad`` is None,
-and under ``ae`` + ``ce`` the AE and (except heads without ``--chunk``)
-``norm1`` have no gradient path.  Their gradients are zeros here; the train
-step also zeroes their entries of the parameters it hands the decay term,
-so that their update is exactly zero and their moments stay zero.
+flat vector: torch's optimizers skip a parameter whose ``.grad`` is None.
+Under ``ae`` + ``ce`` the AE and (except heads without ``--chunk``)
+``norm1`` have no gradient path, and an ``nnmf_weights`` whose layer is not
+trainable gets ``grad_weights = None`` from the reference's backward
+(NNMFLinear.py:377-381), under every criterion.  Their gradients are zeros
+here; the train step also zeroes their entries of the parameters it hands
+the optimizer (the decay term, and Madam's multiplicative factor), so that
+their update is exactly zero and their moments stay zero.
 """
 
 from __future__ import annotations
@@ -44,8 +53,8 @@ import torch
 from torch import nn
 
 from ..config import Config
-
-_MADAM_ITEM = "ROADMAP queue 1, item 7 (zoo mixers: NNMF, Madam, gated_nnmf)"
+from ..ops.nnmf.layers import nnmf_weight_trainable
+from ..ops.nnmf.optimizer import madam
 
 
 def warmup_cosine_epoch_schedule(base_lr: float, min_lr: float,
@@ -95,14 +104,17 @@ def frozen_mask(cfg: Config, model: nn.Module) -> torch.Tensor | None:
     """A bool vector over the flat parameters, True where the main
     optimizer must leave an entry alone (see the module docstring); None
     where it leaves none alone."""
-    if cfg.model_name != "ae" or cfg.criterion == "aece":
-        return None
-    norm1_has_path = (cfg.ae_type == "heads" and not cfg.legacy_heads
-                      and not cfg.chunk)
-    frozen = ("AE",) if norm1_has_path else ("AE", "norm1")
+    frozen = ()
+    if cfg.model_name == "ae" and cfg.criterion != "aece":
+        norm1_has_path = (cfg.ae_type == "heads" and not cfg.legacy_heads
+                          and not cfg.chunk)
+        frozen = ("AE",) if norm1_has_path else ("AE", "norm1")
 
     def is_frozen(name: str) -> bool:
         parts = name.split(".")
+        if parts[-1] == "nnmf_weights" and not nnmf_weight_trainable(
+                parts, cfg.train_md_bases):
+            return True
         return any(a == "mixer" and b in frozen
                    for a, b in zip(parts, parts[1:]))
 
@@ -154,7 +166,32 @@ def _sgd(schedule, momentum: float, weight_decay: float):
     return FlatOptimizer(init, update)
 
 
-def make_optimizer(cfg: Config, steps_per_epoch: int) -> FlatOptimizer:
+def is_nnmf_group(name: str) -> bool:
+    """The reference's NNMF parameter group (network.py:90-96): a name
+    holding ``nnmf`` or ``_weights`` in lower case."""
+    name = name.lower()
+    return "nnmf" in name or "_weights" in name
+
+
+def _routed(mask: torch.Tensor, first: FlatOptimizer,
+            second: FlatOptimizer) -> FlatOptimizer:
+    """``second`` on the entries where ``mask`` is True, ``first`` on the
+    rest; their states share one count and one vector of each moment."""
+
+    def update(grads, state, params):
+        u1, s1 = first.update(grads, state, params)
+        u2, s2 = second.update(grads, state, params)
+        return torch.where(mask, u2, u1), {
+            k: s1[k] if k == "count" else torch.where(mask, s2[k], s1[k])
+            for k in s1}
+
+    return FlatOptimizer(first.init, update)
+
+
+def make_optimizer(cfg: Config, steps_per_epoch: int,
+                   model: nn.Module | None = None) -> FlatOptimizer:
+    """The optimizer of ``cfg``; ``madam`` routes by parameter name, so it
+    needs the ``model`` whose flat parameters it updates."""
     schedule = warmup_cosine_epoch_schedule(
         cfg.lr, cfg.min_lr, cfg.warmup_epoch, cfg.max_epochs, steps_per_epoch)
     if cfg.optimizer == "adam":
@@ -162,7 +199,14 @@ def make_optimizer(cfg: Config, steps_per_epoch: int) -> FlatOptimizer:
     if cfg.optimizer == "sgd":
         return _sgd(schedule, cfg.beta1, cfg.weight_decay)
     if cfg.optimizer == "madam":
-        raise NotImplementedError(
-            f"optimizer 'madam' is not ported to torch yet: it comes with "
-            f"the NNMF models, {_MADAM_ITEM}")
+        if model is None:
+            raise ValueError("madam routes by parameter name: pass the model")
+        nnmf_schedule = warmup_cosine_epoch_schedule(
+            cfg.lr_nnmf, cfg.min_lr, cfg.warmup_epoch, cfg.max_epochs,
+            steps_per_epoch)
+        return _routed(
+            flat_mask(model, is_nnmf_group),
+            adam(schedule, cfg.beta1, cfg.beta2, 1e-8, cfg.weight_decay),
+            madam(nnmf_schedule, cfg.beta1, cfg.beta2, 1e-8,
+                  cfg.weight_decay))
     raise NotImplementedError(f"Unknown optimizer: {cfg.optimizer}")

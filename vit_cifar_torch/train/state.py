@@ -3,7 +3,10 @@
 The JAX package's state is an immutable pytree that the jitted step
 replaces; here the train step updates it in place (the flat parameter
 vector, which the model's parameters view, is written with ``copy_``) and
-returns it, so that memory holds one copy of the weights.
+returns it, so that memory holds one copy of the weights.  The model's
+buffers (the persistent bases of ``--train-md-bases``) are the counterpart
+of JAX's ``model_state``: they live in ``model``, which the forward updates
+in place, and travel in the checkpoint's ``model_state``.
 """
 
 from __future__ import annotations

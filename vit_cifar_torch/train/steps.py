@@ -30,6 +30,14 @@ softmax are detached) get zero gradients, and under ``ae`` + ``ce`` the
 decay term sees those entries as zero (``optim.frozen_mask``), so that the
 main update leaves them exactly where the AE steps put them.
 
+NNMF (JAX :352-372): after the update and the guard's ``torch.where``,
+every trainable ``nnmf_weights`` gets the after-care (norm -> clamp at
+``nnmf_learning_rate_threshold_w`` -> norm), on a skipped step too, as in
+JAX; that includes the heads AE's weight under ``ae`` + ``ce``, which the
+main optimizer leaves alone.  The model's buffers (the persistent bases of
+``--train-md-bases``, JAX's ``model_state``) are written by the forward in
+training mode and are not rolled back by the guard, as in JAX.
+
 The batch is a seam: ``train_step.make_batch`` gathers and augments, and
 ``train_step.on_batch`` trains on a batch it is handed, so a test can feed
 it the JAX package's augmented batch.  ``train_step.loss_and_grads`` is the
@@ -46,6 +54,8 @@ import torch
 from ..config import Config, torch_dtype
 from ..data import augment
 from ..data.autoaugment import autoaugment_batch, policy_for_dataset
+from ..ops.nnmf.layers import (nnmf_after_care, nnmf_slices,
+                               nnmf_weight_trainable)
 from .losses import make_criterion, make_per_example_loss
 from .optim import FlatOptimizer, frozen_mask
 from .state import TrainState
@@ -53,18 +63,11 @@ from .unsupervised import (collect_ae_terms, make_unsupervised_update,
                            uses_unsupervised)
 
 def _check_supported(cfg: Config) -> None:
-    """The branches of the JAX step that the port has no model for yet."""
-    unported = {
-        "MoE": (cfg.moe_experts > 0, "MoE"),
-        "NNMF layers": (cfg.use_nnmf_layers
-                        or cfg.model_name.startswith("gnnmf"),
-                        "NNMF, Madam, gated_nnmf"),
-    }
-    for what, (on, item) in unported.items():
-        if on:
-            raise NotImplementedError(
-                f"the train step for {what} is not ported to torch yet: "
-                f"ROADMAP queue 1, item 7 (zoo mixers: {item})")
+    """The branch of the JAX step that the port has no model for yet."""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "the train step for MoE is not ported to torch yet: "
+            "ROADMAP queue 1, item 7 (zoo mixers: MoE)")
 
 
 def make_metrics_zeros(cfg: Config,
@@ -99,6 +102,8 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
     run_ae_steps = (make_unsupervised_update(cfg, model)[1]
                     if unsupervised else None)
     frozen = frozen_mask(cfg, model)
+    after_care = nnmf_slices(model, trainable=lambda names: (
+        nnmf_weight_trainable(names, cfg.train_md_bases)))
 
     def make_batch(state: TrainState, x_all, y_all, perm, i: int):
         """Gather and augment step ``i``'s batch: (img in the compute
@@ -173,6 +178,8 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
             if unsupervised:
                 metrics["unsupervised_loss"] = unsup_loss
             state.params.copy_(new_params)  # the model's weights are views
+            nnmf_after_care(state.params, after_care,
+                            cfg.nnmf_learning_rate_threshold_w)
             state.opt_state = opt_state
             if state.metrics_acc is not None:
                 state.metrics_acc = {k: a + metrics[k].to(a.dtype)

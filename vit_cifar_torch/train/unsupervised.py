@@ -19,9 +19,11 @@ Parity details kept:
   * the heads variant SKIPS an update whose loss is nan/inf
     (layers.py:1071-1072): the AE entries, the count and the moments keep
     their values and the step adds 0 to the reported loss;
-  * gradients reach only the AE parameters (the inputs are detached).
-
-The NNMF-heads variant's Madam comes with the NNMF layers and raises.
+  * gradients reach only the AE parameters (the inputs are detached);
+  * the heads AE built of NNMF layers (``--use-nnmf-layers``) takes Madam
+    at lr 1e-3 with no decay (layers.py:963-975), and each inner step ends
+    with the after-care at threshold 1e-3 on its ``nnmf_weights``
+    (layers.py:1077-1085), before the nan/inf skip.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import torch
 from torch import nn
 
 from ..config import Config
-from ..ops.autoencoders import NNMF_ITEM
+from ..ops.nnmf.layers import nnmf_after_care, nnmf_slices
+from ..ops.nnmf.optimizer import madam
 from .optim import adam, flat_mask
 from .state import TrainState
 
@@ -53,6 +56,13 @@ def ae_mixers(model: nn.Module) -> list[nn.Module]:
     return [m for m in model.modules() if hasattr(m, "ae_input")]
 
 
+def _reconstruction(ae: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """An AE's reconstruction: the first of its outputs, or its only one
+    (``AutoNNMFLayer``)."""
+    out = ae(x)
+    return out[0] if isinstance(out, tuple) else out
+
+
 def collect_ae_terms(model: nn.Module) -> list[tuple]:
     """The (hidden, input, output) triples of the last forward, one per AE
     mixer, for the ``aece`` criterion."""
@@ -67,11 +77,10 @@ def make_unsupervised_update(cfg: Config, model: nn.Module):
     ``state.ae_opt_state`` in place, and returns the summed loss (a tensor
     on the device; nothing is read back)."""
     heads = cfg.ae_type == "heads" and not cfg.legacy_heads
-    if heads and cfg.use_nnmf_layers:
-        raise NotImplementedError(
-            f"the heads+NNMF AE's Madam is not ported to torch yet: "
-            f"{NNMF_ITEM}")
-    tx = adam(lambda count: AE_LR, 0.9, 0.999, 1e-8, 0.0)
+    heads_nnmf = heads and cfg.use_nnmf_layers
+    tx = (madam if heads_nnmf else adam)(lambda count: AE_LR, 0.9, 0.999,
+                                         1e-8, 0.0)
+    after_care = (nnmf_slices(model, is_ae_param) if heads_nnmf else [])
     ae_params = [p for n, p in model.named_parameters() if is_ae_param(n)]
     if not ae_params:
         raise ValueError("unsupervised AE steps need a model with AEs")
@@ -88,7 +97,7 @@ def make_unsupervised_update(cfg: Config, model: nn.Module):
                             device=state.params.device)
         for _ in range(cfg.unsupervised_steps):
             with torch.enable_grad():
-                loss = sum(torch.mean((ae(x)[0] - x) ** 2)
+                loss = sum(torch.mean((_reconstruction(ae, x) - x) ** 2)
                            for ae, x in zip(aes, inputs))
                 grads = torch.autograd.grad(loss, ae_params)
             with torch.no_grad():
@@ -98,6 +107,7 @@ def make_unsupervised_update(cfg: Config, model: nn.Module):
                     torch.cat([g.reshape(-1) for g in grads]),
                     state.ae_opt_state, old)
                 new = old + updates
+                nnmf_after_care(new, after_care, AE_LR)
                 if heads:
                     ok = torch.isfinite(loss)
                     new = torch.where(ok, new, old)

@@ -5,8 +5,10 @@ or orbax give).  The port's parameters have the flax names joined by dots;
 a Linear's flax ``kernel`` (in, out) is the port's ``weight`` (out, in), and
 a LayerNorm's ``scale`` is its ``weight``.  Every other parameter keeps its
 name and layout, whatever its rank: GatedMLP's TxT ``weight`` is a
-``weight`` on both sides, AFT's ``w``, ``u`` and ``v`` are themselves.
-numpy and torch only.
+``weight`` on both sides, AFT's ``w``, ``u`` and ``v`` are themselves, an
+NNMF layer's (C, M) ``nnmf_weights`` is (C, M) on both sides.  JAX's
+``state`` collection (the persistent ``bases`` of ``--train-md-bases``) is
+the port's buffers, by the same dotted names.  numpy and torch only.
 """
 
 from __future__ import annotations
@@ -27,9 +29,11 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), val
 
 
-def state_dict_from_flax(params) -> dict[str, torch.Tensor]:
-    """Nested flax params -> the port's ``state_dict``."""
-    out = {}
+def state_dict_from_flax(params, state=None) -> dict[str, torch.Tensor]:
+    """Nested flax params (and the ``state`` collection, where given) ->
+    the port's ``state_dict``."""
+    out = {".".join(path): torch.from_numpy(np.array(val))
+           for path, val in _flatten(state or {})}
     for path, val in _flatten(params):
         arr = np.asarray(val)
         *mod, leaf = path
@@ -41,16 +45,21 @@ def state_dict_from_flax(params) -> dict[str, torch.Tensor]:
     return out
 
 
-def flax_from_state_dict(model: nn.Module, state_dict=None) -> dict:
-    """The port's ``state_dict`` (default ``model``'s own) -> nested flax
-    params of numpy arrays.  ``model`` names the module that owns each
+def flax_from_state_dict(model: nn.Module, state_dict=None,
+                         collection: str = "params") -> dict:
+    """The port's ``state_dict`` (default ``model``'s own) -> the nested
+    flax ``collection`` of numpy arrays: ``"params"`` from the parameters,
+    ``"state"`` from the buffers.  ``model`` names the module that owns each
     parameter: a Linear's ``weight`` becomes a transposed ``kernel``, a
     LayerNorm's a ``scale``, anything else keeps its name."""
     if state_dict is None:
         state_dict = model.state_dict()
     owners = dict(model.named_modules())
+    buffers = {name for name, _ in model.named_buffers()}
     out: dict = {}
     for key, val in state_dict.items():
+        if (key in buffers) != (collection == "state"):
+            continue
         *mod, leaf = key.split(".")
         arr = val.detach().cpu().numpy()
         owner = owners[".".join(mod)]
