@@ -272,8 +272,7 @@ def test_matmul_precision_is_restored(tmp_path, raw):
     assert torch.get_float32_matmul_precision() == before
 
 
-@pytest.mark.parametrize("kw", [dict(mesh_shape=(2,)), dict(multihost=True),
-                                dict(model_name="hamburger")],
+@pytest.mark.parametrize("kw", [dict(mesh_shape=(2,)), dict(multihost=True)],
                          ids=lambda kw: next(iter(kw)))
 def test_runs_without_a_model_in_the_port_raise(tmp_path, raw, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -433,13 +433,6 @@ def test_train_step_with_batch_mixing(mix):
     assert int(state.opt_state["count"]) == 4
 
 
-@pytest.mark.parametrize("kw", [dict(moe_experts=2)],
-                         ids=lambda kw: next(iter(kw)))
-def test_unported_step_branches_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(tconfig.Config(**dict(TINY, **kw)), None, None)
-
-
 def test_eval_step_masked_sums_match_jax():
     # the JAX side on its einsum path (its interpret-mode kernel is slow
     # outside jit and numerically interchangeable); the port on its kernel

@@ -143,28 +143,15 @@ def test_state_dict_round_trip_and_param_count():
         np.testing.assert_array_equal(node, np.asarray(leaf))
 
 
-PORTED = ("vit", "ae", "ae_baseline", "aftfull", "aftsimple", "gmlp", "wgmlp",
-          "linear", "gnnmf_ham", "gnnmf_sbs", "gnnmf_sbsed")
-
-
-@pytest.mark.parametrize("name", [n for n in jconfig.MODEL_NAMES
-                                  if n not in PORTED] + ["no_such_model"])
+@pytest.mark.parametrize("name", ["no_such_model"])
 def test_get_model_raises_for_models_not_ported(name):
     with pytest.raises(NotImplementedError):
         get_model(tconfig.Config(model_name=name), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(moe_experts=2)],
-                         ids=lambda kw: next(iter(kw)))
-def test_get_model_raises_for_options_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(tconfig.Config(**kw), device="cpu")
-
-
 @pytest.mark.parametrize("kw", [dict(seq_pad=1),
-                                dict(act_constraint=lambda h: h),
-                                dict(mlp_factory=object)],
-                         ids=["seq_pad", "act_constraint", "mlp_factory"])
+                                dict(act_constraint=lambda h: h)],
+                         ids=["seq_pad", "act_constraint"])
 def test_vit_options_not_ported_raise(kw):
     g = torch.Generator()
     with pytest.raises(NotImplementedError, match=next(iter(kw))):

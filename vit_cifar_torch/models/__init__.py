@@ -1,17 +1,20 @@
 """Model factory: ``get_model(cfg) -> (model, can_learn_unsupervised)``, as
 ``vit_cifar_tpu/models/__init__.py``: one ViT trunk and a registry of token
-mixers.
+mixers, plus the two CNN models (``models/cnn.py``).
 
-Ported: ``vit``, ``ae`` (``AEAttention``, or ``AEAttentionHeads`` for
-``ae_type="heads"`` without ``--legacy-heads``; with or without
-``--use-nnmf-layers``), ``ae_baseline``, ``aftfull``, ``aftsimple``,
-``gmlp``, ``wgmlp``, ``linear`` and the gated-NNMF models ``gnnmf_ham``,
-``gnnmf_sbs`` and ``gnnmf_sbsed``.  The JAX
-factory's deviations from reference bugs are kept: AFT's head is pinned to 1
-(the reference crashes for head > 1, layers.py:128), AFT-Simple's gate is
-always on (layers.py:233), and ``ae_baseline`` is the working equivalent of
-the reference's crashing model.  Every other name and ``--moe-experts`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Every name of ``MODEL_NAMES`` builds: ``vit``, ``ae`` (``AEAttention``, or
+``AEAttentionHeads`` for ``ae_type="heads"`` without ``--legacy-heads``;
+with or without ``--use-nnmf-layers``), ``ae_baseline``, ``aftfull``,
+``aftsimple``, ``gmlp``, ``wgmlp``, ``linear``, the gated-NNMF models
+``gnnmf_ham``, ``gnnmf_sbs`` and ``gnnmf_sbsed``, ``hamburger``,
+``hamburger_attention``, ``lgcnn``, ``wlgcnn`` and ``cnn_baseline``; and
+``--moe-experts`` swaps the ViT trunk's encoder MLP for the MoE MLP.  The
+JAX factory's deviations from reference bugs are kept: AFT's head is pinned
+to 1 (the reference crashes for head > 1, layers.py:128), AFT-Simple's gate
+is always on (layers.py:233), and ``ae_baseline`` and ``cnn_baseline`` are
+the working equivalents of the reference's crashing models.  The hamburger
+models take persistent EMA bases under ``--train-md-bases`` (``rand_init =
+not train_md_bases``), as ``gnnmf_ham`` does.
 """
 
 from __future__ import annotations
@@ -28,16 +31,12 @@ from ..ops.attention import MultiHeadSelfAttention
 from ..ops.autoencoders import NNMFParams
 from ..ops.gated_nnmf import GatedNNMF
 from ..ops.gmlp import GatedMLP, LinearAttention, WeightGatedMLP
+from ..ops.hamburger import Hamburger, HamburgerAttention
+from ..ops.moe import MoEMLP
+from .cnn import BaselineCNN, LocalGlobalCNN
 from .vit import ViT
 
-_BATCHNORM_ITEM = ("ROADMAP queue 1, item 7 (zoo mixers: BatchNorm, with "
-                   "the hamburger burgers and the CNN models)")
-_MOE_ITEM = "ROADMAP queue 1, item 7 (zoo mixers: MoE)"
-_UNPORTED = {
-    "hamburger": _BATCHNORM_ITEM, "hamburger_attention": _BATCHNORM_ITEM,
-    "lgcnn": _BATCHNORM_ITEM, "wlgcnn": _BATCHNORM_ITEM,
-    "cnn_baseline": _BATCHNORM_ITEM,
-}
+CNN_MODELS = ("cnn_baseline", "lgcnn", "wlgcnn")
 AFT_MODES = {"aftfull": "full", "aftsimple": "simple"}
 
 
@@ -68,6 +67,16 @@ def _make_mixer(cfg: Config, dtype: torch.dtype, generator, device):
             dropout=cfg.dropout,
             # the encoder never forwards --no-query to AFTSimple
             query=cfg.query if name == "aftfull" else True, **common)
+    if name in ("hamburger", "hamburger_attention"):
+        # the reference wrapper passes only version/in_c/depthwise
+        # (layers.py:243-258): the MD steps stay at the burger's 6/7
+        burger = dict(burger_mode=cfg.burger_mode, depthwise=cfg.depthwise,
+                      rand_init=not cfg.train_md_bases, **common)
+        if name == "hamburger":
+            return functools.partial(Hamburger, cfg.seq_len, h, **burger)
+        return functools.partial(HamburgerAttention, cfg.seq_len, h,
+                                 dropout=cfg.dropout, query=cfg.query,
+                                 **burger)
     gated = {"gmlp": GatedMLP, "wgmlp": WeightGatedMLP,
              "linear": LinearAttention}
     if name in gated:
@@ -117,15 +126,36 @@ def get_model(cfg: Config, *, device="cuda",
     name = cfg.model_name
     if name not in MODEL_NAMES:
         raise NotImplementedError(f"{name} is not implemented yet...")
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to torch yet: {_UNPORTED[name]}")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            f"--moe-experts is not ported to torch yet: {_MOE_ITEM}")
+    if cfg.moe_experts > 0 and name in CNN_MODELS:
+        raise ValueError(
+            "--moe-experts replaces the ViT-trunk encoder MLP (ops/moe.py); "
+            f"CNN model {name!r} has no encoder MLP to replace.")
+    if cfg.moe_experts > 0 and not cfg.use_encoder_mlp:
+        raise ValueError(
+            "--moe-experts requires the encoder MLP; it is disabled "
+            "(use_encoder_mlp=False).")
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     dtype = torch_dtype(cfg)
+    common = dict(generator=generator, dtype=dtype, device=device)
+    if name == "cnn_baseline":
+        return BaselineCNN(cfg.num_classes, img_size=cfg.img_size,
+                           in_c=cfg.in_c, **common), False
+    if name in ("lgcnn", "wlgcnn"):
+        return LocalGlobalCNN(
+            weight_gated=name == "wlgcnn", num_layers=cfg.num_layers,
+            num_classes=cfg.num_classes,
+            n_channels=cfg.hidden,  # utils.py:220: the ViT hidden
+            hidden_features=cfg.ffn_features, img_size=cfg.img_size,
+            patch=cfg.patch, kernel_size=cfg.kernel_size,
+            use_cls_token=cfg.is_cls_token, mlp_hidden=cfg.mlp_hidden,
+            dropout=cfg.dropout, normalization=cfg.cnn_normalization,
+            use_mlp=cfg.use_encoder_mlp, in_c=cfg.in_c, **common), False
+    mlp_factory = None
+    if cfg.moe_experts > 0:
+        mlp_factory = functools.partial(
+            MoEMLP, cfg.hidden, cfg.mlp_hidden, cfg.moe_experts,
+            cfg.moe_capacity_factor, cfg.dropout, **common)
     model = ViT(
         _make_mixer(cfg, dtype, generator, device),
         num_classes=cfg.num_classes, img_size=cfg.img_size,
@@ -136,6 +166,6 @@ def get_model(cfg: Config, *, device="cuda",
         # the plain ViT has no pos_emb flag (reference vit.py:19-48); every
         # other transformer model takes it
         pos_emb=True if name == "vit" else cfg.pos_emb,
-        generator=generator, dtype=dtype, device=device, remat=cfg.remat)
+        remat=cfg.remat, mlp_factory=mlp_factory, **common)
     # only the AEViT can learn unsupervised (reference utils.py:279)
     return model, name == "ae"

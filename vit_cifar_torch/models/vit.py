@@ -9,6 +9,9 @@ weights across is a transpose and a rename (``utils/transplant.py``).
 embedding at zeros: there is no parameter and nothing is added (reference
 vit.py:143-144).
 
+``mlp_factory`` makes each block's MLP in place of the dense one (the MoE
+MLP, ``ops/moe.py``).
+
 ``remat`` recomputes each encoder block in the backward
 (``torch.utils.checkpoint``) instead of keeping its activations, as the JAX
 package's ``nn.remat`` does.
@@ -40,11 +43,11 @@ class ViT(nn.Module):
                  mlp_factory=None):
         super().__init__()
         for name, value in (("seq_pad", seq_pad),
-                            ("act_constraint", act_constraint),
-                            ("mlp_factory", mlp_factory)):
+                            ("act_constraint", act_constraint)):
             if value:
                 raise NotImplementedError(
-                    f"ViT({name}=...) is not ported yet (ROADMAP queue 1)")
+                    f"ViT({name}=...) is not ported yet: ROADMAP queue 1, "
+                    "item 8 (parallel modes)")
         self.patch, self.dtype, self.remat = patch, dtype, remat
         self.is_cls_token = is_cls_token
         self.num_layers = num_layers
@@ -61,7 +64,8 @@ class ViT(nn.Module):
         for i in range(num_layers):
             self.add_module(f"enc{i}", EncoderBlock(
                 hidden, mlp_hidden, mixer, use_encoder_mlp, dropout,
-                generator=generator, dtype=dtype, device=device))
+                generator=generator, dtype=dtype, device=device,
+                mlp_factory=mlp_factory))
         self.fc_norm = LayerNorm(hidden, dtype=dtype, device=device)
         self.fc = Linear(hidden, num_classes, generator=generator,
                          dtype=dtype, device=device)

@@ -1,5 +1,5 @@
 """Shared building blocks: LayerNorm, the encoder MLP and the pre-LN encoder
-block.
+block, whose MLP an ``mlp_factory`` may replace (the MoE MLP).
 
 As in ``vit_cifar_tpu/ops/common.py``: the MLP is Linear -> GELU -> Dropout
 -> Linear -> GELU -> Dropout, a GELU after the *second* linear too
@@ -74,21 +74,24 @@ class EncoderMLP(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN encoder block around a token mixer made by ``mixer()``."""
+    """Pre-LN encoder block around a token mixer made by ``mixer()``; the
+    MLP, ``mlp``, is made by ``mlp_factory()`` where one is given (the MoE
+    MLP), else it is the reference's ``EncoderMLP``."""
 
     def __init__(self, features: int, mlp_hidden: int,
                  mixer: Callable[[], nn.Module], use_mlp: bool = True,
                  dropout: float = 0.0, *, generator: torch.Generator,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 mlp_factory: Callable[[], nn.Module] | None = None):
         super().__init__()
         self.la1 = LayerNorm(features, dtype=dtype, device=device)
         self.mixer = mixer()
         self.use_mlp = use_mlp
         if use_mlp:
             self.la2 = LayerNorm(features, dtype=dtype, device=device)
-            self.mlp = EncoderMLP(mlp_hidden, features, dropout,
-                                  generator=generator, dtype=dtype,
-                                  device=device)
+            self.mlp = mlp_factory() if mlp_factory else EncoderMLP(
+                mlp_hidden, features, dropout, generator=generator,
+                dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None):

@@ -1,8 +1,12 @@
-"""Matrix decomposition, as ``vit_cifar_tpu/ops/hamburger.py``: only
-``MatrixDecomposition2D`` (and its NMF, VQ and CD steps), which the
-``gnnmf_ham`` mixer runs.
+"""Hamburger, as ``vit_cifar_tpu/ops/hamburger.py``: the matrix
+decomposition, the bread and the burger assemblies, and the two token
+mixers built of them.
 
-Reference: hamburger/ham.py.  The module takes (B, H, W, C) NHWC inputs:
+Reference: hamburger/ham.py (the decomposition), hamburger/burger.py (V1,
+V2, V2+), hamburger/bread.py (ConvBNReLU), layers.py:243-300 (``Hamburger``
+and ``HamburgerAttention``).
+
+``MatrixDecomposition2D`` takes (B, H, W, C) NHWC inputs:
 
   * ``train_steps`` (training) or ``eval_steps`` multiplicative-update
     iterations run without gradients (ham.py:47-57), then ONE
@@ -22,8 +26,20 @@ Reference: hamburger/ham.py.  The module takes (B, H, W, C) NHWC inputs:
     non-finite guard does not roll it back, as JAX's does not.
 
 The math runs in f32 whatever the compute dtype; the output is cast back.
-``Hamburger``, ``HamburgerAttention`` and the burger assemblies come with
-BatchNorm (ROADMAP queue 1, item 7).
+
+The burgers (burger.py:17-206) run on NHWC: 1x1 convolutions with the
+He-normal init of fan kh*kw*OUT (biases zero, flax's default), BatchNorm
+with the reference's momentum 3e-4 (flax 1 - 3e-4) and torch's running
+statistics (``ops/norm.py``), an NMF ham with MD_D = 512, and 6 train /
+7 eval steps (the factory never sets the JAX module's ``ham_type`` or
+``md_iter``, so neither is an option here).  V2+ runs two hams over a
+channel split, both ``spatial = not depthwise`` as shipped (the reference
+assigns SPATIAL per ham but the base reads only DEPTHWISE), with
+``coef_shortcut`` = 1 and ``coef_ham`` = 0.  ``--burger-mode Gated``
+KeyErrors in the reference; it raises ``NotImplementedError`` here.
+``Hamburger`` implements the reference's intended semantics where its
+wrapper crashes: the (B, T, F) tokens become the NHWC image (B, F, 1, T),
+so ``in_c`` = seq_len.
 """
 
 from __future__ import annotations
@@ -31,7 +47,12 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from .common import dropout
+from .init import Linear, NHWCConv, he_conv_init
+from .norm import TorchBatchNorm
 
 
 def _l2_normalize(x: torch.Tensor, dim: int, eps: float = 1e-12):
@@ -183,3 +204,170 @@ class MatrixDecomposition2D(nn.Module):
                 new = self.bases + self.eta * (b - self.bases)
                 self.bases.copy_(_l2_normalize(new, 1))
         return out
+
+
+# -- the bread and the burgers ---------------------------------------------
+
+
+class _HeConv1x1(nn.Module):
+    """A 1x1 convolution with the burger's He-normal init; its flax
+    ``nn.Conv`` is the child ``conv``."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 *, generator: torch.Generator, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        weight = he_conv_init((features, in_features, 1, 1), generator)
+        bias = torch.zeros(features, device=device) if use_bias else None
+        self.conv = NHWCConv(weight.to(device), bias, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class _BN(nn.Module):
+    """bread.py's norm layer: SyncBN(momentum=3e-4), flax momentum
+    1 - 3e-4, as the child ``TorchBatchNorm_0`` (flax's automatic name)."""
+
+    def __init__(self, features: int, *, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.TorchBatchNorm_0 = TorchBatchNorm(
+            features, momentum=1.0 - 3e-4, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, *,
+                deterministic: bool = True) -> torch.Tensor:
+        return self.TorchBatchNorm_0(x, deterministic=deterministic)
+
+
+class ConvBNReLU(nn.Module):
+    """bread.py:17-50: a 1x1 conv without bias, BN, ReLU."""
+
+    def __init__(self, in_features: int, features: int, *,
+                 generator: torch.Generator, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.c = _HeConv1x1(in_features, features, use_bias=False,
+                            generator=generator, dtype=dtype, device=device)
+        self.bn = _BN(features, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, *,
+                deterministic: bool = True) -> torch.Tensor:
+        return F.relu(self.bn(self.c(x), deterministic=deterministic))
+
+
+class HamburgerBurger(nn.Module):
+    """The V1/V2/V2+ assemblies (burger.py:17-206) on (B, H, W, in_c)
+    NHWC inputs with ``H * W == spatial_size``."""
+
+    MD_D = 512  # the JAX module's default, which no caller changes
+
+    def __init__(self, in_c: int, version: str = "V1", spatial: bool = True,
+                 rand_init: bool = True, *,
+                 spatial_size: int, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        if version not in ("V1", "V2", "V2+"):
+            raise NotImplementedError(
+                f"--burger-mode {version!r}: the reference CLI offers "
+                "'Gated' but its dispatch KeyErrors (main.py:135 vs "
+                "burger.py:209-217)")
+        self.version = version
+        MD_D = self.MD_D
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        md = functools.partial(
+            MatrixDecomposition2D, MD_D if spatial else spatial_size, "NMF",
+            spatial=spatial, train_steps=6, eval_steps=7,
+            rand_init=rand_init, generator=generator, device=device)
+        if version in ("V1", "V2"):
+            self.lower_bread = _HeConv1x1(in_c, MD_D, **kw)
+            self.ham = md()
+            if version == "V1":
+                self.upper_bread = _HeConv1x1(MD_D, in_c, use_bias=False,
+                                              **kw)
+                self.upper_bn = _BN(in_c, dtype=dtype, device=device)
+            else:
+                self.cheese = ConvBNReLU(MD_D, MD_D, **kw)
+                self.upper_bread = _HeConv1x1(MD_D, in_c, use_bias=False,
+                                              **kw)
+            return
+        C = 2 * MD_D  # V2+: two hams over a channel split
+        self.lower_bread = _HeConv1x1(in_c, C, **kw)
+        self.ham_1, self.ham_2 = md(), md()
+        # CHEESE_FACTOR = S (1), doubled for the dual ham (burger.py:148-151)
+        self.cheese = ConvBNReLU(C, C // 2, **kw)
+        self.upper_bread = _HeConv1x1(C // 2, in_c, use_bias=False, **kw)
+        self.coef_shortcut = nn.Parameter(torch.ones(1, device=device))
+        self.coef_ham = nn.Parameter(torch.zeros(1, device=device))  # ZERO_HAM
+
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        kw = dict(deterministic=deterministic, generator=generator)
+        shortcut = x
+        x = F.relu(self.lower_bread(x))  # NMF wants a nonnegative input
+        if self.version == "V2+":
+            x1, x2 = x.chunk(2, dim=-1)
+            x = torch.cat([self.ham_1(x1, **kw), self.ham_2(x2, **kw)], -1)
+            x = self.cheese(x, deterministic=deterministic)
+            x = self.upper_bread(x)
+            # f32 coefficients: the sum is f32, as in JAX
+            return F.relu(self.coef_ham * x + self.coef_shortcut * shortcut)
+        x = self.ham(x, **kw)
+        if self.version == "V1":
+            x = self.upper_bn(self.upper_bread(x),
+                              deterministic=deterministic)
+        else:
+            x = self.upper_bread(self.cheese(x, deterministic=deterministic))
+        return F.relu(x + shortcut)
+
+
+class Hamburger(nn.Module):
+    """The token mixer of layers.py:243-260: the burger over the token
+    dimension, the (B, T, F) sequence viewed as the NHWC image
+    (B, F, 1, T)."""
+
+    def __init__(self, seq_len: int, features: int, burger_mode: str = "V1",
+                 depthwise: bool = False, rand_init: bool = True, *,
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.burger = HamburgerBurger(
+            seq_len, burger_mode, spatial=not depthwise, rand_init=rand_init,
+            spatial_size=features, generator=generator, dtype=dtype,
+            device=device)
+
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        img = x.transpose(1, 2)[:, :, None, :]  # (B, F, 1, T)
+        out = self.burger(img, deterministic=deterministic,
+                          generator=generator)
+        return out[:, :, 0, :].transpose(1, 2)
+
+
+class HamburgerAttention(nn.Module):
+    """layers.py:263-300: AFT-Simple whose K is the burger's output, with
+    the optional sigmoid gate ``Wq``."""
+
+    def __init__(self, seq_len: int, features: int, burger_mode: str = "V1",
+                 depthwise: bool = False, rand_init: bool = True,
+                 dropout: float = 0.0, query: bool = True, *,
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.rate, self.dtype = dropout, dtype
+        lin = dict(generator=generator, dtype=dtype, device=device)
+        self.Wv = Linear(features, features, **lin)
+        self.hamburger = Hamburger(seq_len, features, burger_mode, depthwise,
+                                   rand_init, **lin)
+        self.Wq = Linear(features, features, **lin) if query else None
+        self.out_project = Linear(features, features, **lin)
+
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        v = self.Wv(x)
+        k = self.hamburger(x, deterministic=deterministic,
+                           generator=generator)
+        attn = torch.softmax(k.to(torch.float32), dim=1).to(self.dtype)
+        y = torch.sum(attn * v, dim=1, keepdim=True)
+        if self.Wq is not None:
+            y = torch.sigmoid(self.Wq(x)) * y
+        return dropout(self.out_project(y), self.rate, deterministic,
+                       generator)

@@ -1,0 +1,90 @@
+"""The Mixture-of-Experts MLP with Switch top-1 routing, as
+``vit_cifar_tpu/ops/moe.py`` (no reference counterpart: it takes the
+place of the encoder MLP under ``--moe-experts``).
+
+The einsum form of GShard/Switch: routing is two one-hot (B, T, E, C)
+tensors, dispatch and combine, and the experts are stacked parameters
+``expert_w1`` (E, F, H), ``expert_b1`` (E, H), ``expert_w2`` (E, H, F) and
+``expert_b2`` (E, F), under JAX's names and layouts.  Tokens are grouped
+per example: each expert takes C = min(T, max(1, ceil(T/E * cf))) tokens
+of an example, first come first served in token order, and an overflow
+token comes out as zero (the block's residual carries it).  Each expert
+runs Linear -> GELU -> Dropout -> Linear -> GELU -> Dropout, the encoder
+MLP's trailing GELU included.  The router is a Linear in f32.
+
+The Switch load-balance loss, E * sum_e f_e * P_e (1.0 at perfect
+balance), taken before any token is dropped, is kept on the module as
+``aux`` by each forward; the train step reads it right after its forward
+(``collect_moe_aux``), so a ``--remat`` recomputation in the backward
+never supplies it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import dropout
+from .init import Linear, uniform_range
+
+
+class MoEMLP(nn.Module):
+    def __init__(self, features: int, mlp_hidden: int, num_experts: int = 8,
+                 capacity_factor: float = 1.25, dropout: float = 0.0, *,
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        E, Fe, H = num_experts, features, mlp_hidden
+        self.num_experts, self.capacity_factor = E, capacity_factor
+        self.rate, self.dtype = dropout, dtype
+        # routing decisions in f32, so they do not dither with bf16
+        self.router = Linear(Fe, E, generator=generator,
+                             dtype=torch.float32, device=device)
+        b1, b2 = 1.0 / Fe ** 0.5, 1.0 / H ** 0.5
+        for name, shape, b in (("expert_w1", (E, Fe, H), b1),
+                               ("expert_b1", (E, H), b1),
+                               ("expert_w2", (E, H, Fe), b2),
+                               ("expert_b2", (E, Fe), b2)):
+            self.register_parameter(name, nn.Parameter(
+                uniform_range(shape, -b, b, generator).to(device)))
+        self.aux: torch.Tensor | None = None
+
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        B, T, _ = x.shape
+        E, dt = self.num_experts, self.dtype
+        C = min(T, max(1, math.ceil(T / E * self.capacity_factor)))
+        probs = torch.softmax(self.router(x.to(torch.float32)), dim=-1)
+        gate, expert = probs.max(dim=-1)  # (B, T): the top-1 prob and index
+        onehot = F.one_hot(expert, E).to(torch.float32)  # (B, T, E)
+        # each token's 1-based place in its expert's buffer, 0 elsewhere
+        pos = torch.cumsum(onehot, dim=1) * onehot
+        keep = (pos <= C) * onehot
+        # place 0 (not this expert) and places past C give all-zero rows
+        slot = (pos.long()[..., None] - 1 == torch.arange(
+            C, device=x.device)).to(torch.float32)  # (B, T, E, C)
+        dispatch = slot * keep[..., None]
+        combine = dispatch * gate[..., None, None]
+        # the fraction routed to each expert before the drop, and its mean
+        # router probability
+        self.aux = E * torch.sum(onehot.mean(dim=(0, 1))
+                                 * probs.mean(dim=(0, 1)))
+
+        xin = torch.einsum("btec,btf->ebcf", dispatch.to(dt), x.to(dt))
+        h = torch.einsum("ebcf,efh->ebch", xin, self.expert_w1.to(dt)) \
+            + self.expert_b1.to(dt)[:, None, None, :]
+        h = dropout(F.gelu(h), self.rate, deterministic, generator)
+        h = torch.einsum("ebch,ehf->ebcf", h, self.expert_w2.to(dt)) \
+            + self.expert_b2.to(dt)[:, None, None, :]
+        h = dropout(F.gelu(h), self.rate, deterministic, generator)
+        return torch.einsum("btec,ebcf->btf", combine.to(dt), h)
+
+
+def collect_moe_aux(model: nn.Module) -> torch.Tensor | None:
+    """The mean over the MoE layers of the aux loss their last forward
+    kept, or None where the model has none."""
+    vals = [m.aux for m in model.modules() if isinstance(m, MoEMLP)]
+    return sum(vals) / len(vals) if vals else None

@@ -23,9 +23,8 @@ epoch's metric sums and the eval's sums once each.
 
 Not written by the port's loop: the model-graph artifacts and the input
 grid image of the JAX loop; they come with the analysis tools (ROADMAP
-queue 1, item 9).  What the port has no model for raises
-``NotImplementedError`` naming its ROADMAP item: a mesh of more than one
-device, multihost runs, and the zoo models not yet ported.
+queue 1, item 9).  A mesh of more than one device and multihost runs raise
+``NotImplementedError`` naming their ROADMAP item.
 
 ``--semi-supervised`` (c10 only, utils.py:404-416) trains on the
 400-per-class labeled split of ``semi_supervised_split``; with
@@ -346,7 +345,8 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
                 n_steps * cfg.batch_size / max(ep_time, 1e-9), 1))
         if lr_sched_nnmf is not None:
             row["lr_1"] = float(lr_sched_nnmf(first))
-        for k in ("unsupervised_loss", "skipped_nonfinite"):
+        # moe_aux: the epoch's mean Switch balance loss (1.0 = balanced)
+        for k in ("unsupervised_loss", "skipped_nonfinite", "moe_aux"):
             if k in metrics:
                 row[k] = metrics[k]
         history.append(row)

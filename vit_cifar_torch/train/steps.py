@@ -35,8 +35,13 @@ every trainable ``nnmf_weights`` gets the after-care (norm -> clamp at
 ``nnmf_learning_rate_threshold_w`` -> norm), on a skipped step too, as in
 JAX; that includes the heads AE's weight under ``ae`` + ``ce``, which the
 main optimizer leaves alone.  The model's buffers (the persistent bases of
-``--train-md-bases``, JAX's ``model_state``) are written by the forward in
-training mode and are not rolled back by the guard, as in JAX.
+``--train-md-bases`` and BatchNorm's running statistics, JAX's
+``model_state``) are written by the forward in training mode and are not
+rolled back by the guard, as in JAX.
+
+MoE (JAX :96-97, :194-199, :380-382): ``cfg.moe_aux_weight`` times the mean
+over layers of the Switch aux loss is added to the loss, after the
+CutMix/MixUp lambda mix, and reported as the metric ``moe_aux``.
 
 The batch is a seam: ``train_step.make_batch`` gathers and augments, and
 ``train_step.on_batch`` trains on a batch it is handed, so a test can feed
@@ -54,6 +59,7 @@ import torch
 from ..config import Config, torch_dtype
 from ..data import augment
 from ..data.autoaugment import autoaugment_batch, policy_for_dataset
+from ..ops.moe import collect_moe_aux
 from ..ops.nnmf.layers import (nnmf_after_care, nnmf_slices,
                                nnmf_weight_trainable)
 from .losses import make_criterion, make_per_example_loss
@@ -62,12 +68,11 @@ from .state import TrainState
 from .unsupervised import (collect_ae_terms, make_unsupervised_update,
                            uses_unsupervised)
 
-def _check_supported(cfg: Config) -> None:
-    """The branch of the JAX step that the port has no model for yet."""
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "the train step for MoE is not ported to torch yet: "
-            "ROADMAP queue 1, item 7 (zoo mixers: MoE)")
+
+def uses_moe_aux(cfg: Config) -> bool:
+    """Whether the loss has the Switch balance term (and the metrics
+    ``moe_aux``), as JAX's ``needs_moe_aux``."""
+    return cfg.moe_experts > 0 and cfg.moe_aux_weight > 0
 
 
 def make_metrics_zeros(cfg: Config,
@@ -79,6 +84,8 @@ def make_metrics_zeros(cfg: Config,
         names.append("skipped_nonfinite")
     if uses_unsupervised(cfg):
         names.append("unsupervised_loss")
+    if uses_moe_aux(cfg):
+        names.append("moe_aux")
     return {n: torch.zeros((), dtype=torch.float32, device=device)
             for n in names}
 
@@ -93,11 +100,11 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
     is updated in place and returned.  With ``pre_augmented`` the step
     takes ``x_all`` as already cropped, flipped and AutoAugmented.
     """
-    _check_supported(cfg)
     criterion = make_criterion(cfg)
     dtype = torch_dtype(cfg)
     B = cfg.batch_size
     needs_ae = cfg.criterion == "aece"
+    moe_aux = uses_moe_aux(cfg)
     unsupervised = uses_unsupervised(cfg)
     run_ae_steps = (make_unsupervised_update(cfg, model)[1]
                     if unsupervised else None)
@@ -134,24 +141,33 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
 
     def loss_and_grads(state: TrainState, img, label, rand_label=None,
                        lam=None):
-        """(loss, logits, one gradient per parameter) of a given batch, in
-        training mode; dropout and the random AE mask draw from the state's
-        generator.  A parameter outside the loss's graph gets zeros."""
+        """(loss, logits, one gradient per parameter, the MoE aux loss or
+        None) of a given batch, in training mode; dropout and the random AE
+        mask draw from the state's generator.  A parameter outside the
+        loss's graph gets zeros."""
         logits = model(img, deterministic=False, generator=state.generator)
         aux = {"ae": collect_ae_terms(model)} if needs_ae else None
         loss = criterion(logits, label, aux)
         if rand_label is not None:
             loss = loss * lam + criterion(logits, rand_label, aux) * (1.0 - lam)
+        balance = None
+        if moe_aux:
+            # the Switch balance term, read from this forward (not from a
+            # --remat recomputation) and not lambda-weighted: routing
+            # balance does not depend on the labels
+            balance = collect_moe_aux(model)
+            loss = loss + cfg.moe_aux_weight * balance
         params = list(model.parameters())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
-        return loss.detach(), logits.detach(), grads
+        return (loss.detach(), logits.detach(), grads,
+                None if balance is None else balance.detach())
 
     def on_batch(state: TrainState, img, label, rand_label=None, lam=None):
         """Forward, loss, backward, guard and update on a given batch."""
-        loss, logits, grads = loss_and_grads(state, img, label, rand_label,
-                                             lam)
+        loss, logits, grads, balance = loss_and_grads(state, img, label,
+                                                      rand_label, lam)
         # the AE-internal steps first: they write the AE entries of
         # state.params, on which the main update then lands
         unsup_loss = run_ae_steps(state) if unsupervised else None
@@ -177,6 +193,9 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
                 metrics["skipped_nonfinite"] = 1.0 - ok.float()
             if unsupervised:
                 metrics["unsupervised_loss"] = unsup_loss
+            if moe_aux:
+                # router balance: 1.0 is perfectly balanced experts
+                metrics["moe_aux"] = balance
             state.params.copy_(new_params)  # the model's weights are views
             nnmf_after_care(state.params, after_care,
                             cfg.nnmf_learning_rate_threshold_w)

@@ -1,14 +1,18 @@
-"""Carry weights between the JAX package's flax params and the port.
+"""Carry weights between the JAX package's flax variables and the port.
 
-A flax ``params`` tree is a nested dict of arrays (what ``jax.device_get``
-or orbax give).  The port's parameters have the flax names joined by dots;
-a Linear's flax ``kernel`` (in, out) is the port's ``weight`` (out, in), and
-a LayerNorm's ``scale`` is its ``weight``.  Every other parameter keeps its
-name and layout, whatever its rank: GatedMLP's TxT ``weight`` is a
-``weight`` on both sides, AFT's ``w``, ``u`` and ``v`` are themselves, an
-NNMF layer's (C, M) ``nnmf_weights`` is (C, M) on both sides.  JAX's
-``state`` collection (the persistent ``bases`` of ``--train-md-bases``) is
-the port's buffers, by the same dotted names.  numpy and torch only.
+A flax collection is a nested dict of arrays (what ``jax.device_get`` or
+orbax give).  The port's parameters and buffers have the flax names joined
+by dots, flax's automatic names (``Conv_0`` inside ``TorchConv``,
+``TorchBatchNorm_0`` and ``LayerNorm_0`` inside the norm wrappers)
+included.  A Linear's flax ``kernel`` (in, out) is the port's ``weight``
+(out, in); a convolution's ``kernel`` (kh, kw, in, out) is its ``weight``
+(out, in, kh, kw); a LayerNorm's or BatchNorm's ``scale`` is its
+``weight``.  Every other parameter keeps its name and layout, whatever its
+rank: GatedMLP's TxT ``weight``, AFT's ``w``, ``u`` and ``v``, an NNMF
+layer's (C, M) ``nnmf_weights``, the MoE's stacked ``expert_*``.  The
+port's buffers are two flax collections: BatchNorm's ``mean`` and ``var``
+are ``batch_stats``, every other buffer (the persistent ``bases`` of
+``--train-md-bases``) is ``state``.  numpy and torch only.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 from torch import nn
 
 from ..ops.common import LayerNorm
-from ..ops.init import Linear
+from ..ops.init import Linear, NHWCConv
+from ..ops.norm import TorchBatchNorm
 
 
 def _flatten(tree, prefix=()):
@@ -29,16 +34,19 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), val
 
 
-def state_dict_from_flax(params, state=None) -> dict[str, torch.Tensor]:
-    """Nested flax params (and the ``state`` collection, where given) ->
-    the port's ``state_dict``."""
+def state_dict_from_flax(params, state=None,
+                         batch_stats=None) -> dict[str, torch.Tensor]:
+    """Nested flax params (and the ``state`` and ``batch_stats``
+    collections, where given) -> the port's ``state_dict``."""
     out = {".".join(path): torch.from_numpy(np.array(val))
-           for path, val in _flatten(state or {})}
+           for tree in (state, batch_stats)
+           for path, val in _flatten(tree or {})}
     for path, val in _flatten(params):
         arr = np.asarray(val)
         *mod, leaf = path
         if leaf == "kernel":
-            leaf, arr = "weight", arr.T
+            leaf = "weight"
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         elif leaf == "scale":
             leaf = "weight"
         out[".".join((*mod, leaf))] = torch.from_numpy(np.array(arr))  # a copy
@@ -49,23 +57,33 @@ def flax_from_state_dict(model: nn.Module, state_dict=None,
                          collection: str = "params") -> dict:
     """The port's ``state_dict`` (default ``model``'s own) -> the nested
     flax ``collection`` of numpy arrays: ``"params"`` from the parameters,
-    ``"state"`` from the buffers.  ``model`` names the module that owns each
-    parameter: a Linear's ``weight`` becomes a transposed ``kernel``, a
-    LayerNorm's a ``scale``, anything else keeps its name."""
+    ``"batch_stats"`` from BatchNorm's buffers, ``"state"`` from the other
+    buffers.  ``model`` names the module that owns each entry: a Linear's
+    or a convolution's ``weight`` becomes a transposed ``kernel``, a
+    LayerNorm's or BatchNorm's a ``scale``, anything else keeps its
+    name."""
     if state_dict is None:
         state_dict = model.state_dict()
     owners = dict(model.named_modules())
     buffers = {name for name, _ in model.named_buffers()}
     out: dict = {}
     for key, val in state_dict.items():
-        if (key in buffers) != (collection == "state"):
-            continue
         *mod, leaf = key.split(".")
-        arr = val.detach().cpu().numpy()
         owner = owners[".".join(mod)]
+        if key not in buffers:
+            kind = "params"
+        else:
+            kind = ("batch_stats" if isinstance(owner, TorchBatchNorm)
+                    else "state")
+        if kind != collection:
+            continue
+        arr = val.detach().cpu().numpy()
         if leaf == "weight" and isinstance(owner, Linear):
             leaf, arr = "kernel", arr.T
-        elif leaf == "weight" and isinstance(owner, LayerNorm):
+        elif leaf == "weight" and isinstance(owner, NHWCConv):
+            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and isinstance(owner, (LayerNorm,
+                                                     TorchBatchNorm)):
             leaf = "scale"
         node = out
         for m in mod:
