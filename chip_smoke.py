@@ -13,11 +13,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    attention forward+backward, at the model's shape.
 2. Serving phase: the serving path at the full width of the README recipe
    model (7 layers, hidden 384, 12 heads; random weights from the config's
-   seed): ``get_model`` -> ``save_checkpoint`` -> ``export_inference`` ->
-   ``make_http_server``, then POST /predict requests (raw .npy at B=1, 8 and
-   128, and one JSON body), each checked against the in-process forward with
-   the attention forced to the plain version, and the kernel's launch
-   counter checked to rise by one per attention layer and request.
+   seed): ``get_model`` -> ``save_checkpoint`` -> ``export_inference``
+   (``serving.pt2``, ``torch.export`` with a symbolic batch, whose graph
+   must call ``vit_cifar_torch::mhsa_fwd``) -> ``make_http_server``, then
+   POST /predict requests (raw .npy at B=1, 8 and 128, and one JSON body),
+   each checked against a forward with the attention forced to the plain
+   version, rebuilt from the checkpoint, and the kernel's launch counter
+   checked to rise by one per attention layer and request.  Then the int8
+   phase: ``--quantize int8`` of the same checkpoint, its bytes against the
+   f32 artifact's (under 0.6x), its logits' deviation (JAX's bound) and
+   top-1 agreement on 128 images, 7 launches a request, and both
+   artifacts' latency at B=1 and B=128.  Before it, the flagship's
+   training step timed with the kernels called through the
+   ``torch.library`` dispatcher and directly, in turns.
 3. Training phase: the README recipe without AutoAugment (7 layers, batch
    128, bf16-mixed with f32 params, label smoothing; ``warmup_epoch=0`` so
    that epoch 0 trains) on synthetic c10 resident on the card:
@@ -63,7 +71,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    then served logits at B=8 against it with 2 launches of the whole-head
    forward a batch, and 3 steps with the forward with lse and the tiled
    pair launched twice a step each.
-8. Full-recipe phase, last: the README recipe with AutoAugment through the
+7b. Key-tiled phase: ``pallas_kernel="fused"`` past the whole head, where
+   the whole-head forward walks K and V in key tiles: its shared memory
+   against the Python formula, both variants against their plain versions
+   at (1, 1, 1025, 32), (1, 1, 300, 192), (2, 3, 793, 64), (2, 2, 143, 384)
+   in f32 and bf16 and at (128, 12, 1025, 32) in bf16, the module at T=1025
+   forward and backward against the einsum module with one launch each of
+   ``mhsa_fwd``, ``mhsa_fwd_lse`` and the tiled pair and none of the tiled
+   forwards, and its time beside the tiled forwards' at the pixel shape.
+8. Full-recipe phase: the README recipe with AutoAugment through the
    user's entry point ``train()`` (7 layers, hidden 384, 12 heads, B=128,
    bf16-mixed, label smoothing, ``--autoaugment``, synthetic c10,
    ``warmup_epoch=0``, 2 epochs of 390 steps).  First ``apply_autoaugment``
@@ -79,6 +95,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    launch checks.  Prints the recipe's ms a step and img/s beside the
    no-AutoAugment step of phase 3, AutoAugment's device ms and launches a
    batch (torch.profiler) and the recipe step's busy share.
+8b. Analysis phase: ``load_run_model`` and ``run_on_images`` of a
+   README-width f32 checkpoint, the attention maps and their rollout
+   row-stochastic and equal to the same model's on the CPU (1e-4),
+   ``model_payload``, and one epoch of the regenerator study
+   (``run_study``) on synthetic c10 (the card's machine has no matplotlib:
+   the study says which pictures it did not draw).
 9. Zoo phase (seed 2045, bf16-mixed, synthetic c10): the default run
    through the user's entry point, ``python -m vit_cifar_torch --dataset
    c10 --synthetic-data --max-epochs 1`` with no model flag (``cli.main``;
@@ -168,6 +190,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -175,6 +198,11 @@ import torch
 import torch.nn.functional as F
 
 from vit_cifar_torch import Config, cli, torch_dtype
+from vit_cifar_torch.analysis.attention_maps import (collect_attention_maps,
+                                                     get_joint_attentions)
+from vit_cifar_torch.analysis.interactive import model_payload
+from vit_cifar_torch.analysis.regenerator import run_study
+from vit_cifar_torch.analysis.run_model import load_run_model, run_on_images
 from vit_cifar_torch.config import config_from_args
 from vit_cifar_torch.data.augment import normalize
 from vit_cifar_torch.data.autoaugment import (apply_autoaugment,
@@ -184,11 +212,13 @@ from vit_cifar_torch.data.datasets import load_dataset
 from vit_cifar_torch.deploy import (ServingModel, export_inference,
                                     make_http_server)
 from vit_cifar_torch.models import get_model
-from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
+from vit_cifar_torch.ops.attention import MultiHeadSelfAttention
+from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS, registry
 from vit_cifar_torch.ops.cuda.attention import (
     fused_attention, fused_attention_lse, fused_attention_lse_reference,
-    fused_attention_reference)
+    fused_attention_reference, key_tiled_smem_bytes, whole_head_fits)
 from vit_cifar_torch.ops.cuda.build import build_libraries, library_path
+from vit_cifar_torch.ops.cuda.common import library as kernel_library
 from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention, flash_attention_lse, flash_attention_lse_reference,
     flash_attention_reference, flash_tiled_bwd_dkv,
@@ -414,6 +444,31 @@ RAGGED_BH = (2, 3)
 # terms (6e-8 measured on the card at D <= 128, 1.3e-6 at D=384); wherever
 # a grad is not 0 the limit is 1% of it, far above this floor
 RAGGED_BWD_ATOL_FLOOR = 1e-6
+
+
+# "fused" past the whole head: the block walks K and V in key tiles.  The
+# re-anchor's (1, 1, 1025, 32) and (1, 1, 300, 192), the pixel shape in
+# bf16, and one head of each other instance (head_dim 64, and 384 in three
+# column chunks) just past the whole-head layouts
+KEY_TILED_SHAPES = [((1, 1, 1025, 32), (torch.float32, torch.bfloat16)),
+                    ((1, 1, 300, 192), (torch.float32, torch.bfloat16)),
+                    ((2, 3, 793, 64), (torch.float32, torch.bfloat16)),
+                    ((2, 2, 143, 384), (torch.float32, torch.bfloat16)),
+                    (PIXEL_SHAPE, (torch.bfloat16,))]
+KEY_TILED_SMEM = ((1025, 32), (793, 64), (216, 128), (300, 192), (143, 384),
+                  (4096, 128))
+# the "fused" module at T=1025: (B, T, features, heads), head_dim 32, f32
+KEY_TILED_MODULE = (2, 1025, 64, 2)
+# the int8 artifact: JAX's bounds (tests/test_deploy.py), the bytes under
+# 0.6x the f32 artifact's and the logits within 5% of the largest f32 logit
+# + 0.05; top-1 agreement over INT8_IMAGES at least INT8_MIN_AGREE
+INT8_BYTES_RATIO = 0.6
+INT8_IMAGES = 128
+INT8_MIN_AGREE = 0.9
+DISPATCH_STEPS = 20  # steps a window of the dispatcher's timing
+ANALYSIS_BATCH = 8
+# maps and rollout on the card against the CPU, in f32
+ANALYSIS_TOL = dict(rtol=0.0, atol=1e-4)
 
 
 def ragged_bwd_floor(D: int) -> float:
@@ -1057,10 +1112,17 @@ def serving_phase(card: str) -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     ckpt = os.path.join(WORK, "ckpt")
     save_checkpoint(ckpt, {"params": model.state_dict()}, cfg)
+    t_export = time.perf_counter()
     art = export_inference(ckpt, os.path.join(WORK, "art"), device="cuda")
+    print(f"exported serving.pt2 in {time.perf_counter() - t_export:.1f} s; "
+          f"its graph calls {graph_ops(art)}")
 
-    plain, _ = get_model(cfg.replace(pallas_kernel="einsum"), device="cuda")
-    plain.load_state_dict(model.state_dict())
+    # the reference, rebuilt from the checkpoint: the artifact holds no
+    # module of the port
+    payload, ckpt_cfg = load_checkpoint(ckpt)
+    plain, _ = get_model(ckpt_cfg.replace(pallas_kernel="einsum"),
+                         device="cuda")
+    plain.load_state_dict(payload["params"])
     plain.eval().requires_grad_(False)
     dtype = torch_dtype(cfg)
 
@@ -1495,9 +1557,12 @@ def pixel_serving_phase(card: str) -> dict:
     ckpt = os.path.join(work, "ckpt")
     save_checkpoint(ckpt, {"params": model.state_dict()}, cfg)
     art = export_inference(ckpt, os.path.join(work, "art"), device="cuda")
+    print(f"pixel serving.pt2: its graph calls {graph_ops(art)}")
 
-    plain, _ = get_model(cfg.replace(pallas_kernel="einsum"), device="cuda")
-    plain.load_state_dict(model.state_dict())
+    payload, ckpt_cfg = load_checkpoint(ckpt)
+    plain, _ = get_model(ckpt_cfg.replace(pallas_kernel="einsum"),
+                         device="cuda")
+    plain.load_state_dict(payload["params"])
     plain.eval().requires_grad_(False)
     dtype = torch_dtype(cfg)
     rng = np.random.default_rng(1)
@@ -2712,6 +2777,272 @@ def rest_phase(card: str) -> dict:
     return out
 
 
+def graph_ops(art: str) -> dict:
+    """The port's operators in an artifact's exported graph, with counts."""
+    program = torch.export.load(os.path.join(art, "serving.pt2"))
+    ops: dict = {}
+    for node in program.graph.nodes:
+        name = str(node.target)
+        if name.startswith(registry.NAMESPACE):
+            ops[name] = ops.get(name, 0) + 1
+    if not ops:
+        raise AssertionError(f"{art}: no operator of the port in the graph")
+    return ops
+
+
+def dispatch_cost(card: str) -> None:
+    """The flagship's training step (the README recipe without AutoAugment,
+    B=128) with the attention kernels called through ``torch.library``'s
+    dispatcher, as the port calls them, and with their CUDA
+    implementations called directly, as before they were operators; in
+    turns, windows of ``DISPATCH_STEPS`` steps ending in a host read."""
+    t0 = time.perf_counter()
+    cfg = flagship_cfg()
+    _, x_train, y_train, model, state, train_step, perm = \
+        training_setup(cfg, cfg.batch_size * 64)
+    modes = {"dispatcher": registry.OPS,
+             "direct": types.SimpleNamespace(**registry.CUDA_IMPLS)}
+    held = [state, 0]
+
+    def window(mode: str, n: int) -> float:
+        registry.OPS = modes[mode]
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                held[0], metrics = train_step(held[0], x_train, y_train,
+                                              perm, held[1] % 64)
+                held[1] += 1
+            metrics["loss"].item()
+            return (time.perf_counter() - t) * 1e3 / n
+        finally:
+            registry.OPS = modes["dispatcher"]
+
+    window("dispatcher", 5)
+    window("direct", 5)
+    times = {m: [] for m in modes}
+    for _ in range(2):
+        for mode in ("dispatcher", "direct", "direct", "dispatcher"):
+            times[mode].append(window(mode, DISPATCH_STEPS))
+    ms = {m: statistics.median(t) for m, t in times.items()}
+    print(f"flagship step (README recipe without AutoAugment, B=128): "
+          f"{ms['dispatcher']:.3f} ms with the kernels as torch.library "
+          f"operators, {ms['direct']:.3f} ms calling their CUDA "
+          f"implementations directly (median of 4 windows of "
+          f"{DISPATCH_STEPS} steps each; all windows: "
+          + ", ".join(f"{m} " + " ".join(f"{x:.3f}" for x in t)
+                      for m, t in times.items())
+          + f"; {card}); {time.perf_counter() - t0:.1f} s")
+
+
+def int8_phase(card: str) -> dict:
+    """``--quantize int8`` of the serving phase's checkpoint: the artifact's
+    bytes against the f32 artifact's, the logits' deviation and top-1
+    agreement on ``INT8_IMAGES`` images, 7 launches of the whole-head
+    forward a request, and both artifacts' latency at B=1 and B=128."""
+    t0 = time.perf_counter()
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    art = export_inference(os.path.join(WORK, "ckpt"),
+                           os.path.join(WORK, "art_int8"), quantize="int8",
+                           device="cuda")
+    f32 = ServingModel(os.path.join(WORK, "art"), device="cuda")
+    int8 = ServingModel(art, device="cuda")
+    ratio = int8.meta["bytes"] / f32.meta["bytes"]
+    print(f"int8 serving.pt2: {int8.meta['bytes']} bytes against the f32 "
+          f"artifact's {f32.meta['bytes']} ({ratio:.4f}x, bound "
+          f"{INT8_BYTES_RATIO}); {int8.meta['quantized']} int8 tensors; its "
+          f"graph calls {graph_ops(art)}")
+    if not ratio < INT8_BYTES_RATIO:
+        raise AssertionError(f"int8 artifact {ratio:.4f}x the f32 one")
+    imgs = np.random.default_rng(8).integers(
+        0, 256, (INT8_IMAGES, 32, 32, 3), dtype=np.uint8)
+    before = _launch_counts()
+    got = int8.predict(imgs)
+    per_request = {n: c - before[n] for n, c in _launch_counts().items()}
+    want = f32.predict(imgs)
+    if per_request != dict({n: 0 for n in KERNEL_WRAPPERS}, mhsa_fwd=7):
+        raise AssertionError(f"int8 request launches {per_request}")
+    dev = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    print(f"int8 against f32 on {INT8_IMAGES} images: max |logit "
+          f"deviation| {dev:.4e} (largest f32 logit {scale:.4e}, bound "
+          f"{0.05 * scale + 0.05:.4e}), top-1 agreement {agree:.4f} (bound "
+          f">= {INT8_MIN_AGREE}); 7 launches of mhsa_fwd a request")
+    if not (np.isfinite(got).all() and dev <= 0.05 * scale + 0.05
+            and agree >= INT8_MIN_AGREE):
+        raise AssertionError("the int8 artifact strays from the f32 one")
+    for B in (1, 128):
+        x = torch.from_numpy(imgs[:B]).cuda()
+        lat = {}
+        for name, served in (("f32", f32), ("int8", int8)):
+            def forward(served=served):
+                with torch.inference_mode():
+                    served.infer(x).cpu()
+
+            lat[name] = host_ms(forward, 20)
+        print(f"serving latency B={B}: f32 artifact {lat['f32']:.3f} ms, "
+              f"int8 artifact {lat['int8']:.3f} ms (in-process forward, "
+              f"median of 20; {card})")
+    print(f"the int8 phase took {time.perf_counter() - t0:.1f} s")
+    return _launch_counts()
+
+
+def fused_key_tiled_phase(card: str) -> dict:
+    """``pallas_kernel="fused"`` past the whole head, where the whole-head
+    forward walks K and V in key tiles: its shared memory against
+    ``key_tiled_smem_bytes``; ``mhsa_fwd`` and ``mhsa_fwd_lse`` against
+    their plain versions at ``KEY_TILED_SHAPES``; the module at T=1025
+    (forward and backward against the einsum module), which must launch
+    the whole-head kernels and no tiled forward; and the key-tiled mode's
+    time beside the tiled kernels' at the pixel shape."""
+    t0 = time.perf_counter()
+    lib = kernel_library("mhsa_fwd")
+    for T, D in KEY_TILED_SMEM:
+        got = lib.mhsa_fwd_key_tiled_smem_bytes(T, D)
+        if whole_head_fits(T, D) or got != key_tiled_smem_bytes(D):
+            raise AssertionError(f"key-tiled shared memory at {(T, D)}: "
+                                 f"{got} vs {key_tiled_smem_bytes(D)}")
+    print(f"key-tiled shared memory: the library's equals "
+          f"key_tiled_smem_bytes at {KEY_TILED_SMEM} "
+          f"({key_tiled_smem_bytes(32)} bytes at head_dim 32)")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for shape, dtypes in KEY_TILED_SHAPES:
+        B, H, T, D = shape
+        scale = 1.0 / math.sqrt(H * D)
+        for dtype in dtypes:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(3))
+            out = fused_attention(q, k, v, scale)
+            out_l, lse = fused_attention_lse(q, k, v, scale)
+            want, want_lse = fused_attention_lse_reference(q, k, v, scale)
+            torch.cuda.synchronize()
+            tol = flash_tol("fwd", dtype, want)
+            torch.testing.assert_close(out, want, **tol)
+            torch.testing.assert_close(out_l, want, **tol)
+            torch.testing.assert_close(lse, want_lse,
+                                       **KERNEL_TOL[torch.float32])
+            print(f"key-tiled whole-head forward {shape} {str(dtype)[6:]}: "
+                  f"max_abs_err out {_max_err((out,), (want,)):.3e}, with "
+                  f"lse {_max_err((out_l, lse), (want, want_lse)):.3e} "
+                  f"(tolerance {tol}, lse {KERNEL_TOL[torch.float32]})")
+            del q, k, v, out, out_l, lse, want, want_lse
+
+    # the path: the module with pallas_kernel="fused" at T=1025
+    B, T, features, heads = KEY_TILED_MODULE
+    weights = torch.Generator().manual_seed(0)
+    fused = MultiHeadSelfAttention(features, heads, generator=weights,
+                                   pallas_kernel="fused", device="cuda")
+    plain = MultiHeadSelfAttention(features, heads,
+                                   generator=torch.Generator(),
+                                   pallas_kernel="einsum", device="cuda")
+    plain.load_state_dict(fused.state_dict())
+    x, g = (torch.randn((B, T, features), generator=gen, device="cuda")
+            for _ in range(2))
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    xk = x.clone().requires_grad_()
+    out = fused(xk)
+    out.backward(g)
+    with torch.no_grad():
+        served = fused(x)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    want = dict({n: 0 for n in KERNEL_WRAPPERS}, mhsa_fwd=1, mhsa_fwd_lse=1,
+                flash_bwd_dq_tiled=1, flash_bwd_dkv_tiled=1)
+    if launches != want:
+        raise AssertionError(f"'fused' at T={T}: launches {launches}, "
+                             f"expected {want}")
+    xp = x.clone().requires_grad_()
+    ref = plain(xp)
+    ref.backward(g)
+    torch.testing.assert_close(out, ref, **GRAD_TOL[torch.float32])
+    torch.testing.assert_close(served, ref.detach(),
+                               **GRAD_TOL[torch.float32])
+    torch.testing.assert_close(xk.grad, xp.grad, **GRAD_TOL[torch.float32])
+    for (name, a), b in zip(fused.named_parameters(), plain.parameters()):
+        torch.testing.assert_close(a.grad, b.grad, **GRAD_TOL[torch.float32],
+                                   msg=name)
+    print(f"'fused' module at (B, T, F, heads) {KEY_TILED_MODULE} f32: output "
+          f"and grads match the einsum module (tolerance "
+          f"{GRAD_TOL[torch.float32]}); launches "
+          f"{ {n: c for n, c in launches.items() if c} }, none of flash_fwd "
+          "or flash_fwd_lse")
+
+    B, H, T, D = PIXEL_SHAPE
+    scale = 1.0 / math.sqrt(H * D)
+    q, k, v = (torch.randn(PIXEL_SHAPE, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    for what, whole, tiled in (
+            ("fwd_lse", lambda: fused_attention_lse(q, k, v, scale),
+             lambda: flash_attention_lse(q, k, v, scale)),
+            ("fwd", lambda: fused_attention(q, k, v, scale),
+             lambda: flash_attention(q, k, v, scale))):
+        ms = in_turns({"key-tiled": whole, "tiled": tiled}, rounds=2,
+                      iters=10)
+        print(f"key-tiled whole-head {what} {PIXEL_SHAPE} bf16: "
+              f"{ms['key-tiled']:.4f} ms, the tiled kernel "
+              f"{ms['tiled']:.4f} ms, key-tiled/tiled "
+              f"{ms['key-tiled'] / ms['tiled']:.3f} (median of 4 windows "
+              f"of 10; {card})")
+    print(f"the key-tiled phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def analysis_phase(card: str) -> None:
+    """The analysis tools on the card: ``load_run_model`` and
+    ``run_on_images`` of a README-width f32 checkpoint (random weights from
+    its seed), the attention maps and their rollout row-stochastic and
+    equal to the same model's on the CPU, ``model_payload``'s quantized
+    maps, and a short ``run_study`` of the regenerator on synthetic c10."""
+    t0 = time.perf_counter()
+    cfg = flagship_cfg(precision="32")
+    model, _ = get_model(cfg, generator=torch.Generator().manual_seed(cfg.seed))
+    work = os.path.join(WORK, "analysis")
+    shutil.rmtree(work, ignore_errors=True)
+    ckpt = os.path.join(work, "exp")
+    save_checkpoint(ckpt, {"params": model.state_dict()}, cfg)
+    del model
+    _, _, imgs, logits, inter = load_run_model(ckpt, ANALYSIS_BATCH,
+                                               device="cuda")
+    maps = collect_attention_maps(inter)
+    joint = get_joint_attentions(maps)
+    shape = (cfg.num_layers, ANALYSIS_BATCH, cfg.head, 65, 65)
+    if maps.shape != shape or not np.isfinite(logits).all():
+        raise AssertionError(f"maps {maps.shape}, expected {shape}")
+    for what, m in (("maps", maps), ("rollout", joint)):
+        np.testing.assert_allclose(m.sum(-1), 1.0, rtol=0, atol=1e-4,
+                                   err_msg=what)
+    _, _, _, logits_c, inter_c = load_run_model(ckpt, ANALYSIS_BATCH,
+                                                device="cpu")
+    maps_c = collect_attention_maps(inter_c)
+    np.testing.assert_allclose(maps, maps_c, **ANALYSIS_TOL)
+    np.testing.assert_allclose(joint, get_joint_attentions(maps_c),
+                               **ANALYSIS_TOL)
+    _, logits2, inter2 = run_on_images(ckpt, imgs[:2], device="cuda")
+    np.testing.assert_allclose(collect_attention_maps(inter2), maps[:, :2],
+                               **ANALYSIS_TOL)
+    payload = model_payload(ckpt, batch_size=ANALYSIS_BATCH, device="cuda")
+    if payload["shape"] != list(shape):
+        raise AssertionError(f"payload shape {payload['shape']}")
+    print(f"analysis: maps {maps.shape} and rollout row-stochastic, card "
+          f"against CPU max |diff| maps {np.abs(maps - maps_c).max():.3e}, "
+          f"rollout {np.abs(joint - get_joint_attentions(maps_c)).max():.3e}"
+          f", logits {np.abs(logits - logits_c).max():.3e} (maps within "
+          f"{ANALYSIS_TOL}); run_on_images and model_payload agree")
+    t_study = time.perf_counter()
+    history = run_study(epochs=1, batch_size=512, log_interval=50,
+                        out_dir=os.path.join(work, "regen"), synthetic=True,
+                        verbose=False, device="cuda")
+    row = history[-1]
+    if not (len(history) == 1 and all(math.isfinite(row[k]) for k in row)):
+        raise AssertionError(f"regenerator study {history}")
+    print(f"regenerator study, 1 epoch of synthetic c10 at B=512 on the card "
+          f"in {time.perf_counter() - t_study:.1f} s: {row}")
+    print(f"the analysis phase took {time.perf_counter() - t0:.1f} s ({card})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2734,9 +3065,13 @@ def main() -> None:
     head_dim_timing(card)
     # each path's launches, counted from zero just before it
     train_launches, no_aa_step_ms = training_phase(card)
-    paths = [{"mhsa_fwd": serving_phase(card)}, train_launches,
-             pixel_serving_phase(card), pixel_training_phase(card),
-             wide_head_phase(card), full_recipe_phase(card, no_aa_step_ms)]
+    dispatch_cost(card)
+    paths = [{"mhsa_fwd": serving_phase(card)}, int8_phase(card),
+             train_launches, pixel_serving_phase(card),
+             pixel_training_phase(card), wide_head_phase(card),
+             fused_key_tiled_phase(card),
+             full_recipe_phase(card, no_aa_step_ms)]
+    analysis_phase(card)
     # last: the zoo and the NNMF family, which launch none of the
     # attention kernels, and the rest of the zoo, whose MoE ViT does
     zoo_phase(card)

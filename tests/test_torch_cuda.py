@@ -39,7 +39,8 @@ from vit_cifar_torch.ops.attention import MultiHeadSelfAttention
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.ops.cuda.attention import (
     fused_attention, fused_attention_lse, fused_attention_lse_reference,
-    fused_attention_reference, whole_head_smem_bytes)
+    fused_attention_reference, key_tiled_smem_bytes, whole_head_fits,
+    whole_head_smem_bytes)
 from vit_cifar_torch.ops.cuda.common import library
 from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention, flash_attention_lse, flash_attention_lse_reference,
@@ -408,6 +409,59 @@ def test_whole_head_shared_memory_formulas_match_the_kernels(cuda):
                  (257, 192), (279, 192), (280, 192), (9, 200), (142, 384),
                  (300, 129)):
         assert lib_bytes(T, D) == whole_head_smem_bytes(T, D), (T, D)
+
+
+@pytest.mark.parametrize("T,D", [(1025, 32), (793, 64), (216, 128),
+                                 (300, 192), (143, 384), (4096, 128)])
+def test_key_tiled_shared_memory_formula_matches_the_kernel(cuda, T, D):
+    """Past the whole-head layouts the whole-head forward walks K and V in
+    key tiles; its shared memory is ``key_tiled_smem_bytes``."""
+    assert not whole_head_fits(T, D)
+    lib = library("mhsa_fwd")
+    assert lib.mhsa_fwd_key_tiled_smem_bytes(T, D) == key_tiled_smem_bytes(D)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 1, 1025, 32), torch.float32), ((1, 1, 1025, 32), torch.bfloat16),
+    ((1, 1, 300, 192), torch.float32), ((1, 1, 300, 192), torch.bfloat16),
+    ((128, 12, 1025, 32), torch.bfloat16)],
+    ids=["1x1x1025x32-f32", "1x1x1025x32-bf16", "1x1x300x192-f32",
+         "1x1x300x192-bf16", "128x12x1025x32-bf16"])
+def test_fused_past_the_whole_head_matches_plain_version(cuda, shape, dtype):
+    """``pallas_kernel="fused"`` where the head does not fit: both
+    whole-head forwards (key tiles) against their plain versions, each
+    launched once, and no tiled forward."""
+    q, k, v, _, scale = _inputs(cuda, shape, dtype)
+    before = {n: w.launches for n, w in KERNEL_WRAPPERS.items()}
+    out = fused_attention(q, k, v, scale)
+    out_l, lse = fused_attention_lse(q, k, v, scale)
+    torch.cuda.synchronize()
+    launched = {n: w.launches - before[n] for n, w in KERNEL_WRAPPERS.items()}
+    assert launched == dict({n: 0 for n in KERNEL_WRAPPERS}, mhsa_fwd=1,
+                            mhsa_fwd_lse=1)
+    want, want_lse = fused_attention_lse_reference(q, k, v, scale)
+    tol = flash_tol(TOL, dtype, want)
+    torch.testing.assert_close(out, want, **tol)
+    torch.testing.assert_close(out_l, want, **tol)
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+def test_serving_artifact_launches_the_kernel_operator(cuda, tmp_path):
+    """``serving.pt2`` exported on the card: its graph calls the whole-head
+    operator, and serving it launches the kernel once a layer."""
+    from vit_cifar_torch.deploy import export_model, load_inference
+
+    cfg = Config(model_name="vit", num_layers=2, hidden=64, mlp_hidden=64,
+                 head=2)
+    model, _ = get_model(cfg, device=cuda)
+    served = load_inference(export_model(model, cfg, str(tmp_path), cuda),
+                            device="cuda")
+    assert "vit_cifar_torch.mhsa_fwd.default" in {
+        str(n.target) for n in served.program.graph.nodes}
+    before = fused_attention.launches
+    logits = served.predict(np.zeros((3, 32, 32, 3), np.uint8))
+    assert fused_attention.launches == before + 2
+    assert logits.shape == (3, 10) and np.isfinite(logits).all()
 
 
 def _pixel_cfg(**kw):

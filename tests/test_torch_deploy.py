@@ -38,6 +38,16 @@ from vit_cifar_tpu.train.optim import make_optimizer
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def exported(tmp_path_factory):
+    """One port checkpoint and its artifact, shared by the tests that only
+    read them: (JAX config, model, params, checkpoint path, artifact)."""
+    tmp = str(tmp_path_factory.mktemp("deploy"))
+    cfg, model, params, ckpt = _port_ckpt(tmp)
+    return cfg, model, params, ckpt, export_inference(
+        ckpt, os.path.join(tmp, "art"), device="cpu")
+
+
 def _port_ckpt(tmp_path):
     """A JAX checkpoint carried into a port checkpoint; returns the JAX
     config, model and params, and the port checkpoint's path."""
@@ -68,9 +78,8 @@ def _images(seed, B):
                                                 dtype=np.uint8)
 
 
-def test_export_serves_jax_eval_logits_at_any_batch_size(tmp_path):
-    cfg, model, params, ckpt = _port_ckpt(tmp_path)
-    out = export_inference(ckpt, os.path.join(tmp_path, "art"), device="cpu")
+def test_export_serves_jax_eval_logits_at_any_batch_size(exported):
+    cfg, model, params, _, out = exported
     served = load_inference(out, device="cpu")
     for B in (3, 8):
         imgs = _images(B, B)
@@ -82,14 +91,14 @@ def test_export_serves_jax_eval_logits_at_any_batch_size(tmp_path):
     assert meta["model_name"] == "vit" and meta["device"] == "cpu"
     assert meta["input"] == "uint8[b,32,32,3]"
     assert meta["output"] == "float32[b,10]"
-    assert meta["bytes"] == os.path.getsize(os.path.join(out, "serving.pt"))
+    assert meta["bytes"] == os.path.getsize(os.path.join(out, "serving.pt2"))
     assert meta["config"]["num_layers"] == 2
 
 
-def test_served_artifact_does_not_need_the_checkpoint(tmp_path):
+def test_served_artifact_does_not_need_the_checkpoint(tmp_path, exported):
     import shutil
 
-    _, _, _, ckpt = _port_ckpt(tmp_path)
+    ckpt = shutil.copytree(exported[3], os.path.join(tmp_path, "ckpt"))
     out = export_inference(ckpt, os.path.join(tmp_path, "art"), device="cpu")
     shutil.rmtree(ckpt)
     logits = load_inference(out, device="cpu").predict(
@@ -99,10 +108,8 @@ def test_served_artifact_does_not_need_the_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("shape", [(32, 32, 3), (2, 16, 16, 3),
                                    (2, 32, 32, 1), (0, 32, 32, 3)])
-def test_predict_refuses_what_is_not_a_batch_of_images(tmp_path, shape):
-    _, _, _, ckpt = _port_ckpt(tmp_path)
-    served = load_inference(export_inference(
-        ckpt, os.path.join(tmp_path, "art"), device="cpu"), device="cpu")
+def test_predict_refuses_what_is_not_a_batch_of_images(exported, shape):
+    served = load_inference(exported[4], device="cpu")
     with pytest.raises(ValueError, match="expected images"):
         served.predict(np.zeros(shape, np.uint8))
 
@@ -121,21 +128,19 @@ def test_checkpoint_prefers_best_or_last(tmp_path):
     assert last["params"]["w"].item() == 2.0
 
 
-def test_cli_exports_and_prints_meta(tmp_path, capsys):
-    _, _, _, ckpt = _port_ckpt(tmp_path)
+def test_cli_exports_and_prints_meta(tmp_path, capsys, exported):
     out = os.path.join(tmp_path, "art")
-    main([ckpt, out, "--device", "cpu"])
+    main([exported[3], out, "--device", "cpu"])
     meta = json.loads(capsys.readouterr().out)
     assert meta["device"] == "cpu" and meta["model_name"] == "vit"
-    assert os.path.exists(os.path.join(out, "serving.pt"))
+    assert os.path.exists(os.path.join(out, "serving.pt2"))
 
 
-def test_http_serving_endpoint(tmp_path):
+def test_http_serving_endpoint(exported):
     """Mirrors tests/test_deploy.py::test_http_serving_endpoint: healthz,
     meta, raw .npy and JSON bodies equal to the JAX eval forward, 400 on a
     garbage body, and the server stays up."""
-    cfg, model, params, ckpt = _port_ckpt(tmp_path)
-    out = export_inference(ckpt, os.path.join(tmp_path, "art"), device="cpu")
+    cfg, model, params, _, out = exported
     srv = make_http_server(out, port=0, device="cpu")
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()

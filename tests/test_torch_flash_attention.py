@@ -33,9 +33,9 @@ from vit_cifar_torch.ops.attention import MultiHeadSelfAttention, route
 from vit_cifar_torch.ops.cuda import flash_attention as flash_module
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.ops.cuda.attention import (
-    fused_attention_lse_reference, fused_attention_reference, whole_head_fits,
-    whole_head_smem_bytes)
-from vit_cifar_torch.ops.cuda.common import COL_CHUNK
+    fused_attention_lse_reference, fused_attention_reference,
+    key_tiled_smem_bytes, whole_head_fits, whole_head_smem_bytes)
+from vit_cifar_torch.ops.cuda.common import COL_CHUNK, MAX_SMEM_BYTES
 from vit_cifar_torch.ops.cuda.flash_attention import (
     FlashAttentionFunction, flash_attention, flash_attention_lse,
     flash_attention_lse_reference, flash_attention_reference,
@@ -458,13 +458,14 @@ def test_flash_function_saves_no_t_by_t_tensor():
     (279, 192, "fused", "fused"),
     (213, 256, "fused", "fused"),
     (142, 384, "fused", "fused"),
+    # ... and past it, where its block walks K and V in key tiles
+    (1025, 32, "fused", "fused"),
+    (300, 192, "fused", "fused"),
 ])
 def test_route(T, D, kernel, want):
     assert route(T, D, kernel) == want
     if kernel in ("", None):
         assert (D <= COL_CHUNK and whole_head_fits(T, D)) == (want == "fused")
-    elif kernel == "fused":
-        assert whole_head_fits(T, D)
 
 
 @pytest.mark.parametrize("D", [1, 2, 3, 5, 7, 8, 9, 16, 17, 24, 31, 32, 40,
@@ -538,8 +539,13 @@ def test_default_module_past_the_tiled_head_dim_matches_jax(monkeypatch):
 @pytest.mark.parametrize("T,D", [(1025, 32), (793, 32), (4096, 128),
                                  (280, 192), (143, 384)])
 def test_route_refuses_fused_beyond_shared_memory(T, D):
-    with pytest.raises(ValueError, match="fused"):
-        route(T, D, "fused")
+    """Where the whole-head layouts cannot hold the head, ``"fused"`` was
+    refused; it now runs there, as JAX's ``fused_attention`` does at any T:
+    the whole-head forward walks K and V in key tiles, in a layout that
+    fits a block's shared memory at every D."""
+    assert not whole_head_fits(T, D)
+    assert route(T, D, "fused") == "fused"
+    assert key_tiled_smem_bytes(D) <= MAX_SMEM_BYTES
 
 
 def test_pixel_token_attention_module_routes_to_flash_and_matches_einsum():

@@ -215,7 +215,7 @@ def test_checkpoints_hold_the_full_state_and_serve(tmp_path, raw):
     assert payload["best_val_loss"] == res["best_val_loss"]
     # the weights are the model's state dict: the serving export takes them
     out = export_inference(root, str(tmp_path / "art"), device="cpu")
-    assert os.path.exists(os.path.join(out, "serving.pt"))
+    assert os.path.exists(os.path.join(out, "serving.pt2"))
     ckpt = BestCheckpointer(str(tmp_path / "m2"), "exp", cfg)
     ckpt.seed_best_from(root)
     assert ckpt.best_val_loss == res["best_val_loss"]

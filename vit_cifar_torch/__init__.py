@@ -3,10 +3,13 @@ NVIDIA H100.
 
 Module names follow the JAX package, so each module's counterpart is found
 under the same path.  The port imports torch and never jax; its kernels are
-hand-written for Hopper (``csrc/``) and built at first use.  The slices
-ported so far are the serving path of the ``vit`` model (``deploy.py``) and
-the README recipe's training with AutoAugment, checkpoints and resume
-(``train/loop.py``, the CLI ``python -m vit_cifar_torch``).
+hand-written for Hopper (``csrc/``), built at first use and registered as
+``torch.library`` operators (``ops/cuda/``).  Ported so far: every model of
+the zoo with its training (``train/loop.py``, the CLI ``python -m
+vit_cifar_torch``: AutoAugment, checkpoints, resume), serving as an
+exported ``torch.export`` artifact with optional int8 weights
+(``deploy.py``), and the analysis tools (``analysis/``).  The parallel
+modes are not ported yet.
 """
 
 from .config import Config, torch_dtype

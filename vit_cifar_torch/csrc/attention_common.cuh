@@ -7,9 +7,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
+
 namespace attn {
 
 constexpr int kWarps = 8;
+// Hopper's opt-in maximum of dynamic shared memory for one block.
+constexpr size_t kMaxSmemBytes = 232448;
 constexpr int kThreads = kWarps * 32;
 // The widest head every kernel holds whole: a row of D values spread over a
 // warp's lanes at most four a lane, or 128 columns of mma fragments.  A

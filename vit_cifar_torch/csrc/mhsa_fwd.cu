@@ -65,6 +65,19 @@
 //   in turn (fwd_f32_chunk.cuh, the tile flash_fwd.cu runs a block):
 //   100,608 bytes of shared memory at any T.
 //
+// Past the whole head: where the layouts above need more shared memory
+// than a block may have (T > 792 at head_dim 32, > 215 at 128, > 279 at
+// 192), the block still takes the whole (b, h), as the TPU kernel does at
+// any T, but walks K and V in tiles of 64 keys instead of staging them
+// whole.  The f32 instance is the key-tile walk above at any D.  The bf16
+// instance takes the block's 8 warps over groups of 128 query rows; for each
+// group it stages every key tile in turn (K, and V by the output's column
+// chunk past 128 columns) with cp.async and runs the same online-softmax
+// step on it.  K and V are read once per query-row group and column chunk:
+// a simple loop, slower than flash_fwd.cu's grid of query tiles, which is
+// the default route there.  Shared memory does not grow with T
+// (mhsa_fwd_key_tiled_smem_bytes).
+//
 // Built by vit_cifar_torch/ops/cuda/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
@@ -324,10 +337,174 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The whole-head layouts' dynamic shared memory at (T, D), in bytes: up to
+// kColChunk columns the f32 instance's, which is never less than the bf16
+// one's (see the note at the top); past it the larger of the two
+// column-chunk layouts'.  It takes no dtype, so both dtypes leave the
+// whole-head layouts at the same T.
+size_t whole_head_smem_bytes(int seq, int D) {
+  if (D <= kColChunk) return smem_bytes(seq, D);
+  const size_t bf16 = chunk_mma_smem_bytes(seq, D);
+  const size_t f32 = fwd_f32_chunk_smem_bytes();
+  return bf16 > f32 ? bf16 : f32;
+}
+
+bool whole_head_fits(int seq, int D) {
+  return whole_head_smem_bytes(seq, D) <= kMaxSmemBytes;
+}
+
+// ---- past the whole head: K and V walked in key tiles --------------------
+// Dynamic shared memory, in bf16: 8 zeros, then one key tile of K and one
+// of V, kChunk rows of stride_elems(D) each.
+size_t key_tiled_mma_smem_bytes(int D) {
+  return sizeof(__nv_bfloat16) *
+         (8 + 2 * static_cast<size_t>(attn_mma::kChunk) *
+                  attn_mma::stride_elems(D));
+}
+
+template <int kDp>
+__global__ void __launch_bounds__(kThreads)
+    mhsa_fwd_key_tiled_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                  const __nv_bfloat16* __restrict__ k,
+                                  const __nv_bfloat16* __restrict__ v,
+                                  __nv_bfloat16* __restrict__ out,
+                                  float* __restrict__ lse, int H, int seq,
+                                  int D, float c, bool vec) {
+  using namespace attn_mma;
+  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
+  __nv_bfloat16* zeros = smem_bf16;
+  __nv_bfloat16* k_s = smem_bf16 + 8;
+  __nv_bfloat16* v_s = k_s + kChunk * stride_elems(D);
+
+  const int bh = blockIdx.x;  // b * H + h
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int64_t head = static_cast<int64_t>(bh) * seq * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
+
+  for (int rows = 0; rows < seq; rows += 16 * kWarps) {
+    const int row0 = rows + 16 * warp;
+    const bool active = row0 < seq;  // warp-uniform
+    RowTile<kDp> st;
+    if (active) start_rows(st, q + head, row0, seq, D, lane);
+    for (int j0 = 0; j0 < seq; j0 += kChunk) {
+      const int n = min(kChunk, seq - j0);
+      const int64_t off = head + static_cast<int64_t>(j0) * D;
+      __syncthreads();  // the previous tile is no longer read
+      stage_rows(k_s, k + off, D, n, D, vec, threadIdx.x, kThreads);
+      stage_rows(v_s, v + off, D, n, D, vec, threadIdx.x, kThreads);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();  // the tile (and the zeros) have landed
+      if (active) attend_chunk(st, k_s, v_s, 0, n, n, D, zeros, c, lane);
+    }
+    if (active) finish_rows(st, out, lse, b, h, H, bh, row0, seq, D, D, lane);
+  }
+}
+
+template <int kDp>
+cudaError_t launch_key_tiled_mma(const void* q, const void* k, const void* v,
+                                 void* out, void* lse, int B, int H, int seq,
+                                 int D, float scale, cudaStream_t stream) {
+  const bool vec = attn_mma::can_copy_chunks(D, k, v);
+  return launch_with_smem(
+      mhsa_fwd_key_tiled_mma_kernel<kDp>, B * H, kThreads,
+      key_tiled_mma_smem_bytes(D), stream,
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), H, seq, D, scale * attn_mma::kLog2e, vec);
+}
+
+// Dynamic shared memory, in bf16: 8 zeros, then a key tile of K as one
+// matrix of kChunk rows per column chunk and one such matrix of V (the
+// output's column chunk), each row stride_elems(kColChunk).
+size_t key_tiled_chunk_mma_smem_bytes(int D) {
+  return sizeof(__nv_bfloat16) *
+         (8 + static_cast<size_t>(col_chunks(D) + 1) * attn_mma::kChunk *
+                  attn_mma::stride_elems(kColChunk));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    mhsa_fwd_key_tiled_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                        const __nv_bfloat16* __restrict__ k,
+                                        const __nv_bfloat16* __restrict__ v,
+                                        __nv_bfloat16* __restrict__ out,
+                                        float* __restrict__ lse, int H,
+                                        int seq, int D, float c, bool vec) {
+  using namespace attn_mma;
+  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
+  const int nc = col_chunks(D);
+  const int tile = kChunk * stride_elems(kColChunk);
+  __nv_bfloat16* zeros = smem_bf16;
+  __nv_bfloat16* k_s = smem_bf16 + 8;  // column chunk e at k_s + e * tile
+  __nv_bfloat16* v_s = k_s + nc * tile;
+
+  const int bh = blockIdx.x;  // b * H + h
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int64_t head = static_cast<int64_t>(bh) * seq * D;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
+
+  for (int rows = 0; rows < seq; rows += 16 * kWarps) {
+    const int row0 = rows + 16 * warp;
+    const bool active = row0 < seq;  // warp-uniform
+    for (int cc = 0; cc < nc; ++cc) {
+      const int wc = chunk_width(D, cc);
+      RowTile<kColChunk> st;  // st.q holds one chunk of q at a time
+      clear_rows(st);
+      for (int j0 = 0; j0 < seq; j0 += kChunk) {
+        const int n = min(kChunk, seq - j0);
+        const int64_t off = head + static_cast<int64_t>(j0) * D;
+        __syncthreads();  // the previous tile is no longer read
+        for (int e = 0; e < nc; ++e)
+          stage_rows(k_s + e * tile, k + off + e * kColChunk, D, n,
+                     chunk_width(D, e), vec, threadIdx.x, kThreads);
+        stage_rows(v_s, v + off + cc * kColChunk, D, n, wc, vec, threadIdx.x,
+                   kThreads);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();  // the tile (and the zeros) have landed
+        if (active) {
+          float s[kChunk / 8][4];
+#pragma unroll
+          for (int nb = 0; nb < kChunk / 8; ++nb)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) s[nb][x] = 0.f;
+          for (int e = 0; e < nc; ++e) {
+            const int we = chunk_width(D, e);
+            load_rows_a<kColChunk>(st.q, q + head + e * kColChunk, D, row0,
+                                   seq, we, lane);
+            chunk_logits<kColChunk>(s, st.q, k_s + e * tile, 0, n, n, we,
+                                    zeros, lane);
+          }
+          softmax_pv<kColChunk>(st, s, v_s, 0, n, n, wc, zeros, c, lane);
+        }
+      }
+      if (active)
+        finish_rows(st, out + cc * kColChunk, cc == 0 ? lse : nullptr, b, h,
+                    H, bh, row0, seq, D, wc, lane);
+    }
+  }
+}
+
+size_t key_tiled_smem_bytes(int D) {
+  const size_t bf16 = D <= kColChunk ? key_tiled_mma_smem_bytes(D)
+                                     : key_tiled_chunk_mma_smem_bytes(D);
+  const size_t f32 = fwd_f32_chunk_smem_bytes();
+  return bf16 > f32 ? bf16 : f32;
+}
+
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        void* lse, int B, int H, int seq, int D, float scale,
                        cudaStream_t stream) {
-  if (D <= kColChunk)
+  // up to kColChunk columns the whole head where it fits; else (and past
+  // kColChunk always) the walk over key tiles, any T and any D
+  if (D <= kColChunk && whole_head_fits(seq, D))
     return launch<float>(q, k, v, out, lse, B, H, seq, D, scale, stream);
   return launch_with_smem(
       mhsa_fwd_chunk_kernel, B * H, kThreads, fwd_f32_chunk_smem_bytes(),
@@ -339,6 +516,28 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, void* lse, int B, int H, int seq, int D,
                         float scale, cudaStream_t stream) {
+  if (!whole_head_fits(seq, D)) {
+    if (D <= 16)
+      return launch_key_tiled_mma<16>(q, k, v, out, lse, B, H, seq, D, scale,
+                                      stream);
+    if (D <= 32)
+      return launch_key_tiled_mma<32>(q, k, v, out, lse, B, H, seq, D, scale,
+                                      stream);
+    if (D <= 64)
+      return launch_key_tiled_mma<64>(q, k, v, out, lse, B, H, seq, D, scale,
+                                      stream);
+    if (D <= kColChunk)
+      return launch_key_tiled_mma<128>(q, k, v, out, lse, B, H, seq, D,
+                                       scale, stream);
+    return launch_with_smem(
+        mhsa_fwd_key_tiled_chunk_mma_kernel, B * H, kThreads,
+        key_tiled_chunk_mma_smem_bytes(D), stream,
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), H, seq,
+        D, scale * attn_mma::kLog2e, attn_mma::can_copy_chunks(D, k, v));
+  }
   if (D <= 16) return launch_mma<16>(q, k, v, out, lse, B, H, seq, D, scale,
                                      stream);
   if (D <= 32) return launch_mma<32>(q, k, v, out, lse, B, H, seq, D, scale,
@@ -363,8 +562,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 // q, k, v: (B, H, T, D) contiguous; out: (B, T, H, D) contiguous, same type;
 // lse: (B, H, T) float32 contiguous, or null for the inference variant.
-// dtype 0 is float32, 1 is bfloat16.  Returns the cudaError_t of the launch
-// (0 on success); the caller checks shapes and the shared-memory bound.
+// Any T and any D; dtype 0 is float32, 1 is bfloat16.  Returns the
+// cudaError_t of the launch (0 on success); the caller checks shapes.
 extern "C" int mhsa_fwd(const void* q, const void* k, const void* v,
                         void* out, void* lse, int B, int H, int T, int D,
                         float scale, int dtype, void* stream) {
@@ -379,15 +578,18 @@ extern "C" int mhsa_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// The dynamic shared memory one launch needs at most, in bytes, so that the
-// caller can refuse a shape before launching: up to kColChunk columns the
-// f32 instance's, which is never less than the bf16 one's (see the note at
-// the top); past it the larger of the two column-chunk layouts'.  The
-// formula takes no dtype: past kColChunk it limits f32 heads by the bf16
-// layout, which grows with T, although the f32 tile does not.
+// The whole-head layouts' dynamic shared memory, in bytes (see
+// whole_head_smem_bytes).  Where it is more than a block may use, the launch
+// walks K and V in key tiles instead and needs
+// mhsa_fwd_key_tiled_smem_bytes.
 extern "C" long long mhsa_fwd_smem_bytes(int T, int D) {
-  if (D <= kColChunk) return static_cast<long long>(smem_bytes(T, D));
-  const size_t bf16 = chunk_mma_smem_bytes(T, D);
-  const size_t f32 = fwd_f32_chunk_smem_bytes();
-  return static_cast<long long>(bf16 > f32 ? bf16 : f32);
+  return static_cast<long long>(whole_head_smem_bytes(T, D));
+}
+
+// The dynamic shared memory of the walk over key tiles, in bytes: the
+// larger of the f32 and the bf16 layouts', which depend on D alone (T is
+// taken for the interface the other entry points share).
+extern "C" long long mhsa_fwd_key_tiled_smem_bytes(int T, int D) {
+  (void)T;
+  return static_cast<long long>(key_tiled_smem_bytes(D));
 }

@@ -32,7 +32,8 @@ reference's W.W^T shortcut (layers.py:1026-1029) in place of AE calls.
 ``mask_type="random"`` fills the masked entries with N(mean(z), std(z))
 noise.  The standard-normal draw comes from the step's generator; without
 one (the eval step) from a generator seeded 0 on z's device, where JAX
-falls back to ``PRNGKey(0)``.  A test may set ``mask_noise`` to hand the
+falls back to ``PRNGKey(0)``; that draw is the operator ``seeded_draw``
+(``ops/cuda/registry.py``), so that the eval path exports.  A test may set ``mask_noise`` to hand the
 module JAX's draw.
 """
 
@@ -45,6 +46,7 @@ from torch import nn
 from .autoencoders import (Autoencoder, Autoencoder2D, AutoencoderH,
                            AutoencoderT, NNMFParams)
 from .common import LayerNorm
+from .cuda.registry import seeded_draw
 from .init import Linear
 from .nnmf.layers import AutoNNMFLayer
 
@@ -101,13 +103,14 @@ class _AEMixer(nn.Module):
     mask_noise: torch.Tensor | None = None
     ae_input = ae_output = ae_hidden = None
 
-    def _noise(self, shape, device,
+    def _noise(self, shape, like: torch.Tensor,
                generator: torch.Generator | None) -> torch.Tensor:
+        """The (B,T,T,F) standard-normal fill on ``like``'s device."""
         if self.mask_noise is not None:
-            return self.mask_noise.to(device)
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        return torch.randn(shape, generator=generator, device=device)
+            return self.mask_noise.to(like.device)
+        if generator is None:  # the eval step: an exportable seed-0 draw
+            return seeded_draw(like, shape, "normal")
+        return torch.randn(shape, generator=generator, device=like.device)
 
 
 class AEAttention(_AEMixer):
@@ -162,7 +165,7 @@ class AEAttention(_AEMixer):
                 dist = off[:, None, :] + eye[None] * (diag - off)[:, None, :]
             else:
                 noise = None if self.mask_type == "zeros" else self._noise(
-                    (z.shape[0], T, T, z.shape[-1]), z.device, generator)
+                    (z.shape[0], T, T, z.shape[-1]), z, generator)
                 preds = self.AE(_eye_mask(z, self.mask_type, noise))[0]
                 dist = torch.sum(preds * z[:, None], dim=-1)  # (B,T,T)
             attn_map = torch.softmax(dist, dim=-1)
@@ -261,7 +264,7 @@ class AEAttentionHeads(_AEMixer):
                 dist = torch.cat(parts, dim=1)  # (B,T,h,T)
             else:
                 noise = None if self.mask_type == "zeros" else self._noise(
-                    (B, T, T, width), z.device, generator)
+                    (B, T, T, width), z, generator)
                 zm = self._to_heads(_eye_mask(z, self.mask_type, noise))
                 preds = preds_of(zm.reshape(B, T, S, Fh)).reshape(zm.shape)
                 dist = torch.sum(preds * z_heads[:, None], dim=-1)

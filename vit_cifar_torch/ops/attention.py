@@ -32,27 +32,17 @@ def route(T: int, D: int, pallas_kernel: str | None) -> str:
     whose backward is the tiled pair) or "flash" (the tiled kernels,
     ``flash_attention``).
 
-    ``"einsum"`` and ``"flash"`` are taken as asked, at any (T, D).  The
-    default (``""`` or None) takes the whole-head forward where its shared
-    memory holds an un-split head (head_dim up to ``COL_CHUNK``: T <= 792
-    at head_dim 32, 215 at 128), and the tiled kernels everywhere else.
-    ``"fused"`` runs the whole-head forward wherever its shared memory holds
-    the head: past ``COL_CHUNK`` it stages K and V in bf16 by column chunk,
-    which holds T <= 279 at head_dim 192, 213 at 256 and 142 at 384.  Beyond
-    that limit ``"fused"`` raises, in f32 too: the limit is the bf16
-    layout's, applied to both dtypes, although the f32 instance (which walks
-    K and V in key tiles) would run at any T."""
-    if pallas_kernel in ("einsum", "flash"):
+    ``"einsum"``, ``"fused"`` and ``"flash"`` are taken as asked, at any
+    (T, D).  The default (``""`` or None) takes the whole-head forward where
+    its shared memory holds an un-split head (head_dim up to ``COL_CHUNK``:
+    T <= 792 at head_dim 32, 215 at 128), and the tiled kernels everywhere
+    else.  ``"fused"`` runs the whole-head forward at any (T, D), as JAX's
+    ``fused_attention`` does: where the head does not fit (past the limit
+    above, or T > 279 at head_dim 192, 213 at 256, 142 at 384) its block
+    walks K and V in key tiles."""
+    if pallas_kernel in ("einsum", "fused", "flash"):
         return pallas_kernel
-    fits = whole_head_fits(T, D)
-    if pallas_kernel == "fused":
-        if not fits:
-            raise ValueError(
-                f"pallas_kernel='fused': the whole-head forward cannot hold "
-                f"T={T}, head_dim={D} in a block's shared memory; use "
-                "'flash' or the default")
-        return "fused"
-    return "fused" if fits and D <= COL_CHUNK else "flash"
+    return "fused" if whole_head_fits(T, D) and D <= COL_CHUNK else "flash"
 
 
 class MultiHeadSelfAttention(nn.Module):

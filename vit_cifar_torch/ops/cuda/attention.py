@@ -12,10 +12,11 @@ the tiled dk/dv pass (``flash_attention.py``), as the JAX ``_bwd`` runs
 ``_flash_bwd_impl`` on the same residuals.  Without a gradient it runs the
 inference kernel.
 
-Each wrapper takes its kernel's plain version for a CPU tensor, and for a
-CUDA tensor launches the hand-written kernel (``csrc/``, built at first use)
-or raises; there is no fallback between the two.  Each wrapper counts its
-launches in ``<wrapper>.launches``.
+Each wrapper calls its operator (``registry.py``): for a CPU tensor the
+operator runs the kernel's plain version, for a CUDA tensor it launches the
+hand-written kernel (``csrc/``, built at first use) or raises; there is no
+fallback between the two.  Each wrapper counts its kernel's launches in
+``<wrapper>.launches``.
 
 The forward kernel holds a whole head in one block and dispatches by dtype:
 bf16 runs on the tensor cores (``mma.sync``, with p split into bf16 hi + lo
@@ -23,7 +24,10 @@ so that p.v keeps f32 accuracy), f32 on the CUDA cores in full f32, since
 the tensor cores would take f32 only as TF32 and miss the f32 limit of
 1e-5.  Heads wider than ``COL_CHUNK`` columns are cut into column chunks:
 bf16 stages the whole head's K and V by chunk, f32 walks them in tiles of
-64 keys (``csrc/mhsa_fwd.cu``).
+64 keys (``csrc/mhsa_fwd.cu``).  Where the whole head does not fit in a
+block's shared memory (``whole_head_fits``), the block walks K and V in
+tiles of 64 keys in both dtypes, so the kernel runs at any (T, D), as
+``_mhsa_kernel`` does.
 
 =======================  ===================  ===============================
 wrapper                  kernel               plain version
@@ -37,7 +41,9 @@ from __future__ import annotations
 
 import torch
 
-from .common import COL_CHUNK, MAX_SMEM_BYTES, check, launch
+from . import registry
+from .common import (COL_CHUNK, MAX_SMEM_BYTES, check_device, launch_forward,
+                     plain_impl)
 from .flash_attention import flash_tiled_bwd_dkv, flash_tiled_bwd_dq
 
 # bytes of one block's shared memory in the f32 tile that walks K and V of a
@@ -59,8 +65,8 @@ def whole_head_smem_bytes(T: int, D: int) -> int:
     to the library's.  Up to COL_CHUNK columns the f32 layout of K and V
     (8 warps); past it the larger of the bf16 layout, K and V of T rows by
     column chunk, and the f32 tile's, which does not grow with T.  The
-    formula takes no dtype, so past COL_CHUNK it limits f32 heads by the
-    bf16 layout too."""
+    formula takes no dtype: both dtypes leave the whole-head layouts for the
+    walk over key tiles at the same (T, D)."""
     if D <= COL_CHUNK:
         return 4 * (T * (D + 1) + T * D + 8 * D + 8 * T)
     chunks = -(-D // COL_CHUNK)
@@ -74,6 +80,22 @@ def whole_head_fits(T: int, D: int) -> bool:
     block's shared memory; the backward is the tiled pair's, which runs at
     any (T, D)."""
     return whole_head_smem_bytes(T, D) <= MAX_SMEM_BYTES
+
+
+def key_tiled_smem_bytes(D: int) -> int:
+    """The whole-head forward's dynamic shared memory in bytes where the
+    head does not fit (``whole_head_fits`` is false) and the block walks K
+    and V in tiles of 64 keys: the formula of
+    ``mhsa_fwd_key_tiled_smem_bytes``, which the card tests hold equal to
+    the library's.  The larger of the f32 tile's and the bf16 tile's (K and
+    V, past COL_CHUNK K by column chunk and V by the output's chunk);
+    neither grows with T."""
+    if D <= COL_CHUNK:
+        bf16 = 2 * (8 + 2 * 64 * _stride_elems(D))
+    else:
+        bf16 = 2 * (8 + (-(-D // COL_CHUNK) + 1) * 64
+                    * _stride_elems(COL_CHUNK))
+    return max(bf16, _F32_CHUNK_SMEM_BYTES)
 
 
 # --------------------------------------------------------------------------
@@ -103,25 +125,35 @@ def fused_attention_lse_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# kernels
+# kernels, as operators
 # --------------------------------------------------------------------------
+
+def _mhsa_fwd_cuda(q, k, v, scale):
+    out, _ = launch_forward("mhsa_fwd", q, k, v, scale, with_lse=False)
+    fused_attention.launches += 1
+    return out
+
+
+def _mhsa_fwd_lse_cuda(q, k, v, scale):
+    out, lse = launch_forward("mhsa_fwd", q, k, v, scale, with_lse=True)
+    fused_attention_lse.launches += 1
+    return out, lse
+
+
+registry.register("mhsa_fwd", cpu=plain_impl(fused_attention_reference),
+                  cuda=_mhsa_fwd_cuda, fake=registry.fwd_fake)
+registry.register("mhsa_fwd_lse", cpu=plain_impl(fused_attention_lse_reference),
+                  cuda=_mhsa_fwd_lse_cuda, fake=registry.fwd_lse_fake)
+
 
 def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float):
     """Training forward: (B, H, T, D)^3 -> (out (B, T, H, D), lse (B, H, T)
-    f32).  Launches counted in ``fused_attention_lse.launches``.  bf16 runs on
-    the tensor cores, f32 on the CUDA cores (a dispatch by dtype; see
-    above)."""
-    check(q, k, v)
-    if q.device.type == "cpu":
-        return fused_attention_lse_reference(q, k, v, scale)
-    q, k, v = (a.contiguous() for a in (q, k, v))
-    B, H, T, D = q.shape
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    launch("mhsa_fwd", (q, k, v, out, lse), q, scale)
-    fused_attention_lse.launches += 1
-    return out, lse
+    f32), the operator ``vit_cifar_torch::mhsa_fwd_lse``.  Launches counted
+    in ``fused_attention_lse.launches``.  bf16 runs on the tensor cores, f32
+    on the CUDA cores (a dispatch by dtype; see above)."""
+    check_device(q)
+    return registry.OPS.mhsa_fwd_lse(q, k, v, scale)
 
 
 class FusedAttentionFunction(torch.autograd.Function):
@@ -151,22 +183,16 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, H, T, D)^3 -> (B, T, H, D) attention context.
 
     Where a gradient is needed: :class:`FusedAttentionFunction`.  Otherwise
-    CPU tensors go to the plain version and CUDA tensors to the inference
-    kernel, whose launches are counted in ``fused_attention.launches``: bf16 on
-    the tensor cores, f32 on the CUDA cores (a dispatch by dtype).
+    the operator ``vit_cifar_torch::mhsa_fwd``: the plain version for CPU
+    tensors, the inference kernel for CUDA tensors, its launches counted in
+    ``fused_attention.launches`` (bf16 on the tensor cores, f32 on the CUDA
+    cores, a dispatch by dtype).
     """
-    check(q, k, v)
+    check_device(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FusedAttentionFunction.apply(q, k, v, scale)
-    if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, scale)
-    q, k, v = (a.contiguous() for a in (q, k, v))
-    B, H, T, D = q.shape
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    launch("mhsa_fwd", (q, k, v, out, None), q, scale)
-    fused_attention.launches += 1
-    return out
+    return registry.OPS.mhsa_fwd(q, k, v, scale)
 
 
 for _wrapper in (fused_attention, fused_attention_lse):

@@ -25,18 +25,25 @@ def library(name: str) -> ctypes.CDLL:
 
     lib = load_library(name)
     getattr(lib, name).restype = ctypes.c_int
-    smem = getattr(lib, f"{name}_smem_bytes")
-    smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    smem.restype = ctypes.c_longlong
+    for suffix in ("smem_bytes", "key_tiled_smem_bytes"):
+        smem = getattr(lib, f"{name}_{suffix}", None)
+        if smem is not None:
+            smem.argtypes = [ctypes.c_int, ctypes.c_int]
+            smem.restype = ctypes.c_longlong
     return lib
 
 
 def launch(name: str, pointers, q: torch.Tensor, scale: float) -> None:
     """Launch kernel ``name`` on q's device and current stream; raises if
-    the shape needs too much shared memory or the launch fails."""
+    the shape needs too much shared memory or the launch fails.  A kernel
+    with a ``<name>_key_tiled_smem_bytes`` entry walks K and V in key tiles
+    where its first layout does not fit, and needs that many bytes then."""
     B, H, T, D = q.shape
     lib = library(name)
     smem = getattr(lib, f"{name}_smem_bytes")(T, D)
+    tiled = getattr(lib, f"{name}_key_tiled_smem_bytes", None)
+    if smem > MAX_SMEM_BYTES and tiled is not None:
+        smem = tiled(T, D)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{name} at T={T}, D={D} needs {smem} bytes of shared memory, "
@@ -52,6 +59,42 @@ def launch(name: str, pointers, q: torch.Tensor, scale: float) -> None:
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def launch_forward(name: str, q, k, v, scale: float, with_lse: bool):
+    """Launch forward kernel ``name`` (``mhsa_fwd`` or ``flash_fwd``) after
+    its checks: (out (B, T, H, D), lse (B, H, T) f32 or None)."""
+    check(q, k, v)
+    q, k, v = (a.contiguous() for a in (q, k, v))
+    B, H, T, D = q.shape
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    launch(name, (q, k, v, out, lse), q, scale)
+    return out, lse
+
+
+def plain_impl(fn, checks=None):
+    """An operator's CPU implementation: the plain version ``fn`` after the
+    kernel's checks (``checks``, default ``check``, of every argument but
+    the scale), its outputs contiguous as the kernel writes them."""
+    checks = checks or check
+
+    def run(*args):
+        checks(*args[:-1])
+        out = fn(*args)
+        if isinstance(out, tuple):
+            return tuple(t.contiguous() for t in out)
+        return out.contiguous()
+    return run
+
+
+def check_device(q: torch.Tensor) -> None:
+    """A wrapper's refusal of a device that neither the plain version (the
+    CPU) nor the kernel (CUDA) runs on, before the operator's dispatch,
+    which would answer a meta tensor from the fake implementation."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention kernel for device {q.device}")
 
 
 def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -21,10 +21,11 @@ The JAX signature's ``block_q`` and ``block_kv`` are not taken: they change
 the result only through the order of f32 sums.  lse is (B, H, T) f32, not
 the TPU's lane-broadcast (B, H, Tq, 128).
 
-Each wrapper takes its kernel's plain version for a CPU tensor, and for a
-CUDA tensor launches the hand-written kernel (``csrc/flash_*.cu``, built at
-first use) or raises; there is no fallback between the two.  Each wrapper
-counts its launches in ``<wrapper>.launches``.
+Each wrapper calls its operator (``registry.py``): for a CPU tensor the
+operator runs the kernel's plain version, for a CUDA tensor it launches the
+hand-written kernel (``csrc/flash_*.cu``, built at first use) or raises;
+there is no fallback between the two.  Each wrapper counts its kernel's
+launches in ``<wrapper>.launches``.
 
 Every kernel dispatches by dtype: bf16 runs on the tensor cores
 (``mma.sync``, 16 rows a warp, tiles staged by ``cp.async``; p, and in the
@@ -50,7 +51,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import bwd_terms, check, check_bwd, launch
+from . import registry
+from .common import (bwd_terms, check_bwd, check_device, launch,
+                     launch_forward, plain_impl)
 
 # the plain versions' key tile, the JAX kernels' default ``block_kv``;
 # (B, H, T, BLOCK_KV) is the largest tensor they form
@@ -131,34 +134,23 @@ def flash_tiled_bwd_dkv_reference(q, k, v, o, do, lse, scale: float):
 
 
 # --------------------------------------------------------------------------
-# kernels
+# kernels, as operators
 # --------------------------------------------------------------------------
 
-def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float):
-    """Training forward: (B, H, T, D)^3 -> (out (B, T, H, D), lse (B, H, T)
-    f32).  Launches counted in ``flash_attention_lse.launches``.  bf16 runs on
-    the tensor cores, f32 on the CUDA cores (a dispatch by dtype; see
-    above)."""
-    check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_lse_reference(q, k, v, scale)
-    q, k, v = (a.contiguous() for a in (q, k, v))
-    B, H, T, D = q.shape
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    launch("flash_fwd", (q, k, v, out, lse), q, scale)
+def _flash_fwd_cuda(q, k, v, scale):
+    out, _ = launch_forward("flash_fwd", q, k, v, scale, with_lse=False)
+    flash_attention.launches += 1
+    return out
+
+
+def _flash_fwd_lse_cuda(q, k, v, scale):
+    out, lse = launch_forward("flash_fwd", q, k, v, scale, with_lse=True)
     flash_attention_lse.launches += 1
     return out, lse
 
 
-def flash_tiled_bwd_dq(q, k, v, o, do, lse, scale: float) -> torch.Tensor:
-    """dq of the flash attention, (B, H, T, D) in q's dtype.  Launches
-    counted in ``flash_tiled_bwd_dq.launches``.  bf16 runs on the tensor
-    cores, f32 on the CUDA cores (a dispatch by dtype; see above)."""
+def _bwd_dq_cuda(q, k, v, o, do, lse, scale):
     check_bwd(q, k, v, o, do, lse)
-    if q.device.type == "cpu":
-        return flash_tiled_bwd_dq_reference(q, k, v, o, do, lse, scale)
     q, k, v, o, do, lse = (a.contiguous() for a in (q, k, v, o, do, lse))
     dq = torch.empty_like(q)
     launch("flash_bwd_dq", (q, k, v, o, do, lse, dq), q, scale)
@@ -166,18 +158,57 @@ def flash_tiled_bwd_dq(q, k, v, o, do, lse, scale: float) -> torch.Tensor:
     return dq
 
 
-def flash_tiled_bwd_dkv(q, k, v, o, do, lse, scale: float):
-    """(dk, dv) of the flash attention, each (B, H, T, D) in the input
-    dtype.  Launches counted in ``flash_tiled_bwd_dkv.launches``.  bf16 runs
-    on the tensor cores, f32 on the CUDA cores (a dispatch by dtype)."""
+def _bwd_dkv_cuda(q, k, v, o, do, lse, scale):
     check_bwd(q, k, v, o, do, lse)
-    if q.device.type == "cpu":
-        return flash_tiled_bwd_dkv_reference(q, k, v, o, do, lse, scale)
     q, k, v, o, do, lse = (a.contiguous() for a in (q, k, v, o, do, lse))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     launch("flash_bwd_dkv", (q, k, v, o, do, lse, dk, dv), q, scale)
     flash_tiled_bwd_dkv.launches += 1
     return dk, dv
+
+
+registry.register("flash_fwd", cpu=plain_impl(flash_attention_reference),
+                  cuda=_flash_fwd_cuda, fake=registry.fwd_fake)
+registry.register("flash_fwd_lse",
+                  cpu=plain_impl(flash_attention_lse_reference),
+                  cuda=_flash_fwd_lse_cuda, fake=registry.fwd_lse_fake)
+registry.register("flash_bwd_dq",
+                  cpu=plain_impl(flash_tiled_bwd_dq_reference, check_bwd),
+                  cuda=_bwd_dq_cuda,
+                  fake=lambda q, k, v, o, do, lse, scale: torch.empty_like(q))
+registry.register("flash_bwd_dkv",
+                  cpu=plain_impl(flash_tiled_bwd_dkv_reference, check_bwd),
+                  cuda=_bwd_dkv_cuda,
+                  fake=lambda q, k, v, o, do, lse, scale: (
+                      torch.empty_like(k), torch.empty_like(v)))
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float):
+    """Training forward: (B, H, T, D)^3 -> (out (B, T, H, D), lse (B, H, T)
+    f32), the operator ``vit_cifar_torch::flash_fwd_lse``.  Launches
+    counted in ``flash_attention_lse.launches``.  bf16 runs on the tensor
+    cores, f32 on the CUDA cores (a dispatch by dtype; see above)."""
+    check_device(q)
+    return registry.OPS.flash_fwd_lse(q, k, v, scale)
+
+
+def flash_tiled_bwd_dq(q, k, v, o, do, lse, scale: float) -> torch.Tensor:
+    """dq of the flash attention, (B, H, T, D) in q's dtype, the operator
+    ``vit_cifar_torch::flash_bwd_dq``.  Launches counted in
+    ``flash_tiled_bwd_dq.launches``.  bf16 runs on the tensor cores, f32 on
+    the CUDA cores (a dispatch by dtype; see above)."""
+    check_device(q)
+    return registry.OPS.flash_bwd_dq(q, k, v, o, do, lse, scale)
+
+
+def flash_tiled_bwd_dkv(q, k, v, o, do, lse, scale: float):
+    """(dk, dv) of the flash attention, each (B, H, T, D) in the input
+    dtype, the operator ``vit_cifar_torch::flash_bwd_dkv``.  Launches
+    counted in ``flash_tiled_bwd_dkv.launches``.  bf16 runs on the tensor
+    cores, f32 on the CUDA cores (a dispatch by dtype)."""
+    check_device(q)
+    return registry.OPS.flash_bwd_dkv(q, k, v, o, do, lse, scale)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -206,22 +237,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, H, T, D)^3 -> (B, T, H, D) attention context, at any T.
 
     Where a gradient is needed: :class:`FlashAttentionFunction`.  Otherwise
-    CPU tensors go to the plain version and CUDA tensors to the inference
-    kernel, whose launches are counted in ``flash_attention.launches``: bf16 on
-    the tensor cores, f32 on the CUDA cores (a dispatch by dtype).
+    the operator ``vit_cifar_torch::flash_fwd``: the plain version for CPU
+    tensors, the inference kernel for CUDA tensors, its launches counted in
+    ``flash_attention.launches`` (bf16 on the tensor cores, f32 on the CUDA
+    cores, a dispatch by dtype).
     """
-    check(q, k, v)
+    check_device(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, scale)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
-    q, k, v = (a.contiguous() for a in (q, k, v))
-    B, H, T, D = q.shape
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    launch("flash_fwd", (q, k, v, out, None), q, scale)
-    flash_attention.launches += 1
-    return out
+    return registry.OPS.flash_fwd(q, k, v, scale)
 
 
 for _wrapper in (flash_attention, flash_attention_lse, flash_tiled_bwd_dq,

@@ -17,7 +17,9 @@ and ``HamburgerAttention``).
     where the reference's ``compute_coef`` has a NameError (ham.py:206);
   * ``rand_init``: fresh bases every call.  The draw comes from the step's
     generator; without one (the eval step) from a generator seeded 0 on the
-    input's device, where JAX falls back to ``PRNGKey(0)``.  A test may set
+    input's device, where JAX falls back to ``PRNGKey(0)``, through the
+    operator ``seeded_draw`` (``ops/cuda/registry.py``) so that the eval
+    path exports.  A test may set
     ``bases_draw`` to hand the module JAX's draw (before the L2 norm);
   * otherwise (``--train-md-bases``) the bases persist as the buffer
     ``bases`` (S, D, R), the counterpart of JAX's ``state`` collection:
@@ -51,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import dropout
+from .cuda.registry import seeded_draw
 from .init import Linear, NHWCConv, he_conv_init
 from .norm import TorchBatchNorm
 
@@ -172,10 +175,10 @@ class MatrixDecomposition2D(nn.Module):
             shape = (B * self.S, D, self.R)
             if self.bases_draw is not None:
                 draw = self.bases_draw.to(x.device)
+            elif generator is None:  # the eval step: an exportable draw
+                draw = seeded_draw(
+                    x, shape, "uniform" if self.ham_type == "NMF" else "normal")
             else:
-                if generator is None:
-                    generator = torch.Generator(
-                        device=x.device).manual_seed(0)
                 draw = self._draw(shape, generator, x.device)
             bases = _l2_normalize(draw, 1)
         else:

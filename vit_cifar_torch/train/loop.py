@@ -21,9 +21,13 @@ from the state's generator, optionally augments the whole dataset once
 (``--preaugment-epoch``), runs its steps with no host read, then reads the
 epoch's metric sums and the eval's sums once each.
 
-Not written by the port's loop: the model-graph artifacts and the input
-grid image of the JAX loop; they come with the analysis tools (ROADMAP
-queue 1, item 9).  A mesh of more than one device and multihost runs raise
+At fit start, as the JAX loop does, it writes the model-graph artifacts
+(``analysis/graph_render.py``): ``model_graph.txt``, ``model_graph.png``
+and ``<experiment>_encoder_block.png``, from the module tree traced on fake
+tensors (no device work), and, except on dry runs, ``input_grid.png`` of
+the first ten training images.  Only the drawing sits in a ``try``, so
+that a drawing failure (matplotlib missing) is printed and never stops
+training.  A mesh of more than one device and multihost runs raise
 ``NotImplementedError`` naming their ROADMAP item.
 
 ``--semi-supervised`` (c10 only, utils.py:404-416) trains on the
@@ -42,6 +46,7 @@ of paths the port always takes (``device_data``, ``flat_optimizer``,
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Any
 
@@ -182,6 +187,50 @@ def train(cfg: Config, verbose: bool = True, stop_after: int | None = None,
         torch.set_float32_matmul_precision(previous)
 
 
+def _log_graph_artifacts(cfg: Config, model, logger, experiment: str,
+                         train_x: np.ndarray, device: torch.device) -> None:
+    """The model-graph artifacts (the torchview.draw_graph equivalents,
+    network.py:397-452) and the input grid (skipped on dry runs), as the
+    JAX loop writes them; only the drawing is in a ``try``."""
+    from ..analysis.graph_render import (encoder_block_rows, graph_table,
+                                         module_rows, render_graph)
+
+    sample = torch.zeros((2, cfg.img_size, cfg.img_size, cfg.in_c),
+                         device=device)
+    rows = module_rows(model, sample, depth=5, deterministic=True)
+    logger.log_text("model_graph.txt", graph_table(rows, depth=4))
+    enc = encoder_block_rows(rows)
+    try:
+        render_graph([r for r in rows if len(r.path) <= 2],
+                     os.path.join(logger.dir, "model_graph.png"))
+        if enc is not None:
+            render_graph(enc, os.path.join(
+                logger.dir, f"{experiment}_encoder_block.png"))
+    except Exception as e:  # drawing must never stop training
+        print(f"[vit_cifar_torch] model graph logging failed: {e}")
+    if enc is None:
+        # reference behavior for models without an encoder stack
+        print("[WARNING] Failed to draw encoder graph.")
+    if cfg.dry_run:
+        return
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, axes = plt.subplots(2, 5, figsize=(8, 3.5))
+        for i, ax in enumerate(axes.flat):
+            ax.imshow(train_x[i])
+            ax.set_xticks([])
+            ax.set_yticks([])
+        fig.tight_layout()
+        fig.savefig(os.path.join(logger.dir, "input_grid.png"), dpi=100)
+        plt.close(fig)
+    except Exception as e:  # matplotlib issues must never stop training
+        print(f"[vit_cifar_torch] input grid logging failed: {e}")
+
+
 def _train(cfg: Config, verbose: bool, stop_after: int | None,
            device: torch.device) -> dict[str, Any]:
     _check_run_supported(cfg)
@@ -221,6 +270,7 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
     logger.log_text("model_summary.txt", summary)
     if verbose:
         print(summary)
+    _log_graph_artifacts(cfg, model, logger, experiment, train_x, device)
 
     x_train = torch.from_numpy(train_x).to(device)
     y_train = torch.from_numpy(train_y).to(device)

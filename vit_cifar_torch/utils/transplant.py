@@ -53,6 +53,20 @@ def state_dict_from_flax(params, state=None,
     return out
 
 
+def flax_layout(owner: nn.Module, leaf: str) -> tuple[str, tuple | None]:
+    """The flax name of entry ``leaf`` of module ``owner``, and the axes
+    permutation that takes the port's layout to flax's (None: the same
+    layout): a Linear's ``weight`` is a ``kernel`` (1, 0), a convolution's
+    a ``kernel`` (2, 3, 1, 0), a LayerNorm's or BatchNorm's a ``scale``."""
+    if leaf == "weight" and isinstance(owner, Linear):
+        return "kernel", (1, 0)
+    if leaf == "weight" and isinstance(owner, NHWCConv):
+        return "kernel", (2, 3, 1, 0)
+    if leaf == "weight" and isinstance(owner, (LayerNorm, TorchBatchNorm)):
+        return "scale", None
+    return leaf, None
+
+
 def flax_from_state_dict(model: nn.Module, state_dict=None,
                          collection: str = "params") -> dict:
     """The port's ``state_dict`` (default ``model``'s own) -> the nested
@@ -78,15 +92,11 @@ def flax_from_state_dict(model: nn.Module, state_dict=None,
         if kind != collection:
             continue
         arr = val.detach().cpu().numpy()
-        if leaf == "weight" and isinstance(owner, Linear):
-            leaf, arr = "kernel", arr.T
-        elif leaf == "weight" and isinstance(owner, NHWCConv):
-            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
-        elif leaf == "weight" and isinstance(owner, (LayerNorm,
-                                                     TorchBatchNorm)):
-            leaf = "scale"
+        leaf, perm = flax_layout(owner, leaf)
+        if perm is not None:
+            arr = arr.transpose(perm)
         node = out
         for m in mod:
             node = node.setdefault(m, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = np.array(arr, copy=True)  # owns its memory: no view
     return out
