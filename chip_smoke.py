@@ -153,6 +153,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    ``lgcnn`` (both norms), ``hamburger`` V2+ with bases and the MoE ViT on
    the card and on the CPU (params, moments and buffers in relative L2,
    beside the card's own spread).
+12. Parallel phase (``vit_cifar_torch/parallel/``): a NCCL process group
+   of one rank (a ``FileStore`` under ``build/chip_smoke/``; NCCL takes
+   one rank a card, and the machine has one), so ``train()`` takes the
+   mesh path, a data axis of 1 with the flat gradient's all-reduce, the
+   world's guard verdict, BatchNorm's and the MoE's global sums and the
+   eval's all-reduce live.  The README flagship (7 layers, hidden 384, 12
+   heads, bf16-mixed, B=128) for 20 steps, ``lgcnn --cnn-normalization
+   batch_norm`` and the README recipe with ``--moe-experts 8`` for 5 each,
+   each run four times in turns (without, with, with and without the
+   group) on a CIFAR-10 data set of exactly those steps written under
+   ``build/chip_smoke/``: every checkpoint on the mesh path equals every
+   one without it bit for bit (params, moments, buffers), the launch
+   counts are equal (7 a step of each training kernel for the ViTs), and
+   the ms a step of each run and the NCCL version are printed.
+   Runs over more ranks are held on the CPU by the gloo tests
+   (``tests/test_torch_parallel*_mp.py``).
 
 The library's yardsticks, timed at both main shapes and called nowhere in
 the port: SDPA forward and forward+backward,
@@ -195,6 +211,7 @@ import urllib.request
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from vit_cifar_torch import Config, cli, torch_dtype
@@ -3043,6 +3060,113 @@ def analysis_phase(card: str) -> None:
     print(f"the analysis phase took {time.perf_counter() - t0:.1f} s ({card})")
 
 
+PARALLEL_STEPS = 20  # the flagship on the mesh path
+PARALLEL_ZOO_STEPS = 5  # lgcnn batch_norm and the MoE ViT
+PARALLEL_EVAL = 256  # one eval batch
+
+
+def write_cifar10(root: str, steps: int, batch: int = 128) -> None:
+    """A CIFAR-10 data set in the archive's python layout
+    (``cifar-10-batches-py``) of ``steps * batch`` training images and
+    ``PARALLEL_EVAL`` test images cut from synthetic c10, so that
+    ``train()`` takes exactly ``steps`` steps an epoch."""
+    import pickle
+
+    raw = load_dataset("c10", "data", synthetic=True)
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d, exist_ok=True)
+    per = steps * batch // 5
+
+    def dump(name, x, y):
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({b"data": x.transpose(0, 3, 1, 2).reshape(len(x), -1),
+                         b"labels": [int(v) for v in y]}, f)
+
+    for i in range(5):
+        sl = slice(i * per, (i + 1) * per)
+        dump(f"data_batch_{i + 1}", raw.x_train[sl], raw.y_train[sl])
+    dump("test_batch", raw.x_test[:PARALLEL_EVAL], raw.y_test[:PARALLEL_EVAL])
+
+
+def parallel_run(cfg: Config, name: str, mesh: bool) -> tuple:
+    """``train()`` on the card, in a NCCL process group of one rank
+    (``mesh``) or in none; returns (ms a step, launches, last payload)."""
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    cfg = cfg.replace(ckpt_dir=os.path.join(WORK, "parallel", "models", name))
+    if mesh:
+        store = os.path.join(WORK, "parallel", f"store_{name}")
+        if os.path.exists(store):
+            os.remove(store)
+        dist.init_process_group("nccl", store=dist.FileStore(store, 1),
+                                rank=0, world_size=1)
+    try:
+        res = train(cfg, verbose=False)
+    finally:
+        if mesh:
+            dist.destroy_process_group()
+    launches = _launch_counts()
+    row = res["history"][-1]
+    if not (math.isfinite(row["loss"]) and row["skipped_nonfinite"] == 0):
+        raise AssertionError(f"{name}: a loss is not finite")
+    payload, _ = load_checkpoint(res["ckpt_dir"], prefer="last")
+    return row["epoch_time"] * 1e3, launches, payload
+
+
+def parallel_phase(card: str) -> dict:
+    """The mesh path of ``train()`` at world size 1 against the same runs
+    without a process group, bit for bit (see the module docstring);
+    returns the flagship mesh run's launches."""
+    t0 = time.perf_counter()
+    shutil.rmtree(os.path.join(WORK, "parallel"), ignore_errors=True)
+    runs = (("flagship", PARALLEL_STEPS, flagship_cfg()),
+            ("lgcnn_bn", PARALLEL_ZOO_STEPS,
+             readme_cfg(model_name="lgcnn", cnn_normalization="batch_norm")),
+            ("moe", PARALLEL_ZOO_STEPS, moe_cfg()))
+    print(f"parallel phase: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}"
+          f", a process group of one rank; {card}")
+    out = {}
+    for name, steps, cfg in runs:
+        root = os.path.join(WORK, "parallel", f"data_{steps}")
+        if not os.path.isdir(root):
+            write_cifar10(root, steps)
+        cfg = cfg.replace(max_epochs=1, synthetic_data=False, data_dir=root,
+                          log_dir=os.path.join(WORK, "parallel", "logs"))
+        # in turns: without, with, with, without the group
+        got = [(mesh, parallel_run(cfg, f"{name}_{k}", mesh))
+               for k, mesh in enumerate((False, True, True, False))]
+        plain = [r for mesh, r in got if not mesh]
+        on_mesh = [r for mesh, r in got if mesh]
+        pairs = [(f"{key}.{k}", a[2][key][k], v)
+                 for a in on_mesh for b in plain
+                 for key in ("params", "opt_state", "model_state")
+                 for k, v in b[2].get(key, {}).items()]
+        unequal = sorted({n for n, a, b in pairs if not torch.equal(a, b)})
+        launches = [r[1] for _, r in got]
+        per_step = {k: cfg.num_layers * steps for k in (
+            "mhsa_fwd_lse", "flash_bwd_dq_tiled", "flash_bwd_dkv_tiled")}
+        kernels_ok = name == "lgcnn_bn" or all(
+            launches[1][k] == v for k, v in per_step.items())
+        ms = {mesh: ", ".join(f"{r[0] / steps:.3f}" for r in rs)
+              for mesh, rs in ((True, on_mesh), (False, plain))}
+        print(f"parallel phase, {name} ({cfg.num_layers} layers, hidden "
+              f"{cfg.hidden}, B={cfg.batch_size}, {cfg.precision}), {steps} "
+              f"steps through train(), in turns without, with, with and "
+              f"without the group: {ms[True]} ms a step on the mesh path, "
+              f"{ms[False]} ms without a process group (host clock over the "
+              f"epoch, first step included); {len(pairs)} tensor pairs of "
+              f"the checkpoints, unequal {unequal}; launches {launches[1]} "
+              f"on the mesh path, the same in every run: "
+              f"{all(l == launches[0] for l in launches)}")
+        if unequal or not pairs or not kernels_ok or any(
+                l != launches[0] for l in launches):
+            raise AssertionError(f"parallel phase, {name}: the mesh path is "
+                                 "not the one-process run")
+        out[name] = launches[1]
+    print(f"the parallel phase took {time.perf_counter() - t0:.1f} s")
+    return out["flagship"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3077,6 +3201,7 @@ def main() -> None:
     zoo_phase(card)
     nnmf_phase(card)
     paths.append(rest_phase(card)["moe"]["launches"])
+    paths.append(parallel_phase(card))
     for row in rows:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
         if row["launches"] < 1:

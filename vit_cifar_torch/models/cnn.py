@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.basic import ANN, CNN
+from ..parallel.collectives import Axis
 from ..ops.common import LayerNorm, dropout
 from ..ops.init import Conv, Linear, normal
 from ..ops.norm import TorchBatchNorm
@@ -148,6 +149,8 @@ class _ConvMLP(nn.Module):
     """The encoder's conv MLP (layers.py:778-795), with the trailing
     GELU."""
 
+    data_axis: Axis | None = None
+
     def __init__(self, mlp_hidden: int, features: int, kernel_size: int,
                  dropout: float = 0.0, *, generator: torch.Generator,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -160,9 +163,11 @@ class _ConvMLP(nn.Module):
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        x = dropout(F.gelu(self.c1(x)), self.rate, deterministic, generator)
+        rows = ((0, self.data_axis),)
+        x = dropout(F.gelu(self.c1(x)), self.rate, deterministic, generator,
+                    rows)
         return dropout(F.gelu(self.c2(x)), self.rate, deterministic,
-                       generator)
+                       generator, rows)
 
 
 class LocalGlobalConvolutionEncoder(nn.Module):

@@ -47,7 +47,7 @@ class ViT(nn.Module):
             if value:
                 raise NotImplementedError(
                     f"ViT({name}=...) is not ported yet: ROADMAP queue 1, "
-                    "item 8 (parallel modes)")
+                    "item 8b (sequence parallelism)")
         self.patch, self.dtype, self.remat = patch, dtype, remat
         self.is_cls_token = is_cls_token
         self.num_layers = num_layers

@@ -35,6 +35,11 @@ one (the eval step) from a generator seeded 0 on z's device, where JAX
 falls back to ``PRNGKey(0)``; that draw is the operator ``seeded_draw``
 (``ops/cuda/registry.py``), so that the eval path exports.  A test may set ``mask_noise`` to hand the
 module JAX's draw.
+
+Under a model axis U is column-parallel and V row-parallel: each rank
+gathers U's output, runs the rest whole, and keeps its own columns for V.
+Under a data axis the random fill is drawn for the global batch and scaled
+by the global batch's mean and standard deviation.
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import (Axis, copy_to, gather_from, local_draw,
+                                    scatter_to)
 from .autoencoders import (Autoencoder, Autoencoder2D, AutoencoderH,
                            AutoencoderT, NNMFParams)
 from .common import LayerNorm
@@ -83,34 +90,64 @@ def build_ae(*, ae_type: str, seq_len: int, ffn_features: int, heads: int = 1,
 
 
 def _eye_mask(z: torch.Tensor, mask_type: str,
-              noise: torch.Tensor | None = None) -> torch.Tensor:
+              noise: torch.Tensor | None = None,
+              data: Axis | None = None) -> torch.Tensor:
     """The (B,T,T,F) masked tensor (layers.py:862-873): row i keeps token
     i of z; the rest is zeros, or ``noise`` (standard normal, (B,T,T,F))
-    scaled to z's mean and standard deviation."""
+    scaled to z's mean and standard deviation, over the global batch
+    under a data axis."""
     B, T, F_ = z.shape
     rep = z[:, None].expand(B, T, T, F_)
     eye = torch.eye(T, dtype=z.dtype, device=z.device)[None, :, :, None]
     if mask_type == "zeros":
         return eye * rep
-    noise = noise * z.std(correction=0) + z.mean()
-    return eye * rep + (1.0 - eye) * noise
+    if data is None:
+        std, mean = z.std(correction=0), z.mean()
+    else:
+        n = z.numel() * data.size
+        mean = data.all_reduce_(z.sum()) / n
+        std = torch.sqrt(data.all_reduce_((z - mean).square().sum()) / n)
+    return eye * rep + (1.0 - eye) * (noise * std + mean)
+
+
+def _lift(mixer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """gelu(U(x)), whole on every rank under a model axis."""
+    tp = mixer.tp_axis
+    if tp is None:
+        return F.gelu(mixer.U(x))
+    return gather_from(F.gelu(mixer.U(copy_to(x, tp))), tp)
+
+
+def _project(mixer: nn.Module, attn: torch.Tensor) -> torch.Tensor:
+    """V of the mixed features, row-parallel under a model axis."""
+    tp = mixer.tp_axis
+    if tp is not None:
+        attn = scatter_to(attn, tp)
+    return mixer.V(attn, reduce_over=tp)
 
 
 class _AEMixer(nn.Module):
     """What the AE mixers share: the random fill's draw and the
     intermediates they keep."""
 
+    TP_LAYOUT = {"U": "col", "V": "row"}
+    data_axis: Axis | None = None
+    tp_axis: Axis | None = None
     mask_noise: torch.Tensor | None = None
     ae_input = ae_output = ae_hidden = None
 
     def _noise(self, shape, like: torch.Tensor,
                generator: torch.Generator | None) -> torch.Tensor:
-        """The (B,T,T,F) standard-normal fill on ``like``'s device."""
+        """The (B,T,T,F) standard-normal fill on ``like``'s device, drawn
+        for the global batch under a data axis."""
         if self.mask_noise is not None:
             return self.mask_noise.to(like.device)
         if generator is None:  # the eval step: an exportable seed-0 draw
-            return seeded_draw(like, shape, "normal")
-        return torch.randn(shape, generator=generator, device=like.device)
+            draw = lambda s: seeded_draw(like, s, "normal")  # noqa: E731
+        else:
+            draw = lambda s: torch.randn(  # noqa: E731
+                s, generator=generator, device=like.device)
+        return local_draw(draw, shape, ((0, self.data_axis),))
 
 
 class AEAttention(_AEMixer):
@@ -147,7 +184,7 @@ class AEAttention(_AEMixer):
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None):
-        h = F.gelu(self.U(x))
+        h = _lift(self, x)
         x1, z = h.chunk(2, dim=-1) if self.chunk else (h, h)
         z = self.norm1(z.detach()).to(torch.float32)
         ae_out, ae_hidden = self.AE(z)
@@ -166,13 +203,14 @@ class AEAttention(_AEMixer):
             else:
                 noise = None if self.mask_type == "zeros" else self._noise(
                     (z.shape[0], T, T, z.shape[-1]), z, generator)
-                preds = self.AE(_eye_mask(z, self.mask_type, noise))[0]
+                preds = self.AE(_eye_mask(z, self.mask_type, noise,
+                                          self.data_axis))[0]
                 dist = torch.sum(preds * z[:, None], dim=-1)  # (B,T,T)
             attn_map = torch.softmax(dist, dim=-1)
         if self.save_attn_map:
             self.attn_map = attn_map
         attn = torch.einsum("bij,bjf->bif", attn_map.to(self.dtype), x1)
-        return self.V(attn)
+        return _project(self, attn)
 
 
 class AEAttentionHeads(_AEMixer):
@@ -218,7 +256,7 @@ class AEAttentionHeads(_AEMixer):
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None):
-        h = F.gelu(self.U(x))
+        h = _lift(self, x)
         if self.chunk:
             x1, z = h.chunk(2, dim=-1)
             z = self.norm1(z.detach())
@@ -265,7 +303,8 @@ class AEAttentionHeads(_AEMixer):
             else:
                 noise = None if self.mask_type == "zeros" else self._noise(
                     (B, T, T, width), z, generator)
-                zm = self._to_heads(_eye_mask(z, self.mask_type, noise))
+                zm = self._to_heads(_eye_mask(z, self.mask_type, noise,
+                                              self.data_axis))
                 preds = preds_of(zm.reshape(B, T, S, Fh)).reshape(zm.shape)
                 dist = torch.sum(preds * z_heads[:, None], dim=-1)
             attn_map = torch.softmax(dist.transpose(1, 2), dim=-1)
@@ -273,13 +312,16 @@ class AEAttentionHeads(_AEMixer):
             self.attn_map = attn_map
         attn = torch.einsum("bhij,bhjf->bihf", attn_map.to(self.dtype),
                             x_heads).reshape(B, T, width)
-        return self.V(attn)
+        return _project(self, attn)
 
 
 class BaselineAEAttention(nn.Module):
     """layers.py:1199-1257: AE attention over the chunk half z2 with its
     softmax NOT detached, the working equivalent the JAX package gives of
     the reference's model, which crashes as shipped."""
+
+    TP_LAYOUT = {"U": "col", "V": "row"}
+    tp_axis: Axis | None = None
 
     def __init__(self, features: int, seq_len: int, ffn_features: int,
                  ae_hidden_features: int = 128, save_attn_map: bool = False,
@@ -301,7 +343,7 @@ class BaselineAEAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None):
-        z1, z2 = F.gelu(self.U(x)).chunk(2, dim=-1)
+        z1, z2 = _lift(self, x).chunk(2, dim=-1)
         z2 = self.norm1(z2).to(torch.float32)
         # no detach (the "baseline" difference); the structured path, since
         # the AE acts on the feature dim
@@ -316,4 +358,4 @@ class BaselineAEAttention(nn.Module):
         if self.save_attn_map:
             self.attn_map = attn_map
         attn = torch.einsum("bij,bjf->bif", attn_map.to(self.dtype), z1)
-        return self.V(attn)
+        return _project(self, attn)

@@ -13,6 +13,10 @@
     broadcast by the query gate, which the model factory always turns on
     (the encoder never forwards ``query`` to it, layers.py:233).
   * head > 1 is unimplemented in the reference (layers.py:128) and here.
+
+Under a data axis the batch-axis max is taken over the global batch; under
+a model axis Wk/Wv/Wq are column-parallel and out_project row-parallel,
+and each rank mixes its own feature columns with the whole position bias.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.collectives import Axis, copy_to, global_amax
 from .common import dropout
 from .init import Linear, uniform_range
 
@@ -31,6 +36,10 @@ def xavier_uniform(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 class AFT(nn.Module):
+    TP_LAYOUT = {"Wq": "col", "Wk": "col", "Wv": "col", "out_project": "row"}
+    data_axis: Axis | None = None
+    tp_axis: Axis | None = None
+
     def __init__(self, features: int, seq_len: int, mode: str = "full",
                  factorize: bool = False, factorization_dimension: int = 128,
                  head: int = 1, dropout: float = 0.0, query: bool = True, *,
@@ -64,15 +73,21 @@ class AFT(nn.Module):
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None):
-        k, v = self.Wk(x), self.Wv(x)
+        tp, data = self.tp_axis, self.data_axis
+        xin = x if tp is None else copy_to(x, tp)
+        k, v = self.Wk(xin), self.Wv(xin)
         if self.mode == "full":
             # w is rounded to the compute dtype, as in the JAX module
             w = (self.u @ self.v) if self.factorize else self.w
             w32 = w.to(self.dtype).to(torch.float32)
             k32, v32 = k.to(torch.float32), v.to(torch.float32)
             exp_w = torch.exp(w32 - w32.amax(dim=-1, keepdim=True))  # (T,T)
+            if tp is not None:  # each rank's columns read all of it
+                exp_w = copy_to(exp_w, tp)
             # the batch-axis max quirk (layers.py:158)
-            exp_k = torch.exp(k32 - k32.amax(dim=0, keepdim=True))
+            k_max = (k32.amax(dim=0, keepdim=True) if data is None
+                     else global_amax(k32, 0, data))
+            exp_k = torch.exp(k32 - k_max)
             num = torch.einsum("ij,bjf->bif", exp_w, exp_k * v32)
             den = torch.einsum("ij,bjf->bif", exp_w, exp_k)
             y = (num / den).to(self.dtype)
@@ -80,6 +95,7 @@ class AFT(nn.Module):
             attn = torch.softmax(k.to(torch.float32), dim=1).to(self.dtype)
             y = torch.sum(attn * v, dim=1, keepdim=True)  # (B,1,F)
         if self.query:
-            y = torch.sigmoid(self.Wq(x)) * y
-        out = self.out_project(y)
-        return dropout(out, self.rate, deterministic, generator)
+            y = torch.sigmoid(self.Wq(xin)) * y
+        out = self.out_project(y, reduce_over=tp)
+        return dropout(out, self.rate, deterministic, generator,
+                       ((0, data),))

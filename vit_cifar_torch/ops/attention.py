@@ -12,6 +12,12 @@ versions on the CPU) chosen by :func:`route`, except where the JAX module,
 too, takes its einsum path: ``save_attn_map`` (the map is kept on
 ``self.attn_map``, the reference's attribute), ``valid_len`` key masking,
 and ``pallas_kernel="einsum"``, which forces the plain path.
+
+Under a model axis Wq/Wk/Wv are column-parallel and out_project
+row-parallel: each rank runs its ``head / n_model`` heads of the same
+head_dim through the same kernels, with the scale still over the full model
+dim.  Where the heads do not divide over the axis, each rank gathers q, k
+and v, runs every head, and keeps its own columns for out_project.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.collectives import (Axis, copy_to, gather_from,
+                                    scatter_to)
 from .common import dropout
 from .cuda.attention import fused_attention, whole_head_fits
 from .cuda.common import COL_CHUNK
@@ -46,6 +54,10 @@ def route(T: int, D: int, pallas_kernel: str | None) -> str:
 
 
 class MultiHeadSelfAttention(nn.Module):
+    TP_LAYOUT = {"Wq": "col", "Wk": "col", "Wv": "col", "out_project": "row"}
+    data_axis: Axis | None = None
+    tp_axis: Axis | None = None
+
     def __init__(self, features: int, head: int = 8, dropout: float = 0.0, *,
                  generator: torch.Generator, dtype: torch.dtype = torch.float32,
                  save_attn_map: bool = False, pallas_kernel: str | None = None,
@@ -73,8 +85,14 @@ class MultiHeadSelfAttention(nn.Module):
                 generator: torch.Generator | None = None):
         B, T, F = x.shape
         hd = F // self.head
-        q, k, v = (lin(x).reshape(B, T, self.head, hd).transpose(1, 2)
-                   for lin in (self.Wq, self.Wk, self.Wv))
+        tp = self.tp_axis
+        ragged = tp is not None and self.head % tp.size != 0
+        xin = x if tp is None else copy_to(x, tp)
+        q, k, v = (lin(xin) for lin in (self.Wq, self.Wk, self.Wv))
+        if ragged:
+            q, k, v = (gather_from(t, tp) for t in (q, k, v))
+        H = q.shape[-1] // hd  # this rank's heads
+        q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2) for t in (q, k, v))
 
         masked = self.valid_len is not None and self.valid_len < T
         path = "einsum" if self.save_attn_map or masked else route(
@@ -97,5 +115,9 @@ class MultiHeadSelfAttention(nn.Module):
             kernel = fused_attention if path == "fused" else flash_attention
             out = kernel(q, k, v, 1.0 / float(F**0.5))
 
-        out = self.out_project(out.reshape(B, T, F))
-        return dropout(out, self.rate, deterministic, generator)
+        out = out.reshape(B, T, H * hd)
+        if ragged:
+            out = scatter_to(out, tp)
+        out = self.out_project(out, reduce_over=tp)
+        return dropout(out, self.rate, deterministic, generator,
+                       ((0, self.data_axis),))

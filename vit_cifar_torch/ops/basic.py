@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import Axis, copy_to, gather_from
 from .init import Conv, Linear
 from .norm import TorchBatchNorm
 
@@ -21,7 +22,11 @@ class ANN(nn.Module):
     after the LAST layer: the reference appends the activation to every
     layer, the logits' too.  The JAX module's BN and dropout switches are
     never turned on by its one caller (``BaselineCNN``), so neither is an
-    option here."""
+    option here.  Under a model axis ``fc1`` (JAX's layout table cuts it
+    by that name) is column-parallel, and its output is gathered."""
+
+    TP_LAYOUT = {"fc1": "col"}
+    tp_axis: Axis | None = None
 
     def __init__(self, layers: Sequence[int], *, generator: torch.Generator,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -32,8 +37,12 @@ class ANN(nn.Module):
                                              dtype=dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = self.tp_axis
         for i in range(self.n):
-            x = F.relu(getattr(self, f"fc{i}")(x))
+            if i == 1 and tp is not None:
+                x = gather_from(F.relu(self.fc1(copy_to(x, tp))), tp)
+            else:
+                x = F.relu(getattr(self, f"fc{i}")(x))
         return x
 
 

@@ -14,15 +14,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import Axis, Shards, copy_to, local_draw
 from .init import Linear
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None,
+            shards: Shards = ()) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
     scale the kept ones by 1/(1 - rate), in x's dtype.  Draws come from
     ``generator`` (on x's device).  Rate 0, or ``deterministic``, is the
-    identity."""
+    identity.  ``shards`` ((dim, axis) pairs) say how x is cut over the
+    mesh: the mask is drawn at the one-device shape and cut alike."""
     if deterministic or rate == 0.0:
         return x
     if rate >= 1.0:
@@ -30,7 +33,8 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = local_draw(lambda shape: torch.rand(
+        shape, generator=generator, device=x.device), x.shape, shards) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -55,7 +59,12 @@ class LayerNorm(nn.Module):
 
 
 class EncoderMLP(nn.Module):
-    """Reference layers.py:32-39 — note the trailing GELU."""
+    """Reference layers.py:32-39 — note the trailing GELU.  Under a model
+    axis fc1 is column-parallel and fc2 row-parallel."""
+
+    TP_LAYOUT = {"fc1": "col", "fc2": "row"}
+    data_axis: Axis | None = None
+    tp_axis: Axis | None = None
 
     def __init__(self, mlp_hidden: int, features: int, dropout: float = 0.0, *,
                  generator: torch.Generator, dtype: torch.dtype = torch.float32,
@@ -68,9 +77,12 @@ class EncoderMLP(nn.Module):
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None):
-        x = dropout(F.gelu(self.fc1(x)), self.rate, deterministic, generator)
-        return dropout(F.gelu(self.fc2(x)), self.rate, deterministic,
-                       generator)
+        tp, rows = self.tp_axis, ((0, self.data_axis),)
+        h = F.gelu(self.fc1(x if tp is None else copy_to(x, tp)))
+        h = dropout(h, self.rate, deterministic, generator,
+                    rows + ((-1, tp),))
+        return dropout(F.gelu(self.fc2(h, reduce_over=tp)), self.rate,
+                       deterministic, generator, rows)
 
 
 class EncoderBlock(nn.Module):

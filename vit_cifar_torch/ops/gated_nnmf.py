@@ -16,6 +16,11 @@ z2 with one of three backends, gate ``z1 * z2``, project back with V:
 
 Depthwise ``sbs`` and ``sbsed`` raise, as the reference does
 (layers.py:387-388, 427-428).
+
+Under a model axis U is column-parallel with the matching slices of both
+halves on each rank, and V row-parallel, as in ``ops/gmlp.py``; z2 is
+gathered for the norm and the NNMF, which run whole on every rank, and
+each rank gates its own columns.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import Axis, copy_to, gather_from, scatter_to
 from .common import LayerNorm
 from .hamburger import MatrixDecomposition2D
 from .init import Linear
@@ -31,6 +37,9 @@ from .nnmf.layers import AutoNNMFLayer, NNMFConv2d
 
 
 class GatedNNMF(nn.Module):
+    TP_LAYOUT = {"U": "col_halves", "V": "row"}
+    tp_axis: Axis | None = None
+
     def __init__(self, features: int, ffn_features: int, seq_len: int,
                  nnmf_type: str = "ham", md_iter: int = 7,
                  depthwise: bool = False, train_bases: bool = False,
@@ -74,7 +83,11 @@ class GatedNNMF(nn.Module):
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        z1, z2 = F.gelu(self.U(x)).chunk(2, dim=-1)
+        tp = self.tp_axis
+        z1, z2 = F.gelu(self.U(x if tp is None else copy_to(x, tp))).chunk(
+            2, dim=-1)
+        if tp is not None:
+            z2 = gather_from(z2, tp)
         z2 = F.relu(self.norm(z2))
         kw = dict(deterministic=deterministic, generator=generator)
         if self.nnmf_type == "ham":
@@ -84,4 +97,6 @@ class GatedNNMF(nn.Module):
             z2 = self.NNMF(z2[:, None], **kw).squeeze(-2)
         else:
             z2 = self.NNMF(z2[:, None], **kw).squeeze(1)
-        return self.V(z1 * z2)
+        if tp is not None:
+            z2 = scatter_to(z2, tp)
+        return self.V(z1 * z2, reduce_over=tp)

@@ -15,6 +15,12 @@ multiply by it), project back with V.
     (layers.py:1271-1281).
 
 None applies dropout inside the mixer (parity).
+
+Under a model axis U is column-parallel and V row-parallel.  U's output is
+chunked into (z1, z2), so each rank holds the matching slices of both
+halves (its z1 columns and its z2 columns; checkpoints keep the one-device
+layout).  z1 stays cut; z2 is gathered, since its LayerNorm and the mixing
+read every feature, and each rank gates its z1 columns.
 """
 
 from __future__ import annotations
@@ -23,12 +29,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import Axis, copy_to, gather_from, scatter_to
 from .common import LayerNorm
 from .init import Linear, uniform_range
 
 
 class _GatedBase(nn.Module):
-    """U + GELU, the chunk, and ``norm`` on z2."""
+    """U + GELU, the chunk, and ``norm`` on z2 (whole on every rank)."""
+
+    TP_LAYOUT = {"U": "col_halves", "V": "row"}
+    tp_axis: Axis | None = None
 
     def __init__(self, features: int, ffn_features: int, *,
                  generator: torch.Generator, dtype: torch.dtype, device):
@@ -41,8 +51,17 @@ class _GatedBase(nn.Module):
         self.norm = LayerNorm(ffn_features // 2, dtype=dtype, device=device)
 
     def _split(self, x: torch.Tensor):
-        z1, z2 = F.gelu(self.U(x)).chunk(2, dim=-1)
-        return z1, self.norm(z2)
+        tp = self.tp_axis
+        if tp is None:
+            z1, z2 = F.gelu(self.U(x)).chunk(2, dim=-1)
+            return z1, self.norm(z2)
+        z1, z2 = F.gelu(self.U(copy_to(x, tp))).chunk(2, dim=-1)
+        return z1, self.norm(gather_from(z2, tp))
+
+    def _mix(self, mix: torch.Tensor) -> torch.Tensor:
+        """A (B, T, T) token mix made whole on every rank, to be applied to
+        this rank's z1 columns."""
+        return mix if self.tp_axis is None else copy_to(mix, self.tp_axis)
 
 
 class GatedMLP(_GatedBase):
@@ -62,7 +81,9 @@ class GatedMLP(_GatedBase):
         z1, z2 = self._split(x)
         z2 = torch.einsum("ij,bjd->bid", self.weight.to(self.dtype), z2) \
             + self.bias.to(self.dtype)
-        return self.V(z1 * z2)
+        if self.tp_axis is not None:
+            z2 = scatter_to(z2, self.tp_axis)
+        return self.V(z1 * z2, reduce_over=self.tp_axis)
 
 
 class WeightGatedMLP(_GatedBase):
@@ -78,8 +99,8 @@ class WeightGatedMLP(_GatedBase):
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None):
         z1, z2 = self._split(x)
-        out = torch.einsum("bij,bjf->bif", self.to_weight(z2), z1)
-        return self.V(out)
+        out = torch.einsum("bij,bjf->bif", self._mix(self.to_weight(z2)), z1)
+        return self.V(out, reduce_over=self.tp_axis)
 
 
 class LinearAttention(_GatedBase):
@@ -96,5 +117,6 @@ class LinearAttention(_GatedBase):
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None):
         z1, z2 = self._split(x)
-        mix = self.to_weight2(F.relu(self.to_weight1(z2)))
-        return self.V(torch.einsum("bij,bjf->bif", mix, z1))
+        mix = self._mix(self.to_weight2(F.relu(self.to_weight1(z2))))
+        return self.V(torch.einsum("bij,bjf->bif", mix, z1),
+                      reduce_over=self.tp_axis)

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import Axis, copy_to, local_draw, scatter_to
 from .common import dropout
 from .cuda.registry import seeded_draw
 from .init import Linear, NHWCConv, he_conv_init
@@ -121,8 +122,12 @@ class MatrixDecomposition2D(nn.Module):
     """_MatrixDecomposition2DBase (ham.py:14-112) on (B, H, W, C) inputs.
 
     ``dim`` is the D of the bases the input gives: C // S when
-    ``spatial``, else H*W; the persistent bases are built from it.
+    ``spatial``, else H*W; the persistent bases are built from it.  Under a
+    data axis the random bases are drawn for the global batch and the EMA
+    takes the global batch's mean.
     """
+
+    data_axis: Axis | None = None
 
     def __init__(self, dim: int, ham_type: str = "NMF", spatial: bool = True,
                  S: int = 1, R: int = 64, train_steps: int = 6,
@@ -173,13 +178,16 @@ class MatrixDecomposition2D(nn.Module):
 
         if self.rand_init:
             shape = (B * self.S, D, self.R)
+            rows = ((0, self.data_axis),)
             if self.bases_draw is not None:
                 draw = self.bases_draw.to(x.device)
             elif generator is None:  # the eval step: an exportable draw
-                draw = seeded_draw(
-                    x, shape, "uniform" if self.ham_type == "NMF" else "normal")
+                kind = "uniform" if self.ham_type == "NMF" else "normal"
+                draw = local_draw(lambda s: seeded_draw(x, s, kind), shape,
+                                  rows)
             else:
-                draw = self._draw(shape, generator, x.device)
+                draw = local_draw(
+                    lambda s: self._draw(s, generator, x.device), shape, rows)
             bases = _l2_normalize(draw, 1)
         else:
             bases = self.bases.repeat(B, 1, 1)
@@ -203,7 +211,11 @@ class MatrixDecomposition2D(nn.Module):
 
         if not self.rand_init and not deterministic:
             with torch.no_grad():  # the EMA of the bases (ham.py:102-112)
-                b = bases.reshape(B, self.S, D, self.R).mean(dim=0)
+                b = bases.reshape(B, self.S, D, self.R).sum(dim=0)
+                if self.data_axis is not None:  # the global batch's mean
+                    self.data_axis.all_reduce_(b)
+                    B *= self.data_axis.size
+                b = b / B
                 new = self.bases + self.eta * (b - self.bases)
                 self.bases.copy_(_l2_normalize(new, 1))
         return out
@@ -347,7 +359,13 @@ class Hamburger(nn.Module):
 
 class HamburgerAttention(nn.Module):
     """layers.py:263-300: AFT-Simple whose K is the burger's output, with
-    the optional sigmoid gate ``Wq``."""
+    the optional sigmoid gate ``Wq``.  Under a model axis Wv and Wq are
+    column-parallel and out_project row-parallel; the burger runs whole on
+    every rank, which keeps its softmax's columns."""
+
+    TP_LAYOUT = {"Wq": "col", "Wv": "col", "out_project": "row"}
+    data_axis: Axis | None = None
+    tp_axis: Axis | None = None
 
     def __init__(self, seq_len: int, features: int, burger_mode: str = "V1",
                  depthwise: bool = False, rand_init: bool = True,
@@ -365,12 +383,16 @@ class HamburgerAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        v = self.Wv(x)
+        tp = self.tp_axis
+        xin = x if tp is None else copy_to(x, tp)
+        v = self.Wv(xin)
         k = self.hamburger(x, deterministic=deterministic,
                            generator=generator)
         attn = torch.softmax(k.to(torch.float32), dim=1).to(self.dtype)
+        if tp is not None:
+            attn = scatter_to(attn, tp)
         y = torch.sum(attn * v, dim=1, keepdim=True)
         if self.Wq is not None:
-            y = torch.sigmoid(self.Wq(x)) * y
-        return dropout(self.out_project(y), self.rate, deterministic,
-                       generator)
+            y = torch.sigmoid(self.Wq(xin)) * y
+        return dropout(self.out_project(y, reduce_over=tp), self.rate,
+                       deterministic, generator, ((0, self.data_axis),))

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import Axis, reduce_from
+
 
 def uniform_range(shape, lo: float, hi: float,
                   generator: torch.Generator) -> torch.Tensor:
@@ -29,7 +31,9 @@ class Linear(nn.Module):
 
     As in the JAX package, x, weight and bias are all cast to the compute
     dtype at call time; the weight is (out, in), the transpose of flax's
-    (in, out) ``kernel``.
+    (in, out) ``kernel``.  A row-parallel Linear (its input features cut
+    over an axis) is called with ``reduce_over``: the partial products are
+    summed over the axis, then the bias, whole on every rank, is added.
     """
 
     def __init__(self, in_features: int, out_features: int, *,
@@ -43,9 +47,13 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(uniform_range(
             (out_features,), -bound, bound, generator).to(device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+    def forward(self, x: torch.Tensor,
+                reduce_over: Axis | None = None) -> torch.Tensor:
+        if reduce_over is None:
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                            self.bias.to(self.dtype))
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return reduce_from(y, reduce_over) + self.bias.to(self.dtype)
 
 
 def he_conv_init(shape, generator: torch.Generator) -> torch.Tensor:

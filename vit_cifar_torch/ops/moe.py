@@ -17,6 +17,17 @@ balance), taken before any token is dropped, is kept on the module as
 ``aux`` by each forward; the train step reads it right after its forward
 (``collect_moe_aux``), so a ``--remat`` recomputation in the backward
 never supplies it.
+
+Under a data axis the Switch statistics f_e and P_e of a training forward
+are global means (P_e through a differentiable sum): the aux term is a
+product of means, which an average of per-rank values would not give.
+Capacity stays per example, so routing does not depend on the data axis.
+Under an expert axis each rank keeps ``E / n_expert`` of the stacked
+weights and runs its experts on the tokens dispatched to them; the combine
+is summed over the expert group.  The router, the aux term and the routing
+run whole on every rank; the experts' part reads the layer's input and the
+combine weights through ``copy_to``, so the router and the input get their
+full gradient, summed over the experts, on every rank.
 """
 
 from __future__ import annotations
@@ -27,11 +38,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import Axis, copy_to, reduce_from, summed
 from .common import dropout
 from .init import Linear, uniform_range
 
 
 class MoEMLP(nn.Module):
+    EP_PARAMS = ("expert_w1", "expert_b1", "expert_w2", "expert_b2")
+    data_axis: Axis | None = None
+    ep_axis: Axis | None = None
+
     def __init__(self, features: int, mlp_hidden: int, num_experts: int = 8,
                  capacity_factor: float = 1.25, dropout: float = 0.0, *,
                  generator: torch.Generator,
@@ -69,18 +85,30 @@ class MoEMLP(nn.Module):
         dispatch = slot * keep[..., None]
         combine = dispatch * gate[..., None, None]
         # the fraction routed to each expert before the drop, and its mean
-        # router probability
-        self.aux = E * torch.sum(onehot.mean(dim=(0, 1))
-                                 * probs.mean(dim=(0, 1)))
+        # router probability, over the global batch in training
+        routed, prob = onehot.sum(dim=(0, 1)), probs.sum(dim=(0, 1))
+        n = B * T
+        data, ep = self.data_axis, self.ep_axis
+        if data is not None and not deterministic:
+            routed = data.all_reduce_(routed)
+            prob, n = summed(prob, data), n * data.size
+        self.aux = E * torch.sum(routed / n * (prob / n))
 
+        if ep is not None:  # this rank's experts
+            lo, El = ep.rank * (E // ep.size), E // ep.size
+            x = copy_to(x, ep)
+            combine = copy_to(combine, ep)[:, :, lo:lo + El]
+            dispatch = dispatch[:, :, lo:lo + El]
+        shards = ((0, ep), (1, data))
         xin = torch.einsum("btec,btf->ebcf", dispatch.to(dt), x.to(dt))
         h = torch.einsum("ebcf,efh->ebch", xin, self.expert_w1.to(dt)) \
             + self.expert_b1.to(dt)[:, None, None, :]
-        h = dropout(F.gelu(h), self.rate, deterministic, generator)
+        h = dropout(F.gelu(h), self.rate, deterministic, generator, shards)
         h = torch.einsum("ebch,ehf->ebcf", h, self.expert_w2.to(dt)) \
             + self.expert_b2.to(dt)[:, None, None, :]
-        h = dropout(F.gelu(h), self.rate, deterministic, generator)
-        return torch.einsum("btec,ebcf->btf", combine.to(dt), h)
+        h = dropout(F.gelu(h), self.rate, deterministic, generator, shards)
+        out = torch.einsum("btec,ebcf->btf", combine.to(dt), h)
+        return out if ep is None else reduce_from(out, ep)
 
 
 def collect_moe_aux(model: nn.Module) -> torch.Tensor | None:

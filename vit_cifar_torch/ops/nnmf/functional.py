@@ -25,6 +25,14 @@ operations:
      reference's ``update_pre_care``);
   6. with ``clamp_grad``, both gradients are clamped to +-5.
 
+Under a data axis (``op(input, weights, data)``) the backward applies the
+rule to the global batch, as JAX's custom VJP does under GSPMD: a rank's
+cotangent is n times the global one (its loss is the mean over its own
+rows), so it is divided by n; the max of step 1 and the sums of grad_W are
+taken over every rank and the count of step 5 is the global one; grad_W
+comes back as the global value on every rank (the train step's mean over
+ranks keeps it) and grad_input in the rank's units, times n.
+
 The JAX backward starts with an ``optimization_barrier``, a guard against
 an XLA fusion; eager PyTorch fuses nothing, and the renormalization runs
 inside the backward as written.  The JAX module's environment-variable
@@ -45,6 +53,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 
@@ -54,8 +63,9 @@ def make_nnmf_op(iterations: int, eps0: float = 1.0, eps: float = 1e-20,
                  w_trainable: bool = False, scale_grad: bool = False,
                  clamp_grad: bool = False,
                  divide_grad_by_contributions: bool = True):
-    """``op(input, weights) -> h`` for a static flag configuration: input
-    (B, C, P) L1-normalized over C, weights (C, M); h (B, M, P)."""
+    """``op(input, weights, data=None) -> h`` for a static flag
+    configuration: input (B, C, P) L1-normalized over C, weights (C, M);
+    h (B, M, P); ``data`` the mesh's data axis, where the batch is cut."""
 
     def forward_math(inp, w):
         B, C, P = inp.shape
@@ -72,17 +82,25 @@ def make_nnmf_op(iterations: int, eps0: float = 1.0, eps: float = 1e-20,
 
     class NNMFFunction(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, inp, w):
+        def forward(ctx, inp, w, data=None):
             h = forward_math(inp, w)
             ctx.save_for_backward(inp, w, h)
+            ctx.data = data
             return h
 
         @staticmethod
         def backward(ctx, g):
             inp, w, h = ctx.saved_tensors
+            data = ctx.data
             B, C, P = inp.shape
+            n = 1 if data is None else data.size
+            if data is not None:
+                g = g / n
             if scale_grad:
-                g = g / torch.clamp(g.abs().max(), min=1e-20)
+                g_max = g.abs().max()
+                if data is not None:
+                    data.all_reduce_(g_max, dist.ReduceOp.MAX)
+                g = g / torch.clamp(g_max, min=1e-20)
             inp = inp / (inp.sum(dim=1, keepdim=True) + 1e-20)
             bigr = torch.einsum("cm,bmp->bcp", w, h)
             s = torch.einsum("cm,bmp->bcp", w, h * g)
@@ -99,13 +117,17 @@ def make_nnmf_op(iterations: int, eps0: float = 1.0, eps: float = 1e-20,
                                            h * g)
                               - torch.einsum("bcp,bmp->cm", inp * s / denom,
                                              h))
+                if data is not None and w_trainable:
+                    data.all_reduce_(grad_w)
                 if divide_grad_by_contributions and w_trainable:
-                    grad_w = grad_w / (B * P)
+                    grad_w = grad_w / (B * n * P)
                 if clamp_grad:
                     grad_w = torch.clamp(grad_w, -5.0, 5.0)
             if clamp_grad:
                 grad_input = torch.clamp(grad_input, -5.0, 5.0)
-            return grad_input, grad_w
+            if data is not None:
+                grad_input = grad_input * n
+            return grad_input, grad_w, None
 
     return NNMFFunction.apply
 

@@ -29,6 +29,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ...parallel.collectives import Axis
 from ..init import uniform_range
 from .functional import conv_output_size, fold, make_nnmf_op, unfold
 
@@ -44,6 +45,8 @@ def column_stochastic_uniform(shape, lo: float, hi: float,
 class NNMFConv2d(nn.Module):
     """The column-stochastic NNMF conv layer: (B, C_in, H, W) NCHW ->
     (B, M, H', W'), with h clamped to +-10 (NNMFLayerSbSBP.py:361)."""
+
+    data_axis: Axis | None = None
 
     def __init__(self, number_of_input_neurons: int, number_of_neurons: int,
                  input_size, forward_kernel_size, number_of_iterations: int,
@@ -84,7 +87,7 @@ class NNMFConv2d(nn.Module):
         inp = patches.reshape(B, C, Hp * Wp)
         inp = inp / (inp.sum(dim=1, keepdim=True) + 1e-20)
         op = make_nnmf_op(eps=eps, clamp_grad=clamp_grad, **self._op_kw)
-        return op(inp, self.nnmf_weights), (Hp, Wp)
+        return op(inp, self.nnmf_weights, self.data_axis), (Hp, Wp)
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -150,6 +153,8 @@ class NNMFLinear(nn.Module):
     """The NNMF layer over 2-D inputs (nnmf/NNMFLinear.py): (B, C) ->
     (B, M), with no clamps."""
 
+    data_axis: Axis | None = None
+
     def __init__(self, number_of_input_neurons: int, number_of_neurons: int,
                  number_of_iterations: int, epsilon_0: float = 1.0,
                  weight_noise_range=(0.0, 1.0), w_trainable: bool = False,
@@ -177,7 +182,8 @@ class NNMFLinear(nn.Module):
                              f"{tuple(x.shape)}")
         x = x.to(torch.float32)
         inp = x / (x.sum(dim=1, keepdim=True) + 1e-20)
-        return self._op(inp[:, :, None], self.nnmf_weights)[:, :, 0].to(
+        return self._op(inp[:, :, None], self.nnmf_weights,
+                        self.data_axis)[:, :, 0].to(
             self.dtype)
 
 

@@ -14,12 +14,21 @@ Calling one module twice in a forward updates the statistics twice, in
 call order, as the reference's BN shared between x and the cls token does.
 The running statistics are chosen by ``deterministic`` (flax's
 ``use_running_average``), never by ``nn.Module.training``.
+
+Under a data axis the batch statistics are the global batch's, as GSPMD
+takes them over the sharded axis in JAX and the reference's SyncBN did
+(hamburger/sync_bn.py): both passes sum over the rank's rows and then over
+the axis (differentiably), ``n`` is the global count, and the running
+buffers stay equal on every rank.  The one-process path takes the same
+sums over n, so the two agree bit for bit at one rank.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..parallel.collectives import Axis, summed
 
 
 class TorchBatchNorm(nn.Module):
@@ -29,6 +38,7 @@ class TorchBatchNorm(nn.Module):
     in place and without gradients; otherwise it uses the buffers."""
 
     EPS = 1e-5  # every BatchNorm of the reference keeps torch's default
+    data_axis: Axis | None = None
 
     def __init__(self, features: int, momentum: float = 0.9, *,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -46,15 +56,24 @@ class TorchBatchNorm(nn.Module):
             mean, var = self.mean, self.var
         else:
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dims)
-            var = (xf - mean).square().mean(dims)
+            data = self.data_axis
             n = x.numel() // x.shape[-1]
+            if data is not None:
+                n *= data.size
+
             if n <= 1:
                 # torch raises "Expected more than 1 value per channel when
                 # training"; a zero-variance update would train quietly
                 raise ValueError(
                     "TorchBatchNorm: expected more than 1 value per channel "
                     f"when training, got input size {tuple(x.shape)}")
+
+            def total(t):
+                t = t.sum(dims)
+                return t if data is None else summed(t, data)
+
+            mean = total(xf) / n
+            var = total((xf - mean).square()) / n
             m = self.momentum
             with torch.no_grad():
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)

@@ -36,16 +36,23 @@ def _to_cpu(tree):
 class BestCheckpointer:
     """The best checkpoint by val_loss (Lightning's ``save_top_k=1``,
     ``monitor="val_loss"``, ``mode="min"``) and a last one, under
-    ``{ckpt_dir}/{experiment}``."""
+    ``{ckpt_dir}/{experiment}``.  With ``write=False`` (the ranks other
+    than 0 of a multi-process run) it follows the best val_loss and writes
+    nothing."""
 
-    def __init__(self, ckpt_dir: str, experiment: str, cfg: Config):
+    def __init__(self, ckpt_dir: str, experiment: str, cfg: Config,
+                 write: bool = True):
         self.root = _abspath(os.path.join(ckpt_dir, experiment))
-        os.makedirs(self.root, exist_ok=True)
+        self.write = write
         self.best_val_loss = float("inf")
-        with open(os.path.join(self.root, "config.json"), "w") as f:
-            f.write(cfg.to_json())
+        if write:
+            os.makedirs(self.root, exist_ok=True)
+            with open(os.path.join(self.root, "config.json"), "w") as f:
+                f.write(cfg.to_json())
 
     def _save(self, name: str, payload: dict[str, Any]) -> None:
+        if not self.write:
+            return
         path = os.path.join(self.root, name)
         os.makedirs(path, exist_ok=True)
         torch.save(_to_cpu(payload), os.path.join(path, _STATE))
@@ -66,8 +73,10 @@ class BestCheckpointer:
         if val_loss < self.best_val_loss:
             self.best_val_loss = float(val_loss)
             self._save("best", payload)
-            with open(os.path.join(self.root, "best.json"), "w") as f:
-                json.dump({"val_loss": self.best_val_loss, "epoch": epoch}, f)
+            if self.write:
+                with open(os.path.join(self.root, "best.json"), "w") as f:
+                    json.dump({"val_loss": self.best_val_loss,
+                               "epoch": epoch}, f)
             return True
         return False
 

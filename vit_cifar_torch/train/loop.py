@@ -27,8 +27,18 @@ and ``<experiment>_encoder_block.png``, from the module tree traced on fake
 tensors (no device work), and, except on dry runs, ``input_grid.png`` of
 the first ten training images.  Only the drawing sits in a ``try``, so
 that a drawing failure (matplotlib missing) is printed and never stops
-training.  A mesh of more than one device and multihost runs raise
-``NotImplementedError`` naming their ROADMAP item.
+training.
+
+On a mesh over ``data``, ``model`` and ``expert`` (``--mesh-shape``,
+``--mesh-axes``; one process per device under torchrun, ``--multihost``
+joining the process group first; ``parallel/mesh.py``) the batch sizes
+must divide the data axis, the model is laid out by ``shard_params`` after
+init and after resume, and rank 0 alone logs, writes metrics, histograms
+(of the gathered weights), graph artifacts and checkpoints, which keep the
+one-device layout: sharded parameters and both moments are gathered before
+the write, and a resume on any mesh takes each rank's block of them.  A
+``pipe`` or ``seq`` axis above 1 raises ``NotImplementedError`` naming its
+ROADMAP item.
 
 ``--semi-supervised`` (c10 only, utils.py:404-416) trains on the
 400-per-class labeled split of ``semi_supervised_split``; with
@@ -52,12 +62,15 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config, torch_dtype
 from ..data.augment import augment_dataset, normalize
 from ..data.autoaugment import policy_for_dataset
 from ..data.datasets import load_dataset, semi_supervised_split
 from ..models import get_model
+from ..parallel.mesh import (ParamLayout, initialize_multihost, make_mesh,
+                             shard_params)
 from ..utils.logging import get_experiment_name, make_logger
 from ..utils.observability import (get_layer_outputs, log_histograms,
                                    model_summary, profile_trace)
@@ -68,7 +81,8 @@ from .state import TrainState
 from .steps import make_eval_step, make_metrics_zeros, make_train_step
 from .unsupervised import make_unsupervised_update, uses_unsupervised
 
-_PARALLEL_ITEM = "ROADMAP queue 1, item 8 (parallel modes)"
+_PARALLEL_ITEM = ("ROADMAP queue 1, item 8b (pipeline and sequence "
+                  "parallelism)")
 
 
 def count_params(model: torch.nn.Module) -> int:
@@ -91,8 +105,8 @@ def init_state(cfg: Config, model: torch.nn.Module,
                       ae_opt_state=ae_opt_state)
 
 
-def _full_payload(state: TrainState, epoch: int,
-                  best_val_loss: float) -> dict[str, Any]:
+def _full_payload(state: TrainState, epoch: int, best_val_loss: float,
+                  layout: ParamLayout | None = None) -> dict[str, Any]:
     """Everything a resumed run needs, as Lightning's checkpoints embed the
     optimizer and scheduler state: the weights (named views of one copy of
     the flat vector, so they are stored once and load as the model's state
@@ -100,14 +114,22 @@ def _full_payload(state: TrainState, epoch: int,
     optimizer state (count and moments) and the AE-internal one where there
     is one, the step, the epoch, the best val_loss and the generator's
     state.  The lr needs no state of its own: the schedule is a function of
-    the restored count."""
-    flat = state.params.detach().to("cpu", copy=True)
-    params, offset = {}, 0
-    for name, p in state.model.named_parameters():
-        params[name] = flat[offset:offset + p.numel()].view(p.shape)
-        offset += p.numel()
+    the restored count.  With a ``layout`` the weights and moments are
+    gathered to the one-device layout (every rank takes part)."""
+    if layout is None:
+        flat = state.params.detach().to("cpu", copy=True)
+        params, offset = {}, 0
+        for name, p in state.model.named_parameters():
+            params[name] = flat[offset:offset + p.numel()].view(p.shape)
+            offset += p.numel()
+        opt_state = state.opt_state
+    else:
+        params = _to_cpu(layout.full_named(
+            layout.split_flat(state.params.detach())))
+        opt_state = {k: v if v.dim() == 0 else layout.full_flat(v)
+                     for k, v in state.opt_state.items()}
     payload = {"params": params,
-               "opt_state": _to_cpu(state.opt_state),
+               "opt_state": _to_cpu(opt_state),
                "step": state.step, "epoch": epoch,
                "best_val_loss": float(best_val_loss),
                "generator": state.generator.get_state()}
@@ -123,16 +145,22 @@ def _to_cpu(tensors: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
-def _restore_state(cfg: Config, state: TrainState):
+def _restore_state(cfg: Config, state: TrainState,
+                   layout: ParamLayout | None = None):
     """Load the last checkpoint of ``cfg.resume`` into a fresh state, in
-    place; returns (state, the epoch to start at)."""
+    place; returns (state, the epoch to start at).  The checkpoint keeps
+    the one-device layout; with a ``layout`` each rank takes its block."""
     payload, _ = load_checkpoint(cfg.resume, prefer="last")
     dev = state.params.device
+    local = ((lambda name, t: t) if layout is None else layout.local)
     with torch.no_grad():
         state.params.copy_(torch.cat([
-            payload["params"][name].reshape(-1)
+            local(name, payload["params"][name]).reshape(-1)
             for name, _ in state.model.named_parameters()]))
-    state.opt_state = {k: v.to(dev) for k, v in payload["opt_state"].items()}
+    state.opt_state = {
+        k: (v if layout is None or v.dim() == 0
+            else layout.local_flat(v)).to(dev)
+        for k, v in payload["opt_state"].items()}
     if "ae_opt_state" in payload:
         state.ae_opt_state = {k: v.to(dev)
                               for k, v in payload["ae_opt_state"].items()}
@@ -158,15 +186,26 @@ def _pad_eval(x: np.ndarray, y: np.ndarray, batch: int):
 
 
 def _check_run_supported(cfg: Config) -> None:
-    if int(np.prod(cfg.mesh_shape or (1,))) > 1 or cfg.multihost:
-        raise NotImplementedError(
-            f"training over more than one device (mesh {cfg.mesh_shape}, "
-            f"multihost {cfg.multihost}) is not ported to torch yet: "
-            f"{_PARALLEL_ITEM}")
+    for axis, size in zip(cfg.mesh_axes, cfg.mesh_shape):
+        if axis in ("pipe", "seq") and size > 1:
+            raise NotImplementedError(
+                f"the {axis!r} axis (mesh {cfg.mesh_shape} over "
+                f"{cfg.mesh_axes}) is not ported to torch yet: "
+                f"{_PARALLEL_ITEM}")
     if cfg.semi_supervised and cfg.dataset != "c10":
         # parity: only c10 is implemented (utils.py:404-416)
         raise NotImplementedError(
             f"{cfg.dataset} is not implemented yet for semi-supervised.")
+
+
+def _check_batches(cfg: Config, n_data: int) -> None:
+    """The train and eval batches are cut over the data axis
+    (``steps.make_batch``, ``steps.make_eval_step``)."""
+    for label, b in (("batch_size", cfg.batch_size),
+                     ("eval_batch_size", cfg.eval_batch_size)):
+        if b % n_data:
+            raise ValueError(f"{label}={b} must divide over the data axis "
+                             f"of {n_data} devices")
 
 
 def train(cfg: Config, verbose: bool = True, stop_after: int | None = None,
@@ -234,6 +273,13 @@ def _log_graph_artifacts(cfg: Config, model, logger, experiment: str,
 def _train(cfg: Config, verbose: bool, stop_after: int | None,
            device: torch.device) -> dict[str, Any]:
     _check_run_supported(cfg)
+    if cfg.multihost:
+        topo = initialize_multihost(device=device)
+        if verbose:
+            print(f"[multihost] {topo}")
+    mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes, device)
+    _check_batches(cfg, mesh.shape.get("data", 1) if mesh else 1)
+    lead = mesh is None or mesh.rank == 0  # logs and writes
     raw = load_dataset(cfg.dataset, cfg.data_dir, cfg.synthetic_data)
     train_x, train_y, test_x, test_y = (raw.x_train, raw.y_train,
                                         raw.x_test, raw.y_test)
@@ -244,33 +290,42 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
         test_x, test_y = splits["test"]
         if cfg.ss_combined_epoch:
             epoch_passes = max(1, len(splits["unlabeled"][0]) // len(train_x))
-    experiment = get_experiment_name(cfg)
-    logger = make_logger(cfg, experiment)
-    logger.log_text("config.json", cfg.to_json())
+    experiment = [get_experiment_name(cfg)]
+    if mesh is not None:  # the name has a random part: rank 0's is it
+        dist.broadcast_object_list(experiment, src=0)
+    experiment = experiment[0]
+    logger = make_logger(cfg, experiment) if lead else None
+    verbose = verbose and lead
 
     model, _ = get_model(cfg, device=device)
     steps_per_epoch = len(train_x) // cfg.batch_size
     # the schedule's epoch is count // sched_steps: the optimizer steps of
     # a whole epoch, all its passes
     sched_steps = steps_per_epoch * epoch_passes
+    # the one-device model's count, summary and graph, before the layout
+    # cuts it
+    n_params = count_params(model)
+    if lead:
+        logger.log_text("config.json", cfg.to_json())
+        logger.log(0, 0, trainable_params=n_params, total_params=n_params)
+        summary = model_summary(model.named_parameters(),
+                                cfg.model_summary_depth)
+        logger.log_text("model_summary.txt", summary)
+        _log_graph_artifacts(cfg, model, logger, experiment, train_x, device)
+    layout = shard_params(mesh, model)
     tx = make_optimizer(cfg, sched_steps, model)
     state = init_state(cfg, model, tx)
     start_epoch = 0
     if cfg.resume:
-        state, start_epoch = _restore_state(cfg, state)
+        state, start_epoch = _restore_state(cfg, state, layout)
         if verbose:
             print(f"[resume] restored {cfg.resume}, continuing at epoch "
                   f"{start_epoch}")
-    n_params = count_params(model)
     if verbose:
-        print(f"[{experiment}] params: {n_params:,} | device: {device} | "
+        where = device if mesh is None else f"mesh {mesh.shape} ({device})"
+        print(f"[{experiment}] params: {n_params:,} | device: {where} | "
               f"steps/epoch: {steps_per_epoch}")
-    logger.log(0, 0, trainable_params=n_params, total_params=n_params)
-    summary = model_summary(model.named_parameters(), cfg.model_summary_depth)
-    logger.log_text("model_summary.txt", summary)
-    if verbose:
         print(summary)
-    _log_graph_artifacts(cfg, model, logger, experiment, train_x, device)
 
     x_train = torch.from_numpy(train_x).to(device)
     y_train = torch.from_numpy(train_y).to(device)
@@ -282,8 +337,9 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
     epoch_steps = 1 if cfg.dry_run else steps_per_epoch
     n_eval_steps = 1 if cfg.dry_run else eval_steps
     train_step = make_train_step(cfg, model, tx,
-                                 pre_augmented=cfg.preaugment_epoch)
-    eval_step = make_eval_step(cfg, model)
+                                 pre_augmented=cfg.preaugment_epoch,
+                                 mesh=mesh)
+    eval_step = make_eval_step(cfg, model, mesh)
     aa_policy = policy_for_dataset(cfg.dataset) if cfg.autoaugment else None
     passes = 1 if cfg.dry_run else epoch_passes
     lr_sched = warmup_cosine_epoch_schedule(
@@ -301,7 +357,11 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
     hist_every = 1 if cfg.comet_api_key else max(1, cfg.max_epochs // 10)
     names = [n for n, _ in model.named_parameters()]
 
-    ckpt = BestCheckpointer(cfg.ckpt_dir, experiment, cfg)
+    def whole(tree: dict) -> dict:
+        """Named parameter-shaped tensors in the one-device layout."""
+        return tree if layout is None else layout.full_named(tree)
+
+    ckpt = BestCheckpointer(cfg.ckpt_dir, experiment, cfg, write=lead)
     if cfg.resume:
         ckpt.seed_best_from(cfg.resume)
 
@@ -315,6 +375,8 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
             sums += torch.stack([out["loss_sum"], out["correct_sum"],
                                  out["count"]])
         nan = torch.isnan(state.params).any().to(sums.dtype)
+        if mesh is not None:  # each rank holds its own shards
+            mesh.world.all_reduce_(nan)
         loss_sum, correct, count, nan = torch.cat([sums, nan[None]]).tolist()
         return loss_sum / count, correct / count, bool(nan)
 
@@ -358,8 +420,10 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
                         with torch.no_grad():
                             for b, old in zip(model.buffers(), buffers):
                                 b.copy_(old)
-                        log_histograms(logger, dict(zip(names, grads)),
-                                       "grads", gstep, epoch)
+                        grads = whole(dict(zip(names, grads)))
+                        if lead:
+                            log_histograms(logger, grads, "grads", gstep,
+                                           epoch)
                     state, _ = train_step(state, x_epoch, y_train, perm, i)
             # epoch means of the metrics the step accumulates; also syncs
             keys = list(state.metrics_acc)
@@ -378,11 +442,16 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
             raise ValueError(f"[ERROR] NaN parameter detected at epoch "
                              f"{epoch}. Training stopped.")
         if cfg.log_weights and not cfg.dry_run and epoch % hist_every == 0:
-            log_histograms(logger, dict(model.named_parameters()), "weights",
-                           epoch, epoch)
+            weights = whole(dict(model.named_parameters()))
+            if lead:
+                log_histograms(logger, weights, "weights", epoch, epoch)
             try:
+                # every rank runs the probe: a sharded forward's
+                # collectives need all of them
                 outs = get_layer_outputs(model, probe_img)
-                log_histograms(logger, outs, "layer_outputs", epoch, epoch)
+                if lead:
+                    log_histograms(logger, outs, "layer_outputs", epoch,
+                                   epoch)
             except Exception as e:  # the reference's IndexError fallback
                 print(f"[vit_cifar_torch] layer-output histograms failed: "
                       f"{e}")
@@ -400,15 +469,17 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
             if k in metrics:
                 row[k] = metrics[k]
         history.append(row)
-        logger.log(state.step, epoch, **row)
-        logger.flush()
+        if lead:
+            logger.log(state.step, epoch, **row)
+            logger.flush()
         if verbose:
             print(f"epoch {epoch:3d} | loss {row['loss']:.4f} acc "
                   f"{row['acc']:.4f} | val_loss {val_loss:.4f} val_acc "
                   f"{val_acc:.4f} | {row['images_per_sec']:.0f} img/s")
         if val_loss < ckpt.best_val_loss:  # the payload only on improvement
             ckpt.maybe_save_best(val_loss, epoch,
-                                 _full_payload(state, epoch, val_loss))
+                                 _full_payload(state, epoch, val_loss,
+                                               layout))
         last_epoch = epoch
         if stop_after is not None and epoch + 1 >= stop_after:
             break
@@ -426,13 +497,15 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
                   f"{val_loss:.4f} val_acc={val_acc:.4f}")
 
     total_time = time.time() - t_start
-    ckpt.save_last(_full_payload(state, last_epoch, ckpt.best_val_loss))
+    ckpt.save_last(_full_payload(state, last_epoch, ckpt.best_val_loss,
+                                 layout))
     if getattr(logger, "comet", None) is not None:  # main.py:239-242
         try:
             logger.comet.log_model(experiment, ckpt.root)
         except Exception as e:
             print(f"[vit_cifar_torch] comet model upload failed: {e}")
-    logger.finalize()
+    if lead:
+        logger.finalize()
     return {
         "experiment": experiment,
         "history": history,
@@ -443,6 +516,6 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
         "images_per_sec": images_seen / max(total_time, 1e-9),
         "n_params": n_params,
         "ckpt_dir": ckpt.root,
-        "log_dir": logger.dir,
+        "log_dir": os.path.join(cfg.log_dir, experiment),
         "synthetic_data": raw.synthetic,
     }

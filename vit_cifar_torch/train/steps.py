@@ -48,6 +48,15 @@ The batch is a seam: ``train_step.make_batch`` gathers and augments, and
 it the JAX package's augmented batch.  ``train_step.loss_and_grads`` is the
 forward and backward of ``on_batch`` alone (the loop's gradient
 histograms).
+
+On a mesh (``parallel/mesh.py``), as GSPMD runs JAX's step: every rank
+builds the global batch from the same generator and permutation and keeps
+its rows of the data axis (mixup and cutmix pair rows across the whole
+batch, and the crop, flip and AutoAugment draws are made per global row);
+the flat gradient, with the loss and accuracy appended, takes one mean
+over the data axis; the guard's verdict is taken over every rank, since
+model and expert ranks hold different shards; the eval step evaluates the
+rank's rows and sums the masked sums over the data axis.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from ..data.autoaugment import autoaugment_batch, policy_for_dataset
 from ..ops.moe import collect_moe_aux
 from ..ops.nnmf.layers import (nnmf_after_care, nnmf_slices,
                                nnmf_weight_trainable)
+from ..parallel.mesh import Mesh
 from .losses import make_criterion, make_per_example_loss
 from .optim import FlatOptimizer, frozen_mask
 from .state import TrainState
@@ -91,14 +101,17 @@ def make_metrics_zeros(cfg: Config,
 
 
 def make_train_step(cfg: Config, model, tx: FlatOptimizer,
-                    pre_augmented: bool = False) -> Callable:
+                    pre_augmented: bool = False,
+                    mesh: Mesh | None = None) -> Callable:
     """``train_step(state, x_all, y_all, perm, i) -> (state, metrics)``.
 
     ``x_all`` (N, H, W, C) uint8 and ``y_all`` (N,) are the dataset on the
     device, ``perm`` the epoch's permutation (on the device) and ``i`` the
     step's index in the epoch.  ``state`` (whose ``model`` is ``model``)
     is updated in place and returned.  With ``pre_augmented`` the step
-    takes ``x_all`` as already cropped, flipped and AutoAugmented.
+    takes ``x_all`` as already cropped, flipped and AutoAugmented.  On a
+    ``mesh`` (``model`` laid out by ``shard_params``) the metrics are the
+    global ones.
     """
     criterion = make_criterion(cfg)
     dtype = torch_dtype(cfg)
@@ -106,7 +119,9 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
     needs_ae = cfg.criterion == "aece"
     moe_aux = uses_moe_aux(cfg)
     unsupervised = uses_unsupervised(cfg)
-    run_ae_steps = (make_unsupervised_update(cfg, model)[1]
+    data = None if mesh is None else mesh.axis("data")
+    world = None if mesh is None else mesh.world
+    run_ae_steps = (make_unsupervised_update(cfg, model, data)[1]
                     if unsupervised else None)
     frozen = frozen_mask(cfg, model)
     after_care = nnmf_slices(model, trainable=lambda names: (
@@ -114,7 +129,8 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
 
     def make_batch(state: TrainState, x_all, y_all, perm, i: int):
         """Gather and augment step ``i``'s batch: (img in the compute
-        dtype, label, rand_label or None, lam or None)."""
+        dtype, label, rand_label or None, lam or None); on a mesh the
+        rank's rows of the global batch."""
         gen = state.generator
         idx = perm[i * B:(i + 1) * B]
         img, label = x_all.index_select(0, idx), y_all.index_select(0, idx)
@@ -137,14 +153,16 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
             img = torch.where(gate, mixed, img)
             rand_label = torch.where(gate, rand_m, torch.zeros_like(label))
             lam = torch.where(gate, lam_m, torch.ones_like(lam_m))
+        if data is not None:
+            img, label = data.block(img, 0), data.block(label, 0)
+            if rand_label is not None:
+                rand_label = data.block(rand_label, 0)
         return img.to(dtype), label, rand_label, lam
 
-    def loss_and_grads(state: TrainState, img, label, rand_label=None,
-                       lam=None):
-        """(loss, logits, one gradient per parameter, the MoE aux loss or
-        None) of a given batch, in training mode; dropout and the random AE
-        mask draw from the state's generator.  A parameter outside the
-        loss's graph gets zeros."""
+    def forward_backward(state: TrainState, img, label, rand_label, lam):
+        """(flat gradient, loss, accuracy, logits, the MoE aux loss or
+        None) of a given batch, in training mode; on a mesh the gradient,
+        loss and accuracy are the means over the data axis."""
         logits = model(img, deterministic=False, generator=state.generator)
         aux = {"ae": collect_ae_terms(model)} if needs_ae else None
         loss = criterion(logits, label, aux)
@@ -159,31 +177,53 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
             loss = loss + cfg.moe_aux_weight * balance
         params = list(model.parameters())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        return (loss.detach(), logits.detach(), grads,
+        with torch.no_grad():
+            acc = (logits.argmax(-1) == label).float().mean()
+            flat = torch.cat([(torch.zeros_like(p) if g is None else g)
+                              .reshape(-1) for p, g in zip(params, grads)]
+                             + [loss.detach()[None], acc[None]])
+            del grads
+            if data is not None:  # GSPMD's psum of the gradient
+                data.all_reduce_(flat).div_(data.size)
+        return (flat[:-2], flat[-2].clone(), flat[-1].clone(),
+                logits.detach(),
                 None if balance is None else balance.detach())
+
+    def loss_and_grads(state: TrainState, img, label, rand_label=None,
+                       lam=None):
+        """(loss, logits, one gradient per parameter, the MoE aux loss or
+        None) of a given batch, in training mode; dropout and the random AE
+        mask draw from the state's generator.  A parameter outside the
+        loss's graph gets zeros.  On a mesh the loss and gradients are the
+        means over the data axis."""
+        flat_g, loss, _, logits, balance = forward_backward(
+            state, img, label, rand_label, lam)
+        grads, offset = [], 0
+        for p in model.parameters():
+            grads.append(flat_g[offset:offset + p.numel()].view_as(p))
+            offset += p.numel()
+        return loss, logits, grads, balance
 
     def on_batch(state: TrainState, img, label, rand_label=None, lam=None):
         """Forward, loss, backward, guard and update on a given batch."""
-        loss, logits, grads, balance = loss_and_grads(state, img, label,
-                                                      rand_label, lam)
+        flat_g, loss, acc, _, balance = forward_backward(
+            state, img, label, rand_label, lam)
         # the AE-internal steps first: they write the AE entries of
         # state.params, on which the main update then lands
         unsup_loss = run_ae_steps(state) if unsupervised else None
         with torch.no_grad():
-            flat_g = torch.cat([g.reshape(-1) for g in grads])
-            del grads
             if cfg.nonfinite_guard:
                 ok = torch.isfinite(loss) & torch.isfinite(flat_g).all()
+                if world is not None:  # one rank's NaN skips every rank
+                    bad = world.all_reduce_((~ok).to(torch.float32))
+                    ok = bad == 0
                 flat_g = torch.where(ok, flat_g, torch.zeros_like(flat_g))
             decay_params = state.params if frozen is None else torch.where(
                 frozen, torch.zeros_like(state.params), state.params)
             updates, opt_state = tx.update(flat_g, state.opt_state,
                                            decay_params)
             new_params = state.params + updates
-            metrics = {"loss": loss,
-                       "acc": (logits.argmax(-1) == label).float().mean()}
+            metrics = {"loss": loss, "acc": acc}
             if cfg.nonfinite_guard:
                 # zeroed grads still move the moments and the count: keep
                 # the old state entirely on a skipped step
@@ -215,22 +255,31 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
     return train_step
 
 
-def make_eval_step(cfg: Config, model) -> Callable:
+def make_eval_step(cfg: Config, model, mesh: Mesh | None = None) -> Callable:
     """``eval_step(img_u8, label, mask) -> {loss_sum, correct_sum, count}``,
     masked sums over one batch on the device, from ``model``'s current
-    weights, with no gradient (the inference kernel)."""
+    weights, with no gradient (the inference kernel).  On a ``mesh`` each
+    rank evaluates its rows of the batch and the sums are the global
+    ones."""
     per_example_loss = make_per_example_loss(cfg)
     dtype = torch_dtype(cfg)
+    data = None if mesh is None else mesh.axis("data")
 
     @torch.no_grad()
     def eval_step(img, label, mask):
+        if data is not None:
+            img, label, mask = (data.block(t, 0) for t in (img, label, mask))
         x = augment.normalize(img, cfg.mean, cfg.std).to(dtype)
         logits = model(x, deterministic=True)
         per_ex = per_example_loss(logits, label)
         correct = (logits.argmax(-1) == label).to(torch.float32)
         m = mask.to(torch.float32)
-        return {"loss_sum": torch.sum(per_ex * m),
+        sums = {"loss_sum": torch.sum(per_ex * m),
                 "correct_sum": torch.sum(correct * m),
                 "count": torch.sum(m)}
+        if data is None:
+            return sums
+        total = data.all_reduce_(torch.stack(list(sums.values())))
+        return dict(zip(sums, total))
 
     return eval_step

@@ -34,6 +34,7 @@ from torch import nn
 from ..config import Config
 from ..ops.nnmf.layers import nnmf_after_care, nnmf_slices
 from ..ops.nnmf.optimizer import madam
+from ..parallel.collectives import Axis
 from .optim import adam, flat_mask
 from .state import TrainState
 
@@ -69,13 +70,15 @@ def collect_ae_terms(model: nn.Module) -> list[tuple]:
     return [(m.ae_hidden, m.ae_input, m.ae_output) for m in ae_mixers(model)]
 
 
-def make_unsupervised_update(cfg: Config, model: nn.Module):
+def make_unsupervised_update(cfg: Config, model: nn.Module,
+                             data: Axis | None = None):
     """``(init, run)`` for ``model``, whose parameters view the flat
     vector: ``init(params) -> ae_opt_state``; ``run(state) -> loss`` takes
     ``cfg.unsupervised_steps`` AE steps on the inputs of the model's last
     forward, writes the AE entries of ``state.params`` and
     ``state.ae_opt_state`` in place, and returns the summed loss (a tensor
-    on the device; nothing is read back)."""
+    on the device; nothing is read back).  Under a ``data`` axis each
+    step's gradient and loss are the means over it."""
     heads = cfg.ae_type == "heads" and not cfg.legacy_heads
     heads_nnmf = heads and cfg.use_nnmf_layers
     tx = (madam if heads_nnmf else adam)(lambda count: AE_LR, 0.9, 0.999,
@@ -101,11 +104,14 @@ def make_unsupervised_update(cfg: Config, model: nn.Module):
                            for ae, x in zip(aes, inputs))
                 grads = torch.autograd.grad(loss, ae_params)
             with torch.no_grad():
-                loss = loss.detach()
+                flat = torch.cat([g.reshape(-1) for g in grads]
+                                 + [loss.detach()[None]])
+                if data is not None:
+                    data.all_reduce_(flat).div_(data.size)
+                loss = flat[-1]
                 old = state.params.index_select(0, index)
                 updates, opt_state = tx.update(
-                    torch.cat([g.reshape(-1) for g in grads]),
-                    state.ae_opt_state, old)
+                    flat[:-1], state.ae_opt_state, old)
                 new = old + updates
                 nnmf_after_care(new, after_care, AE_LR)
                 if heads:
