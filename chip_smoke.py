@@ -169,6 +169,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    the ms a step of each run and the NCCL version are printed.
    Runs over more ranks are held on the CPU by the gloo tests
    (``tests/test_torch_parallel*_mp.py``).
+13. Pipe/seq phase (``parallel/pipeline.py``, ``parallel/sequence.py``;
+   the flagship, B=128, bf16-mixed): (a) ``pipeline_forward`` at one stage
+   runs M=4 microbatches of 32 through GPipe's tick loop, a training
+   forward and backward and an eval batch, against the plain (einsum,
+   sequential) model on the same weights and batch (loss 1e-2, gradient
+   2e-2 relative L2, logits 5e-2); then 10 train steps and one eval batch
+   with the model's forward on the tick loop, counted from zero: 28
+   launches a step of ``mhsa_fwd_lse`` and of each tiled backward kernel
+   (7 layers x 4 microbatches) and 28 of ``mhsa_fwd`` in eval; the tick
+   loop's step and the sequential one timed in turns; (b) the flagship
+   padded as a seq axis of 4 pads it (``seq_pad=3``, ``valid_len=65``)
+   against the unpadded model: eval logits, and one step's loss and
+   gradient.  Runs over more ranks on either axis are CPU gloo tests
+   (``tests/test_torch_pipeline*.py``, ``tests/test_torch_sequence.py``).
 
 The library's yardsticks, timed at both main shapes and called nowhere in
 the port: SDPA forward and forward+backward,
@@ -241,6 +255,8 @@ from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention_reference, flash_tiled_bwd_dkv,
     flash_tiled_bwd_dkv_reference, flash_tiled_bwd_dq,
     flash_tiled_bwd_dq_reference)
+from vit_cifar_torch.parallel.pipeline import Pipeline, pipeline_forward
+from vit_cifar_torch.parallel.sequence import pad_stream
 from vit_cifar_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from vit_cifar_torch.train.loop import _pad_eval, init_state, train
 from vit_cifar_torch.train.losses import make_criterion
@@ -3167,6 +3183,153 @@ def parallel_phase(card: str) -> dict:
     return out["flagship"]
 
 
+PIPE_MICROBATCHES = 4  # of 32 images at B=128
+PIPE_STEPS = 10  # counted, and timed in turns with the sequential step
+SEQ_AXIS = 4  # the flagship's stream padded as a seq axis of 4 pads it
+
+
+def loss_and_grad(cfg: Config, forward, params, img, label) -> tuple:
+    """(loss, flat gradient) of one training forward ``forward(img)``."""
+    loss = make_criterion(cfg)(forward(img), label)
+    grads = torch.autograd.grad(loss, params)
+    return loss.item(), torch.cat([g.reshape(-1) for g in grads])
+
+
+def check_against(what: str, got: tuple, want: tuple, card: str) -> None:
+    """A (loss, flat gradient) pair within the step bounds of another."""
+    (loss_g, grad_g), (loss_w, grad_w) = got, want
+    rel = ((grad_g - grad_w).norm() / grad_w.norm()).item()
+    print(f"{what}: loss {loss_g:.6f} vs {loss_w:.6f} (|diff| "
+          f"{abs(loss_g - loss_w):.3e}, bound {STEP_LOSS_ATOL}); gradient "
+          f"relative L2 {rel:.3e} (bound {STEP_GRAD_REL_L2}) ({card})")
+    if not (abs(loss_g - loss_w) <= STEP_LOSS_ATOL
+            and rel <= STEP_GRAD_REL_L2):
+        raise AssertionError(f"{what}: out of bounds")
+
+
+def check_logits(what: str, got: torch.Tensor, want: torch.Tensor,
+                 card: str) -> None:
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"{what}: logits max |diff| {err:.3e} (rtol={LOGIT_TOL['rtol']} "
+          f"atol={LOGIT_TOL['atol']}) ({card})")
+    torch.testing.assert_close(got.float(), want.float(), **LOGIT_TOL)
+
+
+def pipe_seq_phase(card: str) -> dict:
+    """GPipe's tick loop and sequence parallelism's padded stream on the
+    card, at the README flagship's width (7 layers, hidden 384, 12 heads,
+    bf16-mixed, B=128).  The card is one H100 and NCCL takes one rank a
+    card, so the pipe and seq axes above one rank are CPU gloo tests
+    (``tests/test_torch_pipeline*.py``, ``tests/test_torch_sequence.py``);
+    here (a) ``pipeline_forward`` at one stage runs M=4 microbatches of 32
+    through the tick loop and its backward, a step and an eval batch,
+    against the plain (einsum, sequential) model on the same weights and
+    batch, with the kernels' launches of ``PIPE_STEPS`` train steps and one
+    eval batch counted from zero; and (b) the flagship padded as a seq axis
+    of 4 pads it (``seq_pad=3``, ``valid_len=65``) against the unpadded
+    model.  Returns the launches of (a)'s steps and eval."""
+    t0 = time.perf_counter()
+    cfg = flagship_cfg()
+    M = PIPE_MICROBATCHES
+    raw, x_train, y_train, model, state, train_step, perm = training_setup(
+        cfg, n_train=2 * PIPE_STEPS * cfg.batch_size)
+    plain = plain_twin(cfg, model)
+    img, label, _, _ = train_step.make_batch(state, x_train, y_train, perm, 0)
+    params, plain_params = list(model.parameters()), list(plain.parameters())
+    print(f"pipe/seq phase: {cfg.num_layers} layers, hidden {cfg.hidden}, "
+          f"{cfg.head} heads, {cfg.precision}, B={cfg.batch_size}; {card}")
+
+    # (a) the tick loop at one stage, its step and eval against the plain
+    # model (the launches here are the check's, not the path's)
+    want = loss_and_grad(cfg, lambda x: plain(x, deterministic=False),
+                         plain_params, img, label)
+    got = loss_and_grad(cfg, lambda x: pipeline_forward(
+        model, None, M, x, deterministic=False), params, img, label)
+    check_against(f"tick loop at one stage, M={M} microbatches of "
+                  f"{cfg.batch_size // M}, vs the plain model", got, want,
+                  card)
+    x_eval = normalize(torch.from_numpy(raw.x_test[:cfg.eval_batch_size])
+                       .cuda(), cfg.mean, cfg.std).to(torch_dtype(cfg))
+    with torch.no_grad():
+        plain_logits = plain(x_eval)
+        check_logits(f"tick loop eval, B={cfg.eval_batch_size}, M={M}",
+                     pipeline_forward(model, None, M, x_eval), plain_logits,
+                     card)
+
+    # the path: PIPE_STEPS train steps and one eval batch with the model's
+    # forward on the tick loop, every launch counted from zero
+    eval_step = make_eval_step(cfg, model)
+    e_img = torch.from_numpy(raw.x_test[:cfg.eval_batch_size]).cuda()
+    e_label = torch.from_numpy(raw.y_test[:cfg.eval_batch_size]).cuda()
+    e_mask = torch.ones(cfg.eval_batch_size, device="cuda")
+    model.pipeline = Pipeline(None, M)
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    for i in range(PIPE_STEPS):
+        state, metrics = train_step(state, x_train, y_train, perm, i)
+    torch.cuda.synchronize()
+    step_launches = _launch_counts()
+    sums = eval_step(e_img, e_label, e_mask)
+    launches = _launch_counts()
+    eval_fwd = launches["mhsa_fwd"] - step_launches["mhsa_fwd"]
+    want_step = {n: 0 for n in KERNEL_WRAPPERS}
+    want_step.update({k: cfg.num_layers * M * PIPE_STEPS for k in (
+        "mhsa_fwd_lse", "flash_bwd_dq_tiled", "flash_bwd_dkv_tiled")})
+    print(f"tick loop path: {PIPE_STEPS} train steps, launches "
+          f"{step_launches} ({cfg.num_layers * M} a step of each training "
+          f"kernel expected: {cfg.num_layers} layers x {M} microbatches); "
+          f"one eval batch of {cfg.eval_batch_size}: {eval_fwd} launches of "
+          f"mhsa_fwd ({cfg.num_layers * M} expected), accuracy "
+          f"{float(sums['correct_sum']) / cfg.eval_batch_size:.4f}; last "
+          f"loss {float(metrics['loss']):.4f} ({card})")
+    if step_launches != want_step or eval_fwd != cfg.num_layers * M:
+        raise AssertionError("the tick loop's launches are not 28 a step "
+                             "of each training kernel and 28 in eval")
+    if not (math.isfinite(float(metrics["loss"]))
+            and float(metrics["skipped_nonfinite"]) == 0):
+        raise AssertionError("a tick-loop step is not finite")
+
+    # ms a step, the tick loop against the sequential step, in turns
+    ms = {"sequential": [], "tick loop": []}
+    i = PIPE_STEPS
+    for name in ("sequential", "tick loop", "tick loop", "sequential"):
+        model.pipeline = Pipeline(None, M) if name == "tick loop" else None
+        state, _ = train_step(state, x_train, y_train, perm, i)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for k in range(1, 5):
+            state, _ = train_step(state, x_train, y_train, perm, i + k)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t) * 1e3 / 4)
+        i = (i + 5) % (2 * PIPE_STEPS)
+    model.pipeline = None
+    print("train step, in turns (host clock, synchronized, 4 steps each "
+          "after one warm step): " + "; ".join(
+              f"{k} {', '.join(f'{v:.3f}' for v in vs)} ms"
+              for k, vs in ms.items()) + f" ({card})")
+
+    # (b) the padded stream against the unpadded model on the same weights
+    padded, _ = get_model(cfg, device="cuda")
+    padded.load_state_dict(model.state_dict())
+    pad = pad_stream(padded, SEQ_AXIS)
+    if pad != 3 or padded.enc0.mixer.valid_len != 65:
+        raise AssertionError(f"pad {pad}, valid_len "
+                             f"{padded.enc0.mixer.valid_len}")
+    with torch.no_grad():
+        check_logits(f"padded stream (seq_pad={pad}, valid_len=65) eval",
+                     padded(x_eval), model(x_eval), card)
+    img, label, _, _ = train_step.make_batch(state, x_train, y_train, perm, 1)
+    check_against(f"padded stream (seq_pad={pad}) step vs the unpadded "
+                  "model", loss_and_grad(
+                      cfg, lambda x: padded(x, deterministic=False),
+                      list(padded.parameters()), img, label),
+                  loss_and_grad(cfg, lambda x: model(x, deterministic=False),
+                                list(model.parameters()), img, label), card)
+    print(f"the pipe/seq phase took {time.perf_counter() - t0:.1f} s "
+          f"({card})")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3202,6 +3365,7 @@ def main() -> None:
     nnmf_phase(card)
     paths.append(rest_phase(card)["moe"]["launches"])
     paths.append(parallel_phase(card))
+    paths.append(pipe_seq_phase(card))
     for row in rows:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
         if row["launches"] < 1:

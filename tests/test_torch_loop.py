@@ -279,16 +279,13 @@ def test_matmul_precision_is_restored(tmp_path, raw):
     ids=["mesh_shape", "multihost", "pipe", "seq"])
 def test_runs_without_a_model_in_the_port_raise(tmp_path, raw, kw, capsys):
     """A mesh of more devices than this process (no torchrun) raises,
-    naming torchrun; ``--multihost`` with no cluster described trains as
-    one process after JAX's warning; the pipe and seq axes still raise,
-    naming their ROADMAP item."""
+    naming torchrun, over the pipe and seq axes as over data;
+    ``--multihost`` with no cluster described trains as one process after
+    JAX's warning."""
     if "multihost" in kw:
         res = _train(_cfg(tmp_path, dry_run=True, **kw))
         assert "continuing as a SINGLE process" in capsys.readouterr().out
         assert np.isfinite(res["val_loss"])
-    elif "mesh_axes" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 8b"):
-            _train(_cfg(tmp_path, **kw))
     else:
         with pytest.raises(ValueError, match="torchrun"):
             _train(_cfg(tmp_path, **kw))

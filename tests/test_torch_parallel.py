@@ -105,11 +105,35 @@ def test_batches_must_divide_over_the_data_axis(field):
 
 
 @pytest.mark.parametrize("axis", ["pipe", "seq"])
-def test_pipe_and_seq_axes_wait_for_item_8b(axis):
-    cfg = tconfig.Config(model_name="vit", mesh_shape=(1, 2),
-                         mesh_axes=("data", axis))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8b"):
-        loop.train(cfg, verbose=False, device="cpu")
+def test_pipe_and_seq_axes_wait_for_item_8b(axis, tmp_path):
+    """The pipe and seq axes are ported: in a group of one process,
+    ``make_mesh`` gives the axis its own group; the layout cuts nothing
+    over it (the parameters stay whole, as JAX replicates them), and a
+    state gathered for the checkpoint has the one-device names and shapes.
+    A mesh of more devices outside torchrun raises, naming torchrun."""
+    from vit_cifar_torch.parallel.mesh import shard_params
+    from vit_cifar_torch.train.loop import _full_payload, init_state
+    from vit_cifar_torch.train.optim import make_optimizer
+
+    with pytest.raises(ValueError, match="torchrun"):
+        make_mesh((1, 2), ("data", axis), "cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", axis), "cpu")
+        assert mesh.shape == {"data": 1, axis: 1}
+        assert mesh.axis(axis).size == 1 and mesh.axis(axis).rank == 0
+        cfg = tconfig.Config(model_name="vit", **SMALL)
+        model = get_model(cfg, device="cpu")[0]
+        want = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        layout = shard_params(mesh, model)
+        assert layout.shards == {}
+        state = init_state(cfg, model, make_optimizer(cfg, 4, model))
+        payload = _full_payload(state, 0, 0.0, layout)
+        assert {n: tuple(p.shape) for n, p in payload["params"].items()} \
+            == want
+    finally:
+        dist.destroy_process_group()
 
 
 def test_make_mesh_against_the_world(tmp_path):

@@ -153,10 +153,31 @@ def test_get_model_raises_for_models_not_ported(name):
                                 dict(act_constraint=lambda h: h)],
                          ids=["seq_pad", "act_constraint"])
 def test_vit_options_not_ported_raise(kw):
+    """``seq_pad`` is ported: ``ViT(seq_pad=3)`` appends 3 zero tokens after
+    ``pos_emb`` (unmasked, as in JAX) and its logits are JAX's
+    ``ViT(seq_pad=3)``'s.  ``act_constraint``, a GSPMD layout hint, has no
+    counterpart (the ``seq_axis`` hook does its work): the argument does
+    not exist."""
     g = torch.Generator()
-    with pytest.raises(NotImplementedError, match=next(iter(kw))):
-        ViT(functools.partial(MultiHeadSelfAttention, 32, 4, generator=g),
-            num_layers=1, hidden=32, mlp_hidden=32, generator=g, **kw)
+    mixer = functools.partial(MultiHeadSelfAttention, 32, 4, generator=g)
+    if "act_constraint" in kw:
+        with pytest.raises(TypeError, match="act_constraint"):
+            ViT(mixer, num_layers=1, hidden=32, mlp_hidden=32, generator=g,
+                **kw)
+        return
+    jcfg, jmodel, params, tmodel = _pair(**TINY, precision="32")
+    jpad = jmodel.clone(seq_pad=3)
+    tmodel.seq_pad = 3
+    img = _images(0, 4)
+    want = jpad.apply({"params": params},
+                      jax_normalize(jnp.asarray(img), jcfg.mean, jcfg.std))
+    x = normalize(torch.from_numpy(img), jcfg.mean, jcfg.std)
+    with torch.no_grad():
+        got = tmodel(x)
+        plain = ViT(mixer, num_layers=1, hidden=32, mlp_hidden=32,
+                    generator=g, **kw)
+    assert plain.seq_pad == 1
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
 def test_get_model_is_seeded():

@@ -72,14 +72,19 @@ def run_case(spec: dict, tmp: str, mesh) -> dict:
     ``spec``: ``cfg`` (Config kwargs), ``steps``, ``init`` (a file of the
     one-device initial state dict, or None for the port's own init), and
     either ``batches`` (a .npz of the global augmented batches, fed to
-    ``on_batch``) or ``data`` (a .npz of the uint8 dataset and the
-    permutation, fed to the step, which builds the batches); optional
-    ``nan_rank`` (that rank's gradient of ``nan_param`` is made NaN at
-    ``nan_step``)."""
+    ``on_batch``, with CutMix's ``rand_label`` and ``lam`` where it has
+    them) or ``data`` (a .npz of the uint8 dataset and the permutation, fed
+    to the step, which builds the batches); optional ``nan_rank`` (that
+    rank's gradient of ``nan_param`` is made NaN at ``nan_step``),
+    ``pad_stream`` (the stream padded as a seq axis of that size pads it)
+    and ``probe`` (a .npz of a normalized batch ``img`` and its ``label``:
+    the eval forward's logits, and the loss and gradients at the initial
+    state)."""
     from vit_cifar_torch.config import Config
     from vit_cifar_torch.models import get_model
     from vit_cifar_torch.parallel.mesh import shard_params
-    from vit_cifar_torch.train.loop import _full_payload, init_state
+    from vit_cifar_torch.parallel.sequence import pad_stream
+    from vit_cifar_torch.train.loop import init_state, parallel_model
     from vit_cifar_torch.train.optim import make_optimizer
     from vit_cifar_torch.train.steps import make_metrics_zeros, make_train_step
 
@@ -87,6 +92,9 @@ def run_case(spec: dict, tmp: str, mesh) -> dict:
     model, _ = get_model(cfg, device="cpu")
     if spec.get("init"):
         model.load_state_dict(torch.load(os.path.join(tmp, spec["init"])))
+    if spec.get("pad_stream"):
+        pad_stream(model, spec["pad_stream"])
+    model = parallel_model(cfg, model, mesh)
     layout = shard_params(mesh, model)
     tx = make_optimizer(cfg, spec.get("steps_per_epoch", 4), model)
     state = init_state(cfg, model, tx)
@@ -103,12 +111,21 @@ def run_case(spec: dict, tmp: str, mesh) -> dict:
         param.register_hook(poison)
     data = None if mesh is None else mesh.axis("data")
     rows = (lambda t: t) if data is None else (lambda t: data.block(t, 0))
+    probe = None
+    if spec.get("probe"):
+        probe = _probe(model, step, state, layout, data, rows,
+                       np.load(os.path.join(tmp, spec["probe"])))
     if "batches" in spec:
         b = np.load(os.path.join(tmp, spec["batches"]))
 
         def train_step(i):
+            mix = {}
+            if "lam" in b:
+                mix = dict(rand_label=rows(torch.from_numpy(
+                    b["rand_label"][i])), lam=torch.tensor(b["lam"][i]))
             return step.on_batch(state, rows(torch.from_numpy(b["img"][i])),
-                                 rows(torch.from_numpy(b["label"][i])))
+                                 rows(torch.from_numpy(b["label"][i])),
+                                 **mix)
     else:
         d = np.load(os.path.join(tmp, spec["data"]))
         x, y, perm = (torch.from_numpy(d[k]) for k in ("x", "y", "perm"))
@@ -130,7 +147,25 @@ def run_case(spec: dict, tmp: str, mesh) -> dict:
         out["before"] = before
     if spec.get("eval"):
         out["eval"] = _eval_sums(cfg, model, mesh, tmp, spec["eval"])
+    if probe is not None:
+        out["probe"] = probe
     return out
+
+
+def _probe(model, step, state, layout, data, rows, batch) -> dict:
+    """The eval forward's logits on the whole batch, and the loss and the
+    gradients (one-device layout) of a training forward on it."""
+    img, label = (torch.from_numpy(batch[k]) for k in ("img", "label"))
+    with torch.no_grad():
+        logits = model(rows(img), deterministic=True)
+    if data is not None:
+        logits = data.all_gather(logits, 0)
+    loss, _, grads, _ = step.loss_and_grads(state, rows(img), rows(label))
+    grads = dict(zip([n for n, _ in model.named_parameters()], grads))
+    if layout is not None:
+        grads = layout.full_named(grads)
+    return {"logits": logits, "loss": float(loss),
+            "grads": {k: v.clone() for k, v in grads.items()}}
 
 
 def _payload(state, layout) -> dict:
@@ -159,11 +194,13 @@ def _eval_sums(cfg, model, mesh, tmp: str, name: str) -> list:
     return sums
 
 
-def run_cases(rank: int, tmp: str, cases: dict) -> None:
+def run_cases(rank: int, tmp: str, cases: dict, runs: list = (),
+              data: str | None = None) -> None:
     """Each case of ``cases`` (name -> spec with ``mesh_shape`` and
     ``mesh_axes`` in its ``cfg``) on its mesh; rank 0 writes
     ``{name}.pt``.  A case that raises writes its message instead when the
-    spec says ``expect_error``."""
+    spec says ``expect_error``.  Then the ``train()`` ``runs`` on
+    ``data``, as ``run_train``."""
     from vit_cifar_torch.parallel.mesh import make_mesh
 
     for name, spec in cases.items():
@@ -177,6 +214,8 @@ def run_cases(rank: int, tmp: str, cases: dict) -> None:
             out = {"error": str(e)}
         if rank == 0:
             torch.save(out, os.path.join(tmp, f"{name}.pt"))
+    if runs:
+        run_train(rank, tmp, runs, data)
 
 
 def run_train(rank: int, tmp: str, runs: list, data: str) -> None:
@@ -201,3 +240,39 @@ def run_train(rank: int, tmp: str, runs: list, data: str) -> None:
                 torch.save(done[name], os.path.join(tmp, f"{name}.pt"))
     finally:
         loop.load_dataset = real
+
+
+def run_guards(rank: int, tmp: str, guards: dict, cases: dict) -> None:
+    """The ValueError message of each guard (label -> (kind, Config kwargs,
+    mesh shape, axes)): kind "pp" lays the model out with
+    ``pipeline_model``, "sp" with ``seq_parallel_model``, "loop" with the
+    loop's ``parallel_model``, "pp_apply" runs a pipelined forward after
+    ``pipeline_model``; rank 0 writes ``guards.pt`` (label -> message, or
+    None where nothing raised).  Then ``cases``, as ``run_cases``."""
+    from vit_cifar_torch.config import Config
+    from vit_cifar_torch.models import get_model
+    from vit_cifar_torch.parallel.mesh import make_mesh
+    from vit_cifar_torch.parallel.pipeline import pipeline_model
+    from vit_cifar_torch.parallel.sequence import seq_parallel_model
+    from vit_cifar_torch.train.loop import parallel_model
+
+    out = {}
+    for label, (kind, kw, shape, axes) in guards.items():
+        mesh = make_mesh(shape, axes, "cpu")
+        try:
+            model, _ = get_model(Config(**kw), device="cpu")
+            if kind == "sp":
+                seq_parallel_model(model, mesh)
+            elif kind == "loop":
+                parallel_model(Config(**kw), model, mesh)
+            else:
+                pipeline_model(model, mesh, 2)
+            if kind == "pp_apply":
+                with torch.no_grad():
+                    model(torch.zeros(8, 32, 32, 3))
+            out[label] = None
+        except ValueError as e:
+            out[label] = str(e)
+    if rank == 0:
+        torch.save(out, os.path.join(tmp, "guards.pt"))
+    run_cases(rank, tmp, cases)

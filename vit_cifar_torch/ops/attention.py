@@ -18,6 +18,13 @@ row-parallel: each rank runs its ``head / n_model`` heads of the same
 head_dim through the same kernels, with the scale still over the full model
 dim.  Where the heads do not divide over the axis, each rank gathers q, k
 and v, runs every head, and keeps its own columns for out_project.
+
+Under a seq axis (``parallel/sequence.py``) the input is this rank's block
+of the token stream: its queries meet the keys and values gathered over
+the axis (``gather_summed``: the backward sums their cotangents over the
+axis and keeps this rank's block), on the einsum path, since Tq != Tk there
+as on JAX's masked path; ``valid_len`` is then held against the global key
+index.  The output dropout draws at the stream's global shape.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 from torch import nn
 
 from ..parallel.collectives import (Axis, copy_to, gather_from,
-                                    scatter_to)
+                                    gather_summed, scatter_to)
 from .common import dropout
 from .cuda.attention import fused_attention, whole_head_fits
 from .cuda.common import COL_CHUNK
@@ -57,6 +64,7 @@ class MultiHeadSelfAttention(nn.Module):
     TP_LAYOUT = {"Wq": "col", "Wk": "col", "Wv": "col", "out_project": "row"}
     data_axis: Axis | None = None
     tp_axis: Axis | None = None
+    seq_axis: Axis | None = None
 
     def __init__(self, features: int, head: int = 8, dropout: float = 0.0, *,
                  generator: torch.Generator, dtype: torch.dtype = torch.float32,
@@ -92,18 +100,23 @@ class MultiHeadSelfAttention(nn.Module):
         if ragged:
             q, k, v = (gather_from(t, tp) for t in (q, k, v))
         H = q.shape[-1] // hd  # this rank's heads
-        q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2) for t in (q, k, v))
+        sp = self.seq_axis
+        if sp is not None:  # every rank's keys and values
+            k, v = gather_summed(torch.cat([k, v], -1), sp, 1).chunk(2, -1)
+        Tk = k.shape[1]
+        q = q.reshape(B, T, H, hd).transpose(1, 2)
+        k, v = (t.reshape(B, Tk, H, hd).transpose(1, 2) for t in (k, v))
 
-        masked = self.valid_len is not None and self.valid_len < T
-        path = "einsum" if self.save_attn_map or masked else route(
-            T, hd, self.pallas_kernel)
+        masked = self.valid_len is not None and self.valid_len < Tk
+        path = "einsum" if self.save_attn_map or masked or Tk != T else \
+            route(T, hd, self.pallas_kernel)
         if path == "einsum":
-            # (B,H,T,T) logits in the compute dtype, divided by sqrt(F) as
+            # (B,H,T,Tk) logits in the compute dtype, divided by sqrt(F) as
             # the JAX einsum path does
             sqrt_d = torch.tensor(F**0.5, dtype=self.dtype, device=x.device)
             logits = torch.einsum("bhif,bhjf->bhij", q, k) / sqrt_d
             if masked:
-                key_ok = torch.arange(T, device=x.device) < self.valid_len
+                key_ok = torch.arange(Tk, device=x.device) < self.valid_len
                 fill = torch.tensor(torch.finfo(torch.float32).min,
                                     device=x.device).to(logits.dtype)
                 logits = torch.where(key_ok, logits, fill)
@@ -120,4 +133,4 @@ class MultiHeadSelfAttention(nn.Module):
             out = scatter_to(out, tp)
         out = self.out_project(out, reduce_over=tp)
         return dropout(out, self.rate, deterministic, generator,
-                       ((0, self.data_axis),))
+                       ((0, self.data_axis), (1, sp)))

@@ -60,11 +60,14 @@ class LayerNorm(nn.Module):
 
 class EncoderMLP(nn.Module):
     """Reference layers.py:32-39 — note the trailing GELU.  Under a model
-    axis fc1 is column-parallel and fc2 row-parallel."""
+    axis fc1 is column-parallel and fc2 row-parallel; under a seq axis it
+    runs on this rank's tokens and its dropout draws at the stream's global
+    shape."""
 
     TP_LAYOUT = {"fc1": "col", "fc2": "row"}
     data_axis: Axis | None = None
     tp_axis: Axis | None = None
+    seq_axis: Axis | None = None
 
     def __init__(self, mlp_hidden: int, features: int, dropout: float = 0.0, *,
                  generator: torch.Generator, dtype: torch.dtype = torch.float32,
@@ -77,7 +80,7 @@ class EncoderMLP(nn.Module):
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None):
-        tp, rows = self.tp_axis, ((0, self.data_axis),)
+        tp, rows = self.tp_axis, ((0, self.data_axis), (1, self.seq_axis))
         h = F.gelu(self.fc1(x if tp is None else copy_to(x, tp)))
         h = dropout(h, self.rate, deterministic, generator,
                     rows + ((-1, tp),))

@@ -47,6 +47,7 @@ class MoEMLP(nn.Module):
     EP_PARAMS = ("expert_w1", "expert_b1", "expert_w2", "expert_b2")
     data_axis: Axis | None = None
     ep_axis: Axis | None = None
+    seq_axis: Axis | None = None
 
     def __init__(self, features: int, mlp_hidden: int, num_experts: int = 8,
                  capacity_factor: float = 1.25, dropout: float = 0.0, *,
@@ -71,13 +72,18 @@ class MoEMLP(nn.Module):
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         B, T, _ = x.shape
-        E, dt = self.num_experts, self.dtype
-        C = min(T, max(1, math.ceil(T / E * self.capacity_factor)))
+        E, dt, sp = self.num_experts, self.dtype, self.seq_axis
+        T_all = T if sp is None else T * sp.size
+        C = min(T_all, max(1, math.ceil(T_all / E * self.capacity_factor)))
         probs = torch.softmax(self.router(x.to(torch.float32)), dim=-1)
         gate, expert = probs.max(dim=-1)  # (B, T): the top-1 prob and index
         onehot = F.one_hot(expert, E).to(torch.float32)  # (B, T, E)
         # each token's 1-based place in its expert's buffer, 0 elsewhere
-        pos = torch.cumsum(onehot, dim=1) * onehot
+        pos = torch.cumsum(onehot, dim=1)
+        if sp is not None:  # after the tokens of the ranks before this one
+            counts = sp.all_gather(pos[:, -1:], 1)  # (B, n_seq, E)
+            pos = pos + counts[:, :sp.rank].sum(dim=1, keepdim=True)
+        pos = pos * onehot
         keep = (pos <= C) * onehot
         # place 0 (not this expert) and places past C give all-zero rows
         slot = (pos.long()[..., None] - 1 == torch.arange(
@@ -87,8 +93,10 @@ class MoEMLP(nn.Module):
         # the fraction routed to each expert before the drop, and its mean
         # router probability, over the global batch in training
         routed, prob = onehot.sum(dim=(0, 1)), probs.sum(dim=(0, 1))
-        n = B * T
+        n = B * T_all
         data, ep = self.data_axis, self.ep_axis
+        if sp is not None and not deterministic:
+            routed, prob = sp.all_reduce_(routed), reduce_from(prob, sp)
         if data is not None and not deterministic:
             routed = data.all_reduce_(routed)
             prob, n = summed(prob, data), n * data.size

@@ -1,3 +1,5 @@
-"""Data, tensor and expert parallelism over ``torch.distributed``, one
-process per device: the mesh and the weight layout (``mesh.py``) and the
-collectives the modules and the train step take (``collectives.py``)."""
+"""The mesh axes over ``torch.distributed``, one process per device: the
+mesh and the weight layout (``mesh.py``), the collectives the modules and
+the train step take (``collectives.py``), GPipe over ``pipe``
+(``pipeline.py``) and the token stream cut over ``seq``
+(``sequence.py``)."""

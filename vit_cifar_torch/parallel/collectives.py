@@ -1,5 +1,4 @@
-"""The collectives of the data, model and expert axes, one process per
-device.
+"""The collectives of the mesh axes, one process per device.
 
 ``Axis`` is one mesh axis as this rank sees it: its process group, this
 rank's place on it and its size.  Tensor and expert parallelism use
@@ -22,6 +21,21 @@ every path out of it is whole; these four keep it so.  Batch statistics
 over the ``data`` axis are sums taken with ``summed`` (differentiable:
 its backward sums the gradients over the axis, which the train step's mean
 over data ranks then turns into the global gradient) or ``global_amax``.
+
+Where an axis splits the work of one example (``seq`` its tokens, ``pipe``
+its layers), a rank's gradient is its part, and the train step sums it over
+the axis.  Two pieces serve that split:
+
+  * ``reduce_from`` is also the transpose that JAX's ``shard_map`` gives a
+    ``psum`` onto an axis-invariant output (the pipe's banked outputs, the
+    pooled row of a cut stream): every rank then runs the head on the same
+    value, and the head's cotangent reaches each rank's part once;
+  * ``gather_summed``: the blocks gathered forward, this rank's block of
+    the cotangent summed over the axis backward (the reduce-scatter that
+    GSPMD places after attention's key/value gathers).
+
+``Axis.shift`` is JAX's ``lax.ppermute`` over the ring i -> i + offset;
+``parallel/pipeline.py`` runs it forward and its inverse backward.
 
 ``local_draw`` is the global-draw rule: a random tensor is drawn at the
 shape it has on one device, from the same generator state on every rank,
@@ -70,6 +84,26 @@ class Axis:
         """``x`` reduced over the axis in place (no gradient)."""
         dist.all_reduce(x, op=op, group=self.group)
         return x
+
+    def shift(self, x: torch.Tensor, offset: int = 1) -> torch.Tensor:
+        """Every rank sends ``x`` to the rank ``offset`` places on along
+        the ring and returns what the rank ``offset`` places back sent (no
+        gradient).  The send and the receive are posted together, so a
+        ring of them cannot deadlock on gloo or NCCL."""
+        if self.size == 1:
+            return x
+        out = torch.empty_like(x)
+
+        def peer(k: int) -> int:
+            return dist.get_global_rank(self.group, k % self.size)
+
+        ops = [dist.P2POp(dist.isend, x.contiguous(),
+                          peer(self.rank + offset), self.group),
+               dist.P2POp(dist.irecv, out, peer(self.rank - offset),
+                          self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out
 
 
 class _CopyTo(torch.autograd.Function):
@@ -137,6 +171,13 @@ def scatter_to(x: torch.Tensor, axis: Axis, dim: int = -1) -> torch.Tensor:
     """This rank's block of a replicated ``x`` along ``dim``; backward, the
     whole gradient, gathered from every rank's block."""
     return _ScatterTo.apply(x, axis, dim % x.dim())
+
+
+def gather_summed(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """The blocks of every rank of ``axis`` concatenated along ``dim``;
+    backward, this rank's block of the cotangent summed over the axis,
+    for a gathered tensor each rank reads its own part of."""
+    return copy_to(gather_from(x, axis, dim), axis)
 
 
 def summed(x: torch.Tensor, axis: Axis) -> torch.Tensor:

@@ -16,15 +16,24 @@ per axis, and the collectives are written where the math needs them
     column-parallel, out_project, fc2 and V row-parallel -- which the
     modules that own those weights compute with (their ``TP_LAYOUT``);
   * ``expert``: the MoE's stacked ``expert_*`` weights cut on their leading
-    E dim (``_ep_spec``).
+    E dim (``_ep_spec``);
+  * ``pipe``: GPipe stages of the ViT's encoder stack
+    (``parallel/pipeline.py``);
+  * ``seq``: the ViT's token stream cut over the axis
+    (``parallel/sequence.py``).
 
-The backend follows the device: NCCL for ``cuda``, gloo for ``cpu``.  The
-``pipe`` and ``seq`` axes (``parallel/pipeline.py``, ``parallel/sequence.py``
-in the JAX package) are not ported yet: ROADMAP queue 1, item 8b.
+As in JAX, the parameters are cut over ``model`` and ``expert`` only: they
+stay whole over ``data``, ``pipe`` and ``seq``, and the checkpoint keeps
+the one-device layout, so a run resumes on any mesh.  Under ``pipe`` and
+``seq`` a rank's gradient is its part of each example's (its stage's
+blocks, its tokens): ``trunk_split`` says how the train step sums it.
+
+The backend follows the device: NCCL for ``cuda``, gloo for ``cpu``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from dataclasses import dataclass
@@ -143,6 +152,49 @@ def make_mesh(mesh_shape=(), mesh_axes=("data",), device="cuda") -> Mesh | None:
 
     return Mesh(init_device_mesh(torch.device(device).type, mesh_shape,
                                  mesh_dim_names=mesh_axes))
+
+
+def trunk_split(model: nn.Module) -> tuple[Axis, torch.Tensor] | None:
+    """Where ``model``'s training forward splits each example's work over
+    an axis (``seq``: its tokens; ``pipe``: its stages, where the training
+    call is pipelined), that axis and a bool vector over the flat gradient
+    with the loss and accuracy appended: False at the entries that every
+    rank of the axis computes whole (the head, the loss, the accuracy) on
+    all but its first rank.  Summing the vector over the axis with those
+    entries zeroed counts each part of the gradient once.  None where the
+    model splits nothing."""
+    pipeline = getattr(model, "pipeline", None)
+    axis = getattr(model, "seq_axis", None)
+    if pipeline is not None and pipeline.takes(deterministic=False):
+        axis = pipeline.axis
+    if axis is None:
+        return None
+    first = axis.rank == 0
+    keep = [torch.full((p.numel(),), first or name.split(".")[0] not in
+                       ("fc_norm", "fc"), dtype=torch.bool, device=p.device)
+            for name, p in model.named_parameters()]
+    return axis, torch.cat(keep + [torch.full((2,), first, device=keep[0]
+                                              .device)])
+
+
+@contextlib.contextmanager
+def one_device_forward(model: nn.Module):
+    """Within the block, ``model``'s forward is the one-device model's on
+    every rank: its ``pipe`` and ``seq`` hooks are lifted (a padded stream
+    stays padded and masked), as JAX runs a capturing apply on the
+    sequential module."""
+    hooks = [(m, "seq_axis") for m in model.modules()
+             if getattr(m, "seq_axis", None) is not None]
+    if getattr(model, "pipeline", None) is not None:
+        hooks.append((model, "pipeline"))
+    saved = [getattr(m, k) for m, k in hooks]
+    for m, k in hooks:
+        setattr(m, k, None)
+    try:
+        yield model
+    finally:
+        for (m, k), v in zip(hooks, saved):
+            setattr(m, k, v)
 
 
 def has_model_axis(mesh: Mesh | None) -> bool:

@@ -29,16 +29,21 @@ the first ten training images.  Only the drawing sits in a ``try``, so
 that a drawing failure (matplotlib missing) is printed and never stops
 training.
 
-On a mesh over ``data``, ``model`` and ``expert`` (``--mesh-shape``,
-``--mesh-axes``; one process per device under torchrun, ``--multihost``
-joining the process group first; ``parallel/mesh.py``) the batch sizes
-must divide the data axis, the model is laid out by ``shard_params`` after
-init and after resume, and rank 0 alone logs, writes metrics, histograms
-(of the gathered weights), graph artifacts and checkpoints, which keep the
-one-device layout: sharded parameters and both moments are gathered before
-the write, and a resume on any mesh takes each rank's block of them.  A
-``pipe`` or ``seq`` axis above 1 raises ``NotImplementedError`` naming its
-ROADMAP item.
+On a mesh over ``data``, ``model``, ``expert``, ``pipe`` and ``seq``
+(``--mesh-shape``, ``--mesh-axes``; one process per device under torchrun,
+``--multihost`` joining the process group first; ``parallel/``) the batch
+sizes must divide the data axis, a ``seq`` axis cuts the token stream
+(``sequence.seq_parallel_model``) and a ``pipe`` axis pipelines the trunk
+(``pipeline.pipeline_model``, ``--pipeline-microbatches``; both batch sizes
+are checked against the microbatches up front), the two refused together
+as in JAX; the model is laid out by ``shard_params`` after init and after
+resume, and rank 0 alone logs, writes metrics, histograms (of the gathered
+weights), graph artifacts and checkpoints, which keep the one-device
+layout: sharded parameters and both moments are gathered before the write,
+and a resume on any mesh takes each rank's block of them.  The parameter
+count, the summary and the graph are the one-device model's, and the
+layer-output histograms run its forward on every rank
+(``mesh.one_device_forward``).
 
 ``--semi-supervised`` (c10 only, utils.py:404-416) trains on the
 400-per-class labeled split of ``semi_supervised_split``; with
@@ -69,8 +74,10 @@ from ..data.augment import augment_dataset, normalize
 from ..data.autoaugment import policy_for_dataset
 from ..data.datasets import load_dataset, semi_supervised_split
 from ..models import get_model
-from ..parallel.mesh import (ParamLayout, initialize_multihost, make_mesh,
-                             shard_params)
+from ..parallel.mesh import (Mesh, ParamLayout, initialize_multihost,
+                             make_mesh, one_device_forward, shard_params)
+from ..parallel.pipeline import has_pipe_axis, pipeline_model
+from ..parallel.sequence import has_seq_axis, seq_parallel_model
 from ..utils.logging import get_experiment_name, make_logger
 from ..utils.observability import (get_layer_outputs, log_histograms,
                                    model_summary, profile_trace)
@@ -80,9 +87,6 @@ from .optim import (FlatOptimizer, flatten_params, make_optimizer,
 from .state import TrainState
 from .steps import make_eval_step, make_metrics_zeros, make_train_step
 from .unsupervised import make_unsupervised_update, uses_unsupervised
-
-_PARALLEL_ITEM = ("ROADMAP queue 1, item 8b (pipeline and sequence "
-                  "parallelism)")
 
 
 def count_params(model: torch.nn.Module) -> int:
@@ -186,12 +190,14 @@ def _pad_eval(x: np.ndarray, y: np.ndarray, batch: int):
 
 
 def _check_run_supported(cfg: Config) -> None:
-    for axis, size in zip(cfg.mesh_axes, cfg.mesh_shape):
-        if axis in ("pipe", "seq") and size > 1:
-            raise NotImplementedError(
-                f"the {axis!r} axis (mesh {cfg.mesh_shape} over "
-                f"{cfg.mesh_axes}) is not ported to torch yet: "
-                f"{_PARALLEL_ITEM}")
+    sizes = dict(zip(cfg.mesh_axes, cfg.mesh_shape))
+    if sizes.get("seq", 1) > 1 and sizes.get("pipe", 1) > 1:
+        # the two split the same stack (its tokens, its depth), and the
+        # cut stream runs only on the whole trunk, as in JAX
+        raise ValueError(
+            "mesh has both 'seq' and 'pipe' axes > 1; sequence and "
+            "pipeline parallelism do not compose — pick one (plus "
+            "data/model axes).")
     if cfg.semi_supervised and cfg.dataset != "c10":
         # parity: only c10 is implemented (utils.py:404-416)
         raise NotImplementedError(
@@ -206,6 +212,25 @@ def _check_batches(cfg: Config, n_data: int) -> None:
         if b % n_data:
             raise ValueError(f"{label}={b} must divide over the data axis "
                              f"of {n_data} devices")
+
+
+def parallel_model(cfg: Config, model: torch.nn.Module,
+                   mesh: Mesh | None) -> torch.nn.Module:
+    """``model`` with the ``seq`` and ``pipe`` hooks of ``mesh``, as the
+    JAX loop clones and wraps it; both batch sizes are checked against the
+    pipeline's microbatches a data shard."""
+    if has_seq_axis(mesh):
+        model = seq_parallel_model(model, mesh)
+    if has_pipe_axis(mesh):
+        model = pipeline_model(model, mesh, cfg.pipeline_microbatches)
+        n_data, M = mesh.shape.get("data", 1), model.pipeline.microbatches
+        for label, b in (("batch_size", cfg.batch_size),
+                         ("eval_batch_size", cfg.eval_batch_size)):
+            if (b // n_data) % M:
+                raise ValueError(
+                    f"{label}={b}: per-data-shard batch {b // n_data} must "
+                    f"divide into {M} pipeline microbatches")
+    return model
 
 
 def train(cfg: Config, verbose: bool = True, stop_after: int | None = None,
@@ -312,6 +337,7 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
                                 cfg.model_summary_depth)
         logger.log_text("model_summary.txt", summary)
         _log_graph_artifacts(cfg, model, logger, experiment, train_x, device)
+    model = parallel_model(cfg, model, mesh)
     layout = shard_params(mesh, model)
     tx = make_optimizer(cfg, sched_steps, model)
     state = init_state(cfg, model, tx)
@@ -448,7 +474,8 @@ def _train(cfg: Config, verbose: bool, stop_after: int | None,
             try:
                 # every rank runs the probe: a sharded forward's
                 # collectives need all of them
-                outs = get_layer_outputs(model, probe_img)
+                with one_device_forward(model):
+                    outs = get_layer_outputs(model, probe_img)
                 if lead:
                     log_histograms(logger, outs, "layer_outputs", epoch,
                                    epoch)

@@ -56,7 +56,15 @@ batch, and the crop, flip and AutoAugment draws are made per global row);
 the flat gradient, with the loss and accuracy appended, takes one mean
 over the data axis; the guard's verdict is taken over every rank, since
 model and expert ranks hold different shards; the eval step evaluates the
-rank's rows and sums the masked sums over the data axis.
+rank's rows and sums the masked sums over the data axis.  Where the model
+splits each example's work over a ``pipe`` or ``seq`` axis
+(``mesh.trunk_split``: the pipelined training route, or the cut token
+stream), each rank's part of the flat gradient is first summed over that
+axis, with the head, the loss and the accuracy, which every rank of it
+computes whole, counted once; on the pipe axis's sequential route (a
+model with state or AE intermediates) every rank computes the whole
+gradient and nothing is summed over ``pipe``.  The eval step's forward is
+pipelined or cut alike, and its logits are whole on every rank.
 """
 
 from __future__ import annotations
@@ -71,7 +79,7 @@ from ..data.autoaugment import autoaugment_batch, policy_for_dataset
 from ..ops.moe import collect_moe_aux
 from ..ops.nnmf.layers import (nnmf_after_care, nnmf_slices,
                                nnmf_weight_trainable)
-from ..parallel.mesh import Mesh
+from ..parallel.mesh import Mesh, trunk_split
 from .losses import make_criterion, make_per_example_loss
 from .optim import FlatOptimizer, frozen_mask
 from .state import TrainState
@@ -121,6 +129,7 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
     unsupervised = uses_unsupervised(cfg)
     data = None if mesh is None else mesh.axis("data")
     world = None if mesh is None else mesh.world
+    split = trunk_split(model)
     run_ae_steps = (make_unsupervised_update(cfg, model, data)[1]
                     if unsupervised else None)
     frozen = frozen_mask(cfg, model)
@@ -183,6 +192,9 @@ def make_train_step(cfg: Config, model, tx: FlatOptimizer,
                               .reshape(-1) for p, g in zip(params, grads)]
                              + [loss.detach()[None], acc[None]])
             del grads
+            if split is not None:  # each rank's part, the head's once
+                axis, keep = split
+                flat = axis.all_reduce_(torch.where(keep, flat, 0.0))
             if data is not None:  # GSPMD's psum of the gradient
                 data.all_reduce_(flat).div_(data.size)
         return (flat[:-2], flat[-2].clone(), flat[-1].clone(),
