@@ -47,14 +47,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    128-column chunks), in f32 and bf16; times each kernel and its plain
    version at the pixel shape, and ``F.scaled_dot_product_attention`` as
    the library's yardstick (timed only; the port never calls it).  Then
-   the ragged-edge phase: the bf16 (tensor-core, ``mma.sync``) instances
-   of both forwards, with and without lse, and of the tiled dq and dk/dv
-   kernels against their plain versions at (2, 3, T, D) for 13 T from 1
-   to 129 and D in 16, 24, 32, 64, 128, 129, 136, 192, 256, 384.  Then
-   times the whole-head forwards and the fused Function against their
-   tiled counterparts at (128, 12, T, 32) bf16 for T = 65, 257 and 685, and
-   the tiled kernels beside the library's calls at (128, 8, 512, D) and
-   (16, 2, 2048, D) for D = 128, 192, 256.
+   the ragged-edge phase: the bf16 instances of both forwards (wgmma with
+   TMA), with and without lse, on contiguous inputs and on the model's
+   strided views, and of the tiled dq and dk/dv kernels (mma.sync)
+   against their plain versions at (2, 3, T, D) for 13 T from 1 to 129
+   and D in 16, 24, 32, 64, 128, 129, 136, 192, 256, 384.  Then each bf16
+   forward against its library call (SDPA, or the flash forward with lse)
+   on the model's views, in turns, at (128, 12, 65, 32) (device time),
+   (128, 12, 1025, 32), (128, 8, 512, D) and (16, 2, 2048, D) for D = 128,
+   192, 256, each beside its bound, and the host microseconds a forward
+   call costs.  Then times the whole-head forwards and the fused Function
+   against their tiled counterparts at (128, 12, T, 32) bf16 for T = 65,
+   257 and 685, and the tiled kernels beside the library's calls at
+   (128, 8, 512, D) and (16, 2, 2048, D) for D = 128, 192, 256.
 5. Pixel serving phase: the same serving path for the README recipe model
    at ``patch=32`` (one pixel a token, T=1025, 6,620,170 params); each
    request must launch the tiled forward 7 times and no whole-head kernel,
@@ -192,9 +197,12 @@ the residuals, the work of the dq + dk/dv kernel pair).
 
 Every kernel is held against its plain version, and the counts of launches
 of each path are set to 0 just before it and read just after.  Each kernel
-row names its design: the bf16 instances run on the tensor cores
-("mma.sync bf16"); every f32 instance keeps the CUDA-core design, since the
-tensor cores would take f32 only as TF32.  The bound
+row names its design: the forwards' bf16 instances run wgmma on tiles that
+TMA brings ("wgmma+TMA", with ptxas's registers and spills of the instance
+at the row's shape; the build fails where ptxas serialised their wgmmas),
+the backward pair's mma.sync ("mma.sync bf16"); every f32
+instance keeps the CUDA-core design, since the tensor cores would take
+f32 only as TF32.  The bound
 of a kernel (``bound_ms``) is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations: its products
 over the bf16 tensor-core peak (989 TFLOP/s) and its exps over the
@@ -247,9 +255,8 @@ from vit_cifar_torch.ops.attention import MultiHeadSelfAttention
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS, registry
 from vit_cifar_torch.ops.cuda.attention import (
     fused_attention, fused_attention_lse, fused_attention_lse_reference,
-    fused_attention_reference, key_tiled_smem_bytes, whole_head_fits)
+    fused_attention_reference)
 from vit_cifar_torch.ops.cuda.build import build_libraries, library_path
-from vit_cifar_torch.ops.cuda.common import library as kernel_library
 from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention, flash_attention_lse, flash_attention_lse_reference,
     flash_attention_reference, flash_tiled_bwd_dkv,
@@ -488,8 +495,6 @@ KEY_TILED_SHAPES = [((1, 1, 1025, 32), (torch.float32, torch.bfloat16)),
                     ((2, 3, 793, 64), (torch.float32, torch.bfloat16)),
                     ((2, 2, 143, 384), (torch.float32, torch.bfloat16)),
                     (PIXEL_SHAPE, (torch.bfloat16,))]
-KEY_TILED_SMEM = ((1025, 32), (793, 64), (216, 128), (300, 192), (143, 384),
-                  (4096, 128))
 # the "fused" module at T=1025: (B, T, features, heads), head_dim 32, f32
 KEY_TILED_MODULE = (2, 1025, 64, 2)
 # the int8 artifact: JAX's bounds (tests/test_deploy.py), the bytes under
@@ -510,10 +515,36 @@ def ragged_bwd_floor(D: int) -> float:
     return RAGGED_BWD_ATOL_FLOOR * max(1.0, D / 128)
 # how each kernel row's bf16 instance computes (every f32 instance runs on
 # the CUDA cores: the tensor cores would need TF32)
-DESIGN = {"mhsa_fwd": "mma.sync bf16", "mhsa_fwd_lse": "mma.sync bf16",
-          "flash_fwd": "mma.sync bf16", "flash_fwd_lse": "mma.sync bf16",
+DESIGN = {"mhsa_fwd": "wgmma+TMA (PR 15)",
+          "mhsa_fwd_lse": "wgmma+TMA (PR 15)",
+          "flash_fwd": "wgmma+TMA (PR 15)",
+          "flash_fwd_lse": "wgmma+TMA (PR 15)",
           "flash_bwd_dq_tiled": "mma.sync bf16",
           "flash_bwd_dkv_tiled": "mma.sync bf16"}
+# each forward row's main shape, whose wgmma instance's ptxas report the
+# row carries
+FORWARD_MAIN_SHAPE = {"mhsa_fwd": (128, 12, 65, 32),
+                      "mhsa_fwd_lse": (128, 12, 65, 32),
+                      "flash_fwd": PIXEL_SHAPE, "flash_fwd_lse": PIXEL_SHAPE}
+# each forward against its library call, in turns: the flagship's and the
+# pixel ViT's shapes, and head dims 128, 192 and 256 (HEAD_DIM_SHAPES)
+FORWARD_TIMING_SHAPES = [(128, 12, 65, 32), PIXEL_SHAPE, *HEAD_DIM_SHAPES]
+# the bf16 forwards past 256 columns (the mma.sync column-chunk kernel):
+# their cost against SDPA, for the open item of ROADMAP's queue 2
+CHUNK_TIMING_SHAPE = (128, 8, 512, 320)
+# a fully masked first key tile (the last one: tiles are taken last to
+# first), with finite keys before it, at the 128-, 96-, 64- and 32-key
+# tiles of head dims 32, 64, 192 and 256
+MASKED_TILE_SHAPES = ((2, 2, 256, 32), (2, 2, 193, 64), (2, 2, 300, 192),
+                      (2, 2, 300, 256))
+# calls a window of the host's cost of one forward call
+HOST_CALLS = 200
+# ptxas's note that it serialised a kernel's wgmmas (C7510-C7520): the
+# forwards' products must run asynchronously
+SERIALISED = re.compile(r"\((C75[12]\d)\) Potential Performance Loss: "
+                        r"wgmma\.mma_async instructions are serialized")
+PTXAS = {}  # library -> instance -> "N registers, ... spill ..."
+STEP_KERNELS = {}  # path -> kernels a step (torch.profiler)
 # the bf16 max_abs_err of the first, CUDA-core designs at the main shapes
 # (PERF.md): the forwards' from their own chip runs (they matched the plain
 # version's rounding exactly at T=65 and were one bf16 step off at
@@ -561,7 +592,9 @@ def host_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def build_kernels() -> None:
-    """Build every kernel library at once and print ptxas's report."""
+    """Build every kernel library at once, print ptxas's report of each
+    kernel instance (kept in ``PTXAS``), and fail where ptxas serialised a
+    forward's wgmmas."""
     t0 = time.perf_counter()
     build_libraries(KERNELS)
     print(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s "
@@ -570,17 +603,39 @@ def build_kernels() -> None:
         log = library_path(name).with_suffix(".log")
         print(f"  {os.path.relpath(library_path(name), ROOT)}")
         instance = spills = ""
+        report = PTXAS.setdefault(name, {})
         for line in log.read_text().splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
-            if entry:  # ...19flash_fwd_mma_kernelILi32EEEv... -> <Li32>
+            serial = SERIALISED.search(line)
+            if serial:
+                raise AssertionError(f"{name}: ptxas serialised wgmmas "
+                                     f"({serial.group(1)}): {line.strip()}")
+            if entry:  # ...fwd_kernelILi32ELi128ELi2ELb1EEEv... -> <32,128,2,1>
                 m = re.search(r"([a-z_]+_kernel)I(\w+?)EE", entry.group(1))
-                instance = f"{m.group(1)}<{m.group(2)}>" if m \
-                    else entry.group(1)
+                args = m and (re.findall(r"L[ib](\d+)E", m.group(2) + "E")
+                              or [m.group(2)])
+                instance = (f"{m.group(1)}<{','.join(args)}>" if m
+                            else entry.group(1))
             elif "spill" in line:
                 spills = line.strip()
             elif "registers" in line:
-                print(f"    ptxas: {instance}: "
-                      f"{line.split(':', 1)[1].strip()}; {spills}")
+                regs = line.split(":", 1)[1].strip()
+                report[instance] = f"{regs.split(',')[0]}; {spills}"
+                print(f"    ptxas: {instance}: {regs}; {spills}")
+
+
+def forward_ptxas(name: str) -> str:
+    """ptxas's registers and spills of the bf16 wgmma instance that forward
+    row ``name`` runs at its main shape (``forward_plan`` names it, from the
+    table of instances the CUDA dispatch expands)."""
+    from vit_cifar_torch.ops.cuda.common import forward_plan
+
+    lib = SOURCES[name]
+    T, D = FORWARD_MAIN_SHAPE[name][2:]
+    plan = forward_plan(lib, T, D)
+    instance = (f"fwd_kernel<{plan['width']},{plan['rows']['k']},2,"
+                f"{int(plan['pingpong'])}>")
+    return f"{instance}: {PTXAS[lib][instance]}"
 
 
 def in_turns(fns: dict, rounds: int = 3, iters: int = 100) -> dict:
@@ -1068,8 +1123,9 @@ def training_phase(card: str) -> dict:
         raise AssertionError(f"val_acc {val_acc} under {MIN_VAL_ACC}")
 
     # device busy share and top device ops over 20 more steps
-    profile_steps(lambda i: train_step(state, x_train, y_train, perm, i), 20,
-                  "train_trace.json", step_ms, card)
+    STEP_KERNELS["flagship"] = profile_steps(
+        lambda i: train_step(state, x_train, y_train, perm, i), 20,
+        "train_trace.json", step_ms, card)["kernels"]
     return launches, step_ms
 
 
@@ -1352,9 +1408,9 @@ def flash_kernel_phase(card: str) -> list[dict]:
 
 
 def print_against_earlier(name: str, err: float) -> None:
-    print(f"{name} bf16 at its main shape: max_abs_err {err:.3e} (mma.sync "
-          f"design) against {EARLIER_MAX_ABS_ERR[name]:.3e} (the CUDA-core "
-          "design's, PERF.md)")
+    print(f"{name} bf16 at its main shape: max_abs_err {err:.3e} "
+          f"({DESIGN[name]}) against {EARLIER_MAX_ABS_ERR[name]:.3e} (the "
+          "CUDA-core design's, PERF.md)")
 
 
 def ragged_edge_phase() -> None:
@@ -1379,12 +1435,24 @@ def ragged_edge_phase() -> None:
             args = (q, k, v, flash[0], g, flash[1], scale)
             bwd = (flash_tiled_bwd_dq_reference(*args),
                    *flash_tiled_bwd_dkv_reference(*args))
+            # the same values in the model's layout: (B, H, T, D) views of
+            # (B, T, H, D) tensors, which the forwards read in place
+            qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                          for t in (q, k, v))
             # name: (the kernel's outputs, its plain version's)
             checks = {
                 "mhsa_fwd": ((fused_attention(q, k, v, scale),), mhsa[:1]),
                 "mhsa_fwd_lse": (fused_attention_lse(q, k, v, scale), mhsa),
                 "flash_fwd": ((flash_attention(q, k, v, scale),), flash[:1]),
                 "flash_fwd_lse": (flash_attention_lse(q, k, v, scale), flash),
+                "mhsa_fwd strided": ((fused_attention(qs, ks, vs, scale),),
+                                     mhsa[:1]),
+                "mhsa_fwd_lse strided": (fused_attention_lse(qs, ks, vs,
+                                                             scale), mhsa),
+                "flash_fwd strided": ((flash_attention(qs, ks, vs, scale),),
+                                      flash[:1]),
+                "flash_fwd_lse strided": (flash_attention_lse(qs, ks, vs,
+                                                              scale), flash),
                 "flash_bwd_dq_tiled": ((flash_tiled_bwd_dq(*args),), bwd[:1]),
                 "flash_bwd_dkv_tiled": (flash_tiled_bwd_dkv(*args), bwd[1:]),
             }
@@ -1405,12 +1473,161 @@ def ragged_edge_phase() -> None:
                         msg=lambda m: f"{name} T={T} D={D}: {m}")
                 worst[name] = max(worst.get(name, 0.0), _max_err(outs, wants))
     print(f"ragged edges: {len(RAGGED_T) * len(RAGGED_D)} shapes ({B}, {H}, "
-          f"T, D), T in {RAGGED_T}, D in {RAGGED_D}, bf16: every redesigned "
+          f"T, D), T in {RAGGED_T}, D in {RAGGED_D}, bf16, the forwards also "
+          "on strided views: every "
           "instance within its limits (mhsa_* rtol=atol=1e-2, flash_* 1% of "
           f"max |out| or max |grad| (at least {RAGGED_BWD_ATOL_FLOOR} per 128 "
           "columns), lse "
           "1e-5); worst max_abs_err "
           + ", ".join(f"{n} {e:.3e}" for n, e in worst.items()))
+    masked_tile_check()
+
+
+def masked_tile_check() -> None:
+    """Both bf16 forwards with lse where the key tile the kernel takes
+    first has logits that all overflow to -inf (q = 1e20, k = -1e20) and
+    the tiles before it finite keys: the running max stays at -inf through
+    that tile without a NaN, and out and lse equal the plain version's."""
+    from vit_cifar_torch.ops.cuda.common import forward_plan
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for shape in MASKED_TILE_SHAPES:
+        B, H, T, D = shape
+        q = torch.full(shape, 1e20, device="cuda").to(torch.bfloat16)
+        k = (torch.randn(shape, generator=gen, device="cuda")
+             * 1e-20).to(torch.bfloat16)
+        v = torch.randn(shape, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        for name, fwd_lse, plain in (
+                ("mhsa_fwd", fused_attention_lse,
+                 fused_attention_lse_reference),
+                ("flash_fwd", flash_attention_lse,
+                 flash_attention_lse_reference)):
+            keys = forward_plan(name, T, D)["rows"]["k"]
+            first = (T - 1) // keys * keys
+            assert first > 0, (name, shape)
+            km = k.clone()
+            km[:, :, first:] = -1e20
+            out, lse = fwd_lse(q, km, v, 0.1)
+            want_out, want_lse = plain(q, km, v, 0.1)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(out.float()).all()
+                    and torch.isfinite(lse).all()):
+                raise AssertionError(f"{name} {shape}: a NaN or inf after "
+                                     "a fully masked key tile")
+            torch.testing.assert_close(out, want_out,
+                                       **KERNEL_TOL[torch.bfloat16])
+            torch.testing.assert_close(lse, want_lse,
+                                       **KERNEL_TOL[torch.float32])
+    print(f"fully masked first key tile: mhsa_fwd_lse and flash_fwd_lse at "
+          f"{MASKED_TILE_SHAPES} finite and within their limits (bf16 "
+          "rtol=atol=1e-2, lse 1e-5)")
+
+
+def model_views(shape, gen) -> list:
+    """q, k, v in bf16 as the model makes them: (B, T, H*D) projections
+    viewed as (B, H, T, D)."""
+    B, H, T, D = shape
+    return [torch.randn((B, T, H * D), generator=gen, device="cuda")
+            .to(torch.bfloat16).view(B, T, H, D).transpose(1, 2)
+            for _ in range(3)]
+
+
+def host_us(fn, n: int = HOST_CALLS) -> float:
+    """Median host microseconds of one call of ``fn`` (which only
+    enqueues work), over ``n`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def forward_timing_phase(card: str) -> None:
+    """Each bf16 forward against its library call on the same inputs (the
+    model's transposed views) at ``FORWARD_TIMING_SHAPES``: SDPA for the
+    inference forwards, ``aten._scaled_dot_product_flash_attention`` for
+    the forwards with lse; in turns (kernel, library, library, kernel) by
+    CUDA events, and by device time (torch.profiler) at T=65, where an
+    event window follows the host.  Then the host microseconds a forward
+    call costs at the flagship's shape, beside the three q, k, v copies
+    the forward made before it read the views in place.  Past 256 columns
+    (``CHUNK_TIMING_SHAPE``) the column-chunk forwards against SDPA."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    aten = torch.ops.aten
+    for shape in FORWARD_TIMING_SHAPES:
+        B, H, T, D = shape
+        scale = 1.0 / math.sqrt(H * D)
+        q, k, v = model_views(shape, gen)
+        library = {
+            "fwd": lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          scale=scale),
+            "fwd_lse": lambda: aten._scaled_dot_product_flash_attention(
+                q, k, v, scale=scale)[:2]}
+        kernels = {"mhsa_fwd": lambda: fused_attention(q, k, v, scale),
+                   "mhsa_fwd_lse": lambda: fused_attention_lse(q, k, v,
+                                                               scale),
+                   "flash_fwd": lambda: flash_attention(q, k, v, scale),
+                   "flash_fwd_lse": lambda: flash_attention_lse(q, k, v,
+                                                                scale)}
+        for name, kernel in kernels.items():
+            lib = library[KERNEL_WORK[name]]
+            if T <= 65:
+                ms = {"kernel": device_ms(kernel)[0],
+                      "library": device_ms(lib)[0]}
+                how = "device ms, torch.profiler"
+            else:
+                iters = max(3, min(50, round(20 / (B * H * T * T / 1e9))))
+                ms = in_turns({"kernel": kernel, "library": lib}, rounds=2,
+                              iters=iters)
+                how = f"median of 4 event windows of {iters}"
+            b = bound(name, shape)
+            ratio = (f"{ms['kernel'] / ms['library']:.3f}x the library"
+                     if None not in ms.values() else "ratio not measured")
+            print(f"forward {name} {shape} bf16: kernel "
+                  f"{ms_text(ms['kernel'])}, library "
+                  f"{ms_text(ms['library'])} ({ratio}; {how}); bound "
+                  f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({card})")
+        del q, k, v, library, kernels
+        torch.cuda.empty_cache()
+
+    # past 256 columns: the mma.sync column-chunk kernel, each 128-column
+    # chunk of o recomputing the softmax
+    shape = CHUNK_TIMING_SHAPE
+    scale = 1.0 / math.sqrt(shape[1] * shape[3])
+    q, k, v = model_views(shape, gen)
+    for name, kernel in (("flash_fwd", flash_attention),
+                         ("mhsa_fwd", fused_attention)):
+        ms = in_turns({"kernel": lambda: kernel(q, k, v, scale),
+                       "library": lambda: F.scaled_dot_product_attention(
+                           q, k, v, scale=scale)}, rounds=2, iters=10)
+        b = bound(name, shape)
+        print(f"forward {name} {shape} bf16 (column chunks, mma.sync): "
+              f"kernel {ms['kernel']:.4f} ms, SDPA {ms['library']:.4f} ms "
+              f"({ms['kernel'] / ms['library']:.3f}x the library; median of "
+              f"4 event windows of 10); bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} ({card})")
+    del q, k, v
+
+    from vit_cifar_torch.ops.cuda.common import readable
+
+    q, k, v = model_views((128, 12, 65, 32), gen)
+    calls = {"fused_attention": lambda: fused_attention(q, k, v, 0.05),
+             "fused_attention_lse": lambda: fused_attention_lse(q, k, v,
+                                                                0.05),
+             "flash_attention": lambda: flash_attention(q, k, v, 0.05),
+             "of it the views' plan (readable)":
+                 lambda: readable(q, k, v),
+             "the three copies of q, k, v the forward made before":
+                 lambda: [t.contiguous() for t in (q, k, v)]}
+    print("host microseconds a call at (128, 12, 65, 32) bf16 on the "
+          f"model's views (median of {HOST_CALLS}): "
+          + "; ".join(f"{n} {host_us(fn):.1f}" for n, fn in calls.items())
+          + f" ({card})")
 
 
 def tiled_vs_whole_head(card: str) -> None:
@@ -1749,8 +1966,9 @@ def pixel_training_phase(card: str) -> dict:
     if not (math.isfinite(val_loss) and math.isfinite(val_acc)):
         raise AssertionError(f"val_loss {val_loss}, val_acc {val_acc}")
 
-    profile_steps(lambda i: train_step(state, x_train, y_train, perm, i), 5,
-                  "pixel_train_trace.json", step_ms, card)
+    STEP_KERNELS["pixel"] = profile_steps(
+        lambda i: train_step(state, x_train, y_train, perm, i), 5,
+        "pixel_train_trace.json", step_ms, card)["kernels"]
     return launches
 
 
@@ -2924,22 +3142,12 @@ def int8_phase(card: str) -> dict:
 
 def fused_key_tiled_phase(card: str) -> dict:
     """``pallas_kernel="fused"`` past the whole head, where the whole-head
-    forward walks K and V in key tiles: its shared memory against
-    ``key_tiled_smem_bytes``; ``mhsa_fwd`` and ``mhsa_fwd_lse`` against
+    forward walks K and V in key tiles: ``mhsa_fwd`` and ``mhsa_fwd_lse`` against
     their plain versions at ``KEY_TILED_SHAPES``; the module at T=1025
     (forward and backward against the einsum module), which must launch
     the whole-head kernels and no tiled forward; and the key-tiled mode's
     time beside the tiled kernels' at the pixel shape."""
     t0 = time.perf_counter()
-    lib = kernel_library("mhsa_fwd")
-    for T, D in KEY_TILED_SMEM:
-        got = lib.mhsa_fwd_key_tiled_smem_bytes(T, D)
-        if whole_head_fits(T, D) or got != key_tiled_smem_bytes(D):
-            raise AssertionError(f"key-tiled shared memory at {(T, D)}: "
-                                 f"{got} vs {key_tiled_smem_bytes(D)}")
-    print(f"key-tiled shared memory: the library's equals "
-          f"key_tiled_smem_bytes at {KEY_TILED_SMEM} "
-          f"({key_tiled_smem_bytes(32)} bytes at head_dim 32)")
     gen = torch.Generator(device="cuda").manual_seed(5)
     for shape, dtypes in KEY_TILED_SHAPES:
         B, H, T, D = shape
@@ -3347,7 +3555,11 @@ def main() -> None:
     fwd_row, library = kernel_phase(card)
     rows = [fwd_row, *training_kernel_phase(card, library),
             *flash_kernel_phase(card)]
+    for row in rows:
+        if row["name"] in FORWARD_MAIN_SHAPE:
+            row["ptxas"] = forward_ptxas(row["name"])
     ragged_edge_phase()
+    forward_timing_phase(card)
     tiled_vs_whole_head(card)
     head_dim_timing(card)
     # each path's launches, counted from zero just before it
@@ -3370,6 +3582,9 @@ def main() -> None:
         row["launches"] = sum(p.get(row["name"], 0) for p in paths)
         if row["launches"] < 1:
             raise AssertionError(f"the main path never launched {row['name']}")
+    print("kernels a step (torch.profiler): " + ", ".join(
+        f"{path} " + ("not measured" if n is None else f"{n:.1f}")
+        for path, n in STEP_KERNELS.items()))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} "
           "s")
     print(json.dumps({"kernels": rows}))

@@ -17,7 +17,11 @@ import torch
 
 from vit_cifar_torch.ops.attention import MultiHeadSelfAttention
 from vit_cifar_torch.ops.cuda.attention import (fused_attention,
+                                                fused_attention_lse,
                                                 fused_attention_reference)
+from vit_cifar_torch.ops.cuda.common import padded_copy, readable, tma_plan
+from vit_cifar_torch.ops.cuda.flash_attention import (flash_attention,
+                                                      flash_attention_lse)
 from vit_cifar_torch.utils.transplant import state_dict_from_flax
 from vit_cifar_tpu.ops.attention import \
     MultiHeadSelfAttention as JaxMultiHeadSelfAttention
@@ -137,3 +141,98 @@ def test_fused_attention_refuses_what_the_kernel_does_not_take(bad):
         q, k, v = (a.to("meta") for a in (q, k, v))
     with pytest.raises(ValueError):
         fused_attention(q, k, v, 0.1)
+
+
+def _projection_views(B, T, H, D, dtype=torch.bfloat16, extra=0, offset=0,
+                      seed=0):
+    """q, k, v as ``MultiHeadSelfAttention`` makes them: each (B, T, H*D)
+    projection (rows ``extra`` elements wider, the first ``offset``
+    elements of its storage skipped) viewed as (B, T, H, D) and transposed
+    to (B, H, T, D)."""
+    F_ = H * D + extra
+    rng = np.random.default_rng(seed)
+    views = []
+    for _ in range(3):
+        flat = torch.from_numpy(rng.normal(
+            size=offset + B * T * F_).astype(np.float32)).to(dtype)
+        x = flat[offset:].view(B, T, F_)[..., :H * D]
+        views.append(x.view(B, T, H, D).transpose(1, 2))
+    return views
+
+
+# (name, view arguments, the copies the plan makes): the model's own views
+# at the flagship's and the pixel ViT's shapes and at head_dim 192, a head
+# of D % 8 != 0 (no row stride can be a multiple of 8), rows whose stride
+# (the projection's width) is not a multiple of 8 though D is, an
+# unaligned base, and a d stride other than 1
+PLAN_CASES = [
+    ("flagship", dict(B=2, T=65, H=12, D=32), ""),
+    ("pixel", dict(B=2, T=1025, H=12, D=32), ""),
+    ("head_dim_192", dict(B=2, T=257, H=2, D=192), ""),
+    ("d_100", dict(B=2, T=65, H=3, D=100), "qkv"),
+    ("row_stride_4", dict(B=2, T=65, H=3, D=32, extra=4), "qkv"),
+    ("unaligned_base", dict(B=2, T=65, H=3, D=32, offset=1), "qkv"),
+]
+
+
+@pytest.mark.parametrize("name", ["mhsa_fwd", "flash_fwd"])
+@pytest.mark.parametrize("case,kw,copies", PLAN_CASES,
+                         ids=[c[0] for c in PLAN_CASES])
+def test_tma_plan_of_the_models_views(case, kw, copies, name):
+    """The tensor maps of the bf16 forwards over (D, H, T, B): extents,
+    strides in bytes (the views' own where TMA can read them in place),
+    box and swizzle; and the layouts sent through the padded copy, whose
+    view the plan then reads in place."""
+    q, k, v = _projection_views(**kw)
+    B, H, T, D = q.shape
+    plan = tma_plan(name, q, k, v)
+    assert "".join(plan["copies"]) == copies
+    width = 32 if D <= 32 else -(-D // 64) * 64
+    whole = name == "mhsa_fwd" and T <= {32: 128, 64: 96, 128: 64}.get(
+        width, 0)
+    keys = {65: 72}[T] if whole else {32: 128, 64: 96}.get(width, 64)
+    for key, t in zip("qkv", (q, k, v)):
+        tmap = plan["maps"][key]
+        assert tmap["extents"] == (D, H, T, B)
+        if not copies:
+            assert tmap["strides"] == (2 * D, 2 * (H * D), 2 * T * H * D)
+            assert tmap["strides"] == tuple(2 * s for s in (
+                t.stride(1), t.stride(2), t.stride(0)))
+        else:
+            Dp = -(-D // 8) * 8
+            assert tmap["strides"] == (2 * T * Dp, 2 * Dp, 2 * H * T * Dp)
+        assert all(s % 16 == 0 for s in tmap["strides"])
+        rows = {"q": 128, "k": keys, "v": -(-keys // 16) * 16}[key]
+        assert tmap["box"] == (32 if width == 32 else 64, 1, rows, 1)
+        assert tmap["swizzle"] == (64 if width == 32 else 128)
+    copied = readable(q, k, v)
+    for key, got, t in zip("qkv", copied, (q, k, v)):
+        assert torch.equal(got, t)
+        assert (got.data_ptr() == t.data_ptr()) == (key not in copies)
+    assert tma_plan(name, *copied)["copies"] == []
+
+
+def test_tma_plan_copies_a_d_stride_other_than_1_and_passes_wide_heads():
+    q, k, v = _projection_views(B=2, T=9, H=2, D=32)
+    qt = q.transpose(-1, -2).contiguous().transpose(-1, -2)  # d stride T
+    assert tma_plan("flash_fwd", qt, k, v)["copies"] == ["q"]
+    assert padded_copy(qt).stride(-1) == 1
+    wide = _projection_views(B=1, T=9, H=1, D=384)
+    plan = tma_plan("mhsa_fwd", *wide)
+    assert plan["plan"] is None and plan["maps"] == {}
+    assert plan["copies"] == []
+
+
+@pytest.mark.parametrize("wrapper", [fused_attention, fused_attention_lse,
+                                     flash_attention, flash_attention_lse],
+                         ids=lambda w: w.__name__)
+def test_wrappers_take_strided_views_on_the_cpu(wrapper):
+    """On the CPU each wrapper (its plain version) gives from the model's
+    transposed views what it gives from contiguous copies of them, bit for
+    bit, and its outputs are contiguous as the kernel writes them."""
+    q, k, v = _projection_views(B=2, T=33, H=3, D=16, dtype=torch.float32)
+    got = wrapper(q, k, v, 0.1)
+    want = wrapper(*(t.contiguous() for t in (q, k, v)), 0.1)
+    for g, w in zip(*(x if isinstance(x, tuple) else (x,)
+                      for x in (got, want))):
+        assert torch.equal(g, w) and g.is_contiguous()

@@ -39,8 +39,7 @@ from vit_cifar_torch.ops.attention import MultiHeadSelfAttention
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.ops.cuda.attention import (
     fused_attention, fused_attention_lse, fused_attention_lse_reference,
-    fused_attention_reference, key_tiled_smem_bytes, whole_head_fits,
-    whole_head_smem_bytes)
+    fused_attention_reference, whole_head_fits, whole_head_smem_bytes)
 from vit_cifar_torch.ops.cuda.common import library
 from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention, flash_attention_lse, flash_attention_lse_reference,
@@ -170,12 +169,18 @@ def test_function_grads_match_autograd_of_plain_forward(cuda, shape, dtype):
 
 
 def test_kernel_refuses_shapes_over_shared_memory(cuda):
+    """Past the whole head's shared memory the forward no longer refuses
+    (since the walk over key tiles, as JAX's ``fused_attention`` runs at
+    any T): both variants run there and match the plain version."""
     for shape in ((1, 1, 2048, 64), (1, 1, 280, 192)):
-        q = torch.zeros(shape, device=cuda)
-        with pytest.raises(ValueError, match="shared memory"):
-            fused_attention(q, q, q, 0.1)
-        with pytest.raises(ValueError, match="shared memory"):
-            fused_attention_lse(q, q, q, 0.1)
+        assert not whole_head_fits(*shape[2:])
+        q, k, v, _, scale = _inputs(cuda, shape, torch.float32, seed=3)
+        want_out, want_lse = fused_attention_lse_reference(q, k, v, scale)
+        torch.testing.assert_close(fused_attention(q, k, v, scale), want_out,
+                                   **TOL[torch.float32])
+        out, lse = fused_attention_lse(q, k, v, scale)
+        torch.testing.assert_close(out, want_out, **TOL[torch.float32])
+        torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
 
 
 def test_vit_training_step_launches_each_kernel_once_per_layer(cuda):
@@ -329,6 +334,108 @@ def test_bf16_flash_backward_matches_plain_versions_at_ragged_edges(cuda, T):
                 a, w, **tol, msg=lambda m: f"{name} T={T} D={D}: {m}")
 
 
+# the bf16 wgmma forwards (csrc/wgmma_attention.cuh) on the model's
+# strided views: odd and ragged T (ends of the whole-head tiles of 16 to
+# 128 keys and of the tiled grid's 32- to 128-key tiles and 128-row query
+# tiles), and D below 128, past it up to 256 (one pass), D % 8 != 0 (the
+# padded copy) and past 256 (the column-chunk kernel)
+WGMMA_T = (1, 9, 65, 72, 73, 97, 129, 257, 1025)
+WGMMA_D = (8, 32, 64, 100, 128, 192, 256, 320)
+FORWARDS = {"mhsa": (fused_attention, fused_attention_lse,
+                     fused_attention_lse_reference),
+            "flash": (flash_attention, flash_attention_lse,
+                      flash_attention_lse_reference)}
+
+
+def _model_views(shape, seed, scale_q=1.0):
+    """q, k, v in bf16 as the model makes them: (B, T, H*D) projections
+    viewed as (B, H, T, D)."""
+    B, H, T, D = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [(torch.randn((B, T, H * D), generator=g, device="cuda") * s)
+            .to(torch.bfloat16).view(B, T, H, D).transpose(1, 2)
+            for s in (scale_q, 1.0, 1.0)]
+
+
+@pytest.mark.parametrize("kernel", ["mhsa", "flash"])
+@pytest.mark.parametrize("T", WGMMA_T)
+def test_bf16_forwards_match_plain_versions_on_the_models_views(cuda, T,
+                                                                kernel):
+    """Both bf16 forwards, with and without lse, read the model's
+    transposed views in place and match their plain version."""
+    fwd, fwd_lse, plain = FORWARDS[kernel]
+    for D in WGMMA_D:
+        q, k, v = _model_views((2, 3, T, D), seed=T + D)
+        scale = 1.0 / math.sqrt(3 * D)
+        got = fwd(q, k, v, scale)
+        out, lse = fwd_lse(q, k, v, scale)
+        torch.cuda.synchronize()
+        want_out, want_lse = plain(q, k, v, scale)
+        tol = flash_tol(TOL, torch.bfloat16, want_out)
+        torch.testing.assert_close(got, want_out, **tol,
+                                   msg=lambda m: f"D={D}: {m}")
+        torch.testing.assert_close(out, want_out, **tol,
+                                   msg=lambda m: f"D={D}: {m}")
+        torch.testing.assert_close(lse, want_lse, **TOL[torch.float32],
+                                   msg=lambda m: f"D={D}: {m}")
+
+
+@pytest.mark.parametrize("kernel", ["mhsa", "flash"])
+def test_bf16_forwards_read_the_views_in_place(cuda, kernel, monkeypatch):
+    """Where TMA's rules hold (D % 8 == 0), no copy of q, k or v is made;
+    where they do not (D=100), the stated padded copy is, and the result
+    is the same."""
+    from vit_cifar_torch.ops.cuda import common
+
+    copies = []
+    real = common.padded_copy
+    monkeypatch.setattr(common, "padded_copy",
+                        lambda t, meta=False: copies.append(meta)
+                        or real(t, meta))
+    fwd, _, plain = FORWARDS[kernel]
+    for D, want_copies in ((32, 0), (100, 3)):
+        q, k, v = _model_views((2, 3, 65, D), seed=D)
+        copies.clear()
+        got = fwd(q, k, v, 0.1)
+        torch.cuda.synchronize()
+        assert copies.count(False) == want_copies, (D, copies)
+        torch.testing.assert_close(got, plain(q, k, v, 0.1)[0],
+                                   **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("kernel", ["mhsa", "flash"])
+@pytest.mark.parametrize("T,D", [(256, 32), (200, 32), (193, 64), (300, 128),
+                                 (300, 192), (300, 256), (65, 32)])
+def test_bf16_forwards_guard_a_fully_masked_key_tile(cuda, T, D, kernel):
+    """The key tile the kernel takes first (the last one: tiles are taken
+    last to first) has logits that all overflow to -inf (every q.k there
+    is -1e40), with finite keys in the tiles before it: the running max
+    stays at -inf through that tile without a NaN, and the rows equal the
+    plain version's softmax over the other keys.  At T=65 the whole head
+    is one tile (``mhsa_fwd``'s whole-head grid, ``flash_fwd``'s 128-key
+    tile), which cannot be wholly masked and keep a finite key: there every
+    key but the first is masked."""
+    from vit_cifar_torch.ops.cuda.common import forward_plan
+
+    fwd, fwd_lse, plain = FORWARDS[kernel]
+    keys = forward_plan(f"{kernel}_fwd", T, D)["rows"]["k"]
+    first = (T - 1) // keys * keys  # the first key of the first tile taken
+    assert (first > 0) == (T > 65), (keys, T)
+    g = torch.Generator(device="cuda").manual_seed(T + D)
+    q = torch.full((2, 2, T, D), 1e20, device="cuda").to(torch.bfloat16)
+    k = (torch.randn((2, 2, T, D), generator=g, device="cuda")
+         * 1e-20).to(torch.bfloat16)
+    k[:, :, max(first, 1):] = -1e20
+    v = torch.randn((2, 2, T, D), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    out, lse = fwd_lse(q, k, v, 0.1)
+    torch.cuda.synchronize()
+    want_out, want_lse = plain(q, k, v, 0.1)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out, want_out, **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
 def _layer_grads(mod, x, g):
     return torch.autograd.grad(mod(x), [x, *mod.parameters()], g)
 
@@ -409,16 +516,6 @@ def test_whole_head_shared_memory_formulas_match_the_kernels(cuda):
                  (257, 192), (279, 192), (280, 192), (9, 200), (142, 384),
                  (300, 129)):
         assert lib_bytes(T, D) == whole_head_smem_bytes(T, D), (T, D)
-
-
-@pytest.mark.parametrize("T,D", [(1025, 32), (793, 64), (216, 128),
-                                 (300, 192), (143, 384), (4096, 128)])
-def test_key_tiled_shared_memory_formula_matches_the_kernel(cuda, T, D):
-    """Past the whole-head layouts the whole-head forward walks K and V in
-    key tiles; its shared memory is ``key_tiled_smem_bytes``."""
-    assert not whole_head_fits(T, D)
-    lib = library("mhsa_fwd")
-    assert lib.mhsa_fwd_key_tiled_smem_bytes(T, D) == key_tiled_smem_bytes(D)
 
 
 @pytest.mark.parametrize("shape,dtype", [

@@ -14,12 +14,18 @@ split where the JAX kernel's is.  Tolerances are the JAX tests' own: rtol
 order) and rtol 1e-4 / atol 1e-5 for the gradients (sums chained twice over
 T).
 
-``mma_forward_model`` and ``mma_backward_model`` model the arithmetic of
-the bf16 tensor-core forwards and of the tiled backward pair
-(``csrc/mma_attention.cuh``), which no CPU can run, and hold it against
-JAX's kernels in bf16 and against the plain versions at ragged T: lse
-within 1e-5, outputs and grads within one bf16 step, and before their
-rounding within 1e-5 of the largest value of the f32 plain versions.
+``wgmma_forward_model`` models the arithmetic of the bf16 forwards
+(``csrc/wgmma_attention.cuh``): the key tile of each forward's dispatch
+(the whole head as one tile of N = round_up(T, 8) in the whole-head grid,
+tiles of 128 or 64 keys in order in the tiled one), the exponent as one
+FFMA, and the hi/lo p.v.  ``mma_forward_model`` models the mma.sync
+column-chunk forward that heads past 256 columns run
+(``csrc/fwd_bf16_chunk.cuh``), and ``mma_backward_model`` the tiled
+backward pair (``csrc/mma_attention.cuh``).  No CPU can run the kernels;
+the models are held against JAX's kernels in bf16 and against the plain
+versions at ragged T: lse within 1e-5, outputs and grads within one bf16
+step, and before their rounding within 1e-5 of the largest value of the
+f32 plain versions.
 """
 
 import jax
@@ -33,9 +39,10 @@ from vit_cifar_torch.ops.attention import MultiHeadSelfAttention, route
 from vit_cifar_torch.ops.cuda import flash_attention as flash_module
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.ops.cuda.attention import (
-    fused_attention_lse_reference, fused_attention_reference,
-    key_tiled_smem_bytes, whole_head_fits, whole_head_smem_bytes)
-from vit_cifar_torch.ops.cuda.common import COL_CHUNK, MAX_SMEM_BYTES
+    F32_CHUNK_SMEM_BYTES, fused_attention_lse_reference,
+    fused_attention_reference, whole_head_fits, whole_head_smem_bytes)
+from vit_cifar_torch.ops.cuda.common import (COL_CHUNK, MAX_SMEM_BYTES,
+                                            forward_plan)
 from vit_cifar_torch.ops.cuda.flash_attention import (
     FlashAttentionFunction, flash_attention, flash_attention_lse,
     flash_attention_lse_reference, flash_attention_reference,
@@ -175,14 +182,53 @@ LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 MMA_CHUNK = 64  # keys per online-softmax step in csrc/mma_attention.cuh
 
 
+def wgmma_forward_model(q, k, v, scale: float, name: str):
+    """A torch model of the arithmetic of the bf16 wgmma forward
+    (``csrc/wgmma_attention.cuh``) as forward ``name`` (``mhsa_fwd`` or
+    ``flash_fwd``) dispatches it at q's (T, D): keys in tiles of the plan's
+    width (``forward_plan``: the whole head as one tile of N =
+    round_up(T, 8), rounded up to an instance width, in the whole-head
+    grid, so its softmax is exact; else tiles of ``TILED_KEYS`` keys, taken
+    last to first as the kernel's ring brings them), s = q.k^T of bf16
+    values summed in f32, the running
+    max m of the scaled logits in log2 units, rn(max(s) * c) with c =
+    scale*log2(e), each exponent one FFMA into exp2, exp2(s*c - m) (the
+    FFMA's single rounding modelled in f64), the ``safe_m``/``corr`` guard,
+    p split into bf16 hi + lo and both multiplied into v, and lse =
+    m*ln(2) + log(l).  Returns (out (B, T, H, D) bf16, lse (B, H, T) f32,
+    and out before its rounding to bf16)."""
+    B, H, T, D = q.shape
+    keys = forward_plan(name, T, D)["rows"]["k"]
+    qf, kf, vf = (a.to(torch.float32) for a in (q, k, v))
+    c = float(np.float32(scale) * np.float32(LOG2E))
+    m = torch.full((B, H, T, 1), -torch.inf)
+    l = torch.zeros((B, H, T, 1))
+    acc = torch.zeros((B, H, T, D))
+    for k0 in reversed(range(0, T, keys)):  # last tile first
+        kt, vt = kf[:, :, k0:k0 + keys], vf[:, :, k0:k0 + keys]
+        s = torch.einsum("bhid,bhjd->bhij", qf, kt)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
+        safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp2(m - safe_m), 0.0)
+        p = torch.exp2((s.double() * c - safe_m.double()).to(torch.float32))
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        hi = p.to(torch.bfloat16).to(torch.float32)
+        lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+        acc = acc * corr + torch.einsum("bhij,bhjd->bhid", hi, vt) \
+            + torch.einsum("bhij,bhjd->bhid", lo, vt)
+        m = m_new
+    out = (acc / l).transpose(1, 2)
+    return out.to(torch.bfloat16), (m * LN2 + torch.log(l)).squeeze(-1), out
+
+
 def mma_forward_model(q, k, v, scale: float):
-    """A torch model of the arithmetic of the bf16 tensor-core forwards
-    (``csrc/mma_attention.cuh``, run by ``flash_fwd.cu`` and
-    ``mhsa_fwd.cu``): s = q.k^T of bf16 values summed in f32, scaled once by
-    the f32 product scale*log2(e); the online softmax over chunks of 64
-    keys with exp2 and the ``safe_m``/``corr`` guard; p split into bf16
-    hi = rn(p) and lo = rn(p - hi), both multiplied into v; lse = m*ln(2) +
-    log(l).  Returns (out (B, T, H, D) bf16, lse (B, H, T) f32, and out
+    """A torch model of the arithmetic of the bf16 mma.sync forward, which
+    heads past 256 columns run (``csrc/fwd_bf16_chunk.cuh`` on
+    ``csrc/mma_attention.cuh``): s = q.k^T of bf16 values summed in f32,
+    scaled once by the f32 product scale*log2(e); the online softmax over
+    chunks of 64 keys with exp2 and the ``safe_m``/``corr`` guard; p split
+    into bf16 hi = rn(p) and lo = rn(p - hi), both multiplied into v; lse =
+    m*ln(2) + log(l).  Returns (out (B, T, H, D) bf16, lse (B, H, T) f32, and out
     before its rounding to bf16)."""
     B, H, T, D = q.shape
     qf, kf, vf = (a.to(torch.float32) for a in (q, k, v))
@@ -229,7 +275,9 @@ def _assert_within_one_bf16_step(got, want, what):
 @cases
 @pytest.mark.parametrize("path", ["flash", "fused"])
 def test_mma_forward_model_matches_jax_in_bf16(case, path):
-    """The tensor-core forwards' arithmetic, modelled in torch, against
+    """The bf16 forwards' arithmetic, modelled in torch -- the wgmma
+    forward's as each forward tiles the case, and the mma.sync column-chunk
+    forward's -- against
     JAX's ``flash_attention`` (at the case's tile split) and
     ``fused_attention`` in interpret mode on the same bf16 inputs: lse
     within 1e-5, the bf16 output within one bf16 step, and the output
@@ -250,14 +298,20 @@ def test_mma_forward_model_matches_jax_in_bf16(case, path):
     want_lse = np.asarray(jlse)[:, :, :T, 0]
     assert jout.dtype == jnp.bfloat16
 
-    out, lse, unrounded = mma_forward_model(tq, tk, tv, scale)
-    assert out.shape == (B, T, H, D) and lse.shape == (B, H, T)
-    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-5, atol=1e-5)
-    _assert_within_one_bf16_step(out.to(torch.float32).numpy(), want, path)
     exact = flash_attention_lse_reference(*(torch.from_numpy(a)
                                             for a in (q, k, v)), scale)[0]
-    np.testing.assert_allclose(unrounded.numpy(), exact.numpy(), rtol=0,
-                               atol=1e-5 * exact.abs().max().item())
+    name = "flash_fwd" if path == "flash" else "mhsa_fwd"
+    for model, (out, lse, unrounded) in (
+            ("mma", mma_forward_model(tq, tk, tv, scale)),
+            ("wgmma", wgmma_forward_model(tq, tk, tv, scale, name))):
+        assert out.shape == (B, T, H, D) and lse.shape == (B, H, T)
+        np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-5,
+                                   atol=1e-5, err_msg=model)
+        _assert_within_one_bf16_step(out.to(torch.float32).numpy(), want,
+                                     f"{model} {path}")
+        np.testing.assert_allclose(unrounded.numpy(), exact.numpy(), rtol=0,
+                                   atol=1e-5 * exact.abs().max().item(),
+                                   err_msg=model)
 
 
 @pytest.mark.parametrize("T", [1, 7, 8, 15, 16, 17, 63, 64, 65, 66, 127, 128,
@@ -277,6 +331,56 @@ def test_mma_forward_model_matches_the_plain_versions_at_ragged_edges(T):
             _assert_within_one_bf16_step(out.to(torch.float32).numpy(),
                                          want_out.to(torch.float32).numpy(),
                                          f"{plain.__name__} T={T} D={D}")
+
+
+@pytest.mark.parametrize("D", [8, 32, 100, 128, 192, 256])
+@pytest.mark.parametrize("T", [1, 7, 64, 65, 127, 257])
+def test_wgmma_forward_model_matches_the_plain_versions(T, D):
+    """The wgmma forward's key tiles end at every T here: the whole-head
+    grid's one tile of 16 to 128 keys and the tiled grid's tiles of 32 to
+    128 keys, taken last to first; for both forwards the model
+    stays within one bf16 step and 1e-5 of lse of both plain versions, at
+    head dims that are and are not a multiple of 8 and 16, up to the widest
+    one-pass head."""
+    _, (tq, tk, tv), scale = _bf16_inputs(1, 2, T, D, seed=3 * T + D)
+    wants = [plain(tq, tk, tv, scale) for plain in (
+        fused_attention_lse_reference, flash_attention_lse_reference)]
+    for name in ("mhsa_fwd", "flash_fwd"):
+        out, lse, _ = wgmma_forward_model(tq, tk, tv, scale, name)
+        for want_out, want_lse in wants:
+            torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+            _assert_within_one_bf16_step(out.to(torch.float32).numpy(),
+                                         want_out.to(torch.float32).numpy(),
+                                         f"{name} T={T} D={D}")
+
+
+def test_wgmma_forward_model_tiles_as_the_dispatch_does():
+    """The key tile of each forward: the whole head as one tile of N =
+    round_up(T, 8), as an instance width (72 at the flagship's T=65), in
+    the whole-head grid of ``mhsa_fwd`` up to 128 keys at 32 columns, 96
+    at 64 and 64 at 128; tiles of 128, 96, 64, 64 and 32 keys at 32, 64,
+    128, 192 and 256 columns in the tiled grid, which ``flash_fwd`` always
+    takes and ``mhsa_fwd`` past those; no plan past 256 columns."""
+    def keys(name, T, D):
+        plan = forward_plan(name, T, D)
+        return plan["grid"], plan["rows"]["k"], plan["rows"]["v"]
+
+    assert keys("mhsa_fwd", 65, 32) == ("whole", 72, 80)
+    assert keys("mhsa_fwd", 9, 16) == ("whole", 16, 16)
+    assert keys("mhsa_fwd", 128, 32) == ("whole", 128, 128)
+    assert keys("mhsa_fwd", 33, 64) == ("whole", 64, 64)
+    assert keys("mhsa_fwd", 73, 64) == ("whole", 96, 96)
+    assert keys("mhsa_fwd", 64, 128) == ("whole", 64, 64)
+    assert keys("mhsa_fwd", 65, 128) == ("tiled", 64, 64)
+    assert keys("mhsa_fwd", 97, 64) == ("tiled", 96, 96)
+    assert keys("mhsa_fwd", 129, 32) == ("tiled", 128, 128)
+    assert keys("mhsa_fwd", 65, 136) == ("tiled", 64, 64)
+    assert keys("flash_fwd", 65, 32) == ("tiled", 128, 128)
+    assert keys("flash_fwd", 512, 64) == ("tiled", 96, 96)
+    assert keys("flash_fwd", 512, 128) == ("tiled", 64, 64)
+    assert keys("flash_fwd", 1025, 256) == ("tiled", 32, 32)
+    assert forward_plan("flash_fwd", 65, 257) is None
+    assert forward_plan("mhsa_fwd", 65, 384) is None
 
 
 def mma_backward_model(q, k, v, o, do, lse, scale: float):
@@ -430,6 +534,31 @@ def test_flash_function_saves_no_t_by_t_tensor():
     assert not any(len(s) >= 2 and s[-2:] == (T, T) for s in saved), saved
 
 
+@pytest.mark.parametrize("which", ["fused", "flash"])
+def test_functions_save_the_callers_views(which):
+    """Both autograd Functions save q, k and v as the caller gave them --
+    the module's transposed views of its (B, T, H, D) projections -- and no
+    copy of them: the saved tensors share the views' storage and strides."""
+    from vit_cifar_torch.ops.cuda.attention import FusedAttentionFunction
+
+    fn = {"fused": FusedAttentionFunction,
+          "flash": FlashAttentionFunction}[which]
+    B, H, T, D = 2, 3, 9, 16
+    x = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(3, B, T, H * D)).astype(np.float32)).requires_grad_()
+    q, k, v = (t.reshape(B, T, H, D).transpose(1, 2) for t in x)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t) or t, lambda t: t):
+        out = fn.apply(q, k, v, 0.125)
+    views = [t for t in saved if t.shape == (B, H, T, D)]
+    assert len(views) == 3
+    for got, want in zip(views, (q, k, v)):
+        assert got.data_ptr() == want.data_ptr()
+        assert got.stride() == want.stride() != got.contiguous().stride()
+    torch.autograd.grad(out.sum(), x)
+
+
 @pytest.mark.parametrize("T,D,kernel,want", [
     (65, 32, "", "fused"),            # the flagship ViT
     (65, 32, None, "fused"),
@@ -471,12 +600,12 @@ def test_route(T, D, kernel, want):
 @pytest.mark.parametrize("D", [1, 2, 3, 5, 7, 8, 9, 16, 17, 24, 31, 32, 40,
                                64, 100, 128, 200, 256])
 def test_whole_head_bf16_layout_never_needs_more_than_the_f32_formula(D):
-    """``csrc/mhsa_fwd.cu``'s bf16 instance stages K and V as T rows of
-    ``stride_elems(D)`` bf16 each plus a 16-byte chunk of zeros
-    (``mma_smem_bytes``); up to COL_CHUNK columns the router reads the f32
-    formula, so it chooses as before only if that is never smaller, at any
-    T.  Past COL_CHUNK the bf16 layout stages K and V by 128-column chunk,
-    and the formula is the larger of that layout and the f32 tile's."""
+    """The router's threshold (``whole_head_smem_bytes``), kept from the
+    mma.sync design so that the same shapes take the same kernel: up to
+    COL_CHUNK columns the f32 layout's shared memory, never less than that
+    design's bf16 layout (K and V as T rows of ``stride_elems(D)`` bf16
+    each plus a 16-byte chunk of zeros) at any T; past COL_CHUNK the larger
+    of the bf16 layout by 128-column chunk and the f32 tile's."""
     def stride(width):  # stride_elems: an odd number of 16-byte chunks
         return 8 * (((width + 7) // 8) | 1)
 
@@ -541,11 +670,12 @@ def test_default_module_past_the_tiled_head_dim_matches_jax(monkeypatch):
 def test_route_refuses_fused_beyond_shared_memory(T, D):
     """Where the whole-head layouts cannot hold the head, ``"fused"`` was
     refused; it now runs there, as JAX's ``fused_attention`` does at any T:
-    the whole-head forward walks K and V in key tiles, in a layout that
-    fits a block's shared memory at every D."""
+    the whole-head forward walks K and V in key tiles (in f32; bf16 runs
+    the tiled grid there), in a layout that fits a block's shared memory at
+    every D."""
     assert not whole_head_fits(T, D)
     assert route(T, D, "fused") == "fused"
-    assert key_tiled_smem_bytes(D) <= MAX_SMEM_BYTES
+    assert F32_CHUNK_SMEM_BYTES <= MAX_SMEM_BYTES
 
 
 def test_pixel_token_attention_module_routes_to_flash_and_matches_einsum():

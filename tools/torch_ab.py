@@ -1,27 +1,35 @@
 """A/B of two checkouts of the PyTorch port on one CUDA card, in turns.
 
-    python3 tools/torch_ab.py A_DIR B_DIR [--rounds 2]
+    python3 tools/torch_ab.py A_DIR B_DIR [--rounds 2] [--only flagship]
 
 runs A, B, B, A (per round) in fresh processes, each importing
 ``vit_cifar_torch`` from its own checkout and building its kernels there, and
-prints one JSON line per run and a table of medians.  Both sides are measured
-by the helpers of this checkout's ``chip_smoke.py`` (``cuda_ms``,
-``device_ms``, ``training_setup``, ``profile_steps``), so that only the
-package differs.  Each run measures, in bf16:
+prints one JSON line per run and a table of medians, with each side's
+least and most.  Both sides are measured by the helpers of this
+checkout's ``chip_smoke.py`` (``cuda_ms``, ``device_ms``,
+``training_setup``, ``profile_steps``), so that only the package
+differs.  Each run measures, in bf16:
 
 - the tiled kernels (forward, forward with lse, dq, dk/dv) at the pixel
   model's (128, 12, 1025, 32) and at (128, 8, 512, 128), and the whole-head
   forward with and without lse and the tiled kernels at the flagship's
   (128, 12, 65, 32): CUDA-event means over windows of launches and, under
-  torch.profiler, device ms a call;
+  torch.profiler, device ms a call, and at (128, 12, 65, 32) the host
+  microseconds a forward call costs on contiguous inputs; and the
+  forwards on the model's
+  transposed views (the pixel shape's tiled ones, the flagship's
+  whole-head ones): device ms a call, any copies of the views included,
+  and the host microseconds a call costs;
 - the flagship training step (README recipe without AutoAugment, B=128):
   host ms a step (synchronized), and under torch.profiler the device
   activity a step, the kernels a step and the busy share against the
   unprofiled step; the attention kernels' device ms a step;
 - the pixel-token training step (patch 32, T=1025, B=128): the same.
 
-Every number is the card's; the card's name and power limit are printed
-with them.  Work files go to ``build/chip_smoke/``.
+``--only`` runs one of the three parts (``kernels``, ``flagship``,
+``pixel``), for more rounds of it in the same time.  Every number is the
+card's; the card's name and power limit are printed with them.  Work
+files go to ``build/chip_smoke/``.
 """
 
 from __future__ import annotations
@@ -81,6 +89,26 @@ def _kernel_times(smoke, torch) -> dict:
         for name, fn in fns.items():
             out[f"{name} {tag}"] = smoke.cuda_ms(fn, iters, 5)
             out[f"{name} {tag} device"] = smoke.device_ms(fn)[0]
+            if tag == "flagship" and "fwd" in name:
+                # the host's cost of a call on contiguous inputs
+                out[f"{name} {tag} host_us"] = smoke.host_us(fn)
+    # the forwards on the model's views, (B, H, T, D) transposes of its
+    # (B, T, H, D) projections, as the attention module calls them: the
+    # call's device time (whatever copies it makes included) and its host
+    # microseconds
+    for tag in ("pixel", "flagship"):
+        shape = KERNEL_SHAPES[tag]
+        scale = 1.0 / (shape[1] * shape[3]) ** 0.5
+        q, k, v = smoke.model_views(shape, gen)
+        fns = {"flash_fwd": lambda: flash_attention(q, k, v, scale),
+               "flash_fwd_lse": lambda: flash_attention_lse(q, k, v, scale)}
+        if tag == "flagship":
+            fns = {"mhsa_fwd": lambda: fused_attention(q, k, v, scale),
+                   "mhsa_fwd_lse": lambda: fused_attention_lse(q, k, v,
+                                                               scale)}
+        for name, fn in fns.items():
+            out[f"{name} {tag} views device"] = smoke.device_ms(fn)[0]
+            out[f"{name} {tag} views host_us"] = smoke.host_us(fn)
     return out
 
 
@@ -113,7 +141,7 @@ def _train(smoke, torch, card: str, patch: int, steps: int,
     return {"step_ms": step_ms, **prof, "attention_ms": attention}
 
 
-def worker(checkout: str) -> None:
+def worker(checkout: str, only: str | None) -> None:
     sys.path.insert(0, os.path.abspath(checkout))
     import torch
     import vit_cifar_torch
@@ -129,10 +157,13 @@ def worker(checkout: str) -> None:
     t0 = time.perf_counter()
     build_libraries(sorted(p.stem for p in CSRC_DIR.glob("*.cu")))
     build_s = time.perf_counter() - t0
-    result = {"checkout": checkout, "build_s": build_s,
-              "kernels_ms": _kernel_times(smoke, torch),
-              "flagship": _train(smoke, torch, card, 8, 30, 20),
-              "pixel": _train(smoke, torch, card, 32, 8, 3)}
+    parts = {"kernels_ms": lambda: _kernel_times(smoke, torch),
+             "flagship": lambda: _train(smoke, torch, card, 8, 30, 20),
+             "pixel": lambda: _train(smoke, torch, card, 32, 8, 3)}
+    result = {"checkout": checkout, "build_s": build_s}
+    for part, run in parts.items():
+        if only in (None, part.removesuffix("_ms")):
+            result[part] = run()
     print(json.dumps(result))
 
 
@@ -142,9 +173,10 @@ def main() -> None:
     parser.add_argument("b", nargs="?")
     parser.add_argument("--rounds", type=int, default=1)
     parser.add_argument("--worker", action="store_true")
+    parser.add_argument("--only", choices=("kernels", "flagship", "pixel"))
     args = parser.parse_args()
     if args.worker:
-        worker(args.a)
+        worker(args.a, args.only)
         return
     import torch
 
@@ -159,7 +191,8 @@ def main() -> None:
         for checkout in (args.a, args.b, args.b, args.a):
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), checkout,
-                 "--worker"], capture_output=True, text=True, cwd=ROOT)
+                 "--worker"] + (["--only", args.only] if args.only else []),
+                capture_output=True, text=True, cwd=ROOT)
             if proc.returncode != 0:
                 raise SystemExit(f"{checkout} failed:\n{proc.stderr[-4000:]}")
             line = proc.stdout.strip().splitlines()[-1]
@@ -169,17 +202,23 @@ def main() -> None:
     def med(checkout, get):
         return statistics.median(get(r) for r in runs[checkout])
 
+    first = runs[args.a][0]
     rows = [(k, lambda r, k=k: r["kernels_ms"].get(k, float("nan")))
-            for k in runs[args.a][0]["kernels_ms"]]
+            for k in first.get("kernels_ms", {})]
     for model in ("flagship", "pixel"):
         for key in ("step_ms", "device_ms", "busy", "kernels"):
-            rows.append((f"{model} {key}",
-                         lambda r, m=model, k=key: r[m][k]))
-    print(f"median of {2 * args.rounds} runs each ({card}):")
+            if model in first:
+                rows.append((f"{model} {key}",
+                             lambda r, m=model, k=key: r[m][k]))
+    def spread(checkout, get):
+        got = [get(r) for r in runs[checkout]]
+        return f"({min(got):.4f}-{max(got):.4f})"
+
+    print(f"median of {2 * args.rounds} runs each, (least-most) ({card}):")
     for name, get in rows:
         a, b = med(args.a, get), med(args.b, get)
-        print(f"  {name:32s} {args.a}: {a:10.4f}   {args.b}: {b:10.4f}   "
-              f"b/a {b / a:.3f}")
+        print(f"  {name:32s} {args.a}: {a:10.4f} {spread(args.a, get)}   "
+              f"{args.b}: {b:10.4f} {spread(args.b, get)}   b/a {b / a:.3f}")
 
 
 if __name__ == "__main__":

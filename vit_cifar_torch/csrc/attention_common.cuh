@@ -8,6 +8,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace attn {
 
@@ -30,6 +31,27 @@ __host__ __device__ constexpr int col_chunks(int D) {
 __host__ __device__ constexpr int chunk_width(int D, int e) {
   return D - e * kColChunk < kColChunk ? D - e * kColChunk : kColChunk;
 }
+
+// The (b, h, t) strides of q, k and v in elements, as the caller's (B, H,
+// T, D) views have them (d's is 1); index 0 is q, 1 k, 2 v.
+struct Qkv {
+  int64_t sb[3], sh[3], st[3];
+
+  // from the entry points' array: q's (sb, sh, st), then k's, then v's
+  static Qkv from(const long long* s) {
+    Qkv l;
+    for (int x = 0; x < 3; ++x) {
+      l.sb[x] = s[3 * x];
+      l.sh[x] = s[3 * x + 1];
+      l.st[x] = s[3 * x + 2];
+    }
+    return l;
+  }
+  // the offset of row 0 of head (b, h) of tensor x
+  __host__ __device__ int64_t head(int x, int b, int h) const {
+    return b * sb[x] + h * sh[x];
+  }
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

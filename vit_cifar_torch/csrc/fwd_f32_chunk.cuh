@@ -40,13 +40,14 @@ constexpr size_t fwd_f32_chunk_smem_bytes() {
 }
 
 // Query rows q0 .. q0 + kChunkTileQ - 1 of head bh (= b * H + h), output
-// columns [cc * kColChunk, +chunk_width(D, cc)): q, k, v (B, H, T, D), out
-// (B, T, H, D), lse (B, H, T) or null.  Every thread of the block calls it.
+// columns [cc * kColChunk, +chunk_width(D, cc)): q, k, v (B, H, T, D) views
+// with strides L, out (B, T, H, D), lse (B, H, T) or null.  Every thread of
+// the block calls it.
 template <typename T>
 __device__ __forceinline__ void fwd_f32_chunk_tile(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, float* __restrict__ lse, int H, int seq, int D,
-    float scale, int bh, int q0, int cc, float* smem) {
+    T* __restrict__ out, float* __restrict__ lse, const Qkv& L, int H,
+    int seq, int D, float scale, int bh, int q0, int cc, float* smem) {
   float* q_s = smem;
   float* k_s = q_s + kChunkTileQ * kColChunk;
   float* v_s = k_s + kChunkTileK * (kColChunk + 1);
@@ -54,7 +55,8 @@ __device__ __forceinline__ void fwd_f32_chunk_tile(
 
   const int b = bh / H;
   const int h = bh - b * H;
-  const int64_t head = static_cast<int64_t>(bh) * seq * D;
+  const int64_t qo = L.head(0, b, h), ko = L.head(1, b, h);
+  const int64_t vo = L.head(2, b, h);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int nq = min(kChunkTileQ, seq - q0);
@@ -81,16 +83,16 @@ __device__ __forceinline__ void fwd_f32_chunk_tile(
     for (int e = 0; e < nc; ++e) {
       const int w = chunk_width(D, e);
       const int ks = w + 1;
-      const int64_t col = head + static_cast<int64_t>(e) * kColChunk;
+      const int col = e * kColChunk;
       __syncthreads();  // the previous chunk (or tile) is no longer read
       for (int i = threadIdx.x; i < nq * w; i += kThreads) {
         const int r = i / w;
-        q_s[i] = to_f32(q[col + static_cast<int64_t>(q0 + r) * D + i - r * w]);
+        q_s[i] = to_f32(q[qo + (q0 + r) * L.st[0] + col + i - r * w]);
       }
       for (int i = threadIdx.x; i < nk * w; i += kThreads) {
         const int j = i / w;
         const int d = i - j * w;
-        k_s[j * ks + d] = to_f32(k[col + static_cast<int64_t>(k0 + j) * D + d]);
+        k_s[j * ks + d] = to_f32(k[ko + (k0 + j) * L.st[1] + col + d]);
       }
       __syncthreads();
 #pragma unroll
@@ -113,8 +115,7 @@ __device__ __forceinline__ void fwd_f32_chunk_tile(
     // are no longer read
     for (int i = threadIdx.x; i < nk * wc; i += kThreads) {
       const int j = i / wc;
-      v_s[i] = to_f32(v[head + static_cast<int64_t>(k0 + j) * D + c0 + i -
-                        j * wc]);
+      v_s[i] = to_f32(v[vo + (k0 + j) * L.st[2] + c0 + i - j * wc]);
     }
     __syncthreads();
 

@@ -1,6 +1,7 @@
-// Tensor-core building blocks of the bf16 attention kernels (flash_fwd.cu,
-// mhsa_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu): cp.async staging of rows
-// as bf16 in shared memory, ldmatrix fragments, mma.sync.m16n8k16 (bf16 in,
+// mma.sync building blocks of the bf16 attention kernels that are not on
+// wgmma (the tiled backward pair flash_bwd_dq.cu and flash_bwd_dkv.cu, and
+// the forward past 256 columns, fwd_bf16_chunk.cuh): cp.async staging of
+// rows as bf16 in shared memory, ldmatrix fragments, mma.sync.m16n8k16 (bf16 in,
 // f32 accumulate), the two products every kernel is made of (a 16-row tile
 // against 16 staged rows transposed, and an accumulator tile split into
 // bf16 hi + lo times 16 staged rows), and the online softmax of one warp's
@@ -198,17 +199,6 @@ __device__ __forceinline__ void clear_rows(RowTile<kDp>& st) {
   st.l[0] = st.l[1] = 0.f;
 }
 
-// Loads rows row0 .. row0+15 of the (seq, D) head qh into the tile's A
-// fragments straight from device memory, and clears the running state.
-template <int kDp>
-__device__ __forceinline__ void start_rows(RowTile<kDp>& st,
-                                           const bf16* __restrict__ qh,
-                                           int row0, int seq, int D,
-                                           int lane) {
-  load_rows_a<kDp>(st.q, qh, D, row0, seq, D, lane);
-  clear_rows(st);
-}
-
 // The shared-memory address of columns [8c, 8c+8) of row r of a staged
 // matrix of n rows; rows past n and chunks past its width read zeros.
 __device__ __forceinline__ const bf16* chunk_at(const bf16* s, int r, int c,
@@ -357,22 +347,6 @@ __device__ __forceinline__ void softmax_pv(RowTile<kDp>& st,
     mma_p_b<kDp>(st.o, s[2 * kb], s[2 * kb + 1], v_s, j0 + 16 * kb, n, D,
                  zeros, lane);
   }
-}
-
-// One online-softmax step: the tile's 16 rows against keys j0 .. j0+nk-1
-// (nk <= kChunk) of the staged K and V (n rows each).  c = scale*log2(e).
-template <int kDp>
-__device__ __forceinline__ void attend_chunk(RowTile<kDp>& st, const bf16* k_s,
-                                             const bf16* v_s, int j0, int nk,
-                                             int n, int D, const bf16* zeros,
-                                             float c, int lane) {
-  float s[kChunk / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < kChunk / 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-  chunk_logits<kDp>(s, st.q, k_s, j0, nk, n, D, zeros, lane);
-  softmax_pv<kDp>(st, s, v_s, j0, nk, n, D, zeros, c, lane);
 }
 
 // o / l for the tile's rows below seq, written to out (B, T, H, D) bf16 at

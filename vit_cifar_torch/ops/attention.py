@@ -49,12 +49,14 @@ def route(T: int, D: int, pallas_kernel: str | None) -> str:
 
     ``"einsum"``, ``"fused"`` and ``"flash"`` are taken as asked, at any
     (T, D).  The default (``""`` or None) takes the whole-head forward where
-    its shared memory holds an un-split head (head_dim up to ``COL_CHUNK``:
-    T <= 792 at head_dim 32, 215 at 128), and the tiled kernels everywhere
-    else.  ``"fused"`` runs the whole-head forward at any (T, D), as JAX's
-    ``fused_attention`` does: where the head does not fit (past the limit
-    above, or T > 279 at head_dim 192, 213 at 256, 142 at 384) its block
-    walks K and V in key tiles."""
+    its f32 layout's shared memory holds an un-split head (head_dim up to
+    ``COL_CHUNK``: T <= 792 at head_dim 32, 215 at 128), and the tiled
+    kernels everywhere else.  ``"fused"`` runs the whole-head forward at
+    any (T, D), as JAX's ``fused_attention`` does: in bf16 past the head
+    its registers hold (T > 128 at head_dim 32) it runs the tiled forward's
+    main loop, and in f32 past its shared memory (past the limit above, or
+    T > 279 at head_dim 192, 213 at 256, 142 at 384) its block walks K and
+    V in key tiles."""
     if pallas_kernel in ("einsum", "fused", "flash"):
         return pallas_kernel
     return "fused" if whole_head_fits(T, D) and D <= COL_CHUNK else "flash"

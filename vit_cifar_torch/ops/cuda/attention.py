@@ -18,16 +18,19 @@ hand-written kernel (``csrc/``, built at first use) or raises; there is no
 fallback between the two.  Each wrapper counts its kernel's launches in
 ``<wrapper>.launches``.
 
-The forward kernel holds a whole head in one block and dispatches by dtype:
-bf16 runs on the tensor cores (``mma.sync``, with p split into bf16 hi + lo
-so that p.v keeps f32 accuracy), f32 on the CUDA cores in full f32, since
-the tensor cores would take f32 only as TF32 and miss the f32 limit of
-1e-5.  Heads wider than ``COL_CHUNK`` columns are cut into column chunks:
-bf16 stages the whole head's K and V by chunk, f32 walks them in tiles of
-64 keys (``csrc/mhsa_fwd.cu``).  Where the whole head does not fit in a
-block's shared memory (``whole_head_fits``), the block walks K and V in
-tiles of 64 keys in both dtypes, so the kernel runs at any (T, D), as
-``_mhsa_kernel`` does.
+The forward kernel dispatches by dtype.  bf16 runs the warp-specialised
+wgmma kernel (``csrc/wgmma_attention.cuh``): TMA reads q, k and v in place
+from the caller's (B, H, T, D) views -- on the model's path transposed
+views of its (B, T, H, D) projections -- through tensor maps, the whole
+head as one key tile where a warpgroup's registers hold it (T <= 128 at
+head_dim 32) and the tiled forward's main loop beyond, p split into bf16
+hi + lo so that p.v keeps f32 accuracy; heads past 256 columns run the
+mma.sync column-chunk kernel.  A view TMA cannot read (``tma_plan``) is
+copied into a padded buffer first.  f32 runs on the CUDA cores in full
+f32, since the tensor cores would take f32 only as TF32 and miss the f32
+limit of 1e-5: the whole head in shared memory where it fits
+(``whole_head_fits``), else K and V walked in tiles of 64 keys, at any
+(T, D), as ``_mhsa_kernel`` runs.
 
 =======================  ===================  ===============================
 wrapper                  kernel               plain version
@@ -49,7 +52,7 @@ from .flash_attention import flash_tiled_bwd_dkv, flash_tiled_bwd_dq
 # bytes of one block's shared memory in the f32 tile that walks K and V of a
 # head wider than COL_CHUNK (``fwd_f32_chunk_smem_bytes``): the query rows',
 # the keys' and the values' column chunks and a row of p for each of 8 warps
-_F32_CHUNK_SMEM_BYTES = 4 * (64 * COL_CHUNK + 64 * (COL_CHUNK + 1)
+F32_CHUNK_SMEM_BYTES = 4 * (64 * COL_CHUNK + 64 * (COL_CHUNK + 1)
                              + 64 * COL_CHUNK + 8 * 64)
 
 
@@ -60,19 +63,18 @@ def _stride_elems(width: int) -> int:
 
 
 def whole_head_smem_bytes(T: int, D: int) -> int:
-    """The whole-head forward's dynamic shared memory in bytes at (T, D):
-    the formula of ``mhsa_fwd_smem_bytes``, which the card tests hold equal
-    to the library's.  Up to COL_CHUNK columns the f32 layout of K and V
-    (8 warps); past it the larger of the bf16 layout, K and V of T rows by
-    column chunk, and the f32 tile's, which does not grow with T.  The
-    formula takes no dtype: both dtypes leave the whole-head layouts for the
-    walk over key tiles at the same (T, D)."""
+    """The router's threshold at (T, D) in bytes: the formula of
+    ``mhsa_fwd_smem_bytes``, which the card tests hold equal to the
+    library's.  Up to COL_CHUNK columns the f32 whole-head layout of K and
+    V (8 warps); past it the larger of the mma.sync design's bf16 layout,
+    K and V of T rows by column chunk, and the f32 tile's, kept so that
+    the same shapes take the same kernel.  It takes no dtype."""
     if D <= COL_CHUNK:
         return 4 * (T * (D + 1) + T * D + 8 * D + 8 * T)
     chunks = -(-D // COL_CHUNK)
     row = ((chunks - 1) * _stride_elems(COL_CHUNK)
            + _stride_elems(D - (chunks - 1) * COL_CHUNK))
-    return max(2 * (8 + 2 * T * row), _F32_CHUNK_SMEM_BYTES)
+    return max(2 * (8 + 2 * T * row), F32_CHUNK_SMEM_BYTES)
 
 
 def whole_head_fits(T: int, D: int) -> bool:
@@ -80,22 +82,6 @@ def whole_head_fits(T: int, D: int) -> bool:
     block's shared memory; the backward is the tiled pair's, which runs at
     any (T, D)."""
     return whole_head_smem_bytes(T, D) <= MAX_SMEM_BYTES
-
-
-def key_tiled_smem_bytes(D: int) -> int:
-    """The whole-head forward's dynamic shared memory in bytes where the
-    head does not fit (``whole_head_fits`` is false) and the block walks K
-    and V in tiles of 64 keys: the formula of
-    ``mhsa_fwd_key_tiled_smem_bytes``, which the card tests hold equal to
-    the library's.  The larger of the f32 tile's and the bf16 tile's (K and
-    V, past COL_CHUNK K by column chunk and V by the output's chunk);
-    neither grows with T."""
-    if D <= COL_CHUNK:
-        bf16 = 2 * (8 + 2 * 64 * _stride_elems(D))
-    else:
-        bf16 = 2 * (8 + (-(-D // COL_CHUNK) + 1) * 64
-                    * _stride_elems(COL_CHUNK))
-    return max(bf16, _F32_CHUNK_SMEM_BYTES)
 
 
 # --------------------------------------------------------------------------
@@ -164,7 +150,6 @@ class FusedAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
-        q, k, v = (a.contiguous() for a in (q, k, v))
         out, lse = fused_attention_lse(q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
@@ -173,6 +158,9 @@ class FusedAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
+        # the tiled pair reads contiguous q, k, v: one copy of each view
+        # for both passes
+        q, k, v = (a.contiguous() for a in (q, k, v))
         dq = flash_tiled_bwd_dq(q, k, v, out, g, lse, ctx.scale)
         dk, dv = flash_tiled_bwd_dkv(q, k, v, out, g, lse, ctx.scale)
         return dq, dk, dv, None

@@ -1,12 +1,13 @@
 """What the whole-head (``attention.py``) and tiled (``flash_attention.py``)
 attention wrappers share: the ctypes binding and launch of a kernel
-library, the checks of their arguments, and the terms of the plain
-backward passes."""
+library, the bf16 forwards' TMA plan of the caller's views, the checks of
+their arguments, and the terms of the plain backward passes."""
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import torch
 
@@ -25,25 +26,20 @@ def library(name: str) -> ctypes.CDLL:
 
     lib = load_library(name)
     getattr(lib, name).restype = ctypes.c_int
-    for suffix in ("smem_bytes", "key_tiled_smem_bytes"):
-        smem = getattr(lib, f"{name}_{suffix}", None)
-        if smem is not None:
-            smem.argtypes = [ctypes.c_int, ctypes.c_int]
-            smem.restype = ctypes.c_longlong
+    smem = getattr(lib, f"{name}_smem_bytes", None)
+    if smem is not None:
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem.restype = ctypes.c_longlong
     return lib
 
 
 def launch(name: str, pointers, q: torch.Tensor, scale: float) -> None:
-    """Launch kernel ``name`` on q's device and current stream; raises if
-    the shape needs too much shared memory or the launch fails.  A kernel
-    with a ``<name>_key_tiled_smem_bytes`` entry walks K and V in key tiles
-    where its first layout does not fit, and needs that many bytes then."""
+    """Launch backward kernel ``name`` on contiguous tensors, on q's device
+    and current stream; raises if the shape needs too much shared memory or
+    the launch fails."""
     B, H, T, D = q.shape
     lib = library(name)
     smem = getattr(lib, f"{name}_smem_bytes")(T, D)
-    tiled = getattr(lib, f"{name}_key_tiled_smem_bytes", None)
-    if smem > MAX_SMEM_BYTES and tiled is not None:
-        smem = tiled(T, D)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{name} at T={T}, D={D} needs {smem} bytes of shared memory, "
@@ -61,16 +57,163 @@ def launch(name: str, pointers, q: torch.Tensor, scale: float) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _forward_tiles() -> tuple[dict, dict, dict]:
+    """The bf16 wgmma forward's table of instances
+    (``csrc/forward_tiles.cuh``, which the CUDA dispatch expands): the
+    tiled grid's key tile by padded head width, in ascending width; whether
+    the consumers of a width's instances take turns (ping-pong); and
+    mhsa_fwd's whole-head key tiles by width, ascending."""
+    from .build import CSRC_DIR
+
+    text = (CSRC_DIR / "forward_tiles.cuh").read_text()
+    tiled = re.findall(r"^TILED\((\d+), (\d+), ([01])\)$", text, re.M)
+    whole = {}
+    for w, n in re.findall(r"^WHOLE\((\d+), (\d+)\)$", text, re.M):
+        whole.setdefault(int(w), []).append(int(n))
+    return ({int(w): int(n) for w, n, _ in tiled},
+            {int(w): pp == "1" for w, _, pp in tiled}, whole)
+
+
+TILED_KEYS, PINGPONG, WHOLE_KEYS = _forward_tiles()
+QUERY_TILE = 128  # query rows a work item: two warpgroups of 64
+WIDEST_ONE_PASS = max(TILED_KEYS)  # wgmma's widest N, 256
+
+
+def forward_plan(name: str, T: int, D: int) -> dict | None:
+    """How the bf16 forward ``name`` (``mhsa_fwd`` or ``flash_fwd``) tiles
+    a (T, D) head, from the table its CUDA dispatch expands
+    (``_forward_tiles``): the instance's width (the first table width >=
+    D) and whether its consumers ping-pong, its swizzle (64-byte rows at
+    width 32, else 128-byte rows), the columns of one swizzle atom (a TMA
+    box's inner extent), the rows of the q, k and v boxes, and the grid
+    ("whole": mhsa_fwd's whole head as one key tile, the first of its
+    width's that holds round_up(T, 8) keys; "tiled": the width's
+    ``TILED_KEYS``).  None past
+    ``WIDEST_ONE_PASS`` columns, where the column-chunk kernel reads the
+    views without TMA."""
+    if D > WIDEST_ONE_PASS:
+        return None
+    width = min(w for w in TILED_KEYS if w >= D)
+    n = -(-T // 8) * 8
+    keys = None
+    if name == "mhsa_fwd":
+        keys = min((w for w in WHOLE_KEYS.get(width, ()) if w >= n),
+                   default=None)
+    grid = "tiled" if keys is None else "whole"
+    keys = keys or TILED_KEYS[width]
+    return {"width": width, "grid": grid, "pingpong": PINGPONG[width],
+            "swizzle": 64 if width == 32 else 128,
+            "atom_cols": 32 if width == 32 else 64,
+            "rows": {"q": QUERY_TILE, "k": keys,
+                     "v": -(-keys // 16) * 16}}
+
+
+def tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """t's (b, h, t) strides in elements as a tensor map over (D, H, T, B)
+    takes them: a dimension of size 1 is addressed only at 0, so its
+    stride is given as 8 (any multiple of 8 elements reads alike)."""
+    (B, H, T, _), (sb, sh, st, _) = t.shape, t.stride()
+    return (sb if B > 1 else 8, sh if H > 1 else 8, st if T > 1 else 8)
+
+
+def tma_reads_in_place(t: torch.Tensor) -> bool:
+    """Whether a tensor map can read the (B, H, T, D) view t where it lies:
+    a 16-byte aligned base, d stride 1, and b, h and t strides (of the
+    dimensions longer than 1) multiples of 8 elements (16 bytes)."""
+    sb, sh, st = tma_strides(t)
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and not (sb % 8 or sh % 8 or st % 8))
+
+
+def tma_plan(name: str, q: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor) -> dict:
+    """The tensor maps the bf16 forward ``name`` encodes over (D, H, T, B)
+    for each of q, k, v ((B, H, T, D) views): extents, strides in bytes,
+    box and swizzle (``forward_plan``), and the views TMA cannot read in
+    place -- a base not 16-byte aligned, a d stride other than 1, or a b,
+    h or t stride that is not a multiple of 8 elements (16 bytes), which
+    every layout of a head of D % 8 != 0 columns whose rows follow each
+    other has.  Those go through ``padded_copy``.  ``maps`` is empty past
+    ``WIDEST_ONE_PASS`` columns (no TMA), where only a d stride other than
+    1 is copied."""
+    B, H, T, D = q.shape
+    plan = forward_plan(name, T, D)
+    out = {"plan": plan, "maps": {}, "copies": []}
+    for key, t in zip("qkv", (q, k, v)):
+        if plan is None:
+            if t.stride(-1) != 1:
+                out["copies"].append(key)
+            continue
+        if not tma_reads_in_place(t):
+            out["copies"].append(key)
+            t = padded_copy(t, meta=True)
+        sb, sh, st = tma_strides(t)
+        out["maps"][key] = {
+            "extents": (D, H, T, B), "strides": (2 * sh, 2 * st, 2 * sb),
+            "box": (plan["atom_cols"], 1, plan["rows"][key], 1),
+            "swizzle": plan["swizzle"]}
+    return out
+
+
+def padded_copy(t: torch.Tensor, meta: bool = False) -> torch.Tensor:
+    """t copied into a contiguous (B, H, T, D') buffer, D' = D rounded up
+    to a multiple of 8, zeros past D, and returned as the view of its first
+    D columns: a layout TMA reads (``tma_plan``).  With ``meta`` only the
+    view's layout, on the meta device."""
+    D = t.shape[-1]
+    wide = -(-D // 8) * 8
+    make = torch.zeros if wide > D else torch.empty
+    buf = make((*t.shape[:-1], wide), dtype=t.dtype,
+               device="meta" if meta else t.device)
+    if not meta:
+        buf[..., :D] = t
+    return buf[..., :D]
+
+
+def readable(q, k, v):
+    """q, k, v as both forward kernels read them: each view in place where
+    its layout allows (the bf16 wgmma kernel: ``tma_reads_in_place``, as
+    ``tma_plan`` reports; the f32 ones and the bf16 column-chunk kernel any
+    strides with d's 1), else its ``padded_copy``."""
+    tma = q.dtype == torch.bfloat16 and q.shape[-1] <= WIDEST_ONE_PASS
+    return tuple(t if (tma_reads_in_place(t) if tma else t.stride(-1) == 1)
+                 else padded_copy(t) for t in (q, k, v))
+
+
+# the (b, h, t) strides of q, k and v, as the forward entry points take them
+_STRIDES = ctypes.c_longlong * 9
+
+
 def launch_forward(name: str, q, k, v, scale: float, with_lse: bool):
     """Launch forward kernel ``name`` (``mhsa_fwd`` or ``flash_fwd``) after
-    its checks: (out (B, T, H, D), lse (B, H, T) f32 or None)."""
+    its checks on the views q, k, v as given, through their strides
+    (``readable``: only a layout the kernel cannot read is copied): (out
+    (B, T, H, D), lse (B, H, T) f32 or None)."""
     check(q, k, v)
-    q, k, v = (a.contiguous() for a in (q, k, v))
+    q, k, v = readable(q, k, v)
     B, H, T, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    launch(name, (q, k, v, out, lse), q, scale)
+    strides = _STRIDES(*tma_strides(q), *tma_strides(k), *tma_strides(v))
+
+    def run() -> int:
+        return getattr(library(name), name)(
+            *(ctypes.c_void_p(None if t is None else t.data_ptr())
+              for t in (q, k, v, out, lse)),
+            strides, *(ctypes.c_int(n) for n in (B, H, T, D)),
+            ctypes.c_float(scale), ctypes.c_int(_DTYPE_CODES[q.dtype]),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+
+    # the kernel launches on the current device: switch only where q lies
+    # on another
+    if q.device.index == torch.cuda.current_device():
+        err = run()
+    else:
+        with torch.cuda.device(q.device):
+            err = run()
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
     return out, lse
 
 

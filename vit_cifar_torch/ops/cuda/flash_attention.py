@@ -11,12 +11,15 @@ lse), never a (B, H, T, T) tensor; its backward runs the tiled dq kernel,
 then the tiled dk/dv kernel (``_flash_bwd_impl``'s two passes).  Without a
 gradient it runs the inference kernel.
 
-Unlike the whole-head forward of ``attention.py``, whose shared memory
-grows with T, these tile both the queries and the keys, and cut heads
-wider than ``COL_CHUNK`` columns into column chunks with a block each, so
-they run at any T and any D.  The kernels tile 64 queries by 64 keys; the
-plain versions take every query row at once and tile the keys by
-``BLOCK_KV``.
+These tile both the queries and the keys, so they run at any T and any
+D.  The bf16 forward is the warp-specialised wgmma kernel
+(``csrc/wgmma_attention.cuh``): 128 query rows a work item against key
+tiles of 32 to 128 keys brought by TMA straight from the caller's (B, H,
+T, D) views, heads up to 256 columns in one pass (past them the mma.sync
+column-chunk kernel); the backward pair tiles 64 queries by 64 keys and
+cuts heads wider than ``COL_CHUNK`` columns into column chunks with a
+block each.  The plain versions take every query row at once and tile
+the keys by ``BLOCK_KV``.
 The JAX signature's ``block_q`` and ``block_kv`` are not taken: they change
 the result only through the order of f32 sums.  lse is (B, H, T) f32, not
 the TPU's lane-broadcast (B, H, Tq, 128).
@@ -27,11 +30,14 @@ hand-written kernel (``csrc/flash_*.cu``, built at first use) or raises;
 there is no fallback between the two.  Each wrapper counts its kernel's
 launches in ``<wrapper>.launches``.
 
-Every kernel dispatches by dtype: bf16 runs on the tensor cores
-(``mma.sync``, 16 rows a warp, tiles staged by ``cp.async``; p, and in the
-backward ds, split into bf16 hi + lo so that the product that follows keeps
-f32 accuracy), f32 on the CUDA cores in full f32, since the tensor cores
-would take f32 only as TF32 and miss the f32 limit of 1e-5.  The dq kernel
+Every kernel dispatches by dtype: bf16 runs on the tensor cores (the
+forward wgmma, the backward pair ``mma.sync`` with 16 rows a warp and tiles
+staged by ``cp.async``; p, and in the backward ds, split into bf16 hi + lo
+so that the product that follows keeps f32 accuracy), f32 on the CUDA
+cores in full f32, since the tensor cores would take f32 only as TF32 and
+miss the f32 limit of 1e-5.  The forwards read q, k and v through their
+strides (``common.launch_forward``); the backward pair reads contiguous
+copies, made once in the Function's backward.  The dq kernel
 holds 64 query rows a block against tiles of 64 keys, the dk/dv kernel 64
 keys against tiles of 64 query rows.  The tiled dq and dk/dv passes are
 also the backward of ``attention.py``'s ``FusedAttentionFunction``.
@@ -218,7 +224,6 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
-        q, k, v = (a.contiguous() for a in (q, k, v))
         out, lse = flash_attention_lse(q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
@@ -227,6 +232,9 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
+        # the tiled pair reads contiguous q, k, v: one copy of each view
+        # for both passes
+        q, k, v = (a.contiguous() for a in (q, k, v))
         dq = flash_tiled_bwd_dq(q, k, v, out, g, lse, ctx.scale)
         dk, dv = flash_tiled_bwd_dkv(q, k, v, out, g, lse, ctx.scale)
         return dq, dk, dv, None
