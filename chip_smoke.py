@@ -43,15 +43,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    against their plain versions, at the pixel-token ViT's shape
    (128, 12, 1025, 32), the flagship's (128, 12, 65, 32) forced through
    them, the JAX flash tests' tile-splitting shapes, one long sequence
-   (8, 1, 4096, 128) and head dims 129, 136, 192, 256 and 384 (cut into
-   128-column chunks), in f32 and bf16; times each kernel and its plain
+   (8, 1, 4096, 128) and head dims 129, 136, 192, 256, 384 and 520 (cut
+   into column chunks), in f32 and bf16; times each kernel and its plain
    version at the pixel shape, and ``F.scaled_dot_product_attention`` as
    the library's yardstick (timed only; the port never calls it).  Then
    the ragged-edge phase: the bf16 instances of both forwards (wgmma with
    TMA), with and without lse, on contiguous inputs and on the model's
-   strided views, and of the tiled dq and dk/dv kernels (mma.sync)
-   against their plain versions at (2, 3, T, D) for 13 T from 1 to 129
-   and D in 16, 24, 32, 64, 128, 129, 136, 192, 256, 384.  Then each bf16
+   strided views, and of the tiled dq and dk/dv kernels (wgmma with TMA
+   up to 512 columns, mma.sync column chunks past them), on contiguous
+   inputs and on the model's views, against their plain versions at (2,
+   3, T, D) for 13 T from 1 to 129 and D in 16, 24, 32, 64, 128, 129,
+   136, 192, 256, 384.  Then each bf16
    forward against its library call (SDPA, or the flash forward with lse)
    on the model's views, in turns, at (128, 12, 65, 32) (device time),
    (128, 12, 1025, 32), (128, 8, 512, D) and (16, 2, 2048, D) for D = 128,
@@ -59,7 +61,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    call costs.  Then times the whole-head forwards and the fused Function
    against their tiled counterparts at (128, 12, T, 32) bf16 for T = 65,
    257 and 685, and the tiled kernels beside the library's calls at
-   (128, 8, 512, D) and (16, 2, 2048, D) for D = 128, 192, 256.
+   (128, 8, 512, D) and (16, 2, 2048, D) for D = 128, 192, 256.  Last the
+   backward pair on the model's views against
+   ``aten._scaled_dot_product_flash_attention_backward`` in turns at the
+   pixel shape, the flagship's (device time) and those head dims, each
+   beside its bound, with two calls of the pair equal bit for bit.
 5. Pixel serving phase: the same serving path for the README recipe model
    at ``patch=32`` (one pixel a token, T=1025, 6,620,170 params); each
    request must launch the tiled forward 7 times and no whole-head kernel,
@@ -197,10 +203,10 @@ the residuals, the work of the dq + dk/dv kernel pair).
 
 Every kernel is held against its plain version, and the counts of launches
 of each path are set to 0 just before it and read just after.  Each kernel
-row names its design: the forwards' bf16 instances run wgmma on tiles that
-TMA brings ("wgmma+TMA", with ptxas's registers and spills of the instance
-at the row's shape; the build fails where ptxas serialised their wgmmas),
-the backward pair's mma.sync ("mma.sync bf16"); every f32
+row names its design: the bf16 instances of the forwards and of the
+backward pair run wgmma on tiles that TMA brings ("wgmma+TMA", with ptxas's
+registers and spills of the instance at the row's shape; the build fails
+where ptxas serialised the wgmmas of any library); every f32
 instance keeps the CUDA-core design, since the tensor cores would take
 f32 only as TF32.  The bound
 of a kernel (``bound_ms``) is the larger of its bytes (each input read once,
@@ -342,12 +348,14 @@ PARAMS = 6_268_810
 PIXEL_PARAMS = 6_620_170
 PIXEL_SHAPE = (128, 12, 1025, 32)
 # the flash kernels' shapes: the pixel model's, the flagship's forced
-# through them, the JAX flash tests' tile-splitting shapes, a long sequence
+# through them, the JAX flash tests' tile-splitting shapes, a long sequence,
+# heads past 128 columns and, last, one past the backward's wgmma widths
+# (the mma.sync column chunks)
 FLASH_SHAPES = [PIXEL_SHAPE, (128, 12, 65, 32), (2, 3, 65, 32),
                 (1, 2, 130, 64), (2, 2, 257, 128), (1, 1, 8, 128),
                 (1, 2, 300, 32), (8, 1, 4096, 128), (2, 2, 300, 129),
                 (2, 2, 257, 136), (2, 2, 257, 192), (1, 2, 130, 256),
-                (1, 1, 200, 384)]
+                (1, 1, 200, 384), (1, 1, 130, 520)]
 PIXEL_STEPS = 20
 PIXEL_STEP_BATCH = 8  # the einsum path's (B, H, T, T) tensors bound it
 PIXEL_REQUESTS = (1, 32)
@@ -519,13 +527,23 @@ DESIGN = {"mhsa_fwd": "wgmma+TMA (PR 15)",
           "mhsa_fwd_lse": "wgmma+TMA (PR 15)",
           "flash_fwd": "wgmma+TMA (PR 15)",
           "flash_fwd_lse": "wgmma+TMA (PR 15)",
-          "flash_bwd_dq_tiled": "mma.sync bf16",
-          "flash_bwd_dkv_tiled": "mma.sync bf16"}
+          "flash_bwd_dq_tiled": "wgmma+TMA (PR 16)",
+          "flash_bwd_dkv_tiled": "wgmma+TMA (PR 16)"}
 # each forward row's main shape, whose wgmma instance's ptxas report the
 # row carries
 FORWARD_MAIN_SHAPE = {"mhsa_fwd": (128, 12, 65, 32),
                       "mhsa_fwd_lse": (128, 12, 65, 32),
                       "flash_fwd": PIXEL_SHAPE, "flash_fwd_lse": PIXEL_SHAPE}
+# the backward pair's rows: the pixel shape's instances (backward_plan)
+BACKWARD_ROWS = ("flash_bwd_dq_tiled", "flash_bwd_dkv_tiled")
+# the backward pair against the library's backward, in turns on the
+# model's views: the pixel ViT's shape, the flagship's (device time) and
+# head dims 128, 192 and 256 (past 128 the wgmma column chunks); and past
+# 512 columns, where the mma.sync column-chunk kernels run and the
+# library's flash backward takes no head, the pair alone
+BACKWARD_TIMING_SHAPES = [PIXEL_SHAPE, (128, 12, 65, 32), *HEAD_DIM_SHAPES,
+                          (16, 2, 1024, 520)]
+LIBRARY_WIDEST = 256  # the library's flash attention takes no wider head
 # each forward against its library call, in turns: the flagship's and the
 # pixel ViT's shapes, and head dims 128, 192 and 256 (HEAD_DIM_SHAPES)
 FORWARD_TIMING_SHAPES = [(128, 12, 65, 32), PIXEL_SHAPE, *HEAD_DIM_SHAPES]
@@ -540,20 +558,27 @@ MASKED_TILE_SHAPES = ((2, 2, 256, 32), (2, 2, 193, 64), (2, 2, 300, 192),
 # calls a window of the host's cost of one forward call
 HOST_CALLS = 200
 # ptxas's note that it serialised a kernel's wgmmas (C7510-C7520): the
-# forwards' products must run asynchronously
+# products of the forwards and of the backward pair must run
+# asynchronously
 SERIALISED = re.compile(r"\((C75[12]\d)\) Potential Performance Loss: "
                         r"wgmma\.mma_async instructions are serialized")
 PTXAS = {}  # library -> instance -> "N registers, ... spill ..."
 STEP_KERNELS = {}  # path -> kernels a step (torch.profiler)
-# the bf16 max_abs_err of the first, CUDA-core designs at the main shapes
-# (PERF.md): the forwards' from their own chip runs (they matched the plain
-# version's rounding exactly at T=65 and were one bf16 step off at
-# T=1025), the tiled backward pair's from the flash phase of the commit
-# before its redesign, run on the same inputs in one call with it
+# the bf16 max_abs_err of the earlier designs at the main shapes: the
+# forwards' first, CUDA-core designs' from their own chip runs (PERF.md;
+# they matched the plain version's rounding exactly at T=65 and were one
+# bf16 step off at T=1025), printed beside the wgmma forwards'; the tiled
+# backward pair's mma.sync design's from the flash phase (the pixel shape)
+# and, in EARLIER_PAIR_AT_65, the training kernel phase (the flagship's
+# shape, the fused Function's backward) of the commit before the pair's
+# wgmma redesign, on the same inputs (each phase's own seed) on an H100:
+# the wgmma pair must be no worse
 EARLIER_MAX_ABS_ERR = {"mhsa_fwd": 0.0, "mhsa_fwd_lse": 0.0,
                        "flash_fwd": 4.9e-4, "flash_fwd_lse": 4.9e-4,
-                       "flash_bwd_dq_tiled": 2.441e-4,
-                       "flash_bwd_dkv_tiled": 4.883e-4}
+                       "flash_bwd_dq_tiled": 2 ** -12,   # 2.441e-4
+                       "flash_bwd_dkv_tiled": 2 ** -10}  # 9.766e-4
+EARLIER_PAIR_AT_65 = {"flash_bwd_dq_tiled": 2 ** -11,   # 4.883e-4
+                      "flash_bwd_dkv_tiled": 2 ** -9}   # 1.953e-3
 
 
 def card_line() -> str:
@@ -593,8 +618,9 @@ def host_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def build_kernels() -> None:
     """Build every kernel library at once, print ptxas's report of each
-    kernel instance (kept in ``PTXAS``), and fail where ptxas serialised a
-    forward's wgmmas."""
+    kernel instance (kept in ``PTXAS``), and fail where ptxas serialised
+    the wgmmas of any library's kernel (the forwards' and the backward
+    pair's)."""
     t0 = time.perf_counter()
     build_libraries(KERNELS)
     print(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s "
@@ -636,6 +662,19 @@ def forward_ptxas(name: str) -> str:
     instance = (f"fwd_kernel<{plan['width']},{plan['rows']['k']},2,"
                 f"{int(plan['pingpong'])}>")
     return f"{instance}: {PTXAS[lib][instance]}"
+
+
+def backward_ptxas(name: str) -> str:
+    """ptxas's registers and spills of the bf16 wgmma instance that
+    backward row ``name`` runs at the pixel shape (``backward_plan`` names
+    it, from the table of instances the CUDA dispatch expands)."""
+    from vit_cifar_torch.ops.cuda.common import backward_plan
+
+    plan = backward_plan(*PIXEL_SHAPE[2:])
+    kind = "dq" if name == "flash_bwd_dq_tiled" else "dkv"
+    instance = (f"{kind}_kernel<{plan['width']},{plan[kind]['tile']},"
+                f"{plan[kind]['cols']}>")
+    return f"{instance}: {PTXAS[SOURCES[name]][instance]}"
 
 
 def in_turns(fns: dict, rounds: int = 3, iters: int = 100) -> dict:
@@ -950,6 +989,8 @@ def training_kernel_phase(card: str, library: dict) -> list[dict]:
     print(f"tiled pair at {SHAPES[0]} bf16 (the fused Function's backward): "
           f"max_abs_err dq {errs['flash_bwd_dq_tiled']:.3e}, dk/dv "
           f"{errs['flash_bwd_dkv_tiled']:.3e}")
+    for name in BACKWARD_ROWS:
+        print_against_earlier(name, errs[name], EARLIER_PAIR_AT_65, SHAPES[0])
     return rows
 
 
@@ -1407,10 +1448,19 @@ def flash_kernel_phase(card: str) -> list[dict]:
     return rows
 
 
-def print_against_earlier(name: str, err: float) -> None:
-    print(f"{name} bf16 at its main shape: max_abs_err {err:.3e} "
-          f"({DESIGN[name]}) against {EARLIER_MAX_ABS_ERR[name]:.3e} (the "
-          "CUDA-core design's, PERF.md)")
+def print_against_earlier(name: str, err: float,
+                          earlier: dict = EARLIER_MAX_ABS_ERR,
+                          shape=None) -> None:
+    """A row's bf16 max_abs_err at a main shape beside the earlier
+    design's (``EARLIER_MAX_ABS_ERR``); the backward pair's must be no
+    worse."""
+    was = ("the CUDA-core design's, PERF.md" if name not in BACKWARD_ROWS
+           else "the mma.sync design's on the same inputs")
+    print(f"{name} bf16 at {shape or 'its main shape'}: max_abs_err "
+          f"{err:.3e} ({DESIGN[name]}) against {earlier[name]:.3e} ({was})")
+    if name in BACKWARD_ROWS and err > earlier[name]:
+        raise AssertionError(f"{name}: max_abs_err {err:.3e} is worse than "
+                             f"the mma.sync design's {earlier[name]:.3e}")
 
 
 def ragged_edge_phase() -> None:
@@ -1726,6 +1776,78 @@ def head_dim_timing(card: str) -> None:
               f"{fwd_bwd['tiled']:.4f} ms, einsum path {fwd_bwd['einsum']:.4f}"
               f" ms, SDPA {library['fwd+bwd']:.4f} ms ({card})")
         del q, k, v, g, out, lse, args, leaves
+        torch.cuda.empty_cache()
+
+
+def backward_timing_phase(card: str) -> None:
+    """The bf16 tiled dq and dk/dv passes on the model's views (q, k, v
+    transposed (B, T, H, D) projections, o and lse as the forward kernel
+    returns them, a (B, T, H, D) cotangent) against the library's backward,
+    ``aten._scaled_dot_product_flash_attention_backward`` on the same views
+    and its own forward's residuals, at ``BACKWARD_TIMING_SHAPES``: the pair
+    and the library in turns (pair, library, library, pair) by CUDA events,
+    and by device time (torch.profiler) at T=65, where an event window
+    follows the host; each pass, and the pair, beside its bound; past
+    ``LIBRARY_WIDEST`` columns the pair alone.  Two calls of the pair must
+    give equal bits (no atomics: every output is summed in one order)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    aten = torch.ops.aten
+    for shape in BACKWARD_TIMING_SHAPES:
+        B, H, T, D = shape
+        scale = 1.0 / math.sqrt(H * D)
+        q, k, v = model_views(shape, gen)
+        out, lse = flash_attention_lse(q, k, v, scale)
+        g = torch.randn((B, T, H, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        args = (q, k, v, out, g, lse, scale)
+        passes = {"flash_bwd_dq_tiled": lambda: flash_tiled_bwd_dq(*args),
+                  "flash_bwd_dkv_tiled": lambda: flash_tiled_bwd_dkv(*args)}
+        fns = {"pair": lambda: (flash_tiled_bwd_dq(*args),
+                                *flash_tiled_bwd_dkv(*args))}
+        if D <= LIBRARY_WIDEST:
+            o, l, cq, ck, mq, mk, seed, offset, _ = \
+                aten._scaled_dot_product_flash_attention(q, k, v,
+                                                         scale=scale)
+            library = aten._scaled_dot_product_flash_attention_backward
+            fns["library"] = lambda: library(
+                g.transpose(1, 2), q, k, v, o, l, cq, ck, mq, mk, 0.0, False,
+                seed, offset, scale=scale)
+        first, second = fns["pair"](), fns["pair"]()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"backward pair {shape}: two calls on the "
+                                 "same inputs differ")
+        del first, second
+        if T <= 65:
+            ms = {n: device_ms(fn)[0] for n, fn in (*passes.items(),
+                                                    *fns.items())}
+            how = "device ms, torch.profiler"
+        else:  # windows of about 20 ms of the pair
+            iters = max(3, min(30, round(20 / cuda_ms(fns["pair"], 1, 1))))
+            ms = {**in_turns(passes, rounds=2, iters=iters),
+                  **(in_turns(fns, rounds=2, iters=iters) if len(fns) == 2
+                     else {"pair": cuda_ms(fns["pair"], iters, 1)})}
+            how = f"median of 4 event windows of {iters}"
+        bounds = {n: bound(n, shape) for n in passes}
+        for name in passes:
+            b = bounds[name]
+            print(f"backward {name} {shape} bf16 on the model's views: "
+                  f"{ms_text(ms[name])} ({how}); bound {b['bound_ms']:.4f} "
+                  f"ms by {b['bound_by']} ({card})")
+        pair_bound = sum(b["bound_ms"] for b in bounds.values())
+        if "library" not in fns:
+            library_text = "no library backward at this width"
+        elif None in (ms["pair"], ms["library"]):
+            library_text = (f"library backward {ms_text(ms['library'])} "
+                            "(ratio not measured)")
+        else:
+            library_text = (f"library backward {ms_text(ms['library'])} "
+                            f"({ms['pair'] / ms['library']:.3f}x the "
+                            "library)")
+        print(f"backward pair {shape} bf16 on the model's views: "
+              f"{ms_text(ms['pair'])}, {library_text} ({how}); bound "
+              f"{pair_bound:.4f} ms; two calls equal bit for bit ({card})")
+        del q, k, v, out, lse, g, args, passes, fns
         torch.cuda.empty_cache()
 
 
@@ -3558,10 +3680,13 @@ def main() -> None:
     for row in rows:
         if row["name"] in FORWARD_MAIN_SHAPE:
             row["ptxas"] = forward_ptxas(row["name"])
+        elif row["name"] in BACKWARD_ROWS:
+            row["ptxas"] = backward_ptxas(row["name"])
     ragged_edge_phase()
     forward_timing_phase(card)
     tiled_vs_whole_head(card)
     head_dim_timing(card)
+    backward_timing_phase(card)
     # each path's launches, counted from zero just before it
     train_launches, no_aa_step_ms = training_phase(card)
     dispatch_cost(card)

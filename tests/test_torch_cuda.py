@@ -436,6 +436,166 @@ def test_bf16_forwards_guard_a_fully_masked_key_tile(cuda, T, D, kernel):
     torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
 
 
+# the bf16 backward pair: wgmma up to 512 columns (csrc/wgmma_backward.cuh,
+# tiles in csrc/backward_tiles.cuh; column chunks past 128), the mma.sync
+# column chunks past 512
+BACKWARD_D = (8, 16, 24, 32, 64, 100, 128, 136, 192, 256, 320, 384, 456,
+              520)
+
+
+def _pair(args):
+    return (flash_tiled_bwd_dq(*args), *flash_tiled_bwd_dkv(*args))
+
+
+def _plain_pair(args):
+    return (flash_tiled_bwd_dq_reference(*args),
+            *flash_tiled_bwd_dkv_reference(*args))
+
+
+def _check_pair(got, want, D, what):
+    """dq, dk, dv against the plain passes: 1% of max |grad| (one bf16
+    step), no tighter than RAGGED_BWD_ATOL_FLOOR per 128 columns."""
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        tol = flash_tol(BWD_TOL, torch.bfloat16, w)
+        tol["atol"] = max(tol["atol"],
+                          RAGGED_BWD_ATOL_FLOOR * max(1.0, D / 128))
+        assert torch.isfinite(a.float()).all(), f"{name} {what}"
+        torch.testing.assert_close(a, w, **tol,
+                                   msg=lambda m: f"{name} {what}: {m}")
+
+
+def _views_and_cotangent(shape, seed):
+    """q, k, v as the model makes them, out and lse as the forward returns
+    them ((B, T, H, D) and (B, H, T)), and a (B, T, H, D) cotangent."""
+    B, H, T, D = shape
+    q, k, v = _model_views(shape, seed)
+    scale = 1.0 / math.sqrt(H * D)
+    out, lse = flash_attention_lse(q, k, v, scale)
+    g = torch.randn((B, T, H, D), generator=torch.Generator(
+        device="cuda").manual_seed(seed + 1), device="cuda").to(torch.bfloat16)
+    return (q, k, v, out, g, lse, scale)
+
+
+@pytest.mark.parametrize("T", WGMMA_T)
+def test_bf16_backward_pair_on_the_models_views(cuda, T):
+    """The bf16 pair on the model's views (q, k, v transposed (B, T, H, D)
+    projections, o and do as the forward returns them) at odd and ragged T
+    and head widths to 520 (D % 8 != 0 included; every width of the table
+    and the mma.sync chunks past it): dq, dk and dv against the plain
+    passes, written in q's, k's and v's strides, and two calls equal bit
+    for bit."""
+    for D in BACKWARD_D:
+        args = _views_and_cotangent((2, 3, T, D), seed=T + D)
+        got = _pair(args)
+        again = _pair(args)
+        torch.cuda.synchronize()
+        _check_pair(got, _plain_pair(args), D, f"T={T} D={D}")
+        for a, ref in zip(got, args[:3]):
+            assert a.stride() == ref.stride(), (T, D, a.stride())
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), (T, D)
+
+
+@pytest.mark.parametrize("T", RAGGED_T)
+def test_bf16_backward_pair_at_ragged_edges_on_the_models_views(cuda, T):
+    """Where a 16-row tile, a key or query tile (32 to 128) or a work item
+    (64 or 128 rows) ends, on the model's views, at head dims that are and
+    are not a multiple of 16."""
+    for D in (16, 24, 32, 64, 128, *WIDE_D):
+        args = _views_and_cotangent((2, 3, T, D), seed=2 * T + D)
+        got = _pair(args)
+        torch.cuda.synchronize()
+        _check_pair(got, _plain_pair(args), D, f"T={T} D={D}")
+
+
+@pytest.mark.parametrize("T,D", [(256, 32), (200, 32), (193, 64),
+                                 (300, 128), (65, 32)])
+def test_bf16_backward_pair_guards_a_fully_masked_key_tile(cuda, T, D):
+    """The dq kernel takes its key tiles last to first; where every logit
+    of the first tile it takes is -inf in f32 (q = 1e20, k = -1e20 there)
+    and the keys before it are finite, p is exactly 0 there: dq, dk and dv
+    finite and equal to the plain passes'.  At T=65 (one tile) every key
+    but the first 8 is masked: over one key the softmax is constant, dk is
+    0 in exact arithmetic and both sides would return rounding noise of dp
+    - delta times q = 1e20."""
+    from vit_cifar_torch.ops.cuda.common import backward_plan
+
+    keys = backward_plan(T, D)["dq"]["tile"]
+    first = max((T - 1) // keys * keys, 8)  # the first tile taken
+    g = torch.Generator(device="cuda").manual_seed(T + D)
+    q = torch.full((2, 2, T, D), 1e20, device="cuda").to(torch.bfloat16)
+    k = (torch.randn((2, 2, T, D), generator=g, device="cuda")
+         * 1e-20).to(torch.bfloat16)
+    k[:, :, first:] = -1e20
+    v = torch.randn((2, 2, T, D), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    out, lse = flash_attention_lse_reference(q, k, v, 0.1)
+    do = torch.randn((2, T, 2, D), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    args = (q, k, v, out, do, lse, 0.1)
+    got = _pair(args)
+    torch.cuda.synchronize()
+    _check_pair(got, _plain_pair(args), D, f"T={T} D={D}")
+
+
+@pytest.mark.parametrize("T", (65, 129, 300, 1025))
+def test_bf16_backward_pair_reads_nothing_past_T(cuda, T):
+    """Query rows past T (the last work item's and query tile's) arrive as
+    TMA's zeros and read lse = delta = 0, so they add exactly 0: with o,
+    do and lse the leading part of buffers whose bytes past them are NaN,
+    every gradient is finite and equals the plain passes'."""
+    for D in (32, 64, 128):
+        B, H = 2, 3
+        q, k, v, out, g, lse, scale = _views_and_cotangent((B, H, T, D),
+                                                           seed=T + 3 * D)
+
+        def nan_tail(t):
+            buf = torch.full((t.numel() + 4096,), float("nan"),
+                             dtype=t.dtype, device="cuda")
+            buf[:t.numel()] = t.reshape(-1)
+            return buf[:t.numel()].view(t.shape)
+
+        args = (q, k, v, nan_tail(out), nan_tail(g), nan_tail(lse), scale)
+        got = _pair(args)
+        torch.cuda.synchronize()
+        _check_pair(got, _plain_pair((q, k, v, out, g, lse, scale)), D,
+                    f"T={T} D={D}")
+
+
+def test_bf16_backward_pair_copies_nothing_on_the_models_path(cuda,
+                                                               monkeypatch):
+    """On the model's views the pair makes no copy of q, k, v, o or do
+    where TMA reads them (D % 8 == 0), and where it cannot (D=100) one
+    padded copy of each of q, k, v and do a pass (o is read by rows), 8
+    for the pair; through the Function no copy, and the views' gradients
+    in their own strides."""
+    from vit_cifar_torch.ops.cuda import common
+
+    copies = []
+    real = common.padded_copy
+    monkeypatch.setattr(common, "padded_copy",
+                        lambda t, meta=False: copies.append(meta)
+                        or real(t, meta))
+    for D, want_copies in ((32, 0), (100, 8)):
+        args = _views_and_cotangent((2, 3, 65, D), seed=D)
+        copies.clear()
+        got = _pair(args)
+        torch.cuda.synchronize()
+        assert copies.count(False) == want_copies, (D, copies)
+        _check_pair(got, _plain_pair(args), D, f"D={D}")
+    # through the Function: no copy, and the views' grads in their strides
+    B, T, H, D = 2, 65, 3, 32
+    x = torch.randn((3, B, T, H * D), device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    q, k, v = (t.view(B, T, H, D).transpose(1, 2) for t in x)
+    copies.clear()
+    grads = torch.autograd.grad(flash_attention(q, k, v, 0.1), [q, k, v],
+                                torch.ones((B, T, H, D), device="cuda",
+                                           dtype=torch.bfloat16))
+    assert copies.count(False) == 0, copies
+    for a, ref in zip(grads, (q, k, v)):
+        assert a.stride() == ref.stride()
+
+
 def _layer_grads(mod, x, g):
     return torch.autograd.grad(mod(x), [x, *mod.parameters()], g)
 

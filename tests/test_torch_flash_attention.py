@@ -20,8 +20,10 @@ T).
 tiles of 128 or 64 keys in order in the tiled one), the exponent as one
 FFMA, and the hi/lo p.v.  ``mma_forward_model`` models the mma.sync
 column-chunk forward that heads past 256 columns run
-(``csrc/fwd_bf16_chunk.cuh``), and ``mma_backward_model`` the tiled
-backward pair (``csrc/mma_attention.cuh``).  No CPU can run the kernels;
+(``csrc/fwd_bf16_chunk.cuh``), and ``wgmma_backward_model`` the tiled
+backward pair (``csrc/wgmma_backward.cuh`` up to 128 columns, with the
+tiles of ``csrc/backward_tiles.cuh``; past them the mma.sync column-chunk
+kernels of ``csrc/mma_attention.cuh``).  No CPU can run the kernels;
 the models are held against JAX's kernels in bf16 and against the plain
 versions at ragged T: lse within 1e-5, outputs and grads within one bf16
 step, and before their rounding within 1e-5 of the largest value of the
@@ -42,7 +44,7 @@ from vit_cifar_torch.ops.cuda.attention import (
     F32_CHUNK_SMEM_BYTES, fused_attention_lse_reference,
     fused_attention_reference, whole_head_fits, whole_head_smem_bytes)
 from vit_cifar_torch.ops.cuda.common import (COL_CHUNK, MAX_SMEM_BYTES,
-                                            forward_plan)
+                                            backward_plan, forward_plan)
 from vit_cifar_torch.ops.cuda.flash_attention import (
     FlashAttentionFunction, flash_attention, flash_attention_lse,
     flash_attention_lse_reference, flash_attention_reference,
@@ -383,23 +385,36 @@ def test_wgmma_forward_model_tiles_as_the_dispatch_does():
     assert forward_plan("mhsa_fwd", 65, 384) is None
 
 
-def mma_backward_model(q, k, v, o, do, lse, scale: float):
-    """A torch model of the arithmetic of the bf16 tensor-core backward
-    kernels (``csrc/flash_bwd_dq.cu``, ``csrc/flash_bwd_dkv.cu``): s = q.k^T
-    and dp = do.v^T of bf16 values summed in f32; p = exp2(s*c -
-    lse*log2(e)) with c the f32 product scale*log2(e); delta = rowsum(do*o)
-    and ds = p*(dp - delta)*scale in f32; p and ds split into bf16 hi =
-    rn(x) and lo = rn(x - hi), both multiplied into k (dq), q (dk) and do
-    (dv), summed over tiles of 64 keys (dq) or query rows (dk, dv) in the
-    kernels' order.  ``o`` and ``do`` are (B, T, H, D), ``lse`` (B, H, T)
-    f32.  Returns ((dq, dk, dv) in bf16, the same before their rounding)."""
-    T = q.shape[2]
+def wgmma_backward_model(q, k, v, o, do, lse, scale: float):
+    """A torch model of the arithmetic of the bf16 backward pair as its
+    dispatch takes q's (T, D) (``backward_plan``, from the table of
+    instances ``csrc/backward_tiles.cuh``): s = q.k^T and dp = do.v^T of
+    bf16 values summed in f32; p = exp2(s*c - lse*log2(e)) as one FFMA
+    (its single rounding modelled in f64) with c the f32 product
+    scale*log2(e); delta = rowsum(do*o) and ds = p*(dp - delta)*scale in
+    f32; p and ds split into bf16 hi = rn(x) and lo = rn(x - hi), both
+    multiplied into k (dq, key tile by key tile, last to first), q (dk) and
+    do (dv, query tile by query tile, first to last), each tile's hi then
+    lo.  Up to 512 columns the tiles are the wgmma kernels' (the dq
+    kernel's key tile, the dk/dv kernel's query tile; cutting the columns
+    among consumers changes no sum); past them the mma.sync column-chunk
+    kernels' 64 keys and 64 query rows, all in order.  ``o`` and ``do`` are (B, T, H, D), ``lse`` (B, H, T) f32.
+    Returns ((dq, dk, dv) in bf16, the same before their rounding)."""
+    T, D = q.shape[2:]
+    plan = backward_plan(T, D)
+    if plan is None:
+        keys = queries = MMA_CHUNK
+        key_order = range(0, T, keys)
+    else:
+        keys, queries = plan["dq"]["tile"], plan["dkv"]["tile"]
+        key_order = reversed(range(0, T, keys))
     qf, kf, vf = (a.to(torch.float32) for a in (q, k, v))
     of, dof = (a.to(torch.float32).transpose(1, 2) for a in (o, do))
     c = float(np.float32(scale) * np.float32(LOG2E))
     lse2 = lse[..., None] * float(np.float32(LOG2E))
     delta = (dof * of).sum(dim=-1, keepdim=True)
-    p = torch.exp2(torch.einsum("bhid,bhjd->bhij", qf, kf) * c - lse2)
+    s = torch.einsum("bhid,bhjd->bhij", qf, kf)
+    p = torch.exp2((s.double() * c - lse2.double()).to(torch.float32))
     ds = p * (torch.einsum("bhid,bhjd->bhij", dof, vf) - delta) * scale
 
     def hi_lo(x):
@@ -407,11 +422,13 @@ def mma_backward_model(q, k, v, o, do, lse, scale: float):
         return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
 
     dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
-    for t0 in range(0, T, MMA_CHUNK):
-        t = slice(t0, t0 + MMA_CHUNK)
-        for half in hi_lo(ds[..., t]):  # dq: a tile of 64 keys
+    for k0 in key_order:  # dq: a key tile at a time
+        t = slice(k0, k0 + keys)
+        for half in hi_lo(ds[..., t]):
             dq += torch.einsum("bhij,bhjd->bhid", half, kf[:, :, t])
-        for half in hi_lo(ds[:, :, t]):  # dk: a tile of 64 query rows
+    for q0 in range(0, T, queries):  # dk, dv: a query tile at a time
+        t = slice(q0, q0 + queries)
+        for half in hi_lo(ds[:, :, t]):
             dk += torch.einsum("bhij,bhid->bhjd", half, qf[:, :, t])
         for half in hi_lo(p[:, :, t]):
             dv += torch.einsum("bhij,bhid->bhjd", half, dof[:, :, t])
@@ -429,7 +446,7 @@ def _plain_passes(*args):
 
 @cases
 def test_mma_backward_model_matches_jax_vjp_in_bf16(case):
-    """The tensor-core backward's arithmetic, modelled in torch, against
+    """The bf16 backward pair's arithmetic, modelled in torch, against
     ``jax.vjp`` of JAX's ``flash_attention`` (interpret mode, at the case's
     tile split) on the same bf16 inputs, reading JAX's own forward output
     and lse: dq, dk and dv each within one bf16 step, and before rounding
@@ -451,7 +468,7 @@ def test_mma_backward_model_matches_jax_vjp_in_bf16(case):
             torch.bfloat16)
     lse = torch.from_numpy(np.asarray(jlse)[:, :, :T, 0].copy())
 
-    got, unrounded = mma_backward_model(tq, tk, tv, o, g, lse, scale)
+    got, unrounded = wgmma_backward_model(tq, tk, tv, o, g, lse, scale)
     exact = _plain_passes(*(a.to(torch.float32) for a in (tq, tk, tv, o, g)),
                           lse, scale)
     for name, a, u, w, e in zip(("dq", "dk", "dv"), got, unrounded, want,
@@ -466,19 +483,62 @@ def test_mma_backward_model_matches_jax_vjp_in_bf16(case):
 @pytest.mark.parametrize("T", [1, 7, 8, 15, 16, 17, 63, 64, 65, 66, 127, 128,
                                129])
 def test_mma_backward_model_matches_the_plain_passes_at_ragged_edges(T):
-    """Tiles of 16 and 64 keys or query rows end at every T of the card's
-    ragged-edge phase; the model's grads stay within one bf16 step of the
-    plain passes' at head dims that are and are not a multiple of 16."""
+    """The pair's key and query tiles (32 to 96) and work items (64 and
+    128 rows) end at every T of the card's ragged-edge phase; the model's
+    grads stay within one bf16 step of the plain passes' at head dims that
+    are and are not a multiple of 16, at every width of the table."""
     for D in (16, 24, 32, 64, 128):
         _, (tq, tk, tv), scale = _bf16_inputs(1, 2, T, D, seed=T + D)
         g = _bf16_cotangent(1, 2, T, D, seed=T + D + 1)
         o, lse = flash_attention_lse_reference(tq, tk, tv, scale)
         args = (tq, tk, tv, o, g, lse, scale)
-        got, _ = mma_backward_model(*args)
+        got, _ = wgmma_backward_model(*args)
         for name, a, w in zip(("dq", "dk", "dv"), got, _plain_passes(*args)):
             _assert_within_one_bf16_step(a.to(torch.float32).numpy(),
                                          w.to(torch.float32).numpy(),
                                          f"{name} T={T} D={D}")
+
+
+def test_wgmma_backward_model_tiles_as_the_dispatch_does():
+    """The backward pair's tiles by padded width, from the table its CUDA
+    dispatch expands: the dq kernel's key tiles of 96 keys at 32 columns,
+    64 at 64 and 128, 32 at 256 and 384 and 16 at 512; the dk/dv kernel's
+    query tiles of 64 up to 128 columns, 32 at 256 and 384 and 16 at 512.
+    Up to 128 columns a dq work item is 128 query rows
+    and a dk/dv one 128 keys (64 at 128, its consumers splitting the
+    columns); past 128 both cut the columns into chunks (dq 128, dk/dv 64)
+    over 64 rows or keys, two chunks an item, the widths padded to a
+    multiple of 128.  One work item a head at the flagship's T=65, nine at
+    the pixel ViT's T=1025; no plan past 512 columns (the mma.sync column
+    chunks)."""
+    def tiles(T, D):
+        plan = backward_plan(T, D)
+        return tuple((k["tile"], k["cols"], k["rows"])
+                     for k in (plan["dq"], plan["dkv"]))
+
+    assert tiles(65, 32) == ((96, 32, 128), (64, 32, 128))
+    assert tiles(1025, 8) == ((96, 32, 128), (64, 32, 128))
+    assert tiles(130, 64) == ((64, 64, 128), (64, 64, 128))
+    assert tiles(300, 33) == ((64, 64, 128), (64, 64, 128))
+    assert tiles(257, 128) == ((64, 128, 128), (64, 64, 64))
+    assert tiles(4096, 100) == ((64, 128, 128), (64, 64, 64))
+    assert tiles(257, 192) == ((32, 128, 64), (32, 64, 64))
+    assert tiles(142, 384) == ((32, 128, 64), (32, 64, 64))
+    assert tiles(65, 512) == ((16, 128, 64), (16, 64, 64))
+    assert [backward_plan(65, D)["width"] for D in (129, 256, 257, 385)] \
+        == [256, 256, 384, 512]
+    for T, items in ((1, 1), (65, 1), (128, 1), (129, 2), (1025, 9)):
+        assert backward_plan(T, 32)["dq"]["items"] == items
+        assert backward_plan(T, 32)["dkv"]["items"] == items
+    assert backward_plan(257, 128)["dkv"]["items"] == 5
+    # 64 rows times groups of two chunks: 3 at 384 columns for dk/dv
+    assert backward_plan(257, 192)["dq"]["items"] == 5
+    assert backward_plan(142, 384)["dq"]["items"] == 3 * 2
+    assert backward_plan(142, 384)["dkv"]["items"] == 3 * 3
+    assert backward_plan(65, 32)["swizzle"] == 64
+    assert backward_plan(65, 64)["swizzle"] == 128
+    assert backward_plan(65, 513) is None
+    assert backward_plan(257, 640) is None
 
 
 def test_flash_matches_the_whole_head_plain_version_in_bf16():
@@ -535,14 +595,21 @@ def test_flash_function_saves_no_t_by_t_tensor():
 
 
 @pytest.mark.parametrize("which", ["fused", "flash"])
-def test_functions_save_the_callers_views(which):
+def test_functions_save_the_callers_views(which, monkeypatch):
     """Both autograd Functions save q, k and v as the caller gave them --
     the module's transposed views of its (B, T, H, D) projections -- and no
-    copy of them: the saved tensors share the views' storage and strides."""
+    copy of them: the saved tensors share the views' storage and strides.
+    Their one backward (``AttentionFunction``'s) hands those views, the
+    forward's out and the cotangent to the two backward operators as they
+    are, and dq, dk and dv come back in q's, k's and v's strides, so that
+    the module's transposes take them as views."""
     from vit_cifar_torch.ops.cuda.attention import FusedAttentionFunction
+    from vit_cifar_torch.ops.cuda.flash_attention import AttentionFunction
 
     fn = {"fused": FusedAttentionFunction,
           "flash": FlashAttentionFunction}[which]
+    assert issubclass(fn, AttentionFunction)
+    assert fn.backward is AttentionFunction.backward
     B, H, T, D = 2, 3, 9, 16
     x = torch.from_numpy(np.random.default_rng(11).normal(
         size=(3, B, T, H * D)).astype(np.float32)).requires_grad_()
@@ -556,7 +623,38 @@ def test_functions_save_the_callers_views(which):
     for got, want in zip(views, (q, k, v)):
         assert got.data_ptr() == want.data_ptr()
         assert got.stride() == want.stride() != got.contiguous().stride()
-    torch.autograd.grad(out.sum(), x)
+
+    calls = []
+
+    def spy(name):
+        real = getattr(flash_module, name)
+
+        def run(*args):
+            grads = real(*args)
+            calls.append((name, args, grads if isinstance(grads, tuple)
+                          else (grads,)))
+            return grads
+        return run
+
+    for name in ("flash_tiled_bwd_dq", "flash_tiled_bwd_dkv"):
+        monkeypatch.setattr(flash_module, name, spy(name))
+    g = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(B, T, H, D)).astype(np.float32))
+    dx, = torch.autograd.grad(out, x, g)
+    assert [c[0] for c in calls] == ["flash_tiled_bwd_dq",
+                                     "flash_tiled_bwd_dkv"]
+    for name, args, grads in calls:
+        for got, want in zip(args[:3], (q, k, v)):  # the caller's views
+            assert got.data_ptr() == want.data_ptr(), name
+            assert got.stride() == want.stride(), name
+        assert args[3].data_ptr() == out.data_ptr(), name  # o as returned
+        assert args[3].stride() == out.stride(), name
+        assert args[4].data_ptr() == g.data_ptr(), name  # do as given
+        assert args[4].stride() == g.stride(), name
+        wants = (q,) if name == "flash_tiled_bwd_dq" else (k, v)
+        for got, want in zip(grads, wants):  # in q's, k's and v's strides
+            assert got.stride() == want.stride(), name
+    assert dx.shape == x.shape
 
 
 @pytest.mark.parametrize("T,D,kernel,want", [

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
-from vit_cifar_torch.ops.cuda import attention as attention_module
+from vit_cifar_torch.ops.cuda import flash_attention as flash_module
 from vit_cifar_torch.ops.cuda.attention import (
     FusedAttentionFunction, fused_attention, fused_attention_lse,
     fused_attention_lse_reference, fused_attention_reference)
@@ -130,9 +130,11 @@ def test_function_backward_runs_the_tiled_pair_and_matches_jax(shape,
             return fn(*args)
         return wrapped
 
+    # the backward both Functions share (``AttentionFunction``) calls the
+    # passes of flash_attention.py
     for name in ("flash_tiled_bwd_dq", "flash_tiled_bwd_dkv"):
-        monkeypatch.setattr(attention_module, name,
-                            spy(getattr(attention_module, name)))
+        monkeypatch.setattr(flash_module, name,
+                            spy(getattr(flash_module, name)))
     leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
     out = fused_attention(*leaves, scale)
     assert out.grad_fn.name() == "FusedAttentionFunctionBackward"

@@ -16,10 +16,11 @@ differs.  Each run measures, in bf16:
   (128, 12, 65, 32): CUDA-event means over windows of launches and, under
   torch.profiler, device ms a call, and at (128, 12, 65, 32) the host
   microseconds a forward call costs on contiguous inputs; and the
-  forwards on the model's
-  transposed views (the pixel shape's tiled ones, the flagship's
-  whole-head ones): device ms a call, any copies of the views included,
-  and the host microseconds a call costs;
+  forwards and the tiled dq and dk/dv passes on the model's transposed
+  views (the pixel shape's tiled forwards, the flagship's whole-head ones;
+  the passes with o and lse as the forward returns them and a (B, T, H,
+  D) cotangent): device ms a call, any copies of the views included, and
+  the host microseconds a call costs;
 - the flagship training step (README recipe without AutoAugment, B=128):
   host ms a step (synchronized), and under torch.profiler the device
   activity a step, the kernels a step and the busy share against the
@@ -92,20 +93,27 @@ def _kernel_times(smoke, torch) -> dict:
             if tag == "flagship" and "fwd" in name:
                 # the host's cost of a call on contiguous inputs
                 out[f"{name} {tag} host_us"] = smoke.host_us(fn)
-    # the forwards on the model's views, (B, H, T, D) transposes of its
-    # (B, T, H, D) projections, as the attention module calls them: the
-    # call's device time (whatever copies it makes included) and its host
-    # microseconds
+    # the forwards and the backward passes on the model's views, (B, H, T,
+    # D) transposes of its (B, T, H, D) projections, as the attention
+    # module and its Function call them: the call's device time (whatever
+    # copies it makes included) and its host microseconds
     for tag in ("pixel", "flagship"):
         shape = KERNEL_SHAPES[tag]
-        scale = 1.0 / (shape[1] * shape[3]) ** 0.5
+        B, H, T, D = shape
+        scale = 1.0 / (H * D) ** 0.5
         q, k, v = smoke.model_views(shape, gen)
+        o, lse = flash_attention_lse(q, k, v, scale)
+        g = torch.randn((B, T, H, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        args = (q, k, v, o, g, lse, scale)
         fns = {"flash_fwd": lambda: flash_attention(q, k, v, scale),
                "flash_fwd_lse": lambda: flash_attention_lse(q, k, v, scale)}
         if tag == "flagship":
             fns = {"mhsa_fwd": lambda: fused_attention(q, k, v, scale),
                    "mhsa_fwd_lse": lambda: fused_attention_lse(q, k, v,
                                                                scale)}
+        fns["flash_bwd_dq_tiled"] = lambda: flash_tiled_bwd_dq(*args)
+        fns["flash_bwd_dkv_tiled"] = lambda: flash_tiled_bwd_dkv(*args)
         for name, fn in fns.items():
             out[f"{name} {tag} views device"] = smoke.device_ms(fn)[0]
             out[f"{name} {tag} views host_us"] = smoke.host_us(fn)

@@ -32,26 +32,33 @@ __host__ __device__ constexpr int chunk_width(int D, int e) {
   return D - e * kColChunk < kColChunk ? D - e * kColChunk : kColChunk;
 }
 
-// The (b, h, t) strides of q, k and v in elements, as the caller's (B, H,
-// T, D) views have them (d's is 1); index 0 is q, 1 k, 2 v.
-struct Qkv {
-  int64_t sb[3], sh[3], st[3];
+// The (b, h, t) strides in elements of n (B, H, T, D) views as the caller
+// has them, d's being 1.
+template <int n>
+struct Views {
+  int64_t sb[n], sh[n], st[n];
 
-  // from the entry points' array: q's (sb, sh, st), then k's, then v's
-  static Qkv from(const long long* s) {
-    Qkv l;
-    for (int x = 0; x < 3; ++x) {
+  // from the entry points' array: each view's (sb, sh, st) in turn
+  static Views from(const long long* s) {
+    Views l;
+    for (int x = 0; x < n; ++x) {
       l.sb[x] = s[3 * x];
       l.sh[x] = s[3 * x + 1];
       l.st[x] = s[3 * x + 2];
     }
     return l;
   }
-  // the offset of row 0 of head (b, h) of tensor x
+  // the offset of row 0 of head (b, h) of view x
   __host__ __device__ int64_t head(int x, int b, int h) const {
     return b * sb[x] + h * sh[x];
   }
 };
+
+// The forwards': index 0 is q, 1 k, 2 v.
+using Qkv = Views<3>;
+// The backward pair's: 0 q, 1 k, 2 v, 3 o, 4 do (o and do as views of their
+// (B, T, H, D) tensors), 5 dq or dk, 6 dv.
+using BwdLayout = Views<7>;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

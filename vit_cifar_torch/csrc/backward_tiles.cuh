@@ -1,0 +1,45 @@
+// The instances of the bf16 wgmma backward pair (wgmma_backward.cuh), one
+// row each.  This one table is what the CUDA dispatch (flash_bwd_dq.cu and
+// flash_bwd_dkv.cu) expands and what the wrappers' plan
+// (ops/cuda/common.py::backward_plan) and the CPU model of the kernels'
+// arithmetic read, so they cannot disagree.  No include guard: each
+// includer defines both macros.  Rows by ascending padded width: a head of
+// D columns takes the first width >= D; past the last (512) the mma.sync
+// column-chunk kernels run.
+//
+// ptxas gives a consumer warpgroup 168 registers, and each kernel keeps one
+// tile's s and dp accumulators (f32) in flight beside the previous tile's
+// hi + lo fragments and its gradient accumulators; shared memory holds an
+// item's rows at the full width beside the ring.  Each tile up to 256
+// columns is the fastest of tools/backward_choices.py's measurements
+// against its neighbours in this table (half and 1.5 or 2 times the
+// tile): the larger neighbours spill, or have ptxas serialise the wgmmas,
+// or are slower though they fit; past 256 columns the tiles shrink so
+// that the rows fit shared memory.
+//
+// DQ(width, keys, cols): the dq kernel's key tile, and the columns of dq a
+//   consumer holds (cols / 2 registers a thread; s and dp take keys / 2
+//   each, ds as hi + lo fragments keys / 2).  cols == width: a work item is
+//   128 query rows, 64 a consumer.  cols < width (the column chunks): a
+//   work item is 64 query rows and 2 * cols columns of dq, the two
+//   consumers on the same rows, each its own chunk of cols columns; both
+//   sum s and dp over all the columns.
+// DKV(width, queries, cols): the dk/dv kernel's query tile, and the
+//   columns of dk and of dv a consumer holds (cols registers a thread
+//   between them; s^T, dp^T and their fragments take 2 * queries).
+//   cols == width: a work item is 128 keys, 64 a consumer; cols < width:
+//   64 keys and 2 * cols columns an item, as for dq.
+
+DQ(32, 96, 32)
+DQ(64, 64, 64)
+DQ(128, 64, 128)
+DQ(256, 32, 128)
+DQ(384, 32, 128)
+DQ(512, 16, 128)
+
+DKV(32, 64, 32)
+DKV(64, 64, 64)
+DKV(128, 64, 64)
+DKV(256, 32, 64)
+DKV(384, 32, 64)
+DKV(512, 16, 64)

@@ -3,74 +3,69 @@
 //
 // Replaces the TPU kernel
 // vit_cifar_tpu/ops/pallas/attention.py::_flash_bwd_dkv_kernel (pass 2 of
-// _flash_bwd_impl) where flash_attention's custom VJP reaches it.  For
-// every (batch, head) and key row j:
+// _flash_bwd_impl) where flash_attention's and fused_attention's custom
+// VJPs reach it.  For every (batch, head) and key row j:
 //   p_ij = exp(q_i . k_j * scale - lse_i),  dp_ij = do_i . v_j
 //   ds_ij = p_ij * (dp_ij - delta_i) * scale,  delta_i = sum_d do_i * o_i
 //   dv_j = sum_i p_ij do_i,   dk_j = sum_i ds_ij q_i
-// in f32 whatever the input type; lse is the forward's (flash_fwd.cu).  o
-// and do are read in place in the (B, T, H, D) layout that flash_attention
-// returns; dk and dv are written in (B, H, T, D) in the input type.
+// in f32 whatever the input type; lse is the forward's.  q, k, v, o and do
+// are the caller's views, read in place through their strides (o and do in
+// the (B, T, H, D) layout the forward returns), and dk and dv are written
+// in the input type in the strides the wrapper gives them (k's and v's
+// own, torch.empty_like).
 //
 // What bounds it on this card: at the pixel-token ViT's shape (128, 12,
 // 1025, 32) one head is four 1025x1025x32 products (q.k, do.v, p^T.do,
-// ds^T.q) and 1.05 M exps against about 0.46 MB in and out in bf16, some
-// 900 FLOP per byte: arithmetic, not device memory, bounds it, the
-// products at the tensor cores' peak a little more than the exps.
+// ds^T.q) and 1.05 M exps against about 0.46 MB in and out in bf16: the
+// products at the tensor cores' peak a little more than the exps, and with
+// p and ds split into hi + lo the products are six.  At the flagship's T=65
+// it is bytes.  So:
 //
-//   bf16 (dtype 1), on the tensor cores (mma_attention.cuh): the forward
-//   with the roles of the rows swapped.  One block of 4 warps per (b, h,
-//   64 keys); a warp owns 16 keys, their K and V rows as A fragments and
-//   their dk and dv accumulators in registers.  The loop runs over tiles
-//   of 64 query rows: Q and dO (row stride H*D, do being (B, T, H, D)) are
-//   staged as bf16 by cp.async, two stages deep, and beside them the
-//   tile's lse (times log2(e)) and delta in shared memory.  delta is
-//   recomputed for every query tile from o and dO, as the TPU kernel does:
-//   the dq pass computes it too, but handing it over would need a (B, H,
-//   T) buffer between the two launches, for under 1% of this kernel's
-//   products.  For each 16 query rows of a tile: s^T = k.q^T and dp^T =
-//   v.dO^T (mma.sync.m16n8k16, Q and dO through ldmatrix), p^T =
-//   exp2(s^T * scale*log2(e) - lse*log2(e)) with the columns' lse, ds^T =
-//   p^T * (dp^T - delta) * scale, then dv += p^T.dO and dk += ds^T.Q with
-//   p^T and ds^T repacked as A fragments and split into bf16 hi + lo (so
-//   that both keep f32 accuracy, as the TPU kernel keeps them), dO and Q
-//   through ldmatrix.trans.  No atomics, and no block depends on another.
-//   Query rows past T read zeros and get lse = +inf and delta = 0, so p^T
-//   and ds^T are 0 there; keys past T are never written, and a warp whose
-//   16 keys all lie past T computes nothing; columns past D read zeros
-//   (any D up to 128).  Up to D = 64 a warp keeps its K and V fragments in
-//   registers for the whole loop; at D = 128 it reloads them from shared
-//   memory for every 16 query rows, which keeps its registers (dk and dv
-//   alone take 128 a thread there) under the limit.
+//   bf16 (dtype 1), D <= 512: first a pass over the rows (dkv_rows_kernel)
+//   writes every query row's lse * log2(e) and delta into a scratch the
+//   wrapper gives, padded with zeros to whole query tiles; then the
+//   warp-specialised wgmma kernel below, on the blocks of wgmma_blocks.cuh
+//   and wgmma_backward.cuh.  A persistent grid of one block an SM walks the
+//   work items (b, h, key tile: 128 keys, or 64 from 128 columns on), so a head
+//   of T <= 128 is one item.  A producer thread brings an item's K and V
+//   once by TMA (two buffers) and, through a ring, each query tile's Q and
+//   dO (TMA) and its rows of lse and delta (bulk copies).  Two consumer
+//   warpgroups run s^T = k.q^T and dp^T = v.do^T as ss-wgmmas, p^T and
+//   ds^T in their registers (one FFMA into ex2 an exponent), each split
+//   into bf16 hi + lo, and dv += p^T.do and dk += ds^T.q as rs-wgmmas that
+//   read the same Q and dO tiles MN-major; the next tile's s^T and dp^T are
+//   issued first, so the exps of one tile run while the tensor cores add
+//   the last.  dk and dv stay in registers until the item ends: no atomics,
+//   two calls give equal bits.  The consumers hold dk and dv of 64 keys
+//   (width registers a thread) beside s^T and dp^T of a query tile and
+//   their fragments, within the 168 registers ptxas gives them: the query
+//   tile is 64 up to 128 columns and 32 past (backward_tiles.cuh, the
+//   fastest measured: tools/backward_choices.py; 128 has ptxas serialise
+//   the wgmmas), and from 128 columns on the two consumers split the
+//   columns of the same 64 keys into chunks of 64 (backward_tiles.cuh),
+//   each computing p^T and ds^T over all the head's columns (padded to a
+//   multiple of 128), a work item two chunks: 2 * D/128 times in all.  The
+//   item's keys at the full width must fit shared memory beside the ring,
+//   hence the 512-column limit (16-row query tiles there).  Query rows
+//   past T arrive as zeros with lse and delta 0, so they add exactly 0;
+//   keys past T are never written.
+//
+//   bf16, D > 512: the mma.sync column-chunk kernel (mma_attention.cuh):
+//   blocks of 4 warps per (b, h, 64 keys, 128-column chunk of dk or dv),
+//   s^T and dp^T summed over every chunk by each block, Q and dO staged by
+//   cp.async, lse and delta per query tile in shared memory.
 //
 //   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
 //   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
 //   to; so f32 keeps the first design: one block of 8 warps per 64 keys,
 //   K, V, Q and dO converted into f32 shared memory (Q and dO with a row
 //   stride of D+1), each warp walking its 8 keys with lanes over query
-//   rows for p and ds and over d for p^T.dO and ds^T.Q.  This is a
+//   rows for p and ds and over d for p^T.dO and ds^T.Q; past 128 columns
+//   one block computes both chunks of dk and dv in turn.  This is a
 //   dispatch by dtype, not a fallback.
 //
-// Heads wider than kColChunk = 128 columns (the TPU kernel pads D to a
-// multiple of 128 and runs any D) are cut into column chunks of 128, and a
-// second grid axis gives each output chunk its own blocks, whose registers
-// and shared memory are those of a 128-column head whatever D is.  s^T and
-// dp^T are summed over the chunks for a whole tile of 64 query rows (kept in
-// registers), one staged chunk of Q and dO at a time, the block's own chunk
-// last; that step turns them into p^T and ds^T and adds p^T.dO and ds^T.Q
-// into the block's chunks.  They are recomputed for every output chunk.
-//   bf16: dk and dv of a chunk get separate blocks (2 * ceil(D/128) of them
-//   per 64 keys), so that a thread holds one 128-column accumulator, as dq
-//   does; a dv block needs only s^T, so it stages dO for its own chunk
-//   alone.  The warp's K (and V) fragments of a chunk are read from device
-//   memory at each step; a query tile's lse and delta are computed at its
-//   first step into one of two slots, by tile parity.
-//   f32: one block computes both chunks of dk and dv; each chunk of the
-//   block's K and V rows and of the query tile's Q and dO is staged in f32
-//   shared memory in turn, lanes over query rows as above.
-//
-// Shared memory does not grow with T or D, so any T and any D run.  Offsets
-// are int64; nothing is padded in device memory.
+// Shared memory does not grow with T, so any T and any D run.  Offsets are
+// int64; nothing is padded in device memory but the rows' scratch.
 //
 // Built by vit_cifar_torch/ops/cuda/build.py (nvcc, sm_90a, plain C
 // interface bound with ctypes).
@@ -81,6 +76,7 @@
 
 #include "attention_common.cuh"
 #include "mma_attention.cuh"
+#include "wgmma_backward.cuh"
 
 namespace {
 
@@ -106,8 +102,8 @@ __global__ void __launch_bounds__(kThreads)
                          const T* __restrict__ v, const T* __restrict__ o,
                          const T* __restrict__ dout,
                          const float* __restrict__ lse, T* __restrict__ dk,
-                         T* __restrict__ dv, int H, int seq, int D,
-                         float scale) {
+                         T* __restrict__ dv, BwdLayout L, int H, int seq,
+                         int D, float scale) {
   extern __shared__ float smem[];
   const int qs = D + 1;
   float* k_s = smem;
@@ -124,16 +120,21 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = (blockIdx.x - bh * tiles) * kTileK;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int64_t head = static_cast<int64_t>(bh) * seq * D;
-  const int64_t row0 = static_cast<int64_t>(b) * seq * H + h;  // (b, 0, h)
+  // row 0 of head (b, h) of each view, its rows L.st[x] apart
+  const T* qh = q + L.head(0, b, h);
+  const T* kh = k + L.head(1, b, h);
+  const T* vh = v + L.head(2, b, h);
+  const T* oh = o + L.head(3, b, h);
+  const T* doh = dout + L.head(4, b, h);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int nk = min(kTileK, seq - k0);
 
   for (int idx = threadIdx.x; idx < nk * D; idx += kThreads) {
-    const int64_t g = head + static_cast<int64_t>(k0) * D + idx;
-    k_s[idx] = to_f32(k[g]);
-    v_s[idx] = to_f32(v[g]);
+    const int j = idx / D;
+    const int d = idx - j * D;
+    k_s[idx] = to_f32(kh[(k0 + j) * L.st[1] + d]);
+    v_s[idx] = to_f32(vh[(k0 + j) * L.st[2] + d]);
   }
 
   float dk_acc[kRows][kCols], dv_acc[kRows][kCols];
@@ -152,16 +153,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int idx = threadIdx.x; idx < nq * D; idx += kThreads) {
       const int i = idx / D;
       const int d = idx - i * D;
-      q_s[i * qs + d] = to_f32(q[head + static_cast<int64_t>(q0) * D + idx]);
-      do_s[i * qs + d] =
-          to_f32(dout[(row0 + static_cast<int64_t>(q0 + i) * H) * D + d]);
+      q_s[i * qs + d] = to_f32(qh[(q0 + i) * L.st[0] + d]);
+      do_s[i * qs + d] = to_f32(doh[(q0 + i) * L.st[4] + d]);
     }
     for (int i = threadIdx.x; i < nq; i += kThreads)
       lse_s[i] = lse[static_cast<int64_t>(bh) * seq + q0 + i];
     __syncthreads();
     // delta of the tile's rows, recomputed per tile as the TPU kernel does
     for (int i = warp; i < nq; i += kWarps) {
-      const T* orow = o + (row0 + static_cast<int64_t>(q0 + i) * H) * D;
+      const T* orow = oh + (q0 + i) * L.st[3];
       float a = 0.f;
       for (int d = lane; d < D; d += 32)
         a = fmaf(do_s[i * qs + d], to_f32(orow[d]), a);
@@ -214,13 +214,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (key0 + r >= nk) break;
-    const int64_t out_row = head + static_cast<int64_t>(k0 + key0 + r) * D;
+    const int key = k0 + key0 + r;
+    T* dkrow = dk + L.head(5, b, h) + key * L.st[5];
+    T* dvrow = dv + L.head(6, b, h) + key * L.st[6];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = lane + 32 * c;
       if (d < D) {
-        dk[out_row + d] = from_f32<T>(dk_acc[r][c]);
-        dv[out_row + d] = from_f32<T>(dv_acc[r][c]);
+        dkrow[d] = from_f32<T>(dk_acc[r][c]);
+        dvrow[d] = from_f32<T>(dv_acc[r][c]);
       }
     }
   }
@@ -235,8 +237,8 @@ size_t smem_bytes(int D) {
 template <int kCols>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const void* lse,
-                       void* dk, void* dv, int B, int H, int seq, int D,
-                       float scale, cudaStream_t stream) {
+                       void* dk, void* dv, const BwdLayout& L, int B, int H,
+                       int seq, int D, float scale, cudaStream_t stream) {
   const int tiles = (seq + kTileK - 1) / kTileK;
   return launch_with_smem(
       flash_bwd_dkv_kernel<float, kCols>, B * H * tiles, kThreads,
@@ -244,26 +246,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(o), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(dk),
-      static_cast<float*>(dv), H, seq, D, scale);
-}
-
-// ---- bf16: the tensor-core instance --------------------------------------
-constexpr int kMmaWarps = 4;
-constexpr int kMmaTileK = 16 * kMmaWarps;  // keys per block
-constexpr int kMmaThreads = 32 * kMmaWarps;
-static_assert(kMmaThreads == 2 * attn_mma::kChunk,
-              "stage() gives each query row of a tile two threads");
-
-// Dynamic shared memory: in bf16, 8 zeros (the chunk that rows past a tile
-// and columns past D read), then the block's K rows, its V rows, Q stage 0,
-// Q stage 1, dO stage 0, dO stage 1, each kChunk rows of stride_elems(D);
-// then in f32 the query tiles' lse (log2 units) and delta, kChunk each for
-// each of the two stages.
-size_t mma_smem_bytes(int D) {
-  return sizeof(__nv_bfloat16) *
-             (8 + 6 * static_cast<size_t>(attn_mma::kChunk) *
-                      attn_mma::stride_elems(D)) +
-         sizeof(float) * 4 * attn_mma::kChunk;
+      static_cast<float*>(dv), L, H, seq, D, scale);
 }
 
 // acc + the dot product of 8 bf16 pairs, x and y 16 bytes each, in f32.
@@ -280,170 +263,358 @@ __device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
   return acc;
 }
 
-// kRegs: the warp keeps its K and V fragments in registers for the whole
-// loop (else it reloads them from shared memory for every 16 query rows).
-template <int kDp, bool kRegs>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ o,
-                             const __nv_bfloat16* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             __nv_bfloat16* __restrict__ dk,
-                             __nv_bfloat16* __restrict__ dv, int H, int seq,
-                             int D, float scale, float c, bool vec) {
-  using namespace attn_mma;
-  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
-  const int tile = kChunk * stride_elems(D);
-  __nv_bfloat16* zeros = smem_bf16;
-  __nv_bfloat16* k_s = smem_bf16 + 8;
-  __nv_bfloat16* v_s = k_s + tile;
-  __nv_bfloat16* q_s = v_s + tile;   // stage i at q_s + i * tile
-  __nv_bfloat16* do_s = q_s + 2 * tile;
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * tile);  // + i * kChunk
-  float* delta_s = lse_s + 2 * kChunk;
-
-  const int tiles = (seq + kMmaTileK - 1) / kMmaTileK;
-  const int bh = blockIdx.x / tiles;  // b * H + h
-  const int k0 = (blockIdx.x - bh * tiles) * kMmaTileK;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int64_t head = static_cast<int64_t>(bh) * seq * D;
-  const int64_t ld = static_cast<int64_t>(H) * D;  // row stride of o, do
-  // (b, 0, h) in the (B, T, H, D) layout of o and do
-  const int64_t bthd = (static_cast<int64_t>(b) * seq * H + h) * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nk = min(kMmaTileK, seq - k0);
-  const int key0 = 16 * warp;  // this warp's first key in the block's tile
-  const bool active = key0 < nk;  // warp-uniform
-
-  // query tile it: Q and dO by cp.async, then the rows' lse and delta (two
-  // threads a row, each over every other 8-column chunk, or every other
-  // column without vec), +inf and 0 past T
-  auto stage = [&](int it) {
-    const int q0 = it * kChunk;
-    const int n = min(kChunk, seq - q0);
-    stage_rows(q_s + (it & 1) * tile, q + head + static_cast<int64_t>(q0) * D,
-               D, n, D, vec, threadIdx.x, kMmaThreads);
-    stage_rows(do_s + (it & 1) * tile, dout + bthd + q0 * ld, ld, n, D, vec,
-               threadIdx.x, kMmaThreads);
-    cp_async_commit();
-    const int r = threadIdx.x >> 1;
-    float a = 0.f;
-    if (r < n) {
-      const int64_t row = bthd + (q0 + r) * ld;
-      if (vec) {
-        for (int ch = threadIdx.x & 1; ch < D / 8; ch += 2)
-          a = dot8(*reinterpret_cast<const uint4*>(dout + row + 8 * ch),
-                   *reinterpret_cast<const uint4*>(o + row + 8 * ch), a);
-      } else {
-        for (int d = threadIdx.x & 1; d < D; d += 2)
-          a = fmaf(__bfloat162float(dout[row + d]),
-                   __bfloat162float(o[row + d]), a);
-      }
+// ---- bf16, D <= 512: the warp-specialised wgmma kernel ---------------------
+// lse * log2(e) and delta of every query row of every head into the rows
+// the dk/dv kernel's producer copies with each query tile (4 * queries
+// bytes each; lse's own rows, T floats, need not be 16-byte aligned), zeros
+// past T.  delta = sum_d do * o, from the o and do rows as the TPU kernel
+// computes it; once a row here, not once a query tile and work item.
+__global__ void __launch_bounds__(256)
+    dkv_rows_kernel(const attn_wg::BwdParams p, int BH, bool vec) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= BH * p.Tpad) return;
+  const int bh = idx / p.Tpad;
+  const int t = idx - bh * p.Tpad;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  float l2 = 0.f, dl = 0.f;
+  if (t < p.T) {
+    const __nv_bfloat16* orow = p.o + b * p.so[0] + h * p.so[1] + t * p.so[2];
+    const __nv_bfloat16* drow =
+        p.dout + b * p.sd[0] + h * p.sd[1] + t * p.sd[2];
+    if (vec) {
+      for (int ch = 0; ch < p.D / 8; ++ch)
+        dl = dot8(*reinterpret_cast<const uint4*>(drow + 8 * ch),
+                  *reinterpret_cast<const uint4*>(orow + 8 * ch), dl);
+    } else {
+      for (int d = 0; d < p.D; ++d)
+        dl = fmaf(__bfloat162float(drow[d]), __bfloat162float(orow[d]), dl);
     }
-    a += __shfl_xor_sync(0xffffffffu, a, 1);
-    if ((threadIdx.x & 1) == 0) {
-      lse_s[(it & 1) * kChunk + r] =
-          r < n ? lse[static_cast<int64_t>(bh) * seq + q0 + r] * kLog2e
-                : CUDART_INF_F;
-      delta_s[(it & 1) * kChunk + r] = a;
-    }
-  };
+    l2 = p.lse[static_cast<long long>(bh) * p.T + t] * attn_wg::kLog2e;
+  }
+  p.rows[idx] = l2;
+  p.deltas[idx] = dl;
+}
 
-  if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
-  stage_rows(k_s, k + head + static_cast<int64_t>(k0) * D, D, nk, D, vec,
-             threadIdx.x, kMmaThreads);
-  stage_rows(v_s, v + head + static_cast<int64_t>(k0) * D, D, nk, D, vec,
-             threadIdx.x, kMmaThreads);
-  stage(0);
-  cp_async_wait<0>();
+// Shared memory of an instance: kKBufs buffers of an item's K and V tiles
+// (kKeys rows each, all columns), kStages stages of a Q and a dO tile (kNq
+// rows each) and of their rows' lse * log2(e) and delta, then the
+// barriers.
+template <int kDp, int kNq, int kCols>
+struct DkvShape {
+  static constexpr int kKeys = attn_wg::Cut<kDp, kCols>::kRows;  // an item's
+  static constexpr int kKBytes = 2 * kKeys * kDp;  // K or V
+  static constexpr int kQBytes = 2 * kNq * kDp;    // Q or dO
+  static constexpr int kLineBytes = 4 * kNq;       // lse or delta of a tile
+  // two buffers where they leave room for two stages
+  static constexpr int kKBufs = attn_wg::kSmemBudget - 4 * kKBytes >=
+                                        4 * kQBytes + 4 * kLineBytes
+                                    ? 2
+                                    : 1;
+  // as many stages as fit, at most 4
+  static constexpr int kFit = (attn_wg::kSmemBudget - 2 * kKBufs * kKBytes) /
+                              (2 * kQBytes + 2 * kLineBytes);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kVOff = kKBufs * kKBytes;
+  static constexpr int kQOff = 2 * kKBufs * kKBytes;
+  static constexpr int kDOff = kQOff + kStages * kQBytes;
+  static constexpr int kLOff = kDOff + kStages * kQBytes;
+  static constexpr int kDeltaOff = kLOff + kStages * kLineBytes;
+  static constexpr int kBarOff = kDeltaOff + kStages * kLineBytes;
+  static constexpr int kBytes = kBarOff + 8 * 2 * (kKBufs + kStages) + 1024;
+  static_assert(kNq % 16 == 0, "query tile: whole k16 steps of dk, dv");
+  static_assert(attn_wg::kRowsPad % kNq == 0,
+                "a query tile lies within the padded rows");
+  static_assert(kCols % attn_wg::Atoms<kDp>::kCols == 0,
+                "a consumer's columns are whole swizzle atoms");
+  static_assert(kStages >= 2, "a ring of at least two stages");
+};
+
+// Work items are the (b * H + h, keys, column group) triples, n_items a
+// head (Cut: 128 keys and all columns, or 64 keys and two chunks of kCols
+// columns); the grid is persistent.  The producer (warpgroup 2) brings an
+// item's K and V once (two buffers where they fit, so the next item's
+// arrive early), and through the ring each query tile's Q and dO and its
+// rows of lse * log2(e) and delta.  Consumer c takes keys 64c .. 64c+63
+// and all columns, or the item's 64 keys and its chunk.  For each
+// query tile: s^T = k.q^T and dp^T = v.do^T (ss), p^T = exp2(s^T * c -
+// lse2) and ds^T = p^T * (dp^T - delta) * scale in the accumulator
+// registers, each split into bf16 hi + lo, then dv += p^T.do and dk +=
+// ds^T.q (rs, do and q read MN-major from the same tiles).  The next tile's
+// s^T and dp^T are issued before this tile's gradient products, so that its
+// exps run while the tensor cores add them.  Query rows past T arrive as
+// zeros with lse2 = delta = 0, so p^T is 1 and ds^T 0 there and both
+// products add exactly 0; keys past T are never written.  dk and dv stay in
+// registers until the item ends.
+template <int kDp, int kNq, int kCols>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const __grid_constant__ CUtensorMap domap,
+               const attn_wg::BwdParams p) {
+  using namespace attn_wg;
+  using S = DkvShape<kDp, kNq, kCols>;
+  using A = Atoms<kDp>;
+  using C = Cut<kDp, kCols>;
+  constexpr int kStages = S::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* k_empty = k_full + S::kKBufs;
+  uint64_t* full = k_empty + S::kKBufs;
+  uint64_t* empty = full + kStages;
+  const int items =
+      (p.total - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::kKBufs; ++i) {
+      mbar_init(&k_full[i], 1);
+      mbar_init(&k_empty[i], kConsumerWarps);
+    }
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  const int t = lane & 3;
-  uint32_t ka[kDp / 16][4], va[kDp / 16][4];
-  if constexpr (kRegs) {
-    if (active) {
-      load_a<kDp>(ka, k_s, key0, nk, D, zeros, lane);
-      load_a<kDp>(va, v_s, key0, nk, D, zeros, lane);
-    }
-  }
-  float dk_acc[kDp / 8][4], dv_acc[kDp / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < kDp / 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[nb][e] = dv_acc[nb][e] = 0.f;
-
-  const int nqt = (seq + kChunk - 1) / kChunk;
-  for (int it = 0; it < nqt; ++it) {
-    if (it + 1 < nqt) {
-      stage(it + 1);  // its buffers were last read before the previous sync
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile it has landed for every thread
-    if (active) {
-      const int n = min(kChunk, seq - it * kChunk);
-      const __nv_bfloat16* qt = q_s + (it & 1) * tile;
-      const __nv_bfloat16* dot_s = do_s + (it & 1) * tile;
-      const float* lt = lse_s + (it & 1) * kChunk;
-      const float* dlt = delta_s + (it & 1) * kChunk;
-#pragma unroll
-      for (int kb = 0; kb < kChunk / 16; ++kb) {
-        if (16 * kb >= n) break;  // warp-uniform
-        float s[2][4] = {}, dp[2][4] = {};
-        if constexpr (!kRegs) load_a<kDp>(ka, k_s, key0, nk, D, zeros, lane);
-        mma_a_bt<kDp>(s[0], s[1], ka, qt, 16 * kb, n, D, zeros, lane);
-        if constexpr (!kRegs) load_a<kDp>(va, v_s, key0, nk, D, zeros, lane);
-        mma_a_bt<kDp>(dp[0], dp[1], va, dot_s, 16 * kb, n, D, zeros, lane);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          // this thread's columns 2t and 2t+1 of the 8 at 16kb + 8j
-          const int col = 16 * kb + 8 * j + 2 * t;
-          const float2 l2 = *reinterpret_cast<const float2*>(lt + col);
-          const float2 d2 = *reinterpret_cast<const float2*>(dlt + col);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float lc = e & 1 ? l2.y : l2.x;
-            const float dc = e & 1 ? d2.y : d2.x;
-            const float p = exp2f(s[j][e] * c - lc);  // lse +inf: p = 0
-            s[j][e] = p;
-            dp[j][e] = p * (dp[j][e] - dc) * scale;  // ds^T
-          }
-        }
-        mma_p_b<kDp>(dv_acc, s[0], s[1], dot_s, 16 * kb, n, D, zeros, lane);
-        mma_p_b<kDp>(dk_acc, dp[0], dp[1], qt, 16 * kb, n, D, zeros, lane);
+  // the warpgroup, warp-uniform for the compiler, so that each role's code
+  // is compiled for its own register count
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == kConsumerWGs) {
+    // ---- producer: one thread keeps the loads in flight ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x != 128 * kConsumerWGs) return;
+    prefetch_map(&kmap);
+    prefetch_map(&vmap);
+    prefetch_map(&qmap);
+    prefetch_map(&domap);
+    int stage = 0, sph = 0, kb = 0, kph = 0;
+    for (int i = 0; i < items; ++i) {
+      const Item it(p, blockIdx.x + i * gridDim.x);
+      const int b = it.b, h = it.h;
+      const int k0 = it.tile * S::kKeys;
+      mbar_wait(&k_empty[kb], kph ^ 1);  // a fresh barrier passes at once
+      mbar_expect_tx(&k_full[kb], 2 * S::kKBytes);
+      load_tile<kDp>(smem + kb * S::kKBytes, &kmap, &k_full[kb], S::kKeys, h,
+                     k0, b);
+      load_tile<kDp>(smem + S::kVOff + kb * S::kKBytes, &vmap, &k_full[kb],
+                     S::kKeys, h, k0, b);
+      if (++kb == S::kKBufs) kb = 0, kph ^= 1;
+      const long long line = static_cast<long long>(it.bh) * p.Tpad;
+      for (int j = 0; j < p.n_loop; ++j) {
+        const int q0 = j * kNq;
+        mbar_wait(&empty[stage], sph ^ 1);
+        mbar_expect_tx(&full[stage], 2 * S::kQBytes + 2 * S::kLineBytes);
+        load_tile<kDp>(smem + S::kQOff + stage * S::kQBytes, &qmap,
+                       &full[stage], kNq, h, q0, b);
+        load_tile<kDp>(smem + S::kDOff + stage * S::kQBytes, &domap,
+                       &full[stage], kNq, h, q0, b);
+        bulk_load(smem + S::kLOff + stage * S::kLineBytes,
+                  p.rows + line + q0, S::kLineBytes, &full[stage]);
+        bulk_load(smem + S::kDeltaOff + stage * S::kLineBytes,
+                  p.deltas + line + q0, S::kLineBytes, &full[stage]);
+        if (++stage == kStages) stage = 0, sph ^= 1;
       }
     }
-    __syncthreads();  // tile it is no longer read
+    return;
   }
-  if (active) {
-    const int64_t out = head + static_cast<int64_t>(k0) * D;
-    store_rows<kDp>(dk_acc, dk + out, D, key0, nk, D, lane);
-    store_rows<kDp>(dv_acc, dv + out, D, key0, nk, D, lane);
+
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = role;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  // the consumer's key rows in the item's K and V tiles
+  const uint32_t key_off = C::row0(c) * A::kRowBytes;
+
+  float s[kNq / 2], dp[kNq / 2];
+  float dk[kCols / 2], dv[kCols / 2];
+  uint32_t ph[kNq / 16][4], pl[kNq / 16][4];
+  uint32_t dsh[kNq / 16][4], dsl[kNq / 16][4];
+
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  auto fence_grads = [&]() {
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(ph);
+    fence_regs(pl);
+    fence_regs(dsh);
+    fence_regs(dsl);
+  };
+
+  int stage = 0, sph = 0, kb = 0, kph = 0;
+  for (int i = 0; i < items; ++i) {
+    const Item it(p, blockIdx.x + i * gridDim.x);
+    const int b = it.b, h = it.h;
+    // the warp's first key, the consumer's first column and its atom in a
+    // Q or dO tile
+    const int key_w = it.tile * S::kKeys + C::row0(c) + 16 * warp;
+    const int col0 = C::chunk(it.group, c) * kCols;
+    const uint32_t col_off = col0 / A::kCols * kNq * A::kRowBytes;
+#pragma unroll
+    for (int x = 0; x < kCols / 2; ++x) dk[x] = dv[x] = 0.f;
+    mbar_wait(&k_full[kb], kph);
+    const uint32_t ka = smem_u32(smem + kb * S::kKBytes) + key_off;
+    const uint32_t va = smem_u32(smem + S::kVOff + kb * S::kKBytes) + key_off;
+
+    // s^T and dp^T of the query tile in stage st, one commit group; every
+    // register the products read or write is settled before it opens
+    auto logits = [&](int st) {
+      fence_regs(s);
+      fence_regs(dp);
+      fence_grads();
+      wg_fence();
+      product_ss<kDp, kNq>(s, ka, S::kKeys,
+                           smem_u32(smem + S::kQOff + st * S::kQBytes));
+      product_ss<kDp, kNq>(dp, va, S::kKeys,
+                           smem_u32(smem + S::kDOff + st * S::kQBytes));
+      wg_commit();
+    };
+    // dv += p^T.do and dk += ds^T.q of the query tile in stage st
+    auto accumulate = [&](int st) {
+      product_rs<kDp, kCols, kNq>(
+          dv, ph, pl, smem_u32(smem + S::kDOff + st * S::kQBytes) + col_off);
+      product_rs<kDp, kCols, kNq>(
+          dk, dsh, dsl, smem_u32(smem + S::kQOff + st * S::kQBytes) + col_off);
+      wg_commit();
+    };
+    // p^T into s and ds^T into dp, with the lse2 and delta of the tile's
+    // columns (query rows)
+    auto grads = [&](int st) {
+      const float* lt =
+          reinterpret_cast<const float*>(smem + S::kLOff + st * S::kLineBytes);
+      const float* dt = reinterpret_cast<const float*>(
+          smem + S::kDeltaOff + st * S::kLineBytes);
+#pragma unroll
+      for (int nb = 0; nb < kNq / 8; ++nb) {
+        // this thread's columns 2t and 2t+1 of the 8 at 8nb
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * nb + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(dt + 8 * nb + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x =
+              ex2(fmaf(s[4 * nb + e], p.c, -(e & 1 ? l2.y : l2.x)));
+          s[4 * nb + e] = x;
+          dp[4 * nb + e] =
+              x * (dp[4 * nb + e] - (e & 1 ? d2.y : d2.x)) * p.scale;
+        }
+      }
+    };
+    auto split = [&]() {
+      split_frags<kNq>(s, ph, pl);
+      split_frags<kNq>(dp, dsh, dsl);
+    };
+
+    // The first query tile's turn is peeled off the loop so that no wait
+    // or product of the loop sits under a branch.
+    mbar_wait(&full[stage], sph);
+    logits(stage);
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if (p.n_loop == 1) release(&k_empty[kb]);  // k and v are read no more
+    grads(stage);
+    split();
+    int prev = stage;
+    if (++stage == kStages) stage = 0, sph ^= 1;
+    for (int j = 1; j < p.n_loop; ++j) {
+      mbar_wait(&full[stage], sph);
+      logits(stage);
+      accumulate(prev);
+      wg_wait<1>();  // s^T and dp^T; the tile before's products run on
+      fence_regs(s);
+      fence_regs(dp);
+      if (j == p.n_loop - 1) release(&k_empty[kb]);
+      grads(stage);
+      wg_wait<0>();
+      fence_grads();
+      release(&empty[prev]);
+      split();
+      prev = stage;
+      if (++stage == kStages) stage = 0, sph ^= 1;
+    }
+    // the last tile's products
+    fence_grads();
+    wg_fence();
+    accumulate(prev);
+    wg_wait<0>();
+    fence_grads();
+    release(&empty[prev]);
+
+    // a clamped chunk's copy is not stored (no rows below 0)
+    const int rows = C::stores(it.group, c) ? p.T : 0;
+    store_acc<kCols>(dk, p.out0 + b * p.s0[0] + h * p.s0[1], p.s0[2], key_w,
+                     rows, col0, p.D, p.pairs, lane);
+    store_acc<kCols>(dv, p.out1 + b * p.s1[0] + h * p.s1[1], p.s1[2], key_w,
+                     rows, col0, p.D, p.pairs, lane);
+    if (++kb == S::kKBufs) kb = 0, kph ^= 1;
   }
 }
 
-template <int kDp>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, const void* lse,
-                       void* dk, void* dv, int B, int H, int seq, int D,
-                       float scale, cudaStream_t stream) {
-  const int tiles = (seq + kMmaTileK - 1) / kMmaTileK;
-  const bool vec = attn_mma::can_copy_chunks(D, q, k, v, o, dout);
-  return launch_with_smem(
-      flash_bwd_dkv_mma_kernel<kDp, (kDp <= 64)>, B * H * tiles, kMmaThreads,
-      mma_smem_bytes(D), stream, static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, seq,
-      D, scale, scale * attn_mma::kLog2e, vec);
+// Launches dkv_kernel<kDp, kNq, kCols>: a persistent grid, one block an
+// SM.
+template <int kDp, int kNq, int kCols>
+cudaError_t launch_dkv(const attn_wg::View& q, const attn_wg::View& k,
+                       const attn_wg::View& v, const attn_wg::View& dout,
+                       attn_wg::BwdParams p, int B, int H, int T, int D,
+                       cudaStream_t stream) {
+  using namespace attn_wg;
+  using S = DkvShape<kDp, kNq, kCols>;
+  using A = Atoms<kDp>;
+  using C = Cut<kDp, kCols>;
+  auto kernel = dkv_kernel<kDp, kNq, kCols>;
+  static std::atomic<uint64_t> opted_in{0};
+  const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm, dm;
+  if (!tensor_map(&qm, q, B, H, T, D, A::kCols, kNq, A::kSwizzle) ||
+      !tensor_map(&dm, dout, B, H, T, D, A::kCols, kNq, A::kSwizzle) ||
+      !tensor_map(&km, k, B, H, T, D, A::kCols, S::kKeys, A::kSwizzle) ||
+      !tensor_map(&vm, v, B, H, T, D, A::kCols, S::kKeys, A::kSwizzle))
+    return cudaErrorInvalidValue;
+  p.n_groups = C::kGroups;
+  p.n_items = (T + S::kKeys - 1) / S::kKeys * C::kGroups;
+  p.n_loop = (T + kNq - 1) / kNq;
+  p.total = B * H * p.n_items;
+  kernel<<<min(p.total, sm_count()), attn_wg::kThreads, S::kBytes, stream>>>(
+      qm, km, vm, dm, p);
+  return cudaGetLastError();
 }
+
+// The instance of the first table width >= D (backward_tiles.cuh).
+cudaError_t launch_wgmma(const attn_wg::View& q, const attn_wg::View& k,
+                         const attn_wg::View& v, const attn_wg::View& dout,
+                         const attn_wg::BwdParams& p, int B, int H, int T,
+                         int D, cudaStream_t stream) {
+#define DQ(w, n, cols)
+#define DKV(w, n, cols)                                                  \
+  if (D <= w)                                                            \
+    return launch_dkv<w, n, cols>(q, k, v, dout, p, B, H, T, D, stream);
+#include "backward_tiles.cuh"
+#undef DQ
+#undef DKV
+  return cudaErrorInvalidValue;
+}
+
+// The wgmma instance's dynamic shared memory at D (0 past the table).
+size_t wgmma_smem_bytes(int D) {
+#define DQ(w, n, cols)
+#define DKV(w, n, cols) \
+  if (D <= w) return DkvShape<w, n, cols>::kBytes;
+#include "backward_tiles.cuh"
+#undef DQ
+#undef DKV
+  return 0;
+}
+
 
 // ---- past kColChunk columns: blocks per (b, h, 64 keys, column chunk) ---
 // f32 dynamic shared memory, in floats: the block's K and V rows, one
@@ -464,7 +635,8 @@ __global__ void __launch_bounds__(kThreads)
                                const float* __restrict__ dout,
                                const float* __restrict__ lse,
                                float* __restrict__ dk, float* __restrict__ dv,
-                               int H, int seq, int D, float scale) {
+                               BwdLayout L, int H, int seq, int D,
+                               float scale) {
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + kTileK * kColChunk;
@@ -480,8 +652,12 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = (blockIdx.x - bh * tiles) * kTileK;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int64_t head = static_cast<int64_t>(bh) * seq * D;
-  const int64_t row0 = static_cast<int64_t>(b) * seq * H + h;  // (b, 0, h)
+  // row 0 of head (b, h) of each view, its rows L.st[x] apart
+  const float* qh = q + L.head(0, b, h);
+  const float* kh = k + L.head(1, b, h);
+  const float* vh = v + L.head(2, b, h);
+  const float* oh = o + L.head(3, b, h);
+  const float* doh = dout + L.head(4, b, h);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int nk = min(kTileK, seq - k0);
@@ -506,9 +682,10 @@ __global__ void __launch_bounds__(kThreads)
       lse_s[i] = lse[static_cast<int64_t>(bh) * seq + q0 + i];
     // delta of the tile's rows, recomputed per tile as the TPU kernel does
     for (int i = warp; i < nq; i += kWarps) {
-      const int64_t row = (row0 + static_cast<int64_t>(q0 + i) * H) * D;
+      const float* orow = oh + (q0 + i) * L.st[3];
+      const float* drow = doh + (q0 + i) * L.st[4];
       float a = 0.f;
-      for (int d = lane; d < D; d += 32) a = fmaf(dout[row + d], o[row + d], a);
+      for (int d = lane; d < D; d += 32) a = fmaf(drow[d], orow[d], a);
       a = warp_sum(a);
       if (lane == 0) delta_s[i] = a;
     }
@@ -525,17 +702,15 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();  // the previous chunk is no longer read
       for (int idx = threadIdx.x; idx < nk * w; idx += kThreads) {
         const int j = idx / w;
-        const int64_t g = head + static_cast<int64_t>(k0 + j) * D + col + idx -
-                          j * w;
-        k_s[idx] = k[g];
-        v_s[idx] = v[g];
+        const int d = idx - j * w;
+        k_s[idx] = kh[(k0 + j) * L.st[1] + col + d];
+        v_s[idx] = vh[(k0 + j) * L.st[2] + col + d];
       }
       for (int idx = threadIdx.x; idx < nq * w; idx += kThreads) {
         const int i = idx / w;
         const int d = idx - i * w;
-        q_s[i * qs + d] = q[head + static_cast<int64_t>(q0 + i) * D + col + d];
-        do_s[i * qs + d] =
-            dout[(row0 + static_cast<int64_t>(q0 + i) * H) * D + col + d];
+        q_s[i * qs + d] = qh[(q0 + i) * L.st[0] + col + d];
+        do_s[i * qs + d] = doh[(q0 + i) * L.st[4] + col + d];
       }
       __syncthreads();
 #pragma unroll
@@ -597,18 +772,25 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (key0 + r >= nk) break;
-    const int64_t out_row =
-        head + static_cast<int64_t>(k0 + key0 + r) * D + cc * kColChunk;
+    const int key = k0 + key0 + r;
+    float* dkrow = dk + L.head(5, b, h) + key * L.st[5] + cc * kColChunk;
+    float* dvrow = dv + L.head(6, b, h) + key * L.st[6] + cc * kColChunk;
 #pragma unroll
     for (int c = 0; c < kColChunk / 32; ++c) {
       const int d = lane + 32 * c;
       if (d < wc) {
-        dk[out_row + d] = dk_acc[r][c];
-        dv[out_row + d] = dv_acc[r][c];
+        dkrow[d] = dk_acc[r][c];
+        dvrow[d] = dv_acc[r][c];
       }
     }
   }
 }
+
+// bf16, on mma.sync: blocks of 4 warps per (b, h, 64 keys, column chunk of
+// dk or dv), a warp owning 16 keys.
+constexpr int kMmaWarps = 4;
+constexpr int kMmaTileK = 16 * kMmaWarps;  // keys per block
+constexpr int kMmaThreads = 32 * kMmaWarps;
 
 // bf16 dynamic shared memory: in bf16, 8 zeros, then two stages, each a Q
 // chunk and a dO chunk of kChunk rows of stride_elems(kColChunk); then in
@@ -628,9 +810,9 @@ __global__ void __launch_bounds__(kMmaThreads)
                                    const __nv_bfloat16* __restrict__ dout,
                                    const float* __restrict__ lse,
                                    __nv_bfloat16* __restrict__ dk,
-                                   __nv_bfloat16* __restrict__ dv, int H,
-                                   int seq, int D, float scale, float c,
-                                   bool vec) {
+                                   __nv_bfloat16* __restrict__ dv,
+                                   BwdLayout L, int H, int seq, int D,
+                                   float scale, float c, bool vec) {
   using namespace attn_mma;
   extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
   const int tile = kChunk * stride_elems(kColChunk);
@@ -644,10 +826,13 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int k0 = (blockIdx.x - bh * tiles) * kMmaTileK;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int64_t head = static_cast<int64_t>(bh) * seq * D;
-  const int64_t ld = static_cast<int64_t>(H) * D;  // row stride of o, do
-  // (b, 0, h) in the (B, T, H, D) layout of o and do
-  const int64_t bthd = (static_cast<int64_t>(b) * seq * H + h) * D;
+  // row 0 of head (b, h) of each view (of K and V: row k0), its rows
+  // L.st[x] apart
+  const __nv_bfloat16* qh = q + L.head(0, b, h);
+  const __nv_bfloat16* kh = k + L.head(1, b, h) + k0 * L.st[1];
+  const __nv_bfloat16* vh = v + L.head(2, b, h) + k0 * L.st[2];
+  const __nv_bfloat16* oh = o + L.head(3, b, h);
+  const __nv_bfloat16* doh = dout + L.head(4, b, h);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int nk = min(kMmaTileK, seq - k0);
@@ -670,25 +855,26 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int e = chunk_of(i);
     const int we = chunk_width(D, e);
     __nv_bfloat16* dst = ring + (i & 1) * 2 * tile;
-    stage_rows(dst, q + head + static_cast<int64_t>(q0) * D + e * kColChunk,
-               D, n, we, vec, threadIdx.x, kMmaThreads);
+    stage_rows(dst, qh + q0 * L.st[0] + e * kColChunk, L.st[0], n, we, vec,
+               threadIdx.x, kMmaThreads);
     if (!dv_block || e == cc)
-      stage_rows(dst + tile, dout + bthd + q0 * ld + e * kColChunk, ld, n, we,
-                 vec, threadIdx.x, kMmaThreads);
+      stage_rows(dst + tile, doh + q0 * L.st[4] + e * kColChunk, L.st[4], n,
+                 we, vec, threadIdx.x, kMmaThreads);
     cp_async_commit();
     if (i % nc == 0) {  // block-uniform
       const int r = threadIdx.x >> 1;
       float a = 0.f;
       if (r < n) {
-        const int64_t row = bthd + (q0 + r) * ld;
+        const __nv_bfloat16* orow = oh + (q0 + r) * L.st[3];
+        const __nv_bfloat16* drow = doh + (q0 + r) * L.st[4];
         if (vec) {
           for (int ch = threadIdx.x & 1; ch < D / 8; ch += 2)
-            a = dot8(*reinterpret_cast<const uint4*>(dout + row + 8 * ch),
-                     *reinterpret_cast<const uint4*>(o + row + 8 * ch), a);
+            a = dot8(*reinterpret_cast<const uint4*>(drow + 8 * ch),
+                     *reinterpret_cast<const uint4*>(orow + 8 * ch), a);
         } else {
           for (int d = threadIdx.x & 1; d < D; d += 2)
-            a = fmaf(__bfloat162float(dout[row + d]),
-                     __bfloat162float(o[row + d]), a);
+            a = fmaf(__bfloat162float(drow[d]), __bfloat162float(orow[d]),
+                     a);
         }
       }
       a += __shfl_xor_sync(0xffffffffu, a, 1);
@@ -734,11 +920,12 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
           for (int x = 0; x < 4; ++x) sT[nb][x] = dpT[nb][x] = 0.f;
       }
-      const int64_t keys = head + static_cast<int64_t>(k0) * D + e * kColChunk;
-      load_rows_a<kColChunk>(a, k + keys, D, key0, nk, we, lane);
+      load_rows_a<kColChunk>(a, kh + e * kColChunk, L.st[1], key0, nk, we,
+                             lane);
       chunk_logits<kColChunk>(sT, a, qt, 0, n, n, we, zeros, lane);
       if (!dv_block) {
-        load_rows_a<kColChunk>(a, v + keys, D, key0, nk, we, lane);
+        load_rows_a<kColChunk>(a, vh + e * kColChunk, L.st[2], key0, nk, we,
+                               lane);
         chunk_logits<kColChunk>(dpT, a, dot_s, 0, n, n, we, zeros, lane);
       }
       if (e == cc) {
@@ -772,26 +959,29 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     __syncthreads();  // step i is no longer read
   }
-  if (active)
+  if (active) {
+    const int x = dv_block ? 6 : 5;  // the view written
     store_rows<kColChunk>(acc,
-                          (dv_block ? dv : dk) + head +
-                              static_cast<int64_t>(k0) * D + cc * kColChunk,
-                          D, key0, nk, wc, lane);
+                          (dv_block ? dv : dk) + L.head(x, b, h) +
+                              k0 * L.st[x] + cc * kColChunk,
+                          L.st[x], key0, nk, wc, lane);
+  }
 }
 
 cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
-                             void* dk, void* dv, int B, int H, int seq, int D,
-                             float scale, cudaStream_t s) {
+                             void* dk, void* dv, const BwdLayout& L, int B,
+                             int H, int seq, int D, float scale,
+                             cudaStream_t s) {
   if (D <= 32)
-    return launch_f32<1>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
-                         s);
+    return launch_f32<1>(q, k, v, o, dout, lse, dk, dv, L, B, H, seq, D,
+                         scale, s);
   if (D <= 64)
-    return launch_f32<2>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
-                         s);
+    return launch_f32<2>(q, k, v, o, dout, lse, dk, dv, L, B, H, seq, D,
+                         scale, s);
   if (D <= kColChunk)
-    return launch_f32<4>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
-                         s);
+    return launch_f32<4>(q, k, v, o, dout, lse, dk, dv, L, B, H, seq, D,
+                         scale, s);
   const int tiles = (seq + kTileK - 1) / kTileK;
   return launch_with_smem(
       flash_bwd_dkv_chunk_kernel, dim3(B * H * tiles, col_chunks(D)),
@@ -799,27 +989,62 @@ cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(o), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(dk),
-      static_cast<float*>(dv), H, seq, D, scale);
+      static_cast<float*>(dv), L, H, seq, D, scale);
 }
 
-cudaError_t launch_mma_for_d(const void* q, const void* k, const void* v,
-                             const void* o, const void* dout, const void* lse,
-                             void* dk, void* dv, int B, int H, int seq, int D,
-                             float scale, cudaStream_t s) {
-  if (D <= 16)
-    return launch_mma<16>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
-                          s);
-  if (D <= 32)
-    return launch_mma<32>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
-                          s);
-  if (D <= 64)
-    return launch_mma<64>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
-                          s);
-  if (D <= kColChunk)
-    return launch_mma<128>(q, k, v, o, dout, lse, dk, dv, B, H, seq, D, scale,
-                           s);
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* lse,
+                        void* dk, void* dv, float* rows, const BwdLayout& L,
+                        int B, int H, int seq, int D, float scale,
+                        cudaStream_t s) {
+  if (D <= attn_wg::widest_backward()) {
+    using attn_wg::View;
+    attn_wg::BwdParams p{};
+    p.out0 = static_cast<__nv_bfloat16*>(dk);
+    p.out1 = static_cast<__nv_bfloat16*>(dv);
+    p.o = static_cast<const __nv_bfloat16*>(o);
+    p.dout = static_cast<const __nv_bfloat16*>(dout);
+    p.lse = static_cast<const float*>(lse);
+    const int BH = B * H;
+    p.Tpad = (seq + attn_wg::kRowsPad - 1) / attn_wg::kRowsPad *
+             attn_wg::kRowsPad;
+    p.rows = rows;
+    p.deltas = rows + static_cast<int64_t>(BH) * p.Tpad;
+    for (int x = 0; x < 3; ++x) {
+      const int64_t* st[3] = {L.sb, L.sh, L.st};
+      p.so[x] = st[x][3];
+      p.sd[x] = st[x][4];
+      p.s0[x] = st[x][5];
+      p.s1[x] = st[x][6];
+    }
+    p.H = H;
+    p.T = seq;
+    p.D = D;
+    p.scale = scale;
+    p.c = scale * attn_wg::kLog2e;
+    p.pairs = D % 2 == 0 &&
+              (reinterpret_cast<uintptr_t>(dk) |
+               reinterpret_cast<uintptr_t>(dv)) % 4 == 0 &&
+              (L.sb[5] | L.sh[5] | L.st[5] | L.sb[6] | L.sh[6] | L.st[6]) %
+                      2 == 0;
+    // 16-byte rows of o and do for the rows' dot products
+    const bool vec = attn_mma::can_copy_chunks(D, o, dout) &&
+                     (L.sb[3] | L.sh[3] | L.st[3] | L.sb[4] | L.sh[4] |
+                      L.st[4]) % 8 == 0;
+    dkv_rows_kernel<<<(BH * p.Tpad + 255) / 256, 256, 0, s>>>(p, BH, vec);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return launch_wgmma(View{q, L.sb[0], L.sh[0], L.st[0]},
+                        View{k, L.sb[1], L.sh[1], L.st[1]},
+                        View{v, L.sb[2], L.sh[2], L.st[2]},
+                        View{dout, L.sb[4], L.sh[4], L.st[4]}, p, B, H, seq,
+                        D, s);
+  }
   const int tiles = (seq + kMmaTileK - 1) / kMmaTileK;
-  const bool vec = attn_mma::can_copy_chunks(D, q, k, v, o, dout);
+  const bool vec = attn_mma::can_copy_chunks(D, q, k, v, o, dout) &&
+                   (L.sb[0] | L.sh[0] | L.st[0] | L.sb[1] | L.sh[1] | L.st[1] |
+                    L.sb[2] | L.sh[2] | L.st[2] | L.sb[3] | L.sh[3] | L.st[3] |
+                    L.sb[4] | L.sh[4] | L.st[4]) % 8 == 0;
   return launch_with_smem(
       flash_bwd_dkv_chunk_mma_kernel, dim3(B * H * tiles, 2 * col_chunks(D)),
       kMmaThreads, chunk_mma_smem_bytes(), s,
@@ -828,40 +1053,57 @@ cudaError_t launch_mma_for_d(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, seq,
-      D, scale, scale * attn_mma::kLog2e, vec);
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), L, H,
+      seq, D, scale, scale * attn_mma::kLog2e, vec);
 }
 
 }  // namespace
 
-// q, k, v: (B, H, T, D) contiguous; o, dout: (B, T, H, D) contiguous, same
-// type; lse: (B, H, T) float32; dk, dv: (B, H, T, D), same type as k and v.
-// Any D; dtype 0 is float32, 1 is bfloat16.  Returns the cudaError_t of
-// the launch.
+// q, k, v, o, dout, dk, dv: (B, H, T, D) views (o and dout as views of their
+// (B, T, H, D) tensors), their (b, h, t) strides in elements in `strides`,
+// three each in that order (d's stride is 1); the bf16 wgmma instance (D <=
+// 512) reads q, k, v and dout through tensor maps, so their bases are
+// 16-byte aligned and those strides multiples of 8 elements, which the
+// wrapper sees to.  lse: (B, H, T) float32 contiguous.  rows: the bf16
+// wgmma instance's scratch of flash_bwd_dkv_scratch_floats(B, H, T, D)
+// floats (null elsewhere).  dk and dv have k's type.  Any D; dtype 0 is
+// float32, 1 is bfloat16.  Returns the cudaError_t of the launch.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
-                             void* dk, void* dv, int B, int H, int T, int D,
-                             float scale, int dtype, void* stream) {
+                             void* dk, void* dv, void* rows,
+                             const long long* strides, int B, int H, int T,
+                             int D, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdLayout L = BwdLayout::from(strides);
   switch (dtype) {
     case 0:
-      return launch_f32_for_d(q, k, v, o, dout, lse, dk, dv, B, H, T, D,
+      return launch_f32_for_d(q, k, v, o, dout, lse, dk, dv, L, B, H, T, D,
                               scale, s);
     case 1:
-      return launch_mma_for_d(q, k, v, o, dout, lse, dk, dv, B, H, T, D,
-                              scale, s);
+      return launch_bf16(q, k, v, o, dout, lse, dk, dv,
+                         static_cast<float*>(rows), L, B, H, T, D, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// The floats of scratch one bf16 launch needs: the rows of lse * log2(e)
+// and of delta, each (B * H, T rounded up to kRowsPad), where the wgmma
+// instance runs (D <= 512); 0 elsewhere.
+extern "C" long long flash_bwd_dkv_scratch_floats(int B, int H, int T, int D) {
+  if (D > attn_wg::widest_backward()) return 0;
+  const long long pad = (T + attn_wg::kRowsPad - 1) / attn_wg::kRowsPad *
+                        attn_wg::kRowsPad;
+  return 2LL * B * H * pad;
+}
+
 // The dynamic shared memory one launch needs, in bytes: the larger of the
-// two instances' needs, which depend on D alone and stop growing past
-// kColChunk.
+// two instances' needs, which depend on D alone.
 extern "C" long long flash_bwd_dkv_smem_bytes(int T, int D) {
   (void)T;
   const size_t f32 = D <= kColChunk ? smem_bytes(D) : chunk_smem_bytes();
   const size_t bf16 =
-      D <= kColChunk ? mma_smem_bytes(D) : chunk_mma_smem_bytes();
+      D <= attn_wg::widest_backward() ? wgmma_smem_bytes(D)
+                                      : chunk_mma_smem_bytes();
   return static_cast<long long>(f32 > bf16 ? f32 : bf16);
 }

@@ -3,69 +3,70 @@
 //
 // Replaces the TPU kernel
 // vit_cifar_tpu/ops/pallas/attention.py::_flash_bwd_dq_kernel (pass 1 of
-// _flash_bwd_impl) where flash_attention's custom VJP reaches it.  For
-// every (batch, head) and query row i:
+// _flash_bwd_impl) where flash_attention's and fused_attention's custom
+// VJPs reach it.  For every (batch, head) and query row i:
 //   delta_i = sum_d do_i[d] * o_i[d]
 //   s_ij = q_i . k_j * scale,  p_ij = exp(s_ij - lse_i),  dp_ij = do_i . v_j
 //   ds_ij = p_ij * (dp_ij - delta_i) * scale
 //   dq_i = sum_j ds_ij k_j
-// in f32 whatever the input type; lse is the forward's (flash_fwd.cu).  o
-// and do are read in place in the (B, T, H, D) layout that flash_attention
-// returns, as the JAX backward receives them, and dq is written in
-// (B, H, T, D) in the input type.
+// in f32 whatever the input type; lse is the forward's.  q, k, v, o and do
+// are the caller's views, read in place through their strides (o and do in
+// the (B, T, H, D) layout the forward returns; on the model's path q, k
+// and v are transposed views of (B, T, H, D) projections), and dq is
+// written in the input type in the strides the wrapper gives it (q's own,
+// torch.empty_like), so nothing is copied around a call.
 //
 // What bounds it on this card: at the pixel-token ViT's shape (128, 12,
 // 1025, 32) one head is three 1025x1025x32 products (q.k, do.v, ds.k) and
-// 1.05 M exps against some 0.4 MB in and out in bf16, about 750 FLOP per
-// byte: not device memory but arithmetic bounds it, and the exps (16 a
-// clock per SM on the special-function units) take longer than the
-// products at the tensor cores' peak.  So the bf16 instance keeps every
-// logit in registers and spends one exp2f per logit:
+// 1.05 M exps against some 0.4 MB in and out in bf16: the exps (16 a clock
+// per SM on the special-function units) take longer than the products at
+// the tensor cores' peak, and with ds split into hi + lo the products are
+// four.  At the flagship's T=65 it is bytes: a head is 65 rows.  So:
 //
-//   bf16 (dtype 1), on the tensor cores (mma_attention.cuh): the forward's
-//   shape with V used twice.  One block of 4 warps per (b, h, 64 query
-//   rows); a warp owns 16 rows.  The block's q rows and dO rows (row
-//   stride H*D, do being (B, T, H, D)) are staged once by cp.async; each
-//   warp takes its rows' A fragments from them, its rows' lse (times
-//   log2(e)) and delta, computed once from o and dO as the TPU kernel does
-//   at j == 0.  K and V tiles of 64 keys are staged as bf16 by cp.async,
-//   two stages deep.  For each 16 keys of a tile: s = q.k^T and dp =
-//   dO.v^T (mma.sync.m16n8k16, K and V through ldmatrix), p = exp2(s *
-//   scale*log2(e) - lse*log2(e)) with keys past T masked to 0, ds = p *
-//   (dp - delta) * scale in the accumulator registers, and dq += ds.K with
-//   ds repacked as A fragments, split into bf16 hi + lo (so that ds keeps
-//   f32 accuracy, as the TPU kernel keeps it) and K through ldmatrix.trans.
-//   The accumulators of dq stay in registers; no atomics, and no block
-//   depends on another.  Rows past T read zeros (lse 0, delta 0, so ds is
-//   0) and are never written; columns past D read zeros.
-//   Up to D = 64 a warp keeps its q and dO fragments in registers for the
-//   whole loop; at D = 128 it reloads them from shared memory for every 16
-//   keys, which keeps its registers under the limit.
+//   bf16 (dtype 1), D <= 512: the warp-specialised wgmma kernel below, on
+//   the blocks of wgmma_blocks.cuh and wgmma_backward.cuh.  A persistent
+//   grid of one block an SM walks the work items (b, h, 128 query rows), so
+//   a head of T <= 128 (the flagship's 65) is one item.  A producer thread
+//   brings an item's Q and dO once by TMA (two buffers: the next item's
+//   arrive while this one computes) and its K and V tiles through a ring,
+//   last tile first, so that only the first tile taken holds keys past T
+//   and only it is masked (a select).  Two consumer warpgroups of 64 rows
+//   each run s = q.k^T and dp = do.v^T as ss-wgmmas, turn them into ds in
+//   their registers (one FFMA into ex2 an exponent: p = exp2(s * c - lse *
+//   log2(e)), c = scale * log2(e)), split ds into bf16 hi + lo, and add
+//   ds.k as rs-wgmmas that read the same K tile MN-major; the next tile's
+//   s and dp are issued before that, so the exps of one tile run while the
+//   tensor cores add the last.  dq stays in registers until the item ends:
+//   no atomics, so two calls give equal bits.  The key tile (96 keys at
+//   32 columns, 64 at 64 and 128, 32 past: backward_tiles.cuh) is the
+//   fastest measured within the 168 registers ptxas gives a consumer
+//   (tools/backward_choices.py).  Past 128 columns the same kernel cuts dq
+//   into column chunks of 128: a work item is 64 query rows and two chunks,
+//   its two consumers on the same rows, each summing s and dp over all the
+//   head's columns (padded to a multiple of 128) and holding its chunk of
+//   dq; s, dp and the exps are computed twice an item, 2 * ceil(D/256)
+//   times in all.  The item's rows at the full width must fit shared
+//   memory beside the ring, hence the 512-column limit (16-key tiles
+//   there).  Rows and keys past T and columns past D arrive as zeros from
+//   TMA; rows past T read lse = delta = 0 (so ds is 0) and are never
+//   written.
+//
+//   bf16, D > 512: the mma.sync column-chunk kernel (mma_attention.cuh):
+//   one block of 4 warps per (b, h, 64 query rows, 128-column chunk of dq),
+//   s and dp summed over every chunk by each block, ceil(D/128) times in
+//   all, K and V staged by cp.async.
 //
 //   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
 //   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
 //   to; so f32 keeps the first design: one block of 8 warps per 64 query
 //   rows, q, dO, K and V converted into f32 shared memory (K and V with a
 //   row stride of D+1), each warp walking its 8 rows with lanes over keys
-//   for s and dp and over d for ds.K.  This is a dispatch by dtype, not a
-//   fallback.
+//   for s and dp and over d for ds.K; past 128 columns each 128-column
+//   chunk of dq has its own block, which sums s and dp over every chunk.
+//   This is a dispatch by dtype, not a fallback.
 //
-// Heads wider than kColChunk = 128 columns (the TPU kernel pads D to a
-// multiple of 128 and runs any D) are cut into column chunks of 128.  A
-// second grid axis gives each chunk of dq its own block, whose registers
-// and shared memory are those of a 128-column head whatever D is: s and dp
-// are summed over the chunks, one staged chunk of K and V at a time, for a
-// whole tile of 64 keys (kept in registers), the block's own chunk last;
-// that step turns them into ds and adds ds.K into the block's chunk of dq.
-// s and dp are recomputed for every chunk of dq, ceil(D/128) times in all.
-//   bf16: two pipeline stages by cp.async, each a K and a V chunk; the
-//   warp's q and dO fragments of a chunk are read from device memory at each
-//   step, and delta is summed chunk by chunk at the start.
-//   f32: each chunk of the block's q and dO rows and of the key tile's K and
-//   V is staged in f32 shared memory in turn; lanes over keys as above.
-//
-// Shared memory does not grow with T or D, so any T and any D run.  Offsets
-// are int64; nothing is padded in device memory.
+// Shared memory does not grow with T, so any T and any D run.  Offsets are
+// int64; nothing is padded in device memory.
 //
 // Built by vit_cifar_torch/ops/cuda/build.py (nvcc, sm_90a, plain C
 // interface bound with ctypes).
@@ -74,6 +75,7 @@
 
 #include "attention_common.cuh"
 #include "mma_attention.cuh"
+#include "wgmma_backward.cuh"
 
 namespace {
 
@@ -96,7 +98,7 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ v, const T* __restrict__ o,
                         const T* __restrict__ dout,
                         const float* __restrict__ lse, T* __restrict__ dq,
-                        int H, int seq, int D, float scale) {
+                        BwdLayout L, int H, int seq, int D, float scale) {
   extern __shared__ float smem[];
   const int ks = D + 1;
   float* q_s = smem;
@@ -110,7 +112,13 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (blockIdx.x - bh * tiles) * kTileQ;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int64_t head = static_cast<int64_t>(bh) * seq * D;
+  // row 0 of head (b, h) of each view, its rows L.st[x] apart
+  const T* qh = q + L.head(0, b, h);
+  const T* kh = k + L.head(1, b, h);
+  const T* vh = v + L.head(2, b, h);
+  const T* oh = o + L.head(3, b, h);
+  const T* doh = dout + L.head(4, b, h);
+  T* dqh = dq + L.head(5, b, h);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int nq = min(kTileQ, seq - q0);
@@ -118,10 +126,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int idx = threadIdx.x; idx < nq * D; idx += kThreads) {
     const int i = idx / D;
     const int d = idx - i * D;
-    q_s[idx] = to_f32(q[head + static_cast<int64_t>(q0) * D + idx]);
-    // (B, T, H, D) offset of row q0 + i of this head in do
-    const int64_t bthd = ((static_cast<int64_t>(b) * seq + q0 + i) * H + h) * D;
-    do_s[idx] = to_f32(dout[bthd + d]);
+    q_s[idx] = to_f32(qh[(q0 + i) * L.st[0] + d]);
+    do_s[idx] = to_f32(doh[(q0 + i) * L.st[4] + d]);
   }
   __syncthreads();
 
@@ -135,7 +141,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
     if (row0 + r < nq) {  // warp-uniform
       const int i = q0 + row0 + r;
-      const T* orow = o + ((static_cast<int64_t>(b) * seq + i) * H + h) * D;
+      const T* orow = oh + i * L.st[3];
       float a = 0.f;
       for (int d = lane; d < D; d += 32)
         a = fmaf(do_s[(row0 + r) * D + d], to_f32(orow[d]), a);
@@ -151,9 +157,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int idx = threadIdx.x; idx < nk * D; idx += kThreads) {
       const int j = idx / D;
       const int d = idx - j * D;
-      const int64_t g = head + static_cast<int64_t>(k0) * D + idx;
-      k_s[j * ks + d] = to_f32(k[g]);
-      v_s[j * ks + d] = to_f32(v[g]);
+      k_s[j * ks + d] = to_f32(kh[(k0 + j) * L.st[1] + d]);
+      v_s[j * ks + d] = to_f32(vh[(k0 + j) * L.st[2] + d]);
     }
     __syncthreads();
 
@@ -196,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (row0 + r >= nq) break;
-    T* dqrow = dq + head + static_cast<int64_t>(q0 + row0 + r) * D;
+    T* dqrow = dqh + (q0 + row0 + r) * L.st[5];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = lane + 32 * c;
@@ -214,165 +219,324 @@ size_t smem_bytes(int D) {
 template <int kCols>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const void* lse,
-                       void* dq, int B, int H, int seq, int D, float scale,
-                       cudaStream_t stream) {
+                       void* dq, const BwdLayout& L, int B, int H, int seq,
+                       int D, float scale, cudaStream_t stream) {
   const int tiles = (seq + kTileQ - 1) / kTileQ;
   return launch_with_smem(
       flash_bwd_dq_kernel<float, kCols>, B * H * tiles, kThreads,
       smem_bytes(D), stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(o), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(dq), H, seq, D,
+      static_cast<const float*>(lse), static_cast<float*>(dq), L, H, seq, D,
       scale);
 }
 
-// ---- bf16: the tensor-core instance --------------------------------------
-constexpr int kMmaWarps = 4;
-constexpr int kMmaTileQ = 16 * kMmaWarps;  // query rows per block
-constexpr int kMmaThreads = 32 * kMmaWarps;
+// ---- bf16, D <= 512: the warp-specialised wgmma kernel ---------------------
+// Shared memory of an instance: kQBufs buffers of an item's Q and dO tiles
+// (kRows rows each, all columns), kStages stages of a K and a V tile (kN
+// rows each), then the barriers.
+template <int kDp, int kN, int kCols>
+struct DqShape {
+  static constexpr int kRows = attn_wg::Cut<kDp, kCols>::kRows;
+  static constexpr int kQBytes = 2 * kRows * kDp;  // Q or dO
+  static constexpr int kKBytes = 2 * kN * kDp;     // K or V
+  // two buffers where they leave room for two stages
+  static constexpr int kQBufs =
+      attn_wg::kSmemBudget - 4 * kQBytes >= 4 * kKBytes ? 2 : 1;
+  // as many stages as fit, at most 4
+  static constexpr int kFit =
+      (attn_wg::kSmemBudget - 2 * kQBufs * kQBytes) / (2 * kKBytes);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kDOff = kQBufs * kQBytes;
+  static constexpr int kKOff = 2 * kQBufs * kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kKBytes;
+  static constexpr int kBarOff = kVOff + kStages * kKBytes;
+  static constexpr int kBytes = kBarOff + 8 * 2 * (kQBufs + kStages) + 1024;
+  static_assert(kN % 16 == 0, "key tile: whole k16 steps of dq += ds.k");
+  static_assert(kStages >= 2, "a ring of at least two stages");
+};
 
-// Dynamic shared memory, in bf16: 8 zeros (the chunk that rows past a tile
-// and columns past D read), then the block's q rows, its dO rows, K stage
-// 0, K stage 1, V stage 0, V stage 1, each kChunk rows of stride_elems(D).
-size_t mma_smem_bytes(int D) {
-  return sizeof(__nv_bfloat16) *
-         (8 + 6 * static_cast<size_t>(attn_mma::kChunk) *
-                  attn_mma::stride_elems(D));
-}
+// Work items are the (b * H + h, query rows, column group) triples,
+// n_items a head (Cut: 128 rows and all columns, or 64 rows and two chunks
+// of kCols columns); the grid is persistent: block x takes items x, x +
+// gridDim.x, ...  The producer (warpgroup 2) brings an item's Q and dO
+// once (two buffers where they fit, so the next item's arrive early) and
+// its K and V tiles, last to first, through the ring; consumer c takes
+// rows 64c .. 64c+63, or all 64 rows and its chunk.  For each key tile: s =
+// q.k^T and dp = do.v^T (ss, summed over all the head's columns), then ds
+// = p * (dp - delta) * scale with p = exp2(s * c - lse * log2(e)) in the
+// accumulator registers, split into bf16 hi + lo, and dq += ds.k over the
+// consumer's columns (rs, k read MN-major from the same tile).  The next
+// tile's s and dp are issued before this tile's ds.k, so that its exps run
+// while the tensor cores add ds.k.  dq stays in registers until the item
+// ends.
+template <int kDp, int kN, int kCols>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap domap,
+              const attn_wg::BwdParams p) {
+  using namespace attn_wg;
+  using S = DqShape<kDp, kN, kCols>;
+  using A = Atoms<kDp>;
+  using C = Cut<kDp, kCols>;
+  constexpr int kStages = S::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* q_empty = q_full + S::kQBufs;
+  uint64_t* kv_full = q_empty + S::kQBufs;
+  uint64_t* kv_empty = kv_full + kStages;
+  const int items =
+      (p.total - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
 
-// kRegs: the warp keeps its q and dO fragments in registers for the whole
-// loop (else it reloads them from shared memory for every 16 keys).
-template <int kDp, bool kRegs>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const __nv_bfloat16* __restrict__ o,
-                            const __nv_bfloat16* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            __nv_bfloat16* __restrict__ dq, int H, int seq,
-                            int D, float scale, float c, bool vec) {
-  using namespace attn_mma;
-  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
-  const int tile = kChunk * stride_elems(D);
-  __nv_bfloat16* zeros = smem_bf16;
-  __nv_bfloat16* q_s = smem_bf16 + 8;
-  __nv_bfloat16* do_s = q_s + tile;
-  __nv_bfloat16* k_s = do_s + tile;  // stage i at k_s + i * tile
-  __nv_bfloat16* v_s = k_s + 2 * tile;
-
-  const int tiles = (seq + kMmaTileQ - 1) / kMmaTileQ;
-  const int bh = blockIdx.x / tiles;  // b * H + h
-  const int q0 = (blockIdx.x - bh * tiles) * kMmaTileQ;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int64_t head = static_cast<int64_t>(bh) * seq * D;
-  const int64_t ld = static_cast<int64_t>(H) * D;  // row stride of o, do
-  // (b, q0, h) in the (B, T, H, D) layout of o and do
-  const int64_t bthd = ((static_cast<int64_t>(b) * seq + q0) * H + h) * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nq = min(kMmaTileQ, seq - q0);
-  const int row0 = 16 * warp;  // this warp's first row in the block's tile
-  const bool active = row0 < nq;  // warp-uniform
-
-  auto stage = [&](int it) {
-    const int k0 = it * kChunk;
-    const int n = min(kChunk, seq - k0);
-    const int64_t off = head + static_cast<int64_t>(k0) * D;
-    stage_rows(k_s + (it & 1) * tile, k + off, D, n, D, vec, threadIdx.x,
-               kMmaThreads);
-    stage_rows(v_s + (it & 1) * tile, v + off, D, n, D, vec, threadIdx.x,
-               kMmaThreads);
-    cp_async_commit();
-  };
-
-  if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
-  stage_rows(q_s, q + head + static_cast<int64_t>(q0) * D, D, nq, D, vec,
-             threadIdx.x, kMmaThreads);
-  stage_rows(do_s, dout + bthd, ld, nq, D, vec, threadIdx.x, kMmaThreads);
-  stage(0);
-  cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::kQBufs; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], kConsumerWarps);
+    }
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&kv_full[i], 1);
+      mbar_init(&kv_empty[i], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  // rows g and g+8 of the warp's 16: lse in log2 units and delta, both 0
-  // past T (so that ds is 0 there)
-  const int g = lane >> 2, t = lane & 3;
-  uint32_t qa[kDp / 16][4], da[kDp / 16][4];
-  float lse2[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
-  if (active) {
-    if constexpr (kRegs) load_a<kDp>(qa, q_s, row0, nq, D, zeros, lane);
-    load_a<kDp>(da, do_s, row0, nq, D, zeros, lane);
-    rows_dot<kDp>(delta, da, o + bthd, ld, row0, nq, D, lane);
-    const float* lse_rows = lse + static_cast<int64_t>(bh) * seq + q0;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = row0 + g + 8 * i;
-      if (r < nq) lse2[i] = lse_rows[r] * kLog2e;
-    }
-  }
-  float acc[kDp / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < kDp / 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
-
-  const int nkt = (seq + kChunk - 1) / kChunk;
-  for (int it = 0; it < nkt; ++it) {
-    if (it + 1 < nkt) {
-      stage(it + 1);  // its buffer was last read before the previous sync
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile it has landed for every thread
-    if (active) {
-      const int n = min(kChunk, seq - it * kChunk);
-      const __nv_bfloat16* kt = k_s + (it & 1) * tile;
-      const __nv_bfloat16* vt = v_s + (it & 1) * tile;
-#pragma unroll
-      for (int kb = 0; kb < kChunk / 16; ++kb) {
-        if (16 * kb >= n) break;  // warp-uniform
-        float s[2][4] = {}, dp[2][4] = {};
-        if constexpr (!kRegs) load_a<kDp>(qa, q_s, row0, nq, D, zeros, lane);
-        mma_a_bt<kDp>(s[0], s[1], qa, kt, 16 * kb, n, D, zeros, lane);
-        if constexpr (!kRegs) load_a<kDp>(da, do_s, row0, nq, D, zeros, lane);
-        mma_a_bt<kDp>(dp[0], dp[1], da, vt, 16 * kb, n, D, zeros, lane);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = 16 * kb + 8 * j + 2 * t + (e & 1);
-            const float p =
-                key < n ? exp2f(s[j][e] * c - lse2[e >> 1]) : 0.f;
-            s[j][e] = p * (dp[j][e] - delta[e >> 1]) * scale;  // ds
-          }
-        mma_p_b<kDp>(acc, s[0], s[1], kt, 16 * kb, n, D, zeros, lane);
+  // the warpgroup, warp-uniform for the compiler, so that each role's code
+  // is compiled for its own register count
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == kConsumerWGs) {
+    // ---- producer: one thread keeps the TMA loads in flight ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x != 128 * kConsumerWGs) return;
+    prefetch_map(&qmap);
+    prefetch_map(&domap);
+    prefetch_map(&kmap);
+    prefetch_map(&vmap);
+    int stage = 0, sph = 0, qb = 0, qph = 0;
+    for (int i = 0; i < items; ++i) {
+      const Item it(p, blockIdx.x + i * gridDim.x);
+      const int q0 = it.tile * S::kRows;
+      mbar_wait(&q_empty[qb], qph ^ 1);  // a fresh barrier passes at once
+      mbar_expect_tx(&q_full[qb], 2 * S::kQBytes);
+      load_tile<kDp>(smem + qb * S::kQBytes, &qmap, &q_full[qb], S::kRows,
+                     it.h, q0, it.b);
+      load_tile<kDp>(smem + S::kDOff + qb * S::kQBytes, &domap, &q_full[qb],
+                     S::kRows, it.h, q0, it.b);
+      if (++qb == S::kQBufs) qb = 0, qph ^= 1;
+      for (int j = 0; j < p.n_loop; ++j) {
+        mbar_wait(&kv_empty[stage], sph ^ 1);
+        mbar_expect_tx(&kv_full[stage], 2 * S::kKBytes);
+        const int k0 = (p.n_loop - 1 - j) * kN;  // last tile first
+        load_tile<kDp>(smem + S::kKOff + stage * S::kKBytes, &kmap,
+                       &kv_full[stage], kN, it.h, k0, it.b);
+        load_tile<kDp>(smem + S::kVOff + stage * S::kKBytes, &vmap,
+                       &kv_full[stage], kN, it.h, k0, it.b);
+        if (++stage == kStages) stage = 0, sph ^= 1;
       }
     }
-    __syncthreads();  // tile it is no longer read
+    return;
   }
-  if (active)
-    store_rows<kDp>(acc, dq + head + static_cast<int64_t>(q0) * D, D, row0,
-                    nq, D, lane);
+
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = role;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  float s[kN / 2], dp[kN / 2];
+  float dq[kCols / 2];
+  uint32_t hi[kN / 16][4], lo[kN / 16][4];
+  float lse2[2], delta[2];
+
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  int stage = 0, sph = 0, qb = 0, qph = 0;
+  for (int i = 0; i < items; ++i) {
+    const Item it(p, blockIdx.x + i * gridDim.x);
+    const int b = it.b, h = it.h;
+    // the warp's first row, the consumer's first column
+    const int row_w = it.tile * S::kRows + C::row0(c) + 16 * warp;
+    const int col0 = C::chunk(it.group, c) * kCols;
+    // lse (log2 units) and delta of the thread's rows g and g+8, delta from
+    // the o and do rows as the TPU kernel computes it at j == 0 (the four
+    // lanes of a quad over every fourth column); 0 past T, where ds is then
+    // 0 (q and do arrive as zeros there)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_w + g + 8 * r;
+      float l2 = 0.f, dl = 0.f;
+      if (row < p.T) {
+        const bf16* orow = p.o + b * p.so[0] + h * p.so[1] + row * p.so[2];
+        const bf16* drow =
+            p.dout + b * p.sd[0] + h * p.sd[1] + row * p.sd[2];
+        for (int d = t; d < p.D; d += 4)
+          dl = fmaf(__bfloat162float(drow[d]), __bfloat162float(orow[d]), dl);
+        l2 = p.lse[static_cast<long long>(it.bh) * p.T + row] * kLog2e;
+      }
+      dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+      dl += __shfl_xor_sync(0xffffffffu, dl, 2);
+      lse2[r] = l2;
+      delta[r] = dl;
+    }
+#pragma unroll
+    for (int x = 0; x < kCols / 2; ++x) dq[x] = 0.f;
+    mbar_wait(&q_full[qb], qph);
+    const uint32_t qa =
+        smem_u32(smem + qb * S::kQBytes) + C::row0(c) * A::kRowBytes;
+    const uint32_t da = smem_u32(smem + S::kDOff + qb * S::kQBytes) +
+                        C::row0(c) * A::kRowBytes;
+    // the consumer's first column atom in a K tile
+    const uint32_t col_off = col0 / A::kCols * kN * A::kRowBytes;
+
+    // s and dp of the key tile in stage st, one commit group; every
+    // register the products read or write is settled before it opens
+    auto logits = [&](int st) {
+      fence_regs(s);
+      fence_regs(dp);
+      fence_regs(dq);
+      fence_regs(hi);
+      fence_regs(lo);
+      wg_fence();
+      product_ss<kDp, kN>(s, qa, S::kRows,
+                          smem_u32(smem + S::kKOff + st * S::kKBytes));
+      product_ss<kDp, kN>(dp, da, S::kRows,
+                          smem_u32(smem + S::kVOff + st * S::kKBytes));
+      wg_commit();
+    };
+    // dq += ds.k of the key tile in stage st, ds = hi + lo, over the
+    // consumer's columns
+    auto accumulate = [&](int st) {
+      product_rs<kDp, kCols, kN>(
+          dq, hi, lo, smem_u32(smem + S::kKOff + st * S::kKBytes) + col_off);
+      wg_commit();
+    };
+    // ds = p * (dp - delta) * scale into s; in the first tile taken (keys
+    // from k0) keys past T get p = 0 by a select
+    auto grads = [&](int k0, auto masked) {
+#pragma unroll
+      for (int nb = 0; nb < kN / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float x = ex2(fmaf(s[4 * nb + e], p.c, -lse2[r]));
+          if constexpr (decltype(masked)::value)
+            x = k0 + 8 * nb + 2 * t + (e & 1) >= p.T ? 0.f : x;
+          s[4 * nb + e] = x * (dp[4 * nb + e] - delta[r]) * p.scale;
+        }
+    };
+
+    // Key tiles are taken last to first: the first one taken holds the
+    // keys past T, and it alone is masked.  Its turn is peeled off the loop
+    // so that no wait or product of the loop sits under a branch.
+    mbar_wait(&kv_full[stage], sph);
+    logits(stage);
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if (p.n_loop == 1) release(&q_empty[qb]);  // q and do are read no more
+    grads((p.n_loop - 1) * kN, std::true_type{});
+    split_frags<kN>(s, hi, lo);
+    int prev = stage;
+    if (++stage == kStages) stage = 0, sph ^= 1;
+    for (int j = 1; j < p.n_loop; ++j) {
+      mbar_wait(&kv_full[stage], sph);
+      logits(stage);
+      accumulate(prev);
+      wg_wait<1>();  // s and dp; ds.k of the tile before runs on
+      fence_regs(s);
+      fence_regs(dp);
+      if (j == p.n_loop - 1) release(&q_empty[qb]);
+      grads(0, std::false_type{});
+      wg_wait<0>();
+      fence_regs(dq);
+      fence_regs(hi);
+      fence_regs(lo);
+      release(&kv_empty[prev]);
+      split_frags<kN>(s, hi, lo);
+      prev = stage;
+      if (++stage == kStages) stage = 0, sph ^= 1;
+    }
+    // the last tile's ds.k
+    fence_regs(dq);
+    fence_regs(hi);
+    fence_regs(lo);
+    wg_fence();
+    accumulate(prev);
+    wg_wait<0>();
+    fence_regs(dq);
+    fence_regs(hi);
+    fence_regs(lo);
+    release(&kv_empty[prev]);
+
+    // a clamped chunk's copy is not stored (no rows below 0)
+    store_acc<kCols>(dq, p.out0 + b * p.s0[0] + h * p.s0[1], p.s0[2], row_w,
+                     C::stores(it.group, c) ? p.T : 0, col0, p.D, p.pairs,
+                     lane);
+    if (++qb == S::kQBufs) qb = 0, qph ^= 1;
+  }
 }
 
-template <int kDp>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, const void* lse,
-                       void* dq, int B, int H, int seq, int D, float scale,
-                       cudaStream_t stream) {
-  const int tiles = (seq + kMmaTileQ - 1) / kMmaTileQ;
-  const bool vec = attn_mma::can_copy_chunks(D, q, k, v, dout);
-  return launch_with_smem(
-      flash_bwd_dq_mma_kernel<kDp, (kDp <= 64)>, B * H * tiles, kMmaThreads,
-      mma_smem_bytes(D), stream, static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<__nv_bfloat16*>(dq), H, seq, D, scale,
-      scale * attn_mma::kLog2e, vec);
+// Launches dq_kernel<kDp, kN, kCols>: a persistent grid, one block an SM.
+template <int kDp, int kN, int kCols>
+cudaError_t launch_dq(const attn_wg::View& q, const attn_wg::View& k,
+                      const attn_wg::View& v, const attn_wg::View& dout,
+                      attn_wg::BwdParams p, int B, int H, int T, int D,
+                      cudaStream_t stream) {
+  using namespace attn_wg;
+  using S = DqShape<kDp, kN, kCols>;
+  using A = Atoms<kDp>;
+  using C = Cut<kDp, kCols>;
+  auto kernel = dq_kernel<kDp, kN, kCols>;
+  static std::atomic<uint64_t> opted_in{0};
+  const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm, dm;
+  if (!tensor_map(&qm, q, B, H, T, D, A::kCols, S::kRows, A::kSwizzle) ||
+      !tensor_map(&dm, dout, B, H, T, D, A::kCols, S::kRows, A::kSwizzle) ||
+      !tensor_map(&km, k, B, H, T, D, A::kCols, kN, A::kSwizzle) ||
+      !tensor_map(&vm, v, B, H, T, D, A::kCols, kN, A::kSwizzle))
+    return cudaErrorInvalidValue;
+  p.n_groups = C::kGroups;
+  p.n_items = (T + S::kRows - 1) / S::kRows * C::kGroups;
+  p.n_loop = (T + kN - 1) / kN;
+  p.total = B * H * p.n_items;
+  kernel<<<min(p.total, sm_count()), attn_wg::kThreads, S::kBytes, stream>>>(
+      qm, km, vm, dm, p);
+  return cudaGetLastError();
+}
+
+// The instance of the first table width >= D (backward_tiles.cuh).
+cudaError_t launch_wgmma(const attn_wg::View& q, const attn_wg::View& k,
+                         const attn_wg::View& v, const attn_wg::View& dout,
+                         const attn_wg::BwdParams& p, int B, int H, int T,
+                         int D, cudaStream_t stream) {
+#define DQ(w, n, cols)                                                   \
+  if (D <= w)                                                            \
+    return launch_dq<w, n, cols>(q, k, v, dout, p, B, H, T, D, stream);
+#define DKV(w, n, cols)
+#include "backward_tiles.cuh"
+#undef DQ
+#undef DKV
+  return cudaErrorInvalidValue;
+}
+
+// The wgmma instance's dynamic shared memory at D (0 past the table).
+size_t wgmma_smem_bytes(int D) {
+#define DQ(w, n, cols) \
+  if (D <= w) return DqShape<w, n, cols>::kBytes;
+#define DKV(w, n, cols)
+#include "backward_tiles.cuh"
+#undef DQ
+#undef DKV
+  return 0;
 }
 
 // ---- past kColChunk columns: one block per (b, h, query tile, column
@@ -393,8 +557,8 @@ __global__ void __launch_bounds__(kThreads)
                               const float* __restrict__ o,
                               const float* __restrict__ dout,
                               const float* __restrict__ lse,
-                              float* __restrict__ dq, int H, int seq, int D,
-                              float scale) {
+                              float* __restrict__ dq, BwdLayout L, int H,
+                              int seq, int D, float scale) {
   extern __shared__ float smem[];
   float* q_s = smem;
   float* do_s = q_s + kTileQ * kColChunk;
@@ -407,10 +571,12 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (blockIdx.x - bh * tiles) * kTileQ;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int64_t head = static_cast<int64_t>(bh) * seq * D;
-  // (b, q0, h) in the (B, T, H, D) layout of o and do; rows H*D apart
-  const int64_t bthd = ((static_cast<int64_t>(b) * seq + q0) * H + h) * D;
-  const int64_t ld = static_cast<int64_t>(H) * D;
+  // row 0 of head (b, h) of each view, its rows L.st[x] apart
+  const float* qh = q + L.head(0, b, h);
+  const float* kh = k + L.head(1, b, h);
+  const float* vh = v + L.head(2, b, h);
+  const float* oh = o + L.head(3, b, h);
+  const float* doh = dout + L.head(4, b, h);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int nq = min(kTileQ, seq - q0);
@@ -427,9 +593,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kColChunk / 32; ++c) acc[r][c] = 0.f;
     if (row0 + r < nq) {  // warp-uniform
-      const int64_t row = bthd + (row0 + r) * ld;
+      const float* orow = oh + (q0 + row0 + r) * L.st[3];
+      const float* drow = doh + (q0 + row0 + r) * L.st[4];
       float a = 0.f;
-      for (int d = lane; d < D; d += 32) a = fmaf(dout[row + d], o[row + d], a);
+      for (int d = lane; d < D; d += 32) a = fmaf(drow[d], orow[d], a);
       delta[r] = warp_sum(a);
       lse_r[r] = lse[static_cast<int64_t>(bh) * seq + q0 + row0 + r];
     }
@@ -452,15 +619,14 @@ __global__ void __launch_bounds__(kThreads)
       for (int idx = threadIdx.x; idx < nq * w; idx += kThreads) {
         const int i = idx / w;
         const int d = idx - i * w;
-        q_s[idx] = q[head + static_cast<int64_t>(q0 + i) * D + col + d];
-        do_s[idx] = dout[bthd + i * ld + col + d];
+        q_s[idx] = qh[(q0 + i) * L.st[0] + col + d];
+        do_s[idx] = doh[(q0 + i) * L.st[4] + col + d];
       }
       for (int idx = threadIdx.x; idx < nk * w; idx += kThreads) {
         const int j = idx / w;
         const int d = idx - j * w;
-        const int64_t g = head + static_cast<int64_t>(k0 + j) * D + col + d;
-        k_s[j * ks + d] = k[g];
-        v_s[j * ks + d] = v[g];
+        k_s[j * ks + d] = kh[(k0 + j) * L.st[1] + col + d];
+        v_s[j * ks + d] = vh[(k0 + j) * L.st[2] + col + d];
       }
       __syncthreads();
 #pragma unroll
@@ -517,8 +683,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (row0 + r >= nq) break;
-    float* dqrow = dq + head + static_cast<int64_t>(q0 + row0 + r) * D +
-                   cc * kColChunk;
+    float* dqrow =
+        dq + L.head(5, b, h) + (q0 + row0 + r) * L.st[5] + cc * kColChunk;
 #pragma unroll
     for (int c = 0; c < kColChunk / 32; ++c) {
       const int d = lane + 32 * c;
@@ -527,8 +693,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// bf16 dynamic shared memory, in bf16: 8 zeros, then two stages, each a K
-// chunk and a V chunk of kChunk rows of stride_elems(kColChunk).
+// bf16, on mma.sync: one block of 4 warps per (b, h, 64 query rows, column
+// chunk of dq), a warp owning 16 rows.  Dynamic shared memory, in bf16: 8
+// zeros, then two stages, each a K chunk and a V chunk of kChunk rows of
+// stride_elems(kColChunk).
+constexpr int kMmaWarps = 4;
+constexpr int kMmaTileQ = 16 * kMmaWarps;  // query rows per block
+constexpr int kMmaThreads = 32 * kMmaWarps;
+
 size_t chunk_mma_smem_bytes() {
   return sizeof(__nv_bfloat16) *
          (8 + 4 * static_cast<size_t>(attn_mma::kChunk) *
@@ -542,9 +714,9 @@ __global__ void __launch_bounds__(kMmaThreads)
                                   const __nv_bfloat16* __restrict__ o,
                                   const __nv_bfloat16* __restrict__ dout,
                                   const float* __restrict__ lse,
-                                  __nv_bfloat16* __restrict__ dq, int H,
-                                  int seq, int D, float scale, float c,
-                                  bool vec) {
+                                  __nv_bfloat16* __restrict__ dq,
+                                  BwdLayout L, int H, int seq, int D,
+                                  float scale, float c, bool vec) {
   using namespace attn_mma;
   extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
   const int tile = kChunk * stride_elems(kColChunk);
@@ -556,10 +728,12 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int q0 = (blockIdx.x - bh * tiles) * kMmaTileQ;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int64_t head = static_cast<int64_t>(bh) * seq * D;
-  const int64_t ld = static_cast<int64_t>(H) * D;  // row stride of o, do
-  // (b, q0, h) in the (B, T, H, D) layout of o and do
-  const int64_t bthd = ((static_cast<int64_t>(b) * seq + q0) * H + h) * D;
+  // row q0 of head (b, h) of each view, its rows L.st[x] apart
+  const __nv_bfloat16* qh = q + L.head(0, b, h) + q0 * L.st[0];
+  const __nv_bfloat16* kh = k + L.head(1, b, h);
+  const __nv_bfloat16* vh = v + L.head(2, b, h);
+  const __nv_bfloat16* oh = o + L.head(3, b, h) + q0 * L.st[3];
+  const __nv_bfloat16* doh = dout + L.head(4, b, h) + q0 * L.st[4];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int nq = min(kMmaTileQ, seq - q0);
@@ -576,13 +750,11 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int k0 = i / nc * kChunk;
     const int n = min(kChunk, seq - k0);
     const int e = chunk_of(i);
-    const int64_t off =
-        head + static_cast<int64_t>(k0) * D + e * kColChunk;
     __nv_bfloat16* dst = ring + (i & 1) * 2 * tile;
-    stage_rows(dst, k + off, D, n, chunk_width(D, e), vec, threadIdx.x,
-               kMmaThreads);
-    stage_rows(dst + tile, v + off, D, n, chunk_width(D, e), vec, threadIdx.x,
-               kMmaThreads);
+    stage_rows(dst, kh + k0 * L.st[1] + e * kColChunk, L.st[1], n,
+               chunk_width(D, e), vec, threadIdx.x, kMmaThreads);
+    stage_rows(dst + tile, vh + k0 * L.st[2] + e * kColChunk, L.st[2], n,
+               chunk_width(D, e), vec, threadIdx.x, kMmaThreads);
     cp_async_commit();
   };
 
@@ -597,9 +769,9 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int e = 0; e < nc; ++e) {
       const int we = chunk_width(D, e);
       float part[2];
-      load_rows_a<kColChunk>(a, dout + bthd + e * kColChunk, ld, row0, nq,
-                             we, lane);
-      rows_dot<kColChunk>(part, a, o + bthd + e * kColChunk, ld, row0, nq, we,
+      load_rows_a<kColChunk>(a, doh + e * kColChunk, L.st[4], row0, nq, we,
+                             lane);
+      rows_dot<kColChunk>(part, a, oh + e * kColChunk, L.st[3], row0, nq, we,
                           lane);
       delta[0] += part[0];
       delta[1] += part[1];
@@ -638,11 +810,10 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
           for (int x = 0; x < 4; ++x) s[nb][x] = dp[nb][x] = 0.f;
       }
-      load_rows_a<kColChunk>(
-          a, q + head + static_cast<int64_t>(q0) * D + e * kColChunk, D, row0,
-          nq, we, lane);
+      load_rows_a<kColChunk>(a, qh + e * kColChunk, L.st[0], row0, nq, we,
+                             lane);
       chunk_logits<kColChunk>(s, a, kt, 0, n, n, we, zeros, lane);
-      load_rows_a<kColChunk>(a, dout + bthd + e * kColChunk, ld, row0, nq, we,
+      load_rows_a<kColChunk>(a, doh + e * kColChunk, L.st[4], row0, nq, we,
                              lane);
       chunk_logits<kColChunk>(dp, a, kt + tile, 0, n, n, we, zeros, lane);
       if (e == cc) {
@@ -666,46 +837,65 @@ __global__ void __launch_bounds__(kMmaThreads)
     __syncthreads();  // step i is no longer read
   }
   if (active)
-    store_rows<kColChunk>(acc,
-                          dq + head + static_cast<int64_t>(q0) * D +
-                              cc * kColChunk,
-                          D, row0, nq, wc, lane);
+    store_rows<kColChunk>(
+        acc, dq + L.head(5, b, h) + q0 * L.st[5] + cc * kColChunk, L.st[5],
+        row0, nq, wc, lane);
 }
 
 cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
-                             void* dq, int B, int H, int seq, int D,
-                             float scale, cudaStream_t s) {
+                             void* dq, const BwdLayout& L, int B, int H,
+                             int seq, int D, float scale, cudaStream_t s) {
   if (D <= 32)
-    return launch_f32<1>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
+    return launch_f32<1>(q, k, v, o, dout, lse, dq, L, B, H, seq, D, scale, s);
   if (D <= 64)
-    return launch_f32<2>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
+    return launch_f32<2>(q, k, v, o, dout, lse, dq, L, B, H, seq, D, scale, s);
   if (D <= kColChunk)
-    return launch_f32<4>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
+    return launch_f32<4>(q, k, v, o, dout, lse, dq, L, B, H, seq, D, scale, s);
   const int tiles = (seq + kTileQ - 1) / kTileQ;
   return launch_with_smem(
       flash_bwd_dq_chunk_kernel, dim3(B * H * tiles, col_chunks(D)), kThreads,
       chunk_smem_bytes(), s, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(o), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(dq), H, seq, D,
+      static_cast<const float*>(lse), static_cast<float*>(dq), L, H, seq, D,
       scale);
 }
 
-cudaError_t launch_mma_for_d(const void* q, const void* k, const void* v,
-                             const void* o, const void* dout, const void* lse,
-                             void* dq, int B, int H, int seq, int D,
-                             float scale, cudaStream_t s) {
-  if (D <= 16)
-    return launch_mma<16>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
-  if (D <= 32)
-    return launch_mma<32>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
-  if (D <= 64)
-    return launch_mma<64>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
-  if (D <= kColChunk)
-    return launch_mma<128>(q, k, v, o, dout, lse, dq, B, H, seq, D, scale, s);
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* lse,
+                        void* dq, const BwdLayout& L, int B, int H, int seq,
+                        int D, float scale, cudaStream_t s) {
+  if (D <= attn_wg::widest_backward()) {
+    using attn_wg::View;
+    attn_wg::BwdParams p{};
+    p.out0 = static_cast<__nv_bfloat16*>(dq);
+    p.o = static_cast<const __nv_bfloat16*>(o);
+    p.dout = static_cast<const __nv_bfloat16*>(dout);
+    p.lse = static_cast<const float*>(lse);
+    for (int x = 0; x < 3; ++x) {
+      const int64_t* st[3] = {L.sb, L.sh, L.st};
+      p.so[x] = st[x][3];
+      p.sd[x] = st[x][4];
+      p.s0[x] = st[x][5];
+    }
+    p.H = H;
+    p.T = seq;
+    p.D = D;
+    p.scale = scale;
+    p.c = scale * attn_wg::kLog2e;
+    p.pairs = D % 2 == 0 && reinterpret_cast<uintptr_t>(dq) % 4 == 0 &&
+              (L.sb[5] | L.sh[5] | L.st[5]) % 2 == 0;
+    return launch_wgmma(View{q, L.sb[0], L.sh[0], L.st[0]},
+                        View{k, L.sb[1], L.sh[1], L.st[1]},
+                        View{v, L.sb[2], L.sh[2], L.st[2]},
+                        View{dout, L.sb[4], L.sh[4], L.st[4]}, p, B, H, seq,
+                        D, s);
+  }
   const int tiles = (seq + kMmaTileQ - 1) / kMmaTileQ;
-  const bool vec = attn_mma::can_copy_chunks(D, k, v);
+  const bool vec = attn_mma::can_copy_chunks(D, k, v) &&
+                   (L.sb[1] | L.sh[1] | L.st[1] | L.sb[2] | L.sh[2] |
+                    L.st[2]) % 8 == 0;
   return launch_with_smem(
       flash_bwd_dq_chunk_mma_kernel, dim3(B * H * tiles, col_chunks(D)),
       kMmaThreads, chunk_mma_smem_bytes(), s,
@@ -714,39 +904,45 @@ cudaError_t launch_mma_for_d(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<__nv_bfloat16*>(dq), H, seq, D, scale,
+      static_cast<__nv_bfloat16*>(dq), L, H, seq, D, scale,
       scale * attn_mma::kLog2e, vec);
 }
 
 }  // namespace
 
-// q, k, v: (B, H, T, D) contiguous; o, dout: (B, T, H, D) contiguous, same
-// type; lse: (B, H, T) float32; dq: (B, H, T, D), same type as q.  Any D;
-// dtype 0 is float32, 1 is bfloat16.  Returns the cudaError_t of the launch.
+// q, k, v, o, dout, dq: (B, H, T, D) views (o and dout as views of their
+// (B, T, H, D) tensors), their (b, h, t) strides in elements in `strides`,
+// three each in that order (d's stride is 1); the bf16 wgmma instance (D <=
+// 512) reads q, k, v and dout through tensor maps, so their bases are
+// 16-byte aligned and those strides multiples of 8 elements, which the
+// wrapper sees to.  lse: (B, H, T) float32 contiguous.  dq has q's type.
+// Any D; dtype 0 is float32, 1 is bfloat16.  Returns the cudaError_t of the
+// launch.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
-                            void* dq, int B, int H, int T, int D, float scale,
-                            int dtype, void* stream) {
+                            void* dq, const long long* strides, int B, int H,
+                            int T, int D, float scale, int dtype,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdLayout L = BwdLayout::from(strides);
   switch (dtype) {
     case 0:
-      return launch_f32_for_d(q, k, v, o, dout, lse, dq, B, H, T, D, scale,
+      return launch_f32_for_d(q, k, v, o, dout, lse, dq, L, B, H, T, D, scale,
                               s);
     case 1:
-      return launch_mma_for_d(q, k, v, o, dout, lse, dq, B, H, T, D, scale,
-                              s);
+      return launch_bf16(q, k, v, o, dout, lse, dq, L, B, H, T, D, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The dynamic shared memory one launch needs, in bytes: the larger of the
-// two instances' needs, which depend on D alone and stop growing past
-// kColChunk.
+// two instances' needs, which depend on D alone.
 extern "C" long long flash_bwd_dq_smem_bytes(int T, int D) {
   (void)T;
   const size_t f32 = D <= kColChunk ? smem_bytes(D) : chunk_smem_bytes();
   const size_t bf16 =
-      D <= kColChunk ? mma_smem_bytes(D) : chunk_mma_smem_bytes();
+      D <= attn_wg::widest_backward() ? wgmma_smem_bytes(D)
+                                      : chunk_mma_smem_bytes();
   return static_cast<long long>(f32 > bf16 ? f32 : bf16);
 }

@@ -1,8 +1,9 @@
 // mma.sync building blocks of the bf16 attention kernels that are not on
-// wgmma (the tiled backward pair flash_bwd_dq.cu and flash_bwd_dkv.cu, and
-// the forward past 256 columns, fwd_bf16_chunk.cuh): cp.async staging of
-// rows as bf16 in shared memory, ldmatrix fragments, mma.sync.m16n8k16 (bf16 in,
-// f32 accumulate), the two products every kernel is made of (a 16-row tile
+// wgmma (the column-chunk kernels of the tiled backward pair past 128
+// columns, in flash_bwd_dq.cu and flash_bwd_dkv.cu, and of the forward past
+// 256 columns, fwd_bf16_chunk.cuh): cp.async staging of rows as bf16 in
+// shared memory, ldmatrix fragments, mma.sync.m16n8k16 (bf16 in, f32
+// accumulate), the two products every kernel is made of (a 16-row tile
 // against 16 staged rows transposed, and an accumulator tile split into
 // bf16 hi + lo times 16 staged rows), and the online softmax of one warp's
 // 16 query rows over a chunk of up to 64 keys.
@@ -206,19 +207,6 @@ __device__ __forceinline__ const bf16* chunk_at(const bf16* s, int r, int c,
                                                 const bf16* zeros) {
   return (r < n && 8 * c < staged_width(D)) ? s + r * stride_elems(D) + 8 * c
                                             : zeros;
-}
-
-// The A fragments of rows r0 .. r0+15 of a staged matrix of n rows, all
-// kDp columns: matrix i of each x4 load is rows 8(i%2).., columns
-// 16kc + 8(i/2)..
-template <int kDp>
-__device__ __forceinline__ void load_a(uint32_t (&a)[kDp / 16][4],
-                                       const bf16* s, int r0, int n, int D,
-                                       const bf16* zeros, int lane) {
-  const int r = r0 + (lane & 7) + (((lane >> 3) & 1) << 3);
-#pragma unroll
-  for (int kc = 0; kc < kDp / 16; ++kc)
-    ldmatrix_x4(a[kc], chunk_at(s, r, 2 * kc + (lane >> 4), n, D, zeros));
 }
 
 // c0, c1 += a . s[j0 .. j0+15]^T: the 16-row tile whose A fragments are a

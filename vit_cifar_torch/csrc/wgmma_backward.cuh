@@ -1,0 +1,228 @@
+// What the two bf16 backward kernels on wgmma (flash_bwd_dq.cu,
+// flash_bwd_dkv.cu) share, on the building blocks of wgmma_blocks.cuh: the
+// swizzled layout of a tile, the loads that bring one, the two kinds of
+// product, the split of an accumulator into bf16 hi + lo fragments, the
+// store of an accumulator into a strided (B, H, T, D) view, and one
+// launch's scalars.
+//
+// The products of the backward are
+//   s = q.k^T, dp = do.v^T     ss: both operands K-major, summed over the
+//                              head's columns
+//   dq += ds.k                 rs: ds from registers, k MN-major
+//   dv += p^T.do, dk += ds^T.q rs: p^T and ds^T from registers, do and q
+//                              MN-major
+// (the dk/dv kernel computes s^T = k.q^T and dp^T = v.do^T, so that its
+// rows are keys).  One swizzled tile serves both kinds: k in the dq kernel,
+// q and do in the dk/dv kernel.  p and ds are split into bf16 hi = rn(x)
+// and lo = rn(x - hi) and both halves go through the tensor cores, so the
+// products keep them at f32 accuracy, as the TPU kernels keep them in f32.
+
+#pragma once
+
+#include "wgmma_blocks.cuh"
+
+namespace attn_wg {
+namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The swizzled layout of a tile at padded head width kDp: kCount atoms of
+// kCols columns side by side, each its tile's rows tall, a row kRowBytes
+// (64-byte rows at width 32, else 128-byte rows of 64 columns).
+template <int kDp>
+struct Atoms {
+  static constexpr int kCols = kDp == 32 ? 32 : 64;
+  static constexpr int kCount = kDp / kCols;
+  static constexpr int kRowBytes = 2 * kCols;
+  static constexpr uint32_t kSwizzle = kDp == 32 ? 2 : 1;  // 64 B : 128 B
+  static constexpr uint32_t kSbo = 8 * kRowBytes;  // 8-row groups
+  static_assert(kDp == 32 || kDp % 64 == 0, "head width");
+};
+
+// The `rows` x kDp tile at (h, t0, b) of a tensor map into dst, atom by
+// atom; its bytes are counted on `bar`.
+template <int kDp>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int rows, int h,
+                                          int t0, int b) {
+  using A = Atoms<kDp>;
+#pragma unroll
+  for (int a = 0; a < A::kCount; ++a)
+    tma_load_4d(dst + a * rows * A::kRowBytes, map, bar, a * A::kCols, h, t0,
+                b);
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory into shared memory by one bulk copy, counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// d = A.B^T over the kDp columns (ss): A the 64 rows at shared address a of
+// a K-major tile whose atoms are a_rows tall, B the kN rows of the K-major
+// tile at b (atoms kN tall).  Not committed.
+template <int kDp, int kN>
+__device__ __forceinline__ void product_ss(float (&d)[kN / 2], uint32_t a,
+                                           int a_rows, uint32_t b) {
+  using A = Atoms<kDp>;
+#pragma unroll
+  for (int kk = 0; kk < kDp / 16; ++kk) {
+    const int at = 16 * kk / A::kCols;
+    const uint32_t in_atom = 2 * (16 * kk % A::kCols);
+    Wgmma<kN>::ss(d,
+                  make_desc(a + at * a_rows * A::kRowBytes + in_atom, 16,
+                            A::kSbo, A::kSwizzle),
+                  make_desc(b + at * kN * A::kRowBytes + in_atom, 16, A::kSbo,
+                            A::kSwizzle),
+                  kk);
+  }
+}
+
+// d += (hi + lo).B (rs): hi and lo the A fragments of kK / 16 k16 steps, B
+// kK rows of an MN-major tile whose atoms are kK tall, kCols columns from
+// the atom at b.  Each step adds hi, then lo.  Not committed.
+template <int kDp, int kCols, int kK>
+__device__ __forceinline__ void product_rs(float (&d)[kCols / 2],
+                                           const uint32_t (&hi)[kK / 16][4],
+                                           const uint32_t (&lo)[kK / 16][4],
+                                           uint32_t b) {
+  using A = Atoms<kDp>;
+#pragma unroll
+  for (int kk = 0; kk < kK / 16; ++kk) {
+    const uint64_t desc = make_desc(b + kk * 16 * A::kRowBytes,
+                                    kK * A::kRowBytes, A::kSbo, A::kSwizzle);
+    Wgmma<kCols>::rs(d, hi[kk], desc);
+    Wgmma<kCols>::rs(d, lo[kk], desc);
+  }
+}
+
+// An accumulator of kN columns as the bf16 hi and lo A fragments of kN / 16
+// k16 steps.
+template <int kN>
+__device__ __forceinline__ void split_frags(const float (&x)[kN / 2],
+                                            uint32_t (&hi)[kN / 16][4],
+                                            uint32_t (&lo)[kN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1], hi[kk][e],
+                 lo[kk][e]);
+}
+
+// A consumer's accumulator (64 rows x kCols columns) as bf16 into rows
+// row_w + 16 warp .. of a (b, h) slice at `head` (row stride st), columns
+// col0 .. ; rows past T and columns past D are not written.  The
+// accumulator is read outside any branch (a divergent read of a wgmma
+// register serialises the wgmmas); the stores are predicated.  With
+// `pairs` (D even, 4-byte aligned rows) two columns a store.
+template <int kCols>
+__device__ __forceinline__ void store_acc(const float (&acc)[kCols / 2],
+                                          bf16* head, long long st, int row_w,
+                                          int T, int col0, int D, bool pairs,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    __nv_bfloat162 packed[kCols / 8];
+#pragma unroll
+    for (int n = 0; n < kCols / 8; ++n)
+      packed[n] = __floats2bfloat162_rn(acc[4 * n + 2 * r],
+                                        acc[4 * n + 2 * r + 1]);
+    const int row = row_w + g + 8 * r;
+    if (row >= T) continue;
+    bf16* out = head + row * st;
+#pragma unroll
+    for (int n = 0; n < kCols / 8; ++n) {
+      const int d = col0 + 8 * n + 2 * t;
+      if (pairs && d + 1 < D) {
+        *reinterpret_cast<__nv_bfloat162*>(out + d) = packed[n];
+      } else {
+        if (d < D) out[d] = packed[n].x;
+        if (d + 1 < D) out[d + 1] = packed[n].y;
+      }
+    }
+  }
+}
+
+// One backward launch's scalars.  Strides are (b, h, t) in elements, of
+// (B, H, T, D) views (o and do as views of their (B, T, H, D) tensors).
+struct BwdParams {
+  bf16* out0;         // dq, or dk
+  bf16* out1;         // dv (the dk/dv kernel)
+  const bf16* o;      // the dq kernel's delta: o and do rows
+  const bf16* dout;
+  const float* lse;   // (B, H, T)
+  float* rows;        // the dk/dv kernel's (B * H, Tpad) rows of lse *
+  float* deltas;      // log2(e) and of delta, zeros past T
+  long long so[3], sd[3], s0[3], s1[3];  // o, do, out0, out1
+  int H, T, D;
+  int Tpad;           // T rounded up to kRowsPad
+  float scale;
+  float c;            // scale * log2(e)
+  int n_items;        // work items a head: row (or key) tiles x groups
+  int n_groups;       // column groups a row (or key) tile
+  int n_loop;         // tiles an item walks: key tiles (dq), query (dk/dv)
+  int total;          // work items
+  bool pairs;         // outputs stored two columns at a time
+};
+
+// A work item's place: item = (bh * tiles + tile) * n_groups + group.
+struct Item {
+  int b, h, bh, tile, group;
+  __device__ Item(const BwdParams& p, int item) {
+    bh = item / p.n_items;
+    const int rest = item - bh * p.n_items;
+    tile = rest / p.n_groups;
+    group = rest - tile * p.n_groups;
+    b = bh / p.H;
+    h = bh - b * p.H;
+  }
+};
+
+// How an instance of kDp columns whose consumers hold kCols columns each
+// cuts its work: kCols == kDp, a work item is 128 rows (or keys), 64 a
+// consumer, all columns; kCols < kDp (column chunks), a work item is 64
+// rows, both consumers on them, consumer c taking chunk 2 * group + c of
+// kCols columns (the last chunk again where the chunks are odd in number:
+// computed, not stored).
+template <int kDp, int kCols>
+struct Cut {
+  static constexpr bool kSplit = kCols < kDp;
+  static constexpr int kRows = kSplit ? 64 : 128;      // rows an item
+  static constexpr int kChunks = kDp / kCols;
+  static constexpr int kGroups = kSplit ? (kChunks + 1) / 2 : 1;
+  static_assert(kDp % kCols == 0, "whole chunks");
+  // consumer c's rows in the item, and its chunk (clamped) of group g
+  static __device__ int row0(int c) { return kSplit ? 0 : 64 * c; }
+  static __device__ int chunk(int g, int c) {
+    return kSplit ? min(2 * g + c, kChunks - 1) : 0;
+  }
+  static __device__ bool stores(int g, int c) {
+    return !kSplit || 2 * g + c < kChunks;
+  }
+};
+
+// The widest padded head the table of instances holds (its last row); a
+// wider one takes the mma.sync column-chunk kernels.
+constexpr int widest_backward() {
+  int widest = 0;
+#define DQ(w, n, cols) widest = w;
+#define DKV(w, n, cols)
+#include "backward_tiles.cuh"
+#undef DQ
+#undef DKV
+  return widest;
+}
+
+// The rows of lse and delta the dk/dv kernel's producer copies are padded
+// to a multiple of this many (every query tile divides it), zeros past T.
+constexpr int kRowsPad = 128;
+
+}  // namespace
+}  // namespace attn_wg

@@ -47,7 +47,7 @@ import torch
 from . import registry
 from .common import (COL_CHUNK, MAX_SMEM_BYTES, check_device, launch_forward,
                      plain_impl)
-from .flash_attention import flash_tiled_bwd_dkv, flash_tiled_bwd_dq
+from .flash_attention import AttentionFunction
 
 # bytes of one block's shared memory in the f32 tile that walks K and V of a
 # head wider than COL_CHUNK (``fwd_f32_chunk_smem_bytes``): the query rows',
@@ -142,28 +142,16 @@ def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return registry.OPS.mhsa_fwd_lse(q, k, v, scale)
 
 
-class FusedAttentionFunction(torch.autograd.Function):
-    """The custom VJP of ``fused_attention``: the forward saves exactly
-    (q, k, v, out, lse); the backward runs the tiled dq pass, then the
-    tiled dk/dv pass, as the JAX ``_bwd`` does.  ``scale`` gets no
-    gradient."""
+class FusedAttentionFunction(AttentionFunction):
+    """The custom VJP of ``fused_attention``: :class:`AttentionFunction`
+    on the whole-head forward with lse (``fused_attention_lse``), whose
+    backward is the tiled pair's, as the JAX ``_bwd`` runs
+    ``_flash_bwd_impl``: ``apply(q, k, v, scale)``."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
-        out, lse = fused_attention_lse(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        # the tiled pair reads contiguous q, k, v: one copy of each view
-        # for both passes
-        q, k, v = (a.contiguous() for a in (q, k, v))
-        dq = flash_tiled_bwd_dq(q, k, v, out, g, lse, ctx.scale)
-        dk, dv = flash_tiled_bwd_dkv(q, k, v, out, g, lse, ctx.scale)
-        return dq, dk, dv, None
+        return AttentionFunction.forward(ctx, q, k, v, scale,
+                                         fused_attention_lse)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,7 +1,8 @@
 """What the whole-head (``attention.py``) and tiled (``flash_attention.py``)
 attention wrappers share: the ctypes binding and launch of a kernel
-library, the bf16 forwards' TMA plan of the caller's views, the checks of
-their arguments, and the terms of the plain backward passes."""
+library, the bf16 kernels' tables of instances and TMA plan of the
+caller's views, the checks of their arguments, and the terms of the plain
+backward passes."""
 
 from __future__ import annotations
 
@@ -24,37 +25,22 @@ def library(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, built at first use."""
     from .build import load_library
 
-    lib = load_library(name)
+    return bind(load_library(name), name)
+
+
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """``lib``, a build of ``csrc/<name>.cu``, with the return and argument
+    types of its entry point and of its size functions set."""
     getattr(lib, name).restype = ctypes.c_int
     smem = getattr(lib, f"{name}_smem_bytes", None)
     if smem is not None:
         smem.argtypes = [ctypes.c_int, ctypes.c_int]
         smem.restype = ctypes.c_longlong
+    scratch = getattr(lib, f"{name}_scratch_floats", None)
+    if scratch is not None:
+        scratch.argtypes = [ctypes.c_int] * 4
+        scratch.restype = ctypes.c_longlong
     return lib
-
-
-def launch(name: str, pointers, q: torch.Tensor, scale: float) -> None:
-    """Launch backward kernel ``name`` on contiguous tensors, on q's device
-    and current stream; raises if the shape needs too much shared memory or
-    the launch fails."""
-    B, H, T, D = q.shape
-    lib = library(name)
-    smem = getattr(lib, f"{name}_smem_bytes")(T, D)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"{name} at T={T}, D={D} needs {smem} bytes of shared memory, "
-            f"over the {MAX_SMEM_BYTES} a block may use")
-    # every entry point takes its tensors' pointers (null for an absent
-    # output), then B, H, T, D, scale, the dtype code and the stream
-    with torch.cuda.device(q.device):
-        err = getattr(lib, name)(
-            *(ctypes.c_void_p(None if t is None else t.data_ptr())
-              for t in pointers),
-            *(ctypes.c_int(n) for n in (B, H, T, D)), ctypes.c_float(scale),
-            ctypes.c_int(_DTYPE_CODES[q.dtype]),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def _forward_tiles() -> tuple[dict, dict, dict]:
@@ -77,6 +63,54 @@ def _forward_tiles() -> tuple[dict, dict, dict]:
 TILED_KEYS, PINGPONG, WHOLE_KEYS = _forward_tiles()
 QUERY_TILE = 128  # query rows a work item: two warpgroups of 64
 WIDEST_ONE_PASS = max(TILED_KEYS)  # wgmma's widest N, 256
+
+
+def _backward_tiles() -> tuple[dict, dict]:
+    """The bf16 wgmma backward pair's table of instances
+    (``csrc/backward_tiles.cuh``, which the CUDA dispatch expands): by
+    padded head width, in ascending width, the dq kernel's (key tile,
+    columns a consumer holds) and the dk/dv kernel's (query tile, columns
+    a consumer holds)."""
+    from .build import CSRC_DIR
+
+    text = (CSRC_DIR / "backward_tiles.cuh").read_text()
+    rows = {kind: {int(w): (int(n), int(cols)) for w, n, cols in re.findall(
+        rf"^{kind}\((\d+), (\d+), (\d+)\)$", text, re.M)}
+        for kind in ("DQ", "DKV")}
+    return rows["DQ"], rows["DKV"]
+
+
+DQ_TILES, DKV_TILES = _backward_tiles()
+WIDEST_BACKWARD = max(DQ_TILES)  # past it: the mma.sync column chunks
+
+
+def backward_plan(T: int, D: int) -> dict | None:
+    """How the bf16 backward pair cuts a (T, D) head, from the table its
+    CUDA dispatch expands (``_backward_tiles``): the instance's width (the
+    first table width >= D), its swizzle and the columns of one swizzle
+    atom (as ``forward_plan``); for each kernel its tile (the dq kernel's
+    keys, the dk/dv kernel's queries), the columns of the gradient a
+    consumer holds, whether the consumers split the columns ("split":
+    fewer columns than the width), the rows (dq) or keys (dk/dv) of a work
+    item (128, or 64 split), its column chunks, and the work items a head
+    at T (row tiles times groups of two chunks).  None past
+    ``WIDEST_BACKWARD`` columns, where the mma.sync column-chunk kernels
+    run."""
+    if D > WIDEST_BACKWARD:
+        return None
+    width = min(w for w in DQ_TILES if w >= D)
+
+    def cut(tile: int, cols: int) -> dict:
+        split = cols < width
+        rows = 64 if split else QUERY_TILE
+        chunks = width // cols
+        return {"tile": tile, "cols": cols, "split": split, "rows": rows,
+                "chunks": chunks,
+                "items": -(-T // rows) * (-(-chunks // 2) if split else 1)}
+
+    return {"width": width, "swizzle": 64 if width == 32 else 128,
+            "atom_cols": 32 if width == 32 else 64,
+            "dq": cut(*DQ_TILES[width]), "dkv": cut(*DKV_TILES[width])}
 
 
 def forward_plan(name: str, T: int, D: int) -> dict | None:
@@ -170,14 +204,18 @@ def padded_copy(t: torch.Tensor, meta: bool = False) -> torch.Tensor:
     return buf[..., :D]
 
 
-def readable(q, k, v):
-    """q, k, v as both forward kernels read them: each view in place where
-    its layout allows (the bf16 wgmma kernel: ``tma_reads_in_place``, as
-    ``tma_plan`` reports; the f32 ones and the bf16 column-chunk kernel any
-    strides with d's 1), else its ``padded_copy``."""
-    tma = q.dtype == torch.bfloat16 and q.shape[-1] <= WIDEST_ONE_PASS
+def readable(*views, widest: int = WIDEST_ONE_PASS):
+    """(B, H, T, D) views as a kernel reads them: each in place where its
+    layout allows, else its ``padded_copy``.  The bf16 wgmma kernels (up
+    to ``widest`` columns: the forwards' ``WIDEST_ONE_PASS``, the backward
+    pair's ``WIDEST_BACKWARD``) read them through tensor maps
+    (``tma_reads_in_place``, as ``tma_plan`` reports for the forwards);
+    the f32 instances and the bf16 column-chunk kernels take any strides
+    with d's 1."""
+    tma = (views[0].dtype == torch.bfloat16
+           and views[0].shape[-1] <= widest)
     return tuple(t if (tma_reads_in_place(t) if tma else t.stride(-1) == 1)
-                 else padded_copy(t) for t in (q, k, v))
+                 else padded_copy(t) for t in views)
 
 
 # the (b, h, t) strides of q, k and v, as the forward entry points take them
@@ -217,18 +255,89 @@ def launch_forward(name: str, q, k, v, scale: float, with_lse: bool):
     return out, lse
 
 
-def plain_impl(fn, checks=None):
+# the (b, h, t) strides of the backward's seven views, as its entry points
+# take them
+_BWD_STRIDES = ctypes.c_longlong * 21
+
+
+@functools.lru_cache(maxsize=256)
+def check_shared_memory(lib: ctypes.CDLL, name: str, T: int, D: int) -> None:
+    """Raises if kernel ``name`` of ``lib`` needs more shared memory at (T,
+    D) than a block may use (its ``<name>_smem_bytes``); a shape that fits
+    is remembered."""
+    smem = getattr(lib, f"{name}_smem_bytes")(T, D)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{name} at T={T}, D={D} needs {smem} bytes of shared memory, "
+            f"over the {MAX_SMEM_BYTES} a block may use")
+
+
+def launch_backward(name: str, q, k, v, o, do, lse, outs, scale: float,
+                    lib: ctypes.CDLL | None = None):
+    """Launch backward kernel ``name`` (``flash_bwd_dq``: outs (dq,);
+    ``flash_bwd_dkv``: (dk, dv)) of ``lib`` (default: the repo's build,
+    ``library``) after its checks on the views as given, through their
+    strides (``readable``: only a layout the kernel cannot read is
+    copied), writing each output through its own strides; raises if the
+    shape needs too much shared memory or the launch fails."""
+    check_bwd(q, k, v, o, do, lse)
+    # q, k, v, and o and do as (B, H, T, D) views; o is read by rows, any
+    # strides with d's 1
+    q, k, v, dot = readable(q, k, v, do.transpose(1, 2),
+                            widest=WIDEST_BACKWARD)
+    ot = o.transpose(1, 2)
+    views = (q, k, v, ot if ot.stride(-1) == 1 else padded_copy(ot), dot)
+    B, H, T, D = q.shape
+    lib = lib or library(name)
+    check_shared_memory(lib, name, T, D)
+    lse = lse.contiguous()
+    pointers = [*views, lse, *outs]
+    floats = getattr(lib, f"{name}_scratch_floats", None)
+    if floats is not None:  # the dk/dv kernel's rows of lse and delta
+        n = floats(B, H, T, D)
+        pointers.append(torch.empty(n, dtype=torch.float32, device=q.device)
+                        if n else None)
+    # seven views' strides: the dq pass's seventh, dv's, is not read
+    seven = (*views, *outs) if len(outs) == 2 else (*views, *outs, *outs)
+    strides = _BWD_STRIDES(*[x for t in seven for x in tma_strides(t)])
+
+    def run() -> int:
+        return getattr(lib, name)(
+            *[ctypes.c_void_p(None if t is None else t.data_ptr())
+              for t in pointers],
+            strides, ctypes.c_int(B), ctypes.c_int(H), ctypes.c_int(T),
+            ctypes.c_int(D), ctypes.c_float(scale),
+            ctypes.c_int(_DTYPE_CODES[q.dtype]),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+
+    # the kernel launches on the current device: switch only where q lies
+    # on another
+    if q.device.index == torch.cuda.current_device():
+        err = run()
+    else:
+        with torch.cuda.device(q.device):
+            err = run()
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def plain_impl(fn, checks=None, like=None):
     """An operator's CPU implementation: the plain version ``fn`` after the
     kernel's checks (``checks``, default ``check``, of every argument but
-    the scale), its outputs contiguous as the kernel writes them."""
+    the scale), its outputs laid out as the kernel writes them: contiguous,
+    or where ``like`` (a function of the arguments) names a tensor for each
+    output, in that tensor's layout (``torch.empty_like``)."""
     checks = checks or check
 
     def run(*args):
         checks(*args[:-1])
         out = fn(*args)
-        if isinstance(out, tuple):
-            return tuple(t.contiguous() for t in out)
-        return out.contiguous()
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = like(*args) if like else (None,) * len(outs)
+        laid = tuple(t.contiguous() if r is None
+                     else torch.empty_like(r).copy_(t)
+                     for t, r in zip(outs, refs))
+        return laid if isinstance(out, tuple) else laid[0]
     return run
 
 

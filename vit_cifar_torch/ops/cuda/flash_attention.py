@@ -9,17 +9,25 @@ products in f32, output in q's dtype.  Where a gradient is needed it runs
 kernel that also writes the row logsumexp and saves only (q, k, v, out,
 lse), never a (B, H, T, T) tensor; its backward runs the tiled dq kernel,
 then the tiled dk/dv kernel (``_flash_bwd_impl``'s two passes).  Without a
-gradient it runs the inference kernel.
+gradient it runs the inference kernel.  :class:`AttentionFunction` is that
+custom VJP for either forward (the whole-head one of ``attention.py`` too):
+the forward it runs is an argument, the backward one.
 
 These tile both the queries and the keys, so they run at any T and any
 D.  The bf16 forward is the warp-specialised wgmma kernel
 (``csrc/wgmma_attention.cuh``): 128 query rows a work item against key
 tiles of 32 to 128 keys brought by TMA straight from the caller's (B, H,
 T, D) views, heads up to 256 columns in one pass (past them the mma.sync
-column-chunk kernel); the backward pair tiles 64 queries by 64 keys and
-cuts heads wider than ``COL_CHUNK`` columns into column chunks with a
-block each.  The plain versions take every query row at once and tile
-the keys by ``BLOCK_KV``.
+column-chunk kernel).  The bf16 backward pair is two warp-specialised
+wgmma kernels (``csrc/wgmma_backward.cuh``, tiles by width in
+``csrc/backward_tiles.cuh``): dq with 128 query rows a work item against
+key tiles, dk/dv with 128 keys against query tiles, both reading q, k,
+v, o and do in place and writing the gradients in q's, k's and v's
+strides; past ``COL_CHUNK`` columns on the same kernels a work item is 64
+rows and two column chunks (s and dp summed over all the columns), up to
+``WIDEST_BACKWARD`` (512) columns, past which the mma.sync column-chunk
+kernels run, a block each chunk.  The plain versions take every query
+row at once and tile the keys by ``BLOCK_KV``.
 The JAX signature's ``block_q`` and ``block_kv`` are not taken: they change
 the result only through the order of f32 sums.  lse is (B, H, T) f32, not
 the TPU's lane-broadcast (B, H, Tq, 128).
@@ -30,17 +38,16 @@ hand-written kernel (``csrc/flash_*.cu``, built at first use) or raises;
 there is no fallback between the two.  Each wrapper counts its kernel's
 launches in ``<wrapper>.launches``.
 
-Every kernel dispatches by dtype: bf16 runs on the tensor cores (the
-forward wgmma, the backward pair ``mma.sync`` with 16 rows a warp and tiles
-staged by ``cp.async``; p, and in the backward ds, split into bf16 hi + lo
-so that the product that follows keeps f32 accuracy), f32 on the CUDA
+Every kernel dispatches by dtype: bf16 runs on the tensor cores (wgmma
+up to the widths above; p, and in the backward ds, split into bf16 hi +
+lo so that the product that follows keeps f32 accuracy), f32 on the CUDA
 cores in full f32, since the tensor cores would take f32 only as TF32 and
-miss the f32 limit of 1e-5.  The forwards read q, k and v through their
-strides (``common.launch_forward``); the backward pair reads contiguous
-copies, made once in the Function's backward.  The dq kernel
-holds 64 query rows a block against tiles of 64 keys, the dk/dv kernel 64
-keys against tiles of 64 query rows.  The tiled dq and dk/dv passes are
-also the backward of ``attention.py``'s ``FusedAttentionFunction``.
+miss the f32 limit of 1e-5.  Every kernel reads its inputs through their
+strides (``common.launch_forward``, ``common.launch_backward``: only a
+layout a tensor map cannot read, D % 8 != 0, takes one padded copy), and
+the backward writes dq, dk and dv through theirs (``torch.empty_like`` of
+q, k and v), so on the model's path nothing is copied around the pair and
+the module's transposes take their gradients as views.
 
 =========================  ====================  =================================
 wrapper                    kernel                plain version
@@ -58,7 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from . import registry
-from .common import (bwd_terms, check_bwd, check_device, launch,
+from .common import (bwd_terms, check_bwd, check_device, launch_backward,
                      launch_forward, plain_impl)
 
 # the plain versions' key tile, the JAX kernels' default ``block_kv``;
@@ -156,19 +163,15 @@ def _flash_fwd_lse_cuda(q, k, v, scale):
 
 
 def _bwd_dq_cuda(q, k, v, o, do, lse, scale):
-    check_bwd(q, k, v, o, do, lse)
-    q, k, v, o, do, lse = (a.contiguous() for a in (q, k, v, o, do, lse))
     dq = torch.empty_like(q)
-    launch("flash_bwd_dq", (q, k, v, o, do, lse, dq), q, scale)
+    launch_backward("flash_bwd_dq", q, k, v, o, do, lse, (dq,), scale)
     flash_tiled_bwd_dq.launches += 1
     return dq
 
 
 def _bwd_dkv_cuda(q, k, v, o, do, lse, scale):
-    check_bwd(q, k, v, o, do, lse)
-    q, k, v, o, do, lse = (a.contiguous() for a in (q, k, v, o, do, lse))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    launch("flash_bwd_dkv", (q, k, v, o, do, lse, dk, dv), q, scale)
+    launch_backward("flash_bwd_dkv", q, k, v, o, do, lse, (dk, dv), scale)
     flash_tiled_bwd_dkv.launches += 1
     return dk, dv
 
@@ -178,12 +181,15 @@ registry.register("flash_fwd", cpu=plain_impl(flash_attention_reference),
 registry.register("flash_fwd_lse",
                   cpu=plain_impl(flash_attention_lse_reference),
                   cuda=_flash_fwd_lse_cuda, fake=registry.fwd_lse_fake)
+# the gradients in q's, k's and v's layouts, as the kernels write them
 registry.register("flash_bwd_dq",
-                  cpu=plain_impl(flash_tiled_bwd_dq_reference, check_bwd),
+                  cpu=plain_impl(flash_tiled_bwd_dq_reference, check_bwd,
+                                 like=lambda q, k, v, *_: (q,)),
                   cuda=_bwd_dq_cuda,
                   fake=lambda q, k, v, o, do, lse, scale: torch.empty_like(q))
 registry.register("flash_bwd_dkv",
-                  cpu=plain_impl(flash_tiled_bwd_dkv_reference, check_bwd),
+                  cpu=plain_impl(flash_tiled_bwd_dkv_reference, check_bwd,
+                                 like=lambda q, k, v, *_: (k, v)),
                   cuda=_bwd_dkv_cuda,
                   fake=lambda q, k, v, o, do, lse, scale: (
                       torch.empty_like(k), torch.empty_like(v)))
@@ -200,31 +206,39 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_tiled_bwd_dq(q, k, v, o, do, lse, scale: float) -> torch.Tensor:
-    """dq of the flash attention, (B, H, T, D) in q's dtype, the operator
-    ``vit_cifar_torch::flash_bwd_dq``.  Launches counted in
-    ``flash_tiled_bwd_dq.launches``.  bf16 runs on the tensor cores, f32 on
-    the CUDA cores (a dispatch by dtype; see above)."""
+    """dq of the flash attention, (B, H, T, D) in q's dtype and layout
+    (``torch.empty_like(q)``), the operator ``vit_cifar_torch::flash_bwd_dq``.
+    q, k, v are (B, H, T, D) views, o and do (B, T, H, D), read in place.
+    Launches counted in ``flash_tiled_bwd_dq.launches``.  bf16 runs on the
+    tensor cores, f32 on the CUDA cores (a dispatch by dtype; see above)."""
     check_device(q)
     return registry.OPS.flash_bwd_dq(q, k, v, o, do, lse, scale)
 
 
 def flash_tiled_bwd_dkv(q, k, v, o, do, lse, scale: float):
     """(dk, dv) of the flash attention, each (B, H, T, D) in the input
-    dtype, the operator ``vit_cifar_torch::flash_bwd_dkv``.  Launches
-    counted in ``flash_tiled_bwd_dkv.launches``.  bf16 runs on the tensor
-    cores, f32 on the CUDA cores (a dispatch by dtype)."""
+    dtype and in k's and v's layouts, the operator
+    ``vit_cifar_torch::flash_bwd_dkv``; its arguments as
+    ``flash_tiled_bwd_dq``'s.  Launches counted in
+    ``flash_tiled_bwd_dkv.launches``.  bf16 runs on the tensor cores, f32 on
+    the CUDA cores (a dispatch by dtype)."""
     check_device(q)
     return registry.OPS.flash_bwd_dkv(q, k, v, o, do, lse, scale)
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """The custom VJP of ``flash_attention``: the forward saves exactly
-    (q, k, v, out, lse); the backward runs the tiled dq pass, then the
-    tiled dk/dv pass.  ``scale`` gets no gradient."""
+class AttentionFunction(torch.autograd.Function):
+    """The custom VJP of both attentions (JAX's ``flash_attention`` and
+    ``fused_attention`` ``defvjp``): ``apply(q, k, v, scale, lse_forward)``
+    runs ``lse_forward(q, k, v, scale)`` -> (out, lse) and saves exactly
+    (q, k, v, out, lse), the caller's views and no copy of them; the
+    backward runs the tiled dq pass, then the tiled dk/dv pass, on those
+    views as they are (JAX's ``_flash_bwd_impl``), and returns the
+    gradients in q's, k's and v's layouts.  ``scale`` and ``lse_forward``
+    get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float):
-        out, lse = flash_attention_lse(q, k, v, scale)
+    def forward(ctx, q, k, v, scale: float, lse_forward):
+        out, lse = lse_forward(q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         return out
@@ -232,12 +246,19 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        # the tiled pair reads contiguous q, k, v: one copy of each view
-        # for both passes
-        q, k, v = (a.contiguous() for a in (q, k, v))
         dq = flash_tiled_bwd_dq(q, k, v, out, g, lse, ctx.scale)
         dk, dv = flash_tiled_bwd_dkv(q, k, v, out, g, lse, ctx.scale)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
+
+
+class FlashAttentionFunction(AttentionFunction):
+    """:class:`AttentionFunction` on the tiled forward with lse
+    (``flash_attention_lse``): ``apply(q, k, v, scale)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        return AttentionFunction.forward(ctx, q, k, v, scale,
+                                         flash_attention_lse)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
