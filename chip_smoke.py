@@ -48,7 +48,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    version at the pixel shape, and ``F.scaled_dot_product_attention`` as
    the library's yardstick (timed only; the port never calls it).  Then
    the ragged-edge phase: the bf16 instances of both forwards (wgmma with
-   TMA), with and without lse, on contiguous inputs and on the model's
+   TMA, in column chunks past 256 columns), with and without lse, on
+   contiguous inputs and on the model's
    strided views, and of the tiled dq and dk/dv kernels (wgmma with TMA
    up to 512 columns, mma.sync column chunks past them), on contiguous
    inputs and on the model's views, against their plain versions at (2,
@@ -58,8 +59,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    on the model's views, in turns, at (128, 12, 65, 32) (device time),
    (128, 12, 1025, 32), (128, 8, 512, D) and (16, 2, 2048, D) for D = 128,
    192, 256, each beside its bound, and the host microseconds a forward
-   call costs.  Then times the whole-head forwards and the fused Function
-   against their tiled counterparts at (128, 12, T, 32) bf16 for T = 65,
+   call costs; past 256 columns both forwards at (128, 8, 512, D) for D =
+   320, 384, 512 (the wgmma column chunks) and at (16, 2, 1024, 520) (the
+   mma.sync column chunks), each held against its plain version first,
+   against SDPA in turns, beside its bound.  Then times the whole-head
+   forwards and the fused Function against their tiled counterparts at
+   (128, 12, T, 32) bf16 for T = 65,
    257 and 685, and the tiled kernels beside the library's calls at
    (128, 8, 512, D) and (16, 2, 2048, D) for D = 128, 192, 256.  Last the
    backward pair on the model's views against
@@ -523,10 +528,10 @@ def ragged_bwd_floor(D: int) -> float:
     return RAGGED_BWD_ATOL_FLOOR * max(1.0, D / 128)
 # how each kernel row's bf16 instance computes (every f32 instance runs on
 # the CUDA cores: the tensor cores would need TF32)
-DESIGN = {"mhsa_fwd": "wgmma+TMA (PR 15)",
-          "mhsa_fwd_lse": "wgmma+TMA (PR 15)",
-          "flash_fwd": "wgmma+TMA (PR 15)",
-          "flash_fwd_lse": "wgmma+TMA (PR 15)",
+DESIGN = {"mhsa_fwd": "wgmma+TMA; column chunks at 257-512 columns",
+          "mhsa_fwd_lse": "wgmma+TMA; column chunks at 257-512 columns",
+          "flash_fwd": "wgmma+TMA; column chunks at 257-512 columns",
+          "flash_fwd_lse": "wgmma+TMA; column chunks at 257-512 columns",
           "flash_bwd_dq_tiled": "wgmma+TMA (PR 16)",
           "flash_bwd_dkv_tiled": "wgmma+TMA (PR 16)"}
 # each forward row's main shape, whose wgmma instance's ptxas report the
@@ -547,14 +552,22 @@ LIBRARY_WIDEST = 256  # the library's flash attention takes no wider head
 # each forward against its library call, in turns: the flagship's and the
 # pixel ViT's shapes, and head dims 128, 192 and 256 (HEAD_DIM_SHAPES)
 FORWARD_TIMING_SHAPES = [(128, 12, 65, 32), PIXEL_SHAPE, *HEAD_DIM_SHAPES]
-# the bf16 forwards past 256 columns (the mma.sync column-chunk kernel):
-# their cost against SDPA, for the open item of ROADMAP's queue 2
-CHUNK_TIMING_SHAPE = (128, 8, 512, 320)
+# the bf16 forwards past 256 columns, the wgmma kernel's column chunks up
+# to 512 columns (before them the mma.sync column-chunk kernel read
+# 13.75 ms at the first shape): their cost against SDPA; and past 512,
+# where the mma.sync column-chunk kernel still runs, one shape
+CHUNK_TIMING_SHAPES = ((128, 8, 512, 320), (128, 8, 512, 384),
+                       (128, 8, 512, 512))
+MMA_TIMING_SHAPE = (16, 2, 1024, 520)
+# the batch of the chunked forwards' check against their plain version
+# at each of CHUNK_TIMING_SHAPES' heads
+CHUNK_CHECK_BATCH = 4
 # a fully masked first key tile (the last one: tiles are taken last to
 # first), with finite keys before it, at the 128-, 96-, 64- and 32-key
-# tiles of head dims 32, 64, 192 and 256
+# tiles of head dims 32, 64, 192 and 256, and in column chunks at the 64-
+# and 16-key tiles of head dims 320 and 512
 MASKED_TILE_SHAPES = ((2, 2, 256, 32), (2, 2, 193, 64), (2, 2, 300, 192),
-                      (2, 2, 300, 256))
+                      (2, 2, 300, 256), (2, 2, 300, 320), (2, 2, 200, 512))
 # calls a window of the host's cost of one forward call
 HOST_CALLS = 200
 # ptxas's note that it serialised a kernel's wgmmas (C7510-C7520): the
@@ -650,17 +663,21 @@ def build_kernels() -> None:
                 print(f"    ptxas: {instance}: {regs}; {spills}")
 
 
-def forward_ptxas(name: str) -> str:
+def forward_ptxas(name: str, shape=None) -> str:
     """ptxas's registers and spills of the bf16 wgmma instance that forward
-    row ``name`` runs at its main shape (``forward_plan`` names it, from the
-    table of instances the CUDA dispatch expands)."""
+    row ``name`` runs at ``shape`` (default: its main shape;
+    ``forward_plan`` names it, from the table of instances the CUDA
+    dispatch expands: fwd_kernel<width, keys, query buffers, ping-pong,
+    columns of o an item>)."""
     from vit_cifar_torch.ops.cuda.common import forward_plan
 
     lib = SOURCES[name]
-    T, D = FORWARD_MAIN_SHAPE[name][2:]
+    T, D = (shape or FORWARD_MAIN_SHAPE[name])[2:]
     plan = forward_plan(lib, T, D)
-    instance = (f"fwd_kernel<{plan['width']},{plan['rows']['k']},2,"
-                f"{int(plan['pingpong'])}>")
+    head = f"fwd_kernel<{plan['width']},{plan['rows']['k']},"
+    tail = f",{int(plan['pingpong'])},{plan['cols']}>"
+    (instance,) = [i for i in PTXAS[lib]
+                   if i.startswith(head) and i.endswith(tail)]
     return f"{instance}: {PTXAS[lib][instance]}"
 
 
@@ -1606,7 +1623,11 @@ def forward_timing_phase(card: str) -> None:
     event window follows the host.  Then the host microseconds a forward
     call costs at the flagship's shape, beside the three q, k, v copies
     the forward made before it read the views in place.  Past 256 columns
-    (``CHUNK_TIMING_SHAPE``) the column-chunk forwards against SDPA."""
+    (``CHUNK_TIMING_SHAPES``) the wgmma forwards' column chunks, each held
+    first against its plain version at ``CHUNK_CHECK_BATCH``, against SDPA
+    with the bound and the instance's ptxas report beside them; past 512
+    (``MMA_TIMING_SHAPE``) the mma.sync column-chunk forward the same
+    way."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     aten = torch.ops.aten
     for shape in FORWARD_TIMING_SHAPES:
@@ -1645,23 +1666,47 @@ def forward_timing_phase(card: str) -> None:
         del q, k, v, library, kernels
         torch.cuda.empty_cache()
 
-    # past 256 columns: the mma.sync column-chunk kernel, each 128-column
-    # chunk of o recomputing the softmax
-    shape = CHUNK_TIMING_SHAPE
-    scale = 1.0 / math.sqrt(shape[1] * shape[3])
-    q, k, v = model_views(shape, gen)
-    for name, kernel in (("flash_fwd", flash_attention),
-                         ("mhsa_fwd", fused_attention)):
-        ms = in_turns({"kernel": lambda: kernel(q, k, v, scale),
-                       "library": lambda: F.scaled_dot_product_attention(
-                           q, k, v, scale=scale)}, rounds=2, iters=10)
-        b = bound(name, shape)
-        print(f"forward {name} {shape} bf16 (column chunks, mma.sync): "
-              f"kernel {ms['kernel']:.4f} ms, SDPA {ms['library']:.4f} ms "
-              f"({ms['kernel'] / ms['library']:.3f}x the library; median of "
-              f"4 event windows of 10); bound {b['bound_ms']:.4f} ms by "
-              f"{b['bound_by']} ({card})")
-    del q, k, v
+    # past 256 columns: the wgmma kernel's column chunks of o (two a query
+    # tile at 320-512 columns, each computing the softmax); past 512 the
+    # mma.sync column-chunk kernel (a block each 128-column chunk)
+    from vit_cifar_torch.ops.cuda.common import forward_plan
+
+    for shape in (*CHUNK_TIMING_SHAPES, MMA_TIMING_SHAPE):
+        B, H, T, D = shape
+        scale = 1.0 / math.sqrt(H * D)
+        small = model_views((CHUNK_CHECK_BATCH, H, T, D), gen)
+        q, k, v = model_views(shape, gen)
+        for name, fwd, fwd_lse, plain in (
+                ("flash_fwd", flash_attention, flash_attention_lse,
+                 flash_attention_lse_reference),
+                ("mhsa_fwd", fused_attention, fused_attention_lse,
+                 fused_attention_lse_reference)):
+            out, lse = fwd_lse(*small, scale)
+            want_out, want_lse = plain(*small, scale)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                out, want_out, **flash_tol("fwd", torch.bfloat16, want_out),
+                msg=lambda m: f"{name} {shape}: {m}")
+            torch.testing.assert_close(lse, want_lse,
+                                       **KERNEL_TOL[torch.float32])
+            err = (out.float() - want_out.float()).abs().max().item()
+            plan = forward_plan(name, T, D)
+            design = (f"wgmma column chunks, {plan['chunks']} of "
+                      f"{plan['cols']} columns, {forward_ptxas(name, shape)}"
+                      if plan else "column chunks, mma.sync")
+            ms = in_turns({"kernel": lambda: fwd(q, k, v, scale),
+                           "library": lambda: F.scaled_dot_product_attention(
+                               q, k, v, scale=scale)}, rounds=2, iters=10)
+            b = bound(name, shape)
+            print(f"forward {name} {shape} bf16 ({design}): kernel "
+                  f"{ms['kernel']:.4f} ms, SDPA {ms['library']:.4f} ms "
+                  f"({ms['kernel'] / ms['library']:.3f}x the library; "
+                  f"median of 4 event windows of 10); bound "
+                  f"{b['bound_ms']:.4f} ms by {b['bound_by']}; with lse at "
+                  f"B={CHUNK_CHECK_BATCH} max_abs_err {err:.3e} against the "
+                  f"plain version ({card})")
+        del q, k, v, small
+        torch.cuda.empty_cache()
 
     from vit_cifar_torch.ops.cuda.common import readable
 

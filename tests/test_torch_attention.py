@@ -217,10 +217,13 @@ def test_tma_plan_copies_a_d_stride_other_than_1_and_passes_wide_heads():
     qt = q.transpose(-1, -2).contiguous().transpose(-1, -2)  # d stride T
     assert tma_plan("flash_fwd", qt, k, v)["copies"] == ["q"]
     assert padded_copy(qt).stride(-1) == 1
-    wide = _projection_views(B=1, T=9, H=1, D=384)
+    wide = _projection_views(B=1, T=9, H=1, D=520)
     plan = tma_plan("mhsa_fwd", *wide)
     assert plan["plan"] is None and plan["maps"] == {}
     assert plan["copies"] == []
+    chunked = tma_plan("mhsa_fwd", *_projection_views(B=1, T=9, H=1, D=384))
+    assert chunked["plan"]["chunks"] == 2 and chunked["copies"] == []
+    assert chunked["maps"]["v"]["box"] == (64, 1, 32, 1)
 
 
 @pytest.mark.parametrize("wrapper", [fused_attention, fused_attention_lse,

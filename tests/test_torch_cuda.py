@@ -338,9 +338,10 @@ def test_bf16_flash_backward_matches_plain_versions_at_ragged_edges(cuda, T):
 # strided views: odd and ragged T (ends of the whole-head tiles of 16 to
 # 128 keys and of the tiled grid's 32- to 128-key tiles and 128-row query
 # tiles), and D below 128, past it up to 256 (one pass), D % 8 != 0 (the
-# padded copy) and past 256 (the column-chunk kernel)
+# padded copy), past 256 up to 512 (two column chunks of o, the last
+# ragged at 320 and 456) and past 512 (the mma.sync column-chunk kernel)
 WGMMA_T = (1, 9, 65, 72, 73, 97, 129, 257, 1025)
-WGMMA_D = (8, 32, 64, 100, 128, 192, 256, 320)
+WGMMA_D = (8, 32, 64, 100, 128, 192, 256, 320, 384, 456, 512, 520)
 FORWARDS = {"mhsa": (fused_attention, fused_attention_lse,
                      fused_attention_lse_reference),
             "flash": (flash_attention, flash_attention_lse,
@@ -405,7 +406,8 @@ def test_bf16_forwards_read_the_views_in_place(cuda, kernel, monkeypatch):
 
 @pytest.mark.parametrize("kernel", ["mhsa", "flash"])
 @pytest.mark.parametrize("T,D", [(256, 32), (200, 32), (193, 64), (300, 128),
-                                 (300, 192), (300, 256), (65, 32)])
+                                 (300, 192), (300, 256), (300, 320),
+                                 (200, 512), (65, 32)])
 def test_bf16_forwards_guard_a_fully_masked_key_tile(cuda, T, D, kernel):
     """The key tile the kernel takes first (the last one: tiles are taken
     last to first) has logits that all overflow to -inf (every q.k there
@@ -434,6 +436,40 @@ def test_bf16_forwards_guard_a_fully_masked_key_tile(cuda, T, D, kernel):
     assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
     torch.testing.assert_close(out, want_out, **TOL[torch.bfloat16])
     torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+def _kernel_names(fn) -> set:
+    """The names of the card's kernels that ``fn`` launches, by
+    torch.profiler; a window that comes back with none of them is run
+    again, up to 3 times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {a.key for a in prof.key_averages()
+                 if a.self_device_time_total > 0
+                 and a.self_cpu_time_total == 0}
+        if names:
+            return names
+    raise AssertionError("the profiler recorded no kernel of the card")
+
+
+@pytest.mark.parametrize("kernel", ["mhsa", "flash"])
+def test_bf16_forwards_run_mma_sync_only_past_512_columns(cuda, kernel):
+    """Up to 512 columns both bf16 forwards, with and without lse, run the
+    wgmma kernel in column chunks and launch no ``fwd_chunk_mma_kernel``
+    (the mma.sync column-chunk forward); past 512 they launch it."""
+    fwd, fwd_lse, _ = FORWARDS[kernel]
+    for D in (320, 384, 456, 512, 520):
+        q, k, v = _model_views((2, 3, 257, D), seed=D)
+        names = _kernel_names(lambda: (fwd(q, k, v, 0.1),
+                                       fwd_lse(q, k, v, 0.1)))
+        mma = [n for n in names if "fwd_chunk_mma_kernel" in n]
+        assert bool(mma) == (D > 512), (D, sorted(names))
 
 
 # the bf16 backward pair: wgmma up to 512 columns (csrc/wgmma_backward.cuh,

@@ -17,9 +17,10 @@ T).
 ``wgmma_forward_model`` models the arithmetic of the bf16 forwards
 (``csrc/wgmma_attention.cuh``): the key tile of each forward's dispatch
 (the whole head as one tile of N = round_up(T, 8) in the whole-head grid,
-tiles of 128 or 64 keys in order in the tiled one), the exponent as one
-FFMA, and the hi/lo p.v.  ``mma_forward_model`` models the mma.sync
-column-chunk forward that heads past 256 columns run
+tiles of 128 to 32 keys, last to first, in the tiled one; past 256
+columns, up to 512, each chunk of o a work item of its own), the exponent
+as one FFMA, and the hi/lo p.v.  ``mma_forward_model`` models the mma.sync
+column-chunk forward that heads past 512 columns run
 (``csrc/fwd_bf16_chunk.cuh``), and ``wgmma_backward_model`` the tiled
 backward pair (``csrc/wgmma_backward.cuh`` up to 128 columns, with the
 tiles of ``csrc/backward_tiles.cuh``; past them the mma.sync column-chunk
@@ -44,6 +45,7 @@ from vit_cifar_torch.ops.cuda.attention import (
     F32_CHUNK_SMEM_BYTES, fused_attention_lse_reference,
     fused_attention_reference, whole_head_fits, whole_head_smem_bytes)
 from vit_cifar_torch.ops.cuda.common import (COL_CHUNK, MAX_SMEM_BYTES,
+                                            WIDEST_FORWARD, WIDEST_ONE_PASS,
                                             backward_plan, forward_plan)
 from vit_cifar_torch.ops.cuda.flash_attention import (
     FlashAttentionFunction, flash_attention, flash_attention_lse,
@@ -197,35 +199,48 @@ def wgmma_forward_model(q, k, v, scale: float, name: str):
     scale*log2(e), each exponent one FFMA into exp2, exp2(s*c - m) (the
     FFMA's single rounding modelled in f64), the ``safe_m``/``corr`` guard,
     p split into bf16 hi + lo and both multiplied into v, and lse =
-    m*ln(2) + log(l).  Returns (out (B, T, H, D) bf16, lse (B, H, T) f32,
-    and out before its rounding to bf16)."""
+    m*ln(2) + log(l).  Each chunk of o of the plan's ``cols`` columns (the
+    whole head up to 256 columns, one chunk; past it ``chunks`` of them,
+    the last ragged) is a work item of its own: s over the whole head
+    again, the same key tiles in the same order, p.v from the chunk's own
+    columns of v; lse is the first chunk's.  Returns (out (B, T, H, D)
+    bf16, lse (B, H, T) f32, and out before its rounding to bf16)."""
     B, H, T, D = q.shape
-    keys = forward_plan(name, T, D)["rows"]["k"]
+    plan = forward_plan(name, T, D)
+    keys, cols = plan["rows"]["k"], plan["cols"]
     qf, kf, vf = (a.to(torch.float32) for a in (q, k, v))
     c = float(np.float32(scale) * np.float32(LOG2E))
-    m = torch.full((B, H, T, 1), -torch.inf)
-    l = torch.zeros((B, H, T, 1))
-    acc = torch.zeros((B, H, T, D))
-    for k0 in reversed(range(0, T, keys)):  # last tile first
-        kt, vt = kf[:, :, k0:k0 + keys], vf[:, :, k0:k0 + keys]
-        s = torch.einsum("bhid,bhjd->bhij", qf, kt)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
-        safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        corr = torch.where(torch.isfinite(m), torch.exp2(m - safe_m), 0.0)
-        p = torch.exp2((s.double() * c - safe_m.double()).to(torch.float32))
-        l = l * corr + p.sum(dim=-1, keepdim=True)
-        hi = p.to(torch.bfloat16).to(torch.float32)
-        lo = (p - hi).to(torch.bfloat16).to(torch.float32)
-        acc = acc * corr + torch.einsum("bhij,bhjd->bhid", hi, vt) \
-            + torch.einsum("bhij,bhjd->bhid", lo, vt)
-        m = m_new
-    out = (acc / l).transpose(1, 2)
-    return out.to(torch.bfloat16), (m * LN2 + torch.log(l)).squeeze(-1), out
+    out = torch.empty((B, H, T, D))
+    for c0 in range(0, D, cols):  # a work item each chunk of o
+        m = torch.full((B, H, T, 1), -torch.inf)
+        l = torch.zeros((B, H, T, 1))
+        acc = torch.zeros((B, H, T, min(cols, D - c0)))
+        for k0 in reversed(range(0, T, keys)):  # last tile first
+            kt = kf[:, :, k0:k0 + keys]
+            vt = vf[:, :, k0:k0 + keys, c0:c0 + cols]
+            s = torch.einsum("bhid,bhjd->bhij", qf, kt)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
+            safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp2(m - safe_m),
+                               0.0)
+            p = torch.exp2((s.double() * c
+                            - safe_m.double()).to(torch.float32))
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            hi = p.to(torch.bfloat16).to(torch.float32)
+            lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+            acc = acc * corr + torch.einsum("bhij,bhjd->bhid", hi, vt) \
+                + torch.einsum("bhij,bhjd->bhid", lo, vt)
+            m = m_new
+        out[..., c0:c0 + cols] = acc / l
+        if c0 == 0:
+            lse = (m * LN2 + torch.log(l)).squeeze(-1)
+    out = out.transpose(1, 2)
+    return out.to(torch.bfloat16), lse, out
 
 
 def mma_forward_model(q, k, v, scale: float):
     """A torch model of the arithmetic of the bf16 mma.sync forward, which
-    heads past 256 columns run (``csrc/fwd_bf16_chunk.cuh`` on
+    heads past 512 columns run (``csrc/fwd_bf16_chunk.cuh`` on
     ``csrc/mma_attention.cuh``): s = q.k^T of bf16 values summed in f32,
     scaled once by the f32 product scale*log2(e); the online softmax over
     chunks of 64 keys with exp2 and the ``safe_m``/``corr`` guard; p split
@@ -316,14 +331,66 @@ def test_mma_forward_model_matches_jax_in_bf16(case, path):
                                    err_msg=model)
 
 
+# (B, H, T, D, block_q, block_kv): heads past wgmma's widest N, at ragged T
+# -- the wgmma forward's column chunks up to 512 columns (two chunks of
+# 192 columns at 320 and 384, of 256 at 512), and the mma.sync forward
+# past them
+WIDE_CASES = [(1, 2, 77, 320, 1024, 512), (1, 1, 130, 384, 64, 128),
+              (1, 2, 65, 512, 1024, 512), (1, 1, 77, 520, 1024, 128)]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("path", ["flash", "fused"])
+def test_chunked_forward_models_match_jax_in_bf16(case, path):
+    """The bf16 forwards past 256 columns, modelled in torch as each forward
+    dispatches the case -- the wgmma forward's column chunks (s over the
+    whole head, each chunk of o from its own columns of v, the kernel's
+    key tiles last to first) up to 512 columns, the mma.sync column-chunk
+    forward past them -- against JAX's ``flash_attention`` (at the case's
+    tile split) and ``fused_attention`` in interpret mode on the same bf16
+    inputs: lse within 1e-5, the bf16 output within one bf16 step, and the
+    output before rounding within 1e-5 of max |out| of the plain f32
+    version's."""
+    B, H, T, D, bq, bk = case
+    (q, k, v), (tq, tk, tv), scale = _bf16_inputs(B, H, T, D, seed=12)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    if path == "flash":
+        jlse = jax_flash_forward_impl(jq, jk, jv, scale, bq, bk,
+                                      with_lse=True)[1]
+        want = np.asarray(jax_flash_attention(jq, jk, jv, scale, bq, bk),
+                          np.float32)
+    else:
+        jlse = jax_fused_forward_impl(jq, jk, jv, scale, with_lse=True)[1]
+        want = np.asarray(jax_fused_attention(jq, jk, jv, scale), np.float32)
+    want_lse = np.asarray(jlse)[:, :, :T, 0]
+
+    name = "flash_fwd" if path == "flash" else "mhsa_fwd"
+    plan = forward_plan(name, T, D)
+    assert (plan is None) == (D > 512)
+    if plan is not None:
+        assert plan["chunks"] == 2 and plan["cols"] < D
+    out, lse, unrounded = (mma_forward_model(tq, tk, tv, scale)
+                           if plan is None else
+                           wgmma_forward_model(tq, tk, tv, scale, name))
+    exact = flash_attention_lse_reference(*(torch.from_numpy(a)
+                                            for a in (q, k, v)), scale)[0]
+    assert out.shape == (B, T, H, D) and lse.shape == (B, H, T)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-5, atol=1e-5)
+    _assert_within_one_bf16_step(out.to(torch.float32).numpy(), want,
+                                 f"{name} D={D}")
+    np.testing.assert_allclose(unrounded.numpy(), exact.numpy(), rtol=0,
+                               atol=1e-5 * exact.abs().max().item())
+
+
 @pytest.mark.parametrize("T", [1, 7, 8, 15, 16, 17, 63, 64, 65, 66, 127, 128,
                                129])
 def test_mma_forward_model_matches_the_plain_versions_at_ragged_edges(T):
     """The chunks of 64 keys split a row at every T of the card's
     ragged-edge phase; the model stays within one bf16 step and 1e-5 of
     lse of the plain versions, at head dims that are and are not a
-    multiple of 16."""
-    for D in (16, 24, 32, 64, 128):
+    multiple of 16, and past 512 columns, where the kernel runs."""
+    for D in (16, 24, 32, 64, 128, 520):
         _, (tq, tk, tv), scale = _bf16_inputs(1, 2, T, D, seed=T + D)
         out, lse, _ = mma_forward_model(tq, tk, tv, scale)
         for plain in (fused_attention_lse_reference,
@@ -335,7 +402,7 @@ def test_mma_forward_model_matches_the_plain_versions_at_ragged_edges(T):
                                          f"{plain.__name__} T={T} D={D}")
 
 
-@pytest.mark.parametrize("D", [8, 32, 100, 128, 192, 256])
+@pytest.mark.parametrize("D", [8, 32, 100, 128, 192, 256, 320, 456, 512])
 @pytest.mark.parametrize("T", [1, 7, 64, 65, 127, 257])
 def test_wgmma_forward_model_matches_the_plain_versions(T, D):
     """The wgmma forward's key tiles end at every T here: the whole-head
@@ -343,7 +410,8 @@ def test_wgmma_forward_model_matches_the_plain_versions(T, D):
     128 keys, taken last to first; for both forwards the model
     stays within one bf16 step and 1e-5 of lse of both plain versions, at
     head dims that are and are not a multiple of 8 and 16, up to the widest
-    one-pass head."""
+    one-pass head, and past it in column chunks up to 512 columns (the
+    last chunk ragged at 320 and 456)."""
     _, (tq, tk, tv), scale = _bf16_inputs(1, 2, T, D, seed=3 * T + D)
     wants = [plain(tq, tk, tv, scale) for plain in (
         fused_attention_lse_reference, flash_attention_lse_reference)]
@@ -362,7 +430,10 @@ def test_wgmma_forward_model_tiles_as_the_dispatch_does():
     the whole-head grid of ``mhsa_fwd`` up to 128 keys at 32 columns, 96
     at 64 and 64 at 128; tiles of 128, 96, 64, 64 and 32 keys at 32, 64,
     128, 192 and 256 columns in the tiled grid, which ``flash_fwd`` always
-    takes and ``mhsa_fwd`` past those; no plan past 256 columns."""
+    takes and ``mhsa_fwd`` past those; past 256 columns the tiled grid in
+    two chunks of o a query tile (192 columns and 64 keys at width 320,
+    192 and 32 at 384, 256 and 16 at 448 and 512); no plan past 512
+    columns (the mma.sync column-chunk kernel)."""
     def keys(name, T, D):
         plan = forward_plan(name, T, D)
         return plan["grid"], plan["rows"]["k"], plan["rows"]["v"]
@@ -381,8 +452,29 @@ def test_wgmma_forward_model_tiles_as_the_dispatch_does():
     assert keys("flash_fwd", 512, 64) == ("tiled", 96, 96)
     assert keys("flash_fwd", 512, 128) == ("tiled", 64, 64)
     assert keys("flash_fwd", 1025, 256) == ("tiled", 32, 32)
-    assert forward_plan("flash_fwd", 65, 257) is None
-    assert forward_plan("mhsa_fwd", 65, 384) is None
+
+    def chunks(name, T, D):
+        plan = forward_plan(name, T, D)
+        return (plan["grid"], plan["width"], plan["rows"]["k"],
+                plan["cols"], plan["chunks"], plan["items"])
+
+    assert chunks("flash_fwd", 1025, 256) == ("tiled", 256, 32, 256, 1, 9)
+    assert chunks("mhsa_fwd", 65, 128) == ("tiled", 128, 64, 128, 1, 1)
+    assert chunks("flash_fwd", 65, 257) == ("tiled", 320, 64, 192, 2, 2)
+    assert chunks("mhsa_fwd", 65, 320) == ("tiled", 320, 64, 192, 2, 2)
+    assert chunks("mhsa_fwd", 65, 384) == ("tiled", 384, 32, 192, 2, 2)
+    assert chunks("flash_fwd", 512, 384) == ("tiled", 384, 32, 192, 2, 8)
+    assert chunks("flash_fwd", 130, 400) == ("tiled", 448, 16, 256, 2, 4)
+    assert chunks("mhsa_fwd", 9, 456) == ("tiled", 512, 16, 256, 2, 2)
+    assert chunks("flash_fwd", 1025, 512) == ("tiled", 512, 16, 256, 2, 18)
+    assert forward_plan("flash_fwd", 65, 513) is None
+    assert forward_plan("mhsa_fwd", 65, 520) is None
+    assert (WIDEST_ONE_PASS, WIDEST_FORWARD) == (256, 512)
+    for name in ("mhsa_fwd", "flash_fwd"):
+        assert forward_plan(name, 65, WIDEST_ONE_PASS)["chunks"] == 1
+        assert forward_plan(name, 65, WIDEST_ONE_PASS + 1)["chunks"] == 2
+        assert forward_plan(name, 65, WIDEST_FORWARD)["chunks"] == 2
+        assert forward_plan(name, 65, WIDEST_FORWARD + 1) is None
 
 
 def wgmma_backward_model(q, k, v, o, do, lse, scale: float):

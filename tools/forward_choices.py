@@ -2,17 +2,29 @@
 
     python3 tools/forward_choices.py
 
-builds ``csrc/flash_fwd.cu`` twice from copies of ``vit_cifar_torch/csrc``
-under ``build/forward_choices/``: once with every row of the table of
-instances (``csrc/forward_tiles.cuh``) set to ping-pong (the two consumer
-warpgroups take turns at the tensor cores) and once with none.  It then
-times the two builds in turns (A, B, B, A; CUDA events) on the model's
-(B, H, T, D) views of (B, T, H, D) projections at each padded head width
-of the table, checks that both give the same output, and times what the
-ragged last query and key tiles of the pixel ViT's T=1025 (8 * 128 + 1)
-cost against T=1024 with the repo's own build.  The table's ping-pong
-column is chosen from this.  Prints the card's name and power limit, a
-line a measurement, and one JSON object last.
+builds ``csrc/flash_fwd.cu`` from copies of ``vit_cifar_torch/csrc`` under
+``build/forward_choices/``, every build at once.  First the column-chunk
+rows of the table of instances (``csrc/forward_tiles.cuh``, the CHUNKED
+rows past 256 columns): for each, builds whose table holds that row
+alone, changed in one choice -- half and twice its key tile, chunks of o
+of 128, 192 or 256 columns, ping-pong (the two consumer warpgroups take
+turns at the tensor cores) flipped -- and, at 192 and 256 columns, the
+one-pass row replaced by chunks of 128 columns.  Past the table, rows of
+16 keys and chunks of 256 columns at 576, 640 and 704 columns show where
+q at full width and two stages of the ring stop fitting shared memory,
+each against the repo's mma.sync column-chunk kernel there.  A choice
+whose tiles do not fit shared memory fails its build (a static_assert)
+and is reported so.  Each built choice is checked within two bf16 steps
+(at the largest value) of the repo's build and timed against it in
+turns (repo, choice, choice, repo; CUDA events) at (128, 8, 512, width)
+on the model's (B, H, T, D) views of (B, T, H, D) projections, with its
+ptxas registers and spills.  Then two builds with every one-pass row set to ping-pong and to
+none, timed the same way at each one-pass width and checked equal, and
+what the ragged last query and key tiles of the pixel ViT's T=1025 (8 *
+128 + 1) cost against T=1024 with the repo's own build.  The table's key
+tiles, chunks and ping-pong columns are chosen from this.  Prints the
+card's name and power limit, a line a measurement, and one JSON object
+last.
 """
 
 from __future__ import annotations
@@ -33,35 +45,102 @@ sys.path.insert(0, ROOT)
 
 from vit_cifar_torch.ops.cuda.build import (CSRC_DIR, NVCC_FLAGS,  # noqa: E402
                                             find_nvcc)
-from vit_cifar_torch.ops.cuda.common import tma_strides  # noqa: E402
+from vit_cifar_torch.ops.cuda.common import (  # noqa: E402
+    PINGPONG, TILED_COLS, TILED_KEYS, library, tma_strides)
 from vit_cifar_torch.ops.cuda.flash_attention import \
     flash_attention  # noqa: E402
 
 WORK = os.path.join(ROOT, "build", "forward_choices")
-# one shape a padded head width: the pixel ViT's at 32 columns, the
-# head-dim shapes of chip_smoke.py beyond
+# one shape a one-pass width: the pixel ViT's at 32 columns, the head-dim
+# shapes of chip_smoke.py beyond; the column-chunk choices at
+# (128, 8, 512, width)
 SHAPES = [(128, 12, 1025, 32), (128, 8, 512, 64), (128, 8, 512, 128),
           (128, 8, 512, 192), (128, 8, 512, 256)]
 ROUNDS, ITERS = 4, 10
 
 
-def build(pingpong: int) -> tuple[str, subprocess.Popen]:
-    """Starts nvcc on flash_fwd.cu in a copy of the sources whose table
-    rows all ask for ``pingpong``: (the library's path, the process)."""
-    src = os.path.join(WORK, f"pingpong{pingpong}")
+def chunk_choices() -> list[tuple[int, tuple, str]]:
+    """(width, (keys, cols, pingpong), what) of each choice: every CHUNKED
+    row's neighbours, the one-pass rows at 192 and 256 columns as chunks
+    of 128 columns (64 keys, the 128-column row's tile), and rows past the
+    table's widest."""
+    choices = []
+    for width, keys in TILED_KEYS.items():
+        cols, pp = TILED_COLS[width], int(PINGPONG[width])
+        if cols == width:
+            if width in (192, 256):
+                choices.append((width, (64, 128, pp),
+                                "chunks of 128 columns, 64 keys"))
+            continue
+        for n in (keys // 2, 2 * keys):
+            choices.append((width, (n, cols, pp), f"key tile {n}"))
+        for c in (128, 192, 256):
+            if c != cols:
+                choices.append((width, (keys, c, pp),
+                                f"chunks of {c} columns"))
+        choices.append((width, (keys, cols, 1 - pp),
+                        f"ping-pong {'on' if pp == 0 else 'off'}"))
+    for width in (576, 640, 704):
+        choices.append((width, (16, 256, 0), "past the table"))
+    return choices
+
+
+def nvcc(src: str) -> tuple[str, subprocess.Popen]:
+    """Starts nvcc on flash_fwd.cu in the copy of the sources ``src``:
+    (the library's path, the process)."""
+    return os.path.join(src, "flash_fwd.so"), subprocess.Popen(
+        [find_nvcc(), *NVCC_FLAGS, "-o", os.path.join(src, "flash_fwd.so"),
+         os.path.join(src, "flash_fwd.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def copy_with_table(name: str, edit) -> str:
+    """A copy of the sources under ``WORK/name`` whose table of instances
+    is ``edit(text)``."""
+    src = os.path.join(WORK, name)
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(CSRC_DIR, src)
     table = os.path.join(src, "forward_tiles.cuh")
     with open(table) as f:
         text = f.read()
-    text = re.sub(r"^TILED\((\d+), (\d+), [01]\)$",
-                  rf"TILED(\1, \2, {pingpong})", text, flags=re.M)
     with open(table, "w") as f:
-        f.write(text)
-    return os.path.join(src, "flash_fwd.so"), subprocess.Popen(
-        [find_nvcc(), *NVCC_FLAGS, "-o", os.path.join(src, "flash_fwd.so"),
-         os.path.join(src, "flash_fwd.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        f.write(edit(text))
+    return src
+
+
+def build_choice(width: int, row: tuple) -> tuple[str, subprocess.Popen]:
+    """Starts nvcc on a copy whose table holds one column-chunk row,
+    CHUNKED(width, *row), and nothing else."""
+    keys, cols, pp = row
+    line = f"CHUNKED({width}, {keys}, {cols}, {pp})\n"
+    return nvcc(copy_with_table(f"chunk_{width}_{keys}_{cols}_{pp}",
+                                lambda text: line))
+
+
+def build(pingpong: int) -> tuple[str, subprocess.Popen]:
+    """Starts nvcc on a copy whose one-pass rows all ask for
+    ``pingpong``."""
+    return nvcc(copy_with_table(
+        f"pingpong{pingpong}",
+        lambda text: re.sub(r"^TILED\((\d+), (\d+), [01]\)$",
+                            rf"TILED(\1, \2, {pingpong})", text,
+                            flags=re.M)))
+
+
+def fwd_report(report: str) -> str:
+    """ptxas's registers and spills of the one wgmma forward instance in
+    a build's report (the table holds one row)."""
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "10fwd_kernelI" in line:
+            regs = spill = ""
+            for later in lines[i + 1:i + 6]:
+                if "spill" in later:
+                    spill = later.strip()
+                elif "registers" in later:
+                    regs = later.split(":", 1)[1].strip().split(",")[0]
+            return f"{regs}; {spill}"
+    return "not found"
 
 
 def launcher(lib: ctypes.CDLL):
@@ -123,9 +202,65 @@ def main() -> None:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
     os.makedirs(WORK, exist_ok=True)
-    jobs = [build(pp) for pp in (1, 0)]
+    choices = chunk_choices()
+    jobs = ([build_choice(w, row) for w, row, _ in choices]
+            + [build(pp) for pp in (1, 0)])
+    try:
+        measure(card, choices, jobs)
+    finally:  # no compiler left running
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def measure(card: str, choices, jobs) -> None:
+    """Checks and times each built choice against the repo's build, then
+    the ping-pong builds against each other, then T=1025 against 1024."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {"card": card, "chunks": [], "pingpong": {}, "ragged": {}}
+    repo = launcher(library("flash_fwd"))
+    for (width, (keys, cols, pp), what), (path, proc) in zip(choices, jobs):
+        report, _ = proc.communicate()
+        shape = (128, 8, 512, width)
+        if proc.returncode != 0:
+            first = next((line for line in report.splitlines()
+                          if "error" in line), report[-400:])
+            print(f"flash_fwd {shape} bf16: {what} does not build: "
+                  f"{first.strip()}", flush=True)
+            result["chunks"].append({"width": width, "choice": what,
+                                     "built": False})
+            continue
+        if "wgmma.mma_async instructions are serialized" in report:
+            print(f"flash_fwd {shape} bf16: {what}: ptxas serialised its "
+                  "wgmmas; not timed", flush=True)
+            continue
+        lib = launcher(ctypes.CDLL(path))
+        q, k, v = model_views(shape, gen)
+        scale = 1.0 / (shape[1] * shape[3]) ** 0.5
+        got, want = lib(q, k, v, scale).float(), repo(q, k, v, scale).float()
+        diff = ((got - want).abs().max().item()
+                / (want.abs().max().item() * 2.0 ** -7))
+        if diff > 2:
+            raise AssertionError(f"{shape} {what}: {diff:.2f} bf16 steps "
+                                 "from the repo's build")
+        t_repo, t_choice = in_turns(lambda: repo(q, k, v, scale),
+                                    lambda: lib(q, k, v, scale))
+        med = statistics.median(t_choice) / statistics.median(t_repo)
+        row = {"width": width, "choice": what, "built": True,
+               "row": [keys, cols, pp], "ptxas": fwd_report(report),
+               "repo_ms": t_repo, "choice_ms": t_choice,
+               "choice_over_repo": med, "diff": diff}
+        result["chunks"].append(row)
+        print(f"flash_fwd {shape} bf16: {what} (keys {keys}, {cols} "
+              f"columns, ping-pong {pp}; ptxas {row['ptxas']}) "
+              f"{statistics.median(t_choice):.4f} ms against the repo's "
+              f"{statistics.median(t_repo):.4f} ms: {med:.3f} (medians of "
+              f"{2 * ROUNDS} windows of {ITERS}); {diff:.2f} bf16 steps "
+              f"from the repo's ({card})", flush=True)
+        del q, k, v
     libs = []
-    for path, proc in jobs:
+    for path, proc in jobs[len(choices):]:
         report, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed:\n{report}")
@@ -133,8 +268,6 @@ def main() -> None:
             raise SystemExit(f"ptxas serialised wgmmas:\n{report}")
         libs.append(launcher(ctypes.CDLL(path)))
     on, off = libs
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    result = {"card": card, "pingpong": {}, "ragged": {}}
     for shape in SHAPES:
         q, k, v = model_views(shape, gen)
         scale = 1.0 / (shape[1] * shape[3]) ** 0.5

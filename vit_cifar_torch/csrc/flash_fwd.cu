@@ -22,25 +22,32 @@
 // cores' peak.  So the design keeps the products off the critical path and
 // the special-function units busy:
 //
-//   bf16 (dtype 1), D <= 256: the warp-specialised wgmma kernel of
+//   bf16 (dtype 1), D <= 512: the warp-specialised wgmma kernel of
 //   wgmma_attention.cuh, a persistent grid of one block an SM walking the
 //   (b, h, 128 query rows) work items.  A producer thread brings each
-//   item's q once (two buffers, so the next item's arrives early) and its
-//   K and V tiles (128 keys at 32 columns, 96 at 64, 64 at 128 and 192, 32
-//   at 256: what fits the registers; forward_tiles.cuh) through a ring of
-//   2-4 stages by TMA, under mbarriers; two consumer warpgroups of 64 rows
-//   each run s = q.k^T and o += p.v (p split into bf16 hi + lo, so p.v
-//   keeps p at f32 accuracy) as wgmma, and at 32 and 192 columns take
-//   turns at the tensor cores, so that one's softmax overlaps the other's
-//   products (at the other widths that ping-pong measured slower); inside
-//   a warpgroup the p.v of one tile runs while the softmax of the next
-//   does.  A head of up to 256 columns is one pass (wgmma's N reaches
-//   256): the logits and the exps are computed once.  Rows and keys past T
-//   and columns past D arrive as zeros from TMA; keys past T get -inf
-//   logits (the last key tile, taken first); a warp whose 16 rows all lie
-//   past T computes no exps.  Past 256 columns: the mma.sync column-chunk
-//   kernel of fwd_bf16_chunk.cuh (a block per 128-column output chunk,
-//   each recomputing the softmax).
+//   item's q once (two buffers up to 256 columns, so the next item's
+//   arrives early) and its K and V tiles (128 keys at 32 columns, 96 at
+//   64, 64 at 128 and 192, 32 at 256: what fits the registers;
+//   forward_tiles.cuh) through a ring of 2-4 stages by TMA, under
+//   mbarriers; two consumer warpgroups of 64 rows each run s = q.k^T and
+//   o += p.v (p split into bf16 hi + lo, so p.v keeps p at f32 accuracy)
+//   as wgmma, and at the widths where it measured faster take turns at
+//   the tensor cores, so that one's softmax overlaps the other's
+//   products; inside a warpgroup the p.v of one tile runs while the
+//   softmax of the next does.  A head of up to 256 columns is one pass
+//   (wgmma's N reaches 256): the logits and the exps are computed once.
+//   Past 256 columns o is cut into chunks of 192 or 256 columns, a work
+//   item each: s = q.k^T is summed over the whole head (q at full width,
+//   one buffer; K tiles at full width, 64 keys at 320 columns, 32 at 384,
+//   16 at 448 and 512),
+//   only the item's chunk of V comes, and each chunk computes the
+//   softmax again -- twice at 320-512 columns, against three or four
+//   times in 128-column blocks before.  Rows and keys past T and columns
+//   past D arrive as zeros from TMA; keys past T get -inf logits (the
+//   last key tile, taken first); a warp whose 16 rows all lie past T
+//   computes no exps.  Past 512 columns: the mma.sync column-chunk kernel
+//   of fwd_bf16_chunk.cuh (a block per 128-column output chunk, each
+//   recomputing the softmax).
 //
 //   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
 //   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
@@ -246,7 +253,7 @@ cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, void* lse, const Qkv& L, int B, int H,
                         int seq, int D, float scale, cudaStream_t stream) {
-  if (D > 256)
+  if (D > attn_wg::widest_forward())
     return launch_chunk_mma(q, k, v, out, lse, L, B, H, seq, D, scale,
                             stream);
   using attn_wg::View;

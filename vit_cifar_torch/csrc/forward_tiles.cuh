@@ -2,26 +2,49 @@
 // each.  This one table is what the CUDA dispatch (flash_fwd.cu and
 // mhsa_fwd.cu, through wgmma_attention.cuh) expands and what the wrappers'
 // tensor-map plan (ops/cuda/common.py::forward_plan) reads, so the two
-// cannot disagree.  No include guard: each includer defines both macros.
+// cannot disagree.  No include guard: each includer defines all three
+// macros.
 //
-// TILED(width, keys, pingpong): the tiled grid at a padded head width --
-//   the widest key tile whose s, p and o fit a consumer warpgroup's 168
-//   registers with the products in flight, and whether the two consumer
-//   warpgroups take turns at the tensor cores (ping-pong: on where
+// TILED(width, keys, pingpong): the tiled grid at a padded head width in
+//   one pass, the whole head's columns of o in a consumer -- the widest
+//   key tile whose s, p and o fit a consumer warpgroup's 168 registers
+//   with the products in flight, and whether the two consumer warpgroups
+//   take turns at the tensor cores (ping-pong: on where
 //   tools/forward_choices.py read it faster, 0.3-0.5% at 32 columns and
 //   6-7% at 192; off where none was, 2% at 64, 4-8% at 128, 0-5% at 256).
-//   Rows by ascending width: a head of D columns takes the first width
-//   >= D.  The whole-head instances of a width take its ping-pong.
+// CHUNKED(width, keys, cols, pingpong): the tiled grid past 256 columns
+//   (wgmma's widest N), o cut into chunks of `cols` columns, a work item
+//   each (128 query rows and one chunk; the last chunk ragged).  s = q.k^T
+//   is summed over the whole width from q and K tiles at full width; V
+//   comes only for the item's chunk.  q (one buffer at full width) and at
+//   least two stages of the ring fit shared memory: 64 keys fit at 320
+//   columns, 32 at 384-512.  Each row is the fastest of
+//   tools/forward_choices.py's measurements against half and twice its
+//   key tile, chunks of 128, 192 and 256 columns and ping-pong flipped,
+//   in three runs: at 448 and 512 columns 16 keys (four stages) read
+//   0.93-0.96x the 32 (32 read 1.04-1.09x 16); at 384 ping-pong off
+//   0.90x (on 1.05-1.08x off); every other neighbour 1.01-1.77x.  Both
+//   16-key instances spill 8 bytes (16 loaded back).  At 192 and 256
+//   columns the one pass beats chunks of 128 columns (which read 1.20x
+//   and 1.58-1.61x).
+//   Widths step by 64 columns, so no q or K box lies wholly past D.
+//   Rows of both kinds by ascending width: a head of D columns takes the
+//   first width >= D; past the last (512) the mma.sync column-chunk
+//   kernel (fwd_bf16_chunk.cuh) runs.
 // WHOLE(width, keys): mhsa_fwd's whole-head instances, the head's
 //   round_up(T, 8) keys as one tile of `keys` keys, the first row of the
 //   head's width that holds them (past the last: the tiled grid).  Rows by
-//   width, then ascending keys.
+//   width, then ascending keys.  They take the TILED row's ping-pong.
 
 TILED(32, 128, 1)
 TILED(64, 96, 0)
 TILED(128, 64, 0)
 TILED(192, 64, 1)
 TILED(256, 32, 0)
+CHUNKED(320, 64, 192, 1)
+CHUNKED(384, 32, 192, 0)
+CHUNKED(448, 16, 256, 0)
+CHUNKED(512, 16, 256, 0)
 
 WHOLE(32, 16)
 WHOLE(32, 32)

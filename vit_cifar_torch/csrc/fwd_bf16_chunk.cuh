@@ -1,8 +1,10 @@
-// The bf16 attention forward for heads wider than 256 columns, past the
-// widest head the wgmma forward (wgmma_attention.cuh) holds in one pass:
-// one block of 4 warps per (b, h, 64 query rows, 128-column output chunk)
-// on the tensor cores (mma.sync, mma_attention.cuh).  flash_fwd.cu and
-// mhsa_fwd.cu both launch it there.
+// The bf16 attention forward for heads wider than 512 columns, past the
+// widest head the wgmma forward (wgmma_attention.cuh) holds, in one pass
+// or in column chunks (forward_tiles.cuh): its q at full width and two
+// stages of the ring no longer fit shared memory.  One block of 4 warps per
+// (b, h, 64 query rows, 128-column output chunk) on the tensor cores
+// (mma.sync, mma_attention.cuh).  flash_fwd.cu and mhsa_fwd.cu both launch
+// it there.
 //
 // The logits are summed over the head's 128-column chunks, one staged
 // chunk of K (and of q, read from device memory) at a time, and the block

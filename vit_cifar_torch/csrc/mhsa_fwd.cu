@@ -35,10 +35,12 @@
 //   round_up(N, 16).  Rows and keys past T and columns past D arrive as
 //   zeros; keys past T get -inf logits; a warp whose rows all lie past T
 //   computes no exps.
-//   Past it (up to 256 columns): the same kernel's tiled work items, as
+//   Past it (up to 512 columns): the same kernel's tiled work items, as
 //   flash_fwd.cu launches it, so that "fused" at any (T, D) runs no slower
-//   than the tiled forward.  Past 256 columns: the mma.sync column-chunk
-//   kernel of fwd_bf16_chunk.cuh.
+//   than the tiled forward; past 256 columns those cut o into column
+//   chunks (flash_fwd.cu says how), and no whole-head row holds such a
+//   head.  Past 512 columns: the mma.sync column-chunk kernel of
+//   fwd_bf16_chunk.cuh.
 //
 //   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
 //   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
@@ -212,7 +214,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, void* lse, const Qkv& L, int B, int H,
                         int seq, int D, float scale, cudaStream_t stream) {
-  if (D > 256)
+  if (D > attn_wg::widest_forward())
     return launch_chunk_mma(q, k, v, out, lse, L, B, H, seq, D, scale,
                             stream);
   using attn_wg::View;

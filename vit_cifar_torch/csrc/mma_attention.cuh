@@ -1,7 +1,7 @@
 // mma.sync building blocks of the bf16 attention kernels that are not on
-// wgmma (the column-chunk kernels of the tiled backward pair past 128
+// wgmma (the column-chunk kernels of the tiled backward pair past 512
 // columns, in flash_bwd_dq.cu and flash_bwd_dkv.cu, and of the forward past
-// 256 columns, fwd_bf16_chunk.cuh): cp.async staging of rows as bf16 in
+// 512 columns, fwd_bf16_chunk.cuh): cp.async staging of rows as bf16 in
 // shared memory, ldmatrix fragments, mma.sync.m16n8k16 (bf16 in, f32
 // accumulate), the two products every kernel is made of (a 16-row tile
 // against 16 staged rows transposed, and an accumulator tile split into

@@ -3,14 +3,21 @@
 // v read in place through TMA tensor maps over the caller's (B, H, T, D)
 // views; s = q.k^T reads both operands from shared memory (K-major); o +=
 // p.v takes p from registers and V from shared memory (MN-major).  Two
-// consumer warpgroups of 64 query rows each, 128 rows a work item.  At the
-// widths where it was measured to win (32 and 192 columns;
-// forward_tiles.cuh), two named barriers make the consumers take turns
-// issuing their products (ping-pong), so that one warpgroup's softmax runs
-// on the CUDA cores while the other's products run on the tensor cores;
-// inside a warpgroup the p.v of one key tile runs while the softmax of the
-// next does.  The producer brings the next item's q, K and V while this one
-// computes.
+// consumer warpgroups of 64 query rows each, 128 rows a work item.  A
+// head of up to 256 columns (wgmma's widest N) is one pass: a consumer
+// holds all its columns of o.  Past 256 columns, up to 512, o is cut into
+// column chunks of at most 256, a work item each (the CHUNKED rows of
+// forward_tiles.cuh): s = q.k^T is summed over the whole head from q and
+// K tiles at full width, and only the item's chunk of V is brought, so an
+// item costs the one-pass instance's registers.  At the widths where it
+// was measured to win (forward_tiles.cuh), two named barriers make the
+// consumers take turns issuing their products (ping-pong), so that one
+// warpgroup's softmax runs on the CUDA cores while the other's products
+// run on the tensor cores; inside a warpgroup the p.v of one key tile runs
+// while the softmax of the next does.  The producer brings the next item's
+// K and V while this one computes, and its q too where two query buffers
+// fit (up to 256 columns; past them once this item's last products have
+// read its q).
 //
 // The key tiles of a work item are taken last to first: the first one
 // taken holds the keys past T and is the only one masked (a select, and no
@@ -34,21 +41,24 @@ namespace attn_wg {
 namespace {
 
 // ---- the forward kernel ----------------------------------------------------
-// Shared memory of one instance: kQBufs query tiles (kTileQ rows), then
-// kStages stages of a K tile (kN rows) and a V tile (kKV rows, kN rounded up
-// to the 16-key depth of p.v), then the barriers.  Each tile is kAtoms
-// swizzle atoms of kAtomCols columns side by side, an atom's rows
-// kRowBytes apart.
-template <int kDp, int kN, int kQBufs>
+// Shared memory of one instance: kQBufs query tiles (kTileQ rows of the
+// padded width kDp), then kStages stages of a K tile (kN rows, kDp
+// columns) and a V tile (kKV rows, kN rounded up to the 16-key depth of
+// p.v, and the kCols columns of an item's chunk of o), then the barriers.
+// Each tile is swizzle atoms of kAtomCols columns side by side, an atom's
+// rows kRowBytes apart.
+template <int kDp, int kN, int kQBufs, int kCols>
 struct Shape {
   static constexpr int kKV = (kN + 15) / 16 * 16;
   static constexpr int kAtomCols = kDp == 32 ? 32 : 64;
-  static constexpr int kAtoms = kDp / kAtomCols;
+  static constexpr int kAtoms = kDp / kAtomCols;    // of a q or K tile
+  static constexpr int kVAtoms = kCols / kAtomCols;  // of a V tile
   static constexpr int kRowBytes = 2 * kAtomCols;
   static constexpr uint32_t kSwizzle = kDp == 32 ? 2 : 1;  // 64 B : 128 B
   static constexpr int kQBytes = 2 * kTileQ * kDp;
   static constexpr int kKBytes = 2 * kN * kDp;
-  static constexpr int kVBytes = 2 * kKV * kDp;
+  static constexpr int kVAtomBytes = kKV * kRowBytes;
+  static constexpr int kVBytes = kVAtoms * kVAtomBytes;
   // as many stages as fit, at most 4
   static constexpr int kStages =
       (kSmemBudget - kQBufs * kQBytes) / (kKBytes + kVBytes) < 4
@@ -59,13 +69,28 @@ struct Shape {
   static constexpr int kBarOff = kVOff + kStages * kVBytes;
   static constexpr int kBytes = kBarOff + 8 * 2 * (kQBufs + kStages) + 1024;
   static_assert(kDp == 32 || kDp % 64 == 0, "head width");
+  static_assert(kCols <= kDp && kCols <= 256 && kCols % kAtomCols == 0,
+                "columns of o a consumer holds: wgmma's N, whole atoms");
   static_assert(kN % 8 == 0 && kN <= 256, "key tile");
   static_assert(kStages >= 2, "a ring of at least two stages");
 };
 
-// One launch's scalars.  The work items are the (b * H + h, query tile)
-// pairs, n_qt tiles of kTileQ rows a head, in that order; the grid is
-// persistent: block x takes items x, x + gridDim.x, ...
+// The query buffers of an instance: two (the next item's q arrives while
+// this one computes) where they leave room for two stages of the ring,
+// else one (q at full width past 256 columns).
+constexpr int q_buffers(int dp, int n, int cols) {
+  return 2 * (2 * kTileQ * dp) +
+                     2 * (2 * n * dp + 2 * ((n + 15) / 16 * 16) * cols) <=
+                 kSmemBudget
+             ? 2
+             : 1;
+}
+
+// One launch's scalars.  The work items are the (b * H + h, query tile,
+// column chunk) triples, n_qt tiles of kTileQ rows a head and n_ch chunks
+// of o a tile, in that order; the grid is persistent: block x takes items
+// x, x + gridDim.x, ...  Neighbouring blocks thus take the chunks of one
+// query tile at once, and its q and K tiles come from L2 for all but one.
 struct Params {
   bf16* out;     // (B, T, H, D)
   float* lse;    // (B, H, T), or null
@@ -74,16 +99,34 @@ struct Params {
   float c;       // scale * log2(e)
   int n_qt;      // query tiles a head
   int n_kt;      // key tiles a head
+  int n_ch;      // column chunks of o a query tile (1: one pass)
   int total;     // work items
 };
 
-template <int kDp, int kN, int kQBufs, bool kPingpong>
+// A work item's place: item = (bh * n_qt + qt) * n_ch + ch.
+struct Place {
+  int b, h, bh, qt, ch;
+  template <bool kChunked>
+  __device__ static Place of(const Params& p, int item) {
+    Place w;
+    w.ch = kChunked ? item % p.n_ch : 0;
+    const int rest = kChunked ? item / p.n_ch : item;
+    w.bh = rest / p.n_qt;
+    w.qt = rest - w.bh * p.n_qt;
+    w.b = w.bh / p.H;
+    w.h = w.bh - w.b * p.H;
+    return w;
+  }
+};
+
+template <int kDp, int kN, int kQBufs, bool kPingpong, int kCols>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap, const Params p) {
-  using S = Shape<kDp, kN, kQBufs>;
+  using S = Shape<kDp, kN, kQBufs, kCols>;
   constexpr int kStages = S::kStages;
+  constexpr bool kChunked = kCols < kDp;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
@@ -119,28 +162,34 @@ __global__ void __launch_bounds__(kThreads, 1)
     prefetch_map(&vmap);
     int stage = 0, sph = 0, qb = 0, qph = 0;
     for (int i = 0; i < items; ++i) {
-      const int bh = (blockIdx.x + i * gridDim.x) / p.n_qt;
-      const int qt = blockIdx.x + i * gridDim.x - bh * p.n_qt;
-      const int b = bh / p.H;
-      const int h = bh - b * p.H;
+      const Place w = Place::of<kChunked>(p, blockIdx.x + i * gridDim.x);
       mbar_wait(&q_empty[qb], qph ^ 1);  // a fresh barrier passes at once
       mbar_expect_tx(&q_full[qb], S::kQBytes);
       for (int a = 0; a < S::kAtoms; ++a)
         tma_load_4d(smem + qb * S::kQBytes + a * kTileQ * S::kRowBytes,
-                    &qmap, &q_full[qb], a * S::kAtomCols, h, qt * kTileQ, b);
+                    &qmap, &q_full[qb], a * S::kAtomCols, w.h,
+                    w.qt * kTileQ, w.b);
       if (++qb == kQBufs) qb = 0, qph ^= 1;
+      // the item's chunk of V; its atoms wholly past D are not brought:
+      // they feed only columns of o that are never stored
+      const int col0 = w.ch * kCols;
+      const int v_atoms =
+          kChunked ? min(S::kVAtoms,
+                         (p.D - col0 + S::kAtomCols - 1) / S::kAtomCols)
+                   : S::kVAtoms;
       for (int j = 0; j < p.n_kt; ++j) {
         mbar_wait(&kv_empty[stage], sph ^ 1);
-        mbar_expect_tx(&kv_full[stage], S::kKBytes + S::kVBytes);
+        mbar_expect_tx(&kv_full[stage],
+                       S::kKBytes + v_atoms * S::kVAtomBytes);
         uint8_t* kt = smem + S::kKOff + stage * S::kKBytes;
         uint8_t* vt = smem + S::kVOff + stage * S::kVBytes;
         const int k0 = (p.n_kt - 1 - j) * kN;  // last tile first
-        for (int a = 0; a < S::kAtoms; ++a) {
+        for (int a = 0; a < S::kAtoms; ++a)
           tma_load_4d(kt + a * kN * S::kRowBytes, &kmap, &kv_full[stage],
-                      a * S::kAtomCols, h, k0, b);
-          tma_load_4d(vt + a * S::kKV * S::kRowBytes, &vmap,
-                      &kv_full[stage], a * S::kAtomCols, h, k0, b);
-        }
+                      a * S::kAtomCols, w.h, k0, w.b);
+        for (int a = 0; a < v_atoms; ++a)
+          tma_load_4d(vt + a * S::kVAtomBytes, &vmap, &kv_full[stage],
+                      col0 + a * S::kAtomCols, w.h, k0, w.b);
         if (++stage == kStages) stage = 0, sph ^= 1;
       }
     }
@@ -159,7 +208,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr uint32_t kSbo = 8 * S::kRowBytes;
 
   float s[kN / 2];
-  float o[kDp / 2];
+  float o[kCols / 2];
   uint32_t ph[kPV][4], pl[kPV][4];
   float m[2], l[2], corr[2];
 
@@ -170,13 +219,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int kk = 0; kk < kPV; ++kk) {
       const uint64_t d = make_desc(vb + kk * 16 * S::kRowBytes,
                                    S::kKV * S::kRowBytes, kSbo, S::kSwizzle);
-      Wgmma<kDp>::rs(o, ph[kk], d);
-      Wgmma<kDp>::rs(o, pl[kk], d);
+      Wgmma<kCols>::rs(o, ph[kk], d);
+      Wgmma<kCols>::rs(o, pl[kk], d);
     }
   };
   auto rescale = [&]() {
 #pragma unroll
-    for (int n = 0; n < kDp / 8; ++n) {
+    for (int n = 0; n < kCols / 8; ++n) {
       o[4 * n] *= corr[0];
       o[4 * n + 1] *= corr[0];
       o[4 * n + 2] *= corr[1];
@@ -189,11 +238,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   [[maybe_unused]] int done = 0;
   int stage = 0, sph = 0, qb = 0, qph = 0;
   for (int i = 0; i < items; ++i) {
-    const int bh = (blockIdx.x + i * gridDim.x) / p.n_qt;
-    const int qt = blockIdx.x + i * gridDim.x - bh * p.n_qt;
-    const int b = bh / p.H;
-    const int h = bh - b * p.H;
-    const int row_wg = qt * kTileQ + 64 * c;
+    const Place w = Place::of<kChunked>(p, blockIdx.x + i * gridDim.x);
+    const int row_wg = w.qt * kTileQ + 64 * c;
     // warp-uniform, and shown so to ptxas: a branch it takes for divergent
     // around the accumulator registers serialises the wgmmas
     const bool warp_active =
@@ -203,7 +249,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     m[0] = m[1] = -CUDART_INF_F;
     l[0] = l[1] = 0.f;
 #pragma unroll
-    for (int x = 0; x < kDp / 2; ++x) o[x] = 0.f;
+    for (int x = 0; x < kCols / 2; ++x) o[x] = 0.f;
     mbar_wait(&q_full[qb], qph);
 
     // Key tiles are taken last to first: the first one taken holds the
@@ -362,50 +408,54 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(pl);
     release(&kv_empty[prev]);
 
-    // o / l to (B, T, H, D) bf16, lse to (B, H, T) f32; o is read outside
-    // any branch (a divergent read of an accumulator serialises the
-    // wgmmas), the stores are predicated
+    // o / l to the item's columns of (B, T, H, D) bf16, lse to (B, H, T)
+    // f32 (by the first chunk); o is read outside any branch (a divergent
+    // read of an accumulator serialises the wgmmas), the stores are
+    // predicated
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float lt = l[r];
       lt += __shfl_xor_sync(0xffffffffu, lt, 1);
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       const float inv = 1.f / lt;  // inf for rows past T, never stored
-      __nv_bfloat162 packed[kDp / 8];
+      __nv_bfloat162 packed[kCols / 8];
 #pragma unroll
-      for (int n = 0; n < kDp / 8; ++n)
+      for (int n = 0; n < kCols / 8; ++n)
         packed[n] = __floats2bfloat162_rn(o[4 * n + 2 * r] * inv,
                                           o[4 * n + 2 * r + 1] * inv);
       const int row = row_wg + 16 * warp + g + 8 * r;
       if (!warp_active || row >= p.T) continue;
-      bf16* orow =
-          p.out + ((static_cast<int64_t>(b) * p.T + row) * p.H + h) * p.D;
+      bf16* orow = p.out +
+                   ((static_cast<int64_t>(w.b) * p.T + row) * p.H + w.h) *
+                       p.D +
+                   w.ch * kCols;
+      const int cols = p.D - w.ch * kCols;  // the head's, from the chunk's on
 #pragma unroll
-      for (int n = 0; n < kDp / 8; ++n) {
+      for (int n = 0; n < kCols / 8; ++n) {
         const int d = 8 * n + 2 * t;
-        if (d + 1 < p.D && (p.D & 1) == 0) {
+        if (d + 1 < cols && (p.D & 1) == 0) {
           *reinterpret_cast<__nv_bfloat162*>(orow + d) = packed[n];
         } else {
-          if (d < p.D) orow[d] = packed[n].x;
-          if (d + 1 < p.D) orow[d + 1] = packed[n].y;
+          if (d < cols) orow[d] = packed[n].x;
+          if (d + 1 < cols) orow[d + 1] = packed[n].y;
         }
       }
-      if (p.lse != nullptr && t == 0)
-        p.lse[static_cast<int64_t>(bh) * p.T + row] =
+      if (p.lse != nullptr && t == 0 && w.ch == 0)
+        p.lse[static_cast<int64_t>(w.bh) * p.T + row] =
             m[r] * 0.6931471805599453f + logf(lt);
     }
     if (++qb == kQBufs) qb = 0, qph ^= 1;
   }
 }
 
-// Launches fwd_kernel<kDp, kN, kQBufs, kPingpong> on q, k, v: a persistent
-// grid, one block an SM.
-template <int kDp, int kN, int kQBufs, bool kPingpong>
+// Launches fwd_kernel<kDp, kN, kQBufs, kPingpong, kCols> on q, k, v: a
+// persistent grid, one block an SM.
+template <int kDp, int kN, int kQBufs, bool kPingpong, int kCols>
 cudaError_t launch(const View& q, const View& k, const View& v, void* out,
                    void* lse, int B, int H, int T, int D, float scale,
                    cudaStream_t stream) {
-  using S = Shape<kDp, kN, kQBufs>;
-  auto kernel = fwd_kernel<kDp, kN, kQBufs, kPingpong>;
+  using S = Shape<kDp, kN, kQBufs, kCols>;
+  auto kernel = fwd_kernel<kDp, kN, kQBufs, kPingpong, kCols>;
   static std::atomic<uint64_t> opted_in{0};
   const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
   if (err != cudaSuccess) return err;
@@ -424,51 +474,77 @@ cudaError_t launch(const View& q, const View& k, const View& v, void* out,
   p.c = scale * 1.4426950408889634f;
   p.n_qt = (T + kTileQ - 1) / kTileQ;
   p.n_kt = (T + kN - 1) / kN;
-  p.total = B * H * p.n_qt;
+  p.n_ch = (D + kCols - 1) / kCols;
+  p.total = B * H * p.n_qt * p.n_ch;
   kernel<<<min(p.total, sm_count()), kThreads, S::kBytes, stream>>>(qm, km,
                                                                     vm, p);
   return cudaGetLastError();
 }
 
 // The instances, one table row each (forward_tiles.cuh): the tiled grid at
-// a padded head width, and mhsa_fwd's whole-head grid.
+// a padded head width (in one pass, or in column chunks past 256 columns),
+// and mhsa_fwd's whole-head grid.
 
 // Whether the consumers of a width's instances take turns at the tensor
 // cores (the tiled row's pingpong column).
 constexpr bool pingpong_at(int width) {
 #define TILED(w, n, pp) \
   if (width == w) return pp != 0;
+#define CHUNKED(w, n, cols, pp)
 #define WHOLE(w, n)
 #include "forward_tiles.cuh"
 #undef TILED
+#undef CHUNKED
 #undef WHOLE
   return true;
 }
 
+// The widest head the table holds (its last tiled row, 512); a wider one
+// takes the mma.sync column-chunk kernel (fwd_bf16_chunk.cuh).
+constexpr int widest_forward() {
+  int widest = 0;
+#define TILED(w, n, pp) widest = w;
+#define CHUNKED(w, n, cols, pp) widest = w;
+#define WHOLE(w, n)
+#include "forward_tiles.cuh"
+#undef TILED
+#undef CHUNKED
+#undef WHOLE
+  return widest;
+}
+
 // The head width an instance holds: the first table width >= D, 0 past the
-// widest (256, wgmma's widest N).
+// widest.
 inline int padded_width(int D) {
 #define TILED(w, n, pp) \
+  if (D <= w) return w;
+#define CHUNKED(w, n, cols, pp) \
   if (D <= w) return w;
 #define WHOLE(w, n)
 #include "forward_tiles.cuh"
 #undef TILED
+#undef CHUNKED
 #undef WHOLE
   return 0;
 }
 
-// The tiled forward at any T, D <= 256: the width's key tile, two query
-// buffers.
+// The tiled forward at any T, D <= widest_forward(): the width's key tile
+// and columns of o an item, one or two query buffers.
 inline cudaError_t launch_tiled(const View& q, const View& k, const View& v,
                                 void* out, void* lse, int B, int H, int T,
                                 int D, float scale, cudaStream_t stream) {
-#define TILED(w, n, pp)                                                  \
-  if (D <= w)                                                            \
-    return launch<w, n, 2, pp != 0>(q, k, v, out, lse, B, H, T, D, scale, \
-                                    stream);
+#define TILED(w, n, pp)                                                     \
+  if (D <= w)                                                               \
+    return launch<w, n, q_buffers(w, n, w), pp != 0, w>(                    \
+        q, k, v, out, lse, B, H, T, D, scale, stream);
+#define CHUNKED(w, n, cols, pp)                                             \
+  if (D <= w)                                                               \
+    return launch<w, n, q_buffers(w, n, cols), pp != 0, cols>(              \
+        q, k, v, out, lse, B, H, T, D, scale, stream);
 #define WHOLE(w, n)
 #include "forward_tiles.cuh"
 #undef TILED
+#undef CHUNKED
 #undef WHOLE
   return cudaErrorInvalidValue;
 }
@@ -482,12 +558,14 @@ inline cudaError_t launch_whole_or_tiled(const View& q, const View& k,
   const int width = padded_width(D);
   const int keys = (T + 7) / 8 * 8;
 #define TILED(w, n, pp)
-#define WHOLE(w, n)                                                        \
-  if (width == w && keys <= n)                                             \
-    return launch<w, n, 2, pingpong_at(w)>(q, k, v, out, lse, B, H, T, D, \
-                                           scale, stream);
+#define CHUNKED(w, n, cols, pp)
+#define WHOLE(w, n)                                                         \
+  if (width == w && keys <= n)                                              \
+    return launch<w, n, 2, pingpong_at(w), w>(q, k, v, out, lse, B, H, T, \
+                                              D, scale, stream);
 #include "forward_tiles.cuh"
 #undef TILED
+#undef CHUNKED
 #undef WHOLE
   return launch_tiled(q, k, v, out, lse, B, H, T, D, scale, stream);
 }

@@ -24,8 +24,10 @@ from the caller's (B, H, T, D) views -- on the model's path transposed
 views of its (B, T, H, D) projections -- through tensor maps, the whole
 head as one key tile where a warpgroup's registers hold it (T <= 128 at
 head_dim 32) and the tiled forward's main loop beyond, p split into bf16
-hi + lo so that p.v keeps f32 accuracy; heads past 256 columns run the
-mma.sync column-chunk kernel.  A view TMA cannot read (``tma_plan``) is
+hi + lo so that p.v keeps f32 accuracy; heads past 256 columns, up to
+512, on the same kernel in chunks of o of 192 or 256 columns, a work item
+each, s summed over the whole head; past 512 columns the mma.sync
+column-chunk kernel.  A view TMA cannot read (``tma_plan``) is
 copied into a padded buffer first.  f32 runs on the CUDA cores in full
 f32, since the tensor cores would take f32 only as TF32 and miss the f32
 limit of 1e-5: the whole head in shared memory where it fits

@@ -43,26 +43,36 @@ def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     return lib
 
 
-def _forward_tiles() -> tuple[dict, dict, dict]:
+def _forward_tiles() -> tuple[dict, dict, dict, dict]:
     """The bf16 wgmma forward's table of instances
-    (``csrc/forward_tiles.cuh``, which the CUDA dispatch expands): the
-    tiled grid's key tile by padded head width, in ascending width; whether
-    the consumers of a width's instances take turns (ping-pong); and
-    mhsa_fwd's whole-head key tiles by width, ascending."""
+    (``csrc/forward_tiles.cuh``, which the CUDA dispatch expands), by
+    padded head width in ascending width: the tiled grid's key tile and the
+    columns of o a work item holds (the width in one pass, ``TILED`` rows;
+    a chunk of it, ``CHUNKED`` rows); whether the consumers of a width's
+    instances take turns (ping-pong); and mhsa_fwd's whole-head key tiles
+    by width, ascending."""
     from .build import CSRC_DIR
 
     text = (CSRC_DIR / "forward_tiles.cuh").read_text()
-    tiled = re.findall(r"^TILED\((\d+), (\d+), ([01])\)$", text, re.M)
+    rows = [(int(w), int(n), int(w), pp) for w, n, pp in re.findall(
+        r"^TILED\((\d+), (\d+), ([01])\)$", text, re.M)]
+    rows += [(int(w), int(n), int(c), pp) for w, n, c, pp in re.findall(
+        r"^CHUNKED\((\d+), (\d+), (\d+), ([01])\)$", text, re.M)]
+    rows.sort()
     whole = {}
     for w, n in re.findall(r"^WHOLE\((\d+), (\d+)\)$", text, re.M):
         whole.setdefault(int(w), []).append(int(n))
-    return ({int(w): int(n) for w, n, _ in tiled},
-            {int(w): pp == "1" for w, _, pp in tiled}, whole)
+    return ({w: n for w, n, _, _ in rows}, {w: c for w, _, c, _ in rows},
+            {w: pp == "1" for w, _, _, pp in rows}, whole)
 
 
-TILED_KEYS, PINGPONG, WHOLE_KEYS = _forward_tiles()
+TILED_KEYS, TILED_COLS, PINGPONG, WHOLE_KEYS = _forward_tiles()
 QUERY_TILE = 128  # query rows a work item: two warpgroups of 64
-WIDEST_ONE_PASS = max(TILED_KEYS)  # wgmma's widest N, 256
+# the widest head in one pass (wgmma's widest N, 256), and the widest the
+# wgmma forward takes at all (in column chunks; past it the mma.sync
+# column-chunk kernel, which reads the views without TMA)
+WIDEST_ONE_PASS = max(w for w, c in TILED_COLS.items() if c == w)
+WIDEST_FORWARD = max(TILED_KEYS)
 
 
 def _backward_tiles() -> tuple[dict, dict]:
@@ -119,13 +129,16 @@ def forward_plan(name: str, T: int, D: int) -> dict | None:
     (``_forward_tiles``): the instance's width (the first table width >=
     D) and whether its consumers ping-pong, its swizzle (64-byte rows at
     width 32, else 128-byte rows), the columns of one swizzle atom (a TMA
-    box's inner extent), the rows of the q, k and v boxes, and the grid
+    box's inner extent), the rows of the q, k and v boxes, the grid
     ("whole": mhsa_fwd's whole head as one key tile, the first of its
     width's that holds round_up(T, 8) keys; "tiled": the width's
-    ``TILED_KEYS``).  None past
-    ``WIDEST_ONE_PASS`` columns, where the column-chunk kernel reads the
-    views without TMA."""
-    if D > WIDEST_ONE_PASS:
+    ``TILED_KEYS``), the columns of o a work item holds ("cols": the width
+    in one pass, else a chunk, ``TILED_COLS``), the chunks of o
+    ("chunks": ceil(D / cols), the last ragged; 1 in one pass) and the
+    work items a head (query tiles of ``QUERY_TILE`` rows times chunks).
+    None past ``WIDEST_FORWARD`` columns, where the mma.sync column-chunk
+    kernel reads the views without TMA."""
+    if D > WIDEST_FORWARD:
         return None
     width = min(w for w in TILED_KEYS if w >= D)
     n = -(-T // 8) * 8
@@ -135,11 +148,15 @@ def forward_plan(name: str, T: int, D: int) -> dict | None:
                    default=None)
     grid = "tiled" if keys is None else "whole"
     keys = keys or TILED_KEYS[width]
+    cols = TILED_COLS[width]
+    chunks = -(-D // cols)
     return {"width": width, "grid": grid, "pingpong": PINGPONG[width],
             "swizzle": 64 if width == 32 else 128,
             "atom_cols": 32 if width == 32 else 64,
             "rows": {"q": QUERY_TILE, "k": keys,
-                     "v": -(-keys // 16) * 16}}
+                     "v": -(-keys // 16) * 16},
+            "cols": cols, "chunks": chunks,
+            "items": -(-T // QUERY_TILE) * chunks}
 
 
 def tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -168,7 +185,7 @@ def tma_plan(name: str, q: torch.Tensor, k: torch.Tensor,
     h or t stride that is not a multiple of 8 elements (16 bytes), which
     every layout of a head of D % 8 != 0 columns whose rows follow each
     other has.  Those go through ``padded_copy``.  ``maps`` is empty past
-    ``WIDEST_ONE_PASS`` columns (no TMA), where only a d stride other than
+    ``WIDEST_FORWARD`` columns (no TMA), where only a d stride other than
     1 is copied."""
     B, H, T, D = q.shape
     plan = forward_plan(name, T, D)
@@ -204,10 +221,10 @@ def padded_copy(t: torch.Tensor, meta: bool = False) -> torch.Tensor:
     return buf[..., :D]
 
 
-def readable(*views, widest: int = WIDEST_ONE_PASS):
+def readable(*views, widest: int = WIDEST_FORWARD):
     """(B, H, T, D) views as a kernel reads them: each in place where its
     layout allows, else its ``padded_copy``.  The bf16 wgmma kernels (up
-    to ``widest`` columns: the forwards' ``WIDEST_ONE_PASS``, the backward
+    to ``widest`` columns: the forwards' ``WIDEST_FORWARD``, the backward
     pair's ``WIDEST_BACKWARD``) read them through tensor maps
     (``tma_reads_in_place``, as ``tma_plan`` reports for the forwards);
     the f32 instances and the bf16 column-chunk kernels take any strides
@@ -228,7 +245,7 @@ def launch_forward(name: str, q, k, v, scale: float, with_lse: bool):
     (``readable``: only a layout the kernel cannot read is copied): (out
     (B, T, H, D), lse (B, H, T) f32 or None)."""
     check(q, k, v)
-    q, k, v = readable(q, k, v)
+    q, k, v = readable(q, k, v, widest=WIDEST_FORWARD)
     B, H, T, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)

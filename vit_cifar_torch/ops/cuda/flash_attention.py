@@ -17,8 +17,10 @@ These tile both the queries and the keys, so they run at any T and any
 D.  The bf16 forward is the warp-specialised wgmma kernel
 (``csrc/wgmma_attention.cuh``): 128 query rows a work item against key
 tiles of 32 to 128 keys brought by TMA straight from the caller's (B, H,
-T, D) views, heads up to 256 columns in one pass (past them the mma.sync
-column-chunk kernel).  The bf16 backward pair is two warp-specialised
+T, D) views, heads up to 256 columns in one pass and up to
+``WIDEST_FORWARD`` (512) in chunks of o of 192 or 256 columns, a work
+item each (past 512 the mma.sync column-chunk kernel).  The bf16
+backward pair is two warp-specialised
 wgmma kernels (``csrc/wgmma_backward.cuh``, tiles by width in
 ``csrc/backward_tiles.cuh``): dq with 128 query rows a work item against
 key tiles, dk/dv with 128 keys against query tiles, both reading q, k,
