@@ -43,33 +43,39 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    against their plain versions, at the pixel-token ViT's shape
    (128, 12, 1025, 32), the flagship's (128, 12, 65, 32) forced through
    them, the JAX flash tests' tile-splitting shapes, one long sequence
-   (8, 1, 4096, 128) and head dims 129, 136, 192, 256, 384 and 520 (cut
-   into column chunks), in f32 and bf16; times each kernel and its plain
+   (8, 1, 4096, 128), head dims 129, 136, 192, 256 and 384 (cut into
+   column chunks) and past 512 columns, where the bf16 kernels stream
+   the sums over D, 520, 522, 640, 704 and 1040 (with the whole-head
+   forward's both variants there too) and (16, 2, 1024, 520), in f32
+   and bf16; times each kernel and its plain
    version at the pixel shape, and ``F.scaled_dot_product_attention`` as
    the library's yardstick (timed only; the port never calls it).  Then
    the ragged-edge phase: the bf16 instances of both forwards (wgmma with
-   TMA, in column chunks past 256 columns), with and without lse, on
-   contiguous inputs and on the model's
-   strided views, and of the tiled dq and dk/dv kernels (wgmma with TMA
-   up to 512 columns, mma.sync column chunks past them), on contiguous
+   TMA, in column chunks past 256 columns, streamed past 512), with and
+   without lse, on contiguous inputs and on the model's
+   strided views, and of the tiled dq and dk/dv kernels (wgmma with TMA,
+   streamed past 512 columns), on contiguous
    inputs and on the model's views, against their plain versions at (2,
    3, T, D) for 13 T from 1 to 129 and D in 16, 24, 32, 64, 128, 129,
-   136, 192, 256, 384.  Then each bf16
+   136, 192, 256, 384, 520, 704.  Then each bf16
    forward against its library call (SDPA, or the flash forward with lse)
    on the model's views, in turns, at (128, 12, 65, 32) (device time),
    (128, 12, 1025, 32), (128, 8, 512, D) and (16, 2, 2048, D) for D = 128,
    192, 256, each beside its bound, and the host microseconds a forward
    call costs; past 256 columns both forwards at (128, 8, 512, D) for D =
-   320, 384, 512 (the wgmma column chunks) and at (16, 2, 1024, 520) (the
-   mma.sync column chunks), each held against its plain version first,
-   against SDPA in turns, beside its bound.  Then times the whole-head
+   320, 384, 512 (the wgmma column chunks) and at (16, 2, 1024, 520) and
+   (128, 8, 512, 640) (the streamed instance), each held against its
+   plain version first, against SDPA in turns, beside its bound.  Then times the whole-head
    forwards and the fused Function against their tiled counterparts at
    (128, 12, T, 32) bf16 for T = 65,
    257 and 685, and the tiled kernels beside the library's calls at
    (128, 8, 512, D) and (16, 2, 2048, D) for D = 128, 192, 256.  Last the
    backward pair on the model's views against
    ``aten._scaled_dot_product_flash_attention_backward`` in turns at the
-   pixel shape, the flagship's (device time) and those head dims, each
+   pixel shape, the flagship's (device time) and those head dims, and
+   past 512 columns ((16, 2, 1024, 520), (128, 8, 512, 640)), which the
+   library's flash backward does not take, against the backward of SDPA
+   on the backend it takes there (memory-efficient, else math), each
    beside its bound, with two calls of the pair equal bit for bit.
 5. Pixel serving phase: the same serving path for the README recipe model
    at ``patch=32`` (one pixel a token, T=1025, 6,620,170 params); each
@@ -268,6 +274,7 @@ from vit_cifar_torch.ops.cuda.attention import (
     fused_attention, fused_attention_lse, fused_attention_lse_reference,
     fused_attention_reference)
 from vit_cifar_torch.ops.cuda.build import build_libraries, library_path
+from vit_cifar_torch.ops.cuda.common import WIDEST_FORWARD
 from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention, flash_attention_lse, flash_attention_lse_reference,
     flash_attention_reference, flash_tiled_bwd_dkv,
@@ -354,13 +361,16 @@ PIXEL_PARAMS = 6_620_170
 PIXEL_SHAPE = (128, 12, 1025, 32)
 # the flash kernels' shapes: the pixel model's, the flagship's forced
 # through them, the JAX flash tests' tile-splitting shapes, a long sequence,
-# heads past 128 columns and, last, one past the backward's wgmma widths
-# (the mma.sync column chunks)
+# heads past 128 columns and, last, past the tables' widest rows (the
+# streamed instances: D % 64 == 8, D % 8 == 2, whole 64-column chunks,
+# and the head of the timing cell past 512)
 FLASH_SHAPES = [PIXEL_SHAPE, (128, 12, 65, 32), (2, 3, 65, 32),
                 (1, 2, 130, 64), (2, 2, 257, 128), (1, 1, 8, 128),
                 (1, 2, 300, 32), (8, 1, 4096, 128), (2, 2, 300, 129),
                 (2, 2, 257, 136), (2, 2, 257, 192), (1, 2, 130, 256),
-                (1, 1, 200, 384), (1, 1, 130, 520)]
+                (1, 1, 200, 384), (1, 1, 130, 520), (2, 2, 130, 522),
+                (1, 2, 257, 640), (2, 1, 200, 704), (1, 1, 129, 1040),
+                (16, 2, 1024, 520)]
 PIXEL_STEPS = 20
 PIXEL_STEP_BATCH = 8  # the einsum path's (B, H, T, T) tensors bound it
 PIXEL_REQUESTS = (1, 32)
@@ -488,7 +498,7 @@ LGCNN_BN_WITNESS_SHARE = 0.1
 # of 16, for the bf16 (tensor-core) instances of the two forwards and of
 # the tiled backward pair
 RAGGED_T = (1, 7, 8, 15, 16, 17, 63, 64, 65, 66, 127, 128, 129)
-RAGGED_D = (16, 24, 32, 64, 128, 129, 136, 192, 256, 384)
+RAGGED_D = (16, 24, 32, 64, 128, 129, 136, 192, 256, 384, 520, 704)
 RAGGED_BH = (2, 3)
 # the ragged-edge phase holds the backward pair to the flash "bwd" limit,
 # but no tighter than this floor per 128 columns: at T=1 the softmax over one
@@ -528,12 +538,21 @@ def ragged_bwd_floor(D: int) -> float:
     return RAGGED_BWD_ATOL_FLOOR * max(1.0, D / 128)
 # how each kernel row's bf16 instance computes (every f32 instance runs on
 # the CUDA cores: the tensor cores would need TF32)
-DESIGN = {"mhsa_fwd": "wgmma+TMA; column chunks at 257-512 columns",
-          "mhsa_fwd_lse": "wgmma+TMA; column chunks at 257-512 columns",
-          "flash_fwd": "wgmma+TMA; column chunks at 257-512 columns",
-          "flash_fwd_lse": "wgmma+TMA; column chunks at 257-512 columns",
-          "flash_bwd_dq_tiled": "wgmma+TMA (PR 16)",
-          "flash_bwd_dkv_tiled": "wgmma+TMA (PR 16)"}
+FWD_DESIGN = ("wgmma+TMA; column chunks at 257-512 columns; past 512 the "
+              "streamed instance (sum over D in 64-column chunks, PR 18)")
+BWD_DESIGN = ("wgmma+TMA (PR 16); past 512 columns the streamed instance "
+              "(sums over D in 64-column chunks, PR 18)")
+DESIGN = {"mhsa_fwd": FWD_DESIGN, "mhsa_fwd_lse": FWD_DESIGN,
+          "flash_fwd": FWD_DESIGN, "flash_fwd_lse": FWD_DESIGN,
+          "flash_bwd_dq_tiled": BWD_DESIGN,
+          "flash_bwd_dkv_tiled": BWD_DESIGN}
+# each row's kernels among its library's instances (ptxas' names)
+INSTANCE_KINDS = {"mhsa_fwd": ("fwd_kernel", "fwd_stream_kernel"),
+                  "mhsa_fwd_lse": ("fwd_kernel", "fwd_stream_kernel"),
+                  "flash_fwd": ("fwd_kernel", "fwd_stream_kernel"),
+                  "flash_fwd_lse": ("fwd_kernel", "fwd_stream_kernel"),
+                  "flash_bwd_dq_tiled": ("dq_kernel", "dq_stream_kernel"),
+                  "flash_bwd_dkv_tiled": ("dkv_kernel", "dkv_stream_kernel")}
 # each forward row's main shape, whose wgmma instance's ptxas report the
 # row carries
 FORWARD_MAIN_SHAPE = {"mhsa_fwd": (128, 12, 65, 32),
@@ -541,33 +560,39 @@ FORWARD_MAIN_SHAPE = {"mhsa_fwd": (128, 12, 65, 32),
                       "flash_fwd": PIXEL_SHAPE, "flash_fwd_lse": PIXEL_SHAPE}
 # the backward pair's rows: the pixel shape's instances (backward_plan)
 BACKWARD_ROWS = ("flash_bwd_dq_tiled", "flash_bwd_dkv_tiled")
+# past the tables' widest rows (512 columns), where the streamed instances
+# run: a long head of few heads and the (128, 8, 512, D) cell
+STREAMED_TIMING_SHAPES = ((16, 2, 1024, 520), (128, 8, 512, 640))
 # the backward pair against the library's backward, in turns on the
 # model's views: the pixel ViT's shape, the flagship's (device time) and
 # head dims 128, 192 and 256 (past 128 the wgmma column chunks); and past
-# 512 columns, where the mma.sync column-chunk kernels run and the
-# library's flash backward takes no head, the pair alone
+# 512 columns, where the library's flash backward takes no head, against
+# the backward of SDPA on the backend it takes there
 BACKWARD_TIMING_SHAPES = [PIXEL_SHAPE, (128, 12, 65, 32), *HEAD_DIM_SHAPES,
-                          (16, 2, 1024, 520)]
+                          *STREAMED_TIMING_SHAPES]
 LIBRARY_WIDEST = 256  # the library's flash attention takes no wider head
 # each forward against its library call, in turns: the flagship's and the
 # pixel ViT's shapes, and head dims 128, 192 and 256 (HEAD_DIM_SHAPES)
 FORWARD_TIMING_SHAPES = [(128, 12, 65, 32), PIXEL_SHAPE, *HEAD_DIM_SHAPES]
 # the bf16 forwards past 256 columns, the wgmma kernel's column chunks up
-# to 512 columns (before them the mma.sync column-chunk kernel read
-# 13.75 ms at the first shape): their cost against SDPA; and past 512,
-# where the mma.sync column-chunk kernel still runs, one shape
+# to 512 columns (before them a column-chunk kernel on the warp-level mma
+# read 13.75 ms at the first shape): their cost against SDPA; past 512
+# the streamed instance at STREAMED_TIMING_SHAPES
 CHUNK_TIMING_SHAPES = ((128, 8, 512, 320), (128, 8, 512, 384),
                        (128, 8, 512, 512))
-MMA_TIMING_SHAPE = (16, 2, 1024, 520)
+# SDPA's backends past the library's flash attention, the first that takes
+# the head timed: memory-efficient attention, else the math path
+SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "MATH")
 # the batch of the chunked forwards' check against their plain version
 # at each of CHUNK_TIMING_SHAPES' heads
 CHUNK_CHECK_BATCH = 4
 # a fully masked first key tile (the last one: tiles are taken last to
 # first), with finite keys before it, at the 128-, 96-, 64- and 32-key
-# tiles of head dims 32, 64, 192 and 256, and in column chunks at the 64-
-# and 16-key tiles of head dims 320 and 512
+# tiles of head dims 32, 64, 192 and 256, in column chunks at the 64- and
+# 16-key tiles of head dims 320 and 512, and streamed at 704
 MASKED_TILE_SHAPES = ((2, 2, 256, 32), (2, 2, 193, 64), (2, 2, 300, 192),
-                      (2, 2, 300, 256), (2, 2, 300, 320), (2, 2, 200, 512))
+                      (2, 2, 300, 256), (2, 2, 300, 320), (2, 2, 200, 512),
+                      (2, 2, 300, 704))
 # calls a window of the host's cost of one forward call
 HOST_CALLS = 200
 # ptxas's note that it serialised a kernel's wgmmas (C7510-C7520): the
@@ -581,7 +606,8 @@ STEP_KERNELS = {}  # path -> kernels a step (torch.profiler)
 # forwards' first, CUDA-core designs' from their own chip runs (PERF.md;
 # they matched the plain version's rounding exactly at T=65 and were one
 # bf16 step off at T=1025), printed beside the wgmma forwards'; the tiled
-# backward pair's mma.sync design's from the flash phase (the pixel shape)
+# backward pair's warp-level mma design's from the flash phase (the pixel
+# shape)
 # and, in EARLIER_PAIR_AT_65, the training kernel phase (the flagship's
 # shape, the fused Function's backward) of the commit before the pair's
 # wgmma redesign, on the same inputs (each phase's own seed) on an H100:
@@ -674,6 +700,9 @@ def forward_ptxas(name: str, shape=None) -> str:
     lib = SOURCES[name]
     T, D = (shape or FORWARD_MAIN_SHAPE[name])[2:]
     plan = forward_plan(lib, T, D)
+    if plan["grid"] == "streamed":
+        instance = f"fwd_stream_kernel<{plan['rows']['k']},{plan['cols']}>"
+        return f"{instance}: {PTXAS[lib][instance]}"
     head = f"fwd_kernel<{plan['width']},{plan['rows']['k']},"
     tail = f",{int(plan['pingpong'])},{plan['cols']}>"
     (instance,) = [i for i in PTXAS[lib]
@@ -692,6 +721,13 @@ def backward_ptxas(name: str) -> str:
     instance = (f"{kind}_kernel<{plan['width']},{plan[kind]['tile']},"
                 f"{plan[kind]['cols']}>")
     return f"{instance}: {PTXAS[SOURCES[name]][instance]}"
+
+
+def row_instances(name: str) -> list[str]:
+    """ptxas's report of every bf16 instance of kernel row ``name`` that
+    its library holds (the table's rows, the streamed one included)."""
+    return [f"{i}: {r}" for i, r in PTXAS[SOURCES[name]].items()
+            if i.split("<")[0] in INSTANCE_KINDS[name]]
 
 
 def in_turns(fns: dict, rounds: int = 3, iters: int = 100) -> dict:
@@ -1404,6 +1440,23 @@ def flash_kernel_phase(card: str) -> list[dict]:
                   f" {tol['grad'][0]['rtol']})")
             if shape == PIXEL_SHAPE and dtype == torch.bfloat16:
                 errs = e
+            # the whole-head forward's both variants on the streamed
+            # instance (bf16; its f32 instance is the CUDA cores' design)
+            if D > WIDEST_FORWARD and dtype == torch.bfloat16:
+                want_out, want_lse = fused_attention_lse_reference(q, k, v,
+                                                                   scale)
+                got = (fused_attention(q, k, v, scale),
+                       *fused_attention_lse(q, k, v, scale))
+                torch.cuda.synchronize()
+                for a, w in zip(got, (want_out, want_out, want_lse)):
+                    torch.testing.assert_close(
+                        a, w, **(KERNEL_TOL[torch.float32]
+                                 if w.dtype == torch.float32
+                                 else flash_tol("fwd", dtype, w)))
+                print(f"  mhsa_fwd, mhsa_fwd_lse {shape} {str(dtype)[6:]}: "
+                      "max_abs_err "
+                      f"{_max_err(got[:1], (want_out,)):.3e}, "
+                      f"{_max_err(got[1:], (want_out, want_lse)):.3e}")
             del q, k, v, g, inference, out, lse, want_out, want_lse, args, \
                 dq, dk, dv, want, fn_grads, tol
         torch.cuda.empty_cache()
@@ -1472,12 +1525,12 @@ def print_against_earlier(name: str, err: float,
     design's (``EARLIER_MAX_ABS_ERR``); the backward pair's must be no
     worse."""
     was = ("the CUDA-core design's, PERF.md" if name not in BACKWARD_ROWS
-           else "the mma.sync design's on the same inputs")
+           else "the warp-level mma design's on the same inputs")
     print(f"{name} bf16 at {shape or 'its main shape'}: max_abs_err "
           f"{err:.3e} ({DESIGN[name]}) against {earlier[name]:.3e} ({was})")
     if name in BACKWARD_ROWS and err > earlier[name]:
         raise AssertionError(f"{name}: max_abs_err {err:.3e} is worse than "
-                             f"the mma.sync design's {earlier[name]:.3e}")
+                             f"the earlier design's {earlier[name]:.3e}")
 
 
 def ragged_edge_phase() -> None:
@@ -1626,8 +1679,7 @@ def forward_timing_phase(card: str) -> None:
     (``CHUNK_TIMING_SHAPES``) the wgmma forwards' column chunks, each held
     first against its plain version at ``CHUNK_CHECK_BATCH``, against SDPA
     with the bound and the instance's ptxas report beside them; past 512
-    (``MMA_TIMING_SHAPE``) the mma.sync column-chunk forward the same
-    way."""
+    (``STREAMED_TIMING_SHAPES``) the streamed instance the same way."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     aten = torch.ops.aten
     for shape in FORWARD_TIMING_SHAPES:
@@ -1668,10 +1720,10 @@ def forward_timing_phase(card: str) -> None:
 
     # past 256 columns: the wgmma kernel's column chunks of o (two a query
     # tile at 320-512 columns, each computing the softmax); past 512 the
-    # mma.sync column-chunk kernel (a block each 128-column chunk)
+    # streamed instance (s summed over 64-column chunks of q and K)
     from vit_cifar_torch.ops.cuda.common import forward_plan
 
-    for shape in (*CHUNK_TIMING_SHAPES, MMA_TIMING_SHAPE):
+    for shape in (*CHUNK_TIMING_SHAPES, *STREAMED_TIMING_SHAPES):
         B, H, T, D = shape
         scale = 1.0 / math.sqrt(H * D)
         small = model_views((CHUNK_CHECK_BATCH, H, T, D), gen)
@@ -1691,9 +1743,8 @@ def forward_timing_phase(card: str) -> None:
                                        **KERNEL_TOL[torch.float32])
             err = (out.float() - want_out.float()).abs().max().item()
             plan = forward_plan(name, T, D)
-            design = (f"wgmma column chunks, {plan['chunks']} of "
-                      f"{plan['cols']} columns, {forward_ptxas(name, shape)}"
-                      if plan else "column chunks, mma.sync")
+            design = (f"wgmma {plan['grid']}, {plan['chunks']} chunks of "
+                      f"{plan['cols']} columns, {forward_ptxas(name, shape)}")
             ms = in_turns({"kernel": lambda: fwd(q, k, v, scale),
                            "library": lambda: F.scaled_dot_product_attention(
                                q, k, v, scale=scale)}, rounds=2, iters=10)
@@ -1705,6 +1756,9 @@ def forward_timing_phase(card: str) -> None:
                   f"{b['bound_ms']:.4f} ms by {b['bound_by']}; with lse at "
                   f"B={CHUNK_CHECK_BATCH} max_abs_err {err:.3e} against the "
                   f"plain version ({card})")
+        print(f"SDPA {shape} bf16 runs (its backend, torch.profiler): "
+              + device_ms(lambda: F.scaled_dot_product_attention(
+                  q, k, v, scale=scale), n=3)[1])
         del q, k, v, small
         torch.cuda.empty_cache()
 
@@ -1833,8 +1887,11 @@ def backward_timing_phase(card: str) -> None:
     and the library in turns (pair, library, library, pair) by CUDA events,
     and by device time (torch.profiler) at T=65, where an event window
     follows the host; each pass, and the pair, beside its bound; past
-    ``LIBRARY_WIDEST`` columns the pair alone.  Two calls of the pair must
-    give equal bits (no atomics: every output is summed in one order)."""
+    ``LIBRARY_WIDEST`` columns, which the library's flash backward does not
+    take, against the backward of SDPA on the same views on the first of
+    ``SDPA_BACKENDS`` that takes the head (``sdpa_backward``), its backend
+    named.  Two calls of the pair must give equal bits (no atomics: every
+    output is summed in one order)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     aten = torch.ops.aten
     for shape in BACKWARD_TIMING_SHAPES:
@@ -1849,6 +1906,7 @@ def backward_timing_phase(card: str) -> None:
                   "flash_bwd_dkv_tiled": lambda: flash_tiled_bwd_dkv(*args)}
         fns = {"pair": lambda: (flash_tiled_bwd_dq(*args),
                                 *flash_tiled_bwd_dkv(*args))}
+        backend = "flash"
         if D <= LIBRARY_WIDEST:
             o, l, cq, ck, mq, mk, seed, offset, _ = \
                 aten._scaled_dot_product_flash_attention(q, k, v,
@@ -1857,6 +1915,8 @@ def backward_timing_phase(card: str) -> None:
             fns["library"] = lambda: library(
                 g.transpose(1, 2), q, k, v, o, l, cq, ck, mq, mk, 0.0, False,
                 seed, offset, scale=scale)
+        else:
+            backend, fns["library"] = sdpa_backward(q, k, v, g, scale)
         first, second = fns["pair"](), fns["pair"]()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
@@ -1870,8 +1930,7 @@ def backward_timing_phase(card: str) -> None:
         else:  # windows of about 20 ms of the pair
             iters = max(3, min(30, round(20 / cuda_ms(fns["pair"], 1, 1))))
             ms = {**in_turns(passes, rounds=2, iters=iters),
-                  **(in_turns(fns, rounds=2, iters=iters) if len(fns) == 2
-                     else {"pair": cuda_ms(fns["pair"], iters, 1)})}
+                  **in_turns(fns, rounds=2, iters=iters)}
             how = f"median of 4 event windows of {iters}"
         bounds = {n: bound(n, shape) for n in passes}
         for name in passes:
@@ -1880,13 +1939,12 @@ def backward_timing_phase(card: str) -> None:
                   f"{ms_text(ms[name])} ({how}); bound {b['bound_ms']:.4f} "
                   f"ms by {b['bound_by']} ({card})")
         pair_bound = sum(b["bound_ms"] for b in bounds.values())
-        if "library" not in fns:
-            library_text = "no library backward at this width"
-        elif None in (ms["pair"], ms["library"]):
-            library_text = (f"library backward {ms_text(ms['library'])} "
-                            "(ratio not measured)")
+        if None in (ms["pair"], ms["library"]):
+            library_text = (f"library backward ({backend}) "
+                            f"{ms_text(ms['library'])} (ratio not measured)")
         else:
-            library_text = (f"library backward {ms_text(ms['library'])} "
+            library_text = (f"library backward ({backend}) "
+                            f"{ms_text(ms['library'])} "
                             f"({ms['pair'] / ms['library']:.3f}x the "
                             "library)")
         print(f"backward pair {shape} bf16 on the model's views: "
@@ -1894,6 +1952,36 @@ def backward_timing_phase(card: str) -> None:
               f"{pair_bound:.4f} ms; two calls equal bit for bit ({card})")
         del q, k, v, out, lse, g, args, passes, fns
         torch.cuda.empty_cache()
+
+
+def sdpa_backward(q, k, v, g, scale: float):
+    """(backend, a call) for the backward of SDPA on the (B, H, T, D) views
+    q, k, v with the (B, T, H, D) cotangent g: the first of
+    ``SDPA_BACKENDS`` that takes the head, through
+    ``torch.nn.attention.sdpa_kernel``; the call runs only the backward
+    (the forward's graph is kept), dq, dk and dv as the pair computes
+    them.  Timed here, called nowhere in the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    cot = g.transpose(1, 2)
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name)
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(*leaves, scale=scale)
+                torch.autograd.grad(out, leaves, cot, retain_graph=True)
+        except RuntimeError as err:
+            print(f"SDPA backend {name} does not take {tuple(q.shape)}: "
+                  f"{str(err).splitlines()[0][:120]}")
+            continue
+
+        def call(out=out, backend=backend):
+            with sdpa_kernel(backend):
+                return torch.autograd.grad(out, leaves, cot,
+                                           retain_graph=True)
+        return name, call
+    raise AssertionError(f"no SDPA backend takes {tuple(q.shape)}")
 
 
 def wide_head_phase(card: str) -> dict:
@@ -3727,6 +3815,7 @@ def main() -> None:
             row["ptxas"] = forward_ptxas(row["name"])
         elif row["name"] in BACKWARD_ROWS:
             row["ptxas"] = backward_ptxas(row["name"])
+        row["instances"] = row_instances(row["name"])
     ragged_edge_phase()
     forward_timing_phase(card)
     tiled_vs_whole_head(card)

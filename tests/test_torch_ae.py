@@ -32,6 +32,7 @@ from vit_cifar_torch.utils.transplant import (flax_from_state_dict,
                                               state_dict_from_flax)
 from vit_cifar_tpu.ops import ae_attention as jae
 from vit_cifar_tpu.ops import autoencoders as jautoenc
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 B, T, FEAT, FFN, HEADS = 4, 17, 32, 64, 4  # patch=4 gives T=17

@@ -47,6 +47,7 @@ from vit_cifar_tpu.train import losses as jlosses
 from vit_cifar_tpu.train.loop import init_state as jax_init_state
 from vit_cifar_tpu.train.optim import make_optimizer as jax_make_optimizer
 from vit_cifar_tpu.train.steps import make_train_step as jax_make_train_step
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 ADAM_PARAM_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -49,6 +49,7 @@ from vit_cifar_tpu.analysis.graph_render import module_rows as jax_rows
 from vit_cifar_tpu.config import Config
 from vit_cifar_tpu.models import get_model
 from vit_cifar_tpu.train import checkpoint as jcheckpoint
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(model_name="vit", num_layers=2, hidden=48, mlp_hidden=48,
              head=4, batch_size=16, eval_batch_size=8, precision="32",

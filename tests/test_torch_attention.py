@@ -27,6 +27,7 @@ from vit_cifar_tpu.ops.attention import \
     MultiHeadSelfAttention as JaxMultiHeadSelfAttention
 from vit_cifar_tpu.ops.pallas.attention import \
     fused_attention as jax_fused_attention
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 # the JAX kernel tests' ragged shapes, plus the model's 12 heads at T=65
 SHAPES = [(2, 4, 9, 16), (2, 3, 65, 32), (1, 2, 130, 64), (2, 2, 96, 128),
@@ -217,10 +218,16 @@ def test_tma_plan_copies_a_d_stride_other_than_1_and_passes_wide_heads():
     qt = q.transpose(-1, -2).contiguous().transpose(-1, -2)  # d stride T
     assert tma_plan("flash_fwd", qt, k, v)["copies"] == ["q"]
     assert padded_copy(qt).stride(-1) == 1
+    # past the table's widest row the streamed instance reads the views
+    # through tensor maps too, 64-column boxes of q, K and V
+    from vit_cifar_torch.ops.cuda.common import streamed_row
+
     wide = _projection_views(B=1, T=9, H=1, D=520)
     plan = tma_plan("mhsa_fwd", *wide)
-    assert plan["plan"] is None and plan["maps"] == {}
-    assert plan["copies"] == []
+    assert plan["plan"]["grid"] == "streamed" and plan["copies"] == []
+    keys = streamed_row(520)[0]
+    assert [plan["maps"][key]["box"] for key in "qkv"] == [
+        (64, 1, 128, 1), (64, 1, keys, 1), (64, 1, -(-keys // 16) * 16, 1)]
     chunked = tma_plan("mhsa_fwd", *_projection_views(B=1, T=9, H=1, D=384))
     assert chunked["plan"]["chunks"] == 2 and chunked["copies"] == []
     assert chunked["maps"]["v"]["box"] == (64, 1, 32, 1)

@@ -34,6 +34,7 @@ from vit_cifar_torch.data import augment as taug
 from vit_cifar_torch.data import autoaugment as ta
 from vit_cifar_tpu.data import augment as jaug
 from vit_cifar_tpu.data import autoaugment as ja
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 GEOMETRIC = ("shearX", "shearY", "rotate")
 # share of a batch's values that may differ where a geometric op ran

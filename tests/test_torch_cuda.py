@@ -25,6 +25,7 @@ to T=1025).
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -339,9 +340,11 @@ def test_bf16_flash_backward_matches_plain_versions_at_ragged_edges(cuda, T):
 # 128 keys and of the tiled grid's 32- to 128-key tiles and 128-row query
 # tiles), and D below 128, past it up to 256 (one pass), D % 8 != 0 (the
 # padded copy), past 256 up to 512 (two column chunks of o, the last
-# ragged at 320 and 456) and past 512 (the mma.sync column-chunk kernel)
+# ragged at 320 and 456) and past 512 (the streamed instance: D % 64 == 8,
+# D % 8 == 2, whole chunks of the sum at 640 and 704, and 1040)
 WGMMA_T = (1, 9, 65, 72, 73, 97, 129, 257, 1025)
-WGMMA_D = (8, 32, 64, 100, 128, 192, 256, 320, 384, 456, 512, 520)
+WGMMA_D = (8, 32, 64, 100, 128, 192, 256, 320, 384, 456, 512, 520, 522, 640,
+           704, 1040)
 FORWARDS = {"mhsa": (fused_attention, fused_attention_lse,
                      fused_attention_lse_reference),
             "flash": (flash_attention, flash_attention_lse,
@@ -407,7 +410,7 @@ def test_bf16_forwards_read_the_views_in_place(cuda, kernel, monkeypatch):
 @pytest.mark.parametrize("kernel", ["mhsa", "flash"])
 @pytest.mark.parametrize("T,D", [(256, 32), (200, 32), (193, 64), (300, 128),
                                  (300, 192), (300, 256), (300, 320),
-                                 (200, 512), (65, 32)])
+                                 (200, 512), (300, 704), (65, 32)])
 def test_bf16_forwards_guard_a_fully_masked_key_tile(cuda, T, D, kernel):
     """The key tile the kernel takes first (the last one: tiles are taken
     last to first) has logits that all overflow to -inf (every q.k there
@@ -458,25 +461,64 @@ def _kernel_names(fn) -> set:
     raise AssertionError("the profiler recorded no kernel of the card")
 
 
+# every bf16 width: the one-pass rows, the column chunks of o and the
+# streamed instance past 512 columns
+INSTANCE_D = (32, 64, 128, 192, 256, 320, 384, 456, 512, 520, 640, 1040)
+
+
 @pytest.mark.parametrize("kernel", ["mhsa", "flash"])
-def test_bf16_forwards_run_mma_sync_only_past_512_columns(cuda, kernel):
-    """Up to 512 columns both bf16 forwards, with and without lse, run the
-    wgmma kernel in column chunks and launch no ``fwd_chunk_mma_kernel``
-    (the mma.sync column-chunk forward); past 512 they launch it."""
+def test_bf16_forwards_launch_a_wgmma_instance_at_every_width(cuda, kernel):
+    """At every bf16 width both forwards, with and without lse, count one
+    launch a call (the wrappers' counters), and the card runs one wgmma
+    instance of the forward and no other kernel: ``fwd_kernel`` up to 512
+    columns, ``fwd_stream_kernel`` past them (the forward plan's
+    "streamed" grid)."""
+    from vit_cifar_torch.ops.cuda.common import forward_plan
+
     fwd, fwd_lse, _ = FORWARDS[kernel]
-    for D in (320, 384, 456, 512, 520):
+    for D in INSTANCE_D:
         q, k, v = _model_views((2, 3, 257, D), seed=D)
+        counts = (fwd.launches, fwd_lse.launches)
+        fwd(q, k, v, 0.1)
+        fwd_lse(q, k, v, 0.1)
+        torch.cuda.synchronize()
+        assert (fwd.launches - counts[0], fwd_lse.launches - counts[1]) \
+            == (1, 1), (D, fwd.launches, fwd_lse.launches)
         names = _kernel_names(lambda: (fwd(q, k, v, 0.1),
                                        fwd_lse(q, k, v, 0.1)))
-        mma = [n for n in names if "fwd_chunk_mma_kernel" in n]
-        assert bool(mma) == (D > 512), (D, sorted(names))
+        want = ("fwd_stream_kernel"
+                if forward_plan(f"{kernel}_fwd", 257, D)["grid"] == "streamed"
+                else "fwd_kernel")
+        got = {m.group(0) for n in names
+               if (m := re.search(r"fwd_(?:stream_)?kernel", n))}
+        assert got == {want} and len(names) == len(
+            [n for n in names if want in n]), (D, sorted(names))
 
 
-# the bf16 backward pair: wgmma up to 512 columns (csrc/wgmma_backward.cuh,
-# tiles in csrc/backward_tiles.cuh; column chunks past 128), the mma.sync
-# column chunks past 512
+@pytest.mark.parametrize("D", (32, 128, 256, 512, 520, 704, 1040))
+def test_bf16_backward_pair_launches_a_wgmma_instance_at_every_width(cuda,
+                                                                      D):
+    """At every bf16 width the pair counts one launch of each pass (the
+    wrappers' counters) and its plan names the wgmma instances that run:
+    ``dq_kernel`` and ``dkv_kernel`` (after the rows pass) up to 512
+    columns, ``dq_stream_kernel`` and ``dkv_stream_kernel`` past them, both
+    passes' with the same sums over D streamed or not."""
+    from vit_cifar_torch.ops.cuda.common import backward_plan
+
+    args = _views_and_cotangent((2, 3, 257, D), seed=D)
+    counts = (flash_tiled_bwd_dq.launches, flash_tiled_bwd_dkv.launches)
+    _check_pair(_pair(args), _plain_pair(args), D, f"D={D}")
+    assert (flash_tiled_bwd_dq.launches - counts[0],
+            flash_tiled_bwd_dkv.launches - counts[1]) == (1, 1), D
+    plan = backward_plan(257, D)
+    assert plan["dq"]["streamed"] == plan["dkv"]["streamed"] == (D > 512)
+
+
+# the bf16 backward pair: wgmma (csrc/wgmma_backward.cuh, tiles in
+# csrc/backward_tiles.cuh; column chunks past 128, the streamed instances
+# past 512)
 BACKWARD_D = (8, 16, 24, 32, 64, 100, 128, 136, 192, 256, 320, 384, 456,
-              520)
+              520, 522, 640, 704, 1040)
 
 
 def _pair(args):
@@ -516,8 +558,8 @@ def _views_and_cotangent(shape, seed):
 def test_bf16_backward_pair_on_the_models_views(cuda, T):
     """The bf16 pair on the model's views (q, k, v transposed (B, T, H, D)
     projections, o and do as the forward returns them) at odd and ragged T
-    and head widths to 520 (D % 8 != 0 included; every width of the table
-    and the mma.sync chunks past it): dq, dk and dv against the plain
+    and head widths to 1040 (D % 8 != 0 included; every width of the table
+    and the streamed instances past it): dq, dk and dv against the plain
     passes, written in q's, k's and v's strides, and two calls equal bit
     for bit."""
     for D in BACKWARD_D:
@@ -544,7 +586,7 @@ def test_bf16_backward_pair_at_ragged_edges_on_the_models_views(cuda, T):
 
 
 @pytest.mark.parametrize("T,D", [(256, 32), (200, 32), (193, 64),
-                                 (300, 128), (65, 32)])
+                                 (300, 128), (300, 640), (65, 32)])
 def test_bf16_backward_pair_guards_a_fully_masked_key_tile(cuda, T, D):
     """The dq kernel takes its key tiles last to first; where every logit
     of the first tile it takes is -inf in f32 (q = 1e20, k = -1e20 there)

@@ -34,6 +34,7 @@ from vit_cifar_tpu.train.checkpoint import \
     save_checkpoint as jax_save_checkpoint
 from vit_cifar_tpu.train.loop import init_state
 from vit_cifar_tpu.train.optim import make_optimizer
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

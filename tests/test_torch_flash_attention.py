@@ -18,17 +18,18 @@ T).
 (``csrc/wgmma_attention.cuh``): the key tile of each forward's dispatch
 (the whole head as one tile of N = round_up(T, 8) in the whole-head grid,
 tiles of 128 to 32 keys, last to first, in the tiled one; past 256
-columns, up to 512, each chunk of o a work item of its own), the exponent
-as one FFMA, and the hi/lo p.v.  ``mma_forward_model`` models the mma.sync
-column-chunk forward that heads past 512 columns run
-(``csrc/fwd_bf16_chunk.cuh``), and ``wgmma_backward_model`` the tiled
-backward pair (``csrc/wgmma_backward.cuh`` up to 128 columns, with the
-tiles of ``csrc/backward_tiles.cuh``; past them the mma.sync column-chunk
-kernels of ``csrc/mma_attention.cuh``).  No CPU can run the kernels;
-the models are held against JAX's kernels in bf16 and against the plain
-versions at ragged T: lse within 1e-5, outputs and grads within one bf16
-step, and before their rounding within 1e-5 of the largest value of the
-f32 plain versions.
+columns each chunk of o a work item of its own; past 512 the streamed
+instance, s summed over 64-column chunks of q and K), the exponent as one
+FFMA, and the hi/lo p.v.  ``wgmma_backward_model`` models the tiled
+backward pair (``csrc/wgmma_backward.cuh``, with the tiles of
+``csrc/backward_tiles.cuh``; past 512 columns the streamed instances, s
+and dp summed over 64-column chunks).  Either model takes the streamed
+shape at any width on request, so that it is held against JAX where
+JAX's interpret mode is cheap.  No CPU can run the kernels; the models
+are held against JAX's kernels in bf16 and against the plain versions at
+ragged T: lse within 1e-5, outputs and grads within one bf16 step, and
+before their rounding within 1e-5 of the largest value of the f32 plain
+versions.
 """
 
 import jax
@@ -44,9 +45,10 @@ from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.ops.cuda.attention import (
     F32_CHUNK_SMEM_BYTES, fused_attention_lse_reference,
     fused_attention_reference, whole_head_fits, whole_head_smem_bytes)
-from vit_cifar_torch.ops.cuda.common import (COL_CHUNK, MAX_SMEM_BYTES,
-                                            WIDEST_FORWARD, WIDEST_ONE_PASS,
-                                            backward_plan, forward_plan)
+from vit_cifar_torch.ops.cuda.common import (
+    BWD_STREAMED, COL_CHUNK, MAX_SMEM_BYTES, STREAM_COLS, STREAMED,
+    WIDEST_BACKWARD, WIDEST_FORWARD, WIDEST_ONE_PASS, backward_plan,
+    forward_plan, streamed_row)
 from vit_cifar_torch.ops.cuda.flash_attention import (
     FlashAttentionFunction, flash_attention, flash_attention_lse,
     flash_attention_lse_reference, flash_attention_reference,
@@ -63,6 +65,7 @@ from vit_cifar_tpu.ops.pallas.attention import \
     fused_attention as jax_fused_attention
 from vit_cifar_tpu.ops.pallas.attention import \
     flash_attention as jax_flash_attention
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 # (B, H, T, D, block_q, block_kv): tests/test_pallas_attention.py's cases,
 # then the pixel-token ViT's sequence at the default blocks
@@ -183,10 +186,24 @@ def test_tiled_plain_versions_past_128_columns_match_jax(case, monkeypatch):
 
 
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
-MMA_CHUNK = 64  # keys per online-softmax step in csrc/mma_attention.cuh
 
 
-def wgmma_forward_model(q, k, v, scale: float, name: str):
+def _qk(q, k, streamed: bool):
+    """q.k^T of f32 (B, H, T, D) tensors; ``streamed``: summed over
+    64-column chunks in turn, as the streamed instances add each chunk's
+    product into s."""
+    if not streamed:
+        return torch.einsum("bhid,bhjd->bhij", q, k)
+    D = q.shape[-1]
+    s = 0
+    for c0 in range(0, D, STREAM_COLS):
+        s = s + torch.einsum("bhid,bhjd->bhij", q[..., c0:c0 + STREAM_COLS],
+                             k[..., c0:c0 + STREAM_COLS])
+    return s
+
+
+def wgmma_forward_model(q, k, v, scale: float, name: str,
+                        streamed: bool = False):
     """A torch model of the arithmetic of the bf16 wgmma forward
     (``csrc/wgmma_attention.cuh``) as forward ``name`` (``mhsa_fwd`` or
     ``flash_fwd``) dispatches it at q's (T, D): keys in tiles of the plan's
@@ -203,11 +220,17 @@ def wgmma_forward_model(q, k, v, scale: float, name: str):
     whole head up to 256 columns, one chunk; past it ``chunks`` of them,
     the last ragged) is a work item of its own: s over the whole head
     again, the same key tiles in the same order, p.v from the chunk's own
-    columns of v; lse is the first chunk's.  Returns (out (B, T, H, D)
-    bf16, lse (B, H, T) f32, and out before its rounding to bf16)."""
+    columns of v; lse is the first chunk's.  Past 512 columns (the
+    streamed grid), or at any width with ``streamed``, the key tile and
+    chunks of o of the ``STREAMED`` row the width takes, s summed over
+    64-column chunks.
+    Returns (out (B, T, H, D) bf16, lse (B, H, T) f32, and out before its
+    rounding to bf16)."""
     B, H, T, D = q.shape
     plan = forward_plan(name, T, D)
-    keys, cols = plan["rows"]["k"], plan["cols"]
+    streamed = streamed or plan["grid"] == "streamed"
+    keys, cols = (streamed_row(D) if streamed
+                  else (plan["rows"]["k"], plan["cols"]))
     qf, kf, vf = (a.to(torch.float32) for a in (q, k, v))
     c = float(np.float32(scale) * np.float32(LOG2E))
     out = torch.empty((B, H, T, D))
@@ -218,7 +241,7 @@ def wgmma_forward_model(q, k, v, scale: float, name: str):
         for k0 in reversed(range(0, T, keys)):  # last tile first
             kt = kf[:, :, k0:k0 + keys]
             vt = vf[:, :, k0:k0 + keys, c0:c0 + cols]
-            s = torch.einsum("bhid,bhjd->bhij", qf, kt)
+            s = _qk(qf, kt, streamed)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
             safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
             corr = torch.where(torch.isfinite(m), torch.exp2(m - safe_m),
@@ -236,38 +259,6 @@ def wgmma_forward_model(q, k, v, scale: float, name: str):
             lse = (m * LN2 + torch.log(l)).squeeze(-1)
     out = out.transpose(1, 2)
     return out.to(torch.bfloat16), lse, out
-
-
-def mma_forward_model(q, k, v, scale: float):
-    """A torch model of the arithmetic of the bf16 mma.sync forward, which
-    heads past 512 columns run (``csrc/fwd_bf16_chunk.cuh`` on
-    ``csrc/mma_attention.cuh``): s = q.k^T of bf16 values summed in f32,
-    scaled once by the f32 product scale*log2(e); the online softmax over
-    chunks of 64 keys with exp2 and the ``safe_m``/``corr`` guard; p split
-    into bf16 hi = rn(p) and lo = rn(p - hi), both multiplied into v; lse =
-    m*ln(2) + log(l).  Returns (out (B, T, H, D) bf16, lse (B, H, T) f32, and out
-    before its rounding to bf16)."""
-    B, H, T, D = q.shape
-    qf, kf, vf = (a.to(torch.float32) for a in (q, k, v))
-    c = float(np.float32(scale) * np.float32(LOG2E))
-    m = torch.full((B, H, T, 1), -torch.inf)
-    l = torch.zeros((B, H, T, 1))
-    acc = torch.zeros((B, H, T, D))
-    for k0 in range(0, T, MMA_CHUNK):
-        kt, vt = kf[:, :, k0:k0 + MMA_CHUNK], vf[:, :, k0:k0 + MMA_CHUNK]
-        s = torch.einsum("bhid,bhjd->bhij", qf, kt) * c
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        corr = torch.where(torch.isfinite(m), torch.exp2(m - safe_m), 0.0)
-        p = torch.exp2(s - safe_m)
-        l = l * corr + p.sum(dim=-1, keepdim=True)
-        hi = p.to(torch.bfloat16).to(torch.float32)
-        lo = (p - hi).to(torch.bfloat16).to(torch.float32)
-        acc = acc * corr + torch.einsum("bhij,bhjd->bhid", hi, vt) \
-            + torch.einsum("bhij,bhjd->bhid", lo, vt)
-        m = m_new
-    out = (acc / l).transpose(1, 2)
-    return out.to(torch.bfloat16), (m * LN2 + torch.log(l)).squeeze(-1), out
 
 
 def _bf16_inputs(B, H, T, D, seed):
@@ -293,8 +284,9 @@ def _assert_within_one_bf16_step(got, want, what):
 @pytest.mark.parametrize("path", ["flash", "fused"])
 def test_mma_forward_model_matches_jax_in_bf16(case, path):
     """The bf16 forwards' arithmetic, modelled in torch -- the wgmma
-    forward's as each forward tiles the case, and the mma.sync column-chunk
-    forward's -- against
+    forward's as each forward tiles the case, and the streamed instance's
+    (s summed over 64-column chunks, its key tile and chunks of o) at the
+    case's width -- against
     JAX's ``flash_attention`` (at the case's tile split) and
     ``fused_attention`` in interpret mode on the same bf16 inputs: lse
     within 1e-5, the bf16 output within one bf16 step, and the output
@@ -319,7 +311,8 @@ def test_mma_forward_model_matches_jax_in_bf16(case, path):
                                             for a in (q, k, v)), scale)[0]
     name = "flash_fwd" if path == "flash" else "mhsa_fwd"
     for model, (out, lse, unrounded) in (
-            ("mma", mma_forward_model(tq, tk, tv, scale)),
+            ("streamed", wgmma_forward_model(tq, tk, tv, scale, name,
+                                             streamed=True)),
             ("wgmma", wgmma_forward_model(tq, tk, tv, scale, name))):
         assert out.shape == (B, T, H, D) and lse.shape == (B, H, T)
         np.testing.assert_allclose(lse.numpy(), want_lse, rtol=1e-5,
@@ -333,10 +326,11 @@ def test_mma_forward_model_matches_jax_in_bf16(case, path):
 
 # (B, H, T, D, block_q, block_kv): heads past wgmma's widest N, at ragged T
 # -- the wgmma forward's column chunks up to 512 columns (two chunks of
-# 192 columns at 320 and 384, of 256 at 512), and the mma.sync forward
-# past them
+# 192 columns at 320 and 384, of 256 at 512), and the streamed instance
+# past them (D % 64 == 8, D % 8 == 2, and one chunk of the sum past 640)
 WIDE_CASES = [(1, 2, 77, 320, 1024, 512), (1, 1, 130, 384, 64, 128),
-              (1, 2, 65, 512, 1024, 512), (1, 1, 77, 520, 1024, 128)]
+              (1, 2, 65, 512, 1024, 512), (1, 1, 77, 520, 1024, 128),
+              (1, 2, 33, 522, 1024, 512), (1, 1, 97, 704, 64, 64)]
 
 
 @pytest.mark.parametrize("case", WIDE_CASES,
@@ -346,12 +340,12 @@ def test_chunked_forward_models_match_jax_in_bf16(case, path):
     """The bf16 forwards past 256 columns, modelled in torch as each forward
     dispatches the case -- the wgmma forward's column chunks (s over the
     whole head, each chunk of o from its own columns of v, the kernel's
-    key tiles last to first) up to 512 columns, the mma.sync column-chunk
-    forward past them -- against JAX's ``flash_attention`` (at the case's
-    tile split) and ``fused_attention`` in interpret mode on the same bf16
-    inputs: lse within 1e-5, the bf16 output within one bf16 step, and the
-    output before rounding within 1e-5 of max |out| of the plain f32
-    version's."""
+    key tiles last to first) up to 512 columns, the streamed instance (s
+    summed over 64-column chunks of q and K) past them -- against JAX's
+    ``flash_attention`` (at the case's tile split) and ``fused_attention``
+    in interpret mode on the same bf16 inputs: lse within 1e-5, the bf16
+    output within one bf16 step, and the output before rounding within
+    1e-5 of max |out| of the plain f32 version's."""
     B, H, T, D, bq, bk = case
     (q, k, v), (tq, tk, tv), scale = _bf16_inputs(B, H, T, D, seed=12)
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
@@ -367,12 +361,9 @@ def test_chunked_forward_models_match_jax_in_bf16(case, path):
 
     name = "flash_fwd" if path == "flash" else "mhsa_fwd"
     plan = forward_plan(name, T, D)
-    assert (plan is None) == (D > 512)
-    if plan is not None:
-        assert plan["chunks"] == 2 and plan["cols"] < D
-    out, lse, unrounded = (mma_forward_model(tq, tk, tv, scale)
-                           if plan is None else
-                           wgmma_forward_model(tq, tk, tv, scale, name))
+    assert (plan["grid"] == "streamed") == (D > 512)
+    assert plan["chunks"] == -(-D // plan["cols"]) >= 2
+    out, lse, unrounded = wgmma_forward_model(tq, tk, tv, scale, name)
     exact = flash_attention_lse_reference(*(torch.from_numpy(a)
                                             for a in (q, k, v)), scale)[0]
     assert out.shape == (B, T, H, D) and lse.shape == (B, H, T)
@@ -386,13 +377,15 @@ def test_chunked_forward_models_match_jax_in_bf16(case, path):
 @pytest.mark.parametrize("T", [1, 7, 8, 15, 16, 17, 63, 64, 65, 66, 127, 128,
                                129])
 def test_mma_forward_model_matches_the_plain_versions_at_ragged_edges(T):
-    """The chunks of 64 keys split a row at every T of the card's
-    ragged-edge phase; the model stays within one bf16 step and 1e-5 of
-    lse of the plain versions, at head dims that are and are not a
-    multiple of 16, and past 512 columns, where the kernel runs."""
+    """The streamed instance's key tiles and 64-column chunks of the sum
+    end at every T of the card's ragged-edge phase; its model (forced to
+    the streamed shape below 512 columns) stays within one bf16 step and
+    1e-5 of lse of the plain versions, at head dims that are and are not a
+    multiple of 16, and past 512 columns, where the instance runs."""
     for D in (16, 24, 32, 64, 128, 520):
         _, (tq, tk, tv), scale = _bf16_inputs(1, 2, T, D, seed=T + D)
-        out, lse, _ = mma_forward_model(tq, tk, tv, scale)
+        out, lse, _ = wgmma_forward_model(tq, tk, tv, scale, "flash_fwd",
+                                          streamed=True)
         for plain in (fused_attention_lse_reference,
                       flash_attention_lse_reference):
             want_out, want_lse = plain(tq, tk, tv, scale)
@@ -402,7 +395,8 @@ def test_mma_forward_model_matches_the_plain_versions_at_ragged_edges(T):
                                          f"{plain.__name__} T={T} D={D}")
 
 
-@pytest.mark.parametrize("D", [8, 32, 100, 128, 192, 256, 320, 456, 512])
+@pytest.mark.parametrize("D", [8, 32, 100, 128, 192, 256, 320, 456, 512,
+                               522, 704])
 @pytest.mark.parametrize("T", [1, 7, 64, 65, 127, 257])
 def test_wgmma_forward_model_matches_the_plain_versions(T, D):
     """The wgmma forward's key tiles end at every T here: the whole-head
@@ -410,13 +404,18 @@ def test_wgmma_forward_model_matches_the_plain_versions(T, D):
     128 keys, taken last to first; for both forwards the model
     stays within one bf16 step and 1e-5 of lse of both plain versions, at
     head dims that are and are not a multiple of 8 and 16, up to the widest
-    one-pass head, and past it in column chunks up to 512 columns (the
-    last chunk ragged at 320 and 456)."""
+    one-pass head, past it in column chunks up to 512 columns (the last
+    chunk ragged at 320 and 456), and past 512 streamed."""
     _, (tq, tk, tv), scale = _bf16_inputs(1, 2, T, D, seed=3 * T + D)
     wants = [plain(tq, tk, tv, scale) for plain in (
         fused_attention_lse_reference, flash_attention_lse_reference)]
+    models = {}  # past the table both forwards take the one streamed plan
     for name in ("mhsa_fwd", "flash_fwd"):
-        out, lse, _ = wgmma_forward_model(tq, tk, tv, scale, name)
+        plan = forward_plan(name, T, D)
+        key = name if plan["grid"] != "streamed" else "streamed"
+        if key not in models:
+            models[key] = wgmma_forward_model(tq, tk, tv, scale, name)
+        out, lse, _ = models[key]
         for want_out, want_lse in wants:
             torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
             _assert_within_one_bf16_step(out.to(torch.float32).numpy(),
@@ -432,8 +431,8 @@ def test_wgmma_forward_model_tiles_as_the_dispatch_does():
     128, 192 and 256 columns in the tiled grid, which ``flash_fwd`` always
     takes and ``mhsa_fwd`` past those; past 256 columns the tiled grid in
     two chunks of o a query tile (192 columns and 64 keys at width 320,
-    192 and 32 at 384, 256 and 16 at 448 and 512); no plan past 512
-    columns (the mma.sync column-chunk kernel)."""
+    192 and 32 at 384, 256 and 16 at 448 and 512); past 512 columns the
+    streamed grid of the ``STREAMED`` row at every width."""
     def keys(name, T, D):
         plan = forward_plan(name, T, D)
         return plan["grid"], plan["rows"]["k"], plan["rows"]["v"]
@@ -467,17 +466,53 @@ def test_wgmma_forward_model_tiles_as_the_dispatch_does():
     assert chunks("flash_fwd", 130, 400) == ("tiled", 448, 16, 256, 2, 4)
     assert chunks("mhsa_fwd", 9, 456) == ("tiled", 512, 16, 256, 2, 2)
     assert chunks("flash_fwd", 1025, 512) == ("tiled", 512, 16, 256, 2, 18)
-    assert forward_plan("flash_fwd", 65, 513) is None
-    assert forward_plan("mhsa_fwd", 65, 520) is None
+    assert forward_plan("flash_fwd", 65, 513)["grid"] == "streamed"
+    assert forward_plan("mhsa_fwd", 65, 520)["grid"] == "streamed"
     assert (WIDEST_ONE_PASS, WIDEST_FORWARD) == (256, 512)
     for name in ("mhsa_fwd", "flash_fwd"):
         assert forward_plan(name, 65, WIDEST_ONE_PASS)["chunks"] == 1
         assert forward_plan(name, 65, WIDEST_ONE_PASS + 1)["chunks"] == 2
         assert forward_plan(name, 65, WIDEST_FORWARD)["chunks"] == 2
-        assert forward_plan(name, 65, WIDEST_FORWARD + 1) is None
+        assert forward_plan(name, 65, WIDEST_FORWARD)["grid"] == "tiled"
+        assert forward_plan(name, 65,
+                            WIDEST_FORWARD + 1)["grid"] == "streamed"
 
 
-def wgmma_backward_model(q, k, v, o, do, lse, scale: float):
+@pytest.mark.parametrize("D", [513, 520, 640, 704, 1040, 2048])
+def test_plans_past_the_table_stream_at_any_width(D):
+    """Past the tables' widest rows both forwards and the backward pair
+    have a plan at every width: the streamed rows' tiles and chunks of the
+    outputs (the last ragged; the forward's first ``STREAMED`` row of
+    width >= D, or the last), D rounded up to the 64-column chunks of the
+    sums over it, 128-byte swizzle, and the work items a head."""
+    keys, cols = next((row for w, row in STREAMED.items() if D <= w),
+                      STREAMED[max(STREAMED)])
+    assert (keys, cols) == streamed_row(D)
+    for name in ("mhsa_fwd", "flash_fwd"):
+        for T in (1, 65, 1025):
+            plan = forward_plan(name, T, D)
+            assert plan["grid"] == "streamed" and not plan["pingpong"]
+            assert plan["width"] == -(-D // 64) * 64 >= D
+            assert (plan["swizzle"], plan["atom_cols"]) == (128, 64)
+            assert plan["rows"] == {"q": 128, "k": keys,
+                                    "v": -(-keys // 16) * 16}
+            assert plan["cols"] == cols and plan["chunks"] == -(-D // cols)
+            assert plan["items"] == -(-T // 128) * plan["chunks"]
+    assert D > WIDEST_BACKWARD
+    for T in (1, 65, 1025):
+        plan = backward_plan(T, D)
+        assert plan["width"] == -(-D // 64) * 64
+        for kind in ("dq", "dkv"):
+            tile, cols = BWD_STREAMED[kind]
+            cut = plan[kind]
+            assert cut["streamed"] and cut["split"] and cut["rows"] == 64
+            assert (cut["tile"], cut["cols"]) == (tile, cols)
+            assert cut["chunks"] == -(-D // cols)
+            assert cut["items"] == -(-T // 64) * -(-cut["chunks"] // 2)
+
+
+def wgmma_backward_model(q, k, v, o, do, lse, scale: float,
+                         streamed: bool = False):
     """A torch model of the arithmetic of the bf16 backward pair as its
     dispatch takes q's (T, D) (``backward_plan``, from the table of
     instances ``csrc/backward_tiles.cuh``): s = q.k^T and dp = do.v^T of
@@ -487,34 +522,33 @@ def wgmma_backward_model(q, k, v, o, do, lse, scale: float):
     f32; p and ds split into bf16 hi = rn(x) and lo = rn(x - hi), both
     multiplied into k (dq, key tile by key tile, last to first), q (dk) and
     do (dv, query tile by query tile, first to last), each tile's hi then
-    lo.  Up to 512 columns the tiles are the wgmma kernels' (the dq
-    kernel's key tile, the dk/dv kernel's query tile; cutting the columns
-    among consumers changes no sum); past them the mma.sync column-chunk
-    kernels' 64 keys and 64 query rows, all in order.  ``o`` and ``do`` are (B, T, H, D), ``lse`` (B, H, T) f32.
-    Returns ((dq, dk, dv) in bf16, the same before their rounding)."""
+    lo.  The tiles are the wgmma kernels' (the dq kernel's key tile, the
+    dk/dv kernel's query tile; cutting the columns among consumers changes
+    no sum); past 512 columns, or at any width with ``streamed``, the
+    streamed rows' tiles, s and dp summed over 64-column chunks.  ``o``
+    and ``do`` are (B, T, H, D), ``lse`` (B, H, T) f32.  Returns ((dq, dk,
+    dv) in bf16, the same before their rounding)."""
     T, D = q.shape[2:]
     plan = backward_plan(T, D)
-    if plan is None:
-        keys = queries = MMA_CHUNK
-        key_order = range(0, T, keys)
-    else:
-        keys, queries = plan["dq"]["tile"], plan["dkv"]["tile"]
-        key_order = reversed(range(0, T, keys))
+    streamed = streamed or plan["dq"]["streamed"]
+    keys, queries = ((BWD_STREAMED["dq"][0], BWD_STREAMED["dkv"][0])
+                     if streamed else
+                     (plan["dq"]["tile"], plan["dkv"]["tile"]))
     qf, kf, vf = (a.to(torch.float32) for a in (q, k, v))
     of, dof = (a.to(torch.float32).transpose(1, 2) for a in (o, do))
     c = float(np.float32(scale) * np.float32(LOG2E))
     lse2 = lse[..., None] * float(np.float32(LOG2E))
     delta = (dof * of).sum(dim=-1, keepdim=True)
-    s = torch.einsum("bhid,bhjd->bhij", qf, kf)
+    s = _qk(qf, kf, streamed)
     p = torch.exp2((s.double() * c - lse2.double()).to(torch.float32))
-    ds = p * (torch.einsum("bhid,bhjd->bhij", dof, vf) - delta) * scale
+    ds = p * (_qk(dof, vf, streamed) - delta) * scale
 
     def hi_lo(x):
         hi = x.to(torch.bfloat16).to(torch.float32)
         return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
 
     dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
-    for k0 in key_order:  # dq: a key tile at a time
+    for k0 in reversed(range(0, T, keys)):  # dq: a key tile at a time
         t = slice(k0, k0 + keys)
         for half in hi_lo(ds[..., t]):
             dq += torch.einsum("bhij,bhjd->bhid", half, kf[:, :, t])
@@ -536,15 +570,13 @@ def _plain_passes(*args):
             *flash_tiled_bwd_dkv_reference(*args))
 
 
-@cases
-def test_mma_backward_model_matches_jax_vjp_in_bf16(case):
-    """The bf16 backward pair's arithmetic, modelled in torch, against
-    ``jax.vjp`` of JAX's ``flash_attention`` (interpret mode, at the case's
-    tile split) on the same bf16 inputs, reading JAX's own forward output
-    and lse: dq, dk and dv each within one bf16 step, and before rounding
-    within 1e-5 of max |grad| of the f32 plain passes (the hi/lo split
-    keeps p and ds at f32 accuracy: 2-5e-6 apart here, where p and ds
-    rounded to bf16 alone miss by about 2e-3)."""
+def _check_backward_model_against_jax(case, shapes=(False,)):
+    """The backward model, in each of ``shapes`` (``streamed`` or not),
+    against ``jax.vjp`` of JAX's ``flash_attention`` at ``case``
+    (interpret mode, at the case's tile split) on the same bf16 inputs,
+    reading JAX's own forward output and lse: dq, dk and dv each within
+    one bf16 step, and before rounding within 1e-5 of max |grad| of the f32
+    plain passes."""
     B, H, T, D, bq, bk = case
     (q, k, v), (tq, tk, tv), scale = _bf16_inputs(B, H, T, D, seed=10)
     g = _bf16_cotangent(B, H, T, D, seed=11)
@@ -560,16 +592,47 @@ def test_mma_backward_model_matches_jax_vjp_in_bf16(case):
             torch.bfloat16)
     lse = torch.from_numpy(np.asarray(jlse)[:, :, :T, 0].copy())
 
-    got, unrounded = wgmma_backward_model(tq, tk, tv, o, g, lse, scale)
     exact = _plain_passes(*(a.to(torch.float32) for a in (tq, tk, tv, o, g)),
                           lse, scale)
-    for name, a, u, w, e in zip(("dq", "dk", "dv"), got, unrounded, want,
-                                exact):
-        assert a.shape == (B, H, T, D) and a.dtype == torch.bfloat16
-        _assert_within_one_bf16_step(a.to(torch.float32).numpy(), w, name)
-        np.testing.assert_allclose(u.numpy(), e.numpy(), rtol=0,
-                                   atol=1e-5 * e.abs().max().item(),
-                                   err_msg=name)
+    for streamed in shapes:
+        got, unrounded = wgmma_backward_model(tq, tk, tv, o, g, lse, scale,
+                                              streamed)
+        for name, a, u, w, e in zip(("dq", "dk", "dv"), got, unrounded,
+                                    want, exact):
+            what = f"{name} D={D} streamed={streamed}"
+            assert a.shape == (B, H, T, D) and a.dtype == torch.bfloat16
+            _assert_within_one_bf16_step(a.to(torch.float32).numpy(), w,
+                                         what)
+            np.testing.assert_allclose(u.numpy(), e.numpy(), rtol=0,
+                                       atol=1e-5 * e.abs().max().item(),
+                                       err_msg=what)
+
+
+@cases
+def test_mma_backward_model_matches_jax_vjp_in_bf16(case):
+    """The bf16 backward pair's arithmetic, modelled in torch as its
+    dispatch tiles the case and in the streamed instances' shape, against
+    ``jax.vjp`` of JAX's ``flash_attention`` (``_check_backward_model_
+    against_jax``; the hi/lo split keeps p and ds at f32 accuracy: 2-5e-6
+    apart here, where p and ds rounded to bf16 alone miss by about
+    2e-3)."""
+    _check_backward_model_against_jax(case, shapes=(False, True))
+
+
+# (B, H, T, D, block_q, block_kv): the streamed backward past 512 columns
+# at ragged T, D % 64 == 8, D % 8 == 2 and one chunk of the sum past 640
+STREAMED_BWD_CASES = [(1, 1, 77, 520, 1024, 128), (1, 2, 33, 522, 1024, 512),
+                      (1, 1, 97, 704, 64, 64)]
+
+
+@pytest.mark.parametrize("case", STREAMED_BWD_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_streamed_backward_model_matches_jax_vjp_in_bf16(case):
+    """Past 512 columns, where the streamed instances run, their model
+    against ``jax.vjp`` of JAX's ``flash_attention``
+    (``_check_backward_model_against_jax``)."""
+    assert backward_plan(*case[2:4])["dq"]["streamed"]
+    _check_backward_model_against_jax(case)
 
 
 @pytest.mark.parametrize("T", [1, 7, 8, 15, 16, 17, 63, 64, 65, 66, 127, 128,
@@ -577,18 +640,27 @@ def test_mma_backward_model_matches_jax_vjp_in_bf16(case):
 def test_mma_backward_model_matches_the_plain_passes_at_ragged_edges(T):
     """The pair's key and query tiles (32 to 96) and work items (64 and
     128 rows) end at every T of the card's ragged-edge phase; the model's
-    grads stay within one bf16 step of the plain passes' at head dims that
-    are and are not a multiple of 16, at every width of the table."""
+    grads, as the dispatch tiles each head and in the streamed instances'
+    shape (their tiles, s and dp summed over 64-column chunks), stay
+    within one bf16 step of the plain passes' at head dims that are and
+    are not a multiple of 16.  At T=1 the softmax over one key is
+    constant, so dq and dk are 0 in exact arithmetic and both sides return
+    the rounding noise of dp - delta; a sum over D in chunks rounds
+    otherwise than the plain passes' einsum, so the streamed shape is held
+    there only from T=2 (the card's ragged-edge checks give that noise a
+    floor)."""
     for D in (16, 24, 32, 64, 128):
         _, (tq, tk, tv), scale = _bf16_inputs(1, 2, T, D, seed=T + D)
         g = _bf16_cotangent(1, 2, T, D, seed=T + D + 1)
         o, lse = flash_attention_lse_reference(tq, tk, tv, scale)
         args = (tq, tk, tv, o, g, lse, scale)
-        got, _ = wgmma_backward_model(*args)
-        for name, a, w in zip(("dq", "dk", "dv"), got, _plain_passes(*args)):
-            _assert_within_one_bf16_step(a.to(torch.float32).numpy(),
-                                         w.to(torch.float32).numpy(),
-                                         f"{name} T={T} D={D}")
+        want = _plain_passes(*args)
+        for streamed in (False, True) if T > 1 else (False,):
+            got, _ = wgmma_backward_model(*args, streamed=streamed)
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                _assert_within_one_bf16_step(
+                    a.to(torch.float32).numpy(), w.to(torch.float32).numpy(),
+                    f"{name} T={T} D={D} streamed={streamed}")
 
 
 def test_wgmma_backward_model_tiles_as_the_dispatch_does():
@@ -601,8 +673,7 @@ def test_wgmma_backward_model_tiles_as_the_dispatch_does():
     columns); past 128 both cut the columns into chunks (dq 128, dk/dv 64)
     over 64 rows or keys, two chunks an item, the widths padded to a
     multiple of 128.  One work item a head at the flagship's T=65, nine at
-    the pixel ViT's T=1025; no plan past 512 columns (the mma.sync column
-    chunks)."""
+    the pixel ViT's T=1025; past 512 columns the streamed rows."""
     def tiles(T, D):
         plan = backward_plan(T, D)
         return tuple((k["tile"], k["cols"], k["rows"])
@@ -629,8 +700,9 @@ def test_wgmma_backward_model_tiles_as_the_dispatch_does():
     assert backward_plan(142, 384)["dkv"]["items"] == 3 * 3
     assert backward_plan(65, 32)["swizzle"] == 64
     assert backward_plan(65, 64)["swizzle"] == 128
-    assert backward_plan(65, 513) is None
-    assert backward_plan(257, 640) is None
+    assert backward_plan(65, 512)["dq"]["streamed"] is False
+    assert backward_plan(65, 513)["dq"]["streamed"] is True
+    assert backward_plan(257, 640)["dkv"]["streamed"] is True
 
 
 def test_flash_matches_the_whole_head_plain_version_in_bf16():
@@ -790,8 +862,8 @@ def test_route(T, D, kernel, want):
 @pytest.mark.parametrize("D", [1, 2, 3, 5, 7, 8, 9, 16, 17, 24, 31, 32, 40,
                                64, 100, 128, 200, 256])
 def test_whole_head_bf16_layout_never_needs_more_than_the_f32_formula(D):
-    """The router's threshold (``whole_head_smem_bytes``), kept from the
-    mma.sync design so that the same shapes take the same kernel: up to
+    """The router's threshold (``whole_head_smem_bytes``), kept from an
+    earlier bf16 design so that the same shapes take the same kernel: up to
     COL_CHUNK columns the f32 layout's shared memory, never less than that
     design's bf16 layout (K and V as T rows of ``stride_elems(D)`` bf16
     each plus a 16-byte chunk of zeros) at any T; past COL_CHUNK the larger

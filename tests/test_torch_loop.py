@@ -61,6 +61,7 @@ from vit_cifar_tpu.train.optim import \
     warmup_cosine_epoch_schedule as jax_schedule
 from vit_cifar_tpu.train.steps import make_train_step as jax_make_train_step
 from vit_cifar_tpu.utils import logging as jlogging
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXACT = dict(rtol=1e-6, atol=1e-7)

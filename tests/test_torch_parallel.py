@@ -32,6 +32,7 @@ from vit_cifar_torch.utils.transplant import state_dict_from_flax
 from vit_cifar_tpu.models import get_model as jax_get_model
 from vit_cifar_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from vit_cifar_tpu.parallel.mesh import shard_params as jax_shard_params
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SMALL = dict(num_layers=1, hidden=32, mlp_hidden=64, ffn_features=64,

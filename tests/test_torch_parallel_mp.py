@@ -50,6 +50,7 @@ from vit_cifar_tpu.parallel.mesh import shard_params as jax_shard_params
 from vit_cifar_tpu.train.loop import init_state as jax_init_state
 from vit_cifar_tpu.train.optim import make_optimizer as jax_make_optimizer
 from vit_cifar_tpu.train.steps import make_train_step as jax_make_train_step
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 BASE = dict(model_name="vit", num_layers=2, hidden=64, mlp_hidden=64,
             head=4, batch_size=16, eval_batch_size=8, label_smoothing=True,

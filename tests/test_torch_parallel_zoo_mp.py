@@ -41,6 +41,7 @@ from vit_cifar_tpu.train import losses as jlosses
 from vit_cifar_tpu.train.loop import _pad_eval as jax_pad_eval
 from vit_cifar_tpu.train.loop import init_state as jax_init_state
 from vit_cifar_tpu.train.optim import make_optimizer as jax_make_optimizer
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 DM = ((1, 2), ("data", "model"))
 BN_MODELS = {

@@ -23,6 +23,7 @@ import torch_parallel_worker as W
 from test_guard_matrix import GUARDS, PP_MODELS, _cfg, _pp, _sp
 from vit_cifar_torch.config import Config
 from vit_cifar_torch.train.loop import train
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 PIPE = ((4,), ("pipe",))
 DATA_SEQ = ((2, 2), ("data", "seq"))

@@ -38,6 +38,7 @@ from vit_cifar_tpu.train.optim import make_optimizer as jax_make_optimizer
 from vit_cifar_tpu.train.steps import \
     make_grad_debug_step as jax_make_grad_debug_step
 from vit_cifar_tpu.train.steps import make_train_step as jax_make_train_step
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 PIXEL = dict(model_name="vit", num_layers=2, hidden=64, mlp_hidden=64,

@@ -15,6 +15,7 @@ from vit_cifar_torch import Config
 from vit_cifar_torch.models import get_model
 from vit_cifar_torch.ops.cuda import build
 from vit_cifar_torch.ops.cuda.attention import fused_attention
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -49,6 +49,7 @@ from vit_cifar_tpu.ops.pallas.attention import \
     flash_attention as jax_flash_attention
 from vit_cifar_tpu.ops.pallas.attention import \
     fused_attention as jax_fused_attention
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -33,6 +33,7 @@ from vit_cifar_torch.utils.transplant import flax_from_state_dict, flax_layout
 from vit_cifar_tpu.config import MODEL_NAMES, Config
 from vit_cifar_tpu.deploy import _inference_fn, _quantize_store
 from vit_cifar_tpu.models import get_model
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # the models whose eval path draws: fresh bases every call

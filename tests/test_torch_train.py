@@ -56,6 +56,7 @@ from vit_cifar_tpu.train.steps import make_eval_step as jax_make_eval_step
 from vit_cifar_tpu.train.steps import \
     make_grad_debug_step as jax_make_grad_debug_step
 from vit_cifar_tpu.train.steps import make_train_step as jax_make_train_step
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 EXACT = dict(rtol=1e-6, atol=1e-7)
 F32_TOL = dict(rtol=1e-4, atol=1e-5)

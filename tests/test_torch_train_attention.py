@@ -29,6 +29,7 @@ from vit_cifar_tpu.ops.pallas.attention import \
     _fused_attention_fwd_impl as jax_fwd_impl
 from vit_cifar_tpu.ops.pallas.attention import \
     fused_attention as jax_fused_attention
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 # the JAX kernel tests' ragged shapes (odd T, D < 128, T over one tile)
 SHAPES = [(2, 4, 9, 16), (2, 3, 65, 32), (1, 2, 130, 64), (2, 2, 96, 128)]

@@ -35,6 +35,7 @@ from vit_cifar_tpu.ops.attention import \
     MultiHeadSelfAttention as JaxMultiHeadSelfAttention
 from vit_cifar_tpu.ops.common import EncoderBlock as JaxEncoderBlock
 from vit_cifar_tpu.ops.patchify import to_words as jax_to_words
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 TINY = dict(model_name="vit", num_layers=2, hidden=32, mlp_hidden=32, head=4)

@@ -32,6 +32,7 @@ from vit_cifar_tpu.ops import aft as jaft
 from vit_cifar_tpu.ops import gmlp as jgmlp
 from vit_cifar_tpu.train.loop import _pad_eval as jax_pad_eval
 from vit_cifar_tpu.train.steps import make_eval_step as jax_make_eval_step
+from test_torch_nnmf import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 B, T, FEAT, FFN, HEADS = 4, 17, 32, 64, 4  # patch=4 gives T=17

@@ -6,14 +6,19 @@ builds ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` from copies
 of ``vit_cifar_torch/csrc`` under ``build/backward_choices/``, one copy a
 choice: the table of instances (``csrc/backward_tiles.cuh``) with one row
 changed -- the dq kernel's key tile, or the dk/dv kernel's query tile, at
-one padded head width -- and every build at once.  It prints each build's
-ptxas registers and spills, checks that each choice's gradients are
-within two bf16 steps (at their largest value) of the repo's, and times
-it against the repo's own build in turns (repo, choice, choice, repo; CUDA
-events) on the model's (B, H, T, D) views at that width's shape: the pixel
-ViT's at 32 columns, chip_smoke.py's head-dim shape (128, 8, 512, D)
-beyond (D = 64, 128 and 256, the last one of the column chunks).  The table's tiles are chosen from this.  Prints the card's name
-and power limit, a line a choice, and one JSON object last.
+one padded head width; past the widest row the streamed rows' tile or
+columns of the gradients a consumer holds -- and every build at once.  It
+prints each build's ptxas registers and spills (or that it does not
+build: tiles that miss shared memory fail a static_assert), checks that
+each choice's gradients are within two bf16 steps (at their largest
+value) of the repo's, and times it against the repo's own build in turns
+(repo, choice, choice, repo; CUDA events) on the model's (B, H, T, D)
+views at that width's shape: the pixel ViT's at 32 columns,
+chip_smoke.py's head-dim shape (128, 8, 512, D) beyond (D = 64, 128 and
+256, the last one of the column chunks), and for the streamed rows
+(16, 2, 1024, 520), a head past the widest row.  The table's tiles are
+chosen from this.  Prints the card's name and power limit, a line a
+choice, and one JSON object last.
 """
 
 from __future__ import annotations
@@ -36,16 +41,24 @@ sys.path.insert(0, ROOT)
 from vit_cifar_torch.ops.cuda.build import (CSRC_DIR, NVCC_FLAGS,  # noqa: E402
                                             find_nvcc)
 from vit_cifar_torch.ops.cuda.common import (  # noqa: E402
-    DKV_TILES, DQ_TILES, bind, launch_backward, library)
+    BWD_STREAMED, DKV_TILES, DQ_TILES, bind, launch_backward, library)
 from vit_cifar_torch.ops.cuda.flash_attention import \
     flash_attention_lse  # noqa: E402
 
 WORK = os.path.join(ROOT, "build", "backward_choices")
 SHAPES = {32: (128, 12, 1025, 32), 64: (128, 8, 512, 64),
-          128: (128, 8, 512, 128), 256: (128, 8, 512, 256)}
+          128: (128, 8, 512, 128), 256: (128, 8, 512, 256),
+          "streamed": (16, 2, 1024, 520)}
 # (kernel, width, tile): the dq kernel's key tile or the dk/dv kernel's
-# query tile at a width, the rest of the table as the repo has it
-CHOICES = [("flash_bwd_dq", 32, 64), ("flash_bwd_dq", 32, 128),
+# query tile at a width, the rest of the table as the repo has it; at
+# width "streamed" a (tile, columns a consumer holds) of the streamed row
+CHOICES = [("flash_bwd_dq", "streamed", (32, 128)),
+           ("flash_bwd_dq", "streamed", (64, 64)),
+           ("flash_bwd_dq", "streamed", (32, 256)),
+           ("flash_bwd_dkv", "streamed", (32, 64)),
+           ("flash_bwd_dkv", "streamed", (128, 64)),
+           ("flash_bwd_dkv", "streamed", (64, 128)),
+           ("flash_bwd_dq", 32, 64), ("flash_bwd_dq", 32, 128),
            ("flash_bwd_dq", 64, 32), ("flash_bwd_dq", 64, 96),
            ("flash_bwd_dq", 128, 32), ("flash_bwd_dq", 128, 96),
            ("flash_bwd_dq", 256, 16), ("flash_bwd_dq", 256, 64),
@@ -60,15 +73,21 @@ def build(kernel: str, width: int, tile: int):
     """Starts nvcc on ``kernel``'s source in a copy of the sources whose
     table has ``tile`` in that kernel's row at ``width``: (the library's
     path, the process)."""
-    src = os.path.join(WORK, f"{kernel}_{width}_{tile}")
+    name = "_".join(map(str, tile)) if width == "streamed" else tile
+    src = os.path.join(WORK, f"{kernel}_{width}_{name}")
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(CSRC_DIR, src)
     table = os.path.join(src, "backward_tiles.cuh")
     with open(table) as f:
         text = f.read()
     row = "DQ" if kernel == "flash_bwd_dq" else "DKV"
-    text = re.sub(rf"^{row}\({width}, \d+, (\d+)\)$",
-                  rf"{row}({width}, {tile}, \1)", text, flags=re.M)
+    if width == "streamed":
+        text = re.sub(rf"^{row}_STREAMED\(\d+, \d+\)$",
+                      f"{row}_STREAMED({tile[0]}, {tile[1]})", text,
+                      flags=re.M)
+    else:
+        text = re.sub(rf"^{row}\({width}, \d+, (\d+)\)$",
+                      rf"{row}({width}, {tile}, \1)", text, flags=re.M)
     with open(table, "w") as f:
         f.write(text)
     lib = os.path.join(src, f"{kernel}.so")
@@ -158,16 +177,26 @@ def measure(card: str, jobs) -> None:
     result = {"card": card, "choices": []}
     for (kernel, width, tile), path, proc in jobs:
         report, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed:\n{report[-4000:]}")
+        if proc.returncode != 0:  # e.g. tiles that miss shared memory
+            first = next((line for line in report.splitlines()
+                          if "error" in line), report[-400:])
+            print(f"{kernel} width {width} tile {tile} does not build: "
+                  f"{first.strip()}", flush=True)
+            result["choices"].append({"kernel": kernel, "width": width,
+                                      "tile": tile, "built": False})
+            continue
         if "wgmma.mma_async instructions are serialized" in report:
             print(f"{kernel} width {width} tile {tile}: ptxas serialised "
                   "its wgmmas; not timed")
             continue
-        repo_tile, cols = (DQ_TILES if kernel == "flash_bwd_dq"
-                           else DKV_TILES)[width]
-        instance = (f"{'dq' if kernel == 'flash_bwd_dq' else 'dkv'}_kernel"
-                    f"<{width},{tile},{cols}>")
+        kind = "dq" if kernel == "flash_bwd_dq" else "dkv"
+        if width == "streamed":
+            repo_tile = BWD_STREAMED[kind]
+            instance = f"{kind}_stream_kernel<{tile[0]},{tile[1]}>"
+        else:
+            repo_tile, cols = (DQ_TILES if kind == "dq"
+                               else DKV_TILES)[width]
+            instance = f"{kind}_kernel<{width},{tile},{cols}>"
         lib = bind(ctypes.CDLL(path), kernel)
         args = inputs[width]
         got, want = run(kernel, lib, args), run(kernel, library(kernel), args)

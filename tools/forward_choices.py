@@ -12,14 +12,17 @@ turns at the tensor cores) flipped -- and, at 192 and 256 columns, the
 one-pass row replaced by chunks of 128 columns.  Past the table, rows of
 16 keys and chunks of 256 columns at 576, 640 and 704 columns show where
 q at full width and two stages of the ring stop fitting shared memory,
-each against the repo's mma.sync column-chunk kernel there.  A choice
+each against the repo's streamed instance there; and each streamed row
+(``STREAMED``) alone, changed in one choice -- half and twice its key
+tile, chunks of o of 128, 192 or 256 columns -- at the widths of 520,
+576, 640, 768 and 1040 columns it takes.  A choice
 whose tiles do not fit shared memory fails its build (a static_assert)
 and is reported so.  Each built choice is checked within two bf16 steps
 (at the largest value) of the repo's build and timed against it in
 turns (repo, choice, choice, repo; CUDA events) at (128, 8, 512, width)
 on the model's (B, H, T, D) views of (B, T, H, D) projections, with its
-ptxas registers and spills.  Then two builds with every one-pass row set to ping-pong and to
-none, timed the same way at each one-pass width and checked equal, and
+ptxas registers and spills.  Then two builds with every one-pass row set
+to ping-pong and to none, timed the same way at each one-pass width and checked equal, and
 what the ragged last query and key tiles of the pixel ViT's T=1025 (8 *
 128 + 1) cost against T=1024 with the repo's own build.  The table's key
 tiles, chunks and ping-pong columns are chosen from this.  Prints the
@@ -46,7 +49,8 @@ sys.path.insert(0, ROOT)
 from vit_cifar_torch.ops.cuda.build import (CSRC_DIR, NVCC_FLAGS,  # noqa: E402
                                             find_nvcc)
 from vit_cifar_torch.ops.cuda.common import (  # noqa: E402
-    PINGPONG, TILED_COLS, TILED_KEYS, library, tma_strides)
+    PINGPONG, STREAMED, TILED_COLS, TILED_KEYS, WIDEST_FORWARD, library,
+    tma_strides)
 from vit_cifar_torch.ops.cuda.flash_attention import \
     flash_attention  # noqa: E402
 
@@ -59,11 +63,16 @@ SHAPES = [(128, 12, 1025, 32), (128, 8, 512, 64), (128, 8, 512, 128),
 ROUNDS, ITERS = 4, 10
 
 
+# the widths at which the streamed rows' choices are timed
+STREAMED_WIDTHS = (520, 576, 640, 768, 1040)
+
+
 def chunk_choices() -> list[tuple[int, tuple, str]]:
     """(width, (keys, cols, pingpong), what) of each choice: every CHUNKED
     row's neighbours, the one-pass rows at 192 and 256 columns as chunks
-    of 128 columns (64 keys, the 128-column row's tile), and rows past the
-    table's widest."""
+    of 128 columns (64 keys, the 128-column row's tile), CHUNKED rows past
+    the table's widest, and the streamed row's neighbours (pingpong None:
+    a STREAMED row)."""
     choices = []
     for width, keys in TILED_KEYS.items():
         cols, pp = TILED_COLS[width], int(PINGPONG[width])
@@ -82,6 +91,20 @@ def chunk_choices() -> list[tuple[int, tuple, str]]:
                         f"ping-pong {'on' if pp == 0 else 'off'}"))
     for width in (576, 640, 704):
         choices.append((width, (16, 256, 0), "past the table"))
+    below = WIDEST_FORWARD
+    for top, (keys, cols) in STREAMED.items():
+        last = top == max(STREAMED)
+        for width in STREAMED_WIDTHS:
+            if not (below < width <= top or last and width > below):
+                continue
+            for n in (keys // 2, 2 * keys):
+                choices.append((width, (n, cols, None),
+                                f"streamed, key tile {n}"))
+            for c in (128, 192, 256):
+                if c != cols:
+                    choices.append((width, (keys, c, None),
+                                    f"streamed, chunks of {c} columns"))
+        below = top
     return choices
 
 
@@ -109,9 +132,14 @@ def copy_with_table(name: str, edit) -> str:
 
 
 def build_choice(width: int, row: tuple) -> tuple[str, subprocess.Popen]:
-    """Starts nvcc on a copy whose table holds one column-chunk row,
-    CHUNKED(width, *row), and nothing else."""
+    """Starts nvcc on a copy whose table holds one row and nothing else:
+    CHUNKED(width, *row), or where row's ping-pong is None STREAMED(width,
+    keys, cols), which as the table's last takes every width."""
     keys, cols, pp = row
+    if pp is None:  # one build a streamed row, timed at every width
+        line = f"STREAMED({width}, {keys}, {cols})\n"
+        return nvcc(copy_with_table(f"streamed_{keys}_{cols}",
+                                    lambda text: line))
     line = f"CHUNKED({width}, {keys}, {cols}, {pp})\n"
     return nvcc(copy_with_table(f"chunk_{width}_{keys}_{cols}_{pp}",
                                 lambda text: line))
@@ -132,7 +160,8 @@ def fwd_report(report: str) -> str:
     a build's report (the table holds one row)."""
     lines = report.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "10fwd_kernelI" in line:
+        if "Compiling entry function" in line and (
+                "10fwd_kernelI" in line or "17fwd_stream_kernelI" in line):
             regs = spill = ""
             for later in lines[i + 1:i + 6]:
                 if "spill" in later:
@@ -203,8 +232,13 @@ def main() -> None:
     print(card)
     os.makedirs(WORK, exist_ok=True)
     choices = chunk_choices()
-    jobs = ([build_choice(w, row) for w, row, _ in choices]
-            + [build(pp) for pp in (1, 0)])
+    builds = {}  # one build a table: a streamed row's serves every width
+    for width, row, _ in choices:
+        key = row if row[2] is None else (width, row)
+        if key not in builds:
+            builds[key] = build_choice(width, row)
+    jobs = ([builds[row if row[2] is None else (width, row)]
+             for width, row, _ in choices] + [build(pp) for pp in (1, 0)])
     try:
         measure(card, choices, jobs)
     finally:  # no compiler left running
@@ -220,8 +254,11 @@ def measure(card: str, choices, jobs) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"card": card, "chunks": [], "pingpong": {}, "ragged": {}}
     repo = launcher(library("flash_fwd"))
+    reports = {}  # a shared build's report, read once
     for (width, (keys, cols, pp), what), (path, proc) in zip(choices, jobs):
-        report, _ = proc.communicate()
+        if path not in reports:
+            reports[path] = proc.communicate()[0]
+        report = reports[path]
         shape = (128, 8, 512, width)
         if proc.returncode != 0:
             first = next((line for line in report.splitlines()

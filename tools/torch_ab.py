@@ -25,10 +25,15 @@ differs.  Each run measures, in bf16:
   host ms a step (synchronized), and under torch.profiler the device
   activity a step, the kernels a step and the busy share against the
   unprofiled step; the attention kernels' device ms a step;
-- the pixel-token training step (patch 32, T=1025, B=128): the same.
+- the pixel-token training step (patch 32, T=1025, B=128): the same;
+- heads past 512 columns (``wide``, only when asked for): both forwards
+  and the tiled dq and dk/dv passes on the model's views at
+  (16, 2, 1024, 512) and (16, 2, 1024, 520), the table's edge, and at
+  (128, 8, 512, D) for D = 576, 640, 768 and 1040: CUDA-event means over
+  windows of about 50 ms.
 
-``--only`` runs one of the three parts (``kernels``, ``flagship``,
-``pixel``), for more rounds of it in the same time.  Every number is the
+``--only`` runs one of the parts (``kernels``, ``flagship``, ``pixel``,
+``wide``), for more rounds of it in the same time.  Every number is the
 card's; the card's name and power limit are printed with them.  Work
 files go to ``build/chip_smoke/``.
 """
@@ -48,6 +53,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SHAPES = {"pixel": (128, 12, 1025, 32), "d128": (128, 8, 512, 128),
                  "flagship": (128, 12, 65, 32)}
+WIDE_SHAPES = {"long512": (16, 2, 1024, 512), "long520": (16, 2, 1024, 520),
+               **{f"d{D}": (128, 8, 512, D) for D in (576, 640, 768, 1040)}}
 
 
 def _smoke():
@@ -120,6 +127,37 @@ def _kernel_times(smoke, torch) -> dict:
     return out
 
 
+def _wide_times(smoke, torch) -> dict:
+    """ms a call of both forwards and of the dq and dk/dv passes on the
+    model's views at ``WIDE_SHAPES``, by CUDA events over windows of about
+    50 ms."""
+    from vit_cifar_torch.ops.cuda.attention import fused_attention
+    from vit_cifar_torch.ops.cuda.flash_attention import (
+        flash_attention, flash_attention_lse, flash_tiled_bwd_dkv,
+        flash_tiled_bwd_dq)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for tag, shape in WIDE_SHAPES.items():
+        B, H, T, D = shape
+        scale = 1.0 / (H * D) ** 0.5
+        q, k, v = smoke.model_views(shape, gen)
+        o, lse = flash_attention_lse(q, k, v, scale)
+        g = torch.randn((B, T, H, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        args = (q, k, v, o, g, lse, scale)
+        fns = {"flash_fwd": lambda: flash_attention(q, k, v, scale),
+               "mhsa_fwd": lambda: fused_attention(q, k, v, scale),
+               "flash_bwd_dq_tiled": lambda: flash_tiled_bwd_dq(*args),
+               "flash_bwd_dkv_tiled": lambda: flash_tiled_bwd_dkv(*args)}
+        for name, fn in fns.items():
+            iters = max(2, min(50, round(50 / smoke.cuda_ms(fn, 1, 1))))
+            out[f"{name} {tag}"] = smoke.cuda_ms(fn, iters, 1)
+        del q, k, v, o, lse, g, args, fns
+        torch.cuda.empty_cache()
+    return out
+
+
 def _train(smoke, torch, card: str, patch: int, steps: int,
            n_prof: int) -> dict:
     cfg = smoke.flagship_cfg(patch=patch)
@@ -167,10 +205,12 @@ def worker(checkout: str, only: str | None) -> None:
     build_s = time.perf_counter() - t0
     parts = {"kernels_ms": lambda: _kernel_times(smoke, torch),
              "flagship": lambda: _train(smoke, torch, card, 8, 30, 20),
-             "pixel": lambda: _train(smoke, torch, card, 32, 8, 3)}
+             "pixel": lambda: _train(smoke, torch, card, 32, 8, 3),
+             "wide_ms": lambda: _wide_times(smoke, torch)}
     result = {"checkout": checkout, "build_s": build_s}
     for part, run in parts.items():
-        if only in (None, part.removesuffix("_ms")):
+        if only == part.removesuffix("_ms") or (only is None
+                                                and part != "wide_ms"):
             result[part] = run()
     print(json.dumps(result))
 
@@ -181,11 +221,14 @@ def main() -> None:
     parser.add_argument("b", nargs="?")
     parser.add_argument("--rounds", type=int, default=1)
     parser.add_argument("--worker", action="store_true")
-    parser.add_argument("--only", choices=("kernels", "flagship", "pixel"))
+    parser.add_argument("--only",
+                        choices=("kernels", "flagship", "pixel", "wide"))
     args = parser.parse_args()
     if args.worker:
         worker(args.a, args.only)
         return
+    # the workers run from this checkout's root: the caller's paths, resolved
+    args.a, args.b = (os.path.abspath(c) if c else c for c in (args.a, args.b))
     import torch
 
     if not torch.cuda.is_available():
@@ -211,8 +254,8 @@ def main() -> None:
         return statistics.median(get(r) for r in runs[checkout])
 
     first = runs[args.a][0]
-    rows = [(k, lambda r, k=k: r["kernels_ms"].get(k, float("nan")))
-            for k in first.get("kernels_ms", {})]
+    rows = [(k, lambda r, p=part, k=k: r[p].get(k, float("nan")))
+            for part in ("kernels_ms", "wide_ms") for k in first.get(part, {})]
     for model in ("flagship", "pixel"):
         for key in ("step_ms", "device_ms", "busy", "kernels"):
             if model in first:

@@ -32,6 +32,23 @@ __host__ __device__ constexpr int chunk_width(int D, int e) {
   return D - e * kColChunk < kColChunk ? D - e * kColChunk : kColChunk;
 }
 
+// The row stride in elements of a bf16 row of D columns staged with an odd
+// number of 16-byte chunks (D rounded up to 8, then to an odd multiple of
+// 8): the earlier bf16 design's layout, which the whole-head forward's
+// router threshold still counts (mhsa_fwd.cu, whole_head_smem_bytes).
+__host__ __device__ constexpr int stride_elems(int D) {
+  return 8 * (((D + 7) / 8) | 1);
+}
+
+// Whether rows of D % 8 == 0 bf16 elements at these bases can be read in
+// whole 16-byte chunks: 16-byte aligned bases (any row stride that is a
+// multiple of 8 elements keeps the rows aligned; the caller checks that).
+template <typename... Ptr>
+bool can_copy_chunks(int D, const Ptr*... bases) {
+  return D % 8 == 0 &&
+         ((reinterpret_cast<uintptr_t>(bases) | ...) % 16) == 0;
+}
+
 // The (b, h, t) strides in elements of n (B, H, T, D) views as the caller
 // has them, d's being 1.
 template <int n>

@@ -3,9 +3,9 @@
 // flash_bwd_dkv.cu) expands and what the wrappers' plan
 // (ops/cuda/common.py::backward_plan) and the CPU model of the kernels'
 // arithmetic read, so they cannot disagree.  No include guard: each
-// includer defines both macros.  Rows by ascending padded width: a head of
-// D columns takes the first width >= D; past the last (512) the mma.sync
-// column-chunk kernels run.
+// includer defines all four macros.  Rows by ascending padded width: a
+// head of D columns takes the first width >= D; past the last, the
+// STREAMED rows.
 //
 // ptxas gives a consumer warpgroup 168 registers, and each kernel keeps one
 // tile's s and dp accumulators (f32) in flight beside the previous tile's
@@ -29,6 +29,17 @@
 //   between them; s^T, dp^T and their fragments take 2 * queries).
 //   cols == width: a work item is 128 keys, 64 a consumer; cols < width:
 //   64 keys and 2 * cols columns an item, as for dq.
+// DQ_STREAMED(keys, cols), DKV_STREAMED(queries, cols): every head wider
+//   than the rows above, at any width (dq_stream_kernel,
+//   dkv_stream_kernel): a work item is 64 rows (or keys) and two chunks
+//   of `cols` columns of the gradients, one a consumer, and s and dp (s^T
+//   and dp^T) are summed over 64-column chunks of both operands that come
+//   through the ring, so that shared memory holds nothing at the full
+//   width.  The tiles are the fastest of tools/backward_choices.py's
+//   measurements against their neighbours at (16,2,1024,520): dq 32 keys
+//   1.42x, chunks of 64 columns 1.59x, 32 keys by 256 columns 1.08x; dk/dv
+//   64 queries 0.69x the 32 (which 16 queries read 1.61x, 16 by 128
+//   columns 1.04x).
 
 DQ(32, 96, 32)
 DQ(64, 64, 64)
@@ -36,6 +47,7 @@ DQ(128, 64, 128)
 DQ(256, 32, 128)
 DQ(384, 32, 128)
 DQ(512, 16, 128)
+DQ_STREAMED(64, 128)
 
 DKV(32, 64, 32)
 DKV(64, 64, 64)
@@ -43,3 +55,4 @@ DKV(128, 64, 64)
 DKV(256, 32, 64)
 DKV(384, 32, 64)
 DKV(512, 16, 64)
+DKV_STREAMED(64, 64)

@@ -21,7 +21,7 @@
 // p and ds split into hi + lo the products are six.  At the flagship's T=65
 // it is bytes.  So:
 //
-//   bf16 (dtype 1), D <= 512: first a pass over the rows (dkv_rows_kernel)
+//   bf16 (dtype 1): first a pass over the rows (dkv_rows_kernel)
 //   writes every query row's lse * log2(e) and delta into a scratch the
 //   wrapper gives, padded with zeros to whole query tiles; then the
 //   warp-specialised wgmma kernel below, on the blocks of wgmma_blocks.cuh
@@ -45,15 +45,13 @@
 //   columns of the same 64 keys into chunks of 64 (backward_tiles.cuh),
 //   each computing p^T and ds^T over all the head's columns (padded to a
 //   multiple of 128), a work item two chunks: 2 * D/128 times in all.  The
-//   item's keys at the full width must fit shared memory beside the ring,
-//   hence the 512-column limit (16-row query tiles there).  Query rows
-//   past T arrive as zeros with lse and delta 0, so they add exactly 0;
-//   keys past T are never written.
-//
-//   bf16, D > 512: the mma.sync column-chunk kernel (mma_attention.cuh):
-//   blocks of 4 warps per (b, h, 64 keys, 128-column chunk of dk or dv),
-//   s^T and dp^T summed over every chunk by each block, Q and dO staged by
-//   cp.async, lse and delta per query tile in shared memory.
+//   item's keys at the full width fit shared memory beside the ring up to
+//   512 columns (16-row query tiles there); past the table the streamed
+//   instance (dkv_stream_kernel) brings K, V, Q and dO a 64-column chunk a
+//   stage and sums s^T and dp^T over the chunks in its registers, and Q
+//   and dO at the item's columns through a second ring, so any width
+//   runs.  Query rows past T arrive as zeros with lse and delta 0, so they
+//   add exactly 0; keys past T are never written.
 //
 //   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
 //   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
@@ -75,7 +73,6 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
-#include "mma_attention.cuh"
 #include "wgmma_backward.cuh"
 
 namespace {
@@ -489,24 +486,13 @@ __global__ void __launch_bounds__(attn_wg::kThreads, 1)
     // p^T into s and ds^T into dp, with the lse2 and delta of the tile's
     // columns (query rows)
     auto grads = [&](int st) {
-      const float* lt =
-          reinterpret_cast<const float*>(smem + S::kLOff + st * S::kLineBytes);
-      const float* dt = reinterpret_cast<const float*>(
-          smem + S::kDeltaOff + st * S::kLineBytes);
-#pragma unroll
-      for (int nb = 0; nb < kNq / 8; ++nb) {
-        // this thread's columns 2t and 2t+1 of the 8 at 8nb
-        const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * nb + 2 * t);
-        const float2 d2 = *reinterpret_cast<const float2*>(dt + 8 * nb + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x =
-              ex2(fmaf(s[4 * nb + e], p.c, -(e & 1 ? l2.y : l2.x)));
-          s[4 * nb + e] = x;
-          dp[4 * nb + e] =
-              x * (dp[4 * nb + e] - (e & 1 ? d2.y : d2.x)) * p.scale;
-        }
-      }
+      dkv_grads<kNq>(
+          s, dp,
+          reinterpret_cast<const float*>(smem + S::kLOff +
+                                         st * S::kLineBytes),
+          reinterpret_cast<const float*>(smem + S::kDeltaOff +
+                                         st * S::kLineBytes),
+          p, t);
     };
     auto split = [&]() {
       split_frags<kNq>(s, ph, pl);
@@ -589,29 +575,326 @@ cudaError_t launch_dkv(const attn_wg::View& q, const attn_wg::View& k,
   return cudaGetLastError();
 }
 
-// The instance of the first table width >= D (backward_tiles.cuh).
+// ---- bf16 past the table: the streamed dk/dv kernel ------------------------
+// Past the table's widest row an item's K and V at the full width no
+// longer fit shared memory beside the ring.  Here nothing is held at the
+// full width: each stage of the ring holds one 64-column chunk of the
+// item's K and V (64 keys) and of a query tile's Q and dO, and the
+// consumers add each chunk's products into s^T and dp^T in their
+// registers; then dv += p^T.do and dk += ds^T.q read the query tile's Q
+// and dO at the item's columns, which come through a second ring
+// (kOutStages) with the tile's rows of lse * log2(e) and delta, so that
+// the gradient products of one query tile run while the next tile's exps
+// do.  Work items are (b * H + h, 64 keys, group of two chunks of kCols
+// columns of dk and dv), consumer c on chunk 2 * group + c (StreamCut).
+//
+// Shared memory: kStages stages of a K, a V, a Q and a dO chunk (64, 64,
+// kNq and kNq rows of 64 columns); kOutStages stages of Q and dO at the
+// consumers' columns (a slot each: consumer c's Q, then its dO); their
+// rows of lse and delta; the barriers.
+template <int kNq, int kCols>
+struct DkvStreamShape {
+  static constexpr int kKeys = 64;                    // keys an item
+  static constexpr int kKBytes = kKeys * 128;         // a chunk of K or V
+  static constexpr int kQBytes = kNq * 128;           // a chunk of Q or dO
+  static constexpr int kVOff = kKBytes;               // within a stage
+  static constexpr int kQOff = 2 * kKBytes;
+  static constexpr int kDOff = kQOff + kQBytes;
+  static constexpr int kStageBytes = 2 * kKBytes + 2 * kQBytes;
+  static constexpr int kOutAtoms = kCols / 64;        // a consumer's
+  static constexpr int kSlotBytes = kOutAtoms * kQBytes;
+  static constexpr int kOutBytes = 4 * kSlotBytes;
+  static constexpr int kLineBytes = 4 * kNq;          // lse or delta
+  static constexpr int kOutStages = 2;
+  // as many stages as fit, at most 6
+  static constexpr int kFit =
+      (attn_wg::kSmemBudget - kOutStages * (kOutBytes + 2 * kLineBytes)) /
+      kStageBytes;
+  static constexpr int kStages = kFit < 6 ? kFit : 6;
+  static constexpr int kOutOff = kStages * kStageBytes;
+  static constexpr int kLOff = kOutOff + kOutStages * kOutBytes;
+  static constexpr int kBarOff = kLOff + kOutStages * 2 * kLineBytes;
+  static constexpr int kBytes =
+      kBarOff + 8 * 2 * (kStages + kOutStages) + 1024;
+  static_assert(kNq % 16 == 0 && kNq <= 128, "query tile");
+  static_assert(attn_wg::kRowsPad % kNq == 0,
+                "a query tile lies within the padded rows");
+  static_assert(kCols % 64 == 0 && kCols <= 256, "whole atoms, wgmma's N");
+  static_assert(kStages >= 2, "a ring of at least two stages");
+};
+
+template <int kNq, int kCols>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    dkv_stream_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap domap,
+                      const attn_wg::BwdParams p) {
+  using namespace attn_wg;
+  using S = DkvStreamShape<kNq, kCols>;
+  constexpr int kStages = S::kStages;
+  constexpr int kOutStages = S::kOutStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* empty = full + kStages;
+  uint64_t* out_full = empty + kStages;
+  uint64_t* out_empty = out_full + kOutStages;
+  const int items =
+      (p.total - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int n_dc = atoms_of(p.D);
+  const StreamCut cut{(p.D + kCols - 1) / kCols};
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+    for (int i = 0; i < kOutStages; ++i) {
+      mbar_init(&out_full[i], 1);
+      mbar_init(&out_empty[i], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == kConsumerWGs) {
+    // ---- producer: one thread keeps the loads in flight ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x != 128 * kConsumerWGs) return;
+    prefetch_map(&kmap);
+    prefetch_map(&vmap);
+    prefetch_map(&qmap);
+    prefetch_map(&domap);
+    int st = 0, sph = 0, os = 0, oph = 0;
+    for (int i = 0; i < items; ++i) {
+      const Item it(p, blockIdx.x + i * gridDim.x);
+      const int k0 = it.tile * S::kKeys;
+      // the atoms of the consumers' chunks that hold columns < D (atoms
+      // wholly past D feed only columns never stored)
+      int atoms[2];
+      for (int c = 0; c < 2; ++c)
+        atoms[c] = cut.stores(it.group, c)
+                       ? min(S::kOutAtoms,
+                             atoms_of(p.D - cut.chunk(it.group, c) * kCols))
+                       : 0;
+      const long long line = static_cast<long long>(it.bh) * p.Tpad;
+      for (int j = 0; j < p.n_loop; ++j) {
+        const int q0 = j * kNq;
+        for (int d = 0; d < n_dc; ++d) {
+          mbar_wait(&empty[st], sph ^ 1);  // a fresh barrier passes at once
+          mbar_expect_tx(&full[st], S::kStageBytes);
+          uint8_t* dst = smem + st * S::kStageBytes;
+          tma_load_4d(dst, &kmap, &full[st], 64 * d, it.h, k0, it.b);
+          tma_load_4d(dst + S::kVOff, &vmap, &full[st], 64 * d, it.h, k0,
+                      it.b);
+          tma_load_4d(dst + S::kQOff, &qmap, &full[st], 64 * d, it.h, q0,
+                      it.b);
+          tma_load_4d(dst + S::kDOff, &domap, &full[st], 64 * d, it.h, q0,
+                      it.b);
+          if (++st == kStages) st = 0, sph ^= 1;
+        }
+        mbar_wait(&out_empty[os], oph ^ 1);
+        mbar_expect_tx(&out_full[os], 2 * (atoms[0] + atoms[1]) * S::kQBytes +
+                                          2 * S::kLineBytes);
+        uint8_t* out = smem + S::kOutOff + os * S::kOutBytes;
+        for (int c = 0; c < 2; ++c)
+          for (int a = 0; a < atoms[c]; ++a) {
+            const int col = cut.chunk(it.group, c) * kCols + 64 * a;
+            tma_load_4d(out + 2 * c * S::kSlotBytes + a * S::kQBytes, &qmap,
+                        &out_full[os], col, it.h, q0, it.b);
+            tma_load_4d(out + (2 * c + 1) * S::kSlotBytes + a * S::kQBytes,
+                        &domap, &out_full[os], col, it.h, q0, it.b);
+          }
+        uint8_t* lines = smem + S::kLOff + os * 2 * S::kLineBytes;
+        bulk_load(lines, p.rows + line + q0, S::kLineBytes, &out_full[os]);
+        bulk_load(lines + S::kLineBytes, p.deltas + line + q0,
+                  S::kLineBytes, &out_full[os]);
+        if (++os == kOutStages) os = 0, oph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: both on the item's 64 keys, each its chunk ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = role;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+
+  float s[kNq / 2], dp[kNq / 2];
+  float dk[kCols / 2], dv[kCols / 2];
+  uint32_t ph[kNq / 16][4], pl[kNq / 16][4];
+  uint32_t dsh[kNq / 16][4], dsl[kNq / 16][4];
+
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  auto fence_grads = [&]() {
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(ph);
+    fence_regs(pl);
+    fence_regs(dsh);
+    fence_regs(dsl);
+  };
+  int st = 0, sph = 0;
+  // s^T = k.q^T and dp^T = v.do^T of one query tile, their 64-column
+  // chunks in turn from the ring, each stage released once its products
+  // are done
+  auto logits = [&]() {
+    for (int d = 0; d < n_dc; ++d) {
+      mbar_wait(&full[st], sph);
+      const uint32_t base = smem_u32(smem + st * S::kStageBytes);
+      fence_regs(s);
+      fence_regs(dp);
+      wg_fence();
+      product_ss_atom<kNq>(s, base, base + S::kQOff, d > 0);
+      product_ss_atom<kNq>(dp, base + S::kVOff, base + S::kDOff, d > 0);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      release(&empty[st]);
+      if (++st == kStages) st = 0, sph ^= 1;
+    }
+  };
+  // the n-th stage of the second ring the block takes, and its phase
+  auto out_stage = [](int n) { return n % kOutStages; };
+  auto out_phase = [](int n) { return (n / kOutStages) & 1; };
+  // dv += p^T.do and dk += ds^T.q of the query tile in the second ring's
+  // n-th stage, over the consumer's columns
+  auto accumulate = [&](int n) {
+    fence_grads();
+    wg_fence();
+    const uint32_t out =
+        smem_u32(smem + S::kOutOff + out_stage(n) * S::kOutBytes);
+    product_rs<64, kCols, kNq>(dv, ph, pl,
+                               out + (2 * c + 1) * S::kSlotBytes);
+    product_rs<64, kCols, kNq>(dk, dsh, dsl, out + 2 * c * S::kSlotBytes);
+    wg_commit();
+  };
+  auto accumulated = [&](int n) {
+    wg_wait<0>();
+    fence_grads();
+    release(&out_empty[out_stage(n)]);
+  };
+  // p^T into s and ds^T into dp, with the lse2 and delta of the query tile
+  // in the second ring's n-th stage
+  auto grads = [&](int n) {
+    mbar_wait(&out_full[out_stage(n)], out_phase(n));
+    const float* lt = reinterpret_cast<const float*>(
+        smem + S::kLOff + out_stage(n) * 2 * S::kLineBytes);
+    dkv_grads<kNq>(s, dp, lt, lt + kNq, p, t);
+  };
+  auto split = [&]() {
+    split_frags<kNq>(s, ph, pl);
+    split_frags<kNq>(dp, dsh, dsl);
+  };
+
+  int n = 0;  // second-ring stages taken
+  for (int i = 0; i < items; ++i) {
+    const Item it(p, blockIdx.x + i * gridDim.x);
+    const int b = it.b, h = it.h;
+    const int key_w = it.tile * S::kKeys + 16 * warp;  // the warp's first
+    const int col0 = cut.chunk(it.group, c) * kCols;   // the consumer's
+#pragma unroll
+    for (int x = 0; x < kCols / 2; ++x) dk[x] = dv[x] = 0.f;
+
+    // The first query tile's turn is peeled off the loop.  In the loop the
+    // gradient products of the tile before run while this tile's exps do.
+    logits();
+    grads(n);
+    split();
+    for (int j = 1; j < p.n_loop; ++j) {
+      logits();
+      accumulate(n);
+      grads(n + 1);
+      accumulated(n);
+      split();
+      ++n;
+    }
+    accumulate(n);
+    accumulated(n);
+    ++n;
+
+    // a clamped chunk's copy is not stored (no rows below 0)
+    const int rows = cut.stores(it.group, c) ? p.T : 0;
+    store_acc<kCols>(dk, p.out0 + b * p.s0[0] + h * p.s0[1], p.s0[2], key_w,
+                     rows, col0, p.D, p.pairs, lane);
+    store_acc<kCols>(dv, p.out1 + b * p.s1[0] + h * p.s1[1], p.s1[2], key_w,
+                     rows, col0, p.D, p.pairs, lane);
+  }
+}
+
+// Launches dkv_stream_kernel<kNq, kCols>: a persistent grid, one block an
+// SM.
+template <int kNq, int kCols>
+cudaError_t launch_dkv_stream(const attn_wg::View& q,
+                              const attn_wg::View& k,
+                              const attn_wg::View& v,
+                              const attn_wg::View& dout,
+                              attn_wg::BwdParams p, int B, int H, int T,
+                              int D, cudaStream_t stream) {
+  using namespace attn_wg;
+  using S = DkvStreamShape<kNq, kCols>;
+  auto kernel = dkv_stream_kernel<kNq, kCols>;
+  static std::atomic<uint64_t> opted_in{0};
+  const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm, dm;
+  if (!tensor_map(&qm, q, B, H, T, D, 64, kNq, 1) ||
+      !tensor_map(&dm, dout, B, H, T, D, 64, kNq, 1) ||
+      !tensor_map(&km, k, B, H, T, D, 64, S::kKeys, 1) ||
+      !tensor_map(&vm, v, B, H, T, D, 64, S::kKeys, 1))
+    return cudaErrorInvalidValue;
+  const int chunks = (D + kCols - 1) / kCols;
+  p.n_groups = (chunks + 1) / 2;
+  p.n_items = (T + S::kKeys - 1) / S::kKeys * p.n_groups;
+  p.n_loop = (T + kNq - 1) / kNq;
+  p.total = B * H * p.n_items;
+  kernel<<<min(p.total, sm_count()), attn_wg::kThreads, S::kBytes, stream>>>(
+      qm, km, vm, dm, p);
+  return cudaGetLastError();
+}
+
+// The instance of the first table width >= D (backward_tiles.cuh), past
+// the widest the streamed row's.
 cudaError_t launch_wgmma(const attn_wg::View& q, const attn_wg::View& k,
                          const attn_wg::View& v, const attn_wg::View& dout,
                          const attn_wg::BwdParams& p, int B, int H, int T,
                          int D, cudaStream_t stream) {
 #define DQ(w, n, cols)
+#define DQ_STREAMED(n, cols)
 #define DKV(w, n, cols)                                                  \
   if (D <= w)                                                            \
     return launch_dkv<w, n, cols>(q, k, v, dout, p, B, H, T, D, stream);
+#define DKV_STREAMED(n, cols)                                            \
+  return launch_dkv_stream<n, cols>(q, k, v, dout, p, B, H, T, D, stream);
 #include "backward_tiles.cuh"
 #undef DQ
+#undef DQ_STREAMED
 #undef DKV
-  return cudaErrorInvalidValue;
+#undef DKV_STREAMED
+  return cudaErrorInvalidValue;  // a table without a DKV_STREAMED row
 }
 
-// The wgmma instance's dynamic shared memory at D (0 past the table).
+// The wgmma instance's dynamic shared memory at D.
 size_t wgmma_smem_bytes(int D) {
 #define DQ(w, n, cols)
+#define DQ_STREAMED(n, cols)
 #define DKV(w, n, cols) \
   if (D <= w) return DkvShape<w, n, cols>::kBytes;
+#define DKV_STREAMED(n, cols) return DkvStreamShape<n, cols>::kBytes;
 #include "backward_tiles.cuh"
 #undef DQ
+#undef DQ_STREAMED
 #undef DKV
+#undef DKV_STREAMED
   return 0;
 }
 
@@ -786,188 +1069,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// bf16, on mma.sync: blocks of 4 warps per (b, h, 64 keys, column chunk of
-// dk or dv), a warp owning 16 keys.
-constexpr int kMmaWarps = 4;
-constexpr int kMmaTileK = 16 * kMmaWarps;  // keys per block
-constexpr int kMmaThreads = 32 * kMmaWarps;
-
-// bf16 dynamic shared memory: in bf16, 8 zeros, then two stages, each a Q
-// chunk and a dO chunk of kChunk rows of stride_elems(kColChunk); then in
-// f32 the lse (log2 units) and delta of two query tiles, kChunk each.
-size_t chunk_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) *
-             (8 + 4 * static_cast<size_t>(attn_mma::kChunk) *
-                      attn_mma::stride_elems(kColChunk)) +
-         sizeof(float) * 4 * attn_mma::kChunk;
-}
-
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dkv_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                                   const __nv_bfloat16* __restrict__ k,
-                                   const __nv_bfloat16* __restrict__ v,
-                                   const __nv_bfloat16* __restrict__ o,
-                                   const __nv_bfloat16* __restrict__ dout,
-                                   const float* __restrict__ lse,
-                                   __nv_bfloat16* __restrict__ dk,
-                                   __nv_bfloat16* __restrict__ dv,
-                                   BwdLayout L, int H, int seq, int D,
-                                   float scale, float c, bool vec) {
-  using namespace attn_mma;
-  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
-  const int tile = kChunk * stride_elems(kColChunk);
-  __nv_bfloat16* zeros = smem_bf16;
-  __nv_bfloat16* ring = smem_bf16 + 8;  // stage i: Q at + 2i*tile, then dO
-  float* lse_s = reinterpret_cast<float*>(ring + 4 * tile);  // + slot*kChunk
-  float* delta_s = lse_s + 2 * kChunk;
-
-  const int tiles = (seq + kMmaTileK - 1) / kMmaTileK;
-  const int bh = blockIdx.x / tiles;  // b * H + h
-  const int k0 = (blockIdx.x - bh * tiles) * kMmaTileK;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  // row 0 of head (b, h) of each view (of K and V: row k0), its rows
-  // L.st[x] apart
-  const __nv_bfloat16* qh = q + L.head(0, b, h);
-  const __nv_bfloat16* kh = k + L.head(1, b, h) + k0 * L.st[1];
-  const __nv_bfloat16* vh = v + L.head(2, b, h) + k0 * L.st[2];
-  const __nv_bfloat16* oh = o + L.head(3, b, h);
-  const __nv_bfloat16* doh = dout + L.head(4, b, h);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nk = min(kMmaTileK, seq - k0);
-  const int key0 = 16 * warp;  // this warp's first key in the block's tile
-  const bool active = key0 < nk;  // warp-uniform
-  const int nc = col_chunks(D);
-  const bool dv_block = blockIdx.y >= nc;  // else a dk block
-  const int cc = blockIdx.y - (dv_block ? nc : 0);  // the block's chunk
-  const int wc = chunk_width(D, cc);
-
-  // step i: query tile i / nc against column chunk (cc + 1 + i % nc) % nc,
-  // so that a tile's last step is the block's own chunk; a dv block stages
-  // dO for that step alone.  A tile's first step also writes its rows' lse
-  // and delta (two threads a row, +inf and 0 past T) into slot tile % 2.
-  auto chunk_of = [&](int i) { return (cc + 1 + i % nc) % nc; };
-  auto stage = [&](int i) {
-    const int it = i / nc;
-    const int q0 = it * kChunk;
-    const int n = min(kChunk, seq - q0);
-    const int e = chunk_of(i);
-    const int we = chunk_width(D, e);
-    __nv_bfloat16* dst = ring + (i & 1) * 2 * tile;
-    stage_rows(dst, qh + q0 * L.st[0] + e * kColChunk, L.st[0], n, we, vec,
-               threadIdx.x, kMmaThreads);
-    if (!dv_block || e == cc)
-      stage_rows(dst + tile, doh + q0 * L.st[4] + e * kColChunk, L.st[4], n,
-                 we, vec, threadIdx.x, kMmaThreads);
-    cp_async_commit();
-    if (i % nc == 0) {  // block-uniform
-      const int r = threadIdx.x >> 1;
-      float a = 0.f;
-      if (r < n) {
-        const __nv_bfloat16* orow = oh + (q0 + r) * L.st[3];
-        const __nv_bfloat16* drow = doh + (q0 + r) * L.st[4];
-        if (vec) {
-          for (int ch = threadIdx.x & 1; ch < D / 8; ch += 2)
-            a = dot8(*reinterpret_cast<const uint4*>(drow + 8 * ch),
-                     *reinterpret_cast<const uint4*>(orow + 8 * ch), a);
-        } else {
-          for (int d = threadIdx.x & 1; d < D; d += 2)
-            a = fmaf(__bfloat162float(drow[d]), __bfloat162float(orow[d]),
-                     a);
-        }
-      }
-      a += __shfl_xor_sync(0xffffffffu, a, 1);
-      if ((threadIdx.x & 1) == 0) {
-        lse_s[(it & 1) * kChunk + r] =
-            r < n ? lse[static_cast<int64_t>(bh) * seq + q0 + r] * kLog2e
-                  : CUDART_INF_F;
-        delta_s[(it & 1) * kChunk + r] = a;
-      }
-    }
-  };
-
-  stage(0);
-  if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
-  const int t = lane & 3;
-  uint32_t a[kColChunk / 16][4];  // one chunk of K or V rows at a time
-  float acc[kColChunk / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < kColChunk / 8; ++nb)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) acc[nb][x] = 0.f;
-
-  float sT[kChunk / 8][4], dpT[kChunk / 8][4];
-  const int steps = (seq + kChunk - 1) / kChunk * nc;
-  for (int i = 0; i < steps; ++i) {
-    if (i + 1 < steps) {
-      stage(i + 1);  // its buffers were last read before the previous sync
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // step i has landed for every thread
-    if (active) {
-      const int it = i / nc;
-      const int n = min(kChunk, seq - it * kChunk);
-      const int e = chunk_of(i);
-      const int we = chunk_width(D, e);
-      const __nv_bfloat16* qt = ring + (i & 1) * 2 * tile;
-      const __nv_bfloat16* dot_s = qt + tile;
-      if (i % nc == 0) {
-#pragma unroll
-        for (int nb = 0; nb < kChunk / 8; ++nb)
-#pragma unroll
-          for (int x = 0; x < 4; ++x) sT[nb][x] = dpT[nb][x] = 0.f;
-      }
-      load_rows_a<kColChunk>(a, kh + e * kColChunk, L.st[1], key0, nk, we,
-                             lane);
-      chunk_logits<kColChunk>(sT, a, qt, 0, n, n, we, zeros, lane);
-      if (!dv_block) {
-        load_rows_a<kColChunk>(a, vh + e * kColChunk, L.st[2], key0, nk, we,
-                               lane);
-        chunk_logits<kColChunk>(dpT, a, dot_s, 0, n, n, we, zeros, lane);
-      }
-      if (e == cc) {
-        const float* lt = lse_s + (it & 1) * kChunk;
-        const float* dlt = delta_s + (it & 1) * kChunk;
-#pragma unroll
-        for (int nb = 0; nb < kChunk / 8; ++nb) {
-          // this thread's columns 2t and 2t+1 of the 8 at 8nb
-          const float2 l2 =
-              *reinterpret_cast<const float2*>(lt + 8 * nb + 2 * t);
-          const float2 d2 =
-              *reinterpret_cast<const float2*>(dlt + 8 * nb + 2 * t);
-#pragma unroll
-          for (int x = 0; x < 4; ++x) {
-            const float p = exp2f(sT[nb][x] * c - (x & 1 ? l2.y : l2.x));
-            sT[nb][x] = p;  // lse +inf: p = 0
-            dpT[nb][x] = p * (dpT[nb][x] - (x & 1 ? d2.y : d2.x)) * scale;
-          }
-        }
-#pragma unroll
-        for (int kb = 0; kb < kChunk / 16; ++kb) {
-          if (16 * kb >= n) break;  // warp-uniform
-          if (dv_block)
-            mma_p_b<kColChunk>(acc, sT[2 * kb], sT[2 * kb + 1], dot_s, 16 * kb,
-                               n, wc, zeros, lane);
-          else
-            mma_p_b<kColChunk>(acc, dpT[2 * kb], dpT[2 * kb + 1], qt, 16 * kb,
-                               n, wc, zeros, lane);
-        }
-      }
-    }
-    __syncthreads();  // step i is no longer read
-  }
-  if (active) {
-    const int x = dv_block ? 6 : 5;  // the view written
-    store_rows<kColChunk>(acc,
-                          (dv_block ? dv : dk) + L.head(x, b, h) +
-                              k0 * L.st[x] + cc * kColChunk,
-                          L.st[x], key0, nk, wc, lane);
-  }
-}
-
 cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* dk, void* dv, const BwdLayout& L, int B,
@@ -997,77 +1098,59 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* dk, void* dv, float* rows, const BwdLayout& L,
                         int B, int H, int seq, int D, float scale,
                         cudaStream_t s) {
-  if (D <= attn_wg::widest_backward()) {
-    using attn_wg::View;
-    attn_wg::BwdParams p{};
-    p.out0 = static_cast<__nv_bfloat16*>(dk);
-    p.out1 = static_cast<__nv_bfloat16*>(dv);
-    p.o = static_cast<const __nv_bfloat16*>(o);
-    p.dout = static_cast<const __nv_bfloat16*>(dout);
-    p.lse = static_cast<const float*>(lse);
-    const int BH = B * H;
-    p.Tpad = (seq + attn_wg::kRowsPad - 1) / attn_wg::kRowsPad *
-             attn_wg::kRowsPad;
-    p.rows = rows;
-    p.deltas = rows + static_cast<int64_t>(BH) * p.Tpad;
-    for (int x = 0; x < 3; ++x) {
-      const int64_t* st[3] = {L.sb, L.sh, L.st};
-      p.so[x] = st[x][3];
-      p.sd[x] = st[x][4];
-      p.s0[x] = st[x][5];
-      p.s1[x] = st[x][6];
-    }
-    p.H = H;
-    p.T = seq;
-    p.D = D;
-    p.scale = scale;
-    p.c = scale * attn_wg::kLog2e;
-    p.pairs = D % 2 == 0 &&
-              (reinterpret_cast<uintptr_t>(dk) |
-               reinterpret_cast<uintptr_t>(dv)) % 4 == 0 &&
-              (L.sb[5] | L.sh[5] | L.st[5] | L.sb[6] | L.sh[6] | L.st[6]) %
-                      2 == 0;
-    // 16-byte rows of o and do for the rows' dot products
-    const bool vec = attn_mma::can_copy_chunks(D, o, dout) &&
-                     (L.sb[3] | L.sh[3] | L.st[3] | L.sb[4] | L.sh[4] |
-                      L.st[4]) % 8 == 0;
-    dkv_rows_kernel<<<(BH * p.Tpad + 255) / 256, 256, 0, s>>>(p, BH, vec);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    return launch_wgmma(View{q, L.sb[0], L.sh[0], L.st[0]},
-                        View{k, L.sb[1], L.sh[1], L.st[1]},
-                        View{v, L.sb[2], L.sh[2], L.st[2]},
-                        View{dout, L.sb[4], L.sh[4], L.st[4]}, p, B, H, seq,
-                        D, s);
+  using attn_wg::View;
+  attn_wg::BwdParams p{};
+  p.out0 = static_cast<__nv_bfloat16*>(dk);
+  p.out1 = static_cast<__nv_bfloat16*>(dv);
+  p.o = static_cast<const __nv_bfloat16*>(o);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  const int BH = B * H;
+  p.Tpad =
+      (seq + attn_wg::kRowsPad - 1) / attn_wg::kRowsPad * attn_wg::kRowsPad;
+  p.rows = rows;
+  p.deltas = rows + static_cast<int64_t>(BH) * p.Tpad;
+  for (int x = 0; x < 3; ++x) {
+    const int64_t* st[3] = {L.sb, L.sh, L.st};
+    p.so[x] = st[x][3];
+    p.sd[x] = st[x][4];
+    p.s0[x] = st[x][5];
+    p.s1[x] = st[x][6];
   }
-  const int tiles = (seq + kMmaTileK - 1) / kMmaTileK;
-  const bool vec = attn_mma::can_copy_chunks(D, q, k, v, o, dout) &&
-                   (L.sb[0] | L.sh[0] | L.st[0] | L.sb[1] | L.sh[1] | L.st[1] |
-                    L.sb[2] | L.sh[2] | L.st[2] | L.sb[3] | L.sh[3] | L.st[3] |
-                    L.sb[4] | L.sh[4] | L.st[4]) % 8 == 0;
-  return launch_with_smem(
-      flash_bwd_dkv_chunk_mma_kernel, dim3(B * H * tiles, 2 * col_chunks(D)),
-      kMmaThreads, chunk_mma_smem_bytes(), s,
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), L, H,
-      seq, D, scale, scale * attn_mma::kLog2e, vec);
+  p.H = H;
+  p.T = seq;
+  p.D = D;
+  p.scale = scale;
+  p.c = scale * attn_wg::kLog2e;
+  p.pairs = D % 2 == 0 &&
+            (reinterpret_cast<uintptr_t>(dk) |
+             reinterpret_cast<uintptr_t>(dv)) % 4 == 0 &&
+            (L.sb[5] | L.sh[5] | L.st[5] | L.sb[6] | L.sh[6] | L.st[6]) %
+                    2 == 0;
+  // 16-byte rows of o and do for the rows' dot products
+  const bool vec = can_copy_chunks(D, o, dout) &&
+                   (L.sb[3] | L.sh[3] | L.st[3] | L.sb[4] | L.sh[4] |
+                    L.st[4]) % 8 == 0;
+  dkv_rows_kernel<<<(BH * p.Tpad + 255) / 256, 256, 0, s>>>(p, BH, vec);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_wgmma(View{q, L.sb[0], L.sh[0], L.st[0]},
+                      View{k, L.sb[1], L.sh[1], L.st[1]},
+                      View{v, L.sb[2], L.sh[2], L.st[2]},
+                      View{dout, L.sb[4], L.sh[4], L.st[4]}, p, B, H, seq, D,
+                      s);
 }
 
 }  // namespace
 
 // q, k, v, o, dout, dk, dv: (B, H, T, D) views (o and dout as views of their
 // (B, T, H, D) tensors), their (b, h, t) strides in elements in `strides`,
-// three each in that order (d's stride is 1); the bf16 wgmma instance (D <=
-// 512) reads q, k, v and dout through tensor maps, so their bases are
-// 16-byte aligned and those strides multiples of 8 elements, which the
-// wrapper sees to.  lse: (B, H, T) float32 contiguous.  rows: the bf16
-// wgmma instance's scratch of flash_bwd_dkv_scratch_floats(B, H, T, D)
-// floats (null elsewhere).  dk and dv have k's type.  Any D; dtype 0 is
-// float32, 1 is bfloat16.  Returns the cudaError_t of the launch.
+// three each in that order (d's stride is 1); the bf16 wgmma instances
+// read q, k, v and dout through tensor maps, so their bases are 16-byte
+// aligned and those strides multiples of 8 elements, which the wrapper
+// sees to.  lse: (B, H, T) float32 contiguous.  rows: the bf16 instances'
+// scratch of flash_bwd_dkv_scratch_floats(B, H, T, D) floats.  dk and dv
+// have k's type.  Any D; dtype 0 is float32, 1 is bfloat16.  Returns the cudaError_t of the launch.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* dk, void* dv, void* rows,
@@ -1088,10 +1171,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 // The floats of scratch one bf16 launch needs: the rows of lse * log2(e)
-// and of delta, each (B * H, T rounded up to kRowsPad), where the wgmma
-// instance runs (D <= 512); 0 elsewhere.
+// and of delta, each (B * H, T rounded up to kRowsPad), at any D.
 extern "C" long long flash_bwd_dkv_scratch_floats(int B, int H, int T, int D) {
-  if (D > attn_wg::widest_backward()) return 0;
+  (void)D;
   const long long pad = (T + attn_wg::kRowsPad - 1) / attn_wg::kRowsPad *
                         attn_wg::kRowsPad;
   return 2LL * B * H * pad;
@@ -1102,8 +1184,6 @@ extern "C" long long flash_bwd_dkv_scratch_floats(int B, int H, int T, int D) {
 extern "C" long long flash_bwd_dkv_smem_bytes(int T, int D) {
   (void)T;
   const size_t f32 = D <= kColChunk ? smem_bytes(D) : chunk_smem_bytes();
-  const size_t bf16 =
-      D <= attn_wg::widest_backward() ? wgmma_smem_bytes(D)
-                                      : chunk_mma_smem_bytes();
+  const size_t bf16 = wgmma_smem_bytes(D);
   return static_cast<long long>(f32 > bf16 ? f32 : bf16);
 }

@@ -23,7 +23,7 @@
 // the tensor cores' peak, and with ds split into hi + lo the products are
 // four.  At the flagship's T=65 it is bytes: a head is 65 rows.  So:
 //
-//   bf16 (dtype 1), D <= 512: the warp-specialised wgmma kernel below, on
+//   bf16 (dtype 1): the warp-specialised wgmma kernels below, on
 //   the blocks of wgmma_blocks.cuh and wgmma_backward.cuh.  A persistent
 //   grid of one block an SM walks the work items (b, h, 128 query rows), so
 //   a head of T <= 128 (the flagship's 65) is one item.  A producer thread
@@ -45,16 +45,14 @@
 //   its two consumers on the same rows, each summing s and dp over all the
 //   head's columns (padded to a multiple of 128) and holding its chunk of
 //   dq; s, dp and the exps are computed twice an item, 2 * ceil(D/256)
-//   times in all.  The item's rows at the full width must fit shared
-//   memory beside the ring, hence the 512-column limit (16-key tiles
-//   there).  Rows and keys past T and columns past D arrive as zeros from
-//   TMA; rows past T read lse = delta = 0 (so ds is 0) and are never
-//   written.
-//
-//   bf16, D > 512: the mma.sync column-chunk kernel (mma_attention.cuh):
-//   one block of 4 warps per (b, h, 64 query rows, 128-column chunk of dq),
-//   s and dp summed over every chunk by each block, ceil(D/128) times in
-//   all, K and V staged by cp.async.
+//   times in all.  The item's rows at the full width fit shared memory
+//   beside the ring up to 512 columns (16-key tiles there); past the
+//   table the streamed instance (dq_stream_kernel) brings Q, dO, K and V a
+//   64-column chunk a stage and sums s and dp over the chunks in its
+//   registers, and the K tile at the item's columns through a second
+//   ring, so any width runs.  Rows and keys past T and columns past D
+//   arrive as zeros from TMA; rows past T read lse = delta = 0 (so ds is
+//   0) and are never written.
 //
 //   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
 //   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
@@ -74,7 +72,6 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
-#include "mma_attention.cuh"
 #include "wgmma_backward.cuh"
 
 namespace {
@@ -346,7 +343,7 @@ __global__ void __launch_bounds__(attn_wg::kThreads, 1)
   const int c = role;
   const int warp = (threadIdx.x / 32) & 3;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int t = lane & 3;
 
   float s[kN / 2], dp[kN / 2];
   float dq[kCols / 2];
@@ -365,27 +362,8 @@ __global__ void __launch_bounds__(attn_wg::kThreads, 1)
     // the warp's first row, the consumer's first column
     const int row_w = it.tile * S::kRows + C::row0(c) + 16 * warp;
     const int col0 = C::chunk(it.group, c) * kCols;
-    // lse (log2 units) and delta of the thread's rows g and g+8, delta from
-    // the o and do rows as the TPU kernel computes it at j == 0 (the four
-    // lanes of a quad over every fourth column); 0 past T, where ds is then
-    // 0 (q and do arrive as zeros there)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row_w + g + 8 * r;
-      float l2 = 0.f, dl = 0.f;
-      if (row < p.T) {
-        const bf16* orow = p.o + b * p.so[0] + h * p.so[1] + row * p.so[2];
-        const bf16* drow =
-            p.dout + b * p.sd[0] + h * p.sd[1] + row * p.sd[2];
-        for (int d = t; d < p.D; d += 4)
-          dl = fmaf(__bfloat162float(drow[d]), __bfloat162float(orow[d]), dl);
-        l2 = p.lse[static_cast<long long>(it.bh) * p.T + row] * kLog2e;
-      }
-      dl += __shfl_xor_sync(0xffffffffu, dl, 1);
-      dl += __shfl_xor_sync(0xffffffffu, dl, 2);
-      lse2[r] = l2;
-      delta[r] = dl;
-    }
+    // q and do rows past T arrive as zeros, and lse = delta = 0 there
+    row_terms(p, it, row_w, lane, lse2, delta);
 #pragma unroll
     for (int x = 0; x < kCols / 2; ++x) dq[x] = 0.f;
     mbar_wait(&q_full[qb], qph);
@@ -418,21 +396,6 @@ __global__ void __launch_bounds__(attn_wg::kThreads, 1)
           dq, hi, lo, smem_u32(smem + S::kKOff + st * S::kKBytes) + col_off);
       wg_commit();
     };
-    // ds = p * (dp - delta) * scale into s; in the first tile taken (keys
-    // from k0) keys past T get p = 0 by a select
-    auto grads = [&](int k0, auto masked) {
-#pragma unroll
-      for (int nb = 0; nb < kN / 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          float x = ex2(fmaf(s[4 * nb + e], p.c, -lse2[r]));
-          if constexpr (decltype(masked)::value)
-            x = k0 + 8 * nb + 2 * t + (e & 1) >= p.T ? 0.f : x;
-          s[4 * nb + e] = x * (dp[4 * nb + e] - delta[r]) * p.scale;
-        }
-    };
-
     // Key tiles are taken last to first: the first one taken holds the
     // keys past T, and it alone is masked.  Its turn is peeled off the loop
     // so that no wait or product of the loop sits under a branch.
@@ -442,7 +405,7 @@ __global__ void __launch_bounds__(attn_wg::kThreads, 1)
     fence_regs(s);
     fence_regs(dp);
     if (p.n_loop == 1) release(&q_empty[qb]);  // q and do are read no more
-    grads((p.n_loop - 1) * kN, std::true_type{});
+    dq_grads<kN, true>(s, dp, lse2, delta, p, (p.n_loop - 1) * kN, t);
     split_frags<kN>(s, hi, lo);
     int prev = stage;
     if (++stage == kStages) stage = 0, sph ^= 1;
@@ -454,7 +417,7 @@ __global__ void __launch_bounds__(attn_wg::kThreads, 1)
       fence_regs(s);
       fence_regs(dp);
       if (j == p.n_loop - 1) release(&q_empty[qb]);
-      grads(0, std::false_type{});
+      dq_grads<kN, false>(s, dp, lse2, delta, p, 0, t);
       wg_wait<0>();
       fence_regs(dq);
       fence_regs(hi);
@@ -513,7 +476,255 @@ cudaError_t launch_dq(const attn_wg::View& q, const attn_wg::View& k,
   return cudaGetLastError();
 }
 
-// The instance of the first table width >= D (backward_tiles.cuh).
+// ---- bf16 past the table: the streamed dq kernel --------------------------
+// Past the table's widest row an item's Q and dO rows at the full width no
+// longer fit shared memory beside the ring.  Here nothing is held at the
+// full width: each stage of the ring holds one 64-column chunk of the
+// item's Q and dO rows and of a K and a V tile, and the consumers add each
+// chunk's products into s and dp in their registers; then dq += ds.k reads
+// the K tile at the item's columns of dq, which comes through a second
+// ring (kOutStages), so that the ds.k of one key tile runs while the
+// next tile's exps do.  Work items are (b * H + h, 64 query rows, group of
+// two chunks of kCols columns of dq), consumer c on chunk 2 * group + c
+// (StreamCut); the grid is persistent.
+//
+// Shared memory: kStages stages of a Q, a dO, a K and a V chunk (64, 64,
+// kN and kN rows of 64 columns), kOutStages stages of the K tile at the
+// item's columns (both consumers' chunks, kN rows each), the barriers.
+template <int kN, int kCols>
+struct DqStreamShape {
+  static constexpr int kRows = 64;                    // query rows an item
+  static constexpr int kQBytes = kRows * 128;         // a chunk of Q or dO
+  static constexpr int kKBytes = kN * 128;            // a chunk of K or V
+  static constexpr int kDOff = kQBytes;               // within a stage
+  static constexpr int kKOff = 2 * kQBytes;
+  static constexpr int kVOff = kKOff + kKBytes;
+  static constexpr int kStageBytes = 2 * kQBytes + 2 * kKBytes;
+  static constexpr int kOutAtoms = kCols / 64;        // a consumer's
+  static constexpr int kSlotBytes = kOutAtoms * kKBytes;
+  static constexpr int kOutBytes = 2 * kSlotBytes;
+  static constexpr int kOutStages = 2;
+  // as many stages as fit, at most 6
+  static constexpr int kFit =
+      (attn_wg::kSmemBudget - kOutStages * kOutBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 6 ? kFit : 6;
+  static constexpr int kOutOff = kStages * kStageBytes;
+  static constexpr int kBarOff = kOutOff + kOutStages * kOutBytes;
+  static constexpr int kBytes =
+      kBarOff + 8 * 2 * (kStages + kOutStages) + 1024;
+  static_assert(kN % 16 == 0 && kN <= 128, "key tile");
+  static_assert(kCols % 64 == 0 && kCols <= 256, "whole atoms, wgmma's N");
+  static_assert(kStages >= 2, "a ring of at least two stages");
+};
+
+template <int kN, int kCols>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    dq_stream_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap domap,
+                     const attn_wg::BwdParams p) {
+  using namespace attn_wg;
+  using S = DqStreamShape<kN, kCols>;
+  constexpr int kStages = S::kStages;
+  constexpr int kOutStages = S::kOutStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* empty = full + kStages;
+  uint64_t* out_full = empty + kStages;
+  uint64_t* out_empty = out_full + kOutStages;
+  const int items =
+      (p.total - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int n_dc = atoms_of(p.D);
+  const StreamCut cut{(p.D + kCols - 1) / kCols};
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+    for (int i = 0; i < kOutStages; ++i) {
+      mbar_init(&out_full[i], 1);
+      mbar_init(&out_empty[i], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == kConsumerWGs) {
+    // ---- producer: one thread keeps the TMA loads in flight ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (threadIdx.x != 128 * kConsumerWGs) return;
+    prefetch_map(&qmap);
+    prefetch_map(&domap);
+    prefetch_map(&kmap);
+    prefetch_map(&vmap);
+    int st = 0, sph = 0, os = 0, oph = 0;
+    for (int i = 0; i < items; ++i) {
+      const Item it(p, blockIdx.x + i * gridDim.x);
+      const int q0 = it.tile * S::kRows;
+      // the atoms of the consumers' chunks of dq that hold columns < D
+      // (atoms wholly past D feed only columns never stored)
+      int atoms[2];
+      for (int c = 0; c < 2; ++c)
+        atoms[c] = cut.stores(it.group, c)
+                       ? min(S::kOutAtoms,
+                             atoms_of(p.D - cut.chunk(it.group, c) * kCols))
+                       : 0;
+      for (int j = 0; j < p.n_loop; ++j) {
+        const int k0 = (p.n_loop - 1 - j) * kN;  // last tile first
+        for (int d = 0; d < n_dc; ++d) {
+          mbar_wait(&empty[st], sph ^ 1);  // a fresh barrier passes at once
+          mbar_expect_tx(&full[st], S::kStageBytes);
+          uint8_t* dst = smem + st * S::kStageBytes;
+          tma_load_4d(dst, &qmap, &full[st], 64 * d, it.h, q0, it.b);
+          tma_load_4d(dst + S::kDOff, &domap, &full[st], 64 * d, it.h, q0,
+                      it.b);
+          tma_load_4d(dst + S::kKOff, &kmap, &full[st], 64 * d, it.h, k0,
+                      it.b);
+          tma_load_4d(dst + S::kVOff, &vmap, &full[st], 64 * d, it.h, k0,
+                      it.b);
+          if (++st == kStages) st = 0, sph ^= 1;
+        }
+        mbar_wait(&out_empty[os], oph ^ 1);
+        mbar_expect_tx(&out_full[os], (atoms[0] + atoms[1]) * S::kKBytes);
+        for (int c = 0; c < 2; ++c)
+          for (int a = 0; a < atoms[c]; ++a)
+            tma_load_4d(smem + S::kOutOff + os * S::kOutBytes +
+                            c * S::kSlotBytes + a * S::kKBytes,
+                        &kmap, &out_full[os],
+                        cut.chunk(it.group, c) * kCols + 64 * a, it.h, k0,
+                        it.b);
+        if (++os == kOutStages) os = 0, oph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: both on the item's 64 rows, each its chunk of dq ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = role;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+
+  float s[kN / 2], dp[kN / 2];
+  float dq[kCols / 2];
+  uint32_t hi[kN / 16][4], lo[kN / 16][4];
+  float lse2[2], delta[2];
+
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  int st = 0, sph = 0, os = 0, oph = 0;
+  // s = q.k^T and dp = do.v^T of one key tile, their 64-column chunks in
+  // turn from the ring, each stage released once its products are done
+  auto logits = [&]() {
+    for (int d = 0; d < n_dc; ++d) {
+      mbar_wait(&full[st], sph);
+      const uint32_t base = smem_u32(smem + st * S::kStageBytes);
+      fence_regs(s);
+      fence_regs(dp);
+      wg_fence();
+      product_ss_atom<kN>(s, base, base + S::kKOff, d > 0);
+      product_ss_atom<kN>(dp, base + S::kDOff, base + S::kVOff, d > 0);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      release(&empty[st]);
+      if (++st == kStages) st = 0, sph ^= 1;
+    }
+  };
+  // dq += ds.k of the oldest K tile of the second ring, ds = hi + lo, over
+  // the consumer's columns
+  auto accumulate = [&]() {
+    mbar_wait(&out_full[os], oph);
+    fence_regs(dq);
+    fence_regs(hi);
+    fence_regs(lo);
+    wg_fence();
+    product_rs<64, kCols, kN>(
+        dq, hi, lo,
+        smem_u32(smem + S::kOutOff + os * S::kOutBytes + c * S::kSlotBytes));
+    wg_commit();
+  };
+  auto accumulated = [&]() {
+    wg_wait<0>();
+    fence_regs(dq);
+    fence_regs(hi);
+    fence_regs(lo);
+    release(&out_empty[os]);
+    if (++os == kOutStages) os = 0, oph ^= 1;
+  };
+
+  for (int i = 0; i < items; ++i) {
+    const Item it(p, blockIdx.x + i * gridDim.x);
+    const int b = it.b, h = it.h;
+    const int row_w = it.tile * S::kRows + 16 * warp;  // the warp's first
+    const int col0 = cut.chunk(it.group, c) * kCols;   // the consumer's
+    row_terms(p, it, row_w, lane, lse2, delta);
+#pragma unroll
+    for (int x = 0; x < kCols / 2; ++x) dq[x] = 0.f;
+
+    // Key tiles last to first; the first one taken, alone masked, is
+    // peeled off the loop.  In the loop the ds.k of the tile before runs
+    // while this tile's exps do.
+    logits();
+    dq_grads<kN, true>(s, dp, lse2, delta, p, (p.n_loop - 1) * kN, t);
+    split_frags<kN>(s, hi, lo);
+    for (int j = 1; j < p.n_loop; ++j) {
+      logits();
+      accumulate();
+      dq_grads<kN, false>(s, dp, lse2, delta, p, 0, t);
+      accumulated();
+      split_frags<kN>(s, hi, lo);
+    }
+    accumulate();
+    accumulated();
+
+    // a clamped chunk's copy is not stored (no rows below 0)
+    store_acc<kCols>(dq, p.out0 + b * p.s0[0] + h * p.s0[1], p.s0[2], row_w,
+                     cut.stores(it.group, c) ? p.T : 0, col0, p.D, p.pairs,
+                     lane);
+  }
+}
+
+// Launches dq_stream_kernel<kN, kCols>: a persistent grid, one block an SM.
+template <int kN, int kCols>
+cudaError_t launch_dq_stream(const attn_wg::View& q, const attn_wg::View& k,
+                             const attn_wg::View& v,
+                             const attn_wg::View& dout, attn_wg::BwdParams p,
+                             int B, int H, int T, int D,
+                             cudaStream_t stream) {
+  using namespace attn_wg;
+  using S = DqStreamShape<kN, kCols>;
+  auto kernel = dq_stream_kernel<kN, kCols>;
+  static std::atomic<uint64_t> opted_in{0};
+  const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm, dm;
+  if (!tensor_map(&qm, q, B, H, T, D, 64, S::kRows, 1) ||
+      !tensor_map(&dm, dout, B, H, T, D, 64, S::kRows, 1) ||
+      !tensor_map(&km, k, B, H, T, D, 64, kN, 1) ||
+      !tensor_map(&vm, v, B, H, T, D, 64, kN, 1))
+    return cudaErrorInvalidValue;
+  const int chunks = (D + kCols - 1) / kCols;
+  p.n_groups = (chunks + 1) / 2;
+  p.n_items = (T + S::kRows - 1) / S::kRows * p.n_groups;
+  p.n_loop = (T + kN - 1) / kN;
+  p.total = B * H * p.n_items;
+  kernel<<<min(p.total, sm_count()), attn_wg::kThreads, S::kBytes, stream>>>(
+      qm, km, vm, dm, p);
+  return cudaGetLastError();
+}
+
+// The instance of the first table width >= D (backward_tiles.cuh), past
+// the widest the streamed row's.
 cudaError_t launch_wgmma(const attn_wg::View& q, const attn_wg::View& k,
                          const attn_wg::View& v, const attn_wg::View& dout,
                          const attn_wg::BwdParams& p, int B, int H, int T,
@@ -521,21 +732,30 @@ cudaError_t launch_wgmma(const attn_wg::View& q, const attn_wg::View& k,
 #define DQ(w, n, cols)                                                   \
   if (D <= w)                                                            \
     return launch_dq<w, n, cols>(q, k, v, dout, p, B, H, T, D, stream);
+#define DQ_STREAMED(n, cols)                                             \
+  return launch_dq_stream<n, cols>(q, k, v, dout, p, B, H, T, D, stream);
 #define DKV(w, n, cols)
+#define DKV_STREAMED(n, cols)
 #include "backward_tiles.cuh"
 #undef DQ
+#undef DQ_STREAMED
 #undef DKV
-  return cudaErrorInvalidValue;
+#undef DKV_STREAMED
+  return cudaErrorInvalidValue;  // a table without a DQ_STREAMED row
 }
 
-// The wgmma instance's dynamic shared memory at D (0 past the table).
+// The wgmma instance's dynamic shared memory at D.
 size_t wgmma_smem_bytes(int D) {
 #define DQ(w, n, cols) \
   if (D <= w) return DqShape<w, n, cols>::kBytes;
+#define DQ_STREAMED(n, cols) return DqStreamShape<n, cols>::kBytes;
 #define DKV(w, n, cols)
+#define DKV_STREAMED(n, cols)
 #include "backward_tiles.cuh"
 #undef DQ
+#undef DQ_STREAMED
 #undef DKV
+#undef DKV_STREAMED
   return 0;
 }
 
@@ -693,155 +913,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// bf16, on mma.sync: one block of 4 warps per (b, h, 64 query rows, column
-// chunk of dq), a warp owning 16 rows.  Dynamic shared memory, in bf16: 8
-// zeros, then two stages, each a K chunk and a V chunk of kChunk rows of
-// stride_elems(kColChunk).
-constexpr int kMmaWarps = 4;
-constexpr int kMmaTileQ = 16 * kMmaWarps;  // query rows per block
-constexpr int kMmaThreads = 32 * kMmaWarps;
-
-size_t chunk_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) *
-         (8 + 4 * static_cast<size_t>(attn_mma::kChunk) *
-                  attn_mma::stride_elems(kColChunk));
-}
-
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dq_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                                  const __nv_bfloat16* __restrict__ k,
-                                  const __nv_bfloat16* __restrict__ v,
-                                  const __nv_bfloat16* __restrict__ o,
-                                  const __nv_bfloat16* __restrict__ dout,
-                                  const float* __restrict__ lse,
-                                  __nv_bfloat16* __restrict__ dq,
-                                  BwdLayout L, int H, int seq, int D,
-                                  float scale, float c, bool vec) {
-  using namespace attn_mma;
-  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
-  const int tile = kChunk * stride_elems(kColChunk);
-  __nv_bfloat16* zeros = smem_bf16;
-  __nv_bfloat16* ring = smem_bf16 + 8;  // stage i: K at + 2i*tile, then V
-
-  const int tiles = (seq + kMmaTileQ - 1) / kMmaTileQ;
-  const int bh = blockIdx.x / tiles;  // b * H + h
-  const int q0 = (blockIdx.x - bh * tiles) * kMmaTileQ;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  // row q0 of head (b, h) of each view, its rows L.st[x] apart
-  const __nv_bfloat16* qh = q + L.head(0, b, h) + q0 * L.st[0];
-  const __nv_bfloat16* kh = k + L.head(1, b, h);
-  const __nv_bfloat16* vh = v + L.head(2, b, h);
-  const __nv_bfloat16* oh = o + L.head(3, b, h) + q0 * L.st[3];
-  const __nv_bfloat16* doh = dout + L.head(4, b, h) + q0 * L.st[4];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nq = min(kMmaTileQ, seq - q0);
-  const int row0 = 16 * warp;  // this warp's first row in the block's tile
-  const bool active = row0 < nq;  // warp-uniform
-  const int nc = col_chunks(D);
-  const int cc = blockIdx.y;  // the block's chunk of dq
-  const int wc = chunk_width(D, cc);
-
-  // step i: key tile i / nc against column chunk (cc + 1 + i % nc) % nc, so
-  // that a tile's last step is the block's own chunk
-  auto chunk_of = [&](int i) { return (cc + 1 + i % nc) % nc; };
-  auto stage = [&](int i) {
-    const int k0 = i / nc * kChunk;
-    const int n = min(kChunk, seq - k0);
-    const int e = chunk_of(i);
-    __nv_bfloat16* dst = ring + (i & 1) * 2 * tile;
-    stage_rows(dst, kh + k0 * L.st[1] + e * kColChunk, L.st[1], n,
-               chunk_width(D, e), vec, threadIdx.x, kMmaThreads);
-    stage_rows(dst + tile, vh + k0 * L.st[2] + e * kColChunk, L.st[2], n,
-               chunk_width(D, e), vec, threadIdx.x, kMmaThreads);
-    cp_async_commit();
-  };
-
-  stage(0);
-  if (threadIdx.x < 8) zeros[threadIdx.x] = __float2bfloat16(0.f);
-  // rows g and g+8 of the warp's 16: lse in log2 units and delta, both 0
-  // past T (so that ds is 0 there)
-  const int g = lane >> 2, t = lane & 3;
-  uint32_t a[kColChunk / 16][4];  // one chunk of q or dO rows at a time
-  float lse2[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
-  if (active) {
-    for (int e = 0; e < nc; ++e) {
-      const int we = chunk_width(D, e);
-      float part[2];
-      load_rows_a<kColChunk>(a, doh + e * kColChunk, L.st[4], row0, nq, we,
-                             lane);
-      rows_dot<kColChunk>(part, a, oh + e * kColChunk, L.st[3], row0, nq, we,
-                          lane);
-      delta[0] += part[0];
-      delta[1] += part[1];
-    }
-    const float* lse_rows = lse + static_cast<int64_t>(bh) * seq + q0;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = row0 + g + 8 * i;
-      if (r < nq) lse2[i] = lse_rows[r] * kLog2e;
-    }
-  }
-  float acc[kColChunk / 8][4];
-#pragma unroll
-  for (int nb = 0; nb < kColChunk / 8; ++nb)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) acc[nb][x] = 0.f;
-
-  float s[kChunk / 8][4], dp[kChunk / 8][4];
-  const int steps = (seq + kChunk - 1) / kChunk * nc;
-  for (int i = 0; i < steps; ++i) {
-    if (i + 1 < steps) {
-      stage(i + 1);  // its buffer was last read before the previous sync
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // step i has landed for every thread
-    if (active) {
-      const int n = min(kChunk, seq - i / nc * kChunk);
-      const int e = chunk_of(i);
-      const int we = chunk_width(D, e);
-      const __nv_bfloat16* kt = ring + (i & 1) * 2 * tile;
-      if (i % nc == 0) {
-#pragma unroll
-        for (int nb = 0; nb < kChunk / 8; ++nb)
-#pragma unroll
-          for (int x = 0; x < 4; ++x) s[nb][x] = dp[nb][x] = 0.f;
-      }
-      load_rows_a<kColChunk>(a, qh + e * kColChunk, L.st[0], row0, nq, we,
-                             lane);
-      chunk_logits<kColChunk>(s, a, kt, 0, n, n, we, zeros, lane);
-      load_rows_a<kColChunk>(a, doh + e * kColChunk, L.st[4], row0, nq, we,
-                             lane);
-      chunk_logits<kColChunk>(dp, a, kt + tile, 0, n, n, we, zeros, lane);
-      if (e == cc) {
-#pragma unroll
-        for (int nb = 0; nb < kChunk / 8; ++nb)
-#pragma unroll
-          for (int x = 0; x < 4; ++x) {
-            const int key = 8 * nb + 2 * t + (x & 1);
-            const float p =
-                key < n ? exp2f(s[nb][x] * c - lse2[x >> 1]) : 0.f;
-            s[nb][x] = p * (dp[nb][x] - delta[x >> 1]) * scale;  // ds
-          }
-#pragma unroll
-        for (int kb = 0; kb < kChunk / 16; ++kb) {
-          if (16 * kb >= n) break;  // warp-uniform
-          mma_p_b<kColChunk>(acc, s[2 * kb], s[2 * kb + 1], kt, 16 * kb, n,
-                             wc, zeros, lane);
-        }
-      }
-    }
-    __syncthreads();  // step i is no longer read
-  }
-  if (active)
-    store_rows<kColChunk>(
-        acc, dq + L.head(5, b, h) + q0 * L.st[5] + cc * kColChunk, L.st[5],
-        row0, nq, wc, lane);
-}
-
 cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* dq, const BwdLayout& L, int B, int H,
@@ -866,56 +937,40 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const void* lse,
                         void* dq, const BwdLayout& L, int B, int H, int seq,
                         int D, float scale, cudaStream_t s) {
-  if (D <= attn_wg::widest_backward()) {
-    using attn_wg::View;
-    attn_wg::BwdParams p{};
-    p.out0 = static_cast<__nv_bfloat16*>(dq);
-    p.o = static_cast<const __nv_bfloat16*>(o);
-    p.dout = static_cast<const __nv_bfloat16*>(dout);
-    p.lse = static_cast<const float*>(lse);
-    for (int x = 0; x < 3; ++x) {
-      const int64_t* st[3] = {L.sb, L.sh, L.st};
-      p.so[x] = st[x][3];
-      p.sd[x] = st[x][4];
-      p.s0[x] = st[x][5];
-    }
-    p.H = H;
-    p.T = seq;
-    p.D = D;
-    p.scale = scale;
-    p.c = scale * attn_wg::kLog2e;
-    p.pairs = D % 2 == 0 && reinterpret_cast<uintptr_t>(dq) % 4 == 0 &&
-              (L.sb[5] | L.sh[5] | L.st[5]) % 2 == 0;
-    return launch_wgmma(View{q, L.sb[0], L.sh[0], L.st[0]},
-                        View{k, L.sb[1], L.sh[1], L.st[1]},
-                        View{v, L.sb[2], L.sh[2], L.st[2]},
-                        View{dout, L.sb[4], L.sh[4], L.st[4]}, p, B, H, seq,
-                        D, s);
+  using attn_wg::View;
+  attn_wg::BwdParams p{};
+  p.out0 = static_cast<__nv_bfloat16*>(dq);
+  p.o = static_cast<const __nv_bfloat16*>(o);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  for (int x = 0; x < 3; ++x) {
+    const int64_t* st[3] = {L.sb, L.sh, L.st};
+    p.so[x] = st[x][3];
+    p.sd[x] = st[x][4];
+    p.s0[x] = st[x][5];
   }
-  const int tiles = (seq + kMmaTileQ - 1) / kMmaTileQ;
-  const bool vec = attn_mma::can_copy_chunks(D, k, v) &&
-                   (L.sb[1] | L.sh[1] | L.st[1] | L.sb[2] | L.sh[2] |
-                    L.st[2]) % 8 == 0;
-  return launch_with_smem(
-      flash_bwd_dq_chunk_mma_kernel, dim3(B * H * tiles, col_chunks(D)),
-      kMmaThreads, chunk_mma_smem_bytes(), s,
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<__nv_bfloat16*>(dq), L, H, seq, D, scale,
-      scale * attn_mma::kLog2e, vec);
+  p.H = H;
+  p.T = seq;
+  p.D = D;
+  p.scale = scale;
+  p.c = scale * attn_wg::kLog2e;
+  p.pairs = D % 2 == 0 && reinterpret_cast<uintptr_t>(dq) % 4 == 0 &&
+            (L.sb[5] | L.sh[5] | L.st[5]) % 2 == 0;
+  return launch_wgmma(View{q, L.sb[0], L.sh[0], L.st[0]},
+                      View{k, L.sb[1], L.sh[1], L.st[1]},
+                      View{v, L.sb[2], L.sh[2], L.st[2]},
+                      View{dout, L.sb[4], L.sh[4], L.st[4]}, p, B, H, seq, D,
+                      s);
 }
 
 }  // namespace
 
 // q, k, v, o, dout, dq: (B, H, T, D) views (o and dout as views of their
 // (B, T, H, D) tensors), their (b, h, t) strides in elements in `strides`,
-// three each in that order (d's stride is 1); the bf16 wgmma instance (D <=
-// 512) reads q, k, v and dout through tensor maps, so their bases are
-// 16-byte aligned and those strides multiples of 8 elements, which the
-// wrapper sees to.  lse: (B, H, T) float32 contiguous.  dq has q's type.
+// three each in that order (d's stride is 1); the bf16 wgmma instances
+// read q, k, v and dout through tensor maps, so their bases are 16-byte
+// aligned and those strides multiples of 8 elements, which the wrapper
+// sees to.  lse: (B, H, T) float32 contiguous.  dq has q's type.
 // Any D; dtype 0 is float32, 1 is bfloat16.  Returns the cudaError_t of the
 // launch.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -941,8 +996,6 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" long long flash_bwd_dq_smem_bytes(int T, int D) {
   (void)T;
   const size_t f32 = D <= kColChunk ? smem_bytes(D) : chunk_smem_bytes();
-  const size_t bf16 =
-      D <= attn_wg::widest_backward() ? wgmma_smem_bytes(D)
-                                      : chunk_mma_smem_bytes();
+  const size_t bf16 = wgmma_smem_bytes(D);
   return static_cast<long long>(f32 > bf16 ? f32 : bf16);
 }

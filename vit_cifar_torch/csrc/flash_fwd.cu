@@ -22,7 +22,7 @@
 // cores' peak.  So the design keeps the products off the critical path and
 // the special-function units busy:
 //
-//   bf16 (dtype 1), D <= 512: the warp-specialised wgmma kernel of
+//   bf16 (dtype 1): the warp-specialised wgmma kernel of
 //   wgmma_attention.cuh, a persistent grid of one block an SM walking the
 //   (b, h, 128 query rows) work items.  A producer thread brings each
 //   item's q once (two buffers up to 256 columns, so the next item's
@@ -39,15 +39,14 @@
 //   Past 256 columns o is cut into chunks of 192 or 256 columns, a work
 //   item each: s = q.k^T is summed over the whole head (q at full width,
 //   one buffer; K tiles at full width, 64 keys at 320 columns, 32 at 384,
-//   16 at 448 and 512),
-//   only the item's chunk of V comes, and each chunk computes the
-//   softmax again -- twice at 320-512 columns, against three or four
-//   times in 128-column blocks before.  Rows and keys past T and columns
-//   past D arrive as zeros from TMA; keys past T get -inf logits (the
-//   last key tile, taken first); a warp whose 16 rows all lie past T
-//   computes no exps.  Past 512 columns: the mma.sync column-chunk kernel
-//   of fwd_bf16_chunk.cuh (a block per 128-column output chunk, each
-//   recomputing the softmax).
+//   16 at 448 and 512), only the item's chunk of V comes, and each chunk
+//   computes the softmax again.  Past 512 columns q and K no longer fit at
+//   full width: the streamed instance brings them a 64-column chunk a
+//   stage of the ring and sums s over the chunks in registers, so any
+//   width runs (forward_tiles.cuh's STREAMED row).  Rows and keys past T
+//   and columns past D arrive as zeros from TMA; keys past T get -inf
+//   logits (the last key tile, taken first); a warp whose 16 rows all lie
+//   past T computes no exps.
 //
 //   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
 //   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
@@ -70,7 +69,6 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
-#include "fwd_bf16_chunk.cuh"
 #include "fwd_f32_chunk.cuh"
 #include "wgmma_attention.cuh"
 
@@ -253,9 +251,6 @@ cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, void* lse, const Qkv& L, int B, int H,
                         int seq, int D, float scale, cudaStream_t stream) {
-  if (D > attn_wg::widest_forward())
-    return launch_chunk_mma(q, k, v, out, lse, L, B, H, seq, D, scale,
-                            stream);
   using attn_wg::View;
   return attn_wg::launch_tiled(View{q, L.sb[0], L.sh[0], L.st[0]},
                                View{k, L.sb[1], L.sh[1], L.st[1]},

@@ -2,7 +2,7 @@
 // each.  This one table is what the CUDA dispatch (flash_fwd.cu and
 // mhsa_fwd.cu, through wgmma_attention.cuh) expands and what the wrappers'
 // tensor-map plan (ops/cuda/common.py::forward_plan) reads, so the two
-// cannot disagree.  No include guard: each includer defines all three
+// cannot disagree.  No include guard: each includer defines all four
 // macros.
 //
 // TILED(width, keys, pingpong): the tiled grid at a padded head width in
@@ -29,8 +29,20 @@
 //   and 1.58-1.61x).
 //   Widths step by 64 columns, so no q or K box lies wholly past D.
 //   Rows of both kinds by ascending width: a head of D columns takes the
-//   first width >= D; past the last (512) the mma.sync column-chunk
-//   kernel (fwd_bf16_chunk.cuh) runs.
+//   first width >= D; past the last, the STREAMED row.
+// STREAMED(width, keys, cols): the heads wider than the rows above: the
+//   tiled grid with o cut into chunks of `cols` columns, a work item each,
+//   and s = q.k^T summed over column chunks of 64 columns of q and of a K
+//   tile of `keys` keys that come through the ring, so that shared memory
+//   holds no q or K at full width (fwd_stream_kernel).  A head takes the
+//   first STREAMED row of width >= D, and the last one every wider head,
+//   so any width runs.  Each row is the fastest of
+//   tools/forward_choices.py's measurements against half and twice its key
+//   tile and chunks of 128, 192 and 256 columns at the widths it takes:
+//   up to 576 columns three chunks of 192 (0.91x chunks of 256, which are
+//   three too); past it chunks of 256 (0.73-0.82x chunks of 192, one
+//   chunk fewer); 32 keys 1.38-1.51x, 128 serialised by ptxas; PR 17's
+//   CHUNKED rows, q at full width, 1.65-1.73x at 576 and 640.
 // WHOLE(width, keys): mhsa_fwd's whole-head instances, the head's
 //   round_up(T, 8) keys as one tile of `keys` keys, the first row of the
 //   head's width that holds them (past the last: the tiled grid).  Rows by
@@ -45,6 +57,8 @@ CHUNKED(320, 64, 192, 1)
 CHUNKED(384, 32, 192, 0)
 CHUNKED(448, 16, 256, 0)
 CHUNKED(512, 16, 256, 0)
+STREAMED(576, 64, 192)
+STREAMED(640, 64, 256)
 
 WHOLE(32, 16)
 WHOLE(32, 32)

@@ -35,12 +35,11 @@
 //   round_up(N, 16).  Rows and keys past T and columns past D arrive as
 //   zeros; keys past T get -inf logits; a warp whose rows all lie past T
 //   computes no exps.
-//   Past it (up to 512 columns): the same kernel's tiled work items, as
-//   flash_fwd.cu launches it, so that "fused" at any (T, D) runs no slower
-//   than the tiled forward; past 256 columns those cut o into column
-//   chunks (flash_fwd.cu says how), and no whole-head row holds such a
-//   head.  Past 512 columns: the mma.sync column-chunk kernel of
-//   fwd_bf16_chunk.cuh.
+//   Past it: the same kernel's tiled work items, as flash_fwd.cu launches
+//   them, so that "fused" at any (T, D) runs no slower than the tiled
+//   forward; past 256 columns those cut o into column chunks and past 512
+//   stream the sum over D (flash_fwd.cu says how), and no whole-head row
+//   holds such a head.
 //
 //   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
 //   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
@@ -69,7 +68,6 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
-#include "fwd_bf16_chunk.cuh"
 #include "fwd_f32_chunk.cuh"
 #include "wgmma_attention.cuh"
 
@@ -181,8 +179,8 @@ __global__ void __launch_bounds__(kThreads)
 size_t whole_head_smem_bytes(int seq, int D) {
   if (D <= kColChunk) return smem_bytes(seq, D);
   const int nc = col_chunks(D);
-  const size_t row = (nc - 1) * attn_mma::stride_elems(kColChunk) +
-                     attn_mma::stride_elems(chunk_width(D, nc - 1));
+  const size_t row = (nc - 1) * stride_elems(kColChunk) +
+                     stride_elems(chunk_width(D, nc - 1));
   const size_t bf16 = sizeof(__nv_bfloat16) * (8 + 2 * seq * row);
   const size_t f32 = fwd_f32_chunk_smem_bytes();
   return bf16 > f32 ? bf16 : f32;
@@ -214,9 +212,6 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, void* lse, const Qkv& L, int B, int H,
                         int seq, int D, float scale, cudaStream_t stream) {
-  if (D > attn_wg::widest_forward())
-    return launch_chunk_mma(q, k, v, out, lse, L, B, H, seq, D, scale,
-                            stream);
   using attn_wg::View;
   return attn_wg::launch_whole_or_tiled(
       View{q, L.sb[0], L.sh[0], L.st[0]}, View{k, L.sb[1], L.sh[1], L.st[1]},

@@ -208,17 +208,114 @@ struct Cut {
   }
 };
 
-// The widest padded head the table of instances holds (its last row); a
-// wider one takes the mma.sync column-chunk kernels.
-constexpr int widest_backward() {
-  int widest = 0;
-#define DQ(w, n, cols) widest = w;
-#define DKV(w, n, cols)
-#include "backward_tiles.cuh"
-#undef DQ
-#undef DKV
-  return widest;
+// lse * log2(e) and delta = sum_d do * o of this thread's rows g and g+8
+// from the warp's first row row_w, delta from the o and do rows as the TPU
+// kernel computes it at j == 0 (the four lanes of a quad over every fourth
+// column); both 0 past T, where ds is then 0.  The dq kernels' rows.
+__device__ __forceinline__ void row_terms(const BwdParams& p, const Item& it,
+                                          int row_w, int lane,
+                                          float (&lse2)[2],
+                                          float (&delta)[2]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_w + g + 8 * r;
+    float l2 = 0.f, dl = 0.f;
+    if (row < p.T) {
+      const bf16* orow =
+          p.o + it.b * p.so[0] + it.h * p.so[1] + row * p.so[2];
+      const bf16* drow =
+          p.dout + it.b * p.sd[0] + it.h * p.sd[1] + row * p.sd[2];
+      for (int d = t; d < p.D; d += 4)
+        dl = fmaf(__bfloat162float(drow[d]), __bfloat162float(orow[d]), dl);
+      l2 = p.lse[static_cast<long long>(it.bh) * p.T + row] * kLog2e;
+    }
+    dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+    dl += __shfl_xor_sync(0xffffffffu, dl, 2);
+    lse2[r] = l2;
+    delta[r] = dl;
+  }
 }
+
+// The dq kernels' ds = p * (dp - delta) * scale into s, p = exp2(s * c -
+// lse2) as one FFMA into ex2; in the first key tile taken (kMasked, keys
+// from k0) keys past T get p = 0 by a select.
+template <int kN, bool kMasked>
+__device__ __forceinline__ void dq_grads(float (&s)[kN / 2],
+                                         const float (&dp)[kN / 2],
+                                         const float (&lse2)[2],
+                                         const float (&delta)[2],
+                                         const BwdParams& p, int k0, int t) {
+#pragma unroll
+  for (int nb = 0; nb < kN / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float x = ex2(fmaf(s[4 * nb + e], p.c, -lse2[r]));
+      if constexpr (kMasked)
+        x = k0 + 8 * nb + 2 * t + (e & 1) >= p.T ? 0.f : x;
+      s[4 * nb + e] = x * (dp[4 * nb + e] - delta[r]) * p.scale;
+    }
+}
+
+// The dk/dv kernels' p^T into s and ds^T into dp, with the query tile's
+// rows of lse * log2(e) (lt) and delta (dt) in shared memory: this
+// thread's columns 2t and 2t+1 of every 8.
+template <int kNq>
+__device__ __forceinline__ void dkv_grads(float (&s)[kNq / 2],
+                                          float (&dp)[kNq / 2],
+                                          const float* lt, const float* dt,
+                                          const BwdParams& p, int t) {
+#pragma unroll
+  for (int nb = 0; nb < kNq / 8; ++nb) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * nb + 2 * t);
+    const float2 d2 = *reinterpret_cast<const float2*>(dt + 8 * nb + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = ex2(fmaf(s[4 * nb + e], p.c, -(e & 1 ? l2.y : l2.x)));
+      s[4 * nb + e] = x;
+      dp[4 * nb + e] =
+          x * (dp[4 * nb + e] - (e & 1 ? d2.y : d2.x)) * p.scale;
+    }
+  }
+}
+
+// d (+)= A.B^T over one swizzle atom of 64 columns (ss): A the 64 rows of
+// the atom at shared address a, B the kN rows of the atom at b, both
+// K-major; with `acc` the first step adds to d, else it overwrites d.  The
+// streamed instances sum s and dp over D this way, a chunk a stage of the
+// ring.  Not committed.
+template <int kN>
+__device__ __forceinline__ void product_ss_atom(float (&d)[kN / 2],
+                                                uint32_t a, uint32_t b,
+                                                bool acc) {
+  using A = Atoms<64>;
+#pragma unroll
+  for (int kk = 0; kk < A::kCols / 16; ++kk)
+    Wgmma<kN>::ss(d, make_desc(a + 32 * kk, 16, A::kSbo, A::kSwizzle),
+                  make_desc(b + 32 * kk, 16, A::kSbo, A::kSwizzle),
+                  acc || kk > 0);
+}
+
+// How a streamed instance -- the rows past the table's widest width,
+// DQ_STREAMED and DKV_STREAMED -- cuts its work: a work item is 64 rows
+// (or keys) and a group of two chunks of kCols columns of the gradients,
+// both consumers on the same rows, consumer c taking chunk 2 * group + c
+// (the last chunk again where the chunks are odd in number: computed, not
+// stored).  s and dp are summed over D a 64-column chunk a stage of the
+// ring, so nothing in shared memory grows with D.
+struct StreamCut {
+  int chunks;  // of kCols columns: ceil(D / kCols)
+  __device__ int chunk(int group, int c) const {
+    return min(2 * group + c, chunks - 1);
+  }
+  __device__ bool stores(int group, int c) const {
+    return 2 * group + c < chunks;
+  }
+};
+
+// The chunks of 64 columns of the sums over a head of D columns.
+__host__ __device__ constexpr int atoms_of(int D) { return (D + 63) / 64; }
 
 // The rows of lse and delta the dk/dv kernel's producer copies are padded
 // to a multiple of this many (every query tile divides it), zeros past T.

@@ -40,8 +40,9 @@
 // Fragment layouts (PTX ISA, wgmma .m64nNk16): warp w of a warpgroup owns
 // rows 16w .. 16w+15; lane 4g + t holds, for every 8 columns n, the f32
 // accumulator values (g, 8n+2t..8n+2t+1) and (g+8, same columns) -- the
-// mma.sync m16n8 layout -- so two 8-column blocks of an accumulator are,
-// element for element, the A fragment of one k16 step of an rs product.
+// m16n8 accumulator layout of the warp-level mma -- so two 8-column blocks
+// of an accumulator are, element for element, the A fragment of one k16
+// step of an rs product.
 
 #pragma once
 

@@ -26,8 +26,9 @@ head as one key tile where a warpgroup's registers hold it (T <= 128 at
 head_dim 32) and the tiled forward's main loop beyond, p split into bf16
 hi + lo so that p.v keeps f32 accuracy; heads past 256 columns, up to
 512, on the same kernel in chunks of o of 192 or 256 columns, a work item
-each, s summed over the whole head; past 512 columns the mma.sync
-column-chunk kernel.  A view TMA cannot read (``tma_plan``) is
+each, s summed over the whole head; past 512 columns its streamed
+instance, which sums s over 64-column chunks of q and K that come through
+the ring, at any width.  A view TMA cannot read (``tma_plan``) is
 copied into a padded buffer first.  f32 runs on the CUDA cores in full
 f32, since the tensor cores would take f32 only as TF32 and miss the f32
 limit of 1e-5: the whole head in shared memory where it fits
@@ -60,7 +61,7 @@ F32_CHUNK_SMEM_BYTES = 4 * (64 * COL_CHUNK + 64 * (COL_CHUNK + 1)
 
 def _stride_elems(width: int) -> int:
     """A staged bf16 row of ``width`` columns: an odd number of 16-byte
-    chunks (``stride_elems`` in ``csrc/mma_attention.cuh``)."""
+    chunks (``stride_elems`` in ``csrc/attention_common.cuh``)."""
     return 8 * (((width + 7) // 8) | 1)
 
 
@@ -68,7 +69,7 @@ def whole_head_smem_bytes(T: int, D: int) -> int:
     """The router's threshold at (T, D) in bytes: the formula of
     ``mhsa_fwd_smem_bytes``, which the card tests hold equal to the
     library's.  Up to COL_CHUNK columns the f32 whole-head layout of K and
-    V (8 warps); past it the larger of the mma.sync design's bf16 layout,
+    V (8 warps); past it the larger of an earlier bf16 design's layout,
     K and V of T rows by column chunk, and the f32 tile's, kept so that
     the same shapes take the same kernel.  It takes no dtype."""
     if D <= COL_CHUNK:

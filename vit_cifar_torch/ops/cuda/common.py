@@ -43,14 +43,16 @@ def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     return lib
 
 
-def _forward_tiles() -> tuple[dict, dict, dict, dict]:
+def _forward_tiles() -> tuple[dict, dict, dict, dict, dict]:
     """The bf16 wgmma forward's table of instances
     (``csrc/forward_tiles.cuh``, which the CUDA dispatch expands), by
     padded head width in ascending width: the tiled grid's key tile and the
     columns of o a work item holds (the width in one pass, ``TILED`` rows;
     a chunk of it, ``CHUNKED`` rows); whether the consumers of a width's
-    instances take turns (ping-pong); and mhsa_fwd's whole-head key tiles
-    by width, ascending."""
+    instances take turns (ping-pong); mhsa_fwd's whole-head key tiles by
+    width, ascending; and the ``STREAMED`` rows' (key tile, columns of o a
+    work item) by width, ascending, which the heads past the widest row
+    take (the first of width >= D, the last every wider head)."""
     from .build import CSRC_DIR
 
     text = (CSRC_DIR / "forward_tiles.cuh").read_text()
@@ -62,95 +64,118 @@ def _forward_tiles() -> tuple[dict, dict, dict, dict]:
     whole = {}
     for w, n in re.findall(r"^WHOLE\((\d+), (\d+)\)$", text, re.M):
         whole.setdefault(int(w), []).append(int(n))
+    streamed = {int(w): (int(n), int(c)) for w, n, c in sorted(
+        re.findall(r"^STREAMED\((\d+), (\d+), (\d+)\)$", text, re.M),
+        key=lambda row: int(row[0]))}
     return ({w: n for w, n, _, _ in rows}, {w: c for w, _, c, _ in rows},
-            {w: pp == "1" for w, _, _, pp in rows}, whole)
+            {w: pp == "1" for w, _, _, pp in rows}, whole, streamed)
 
 
-TILED_KEYS, TILED_COLS, PINGPONG, WHOLE_KEYS = _forward_tiles()
+TILED_KEYS, TILED_COLS, PINGPONG, WHOLE_KEYS, STREAMED = _forward_tiles()
 QUERY_TILE = 128  # query rows a work item: two warpgroups of 64
-# the widest head in one pass (wgmma's widest N, 256), and the widest the
-# wgmma forward takes at all (in column chunks; past it the mma.sync
-# column-chunk kernel, which reads the views without TMA)
+# the widest head in one pass (wgmma's widest N, 256), and the widest row of
+# the table (in column chunks); past it the streamed row
 WIDEST_ONE_PASS = max(w for w, c in TILED_COLS.items() if c == w)
 WIDEST_FORWARD = max(TILED_KEYS)
+# the columns of one chunk of the streamed sums over D: a swizzle atom
+STREAM_COLS = 64
 
 
-def _backward_tiles() -> tuple[dict, dict]:
+def streamed_row(D: int) -> tuple[int, int]:
+    """(key tile, columns of o a work item) of the ``STREAMED`` row a head
+    of D columns past ``WIDEST_FORWARD`` takes: the first of width >= D,
+    else the last."""
+    return next((row for w, row in STREAMED.items() if D <= w),
+                STREAMED[max(STREAMED)])
+
+
+def _backward_tiles() -> tuple[dict, dict, dict]:
     """The bf16 wgmma backward pair's table of instances
     (``csrc/backward_tiles.cuh``, which the CUDA dispatch expands): by
     padded head width, in ascending width, the dq kernel's (key tile,
     columns a consumer holds) and the dk/dv kernel's (query tile, columns
-    a consumer holds)."""
+    a consumer holds); and the streamed rows' (tile, columns) of each
+    kernel (``"dq"``, ``"dkv"``), which every head past the widest row
+    takes."""
     from .build import CSRC_DIR
 
     text = (CSRC_DIR / "backward_tiles.cuh").read_text()
     rows = {kind: {int(w): (int(n), int(cols)) for w, n, cols in re.findall(
         rf"^{kind}\((\d+), (\d+), (\d+)\)$", text, re.M)}
         for kind in ("DQ", "DKV")}
-    return rows["DQ"], rows["DKV"]
+    streamed = {kind.lower(): tuple(map(int, re.findall(
+        rf"^{kind}_STREAMED\((\d+), (\d+)\)$", text, re.M)[0]))
+        for kind in ("DQ", "DKV")}
+    return rows["DQ"], rows["DKV"], streamed
 
 
-DQ_TILES, DKV_TILES = _backward_tiles()
-WIDEST_BACKWARD = max(DQ_TILES)  # past it: the mma.sync column chunks
+DQ_TILES, DKV_TILES, BWD_STREAMED = _backward_tiles()
+WIDEST_BACKWARD = max(DQ_TILES)  # the widest row; past it the streamed
 
 
-def backward_plan(T: int, D: int) -> dict | None:
+def backward_plan(T: int, D: int) -> dict:
     """How the bf16 backward pair cuts a (T, D) head, from the table its
     CUDA dispatch expands (``_backward_tiles``): the instance's width (the
-    first table width >= D), its swizzle and the columns of one swizzle
-    atom (as ``forward_plan``); for each kernel its tile (the dq kernel's
-    keys, the dk/dv kernel's queries), the columns of the gradient a
-    consumer holds, whether the consumers split the columns ("split":
-    fewer columns than the width), the rows (dq) or keys (dk/dv) of a work
-    item (128, or 64 split), its column chunks, and the work items a head
-    at T (row tiles times groups of two chunks).  None past
-    ``WIDEST_BACKWARD`` columns, where the mma.sync column-chunk kernels
-    run."""
-    if D > WIDEST_BACKWARD:
-        return None
-    width = min(w for w in DQ_TILES if w >= D)
+    first table width >= D; past ``WIDEST_BACKWARD`` the streamed rows,
+    and D rounded up to their 64-column chunks), its swizzle and the
+    columns of one swizzle atom (as ``forward_plan``); for each kernel its
+    tile (the dq kernel's keys, the dk/dv kernel's queries), the columns of
+    the gradient a consumer holds, whether the consumers split the columns
+    ("split": fewer columns than the width), the rows (dq) or keys (dk/dv)
+    of a work item (128, or 64 split), its column chunks (the last ragged
+    when streamed), the work items a head at T (row tiles times groups of
+    two chunks) and whether the sums over D are streamed."""
+    streamed = D > WIDEST_BACKWARD
+    width = (-(-D // STREAM_COLS) * STREAM_COLS if streamed
+             else min(w for w in DQ_TILES if w >= D))
 
     def cut(tile: int, cols: int) -> dict:
         split = cols < width
         rows = 64 if split else QUERY_TILE
-        chunks = width // cols
+        chunks = -(-D // cols) if streamed else width // cols
         return {"tile": tile, "cols": cols, "split": split, "rows": rows,
-                "chunks": chunks,
+                "chunks": chunks, "streamed": streamed,
                 "items": -(-T // rows) * (-(-chunks // 2) if split else 1)}
 
+    tiles = (BWD_STREAMED if streamed
+             else {"dq": DQ_TILES[width], "dkv": DKV_TILES[width]})
     return {"width": width, "swizzle": 64 if width == 32 else 128,
             "atom_cols": 32 if width == 32 else 64,
-            "dq": cut(*DQ_TILES[width]), "dkv": cut(*DKV_TILES[width])}
+            "dq": cut(*tiles["dq"]), "dkv": cut(*tiles["dkv"])}
 
 
-def forward_plan(name: str, T: int, D: int) -> dict | None:
+def forward_plan(name: str, T: int, D: int) -> dict:
     """How the bf16 forward ``name`` (``mhsa_fwd`` or ``flash_fwd``) tiles
     a (T, D) head, from the table its CUDA dispatch expands
     (``_forward_tiles``): the instance's width (the first table width >=
-    D) and whether its consumers ping-pong, its swizzle (64-byte rows at
-    width 32, else 128-byte rows), the columns of one swizzle atom (a TMA
-    box's inner extent), the rows of the q, k and v boxes, the grid
+    D; past ``WIDEST_FORWARD`` D rounded up to the streamed row's 64-column
+    chunks) and whether its consumers ping-pong, its swizzle (64-byte rows
+    at width 32, else 128-byte rows), the columns of one swizzle atom (a
+    TMA box's inner extent), the rows of the q, k and v boxes, the grid
     ("whole": mhsa_fwd's whole head as one key tile, the first of its
     width's that holds round_up(T, 8) keys; "tiled": the width's
-    ``TILED_KEYS``), the columns of o a work item holds ("cols": the width
-    in one pass, else a chunk, ``TILED_COLS``), the chunks of o
-    ("chunks": ceil(D / cols), the last ragged; 1 in one pass) and the
-    work items a head (query tiles of ``QUERY_TILE`` rows times chunks).
-    None past ``WIDEST_FORWARD`` columns, where the mma.sync column-chunk
-    kernel reads the views without TMA."""
+    ``TILED_KEYS``; "streamed": past the table, the ``STREAMED`` row, s
+    summed over 64-column chunks of q and K brought through the ring), the
+    columns of o a work item holds ("cols": the width in one pass, else a
+    chunk), the chunks of o ("chunks": ceil(D / cols), the last ragged; 1
+    in one pass) and the work items a head (query tiles of ``QUERY_TILE``
+    rows times chunks)."""
     if D > WIDEST_FORWARD:
-        return None
-    width = min(w for w in TILED_KEYS if w >= D)
-    n = -(-T // 8) * 8
-    keys = None
-    if name == "mhsa_fwd":
-        keys = min((w for w in WHOLE_KEYS.get(width, ()) if w >= n),
-                   default=None)
-    grid = "tiled" if keys is None else "whole"
-    keys = keys or TILED_KEYS[width]
-    cols = TILED_COLS[width]
+        width, grid, pingpong = -(-D // STREAM_COLS) * STREAM_COLS, \
+            "streamed", False
+        keys, cols = streamed_row(D)
+    else:
+        width = min(w for w in TILED_KEYS if w >= D)
+        pingpong, cols = PINGPONG[width], TILED_COLS[width]
+        n = -(-T // 8) * 8
+        keys = None
+        if name == "mhsa_fwd":
+            keys = min((w for w in WHOLE_KEYS.get(width, ()) if w >= n),
+                       default=None)
+        grid = "tiled" if keys is None else "whole"
+        keys = keys or TILED_KEYS[width]
     chunks = -(-D // cols)
-    return {"width": width, "grid": grid, "pingpong": PINGPONG[width],
+    return {"width": width, "grid": grid, "pingpong": pingpong,
             "swizzle": 64 if width == 32 else 128,
             "atom_cols": 32 if width == 32 else 64,
             "rows": {"q": QUERY_TILE, "k": keys,
@@ -184,17 +209,11 @@ def tma_plan(name: str, q: torch.Tensor, k: torch.Tensor,
     place -- a base not 16-byte aligned, a d stride other than 1, or a b,
     h or t stride that is not a multiple of 8 elements (16 bytes), which
     every layout of a head of D % 8 != 0 columns whose rows follow each
-    other has.  Those go through ``padded_copy``.  ``maps`` is empty past
-    ``WIDEST_FORWARD`` columns (no TMA), where only a d stride other than
-    1 is copied."""
+    other has.  Those go through ``padded_copy``."""
     B, H, T, D = q.shape
     plan = forward_plan(name, T, D)
     out = {"plan": plan, "maps": {}, "copies": []}
     for key, t in zip("qkv", (q, k, v)):
-        if plan is None:
-            if t.stride(-1) != 1:
-                out["copies"].append(key)
-            continue
         if not tma_reads_in_place(t):
             out["copies"].append(key)
             t = padded_copy(t, meta=True)
@@ -221,16 +240,13 @@ def padded_copy(t: torch.Tensor, meta: bool = False) -> torch.Tensor:
     return buf[..., :D]
 
 
-def readable(*views, widest: int = WIDEST_FORWARD):
+def readable(*views):
     """(B, H, T, D) views as a kernel reads them: each in place where its
-    layout allows, else its ``padded_copy``.  The bf16 wgmma kernels (up
-    to ``widest`` columns: the forwards' ``WIDEST_FORWARD``, the backward
-    pair's ``WIDEST_BACKWARD``) read them through tensor maps
-    (``tma_reads_in_place``, as ``tma_plan`` reports for the forwards);
-    the f32 instances and the bf16 column-chunk kernels take any strides
-    with d's 1."""
-    tma = (views[0].dtype == torch.bfloat16
-           and views[0].shape[-1] <= widest)
+    layout allows, else its ``padded_copy``.  The bf16 wgmma kernels read
+    them through tensor maps (``tma_reads_in_place``, as ``tma_plan``
+    reports for the forwards); the f32 instances take any strides with
+    d's 1."""
+    tma = views[0].dtype == torch.bfloat16
     return tuple(t if (tma_reads_in_place(t) if tma else t.stride(-1) == 1)
                  else padded_copy(t) for t in views)
 
@@ -245,7 +261,7 @@ def launch_forward(name: str, q, k, v, scale: float, with_lse: bool):
     (``readable``: only a layout the kernel cannot read is copied): (out
     (B, T, H, D), lse (B, H, T) f32 or None)."""
     check(q, k, v)
-    q, k, v = readable(q, k, v, widest=WIDEST_FORWARD)
+    q, k, v = readable(q, k, v)
     B, H, T, D = q.shape
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -300,8 +316,7 @@ def launch_backward(name: str, q, k, v, o, do, lse, outs, scale: float,
     check_bwd(q, k, v, o, do, lse)
     # q, k, v, and o and do as (B, H, T, D) views; o is read by rows, any
     # strides with d's 1
-    q, k, v, dot = readable(q, k, v, do.transpose(1, 2),
-                            widest=WIDEST_BACKWARD)
+    q, k, v, dot = readable(q, k, v, do.transpose(1, 2))
     ot = o.transpose(1, 2)
     views = (q, k, v, ot if ot.stride(-1) == 1 else padded_copy(ot), dot)
     B, H, T, D = q.shape

@@ -19,17 +19,19 @@ D.  The bf16 forward is the warp-specialised wgmma kernel
 tiles of 32 to 128 keys brought by TMA straight from the caller's (B, H,
 T, D) views, heads up to 256 columns in one pass and up to
 ``WIDEST_FORWARD`` (512) in chunks of o of 192 or 256 columns, a work
-item each (past 512 the mma.sync column-chunk kernel).  The bf16
-backward pair is two warp-specialised
+item each; past 512 the same chunks of o with s summed over 64-column
+chunks of q and K brought through the ring (the streamed instance), so
+any width runs.  The bf16 backward pair is two warp-specialised
 wgmma kernels (``csrc/wgmma_backward.cuh``, tiles by width in
 ``csrc/backward_tiles.cuh``): dq with 128 query rows a work item against
 key tiles, dk/dv with 128 keys against query tiles, both reading q, k,
 v, o and do in place and writing the gradients in q's, k's and v's
 strides; past ``COL_CHUNK`` columns on the same kernels a work item is 64
-rows and two column chunks (s and dp summed over all the columns), up to
-``WIDEST_BACKWARD`` (512) columns, past which the mma.sync column-chunk
-kernels run, a block each chunk.  The plain versions take every query
-row at once and tile the keys by ``BLOCK_KV``.
+rows and two column chunks (s and dp summed over all the columns), and
+past ``WIDEST_BACKWARD`` (512) columns their streamed instances sum s and
+dp over 64-column chunks of both operands brought through the ring, at
+any width.  The plain versions take every query row at once and tile the
+keys by ``BLOCK_KV``.
 The JAX signature's ``block_q`` and ``block_kv`` are not taken: they change
 the result only through the order of f32 sums.  lse is (B, H, T) f32, not
 the TPU's lane-broadcast (B, H, Tq, 128).
