@@ -76,7 +76,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    past 512 columns ((16, 2, 1024, 520), (128, 8, 512, 640)), which the
    library's flash backward does not take, against the backward of SDPA
    on the backend it takes there (memory-efficient, else math), each
-   beside its bound, with two calls of the pair equal bit for bit.
+   beside its bound, with two calls of the pair equal bit for bit.  Then
+   the f32 instances' rows (``F32_ROWS``): the f32 forwards with lse and
+   the f32 pair (TF32 wgmma, split products) on the model's f32 views at
+   (128, 12, 1025, 32) and (128, 12, 65, 32), against their plain versions
+   (rtol 1e-4 / atol 1e-5), the pair bit for bit, each and its plain
+   version in turns, beside its f32 bound and the library's f32 call
+   (efficient attention with lse; SDPA's backward on the backend it takes)
+   with that call's own error against the plain version.
 5. Pixel serving phase: the same serving path for the README recipe model
    at ``patch=32`` (one pixel a token, T=1025, 6,620,170 params); each
    request must launch the tiled forward 7 times and no whole-head kernel,
@@ -117,6 +124,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    launch checks.  Prints the recipe's ms a step and img/s beside the
    no-AutoAugment step of phase 3, AutoAugment's device ms and launches a
    batch (torch.profiler) and the recipe step's busy share.
+8a. f32 phase: one ``--precision 32`` step of the flagship (B=128) and of
+   the pixel ViT (B=8) against the plain-attention model (loss 1e-5,
+   gradient 1e-4 relative L2), then 13 steps of each at B=128, counted
+   from zero: 7 launches a step of the f32 forward with lse and of each
+   backward pass (the f32 rows' launches), and the ms a step.
 8b. Analysis phase: ``load_run_model`` and ``run_on_images`` of a
    README-width f32 checkpoint, the attention maps and their rollout
    row-stochastic and equal to the same model's on the CPU (1e-4),
@@ -217,12 +229,15 @@ of each path are set to 0 just before it and read just after.  Each kernel
 row names its design: the bf16 instances of the forwards and of the
 backward pair run wgmma on tiles that TMA brings ("wgmma+TMA", with ptxas's
 registers and spills of the instance at the row's shape; the build fails
-where ptxas serialised the wgmmas of any library); every f32
-instance keeps the CUDA-core design, since the tensor cores would take
-f32 only as TF32.  The bound
-of a kernel (``bound_ms``) is the larger of its bytes (each input read once,
-each output written once) over 3.35 TB/s and its operations: its products
-over the bf16 tensor-core peak (989 TFLOP/s) and its exps over the
+where ptxas serialised the wgmmas of any library); the f32 instances have
+rows of their own (``F32_ROWS``): the forwards on the CUDA cores, the
+backward pair up to 128 columns on TF32 wgmma with each product split
+(three TF32 products, or six bf16 products of three-term splits) so that
+it keeps f32 accuracy (the build fails where one of those instances
+spills).  The bound of a kernel (``bound_ms``) is the larger of its bytes
+(each input read once, each output written once) over 3.35 TB/s and its
+operations: its products over the bf16 tensor-core peak (989 TFLOP/s;
+in f32 a third of the TF32 peak, 495 TFLOP/s) and its exps over the
 special-function units' peak (16 a clock on each of 132 SMs at 1.98 GHz).
 
 Prints the card's name and power limit, every check and time, then a JSON
@@ -536,8 +551,8 @@ def ragged_bwd_floor(D: int) -> float:
     """``RAGGED_BWD_ATOL_FLOOR`` for head_dim D: the noise grows with the
     number of terms in dp and delta."""
     return RAGGED_BWD_ATOL_FLOOR * max(1.0, D / 128)
-# how each kernel row's bf16 instance computes (every f32 instance runs on
-# the CUDA cores: the tensor cores would need TF32)
+# how each kernel row's bf16 instance computes (the f32 instances' rows:
+# F32_DESIGN)
 FWD_DESIGN = ("wgmma+TMA; column chunks at 257-512 columns; past 512 the "
               "streamed instance (sum over D in 64-column chunks, PR 18)")
 BWD_DESIGN = ("wgmma+TMA (PR 16); past 512 columns the streamed instance "
@@ -595,6 +610,42 @@ MASKED_TILE_SHAPES = ((2, 2, 256, 32), (2, 2, 193, 64), (2, 2, 300, 192),
                       (2, 2, 300, 704))
 # calls a window of the host's cost of one forward call
 HOST_CALLS = 200
+# the f32 instances (dtype 0, ``--precision 32``), rows of their own in the
+# kernels line: the whole-head forward with lse (the flagship), the tiled
+# forward with lse (the pixel ViT), both on the CUDA cores, and the tiled
+# backward pair on TF32 wgmma with the split products up to 128
+# columns (csrc/wgmma_tf32.cuh); each timed at its main shape and the
+# pair also at the flagship's, on the model's views
+F32_ROWS = {"mhsa_fwd_lse_f32": "mhsa_fwd_lse",
+            "flash_fwd_lse_f32": "flash_fwd_lse",
+            "flash_bwd_dq_tiled_f32": "flash_bwd_dq_tiled",
+            "flash_bwd_dkv_tiled_f32": "flash_bwd_dkv_tiled"}
+F32_MAIN_SHAPE = {"mhsa_fwd_lse_f32": (128, 12, 65, 32),
+                  "flash_fwd_lse_f32": PIXEL_SHAPE,
+                  "flash_bwd_dq_tiled_f32": PIXEL_SHAPE,
+                  "flash_bwd_dkv_tiled_f32": PIXEL_SHAPE}
+F32_DESIGN = {
+    "mhsa_fwd_lse_f32": "CUDA cores",
+    "flash_fwd_lse_f32": "CUDA cores",
+    "flash_bwd_dq_tiled_f32": "TF32 wgmma, split products (s, dp: three "
+                              "TF32; the gradients': six bf16); CUDA "
+                              "cores past 128 columns",
+    "flash_bwd_dkv_tiled_f32": "TF32 wgmma, split products (s, dp: three "
+                               "TF32; the gradients': six bf16, TF32 "
+                               "transposes at 128 columns); CUDA cores "
+                               "past 128 columns"}
+F32_INSTANCE_KINDS = {"flash_bwd_dq_tiled_f32": ("dq_split_kernel",),
+                      "flash_bwd_dkv_tiled_f32": ("dkv_split_kernel",)}
+# an f32-accurate product on the tensor cores: three TF32 products
+TF32_FLOP_PER_S = 495e12
+F32_SPLIT_FLOP_PER_S = TF32_FLOP_PER_S / 3
+# one --precision 32 step, kernel path vs the plain-attention (einsum) path
+# from the same weights and batch: the same f32 math (TF32 off for the
+# einsums) but the backward pair's products split (three TF32 or six bf16)
+# (about 2**-21 of a term) and sums in another order
+F32_STEP_LOSS_ATOL = 1e-5
+F32_STEP_REL_L2 = 1e-4
+F32_STEPS = 10  # timed steps of each --precision 32 model, after 3 more
 # ptxas's note that it serialised a kernel's wgmmas (C7510-C7520): the
 # products of the forwards and of the backward pair must run
 # asynchronously
@@ -687,6 +738,10 @@ def build_kernels() -> None:
                 regs = line.split(":", 1)[1].strip()
                 report[instance] = f"{regs.split(',')[0]}; {spills}"
                 print(f"    ptxas: {instance}: {regs}; {spills}")
+                if "_split_kernel" in instance and \
+                        "0 bytes spill stores" not in spills:
+                    raise AssertionError(f"{name}: the f32 instance "
+                                         f"{instance} spills: {spills}")
 
 
 def forward_ptxas(name: str, shape=None) -> str:
@@ -740,20 +795,25 @@ def in_turns(fns: dict, rounds: int = 3, iters: int = 100) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def bound(name: str, shape) -> dict:
+def bound(name: str, shape, dtype=torch.bfloat16) -> dict:
     """The least time the card could take for kernel ``name``'s work at
-    (B, H, T, D) in bf16: the larger of its bytes over the memory rate and
-    its operations (products on the tensor cores, exps on the
-    special-function units) over their peaks."""
+    (B, H, T, D) in ``dtype``: the larger of its bytes over the memory rate
+    and its operations (products on the tensor cores, exps on the
+    special-function units) over their peaks; an f32 product's peak is
+    that of three TF32 products, the split that keeps f32 accuracy
+    (``F32_SPLIT_FLOP_PER_S``)."""
     B, H, T, D = shape
-    work = KERNEL_WORK[name]
-    n, rows = 2 * B * H * T * D, 4 * B * H * T  # bytes of a bf16 tensor, lse
+    work = KERNEL_WORK[F32_ROWS.get(name, name)]
+    size = 4 if dtype == torch.float32 else 2
+    n, rows = size * B * H * T * D, 4 * B * H * T  # bytes of a tensor, lse
     product = 2 * B * H * T * T * D  # one T x T x D product, in FLOP
     moved = {"fwd": 4 * n, "fwd_lse": 4 * n + rows, "dq": 6 * n + rows,
              "dkv": 7 * n + rows}[work]
     flops = {"fwd": 2, "fwd_lse": 2, "dq": 3, "dkv": 4}[work] * product
+    rate = (F32_SPLIT_FLOP_PER_S if dtype == torch.float32
+            else BF16_FLOP_PER_S)
     t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = max(flops / BF16_FLOP_PER_S, B * H * T * T / EXP_PER_S)
+    t_ops = max(flops / rate, B * H * T * T / EXP_PER_S)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1644,13 +1704,12 @@ def masked_tile_check() -> None:
           "rtol=atol=1e-2, lse 1e-5)")
 
 
-def model_views(shape, gen) -> list:
-    """q, k, v in bf16 as the model makes them: (B, T, H*D) projections
-    viewed as (B, H, T, D)."""
+def model_views(shape, gen, dtype=torch.bfloat16) -> list:
+    """q, k, v (bf16 unless ``dtype`` says) as the model makes them: (B,
+    T, H*D) projections viewed as (B, H, T, D)."""
     B, H, T, D = shape
     return [torch.randn((B, T, H * D), generator=gen, device="cuda")
-            .to(torch.bfloat16).view(B, T, H, D).transpose(1, 2)
-            for _ in range(3)]
+            .to(dtype).view(B, T, H, D).transpose(1, 2) for _ in range(3)]
 
 
 def host_us(fn, n: int = HOST_CALLS) -> float:
@@ -1982,6 +2041,260 @@ def sdpa_backward(q, k, v, g, scale: float):
                                            retain_graph=True)
         return name, call
     raise AssertionError(f"no SDPA backend takes {tuple(q.shape)}")
+
+
+def f32_instances(name: str) -> list[str]:
+    """ptxas's report of the f32 instances of kernel row ``name``: the
+    TF32 split kernels of the backward pair (every DQ_F32 or DKV_F32 row);
+    the CUDA-core forwards' own kernels."""
+    lib = SOURCES[F32_ROWS[name]]
+    kinds = F32_INSTANCE_KINDS.get(name)
+    return [f"{i}: {r}" for i, r in PTXAS[lib].items()
+            if (i.split("<")[0] in kinds if kinds else
+                re.match(r"(mhsa|flash)_fwd_(chunk_)?kernel", i))]
+
+
+def f32_ptxas(name: str, shape) -> str:
+    """ptxas's report of the TF32 instance that backward row ``name`` runs
+    at ``shape`` (``f32_backward_plan`` names it); the CUDA-core forwards'
+    instances are in the row's ``instances``."""
+    from vit_cifar_torch.ops.cuda.common import f32_backward_plan
+
+    if name not in F32_INSTANCE_KINDS:
+        return "CUDA cores: see instances"
+    plan = f32_backward_plan(*shape[2:])
+    kind = "dq" if "dq" in name else "dkv"
+    route = f",{int(plan[kind]['bf16x3'])}"
+    instance = (f"{kind}_split_kernel<{plan['width']},{plan[kind]['tile']},"
+                f"{plan[kind]['cols']}{route}>")
+    return f"{instance}: {PTXAS[SOURCES[F32_ROWS[name]]][instance]}"
+
+
+def library_f32(shape, q, k, v, g, scale: float, want) -> dict:
+    """The library's f32 yardsticks on the (B, H, T, D) views q, k, v
+    (timed here, called nowhere in the port), each with its own max error
+    against the port's plain f32 versions (``want``: out, lse, dq, dk,
+    dv): ``aten._scaled_dot_product_efficient_attention`` with its
+    logsumexp ("fwd_lse"; the flash backend takes no f32) and SDPA's
+    backward on the first backend that takes the head (``sdpa_backward``,
+    "bwd_pair")."""
+    aten = torch.ops.aten
+    fwd = lambda: aten._scaled_dot_product_efficient_attention(  # noqa: E731
+        q, k, v, None, True, scale=scale)[:2]
+    backend, bwd = sdpa_backward(q, k, v, g, scale)
+    out, lse = fwd()
+    T = shape[2]
+    grads = bwd()
+    errs = {"fwd_lse": max(_max_err((out.transpose(1, 2),), want[:1]),
+                           _max_err((lse[..., :T],), want[1:2])),
+            "bwd_pair": _max_err(grads, want[2:])}
+    tols = {"fwd_lse": KERNEL_TOL[torch.float32],
+            "bwd_pair": BWD_TOL[torch.float32]}
+    meets = {}
+    for key, got, w in (("fwd_lse", (out.transpose(1, 2), lse[..., :T]),
+                         want[:2]), ("bwd_pair", grads, want[2:])):
+        meets[key] = all(torch.allclose(a.float(), b.float(), **tols[key])
+                         for a, b in zip(got, w))
+    del out, lse, grads
+    return {"fwd_lse": fwd, "bwd_pair": bwd, "backend": backend,
+            "errs": errs, "meets": meets}
+
+
+def f32_kernel_phase(card: str) -> list[dict]:
+    """The f32 instances (``--precision 32``) on the model's views at their
+    main shapes (``F32_MAIN_SHAPE``; the pair also at the flagship's
+    (128, 12, 65, 32)): each against its plain version (max error within
+    the f32 limits), the pair's two calls bit for bit, then each kernel
+    and its plain version in turns, and the library's f32 call beside it
+    with that call's own error against the plain version (named where it
+    misses the f32 limit), each beside its f32 bound; device ms at T=65.
+    Returns the kernels line's f32 rows."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows = []
+    for shape in (PIXEL_SHAPE, (128, 12, 65, 32)):
+        B, H, T, D = shape
+        scale = 1.0 / math.sqrt(H * D)
+        q, k, v = model_views(shape, gen, torch.float32)
+        g = torch.randn((B, T, H, D), generator=gen, device="cuda")
+        want_out, want_lse = flash_attention_lse_reference(q, k, v, scale)
+        out, lse = (fused_attention_lse if T <= 65 else
+                    flash_attention_lse)(q, k, v, scale)
+        args = (q, k, v, out, g, lse, scale)
+        want = (flash_tiled_bwd_dq_reference(*args),
+                *flash_tiled_bwd_dkv_reference(*args))
+        pair = lambda: (flash_tiled_bwd_dq(*args),  # noqa: E731
+                        *flash_tiled_bwd_dkv(*args))
+        first, second = pair(), pair()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"f32 pair {shape}: two calls differ")
+        torch.testing.assert_close(out, want_out, **KERNEL_TOL[torch.float32])
+        torch.testing.assert_close(lse, want_lse, **KERNEL_TOL[torch.float32])
+        for a, w in zip(first, want):
+            torch.testing.assert_close(a, w, **BWD_TOL[torch.float32])
+        errs = {"fwd": _max_err((out, lse), (want_out, want_lse)),
+                "flash_bwd_dq_tiled_f32": _max_err(first[:1], want[:1]),
+                "flash_bwd_dkv_tiled_f32": _max_err(first[1:], want[1:])}
+        lib = library_f32(shape, q, k, v, g, scale,
+                          (want_out, want_lse, *want))
+        del first, second
+        fwd_name = "mhsa_fwd_lse_f32" if T <= 65 else "flash_fwd_lse_f32"
+        fwd = (fused_attention_lse if T <= 65 else flash_attention_lse)
+        plain_fwd = (fused_attention_lse_reference if T <= 65 else
+                     flash_attention_lse_reference)
+        fns = {fwd_name: (lambda: fwd(q, k, v, scale),
+                          lambda: plain_fwd(q, k, v, scale),
+                          lib["fwd_lse"]),
+               "flash_bwd_dq_tiled_f32": (
+                   lambda: flash_tiled_bwd_dq(*args),
+                   lambda: flash_tiled_bwd_dq_reference(*args), None),
+               "flash_bwd_dkv_tiled_f32": (
+                   lambda: flash_tiled_bwd_dkv(*args),
+                   lambda: flash_tiled_bwd_dkv_reference(*args), None),
+               "pair": (pair, lambda: (
+                   flash_tiled_bwd_dq_reference(*args),
+                   *flash_tiled_bwd_dkv_reference(*args)), lib["bwd_pair"])}
+        for name, (kernel, plain, library) in fns.items():
+            main = name == "pair" or F32_MAIN_SHAPE[name] == shape
+            iters = max(2, min(30, round(20 / cuda_ms(kernel, 1, 1))))
+            ms = in_turns({"kernel": kernel, "plain": plain}, rounds=2,
+                          iters=iters)
+            how = f"median of 4 event windows of {iters}"
+            lib_ms = None
+            if library is not None:
+                lib_ms = in_turns({"kernel": kernel, "library": library},
+                                  rounds=2, iters=iters)["library"]
+            if T <= 65:  # an event window there follows the host
+                how += f"; device kernel {ms_text(device_ms(kernel)[0])}"
+                if library is not None:
+                    how += f", library {ms_text(device_ms(library)[0])}"
+            if name == "pair":
+                b = {n: bound(n, shape, torch.float32)["bound_ms"]
+                     for n in ("flash_bwd_dq_tiled_f32",
+                               "flash_bwd_dkv_tiled_f32")}
+                # the pair as one function: five products (s, dp, dq, dk,
+                # dv) and 8 tensors moved
+                n8 = 8 * 4 * B * H * T * D
+                least = max(5 * 2 * B * H * T * T * D / F32_SPLIT_FLOP_PER_S,
+                            n8 / HBM_BYTES_PER_S,
+                            B * H * T * T / EXP_PER_S) * 1e3
+                meets = "" if lib["meets"]["bwd_pair"] else \
+                    ", MISSES the f32 limit rtol 1e-4 / atol 1e-5"
+                print(f"f32 pair {shape} on the model's views: "
+                      f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+                      f"library backward ({lib['backend']}) {lib_ms:.4f} ms "
+                      f"(max_abs_err {lib['errs']['bwd_pair']:.3e} against "
+                      f"the plain passes{meets}); pair "
+                      f"{ms['kernel'] / lib_ms:.3f}x the library; bound "
+                      f"{sum(b.values()):.4f} ms (the two kernels' own "
+                      f"work), {least:.4f} ms (the pair as one function); "
+                      f"two calls equal bit for bit ({how}; {card})")
+                continue
+            b = bound(name, shape, torch.float32)
+            err = errs.get(name, errs["fwd"])
+            line = (f"{name} {shape} f32 on the model's views: kernel "
+                    f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms"
+                    f"; bound {b['bound_ms']:.4f} ms by {b['bound_by']}; "
+                    f"max_abs_err {err:.3e}")
+            if lib_ms is not None:
+                meets = "" if lib["meets"]["fwd_lse"] else \
+                    ", MISSES the f32 limit 1e-5"
+                line += (f"; library efficient attention with lse "
+                         f"{lib_ms:.4f} ms (max_abs_err "
+                         f"{lib['errs']['fwd_lse']:.3e}{meets})")
+            print(f"{line} ({how}; {card})")
+            if main:
+                rows.append({
+                    "name": name, "route": "cuda",
+                    "design": F32_DESIGN[name],
+                    "source": f"vit_cifar_torch/csrc/"
+                              f"{SOURCES[F32_ROWS[name]]}.cu",
+                    "replaces": REPLACES[F32_ROWS[name]],
+                    "max_abs_err": err, "ms": ms["kernel"],
+                    "plain_ms": ms["plain"], **b,
+                    # no one PyTorch call computes dq or dk/dv alone
+                    "library_ms": lib_ms,
+                    "ptxas": f32_ptxas(name, shape),
+                    "instances": f32_instances(name)})
+        del q, k, v, g, out, lse, args, want, lib, fns
+        torch.cuda.empty_cache()
+    for row in rows:
+        print(f"{row['name']} instances: " + "; ".join(row["instances"]))
+    return rows
+
+
+def f32_training_phase(card: str) -> dict:
+    """One ``--precision 32`` step of the flagship and of the pixel ViT
+    (B=128; the pixel ViT's check at B=8, as its bf16 one): the kernel
+    path's loss and gradient against the plain-attention (einsum) path's
+    within ``F32_STEP_LOSS_ATOL`` and ``F32_STEP_REL_L2``; then
+    ``F32_STEPS`` steps each after 3 untimed, their launches counted from
+    zero (7 a step of the forward with lse and of each backward pass) and
+    the host ms a step.  Returns the launches under the f32 rows'
+    names."""
+    launches = dict.fromkeys(F32_ROWS, 0)
+    for what, cfg, batch in (("flagship", flagship_cfg(precision="32"), 128),
+                             ("pixel", flagship_cfg(precision="32", patch=32),
+                              PIXEL_STEP_BATCH)):
+        _, x_train, y_train, model, state, train_step, perm = \
+            training_setup(cfg, n_train=(F32_STEPS + 3) * cfg.batch_size)
+        img, label, _, _ = train_step.make_batch(state, x_train, y_train,
+                                                 perm, 0)
+        criterion = make_criterion(cfg)
+        plain = plain_twin(cfg, model)
+
+        def loss_and_grad(m):
+            loss = criterion(m(img[:batch], deterministic=False),
+                             label[:batch])
+            grads = torch.autograd.grad(loss, list(m.parameters()))
+            return loss.item(), torch.cat([g.reshape(-1) for g in grads])
+
+        (loss_k, grad_k), (loss_p, grad_p) = (loss_and_grad(model),
+                                              loss_and_grad(plain))
+        rel = ((grad_k - grad_p).norm() / grad_p.norm()).item()
+        print(f"f32 {what} step at B={batch} (--precision 32), kernel vs "
+              f"einsum path: loss {loss_k:.7f} vs {loss_p:.7f} (|diff| "
+              f"{abs(loss_k - loss_p):.3e}, bound {F32_STEP_LOSS_ATOL}); "
+              f"gradient relative L2 {rel:.3e} (bound {F32_STEP_REL_L2})")
+        if not (abs(loss_k - loss_p) <= F32_STEP_LOSS_ATOL
+                and rel <= F32_STEP_REL_L2):
+            raise AssertionError(f"f32 {what} step: kernel path and einsum "
+                                 "path disagree")
+        del plain, grad_k, grad_p
+        torch.cuda.empty_cache()
+
+        # the f32 path: its launches counted from zero
+        for wrapper in KERNEL_WRAPPERS.values():
+            wrapper.launches = 0
+        losses = []
+        for i in range(F32_STEPS + 3):
+            if i == 3:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, metrics = train_step(state, x_train, y_train, perm, i)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / F32_STEPS
+        counts = _launch_counts()
+        fwd = "mhsa_fwd_lse" if what == "flagship" else "flash_fwd_lse"
+        want = {n: 0 for n in KERNEL_WRAPPERS}
+        want.update({fwd: cfg.num_layers * (F32_STEPS + 3),
+                     "flash_bwd_dq_tiled": cfg.num_layers * (F32_STEPS + 3),
+                     "flash_bwd_dkv_tiled": cfg.num_layers * (F32_STEPS + 3)})
+        losses = torch.stack(losses).cpu()
+        print(f"f32 {what} train: {F32_STEPS + 3} steps, launches {counts}; "
+              f"losses " + " ".join(f"{x:.4f}" for x in losses.tolist())
+              + f"; {step_ms:.3f} ms a step over the last {F32_STEPS} (host "
+              f"clock, synchronized), {cfg.batch_size / step_ms * 1e3:.1f} "
+              f"img/s at B={cfg.batch_size} ({card})")
+        if counts != want or not torch.isfinite(losses).all():
+            raise AssertionError(f"f32 {what}: launches {counts}, expected "
+                                 f"{want}; losses {losses.tolist()}")
+        for row, base in F32_ROWS.items():
+            launches[row] += counts[base]
+        del model, state, train_step, x_train, y_train
+        torch.cuda.empty_cache()
+    return launches
 
 
 def wide_head_phase(card: str) -> dict:
@@ -3821,6 +4134,7 @@ def main() -> None:
     tiled_vs_whole_head(card)
     head_dim_timing(card)
     backward_timing_phase(card)
+    rows += f32_kernel_phase(card)
     # each path's launches, counted from zero just before it
     train_launches, no_aa_step_ms = training_phase(card)
     dispatch_cost(card)
@@ -3828,7 +4142,8 @@ def main() -> None:
              train_launches, pixel_serving_phase(card),
              pixel_training_phase(card), wide_head_phase(card),
              fused_key_tiled_phase(card),
-             full_recipe_phase(card, no_aa_step_ms)]
+             full_recipe_phase(card, no_aa_step_ms),
+             f32_training_phase(card)]
     analysis_phase(card)
     # last: the zoo and the NNMF family, which launch none of the
     # attention kernels, and the rest of the zoo, whose MoE ViT does

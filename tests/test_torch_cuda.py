@@ -25,7 +25,10 @@ to T=1025).
 """
 
 import math
+import os
 import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -672,6 +675,225 @@ def test_bf16_backward_pair_copies_nothing_on_the_models_path(cuda,
     assert copies.count(False) == 0, copies
     for a, ref in zip(grads, (q, k, v)):
         assert a.stride() == ref.stride()
+
+
+# the f32 backward pair: TF32 wgmma with the three-product split
+# (csrc/wgmma_tf32.cuh, DQ_F32 and DKV_F32 rows of csrc/backward_tiles.cuh)
+# up to 128 columns, the CUDA cores past them; D < 32, D % 4 != 0 (the
+# padded copy: 6, 30, 66, 127), every f32 width and one past it
+F32_BACKWARD_D = (6, 8, 16, 30, 32, 44, 64, 66, 100, 127, 128, 136)
+
+
+def _f32_views_and_cotangent(shape, seed):
+    """q, k, v in f32 as the model makes them ((B, T, H*D) projections
+    viewed as (B, H, T, D)), out and lse of the tiled forward, and a
+    (B, T, H, D) cotangent."""
+    B, H, T, D = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((B, T, H * D), generator=g, device="cuda")
+               .view(B, T, H, D).transpose(1, 2) for _ in range(3))
+    scale = 1.0 / math.sqrt(H * D)
+    out, lse = flash_attention_lse(q, k, v, scale)
+    do = torch.randn((B, T, H, D), generator=g, device="cuda")
+    return (q, k, v, out, do, lse, scale)
+
+
+def _check_f32_pair(got, want, what):
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all(), what
+        torch.testing.assert_close(a, w, **BWD_TOL[torch.float32],
+                                   msg=lambda m: f"{name} {what}: {m}")
+
+
+@pytest.mark.parametrize("T", WGMMA_T)
+def test_f32_backward_pair_on_the_models_views(cuda, T):
+    """The f32 pair on the model's views at odd and ragged T and head widths
+    8-136 (D < 32, D % 4 != 0 through the padded copy, every f32 width and
+    the CUDA cores past 128): dq, dk and dv against the plain passes within
+    rtol 1e-4 / atol 1e-5, written in q's, k's and v's strides, and two
+    calls equal bit for bit."""
+    for D in F32_BACKWARD_D:
+        args = _f32_views_and_cotangent((2, 3, T, D), seed=T + D)
+        got = _pair(args)
+        again = _pair(args)
+        torch.cuda.synchronize()
+        _check_f32_pair(got, _plain_pair(args), f"T={T} D={D}")
+        for a, ref in zip(got, args[:3]):
+            assert a.stride() == ref.stride(), (T, D, a.stride())
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), (T, D)
+
+
+@pytest.mark.parametrize("T", RAGGED_T)
+def test_f32_backward_pair_at_ragged_edges(cuda, T):
+    """Where a 16-row fragment, a key or query tile (8 to 48) or a work
+    item (64 or 128 rows) ends, on contiguous inputs, at head dims that are
+    and are not a multiple of 4."""
+    for D in (16, 30, 32, 64, 100, 128):
+        q, k, v, g, scale = _inputs(cuda, (2, 3, T, D), torch.float32,
+                                    seed=3 * T + D)
+        out, lse = flash_attention_lse_reference(q, k, v, scale)
+        args = (q, k, v, out, g, lse, scale)
+        got = _pair(args)
+        torch.cuda.synchronize()
+        _check_f32_pair(got, _plain_pair(args), f"T={T} D={D}")
+
+
+@pytest.mark.parametrize("T,D", [(200, 32), (193, 64), (300, 128),
+                                 (33, 32)])
+def test_f32_backward_pair_guards_a_fully_masked_key_tile(cuda, T, D):
+    """The f32 dq kernel takes its key tiles last to first; where every
+    logit of the first tile it takes is -inf in f32 (q = 1e20, k = -1e20
+    there; each TF32 product of the split is -inf or finite, never NaN) and
+    the keys before it are finite, p is exactly 0 there: dq, dk and dv
+    finite and equal to the plain passes' (the f32 limit, its atol
+    scaled to the gradients' size).  At T=33 one tile (48 keys) holds
+    every key, and every key but the first 8 is masked there."""
+    from vit_cifar_torch.ops.cuda.common import f32_backward_plan
+
+    keys = f32_backward_plan(T, D)["dq"]["tile"]
+    first = max((T - 1) // keys * keys, 8)  # the first tile taken
+    g = torch.Generator(device="cuda").manual_seed(T + D)
+    q = torch.full((2, 2, T, D), 1e20, device="cuda")
+    k = torch.randn((2, 2, T, D), generator=g, device="cuda") * 1e-20
+    k[:, :, first:] = -1e20
+    v = torch.randn((2, 2, T, D), generator=g, device="cuda")
+    out, lse = flash_attention_lse_reference(q, k, v, 0.1)
+    do = torch.randn((2, T, 2, D), generator=g, device="cuda")
+    args = (q, k, v, out, do, lse, 0.1)
+    got = _pair(args)
+    torch.cuda.synchronize()
+    # the gradients are about 1e20 times their usual size (dk = ds^T.q with
+    # q = 1e20): atol 1e-5 stands for 1e-5 of a gradient's largest value
+    for name, a, w in zip(("dq", "dk", "dv"), got, _plain_pair(args)):
+        assert torch.isfinite(a).all(), (name, T, D)
+        torch.testing.assert_close(
+            a, w, rtol=BWD_TOL[torch.float32]["rtol"],
+            atol=BWD_TOL[torch.float32]["atol"] * max(
+                1.0, w.abs().max().item()),
+            msg=lambda m: f"{name} T={T} D={D}: {m}")
+
+
+@pytest.mark.parametrize("T", (65, 129, 1025))
+def test_f32_backward_pair_reads_nothing_past_T(cuda, T):
+    """Query rows past T arrive as TMA's zeros and read lse = delta = 0:
+    with o, do and lse the leading part of buffers whose values past them
+    are NaN, every f32 gradient is finite and equals the plain passes'."""
+    def nan_tail(t):
+        buf = torch.full((t.numel() + 4096,), float("nan"), device="cuda")
+        buf[:t.numel()] = t.reshape(-1)
+        return buf[:t.numel()].view(t.shape)
+
+    for D in (32, 64, 128):
+        q, k, v, out, g, lse, scale = _f32_views_and_cotangent(
+            (2, 3, T, D), seed=T + 5 * D)
+        got = _pair((q, k, v, nan_tail(out), nan_tail(g), nan_tail(lse),
+                     scale))
+        torch.cuda.synchronize()
+        _check_f32_pair(got, _plain_pair((q, k, v, out, g, lse, scale)),
+                        f"T={T} D={D}")
+
+
+def test_f32_backward_pair_copies_nothing_on_the_models_path(cuda,
+                                                              monkeypatch):
+    """On the model's f32 views the pair copies nothing where tensor maps
+    read them (D % 4 == 0), and where they cannot (D=30) one padded copy of
+    each of q, k, v and do a pass, 8 for the pair; past 128 columns (the
+    CUDA cores) nothing; through the Function no copy, and the views'
+    gradients in their own strides."""
+    from vit_cifar_torch.ops.cuda import common
+
+    copies = []
+    real = common.padded_copy
+    monkeypatch.setattr(common, "padded_copy",
+                        lambda t, meta=False: copies.append(meta)
+                        or real(t, meta))
+    for D, want_copies in ((32, 0), (30, 8), (136, 0)):
+        args = _f32_views_and_cotangent((2, 3, 65, D), seed=D)
+        copies.clear()
+        got = _pair(args)
+        torch.cuda.synchronize()
+        assert copies.count(False) == want_copies, (D, copies)
+        _check_f32_pair(got, _plain_pair(args), f"D={D}")
+    B, T, H, D = 2, 65, 3, 32
+    x = torch.randn((3, B, T, H * D), device="cuda").requires_grad_()
+    q, k, v = (t.view(B, T, H, D).transpose(1, 2) for t in x)
+    copies.clear()
+    grads = torch.autograd.grad(flash_attention(q, k, v, 0.1), [q, k, v],
+                                torch.ones((B, T, H, D), device="cuda"))
+    assert copies.count(False) == 0, copies
+    for a, ref in zip(grads, (q, k, v)):
+        assert a.stride() == ref.stride()
+
+
+@pytest.mark.parametrize("D,want", [(8, "split"), (32, "split"),
+                                    (64, "split"), (128, "split"),
+                                    (129, "chunk"), (256, "chunk")])
+def test_f32_backward_pair_launches_the_split_kernels_up_to_128_columns(
+        cuda, D, want):
+    """Up to 128 columns the f32 pair launches the TF32 instances
+    (``dq_split_kernel``, ``dkv_split_kernel`` after the rows pass), past
+    them the CUDA-core chunk kernels, by the profiler's kernel names; one
+    launch of each pass by the wrappers' counters."""
+    from vit_cifar_torch.ops.cuda.common import f32_backward_plan
+
+    args = _f32_views_and_cotangent((2, 3, 257, D), seed=D)
+    counts = (flash_tiled_bwd_dq.launches, flash_tiled_bwd_dkv.launches)
+    names = _kernel_names(lambda: _pair(args))
+    assert (flash_tiled_bwd_dq.launches - counts[0],
+            flash_tiled_bwd_dkv.launches - counts[1]) == (1, 1), D
+    for kind in ("dq", "dkv"):
+        hits = [n for n in names if f"{kind}_{want}_kernel" in n]
+        assert hits, (D, kind, sorted(names))
+    assert (f32_backward_plan(257, D) is not None) == (want == "split")
+
+
+FIRST_BACKWARD_ON_AUTOGRADS_THREAD = r"""
+import sys
+import torch
+from vit_cifar_torch.ops.cuda.flash_attention import (
+    flash_attention, flash_attention_lse, flash_tiled_bwd_dkv,
+    flash_tiled_bwd_dq)
+dtype, main_first = getattr(torch, sys.argv[1]), sys.argv[2] == "main"
+B, T, H, D = 2, 65, 3, 32
+x = torch.randn((3, B, T, H * D), device="cuda").to(dtype)
+if main_first:  # the pair's first launch on this (the main) thread
+    q, k, v = (t.view(B, T, H, D).transpose(1, 2) for t in x)
+    out, lse = flash_attention_lse(q, k, v, 0.1)
+    g = torch.randn(out.shape, device="cuda").to(dtype)
+    flash_tiled_bwd_dq(q, k, v, out, g, lse, 0.1)
+    flash_tiled_bwd_dkv(q, k, v, out, g, lse, 0.1)
+    torch.cuda.synchronize()
+x.requires_grad_()
+q, k, v = (t.view(B, T, H, D).transpose(1, 2) for t in x)
+(grad,) = torch.autograd.grad(flash_attention(q, k, v, 0.1), [x],
+                              torch.ones((B, T, H, D), device="cuda",
+                                         dtype=dtype))
+torch.cuda.synchronize()
+assert torch.isfinite(grad.float()).all()
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("first", ["main", "autograd"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_backward_pair_launches_first_on_autograds_thread(cuda, dtype,
+                                                          first):
+    """In a fresh process: the Function's forward, then its backward, the
+    pair's first launch in the process on autograd's device thread; and
+    the pair first launched on the main thread, then the Function's
+    backward on autograd's thread (the order in which each thread's first
+    launch used to be refused, cudaError 1, before the shared-memory
+    opt-in was made once a thread and kernel).  The child imports only
+    torch and the port."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", FIRST_BACKWARD_ON_AUTOGRADS_THREAD, dtype,
+         first], cwd=root, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert run.returncode == 0 and run.stdout.strip() == "ok", (
+        run.stdout[-2000:], run.stderr[-2000:])
 
 
 def _layer_grads(mod, x, g):

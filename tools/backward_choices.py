@@ -1,24 +1,27 @@
-"""The bf16 wgmma backward pair's tiles, measured on one CUDA card.
+"""The wgmma backward pair's tiles, bf16 and f32 (TF32), measured on one
+CUDA card.
 
-    python3 tools/backward_choices.py
+    python3 tools/backward_choices.py [--only bf16|f32]
 
 builds ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` from copies
 of ``vit_cifar_torch/csrc`` under ``build/backward_choices/``, one copy a
 choice: the table of instances (``csrc/backward_tiles.cuh``) with one row
 changed -- the dq kernel's key tile, or the dk/dv kernel's query tile, at
 one padded head width; past the widest row the streamed rows' tile or
-columns of the gradients a consumer holds -- and every build at once.  It
+columns of the gradients a consumer holds; and the f32 instances'
+DQ_F32 and DKV_F32 rows the same way -- and every build at once.  It
 prints each build's ptxas registers and spills (or that it does not
 build: tiles that miss shared memory fail a static_assert), checks that
 each choice's gradients are within two bf16 steps (at their largest
-value) of the repo's, and times it against the repo's own build in turns
+value) of the repo's (f32: within 1e-5 of it, relative to the largest
+value), and times it against the repo's own build in turns
 (repo, choice, choice, repo; CUDA events) on the model's (B, H, T, D)
 views at that width's shape: the pixel ViT's at 32 columns,
 chip_smoke.py's head-dim shape (128, 8, 512, D) beyond (D = 64, 128 and
 256, the last one of the column chunks), and for the streamed rows
-(16, 2, 1024, 520), a head past the widest row.  The table's tiles are
-chosen from this.  Prints the card's name and power limit, a line a
-choice, and one JSON object last.
+(16, 2, 1024, 520), a head past the widest row; the f32 rows at the same
+shapes in f32.  The table's tiles are chosen from this.  Prints the
+card's name and power limit, a line a choice, and one JSON object last.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ sys.path.insert(0, ROOT)
 from vit_cifar_torch.ops.cuda.build import (CSRC_DIR, NVCC_FLAGS,  # noqa: E402
                                             find_nvcc)
 from vit_cifar_torch.ops.cuda.common import (  # noqa: E402
-    BWD_STREAMED, DKV_TILES, DQ_TILES, bind, launch_backward, library)
+    BWD_STREAMED, DKV_F32_TILES, DKV_TILES, DQ_F32_TILES, DQ_TILES, bind,
+    launch_backward, library)
 from vit_cifar_torch.ops.cuda.flash_attention import \
     flash_attention_lse  # noqa: E402
 
@@ -66,14 +70,34 @@ CHOICES = [("flash_bwd_dq", "streamed", (32, 128)),
            ("flash_bwd_dkv", 64, 32), ("flash_bwd_dkv", 64, 128),
            ("flash_bwd_dkv", 128, 32), ("flash_bwd_dkv", 128, 128),
            ("flash_bwd_dkv", 256, 16), ("flash_bwd_dkv", 256, 64)]
+# the f32 rows' neighbours, (kernel, "f32", (width, tile, bf16x3)): half
+# and twice the tile where the kernel takes it (at most 64; tiles that miss
+# shared memory fail their build on a static_assert and are reported so),
+# and the row's tile on the other route of the gradient products (the
+# tile's transpose, or its three bf16 terms: tiles of a multiple of 16, a
+# consumer's columns whole bf16 atoms)
+F32_CHOICES = [("flash_bwd_dq", "f32", (32, 32, 1)),
+               ("flash_bwd_dq", "f32", (32, 64, 1)),
+               ("flash_bwd_dq", "f32", (32, 48, 0)),
+               ("flash_bwd_dq", "f32", (64, 32, 1)),
+               ("flash_bwd_dq", "f32", (64, 16, 0)),
+               ("flash_bwd_dq", "f32", (128, 32, 1)),
+               ("flash_bwd_dq", "f32", (128, 8, 0)),
+               ("flash_bwd_dkv", "f32", (32, 32, 1)),
+               ("flash_bwd_dkv", "f32", (32, 16, 0)),
+               ("flash_bwd_dkv", "f32", (64, 8, 0)),
+               ("flash_bwd_dkv", "f32", (64, 32, 0)),
+               ("flash_bwd_dkv", "f32", (128, 16, 0))]
 ROUNDS, ITERS = 3, 10
 
 
-def build(kernel: str, width: int, tile: int):
+def build(kernel: str, width, tile):
     """Starts nvcc on ``kernel``'s source in a copy of the sources whose
-    table has ``tile`` in that kernel's row at ``width``: (the library's
-    path, the process)."""
-    name = "_".join(map(str, tile)) if width == "streamed" else tile
+    table has ``tile`` in that kernel's row at ``width`` (``"f32"``: tile
+    is (width, tile) of the f32 row): (the library's path, the
+    process)."""
+    name = ("_".join(map(str, tile)) if width in ("streamed", "f32")
+            else tile)
     src = os.path.join(WORK, f"{kernel}_{width}_{name}")
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(CSRC_DIR, src)
@@ -85,6 +109,10 @@ def build(kernel: str, width: int, tile: int):
         text = re.sub(rf"^{row}_STREAMED\(\d+, \d+\)$",
                       f"{row}_STREAMED({tile[0]}, {tile[1]})", text,
                       flags=re.M)
+    elif width == "f32":
+        text = re.sub(rf"^{row}_F32\({tile[0]}, \d+, (\d+), [01]\)$",
+                      rf"{row}_F32({tile[0]}, {tile[1]}, \1, {tile[2]})",
+                      text, flags=re.M)
     else:
         text = re.sub(rf"^{row}\({width}, \d+, (\d+)\)$",
                       rf"{row}({width}, {tile}, \1)", text, flags=re.M)
@@ -101,10 +129,11 @@ def instance_report(report: str, instance: str) -> str:
     """ptxas's registers and spills of the wgmma instance ``instance``
     (``dq_kernel<32,64>``-style) in a build's report."""
     name, args = instance[:-1].split("<")
-    mangled = name + "I" + "".join(f"Li{a}E" for a in args.split(","))
+    mangled = re.compile(name + "I" + "".join(f"L[ib]{a}E"
+                                             for a in args.split(",")))
     lines = report.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and mangled in line:
+        if "Compiling entry function" in line and mangled.search(line):
             regs = spill = ""
             for later in lines[i + 1:i + 6]:
                 if "spill" in later:
@@ -128,11 +157,10 @@ def window_ms(fn) -> float:
     return start.elapsed_time(end) / ITERS
 
 
-def model_views(shape, gen):
+def model_views(shape, gen, dtype=torch.bfloat16):
     B, H, T, D = shape
     return [torch.randn((B, T, H * D), generator=gen, device="cuda")
-            .to(torch.bfloat16).view(B, T, H, D).transpose(1, 2)
-            for _ in range(3)]
+            .to(dtype).view(B, T, H, D).transpose(1, 2) for _ in range(3)]
 
 
 def main() -> None:
@@ -143,8 +171,12 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
+        else None
+    choices = ((CHOICES if only != "f32" else [])
+               + (F32_CHOICES if only != "bf16" else []))
     os.makedirs(WORK, exist_ok=True)
-    jobs = [(choice, *build(*choice)) for choice in CHOICES]
+    jobs = [(choice, *build(*choice)) for choice in choices]
     try:
         measure(card, jobs)
     finally:  # no compiler left running
@@ -158,14 +190,18 @@ def measure(card: str, jobs) -> None:
     """Checks and times each built choice against the repo's build."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = {}
-    for width, shape in SHAPES.items():
-        B, H, T, D = shape
-        q, k, v = model_views(shape, gen)
-        scale = 1.0 / math.sqrt(H * D)
-        out, lse = flash_attention_lse(q, k, v, scale)
-        g = torch.randn((B, T, H, D), generator=gen,
-                        device="cuda").to(torch.bfloat16)
-        inputs[width] = (q, k, v, out, g, lse, scale)
+    for dtype in (torch.bfloat16, torch.float32):
+        for width, shape in SHAPES.items():
+            if dtype == torch.float32 and width not in DQ_F32_TILES:
+                continue
+            B, H, T, D = shape
+            q, k, v = model_views(shape, gen, dtype)
+            scale = 1.0 / math.sqrt(H * D)
+            out, lse = flash_attention_lse(q, k, v, scale)
+            g = torch.randn((B, T, H, D), generator=gen,
+                            device="cuda").to(dtype)
+            key = width if dtype == torch.bfloat16 else ("f32", width)
+            inputs[key] = (q, k, v, out, g, lse, scale)
 
     def run(kernel, lib, args):
         q, k, v = args[:3]
@@ -188,24 +224,34 @@ def measure(card: str, jobs) -> None:
         if "wgmma.mma_async instructions are serialized" in report:
             print(f"{kernel} width {width} tile {tile}: ptxas serialised "
                   "its wgmmas; not timed")
+            result["choices"].append({"kernel": kernel, "width": width,
+                                      "tile": tile, "serialised": True})
             continue
         kind = "dq" if kernel == "flash_bwd_dq" else "dkv"
+        f32 = width == "f32"
         if width == "streamed":
             repo_tile = BWD_STREAMED[kind]
             instance = f"{kind}_stream_kernel<{tile[0]},{tile[1]}>"
+        elif f32:
+            repo_tile, cols = (DQ_F32_TILES if kind == "dq"
+                               else DKV_F32_TILES)[tile[0]]
+            instance = (f"{kind}_split_kernel<{tile[0]},{tile[1]},{cols},"
+                        f"{tile[2]}>")
         else:
             repo_tile, cols = (DQ_TILES if kind == "dq"
                                else DKV_TILES)[width]
             instance = f"{kind}_kernel<{width},{tile},{cols}>"
         lib = bind(ctypes.CDLL(path), kernel)
-        args = inputs[width]
+        args = inputs[("f32", tile[0]) if f32 else width]
         got, want = run(kernel, lib, args), run(kernel, library(kernel), args)
-        # in bf16 steps at each gradient's largest value
+        # in bf16 steps (f32: in units of 1e-5) at each gradient's largest
+        # value
+        step = 1e-5 if f32 else 2.0 ** -7
         diff = max((a.float() - b.float()).abs().max().item()
-                   / (b.float().abs().max().item() * 2.0 ** -7)
+                   / (b.float().abs().max().item() * step)
                    for a, b in zip(got, want))
         if diff > 2:
-            raise AssertionError(f"{kernel} {width}/{tile}: {diff:.2f} bf16 "
+            raise AssertionError(f"{kernel} {width}/{tile}: {diff:.2f} "
                                  "steps from the repo's build")
         times = {"repo": [], "choice": []}
         fns = {"repo": lambda: run(kernel, library(kernel), args),
@@ -214,18 +260,19 @@ def measure(card: str, jobs) -> None:
             for name in ("repo", "choice", "choice", "repo"):
                 times[name].append(window_ms(fns[name]))
         med = {n: statistics.median(t) for n, t in times.items()}
+        shape = SHAPES[tile[0] if f32 else width]
         row = {"kernel": kernel, "width": width, "tile": tile,
-               "repo_tile": repo_tile, "shape": SHAPES[width],
+               "repo_tile": repo_tile, "shape": shape,
                "ptxas": instance_report(report, instance),
                "diff": diff, **{f"{n}_ms": t for n, t in times.items()},
                "choice_over_repo": med["choice"] / med["repo"]}
         result["choices"].append(row)
-        print(f"{kernel} {SHAPES[width]} bf16: tile {tile} (ptxas "
-              f"{row['ptxas']}) {med['choice']:.4f} ms against the repo's "
-              f"{repo_tile} {med['repo']:.4f} ms: "
+        print(f"{kernel} {shape} {'f32' if f32 else 'bf16'}: tile {tile} "
+              f"(ptxas {row['ptxas']}) {med['choice']:.4f} ms against the "
+              f"repo's {repo_tile} {med['repo']:.4f} ms: "
               f"{row['choice_over_repo']:.3f} (medians of {2 * ROUNDS} "
-              f"windows of {ITERS}); {diff:.2f} bf16 steps from the repo's "
-              f"({card})", flush=True)
+              f"windows of {ITERS}); {diff:.2f} {'1e-5' if f32 else 'bf16'}"
+              f" steps from the repo's ({card})", flush=True)
     print(json.dumps(result))
 
 

@@ -30,11 +30,16 @@ differs.  Each run measures, in bf16:
   and the tiled dq and dk/dv passes on the model's views at
   (16, 2, 1024, 512) and (16, 2, 1024, 520), the table's edge, and at
   (128, 8, 512, D) for D = 576, 640, 768 and 1040: CUDA-event means over
-  windows of about 50 ms.
+  windows of about 50 ms;
+- f32 (``f32``, only when asked for): the tiled dq and dk/dv passes and
+  the pair on the model's f32 views at the pixel model's and the
+  flagship's shapes (CUDA events over windows of about 50 ms; device ms
+  at T=65), and the flagship and pixel training steps under
+  ``--precision 32`` as above.
 
 ``--only`` runs one of the parts (``kernels``, ``flagship``, ``pixel``,
-``wide``), for more rounds of it in the same time.  Every number is the
-card's; the card's name and power limit are printed with them.  Work
+``wide``, ``f32``), for more rounds of it in the same time.  Every number
+is the card's; the card's name and power limit are printed with them.  Work
 files go to ``build/chip_smoke/``.
 """
 
@@ -158,9 +163,41 @@ def _wide_times(smoke, torch) -> dict:
     return out
 
 
+def _f32_times(smoke, torch) -> dict:
+    """ms a call of the f32 dq and dk/dv passes and of the pair on the
+    model's f32 views (o and lse as the f32 forward returns them, a (B, T,
+    H, D) cotangent) at the pixel model's and the flagship's shapes: CUDA
+    events over windows of about 50 ms, and device ms at T=65."""
+    from vit_cifar_torch.ops.cuda.flash_attention import (
+        flash_attention_lse, flash_tiled_bwd_dkv, flash_tiled_bwd_dq)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for tag in ("pixel", "flagship"):
+        B, H, T, D = shape = KERNEL_SHAPES[tag]
+        scale = 1.0 / (H * D) ** 0.5
+        q, k, v = (t.float() for t in smoke.model_views(shape, gen))
+        o, lse = flash_attention_lse(q, k, v, scale)
+        g = torch.randn((B, T, H, D), generator=gen, device="cuda")
+        args = (q, k, v, o, g, lse, scale)
+        fns = {"f32 flash_bwd_dq_tiled": lambda: flash_tiled_bwd_dq(*args),
+               "f32 flash_bwd_dkv_tiled": lambda: flash_tiled_bwd_dkv(*args),
+               "f32 pair": lambda: (flash_tiled_bwd_dq(*args),
+                                    flash_tiled_bwd_dkv(*args))}
+        for name, fn in fns.items():
+            iters = max(2, min(100, round(50 / smoke.cuda_ms(fn, 1, 1))))
+            out[f"{name} {tag}"] = smoke.cuda_ms(fn, iters, 2)
+            if T <= 65:
+                out[f"{name} {tag} device"] = smoke.device_ms(fn)[0]
+        del q, k, v, o, lse, g, args, fns
+        torch.cuda.empty_cache()
+    return out
+
+
 def _train(smoke, torch, card: str, patch: int, steps: int,
-           n_prof: int) -> dict:
-    cfg = smoke.flagship_cfg(patch=patch)
+           n_prof: int, precision: str | None = None) -> dict:
+    cfg = smoke.flagship_cfg(patch=patch, **(
+        {"precision": precision} if precision else {}))
     _, x, y, _, state, train_step, perm = smoke.training_setup(cfg)
     box = [state]
 
@@ -180,7 +217,9 @@ def _train(smoke, torch, card: str, patch: int, steps: int,
                                f"ab_trace_{os.getpid()}.json", step_ms, card)
     attention = {}
     for key, ms in prof.pop("by_kernel").items():
-        if "mhsa" in key or "flash_" in key:
+        # the attention kernels: the CUDA-core ones and the wgmma
+        # instances (fwd_*, dq_*, dkv_*: bf16 and the f32 split kernels)
+        if re.search(r"mhsa|flash_|\b(fwd|dq|dkv)_\w*kernel", key):
             found = re.search(r"\w+_kernel", key)
             name = found.group(0) if found else key[:60]
             attention[name] = attention.get(name, 0.0) + ms
@@ -206,11 +245,17 @@ def worker(checkout: str, only: str | None) -> None:
     parts = {"kernels_ms": lambda: _kernel_times(smoke, torch),
              "flagship": lambda: _train(smoke, torch, card, 8, 30, 20),
              "pixel": lambda: _train(smoke, torch, card, 32, 8, 3),
-             "wide_ms": lambda: _wide_times(smoke, torch)}
+             "wide_ms": lambda: _wide_times(smoke, torch),
+             "f32_ms": lambda: _f32_times(smoke, torch),
+             "f32 flagship": lambda: _train(smoke, torch, card, 8, 30, 10,
+                                            "32"),
+             "f32 pixel": lambda: _train(smoke, torch, card, 32, 4, 2,
+                                         "32")}
     result = {"checkout": checkout, "build_s": build_s}
     for part, run in parts.items():
-        if only == part.removesuffix("_ms") or (only is None
-                                                and part != "wide_ms"):
+        asked = part.removesuffix("_ms").split()[0]
+        if only == asked or (only is None
+                             and asked not in ("wide", "f32")):
             result[part] = run()
     print(json.dumps(result))
 
@@ -222,7 +267,8 @@ def main() -> None:
     parser.add_argument("--rounds", type=int, default=1)
     parser.add_argument("--worker", action="store_true")
     parser.add_argument("--only",
-                        choices=("kernels", "flagship", "pixel", "wide"))
+                        choices=("kernels", "flagship", "pixel", "wide",
+                                 "f32"))
     args = parser.parse_args()
     if args.worker:
         worker(args.a, args.only)
@@ -255,8 +301,9 @@ def main() -> None:
 
     first = runs[args.a][0]
     rows = [(k, lambda r, p=part, k=k: r[p].get(k, float("nan")))
-            for part in ("kernels_ms", "wide_ms") for k in first.get(part, {})]
-    for model in ("flagship", "pixel"):
+            for part in ("kernels_ms", "wide_ms", "f32_ms")
+            for k in first.get(part, {})]
+    for model in ("flagship", "pixel", "f32 flagship", "f32 pixel"):
         for key in ("step_ms", "device_ms", "busy", "kernels"):
             if model in first:
                 rows.append((f"{model} {key}",

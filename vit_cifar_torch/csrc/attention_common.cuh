@@ -40,15 +40,6 @@ __host__ __device__ constexpr int stride_elems(int D) {
   return 8 * (((D + 7) / 8) | 1);
 }
 
-// Whether rows of D % 8 == 0 bf16 elements at these bases can be read in
-// whole 16-byte chunks: 16-byte aligned bases (any row stride that is a
-// multiple of 8 elements keeps the rows aligned; the caller checks that).
-template <typename... Ptr>
-bool can_copy_chunks(int D, const Ptr*... bases) {
-  return D % 8 == 0 &&
-         ((reinterpret_cast<uintptr_t>(bases) | ...) % 16) == 0;
-}
-
 // The (b, h, t) strides in elements of n (B, H, T, D) views as the caller
 // has them, d's being 1.
 template <int n>

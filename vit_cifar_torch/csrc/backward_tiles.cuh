@@ -1,11 +1,11 @@
-// The instances of the bf16 wgmma backward pair (wgmma_backward.cuh), one
-// row each.  This one table is what the CUDA dispatch (flash_bwd_dq.cu and
-// flash_bwd_dkv.cu) expands and what the wrappers' plan
-// (ops/cuda/common.py::backward_plan) and the CPU model of the kernels'
-// arithmetic read, so they cannot disagree.  No include guard: each
-// includer defines all four macros.  Rows by ascending padded width: a
-// head of D columns takes the first width >= D; past the last, the
-// STREAMED rows.
+// The instances of the wgmma backward pair, bf16 (wgmma_backward.cuh) and
+// f32 on TF32 (wgmma_tf32.cuh), one row each.  This one table is what the
+// CUDA dispatch (flash_bwd_dq.cu and flash_bwd_dkv.cu) expands and what
+// the wrappers' plan (ops/cuda/common.py::backward_plan) and the CPU
+// models of the kernels' arithmetic read, so they cannot disagree.  No
+// include guard: each includer defines all six macros.  Rows by ascending
+// padded width: a head of D columns takes the first width >= D; past the
+// last, the STREAMED rows (bf16) or the CUDA-core kernels (f32).
 //
 // ptxas gives a consumer warpgroup 168 registers, and each kernel keeps one
 // tile's s and dp accumulators (f32) in flight beside the previous tile's
@@ -40,6 +40,27 @@
 //   1.42x, chunks of 64 columns 1.59x, 32 keys by 256 columns 1.08x; dk/dv
 //   64 queries 0.69x the 32 (which 16 queries read 1.61x, 16 by 128
 //   columns 1.04x).
+// DQ_F32(width, keys, cols, bf16x3), DKV_F32(width, queries, cols,
+//   bf16x3): the f32 instances on TF32 wgmma (dq_split_kernel,
+//   dkv_split_kernel), as DQ and DKV above, up to 128 columns (past it the
+//   CUDA-core kernels).  Every tile is held twice in shared memory (TF32
+//   big and small halves) and a stage's key (query) tile also as the B of
+//   the gradient products, which sum over keys (queries): each value four
+//   bytes, so the rows of an item and two or more stages of the ring fill
+//   a block's 227 KB with smaller tiles than the bf16 rows'.  bf16x3
+//   chooses that B's route: 0, the tile's transpose written by the
+//   converter warps, three TF32 products a k8 step; 1, the tile's three
+//   bf16 terms read MN-major, six bf16 products a k16 step (tiles of a
+//   multiple of 16, a consumer's columns whole bf16 atoms).  The consumers
+//   hold each gradient twice, the tile's part and its f32 sum
+//   (wgmma_tf32.cuh, GradFrags): dk/dv's consumers hold 32 columns, so
+//   past 32 columns a work item is 64 keys and two chunks, as is dq's at
+//   128.  Each row is the fastest of tools/backward_choices.py's
+//   measurements against its neighbours (half and twice the tile, the
+//   other route): the transposes read 1.13-1.35x the bf16 terms for dq at
+//   32-128 columns and 1.30x for dk/dv at 32, where its 16-query tile
+//   reads 1.29x the 32; past 32 columns dk/dv's 32-column chunks of the
+//   bf16 terms would cut a 64-column atom, so they take the transposes.
 
 DQ(32, 96, 32)
 DQ(64, 64, 64)
@@ -56,3 +77,11 @@ DKV(256, 32, 64)
 DKV(384, 32, 64)
 DKV(512, 16, 64)
 DKV_STREAMED(64, 64)
+
+DQ_F32(32, 48, 32, 1)
+DQ_F32(64, 16, 64, 1)
+DQ_F32(128, 16, 64, 1)
+
+DKV_F32(32, 32, 32, 1)
+DKV_F32(64, 16, 32, 0)
+DKV_F32(128, 8, 32, 0)

@@ -53,14 +53,21 @@
 //   runs.  Query rows past T arrive as zeros with lse and delta 0, so they
 //   add exactly 0; keys past T are never written.
 //
-//   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
-//   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
-//   to; so f32 keeps the first design: one block of 8 warps per 64 keys,
-//   K, V, Q and dO converted into f32 shared memory (Q and dO with a row
-//   stride of D+1), each warp walking its 8 keys with lanes over query
-//   rows for p and ds and over d for p^T.dO and ds^T.Q; past 128 columns
-//   one block computes both chunks of dk and dv in turn.  This is a
-//   dispatch by dtype, not a fallback.
+//   f32 (dtype 0) up to 128 columns: the rows pass over f32 o and do,
+//   then the same kernel's design on TF32 wgmma (dkv_split_kernel;
+//   wgmma_tf32.cuh): each operand split into TF32 big + small, a product
+//   big.big + big.small + small.big in f32 (one TF32 product would miss
+//   the f32 path's 1e-5); three converter warps of the producer warpgroup
+//   split the tiles TMA brings (K and V an item, Q and dO a query tile) and
+//   write the B of ds^T.q and p^T.do (TF32 wgmma reads both operands
+//   K-major only): Q's and dO's three bf16 terms, read MN-major by six
+//   bf16 products, or at 128 columns their TF32 transposes; p^T and ds^T
+//   are split in the consumers' registers; each query tile's parts of dk
+//   and dv are added into them in f32 (GradFrags says why).  Tiles and
+//   route by width in backward_tiles.cuh's DKV_F32 rows.  Past 128 columns
+//   the CUDA-core design stays, a dispatch by width: one block of 8 warps
+//   per 64 keys and 128-column chunk of dk and dv, which sums s^T and dp^T
+//   over every chunk with lanes over queries.
 //
 // Shared memory does not grow with T, so any T and any D run.  Offsets are
 // int64; nothing is padded in device memory but the rows' scratch.
@@ -73,178 +80,16 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
-#include "wgmma_backward.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
 using namespace attn;
 
-// ---- f32: the CUDA-core instance -----------------------------------------
+// The CUDA-core chunk kernel's tiles (past the f32 table's widest row).
 constexpr int kRows = 8;                 // keys per warp
 constexpr int kTileK = kRows * kWarps;   // keys per block
 constexpr int kTileQ = 64;               // query rows per tile: two per lane
-
-// Dynamic shared memory, in floats:
-//   K      kTileK * D         (the block's keys)
-//   V      kTileK * D         (their values)
-//   Q      kTileQ * (D + 1)   (the query tile, padded row stride)
-//   dO     kTileQ * (D + 1)
-//   lse    kTileQ
-//   delta  kTileQ
-//   p      kWarps * kTileQ    (each warp's column of p)
-//   ds     kWarps * kTileQ    (each warp's column of ds)
-template <typename T, int kCols>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ o,
-                         const T* __restrict__ dout,
-                         const float* __restrict__ lse, T* __restrict__ dk,
-                         T* __restrict__ dv, BwdLayout L, int H, int seq,
-                         int D, float scale) {
-  extern __shared__ float smem[];
-  const int qs = D + 1;
-  float* k_s = smem;
-  float* v_s = k_s + kTileK * D;
-  float* q_s = v_s + kTileK * D;
-  float* do_s = q_s + kTileQ * qs;
-  float* lse_s = do_s + kTileQ * qs;
-  float* delta_s = lse_s + kTileQ;
-  float* p_s = delta_s + kTileQ;
-  float* ds_s = p_s + kWarps * kTileQ;
-
-  const int tiles = (seq + kTileK - 1) / kTileK;
-  const int bh = blockIdx.x / tiles;  // b * H + h
-  const int k0 = (blockIdx.x - bh * tiles) * kTileK;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  // row 0 of head (b, h) of each view, its rows L.st[x] apart
-  const T* qh = q + L.head(0, b, h);
-  const T* kh = k + L.head(1, b, h);
-  const T* vh = v + L.head(2, b, h);
-  const T* oh = o + L.head(3, b, h);
-  const T* doh = dout + L.head(4, b, h);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nk = min(kTileK, seq - k0);
-
-  for (int idx = threadIdx.x; idx < nk * D; idx += kThreads) {
-    const int j = idx / D;
-    const int d = idx - j * D;
-    k_s[idx] = to_f32(kh[(k0 + j) * L.st[1] + d]);
-    v_s[idx] = to_f32(vh[(k0 + j) * L.st[2] + d]);
-  }
-
-  float dk_acc[kRows][kCols], dv_acc[kRows][kCols];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
-  }
-
-  const int key0 = warp * kRows;  // this warp's first key in the tile
-  float* pcol = p_s + warp * kTileQ;
-  float* dscol = ds_s + warp * kTileQ;
-  for (int q0 = 0; q0 < seq; q0 += kTileQ) {
-    const int nq = min(kTileQ, seq - q0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < nq * D; idx += kThreads) {
-      const int i = idx / D;
-      const int d = idx - i * D;
-      q_s[i * qs + d] = to_f32(qh[(q0 + i) * L.st[0] + d]);
-      do_s[i * qs + d] = to_f32(doh[(q0 + i) * L.st[4] + d]);
-    }
-    for (int i = threadIdx.x; i < nq; i += kThreads)
-      lse_s[i] = lse[static_cast<int64_t>(bh) * seq + q0 + i];
-    __syncthreads();
-    // delta of the tile's rows, recomputed per tile as the TPU kernel does
-    for (int i = warp; i < nq; i += kWarps) {
-      const T* orow = oh + (q0 + i) * L.st[3];
-      float a = 0.f;
-      for (int d = lane; d < D; d += 32)
-        a = fmaf(do_s[i * qs + d], to_f32(orow[d]), a);
-      a = warp_sum(a);
-      if (lane == 0) delta_s[i] = a;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (key0 + r >= nk) break;  // warp-uniform: keys past T
-      const float* krow = k_s + (key0 + r) * D;
-      const float* vrow = v_s + (key0 + r) * D;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int i = lane + 32 * half;
-        float p = 0.f, ds = 0.f;  // missing rows of a ragged tile
-        if (i < nq) {
-          const float* qi = q_s + i * qs;
-          const float* doi = do_s + i * qs;
-          float s = 0.f, dp = 0.f;
-          for (int d = 0; d < D; ++d) {
-            s = fmaf(qi[d], krow[d], s);
-            dp = fmaf(doi[d], vrow[d], dp);
-          }
-          p = expf(s * scale - lse_s[i]);
-          ds = p * (dp - delta_s[i]) * scale;
-        }
-        pcol[i] = p;
-        dscol[i] = ds;
-      }
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D) {
-          float av = dv_acc[r][c], ak = dk_acc[r][c];
-          for (int i = 0; i < nq; ++i) {
-            av = fmaf(pcol[i], do_s[i * qs + d], av);
-            ak = fmaf(dscol[i], q_s[i * qs + d], ak);
-          }
-          dv_acc[r][c] = av;
-          dk_acc[r][c] = ak;
-        }
-      }
-      __syncwarp();  // pcol and dscol are rewritten for the next key
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (key0 + r >= nk) break;
-    const int key = k0 + key0 + r;
-    T* dkrow = dk + L.head(5, b, h) + key * L.st[5];
-    T* dvrow = dv + L.head(6, b, h) + key * L.st[6];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) {
-        dkrow[d] = from_f32<T>(dk_acc[r][c]);
-        dvrow[d] = from_f32<T>(dv_acc[r][c]);
-      }
-    }
-  }
-}
-
-size_t smem_bytes(int D) {
-  return sizeof(float) * (2 * static_cast<size_t>(kTileK) * D +
-                          2 * static_cast<size_t>(kTileQ) * (D + 1) +
-                          2 * kTileQ + 2 * kWarps * kTileQ);
-}
-
-template <int kCols>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, const void* lse,
-                       void* dk, void* dv, const BwdLayout& L, int B, int H,
-                       int seq, int D, float scale, cudaStream_t stream) {
-  const int tiles = (seq + kTileK - 1) / kTileK;
-  return launch_with_smem(
-      flash_bwd_dkv_kernel<float, kCols>, B * H * tiles, kThreads,
-      smem_bytes(D), stream, static_cast<const float*>(q),
-      static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(dk),
-      static_cast<float*>(dv), L, H, seq, D, scale);
-}
 
 // acc + the dot product of 8 bf16 pairs, x and y 16 bytes each, in f32.
 __device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
@@ -260,14 +105,41 @@ __device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
   return acc;
 }
 
-// ---- bf16, D <= 512: the warp-specialised wgmma kernel ---------------------
+// acc + the dot product of 4 f32 pairs.
+__device__ __forceinline__ float dot4(float4 x, float4 y, float acc) {
+  acc = fmaf(x.x, y.x, acc);
+  acc = fmaf(x.y, y.y, acc);
+  acc = fmaf(x.z, y.z, acc);
+  return fmaf(x.w, y.w, acc);
+}
+
+// acc + sum_d do * o over a row of D values, 16 bytes at a time.
+__device__ __forceinline__ float dot_rows(const __nv_bfloat16* d,
+                                          const __nv_bfloat16* o, int D,
+                                          float acc) {
+  for (int ch = 0; ch < D / 8; ++ch)
+    acc = dot8(*reinterpret_cast<const uint4*>(d + 8 * ch),
+               *reinterpret_cast<const uint4*>(o + 8 * ch), acc);
+  return acc;
+}
+__device__ __forceinline__ float dot_rows(const float* d, const float* o,
+                                          int D, float acc) {
+  for (int ch = 0; ch < D / 4; ++ch)
+    acc = dot4(*reinterpret_cast<const float4*>(d + 4 * ch),
+               *reinterpret_cast<const float4*>(o + 4 * ch), acc);
+  return acc;
+}
+
+// ---- the rows pass of the wgmma instances ----------------------------------
 // lse * log2(e) and delta of every query row of every head into the rows
 // the dk/dv kernel's producer copies with each query tile (4 * queries
 // bytes each; lse's own rows, T floats, need not be 16-byte aligned), zeros
-// past T.  delta = sum_d do * o, from the o and do rows as the TPU kernel
-// computes it; once a row here, not once a query tile and work item.
+// past T.  delta = sum_d do * o, from the o and do rows (bf16, or f32 for
+// the TF32 instances) as the TPU kernel computes it; once a row here, not
+// once a query tile and work item.  With `vec` 16 bytes of a row a load.
+template <typename T>
 __global__ void __launch_bounds__(256)
-    dkv_rows_kernel(const attn_wg::BwdParams p, int BH, bool vec) {
+    dkv_rows_kernel(const attn_wg::BwdParamsT<T> p, int BH, bool vec) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= BH * p.Tpad) return;
   const int bh = idx / p.Tpad;
@@ -276,16 +148,14 @@ __global__ void __launch_bounds__(256)
   const int h = bh - b * p.H;
   float l2 = 0.f, dl = 0.f;
   if (t < p.T) {
-    const __nv_bfloat16* orow = p.o + b * p.so[0] + h * p.so[1] + t * p.so[2];
-    const __nv_bfloat16* drow =
-        p.dout + b * p.sd[0] + h * p.sd[1] + t * p.sd[2];
+    const T* orow = p.o + b * p.so[0] + h * p.so[1] + t * p.so[2];
+    const T* drow = p.dout + b * p.sd[0] + h * p.sd[1] + t * p.sd[2];
     if (vec) {
-      for (int ch = 0; ch < p.D / 8; ++ch)
-        dl = dot8(*reinterpret_cast<const uint4*>(drow + 8 * ch),
-                  *reinterpret_cast<const uint4*>(orow + 8 * ch), dl);
+      dl = dot_rows(drow, orow, p.D, dl);
     } else {
       for (int d = 0; d < p.D; ++d)
-        dl = fmaf(__bfloat162float(drow[d]), __bfloat162float(orow[d]), dl);
+        dl = fmaf(attn_wg::to_float(drow[d]), attn_wg::to_float(orow[d]),
+                  dl);
     }
     l2 = p.lse[static_cast<long long>(bh) * p.T + t] * attn_wg::kLog2e;
   }
@@ -293,6 +163,28 @@ __global__ void __launch_bounds__(256)
   p.deltas[idx] = dl;
 }
 
+// Fills the rows and deltas of `p` (a scratch of 2 * B * H * Tpad floats
+// at `rows`) and launches the rows pass; returns its cudaError_t.
+template <typename T>
+cudaError_t launch_rows(attn_wg::BwdParamsT<T>& p, float* rows,
+                        const void* o, const void* dout, const BwdLayout& L,
+                        int BH, int D, cudaStream_t s) {
+  p.Tpad =
+      (p.T + attn_wg::kRowsPad - 1) / attn_wg::kRowsPad * attn_wg::kRowsPad;
+  p.rows = rows;
+  p.deltas = rows + static_cast<int64_t>(BH) * p.Tpad;
+  // 16-byte rows of o and do for the rows' dot products
+  constexpr int kPer16 = 16 / sizeof(T);
+  const bool vec = D % kPer16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(o) |
+                    reinterpret_cast<uintptr_t>(dout)) % 16 == 0 &&
+                   (L.sb[3] | L.sh[3] | L.st[3] | L.sb[4] | L.sh[4] |
+                    L.st[4]) % kPer16 == 0;
+  dkv_rows_kernel<T><<<(BH * p.Tpad + 255) / 256, 256, 0, s>>>(p, BH, vec);
+  return cudaGetLastError();
+}
+
+// ---- bf16, D <= 512: the warp-specialised wgmma kernel ---------------------
 // Shared memory of an instance: kKBufs buffers of an item's K and V tiles
 // (kKeys rows each, all columns), kStages stages of a Q and a dO tile (kNq
 // rows each) and of their rows' lse * log2(e) and delta, then the
@@ -557,15 +449,19 @@ cudaError_t launch_dkv(const attn_wg::View& q, const attn_wg::View& k,
   using A = Atoms<kDp>;
   using C = Cut<kDp, kCols>;
   auto kernel = dkv_kernel<kDp, kNq, kCols>;
-  static std::atomic<uint64_t> opted_in{0};
+  static thread_local uint64_t opted_in = 0;
   const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, km, vm, dm;
-  if (!tensor_map(&qm, q, B, H, T, D, A::kCols, kNq, A::kSwizzle) ||
-      !tensor_map(&dm, dout, B, H, T, D, A::kCols, kNq, A::kSwizzle) ||
-      !tensor_map(&km, k, B, H, T, D, A::kCols, S::kKeys, A::kSwizzle) ||
-      !tensor_map(&vm, v, B, H, T, D, A::kCols, S::kKeys, A::kSwizzle))
-    return cudaErrorInvalidValue;
+  int maps =
+      tensor_map(&qm, q, B, H, T, D, A::kCols, kNq, A::kSwizzle);
+  if (maps == 0)
+    maps = tensor_map(&dm, dout, B, H, T, D, A::kCols, kNq, A::kSwizzle);
+  if (maps == 0)
+    maps = tensor_map(&km, k, B, H, T, D, A::kCols, S::kKeys, A::kSwizzle);
+  if (maps == 0)
+    maps = tensor_map(&vm, v, B, H, T, D, A::kCols, S::kKeys, A::kSwizzle);
+  if (maps != 0) return static_cast<cudaError_t>(maps);
   p.n_groups = C::kGroups;
   p.n_items = (T + S::kKeys - 1) / S::kKeys * C::kGroups;
   p.n_loop = (T + kNq - 1) / kNq;
@@ -843,15 +739,19 @@ cudaError_t launch_dkv_stream(const attn_wg::View& q,
   using namespace attn_wg;
   using S = DkvStreamShape<kNq, kCols>;
   auto kernel = dkv_stream_kernel<kNq, kCols>;
-  static std::atomic<uint64_t> opted_in{0};
+  static thread_local uint64_t opted_in = 0;
   const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, km, vm, dm;
-  if (!tensor_map(&qm, q, B, H, T, D, 64, kNq, 1) ||
-      !tensor_map(&dm, dout, B, H, T, D, 64, kNq, 1) ||
-      !tensor_map(&km, k, B, H, T, D, 64, S::kKeys, 1) ||
-      !tensor_map(&vm, v, B, H, T, D, 64, S::kKeys, 1))
-    return cudaErrorInvalidValue;
+  int maps =
+      tensor_map(&qm, q, B, H, T, D, 64, kNq, 1);
+  if (maps == 0)
+    maps = tensor_map(&dm, dout, B, H, T, D, 64, kNq, 1);
+  if (maps == 0)
+    maps = tensor_map(&km, k, B, H, T, D, 64, S::kKeys, 1);
+  if (maps == 0)
+    maps = tensor_map(&vm, v, B, H, T, D, 64, S::kKeys, 1);
+  if (maps != 0) return static_cast<cudaError_t>(maps);
   const int chunks = (D + kCols - 1) / kCols;
   p.n_groups = (chunks + 1) / 2;
   p.n_items = (T + S::kKeys - 1) / S::kKeys * p.n_groups;
@@ -875,11 +775,15 @@ cudaError_t launch_wgmma(const attn_wg::View& q, const attn_wg::View& k,
     return launch_dkv<w, n, cols>(q, k, v, dout, p, B, H, T, D, stream);
 #define DKV_STREAMED(n, cols)                                            \
   return launch_dkv_stream<n, cols>(q, k, v, dout, p, B, H, T, D, stream);
+#define DQ_F32(w, n, cols, bf16x3)
+#define DKV_F32(w, n, cols, bf16x3)
 #include "backward_tiles.cuh"
 #undef DQ
 #undef DQ_STREAMED
 #undef DKV
 #undef DKV_STREAMED
+#undef DQ_F32
+#undef DKV_F32
   return cudaErrorInvalidValue;  // a table without a DKV_STREAMED row
 }
 
@@ -890,14 +794,370 @@ size_t wgmma_smem_bytes(int D) {
 #define DKV(w, n, cols) \
   if (D <= w) return DkvShape<w, n, cols>::kBytes;
 #define DKV_STREAMED(n, cols) return DkvStreamShape<n, cols>::kBytes;
+#define DQ_F32(w, n, cols, bf16x3)
+#define DKV_F32(w, n, cols, bf16x3)
 #include "backward_tiles.cuh"
 #undef DQ
 #undef DQ_STREAMED
 #undef DKV
 #undef DKV_STREAMED
+#undef DQ_F32
+#undef DKV_F32
   return 0;
 }
 
+
+// ---- f32 up to the table's widest row: the TF32 wgmma kernel -------------
+// Shared memory of an instance: an item's K and V tiles (kKeys rows, all
+// columns; each big, then small); kStages stages of a query tile's Q and
+// dO (kNq rows; each big, then small) and of the B of dk += ds^T.q and dv
+// += p^T.do: their transposes Q^T and dO^T (big, then small; TF32) or,
+// with kBf16x3, their three bf16 terms each (the bf16 layout, read
+// MN-major); then each stage's rows of lse * log2(e) and delta, then the
+// barriers.
+template <int kDp, int kNq, int kCols, bool kBf16x3>
+struct DkvF32Shape {
+  static constexpr int kKeys = attn_wg::Cut<kDp, kCols>::kRows;  // an item's
+  static constexpr int kKBytes = 4 * kKeys * kDp;  // a half of K or V
+  static constexpr int kVOff = 2 * kKBytes;
+  static constexpr int kItemBytes = 4 * kKBytes;
+  static constexpr int kQBytes = 4 * kNq * kDp;    // a half of Q, dO, ...
+  static constexpr int kDOff = 2 * kQBytes;        // within a stage
+  static constexpr int kTermBytes = 2 * kNq * kDp;  // a bf16 term of Q, dO
+  // the B operands' halves (terms) this many bytes apart
+  static constexpr int kApart = kBf16x3 ? kTermBytes : kQBytes;
+  static constexpr int kQTOff = 4 * kQBytes;
+  static constexpr int kDTOff = kQTOff + (kBf16x3 ? 3 : 2) * kApart;
+  static constexpr int kStageBytes = kDTOff + (kBf16x3 ? 3 : 2) * kApart;
+  static constexpr int kLineBytes = 4 * kNq;       // lse or delta of a tile
+  // as many stages as fit, at most 4
+  static constexpr int kFit = (attn_wg::kSmemBudget - kItemBytes) /
+                              (kStageBytes + 2 * kLineBytes);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kLOff = kItemBytes + kStages * kStageBytes;
+  static constexpr int kBarOff = kLOff + kStages * 2 * kLineBytes;
+  static constexpr int kBytes = kBarOff + 8 * 3 * (1 + kStages) + 1024;
+  static_assert(kNq % (kBf16x3 ? 16 : 8) == 0 && kNq <= 64,
+                "query tile: whole k8 (k16) steps");
+  static_assert(!kBf16x3 || kCols % attn_wg::Atoms<kDp>::kCols == 0,
+                "a consumer's columns of the bf16 terms: whole atoms");
+  static_assert(attn_wg::kRowsPad % kNq == 0,
+                "a query tile lies within the padded rows");
+  static_assert(kStages >= 2, "a ring of at least two stages");
+};
+
+// The dk/dv kernel's arithmetic in f32 on TF32 wgmma (wgmma_tf32.cuh): its
+// work items, producer, ring and consumers as dkv_kernel's above, each
+// product three TF32 products of big and small halves, and the converter
+// warps between the producer and the consumers: an item's K and V split in
+// place, each query tile's Q and dO split and transposed (with kBf16x3
+// split into three bf16 terms each instead).  p^T and ds^T are split in
+// the consumers' registers (GradFrags).  dk and dv stay in registers until
+// the item ends and are written in f32: no atomics, two calls give equal
+// bits.
+template <int kDp, int kNq, int kCols, bool kBf16x3>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    dkv_split_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap,
+                    const attn_wg::BwdParamsT<float> p) {
+  using namespace attn_wg;
+  using S = DkvF32Shape<kDp, kNq, kCols, kBf16x3>;
+  using C = Cut<kDp, kCols>;
+  constexpr int kStages = S::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* k_ready = k_full + 1;
+  uint64_t* k_empty = k_full + 2;
+  uint64_t* full = k_full + 3;
+  uint64_t* ready = full + kStages;
+  uint64_t* empty = ready + kStages;
+  uint8_t* ring = smem + S::kItemBytes;
+  const int items =
+      (p.total - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+
+  if (threadIdx.x == 0) {
+    mbar_init(k_full, 1);
+    mbar_init(k_ready, kConverterWarps);
+    mbar_init(k_empty, kConsumerWarps);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&ready[i], kConverterWarps);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x & 31;
+  if (role == kConsumerWGs) {
+    const int pw = (threadIdx.x / 32) & 3;
+    if (pw == 0) {
+      // ---- producer: one thread keeps the loads in flight ----
+      if (lane != 0) return;
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      prefetch_map(&qmap);
+      prefetch_map(&domap);
+      int stage = 0, sph = 0, kph = 0;
+      for (int i = 0; i < items; ++i) {
+        const Item it(p, blockIdx.x + i * gridDim.x);
+        const int k0 = it.tile * S::kKeys;
+        mbar_wait(k_empty, kph ^ 1);  // a fresh barrier passes at once
+        mbar_expect_tx(k_full, 2 * S::kKBytes);
+        load_tile_f32<kDp>(smem, &kmap, k_full, S::kKeys, it.h, k0, it.b);
+        load_tile_f32<kDp>(smem + S::kVOff, &vmap, k_full, S::kKeys, it.h,
+                           k0, it.b);
+        kph ^= 1;
+        const long long line = static_cast<long long>(it.bh) * p.Tpad;
+        for (int j = 0; j < p.n_loop; ++j) {
+          const int q0 = j * kNq;
+          mbar_wait(&empty[stage], sph ^ 1);
+          mbar_expect_tx(&full[stage], 2 * S::kQBytes + 2 * S::kLineBytes);
+          uint8_t* st = ring + stage * S::kStageBytes;
+          load_tile_f32<kDp>(st, &qmap, &full[stage], kNq, it.h, q0, it.b);
+          load_tile_f32<kDp>(st + S::kDOff, &domap, &full[stage], kNq, it.h,
+                             q0, it.b);
+          uint8_t* lines = smem + S::kLOff + stage * 2 * S::kLineBytes;
+          bulk_load(lines, p.rows + line + q0, S::kLineBytes, &full[stage]);
+          bulk_load(lines + S::kLineBytes, p.deltas + line + q0,
+                    S::kLineBytes, &full[stage]);
+          if (++stage == kStages) stage = 0, sph ^= 1;
+        }
+      }
+      return;
+    }
+    // ---- converter: warps 1-3 split the tiles as they arrive ----
+    const int cw = pw - 1;
+    int stage = 0, sph = 0, kph = 0;
+    for (int i = 0; i < items; ++i) {
+      mbar_wait(k_full, kph);
+      split_tile(smem, smem + S::kKBytes, S::kKBytes, cw, lane);
+      split_tile(smem + S::kVOff, smem + S::kVOff + S::kKBytes, S::kKBytes,
+                 cw, lane);
+      converted(k_ready, lane);
+      kph ^= 1;
+      for (int j = 0; j < p.n_loop; ++j) {
+        mbar_wait(&full[stage], sph);
+        uint8_t* st = ring + stage * S::kStageBytes;
+        if constexpr (kBf16x3) {
+          split_terms<kDp, kNq>(st, st + S::kQBytes, st + S::kQTOff,
+                                S::kApart, cw, lane);
+          split_terms<kDp, kNq>(st + S::kDOff, st + S::kDOff + S::kQBytes,
+                                st + S::kDTOff, S::kApart, cw, lane);
+        } else {
+          split_transpose<kDp, kNq>(st, st + S::kQBytes, st + S::kQTOff,
+                                    st + S::kQTOff + S::kApart, cw, lane);
+          split_transpose<kDp, kNq>(st + S::kDOff,
+                                    st + S::kDOff + S::kQBytes,
+                                    st + S::kDTOff,
+                                    st + S::kDTOff + S::kApart, cw, lane);
+        }
+        converted(&ready[stage], lane);
+        if (++stage == kStages) stage = 0, sph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  const int c = role;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int t = lane & 3;
+
+  float s[kNq / 2], dp[kNq / 2];
+  float dk[kCols / 2], dv[kCols / 2];
+  float dk_part[kCols / 2], dv_part[kCols / 2];  // a query tile's parts
+  GradFrags<kNq, kBf16x3> pf, dsf;  // p^T and ds^T
+
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  auto fence_grads = [&]() {
+    fence_regs(dk_part);
+    fence_regs(dv_part);
+    pf.fence();
+    dsf.fence();
+  };
+
+  int stage = 0, sph = 0, kph = 0;
+  for (int i = 0; i < items; ++i) {
+    const Item it(p, blockIdx.x + i * gridDim.x);
+    const int b = it.b, h = it.h;
+    // the warp's first key, the consumer's first column
+    const int key_w = it.tile * S::kKeys + C::row0(c) + 16 * warp;
+    const int col0 = C::chunk(it.group, c) * kCols;
+#pragma unroll
+    for (int x = 0; x < kCols / 2; ++x) dk[x] = dv[x] = 0.f;
+    mbar_wait(k_ready, kph);
+    const uint32_t ka = smem_u32(smem) + C::row0(c) * 128;  // V at kVOff
+
+    // s^T and dp^T of the query tile in stage st, one commit group; every
+    // register the products read or write is settled before it opens
+    auto logits = [&](int st) {
+      fence_regs(s);
+      fence_regs(dp);
+      fence_grads();
+      wg_fence();
+      const uint32_t q = smem_u32(ring + st * S::kStageBytes);
+      const uint32_t k = opaque(ka), v = k + S::kVOff;
+      product_ss_tf32<kDp, kNq>(s, k, k + S::kKBytes, S::kKeys, q,
+                                q + S::kQBytes);
+      product_ss_tf32<kDp, kNq>(dp, v, v + S::kKBytes, S::kKeys,
+                                q + S::kDOff, q + S::kDOff + S::kQBytes);
+      wg_commit();
+    };
+    // the parts p^T.do of dv and ds^T.q of dk of the query tile in stage
+    // st
+    auto accumulate = [&](int st) {
+      const uint32_t q = smem_u32(ring + st * S::kStageBytes);
+      pf.template product<kDp, kCols>(dv_part, q + S::kDTOff, S::kApart,
+                                      col0);
+      dsf.template product<kDp, kCols>(dk_part, q + S::kQTOff, S::kApart,
+                                       col0);
+      wg_commit();
+    };
+    auto add_parts = [&]() {
+      add_part(dk, dk_part);
+      add_part(dv, dv_part);
+    };
+    // p^T into s and ds^T into dp, with the lse2 and delta of the tile's
+    // columns (query rows)
+    auto grads = [&](int st) {
+      const float* lt = reinterpret_cast<const float*>(
+          smem + S::kLOff + st * 2 * S::kLineBytes);
+      dkv_grads<kNq>(s, dp, lt, lt + kNq, p, t);
+    };
+    auto split = [&]() {
+      pf.split(s);
+      dsf.split(dp);
+    };
+
+    // The first query tile's turn is peeled off the loop so that no wait
+    // or product of the loop sits under a branch.
+    mbar_wait(&ready[stage], sph);
+    logits(stage);
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if (p.n_loop == 1) release(k_empty);  // k and v are read no more
+    grads(stage);
+    split();
+    int prev = stage;
+    if (++stage == kStages) stage = 0, sph ^= 1;
+    for (int j = 1; j < p.n_loop; ++j) {
+      mbar_wait(&ready[stage], sph);
+      logits(stage);
+      accumulate(prev);
+      wg_wait<1>();  // s^T and dp^T; the tile before's products run on
+      fence_regs(s);
+      fence_regs(dp);
+      if (j == p.n_loop - 1) release(k_empty);
+      grads(stage);
+      wg_wait<0>();
+      fence_grads();
+      release(&empty[prev]);
+      add_parts();
+      split();
+      prev = stage;
+      if (++stage == kStages) stage = 0, sph ^= 1;
+    }
+    // the last tile's products
+    fence_grads();
+    wg_fence();
+    accumulate(prev);
+    wg_wait<0>();
+    fence_grads();
+    release(&empty[prev]);
+    add_parts();
+
+    // a clamped chunk's copy is not stored (no rows below 0)
+    const int rows = C::stores(it.group, c) ? p.T : 0;
+    store_acc<kCols>(dk, p.out0 + b * p.s0[0] + h * p.s0[1], p.s0[2], key_w,
+                     rows, col0, p.D, p.pairs, lane);
+    store_acc<kCols>(dv, p.out1 + b * p.s1[0] + h * p.s1[1], p.s1[2], key_w,
+                     rows, col0, p.D, p.pairs, lane);
+    kph ^= 1;
+  }
+}
+
+// Launches dkv_split_kernel<kDp, kNq, kCols, kBf16x3>: a persistent grid,
+// one block an SM.
+template <int kDp, int kNq, int kCols, bool kBf16x3>
+cudaError_t launch_dkv_tf32(const attn_wg::View& q, const attn_wg::View& k,
+                            const attn_wg::View& v, const attn_wg::View& dout,
+                            attn_wg::BwdParamsT<float> p, int B, int H,
+                            int T, int D, cudaStream_t stream) {
+  using namespace attn_wg;
+  using S = DkvF32Shape<kDp, kNq, kCols, kBf16x3>;
+  using C = Cut<kDp, kCols>;
+  auto kernel = dkv_split_kernel<kDp, kNq, kCols, kBf16x3>;
+  static thread_local uint64_t opted_in = 0;
+  const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm, dm;
+  // f32 views, boxes of 32 columns (an atom), 128-byte swizzle
+  int maps = tensor_map(&qm, q, B, H, T, D, 32, kNq, 1, 4);
+  if (maps == 0) maps = tensor_map(&dm, dout, B, H, T, D, 32, kNq, 1, 4);
+  if (maps == 0) maps = tensor_map(&km, k, B, H, T, D, 32, S::kKeys, 1, 4);
+  if (maps == 0) maps = tensor_map(&vm, v, B, H, T, D, 32, S::kKeys, 1, 4);
+  if (maps != 0) return static_cast<cudaError_t>(maps);
+  p.n_groups = C::kGroups;
+  p.n_items = (T + S::kKeys - 1) / S::kKeys * C::kGroups;
+  p.n_loop = (T + kNq - 1) / kNq;
+  p.total = B * H * p.n_items;
+  kernel<<<min(p.total, sm_count()), attn_wg::kThreads, S::kBytes, stream>>>(
+      qm, km, vm, dm, p);
+  return cudaGetLastError();
+}
+
+// The f32 instance of the first DKV_F32 row (backward_tiles.cuh) of width
+// >= D; past the widest the CUDA-core chunk kernel below runs instead.
+cudaError_t launch_tf32(const attn_wg::View& q, const attn_wg::View& k,
+                        const attn_wg::View& v, const attn_wg::View& dout,
+                        const attn_wg::BwdParamsT<float>& p, int B, int H,
+                        int T, int D, cudaStream_t stream) {
+#define DQ(w, n, cols)
+#define DQ_STREAMED(n, cols)
+#define DKV(w, n, cols)
+#define DKV_STREAMED(n, cols)
+#define DQ_F32(w, n, cols, bf16x3)
+#define DKV_F32(w, n, cols, bf16x3)                                       \
+  if (D <= w)                                                             \
+    return launch_dkv_tf32<w, n, cols, bf16x3 != 0>(q, k, v, dout, p, B,  \
+                                                    H, T, D, stream);
+#include "backward_tiles.cuh"
+#undef DQ
+#undef DQ_STREAMED
+#undef DKV
+#undef DKV_STREAMED
+#undef DQ_F32
+#undef DKV_F32
+  return cudaErrorInvalidValue;
+}
+
+// The f32 instance's dynamic shared memory at D (0 past the widest row).
+size_t tf32_smem_bytes(int D) {
+#define DQ(w, n, cols)
+#define DQ_STREAMED(n, cols)
+#define DKV(w, n, cols)
+#define DKV_STREAMED(n, cols)
+#define DQ_F32(w, n, cols, bf16x3)
+#define DKV_F32(w, n, cols, bf16x3) \
+  if (D <= w) return DkvF32Shape<w, n, cols, bf16x3 != 0>::kBytes;
+#include "backward_tiles.cuh"
+#undef DQ
+#undef DQ_STREAMED
+#undef DKV
+#undef DKV_STREAMED
+#undef DQ_F32
+#undef DKV_F32
+  return 0;
+}
 
 // ---- past kColChunk columns: blocks per (b, h, 64 keys, column chunk) ---
 // f32 dynamic shared memory, in floats: the block's K and V rows, one
@@ -1069,20 +1329,54 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// One launch's scalars with outputs of type T, its rows not yet filled.
+template <typename T>
+attn_wg::BwdParamsT<T> params(const void* o, const void* dout,
+                              const void* lse, void* dk, void* dv,
+                              const BwdLayout& L, int H, int seq, int D,
+                              float scale) {
+  attn_wg::BwdParamsT<T> p{};
+  p.out0 = static_cast<T*>(dk);
+  p.out1 = static_cast<T*>(dv);
+  p.o = static_cast<const T*>(o);
+  p.dout = static_cast<const T*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  for (int x = 0; x < 3; ++x) {
+    const int64_t* st[3] = {L.sb, L.sh, L.st};
+    p.so[x] = st[x][3];
+    p.sd[x] = st[x][4];
+    p.s0[x] = st[x][5];
+    p.s1[x] = st[x][6];
+  }
+  p.H = H;
+  p.T = seq;
+  p.D = D;
+  p.scale = scale;
+  p.c = scale * attn_wg::kLog2e;
+  p.pairs = D % 2 == 0 &&
+            (reinterpret_cast<uintptr_t>(dk) |
+             reinterpret_cast<uintptr_t>(dv)) % (2 * sizeof(T)) == 0 &&
+            (L.sb[5] | L.sh[5] | L.st[5] | L.sb[6] | L.sh[6] | L.st[6]) %
+                    2 == 0;
+  return p;
+}
+
 cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
-                             void* dk, void* dv, const BwdLayout& L, int B,
-                             int H, int seq, int D, float scale,
-                             cudaStream_t s) {
-  if (D <= 32)
-    return launch_f32<1>(q, k, v, o, dout, lse, dk, dv, L, B, H, seq, D,
-                         scale, s);
-  if (D <= 64)
-    return launch_f32<2>(q, k, v, o, dout, lse, dk, dv, L, B, H, seq, D,
-                         scale, s);
-  if (D <= kColChunk)
-    return launch_f32<4>(q, k, v, o, dout, lse, dk, dv, L, B, H, seq, D,
-                         scale, s);
+                             void* dk, void* dv, float* rows,
+                             const BwdLayout& L, int B, int H, int seq, int D,
+                             float scale, cudaStream_t s) {
+  if (tf32_smem_bytes(D) != 0) {
+    using attn_wg::View;
+    auto p = params<float>(o, dout, lse, dk, dv, L, H, seq, D, scale);
+    const cudaError_t err = launch_rows(p, rows, o, dout, L, B * H, D, s);
+    if (err != cudaSuccess) return err;
+    return launch_tf32(View{q, L.sb[0], L.sh[0], L.st[0]},
+                       View{k, L.sb[1], L.sh[1], L.st[1]},
+                       View{v, L.sb[2], L.sh[2], L.st[2]},
+                       View{dout, L.sb[4], L.sh[4], L.st[4]}, p, B, H, seq, D,
+                       s);
+  }
   const int tiles = (seq + kTileK - 1) / kTileK;
   return launch_with_smem(
       flash_bwd_dkv_chunk_kernel, dim3(B * H * tiles, col_chunks(D)),
@@ -1099,40 +1393,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         int B, int H, int seq, int D, float scale,
                         cudaStream_t s) {
   using attn_wg::View;
-  attn_wg::BwdParams p{};
-  p.out0 = static_cast<__nv_bfloat16*>(dk);
-  p.out1 = static_cast<__nv_bfloat16*>(dv);
-  p.o = static_cast<const __nv_bfloat16*>(o);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  const int BH = B * H;
-  p.Tpad =
-      (seq + attn_wg::kRowsPad - 1) / attn_wg::kRowsPad * attn_wg::kRowsPad;
-  p.rows = rows;
-  p.deltas = rows + static_cast<int64_t>(BH) * p.Tpad;
-  for (int x = 0; x < 3; ++x) {
-    const int64_t* st[3] = {L.sb, L.sh, L.st};
-    p.so[x] = st[x][3];
-    p.sd[x] = st[x][4];
-    p.s0[x] = st[x][5];
-    p.s1[x] = st[x][6];
-  }
-  p.H = H;
-  p.T = seq;
-  p.D = D;
-  p.scale = scale;
-  p.c = scale * attn_wg::kLog2e;
-  p.pairs = D % 2 == 0 &&
-            (reinterpret_cast<uintptr_t>(dk) |
-             reinterpret_cast<uintptr_t>(dv)) % 4 == 0 &&
-            (L.sb[5] | L.sh[5] | L.st[5] | L.sb[6] | L.sh[6] | L.st[6]) %
-                    2 == 0;
-  // 16-byte rows of o and do for the rows' dot products
-  const bool vec = can_copy_chunks(D, o, dout) &&
-                   (L.sb[3] | L.sh[3] | L.st[3] | L.sb[4] | L.sh[4] |
-                    L.st[4]) % 8 == 0;
-  dkv_rows_kernel<<<(BH * p.Tpad + 255) / 256, 256, 0, s>>>(p, BH, vec);
-  const cudaError_t err = cudaGetLastError();
+  auto p = params<__nv_bfloat16>(o, dout, lse, dk, dv, L, H, seq, D, scale);
+  const cudaError_t err = launch_rows(p, rows, o, dout, L, B * H, D, s);
   if (err != cudaSuccess) return err;
   return launch_wgmma(View{q, L.sb[0], L.sh[0], L.st[0]},
                       View{k, L.sb[1], L.sh[1], L.st[1]},
@@ -1145,12 +1407,15 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 // q, k, v, o, dout, dk, dv: (B, H, T, D) views (o and dout as views of their
 // (B, T, H, D) tensors), their (b, h, t) strides in elements in `strides`,
-// three each in that order (d's stride is 1); the bf16 wgmma instances
-// read q, k, v and dout through tensor maps, so their bases are 16-byte
-// aligned and those strides multiples of 8 elements, which the wrapper
-// sees to.  lse: (B, H, T) float32 contiguous.  rows: the bf16 instances'
-// scratch of flash_bwd_dkv_scratch_floats(B, H, T, D) floats.  dk and dv
-// have k's type.  Any D; dtype 0 is float32, 1 is bfloat16.  Returns the cudaError_t of the launch.
+// three each in that order (d's stride is 1); the wgmma instances (bf16,
+// and f32 up to the widest DKV_F32 row) read q, k, v and dout through
+// tensor maps, so their bases are 16-byte aligned and those strides
+// multiples of 16 bytes, which the wrapper sees to.  lse: (B, H, T) float32
+// contiguous.  rows: the wgmma instances' scratch of
+// flash_bwd_dkv_scratch_floats(B, H, T, D) floats.  dk and dv have k's
+// type.  Any D; dtype 0 is float32, 1 is bfloat16.  Returns the
+// cudaError_t of the launch, or kTensorMapFailed + the CUresult of a
+// tensor map cuTensorMapEncodeTiled refused.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* dk, void* dv, void* rows,
@@ -1160,8 +1425,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   const BwdLayout L = BwdLayout::from(strides);
   switch (dtype) {
     case 0:
-      return launch_f32_for_d(q, k, v, o, dout, lse, dk, dv, L, B, H, T, D,
-                              scale, s);
+      return launch_f32_for_d(q, k, v, o, dout, lse, dk, dv,
+                              static_cast<float*>(rows), L, B, H, T, D, scale,
+                              s);
     case 1:
       return launch_bf16(q, k, v, o, dout, lse, dk, dv,
                          static_cast<float*>(rows), L, B, H, T, D, scale, s);
@@ -1170,7 +1436,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   }
 }
 
-// The floats of scratch one bf16 launch needs: the rows of lse * log2(e)
+// The floats of scratch one wgmma launch needs: the rows of lse * log2(e)
 // and of delta, each (B * H, T rounded up to kRowsPad), at any D.
 extern "C" long long flash_bwd_dkv_scratch_floats(int B, int H, int T, int D) {
   (void)D;
@@ -1183,7 +1449,8 @@ extern "C" long long flash_bwd_dkv_scratch_floats(int B, int H, int T, int D) {
 // two instances' needs, which depend on D alone.
 extern "C" long long flash_bwd_dkv_smem_bytes(int T, int D) {
   (void)T;
-  const size_t f32 = D <= kColChunk ? smem_bytes(D) : chunk_smem_bytes();
+  const size_t tf32 = tf32_smem_bytes(D);
+  const size_t f32 = tf32 != 0 ? tf32 : chunk_smem_bytes();
   const size_t bf16 = wgmma_smem_bytes(D);
   return static_cast<long long>(f32 > bf16 ? f32 : bf16);
 }

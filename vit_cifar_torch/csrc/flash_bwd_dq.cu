@@ -21,7 +21,8 @@
 // 1.05 M exps against some 0.4 MB in and out in bf16: the exps (16 a clock
 // per SM on the special-function units) take longer than the products at
 // the tensor cores' peak, and with ds split into hi + lo the products are
-// four.  At the flagship's T=65 it is bytes: a head is 65 rows.  So:
+// four.  At the flagship's T=65 it is bytes: a head is 65 rows.  In f32 the
+// products come first (see below).  So:
 //
 //   bf16 (dtype 1): the warp-specialised wgmma kernels below, on
 //   the blocks of wgmma_blocks.cuh and wgmma_backward.cuh.  A persistent
@@ -54,14 +55,22 @@
 //   arrive as zeros from TMA; rows past T read lse = delta = 0 (so ds is
 //   0) and are never written.
 //
-//   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
-//   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
-//   to; so f32 keeps the first design: one block of 8 warps per 64 query
-//   rows, q, dO, K and V converted into f32 shared memory (K and V with a
-//   row stride of D+1), each warp walking its 8 rows with lanes over keys
-//   for s and dp and over d for ds.K; past 128 columns each 128-column
-//   chunk of dq has its own block, which sums s and dp over every chunk.
-//   This is a dispatch by dtype, not a fallback.
+//   f32 (dtype 0) up to 128 columns: the same kernel's design on TF32
+//   wgmma (dq_split_kernel; wgmma_tf32.cuh).  One TF32 product (10-bit
+//   mantissa) would miss the 1e-5 the f32 path is held to; each operand is
+//   split into TF32 big + small and a product is big.big + big.small +
+//   small.big in f32, about 21 bits.  In f32 the work at the pixel shape is
+//   bound by the products: five of them, three TF32 products each.  Three
+//   converter warps of the producer warpgroup split the tiles TMA brings
+//   (Q and dO an item, K and V a key tile) and write the B of ds.k: K's
+//   three bf16 terms, read MN-major by six bf16 products (TF32 wgmma reads
+//   both operands K-major only; K's TF32 transpose is the table's other
+//   route); ds is split in the consumers' registers, and each key tile's
+//   part of dq is added into it in f32 (GradFrags says why).  Tiles and
+//   route by width in backward_tiles.cuh's DQ_F32 rows.  Past 128 columns
+//   the CUDA-core design stays, a dispatch by width: one block of 8 warps
+//   per 64 query rows and 128-column chunk of dq, which sums s and dp over
+//   every chunk with lanes over keys.
 //
 // Shared memory does not grow with T, so any T and any D run.  Offsets are
 // int64; nothing is padded in device memory.
@@ -72,160 +81,331 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
-#include "wgmma_backward.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
 using namespace attn;
 
-// ---- f32: the CUDA-core instance -----------------------------------------
+// The CUDA-core chunk kernel's tiles (past the f32 table's widest row).
 constexpr int kRows = 8;                 // query rows per warp
 constexpr int kTileQ = kRows * kWarps;   // query rows per block
 constexpr int kTileK = 64;               // keys per tile: two per lane
 
-// Dynamic shared memory, in floats:
-//   Q    kTileQ * D         (the block's query rows)
-//   dO   kTileQ * D         (their output gradients)
-//   K    kTileK * (D + 1)
-//   V    kTileK * (D + 1)
-//   ds   kWarps * kTileK    (each warp's row of ds)
-template <typename T, int kCols>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ o,
-                        const T* __restrict__ dout,
-                        const float* __restrict__ lse, T* __restrict__ dq,
-                        BwdLayout L, int H, int seq, int D, float scale) {
-  extern __shared__ float smem[];
-  const int ks = D + 1;
-  float* q_s = smem;
-  float* do_s = q_s + kTileQ * D;
-  float* k_s = do_s + kTileQ * D;
-  float* v_s = k_s + kTileK * ks;
-  float* ds_s = v_s + kTileK * ks;
+// ---- f32 up to the table's widest row: the TF32 wgmma kernel -------------
+// Shared memory of an instance: an item's Q and dO tiles (kRows rows, all
+// columns; each big, then small), kStages stages of a key tile's K and V
+// (kN keys; each big, then small) and of ds.k's B: K^T (big, then small;
+// TF32) or, with kBf16x3, K's three bf16 terms (the bf16 layout, read
+// MN-major), then the barriers.
+template <int kDp, int kN, int kCols, bool kBf16x3>
+struct DqF32Shape {
+  static constexpr int kRows = attn_wg::Cut<kDp, kCols>::kRows;
+  static constexpr int kQBytes = 4 * kRows * kDp;  // a half of Q or dO
+  static constexpr int kKBytes = 4 * kN * kDp;     // a half of K, V or K^T
+  static constexpr int kDOff = 2 * kQBytes;
+  static constexpr int kItemBytes = 4 * kQBytes;
+  static constexpr int kVOff = 2 * kKBytes;        // within a stage
+  static constexpr int kTOff = 4 * kKBytes;
+  static constexpr int kTermBytes = 2 * kN * kDp;  // a bf16 term of K
+  static constexpr int kStageBytes =
+      4 * kKBytes + (kBf16x3 ? 3 * kTermBytes : 2 * kKBytes);
+  // as many stages as fit, at most 4
+  static constexpr int kFit =
+      (attn_wg::kSmemBudget - kItemBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kBarOff = kItemBytes + kStages * kStageBytes;
+  static constexpr int kBytes = kBarOff + 8 * 3 * (1 + kStages) + 1024;
+  static_assert(kN % (kBf16x3 ? 16 : 8) == 0 && kN <= 64,
+                "key tile: whole k8 (k16) steps");
+  static_assert(!kBf16x3 || kCols % attn_wg::Atoms<kDp>::kCols == 0,
+                "a consumer's columns of the bf16 terms: whole atoms");
+  static_assert(kStages >= 2, "a ring of at least two stages");
+};
 
-  const int tiles = (seq + kTileQ - 1) / kTileQ;
-  const int bh = blockIdx.x / tiles;  // b * H + h
-  const int q0 = (blockIdx.x - bh * tiles) * kTileQ;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  // row 0 of head (b, h) of each view, its rows L.st[x] apart
-  const T* qh = q + L.head(0, b, h);
-  const T* kh = k + L.head(1, b, h);
-  const T* vh = v + L.head(2, b, h);
-  const T* oh = o + L.head(3, b, h);
-  const T* doh = dout + L.head(4, b, h);
-  T* dqh = dq + L.head(5, b, h);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nq = min(kTileQ, seq - q0);
+// The dq kernel's arithmetic in f32 on TF32 wgmma (wgmma_tf32.cuh): its
+// work items, producer, ring and consumers as dq_kernel's below, each
+// product three TF32 products of big and small halves, and the converter
+// warps between the producer and the consumers: an item's Q and dO split
+// in place, each key tile's K split and transposed (K^T, the B of ds.k;
+// with kBf16x3 its three bf16 terms instead) and its V split.  ds is split
+// in the consumers' registers (GradFrags).  dq stays in registers until the
+// item ends and is written in f32: no atomics, two calls give equal bits.
+template <int kDp, int kN, int kCols, bool kBf16x3>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    dq_split_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap domap,
+                   const attn_wg::BwdParamsT<float> p) {
+  using namespace attn_wg;
+  using S = DqF32Shape<kDp, kN, kCols, kBf16x3>;
+  using C = Cut<kDp, kCols>;
+  constexpr int kStages = S::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* q_ready = q_full + 1;
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_full + 3;
+  uint64_t* ready = full + kStages;
+  uint64_t* empty = ready + kStages;
+  uint8_t* ring = smem + S::kItemBytes;
+  const int items =
+      (p.total - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
 
-  for (int idx = threadIdx.x; idx < nq * D; idx += kThreads) {
-    const int i = idx / D;
-    const int d = idx - i * D;
-    q_s[idx] = to_f32(qh[(q0 + i) * L.st[0] + d]);
-    do_s[idx] = to_f32(doh[(q0 + i) * L.st[4] + d]);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_ready, kConverterWarps);
+    mbar_init(q_empty, kConsumerWarps);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&ready[i], kConverterWarps);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+    fence_barrier_init();
   }
   __syncthreads();
 
-  const int row0 = warp * kRows;  // this warp's first row in the tile
-  float delta[kRows], lse_r[kRows], acc[kRows][kCols];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    delta[r] = 0.f;
-    lse_r[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-    if (row0 + r < nq) {  // warp-uniform
-      const int i = q0 + row0 + r;
-      const T* orow = oh + i * L.st[3];
-      float a = 0.f;
-      for (int d = lane; d < D; d += 32)
-        a = fmaf(do_s[(row0 + r) * D + d], to_f32(orow[d]), a);
-      delta[r] = warp_sum(a);
-      lse_r[r] = lse[static_cast<int64_t>(bh) * seq + i];
-    }
-  }
-
-  float* dsrow = ds_s + warp * kTileK;
-  for (int k0 = 0; k0 < seq; k0 += kTileK) {
-    const int nk = min(kTileK, seq - k0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < nk * D; idx += kThreads) {
-      const int j = idx / D;
-      const int d = idx - j * D;
-      k_s[j * ks + d] = to_f32(kh[(k0 + j) * L.st[1] + d]);
-      v_s[j * ks + d] = to_f32(vh[(k0 + j) * L.st[2] + d]);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (row0 + r >= nq) break;  // warp-uniform: rows past T
-      const float* qrow = q_s + (row0 + r) * D;
-      const float* dorow = do_s + (row0 + r) * D;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = lane + 32 * half;
-        float ds = 0.f;  // missing keys of a ragged tile
-        if (j < nk) {
-          const float* krow = k_s + j * ks;
-          const float* vrow = v_s + j * ks;
-          float s = 0.f, dp = 0.f;
-          for (int d = 0; d < D; ++d) {
-            s = fmaf(qrow[d], krow[d], s);
-            dp = fmaf(dorow[d], vrow[d], dp);
-          }
-          const float p = expf(s * scale - lse_r[r]);
-          ds = p * (dp - delta[r]) * scale;
-        }
-        dsrow[j] = ds;
-      }
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D) {
-          float a = acc[r][c];
-          for (int j = 0; j < nk; ++j) a = fmaf(dsrow[j], k_s[j * ks + d], a);
-          acc[r][c] = a;
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x & 31;
+  if (role == kConsumerWGs) {
+    const int pw = (threadIdx.x / 32) & 3;
+    if (pw == 0) {
+      // ---- producer: one thread keeps the TMA loads in flight ----
+      if (lane != 0) return;
+      prefetch_map(&qmap);
+      prefetch_map(&domap);
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      int stage = 0, sph = 0, qph = 0;
+      for (int i = 0; i < items; ++i) {
+        const Item it(p, blockIdx.x + i * gridDim.x);
+        const int q0 = it.tile * S::kRows;
+        mbar_wait(q_empty, qph ^ 1);  // a fresh barrier passes at once
+        mbar_expect_tx(q_full, 2 * S::kQBytes);
+        load_tile_f32<kDp>(smem, &qmap, q_full, S::kRows, it.h, q0, it.b);
+        load_tile_f32<kDp>(smem + S::kDOff, &domap, q_full, S::kRows, it.h,
+                           q0, it.b);
+        qph ^= 1;
+        for (int j = 0; j < p.n_loop; ++j) {
+          mbar_wait(&empty[stage], sph ^ 1);
+          mbar_expect_tx(&full[stage], 2 * S::kKBytes);
+          const int k0 = (p.n_loop - 1 - j) * kN;  // last tile first
+          uint8_t* st = ring + stage * S::kStageBytes;
+          load_tile_f32<kDp>(st, &kmap, &full[stage], kN, it.h, k0, it.b);
+          load_tile_f32<kDp>(st + S::kVOff, &vmap, &full[stage], kN, it.h,
+                             k0, it.b);
+          if (++stage == kStages) stage = 0, sph ^= 1;
         }
       }
-      __syncwarp();  // dsrow is rewritten for the next row
+      return;
     }
+    // ---- converter: warps 1-3 split the tiles as they arrive ----
+    const int cw = pw - 1;
+    int stage = 0, sph = 0, qph = 0;
+    for (int i = 0; i < items; ++i) {
+      mbar_wait(q_full, qph);
+      split_tile(smem, smem + S::kQBytes, S::kQBytes, cw, lane);
+      split_tile(smem + S::kDOff, smem + S::kDOff + S::kQBytes, S::kQBytes,
+                 cw, lane);
+      converted(q_ready, lane);
+      qph ^= 1;
+      for (int j = 0; j < p.n_loop; ++j) {
+        mbar_wait(&full[stage], sph);
+        uint8_t* st = ring + stage * S::kStageBytes;
+        if constexpr (kBf16x3)
+          split_terms<kDp, kN>(st, st + S::kKBytes, st + S::kTOff,
+                               S::kTermBytes, cw, lane);
+        else
+          split_transpose<kDp, kN>(st, st + S::kKBytes, st + S::kTOff,
+                                   st + S::kTOff + S::kKBytes, cw, lane);
+        split_tile(st + S::kVOff, st + S::kVOff + S::kKBytes, S::kKBytes, cw,
+                   lane);
+        converted(&ready[stage], lane);
+        if (++stage == kStages) stage = 0, sph ^= 1;
+      }
+    }
+    return;
   }
 
+  // ---- consumers ----
+  const int c = role;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int t = lane & 3;
+
+  float s[kN / 2], dp[kN / 2];
+  float dq[kCols / 2], part[kCols / 2];  // dq, a key tile's part of it
+  GradFrags<kN, kBf16x3> ds;
+  float lse2[2], delta[2];
+  // ds.k's B: K^T's halves, or K's bf16 terms, this many bytes apart
+  constexpr int kApart = kBf16x3 ? S::kTermBytes : S::kKBytes;
+
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  int stage = 0, sph = 0, qph = 0;
+  for (int i = 0; i < items; ++i) {
+    const Item it(p, blockIdx.x + i * gridDim.x);
+    const int b = it.b, h = it.h;
+    // the warp's first row, the consumer's first column
+    const int row_w = it.tile * S::kRows + C::row0(c) + 16 * warp;
+    const int col0 = C::chunk(it.group, c) * kCols;
+    // q and do rows past T arrive as zeros, and lse = delta = 0 there
+    row_terms(p, it, row_w, lane, lse2, delta);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (row0 + r >= nq) break;
-    T* dqrow = dqh + (q0 + row0 + r) * L.st[5];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) dqrow[d] = from_f32<T>(acc[r][c]);
+    for (int x = 0; x < kCols / 2; ++x) dq[x] = 0.f;
+    mbar_wait(q_ready, qph);
+    const uint32_t qa = smem_u32(smem) + C::row0(c) * 128;  // dO at kDOff
+
+    // s and dp of the key tile in stage st, one commit group; every
+    // register the products read or write is settled before it opens
+    auto logits = [&](int st) {
+      fence_regs(s);
+      fence_regs(dp);
+      fence_regs(part);
+      ds.fence();
+      wg_fence();
+      const uint32_t k = smem_u32(ring + st * S::kStageBytes);
+      const uint32_t q = opaque(qa), d = q + S::kDOff;
+      product_ss_tf32<kDp, kN>(s, q, q + S::kQBytes, S::kRows, k,
+                               k + S::kKBytes);
+      product_ss_tf32<kDp, kN>(dp, d, d + S::kQBytes, S::kRows,
+                               k + S::kVOff, k + S::kVOff + S::kKBytes);
+      wg_commit();
+    };
+    // part = ds.k of the key tile in stage st over the consumer's columns
+    auto accumulate = [&](int st) {
+      ds.template product<kDp, kCols>(
+          part, smem_u32(ring + st * S::kStageBytes) + S::kTOff, kApart,
+          col0);
+      wg_commit();
+    };
+    // Key tiles are taken last to first: the first one taken holds the
+    // keys past T, and it alone is masked.  Its turn is peeled off the loop
+    // so that no wait or product of the loop sits under a branch.
+    mbar_wait(&ready[stage], sph);
+    logits(stage);
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if (p.n_loop == 1) release(q_empty);  // q and do are read no more
+    dq_grads<kN, true>(s, dp, lse2, delta, p, (p.n_loop - 1) * kN, t);
+    ds.split(s);
+    int prev = stage;
+    if (++stage == kStages) stage = 0, sph ^= 1;
+    for (int j = 1; j < p.n_loop; ++j) {
+      mbar_wait(&ready[stage], sph);
+      logits(stage);
+      accumulate(prev);
+      wg_wait<1>();  // s and dp; ds.k of the tile before runs on
+      fence_regs(s);
+      fence_regs(dp);
+      if (j == p.n_loop - 1) release(q_empty);
+      dq_grads<kN, false>(s, dp, lse2, delta, p, 0, t);
+      wg_wait<0>();
+      fence_regs(part);
+      ds.fence();
+      release(&empty[prev]);
+      add_part(dq, part);
+      ds.split(s);
+      prev = stage;
+      if (++stage == kStages) stage = 0, sph ^= 1;
     }
+    // the last tile's ds.k
+    fence_regs(part);
+    ds.fence();
+    wg_fence();
+    accumulate(prev);
+    wg_wait<0>();
+    fence_regs(part);
+    ds.fence();
+    release(&empty[prev]);
+    add_part(dq, part);
+
+    // a clamped chunk's copy is not stored (no rows below 0)
+    store_acc<kCols>(dq, p.out0 + b * p.s0[0] + h * p.s0[1], p.s0[2], row_w,
+                     C::stores(it.group, c) ? p.T : 0, col0, p.D, p.pairs,
+                     lane);
+    qph ^= 1;
   }
 }
 
-size_t smem_bytes(int D) {
-  return sizeof(float) * (2 * static_cast<size_t>(kTileQ) * D +
-                          2 * static_cast<size_t>(kTileK) * (D + 1) +
-                          kWarps * kTileK);
+// Launches dq_split_kernel<kDp, kN, kCols, kBf16x3>: a persistent grid,
+// one block an SM.
+template <int kDp, int kN, int kCols, bool kBf16x3>
+cudaError_t launch_dq_tf32(const attn_wg::View& q, const attn_wg::View& k,
+                           const attn_wg::View& v, const attn_wg::View& dout,
+                           attn_wg::BwdParamsT<float> p, int B, int H, int T,
+                           int D, cudaStream_t stream) {
+  using namespace attn_wg;
+  using S = DqF32Shape<kDp, kN, kCols, kBf16x3>;
+  using C = Cut<kDp, kCols>;
+  auto kernel = dq_split_kernel<kDp, kN, kCols, kBf16x3>;
+  static thread_local uint64_t opted_in = 0;
+  const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm, dm;
+  // f32 views, boxes of 32 columns (an atom), 128-byte swizzle
+  int maps = tensor_map(&qm, q, B, H, T, D, 32, S::kRows, 1, 4);
+  if (maps == 0)
+    maps = tensor_map(&dm, dout, B, H, T, D, 32, S::kRows, 1, 4);
+  if (maps == 0) maps = tensor_map(&km, k, B, H, T, D, 32, kN, 1, 4);
+  if (maps == 0) maps = tensor_map(&vm, v, B, H, T, D, 32, kN, 1, 4);
+  if (maps != 0) return static_cast<cudaError_t>(maps);
+  p.n_groups = C::kGroups;
+  p.n_items = (T + S::kRows - 1) / S::kRows * C::kGroups;
+  p.n_loop = (T + kN - 1) / kN;
+  p.total = B * H * p.n_items;
+  kernel<<<min(p.total, sm_count()), attn_wg::kThreads, S::kBytes, stream>>>(
+      qm, km, vm, dm, p);
+  return cudaGetLastError();
 }
 
-template <int kCols>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, const void* lse,
-                       void* dq, const BwdLayout& L, int B, int H, int seq,
-                       int D, float scale, cudaStream_t stream) {
-  const int tiles = (seq + kTileQ - 1) / kTileQ;
-  return launch_with_smem(
-      flash_bwd_dq_kernel<float, kCols>, B * H * tiles, kThreads,
-      smem_bytes(D), stream, static_cast<const float*>(q),
-      static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(dq), L, H, seq, D,
-      scale);
+// The f32 instance of the first DQ_F32 row (backward_tiles.cuh) of width
+// >= D; past the widest the CUDA-core chunk kernel below runs instead.
+cudaError_t launch_tf32(const attn_wg::View& q, const attn_wg::View& k,
+                        const attn_wg::View& v, const attn_wg::View& dout,
+                        const attn_wg::BwdParamsT<float>& p, int B, int H,
+                        int T, int D, cudaStream_t stream) {
+#define DQ(w, n, cols)
+#define DQ_STREAMED(n, cols)
+#define DKV(w, n, cols)
+#define DKV_STREAMED(n, cols)
+#define DQ_F32(w, n, cols, bf16x3)                                        \
+  if (D <= w)                                                             \
+    return launch_dq_tf32<w, n, cols, bf16x3 != 0>(q, k, v, dout, p, B, H, \
+                                                  T, D, stream);
+#define DKV_F32(w, n, cols, bf16x3)
+#include "backward_tiles.cuh"
+#undef DQ
+#undef DQ_STREAMED
+#undef DKV
+#undef DKV_STREAMED
+#undef DQ_F32
+#undef DKV_F32
+  return cudaErrorInvalidValue;
+}
+
+// The f32 instance's dynamic shared memory at D (0 past the widest row).
+size_t tf32_smem_bytes(int D) {
+#define DQ(w, n, cols)
+#define DQ_STREAMED(n, cols)
+#define DKV(w, n, cols)
+#define DKV_STREAMED(n, cols)
+#define DQ_F32(w, n, cols, bf16x3) \
+  if (D <= w) return DqF32Shape<w, n, cols, bf16x3 != 0>::kBytes;
+#define DKV_F32(w, n, cols, bf16x3)
+#include "backward_tiles.cuh"
+#undef DQ
+#undef DQ_STREAMED
+#undef DKV
+#undef DKV_STREAMED
+#undef DQ_F32
+#undef DKV_F32
+  return 0;
 }
 
 // ---- bf16, D <= 512: the warp-specialised wgmma kernel ---------------------
@@ -458,15 +638,19 @@ cudaError_t launch_dq(const attn_wg::View& q, const attn_wg::View& k,
   using A = Atoms<kDp>;
   using C = Cut<kDp, kCols>;
   auto kernel = dq_kernel<kDp, kN, kCols>;
-  static std::atomic<uint64_t> opted_in{0};
+  static thread_local uint64_t opted_in = 0;
   const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, km, vm, dm;
-  if (!tensor_map(&qm, q, B, H, T, D, A::kCols, S::kRows, A::kSwizzle) ||
-      !tensor_map(&dm, dout, B, H, T, D, A::kCols, S::kRows, A::kSwizzle) ||
-      !tensor_map(&km, k, B, H, T, D, A::kCols, kN, A::kSwizzle) ||
-      !tensor_map(&vm, v, B, H, T, D, A::kCols, kN, A::kSwizzle))
-    return cudaErrorInvalidValue;
+  int maps =
+      tensor_map(&qm, q, B, H, T, D, A::kCols, S::kRows, A::kSwizzle);
+  if (maps == 0)
+    maps = tensor_map(&dm, dout, B, H, T, D, A::kCols, S::kRows, A::kSwizzle);
+  if (maps == 0)
+    maps = tensor_map(&km, k, B, H, T, D, A::kCols, kN, A::kSwizzle);
+  if (maps == 0)
+    maps = tensor_map(&vm, v, B, H, T, D, A::kCols, kN, A::kSwizzle);
+  if (maps != 0) return static_cast<cudaError_t>(maps);
   p.n_groups = C::kGroups;
   p.n_items = (T + S::kRows - 1) / S::kRows * C::kGroups;
   p.n_loop = (T + kN - 1) / kN;
@@ -704,15 +888,19 @@ cudaError_t launch_dq_stream(const attn_wg::View& q, const attn_wg::View& k,
   using namespace attn_wg;
   using S = DqStreamShape<kN, kCols>;
   auto kernel = dq_stream_kernel<kN, kCols>;
-  static std::atomic<uint64_t> opted_in{0};
+  static thread_local uint64_t opted_in = 0;
   const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, km, vm, dm;
-  if (!tensor_map(&qm, q, B, H, T, D, 64, S::kRows, 1) ||
-      !tensor_map(&dm, dout, B, H, T, D, 64, S::kRows, 1) ||
-      !tensor_map(&km, k, B, H, T, D, 64, kN, 1) ||
-      !tensor_map(&vm, v, B, H, T, D, 64, kN, 1))
-    return cudaErrorInvalidValue;
+  int maps =
+      tensor_map(&qm, q, B, H, T, D, 64, S::kRows, 1);
+  if (maps == 0)
+    maps = tensor_map(&dm, dout, B, H, T, D, 64, S::kRows, 1);
+  if (maps == 0)
+    maps = tensor_map(&km, k, B, H, T, D, 64, kN, 1);
+  if (maps == 0)
+    maps = tensor_map(&vm, v, B, H, T, D, 64, kN, 1);
+  if (maps != 0) return static_cast<cudaError_t>(maps);
   const int chunks = (D + kCols - 1) / kCols;
   p.n_groups = (chunks + 1) / 2;
   p.n_items = (T + S::kRows - 1) / S::kRows * p.n_groups;
@@ -736,11 +924,15 @@ cudaError_t launch_wgmma(const attn_wg::View& q, const attn_wg::View& k,
   return launch_dq_stream<n, cols>(q, k, v, dout, p, B, H, T, D, stream);
 #define DKV(w, n, cols)
 #define DKV_STREAMED(n, cols)
+#define DQ_F32(w, n, cols, bf16x3)
+#define DKV_F32(w, n, cols, bf16x3)
 #include "backward_tiles.cuh"
 #undef DQ
 #undef DQ_STREAMED
 #undef DKV
 #undef DKV_STREAMED
+#undef DQ_F32
+#undef DKV_F32
   return cudaErrorInvalidValue;  // a table without a DQ_STREAMED row
 }
 
@@ -751,11 +943,15 @@ size_t wgmma_smem_bytes(int D) {
 #define DQ_STREAMED(n, cols) return DqStreamShape<n, cols>::kBytes;
 #define DKV(w, n, cols)
 #define DKV_STREAMED(n, cols)
+#define DQ_F32(w, n, cols, bf16x3)
+#define DKV_F32(w, n, cols, bf16x3)
 #include "backward_tiles.cuh"
 #undef DQ
 #undef DQ_STREAMED
 #undef DKV
 #undef DKV_STREAMED
+#undef DQ_F32
+#undef DKV_F32
   return 0;
 }
 
@@ -917,12 +1113,32 @@ cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* dq, const BwdLayout& L, int B, int H,
                              int seq, int D, float scale, cudaStream_t s) {
-  if (D <= 32)
-    return launch_f32<1>(q, k, v, o, dout, lse, dq, L, B, H, seq, D, scale, s);
-  if (D <= 64)
-    return launch_f32<2>(q, k, v, o, dout, lse, dq, L, B, H, seq, D, scale, s);
-  if (D <= kColChunk)
-    return launch_f32<4>(q, k, v, o, dout, lse, dq, L, B, H, seq, D, scale, s);
+  if (tf32_smem_bytes(D) != 0) {
+    using attn_wg::View;
+    attn_wg::BwdParamsT<float> p{};
+    p.out0 = static_cast<float*>(dq);
+    p.o = static_cast<const float*>(o);
+    p.dout = static_cast<const float*>(dout);
+    p.lse = static_cast<const float*>(lse);
+    for (int x = 0; x < 3; ++x) {
+      const int64_t* st[3] = {L.sb, L.sh, L.st};
+      p.so[x] = st[x][3];
+      p.sd[x] = st[x][4];
+      p.s0[x] = st[x][5];
+    }
+    p.H = H;
+    p.T = seq;
+    p.D = D;
+    p.scale = scale;
+    p.c = scale * attn_wg::kLog2e;
+    p.pairs = D % 2 == 0 && reinterpret_cast<uintptr_t>(dq) % 8 == 0 &&
+              (L.sb[5] | L.sh[5] | L.st[5]) % 2 == 0;
+    return launch_tf32(View{q, L.sb[0], L.sh[0], L.st[0]},
+                       View{k, L.sb[1], L.sh[1], L.st[1]},
+                       View{v, L.sb[2], L.sh[2], L.st[2]},
+                       View{dout, L.sb[4], L.sh[4], L.st[4]}, p, B, H, seq, D,
+                       s);
+  }
   const int tiles = (seq + kTileQ - 1) / kTileQ;
   return launch_with_smem(
       flash_bwd_dq_chunk_kernel, dim3(B * H * tiles, col_chunks(D)), kThreads,
@@ -967,12 +1183,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 // q, k, v, o, dout, dq: (B, H, T, D) views (o and dout as views of their
 // (B, T, H, D) tensors), their (b, h, t) strides in elements in `strides`,
-// three each in that order (d's stride is 1); the bf16 wgmma instances
-// read q, k, v and dout through tensor maps, so their bases are 16-byte
-// aligned and those strides multiples of 8 elements, which the wrapper
-// sees to.  lse: (B, H, T) float32 contiguous.  dq has q's type.
-// Any D; dtype 0 is float32, 1 is bfloat16.  Returns the cudaError_t of the
-// launch.
+// three each in that order (d's stride is 1); the wgmma instances (bf16,
+// and f32 up to the widest DQ_F32 row) read q, k, v and dout through
+// tensor maps, so their bases are 16-byte aligned and those strides
+// multiples of 16 bytes, which the wrapper sees to.  lse: (B, H, T) float32
+// contiguous.  dq has q's type.  Any D; dtype 0 is float32, 1 is bfloat16.
+// Returns the cudaError_t of the launch, or kTensorMapFailed + the
+// CUresult of a tensor map cuTensorMapEncodeTiled refused.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             void* dq, const long long* strides, int B, int H,
@@ -995,7 +1212,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 // two instances' needs, which depend on D alone.
 extern "C" long long flash_bwd_dq_smem_bytes(int T, int D) {
   (void)T;
-  const size_t f32 = D <= kColChunk ? smem_bytes(D) : chunk_smem_bytes();
+  const size_t tf32 = tf32_smem_bytes(D);
+  const size_t f32 = tf32 != 0 ? tf32 : chunk_smem_bytes();
   const size_t bf16 = wgmma_smem_bytes(D);
   return static_cast<long long>(f32 > bf16 ? f32 : bf16);
 }

@@ -48,9 +48,11 @@
 //   logits (the last key tile, taken first); a warp whose 16 rows all lie
 //   past T computes no exps.
 //
-//   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
-//   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
-//   to; so f32 keeps the first design: one block of 8 warps per 64 query
+//   f32 (dtype 0), on the CUDA cores: one TF32 product would miss the 1e-5
+//   the f32 path is held to, and this forward has not yet taken the
+//   three-product split (big.big + big.small + small.big) that puts the
+//   f32 backward pair on TF32 wgmma (wgmma_tf32.cuh); so f32 keeps the
+//   first design: one block of 8 warps per 64 query
 //   rows, q, K and V converted into f32 shared memory, each warp walking
 //   its 8 rows with lanes over keys for the logits and over d for p.v;
 //   past 128 columns the column-chunk tile of fwd_f32_chunk.cuh.  This is

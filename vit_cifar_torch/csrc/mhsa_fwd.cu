@@ -41,9 +41,11 @@
 //   stream the sum over D (flash_fwd.cu says how), and no whole-head row
 //   holds such a head.
 //
-//   f32 (dtype 0), on the CUDA cores.  The tensor cores would take f32 only
-//   as TF32, whose 10-bit mantissa breaks the 1e-5 the f32 path is held
-//   to; so f32 keeps the first design: K (row stride D+1) and V in f32
+//   f32 (dtype 0), on the CUDA cores: one TF32 product would miss the 1e-5
+//   the f32 path is held to, and this forward has not yet taken the
+//   three-product split (big.big + big.small + small.big) that puts the
+//   f32 backward pair on TF32 wgmma (wgmma_tf32.cuh); so f32 keeps the
+//   first design: K (row stride D+1) and V in f32
 //   shared memory, kWarps warps, warp w taking the query rows w,
 //   w + kWarps, ..., lanes over keys for the logits (max and sum by warp
 //   shuffles), then lanes over D for p.v.  Where that layout does not fit

@@ -487,14 +487,17 @@ cudaError_t launch(const View& q, const View& k, const View& v, void* out,
                    cudaStream_t stream) {
   using S = Shape<kDp, kN, kQBufs, kCols>;
   auto kernel = fwd_kernel<kDp, kN, kQBufs, kPingpong, kCols>;
-  static std::atomic<uint64_t> opted_in{0};
+  static thread_local uint64_t opted_in = 0;
   const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, km, vm;
-  if (!tensor_map(&qm, q, B, H, T, D, S::kAtomCols, kTileQ, S::kSwizzle) ||
-      !tensor_map(&km, k, B, H, T, D, S::kAtomCols, kN, S::kSwizzle) ||
-      !tensor_map(&vm, v, B, H, T, D, S::kAtomCols, S::kKV, S::kSwizzle))
-    return cudaErrorInvalidValue;
+  int maps =
+      tensor_map(&qm, q, B, H, T, D, S::kAtomCols, kTileQ, S::kSwizzle);
+  if (maps == 0)
+    maps = tensor_map(&km, k, B, H, T, D, S::kAtomCols, kN, S::kSwizzle);
+  if (maps == 0)
+    maps = tensor_map(&vm, v, B, H, T, D, S::kAtomCols, S::kKV, S::kSwizzle);
+  if (maps != 0) return static_cast<cudaError_t>(maps);
   Params p;
   p.out = static_cast<bf16*>(out);
   p.lse = static_cast<float*>(lse);
@@ -742,14 +745,17 @@ cudaError_t launch_stream(const View& q, const View& k, const View& v,
                           float scale, cudaStream_t stream) {
   using S = StreamShape<kN, kCols>;
   auto kernel = fwd_stream_kernel<kN, kCols>;
-  static std::atomic<uint64_t> opted_in{0};
+  static thread_local uint64_t opted_in = 0;
   const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, km, vm;
-  if (!tensor_map(&qm, q, B, H, T, D, S::kAtomCols, kTileQ, S::kSwizzle) ||
-      !tensor_map(&km, k, B, H, T, D, S::kAtomCols, kN, S::kSwizzle) ||
-      !tensor_map(&vm, v, B, H, T, D, S::kAtomCols, S::kKV, S::kSwizzle))
-    return cudaErrorInvalidValue;
+  int maps =
+      tensor_map(&qm, q, B, H, T, D, S::kAtomCols, kTileQ, S::kSwizzle);
+  if (maps == 0)
+    maps = tensor_map(&km, k, B, H, T, D, S::kAtomCols, kN, S::kSwizzle);
+  if (maps == 0)
+    maps = tensor_map(&vm, v, B, H, T, D, S::kAtomCols, S::kKV, S::kSwizzle);
+  if (maps != 0) return static_cast<cudaError_t>(maps);
   Params p;
   p.out = static_cast<bf16*>(out);
   p.lse = static_cast<float*>(lse);

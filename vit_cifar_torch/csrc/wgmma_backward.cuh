@@ -3,7 +3,8 @@
 // swizzled layout of a tile, the loads that bring one, the two kinds of
 // product, the split of an accumulator into bf16 hi + lo fragments, the
 // store of an accumulator into a strided (B, H, T, D) view, and one
-// launch's scalars.
+// launch's scalars; the last two, the work items and the rows' terms serve
+// their f32 instances (wgmma_tf32.cuh) too.
 //
 // The products of the backward are
 //   s = q.k^T, dp = do.v^T     ss: both operands K-major, summed over the
@@ -115,33 +116,49 @@ __device__ __forceinline__ void split_frags(const float (&x)[kN / 2],
                  lo[kk][e]);
 }
 
-// A consumer's accumulator (64 rows x kCols columns) as bf16 into rows
-// row_w + 16 warp .. of a (b, h) slice at `head` (row stride st), columns
-// col0 .. ; rows past T and columns past D are not written.  The
-// accumulator is read outside any branch (a divergent read of a wgmma
-// register serialises the wgmmas); the stores are predicated.  With
-// `pairs` (D even, 4-byte aligned rows) two columns a store.
-template <int kCols>
+// A consumer's accumulator (64 rows x kCols columns) into rows row_w + 16
+// warp .. of a (b, h) slice at `head` (row stride st), columns col0 .. ,
+// as bf16 (rounded to nearest even) or f32; rows past T and columns past D
+// are not written.  The accumulator is read outside any branch (a
+// divergent read of a wgmma register serialises the wgmmas); the stores
+// are predicated.  With `pairs` (D even, rows aligned to two elements) two
+// columns a store.
+template <typename T>
+struct Pair;
+template <>
+struct Pair<bf16> {
+  using Type = __nv_bfloat162;
+  static __device__ Type make(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+};
+template <>
+struct Pair<float> {
+  using Type = float2;
+  static __device__ Type make(float a, float b) { return make_float2(a, b); }
+};
+
+template <int kCols, typename T>
 __device__ __forceinline__ void store_acc(const float (&acc)[kCols / 2],
-                                          bf16* head, long long st, int row_w,
-                                          int T, int col0, int D, bool pairs,
-                                          int lane) {
+                                          T* head, long long st, int row_w,
+                                          int rows_T, int col0, int D,
+                                          bool pairs, int lane) {
+  using P = Pair<T>;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    __nv_bfloat162 packed[kCols / 8];
+    typename P::Type packed[kCols / 8];
 #pragma unroll
     for (int n = 0; n < kCols / 8; ++n)
-      packed[n] = __floats2bfloat162_rn(acc[4 * n + 2 * r],
-                                        acc[4 * n + 2 * r + 1]);
+      packed[n] = P::make(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
     const int row = row_w + g + 8 * r;
-    if (row >= T) continue;
-    bf16* out = head + row * st;
+    if (row >= rows_T) continue;
+    T* out = head + row * st;
 #pragma unroll
     for (int n = 0; n < kCols / 8; ++n) {
       const int d = col0 + 8 * n + 2 * t;
       if (pairs && d + 1 < D) {
-        *reinterpret_cast<__nv_bfloat162*>(out + d) = packed[n];
+        *reinterpret_cast<typename P::Type*>(out + d) = packed[n];
       } else {
         if (d < D) out[d] = packed[n].x;
         if (d + 1 < D) out[d + 1] = packed[n].y;
@@ -150,13 +167,16 @@ __device__ __forceinline__ void store_acc(const float (&acc)[kCols / 2],
   }
 }
 
-// One backward launch's scalars.  Strides are (b, h, t) in elements, of
-// (B, H, T, D) views (o and do as views of their (B, T, H, D) tensors).
-struct BwdParams {
-  bf16* out0;         // dq, or dk
-  bf16* out1;         // dv (the dk/dv kernel)
-  const bf16* o;      // the dq kernel's delta: o and do rows
-  const bf16* dout;
+// One backward launch's scalars, its inputs and outputs of element type E
+// (bf16, or f32 for the TF32 instances).  Strides are (b, h, t) in
+// elements, of (B, H, T, D) views (o and do as views of their (B, T, H, D)
+// tensors).
+template <typename E>
+struct BwdParamsT {
+  E* out0;            // dq, or dk
+  E* out1;            // dv (the dk/dv kernel)
+  const E* o;         // the dq kernel's delta: o and do rows
+  const E* dout;
   const float* lse;   // (B, H, T)
   float* rows;        // the dk/dv kernel's (B * H, Tpad) rows of lse *
   float* deltas;      // log2(e) and of delta, zeros past T
@@ -171,11 +191,18 @@ struct BwdParams {
   int total;          // work items
   bool pairs;         // outputs stored two columns at a time
 };
+using BwdParams = BwdParamsT<bf16>;
+
+__device__ __forceinline__ float to_float(bf16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(float x) { return x; }
 
 // A work item's place: item = (bh * tiles + tile) * n_groups + group.
 struct Item {
   int b, h, bh, tile, group;
-  __device__ Item(const BwdParams& p, int item) {
+  template <typename P>
+  __device__ Item(const P& p, int item) {
     bh = item / p.n_items;
     const int rest = item - bh * p.n_items;
     tile = rest / p.n_groups;
@@ -212,7 +239,9 @@ struct Cut {
 // from the warp's first row row_w, delta from the o and do rows as the TPU
 // kernel computes it at j == 0 (the four lanes of a quad over every fourth
 // column); both 0 past T, where ds is then 0.  The dq kernels' rows.
-__device__ __forceinline__ void row_terms(const BwdParams& p, const Item& it,
+template <typename T>
+__device__ __forceinline__ void row_terms(const BwdParamsT<T>& p,
+                                          const Item& it,
                                           int row_w, int lane,
                                           float (&lse2)[2],
                                           float (&delta)[2]) {
@@ -222,12 +251,11 @@ __device__ __forceinline__ void row_terms(const BwdParams& p, const Item& it,
     const int row = row_w + g + 8 * r;
     float l2 = 0.f, dl = 0.f;
     if (row < p.T) {
-      const bf16* orow =
-          p.o + it.b * p.so[0] + it.h * p.so[1] + row * p.so[2];
-      const bf16* drow =
+      const T* orow = p.o + it.b * p.so[0] + it.h * p.so[1] + row * p.so[2];
+      const T* drow =
           p.dout + it.b * p.sd[0] + it.h * p.sd[1] + row * p.sd[2];
       for (int d = t; d < p.D; d += 4)
-        dl = fmaf(__bfloat162float(drow[d]), __bfloat162float(orow[d]), dl);
+        dl = fmaf(to_float(drow[d]), to_float(orow[d]), dl);
       l2 = p.lse[static_cast<long long>(it.bh) * p.T + row] * kLog2e;
     }
     dl += __shfl_xor_sync(0xffffffffu, dl, 1);
@@ -240,12 +268,12 @@ __device__ __forceinline__ void row_terms(const BwdParams& p, const Item& it,
 // The dq kernels' ds = p * (dp - delta) * scale into s, p = exp2(s * c -
 // lse2) as one FFMA into ex2; in the first key tile taken (kMasked, keys
 // from k0) keys past T get p = 0 by a select.
-template <int kN, bool kMasked>
+template <int kN, bool kMasked, typename P>
 __device__ __forceinline__ void dq_grads(float (&s)[kN / 2],
                                          const float (&dp)[kN / 2],
                                          const float (&lse2)[2],
                                          const float (&delta)[2],
-                                         const BwdParams& p, int k0, int t) {
+                                         const P& p, int k0, int t) {
 #pragma unroll
   for (int nb = 0; nb < kN / 8; ++nb)
 #pragma unroll
@@ -261,11 +289,11 @@ __device__ __forceinline__ void dq_grads(float (&s)[kN / 2],
 // The dk/dv kernels' p^T into s and ds^T into dp, with the query tile's
 // rows of lse * log2(e) (lt) and delta (dt) in shared memory: this
 // thread's columns 2t and 2t+1 of every 8.
-template <int kNq>
+template <int kNq, typename P>
 __device__ __forceinline__ void dkv_grads(float (&s)[kNq / 2],
                                           float (&dp)[kNq / 2],
                                           const float* lt, const float* dt,
-                                          const BwdParams& p, int t) {
+                                          const P& p, int t) {
 #pragma unroll
   for (int nb = 0; nb < kNq / 8; ++nb) {
     const float2 l2 = *reinterpret_cast<const float2*>(lt + 8 * nb + 2 * t);

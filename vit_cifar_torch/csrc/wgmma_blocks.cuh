@@ -1,6 +1,7 @@
-// Hopper building blocks of the bf16 attention kernels on wgmma: the
+// Hopper building blocks of the attention kernels on wgmma: the bf16
 // forward (wgmma_attention.cuh, for flash_fwd.cu and mhsa_fwd.cu) and the
-// tiled backward pair (flash_bwd_dq.cu, flash_bwd_dkv.cu).
+// tiled backward pair (flash_bwd_dq.cu, flash_bwd_dkv.cu), bf16 and, on
+// TF32 (wgmma_tf32.cuh), f32.
 //
 // The tools are Hopper's own (sm_90a):
 //   * TMA: the host encodes a 4-D tensor map over (D, H, T, B) of a (B, H,
@@ -52,7 +53,6 @@
 #include <math_constants.h>
 
 #include <cstdint>
-#include <atomic>
 #include <cstring>
 #include <mutex>
 #include <type_traits>
@@ -193,11 +193,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[n][4]) {
 
 // wgmma.mma_async m64nNk16, bf16 in, f32 accumulate.  ss: d (+)= A.B^T with
 // A (64 x 16) and B (N x 16) K-major in shared memory (scale_d 0 overwrites
-// d); rs: d += A.B with A from registers and B (16 x N) MN-major in shared
-// memory.  The operand lists are written out, one width each: ss takes N
-// in {16, 32, 64, 72, 96, 128} (the forward's s = q.k^T over a key tile,
-// the backward's s and dp over a key or query tile), rs N in {32, 64, 128,
-// 192, 256} (head widths, or the backward's column halves).
+// d); rs: d (+)= A.B with A from registers and B (16 x N) MN-major in
+// shared memory (scale_d, 1 unless given, as ss's).  The operand lists are
+// written out, one width each: ss takes N in {16, 32, 64, 72, 96, 128}
+// (the forward's s = q.k^T over a key tile, the backward's s and dp over a
+// key or query tile), rs N in {32, 64, 128, 192, 256} (head widths, or the
+// backward's column halves).
 template <int N>
 struct Wgmma;
 
@@ -236,11 +237,11 @@ struct Wgmma<32> {
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "l"(da), "l"(db), "r"(scale_d));
   }
-  // d += A.B, A (16 x 16 per warp) from registers, B MN-major in
+  // d (+)= A.B, A (16 x 16 per warp) from registers, B MN-major in
   // shared memory
   static __device__ __forceinline__ void rs(float (&d)[16],
                                            const uint32_t (&a)[4],
-                                           uint64_t db) {
+                                           uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %21, 0;\n"
@@ -252,7 +253,7 @@ struct Wgmma<32> {
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
 
@@ -280,11 +281,11 @@ struct Wgmma<64> {
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(scale_d));
   }
-  // d += A.B, A (16 x 16 per warp) from registers, B MN-major in
+  // d (+)= A.B, A (16 x 16 per warp) from registers, B MN-major in
   // shared memory
   static __device__ __forceinline__ void rs(float (&d)[32],
                                            const uint32_t (&a)[4],
-                                           uint64_t db) {
+                                           uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %37, 0;\n"
@@ -302,7 +303,7 @@ struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
 
@@ -402,11 +403,11 @@ struct Wgmma<128> {
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(scale_d));
   }
-  // d += A.B, A (16 x 16 per warp) from registers, B MN-major in
+  // d (+)= A.B, A (16 x 16 per warp) from registers, B MN-major in
   // shared memory
   static __device__ __forceinline__ void rs(float (&d)[64],
                                            const uint32_t (&a)[4],
-                                           uint64_t db) {
+                                           uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %69, 0;\n"
@@ -436,17 +437,17 @@ struct Wgmma<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<192> {
-  // d += A.B, A (16 x 16 per warp) from registers, B MN-major in
+  // d (+)= A.B, A (16 x 16 per warp) from registers, B MN-major in
   // shared memory
   static __device__ __forceinline__ void rs(float (&d)[96],
                                            const uint32_t (&a)[4],
-                                           uint64_t db) {
+                                           uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %101, 0;\n"
@@ -488,17 +489,17 @@ struct Wgmma<192> {
           "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
           "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
           "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<256> {
-  // d += A.B, A (16 x 16 per warp) from registers, B MN-major in
+  // d (+)= A.B, A (16 x 16 per warp) from registers, B MN-major in
   // shared memory
   static __device__ __forceinline__ void rs(float (&d)[128],
                                            const uint32_t (&a)[4],
-                                           uint64_t db) {
+                                           uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "setp.ne.b32 p, %133, 0;\n"
@@ -552,7 +553,7 @@ struct Wgmma<256> {
           "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };
 
@@ -611,18 +612,25 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over (D, H, T, B) of one view, boxes of (cols, 1, rows, 1),
-// swizzled.  Encoded maps are kept in a small cache keyed by everything
-// they are made of, so a step that launches the same views again encodes
-// nothing.
+// A launch's return code for a tensor map cuTensorMapEncodeTiled refused:
+// this base plus its CUresult, apart from every cudaError_t (the wrappers
+// name it so).
+constexpr int kTensorMapFailed = 8192;
+
+// A tensor map over (D, H, T, B) of one view of `elem_bytes`-byte elements
+// (2: bf16, 4: f32), boxes of (cols, 1, rows, 1), swizzled.  Returns 0, or
+// kTensorMapFailed + the encoder's CUresult.  Encoded maps are kept in a
+// small cache keyed by everything they are made of, so a step that
+// launches the same views again encodes nothing.
 struct MapKey {
   const void* base;
   long long sb, sh, st;
-  int B, H, T, D, cols, rows, swizzle;
+  int B, H, T, D, cols, rows, swizzle, elem_bytes;
 };
 
-inline bool tensor_map(CUtensorMap* map, const View& view, int B, int H,
-                       int T, int D, int cols, int rows, int swizzle) {
+inline int tensor_map(CUtensorMap* map, const View& view, int B, int H,
+                      int T, int D, int cols, int rows, int swizzle,
+                      int elem_bytes = 2) {
   constexpr int kCache = 64;  // a step's q, k, v of every layer
   static MapKey keys[kCache];
   static CUtensorMap maps[kCache];
@@ -641,51 +649,59 @@ inline bool tensor_map(CUtensorMap* map, const View& view, int B, int H,
   key.cols = cols;
   key.rows = rows;
   key.swizzle = swizzle;
+  key.elem_bytes = elem_bytes;
   std::lock_guard<std::mutex> lock(mu);
   for (int i = 0; i < used; ++i)
     if (std::memcmp(&keys[i], &key, sizeof(key)) == 0) {
       *map = maps[i];
-      return true;
+      return 0;
     }
   EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
+  if (encode == nullptr) return kTensorMapFailed + CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(T),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * view.sh),
-                                 static_cast<cuuint64_t>(2 * view.st),
-                                 static_cast<cuuint64_t>(2 * view.sb)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(elem_bytes * view.sh),
+      static_cast<cuuint64_t>(elem_bytes * view.st),
+      static_cast<cuuint64_t>(elem_bytes * view.sb)};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(view.base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map,
+      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(view.base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle == 2 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return false;
+  if (r != CUDA_SUCCESS) return kTensorMapFailed + static_cast<int>(r);
   keys[next] = key;
   maps[next] = *map;
   next = (next + 1) % kCache;
   if (used < kCache) ++used;
-  return true;
+  return 0;
 }
 
 // The opt-in to more than 48 KB of shared memory is an attribute of a
-// kernel on a device: set once a device (a bit each of `done`, which the
-// caller keeps beside the kernel).
+// kernel on a device, set by the first launch of each host thread on each
+// device (a bit each of `done`, which the caller keeps beside the kernel,
+// thread_local).  Set once a process, a launch from another thread --
+// autograd's device thread, whose first call into this library is such a
+// launch -- was refused with cudaErrorInvalidValue.
 template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, int bytes, std::atomic<uint64_t>& done) {
+cudaError_t opt_in(Kernel kernel, int bytes, uint64_t& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const uint64_t bit = uint64_t{1} << (dev & 63);
-  if ((done.load(std::memory_order_relaxed) & bit) == 0) {
+  if ((done & bit) == 0) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    done.fetch_or(bit, std::memory_order_relaxed);
+    done |= bit;
   }
   return cudaSuccess;
 }

@@ -30,8 +30,9 @@ each, s summed over the whole head; past 512 columns its streamed
 instance, which sums s over 64-column chunks of q and K that come through
 the ring, at any width.  A view TMA cannot read (``tma_plan``) is
 copied into a padded buffer first.  f32 runs on the CUDA cores in full
-f32, since the tensor cores would take f32 only as TF32 and miss the f32
-limit of 1e-5: the whole head in shared memory where it fits
+f32 (one TF32 product would miss the f32 limit of 1e-5, and the forward
+has not taken the backward pair's split products): the whole head
+in shared memory where it fits
 (``whole_head_fits``), else K and V walked in tiles of 64 keys, at any
 (T, D), as ``_mhsa_kernel`` runs.
 

@@ -1,6 +1,6 @@
 """What the whole-head (``attention.py``) and tiled (``flash_attention.py``)
 attention wrappers share: the ctypes binding and launch of a kernel
-library, the bf16 kernels' tables of instances and TMA plan of the
+library, the wgmma kernels' tables of instances and TMA plan of the
 caller's views, the checks of their arguments, and the terms of the plain
 backward passes."""
 
@@ -18,6 +18,10 @@ MAX_SMEM_BYTES = 232_448
 # every kernel (``kColChunk`` in ``csrc/attention_common.cuh``).
 COL_CHUNK = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# a launch's return code for a tensor map cuTensorMapEncodeTiled refused:
+# this base plus its CUresult (``kTensorMapFailed``,
+# ``csrc/wgmma_blocks.cuh``), apart from every cudaError_t
+TENSOR_MAP_FAILED = 8192
 
 
 @functools.cache
@@ -89,28 +93,55 @@ def streamed_row(D: int) -> tuple[int, int]:
                 STREAMED[max(STREAMED)])
 
 
-def _backward_tiles() -> tuple[dict, dict, dict]:
-    """The bf16 wgmma backward pair's table of instances
+def _backward_tiles() -> tuple[dict, dict, dict, dict, dict, dict]:
+    """The wgmma backward pair's table of instances
     (``csrc/backward_tiles.cuh``, which the CUDA dispatch expands): by
-    padded head width, in ascending width, the dq kernel's (key tile,
-    columns a consumer holds) and the dk/dv kernel's (query tile, columns
-    a consumer holds); and the streamed rows' (tile, columns) of each
-    kernel (``"dq"``, ``"dkv"``), which every head past the widest row
-    takes."""
+    padded head width, in ascending width, the bf16 dq kernel's (key tile,
+    columns a consumer holds) and dk/dv kernel's (query tile, columns a
+    consumer holds); the bf16 streamed rows' (tile, columns) of each kernel
+    (``"dq"``, ``"dkv"``), which every head past the widest row takes; the
+    f32 (TF32) instances' DQ_F32 and DKV_F32 rows by width, as the bf16
+    ones; and for each f32 kernel (``"dq"``, ``"dkv"``), by width, whether
+    its gradient products take the tile's three bf16 terms (the rows'
+    ``bf16x3`` column) in place of its transpose."""
     from .build import CSRC_DIR
 
     text = (CSRC_DIR / "backward_tiles.cuh").read_text()
+    # DQ_F32's fourth column, the route of ds.k, changes no sum's tiles
     rows = {kind: {int(w): (int(n), int(cols)) for w, n, cols in re.findall(
-        rf"^{kind}\((\d+), (\d+), (\d+)\)$", text, re.M)}
-        for kind in ("DQ", "DKV")}
+        rf"^{kind}\((\d+), (\d+), (\d+)(?:, [01])?\)$", text, re.M)}
+        for kind in ("DQ", "DKV", "DQ_F32", "DKV_F32")}
     streamed = {kind.lower(): tuple(map(int, re.findall(
         rf"^{kind}_STREAMED\((\d+), (\d+)\)$", text, re.M)[0]))
         for kind in ("DQ", "DKV")}
-    return rows["DQ"], rows["DKV"], streamed
+    routes = {kind.lower(): {int(w): x == "1" for w, x in re.findall(
+        rf"^{kind}_F32\((\d+), \d+, \d+, ([01])\)$", text, re.M)}
+        for kind in ("DQ", "DKV")}
+    return (rows["DQ"], rows["DKV"], streamed, rows["DQ_F32"],
+            rows["DKV_F32"], routes)
 
 
-DQ_TILES, DKV_TILES, BWD_STREAMED = _backward_tiles()
+(DQ_TILES, DKV_TILES, BWD_STREAMED, DQ_F32_TILES, DKV_F32_TILES,
+ F32_BF16X3) = _backward_tiles()
 WIDEST_BACKWARD = max(DQ_TILES)  # the widest row; past it the streamed
+# the widest f32 row on TF32 wgmma; past it the CUDA-core kernels
+WIDEST_F32_BACKWARD = max(DQ_F32_TILES)
+
+
+def _cut(width: int, T: int, tile: int, cols: int, streamed: bool,
+         D: int) -> dict:
+    """One kernel's cut of a head of a width's instance: its tile, the
+    columns of the gradient a consumer holds, whether the consumers split
+    the columns ("split": fewer columns than the width), the rows (dq) or
+    keys (dk/dv) of a work item (128, or 64 split), its column chunks (the
+    last ragged when streamed), the work items a head at T (row tiles times
+    groups of two chunks) and whether the sums over D are streamed."""
+    split = cols < width
+    rows = 64 if split else QUERY_TILE
+    chunks = -(-D // cols) if streamed else width // cols
+    return {"tile": tile, "cols": cols, "split": split, "rows": rows,
+            "chunks": chunks, "streamed": streamed,
+            "items": -(-T // rows) * (-(-chunks // 2) if split else 1)}
 
 
 def backward_plan(T: int, D: int) -> dict:
@@ -118,30 +149,34 @@ def backward_plan(T: int, D: int) -> dict:
     CUDA dispatch expands (``_backward_tiles``): the instance's width (the
     first table width >= D; past ``WIDEST_BACKWARD`` the streamed rows,
     and D rounded up to their 64-column chunks), its swizzle and the
-    columns of one swizzle atom (as ``forward_plan``); for each kernel its
-    tile (the dq kernel's keys, the dk/dv kernel's queries), the columns of
-    the gradient a consumer holds, whether the consumers split the columns
-    ("split": fewer columns than the width), the rows (dq) or keys (dk/dv)
-    of a work item (128, or 64 split), its column chunks (the last ragged
-    when streamed), the work items a head at T (row tiles times groups of
-    two chunks) and whether the sums over D are streamed."""
+    columns of one swizzle atom (as ``forward_plan``), and for each kernel
+    (``"dq"``: its key tile; ``"dkv"``: its query tile) its cut
+    (``_cut``)."""
     streamed = D > WIDEST_BACKWARD
     width = (-(-D // STREAM_COLS) * STREAM_COLS if streamed
              else min(w for w in DQ_TILES if w >= D))
-
-    def cut(tile: int, cols: int) -> dict:
-        split = cols < width
-        rows = 64 if split else QUERY_TILE
-        chunks = -(-D // cols) if streamed else width // cols
-        return {"tile": tile, "cols": cols, "split": split, "rows": rows,
-                "chunks": chunks, "streamed": streamed,
-                "items": -(-T // rows) * (-(-chunks // 2) if split else 1)}
-
     tiles = (BWD_STREAMED if streamed
              else {"dq": DQ_TILES[width], "dkv": DKV_TILES[width]})
     return {"width": width, "swizzle": 64 if width == 32 else 128,
             "atom_cols": 32 if width == 32 else 64,
-            "dq": cut(*tiles["dq"]), "dkv": cut(*tiles["dkv"])}
+            **{kind: _cut(width, T, *tiles[kind], streamed, D)
+               for kind in ("dq", "dkv")}}
+
+
+def f32_backward_plan(T: int, D: int) -> dict | None:
+    """How the f32 backward pair cuts a (T, D) head on TF32 wgmma, from the
+    table's DQ_F32 and DKV_F32 rows, as ``backward_plan`` (f32 tiles are
+    128-byte swizzle atoms of 32 columns), and each kernel's route of its
+    gradient products (``"bf16x3"``); None past ``WIDEST_F32_BACKWARD``,
+    where the CUDA-core kernels run."""
+    if D > WIDEST_F32_BACKWARD:
+        return None
+    width = min(w for w in DQ_F32_TILES if w >= D)
+    return {"width": width, "swizzle": 128, "atom_cols": 32,
+            "dq": {**_cut(width, T, *DQ_F32_TILES[width], False, D),
+                   "bf16x3": F32_BF16X3["dq"][width]},
+            "dkv": {**_cut(width, T, *DKV_F32_TILES[width], False, D),
+                    "bf16x3": F32_BF16X3["dkv"][width]}}
 
 
 def forward_plan(name: str, T: int, D: int) -> dict:
@@ -195,10 +230,12 @@ def tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
 def tma_reads_in_place(t: torch.Tensor) -> bool:
     """Whether a tensor map can read the (B, H, T, D) view t where it lies:
     a 16-byte aligned base, d stride 1, and b, h and t strides (of the
-    dimensions longer than 1) multiples of 8 elements (16 bytes)."""
+    dimensions longer than 1) multiples of 16 bytes (8 bf16 or 4 f32
+    elements)."""
+    per16 = 16 // t.element_size()
     sb, sh, st = tma_strides(t)
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and not (sb % 8 or sh % 8 or st % 8))
+            and not (sb % per16 or sh % per16 or st % per16))
 
 
 def tma_plan(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -240,15 +277,26 @@ def padded_copy(t: torch.Tensor, meta: bool = False) -> torch.Tensor:
     return buf[..., :D]
 
 
-def readable(*views):
+def readable(*views, tma: bool | None = None):
     """(B, H, T, D) views as a kernel reads them: each in place where its
-    layout allows, else its ``padded_copy``.  The bf16 wgmma kernels read
-    them through tensor maps (``tma_reads_in_place``, as ``tma_plan``
-    reports for the forwards); the f32 instances take any strides with
-    d's 1."""
-    tma = views[0].dtype == torch.bfloat16
+    layout allows, else its ``padded_copy``.  The wgmma kernels (``tma``;
+    by default the bf16 ones) read them through tensor maps
+    (``tma_reads_in_place``, as ``tma_plan`` reports for the forwards); the
+    CUDA-core f32 instances take any strides with d's 1."""
+    if tma is None:
+        tma = views[0].dtype == torch.bfloat16
     return tuple(t if (tma_reads_in_place(t) if tma else t.stride(-1) == 1)
                  else padded_copy(t) for t in views)
+
+
+def launch_error(name: str, err: int) -> str:
+    """The message of a failed launch of kernel ``name`` that returned
+    ``err``: a tensor map cuTensorMapEncodeTiled refused (with its
+    CUresult), or the launch's cudaError_t."""
+    if TENSOR_MAP_FAILED <= err < 2 * TENSOR_MAP_FAILED:
+        return (f"{name} launch failed: a tensor map was refused "
+                f"(CUresult {err - TENSOR_MAP_FAILED})")
+    return f"{name} launch failed: cudaError {err}"
 
 
 # the (b, h, t) strides of q, k and v, as the forward entry points take them
@@ -284,7 +332,7 @@ def launch_forward(name: str, q, k, v, scale: float, with_lse: bool):
         with torch.cuda.device(q.device):
             err = run()
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        raise RuntimeError(launch_error(name, err))
     return out, lse
 
 
@@ -315,8 +363,11 @@ def launch_backward(name: str, q, k, v, o, do, lse, outs, scale: float,
     shape needs too much shared memory or the launch fails."""
     check_bwd(q, k, v, o, do, lse)
     # q, k, v, and o and do as (B, H, T, D) views; o is read by rows, any
-    # strides with d's 1
-    q, k, v, dot = readable(q, k, v, do.transpose(1, 2))
+    # strides with d's 1.  Tensor maps read the rest: bf16 at every width,
+    # f32 up to the widest TF32 row
+    tma = (q.dtype == torch.bfloat16
+           or q.shape[-1] <= WIDEST_F32_BACKWARD)
+    q, k, v, dot = readable(q, k, v, do.transpose(1, 2), tma=tma)
     ot = o.transpose(1, 2)
     views = (q, k, v, ot if ot.stride(-1) == 1 else padded_copy(ot), dot)
     B, H, T, D = q.shape
@@ -325,8 +376,8 @@ def launch_backward(name: str, q, k, v, o, do, lse, outs, scale: float,
     lse = lse.contiguous()
     pointers = [*views, lse, *outs]
     floats = getattr(lib, f"{name}_scratch_floats", None)
-    if floats is not None:  # the dk/dv kernel's rows of lse and delta
-        n = floats(B, H, T, D)
+    if floats is not None:  # the dk/dv wgmma kernels' rows of lse and delta
+        n = floats(B, H, T, D) if tma else 0
         pointers.append(torch.empty(n, dtype=torch.float32, device=q.device)
                         if n else None)
     # seven views' strides: the dq pass's seventh, dv's, is not read
@@ -350,7 +401,7 @@ def launch_backward(name: str, q, k, v, o, do, lse, outs, scale: float,
         with torch.cuda.device(q.device):
             err = run()
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        raise RuntimeError(launch_error(name, err))
 
 
 def plain_impl(fn, checks=None, like=None):

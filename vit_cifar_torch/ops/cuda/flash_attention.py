@@ -44,11 +44,17 @@ launches in ``<wrapper>.launches``.
 
 Every kernel dispatches by dtype: bf16 runs on the tensor cores (wgmma
 up to the widths above; p, and in the backward ds, split into bf16 hi +
-lo so that the product that follows keeps f32 accuracy), f32 on the CUDA
-cores in full f32, since the tensor cores would take f32 only as TF32 and
-miss the f32 limit of 1e-5.  Every kernel reads its inputs through their
+lo so that the product that follows keeps f32 accuracy).  In f32 the
+backward pair up to ``WIDEST_F32_BACKWARD`` (128) columns runs the same
+kernels' design on TF32 wgmma (``csrc/wgmma_tf32.cuh``): one TF32
+product would miss the f32 limit of 1e-5, so s and dp take operands
+split into TF32 big + small, three TF32 products each (big.big +
+big.small + small.big), and the gradient products three bf16 terms of
+each operand, six bf16 products; past 128 columns, and the f32
+forwards, on the CUDA cores in full f32.  Every kernel reads its inputs through their
 strides (``common.launch_forward``, ``common.launch_backward``: only a
-layout a tensor map cannot read, D % 8 != 0, takes one padded copy), and
+layout a tensor map cannot read, D % 8 != 0 in bf16, D % 4 != 0 in f32,
+takes one padded copy), and
 the backward writes dq, dk and dv through theirs (``torch.empty_like`` of
 q, k and v), so on the model's path nothing is copied around the pair and
 the module's transposes take their gradients as views.
@@ -214,7 +220,8 @@ def flash_tiled_bwd_dq(q, k, v, o, do, lse, scale: float) -> torch.Tensor:
     (``torch.empty_like(q)``), the operator ``vit_cifar_torch::flash_bwd_dq``.
     q, k, v are (B, H, T, D) views, o and do (B, T, H, D), read in place.
     Launches counted in ``flash_tiled_bwd_dq.launches``.  bf16 runs on the
-    tensor cores, f32 on the CUDA cores (a dispatch by dtype; see above)."""
+    tensor cores, f32 on TF32 wgmma up to 128 columns and on the CUDA cores
+    past them (a dispatch by dtype and width; see above)."""
     check_device(q)
     return registry.OPS.flash_bwd_dq(q, k, v, o, do, lse, scale)
 
@@ -225,7 +232,8 @@ def flash_tiled_bwd_dkv(q, k, v, o, do, lse, scale: float):
     ``vit_cifar_torch::flash_bwd_dkv``; its arguments as
     ``flash_tiled_bwd_dq``'s.  Launches counted in
     ``flash_tiled_bwd_dkv.launches``.  bf16 runs on the tensor cores, f32 on
-    the CUDA cores (a dispatch by dtype)."""
+    TF32 wgmma up to 128 columns and on the CUDA cores past them (a
+    dispatch by dtype and width)."""
     check_device(q)
     return registry.OPS.flash_bwd_dkv(q, k, v, o, do, lse, scale)
 
