@@ -77,13 +77,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    library's flash backward does not take, against the backward of SDPA
    on the backend it takes there (memory-efficient, else math), each
    beside its bound, with two calls of the pair equal bit for bit.  Then
-   the f32 instances' rows (``F32_ROWS``): the f32 forwards with lse and
-   the f32 pair (TF32 wgmma, split products) on the model's f32 views at
-   (128, 12, 1025, 32) and (128, 12, 65, 32), against their plain versions
-   (rtol 1e-4 / atol 1e-5), the pair bit for bit, each and its plain
-   version in turns, beside its f32 bound and the library's f32 call
-   (efficient attention with lse; SDPA's backward on the backend it takes)
-   with that call's own error against the plain version.
+   the f32 instances' rows (``F32_ROWS``): the f32 forwards with and
+   without lse and the f32 pair (TF32 wgmma, split products) on the
+   model's f32 views at (128, 12, 1025, 32) and (128, 12, 65, 32), against
+   their plain versions (forwards 1e-5; the pair rtol 1e-4 / atol 1e-5),
+   two calls of each bit for bit, each and its plain version in turns,
+   beside its f32 bound and the library's f32 call (efficient attention
+   with lse; SDPA in f32 for the inference forwards; SDPA's backward on
+   the backend it takes) with that call's own error against the plain
+   version.
 5. Pixel serving phase: the same serving path for the README recipe model
    at ``patch=32`` (one pixel a token, T=1025, 6,620,170 params); each
    request must launch the tiled forward 7 times and no whole-head kernel,
@@ -126,9 +128,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    batch (torch.profiler) and the recipe step's busy share.
 8a. f32 phase: one ``--precision 32`` step of the flagship (B=128) and of
    the pixel ViT (B=8) against the plain-attention model (loss 1e-5,
-   gradient 1e-4 relative L2), then 13 steps of each at B=128, counted
-   from zero: 7 launches a step of the f32 forward with lse and of each
-   backward pass (the f32 rows' launches), and the ms a step.
+   gradient 1e-4 relative L2); one eval (no-grad) forward of each at the
+   same batch, counted from zero (7 launches of the f32 inference forward:
+   ``mhsa_fwd`` for the flagship, ``flash_fwd`` for the pixel ViT), its
+   logits against the plain model's (1e-4 relative L2); then 13 steps of
+   each at B=128, counted from zero: 7 launches a step of the f32 forward
+   with lse and of each backward pass (the f32 rows' launches), and the
+   ms a step.
 8b. Analysis phase: ``load_run_model`` and ``run_on_images`` of a
    README-width f32 checkpoint, the attention maps and their rollout
    row-stochastic and equal to the same model's on the CPU (1e-4),
@@ -230,8 +236,8 @@ row names its design: the bf16 instances of the forwards and of the
 backward pair run wgmma on tiles that TMA brings ("wgmma+TMA", with ptxas's
 registers and spills of the instance at the row's shape; the build fails
 where ptxas serialised the wgmmas of any library); the f32 instances have
-rows of their own (``F32_ROWS``): the forwards on the CUDA cores, the
-backward pair up to 128 columns on TF32 wgmma with each product split
+rows of their own (``F32_ROWS``): the forwards, with and without lse, and
+the backward pair up to 128 columns on TF32 wgmma with each product split
 (three TF32 products, or six bf16 products of three-term splits) so that
 it keeps f32 accuracy (the build fails where one of those instances
 spills).  The bound of a kernel (``bound_ms``) is the larger of its bytes
@@ -611,22 +617,33 @@ MASKED_TILE_SHAPES = ((2, 2, 256, 32), (2, 2, 193, 64), (2, 2, 300, 192),
 # calls a window of the host's cost of one forward call
 HOST_CALLS = 200
 # the f32 instances (dtype 0, ``--precision 32``), rows of their own in the
-# kernels line: the whole-head forward with lse (the flagship), the tiled
-# forward with lse (the pixel ViT), both on the CUDA cores, and the tiled
-# backward pair on TF32 wgmma with the split products up to 128
-# columns (csrc/wgmma_tf32.cuh); each timed at its main shape and the
-# pair also at the flagship's, on the model's views
+# kernels line: the whole-head forward with and without lse (the
+# flagship), the tiled forward with and without lse (the pixel ViT), all on
+# TF32 wgmma with split products up to 128 columns
+# (csrc/wgmma_forward_tf32.cuh), and the tiled backward pair the same way
+# (csrc/wgmma_tf32.cuh); each timed at its main shape and the pair also at
+# the flagship's, on the model's views.  The inference rows' launches come
+# from the f32 phase's eval forwards
 F32_ROWS = {"mhsa_fwd_lse_f32": "mhsa_fwd_lse",
             "flash_fwd_lse_f32": "flash_fwd_lse",
             "flash_bwd_dq_tiled_f32": "flash_bwd_dq_tiled",
-            "flash_bwd_dkv_tiled_f32": "flash_bwd_dkv_tiled"}
+            "flash_bwd_dkv_tiled_f32": "flash_bwd_dkv_tiled",
+            "mhsa_fwd_f32": "mhsa_fwd",
+            "flash_fwd_f32": "flash_fwd"}
 F32_MAIN_SHAPE = {"mhsa_fwd_lse_f32": (128, 12, 65, 32),
                   "flash_fwd_lse_f32": PIXEL_SHAPE,
                   "flash_bwd_dq_tiled_f32": PIXEL_SHAPE,
-                  "flash_bwd_dkv_tiled_f32": PIXEL_SHAPE}
+                  "flash_bwd_dkv_tiled_f32": PIXEL_SHAPE,
+                  "mhsa_fwd_f32": (128, 12, 65, 32),
+                  "flash_fwd_f32": PIXEL_SHAPE}
+F32_FWD_DESIGN = ("TF32 wgmma, split products (s: three TF32; p.V: six "
+                  "bf16 of three-term splits, each key tile's part added "
+                  "in f32); CUDA cores past 128 columns")
 F32_DESIGN = {
-    "mhsa_fwd_lse_f32": "CUDA cores",
-    "flash_fwd_lse_f32": "CUDA cores",
+    "mhsa_fwd_lse_f32": F32_FWD_DESIGN + "; the whole head as one key tile",
+    "flash_fwd_lse_f32": F32_FWD_DESIGN,
+    "mhsa_fwd_f32": F32_FWD_DESIGN + "; the whole head as one key tile",
+    "flash_fwd_f32": F32_FWD_DESIGN,
     "flash_bwd_dq_tiled_f32": "TF32 wgmma, split products (s, dp: three "
                               "TF32; the gradients': six bf16); CUDA "
                               "cores past 128 columns",
@@ -634,7 +651,11 @@ F32_DESIGN = {
                                "TF32; the gradients': six bf16, TF32 "
                                "transposes at 128 columns); CUDA cores "
                                "past 128 columns"}
-F32_INSTANCE_KINDS = {"flash_bwd_dq_tiled_f32": ("dq_split_kernel",),
+F32_INSTANCE_KINDS = {"mhsa_fwd_lse_f32": ("fwd_split_kernel",),
+                      "flash_fwd_lse_f32": ("fwd_split_kernel",),
+                      "mhsa_fwd_f32": ("fwd_split_kernel",),
+                      "flash_fwd_f32": ("fwd_split_kernel",),
+                      "flash_bwd_dq_tiled_f32": ("dq_split_kernel",),
                       "flash_bwd_dkv_tiled_f32": ("dkv_split_kernel",)}
 # an f32-accurate product on the tensor cores: three TF32 products
 TF32_FLOP_PER_S = 495e12
@@ -2045,29 +2066,32 @@ def sdpa_backward(q, k, v, g, scale: float):
 
 def f32_instances(name: str) -> list[str]:
     """ptxas's report of the f32 instances of kernel row ``name``: the
-    TF32 split kernels of the backward pair (every DQ_F32 or DKV_F32 row);
-    the CUDA-core forwards' own kernels."""
+    TF32 split kernels of its library (every FWD_F32 and WHOLE_F32 row of
+    the forwards, every DQ_F32 or DKV_F32 row of the backward pair)."""
     lib = SOURCES[F32_ROWS[name]]
-    kinds = F32_INSTANCE_KINDS.get(name)
     return [f"{i}: {r}" for i, r in PTXAS[lib].items()
-            if (i.split("<")[0] in kinds if kinds else
-                re.match(r"(mhsa|flash)_fwd_(chunk_)?kernel", i))]
+            if i.split("<")[0] in F32_INSTANCE_KINDS[name]]
 
 
 def f32_ptxas(name: str, shape) -> str:
-    """ptxas's report of the TF32 instance that backward row ``name`` runs
-    at ``shape`` (``f32_backward_plan`` names it); the CUDA-core forwards'
-    instances are in the row's ``instances``."""
-    from vit_cifar_torch.ops.cuda.common import f32_backward_plan
+    """ptxas's report of the TF32 instance that f32 row ``name`` runs at
+    ``shape`` (``f32_forward_plan`` or ``f32_backward_plan`` names it)."""
+    from vit_cifar_torch.ops.cuda.common import (f32_backward_plan,
+                                                 f32_forward_plan)
 
-    if name not in F32_INSTANCE_KINDS:
-        return "CUDA cores: see instances"
+    lib = SOURCES[F32_ROWS[name]]
+    if "fwd" in name:
+        plan = f32_forward_plan(lib, *shape[2:])
+        instance = (f"fwd_split_kernel<{plan['width']},{plan['keys']},"
+                    f"{plan['cols']},{int(plan['bf16x3'])},"
+                    f"{int(plan['grid'] == 'whole')}>")
+        return f"{instance}: {PTXAS[lib][instance]}"
     plan = f32_backward_plan(*shape[2:])
     kind = "dq" if "dq" in name else "dkv"
     route = f",{int(plan[kind]['bf16x3'])}"
     instance = (f"{kind}_split_kernel<{plan['width']},{plan[kind]['tile']},"
                 f"{plan[kind]['cols']}{route}>")
-    return f"{instance}: {PTXAS[SOURCES[F32_ROWS[name]]][instance]}"
+    return f"{instance}: {PTXAS[lib][instance]}"
 
 
 def library_f32(shape, q, k, v, g, scale: float, want) -> dict:
@@ -2104,11 +2128,11 @@ def f32_kernel_phase(card: str) -> list[dict]:
     """The f32 instances (``--precision 32``) on the model's views at their
     main shapes (``F32_MAIN_SHAPE``; the pair also at the flagship's
     (128, 12, 65, 32)): each against its plain version (max error within
-    the f32 limits), the pair's two calls bit for bit, then each kernel
-    and its plain version in turns, and the library's f32 call beside it
-    with that call's own error against the plain version (named where it
-    misses the f32 limit), each beside its f32 bound; device ms at T=65.
-    Returns the kernels line's f32 rows."""
+    the f32 limits), two calls of each bit for bit, then each kernel and
+    its plain version in turns, and the library's f32 call beside it with
+    that call's own error against the plain version (named where it misses
+    the f32 limit), each beside its f32 bound; device ms at T=65.  Returns
+    the kernels line's f32 rows."""
     gen = torch.Generator(device="cuda").manual_seed(19)
     rows = []
     for shape in (PIXEL_SHAPE, (128, 12, 65, 32)):
@@ -2117,34 +2141,51 @@ def f32_kernel_phase(card: str) -> list[dict]:
         q, k, v = model_views(shape, gen, torch.float32)
         g = torch.randn((B, T, H, D), generator=gen, device="cuda")
         want_out, want_lse = flash_attention_lse_reference(q, k, v, scale)
-        out, lse = (fused_attention_lse if T <= 65 else
-                    flash_attention_lse)(q, k, v, scale)
+        fwd, fwd_lse, plain_fwd, plain_lse = (
+            (fused_attention, fused_attention_lse, fused_attention_reference,
+             fused_attention_lse_reference) if T <= 65 else
+            (flash_attention, flash_attention_lse, flash_attention_reference,
+             flash_attention_lse_reference))
+        out, lse = fwd_lse(q, k, v, scale)
+        infer = fwd(q, k, v, scale)
         args = (q, k, v, out, g, lse, scale)
         want = (flash_tiled_bwd_dq_reference(*args),
                 *flash_tiled_bwd_dkv_reference(*args))
         pair = lambda: (flash_tiled_bwd_dq(*args),  # noqa: E731
                         *flash_tiled_bwd_dkv(*args))
         first, second = pair(), pair()
+        again = (fwd(q, k, v, scale), *fwd_lse(q, k, v, scale))
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
             raise AssertionError(f"f32 pair {shape}: two calls differ")
-        torch.testing.assert_close(out, want_out, **KERNEL_TOL[torch.float32])
-        torch.testing.assert_close(lse, want_lse, **KERNEL_TOL[torch.float32])
+        if not all(torch.equal(a, b)
+                   for a, b in zip((infer, out, lse), again)):
+            raise AssertionError(f"f32 forwards {shape}: two calls differ")
+        for a, w in ((out, want_out), (lse, want_lse), (infer, want_out)):
+            torch.testing.assert_close(a, w, **KERNEL_TOL[torch.float32])
         for a, w in zip(first, want):
             torch.testing.assert_close(a, w, **BWD_TOL[torch.float32])
-        errs = {"fwd": _max_err((out, lse), (want_out, want_lse)),
+        kind = "mhsa" if T <= 65 else "flash"
+        errs = {f"{kind}_fwd_lse_f32": _max_err((out, lse),
+                                                (want_out, want_lse)),
+                f"{kind}_fwd_f32": _max_err((infer,), (want_out,)),
                 "flash_bwd_dq_tiled_f32": _max_err(first[:1], want[:1]),
                 "flash_bwd_dkv_tiled_f32": _max_err(first[1:], want[1:])}
         lib = library_f32(shape, q, k, v, g, scale,
                           (want_out, want_lse, *want))
-        del first, second
-        fwd_name = "mhsa_fwd_lse_f32" if T <= 65 else "flash_fwd_lse_f32"
-        fwd = (fused_attention_lse if T <= 65 else flash_attention_lse)
-        plain_fwd = (fused_attention_lse_reference if T <= 65 else
-                     flash_attention_lse_reference)
-        fns = {fwd_name: (lambda: fwd(q, k, v, scale),
-                          lambda: plain_fwd(q, k, v, scale),
-                          lib["fwd_lse"]),
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, scale=scale)
+        sdpa_out = sdpa().transpose(1, 2)
+        sdpa_err = _max_err((sdpa_out,), (want_out,))
+        sdpa_meets = torch.allclose(sdpa_out, want_out,
+                                    **KERNEL_TOL[torch.float32])
+        del sdpa_out
+        del first, second, again
+        fns = {f"{kind}_fwd_lse_f32": (lambda: fwd_lse(q, k, v, scale),
+                                       lambda: plain_lse(q, k, v, scale),
+                                       lib["fwd_lse"]),
+               f"{kind}_fwd_f32": (lambda: fwd(q, k, v, scale),
+                                   lambda: plain_fwd(q, k, v, scale), sdpa),
                "flash_bwd_dq_tiled_f32": (
                    lambda: flash_tiled_bwd_dq(*args),
                    lambda: flash_tiled_bwd_dq_reference(*args), None),
@@ -2191,17 +2232,23 @@ def f32_kernel_phase(card: str) -> list[dict]:
                       f"two calls equal bit for bit ({how}; {card})")
                 continue
             b = bound(name, shape, torch.float32)
-            err = errs.get(name, errs["fwd"])
+            err = errs[name]
             line = (f"{name} {shape} f32 on the model's views: kernel "
                     f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms"
                     f"; bound {b['bound_ms']:.4f} ms by {b['bound_by']}; "
                     f"max_abs_err {err:.3e}")
-            if lib_ms is not None:
+            if lib_ms is not None and "lse" in name:
                 meets = "" if lib["meets"]["fwd_lse"] else \
                     ", MISSES the f32 limit 1e-5"
                 line += (f"; library efficient attention with lse "
                          f"{lib_ms:.4f} ms (max_abs_err "
                          f"{lib['errs']['fwd_lse']:.3e}{meets})")
+            elif lib_ms is not None:
+                meets = "" if sdpa_meets else ", MISSES the f32 limit 1e-5"
+                line += (f"; library SDPA {lib_ms:.4f} ms (max_abs_err "
+                         f"{sdpa_err:.3e}{meets})")
+            if "fwd" in name:
+                line += "; two calls equal bit for bit"
             print(f"{line} ({how}; {card})")
             if main:
                 rows.append({
@@ -2216,7 +2263,7 @@ def f32_kernel_phase(card: str) -> list[dict]:
                     "library_ms": lib_ms,
                     "ptxas": f32_ptxas(name, shape),
                     "instances": f32_instances(name)})
-        del q, k, v, g, out, lse, args, want, lib, fns
+        del q, k, v, g, out, lse, infer, args, want, lib, fns
         torch.cuda.empty_cache()
     for row in rows:
         print(f"{row['name']} instances: " + "; ".join(row["instances"]))
@@ -2227,11 +2274,14 @@ def f32_training_phase(card: str) -> dict:
     """One ``--precision 32`` step of the flagship and of the pixel ViT
     (B=128; the pixel ViT's check at B=8, as its bf16 one): the kernel
     path's loss and gradient against the plain-attention (einsum) path's
-    within ``F32_STEP_LOSS_ATOL`` and ``F32_STEP_REL_L2``; then
-    ``F32_STEPS`` steps each after 3 untimed, their launches counted from
-    zero (7 a step of the forward with lse and of each backward pass) and
-    the host ms a step.  Returns the launches under the f32 rows'
-    names."""
+    within ``F32_STEP_LOSS_ATOL`` and ``F32_STEP_REL_L2``; one eval
+    (no-grad) forward at that batch, its launches counted from zero (7 of
+    the f32 inference forward: ``mhsa_fwd`` for the flagship,
+    ``flash_fwd`` for the pixel ViT), its logits against the plain
+    model's within ``F32_STEP_REL_L2``; then ``F32_STEPS`` steps each after
+    3 untimed, their launches counted from zero (7 a step of the forward
+    with lse and of each backward pass) and the host ms a step.  Returns
+    the launches under the f32 rows' names."""
     launches = dict.fromkeys(F32_ROWS, 0)
     for what, cfg, batch in (("flagship", flagship_cfg(precision="32"), 128),
                              ("pixel", flagship_cfg(precision="32", patch=32),
@@ -2260,7 +2310,28 @@ def f32_training_phase(card: str) -> dict:
                 and rel <= F32_STEP_REL_L2):
             raise AssertionError(f"f32 {what} step: kernel path and einsum "
                                  "path disagree")
-        del plain, grad_k, grad_p
+        # the eval path: the f32 inference forward, its launches counted
+        # from zero
+        with torch.no_grad():
+            want_logits = plain(img[:batch], deterministic=True)
+            for wrapper in KERNEL_WRAPPERS.values():
+                wrapper.launches = 0
+            logits = model(img[:batch], deterministic=True)
+            torch.cuda.synchronize()
+            counts = _launch_counts()
+        fwd = "mhsa_fwd" if what == "flagship" else "flash_fwd"
+        want = dict({n: 0 for n in KERNEL_WRAPPERS}, **{fwd: cfg.num_layers})
+        rel = ((logits - want_logits).norm() / want_logits.norm()).item()
+        print(f"f32 {what} eval forward at B={batch} (--precision 32, no "
+              f"grad): launches {counts}; logits against the einsum path's "
+              f"relative L2 {rel:.3e} (bound {F32_STEP_REL_L2}) ({card})")
+        if counts != want or not rel <= F32_STEP_REL_L2:
+            raise AssertionError(f"f32 {what} eval: launches {counts}, "
+                                 f"expected {want}; logits relative L2 "
+                                 f"{rel}")
+        for row, base in F32_ROWS.items():
+            launches[row] += counts[base]
+        del plain, grad_k, grad_p, logits, want_logits
         torch.cuda.empty_cache()
 
         # the f32 path: its launches counted from zero

@@ -16,9 +16,9 @@ against the plain version (one bf16 rounding step either way); the
 Function's bf16 grads against autograd through the plain forward 2e-2 (the
 backward reads the forward's output rounded to bf16, autograd its f32
 probabilities).  The bf16 instances of the forwards and of the tiled
-backward pair run on the tensor cores and their f32 instances on the CUDA
-cores; both are held to the same limits, and the bf16 ones also at ragged
-T and D.  The flash kernels' bf16 limit
+backward pair run on the tensor cores, their f32 instances up to 128
+columns on TF32 wgmma with split products and past them on the CUDA
+cores; all are held to the same limits, at ragged T and D.  The flash kernels' bf16 limit
 is 1e-2 of the reference's largest magnitude, since one bf16 step is at
 most 2**-7 of a value and the values shrink as T grows (about 4x from T=65
 to T=1025).
@@ -43,8 +43,8 @@ from vit_cifar_torch.ops.attention import MultiHeadSelfAttention
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.ops.cuda.attention import (
     fused_attention, fused_attention_lse, fused_attention_lse_reference,
-    fused_attention_reference, whole_head_fits, whole_head_smem_bytes)
-from vit_cifar_torch.ops.cuda.common import library
+    fused_attention_reference)
+from vit_cifar_torch.ops.cuda.common import whole_head_holds
 from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention, flash_attention_lse, flash_attention_lse_reference,
     flash_attention_reference, flash_tiled_bwd_dkv,
@@ -177,7 +177,7 @@ def test_kernel_refuses_shapes_over_shared_memory(cuda):
     (since the walk over key tiles, as JAX's ``fused_attention`` runs at
     any T): both variants run there and match the plain version."""
     for shape in ((1, 1, 2048, 64), (1, 1, 280, 192)):
-        assert not whole_head_fits(*shape[2:])
+        assert not whole_head_holds(*shape[2:], torch.float32)
         q, k, v, _, scale = _inputs(cuda, shape, torch.float32, seed=3)
         want_out, want_lse = fused_attention_lse_reference(q, k, v, scale)
         torch.testing.assert_close(fused_attention(q, k, v, scale), want_out,
@@ -847,6 +847,195 @@ def test_f32_backward_pair_launches_the_split_kernels_up_to_128_columns(
     assert (f32_backward_plan(257, D) is not None) == (want == "split")
 
 
+# the f32 forwards: TF32 wgmma with the three-product split
+# (csrc/wgmma_forward_tf32.cuh, FWD_F32 and WHOLE_F32 rows of
+# csrc/forward_tiles.cuh) up to 128 columns, the CUDA cores past them; 12
+# head widths, D < 32, D % 4 != 0 (the padded copy: 6, 30, 66, 127), every
+# f32 width and, at 129-136, the hand-off to the column-chunk tile
+F32_FORWARD_D = (6, 8, 16, 30, 32, 44, 64, 66, 100, 127, 128, 136)
+
+
+def _f32_model_views(shape, seed):
+    """q, k, v in f32 as the model makes them: (B, T, H*D) projections
+    viewed as (B, H, T, D)."""
+    B, H, T, D = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((B, T, H * D), generator=g, device="cuda")
+            .view(B, T, H, D).transpose(1, 2) for _ in range(3)]
+
+
+def _check_f32_forwards(kernel, q, k, v, scale, what, bits=False):
+    """Both variants of forward ``kernel`` against its plain version within
+    the f32 limit (rtol 1e-5 / atol 1e-5); with ``bits`` a second call of
+    each equal bit for bit."""
+    fwd, fwd_lse, plain = FORWARDS[kernel]
+    got = fwd(q, k, v, scale)
+    out, lse = fwd_lse(q, k, v, scale)
+    if bits:
+        again = (fwd(q, k, v, scale), *fwd_lse(q, k, v, scale))
+    torch.cuda.synchronize()
+    want_out, want_lse = plain(q, k, v, scale)
+    for name, a, w in (("out", got, want_out), ("out (lse)", out, want_out),
+                       ("lse", lse, want_lse)):
+        assert a.dtype == torch.float32, what
+        torch.testing.assert_close(a, w, **TOL[torch.float32],
+                                   msg=lambda m: f"{name} {what}: {m}")
+    if bits:
+        assert all(torch.equal(a, b) for a, b in zip((got, out, lse), again))
+
+
+@pytest.mark.parametrize("kernel", ["mhsa", "flash"])
+@pytest.mark.parametrize("T", WGMMA_T)
+def test_f32_forwards_on_the_models_views(cuda, T, kernel):
+    """Both f32 forwards, with and without lse, on the model's views at odd
+    and ragged T (the whole-head tiles' and the 32- and 64-key tiles' ends,
+    T=1025) and 12 head widths 6-136: against the plain version within
+    rtol 1e-5 / atol 1e-5, and two calls equal bit for bit."""
+    for D in F32_FORWARD_D:
+        q, k, v = _f32_model_views((2, 3, T, D), seed=T + D)
+        _check_f32_forwards(kernel, q, k, v, 1.0 / math.sqrt(3 * D),
+                            f"T={T} D={D}", bits=True)
+
+
+@pytest.mark.parametrize("kernel", ["mhsa", "flash"])
+@pytest.mark.parametrize("T", RAGGED_T)
+def test_f32_forwards_at_ragged_edges(cuda, T, kernel):
+    """Where a 16-row fragment, a key tile (16 to 72 keys) or a work item
+    (64 or 128 rows) ends, on contiguous inputs, at head dims that are and
+    are not a multiple of 4."""
+    for D in (16, 30, 32, 64, 100, 128):
+        q, k, v, _, scale = _inputs(cuda, (2, 3, T, D), torch.float32,
+                                    seed=5 * T + D)
+        _check_f32_forwards(kernel, q, k, v, scale, f"T={T} D={D}")
+
+
+@pytest.mark.parametrize("kernel", ["mhsa", "flash"])
+@pytest.mark.parametrize("T,D", [(200, 32), (129, 32), (193, 64),
+                                 (300, 128), (65, 32), (33, 128)])
+def test_f32_forwards_guard_a_fully_masked_key_tile(cuda, T, D, kernel):
+    """The key tile the f32 kernel takes first (the last one) has logits
+    that all overflow to -inf (every q.k there is -1e40; each TF32 product
+    of the split is -inf or finite, never NaN), with finite keys in the
+    tiles before it: the running max stays at -inf through that tile
+    without a NaN, and the rows equal the plain version's.  Where the head
+    is one tile (mhsa_fwd's whole head at T=65 and 33) every key but the
+    first 8 is masked."""
+    from vit_cifar_torch.ops.cuda.common import f32_forward_plan
+
+    _, fwd_lse, plain = FORWARDS[kernel]
+    keys = f32_forward_plan(f"{kernel}_fwd", T, D)["keys"]
+    first = max((T - 1) // keys * keys, 8)  # the first tile taken
+    g = torch.Generator(device="cuda").manual_seed(T + D)
+    q = torch.full((2, 2, T, D), 1e20, device="cuda")
+    k = torch.randn((2, 2, T, D), generator=g, device="cuda") * 1e-20
+    k[:, :, first:] = -1e20
+    v = torch.randn((2, 2, T, D), generator=g, device="cuda")
+    out, lse = fwd_lse(q, k, v, 0.1)
+    torch.cuda.synchronize()
+    want_out, want_lse = plain(q, k, v, 0.1)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out, want_out, **TOL[torch.float32])
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("kernel", ["mhsa", "flash"])
+def test_f32_forwards_read_the_views_in_place(cuda, kernel, monkeypatch):
+    """Where f32 tensor maps read the model's views (D % 4 == 0) no copy of
+    q, k or v is made; where they cannot (D=30) the stated padded copy of
+    each, 3 a call; past 128 columns (the CUDA cores) none."""
+    from vit_cifar_torch.ops.cuda import common
+
+    copies = []
+    real = common.padded_copy
+    monkeypatch.setattr(common, "padded_copy",
+                        lambda t, meta=False: copies.append(meta)
+                        or real(t, meta))
+    fwd, _, plain = FORWARDS[kernel]
+    for D, want_copies in ((32, 0), (44, 0), (30, 3), (136, 0)):
+        q, k, v = _f32_model_views((2, 3, 65, D), seed=D)
+        copies.clear()
+        got = fwd(q, k, v, 0.1)
+        torch.cuda.synchronize()
+        assert copies.count(False) == want_copies, (D, copies)
+        torch.testing.assert_close(got, plain(q, k, v, 0.1)[0],
+                                   **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("T,D,want", [
+    (65, 8, "split"), (65, 32, "split"), (1025, 32, "split"),
+    (65, 64, "split"), (257, 128, "split"), (33, 128, "split"),
+    (65, 129, "chunk"), (257, 256, "chunk")])
+def test_f32_forwards_launch_the_split_kernels_up_to_128_columns(
+        cuda, T, D, want):
+    """Up to 128 columns each f32 forward launches a TF32 instance
+    (``fwd_split_kernel``: mhsa_fwd's whole-head one where the plan takes
+    the whole head, the tiled one otherwise, and flash_fwd's tiled one),
+    past them the CUDA-core column-chunk kernels, by the profiler's kernel
+    names; one launch each by the wrappers' counters."""
+    from vit_cifar_torch.ops.cuda.common import f32_forward_plan
+
+    q, k, v = _f32_model_views((2, 3, T, D), seed=D)
+    for kernel in ("mhsa", "flash"):
+        for fn in FORWARDS[kernel][:2]:
+            before = fn.launches
+            names = _kernel_names(lambda: fn(q, k, v, 0.1))
+            assert fn.launches == before + 1, (kernel, fn.__name__)
+            plan = f32_forward_plan(f"{kernel}_fwd", T, D)
+            if want == "chunk":
+                assert plan is None
+                hits = [n for n in names if "chunk_kernel" in n]
+            else:
+                # fwd_split_kernel<width, keys, cols, bf16x3, whole>
+                whole = plan["grid"] == "whole"
+                hits = [n for n in names if (m := re.search(
+                    r"fwd_split_kernel<(\d+), ?(\d+), ?\d+, ?\w+, ?(\w+)>",
+                    n)) and (int(m.group(1)), int(m.group(2))) == (
+                        plan["width"], plan["keys"])
+                    and (m.group(3) in ("true", "1")) == whole]
+            assert hits, (T, D, kernel, sorted(names))
+
+
+FIRST_FORWARD_ON_AUTOGRADS_THREAD = r"""
+import sys
+import torch
+import torch.utils.checkpoint
+from vit_cifar_torch.ops.cuda.attention import fused_attention
+from vit_cifar_torch.ops.cuda.flash_attention import flash_attention
+fn = {"fused": fused_attention, "flash": flash_attention}[sys.argv[1]]
+B, T, H, D = 2, 65, 3, 32
+x = torch.randn((3, B, T, H * D), device="cuda", requires_grad=True)
+
+def attend(x):
+    q, k, v = (t.view(B, T, H, D).transpose(1, 2) for t in x)
+    return fn(q, k, v, 0.1)
+
+# the first pass keeps no activation; the backward recomputes the forward
+# with lse on autograd's device thread, that instance's first launch there
+out = torch.utils.checkpoint.checkpoint(attend, x, use_reentrant=False)
+(grad,) = torch.autograd.grad(out, [x], torch.ones_like(out))
+torch.cuda.synchronize()
+assert torch.isfinite(grad).all()
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("kernel", ["fused", "flash"])
+def test_f32_forward_launches_first_on_autograds_thread(cuda, kernel):
+    """In a fresh process, an f32 forward with lse recomputed by activation
+    checkpointing in the backward: its first launch on autograd's device
+    thread (each host thread sets the shared-memory opt-in of each kernel
+    it launches, ``opt_in``), finite gradients.  The child imports only
+    torch and the port."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", FIRST_FORWARD_ON_AUTOGRADS_THREAD, kernel],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0 and run.stdout.strip() == "ok", (
+        run.stdout[-2000:], run.stderr[-2000:])
+
+
 FIRST_BACKWARD_ON_AUTOGRADS_THREAD = r"""
 import sys
 import torch
@@ -968,14 +1157,6 @@ def test_fused_at_head_dim_192_serves_and_trains_on_the_card(cuda, dtype):
                         "flash_fwd_lse": 0, "flash_bwd_dq_tiled": 1,
                         "flash_bwd_dkv_tiled": 1}
     close(got, _layer_grads(ref, x, g), GRAD_TOL[dtype])
-
-
-def test_whole_head_shared_memory_formulas_match_the_kernels(cuda):
-    lib_bytes = library("mhsa_fwd").mhsa_fwd_smem_bytes
-    for T, D in ((65, 32), (792, 32), (1025, 32), (215, 128), (9, 16),
-                 (257, 192), (279, 192), (280, 192), (9, 200), (142, 384),
-                 (300, 129)):
-        assert lib_bytes(T, D) == whole_head_smem_bytes(T, D), (T, D)
 
 
 @pytest.mark.parametrize("shape,dtype", [

@@ -43,12 +43,12 @@ from vit_cifar_torch.ops.attention import MultiHeadSelfAttention, route
 from vit_cifar_torch.ops.cuda import flash_attention as flash_module
 from vit_cifar_torch.ops.cuda import KERNEL_WRAPPERS
 from vit_cifar_torch.ops.cuda.attention import (
-    F32_CHUNK_SMEM_BYTES, fused_attention_lse_reference,
-    fused_attention_reference, whole_head_fits, whole_head_smem_bytes)
+    fused_attention_lse_reference, fused_attention_reference)
 from vit_cifar_torch.ops.cuda.common import (
-    BWD_STREAMED, COL_CHUNK, MAX_SMEM_BYTES, STREAM_COLS, STREAMED,
-    WIDEST_BACKWARD, WIDEST_FORWARD, WIDEST_ONE_PASS, backward_plan,
-    forward_plan, streamed_row)
+    BWD_STREAMED, COL_CHUNK, STREAM_COLS, STREAMED, WHOLE_F32_KEYS,
+    WHOLE_KEYS, WIDEST_BACKWARD, WIDEST_FORWARD, WIDEST_ONE_PASS,
+    backward_plan, f32_forward_plan, forward_plan, streamed_row,
+    whole_head_holds)
 from vit_cifar_torch.ops.cuda.flash_attention import (
     FlashAttentionFunction, flash_attention, flash_attention_lse,
     flash_attention_lse_reference, flash_attention_reference,
@@ -826,62 +826,76 @@ def test_functions_save_the_callers_views(which, monkeypatch):
     (65, 32, None, "fused"),
     (1025, 32, "", "flash"),          # the pixel-token ViT
     (1025, 32, None, "flash"),
-    (792, 32, "", "fused"),           # the last T the forward holds
-    (793, 32, "", "flash"),
-    (685, 32, None, "fused"),         # the backward no longer limits it
-    (686, 32, None, "fused"),
-    (215, 128, "", "fused"),
-    (216, 128, "", "flash"),
+    (72, 32, "", "fused"),            # the last T the f32 whole head holds
+    (73, 32, "", "flash"),
+    (64, 64, None, "fused"),          # at 64 and 128 columns
+    (65, 64, None, "flash"),
+    (32, 128, "", "fused"),
+    (33, 128, "", "flash"),
     (65, 32, "flash", "flash"),       # forced: any T
     (4096, 128, "flash", "flash"),
     (1025, 32, "einsum", "einsum"),
     (65, 32, "einsum", "einsum"),
     (700, 32, "fused", "fused"),
-    # past COL_CHUNK columns the default takes the tiled kernels ...
+    # past COL_CHUNK columns no whole-head f32 instance: the tiled kernels
     (257, 192, "", "flash"),
     (257, 192, None, "flash"),
     (136, 192, "", "flash"),
     (9, 384, None, "flash"),
     (257, 192, "flash", "flash"),
     (257, 128, "", "flash"),
-    # ... and "fused" runs while its column-chunk layout holds the head
+    # ... and "fused" runs as asked, at any T
     (257, 192, "fused", "fused"),
     (279, 192, "fused", "fused"),
     (213, 256, "fused", "fused"),
     (142, 384, "fused", "fused"),
-    # ... and past it, where its block walks K and V in key tiles
     (1025, 32, "fused", "fused"),
     (300, 192, "fused", "fused"),
 ])
 def test_route(T, D, kernel, want):
+    """The router in f32 (its default dtype): the forced paths as asked,
+    and by default the whole-head forward exactly where a WHOLE_F32 row
+    holds the head."""
     assert route(T, D, kernel) == want
+    assert route(T, D, kernel, dtype=torch.float32) == want
     if kernel in ("", None):
-        assert (D <= COL_CHUNK and whole_head_fits(T, D)) == (want == "fused")
+        assert whole_head_holds(T, D, torch.float32) == (want == "fused")
 
 
-@pytest.mark.parametrize("D", [1, 2, 3, 5, 7, 8, 9, 16, 17, 24, 31, 32, 40,
-                               64, 100, 128, 200, 256])
-def test_whole_head_bf16_layout_never_needs_more_than_the_f32_formula(D):
-    """The router's threshold (``whole_head_smem_bytes``), kept from an
-    earlier bf16 design so that the same shapes take the same kernel: up to
-    COL_CHUNK columns the f32 layout's shared memory, never less than that
-    design's bf16 layout (K and V as T rows of ``stride_elems(D)`` bf16
-    each plus a 16-byte chunk of zeros) at any T; past COL_CHUNK the larger
-    of the bf16 layout by 128-column chunk and the f32 tile's."""
-    def stride(width):  # stride_elems: an odd number of 16-byte chunks
-        return 8 * (((width + 7) // 8) | 1)
+# (dtype, T, D, the default route): each whole-head table's last T at each
+# width and one past it, a head a column narrower than the width, and one
+# past the widest whole-head width (bf16 WHOLE rows: 128 keys at 32
+# columns, 96 at 64, 64 at 128; f32 WHOLE_F32 rows: 72, 64, 32)
+BOUNDARIES = [
+    (torch.bfloat16, 128, 32, "fused"), (torch.bfloat16, 129, 32, "flash"),
+    (torch.bfloat16, 96, 64, "fused"), (torch.bfloat16, 97, 64, "flash"),
+    (torch.bfloat16, 96, 33, "fused"), (torch.bfloat16, 64, 128, "fused"),
+    (torch.bfloat16, 65, 128, "flash"), (torch.bfloat16, 64, 65, "fused"),
+    (torch.bfloat16, 1, 129, "flash"),
+    (torch.float32, 72, 32, "fused"), (torch.float32, 73, 32, "flash"),
+    (torch.float32, 64, 64, "fused"), (torch.float32, 65, 64, "flash"),
+    (torch.float32, 64, 33, "fused"), (torch.float32, 32, 128, "fused"),
+    (torch.float32, 33, 128, "flash"), (torch.float32, 32, 65, "fused"),
+    (torch.float32, 1, 129, "flash"),
+]
 
-    T = np.arange(1, 8193)
-    formula = np.array([whole_head_smem_bytes(int(t), D) for t in T])
-    if D <= COL_CHUNK:
-        bf16 = 2 * (8 + 2 * T * stride(D))
-        assert (bf16 <= formula).all()
-        assert (formula == 4 * (T * (D + 1) + T * D + 8 * D + 8 * T)).all()
-    else:
-        widths = [min(COL_CHUNK, D - c) for c in range(0, D, COL_CHUNK)]
-        bf16 = 2 * (8 + 2 * T * sum(stride(w) for w in widths))
-        f32_tile = 4 * (64 * 128 + 64 * 129 + 64 * 128 + 8 * 64)
-        assert (formula == np.maximum(bf16, f32_tile)).all()
+
+@pytest.mark.parametrize("dtype,T,D,want", BOUNDARIES,
+                         ids=lambda x: str(x).replace("torch.", ""))
+def test_route_default_at_each_whole_head_boundary(dtype, T, D, want):
+    """The router's default rule in the module's dtype: "fused" exactly
+    where mhsa_fwd's plan (from the table the CUDA dispatch expands) takes
+    the whole head as one key tile, "flash" one key past it, and the
+    module's own path (its forward's dtype) agrees."""
+    assert route(T, D, None, dtype=dtype) == want
+    assert route(T, D, "", dtype=dtype) == want
+    plan = (forward_plan("mhsa_fwd", T, D) if dtype == torch.bfloat16
+            else f32_forward_plan("mhsa_fwd", T, D))
+    assert (plan is not None and plan["grid"] == "whole") == (want == "fused")
+    keys = WHOLE_KEYS if dtype == torch.bfloat16 else WHOLE_F32_KEYS
+    width = min((w for w in keys if w >= D), default=None)
+    assert (width is not None and -(-T // 8) * 8 <= max(keys[width])) == (
+        want == "fused")
 
 
 def test_default_module_past_the_tiled_head_dim_matches_jax(monkeypatch):
@@ -927,17 +941,21 @@ def test_default_module_past_the_tiled_head_dim_matches_jax(monkeypatch):
     assert calls == [(2, head, T, features // head)]
 
 
-@pytest.mark.parametrize("T,D", [(1025, 32), (793, 32), (4096, 128),
+@pytest.mark.parametrize("T,D", [(1025, 32), (129, 32), (4096, 128),
                                  (280, 192), (143, 384)])
-def test_route_refuses_fused_beyond_shared_memory(T, D):
-    """Where the whole-head layouts cannot hold the head, ``"fused"`` was
-    refused; it now runs there, as JAX's ``fused_attention`` does at any T:
-    the whole-head forward walks K and V in key tiles (in f32; bf16 runs
-    the tiled grid there), in a layout that fits a block's shared memory at
-    every D."""
-    assert not whole_head_fits(T, D)
-    assert route(T, D, "fused") == "fused"
-    assert F32_CHUNK_SMEM_BYTES <= MAX_SMEM_BYTES
+def test_route_runs_fused_as_asked_past_every_whole_head(T, D):
+    """Where no whole-head instance holds the head in either dtype, the
+    default takes the tiled kernels and ``"fused"`` still runs as asked,
+    as JAX's ``fused_attention`` does at any T: the whole-head forward's
+    plan runs the tiled work items there (bf16; and f32 up to 128 columns,
+    past them the CUDA-core tile, no plan)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert not whole_head_holds(T, D, dtype)
+        assert route(T, D, None, dtype=dtype) == "flash"
+        assert route(T, D, "fused", dtype=dtype) == "fused"
+    assert forward_plan("mhsa_fwd", T, D)["grid"] in ("tiled", "streamed")
+    plan = f32_forward_plan("mhsa_fwd", T, D)
+    assert plan is None if D > 128 else plan["grid"] == "tiled"
 
 
 def test_pixel_token_attention_module_routes_to_flash_and_matches_einsum():

@@ -1,6 +1,7 @@
-"""The bf16 wgmma forward's free choices, measured on one CUDA card.
+"""The wgmma forward's free choices, bf16 and f32 (TF32), measured on one
+CUDA card.
 
-    python3 tools/forward_choices.py
+    python3 tools/forward_choices.py [--only bf16|f32]
 
 builds ``csrc/flash_fwd.cu`` from copies of ``vit_cifar_torch/csrc`` under
 ``build/forward_choices/``, every build at once.  First the column-chunk
@@ -25,9 +26,19 @@ ptxas registers and spills.  Then two builds with every one-pass row set
 to ping-pong and to none, timed the same way at each one-pass width and checked equal, and
 what the ragged last query and key tiles of the pixel ViT's T=1025 (8 *
 128 + 1) cost against T=1024 with the repo's own build.  The table's key
-tiles, chunks and ping-pong columns are chosen from this.  Prints the
-card's name and power limit, a line a measurement, and one JSON object
-last.
+tiles, chunks and ping-pong columns are chosen from this.
+
+The f32 rows (``FWD_F32``, ``--only f32``): each row alone changed in one
+choice -- half and twice its key tile, and p.V on the other route (V's
+three bf16 terms or its TF32 transpose) -- built, checked within two
+units of 1e-5 (at the largest value) of the repo's build and timed
+against it in turns on the model's f32 views at the row's shape: the
+pixel ViT's (128, 12, 1025, 32) at 32 columns, (128, 8, 512, D) at 64
+and 128; then, with the repo's build, mhsa_fwd's whole head as one key
+tile against flash_fwd's tiled items at each width's last whole-head T
+(device ms under torch.profiler: a window of events follows the host
+there), at (128, 12, T, D).  Prints the card's name and power limit, a
+line a measurement, and one JSON object last.
 """
 
 from __future__ import annotations
@@ -48,9 +59,11 @@ sys.path.insert(0, ROOT)
 
 from vit_cifar_torch.ops.cuda.build import (CSRC_DIR, NVCC_FLAGS,  # noqa: E402
                                             find_nvcc)
+from vit_cifar_torch.ops.cuda.attention import \
+    fused_attention  # noqa: E402
 from vit_cifar_torch.ops.cuda.common import (  # noqa: E402
-    PINGPONG, STREAMED, TILED_COLS, TILED_KEYS, WIDEST_FORWARD, library,
-    tma_strides)
+    FWD_F32_TILES, PINGPONG, STREAMED, TILED_COLS, TILED_KEYS, WHOLE_F32_KEYS,
+    WIDEST_FORWARD, library, readable, tma_strides)
 from vit_cifar_torch.ops.cuda.flash_attention import \
     flash_attention  # noqa: E402
 
@@ -65,6 +78,34 @@ ROUNDS, ITERS = 4, 10
 
 # the widths at which the streamed rows' choices are timed
 STREAMED_WIDTHS = (520, 576, 640, 768, 1040)
+# the f32 rows' shapes, by width
+F32_SHAPES = {32: (128, 12, 1025, 32), 64: (128, 8, 512, 64),
+              128: (128, 8, 512, 128)}
+
+
+def f32_choices() -> list[tuple[int, tuple, str]]:
+    """(width, (keys, cols, bf16x3), what) of each f32 choice: every
+    FWD_F32 row with half and twice its key tile, and on the other route
+    of p.V."""
+    choices = []
+    for width, (keys, cols, bf16x3) in FWD_F32_TILES.items():
+        for n in (keys // 2, 2 * keys):
+            choices.append((width, (n, cols, bf16x3), f"f32 key tile {n}"))
+        choices.append((width, (keys, cols, not bf16x3),
+                        "f32 p.V on V's " + ("TF32 transpose" if bf16x3
+                                             else "three bf16 terms")))
+    return choices
+
+
+def build_f32(width: int, row: tuple) -> tuple[str, subprocess.Popen]:
+    """Starts nvcc on a copy whose FWD_F32 row at ``width`` is (keys, cols,
+    bf16x3) = row, the rest of the table as the repo has it."""
+    keys, cols, bf16x3 = row
+    return nvcc(copy_with_table(
+        f"f32_{width}_{keys}_{cols}_{int(bf16x3)}",
+        lambda text: re.sub(rf"^FWD_F32\({width}, \d+, \d+, [01]\)$",
+                            f"FWD_F32({width}, {keys}, {cols}, "
+                            f"{int(bf16x3)})", text, flags=re.M)))
 
 
 def chunk_choices() -> list[tuple[int, tuple, str]]:
@@ -155,13 +196,16 @@ def build(pingpong: int) -> tuple[str, subprocess.Popen]:
                             flags=re.M)))
 
 
-def fwd_report(report: str) -> str:
+def fwd_report(report: str, instance: str | None = None) -> str:
     """ptxas's registers and spills of the one wgmma forward instance in
-    a build's report (the table holds one row)."""
+    a build's report (the table holds one row), or of the f32 instance
+    whose mangled template arguments are ``instance``
+    (``16fwd_split_kernelILi32ELi64E...``)."""
     lines = report.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and (
-                "10fwd_kernelI" in line or "17fwd_stream_kernelI" in line):
+                (instance in line) if instance else (
+                "10fwd_kernelI" in line or "17fwd_stream_kernelI" in line)):
             regs = spill = ""
             for later in lines[i + 1:i + 6]:
                 if "spill" in later:
@@ -173,10 +217,12 @@ def fwd_report(report: str) -> str:
 
 
 def launcher(lib: ctypes.CDLL):
-    """``flash_fwd`` of ``lib`` on bf16 views that TMA reads in place."""
+    """``flash_fwd`` of ``lib`` on bf16 or f32 views that TMA reads in
+    place."""
     lib.flash_fwd.restype = ctypes.c_int
 
     def run(q, k, v, scale):
+        q, k, v = readable(q, k, v)
         B, H, T, D = q.shape
         out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
         strides = (ctypes.c_longlong * 9)(
@@ -185,7 +231,7 @@ def launcher(lib: ctypes.CDLL):
             *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)),
             ctypes.c_void_p(None), strides,
             *(ctypes.c_int(n) for n in (B, H, T, D)), ctypes.c_float(scale),
-            ctypes.c_int(1),
+            ctypes.c_int(1 if q.dtype == torch.bfloat16 else 0),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         if err != 0:
             raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
@@ -215,11 +261,32 @@ def in_turns(a, b) -> tuple[list, list]:
     return times
 
 
-def model_views(shape, gen):
+def model_views(shape, gen, dtype=torch.bfloat16):
     B, H, T, D = shape
     return [torch.randn((B, T, H * D), generator=gen, device="cuda")
-            .to(torch.bfloat16).view(B, T, H, D).transpose(1, 2)
+            .to(dtype).view(B, T, H, D).transpose(1, 2)
             for _ in range(3)]
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device ms a call of ``fn`` over ``n`` calls, by torch.profiler (a
+    window that records no kernel of the card is run again, up to 3
+    times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(a.self_device_time_total for a in prof.key_averages()
+                    if a.self_cpu_time_total == 0)
+        if total > 0:
+            return total / 1e3 / n
+    raise AssertionError("the profiler recorded no kernel of the card")
 
 
 def main() -> None:
@@ -230,29 +297,111 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
+        else None
     os.makedirs(WORK, exist_ok=True)
-    choices = chunk_choices()
-    builds = {}  # one build a table: a streamed row's serves every width
-    for width, row, _ in choices:
-        key = row if row[2] is None else (width, row)
-        if key not in builds:
-            builds[key] = build_choice(width, row)
-    jobs = ([builds[row if row[2] is None else (width, row)]
-             for width, row, _ in choices] + [build(pp) for pp in (1, 0)])
+    f32 = f32_choices() if only != "bf16" else []
+    f32_jobs = [build_f32(width, row) for width, row, _ in f32]
+    choices, jobs = [], []
+    if only != "f32":
+        choices = chunk_choices()
+        builds = {}  # one build a table: a streamed row's serves every width
+        for width, row, _ in choices:
+            key = row if row[2] is None else (width, row)
+            if key not in builds:
+                builds[key] = build_choice(width, row)
+        jobs = ([builds[row if row[2] is None else (width, row)]
+                 for width, row, _ in choices] + [build(pp) for pp in (1, 0)])
     try:
-        measure(card, choices, jobs)
+        result = {"card": card}
+        if only != "f32":
+            result.update(measure(card, choices, jobs))
+        if only != "bf16":
+            result.update(measure_f32(card, f32, f32_jobs))
+        print(json.dumps(result))
     finally:  # no compiler left running
-        for _, proc in jobs:
+        for _, proc in jobs + f32_jobs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
 
 
-def measure(card: str, choices, jobs) -> None:
+def measure_f32(card: str, choices, jobs) -> dict:
+    """Checks and times each f32 choice against the repo's build, then the
+    whole head against the tiled items at each width's last whole-head
+    T."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {"f32": [], "f32_whole": {}}
+    repo = launcher(library("flash_fwd"))
+    for (width, (keys, cols, bf16x3), what), (path, proc) in zip(choices,
+                                                                 jobs):
+        report, _ = proc.communicate()
+        shape = F32_SHAPES[width]
+        if proc.returncode != 0:
+            first = next((line for line in report.splitlines()
+                          if "error" in line), report[-400:])
+            print(f"flash_fwd {shape} f32: {what} does not build: "
+                  f"{first.strip()}", flush=True)
+            result["f32"].append({"width": width, "choice": what,
+                                  "built": False})
+            continue
+        if "wgmma.mma_async instructions are serialized" in report:
+            print(f"flash_fwd {shape} f32: {what}: ptxas serialised its "
+                  "wgmmas; not timed", flush=True)
+            continue
+        lib = launcher(ctypes.CDLL(path))
+        q, k, v = model_views(shape, gen, torch.float32)
+        scale = 1.0 / (shape[1] * shape[3]) ** 0.5
+        got, want = lib(q, k, v, scale), repo(q, k, v, scale)
+        diff = ((got - want).abs().max().item()
+                / (want.abs().max().item() * 1e-5))
+        if diff > 2:
+            raise AssertionError(f"{shape} {what}: {diff:.2f} units of 1e-5 "
+                                 "from the repo's build")
+        t_repo, t_choice = in_turns(lambda: repo(q, k, v, scale),
+                                    lambda: lib(q, k, v, scale))
+        med = statistics.median(t_choice) / statistics.median(t_repo)
+        mangled = (f"16fwd_split_kernelILi{width}ELi{keys}ELi{cols}ELb"
+                   f"{int(bf16x3)}ELb0E")
+        row = {"width": width, "choice": what, "built": True,
+               "row": [keys, cols, int(bf16x3)],
+               "ptxas": fwd_report(report, mangled), "repo_ms": t_repo,
+               "choice_ms": t_choice, "choice_over_repo": med, "diff": diff}
+        result["f32"].append(row)
+        print(f"flash_fwd {shape} f32: {what} (keys {keys}, {cols} columns, "
+              f"bf16x3 {int(bf16x3)}; ptxas {row['ptxas']}) "
+              f"{statistics.median(t_choice):.4f} ms against the repo's "
+              f"{statistics.median(t_repo):.4f} ms: {med:.3f} (medians of "
+              f"{2 * ROUNDS} windows of {ITERS}); {diff:.2f} units of 1e-5 "
+              f"from the repo's ({card})", flush=True)
+        del q, k, v
+    for width, keys in WHOLE_F32_KEYS.items():
+        T = max(keys)
+        shape = (128, 12, T, width)
+        q, k, v = model_views(shape, gen, torch.float32)
+        scale = 1.0 / (shape[1] * shape[3]) ** 0.5
+        times = {"whole": [], "tiled": []}
+        fns = {"whole": lambda: fused_attention(q, k, v, scale),
+               "tiled": lambda: flash_attention(q, k, v, scale)}
+        for _ in range(ROUNDS):
+            for name in ("whole", "tiled", "tiled", "whole"):
+                times[name].append(device_ms(fns[name]))
+        med = {n: statistics.median(t) for n, t in times.items()}
+        result["f32_whole"][str(shape)] = times
+        print(f"{shape} f32, the repo's build: mhsa_fwd's whole head "
+              f"{med['whole']:.4f} device ms, flash_fwd's tiled items "
+              f"{med['tiled']:.4f}: tiled/whole {med['tiled'] / med['whole']:.3f}"
+              f" (medians of {2 * ROUNDS} profiled windows of 20, in turns; "
+              f"{card})", flush=True)
+        del q, k, v
+    return result
+
+
+def measure(card: str, choices, jobs) -> dict:
     """Checks and times each built choice against the repo's build, then
     the ping-pong builds against each other, then T=1025 against 1024."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    result = {"card": card, "chunks": [], "pingpong": {}, "ragged": {}}
+    result = {"chunks": [], "pingpong": {}, "ragged": {}}
     repo = launcher(library("flash_fwd"))
     reports = {}  # a shared build's report, read once
     for (width, (keys, cols, pp), what), (path, proc) in zip(choices, jobs):
@@ -332,7 +481,7 @@ def measure(card: str, choices, jobs) -> None:
           f"{m25:.4f} ms ({min(t25):.4f}-{max(t25):.4f}), T=1024 {m24:.4f} "
           f"ms ({min(t24):.4f}-{max(t24):.4f}): the ragged last tiles cost "
           f"{m25 / m24 - 1:.1%} ({card})")
-    print(json.dumps(result))
+    return result
 
 
 if __name__ == "__main__":

@@ -31,11 +31,13 @@ differs.  Each run measures, in bf16:
   (16, 2, 1024, 512) and (16, 2, 1024, 520), the table's edge, and at
   (128, 8, 512, D) for D = 576, 640, 768 and 1040: CUDA-event means over
   windows of about 50 ms;
-- f32 (``f32``, only when asked for): the tiled dq and dk/dv passes and
-  the pair on the model's f32 views at the pixel model's and the
-  flagship's shapes (CUDA events over windows of about 50 ms; device ms
-  at T=65), and the flagship and pixel training steps under
-  ``--precision 32`` as above.
+- f32 (``f32``, only when asked for): the forwards with and without lse
+  (the tiled ones at the pixel model's shape, the whole-head ones and the
+  tiled ones at the flagship's), the tiled dq and dk/dv passes and the
+  pair on the model's f32 views at the pixel model's and the flagship's
+  shapes (CUDA events over windows of about 50 ms; device ms and the
+  host microseconds a call at T=65), and the flagship and pixel training
+  steps under ``--precision 32`` as above.
 
 ``--only`` runs one of the parts (``kernels``, ``flagship``, ``pixel``,
 ``wide``, ``f32``), for more rounds of it in the same time.  Every number
@@ -164,12 +166,17 @@ def _wide_times(smoke, torch) -> dict:
 
 
 def _f32_times(smoke, torch) -> dict:
-    """ms a call of the f32 dq and dk/dv passes and of the pair on the
-    model's f32 views (o and lse as the f32 forward returns them, a (B, T,
-    H, D) cotangent) at the pixel model's and the flagship's shapes: CUDA
-    events over windows of about 50 ms, and device ms at T=65."""
+    """ms a call of the f32 forwards with and without lse (flash_fwd at the
+    pixel model's shape; mhsa_fwd and flash_fwd at the flagship's), of the
+    f32 dq and dk/dv passes and of the pair on the model's f32 views (o
+    and lse as the f32 forward returns them, a (B, T, H, D) cotangent) at
+    both shapes: CUDA events over windows of about 50 ms, and device ms and
+    host microseconds a call at T=65."""
+    from vit_cifar_torch.ops.cuda.attention import (fused_attention,
+                                                    fused_attention_lse)
     from vit_cifar_torch.ops.cuda.flash_attention import (
-        flash_attention_lse, flash_tiled_bwd_dkv, flash_tiled_bwd_dq)
+        flash_attention, flash_attention_lse, flash_tiled_bwd_dkv,
+        flash_tiled_bwd_dq)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
@@ -180,15 +187,25 @@ def _f32_times(smoke, torch) -> dict:
         o, lse = flash_attention_lse(q, k, v, scale)
         g = torch.randn((B, T, H, D), generator=gen, device="cuda")
         args = (q, k, v, o, g, lse, scale)
-        fns = {"f32 flash_bwd_dq_tiled": lambda: flash_tiled_bwd_dq(*args),
+        fns = {"f32 flash_fwd": lambda: flash_attention(q, k, v, scale),
+               "f32 flash_fwd_lse": lambda: flash_attention_lse(q, k, v,
+                                                                scale)}
+        if tag == "flagship":
+            fns["f32 mhsa_fwd"] = lambda: fused_attention(q, k, v, scale)
+            fns["f32 mhsa_fwd_lse"] = lambda: fused_attention_lse(q, k, v,
+                                                                  scale)
+        fns.update({
+               "f32 flash_bwd_dq_tiled": lambda: flash_tiled_bwd_dq(*args),
                "f32 flash_bwd_dkv_tiled": lambda: flash_tiled_bwd_dkv(*args),
                "f32 pair": lambda: (flash_tiled_bwd_dq(*args),
-                                    flash_tiled_bwd_dkv(*args))}
+                                    flash_tiled_bwd_dkv(*args))})
         for name, fn in fns.items():
             iters = max(2, min(100, round(50 / smoke.cuda_ms(fn, 1, 1))))
             out[f"{name} {tag}"] = smoke.cuda_ms(fn, iters, 2)
             if T <= 65:
                 out[f"{name} {tag} device"] = smoke.device_ms(fn)[0]
+                # the host's cost of a call on the model's views
+                out[f"{name} {tag} host_us"] = smoke.host_us(fn)
         del q, k, v, o, lse, g, args, fns
         torch.cuda.empty_cache()
     return out

@@ -13,8 +13,6 @@
 namespace attn {
 
 constexpr int kWarps = 8;
-// Hopper's opt-in maximum of dynamic shared memory for one block.
-constexpr size_t kMaxSmemBytes = 232448;
 constexpr int kThreads = kWarps * 32;
 // The widest head every kernel holds whole: a row of D values spread over a
 // warp's lanes at most four a lane, or 128 columns of mma fragments.  A
@@ -30,14 +28,6 @@ __host__ __device__ constexpr int col_chunks(int D) {
 // The width of column chunk e of a head of D columns.
 __host__ __device__ constexpr int chunk_width(int D, int e) {
   return D - e * kColChunk < kColChunk ? D - e * kColChunk : kColChunk;
-}
-
-// The row stride in elements of a bf16 row of D columns staged with an odd
-// number of 16-byte chunks (D rounded up to 8, then to an odd multiple of
-// 8): the earlier bf16 design's layout, which the whole-head forward's
-// router threshold still counts (mhsa_fwd.cu, whole_head_smem_bytes).
-__host__ __device__ constexpr int stride_elems(int D) {
-  return 8 * (((D + 7) / 8) | 1);
 }
 
 // The (b, h, t) strides in elements of n (B, H, T, D) views as the caller

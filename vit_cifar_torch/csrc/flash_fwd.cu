@@ -48,16 +48,20 @@
 //   logits (the last key tile, taken first); a warp whose 16 rows all lie
 //   past T computes no exps.
 //
-//   f32 (dtype 0), on the CUDA cores: one TF32 product would miss the 1e-5
-//   the f32 path is held to, and this forward has not yet taken the
-//   three-product split (big.big + big.small + small.big) that puts the
-//   f32 backward pair on TF32 wgmma (wgmma_tf32.cuh); so f32 keeps the
-//   first design: one block of 8 warps per 64 query
-//   rows, q, K and V converted into f32 shared memory, each warp walking
-//   its 8 rows with lanes over keys for the logits and over d for p.v;
-//   past 128 columns the column-chunk tile of fwd_f32_chunk.cuh.  This is
-//   a dispatch by dtype, not a fallback.
-//
+//   f32 (dtype 0) up to 128 columns: the same design on TF32 wgmma
+//   (wgmma_forward_tf32.cuh, fwd_split_kernel; the FWD_F32 rows of
+//   forward_tiles.cuh).  One TF32 product (10-bit mantissa) would miss the
+//   1e-5 the f32 path is held to: q and each K tile are split into TF32
+//   big + small by converter warps as they land, and s = q.k^T is three
+//   TF32 products (big.big + big.small + small.big); p.V, which TF32 wgmma
+//   cannot read MN-major, takes V's three bf16 terms (six bf16 products
+//   with the transpose bit) or its TF32 transpose, by the row; each key
+//   tile's p.V lands in a fresh accumulator and is added into o in f32.
+//   At the pixel shape it is bound by the products (two, three TF32 ones
+//   each).  Past 128 columns the CUDA-core column-chunk tile of
+//   fwd_f32_chunk.cuh, a dispatch by width: one block of 8 warps per 64
+//   query rows and 128-column chunk of o.
+
 // Every instance keeps the TPU kernel's guard: a tile whose logits are all
 // -inf keeps m at -inf and must not turn it into NaN, so exp uses m_new = 0
 // there and the rescale factor of an empty history is 0.  Shared memory
@@ -73,146 +77,11 @@
 #include "attention_common.cuh"
 #include "fwd_f32_chunk.cuh"
 #include "wgmma_attention.cuh"
+#include "wgmma_forward_tf32.cuh"
 
 namespace {
 
 using namespace attn;
-
-constexpr int kRows = 8;                 // query rows per warp
-constexpr int kTileQ = kRows * kWarps;   // query rows per block
-constexpr int kTileK = 64;               // keys per tile: two per lane
-
-// ---- f32: the CUDA-core instance -----------------------------------------
-// Dynamic shared memory, in floats:
-//   Q    kTileQ * D         (the block's query rows)
-//   K    kTileK * (D + 1)   (the key tile, padded row stride)
-//   V    kTileK * D         (the value tile)
-//   p    kWarps * kTileK    (each warp's row of probabilities)
-template <typename T, int kCols>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, Qkv L, int H, int seq, int D,
-                     float scale) {
-  extern __shared__ float smem[];
-  const int ks = D + 1;
-  float* q_s = smem;
-  float* k_s = q_s + kTileQ * D;
-  float* v_s = k_s + kTileK * ks;
-  float* p_s = v_s + kTileK * D;
-
-  const int tiles = (seq + kTileQ - 1) / kTileQ;
-  const int bh = blockIdx.x / tiles;  // b * H + h
-  const int q0 = (blockIdx.x - bh * tiles) * kTileQ;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const T* qh = q + L.head(0, b, h);
-  const T* kh = k + L.head(1, b, h);
-  const T* vh = v + L.head(2, b, h);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nq = min(kTileQ, seq - q0);
-
-  for (int i = threadIdx.x; i < nq * D; i += kThreads) {
-    const int r = i / D;
-    q_s[i] = to_f32(qh[(q0 + r) * L.st[0] + i - r * D]);
-  }
-
-  float m[kRows], l[kRows], acc[kRows][kCols];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = -CUDART_INF_F;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-  }
-
-  const int row0 = warp * kRows;  // this warp's first row in the tile
-  float* prow = p_s + warp * kTileK;
-  for (int k0 = 0; k0 < seq; k0 += kTileK) {
-    const int nk = min(kTileK, seq - k0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < nk * D; i += kThreads) {
-      const int j = i / D;
-      const int d = i - j * D;
-      k_s[j * ks + d] = to_f32(kh[(k0 + j) * L.st[1] + d]);
-      v_s[i] = to_f32(vh[(k0 + j) * L.st[2] + d]);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (row0 + r >= nq) break;  // warp-uniform: rows past T
-      const float* qrow = q_s + (row0 + r) * D;
-      float s0 = -CUDART_INF_F, s1 = -CUDART_INF_F;
-      if (lane < nk) {
-        const float* krow = k_s + lane * ks;
-        float a = 0.f;
-        for (int d = 0; d < D; ++d) a = fmaf(qrow[d], krow[d], a);
-        s0 = a * scale;
-      }
-      if (lane + 32 < nk) {
-        const float* krow = k_s + (lane + 32) * ks;
-        float a = 0.f;
-        for (int d = 0; d < D; ++d) a = fmaf(qrow[d], krow[d], a);
-        s1 = a * scale;
-      }
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
-      // a tile of -inf logits keeps m at -inf; exp(-inf - -inf) would be NaN
-      const float safe_m = isfinite(m_new) ? m_new : 0.f;
-      const float corr = isfinite(m[r]) ? expf(m[r] - safe_m) : 0.f;
-      const float p0 = expf(s0 - safe_m);  // missing keys: exp(-inf) = 0
-      const float p1 = expf(s1 - safe_m);
-      l[r] = l[r] * corr + warp_sum(p0 + p1);
-      m[r] = m_new;
-      prow[lane] = p0;
-      prow[lane + 32] = p1;
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int d = lane + 32 * c;
-        if (d < D) {
-          float a = acc[r][c] * corr;
-          for (int j = 0; j < nk; ++j) a = fmaf(prow[j], v_s[j * D + d], a);
-          acc[r][c] = a;
-        }
-      }
-      __syncwarp();  // prow is rewritten for the next row
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = q0 + row0 + r;
-    if (i >= seq) break;
-    T* orow = out + ((static_cast<int64_t>(b) * seq + i) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) orow[d] = from_f32<T>(acc[r][c] / l[r]);
-    }
-    if (lse != nullptr && lane == 0)
-      lse[static_cast<int64_t>(bh) * seq + i] = m[r] + logf(l[r]);
-  }
-}
-
-size_t smem_bytes(int D) {
-  return sizeof(float) * (static_cast<size_t>(kTileQ) * D +
-                          static_cast<size_t>(kTileK) * (D + 1) +
-                          static_cast<size_t>(kTileK) * D + kWarps * kTileK);
-}
-
-template <int kCols>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       void* lse, const Qkv& L, int B, int H, int seq, int D,
-                       float scale, cudaStream_t stream) {
-  const int tiles = (seq + kTileQ - 1) / kTileQ;
-  return launch_with_smem(
-      flash_fwd_kernel<float, kCols>, B * H * tiles, kThreads, smem_bytes(D),
-      stream, static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), L, H, seq, D, scale);
-}
 
 // ---- f32 past kColChunk columns: one block per (b, h, query tile, column
 // chunk) -------------------------------------------------------------------
@@ -234,12 +103,13 @@ cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
                              void* out, void* lse, const Qkv& L, int B, int H,
                              int seq, int D, float scale,
                              cudaStream_t stream) {
-  if (D <= 32)
-    return launch_f32<1>(q, k, v, out, lse, L, B, H, seq, D, scale, stream);
-  if (D <= 64)
-    return launch_f32<2>(q, k, v, out, lse, L, B, H, seq, D, scale, stream);
-  if (D <= kColChunk)
-    return launch_f32<4>(q, k, v, out, lse, L, B, H, seq, D, scale, stream);
+  if (attn_wg::f32_width(D) != 0) {
+    using attn_wg::View;
+    return attn_wg::launch_f32_tiled(View{q, L.sb[0], L.sh[0], L.st[0]},
+                                     View{k, L.sb[1], L.sh[1], L.st[1]},
+                                     View{v, L.sb[2], L.sh[2], L.st[2]}, out,
+                                     lse, B, H, seq, D, scale, stream);
+  }
   const int tiles = (seq + kChunkTileQ - 1) / kChunkTileQ;
   return launch_with_smem(
       flash_fwd_chunk_kernel, dim3(B * H * tiles, col_chunks(D)), kThreads,
@@ -263,9 +133,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v: (B, H, T, D) views, their (b, h, t) strides in elements in
-// `strides` (q's three, then k's, then v's; d's stride is 1); bf16 views
-// meet TMA's rules (16-byte aligned bases, strides multiples of 8
-// elements), which the wrapper sees to.  out: (B, T, H, D) contiguous, same
+// `strides` (q's three, then k's, then v's; d's stride is 1); the views the
+// wgmma instances read (bf16, and f32 up to the widest FWD_F32 row) meet
+// TMA's rules (16-byte aligned bases, strides multiples of 16 bytes), which
+// the wrapper sees to.  out: (B, T, H, D) contiguous, same
 // type; lse: (B, H, T) float32 contiguous, or null for the inference
 // variant.  Any D; dtype 0 is float32, 1 is bfloat16.  Returns the
 // cudaError_t of the launch (0 on success); the caller checks shapes.

@@ -1,9 +1,10 @@
-// The instances of the bf16 wgmma forward (wgmma_attention.cuh), one row
-// each.  This one table is what the CUDA dispatch (flash_fwd.cu and
-// mhsa_fwd.cu, through wgmma_attention.cuh) expands and what the wrappers'
-// tensor-map plan (ops/cuda/common.py::forward_plan) reads, so the two
-// cannot disagree.  No include guard: each includer defines all four
-// macros.
+// The instances of the wgmma forward, one row each: bf16
+// (wgmma_attention.cuh) and f32 on TF32 (wgmma_forward_tf32.cuh).  This one
+// table is what the CUDA dispatch (flash_fwd.cu and mhsa_fwd.cu, through
+// those headers) expands and what the wrappers' plans
+// (ops/cuda/common.py::forward_plan, f32_forward_plan) and the CPU models
+// read, so they cannot disagree.  No include guard: each includer defines
+// all six macros.
 //
 // TILED(width, keys, pingpong): the tiled grid at a padded head width in
 //   one pass, the whole head's columns of o in a consumer -- the widest
@@ -47,6 +48,33 @@
 //   round_up(T, 8) keys as one tile of `keys` keys, the first row of the
 //   head's width that holds them (past the last: the tiled grid).  Rows by
 //   width, then ascending keys.  They take the TILED row's ping-pong.
+// FWD_F32(width, keys, cols, bf16x3): the f32 forward up to 128 columns
+//   (fwd_split_kernel), tiled: the key tile, the columns of o a consumer
+//   holds and the route of p.V.  cols == width: a work item is 128 query
+//   rows, 64 a consumer; cols < width: 64 rows, the two consumers on the
+//   same rows, each its chunk of cols columns (both compute s).  q and
+//   each key tile are split into TF32 big + small (four bytes a value,
+//   twice), and s = q.k^T is three TF32 products; V, whose p.V sums over
+//   keys (MN-major, which TF32 wgmma cannot read), is taken as three bf16
+//   terms (bf16x3 1: six bf16 products with the transpose bit, a depth of
+//   keys rounded up to 16) or as its TF32 transpose (0: three TF32
+//   products).  A consumer holds o and the key tile's part of it, which
+//   is added into o in f32 (wgmma_tf32.cuh, GradFrags), beside s and p's
+//   fragments; so the tiles are smaller than the bf16 rows'.  The rows
+//   are tools/forward_choices.py --only f32's measurements against half
+//   and twice the key tile and the other route: at 32 columns 32 keys
+//   read 1.12x (128 keys do not build: no Tf32<128>); at 64 columns 16
+//   keys 1.24x and 64 keys 1.21x (they spill); at 128 columns 16 keys
+//   0.99x, a tie within a run's spread (64 keys leave no second stage of
+//   the ring); V's TF32 transpose 1.59-1.64x the bf16 terms everywhere.
+// WHOLE_F32(width, keys): mhsa_fwd's f32 whole-head instances, the head's
+//   round_up(T, 8) keys as one tile (no loop: s, p's fragments and o),
+//   the first row of the head's width that holds them, as WHOLE; they take
+//   the FWD_F32 row's columns and route.  Past them the tiled items.  A
+//   row's q, two stages of K and V and their splits fit shared memory.  At
+//   each width's last row the whole head read 1.45x (32 columns), 1.14x
+//   (64) and 1.00x (128) faster than the tiled items
+//   (tools/forward_choices.py --only f32, device ms at (128, 12, T, D)).
 
 TILED(32, 128, 1)
 TILED(64, 96, 0)
@@ -74,3 +102,17 @@ WHOLE(64, 96)
 WHOLE(128, 16)
 WHOLE(128, 32)
 WHOLE(128, 64)
+
+FWD_F32(32, 64, 32, 1)
+FWD_F32(64, 32, 64, 1)
+FWD_F32(128, 32, 64, 1)
+
+WHOLE_F32(32, 16)
+WHOLE_F32(32, 32)
+WHOLE_F32(32, 64)
+WHOLE_F32(32, 72)
+WHOLE_F32(64, 16)
+WHOLE_F32(64, 32)
+WHOLE_F32(64, 64)
+WHOLE_F32(128, 16)
+WHOLE_F32(128, 32)

@@ -131,11 +131,13 @@ struct Place {
 // In the first tile taken (kMasked, keys from k0) keys past T get -inf by
 // a select and a block of 8 keys wholly past T computes no exps (p = 0); a
 // warp whose rows all lie past T computes none at all.
-template <int kN, bool kMasked>
+// p is the launch's scalars (Params, or the f32 forward's F32Params: T and
+// c are read).
+template <int kN, bool kMasked, typename P>
 __device__ __forceinline__ void online_softmax(float (&s)[kN / 2],
                                                float (&m)[2], float (&l)[2],
                                                float (&corr)[2],
-                                               const Params& p, int k0,
+                                               const P& p, int k0,
                                                int t, bool warp_active) {
   constexpr int kNB = kN / 8;  // 8-key blocks of s
   if (warp_active) {
@@ -785,11 +787,15 @@ constexpr bool pingpong_at(int width) {
 #define CHUNKED(w, n, cols, pp)
 #define STREAMED(w, n, cols)
 #define WHOLE(w, n)
+#define FWD_F32(w, n, cols, bf16x3)
+#define WHOLE_F32(w, n)
 #include "forward_tiles.cuh"
 #undef TILED
 #undef CHUNKED
 #undef STREAMED
 #undef WHOLE
+#undef FWD_F32
+#undef WHOLE_F32
   return true;
 }
 
@@ -800,11 +806,15 @@ constexpr int last_streamed() {
 #define CHUNKED(w, n, cols, pp)
 #define STREAMED(w, n, cols) widest = w;
 #define WHOLE(w, n)
+#define FWD_F32(w, n, cols, bf16x3)
+#define WHOLE_F32(w, n)
 #include "forward_tiles.cuh"
 #undef TILED
 #undef CHUNKED
 #undef STREAMED
 #undef WHOLE
+#undef FWD_F32
+#undef WHOLE_F32
   return widest;
 }
 
@@ -817,11 +827,15 @@ inline int padded_width(int D) {
   if (D <= w) return w;
 #define STREAMED(w, n, cols)
 #define WHOLE(w, n)
+#define FWD_F32(w, n, cols, bf16x3)
+#define WHOLE_F32(w, n)
 #include "forward_tiles.cuh"
 #undef TILED
 #undef CHUNKED
 #undef STREAMED
 #undef WHOLE
+#undef FWD_F32
+#undef WHOLE_F32
   return 0;
 }
 
@@ -844,11 +858,15 @@ inline cudaError_t launch_tiled(const View& q, const View& k, const View& v,
     return launch_stream<n, cols>(q, k, v, out, lse, B, H, T, D, scale,     \
                                   stream);
 #define WHOLE(w, n)
+#define FWD_F32(w, n, cols, bf16x3)
+#define WHOLE_F32(w, n)
 #include "forward_tiles.cuh"
 #undef TILED
 #undef CHUNKED
 #undef STREAMED
 #undef WHOLE
+#undef FWD_F32
+#undef WHOLE_F32
   return cudaErrorInvalidValue;  // a table without a STREAMED row
 }
 
@@ -867,11 +885,15 @@ inline cudaError_t launch_whole_or_tiled(const View& q, const View& k,
   if (width == w && keys <= n)                                              \
     return launch<w, n, 2, pingpong_at(w), w>(q, k, v, out, lse, B, H, T, \
                                               D, scale, stream);
+#define FWD_F32(w, n, cols, bf16x3)
+#define WHOLE_F32(w, n)
 #include "forward_tiles.cuh"
 #undef TILED
 #undef CHUNKED
 #undef STREAMED
 #undef WHOLE
+#undef FWD_F32
+#undef WHOLE_F32
   return launch_tiled(q, k, v, out, lse, B, H, T, D, scale, stream);
 }
 

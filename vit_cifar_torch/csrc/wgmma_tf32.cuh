@@ -1,8 +1,9 @@
-// What the two f32 backward kernels on TF32 wgmma (flash_bwd_dq.cu and
-// flash_bwd_dkv.cu, dtype 0) share, beside the bf16 pair's blocks
-// (wgmma_blocks.cuh, wgmma_backward.cuh): the TF32 wgmma products, the
-// splits that keep them at f32 accuracy, and the converter warps' passes
-// over the tiles TMA brings.
+// What the f32 kernels on TF32 wgmma (dtype 0: the backward pair,
+// flash_bwd_dq.cu and flash_bwd_dkv.cu, and the forward of
+// wgmma_forward_tf32.cuh, for flash_fwd.cu and mhsa_fwd.cu) share, beside
+// the bf16 kernels' blocks (wgmma_blocks.cuh, wgmma_backward.cuh): the
+// TF32 wgmma products, the splits that keep them at f32 accuracy, and the
+// converter warps' passes over the tiles TMA brings.
 //
 // The tensor cores take f32 as TF32 (8 exponent, 10 mantissa bits): one
 // product misses the 1e-5 the f32 path is held to.  Each operand x is split
@@ -51,7 +52,8 @@ namespace {
 // operands K-major (TF32 has no transpose).  ss: d (+)= A.B^T, A and B in
 // shared memory (scale_d 0 overwrites d); rs: the same with A from
 // registers (scale_d 1 unless given).  N in {8, 16, 32, 48, 64}: the key
-// or query tiles and the columns a consumer holds.
+// or query tiles and the columns a consumer holds; and 72 (ss), the f32
+// whole-head forward's one key tile at T = 65.
 template <int N>
 struct Tf32;
 
@@ -249,6 +251,35 @@ struct Tf32<64> {
   }
 };
 
+template <>
+struct Tf32<72> {
+  // d (+)= A.B^T, A (64 x 8) and B (72 x 8) K-major in shared memory: the
+  // f32 whole-head forward's logits at T = 65
+  static __device__ __forceinline__ void ss(float (&d)[36], uint64_t da,
+                                           uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %38, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35"
+        "}, %36, %37, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 constexpr int kConverterWarps = 3;  // warps 1-3 of the producer warpgroup
 
 // x as TF32, rounded to nearest with ties away from zero: its low 13 bits 0.
@@ -394,7 +425,9 @@ __device__ __forceinline__ void split_tile(uint8_t* tile, uint8_t* small,
 // at byte 128 m, row (column % 8) at 16 bytes, slot % 4 at 4.  A warp takes
 // one core matrix a step, lane 4 (column % 8) + slot % 4: its reads of the
 // swizzled tile and its writes fall on 32 banks.
-template <int kDp, int kRows>
+// Without kKeep (the forward's V, read only as that B) the tile's halves
+// are not written back, and `small` is not read.
+template <int kDp, int kRows, bool kKeep = true>
 __device__ __forceinline__ void split_transpose(uint8_t* tile, uint8_t* small,
                                                 uint8_t* tb, uint8_t* ts,
                                                 int cw, int lane) {
@@ -409,8 +442,10 @@ __device__ __forceinline__ void split_transpose(uint8_t* tile, uint8_t* small,
                     (((cc >> 2) ^ (key & 7)) << 4) + ((cc & 3) << 2);
     float b, s;
     split_tf32(*reinterpret_cast<const float*>(tile + off), b, s);
-    *reinterpret_cast<float*>(tile + off) = b;
-    *reinterpret_cast<float*>(small + off) = s;
+    if constexpr (kKeep) {
+      *reinterpret_cast<float*>(tile + off) = b;
+      *reinterpret_cast<float*>(small + off) = s;
+    }
     const int t_off = 128 * m + 16 * cl + 4 * sl;
     *reinterpret_cast<float*>(tb + t_off) = b;
     *reinterpret_cast<float*>(ts + t_off) = s;
@@ -453,6 +488,26 @@ __device__ __forceinline__ void split_frags_bf16x3(
                    t[1][kk][e], t[2][kk][e]);
 }
 
+// The same for an accumulator of kN columns as the fragments of a depth of
+// kK (kN rounded up to 16): the keys past kN get 0 (the f32 forward's p at
+// a key tile of an odd number of 8-key blocks).
+template <int kN, int kK>
+__device__ __forceinline__ void split_frags_bf16x3_padded(
+    const float (&x)[kN / 2], uint32_t (&t)[3][kK / 16][4]) {
+  static_assert(kK == (kN + 15) / 16 * 16, "the depth of whole k16 steps");
+#pragma unroll
+  for (int kk = 0; kk < kK / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e >= 2 && 2 * kk + 1 >= kN / 8) {  // keys past kN
+        t[0][kk][e] = t[1][kk][e] = t[2][kk][e] = 0u;
+        continue;
+      }
+      split_bf16x3(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1], t[0][kk][e],
+                   t[1][kk][e], t[2][kk][e]);
+    }
+}
+
 // d = (t1 + t2 + t3).(y1 + y2 + y3) over kK rows in six bf16 products a
 // k16 step: t the A fragments (split_frags_bf16x3), y1 .. y3 the three
 // terms' tiles (kK rows, in the bf16 layout of a kDp-column tile, each
@@ -484,8 +539,9 @@ __device__ __forceinline__ void product_rs_bf16x3(
 // A kRows x kDp tile as TMA lands it split in place and into `small`, and
 // written as three bf16 terms into the tiles at tb, tb + term, tb + 2 term
 // in the bf16 swizzled layout (Atoms<kDp>: 64-byte rows at width 32, else
-// 128-byte rows of 64 columns), four values a thread and step.
-template <int kDp, int kRows>
+// 128-byte rows of 64 columns), four values a thread and step.  Without
+// kKeep only the terms are written (the forward's V).
+template <int kDp, int kRows, bool kKeep = true>
 __device__ __forceinline__ void split_terms(uint8_t* tile, uint8_t* small,
                                             uint8_t* tb, int term, int cw,
                                             int lane) {
@@ -496,13 +552,15 @@ __device__ __forceinline__ void split_terms(uint8_t* tile, uint8_t* small,
     const int row = i / 8 % kRows;
     const int col = 32 * (i / (8 * kRows)) + 4 * ((i & 7) ^ (row & 7));
     const float4 x = *reinterpret_cast<const float4*>(tile + 16 * i);
-    float4 b, s;
-    split_tf32(x.x, b.x, s.x);
-    split_tf32(x.y, b.y, s.y);
-    split_tf32(x.z, b.z, s.z);
-    split_tf32(x.w, b.w, s.w);
-    *reinterpret_cast<float4*>(tile + 16 * i) = b;
-    *reinterpret_cast<float4*>(small + 16 * i) = s;
+    if constexpr (kKeep) {
+      float4 b, s;
+      split_tf32(x.x, b.x, s.x);
+      split_tf32(x.y, b.y, s.y);
+      split_tf32(x.z, b.z, s.z);
+      split_tf32(x.w, b.w, s.w);
+      *reinterpret_cast<float4*>(tile + 16 * i) = b;
+      *reinterpret_cast<float4*>(small + 16 * i) = s;
+    }
     const int cc = col % A::kCols;
     const int swz = A::kSwizzle == 1 ? row & 7 : (row >> 1) & 3;
     const int off = (col / A::kCols * kRows + row) * A::kRowBytes +

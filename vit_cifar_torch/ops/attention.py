@@ -35,31 +35,30 @@ from torch import nn
 from ..parallel.collectives import (Axis, copy_to, gather_from,
                                     gather_summed, scatter_to)
 from .common import dropout
-from .cuda.attention import fused_attention, whole_head_fits
-from .cuda.common import COL_CHUNK
+from .cuda.attention import fused_attention
+from .cuda.common import whole_head_holds
 from .cuda.flash_attention import flash_attention
 from .init import Linear
 
 
-def route(T: int, D: int, pallas_kernel: str | None) -> str:
-    """The attention path at sequence length T and head_dim D: "einsum"
-    (plain PyTorch), "fused" (the whole-head forward, ``fused_attention``,
-    whose backward is the tiled pair) or "flash" (the tiled kernels,
-    ``flash_attention``).
+def route(T: int, D: int, pallas_kernel: str | None, *,
+          dtype: torch.dtype = torch.float32) -> str:
+    """The attention path at sequence length T and head_dim D in ``dtype``
+    (the module's compute dtype): "einsum" (plain PyTorch), "fused" (the
+    whole-head forward, ``fused_attention``, whose backward is the tiled
+    pair) or "flash" (the tiled kernels, ``flash_attention``).
 
     ``"einsum"``, ``"fused"`` and ``"flash"`` are taken as asked, at any
-    (T, D).  The default (``""`` or None) takes the whole-head forward where
-    its f32 layout's shared memory holds an un-split head (head_dim up to
-    ``COL_CHUNK``: T <= 792 at head_dim 32, 215 at 128), and the tiled
-    kernels everywhere else.  ``"fused"`` runs the whole-head forward at
-    any (T, D), as JAX's ``fused_attention`` does: in bf16 past the head
-    its registers hold (T > 128 at head_dim 32) it runs the tiled forward's
-    main loop, and in f32 past its shared memory (past the limit above, or
-    T > 279 at head_dim 192, 213 at 256, 142 at 384) its block walks K and
-    V in key tiles."""
+    (T, D).  The default (``""`` or None) takes the whole-head forward
+    where one of its whole-head instances in ``dtype`` holds the head as its
+    one key tile (``whole_head_holds``: round_up(T, 8) keys up to 128 at
+    head_dim 32, 96 at 64 and 64 at 128 in bf16; up to 72 at 32, 64 at 64
+    and 32 at 128 in f32), and the tiled kernels everywhere else.  Past
+    those heads ``"fused"`` runs the same kernel's tiled work items, as
+    JAX's ``fused_attention`` runs at any (T, D)."""
     if pallas_kernel in ("einsum", "fused", "flash"):
         return pallas_kernel
-    return "fused" if whole_head_fits(T, D) and D <= COL_CHUNK else "flash"
+    return "fused" if whole_head_holds(T, D, dtype) else "flash"
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -111,7 +110,7 @@ class MultiHeadSelfAttention(nn.Module):
 
         masked = self.valid_len is not None and self.valid_len < Tk
         path = "einsum" if self.save_attn_map or masked or Tk != T else \
-            route(T, hd, self.pallas_kernel)
+            route(T, hd, self.pallas_kernel, dtype=q.dtype)
         if path == "einsum":
             # (B,H,T,Tk) logits in the compute dtype, divided by sqrt(F) as
             # the JAX einsum path does

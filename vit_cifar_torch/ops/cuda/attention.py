@@ -28,13 +28,16 @@ hi + lo so that p.v keeps f32 accuracy; heads past 256 columns, up to
 512, on the same kernel in chunks of o of 192 or 256 columns, a work item
 each, s summed over the whole head; past 512 columns its streamed
 instance, which sums s over 64-column chunks of q and K that come through
-the ring, at any width.  A view TMA cannot read (``tma_plan``) is
-copied into a padded buffer first.  f32 runs on the CUDA cores in full
-f32 (one TF32 product would miss the f32 limit of 1e-5, and the forward
-has not taken the backward pair's split products): the whole head
-in shared memory where it fits
-(``whole_head_fits``), else K and V walked in tiles of 64 keys, at any
-(T, D), as ``_mhsa_kernel`` runs.
+the ring, at any width.  f32 up to 128 columns runs the same grids on
+TF32 wgmma (``csrc/wgmma_forward_tf32.cuh``): q and each key tile split
+into TF32 big + small, s = q.k^T as three TF32 products, p.V on V's three
+bf16 terms (six bf16 products with the transpose bit) or its TF32
+transpose, each key tile's part of o added into it in f32, so that it keeps
+the f32 limit of 1e-5; the whole head as one key tile up to T=72 at
+head_dim 32 (64 at 64, 32 at 128), the tiled items beyond.  Past 128
+columns f32 runs on the CUDA cores, K and V walked in tiles of 64 keys
+(a dispatch by width).  A view TMA cannot read (``tma_plan``) is copied
+into a padded buffer first.
 
 =======================  ===================  ===============================
 wrapper                  kernel               plain version
@@ -49,44 +52,8 @@ from __future__ import annotations
 import torch
 
 from . import registry
-from .common import (COL_CHUNK, MAX_SMEM_BYTES, check_device, launch_forward,
-                     plain_impl)
+from .common import check_device, launch_forward, plain_impl
 from .flash_attention import AttentionFunction
-
-# bytes of one block's shared memory in the f32 tile that walks K and V of a
-# head wider than COL_CHUNK (``fwd_f32_chunk_smem_bytes``): the query rows',
-# the keys' and the values' column chunks and a row of p for each of 8 warps
-F32_CHUNK_SMEM_BYTES = 4 * (64 * COL_CHUNK + 64 * (COL_CHUNK + 1)
-                             + 64 * COL_CHUNK + 8 * 64)
-
-
-def _stride_elems(width: int) -> int:
-    """A staged bf16 row of ``width`` columns: an odd number of 16-byte
-    chunks (``stride_elems`` in ``csrc/attention_common.cuh``)."""
-    return 8 * (((width + 7) // 8) | 1)
-
-
-def whole_head_smem_bytes(T: int, D: int) -> int:
-    """The router's threshold at (T, D) in bytes: the formula of
-    ``mhsa_fwd_smem_bytes``, which the card tests hold equal to the
-    library's.  Up to COL_CHUNK columns the f32 whole-head layout of K and
-    V (8 warps); past it the larger of an earlier bf16 design's layout,
-    K and V of T rows by column chunk, and the f32 tile's, kept so that
-    the same shapes take the same kernel.  It takes no dtype."""
-    if D <= COL_CHUNK:
-        return 4 * (T * (D + 1) + T * D + 8 * D + 8 * T)
-    chunks = -(-D // COL_CHUNK)
-    row = ((chunks - 1) * _stride_elems(COL_CHUNK)
-           + _stride_elems(D - (chunks - 1) * COL_CHUNK))
-    return max(2 * (8 + 2 * T * row), F32_CHUNK_SMEM_BYTES)
-
-
-def whole_head_fits(T: int, D: int) -> bool:
-    """Whether the whole-head forward can hold a head of (T, D) in a
-    block's shared memory; the backward is the tiled pair's, which runs at
-    any (T, D)."""
-    return whole_head_smem_bytes(T, D) <= MAX_SMEM_BYTES
-
 
 # --------------------------------------------------------------------------
 # plain versions
@@ -140,8 +107,9 @@ def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float):
     """Training forward: (B, H, T, D)^3 -> (out (B, T, H, D), lse (B, H, T)
     f32), the operator ``vit_cifar_torch::mhsa_fwd_lse``.  Launches counted
-    in ``fused_attention_lse.launches``.  bf16 runs on the tensor cores, f32
-    on the CUDA cores (a dispatch by dtype; see above)."""
+    in ``fused_attention_lse.launches``.  Both dtypes run on the tensor
+    cores, f32 up to 128 columns on TF32 with split products (see
+    above)."""
     check_device(q)
     return registry.OPS.mhsa_fwd_lse(q, k, v, scale)
 
@@ -165,8 +133,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Where a gradient is needed: :class:`FusedAttentionFunction`.  Otherwise
     the operator ``vit_cifar_torch::mhsa_fwd``: the plain version for CPU
     tensors, the inference kernel for CUDA tensors, its launches counted in
-    ``fused_attention.launches`` (bf16 on the tensor cores, f32 on the CUDA
-    cores, a dispatch by dtype).
+    ``fused_attention.launches`` (on the tensor cores; f32 past 128 columns
+    on the CUDA cores).
     """
     check_device(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -93,6 +93,30 @@ def streamed_row(D: int) -> tuple[int, int]:
                 STREAMED[max(STREAMED)])
 
 
+def _f32_forward_tiles() -> tuple[dict, dict]:
+    """The f32 forward's instances on TF32 wgmma
+    (``csrc/forward_tiles.cuh``'s ``FWD_F32`` and ``WHOLE_F32`` rows, which
+    the CUDA dispatch expands): by padded head width, ascending, the tiled
+    grid's (key tile, columns of o a consumer holds, whether p.V takes V's
+    three bf16 terms); and mhsa_fwd's whole-head key tiles by width,
+    ascending."""
+    from .build import CSRC_DIR
+
+    text = (CSRC_DIR / "forward_tiles.cuh").read_text()
+    rows = {int(w): (int(n), int(c), x == "1") for w, n, c, x in sorted(
+        re.findall(r"^FWD_F32\((\d+), (\d+), (\d+), ([01])\)$", text, re.M),
+        key=lambda row: int(row[0]))}
+    whole = {}
+    for w, n in re.findall(r"^WHOLE_F32\((\d+), (\d+)\)$", text, re.M):
+        whole.setdefault(int(w), []).append(int(n))
+    return rows, whole
+
+
+FWD_F32_TILES, WHOLE_F32_KEYS = _f32_forward_tiles()
+# the widest f32 forward row on TF32 wgmma; past it the CUDA-core tile
+WIDEST_F32_FORWARD = max(FWD_F32_TILES)
+
+
 def _backward_tiles() -> tuple[dict, dict, dict, dict, dict, dict]:
     """The wgmma backward pair's table of instances
     (``csrc/backward_tiles.cuh``, which the CUDA dispatch expands): by
@@ -219,6 +243,52 @@ def forward_plan(name: str, T: int, D: int) -> dict:
             "items": -(-T // QUERY_TILE) * chunks}
 
 
+def f32_forward_plan(name: str, T: int, D: int) -> dict | None:
+    """How the f32 forward ``name`` (``mhsa_fwd`` or ``flash_fwd``) tiles a
+    (T, D) head on TF32 wgmma, from the table's ``FWD_F32`` and
+    ``WHOLE_F32`` rows (``_f32_forward_tiles``): the instance's width (the
+    first row of width >= D), the grid ("whole": mhsa_fwd's whole head as
+    one key tile, the first of its width's whole-head tiles that holds
+    round_up(T, 8) keys; else "tiled"), its key tile and key tiles a head,
+    the columns of o a consumer holds and whether the consumers split the
+    width ("split": a work item 64 query rows, both consumers on them; else
+    128 rows, 64 a consumer), the route of p.V ("bf16x3": V's three bf16
+    terms; else its TF32 transpose) and p.V's depth (the key tile, rounded
+    up to 16 for the bf16 terms' k16 steps: the rows of V's box), the
+    swizzle and columns of an f32 atom (128-byte rows of 32 columns), the
+    rows of the q, k and v boxes, and the work items a head.  None past
+    ``WIDEST_F32_FORWARD``, where the CUDA-core column-chunk tile runs."""
+    if D > WIDEST_F32_FORWARD:
+        return None
+    width = min(w for w in FWD_F32_TILES if w >= D)
+    keys, cols, bf16x3 = FWD_F32_TILES[width]
+    whole = None
+    if name == "mhsa_fwd":
+        n = -(-T // 8) * 8
+        whole = min((w for w in WHOLE_F32_KEYS.get(width, ()) if w >= n),
+                    default=None)
+    keys = whole or keys
+    split = cols < width
+    rows = 64 if split else QUERY_TILE
+    depth = -(-keys // 16) * 16 if bf16x3 else keys
+    return {"width": width, "grid": "whole" if whole else "tiled",
+            "keys": keys, "key_tiles": -(-T // keys), "cols": cols,
+            "split": split, "bf16x3": bf16x3, "depth": depth,
+            "swizzle": 128, "atom_cols": 32,
+            "rows": {"q": rows, "k": keys, "v": depth},
+            "items": -(-T // rows)}
+
+
+def whole_head_holds(T: int, D: int, dtype: torch.dtype) -> bool:
+    """Whether a whole-head instance of mhsa_fwd in ``dtype`` holds a (T,
+    D) head as its one key tile (a ``WHOLE`` row in bf16, a ``WHOLE_F32``
+    row in f32): the router's default rule (``ops/attention.py::route``)."""
+    if dtype == torch.bfloat16:
+        return forward_plan("mhsa_fwd", T, D)["grid"] == "whole"
+    plan = f32_forward_plan("mhsa_fwd", T, D)
+    return plan is not None and plan["grid"] == "whole"
+
+
 def tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
     """t's (b, h, t) strides in elements as a tensor map over (D, H, T, B)
     takes them: a dimension of size 1 is addressed only at 0, so its
@@ -240,23 +310,31 @@ def tma_reads_in_place(t: torch.Tensor) -> bool:
 
 def tma_plan(name: str, q: torch.Tensor, k: torch.Tensor,
              v: torch.Tensor) -> dict:
-    """The tensor maps the bf16 forward ``name`` encodes over (D, H, T, B)
-    for each of q, k, v ((B, H, T, D) views): extents, strides in bytes,
-    box and swizzle (``forward_plan``), and the views TMA cannot read in
-    place -- a base not 16-byte aligned, a d stride other than 1, or a b,
-    h or t stride that is not a multiple of 8 elements (16 bytes), which
-    every layout of a head of D % 8 != 0 columns whose rows follow each
-    other has.  Those go through ``padded_copy``."""
+    """The tensor maps the forward ``name`` encodes over (D, H, T, B) for
+    each of q, k, v ((B, H, T, D) views): extents, strides in bytes, box
+    and swizzle (bf16: ``forward_plan``; f32: ``f32_forward_plan``), and
+    the views TMA cannot read in place -- a base not 16-byte aligned, a d
+    stride other than 1, or a b, h or t stride that is not a multiple of 16
+    bytes (8 bf16 or 4 f32 elements), which every layout of a head of D %
+    8 != 0 (bf16) or D % 4 != 0 (f32) columns whose rows follow each other
+    has.  Those go through ``padded_copy``.  Past ``WIDEST_F32_FORWARD``
+    an f32 forward runs on the CUDA cores: no maps ("plan" None), and only
+    a d stride other than 1 is copied."""
     B, H, T, D = q.shape
-    plan = forward_plan(name, T, D)
+    f32 = q.dtype == torch.float32
+    plan = f32_forward_plan(name, T, D) if f32 else forward_plan(name, T, D)
     out = {"plan": plan, "maps": {}, "copies": []}
+    size = q.element_size()
     for key, t in zip("qkv", (q, k, v)):
-        if not tma_reads_in_place(t):
+        if not (tma_reads_in_place(t) if plan else t.stride(-1) == 1):
             out["copies"].append(key)
             t = padded_copy(t, meta=True)
+        if plan is None:
+            continue
         sb, sh, st = tma_strides(t)
         out["maps"][key] = {
-            "extents": (D, H, T, B), "strides": (2 * sh, 2 * st, 2 * sb),
+            "extents": (D, H, T, B),
+            "strides": (size * sh, size * st, size * sb),
             "box": (plan["atom_cols"], 1, plan["rows"][key], 1),
             "swizzle": plan["swizzle"]}
     return out
@@ -280,11 +358,13 @@ def padded_copy(t: torch.Tensor, meta: bool = False) -> torch.Tensor:
 def readable(*views, tma: bool | None = None):
     """(B, H, T, D) views as a kernel reads them: each in place where its
     layout allows, else its ``padded_copy``.  The wgmma kernels (``tma``;
-    by default the bf16 ones) read them through tensor maps
+    by default the forwards' bf16 instances, and their f32 ones up to
+    ``WIDEST_F32_FORWARD`` columns) read them through tensor maps
     (``tma_reads_in_place``, as ``tma_plan`` reports for the forwards); the
     CUDA-core f32 instances take any strides with d's 1."""
     if tma is None:
-        tma = views[0].dtype == torch.bfloat16
+        tma = (views[0].dtype == torch.bfloat16
+               or views[0].shape[-1] <= WIDEST_F32_FORWARD)
     return tuple(t if (tma_reads_in_place(t) if tma else t.stride(-1) == 1)
                  else padded_copy(t) for t in views)
 

@@ -45,13 +45,15 @@ launches in ``<wrapper>.launches``.
 Every kernel dispatches by dtype: bf16 runs on the tensor cores (wgmma
 up to the widths above; p, and in the backward ds, split into bf16 hi +
 lo so that the product that follows keeps f32 accuracy).  In f32 the
-backward pair up to ``WIDEST_F32_BACKWARD`` (128) columns runs the same
-kernels' design on TF32 wgmma (``csrc/wgmma_tf32.cuh``): one TF32
-product would miss the f32 limit of 1e-5, so s and dp take operands
-split into TF32 big + small, three TF32 products each (big.big +
-big.small + small.big), and the gradient products three bf16 terms of
-each operand, six bf16 products; past 128 columns, and the f32
-forwards, on the CUDA cores in full f32.  Every kernel reads its inputs through their
+forward up to ``WIDEST_F32_FORWARD`` and the backward pair up to
+``WIDEST_F32_BACKWARD`` (both 128) columns run the same kernels' design
+on TF32 wgmma (``csrc/wgmma_forward_tf32.cuh``, ``csrc/wgmma_tf32.cuh``):
+one TF32 product would miss the f32 limit of 1e-5, so the sums over D (s,
+dp) take operands split into TF32 big + small, three TF32 products each
+(big.big + big.small + small.big), and the sums over keys or queries (p.V
+and the gradient products) three bf16 terms of each operand, six bf16
+products, or the tile's TF32 transpose, by the table's row; past 128
+columns on the CUDA cores in full f32.  Every kernel reads its inputs through their
 strides (``common.launch_forward``, ``common.launch_backward``: only a
 layout a tensor map cannot read, D % 8 != 0 in bf16, D % 4 != 0 in f32,
 takes one padded copy), and
@@ -210,7 +212,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Training forward: (B, H, T, D)^3 -> (out (B, T, H, D), lse (B, H, T)
     f32), the operator ``vit_cifar_torch::flash_fwd_lse``.  Launches
     counted in ``flash_attention_lse.launches``.  bf16 runs on the tensor
-    cores, f32 on the CUDA cores (a dispatch by dtype; see above)."""
+    cores, f32 on TF32 wgmma up to 128 columns and on the CUDA cores past
+    them (a dispatch by dtype and width; see above)."""
     check_device(q)
     return registry.OPS.flash_fwd_lse(q, k, v, scale)
 
@@ -280,8 +283,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Where a gradient is needed: :class:`FlashAttentionFunction`.  Otherwise
     the operator ``vit_cifar_torch::flash_fwd``: the plain version for CPU
     tensors, the inference kernel for CUDA tensors, its launches counted in
-    ``flash_attention.launches`` (bf16 on the tensor cores, f32 on the CUDA
-    cores, a dispatch by dtype).
+    ``flash_attention.launches`` (on the tensor cores; f32 past 128 columns
+    on the CUDA cores).
     """
     check_device(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
