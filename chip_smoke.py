@@ -97,7 +97,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
    losses, eval over 4 padded batches of 256, the step time, img/s, the
    device's busy share and its top ops (torch.profiler over 5 steps).
 7. Wide-head phase: the README recipe's width in 2 heads at ``patch=2``
-   (T=257, head_dim 192), 2 layers, ``pallas_kernel="fused"``: one
+   (2 x 2 patches a side: T=5, head_dim 192), 2 layers,
+   ``pallas_kernel="fused"``: one
    training step's loss and gradients against the plain-attention model,
    then served logits at B=8 against it with 2 launches of the whole-head
    forward a batch, and 3 steps with the forward with lse and the tiled
@@ -404,11 +405,15 @@ ROUTE_T = (65, 257, 685)
 # cells (128, 8, 512, 128) and (16, 2, 2048, 128), and the same at 192, 256
 HEAD_DIM_SHAPES = [(128, 8, 512, D) for D in (128, 192, 256)] + [
     (16, 2, 2048, D) for D in (128, 192, 256)]
-# the wide-head phase: hidden 384 in 2 heads at patch 2 (T=257, head_dim
-# 192), 2 layers, through the whole-head forward
+# the wide-head phase: hidden 384 in 2 heads at patch 2 (``patch`` counts
+# patches a side: T=5, head_dim 192), 2 layers, through the whole-head
+# forward
 WIDE_LAYERS = 2
 WIDE_BATCH = 8
 WIDE_STEPS = 3
+# the wide-head model in f32 (the streamed pair's path): 16 patches a side,
+# T=257, so that the pair walks several key and query tiles
+WIDE_F32_PATCH = 16
 # the full-recipe phase: 2 epochs (the resumed run trains the second)
 RECIPE_EPOCHS = 2
 AA_BATCH = 128
@@ -629,34 +634,69 @@ F32_ROWS = {"mhsa_fwd_lse_f32": "mhsa_fwd_lse",
             "flash_bwd_dq_tiled_f32": "flash_bwd_dq_tiled",
             "flash_bwd_dkv_tiled_f32": "flash_bwd_dkv_tiled",
             "mhsa_fwd_f32": "mhsa_fwd",
-            "flash_fwd_f32": "flash_fwd"}
+            "flash_fwd_f32": "flash_fwd",
+            "flash_fwd_lse_f32_wide": "flash_fwd_lse",
+            "flash_fwd_f32_wide": "flash_fwd",
+            "flash_bwd_dq_tiled_f32_streamed": "flash_bwd_dq_tiled",
+            "flash_bwd_dkv_tiled_f32_streamed": "flash_bwd_dkv_tiled"}
+# the f32 rows past 128 columns, whose launches the wide-head f32 path
+# counts: the tiled forwards on the CUDA cores (the column-chunk tile) and
+# the streamed TF32 pair (DQ_F32_STREAMED, DKV_F32_STREAMED), timed at
+# F32_WIDE_SHAPE and held against their plain versions there and at
+# F32_WIDE_CHECK_SHAPES: the wide-head model's head at B=8, and 520 and
+# 704 columns (17 and 22 chunks of the sums over D)
+F32_WIDE_SHAPE = (128, 8, 512, 256)
+F32_WIDE_CHECK_SHAPES = ((8, 2, 257, 192), (2, 2, 130, 520),
+                         (2, 3, 65, 704))
+F32_WIDE_ROWS = ("flash_fwd_lse_f32_wide", "flash_fwd_f32_wide",
+                 "flash_bwd_dq_tiled_f32_streamed",
+                 "flash_bwd_dkv_tiled_f32_streamed")
 F32_MAIN_SHAPE = {"mhsa_fwd_lse_f32": (128, 12, 65, 32),
                   "flash_fwd_lse_f32": PIXEL_SHAPE,
                   "flash_bwd_dq_tiled_f32": PIXEL_SHAPE,
                   "flash_bwd_dkv_tiled_f32": PIXEL_SHAPE,
                   "mhsa_fwd_f32": (128, 12, 65, 32),
-                  "flash_fwd_f32": PIXEL_SHAPE}
+                  "flash_fwd_f32": PIXEL_SHAPE,
+                  **dict.fromkeys(F32_WIDE_ROWS, F32_WIDE_SHAPE)}
 F32_FWD_DESIGN = ("TF32 wgmma, split products (s: three TF32; p.V: six "
                   "bf16 of three-term splits, each key tile's part added "
-                  "in f32); CUDA cores past 128 columns")
+                  "in f32); CUDA cores past 128 columns (their own row)")
+F32_WIDE_FWD_DESIGN = ("CUDA cores in full f32, past 128 columns: one "
+                       "block of 8 warps a 64-row query tile and 128-column "
+                       "chunk of o, s summed over every chunk")
+F32_STREAMED_DESIGN = ("TF32 wgmma past 128 columns, streamed through the "
+                       "TMA ring: s, dp summed over 32-column chunks that "
+                       "the converter warps split (three TF32 products a "
+                       "chunk, added in f32), the gradients' B at the "
+                       "item's columns through a second ring (six bf16)")
 F32_DESIGN = {
     "mhsa_fwd_lse_f32": F32_FWD_DESIGN + "; the whole head as one key tile",
     "flash_fwd_lse_f32": F32_FWD_DESIGN,
     "mhsa_fwd_f32": F32_FWD_DESIGN + "; the whole head as one key tile",
     "flash_fwd_f32": F32_FWD_DESIGN,
     "flash_bwd_dq_tiled_f32": "TF32 wgmma, split products (s, dp: three "
-                              "TF32; the gradients': six bf16); CUDA "
-                              "cores past 128 columns",
+                              "TF32; the gradients': six bf16); streamed "
+                              "past 128 columns (its own row)",
     "flash_bwd_dkv_tiled_f32": "TF32 wgmma, split products (s, dp: three "
                                "TF32; the gradients': six bf16, TF32 "
-                               "transposes at 128 columns); CUDA cores "
-                               "past 128 columns"}
+                               "transposes at 128 columns); streamed past "
+                               "128 columns (its own row)",
+    "flash_fwd_lse_f32_wide": F32_WIDE_FWD_DESIGN,
+    "flash_fwd_f32_wide": F32_WIDE_FWD_DESIGN,
+    "flash_bwd_dq_tiled_f32_streamed": F32_STREAMED_DESIGN,
+    "flash_bwd_dkv_tiled_f32_streamed": F32_STREAMED_DESIGN}
 F32_INSTANCE_KINDS = {"mhsa_fwd_lse_f32": ("fwd_split_kernel",),
                       "flash_fwd_lse_f32": ("fwd_split_kernel",),
                       "mhsa_fwd_f32": ("fwd_split_kernel",),
                       "flash_fwd_f32": ("fwd_split_kernel",),
                       "flash_bwd_dq_tiled_f32": ("dq_split_kernel",),
-                      "flash_bwd_dkv_tiled_f32": ("dkv_split_kernel",)}
+                      "flash_bwd_dkv_tiled_f32": ("dkv_split_kernel",),
+                      "flash_fwd_lse_f32_wide": ("flash_fwd_chunk_kernel",),
+                      "flash_fwd_f32_wide": ("flash_fwd_chunk_kernel",),
+                      "flash_bwd_dq_tiled_f32_streamed": (
+                          "dq_split_stream_kernel",),
+                      "flash_bwd_dkv_tiled_f32_streamed": (
+                          "dkv_split_stream_kernel",)}
 # an f32-accurate product on the tensor cores: three TF32 products
 TF32_FLOP_PER_S = 495e12
 F32_SPLIT_FLOP_PER_S = TF32_FLOP_PER_S / 3
@@ -751,7 +791,10 @@ def build_kernels() -> None:
                 m = re.search(r"([a-z_]+_kernel)I(\w+?)EE", entry.group(1))
                 args = m and (re.findall(r"L[ib](\d+)E", m.group(2) + "E")
                               or [m.group(2)])
+                # a kernel that is no template by its own name
+                plain = re.search(r"([a-z_]+_kernel)E", entry.group(1))
                 instance = (f"{m.group(1)}<{','.join(args)}>" if m
+                            else plain.group(1) if plain
                             else entry.group(1))
             elif "spill" in line:
                 spills = line.strip()
@@ -759,7 +802,7 @@ def build_kernels() -> None:
                 regs = line.split(":", 1)[1].strip()
                 report[instance] = f"{regs.split(',')[0]}; {spills}"
                 print(f"    ptxas: {instance}: {regs}; {spills}")
-                if "_split_kernel" in instance and \
+                if "_split_" in instance and \
                         "0 bytes spill stores" not in spills:
                     raise AssertionError(f"{name}: the f32 instance "
                                          f"{instance} spills: {spills}")
@@ -1183,11 +1226,13 @@ def plain_twin(cfg: Config, model):
     return plain
 
 
-def check_step(cfg: Config, model, plain, img, label, what: str) -> None:
+def check_step(cfg: Config, model, plain, img, label, what: str,
+               loss_atol: float = STEP_LOSS_ATOL,
+               rel_l2: float = STEP_GRAD_REL_L2) -> None:
     """One step's loss and flat gradient on (img, label), the kernel path
-    against the plain-attention path, within the step bounds.  Run it
-    before a path's launch counts are set to 0: its launches are not the
-    path's."""
+    against the plain-attention path, within the step bounds (by default
+    bf16-mixed's).  Run it before a path's launch counts are set to 0: its
+    launches are not the path's."""
     criterion = make_criterion(cfg)
 
     def loss_and_grad(m):
@@ -1198,10 +1243,10 @@ def check_step(cfg: Config, model, plain, img, label, what: str) -> None:
     loss_k, grad_k = loss_and_grad(model)
     loss_p, grad_p = loss_and_grad(plain)
     rel = ((grad_k - grad_p).norm() / grad_p.norm()).item()
-    print(f"{what}, kernel vs einsum path: loss {loss_k:.6f} vs {loss_p:.6f} "
-          f"(|diff| {abs(loss_k - loss_p):.3e}, bound {STEP_LOSS_ATOL}); "
-          f"gradient relative L2 {rel:.3e} (bound {STEP_GRAD_REL_L2})")
-    if not (abs(loss_k - loss_p) <= STEP_LOSS_ATOL and rel <= STEP_GRAD_REL_L2):
+    print(f"{what}, kernel vs einsum path: loss {loss_k:.7f} vs {loss_p:.7f} "
+          f"(|diff| {abs(loss_k - loss_p):.3e}, bound {loss_atol}); "
+          f"gradient relative L2 {rel:.3e} (bound {rel_l2})")
+    if not (abs(loss_k - loss_p) <= loss_atol and rel <= rel_l2):
         raise AssertionError(f"{what}: kernel path and einsum path disagree")
 
 
@@ -2080,6 +2125,9 @@ def f32_ptxas(name: str, shape) -> str:
                                                  f32_forward_plan)
 
     lib = SOURCES[F32_ROWS[name]]
+    if name in ("flash_fwd_lse_f32_wide", "flash_fwd_f32_wide"):
+        instance = "flash_fwd_chunk_kernel"
+        return f"{instance}: {PTXAS[lib][instance]}"
     if "fwd" in name:
         plan = f32_forward_plan(lib, *shape[2:])
         instance = (f"fwd_split_kernel<{plan['width']},{plan['keys']},"
@@ -2088,9 +2136,11 @@ def f32_ptxas(name: str, shape) -> str:
         return f"{instance}: {PTXAS[lib][instance]}"
     plan = f32_backward_plan(*shape[2:])
     kind = "dq" if "dq" in name else "dkv"
-    route = f",{int(plan[kind]['bf16x3'])}"
-    instance = (f"{kind}_split_kernel<{plan['width']},{plan[kind]['tile']},"
-                f"{plan[kind]['cols']}{route}>")
+    cut = plan[kind]
+    instance = (f"{kind}_split_stream_kernel<{cut['tile']},{cut['cols']},"
+                f"{int(cut['bf16x3'])}>" if cut["streamed"] else
+                f"{kind}_split_kernel<{plan['width']},{cut['tile']},"
+                f"{cut['cols']},{int(cut['bf16x3'])}>")
     return f"{instance}: {PTXAS[lib][instance]}"
 
 
@@ -2124,18 +2174,60 @@ def library_f32(shape, q, k, v, g, scale: float, want) -> dict:
             "errs": errs, "meets": meets}
 
 
+def f32_wide_checks() -> None:
+    """The f32 instances past 128 columns (the tiled forwards' CUDA-core
+    column-chunk tile and the streamed TF32 pair) on the model's views at
+    ``F32_WIDE_CHECK_SHAPES``: both forwards and the pair against their
+    plain versions within the f32 limits, and two calls of each bit for
+    bit."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for shape in F32_WIDE_CHECK_SHAPES:
+        B, H, T, D = shape
+        scale = 1.0 / math.sqrt(H * D)
+        q, k, v = model_views(shape, gen, torch.float32)
+        g = torch.randn((B, T, H, D), generator=gen, device="cuda")
+        calls = lambda: (  # noqa: E731
+            flash_attention(q, k, v, scale),
+            *flash_attention_lse(q, k, v, scale))
+        infer, out, lse = calls()
+        args = (q, k, v, out, g, lse, scale)
+        pair = lambda: (flash_tiled_bwd_dq(*args),  # noqa: E731
+                        *flash_tiled_bwd_dkv(*args))
+        first, second, again = pair(), pair(), calls()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in
+                   zip((*first, infer, out, lse), (*second, *again))):
+            raise AssertionError(f"f32 {shape}: two calls differ")
+        want_out, want_lse = flash_attention_lse_reference(q, k, v, scale)
+        want = (flash_tiled_bwd_dq_reference(*args),
+                *flash_tiled_bwd_dkv_reference(*args))
+        for a, w in ((infer, want_out), (out, want_out), (lse, want_lse)):
+            torch.testing.assert_close(a, w, **KERNEL_TOL[torch.float32])
+        for a, w in zip(first, want):
+            torch.testing.assert_close(a, w, **BWD_TOL[torch.float32])
+        fwd_err = _max_err((infer, out, lse), (want_out, want_out, want_lse))
+        print(f"f32 past 128 columns {shape} on the model's views: forwards "
+              f"max_abs_err {fwd_err:.3e}, streamed pair (dq, dk, dv) "
+              + ", ".join(f"{_max_err((a,), (w,)):.3e}"
+                          for a, w in zip(first, want))
+              + "; two calls equal bit for bit")
+        del q, k, v, g, infer, out, lse, args, first, second, again, want
+
+
 def f32_kernel_phase(card: str) -> list[dict]:
     """The f32 instances (``--precision 32``) on the model's views at their
     main shapes (``F32_MAIN_SHAPE``; the pair also at the flagship's
-    (128, 12, 65, 32)): each against its plain version (max error within
-    the f32 limits), two calls of each bit for bit, then each kernel and
-    its plain version in turns, and the library's f32 call beside it with
-    that call's own error against the plain version (named where it misses
-    the f32 limit), each beside its f32 bound; device ms at T=65.  Returns
-    the kernels line's f32 rows."""
+    (128, 12, 65, 32); past 128 columns ``F32_WIDE_SHAPE``, the streamed
+    pair and the CUDA-core forwards, rows of their own): each against its
+    plain version (max error within the f32 limits), two calls of each bit
+    for bit, then each kernel and its plain version in turns, and the
+    library's f32 call beside it with that call's own error against the
+    plain version (named where it misses the f32 limit), each beside its
+    f32 bound; device ms at T=65.  Returns the kernels line's f32 rows."""
+    f32_wide_checks()
     gen = torch.Generator(device="cuda").manual_seed(19)
     rows = []
-    for shape in (PIXEL_SHAPE, (128, 12, 65, 32)):
+    for shape in (PIXEL_SHAPE, (128, 12, 65, 32), F32_WIDE_SHAPE):
         B, H, T, D = shape
         scale = 1.0 / math.sqrt(H * D)
         q, k, v = model_views(shape, gen, torch.float32)
@@ -2166,11 +2258,16 @@ def f32_kernel_phase(card: str) -> list[dict]:
         for a, w in zip(first, want):
             torch.testing.assert_close(a, w, **BWD_TOL[torch.float32])
         kind = "mhsa" if T <= 65 else "flash"
-        errs = {f"{kind}_fwd_lse_f32": _max_err((out, lse),
-                                                (want_out, want_lse)),
-                f"{kind}_fwd_f32": _max_err((infer,), (want_out,)),
-                "flash_bwd_dq_tiled_f32": _max_err(first[:1], want[:1]),
-                "flash_bwd_dkv_tiled_f32": _max_err(first[1:], want[1:])}
+        # the row names: past 128 columns the rows of their own
+        fwd_tail, bwd_tail = ("_wide", "_streamed") if D > 128 else ("", "")
+        names = {"fwd_lse": f"{kind}_fwd_lse_f32{fwd_tail}",
+                 "fwd": f"{kind}_fwd_f32{fwd_tail}",
+                 "dq": f"flash_bwd_dq_tiled_f32{bwd_tail}",
+                 "dkv": f"flash_bwd_dkv_tiled_f32{bwd_tail}"}
+        errs = {names["fwd_lse"]: _max_err((out, lse), (want_out, want_lse)),
+                names["fwd"]: _max_err((infer,), (want_out,)),
+                names["dq"]: _max_err(first[:1], want[:1]),
+                names["dkv"]: _max_err(first[1:], want[1:])}
         lib = library_f32(shape, q, k, v, g, scale,
                           (want_out, want_lse, *want))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -2181,15 +2278,15 @@ def f32_kernel_phase(card: str) -> list[dict]:
                                     **KERNEL_TOL[torch.float32])
         del sdpa_out
         del first, second, again
-        fns = {f"{kind}_fwd_lse_f32": (lambda: fwd_lse(q, k, v, scale),
-                                       lambda: plain_lse(q, k, v, scale),
-                                       lib["fwd_lse"]),
-               f"{kind}_fwd_f32": (lambda: fwd(q, k, v, scale),
-                                   lambda: plain_fwd(q, k, v, scale), sdpa),
-               "flash_bwd_dq_tiled_f32": (
+        fns = {names["fwd_lse"]: (lambda: fwd_lse(q, k, v, scale),
+                                  lambda: plain_lse(q, k, v, scale),
+                                  lib["fwd_lse"]),
+               names["fwd"]: (lambda: fwd(q, k, v, scale),
+                              lambda: plain_fwd(q, k, v, scale), sdpa),
+               names["dq"]: (
                    lambda: flash_tiled_bwd_dq(*args),
                    lambda: flash_tiled_bwd_dq_reference(*args), None),
-               "flash_bwd_dkv_tiled_f32": (
+               names["dkv"]: (
                    lambda: flash_tiled_bwd_dkv(*args),
                    lambda: flash_tiled_bwd_dkv_reference(*args), None),
                "pair": (pair, lambda: (
@@ -2210,9 +2307,8 @@ def f32_kernel_phase(card: str) -> list[dict]:
                 if library is not None:
                     how += f", library {ms_text(device_ms(library)[0])}"
             if name == "pair":
-                b = {n: bound(n, shape, torch.float32)["bound_ms"]
-                     for n in ("flash_bwd_dq_tiled_f32",
-                               "flash_bwd_dkv_tiled_f32")}
+                b = {n: bound(names[n], shape, torch.float32)["bound_ms"]
+                     for n in ("dq", "dkv")}
                 # the pair as one function: five products (s, dp, dq, dk,
                 # dv) and 8 tensors moved
                 n8 = 8 * 4 * B * H * T * D
@@ -2282,7 +2378,7 @@ def f32_training_phase(card: str) -> dict:
     3 untimed, their launches counted from zero (7 a step of the forward
     with lse and of each backward pass) and the host ms a step.  Returns
     the launches under the f32 rows' names."""
-    launches = dict.fromkeys(F32_ROWS, 0)
+    launches = {row: 0 for row in F32_ROWS if row not in F32_WIDE_ROWS}
     for what, cfg, batch in (("flagship", flagship_cfg(precision="32"), 128),
                              ("pixel", flagship_cfg(precision="32", patch=32),
                               PIXEL_STEP_BATCH)):
@@ -2330,7 +2426,8 @@ def f32_training_phase(card: str) -> dict:
                                  f"expected {want}; logits relative L2 "
                                  f"{rel}")
         for row, base in F32_ROWS.items():
-            launches[row] += counts[base]
+            if row not in F32_WIDE_ROWS:
+                launches[row] += counts[base]
         del plain, grad_k, grad_p, logits, want_logits
         torch.cuda.empty_cache()
 
@@ -2362,14 +2459,15 @@ def f32_training_phase(card: str) -> dict:
             raise AssertionError(f"f32 {what}: launches {counts}, expected "
                                  f"{want}; losses {losses.tolist()}")
         for row, base in F32_ROWS.items():
-            launches[row] += counts[base]
+            if row not in F32_WIDE_ROWS:
+                launches[row] += counts[base]
         del model, state, train_step, x_train, y_train
         torch.cuda.empty_cache()
     return launches
 
 
 def wide_head_phase(card: str) -> dict:
-    """``pallas_kernel="fused"`` at T=257, head_dim 192: one step's loss and
+    """``pallas_kernel="fused"`` at T=5, head_dim 192: one step's loss and
     gradients against the plain-attention model, then serving and training
     through the whole-head forward's column-chunk layout and the tiled
     pair."""
@@ -2378,7 +2476,7 @@ def wide_head_phase(card: str) -> dict:
     _, x_train, y_train, model, state, train_step, perm = \
         training_setup(cfg, 256)
     plain = plain_twin(cfg, model)
-    print(f"wide heads: vit, patch 2 (T=257), {WIDE_LAYERS} layers, hidden "
+    print(f"wide heads: vit, patch 2 (T=5), {WIDE_LAYERS} layers, hidden "
           f"384, 2 heads (head_dim 192), pallas_kernel 'fused', "
           f"{cfg.precision}")
     img, label, _, _ = train_step.make_batch(state, x_train, y_train, perm, 0)
@@ -2427,6 +2525,74 @@ def wide_head_phase(card: str) -> dict:
           f"losses {' '.join(f'{x:.4f}' for x in losses)}, launches a step "
           f"{ {n: c for n, c in per_step.items() if c} }")
     return launches
+
+
+def wide_head_f32_phase(card: str) -> dict:
+    """The wide-head model (hidden 384 in 2 heads at ``WIDE_F32_PATCH``, 16
+    patches a side: T=257, head_dim 192; 2 layers, B=8) under
+    ``--precision 32`` with the default
+    route, through ``get_model`` -> ``make_train_step``: one step's loss
+    and gradients against the plain-attention model within the f32 step
+    bounds; one eval forward counted from zero (2 launches of the f32
+    inference forward, the CUDA cores' column-chunk tile), its logits
+    against the plain model's; then ``WIDE_STEPS`` steps counted from
+    zero, 2 launches a step of the forward with lse and of each pass of
+    the streamed TF32 pair, finite losses.  Returns the launches under the
+    wide f32 rows' names."""
+    cfg = flagship_cfg(num_layers=WIDE_LAYERS, head=2, patch=WIDE_F32_PATCH,
+                       precision="32", batch_size=WIDE_BATCH)
+    _, x_train, y_train, model, state, train_step, perm = \
+        training_setup(cfg, 256)
+    plain = plain_twin(cfg, model)
+    print(f"wide heads in f32: vit, patch {WIDE_F32_PATCH} (T="
+          f"{cfg.seq_len}), {WIDE_LAYERS} layers, "
+          f"hidden 384, 2 heads (head_dim 192), the default route, "
+          f"--precision {cfg.precision}")
+    img, label, _, _ = train_step.make_batch(state, x_train, y_train, perm, 0)
+    check_step(cfg, model, plain, img, label, "wide heads in f32, one step",
+               F32_STEP_LOSS_ATOL, F32_STEP_REL_L2)
+    with torch.no_grad():
+        want_logits = plain(img, deterministic=True)
+        for wrapper in KERNEL_WRAPPERS.values():
+            wrapper.launches = 0
+        logits = model(img, deterministic=True)
+        torch.cuda.synchronize()
+        served = _launch_counts()
+    rel = ((logits - want_logits).norm() / want_logits.norm()).item()
+    if served != dict({n: 0 for n in KERNEL_WRAPPERS}, flash_fwd=WIDE_LAYERS) \
+            or not rel <= F32_STEP_REL_L2:
+        raise AssertionError(f"wide heads in f32, eval: launches {served}; "
+                             f"logits relative L2 {rel}")
+    print(f"wide heads in f32, eval forward at B={WIDE_BATCH}: launches "
+          f"{ {n: c for n, c in served.items() if c} }; logits against the "
+          f"einsum path's relative L2 {rel:.3e} (bound {F32_STEP_REL_L2})")
+    del plain, logits, want_logits
+
+    # the path: its launches counted from zero
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    losses = []
+    for i in range(WIDE_STEPS):
+        state, metrics = train_step(state, x_train, y_train, perm, i)
+        losses.append(metrics["loss"].item())
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    want = dict({n: 0 for n in KERNEL_WRAPPERS},
+                flash_fwd_lse=WIDE_LAYERS * WIDE_STEPS,
+                flash_bwd_dq_tiled=WIDE_LAYERS * WIDE_STEPS,
+                flash_bwd_dkv_tiled=WIDE_LAYERS * WIDE_STEPS)
+    if counts != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"wide heads in f32: launches {counts}, "
+                             f"expected {want}; losses {losses}")
+    print(f"wide heads in f32, {WIDE_STEPS} training steps at B={WIDE_BATCH}: "
+          f"losses {' '.join(f'{x:.4f}' for x in losses)}, launches "
+          f"{ {n: c for n, c in counts.items() if c} } ({card})")
+    del model, state, train_step, x_train, y_train
+    torch.cuda.empty_cache()
+    return {"flash_fwd_f32_wide": served["flash_fwd"],
+            "flash_fwd_lse_f32_wide": counts["flash_fwd_lse"],
+            "flash_bwd_dq_tiled_f32_streamed": counts["flash_bwd_dq_tiled"],
+            "flash_bwd_dkv_tiled_f32_streamed": counts["flash_bwd_dkv_tiled"]}
 
 
 def _launch_counts() -> dict:
@@ -4212,7 +4378,7 @@ def main() -> None:
     paths = [{"mhsa_fwd": serving_phase(card)}, int8_phase(card),
              train_launches, pixel_serving_phase(card),
              pixel_training_phase(card), wide_head_phase(card),
-             fused_key_tiled_phase(card),
+             wide_head_f32_phase(card), fused_key_tiled_phase(card),
              full_recipe_phase(card, no_aa_step_ms),
              f32_training_phase(card)]
     analysis_phase(card)

@@ -679,9 +679,15 @@ def test_bf16_backward_pair_copies_nothing_on_the_models_path(cuda,
 
 # the f32 backward pair: TF32 wgmma with the three-product split
 # (csrc/wgmma_tf32.cuh, DQ_F32 and DKV_F32 rows of csrc/backward_tiles.cuh)
-# up to 128 columns, the CUDA cores past them; D < 32, D % 4 != 0 (the
-# padded copy: 6, 30, 66, 127), every f32 width and one past it
-F32_BACKWARD_D = (6, 8, 16, 30, 32, 44, 64, 66, 100, 127, 128, 136)
+# up to 128 columns, past them the streamed rows (DQ_F32_STREAMED,
+# DKV_F32_STREAMED); D < 32, D % 4 != 0 (the padded copy: 6, 30, 66, 127),
+# every f32 width and, streamed, 136, 192 and 520
+F32_BACKWARD_D = (6, 8, 16, 30, 32, 44, 64, 66, 100, 127, 128, 136, 192, 520)
+# the streamed instances' widths: D % 4 != 0 (129, 130: the padded copy),
+# a clamped dq chunk (192: three), whole groups (256), and the sums over
+# 12, 17 and 22 chunks of 32 columns
+F32_STREAMED_D = (129, 130, 136, 192, 256, 384, 520, 704)
+F32_STREAMED_T = (1, 63, 65, 127, 129, 257)
 
 
 def _f32_views_and_cotangent(shape, seed):
@@ -708,8 +714,8 @@ def _check_f32_pair(got, want, what):
 @pytest.mark.parametrize("T", WGMMA_T)
 def test_f32_backward_pair_on_the_models_views(cuda, T):
     """The f32 pair on the model's views at odd and ragged T and head widths
-    8-136 (D < 32, D % 4 != 0 through the padded copy, every f32 width and
-    the CUDA cores past 128): dq, dk and dv against the plain passes within
+    8-520 (D < 32, D % 4 != 0 through the padded copy, every f32 width and
+    the streamed instances past 128): dq, dk and dv against the plain passes within
     rtol 1e-4 / atol 1e-5, written in q's, k's and v's strides, and two
     calls equal bit for bit."""
     for D in F32_BACKWARD_D:
@@ -721,6 +727,31 @@ def test_f32_backward_pair_on_the_models_views(cuda, T):
         for a, ref in zip(got, args[:3]):
             assert a.stride() == ref.stride(), (T, D, a.stride())
         assert all(torch.equal(a, b) for a, b in zip(got, again)), (T, D)
+
+
+@pytest.mark.parametrize("T", F32_STREAMED_T)
+def test_f32_streamed_backward_pair_at_ragged_edges(cuda, T):
+    """Past 128 columns (the streamed instances, s and dp summed over
+    32-column chunks, the gradients' B through the second ring) at ragged T
+    and D 129-704 (D % 4 != 0 through the padded copy), on the model's
+    views and on contiguous inputs: dq, dk and dv against the plain passes
+    within rtol 1e-4 / atol 1e-5, in q's, k's and v's strides, and two
+    calls equal bit for bit."""
+    for D in F32_STREAMED_D:
+        views = _f32_views_and_cotangent((2, 3, T, D), seed=7 * T + D)
+        q, k, v, g, scale = _inputs(cuda, (2, 3, T, D), torch.float32,
+                                    seed=5 * T + D)
+        out, lse = flash_attention_lse_reference(q, k, v, scale)
+        for what, args in (("views", views),
+                           ("contiguous", (q, k, v, out, g, lse, scale))):
+            got = _pair(args)
+            again = _pair(args)
+            torch.cuda.synchronize()
+            _check_f32_pair(got, _plain_pair(args), f"{what} T={T} D={D}")
+            for a, ref in zip(got, args[:3]):
+                assert a.stride() == ref.stride(), (what, T, D, a.stride())
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), (
+                what, T, D)
 
 
 @pytest.mark.parametrize("T", RAGGED_T)
@@ -739,7 +770,7 @@ def test_f32_backward_pair_at_ragged_edges(cuda, T):
 
 
 @pytest.mark.parametrize("T,D", [(200, 32), (193, 64), (300, 128),
-                                 (33, 32)])
+                                 (33, 32), (300, 192), (200, 520)])
 def test_f32_backward_pair_guards_a_fully_masked_key_tile(cuda, T, D):
     """The f32 dq kernel takes its key tiles last to first; where every
     logit of the first tile it takes is -inf in f32 (q = 1e20, k = -1e20
@@ -783,7 +814,7 @@ def test_f32_backward_pair_reads_nothing_past_T(cuda, T):
         buf[:t.numel()] = t.reshape(-1)
         return buf[:t.numel()].view(t.shape)
 
-    for D in (32, 64, 128):
+    for D in (32, 64, 128, 192):
         q, k, v, out, g, lse, scale = _f32_views_and_cotangent(
             (2, 3, T, D), seed=T + 5 * D)
         got = _pair((q, k, v, nan_tail(out), nan_tail(g), nan_tail(lse),
@@ -797,8 +828,8 @@ def test_f32_backward_pair_copies_nothing_on_the_models_path(cuda,
                                                               monkeypatch):
     """On the model's f32 views the pair copies nothing where tensor maps
     read them (D % 4 == 0), and where they cannot (D=30) one padded copy of
-    each of q, k, v and do a pass, 8 for the pair; past 128 columns (the
-    CUDA cores) nothing; through the Function no copy, and the views'
+    each of q, k, v and do a pass, 8 for the pair, past 128 columns (the
+    streamed instances) too; through the Function no copy, and the views'
     gradients in their own strides."""
     from vit_cifar_torch.ops.cuda import common
 
@@ -807,7 +838,7 @@ def test_f32_backward_pair_copies_nothing_on_the_models_path(cuda,
     monkeypatch.setattr(common, "padded_copy",
                         lambda t, meta=False: copies.append(meta)
                         or real(t, meta))
-    for D, want_copies in ((32, 0), (30, 8), (136, 0)):
+    for D, want_copies in ((32, 0), (30, 8), (136, 0), (130, 8)):
         args = _f32_views_and_cotangent((2, 3, 65, D), seed=D)
         copies.clear()
         got = _pair(args)
@@ -827,24 +858,32 @@ def test_f32_backward_pair_copies_nothing_on_the_models_path(cuda,
 
 @pytest.mark.parametrize("D,want", [(8, "split"), (32, "split"),
                                     (64, "split"), (128, "split"),
-                                    (129, "chunk"), (256, "chunk")])
+                                    (129, "split_stream"),
+                                    (256, "split_stream"),
+                                    (704, "split_stream")])
 def test_f32_backward_pair_launches_the_split_kernels_up_to_128_columns(
         cuda, D, want):
     """Up to 128 columns the f32 pair launches the TF32 instances
     (``dq_split_kernel``, ``dkv_split_kernel`` after the rows pass), past
-    them the CUDA-core chunk kernels, by the profiler's kernel names; one
-    launch of each pass by the wrappers' counters."""
+    them the streamed TF32 instances (``dq_split_stream_kernel``,
+    ``dkv_split_stream_kernel``, after the rows pass too), never a
+    CUDA-core kernel, by the profiler's kernel names; one launch of each
+    pass by the wrappers' counters, on a call of its own (the profiler's
+    window may run the pair again)."""
     from vit_cifar_torch.ops.cuda.common import f32_backward_plan
 
     args = _f32_views_and_cotangent((2, 3, 257, D), seed=D)
     counts = (flash_tiled_bwd_dq.launches, flash_tiled_bwd_dkv.launches)
-    names = _kernel_names(lambda: _pair(args))
+    _pair(args)
     assert (flash_tiled_bwd_dq.launches - counts[0],
             flash_tiled_bwd_dkv.launches - counts[1]) == (1, 1), D
+    names = _kernel_names(lambda: _pair(args))
     for kind in ("dq", "dkv"):
         hits = [n for n in names if f"{kind}_{want}_kernel" in n]
         assert hits, (D, kind, sorted(names))
-    assert (f32_backward_plan(257, D) is not None) == (want == "split")
+    assert f32_backward_plan(257, D)["dq"]["streamed"] == (
+        want == "split_stream")
+    assert not any("chunk" in n for n in names), sorted(names)
 
 
 # the f32 forwards: TF32 wgmma with the three-product split
@@ -1043,7 +1082,7 @@ from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention, flash_attention_lse, flash_tiled_bwd_dkv,
     flash_tiled_bwd_dq)
 dtype, main_first = getattr(torch, sys.argv[1]), sys.argv[2] == "main"
-B, T, H, D = 2, 65, 3, 32
+B, T, H, D = 2, 65, 3, int(sys.argv[3])
 x = torch.randn((3, B, T, H * D), device="cuda").to(dtype)
 if main_first:  # the pair's first launch on this (the main) thread
     q, k, v = (t.view(B, T, H, D).transpose(1, 2) for t in x)
@@ -1079,10 +1118,43 @@ def test_backward_pair_launches_first_on_autograds_thread(cuda, dtype,
                + os.environ.get("PYTHONPATH", ""))
     run = subprocess.run(
         [sys.executable, "-c", FIRST_BACKWARD_ON_AUTOGRADS_THREAD, dtype,
-         first], cwd=root, env=env, capture_output=True, text=True,
+         first, "32"], cwd=root, env=env, capture_output=True, text=True,
         timeout=300)
     assert run.returncode == 0 and run.stdout.strip() == "ok", (
         run.stdout[-2000:], run.stderr[-2000:])
+
+
+@pytest.mark.parametrize("first", ["main", "autograd"])
+def test_f32_streamed_pair_launches_first_on_autograds_thread(cuda, first):
+    """The same at head_dim 192 in f32: the streamed instances'
+    (``dq_split_stream_kernel``, ``dkv_split_stream_kernel``) first launch
+    in the process on autograd's device thread, or first on the main
+    thread and then on autograd's."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", FIRST_BACKWARD_ON_AUTOGRADS_THREAD, "float32",
+         first, "192"], cwd=root, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert run.returncode == 0 and run.stdout.strip() == "ok", (
+        run.stdout[-2000:], run.stderr[-2000:])
+
+
+def test_f32_streamed_function_grads_match_autograd_of_plain_forward(cuda):
+    """The Function's gradients at (2, 2, 257, 192) in f32 (its forward
+    with lse, then the streamed pair) against autograd through the plain
+    forward, within the f32 gradient limit."""
+    q, k, v, g, scale = _inputs(cuda, (2, 2, 257, 192), torch.float32,
+                                seed=9)
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves, scale), leaves, g)
+
+    for got, w in zip(grads(flash_attention),
+                      grads(fused_attention_reference)):
+        torch.testing.assert_close(got, w, **GRAD_TOL[torch.float32])
 
 
 def _layer_grads(mod, x, g):

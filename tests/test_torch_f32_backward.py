@@ -9,7 +9,9 @@ arithmetic: every operand of s = q.k^T and dp = do.v^T split into TF32
 big = rna(x) and small = rna(x - big) (rna: round to nearest, ties away
 from zero, the low 13 bits of the f32 cleared -- ``cvt.rna.tf32.f32``),
 each product the three products big.big + big.small + small.big summed in
-f32 (the tensor cores' own sum modelled exact, then rounded to f32); the
+f32 (the tensor cores' own sum modelled exact, then rounded to f32; past
+128 columns, the streamed instances, s and dp summed so a 32-column chunk
+at a time, each chunk's part added into them in f32, in column order); the
 gradient products (ds.k; ds^T.q and p^T.do) the same, or where the
 table's ``bf16x3`` column says so, each operand split into three bf16
 terms x1 = rn(x), x2 = rn(x - x1), x3 = rn(x - x1 - x2) (round to nearest
@@ -20,7 +22,8 @@ modelled in f64); delta = rowsum(do*o) and ds = p*(dp - delta)*scale in
 f32; dq summed key tile by key tile, last to first, and dk and dv query
 tile by query tile, each tile's sum added to the f32 accumulator, with the
 tiles and routes of ``csrc/backward_tiles.cuh``'s DQ_F32 and DKV_F32 rows
-(``f32_backward_plan``).  The limit is the card tests' f32 backward limit,
+(``f32_backward_plan``; past 128 columns the DQ_F32_STREAMED and
+DKV_F32_STREAMED rows).  The limit is the card tests' f32 backward limit,
 rtol 1e-4 / atol 1e-5; the model with one TF32 product in place of each
 split product misses it, so the split is what keeps the pair at f32
 accuracy.
@@ -33,6 +36,8 @@ import pytest
 import torch
 
 from vit_cifar_torch.ops.cuda.common import (DKV_F32_TILES, DQ_F32_TILES,
+                                             F32_BWD_STREAMED,
+                                             F32_STREAM_COLS,
                                              WIDEST_F32_BACKWARD,
                                              f32_backward_plan)
 from vit_cifar_torch.ops.cuda.flash_attention import (
@@ -53,6 +58,12 @@ CASES = [(2, 3, 65, 32, 1024, 32), (1, 2, 130, 64, 64, 64),
 # where a 16-row fragment, a key or query tile (8 to 48) or a work item
 # (64 or 128 rows) ends; each T at one of the three widths, in turn
 RAGGED_T = (1, 7, 63, 64, 65, 66, 127, 128, 129)
+# past 128 columns, the streamed instances: (B, H, T, D) at 192 columns
+# (three dq chunks, six of dk/dv), at 520 (17 chunks of the sums, the last
+# ragged) and 704 (22), at 129 (D % 4 != 0: the padded copy on the card)
+# and 256; each at a ragged T
+STREAMED_CASES = [(1, 2, 130, 192), (1, 1, 65, 520), (1, 1, 33, 704),
+                  (2, 1, 63, 129), (1, 2, 97, 256)]
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -113,13 +124,23 @@ def tf32_backward_model(q, k, v, o, do, lse, scale: float,
             return products_bf16x3(eq, x, y)
         return products(eq, x, y, three)
 
+    def logits(a, b):  # s or dp: a sum over D, chunk by chunk if streamed
+        if not plan["dq"]["streamed"]:
+            return products("bhid,bhjd->bhij", a, b, three)
+        out = torch.zeros(a.shape[:3] + b.shape[2:3])
+        for c0 in range(0, D, F32_STREAM_COLS):
+            cut = slice(c0, c0 + F32_STREAM_COLS)
+            out = out + products("bhid,bhjd->bhij", a[..., cut], b[..., cut],
+                                 three)
+        return out
+
     of, dof = o.transpose(1, 2), do.transpose(1, 2)
     c = float(np.float32(scale) * np.float32(LOG2E))
     lse2 = lse[..., None] * float(np.float32(LOG2E))
     delta = (dof * of).sum(dim=-1, keepdim=True)
-    s = products("bhid,bhjd->bhij", q, k, three)
+    s = logits(q, k)
     p = torch.exp2((s.double() * c - lse2.double()).to(torch.float32))
-    ds = p * (products("bhid,bhjd->bhij", dof, v, three) - delta) * scale
+    ds = p * (logits(dof, v) - delta) * scale
     dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
     for k0 in reversed(range(0, T, keys)):  # dq: a key tile at a time
         t = slice(k0, k0 + keys)
@@ -202,6 +223,40 @@ def test_one_tf32_product_misses_the_f32_limit(case):
     assert _misses(tf32_backward_model(*args, three=False), want) != []
 
 
+@pytest.mark.parametrize("case", STREAMED_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_streamed_tf32_backward_model_matches_jax_vjp_in_f32(case):
+    """Past 128 columns (the streamed instances: s and dp summed a 32-column
+    chunk at a time, each chunk's three products added in f32; the
+    gradient products by the streamed rows' tiles and route) the model
+    against JAX's f32 VJP within rtol 1e-4 / atol 1e-5, at 129, 192, 256,
+    520 and 704 columns and ragged T, and against the port's plain
+    passes."""
+    B, H, T, D = case
+    assert f32_backward_plan(T, D)["dq"]["streamed"]
+    args, want = _jax_case(B, H, T, D, 64, 64, seed=T + D)
+    got = tf32_backward_model(*args)
+    plain = (flash_tiled_bwd_dq_reference(*args),
+             *flash_tiled_bwd_dkv_reference(*args))
+    for name, a, w, pl in zip(("dq", "dk", "dv"), got, want, plain):
+        assert a.shape == (B, H, T, D) and a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), w, **BWD_TOL,
+                                   err_msg=f"{name} {case}")
+        np.testing.assert_allclose(a.numpy(), pl.numpy(), **BWD_TOL,
+                                   err_msg=f"{name} {case} vs plain")
+
+
+@pytest.mark.parametrize("case", STREAMED_CASES[:2],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_one_tf32_product_misses_the_f32_limit_past_128_columns(case):
+    """Past 128 columns too, one TF32 product in place of each split
+    product misses rtol 1e-4 / atol 1e-5 against JAX's f32 VJP where the
+    streamed model's three products hold it."""
+    args, want = _jax_case(*case, 64, 64, seed=22)
+    assert _misses(tf32_backward_model(*args), want) == []
+    assert _misses(tf32_backward_model(*args, three=False), want) != []
+
+
 def test_tf32_rounding_is_to_nearest_ties_away():
     """``tf32`` as ``cvt.rna.tf32.f32``: 10 mantissa bits kept, the 13
     below rounded half away from zero, and big + small exact."""
@@ -231,8 +286,10 @@ def test_f32_plans_tile_as_the_dispatch_does():
     dk and dv each (beside their f32 sums), so 128 keys an item at 32
     columns and past it 64 keys and a column chunk each.  The gradient
     products take three bf16 terms but dk/dv's past 32 columns (the
-    transposes).  Past 128 columns no f32 instance: the CUDA-core kernels
-    run."""
+    transposes).  Past 128 columns the streamed rows: the width D rounded
+    up to 32-column chunks, dq 32 keys a tile and 64 columns a consumer,
+    dk/dv 32 queries and 32 columns, both on the bf16 terms, a work item 64
+    rows (keys) and a group of two chunks, never a CUDA-core kernel."""
     def tiles(T, D):
         plan = f32_backward_plan(T, D)
         return (plan["width"],) + tuple(
@@ -257,5 +314,22 @@ def test_f32_plans_tile_as_the_dispatch_does():
     assert f32_backward_plan(257, 128)["dq"]["items"] == 5
     assert f32_backward_plan(257, 64)["dkv"]["items"] == 5
     assert f32_backward_plan(257, 128)["dkv"]["items"] == 10
-    assert f32_backward_plan(129, 128) is not None
-    assert f32_backward_plan(65, 129) is None
+    assert not f32_backward_plan(129, 128)["dq"]["streamed"]
+    assert F32_BWD_STREAMED == {"dq": (32, 64, True), "dkv": (32, 32, True)}
+    plan = f32_backward_plan(65, 129)
+    assert plan["width"] == 160 and plan["atom_cols"] == F32_STREAM_COLS
+    assert tiles(65, 129) == (160, (32, 64, 64), (32, 32, 64))
+    # 2 row (key) tiles of 64; dq 3 chunks of 64 columns in 2 groups,
+    # dk/dv 5 of 32 in 3
+    for kind, chunks, items in (("dq", 3, 4), ("dkv", 5, 6)):
+        assert plan[kind]["streamed"] and plan[kind]["split"]
+        assert plan[kind]["bf16x3"]
+        assert (plan[kind]["chunks"], plan[kind]["items"]) == (chunks, items)
+    # the wide-head model's (T=257, head_dim 192): 5 row (key) tiles of 64
+    plan = f32_backward_plan(257, 192)
+    assert (plan["width"], plan["dq"]["items"], plan["dkv"]["items"]) == (
+        192, 10, 15)
+    plan = f32_backward_plan(1024, 520)
+    assert (plan["width"], plan["dq"]["chunks"], plan["dkv"]["chunks"]) == (
+        544, 9, 17)
+    assert (plan["dq"]["items"], plan["dkv"]["items"]) == (80, 144)

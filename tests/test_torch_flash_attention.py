@@ -899,7 +899,7 @@ def test_route_default_at_each_whole_head_boundary(dtype, T, D, want):
 
 
 def test_default_module_past_the_tiled_head_dim_matches_jax(monkeypatch):
-    """hidden 384 in 2 heads (head_dim 192) at T=257 (patch 2): the default
+    """hidden 384 in 2 heads (head_dim 192) at T=257 (patch 16): the default
     config takes the tiled kernels, which cut the head into column chunks
     (it took the einsum path while they stopped at head_dim 128); the
     module's output and grads (input and every parameter) on that path

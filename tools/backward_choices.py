@@ -1,7 +1,7 @@
 """The wgmma backward pair's tiles, bf16 and f32 (TF32), measured on one
 CUDA card.
 
-    python3 tools/backward_choices.py [--only bf16|f32]
+    python3 tools/backward_choices.py [--only bf16|f32|f32s]
 
 builds ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` from copies
 of ``vit_cifar_torch/csrc`` under ``build/backward_choices/``, one copy a
@@ -20,8 +20,13 @@ views at that width's shape: the pixel ViT's at 32 columns,
 chip_smoke.py's head-dim shape (128, 8, 512, D) beyond (D = 64, 128 and
 256, the last one of the column chunks), and for the streamed rows
 (16, 2, 1024, 520), a head past the widest row; the f32 rows at the same
-shapes in f32.  The table's tiles are chosen from this.  Prints the
-card's name and power limit, a line a choice, and one JSON object last.
+shapes in f32; the f32 streamed rows (DQ_F32_STREAMED, DKV_F32_STREAMED)
+with half and twice the tile, the other column count and the other route,
+each at (128, 8, 512, 192), (128, 8, 512, 256) and (16, 2, 1024, 520); and
+the f32 streamed instances at 128 columns (the table without the 128-column
+f32 row of the kernel) against that row at (128, 8, 512, 128).  The
+table's tiles are chosen from this.  Prints the card's name and power
+limit, a line a choice and shape, and one JSON object last.
 """
 
 from __future__ import annotations
@@ -44,8 +49,8 @@ sys.path.insert(0, ROOT)
 from vit_cifar_torch.ops.cuda.build import (CSRC_DIR, NVCC_FLAGS,  # noqa: E402
                                             find_nvcc)
 from vit_cifar_torch.ops.cuda.common import (  # noqa: E402
-    BWD_STREAMED, DKV_F32_TILES, DKV_TILES, DQ_F32_TILES, DQ_TILES, bind,
-    launch_backward, library)
+    BWD_STREAMED, DKV_F32_TILES, DKV_TILES, DQ_F32_TILES, DQ_TILES,
+    F32_BWD_STREAMED, bind, launch_backward, library)
 from vit_cifar_torch.ops.cuda.flash_attention import \
     flash_attention_lse  # noqa: E402
 
@@ -88,15 +93,31 @@ F32_CHOICES = [("flash_bwd_dq", "f32", (32, 32, 1)),
                ("flash_bwd_dkv", "f32", (64, 8, 0)),
                ("flash_bwd_dkv", "f32", (64, 32, 0)),
                ("flash_bwd_dkv", "f32", (128, 16, 0))]
+# the f32 streamed rows' neighbours, (kernel, "f32s", (tile, columns a
+# consumer holds, bf16x3)), timed at each of F32_STREAMED_SHAPES; and each
+# kernel's streamed instance at 128 columns, (kernel, "f32s128", None)
+F32_STREAMED_CHOICES = [("flash_bwd_dq", "f32s", (16, 64, 1)),
+                        ("flash_bwd_dq", "f32s", (64, 64, 1)),
+                        ("flash_bwd_dq", "f32s", (32, 32, 1)),
+                        ("flash_bwd_dq", "f32s", (32, 64, 0)),
+                        ("flash_bwd_dkv", "f32s", (16, 32, 1)),
+                        ("flash_bwd_dkv", "f32s", (64, 32, 1)),
+                        ("flash_bwd_dkv", "f32s", (32, 64, 1)),
+                        ("flash_bwd_dkv", "f32s", (32, 32, 0)),
+                        ("flash_bwd_dq", "f32s128", None),
+                        ("flash_bwd_dkv", "f32s128", None)]
+F32_STREAMED_SHAPES = [(128, 8, 512, 192), (128, 8, 512, 256),
+                       (16, 2, 1024, 520)]
 ROUNDS, ITERS = 3, 10
 
 
 def build(kernel: str, width, tile):
     """Starts nvcc on ``kernel``'s source in a copy of the sources whose
     table has ``tile`` in that kernel's row at ``width`` (``"f32"``: tile
-    is (width, tile) of the f32 row): (the library's path, the
-    process)."""
-    name = ("_".join(map(str, tile)) if width in ("streamed", "f32")
+    is (width, tile, bf16x3) of the f32 row; ``"f32s"``: (tile, columns,
+    bf16x3) of the f32 streamed row; ``"f32s128"``: the f32 row at 128
+    columns taken out): (the library's path, the process)."""
+    name = ("_".join(map(str, tile)) if width in ("streamed", "f32", "f32s")
             else tile)
     src = os.path.join(WORK, f"{kernel}_{width}_{name}")
     shutil.rmtree(src, ignore_errors=True)
@@ -113,6 +134,13 @@ def build(kernel: str, width, tile):
         text = re.sub(rf"^{row}_F32\({tile[0]}, \d+, (\d+), [01]\)$",
                       rf"{row}_F32({tile[0]}, {tile[1]}, \1, {tile[2]})",
                       text, flags=re.M)
+    elif width == "f32s":
+        text = re.sub(rf"^{row}_F32_STREAMED\(\d+, \d+, [01]\)$",
+                      f"{row}_F32_STREAMED({tile[0]}, {tile[1]}, {tile[2]})",
+                      text, flags=re.M)
+    elif width == "f32s128":  # 128 columns take the streamed row
+        text = re.sub(rf"^{row}_F32\(128, \d+, \d+, [01]\)$", "", text,
+                      flags=re.M)
     else:
         text = re.sub(rf"^{row}\({width}, \d+, (\d+)\)$",
                       rf"{row}({width}, {tile}, \1)", text, flags=re.M)
@@ -173,8 +201,10 @@ def main() -> None:
     print(card)
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
         else None
-    choices = ((CHOICES if only != "f32" else [])
-               + (F32_CHOICES if only != "bf16" else []))
+    # --only f32s: the f32 streamed rows' choices alone
+    choices = ((CHOICES if only is None or only == "bf16" else [])
+               + (F32_CHOICES if only is None or only == "f32" else [])
+               + (F32_STREAMED_CHOICES if only != "bf16" else []))
     os.makedirs(WORK, exist_ok=True)
     jobs = [(choice, *build(*choice)) for choice in choices]
     try:
@@ -184,6 +214,64 @@ def main() -> None:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def run(kernel, lib, args):
+    """``kernel``'s pass of ``lib`` on ``args``: its outputs."""
+    q, k, v = args[:3]
+    outs = ((torch.empty_like(q),) if kernel == "flash_bwd_dq"
+            else (torch.empty_like(k), torch.empty_like(v)))
+    launch_backward(kernel, *args[:6], outs, args[6], lib=lib)
+    return outs
+
+
+def time_streamed(card, kernel, kind, width, tile, report, lib,
+                  inputs) -> list:
+    """A streamed f32 choice (``"f32s"``: the streamed row's tile, columns
+    and route; ``"f32s128"``: the streamed instance at 128 columns) checked
+    against the repo's build (within 1e-5 of each gradient's largest value)
+    and timed against it in turns at each of its shapes."""
+    repo = F32_BWD_STREAMED[kind]
+    if width == "f32s":
+        shapes = F32_STREAMED_SHAPES
+        instance = f"{kind}_split_stream_kernel<{','.join(map(str, tile))}>"
+        label = f"streamed tile {tile} against the repo's {repo}"
+    else:
+        shapes = [SHAPES[128]]
+        instance = (f"{kind}_split_stream_kernel<"
+                    f"{','.join(str(int(x)) for x in repo)}>")
+        cut = (DQ_F32_TILES if kind == "dq" else DKV_F32_TILES)[128]
+        label = (f"the streamed instance {repo} at 128 columns against the "
+                 f"repo's {kind.upper()}_F32 row {cut}")
+    rows = []
+    for shape in shapes:
+        args = inputs[shape if width == "f32s" else ("f32", 128)]
+        got, want = run(kernel, lib, args), run(kernel, library(kernel), args)
+        diff = max((a - b).abs().max().item()
+                   / (b.abs().max().item() * 1e-5)
+                   for a, b in zip(got, want))
+        if diff > 2:
+            raise AssertionError(f"{kernel} {width}/{tile} {shape}: "
+                                 f"{diff:.2f} 1e-5 steps from the repo's")
+        times = {"repo": [], "choice": []}
+        fns = {"repo": lambda: run(kernel, library(kernel), args),
+               "choice": lambda: run(kernel, lib, args)}
+        for _ in range(ROUNDS):
+            for name in ("repo", "choice", "choice", "repo"):
+                times[name].append(window_ms(fns[name]))
+        med = {n: statistics.median(t) for n, t in times.items()}
+        row = {"kernel": kernel, "width": width, "tile": tile,
+               "repo_tile": repo, "shape": shape,
+               "ptxas": instance_report(report, instance), "diff": diff,
+               **{f"{n}_ms": t for n, t in times.items()},
+               "choice_over_repo": med["choice"] / med["repo"]}
+        rows.append(row)
+        print(f"{kernel} {shape} f32: {label} (ptxas {row['ptxas']}) "
+              f"{med['choice']:.4f} ms against {med['repo']:.4f} ms: "
+              f"{row['choice_over_repo']:.3f} (medians of {2 * ROUNDS} "
+              f"windows of {ITERS}); {diff:.2f} 1e-5 steps from the repo's "
+              f"({card})", flush=True)
+    return rows
 
 
 def measure(card: str, jobs) -> None:
@@ -202,13 +290,13 @@ def measure(card: str, jobs) -> None:
                             device="cuda").to(dtype)
             key = width if dtype == torch.bfloat16 else ("f32", width)
             inputs[key] = (q, k, v, out, g, lse, scale)
-
-    def run(kernel, lib, args):
-        q, k, v = args[:3]
-        outs = ((torch.empty_like(q),) if kernel == "flash_bwd_dq"
-                else (torch.empty_like(k), torch.empty_like(v)))
-        launch_backward(kernel, *args[:6], outs, args[6], lib=lib)
-        return outs
+    for shape in F32_STREAMED_SHAPES:
+        B, H, T, D = shape
+        q, k, v = model_views(shape, gen, torch.float32)
+        scale = 1.0 / math.sqrt(H * D)
+        out, lse = flash_attention_lse(q, k, v, scale)
+        g = torch.randn((B, T, H, D), generator=gen, device="cuda")
+        inputs[shape] = (q, k, v, out, g, lse, scale)
 
     result = {"card": card, "choices": []}
     for (kernel, width, tile), path, proc in jobs:
@@ -228,6 +316,11 @@ def measure(card: str, jobs) -> None:
                                       "tile": tile, "serialised": True})
             continue
         kind = "dq" if kernel == "flash_bwd_dq" else "dkv"
+        lib = bind(ctypes.CDLL(path), kernel)
+        if width in ("f32s", "f32s128"):
+            result["choices"] += time_streamed(card, kernel, kind, width,
+                                               tile, report, lib, inputs)
+            continue
         f32 = width == "f32"
         if width == "streamed":
             repo_tile = BWD_STREAMED[kind]
@@ -241,7 +334,6 @@ def measure(card: str, jobs) -> None:
             repo_tile, cols = (DQ_TILES if kind == "dq"
                                else DKV_TILES)[width]
             instance = f"{kind}_kernel<{width},{tile},{cols}>"
-        lib = bind(ctypes.CDLL(path), kernel)
         args = inputs[("f32", tile[0]) if f32 else width]
         got, want = run(kernel, lib, args), run(kernel, library(kernel), args)
         # in bf16 steps (f32: in units of 1e-5) at each gradient's largest

@@ -37,10 +37,20 @@ differs.  Each run measures, in bf16:
   pair on the model's f32 views at the pixel model's and the flagship's
   shapes (CUDA events over windows of about 50 ms; device ms and the
   host microseconds a call at T=65), and the flagship and pixel training
-  steps under ``--precision 32`` as above.
+  steps under ``--precision 32`` as above;
+- f32 past 128 columns (``f32wide``, only when asked for): the tiled
+  forwards with and without lse, the dq and dk/dv passes and the pair on
+  the model's f32 views at (128, 8, 512, 192), (128, 8, 512, 256),
+  (16, 2, 1024, 520) and the wide-head model's (128, 2, 257, 192), each in
+  turns with the library's f32 call (efficient attention with lse, SDPA,
+  SDPA's backward on the backend it takes) by CUDA events, and each call's
+  max error, the library's too, against the plain f32 version; and the
+  wide-head model's training step under ``--precision 32`` (hidden 384 in
+  2 heads at patch 16, T=257, 2 layers, B=128) as above.
 
 ``--only`` runs one of the parts (``kernels``, ``flagship``, ``pixel``,
-``wide``, ``f32``), for more rounds of it in the same time.  Every number
+``wide``, ``f32``, ``f32wide``), for more rounds of it in the same
+time.  Every number
 is the card's; the card's name and power limit are printed with them.  Work
 files go to ``build/chip_smoke/``.
 """
@@ -62,6 +72,8 @@ KERNEL_SHAPES = {"pixel": (128, 12, 1025, 32), "d128": (128, 8, 512, 128),
                  "flagship": (128, 12, 65, 32)}
 WIDE_SHAPES = {"long512": (16, 2, 1024, 512), "long520": (16, 2, 1024, 520),
                **{f"d{D}": (128, 8, 512, D) for D in (576, 640, 768, 1040)}}
+F32_WIDE_SHAPES = {"d192": (128, 8, 512, 192), "d256": (128, 8, 512, 256),
+                   "long520": (16, 2, 1024, 520), "wide": (128, 2, 257, 192)}
 
 
 def _smoke():
@@ -211,9 +223,80 @@ def _f32_times(smoke, torch) -> dict:
     return out
 
 
+def _f32_wide_times(smoke, torch) -> dict:
+    """ms a call of the f32 tiled forwards with and without lse, of the f32
+    dq and dk/dv passes and of the pair on the model's f32 views at
+    ``F32_WIDE_SHAPES``, each in turns with the library's f32 call where
+    one computes the same (``chip_smoke.library_f32``; SDPA in f32 for the
+    inference forward), by CUDA events over windows of about 50 ms; and the
+    max error of each call, the library's too, against the plain f32
+    versions."""
+    from vit_cifar_torch.ops.cuda.flash_attention import (
+        flash_attention, flash_attention_lse, flash_attention_lse_reference,
+        flash_tiled_bwd_dkv, flash_tiled_bwd_dkv_reference,
+        flash_tiled_bwd_dq, flash_tiled_bwd_dq_reference)
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for tag, shape in F32_WIDE_SHAPES.items():
+        B, H, T, D = shape
+        scale = 1.0 / (H * D) ** 0.5
+        q, k, v = smoke.model_views(shape, gen, torch.float32)
+        o, lse = flash_attention_lse(q, k, v, scale)
+        g = torch.randn((B, T, H, D), generator=gen, device="cuda")
+        args = (q, k, v, o, g, lse, scale)
+        want_o, want_lse = flash_attention_lse_reference(q, k, v, scale)
+        want = (flash_tiled_bwd_dq_reference(*args),
+                *flash_tiled_bwd_dkv_reference(*args))
+        lib = smoke.library_f32(shape, q, k, v, g, scale,
+                                (want_o, want_lse, *want))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, scale=scale).transpose(1, 2)
+        pair = lambda: (flash_tiled_bwd_dq(*args),  # noqa: E731
+                        *flash_tiled_bwd_dkv(*args))
+        got = pair()
+        errs = {"f32 flash_fwd": smoke._max_err(
+                    (flash_attention(q, k, v, scale),), (want_o,)),
+                "f32 flash_fwd_lse": smoke._max_err(
+                    flash_attention_lse(q, k, v, scale), (want_o, want_lse)),
+                "f32 flash_bwd_dq_tiled": smoke._max_err(got[:1], want[:1]),
+                "f32 flash_bwd_dkv_tiled": smoke._max_err(got[1:], want[1:]),
+                "f32 pair": smoke._max_err(got, want),
+                "library fwd": smoke._max_err((sdpa(),), (want_o,)),
+                "library fwd_lse": lib["errs"]["fwd_lse"],
+                "library pair": lib["errs"]["bwd_pair"]}
+        del got, want, want_o, want_lse
+        fns = {"f32 flash_fwd": (lambda: flash_attention(q, k, v, scale),
+                                 sdpa),
+               "f32 flash_fwd_lse": (
+                   lambda: flash_attention_lse(q, k, v, scale),
+                   lib["fwd_lse"]),
+               "f32 flash_bwd_dq_tiled": (lambda: flash_tiled_bwd_dq(*args),
+                                          None),
+               "f32 flash_bwd_dkv_tiled": (
+                   lambda: flash_tiled_bwd_dkv(*args), None),
+               "f32 pair": (pair, lib["bwd_pair"])}
+        for name, (fn, library) in fns.items():
+            iters = max(2, min(100, round(50 / smoke.cuda_ms(fn, 1, 1))))
+            if library is None:
+                out[f"{name} {tag}"] = smoke.cuda_ms(fn, iters, 2)
+            else:
+                ms = smoke.in_turns({"kernel": fn, "library": library},
+                                    rounds=1, iters=iters)
+                out[f"{name} {tag}"] = ms["kernel"]
+                out[f"{name} {tag} library"] = ms["library"]
+        out.update({f"{name} {tag} err": e for name, e in errs.items()})
+        print(f"f32 past 128 columns {tag} {shape}: the library's pair on "
+              f"SDPA's {lib['backend']} backend", file=sys.stderr)
+        del q, k, v, o, lse, g, args, lib, fns
+        torch.cuda.empty_cache()
+    return out
+
+
 def _train(smoke, torch, card: str, patch: int, steps: int,
-           n_prof: int, precision: str | None = None) -> dict:
-    cfg = smoke.flagship_cfg(patch=patch, **(
+           n_prof: int, precision: str | None = None, **cfg_kw) -> dict:
+    cfg = smoke.flagship_cfg(patch=patch, **cfg_kw, **(
         {"precision": precision} if precision else {}))
     _, x, y, _, state, train_step, perm = smoke.training_setup(cfg)
     box = [state]
@@ -221,7 +304,7 @@ def _train(smoke, torch, card: str, patch: int, steps: int,
     def step(i):
         box[0], _ = train_step(box[0], x, y, perm, i)
 
-    warm = 3 if patch == 32 else 10
+    warm = 10 if patch == 8 else 3
     for i in range(warm):
         step(i)
     torch.cuda.synchronize()
@@ -267,12 +350,17 @@ def worker(checkout: str, only: str | None) -> None:
              "f32 flagship": lambda: _train(smoke, torch, card, 8, 30, 10,
                                             "32"),
              "f32 pixel": lambda: _train(smoke, torch, card, 32, 4, 2,
-                                         "32")}
+                                         "32"),
+             "f32wide_ms": lambda: _f32_wide_times(smoke, torch),
+             # the wide-head model: hidden 384 in 2 heads, T=257
+             "f32wide step": lambda: _train(
+                 smoke, torch, card, smoke.WIDE_F32_PATCH, 10, 3, "32",
+                 num_layers=smoke.WIDE_LAYERS, head=2)}
     result = {"checkout": checkout, "build_s": build_s}
     for part, run in parts.items():
         asked = part.removesuffix("_ms").split()[0]
         if only == asked or (only is None
-                             and asked not in ("wide", "f32")):
+                             and asked not in ("wide", "f32", "f32wide")):
             result[part] = run()
     print(json.dumps(result))
 
@@ -285,7 +373,7 @@ def main() -> None:
     parser.add_argument("--worker", action="store_true")
     parser.add_argument("--only",
                         choices=("kernels", "flagship", "pixel", "wide",
-                                 "f32"))
+                                 "f32", "f32wide"))
     args = parser.parse_args()
     if args.worker:
         worker(args.a, args.only)
@@ -318,9 +406,10 @@ def main() -> None:
 
     first = runs[args.a][0]
     rows = [(k, lambda r, p=part, k=k: r[p].get(k, float("nan")))
-            for part in ("kernels_ms", "wide_ms", "f32_ms")
+            for part in ("kernels_ms", "wide_ms", "f32_ms", "f32wide_ms")
             for k in first.get(part, {})]
-    for model in ("flagship", "pixel", "f32 flagship", "f32 pixel"):
+    for model in ("flagship", "pixel", "f32 flagship", "f32 pixel",
+                  "f32wide step"):
         for key in ("step_ms", "device_ms", "busy", "kernels"):
             if model in first:
                 rows.append((f"{model} {key}",

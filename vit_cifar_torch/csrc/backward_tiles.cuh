@@ -3,9 +3,10 @@
 // CUDA dispatch (flash_bwd_dq.cu and flash_bwd_dkv.cu) expands and what
 // the wrappers' plan (ops/cuda/common.py::backward_plan) and the CPU
 // models of the kernels' arithmetic read, so they cannot disagree.  No
-// include guard: each includer defines all six macros.  Rows by ascending
-// padded width: a head of D columns takes the first width >= D; past the
-// last, the STREAMED rows (bf16) or the CUDA-core kernels (f32).
+// include guard: an includer defines the macros it expands, the others
+// expand to nothing here, and all eight are undefined at the end.  Rows
+// by ascending padded width: a head of D columns takes the first width >=
+// D; past the last, the STREAMED rows.
 //
 // ptxas gives a consumer warpgroup 168 registers, and each kernel keeps one
 // tile's s and dp accumulators (f32) in flight beside the previous tile's
@@ -42,9 +43,9 @@
 //   columns 1.04x).
 // DQ_F32(width, keys, cols, bf16x3), DKV_F32(width, queries, cols,
 //   bf16x3): the f32 instances on TF32 wgmma (dq_split_kernel,
-//   dkv_split_kernel), as DQ and DKV above, up to 128 columns (past it the
-//   CUDA-core kernels).  Every tile is held twice in shared memory (TF32
-//   big and small halves) and a stage's key (query) tile also as the B of
+//   dkv_split_kernel), as DQ and DKV above, up to 128 columns.  Every
+//   tile is held twice in shared memory (TF32 big and small halves) and a
+//   stage's key (query) tile also as the B of
 //   the gradient products, which sum over keys (queries): each value four
 //   bytes, so the rows of an item and two or more stages of the ring fill
 //   a block's 227 KB with smaller tiles than the bf16 rows'.  bf16x3
@@ -61,6 +62,48 @@
 //   32-128 columns and 1.30x for dk/dv at 32, where its 16-query tile
 //   reads 1.29x the 32; past 32 columns dk/dv's 32-column chunks of the
 //   bf16 terms would cut a 64-column atom, so they take the transposes.
+// DQ_F32_STREAMED(keys, cols, bf16x3), DKV_F32_STREAMED(queries, cols,
+//   bf16x3): every f32 head wider than the rows above, at any width
+//   (dq_split_stream_kernel, dkv_split_stream_kernel): as DQ_STREAMED and
+//   DKV_STREAMED, a work item 64 rows (keys) and two chunks of `cols`
+//   columns of the gradients, one a consumer, s and dp (s^T and dp^T)
+//   summed over 32-column chunks (an f32 swizzle atom) that the converter
+//   warps split as they come through the ring, each chunk's three TF32
+//   products added in f32; the gradient products' B at the consumers'
+//   columns through a second ring, by the bf16x3 route (a consumer's chunk
+//   its own tile there, so 32 columns take the bf16 terms too).  s and dp
+//   are computed once a consumer and item: 2 * ceil(D / (2 cols)) times.
+//   Each row is the fastest of tools/backward_choices.py --only f32s's
+//   measurements at (128,8,512,192|256) and (16,2,1024,520): dq 16 keys
+//   1.59-1.67x, 32 columns a consumer 1.42-1.90x, K's TF32 transpose
+//   1.07-1.19x, 64 keys past shared memory; dk/dv 16 queries 1.65-1.71x,
+//   the transposes 1.08-1.18x (and they spill), 64 queries or 64 columns
+//   past shared memory.
+
+#ifndef DQ
+#define DQ(w, n, cols)
+#endif
+#ifndef DKV
+#define DKV(w, n, cols)
+#endif
+#ifndef DQ_STREAMED
+#define DQ_STREAMED(n, cols)
+#endif
+#ifndef DKV_STREAMED
+#define DKV_STREAMED(n, cols)
+#endif
+#ifndef DQ_F32
+#define DQ_F32(w, n, cols, bf16x3)
+#endif
+#ifndef DKV_F32
+#define DKV_F32(w, n, cols, bf16x3)
+#endif
+#ifndef DQ_F32_STREAMED
+#define DQ_F32_STREAMED(n, cols, bf16x3)
+#endif
+#ifndef DKV_F32_STREAMED
+#define DKV_F32_STREAMED(n, cols, bf16x3)
+#endif
 
 DQ(32, 96, 32)
 DQ(64, 64, 64)
@@ -81,7 +124,18 @@ DKV_STREAMED(64, 64)
 DQ_F32(32, 48, 32, 1)
 DQ_F32(64, 16, 64, 1)
 DQ_F32(128, 16, 64, 1)
+DQ_F32_STREAMED(32, 64, 1)
 
 DKV_F32(32, 32, 32, 1)
 DKV_F32(64, 16, 32, 0)
 DKV_F32(128, 8, 32, 0)
+DKV_F32_STREAMED(32, 32, 1)
+
+#undef DQ
+#undef DKV
+#undef DQ_STREAMED
+#undef DKV_STREAMED
+#undef DQ_F32
+#undef DKV_F32
+#undef DQ_F32_STREAMED
+#undef DKV_F32_STREAMED

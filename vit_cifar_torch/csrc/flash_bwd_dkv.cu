@@ -65,9 +65,12 @@
 //   are split in the consumers' registers; each query tile's parts of dk
 //   and dv are added into them in f32 (GradFrags says why).  Tiles and
 //   route by width in backward_tiles.cuh's DKV_F32 rows.  Past 128 columns
-//   the CUDA-core design stays, a dispatch by width: one block of 8 warps
-//   per 64 keys and 128-column chunk of dk and dv, which sums s^T and dp^T
-//   over every chunk with lanes over queries.
+//   the streamed instance (dkv_split_stream_kernel, the DKV_F32_STREAMED
+//   row): K, V, Q and dO come a 32-column chunk a stage, split by the
+//   converter warps, and s^T and dp^T are summed over the chunks in f32 in
+//   the consumers' registers, the B of the gradient products at the item's
+//   columns through a second ring, so any width runs on the tensor
+//   cores.
 //
 // Shared memory does not grow with T, so any T and any D run.  Offsets are
 // int64; nothing is padded in device memory but the rows' scratch.
@@ -85,11 +88,6 @@
 namespace {
 
 using namespace attn;
-
-// The CUDA-core chunk kernel's tiles (past the f32 table's widest row).
-constexpr int kRows = 8;                 // keys per warp
-constexpr int kTileK = kRows * kWarps;   // keys per block
-constexpr int kTileQ = 64;               // query rows per tile: two per lane
 
 // acc + the dot product of 8 bf16 pairs, x and y 16 bytes each, in f32.
 __device__ __forceinline__ float dot8(uint4 x, uint4 y, float acc) {
@@ -768,41 +766,21 @@ cudaError_t launch_wgmma(const attn_wg::View& q, const attn_wg::View& k,
                          const attn_wg::View& v, const attn_wg::View& dout,
                          const attn_wg::BwdParams& p, int B, int H, int T,
                          int D, cudaStream_t stream) {
-#define DQ(w, n, cols)
-#define DQ_STREAMED(n, cols)
 #define DKV(w, n, cols)                                                  \
   if (D <= w)                                                            \
     return launch_dkv<w, n, cols>(q, k, v, dout, p, B, H, T, D, stream);
 #define DKV_STREAMED(n, cols)                                            \
   return launch_dkv_stream<n, cols>(q, k, v, dout, p, B, H, T, D, stream);
-#define DQ_F32(w, n, cols, bf16x3)
-#define DKV_F32(w, n, cols, bf16x3)
 #include "backward_tiles.cuh"
-#undef DQ
-#undef DQ_STREAMED
-#undef DKV
-#undef DKV_STREAMED
-#undef DQ_F32
-#undef DKV_F32
   return cudaErrorInvalidValue;  // a table without a DKV_STREAMED row
 }
 
 // The wgmma instance's dynamic shared memory at D.
 size_t wgmma_smem_bytes(int D) {
-#define DQ(w, n, cols)
-#define DQ_STREAMED(n, cols)
 #define DKV(w, n, cols) \
   if (D <= w) return DkvShape<w, n, cols>::kBytes;
 #define DKV_STREAMED(n, cols) return DkvStreamShape<n, cols>::kBytes;
-#define DQ_F32(w, n, cols, bf16x3)
-#define DKV_F32(w, n, cols, bf16x3)
 #include "backward_tiles.cuh"
-#undef DQ
-#undef DQ_STREAMED
-#undef DKV
-#undef DKV_STREAMED
-#undef DQ_F32
-#undef DKV_F32
   return 0;
 }
 
@@ -1115,218 +1093,376 @@ cudaError_t launch_dkv_tf32(const attn_wg::View& q, const attn_wg::View& k,
   return cudaGetLastError();
 }
 
+// ---- f32 past the table: the streamed TF32 dk/dv kernel -------------------
+// Past the widest DKV_F32 row an item's K and V at the full width, each held
+// twice (big and small), no longer fit shared memory beside the ring.  Here
+// nothing is held at the full width, as in dkv_stream_kernel: each stage of
+// the ring holds one 32-column chunk (an f32 swizzle atom) of the item's 64
+// K and V rows and of a query tile's Q and dO, which the converter warps
+// split in place and into their small halves; the consumers take the
+// chunk's three TF32 products of s^T and of dp^T into fresh accumulators and
+// add them into s^T and dp^T in f32 (as dq_split_stream_kernel, and for the
+// same reason).  Then dv += p^T.do and dk += ds^T.q read the query tile's Q
+// and dO at the consumers' columns, which come through a second ring
+// (kOutStages) with the tile's rows of lse * log2(e) and delta, and where
+// the converter writes each consumer's B of both products: their three bf16
+// terms, or their TF32 transposes (the table's bf16x3); each query tile's
+// parts of dk and dv land in fresh accumulators and are added in f32
+// (GradFrags), and the gradient products of one query tile run while the
+// next tile's exps do.  Work items are (b * H + h, 64 keys, group of two
+// chunks of kCols columns of dk and dv), consumer c on chunk 2 * group + c
+// (StreamCut); the grid is persistent.  dk and dv stay in registers until
+// the item ends: no atomics, two calls give equal bits.
+//
+// Shared memory: kStages stages of a K, a V, a Q and a dO chunk (64, 64,
+// kNq and kNq rows of 32 f32 columns) as TMA lands them, then their small
+// halves; kOutStages stages of Q and dO at the consumers' columns (consumer
+// c's Q in slot 2c, its dO in slot 2c + 1, kCols / 32 atoms of kNq rows
+// each), then each slot's B; their rows of lse and delta; the barriers.
+template <int kNq, int kCols, bool kBf16x3>
+struct DkvSplitStreamShape {
+  static constexpr int kKeys = 64;                // keys an item
+  static constexpr int kKBytes = kKeys * 128;     // a chunk of K or V
+  static constexpr int kQBytes = kNq * 128;       // a chunk of Q or dO
+  static constexpr int kVOff = kKBytes;           // within a stage
+  static constexpr int kQOff = 2 * kKBytes;
+  static constexpr int kDOff = kQOff + kQBytes;
+  static constexpr int kRawBytes = 2 * kKBytes + 2 * kQBytes;
+  static constexpr int kStageBytes = 2 * kRawBytes;  // big, then small
+  static constexpr int kSlotBytes = kCols / 32 * kQBytes;
+  // a slot's B: its bf16 terms, or its transpose's halves, this far apart
+  static constexpr int kApart = (kBf16x3 ? 2 : 4) * kNq * kCols;
+  static constexpr int kBBytes = (kBf16x3 ? 3 : 2) * kApart;
+  static constexpr int kBOff = 4 * kSlotBytes;    // within an out stage
+  static constexpr int kOutBytes = 4 * kSlotBytes + 4 * kBBytes;
+  static constexpr int kLineBytes = 4 * kNq;      // lse or delta of a tile
+  static constexpr int kOutStages = 2;
+  // as many stages as fit, at most 6
+  static constexpr int kFit =
+      (attn_wg::kSmemBudget - kOutStages * (kOutBytes + 2 * kLineBytes)) /
+      kStageBytes;
+  static constexpr int kStages = kFit < 6 ? kFit : 6;
+  static constexpr int kOutOff = kStages * kStageBytes;
+  static constexpr int kLOff = kOutOff + kOutStages * kOutBytes;
+  static constexpr int kBarOff = kLOff + kOutStages * 2 * kLineBytes;
+  static constexpr int kBytes =
+      kBarOff + 8 * 3 * (kStages + kOutStages) + 1024;
+  static_assert(kNq % (kBf16x3 ? 16 : 8) == 0 && kNq <= 64,
+                "query tile: whole k8 (k16) steps");
+  static_assert(attn_wg::kRowsPad % kNq == 0,
+                "a query tile lies within the padded rows");
+  static_assert(kCols % 32 == 0 && kCols <= 64, "whole f32 atoms, Tf32's N");
+  static_assert(kStages >= 2, "a ring of at least two stages");
+};
+
+template <int kNq, int kCols, bool kBf16x3>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    dkv_split_stream_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            const __grid_constant__ CUtensorMap domap,
+                            const attn_wg::BwdParamsT<float> p) {
+  using namespace attn_wg;
+  using S = DkvSplitStreamShape<kNq, kCols, kBf16x3>;
+  constexpr int kStages = S::kStages;
+  constexpr int kOutStages = S::kOutStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* ready = full + kStages;
+  uint64_t* empty = ready + kStages;
+  uint64_t* out_full = empty + kStages;
+  uint64_t* out_ready = out_full + kOutStages;
+  uint64_t* out_empty = out_ready + kOutStages;
+  const int items =
+      (p.total - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int n_dc = (p.D + 31) / 32;  // the chunks of the sums over D
+  const StreamCut cut{(p.D + kCols - 1) / kCols};
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&ready[i], kConverterWarps);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+    for (int i = 0; i < kOutStages; ++i) {
+      mbar_init(&out_full[i], 1);
+      mbar_init(&out_ready[i], kConverterWarps);
+      mbar_init(&out_empty[i], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x & 31;
+  if (role == kConsumerWGs) {
+    const int pw = (threadIdx.x / 32) & 3;
+    if (pw == 0) {
+      // ---- producer: one thread keeps the loads in flight ----
+      if (lane != 0) return;
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      prefetch_map(&qmap);
+      prefetch_map(&domap);
+      int st = 0, sph = 0, os = 0, oph = 0;
+      for (int i = 0; i < items; ++i) {
+        const Item it(p, blockIdx.x + i * gridDim.x);
+        const int k0 = it.tile * S::kKeys;
+        // the atoms of the consumers' chunks that hold columns < D (atoms
+        // wholly past D feed only columns never stored)
+        int atoms[2];
+        for (int c = 0; c < 2; ++c)
+          atoms[c] = cut.stores(it.group, c)
+                         ? min(kCols / 32,
+                               (p.D - cut.chunk(it.group, c) * kCols + 31) /
+                                   32)
+                         : 0;
+        const long long line = static_cast<long long>(it.bh) * p.Tpad;
+        for (int j = 0; j < p.n_loop; ++j) {
+          const int q0 = j * kNq;
+          for (int d = 0; d < n_dc; ++d) {
+            mbar_wait(&empty[st], sph ^ 1);  // a fresh barrier passes at once
+            mbar_expect_tx(&full[st], S::kRawBytes);
+            uint8_t* dst = smem + st * S::kStageBytes;
+            tma_load_4d(dst, &kmap, &full[st], 32 * d, it.h, k0, it.b);
+            tma_load_4d(dst + S::kVOff, &vmap, &full[st], 32 * d, it.h, k0,
+                        it.b);
+            tma_load_4d(dst + S::kQOff, &qmap, &full[st], 32 * d, it.h, q0,
+                        it.b);
+            tma_load_4d(dst + S::kDOff, &domap, &full[st], 32 * d, it.h, q0,
+                        it.b);
+            if (++st == kStages) st = 0, sph ^= 1;
+          }
+          mbar_wait(&out_empty[os], oph ^ 1);
+          mbar_expect_tx(&out_full[os],
+                         2 * (atoms[0] + atoms[1]) * S::kQBytes +
+                             2 * S::kLineBytes);
+          uint8_t* out = smem + S::kOutOff + os * S::kOutBytes;
+          for (int c = 0; c < 2; ++c)
+            for (int a = 0; a < atoms[c]; ++a) {
+              const int col = cut.chunk(it.group, c) * kCols + 32 * a;
+              tma_load_4d(out + 2 * c * S::kSlotBytes + a * S::kQBytes,
+                          &qmap, &out_full[os], col, it.h, q0, it.b);
+              tma_load_4d(out + (2 * c + 1) * S::kSlotBytes + a * S::kQBytes,
+                          &domap, &out_full[os], col, it.h, q0, it.b);
+            }
+          uint8_t* lines = smem + S::kLOff + os * 2 * S::kLineBytes;
+          bulk_load(lines, p.rows + line + q0, S::kLineBytes, &out_full[os]);
+          bulk_load(lines + S::kLineBytes, p.deltas + line + q0,
+                    S::kLineBytes, &out_full[os]);
+          if (++os == kOutStages) os = 0, oph ^= 1;
+        }
+      }
+      return;
+    }
+    // ---- converter: warps 1-3 split the chunks as they arrive ----
+    const int cw = pw - 1;
+    int st = 0, sph = 0, os = 0, oph = 0;
+    for (int i = 0; i < items; ++i)
+      for (int j = 0; j < p.n_loop; ++j) {
+        for (int d = 0; d < n_dc; ++d) {
+          mbar_wait(&full[st], sph);
+          uint8_t* stage = smem + st * S::kStageBytes;
+          split_tile(stage, stage + S::kRawBytes, S::kRawBytes, cw, lane);
+          converted(&ready[st], lane);
+          if (++st == kStages) st = 0, sph ^= 1;
+        }
+        mbar_wait(&out_full[os], oph);
+        uint8_t* out = smem + S::kOutOff + os * S::kOutBytes;
+        for (int x = 0; x < 4; ++x) {
+          uint8_t* b = out + S::kBOff + x * S::kBBytes;
+          if constexpr (kBf16x3)
+            split_terms<kCols, kNq, false>(out + x * S::kSlotBytes, nullptr,
+                                           b, S::kApart, cw, lane);
+          else
+            split_transpose<kCols, kNq, false>(out + x * S::kSlotBytes,
+                                               nullptr, b, b + S::kApart, cw,
+                                               lane);
+        }
+        converted(&out_ready[os], lane);
+        if (++os == kOutStages) os = 0, oph ^= 1;
+      }
+    return;
+  }
+
+  // ---- consumers: both on the item's 64 keys, each its chunk ----
+  const int c = role;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int t = lane & 3;
+
+  float s[kNq / 2], dp[kNq / 2];
+  float dk[kCols / 2], dv[kCols / 2];
+  float dk_part[kCols / 2], dv_part[kCols / 2];  // a query tile's parts
+  GradFrags<kNq, kBf16x3> pf, dsf;  // p^T and ds^T
+
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  auto fence_grads = [&]() {
+    fence_regs(dk_part);
+    fence_regs(dv_part);
+    pf.fence();
+    dsf.fence();
+  };
+  int st = 0, sph = 0;
+  // s^T = k.q^T and dp^T = v.do^T of one query tile, their 32-column
+  // chunks in turn from the ring, each chunk's products in fresh
+  // accumulators added into s^T and dp^T in f32, each stage released once
+  // its products are done
+  auto logits = [&]() {
+#pragma unroll
+    for (int x = 0; x < kNq / 2; ++x) s[x] = dp[x] = 0.f;
+    for (int d = 0; d < n_dc; ++d) {
+      float sp[kNq / 2], dpp[kNq / 2];
+      mbar_wait(&ready[st], sph);
+      const uint32_t big = smem_u32(smem + st * S::kStageBytes);
+      const uint32_t small = big + S::kRawBytes;
+      fence_regs(sp);
+      fence_regs(dpp);
+      wg_fence();
+      product_ss_tf32<32, kNq, true>(sp, big, small, S::kKeys,
+                                     big + S::kQOff, small + S::kQOff);
+      product_ss_tf32<32, kNq, true>(dpp, big + S::kVOff, small + S::kVOff,
+                                     S::kKeys, big + S::kDOff,
+                                     small + S::kDOff);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sp);
+      fence_regs(dpp);
+      release(&empty[st]);
+      add_part(s, sp);
+      add_part(dp, dpp);
+      if (++st == kStages) st = 0, sph ^= 1;
+    }
+  };
+  // the n-th stage of the second ring the block takes, and its phase
+  auto out_stage = [](int n) { return n % kOutStages; };
+  auto out_phase = [](int n) { return (n / kOutStages) & 1; };
+  // the parts p^T.do of dv and ds^T.q of dk of the query tile in the second
+  // ring's n-th stage, over the consumer's columns
+  auto accumulate = [&](int n) {
+    fence_grads();
+    wg_fence();
+    const uint32_t b = smem_u32(smem + S::kOutOff +
+                                out_stage(n) * S::kOutBytes + S::kBOff) +
+                       2 * c * S::kBBytes;
+    pf.template product<kCols, kCols>(dv_part, b + S::kBBytes, S::kApart, 0);
+    dsf.template product<kCols, kCols>(dk_part, b, S::kApart, 0);
+    wg_commit();
+  };
+  auto accumulated = [&](int n) {
+    wg_wait<0>();
+    fence_grads();
+    release(&out_empty[out_stage(n)]);
+    add_part(dk, dk_part);
+    add_part(dv, dv_part);
+  };
+  // p^T into s and ds^T into dp, with the lse2 and delta of the query tile
+  // in the second ring's n-th stage
+  auto grads = [&](int n) {
+    mbar_wait(&out_ready[out_stage(n)], out_phase(n));
+    const float* lt = reinterpret_cast<const float*>(
+        smem + S::kLOff + out_stage(n) * 2 * S::kLineBytes);
+    dkv_grads<kNq>(s, dp, lt, lt + kNq, p, t);
+  };
+  auto split = [&]() {
+    pf.split(s);
+    dsf.split(dp);
+  };
+
+  int n = 0;  // second-ring stages taken
+  for (int i = 0; i < items; ++i) {
+    const Item it(p, blockIdx.x + i * gridDim.x);
+    const int key_w = it.tile * S::kKeys + 16 * warp;  // the warp's first
+    const int col0 = cut.chunk(it.group, c) * kCols;   // the consumer's
+#pragma unroll
+    for (int x = 0; x < kCols / 2; ++x) dk[x] = dv[x] = 0.f;
+
+    // The first query tile's turn is peeled off the loop.  In the loop the
+    // gradient products of the tile before run while this tile's exps do.
+    logits();
+    grads(n);
+    split();
+    for (int j = 1; j < p.n_loop; ++j) {
+      logits();
+      accumulate(n);
+      grads(n + 1);
+      accumulated(n);
+      split();
+      ++n;
+    }
+    accumulate(n);
+    accumulated(n);
+    ++n;
+
+    // a clamped chunk's copy is not stored (no rows below 0)
+    const int rows = cut.stores(it.group, c) ? p.T : 0;
+    store_acc<kCols>(dk, p.out0 + it.b * p.s0[0] + it.h * p.s0[1], p.s0[2],
+                     key_w, rows, col0, p.D, p.pairs, lane);
+    store_acc<kCols>(dv, p.out1 + it.b * p.s1[0] + it.h * p.s1[1], p.s1[2],
+                     key_w, rows, col0, p.D, p.pairs, lane);
+  }
+}
+
+// Launches dkv_split_stream_kernel<kNq, kCols, kBf16x3>: a persistent grid,
+// one block an SM.
+template <int kNq, int kCols, bool kBf16x3>
+cudaError_t launch_dkv_tf32_stream(const attn_wg::View& q,
+                                   const attn_wg::View& k,
+                                   const attn_wg::View& v,
+                                   const attn_wg::View& dout,
+                                   attn_wg::BwdParamsT<float> p, int B, int H,
+                                   int T, int D, cudaStream_t stream) {
+  using namespace attn_wg;
+  using S = DkvSplitStreamShape<kNq, kCols, kBf16x3>;
+  auto kernel = dkv_split_stream_kernel<kNq, kCols, kBf16x3>;
+  static thread_local uint64_t opted_in = 0;
+  const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm, dm;
+  // f32 views, boxes of 32 columns (an atom), 128-byte swizzle
+  int maps = tensor_map(&qm, q, B, H, T, D, 32, kNq, 1, 4);
+  if (maps == 0) maps = tensor_map(&dm, dout, B, H, T, D, 32, kNq, 1, 4);
+  if (maps == 0) maps = tensor_map(&km, k, B, H, T, D, 32, S::kKeys, 1, 4);
+  if (maps == 0) maps = tensor_map(&vm, v, B, H, T, D, 32, S::kKeys, 1, 4);
+  if (maps != 0) return static_cast<cudaError_t>(maps);
+  const int chunks = (D + kCols - 1) / kCols;
+  p.n_groups = (chunks + 1) / 2;
+  p.n_items = (T + S::kKeys - 1) / S::kKeys * p.n_groups;
+  p.n_loop = (T + kNq - 1) / kNq;
+  p.total = B * H * p.n_items;
+  kernel<<<min(p.total, sm_count()), attn_wg::kThreads, S::kBytes, stream>>>(
+      qm, km, vm, dm, p);
+  return cudaGetLastError();
+}
+
 // The f32 instance of the first DKV_F32 row (backward_tiles.cuh) of width
-// >= D; past the widest the CUDA-core chunk kernel below runs instead.
+// >= D, past the widest the streamed row's.
 cudaError_t launch_tf32(const attn_wg::View& q, const attn_wg::View& k,
                         const attn_wg::View& v, const attn_wg::View& dout,
                         const attn_wg::BwdParamsT<float>& p, int B, int H,
                         int T, int D, cudaStream_t stream) {
-#define DQ(w, n, cols)
-#define DQ_STREAMED(n, cols)
-#define DKV(w, n, cols)
-#define DKV_STREAMED(n, cols)
-#define DQ_F32(w, n, cols, bf16x3)
 #define DKV_F32(w, n, cols, bf16x3)                                       \
   if (D <= w)                                                             \
     return launch_dkv_tf32<w, n, cols, bf16x3 != 0>(q, k, v, dout, p, B,  \
                                                     H, T, D, stream);
+#define DKV_F32_STREAMED(n, cols, bf16x3)                                 \
+  return launch_dkv_tf32_stream<n, cols, bf16x3 != 0>(q, k, v, dout, p,   \
+                                                      B, H, T, D, stream);
 #include "backward_tiles.cuh"
-#undef DQ
-#undef DQ_STREAMED
-#undef DKV
-#undef DKV_STREAMED
-#undef DQ_F32
-#undef DKV_F32
-  return cudaErrorInvalidValue;
+  return cudaErrorInvalidValue;  // a table without a DKV_F32_STREAMED row
 }
 
-// The f32 instance's dynamic shared memory at D (0 past the widest row).
+// The f32 instance's dynamic shared memory at D.
 size_t tf32_smem_bytes(int D) {
-#define DQ(w, n, cols)
-#define DQ_STREAMED(n, cols)
-#define DKV(w, n, cols)
-#define DKV_STREAMED(n, cols)
-#define DQ_F32(w, n, cols, bf16x3)
 #define DKV_F32(w, n, cols, bf16x3) \
   if (D <= w) return DkvF32Shape<w, n, cols, bf16x3 != 0>::kBytes;
+#define DKV_F32_STREAMED(n, cols, bf16x3) \
+  return DkvSplitStreamShape<n, cols, bf16x3 != 0>::kBytes;
 #include "backward_tiles.cuh"
-#undef DQ
-#undef DQ_STREAMED
-#undef DKV
-#undef DKV_STREAMED
-#undef DQ_F32
-#undef DKV_F32
   return 0;
-}
-
-// ---- past kColChunk columns: blocks per (b, h, 64 keys, column chunk) ---
-// f32 dynamic shared memory, in floats: the block's K and V rows, one
-// column chunk (kTileK * kColChunk each); the query tile's Q and dO, the
-// same chunk (kTileQ * (kColChunk + 1) each); the tile's lse and delta;
-// each warp's columns of p and ds.
-size_t chunk_smem_bytes() {
-  return sizeof(float) * (2 * static_cast<size_t>(kTileK) * kColChunk +
-                          2 * static_cast<size_t>(kTileQ) * (kColChunk + 1) +
-                          2 * kTileQ + 2 * kWarps * kTileQ);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_chunk_kernel(const float* __restrict__ q,
-                               const float* __restrict__ k,
-                               const float* __restrict__ v,
-                               const float* __restrict__ o,
-                               const float* __restrict__ dout,
-                               const float* __restrict__ lse,
-                               float* __restrict__ dk, float* __restrict__ dv,
-                               BwdLayout L, int H, int seq, int D,
-                               float scale) {
-  extern __shared__ float smem[];
-  float* k_s = smem;
-  float* v_s = k_s + kTileK * kColChunk;
-  float* q_s = v_s + kTileK * kColChunk;
-  float* do_s = q_s + kTileQ * (kColChunk + 1);
-  float* lse_s = do_s + kTileQ * (kColChunk + 1);
-  float* delta_s = lse_s + kTileQ;
-  float* p_s = delta_s + kTileQ;
-  float* ds_s = p_s + kWarps * kTileQ;
-
-  const int tiles = (seq + kTileK - 1) / kTileK;
-  const int bh = blockIdx.x / tiles;  // b * H + h
-  const int k0 = (blockIdx.x - bh * tiles) * kTileK;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  // row 0 of head (b, h) of each view, its rows L.st[x] apart
-  const float* qh = q + L.head(0, b, h);
-  const float* kh = k + L.head(1, b, h);
-  const float* vh = v + L.head(2, b, h);
-  const float* oh = o + L.head(3, b, h);
-  const float* doh = dout + L.head(4, b, h);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nk = min(kTileK, seq - k0);
-  const int nc = col_chunks(D);
-  const int cc = blockIdx.y;  // the block's chunk of dk and dv
-  const int wc = chunk_width(D, cc);
-
-  float dk_acc[kRows][kColChunk / 32], dv_acc[kRows][kColChunk / 32];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int c = 0; c < kColChunk / 32; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
-  }
-
-  const int key0 = warp * kRows;  // this warp's first key in the tile
-  float* pcol = p_s + warp * kTileQ;
-  float* dscol = ds_s + warp * kTileQ;
-  for (int q0 = 0; q0 < seq; q0 += kTileQ) {
-    const int nq = min(kTileQ, seq - q0);
-    __syncthreads();  // the previous tile's lse and delta are no longer read
-    for (int i = threadIdx.x; i < nq; i += kThreads)
-      lse_s[i] = lse[static_cast<int64_t>(bh) * seq + q0 + i];
-    // delta of the tile's rows, recomputed per tile as the TPU kernel does
-    for (int i = warp; i < nq; i += kWarps) {
-      const float* orow = oh + (q0 + i) * L.st[3];
-      const float* drow = doh + (q0 + i) * L.st[4];
-      float a = 0.f;
-      for (int d = lane; d < D; d += 32) a = fmaf(drow[d], orow[d], a);
-      a = warp_sum(a);
-      if (lane == 0) delta_s[i] = a;
-    }
-    float sT[kRows][2], dpT[kRows][2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      sT[r][0] = sT[r][1] = dpT[r][0] = dpT[r][1] = 0.f;
-    // the block's own chunk last: its Q and dO stay staged for the sums
-    for (int step = 1; step <= nc; ++step) {
-      const int e = (cc + step) % nc;
-      const int w = chunk_width(D, e);
-      const int qs = w + 1;
-      const int col = e * kColChunk;
-      __syncthreads();  // the previous chunk is no longer read
-      for (int idx = threadIdx.x; idx < nk * w; idx += kThreads) {
-        const int j = idx / w;
-        const int d = idx - j * w;
-        k_s[idx] = kh[(k0 + j) * L.st[1] + col + d];
-        v_s[idx] = vh[(k0 + j) * L.st[2] + col + d];
-      }
-      for (int idx = threadIdx.x; idx < nq * w; idx += kThreads) {
-        const int i = idx / w;
-        const int d = idx - i * w;
-        q_s[i * qs + d] = qh[(q0 + i) * L.st[0] + col + d];
-        do_s[i * qs + d] = doh[(q0 + i) * L.st[4] + col + d];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (key0 + r >= nk) break;  // warp-uniform: keys past T
-        const float* krow = k_s + (key0 + r) * w;
-        const float* vrow = v_s + (key0 + r) * w;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int i = lane + 32 * half;
-          if (i < nq) {
-            const float* qi = q_s + i * qs;
-            const float* doi = do_s + i * qs;
-            float a = 0.f, bq = 0.f;
-            for (int d = 0; d < w; ++d) {
-              a = fmaf(qi[d], krow[d], a);
-              bq = fmaf(doi[d], vrow[d], bq);
-            }
-            sT[r][half] += a;
-            dpT[r][half] += bq;
-          }
-        }
-      }
-    }
-
-    const int qs = wc + 1;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (key0 + r >= nk) break;  // warp-uniform: keys past T
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int i = lane + 32 * half;
-        float p = 0.f, ds = 0.f;  // missing rows of a ragged tile
-        if (i < nq) {
-          p = expf(sT[r][half] * scale - lse_s[i]);
-          ds = p * (dpT[r][half] - delta_s[i]) * scale;
-        }
-        pcol[i] = p;
-        dscol[i] = ds;
-      }
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < kColChunk / 32; ++c) {
-        const int d = lane + 32 * c;
-        if (d < wc) {
-          float av = dv_acc[r][c], ak = dk_acc[r][c];
-          for (int i = 0; i < nq; ++i) {
-            av = fmaf(pcol[i], do_s[i * qs + d], av);
-            ak = fmaf(dscol[i], q_s[i * qs + d], ak);
-          }
-          dv_acc[r][c] = av;
-          dk_acc[r][c] = ak;
-        }
-      }
-      __syncwarp();  // pcol and dscol are rewritten for the next key
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (key0 + r >= nk) break;
-    const int key = k0 + key0 + r;
-    float* dkrow = dk + L.head(5, b, h) + key * L.st[5] + cc * kColChunk;
-    float* dvrow = dv + L.head(6, b, h) + key * L.st[6] + cc * kColChunk;
-#pragma unroll
-    for (int c = 0; c < kColChunk / 32; ++c) {
-      const int d = lane + 32 * c;
-      if (d < wc) {
-        dkrow[d] = dk_acc[r][c];
-        dvrow[d] = dv_acc[r][c];
-      }
-    }
-  }
 }
 
 // One launch's scalars with outputs of type T, its rows not yet filled.
@@ -1361,30 +1497,20 @@ attn_wg::BwdParamsT<T> params(const void* o, const void* dout,
   return p;
 }
 
-cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
-                             const void* o, const void* dout, const void* lse,
-                             void* dk, void* dv, float* rows,
-                             const BwdLayout& L, int B, int H, int seq, int D,
-                             float scale, cudaStream_t s) {
-  if (tf32_smem_bytes(D) != 0) {
-    using attn_wg::View;
-    auto p = params<float>(o, dout, lse, dk, dv, L, H, seq, D, scale);
-    const cudaError_t err = launch_rows(p, rows, o, dout, L, B * H, D, s);
-    if (err != cudaSuccess) return err;
-    return launch_tf32(View{q, L.sb[0], L.sh[0], L.st[0]},
-                       View{k, L.sb[1], L.sh[1], L.st[1]},
-                       View{v, L.sb[2], L.sh[2], L.st[2]},
-                       View{dout, L.sb[4], L.sh[4], L.st[4]}, p, B, H, seq, D,
-                       s);
-  }
-  const int tiles = (seq + kTileK - 1) / kTileK;
-  return launch_with_smem(
-      flash_bwd_dkv_chunk_kernel, dim3(B * H * tiles, col_chunks(D)),
-      kThreads, chunk_smem_bytes(), s, static_cast<const float*>(q),
-      static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(dk),
-      static_cast<float*>(dv), L, H, seq, D, scale);
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const void* lse,
+                       void* dk, void* dv, float* rows, const BwdLayout& L,
+                       int B, int H, int seq, int D, float scale,
+                       cudaStream_t s) {
+  using attn_wg::View;
+  auto p = params<float>(o, dout, lse, dk, dv, L, H, seq, D, scale);
+  const cudaError_t err = launch_rows(p, rows, o, dout, L, B * H, D, s);
+  if (err != cudaSuccess) return err;
+  return launch_tf32(View{q, L.sb[0], L.sh[0], L.st[0]},
+                     View{k, L.sb[1], L.sh[1], L.st[1]},
+                     View{v, L.sb[2], L.sh[2], L.st[2]},
+                     View{dout, L.sb[4], L.sh[4], L.st[4]}, p, B, H, seq, D,
+                     s);
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
@@ -1407,11 +1533,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 // q, k, v, o, dout, dk, dv: (B, H, T, D) views (o and dout as views of their
 // (B, T, H, D) tensors), their (b, h, t) strides in elements in `strides`,
-// three each in that order (d's stride is 1); the wgmma instances (bf16,
-// and f32 up to the widest DKV_F32 row) read q, k, v and dout through
-// tensor maps, so their bases are 16-byte aligned and those strides
-// multiples of 16 bytes, which the wrapper sees to.  lse: (B, H, T) float32
-// contiguous.  rows: the wgmma instances' scratch of
+// three each in that order (d's stride is 1); every instance reads q, k, v
+// and dout through tensor maps, so their bases are 16-byte aligned and
+// those strides multiples of 16 bytes, which the wrapper sees to.  lse: (B,
+// H, T) float32 contiguous.  rows: the scratch of
 // flash_bwd_dkv_scratch_floats(B, H, T, D) floats.  dk and dv have k's
 // type.  Any D; dtype 0 is float32, 1 is bfloat16.  Returns the
 // cudaError_t of the launch, or kTensorMapFailed + the CUresult of a
@@ -1425,9 +1550,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   const BwdLayout L = BwdLayout::from(strides);
   switch (dtype) {
     case 0:
-      return launch_f32_for_d(q, k, v, o, dout, lse, dk, dv,
-                              static_cast<float*>(rows), L, B, H, T, D, scale,
-                              s);
+      return launch_f32(q, k, v, o, dout, lse, dk, dv,
+                        static_cast<float*>(rows), L, B, H, T, D, scale, s);
     case 1:
       return launch_bf16(q, k, v, o, dout, lse, dk, dv,
                          static_cast<float*>(rows), L, B, H, T, D, scale, s);
@@ -1436,8 +1560,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   }
 }
 
-// The floats of scratch one wgmma launch needs: the rows of lse * log2(e)
-// and of delta, each (B * H, T rounded up to kRowsPad), at any D.
+// The floats of scratch one launch needs, every instance's: the rows of lse
+// * log2(e) and of delta, each (B * H, T rounded up to kRowsPad), at any D
+// and in either dtype.
 extern "C" long long flash_bwd_dkv_scratch_floats(int B, int H, int T, int D) {
   (void)D;
   const long long pad = (T + attn_wg::kRowsPad - 1) / attn_wg::kRowsPad *
@@ -1449,8 +1574,7 @@ extern "C" long long flash_bwd_dkv_scratch_floats(int B, int H, int T, int D) {
 // two instances' needs, which depend on D alone.
 extern "C" long long flash_bwd_dkv_smem_bytes(int T, int D) {
   (void)T;
-  const size_t tf32 = tf32_smem_bytes(D);
-  const size_t f32 = tf32 != 0 ? tf32 : chunk_smem_bytes();
+  const size_t f32 = tf32_smem_bytes(D);
   const size_t bf16 = wgmma_smem_bytes(D);
   return static_cast<long long>(f32 > bf16 ? f32 : bf16);
 }

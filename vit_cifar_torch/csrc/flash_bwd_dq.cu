@@ -68,9 +68,11 @@
 //   route); ds is split in the consumers' registers, and each key tile's
 //   part of dq is added into it in f32 (GradFrags says why).  Tiles and
 //   route by width in backward_tiles.cuh's DQ_F32 rows.  Past 128 columns
-//   the CUDA-core design stays, a dispatch by width: one block of 8 warps
-//   per 64 query rows and 128-column chunk of dq, which sums s and dp over
-//   every chunk with lanes over keys.
+//   the streamed instance (dq_split_stream_kernel, the DQ_F32_STREAMED
+//   row): Q, dO, K and V come a 32-column chunk a stage, split by the
+//   converter warps, and s and dp are summed over the chunks in f32 in the
+//   consumers' registers, the B of ds.k at the item's columns through a
+//   second ring, so any width runs on the tensor cores.
 //
 // Shared memory does not grow with T, so any T and any D run.  Offsets are
 // int64; nothing is padded in device memory.
@@ -86,11 +88,6 @@
 namespace {
 
 using namespace attn;
-
-// The CUDA-core chunk kernel's tiles (past the f32 table's widest row).
-constexpr int kRows = 8;                 // query rows per warp
-constexpr int kTileQ = kRows * kWarps;   // query rows per block
-constexpr int kTileK = 64;               // keys per tile: two per lane
 
 // ---- f32 up to the table's widest row: the TF32 wgmma kernel -------------
 // Shared memory of an instance: an item's Q and dO tiles (kRows rows, all
@@ -364,47 +361,340 @@ cudaError_t launch_dq_tf32(const attn_wg::View& q, const attn_wg::View& k,
   return cudaGetLastError();
 }
 
+// ---- f32 past the table: the streamed TF32 dq kernel ----------------------
+// Past the widest DQ_F32 row an item's Q and dO rows at the full width, each
+// held twice (big and small), no longer fit shared memory beside the ring.
+// Here nothing is held at the full width, as in dq_stream_kernel: each stage
+// of the ring holds one 32-column chunk (an f32 swizzle atom) of the item's
+// 64 Q and dO rows and of a K and a V tile, which the converter warps split
+// in place and into their small halves; the consumers take the chunk's three
+// TF32 products of s and of dp into fresh accumulators and add them into s
+// and dp in f32 (the tensor cores truncate what they add into an
+// accumulator, and s summed there over 17-22 chunks at 520-704 columns
+// would drift).  Then ds.k reads the K tile at the consumers' columns of dq,
+// which comes through a second ring (kOutStages), where the converter writes
+// each consumer's B of ds.k: K's three bf16 terms, or its TF32 transpose
+// (the table's bf16x3); each key tile's part of dq lands in a fresh
+// accumulator and is added into dq in f32 (GradFrags), and the ds.k of one
+// key tile runs while the next tile's exps do.  Work items are (b * H + h,
+// 64 query rows, group of two chunks of kCols columns of dq), consumer c on
+// chunk 2 * group + c (StreamCut); the grid is persistent.  dq stays in
+// registers until the item ends: no atomics, two calls give equal bits.
+//
+// Shared memory: kStages stages of a Q, a dO, a K and a V chunk (64, 64, kN
+// and kN rows of 32 f32 columns) as TMA lands them, then their small
+// halves; kOutStages stages of the K tile at the consumers' columns (a slot
+// each, kCols / 32 atoms of kN rows), then each consumer's B of ds.k; the
+// barriers.
+template <int kN, int kCols, bool kBf16x3>
+struct DqSplitStreamShape {
+  static constexpr int kRows = 64;                // query rows an item
+  static constexpr int kQBytes = kRows * 128;     // a chunk of Q or dO
+  static constexpr int kKBytes = kN * 128;        // a chunk of K or V
+  static constexpr int kDOff = kQBytes;           // within a stage
+  static constexpr int kKOff = 2 * kQBytes;
+  static constexpr int kVOff = kKOff + kKBytes;
+  static constexpr int kRawBytes = 2 * kQBytes + 2 * kKBytes;
+  static constexpr int kStageBytes = 2 * kRawBytes;  // big, then small
+  static constexpr int kSlotBytes = kCols / 32 * kKBytes;  // a consumer's K
+  // ds.k's B of a consumer: K's bf16 terms, or K^T's halves, this far apart
+  static constexpr int kApart = (kBf16x3 ? 2 : 4) * kN * kCols;
+  static constexpr int kBBytes = (kBf16x3 ? 3 : 2) * kApart;
+  static constexpr int kBOff = 2 * kSlotBytes;    // within an out stage
+  static constexpr int kOutBytes = 2 * kSlotBytes + 2 * kBBytes;
+  static constexpr int kOutStages = 2;
+  // as many stages as fit, at most 6
+  static constexpr int kFit =
+      (attn_wg::kSmemBudget - kOutStages * kOutBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 6 ? kFit : 6;
+  static constexpr int kOutOff = kStages * kStageBytes;
+  static constexpr int kBarOff = kOutOff + kOutStages * kOutBytes;
+  static constexpr int kBytes =
+      kBarOff + 8 * 3 * (kStages + kOutStages) + 1024;
+  static_assert(kN % (kBf16x3 ? 16 : 8) == 0 && kN <= 64,
+                "key tile: whole k8 (k16) steps");
+  static_assert(kCols % 32 == 0 && kCols <= 64, "whole f32 atoms, Tf32's N");
+  static_assert(kStages >= 2, "a ring of at least two stages");
+};
+
+template <int kN, int kCols, bool kBf16x3>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    dq_split_stream_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap domap,
+                           const attn_wg::BwdParamsT<float> p) {
+  using namespace attn_wg;
+  using S = DqSplitStreamShape<kN, kCols, kBf16x3>;
+  constexpr int kStages = S::kStages;
+  constexpr int kOutStages = S::kOutStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* ready = full + kStages;
+  uint64_t* empty = ready + kStages;
+  uint64_t* out_full = empty + kStages;
+  uint64_t* out_ready = out_full + kOutStages;
+  uint64_t* out_empty = out_ready + kOutStages;
+  const int items =
+      (p.total - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int n_dc = (p.D + 31) / 32;  // the chunks of the sums over D
+  const StreamCut cut{(p.D + kCols - 1) / kCols};
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&ready[i], kConverterWarps);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+    for (int i = 0; i < kOutStages; ++i) {
+      mbar_init(&out_full[i], 1);
+      mbar_init(&out_ready[i], kConverterWarps);
+      mbar_init(&out_empty[i], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x & 31;
+  if (role == kConsumerWGs) {
+    const int pw = (threadIdx.x / 32) & 3;
+    if (pw == 0) {
+      // ---- producer: one thread keeps the TMA loads in flight ----
+      if (lane != 0) return;
+      prefetch_map(&qmap);
+      prefetch_map(&domap);
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      int st = 0, sph = 0, os = 0, oph = 0;
+      for (int i = 0; i < items; ++i) {
+        const Item it(p, blockIdx.x + i * gridDim.x);
+        const int q0 = it.tile * S::kRows;
+        // the atoms of the consumers' chunks of dq that hold columns < D
+        // (atoms wholly past D feed only columns never stored)
+        int atoms[2];
+        for (int c = 0; c < 2; ++c)
+          atoms[c] = cut.stores(it.group, c)
+                         ? min(kCols / 32,
+                               (p.D - cut.chunk(it.group, c) * kCols + 31) /
+                                   32)
+                         : 0;
+        for (int j = 0; j < p.n_loop; ++j) {
+          const int k0 = (p.n_loop - 1 - j) * kN;  // last tile first
+          for (int d = 0; d < n_dc; ++d) {
+            mbar_wait(&empty[st], sph ^ 1);  // a fresh barrier passes at once
+            mbar_expect_tx(&full[st], S::kRawBytes);
+            uint8_t* dst = smem + st * S::kStageBytes;
+            tma_load_4d(dst, &qmap, &full[st], 32 * d, it.h, q0, it.b);
+            tma_load_4d(dst + S::kDOff, &domap, &full[st], 32 * d, it.h, q0,
+                        it.b);
+            tma_load_4d(dst + S::kKOff, &kmap, &full[st], 32 * d, it.h, k0,
+                        it.b);
+            tma_load_4d(dst + S::kVOff, &vmap, &full[st], 32 * d, it.h, k0,
+                        it.b);
+            if (++st == kStages) st = 0, sph ^= 1;
+          }
+          mbar_wait(&out_empty[os], oph ^ 1);
+          mbar_expect_tx(&out_full[os], (atoms[0] + atoms[1]) * S::kKBytes);
+          uint8_t* out = smem + S::kOutOff + os * S::kOutBytes;
+          for (int c = 0; c < 2; ++c)
+            for (int a = 0; a < atoms[c]; ++a)
+              tma_load_4d(out + c * S::kSlotBytes + a * S::kKBytes, &kmap,
+                          &out_full[os],
+                          cut.chunk(it.group, c) * kCols + 32 * a, it.h, k0,
+                          it.b);
+          if (++os == kOutStages) os = 0, oph ^= 1;
+        }
+      }
+      return;
+    }
+    // ---- converter: warps 1-3 split the chunks as they arrive ----
+    const int cw = pw - 1;
+    int st = 0, sph = 0, os = 0, oph = 0;
+    for (int i = 0; i < items; ++i)
+      for (int j = 0; j < p.n_loop; ++j) {
+        for (int d = 0; d < n_dc; ++d) {
+          mbar_wait(&full[st], sph);
+          uint8_t* stage = smem + st * S::kStageBytes;
+          split_tile(stage, stage + S::kRawBytes, S::kRawBytes, cw, lane);
+          converted(&ready[st], lane);
+          if (++st == kStages) st = 0, sph ^= 1;
+        }
+        mbar_wait(&out_full[os], oph);
+        uint8_t* out = smem + S::kOutOff + os * S::kOutBytes;
+        for (int c = 0; c < 2; ++c) {
+          uint8_t* b = out + S::kBOff + c * S::kBBytes;
+          if constexpr (kBf16x3)
+            split_terms<kCols, kN, false>(out + c * S::kSlotBytes, nullptr, b,
+                                          S::kApart, cw, lane);
+          else
+            split_transpose<kCols, kN, false>(out + c * S::kSlotBytes,
+                                              nullptr, b, b + S::kApart, cw,
+                                              lane);
+        }
+        converted(&out_ready[os], lane);
+        if (++os == kOutStages) os = 0, oph ^= 1;
+      }
+    return;
+  }
+
+  // ---- consumers: both on the item's 64 rows, each its chunk of dq ----
+  const int c = role;
+  const int warp = (threadIdx.x / 32) & 3;
+  const int t = lane & 3;
+
+  float s[kN / 2], dp[kN / 2];
+  float dq[kCols / 2], part[kCols / 2];  // dq, a key tile's part of it
+  GradFrags<kN, kBf16x3> ds;
+  float lse2[2], delta[2];
+
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  int st = 0, sph = 0, os = 0, oph = 0;
+  // s = q.k^T and dp = do.v^T of one key tile, their 32-column chunks in
+  // turn from the ring, each chunk's products in fresh accumulators added
+  // into s and dp in f32, each stage released once its products are done
+  auto logits = [&]() {
+#pragma unroll
+    for (int x = 0; x < kN / 2; ++x) s[x] = dp[x] = 0.f;
+    for (int d = 0; d < n_dc; ++d) {
+      float sp[kN / 2], dpp[kN / 2];
+      mbar_wait(&ready[st], sph);
+      const uint32_t big = smem_u32(smem + st * S::kStageBytes);
+      const uint32_t small = big + S::kRawBytes;
+      fence_regs(sp);
+      fence_regs(dpp);
+      wg_fence();
+      product_ss_tf32<32, kN, true>(sp, big, small, S::kRows,
+                                    big + S::kKOff, small + S::kKOff);
+      product_ss_tf32<32, kN, true>(dpp, big + S::kDOff, small + S::kDOff,
+                                    S::kRows, big + S::kVOff,
+                                    small + S::kVOff);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sp);
+      fence_regs(dpp);
+      release(&empty[st]);
+      add_part(s, sp);
+      add_part(dp, dpp);
+      if (++st == kStages) st = 0, sph ^= 1;
+    }
+  };
+  // part = ds.k of the oldest K tile of the second ring over the
+  // consumer's columns
+  auto accumulate = [&]() {
+    mbar_wait(&out_ready[os], oph);
+    fence_regs(part);
+    ds.fence();
+    wg_fence();
+    ds.template product<kCols, kCols>(
+        part,
+        smem_u32(smem + S::kOutOff + os * S::kOutBytes + S::kBOff +
+                 c * S::kBBytes),
+        S::kApart, 0);
+    wg_commit();
+  };
+  auto accumulated = [&]() {
+    wg_wait<0>();
+    fence_regs(part);
+    ds.fence();
+    release(&out_empty[os]);
+    add_part(dq, part);
+    if (++os == kOutStages) os = 0, oph ^= 1;
+  };
+
+  for (int i = 0; i < items; ++i) {
+    const Item it(p, blockIdx.x + i * gridDim.x);
+    const int row_w = it.tile * S::kRows + 16 * warp;  // the warp's first
+    const int col0 = cut.chunk(it.group, c) * kCols;   // the consumer's
+    // q and do rows past T arrive as zeros, and lse = delta = 0 there
+    row_terms(p, it, row_w, lane, lse2, delta);
+#pragma unroll
+    for (int x = 0; x < kCols / 2; ++x) dq[x] = 0.f;
+
+    // Key tiles last to first; the first one taken, alone masked, is
+    // peeled off the loop.  In the loop the ds.k of the tile before runs
+    // while this tile's exps do.
+    logits();
+    dq_grads<kN, true>(s, dp, lse2, delta, p, (p.n_loop - 1) * kN, t);
+    ds.split(s);
+    for (int j = 1; j < p.n_loop; ++j) {
+      logits();
+      accumulate();
+      dq_grads<kN, false>(s, dp, lse2, delta, p, 0, t);
+      accumulated();
+      ds.split(s);
+    }
+    accumulate();
+    accumulated();
+
+    // a clamped chunk's copy is not stored (no rows below 0)
+    store_acc<kCols>(dq, p.out0 + it.b * p.s0[0] + it.h * p.s0[1], p.s0[2],
+                     row_w, cut.stores(it.group, c) ? p.T : 0, col0, p.D,
+                     p.pairs, lane);
+  }
+}
+
+// Launches dq_split_stream_kernel<kN, kCols, kBf16x3>: a persistent grid,
+// one block an SM.
+template <int kN, int kCols, bool kBf16x3>
+cudaError_t launch_dq_tf32_stream(const attn_wg::View& q,
+                                  const attn_wg::View& k,
+                                  const attn_wg::View& v,
+                                  const attn_wg::View& dout,
+                                  attn_wg::BwdParamsT<float> p, int B, int H,
+                                  int T, int D, cudaStream_t stream) {
+  using namespace attn_wg;
+  using S = DqSplitStreamShape<kN, kCols, kBf16x3>;
+  auto kernel = dq_split_stream_kernel<kN, kCols, kBf16x3>;
+  static thread_local uint64_t opted_in = 0;
+  const cudaError_t err = opt_in(kernel, S::kBytes, opted_in);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm, dm;
+  // f32 views, boxes of 32 columns (an atom), 128-byte swizzle
+  int maps = tensor_map(&qm, q, B, H, T, D, 32, S::kRows, 1, 4);
+  if (maps == 0)
+    maps = tensor_map(&dm, dout, B, H, T, D, 32, S::kRows, 1, 4);
+  if (maps == 0) maps = tensor_map(&km, k, B, H, T, D, 32, kN, 1, 4);
+  if (maps == 0) maps = tensor_map(&vm, v, B, H, T, D, 32, kN, 1, 4);
+  if (maps != 0) return static_cast<cudaError_t>(maps);
+  const int chunks = (D + kCols - 1) / kCols;
+  p.n_groups = (chunks + 1) / 2;
+  p.n_items = (T + S::kRows - 1) / S::kRows * p.n_groups;
+  p.n_loop = (T + kN - 1) / kN;
+  p.total = B * H * p.n_items;
+  kernel<<<min(p.total, sm_count()), attn_wg::kThreads, S::kBytes, stream>>>(
+      qm, km, vm, dm, p);
+  return cudaGetLastError();
+}
+
 // The f32 instance of the first DQ_F32 row (backward_tiles.cuh) of width
-// >= D; past the widest the CUDA-core chunk kernel below runs instead.
+// >= D, past the widest the streamed row's.
 cudaError_t launch_tf32(const attn_wg::View& q, const attn_wg::View& k,
                         const attn_wg::View& v, const attn_wg::View& dout,
                         const attn_wg::BwdParamsT<float>& p, int B, int H,
                         int T, int D, cudaStream_t stream) {
-#define DQ(w, n, cols)
-#define DQ_STREAMED(n, cols)
-#define DKV(w, n, cols)
-#define DKV_STREAMED(n, cols)
 #define DQ_F32(w, n, cols, bf16x3)                                        \
   if (D <= w)                                                             \
     return launch_dq_tf32<w, n, cols, bf16x3 != 0>(q, k, v, dout, p, B, H, \
                                                   T, D, stream);
-#define DKV_F32(w, n, cols, bf16x3)
+#define DQ_F32_STREAMED(n, cols, bf16x3)                                  \
+  return launch_dq_tf32_stream<n, cols, bf16x3 != 0>(q, k, v, dout, p, B, \
+                                                     H, T, D, stream);
 #include "backward_tiles.cuh"
-#undef DQ
-#undef DQ_STREAMED
-#undef DKV
-#undef DKV_STREAMED
-#undef DQ_F32
-#undef DKV_F32
-  return cudaErrorInvalidValue;
+  return cudaErrorInvalidValue;  // a table without a DQ_F32_STREAMED row
 }
 
-// The f32 instance's dynamic shared memory at D (0 past the widest row).
+// The f32 instance's dynamic shared memory at D.
 size_t tf32_smem_bytes(int D) {
-#define DQ(w, n, cols)
-#define DQ_STREAMED(n, cols)
-#define DKV(w, n, cols)
-#define DKV_STREAMED(n, cols)
 #define DQ_F32(w, n, cols, bf16x3) \
   if (D <= w) return DqF32Shape<w, n, cols, bf16x3 != 0>::kBytes;
-#define DKV_F32(w, n, cols, bf16x3)
+#define DQ_F32_STREAMED(n, cols, bf16x3) \
+  return DqSplitStreamShape<n, cols, bf16x3 != 0>::kBytes;
 #include "backward_tiles.cuh"
-#undef DQ
-#undef DQ_STREAMED
-#undef DKV
-#undef DKV_STREAMED
-#undef DQ_F32
-#undef DKV_F32
   return 0;
 }
 
@@ -922,17 +1212,7 @@ cudaError_t launch_wgmma(const attn_wg::View& q, const attn_wg::View& k,
     return launch_dq<w, n, cols>(q, k, v, dout, p, B, H, T, D, stream);
 #define DQ_STREAMED(n, cols)                                             \
   return launch_dq_stream<n, cols>(q, k, v, dout, p, B, H, T, D, stream);
-#define DKV(w, n, cols)
-#define DKV_STREAMED(n, cols)
-#define DQ_F32(w, n, cols, bf16x3)
-#define DKV_F32(w, n, cols, bf16x3)
 #include "backward_tiles.cuh"
-#undef DQ
-#undef DQ_STREAMED
-#undef DKV
-#undef DKV_STREAMED
-#undef DQ_F32
-#undef DKV_F32
   return cudaErrorInvalidValue;  // a table without a DQ_STREAMED row
 }
 
@@ -941,212 +1221,38 @@ size_t wgmma_smem_bytes(int D) {
 #define DQ(w, n, cols) \
   if (D <= w) return DqShape<w, n, cols>::kBytes;
 #define DQ_STREAMED(n, cols) return DqStreamShape<n, cols>::kBytes;
-#define DKV(w, n, cols)
-#define DKV_STREAMED(n, cols)
-#define DQ_F32(w, n, cols, bf16x3)
-#define DKV_F32(w, n, cols, bf16x3)
 #include "backward_tiles.cuh"
-#undef DQ
-#undef DQ_STREAMED
-#undef DKV
-#undef DKV_STREAMED
-#undef DQ_F32
-#undef DKV_F32
   return 0;
 }
 
-// ---- past kColChunk columns: one block per (b, h, query tile, column
-// chunk of dq) ---------------------------------------------------------------
-// f32 dynamic shared memory, in floats: the block's q and dO rows, one
-// column chunk (kTileQ * kColChunk each); the key tile's K and V, the same
-// chunk (kTileK * (kColChunk + 1) each); each warp's row of ds.
-size_t chunk_smem_bytes() {
-  return sizeof(float) * (2 * static_cast<size_t>(kTileQ) * kColChunk +
-                          2 * static_cast<size_t>(kTileK) * (kColChunk + 1) +
-                          kWarps * kTileK);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_chunk_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const float* __restrict__ o,
-                              const float* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              float* __restrict__ dq, BwdLayout L, int H,
-                              int seq, int D, float scale) {
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* do_s = q_s + kTileQ * kColChunk;
-  float* k_s = do_s + kTileQ * kColChunk;
-  float* v_s = k_s + kTileK * (kColChunk + 1);
-  float* ds_s = v_s + kTileK * (kColChunk + 1);
-
-  const int tiles = (seq + kTileQ - 1) / kTileQ;
-  const int bh = blockIdx.x / tiles;  // b * H + h
-  const int q0 = (blockIdx.x - bh * tiles) * kTileQ;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  // row 0 of head (b, h) of each view, its rows L.st[x] apart
-  const float* qh = q + L.head(0, b, h);
-  const float* kh = k + L.head(1, b, h);
-  const float* vh = v + L.head(2, b, h);
-  const float* oh = o + L.head(3, b, h);
-  const float* doh = dout + L.head(4, b, h);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nq = min(kTileQ, seq - q0);
-  const int nc = col_chunks(D);
-  const int cc = blockIdx.y;  // the block's chunk of dq
-  const int wc = chunk_width(D, cc);
-
-  const int row0 = warp * kRows;  // this warp's first row in the tile
-  float delta[kRows], lse_r[kRows], acc[kRows][kColChunk / 32];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    delta[r] = 0.f;
-    lse_r[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kColChunk / 32; ++c) acc[r][c] = 0.f;
-    if (row0 + r < nq) {  // warp-uniform
-      const float* orow = oh + (q0 + row0 + r) * L.st[3];
-      const float* drow = doh + (q0 + row0 + r) * L.st[4];
-      float a = 0.f;
-      for (int d = lane; d < D; d += 32) a = fmaf(drow[d], orow[d], a);
-      delta[r] = warp_sum(a);
-      lse_r[r] = lse[static_cast<int64_t>(bh) * seq + q0 + row0 + r];
-    }
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const void* lse,
+                       void* dq, const BwdLayout& L, int B, int H, int seq,
+                       int D, float scale, cudaStream_t s) {
+  using attn_wg::View;
+  attn_wg::BwdParamsT<float> p{};
+  p.out0 = static_cast<float*>(dq);
+  p.o = static_cast<const float*>(o);
+  p.dout = static_cast<const float*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  for (int x = 0; x < 3; ++x) {
+    const int64_t* st[3] = {L.sb, L.sh, L.st};
+    p.so[x] = st[x][3];
+    p.sd[x] = st[x][4];
+    p.s0[x] = st[x][5];
   }
-
-  float* dsrow = ds_s + warp * kTileK;
-  for (int k0 = 0; k0 < seq; k0 += kTileK) {
-    const int nk = min(kTileK, seq - k0);
-    float s[kRows][2], dp[kRows][2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-    // the block's own chunk last: its K stays staged for ds.K
-    for (int step = 1; step <= nc; ++step) {
-      const int e = (cc + step) % nc;
-      const int w = chunk_width(D, e);
-      const int ks = w + 1;
-      const int col = e * kColChunk;
-      __syncthreads();  // the previous chunk (or tile) is no longer read
-      for (int idx = threadIdx.x; idx < nq * w; idx += kThreads) {
-        const int i = idx / w;
-        const int d = idx - i * w;
-        q_s[idx] = qh[(q0 + i) * L.st[0] + col + d];
-        do_s[idx] = doh[(q0 + i) * L.st[4] + col + d];
-      }
-      for (int idx = threadIdx.x; idx < nk * w; idx += kThreads) {
-        const int j = idx / w;
-        const int d = idx - j * w;
-        k_s[j * ks + d] = kh[(k0 + j) * L.st[1] + col + d];
-        v_s[j * ks + d] = vh[(k0 + j) * L.st[2] + col + d];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (row0 + r >= nq) break;  // warp-uniform: rows past T
-        const float* qrow = q_s + (row0 + r) * w;
-        const float* dorow = do_s + (row0 + r) * w;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int j = lane + 32 * half;
-          if (j < nk) {
-            const float* krow = k_s + j * ks;
-            const float* vrow = v_s + j * ks;
-            float a = 0.f, bq = 0.f;
-            for (int d = 0; d < w; ++d) {
-              a = fmaf(qrow[d], krow[d], a);
-              bq = fmaf(dorow[d], vrow[d], bq);
-            }
-            s[r][half] += a;
-            dp[r][half] += bq;
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (row0 + r >= nq) break;  // warp-uniform: rows past T
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = lane + 32 * half;
-        float ds = 0.f;  // missing keys of a ragged tile
-        if (j < nk) {
-          const float p = expf(s[r][half] * scale - lse_r[r]);
-          ds = p * (dp[r][half] - delta[r]) * scale;
-        }
-        dsrow[j] = ds;
-      }
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < kColChunk / 32; ++c) {
-        const int d = lane + 32 * c;
-        if (d < wc) {
-          float a = acc[r][c];
-          for (int j = 0; j < nk; ++j)
-            a = fmaf(dsrow[j], k_s[j * (wc + 1) + d], a);
-          acc[r][c] = a;
-        }
-      }
-      __syncwarp();  // dsrow is rewritten for the next row
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (row0 + r >= nq) break;
-    float* dqrow =
-        dq + L.head(5, b, h) + (q0 + row0 + r) * L.st[5] + cc * kColChunk;
-#pragma unroll
-    for (int c = 0; c < kColChunk / 32; ++c) {
-      const int d = lane + 32 * c;
-      if (d < wc) dqrow[d] = acc[r][c];
-    }
-  }
-}
-
-cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
-                             const void* o, const void* dout, const void* lse,
-                             void* dq, const BwdLayout& L, int B, int H,
-                             int seq, int D, float scale, cudaStream_t s) {
-  if (tf32_smem_bytes(D) != 0) {
-    using attn_wg::View;
-    attn_wg::BwdParamsT<float> p{};
-    p.out0 = static_cast<float*>(dq);
-    p.o = static_cast<const float*>(o);
-    p.dout = static_cast<const float*>(dout);
-    p.lse = static_cast<const float*>(lse);
-    for (int x = 0; x < 3; ++x) {
-      const int64_t* st[3] = {L.sb, L.sh, L.st};
-      p.so[x] = st[x][3];
-      p.sd[x] = st[x][4];
-      p.s0[x] = st[x][5];
-    }
-    p.H = H;
-    p.T = seq;
-    p.D = D;
-    p.scale = scale;
-    p.c = scale * attn_wg::kLog2e;
-    p.pairs = D % 2 == 0 && reinterpret_cast<uintptr_t>(dq) % 8 == 0 &&
-              (L.sb[5] | L.sh[5] | L.st[5]) % 2 == 0;
-    return launch_tf32(View{q, L.sb[0], L.sh[0], L.st[0]},
-                       View{k, L.sb[1], L.sh[1], L.st[1]},
-                       View{v, L.sb[2], L.sh[2], L.st[2]},
-                       View{dout, L.sb[4], L.sh[4], L.st[4]}, p, B, H, seq, D,
-                       s);
-  }
-  const int tiles = (seq + kTileQ - 1) / kTileQ;
-  return launch_with_smem(
-      flash_bwd_dq_chunk_kernel, dim3(B * H * tiles, col_chunks(D)), kThreads,
-      chunk_smem_bytes(), s, static_cast<const float*>(q),
-      static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(dq), L, H, seq, D,
-      scale);
+  p.H = H;
+  p.T = seq;
+  p.D = D;
+  p.scale = scale;
+  p.c = scale * attn_wg::kLog2e;
+  p.pairs = D % 2 == 0 && reinterpret_cast<uintptr_t>(dq) % 8 == 0 &&
+            (L.sb[5] | L.sh[5] | L.st[5]) % 2 == 0;
+  return launch_tf32(View{q, L.sb[0], L.sh[0], L.st[0]},
+                     View{k, L.sb[1], L.sh[1], L.st[1]},
+                     View{v, L.sb[2], L.sh[2], L.st[2]},
+                     View{dout, L.sb[4], L.sh[4], L.st[4]}, p, B, H, seq, D,
+                     s);
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
@@ -1183,10 +1289,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 // q, k, v, o, dout, dq: (B, H, T, D) views (o and dout as views of their
 // (B, T, H, D) tensors), their (b, h, t) strides in elements in `strides`,
-// three each in that order (d's stride is 1); the wgmma instances (bf16,
-// and f32 up to the widest DQ_F32 row) read q, k, v and dout through
-// tensor maps, so their bases are 16-byte aligned and those strides
-// multiples of 16 bytes, which the wrapper sees to.  lse: (B, H, T) float32
+// three each in that order (d's stride is 1); every instance reads q, k, v
+// and dout through tensor maps, so their bases are 16-byte aligned and
+// those strides multiples of 16 bytes, which the wrapper sees to.  lse: (B, H, T) float32
 // contiguous.  dq has q's type.  Any D; dtype 0 is float32, 1 is bfloat16.
 // Returns the cudaError_t of the launch, or kTensorMapFailed + the
 // CUresult of a tensor map cuTensorMapEncodeTiled refused.
@@ -1199,8 +1304,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   const BwdLayout L = BwdLayout::from(strides);
   switch (dtype) {
     case 0:
-      return launch_f32_for_d(q, k, v, o, dout, lse, dq, L, B, H, T, D, scale,
-                              s);
+      return launch_f32(q, k, v, o, dout, lse, dq, L, B, H, T, D, scale, s);
     case 1:
       return launch_bf16(q, k, v, o, dout, lse, dq, L, B, H, T, D, scale, s);
     default:
@@ -1212,8 +1316,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
 // two instances' needs, which depend on D alone.
 extern "C" long long flash_bwd_dq_smem_bytes(int T, int D) {
   (void)T;
-  const size_t tf32 = tf32_smem_bytes(D);
-  const size_t f32 = tf32 != 0 ? tf32 : chunk_smem_bytes();
+  const size_t f32 = tf32_smem_bytes(D);
   const size_t bf16 = wgmma_smem_bytes(D);
   return static_cast<long long>(f32 > bf16 ? f32 : bf16);
 }

@@ -13,6 +13,22 @@
 // the roundings left are about 2^-21 of a term, as the bf16 pair's hi + lo
 // split of p and ds keeps its products at f32 accuracy.
 //
+// small_first: a wgmma adds its products and the accumulator with each
+// addend's bits below the largest one's last bit truncated, toward zero.
+// So the products of a split go into the accumulator smallest first, over
+// all the k steps of a call, and big.big (x1.y1) last: the small terms add
+// while the accumulator is still as small as they are, and only the last k
+// steps truncate at the sum's own scale.  Added into an accumulator
+// already at the sum's scale, each small product would lose up to a unit
+// of its last place: the streamed pair's gradients then sat 2-2.5x further
+// from f64 (rms; tools/f32_grad_noise.py, PERF.md §6).  Every gradient
+// product (p and ds are finite) and the streamed kernels' 32-column chunks
+// of s and dp take this order.  A whole tile's s or dp (up to 128 columns) keeps
+// big.big first in each k8 step: where a logit overflows to -inf (big.big
+// -inf, as the fully masked key tile tests make it), its 256 small
+// products can overflow the other way before big.big lands, and -inf +
+// inf is NaN; a chunk's 64 cannot at those tests' 1e40.
+//
 // TF32 wgmma has no transpose: both shared-memory operands are K-major.
 // s = q.k^T and dp = do.v^T read the tiles as TMA lands them (128-byte
 // rows of 32 f32 columns, 128-byte swizzle; big in place, small beside it
@@ -39,7 +55,10 @@
 // place and into the small halves (and the transposes or bf16 terms), make
 // their writes visible to the tensor cores' async proxy, and arrive on the
 // stage's "ready" barrier, which the consumers wait for; the consumers
-// release the stage to the producer as the bf16 pair does.
+// release the stage to the producer as the bf16 pair does.  Past 128
+// columns the pair's streamed instances take the same blocks a 32-column
+// chunk (one f32 atom) a stage, each chunk's products of s and dp in fresh
+// accumulators added in f32 (flash_bwd_dq.cu, flash_bwd_dkv.cu).
 
 #pragma once
 
@@ -325,49 +344,66 @@ __device__ __forceinline__ void load_tile_f32(uint8_t* dst,
     tma_load_4d(dst + a * rows * 128, map, bar, 32 * a, h, t0, b);
 }
 
-// d = A.B^T over kDp columns in three products, Ab.Bb^T + Ab.Bs^T +
-// As.Bb^T: A the 64 rows at shared address a (big; small at a_small) of a
-// tile whose atoms are a_rows tall, B the kN rows at b (big; small at
-// b_small), both as TMA lands them.  Not committed.
-template <int kDp, int kN>
+// d = A.B^T over kDp columns in three products a k8 step, Ab.Bb^T +
+// Ab.Bs^T + As.Bb^T: A the 64 rows at shared address a (big; small at
+// a_small) of a tile whose atoms are a_rows tall, B the kN rows at b (big;
+// small at b_small), both as TMA lands them.  With kSmallFirst the small
+// products of every k8 step come first and big.big last (small_first: the
+// streamed kernels' 32-column chunks); without it each k8 step's big.big
+// comes first (a whole tile's width).  Not committed.
+template <int kDp, int kN, bool kSmallFirst = false>
 __device__ __forceinline__ void product_ss_tf32(float (&d)[kN / 2],
                                                 uint32_t a, uint32_t a_small,
                                                 int a_rows, uint32_t b,
                                                 uint32_t b_small) {
   using A = F32Atoms<kDp>;
+  // the k8 step kk of the tile at x (a_rows or kN rows an atom)
+  auto desc = [](uint32_t x, int rows, int kk) {
+    return make_desc(x + kk / 4 * rows * A::kRowBytes + 32 * (kk % 4), 16,
+                     A::kSbo, 1);
+  };
+  if constexpr (kSmallFirst) {
 #pragma unroll
-  for (int kk = 0; kk < kDp / 8; ++kk) {
-    const uint32_t at = kk / 4, in_atom = 32 * (kk % 4);
-    const uint32_t ao = at * a_rows * A::kRowBytes + in_atom;
-    const uint32_t bo = at * kN * A::kRowBytes + in_atom;
-    const uint64_t ab = make_desc(a + ao, 16, A::kSbo, 1);
-    const uint64_t as = make_desc(a_small + ao, 16, A::kSbo, 1);
-    const uint64_t bb = make_desc(b + bo, 16, A::kSbo, 1);
-    const uint64_t bs = make_desc(b_small + bo, 16, A::kSbo, 1);
-    Tf32<kN>::ss(d, ab, bb, kk);
-    Tf32<kN>::ss(d, ab, bs, 1);
-    Tf32<kN>::ss(d, as, bb, 1);
+    for (int kk = 0; kk < kDp / 8; ++kk) {
+      Tf32<kN>::ss(d, desc(a, a_rows, kk), desc(b_small, kN, kk), kk);
+      Tf32<kN>::ss(d, desc(a_small, a_rows, kk), desc(b, kN, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kDp / 8; ++kk)
+      Tf32<kN>::ss(d, desc(a, a_rows, kk), desc(b, kN, kk), 1);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kDp / 8; ++kk) {
+      Tf32<kN>::ss(d, desc(a, a_rows, kk), desc(b, kN, kk), kk);
+      Tf32<kN>::ss(d, desc(a, a_rows, kk), desc(b_small, kN, kk), 1);
+      Tf32<kN>::ss(d, desc(a_small, a_rows, kk), desc(b, kN, kk), 1);
+    }
   }
 }
 
 // d = (big + small).B over kK keys (queries) in three products a k8 step,
-// big.Bb + big.Bs + small.Bb: big and small the A fragments of kK / 8 k8
+// big.Bs + small.Bb + big.Bb: big and small the A fragments of kK / 8 k8
 // steps (split_frags_tf32), B kCols rows of a transposed tile (core
 // matrices of 8 rows x 4 keys, kK / 4 of them along a row group) from the
-// row at b (big; small at b_small).  Not committed.
+// row at b (big; small at b_small).  The small products come first and
+// big.big last (small_first).  Not committed.
 template <int kCols, int kK>
 __device__ __forceinline__ void product_rs_tf32(
     float (&d)[kCols / 2], const uint32_t (&big)[kK / 8][4],
     const uint32_t (&small)[kK / 8][4], uint32_t b, uint32_t b_small) {
   constexpr uint32_t kSbo = kK / 4 * 128;  // the next 8 rows
+  auto desc = [](uint32_t x, int kk) {
+    return make_desc(x + 256 * kk, 128, kSbo, 0);
+  };
 #pragma unroll
   for (int kk = 0; kk < kK / 8; ++kk) {
-    const uint64_t bb = make_desc(b + 256 * kk, 128, kSbo, 0);
-    const uint64_t bs = make_desc(b_small + 256 * kk, 128, kSbo, 0);
-    Tf32<kCols>::rs(d, big[kk], bb, kk);  // the first overwrites d
-    Tf32<kCols>::rs(d, big[kk], bs);
-    Tf32<kCols>::rs(d, small[kk], bb);
+    // the first overwrites d
+    Tf32<kCols>::rs(d, big[kk], desc(b_small, kk), kk);
+    Tf32<kCols>::rs(d, small[kk], desc(b, kk));
   }
+#pragma unroll
+  for (int kk = 0; kk < kK / 8; ++kk)
+    Tf32<kCols>::rs(d, big[kk], desc(b, kk));
 }
 
 // An accumulator of kN columns as the TF32 big and small A fragments of kN
@@ -512,28 +548,33 @@ __device__ __forceinline__ void split_frags_bf16x3_padded(
 // k16 step: t the A fragments (split_frags_bf16x3), y1 .. y3 the three
 // terms' tiles (kK rows, in the bf16 layout of a kDp-column tile, each
 // `term` bytes after the last), kCols columns from the atom at b, read
-// MN-major.  Not committed.
+// MN-major.  By size, smallest first (small_first): x3.y1 + x2.y2 +
+// x1.y3 over every k16 step, then x2.y1 + x1.y2, then x1.y1.  Not
+// committed.
 template <int kDp, int kCols, int kK>
 __device__ __forceinline__ void product_rs_bf16x3(
     float (&d)[kCols / 2], const uint32_t (&t)[3][kK / 16][4], uint32_t b,
     uint32_t term) {
   using A = Atoms<kDp>;
+  // term i of B's k16 step kk
+  auto y = [&](int i, int kk) {
+    return make_desc(b + i * term + kk * 16 * A::kRowBytes,
+                     kK * A::kRowBytes, A::kSbo, A::kSwizzle);
+  };
 #pragma unroll
   for (int kk = 0; kk < kK / 16; ++kk) {
-    const uint32_t at = b + kk * 16 * A::kRowBytes;
-    const uint64_t y1 = make_desc(at, kK * A::kRowBytes, A::kSbo,
-                                  A::kSwizzle);
-    const uint64_t y2 = make_desc(at + term, kK * A::kRowBytes, A::kSbo,
-                                  A::kSwizzle);
-    const uint64_t y3 = make_desc(at + 2 * term, kK * A::kRowBytes, A::kSbo,
-                                  A::kSwizzle);
-    Wgmma<kCols>::rs(d, t[0][kk], y1, kk);  // the first overwrites d
-    Wgmma<kCols>::rs(d, t[0][kk], y2);
-    Wgmma<kCols>::rs(d, t[1][kk], y1);
-    Wgmma<kCols>::rs(d, t[0][kk], y3);
-    Wgmma<kCols>::rs(d, t[1][kk], y2);
-    Wgmma<kCols>::rs(d, t[2][kk], y1);
+    Wgmma<kCols>::rs(d, t[2][kk], y(0, kk), kk);  // the first overwrites d
+    Wgmma<kCols>::rs(d, t[1][kk], y(1, kk));
+    Wgmma<kCols>::rs(d, t[0][kk], y(2, kk));
   }
+#pragma unroll
+  for (int kk = 0; kk < kK / 16; ++kk) {
+    Wgmma<kCols>::rs(d, t[1][kk], y(0, kk));
+    Wgmma<kCols>::rs(d, t[0][kk], y(1, kk));
+  }
+#pragma unroll
+  for (int kk = 0; kk < kK / 16; ++kk)
+    Wgmma<kCols>::rs(d, t[0][kk], y(0, kk));
 }
 
 // A kRows x kDp tile as TMA lands it split in place and into `small`, and

@@ -117,7 +117,7 @@ FWD_F32_TILES, WHOLE_F32_KEYS = _f32_forward_tiles()
 WIDEST_F32_FORWARD = max(FWD_F32_TILES)
 
 
-def _backward_tiles() -> tuple[dict, dict, dict, dict, dict, dict]:
+def _backward_tiles() -> tuple[dict, dict, dict, dict, dict, dict, dict]:
     """The wgmma backward pair's table of instances
     (``csrc/backward_tiles.cuh``, which the CUDA dispatch expands): by
     padded head width, in ascending width, the bf16 dq kernel's (key tile,
@@ -125,9 +125,11 @@ def _backward_tiles() -> tuple[dict, dict, dict, dict, dict, dict]:
     consumer holds); the bf16 streamed rows' (tile, columns) of each kernel
     (``"dq"``, ``"dkv"``), which every head past the widest row takes; the
     f32 (TF32) instances' DQ_F32 and DKV_F32 rows by width, as the bf16
-    ones; and for each f32 kernel (``"dq"``, ``"dkv"``), by width, whether
-    its gradient products take the tile's three bf16 terms (the rows'
-    ``bf16x3`` column) in place of its transpose."""
+    ones; for each f32 kernel (``"dq"``, ``"dkv"``), by width, whether its
+    gradient products take the tile's three bf16 terms (the rows'
+    ``bf16x3`` column) in place of its transpose; and the f32 streamed rows'
+    (tile, columns, bf16x3) of each kernel, which every f32 head past the
+    widest f32 row takes."""
     from .build import CSRC_DIR
 
     text = (CSRC_DIR / "backward_tiles.cuh").read_text()
@@ -141,15 +143,23 @@ def _backward_tiles() -> tuple[dict, dict, dict, dict, dict, dict]:
     routes = {kind.lower(): {int(w): x == "1" for w, x in re.findall(
         rf"^{kind}_F32\((\d+), \d+, \d+, ([01])\)$", text, re.M)}
         for kind in ("DQ", "DKV")}
+    f32_streamed = {}
+    for kind in ("DQ", "DKV"):
+        n, cols, x = re.findall(
+            rf"^{kind}_F32_STREAMED\((\d+), (\d+), ([01])\)$", text,
+            re.M)[0]
+        f32_streamed[kind.lower()] = (int(n), int(cols), x == "1")
     return (rows["DQ"], rows["DKV"], streamed, rows["DQ_F32"],
-            rows["DKV_F32"], routes)
+            rows["DKV_F32"], routes, f32_streamed)
 
 
 (DQ_TILES, DKV_TILES, BWD_STREAMED, DQ_F32_TILES, DKV_F32_TILES,
- F32_BF16X3) = _backward_tiles()
+ F32_BF16X3, F32_BWD_STREAMED) = _backward_tiles()
 WIDEST_BACKWARD = max(DQ_TILES)  # the widest row; past it the streamed
-# the widest f32 row on TF32 wgmma; past it the CUDA-core kernels
+# the widest f32 row; past it the f32 streamed rows
 WIDEST_F32_BACKWARD = max(DQ_F32_TILES)
+# the columns of one chunk of the f32 streamed sums over D: an f32 atom
+F32_STREAM_COLS = 32
 
 
 def _cut(width: int, T: int, tile: int, cols: int, streamed: bool,
@@ -187,20 +197,23 @@ def backward_plan(T: int, D: int) -> dict:
                for kind in ("dq", "dkv")}}
 
 
-def f32_backward_plan(T: int, D: int) -> dict | None:
+def f32_backward_plan(T: int, D: int) -> dict:
     """How the f32 backward pair cuts a (T, D) head on TF32 wgmma, from the
     table's DQ_F32 and DKV_F32 rows, as ``backward_plan`` (f32 tiles are
     128-byte swizzle atoms of 32 columns), and each kernel's route of its
-    gradient products (``"bf16x3"``); None past ``WIDEST_F32_BACKWARD``,
-    where the CUDA-core kernels run."""
-    if D > WIDEST_F32_BACKWARD:
-        return None
-    width = min(w for w in DQ_F32_TILES if w >= D)
-    return {"width": width, "swizzle": 128, "atom_cols": 32,
-            "dq": {**_cut(width, T, *DQ_F32_TILES[width], False, D),
-                   "bf16x3": F32_BF16X3["dq"][width]},
-            "dkv": {**_cut(width, T, *DKV_F32_TILES[width], False, D),
-                    "bf16x3": F32_BF16X3["dkv"][width]}}
+    gradient products (``"bf16x3"``); past ``WIDEST_F32_BACKWARD`` the
+    DQ_F32_STREAMED and DKV_F32_STREAMED rows, D rounded up to their
+    32-column chunks (``F32_STREAM_COLS``) as the width."""
+    streamed = D > WIDEST_F32_BACKWARD
+    width = (-(-D // F32_STREAM_COLS) * F32_STREAM_COLS if streamed
+             else min(w for w in DQ_F32_TILES if w >= D))
+    plan = {"width": width, "swizzle": 128, "atom_cols": 32}
+    for kind, tiles in (("dq", DQ_F32_TILES), ("dkv", DKV_F32_TILES)):
+        tile, cols, bf16x3 = (F32_BWD_STREAMED[kind] if streamed else
+                              (*tiles[width], F32_BF16X3[kind][width]))
+        plan[kind] = {**_cut(width, T, tile, cols, streamed, D),
+                      "bf16x3": bf16x3}
+    return plan
 
 
 def forward_plan(name: str, T: int, D: int) -> dict:
@@ -360,8 +373,9 @@ def readable(*views, tma: bool | None = None):
     layout allows, else its ``padded_copy``.  The wgmma kernels (``tma``;
     by default the forwards' bf16 instances, and their f32 ones up to
     ``WIDEST_F32_FORWARD`` columns) read them through tensor maps
-    (``tma_reads_in_place``, as ``tma_plan`` reports for the forwards); the
-    CUDA-core f32 instances take any strides with d's 1."""
+    (``tma_reads_in_place``, as ``tma_plan`` reports for the forwards; the
+    backward pair's at every width); the CUDA-core f32 forward instances
+    take any strides with d's 1."""
     if tma is None:
         tma = (views[0].dtype == torch.bfloat16
                or views[0].shape[-1] <= WIDEST_F32_FORWARD)
@@ -443,11 +457,9 @@ def launch_backward(name: str, q, k, v, o, do, lse, outs, scale: float,
     shape needs too much shared memory or the launch fails."""
     check_bwd(q, k, v, o, do, lse)
     # q, k, v, and o and do as (B, H, T, D) views; o is read by rows, any
-    # strides with d's 1.  Tensor maps read the rest: bf16 at every width,
-    # f32 up to the widest TF32 row
-    tma = (q.dtype == torch.bfloat16
-           or q.shape[-1] <= WIDEST_F32_BACKWARD)
-    q, k, v, dot = readable(q, k, v, do.transpose(1, 2), tma=tma)
+    # strides with d's 1.  Tensor maps read the rest, in either dtype at
+    # every width
+    q, k, v, dot = readable(q, k, v, do.transpose(1, 2), tma=True)
     ot = o.transpose(1, 2)
     views = (q, k, v, ot if ot.stride(-1) == 1 else padded_copy(ot), dot)
     B, H, T, D = q.shape
@@ -456,10 +468,9 @@ def launch_backward(name: str, q, k, v, o, do, lse, outs, scale: float,
     lse = lse.contiguous()
     pointers = [*views, lse, *outs]
     floats = getattr(lib, f"{name}_scratch_floats", None)
-    if floats is not None:  # the dk/dv wgmma kernels' rows of lse and delta
-        n = floats(B, H, T, D) if tma else 0
-        pointers.append(torch.empty(n, dtype=torch.float32, device=q.device)
-                        if n else None)
+    if floats is not None:  # the dk/dv kernels' rows of lse and delta
+        pointers.append(torch.empty(floats(B, H, T, D), dtype=torch.float32,
+                                    device=q.device))
     # seven views' strides: the dq pass's seventh, dv's, is not read
     seven = (*views, *outs) if len(outs) == 2 else (*views, *outs, *outs)
     strides = _BWD_STRIDES(*[x for t in seven for x in tma_strides(t)])

@@ -45,15 +45,18 @@ launches in ``<wrapper>.launches``.
 Every kernel dispatches by dtype: bf16 runs on the tensor cores (wgmma
 up to the widths above; p, and in the backward ds, split into bf16 hi +
 lo so that the product that follows keeps f32 accuracy).  In f32 the
-forward up to ``WIDEST_F32_FORWARD`` and the backward pair up to
-``WIDEST_F32_BACKWARD`` (both 128) columns run the same kernels' design
-on TF32 wgmma (``csrc/wgmma_forward_tf32.cuh``, ``csrc/wgmma_tf32.cuh``):
-one TF32 product would miss the f32 limit of 1e-5, so the sums over D (s,
-dp) take operands split into TF32 big + small, three TF32 products each
-(big.big + big.small + small.big), and the sums over keys or queries (p.V
-and the gradient products) three bf16 terms of each operand, six bf16
-products, or the tile's TF32 transpose, by the table's row; past 128
-columns on the CUDA cores in full f32.  Every kernel reads its inputs through their
+forward up to ``WIDEST_F32_FORWARD`` (128) columns and the backward pair
+at every width run the same kernels' design on TF32 wgmma
+(``csrc/wgmma_forward_tf32.cuh``, ``csrc/wgmma_tf32.cuh``): one TF32
+product would miss the f32 limit of 1e-5, so the sums over D (s, dp) take
+operands split into TF32 big + small, three TF32 products each (big.big +
+big.small + small.big), and the sums over keys or queries (p.V and the
+gradient products) three bf16 terms of each operand, six bf16 products,
+or the tile's TF32 transpose, by the table's row; past
+``WIDEST_F32_BACKWARD`` (128) columns the pair's streamed instances sum s
+and dp over 32-column chunks brought through the ring, each chunk's part
+added in f32.  The f32 forward past 128 columns runs on the CUDA cores in
+full f32.  Every kernel reads its inputs through their
 strides (``common.launch_forward``, ``common.launch_backward``: only a
 layout a tensor map cannot read, D % 8 != 0 in bf16, D % 4 != 0 in f32,
 takes one padded copy), and
@@ -223,8 +226,8 @@ def flash_tiled_bwd_dq(q, k, v, o, do, lse, scale: float) -> torch.Tensor:
     (``torch.empty_like(q)``), the operator ``vit_cifar_torch::flash_bwd_dq``.
     q, k, v are (B, H, T, D) views, o and do (B, T, H, D), read in place.
     Launches counted in ``flash_tiled_bwd_dq.launches``.  bf16 runs on the
-    tensor cores, f32 on TF32 wgmma up to 128 columns and on the CUDA cores
-    past them (a dispatch by dtype and width; see above)."""
+    tensor cores, f32 on TF32 wgmma, past 128 columns its streamed instance
+    (a dispatch by dtype and width; see above)."""
     check_device(q)
     return registry.OPS.flash_bwd_dq(q, k, v, o, do, lse, scale)
 
@@ -235,8 +238,8 @@ def flash_tiled_bwd_dkv(q, k, v, o, do, lse, scale: float):
     ``vit_cifar_torch::flash_bwd_dkv``; its arguments as
     ``flash_tiled_bwd_dq``'s.  Launches counted in
     ``flash_tiled_bwd_dkv.launches``.  bf16 runs on the tensor cores, f32 on
-    TF32 wgmma up to 128 columns and on the CUDA cores past them (a
-    dispatch by dtype and width)."""
+    TF32 wgmma, past 128 columns its streamed instance (a dispatch by dtype
+    and width)."""
     check_device(q)
     return registry.OPS.flash_bwd_dkv(q, k, v, o, do, lse, scale)
 
