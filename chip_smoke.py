@@ -238,10 +238,11 @@ backward pair run wgmma on tiles that TMA brings ("wgmma+TMA", with ptxas's
 registers and spills of the instance at the row's shape; the build fails
 where ptxas serialised the wgmmas of any library); the f32 instances have
 rows of their own (``F32_ROWS``): the forwards, with and without lse, and
-the backward pair up to 128 columns on TF32 wgmma with each product split
-(three TF32 products, or six bf16 products of three-term splits) so that
-it keeps f32 accuracy (the build fails where one of those instances
-spills).  The bound of a kernel (``bound_ms``) is the larger of its bytes
+the backward pair on TF32 wgmma with each product split (three TF32
+products, or six bf16 products of three-term splits) so that it keeps f32
+accuracy, past 128 columns on their streamed instances, rows of their own
+(the build fails where one of those instances spills).  The bound of a
+kernel (``bound_ms``) is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
 operations: its products over the bf16 tensor-core peak (989 TFLOP/s;
 in f32 a third of the TF32 peak, 495 TFLOP/s) and its exps over the
@@ -637,18 +638,22 @@ F32_ROWS = {"mhsa_fwd_lse_f32": "mhsa_fwd_lse",
             "flash_fwd_f32": "flash_fwd",
             "flash_fwd_lse_f32_wide": "flash_fwd_lse",
             "flash_fwd_f32_wide": "flash_fwd",
+            "mhsa_fwd_lse_f32_wide": "mhsa_fwd_lse",
+            "mhsa_fwd_f32_wide": "mhsa_fwd",
             "flash_bwd_dq_tiled_f32_streamed": "flash_bwd_dq_tiled",
             "flash_bwd_dkv_tiled_f32_streamed": "flash_bwd_dkv_tiled"}
 # the f32 rows past 128 columns, whose launches the wide-head f32 path
-# counts: the tiled forwards on the CUDA cores (the column-chunk tile) and
-# the streamed TF32 pair (DQ_F32_STREAMED, DKV_F32_STREAMED), timed at
-# F32_WIDE_SHAPE and held against their plain versions there and at
+# counts (the whole-head forward's in a pallas_kernel="fused" pass): both
+# forwards' streamed TF32 instance (FWD_F32_STREAMED) and the streamed
+# TF32 pair (DQ_F32_STREAMED, DKV_F32_STREAMED), timed at F32_WIDE_SHAPE
+# and held against their plain versions there and at
 # F32_WIDE_CHECK_SHAPES: the wide-head model's head at B=8, and 520 and
 # 704 columns (17 and 22 chunks of the sums over D)
 F32_WIDE_SHAPE = (128, 8, 512, 256)
 F32_WIDE_CHECK_SHAPES = ((8, 2, 257, 192), (2, 2, 130, 520),
                          (2, 3, 65, 704))
 F32_WIDE_ROWS = ("flash_fwd_lse_f32_wide", "flash_fwd_f32_wide",
+                 "mhsa_fwd_lse_f32_wide", "mhsa_fwd_f32_wide",
                  "flash_bwd_dq_tiled_f32_streamed",
                  "flash_bwd_dkv_tiled_f32_streamed")
 F32_MAIN_SHAPE = {"mhsa_fwd_lse_f32": (128, 12, 65, 32),
@@ -660,10 +665,15 @@ F32_MAIN_SHAPE = {"mhsa_fwd_lse_f32": (128, 12, 65, 32),
                   **dict.fromkeys(F32_WIDE_ROWS, F32_WIDE_SHAPE)}
 F32_FWD_DESIGN = ("TF32 wgmma, split products (s: three TF32; p.V: six "
                   "bf16 of three-term splits, each key tile's part added "
-                  "in f32); CUDA cores past 128 columns (their own row)")
-F32_WIDE_FWD_DESIGN = ("CUDA cores in full f32, past 128 columns: one "
-                       "block of 8 warps a 64-row query tile and 128-column "
-                       "chunk of o, s summed over every chunk")
+                  "in f32); streamed past 128 columns (its own row)")
+F32_WIDE_FWD_DESIGN = ("TF32 wgmma past 128 columns, streamed through the "
+                       "TMA ring: a split pass writes q and K as TF32 "
+                       "halves and V as three bf16 terms once a call; s "
+                       "summed over 32-column chunks (three TF32 products "
+                       "a chunk, added in f32) that the two consumers "
+                       "share, once an item and key tile; each consumer "
+                       "128 columns of o (six bf16 products a tile, added "
+                       "in f32)")
 F32_STREAMED_DESIGN = ("TF32 wgmma past 128 columns, streamed through the "
                        "TMA ring: s, dp summed over 32-column chunks that "
                        "the converter warps split (three TF32 products a "
@@ -683,6 +693,10 @@ F32_DESIGN = {
                                "128 columns (its own row)",
     "flash_fwd_lse_f32_wide": F32_WIDE_FWD_DESIGN,
     "flash_fwd_f32_wide": F32_WIDE_FWD_DESIGN,
+    "mhsa_fwd_lse_f32_wide": F32_WIDE_FWD_DESIGN
+    + "; mhsa_fwd takes the same tiled items",
+    "mhsa_fwd_f32_wide": F32_WIDE_FWD_DESIGN
+    + "; mhsa_fwd takes the same tiled items",
     "flash_bwd_dq_tiled_f32_streamed": F32_STREAMED_DESIGN,
     "flash_bwd_dkv_tiled_f32_streamed": F32_STREAMED_DESIGN}
 F32_INSTANCE_KINDS = {"mhsa_fwd_lse_f32": ("fwd_split_kernel",),
@@ -691,8 +705,14 @@ F32_INSTANCE_KINDS = {"mhsa_fwd_lse_f32": ("fwd_split_kernel",),
                       "flash_fwd_f32": ("fwd_split_kernel",),
                       "flash_bwd_dq_tiled_f32": ("dq_split_kernel",),
                       "flash_bwd_dkv_tiled_f32": ("dkv_split_kernel",),
-                      "flash_fwd_lse_f32_wide": ("flash_fwd_chunk_kernel",),
-                      "flash_fwd_f32_wide": ("flash_fwd_chunk_kernel",),
+                      "flash_fwd_lse_f32_wide": ("fwd_split_stream_kernel",
+                                                 "split_qkv_kernel"),
+                      "flash_fwd_f32_wide": ("fwd_split_stream_kernel",
+                                             "split_qkv_kernel"),
+                      "mhsa_fwd_lse_f32_wide": ("fwd_split_stream_kernel",
+                                                "split_qkv_kernel"),
+                      "mhsa_fwd_f32_wide": ("fwd_split_stream_kernel",
+                                            "split_qkv_kernel"),
                       "flash_bwd_dq_tiled_f32_streamed": (
                           "dq_split_stream_kernel",),
                       "flash_bwd_dkv_tiled_f32_streamed": (
@@ -1567,7 +1587,7 @@ def flash_kernel_phase(card: str) -> list[dict]:
             if shape == PIXEL_SHAPE and dtype == torch.bfloat16:
                 errs = e
             # the whole-head forward's both variants on the streamed
-            # instance (bf16; its f32 instance is the CUDA cores' design)
+            # instance (bf16; its f32 instance f32_wide_checks holds)
             if D > WIDEST_FORWARD and dtype == torch.bfloat16:
                 want_out, want_lse = fused_attention_lse_reference(q, k, v,
                                                                    scale)
@@ -2125,11 +2145,13 @@ def f32_ptxas(name: str, shape) -> str:
                                                  f32_forward_plan)
 
     lib = SOURCES[F32_ROWS[name]]
-    if name in ("flash_fwd_lse_f32_wide", "flash_fwd_f32_wide"):
-        instance = "flash_fwd_chunk_kernel"
-        return f"{instance}: {PTXAS[lib][instance]}"
     if "fwd" in name:
         plan = f32_forward_plan(lib, *shape[2:])
+        if plan["grid"] == "streamed":  # and its split pass
+            instance = (f"fwd_split_stream_kernel<{plan['keys']},"
+                        f"{plan['cols']}>")
+            return (f"{instance}: {PTXAS[lib][instance]}; split_qkv_kernel: "
+                    f"{PTXAS[lib]['split_qkv_kernel']}")
         instance = (f"fwd_split_kernel<{plan['width']},{plan['keys']},"
                     f"{plan['cols']},{int(plan['bf16x3'])},"
                     f"{int(plan['grid'] == 'whole')}>")
@@ -2175,11 +2197,10 @@ def library_f32(shape, q, k, v, g, scale: float, want) -> dict:
 
 
 def f32_wide_checks() -> None:
-    """The f32 instances past 128 columns (the tiled forwards' CUDA-core
-    column-chunk tile and the streamed TF32 pair) on the model's views at
-    ``F32_WIDE_CHECK_SHAPES``: both forwards and the pair against their
-    plain versions within the f32 limits, and two calls of each bit for
-    bit."""
+    """The f32 instances past 128 columns (both forwards' streamed TF32
+    instance, with and without lse, and the streamed TF32 pair) on the
+    model's views at ``F32_WIDE_CHECK_SHAPES``: each against its plain
+    version within the f32 limits, and two calls of each bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(21)
     for shape in F32_WIDE_CHECK_SHAPES:
         B, H, T, D = shape
@@ -2188,38 +2209,47 @@ def f32_wide_checks() -> None:
         g = torch.randn((B, T, H, D), generator=gen, device="cuda")
         calls = lambda: (  # noqa: E731
             flash_attention(q, k, v, scale),
-            *flash_attention_lse(q, k, v, scale))
-        infer, out, lse = calls()
+            *flash_attention_lse(q, k, v, scale),
+            fused_attention(q, k, v, scale),
+            *fused_attention_lse(q, k, v, scale))
+        fwds = calls()
+        infer, out, lse = fwds[:3]
         args = (q, k, v, out, g, lse, scale)
         pair = lambda: (flash_tiled_bwd_dq(*args),  # noqa: E731
                         *flash_tiled_bwd_dkv(*args))
         first, second, again = pair(), pair(), calls()
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in
-                   zip((*first, infer, out, lse), (*second, *again))):
+                   zip((*first, *fwds), (*second, *again))):
             raise AssertionError(f"f32 {shape}: two calls differ")
         want_out, want_lse = flash_attention_lse_reference(q, k, v, scale)
+        fused_out, fused_lse = fused_attention_lse_reference(q, k, v, scale)
         want = (flash_tiled_bwd_dq_reference(*args),
                 *flash_tiled_bwd_dkv_reference(*args))
-        for a, w in ((infer, want_out), (out, want_out), (lse, want_lse)):
+        wants = (want_out, want_out, want_lse, fused_out, fused_out,
+                 fused_lse)
+        for a, w in zip(fwds, wants):
             torch.testing.assert_close(a, w, **KERNEL_TOL[torch.float32])
         for a, w in zip(first, want):
             torch.testing.assert_close(a, w, **BWD_TOL[torch.float32])
-        fwd_err = _max_err((infer, out, lse), (want_out, want_out, want_lse))
-        print(f"f32 past 128 columns {shape} on the model's views: forwards "
-              f"max_abs_err {fwd_err:.3e}, streamed pair (dq, dk, dv) "
+        print(f"f32 past 128 columns {shape} on the model's views: "
+              f"flash_fwd max_abs_err {_max_err(fwds[:3], wants[:3]):.3e}, "
+              f"mhsa_fwd {_max_err(fwds[3:], wants[3:]):.3e} (each with "
+              f"and without lse), streamed pair (dq, dk, dv) "
               + ", ".join(f"{_max_err((a,), (w,)):.3e}"
                           for a, w in zip(first, want))
-              + "; two calls equal bit for bit")
-        del q, k, v, g, infer, out, lse, args, first, second, again, want
+              + "; two calls of each equal bit for bit")
+        del q, k, v, g, fwds, infer, out, lse, args, first, second, again
+        del want, wants
 
 
 def f32_kernel_phase(card: str) -> list[dict]:
     """The f32 instances (``--precision 32``) on the model's views at their
     main shapes (``F32_MAIN_SHAPE``; the pair also at the flagship's
     (128, 12, 65, 32); past 128 columns ``F32_WIDE_SHAPE``, the streamed
-    pair and the CUDA-core forwards, rows of their own): each against its
-    plain version (max error within the f32 limits), two calls of each bit
+    pair and both forwards' streamed instance, rows of their own): each
+    against its plain version (max error within the f32 limits), two calls
+    of each bit
     for bit, then each kernel and its plain version in turns, and the
     library's f32 call beside it with that call's own error against the
     plain version (named where it misses the f32 limit), each beside its
@@ -2268,6 +2298,22 @@ def f32_kernel_phase(card: str) -> list[dict]:
                 names["fwd"]: _max_err((infer,), (want_out,)),
                 names["dq"]: _max_err(first[:1], want[:1]),
                 names["dkv"]: _max_err(first[1:], want[1:])}
+        if D > 128:  # the whole-head forward, on the same streamed items
+            fused = (fused_attention(q, k, v, scale),
+                     *fused_attention_lse(q, k, v, scale))
+            fused_again = (fused_attention(q, k, v, scale),
+                           *fused_attention_lse(q, k, v, scale))
+            fused_want = fused_attention_lse_reference(q, k, v, scale)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b)
+                       for a, b in zip(fused, fused_again)):
+                raise AssertionError(f"f32 mhsa_fwd {shape}: two calls "
+                                     "differ")
+            for a, w in zip(fused, (fused_want[0], *fused_want)):
+                torch.testing.assert_close(a, w, **KERNEL_TOL[torch.float32])
+            errs["mhsa_fwd_f32_wide"] = _max_err(fused[:1], fused_want[:1])
+            errs["mhsa_fwd_lse_f32_wide"] = _max_err(fused[1:], fused_want)
+            del fused, fused_again, fused_want
         lib = library_f32(shape, q, k, v, g, scale,
                           (want_out, want_lse, *want))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -2292,6 +2338,14 @@ def f32_kernel_phase(card: str) -> list[dict]:
                "pair": (pair, lambda: (
                    flash_tiled_bwd_dq_reference(*args),
                    *flash_tiled_bwd_dkv_reference(*args)), lib["bwd_pair"])}
+        if D > 128:
+            fns["mhsa_fwd_lse_f32_wide"] = (
+                lambda: fused_attention_lse(q, k, v, scale),
+                lambda: fused_attention_lse_reference(q, k, v, scale),
+                lib["fwd_lse"])
+            fns["mhsa_fwd_f32_wide"] = (
+                lambda: fused_attention(q, k, v, scale),
+                lambda: fused_attention_reference(q, k, v, scale), sdpa)
         for name, (kernel, plain, library) in fns.items():
             main = name == "pair" or F32_MAIN_SHAPE[name] == shape
             iters = max(2, min(30, round(20 / cuda_ms(kernel, 1, 1))))
@@ -2534,11 +2588,12 @@ def wide_head_f32_phase(card: str) -> dict:
     route, through ``get_model`` -> ``make_train_step``: one step's loss
     and gradients against the plain-attention model within the f32 step
     bounds; one eval forward counted from zero (2 launches of the f32
-    inference forward, the CUDA cores' column-chunk tile), its logits
-    against the plain model's; then ``WIDE_STEPS`` steps counted from
-    zero, 2 launches a step of the forward with lse and of each pass of
-    the streamed TF32 pair, finite losses.  Returns the launches under the
-    wide f32 rows' names."""
+    inference forward, its streamed TF32 instance), its logits against
+    the plain model's; then ``WIDE_STEPS`` steps counted from zero, 2
+    launches a step of the forward with lse and of each pass of the
+    streamed TF32 pair, finite losses; then the same model with
+    ``pallas_kernel="fused"`` (``wide_head_f32_fused_pass``).  Returns the
+    launches under the wide f32 rows' names."""
     cfg = flagship_cfg(num_layers=WIDE_LAYERS, head=2, patch=WIDE_F32_PATCH,
                        precision="32", batch_size=WIDE_BATCH)
     _, x_train, y_train, model, state, train_step, perm = \
@@ -2589,10 +2644,68 @@ def wide_head_f32_phase(card: str) -> dict:
           f"{ {n: c for n, c in counts.items() if c} } ({card})")
     del model, state, train_step, x_train, y_train
     torch.cuda.empty_cache()
+    fused = wide_head_f32_fused_pass(card)
     return {"flash_fwd_f32_wide": served["flash_fwd"],
             "flash_fwd_lse_f32_wide": counts["flash_fwd_lse"],
-            "flash_bwd_dq_tiled_f32_streamed": counts["flash_bwd_dq_tiled"],
-            "flash_bwd_dkv_tiled_f32_streamed": counts["flash_bwd_dkv_tiled"]}
+            "flash_bwd_dq_tiled_f32_streamed": counts["flash_bwd_dq_tiled"]
+            + fused["flash_bwd_dq_tiled"],
+            "flash_bwd_dkv_tiled_f32_streamed": counts["flash_bwd_dkv_tiled"]
+            + fused["flash_bwd_dkv_tiled"],
+            "mhsa_fwd_f32_wide": fused["mhsa_fwd"],
+            "mhsa_fwd_lse_f32_wide": fused["mhsa_fwd_lse"]}
+
+
+def wide_head_f32_fused_pass(card: str) -> dict:
+    """The same wide-head f32 model with ``pallas_kernel="fused"``: the
+    whole-head forward past 128 columns, which takes the streamed f32
+    instance's tiled items there.  Its logits against the plain model's
+    and one step's loss and gradients against it within the f32 bounds;
+    then, counted from zero, one eval forward (2 launches of ``mhsa_fwd``)
+    and ``WIDE_STEPS`` steps (2 launches a step of ``mhsa_fwd_lse`` and of
+    each pass of the streamed pair), finite losses.  Returns the counts."""
+    cfg = flagship_cfg(num_layers=WIDE_LAYERS, head=2, patch=WIDE_F32_PATCH,
+                       precision="32", batch_size=WIDE_BATCH,
+                       pallas_kernel="fused")
+    _, x_train, y_train, model, state, train_step, perm = \
+        training_setup(cfg, 256)
+    plain = plain_twin(cfg, model)
+    img, label, _, _ = train_step.make_batch(state, x_train, y_train, perm, 0)
+    check_step(cfg, model, plain, img, label,
+               "wide heads in f32, pallas_kernel 'fused', one step",
+               F32_STEP_LOSS_ATOL, F32_STEP_REL_L2)
+    with torch.no_grad():
+        want_logits = plain(img, deterministic=True)
+    del plain
+
+    # the path: its launches counted from zero
+    for wrapper in KERNEL_WRAPPERS.values():
+        wrapper.launches = 0
+    with torch.no_grad():
+        logits = model(img, deterministic=True)
+    losses = []
+    for i in range(WIDE_STEPS):
+        state, metrics = train_step(state, x_train, y_train, perm, i)
+        losses.append(metrics["loss"].item())
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    rel = ((logits - want_logits).norm() / want_logits.norm()).item()
+    want = dict({n: 0 for n in KERNEL_WRAPPERS}, mhsa_fwd=WIDE_LAYERS,
+                mhsa_fwd_lse=WIDE_LAYERS * WIDE_STEPS,
+                flash_bwd_dq_tiled=WIDE_LAYERS * WIDE_STEPS,
+                flash_bwd_dkv_tiled=WIDE_LAYERS * WIDE_STEPS)
+    if counts != want or not rel <= F32_STEP_REL_L2 \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"wide heads in f32, fused: launches {counts}, "
+                             f"expected {want}; logits relative L2 {rel}; "
+                             f"losses {losses}")
+    print(f"wide heads in f32, pallas_kernel 'fused': eval forward logits "
+          f"against the einsum path's relative L2 {rel:.3e} (bound "
+          f"{F32_STEP_REL_L2}), {WIDE_STEPS} training steps at "
+          f"B={WIDE_BATCH}: losses {' '.join(f'{x:.4f}' for x in losses)}, "
+          f"launches { {n: c for n, c in counts.items() if c} } ({card})")
+    del model, state, train_step, x_train, y_train, logits, want_logits
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _launch_counts() -> dict:

@@ -16,9 +16,9 @@ against the plain version (one bf16 rounding step either way); the
 Function's bf16 grads against autograd through the plain forward 2e-2 (the
 backward reads the forward's output rounded to bf16, autograd its f32
 probabilities).  The bf16 instances of the forwards and of the tiled
-backward pair run on the tensor cores, their f32 instances up to 128
-columns on TF32 wgmma with split products and past them on the CUDA
-cores; all are held to the same limits, at ragged T and D.  The flash kernels' bf16 limit
+backward pair run on the tensor cores, their f32 instances on TF32 wgmma
+with split products (past 128 columns the streamed instances); all are
+held to the same limits, at ragged T and D.  The flash kernels' bf16 limit
 is 1e-2 of the reference's largest magnitude, since one bf16 step is at
 most 2**-7 of a value and the values shrink as T grows (about 4x from T=65
 to T=1025).
@@ -888,10 +888,15 @@ def test_f32_backward_pair_launches_the_split_kernels_up_to_128_columns(
 
 # the f32 forwards: TF32 wgmma with the three-product split
 # (csrc/wgmma_forward_tf32.cuh, FWD_F32 and WHOLE_F32 rows of
-# csrc/forward_tiles.cuh) up to 128 columns, the CUDA cores past them; 12
-# head widths, D < 32, D % 4 != 0 (the padded copy: 6, 30, 66, 127), every
-# f32 width and, at 129-136, the hand-off to the column-chunk tile
+# csrc/forward_tiles.cuh) up to 128 columns, the streamed instance past
+# them (FWD_F32_STREAMED); 12 head widths, D < 32, D % 4 != 0 (the padded
+# copy: 6, 30, 66, 127), every f32 width and, at 136, the hand-off to the
+# streamed instance
 F32_FORWARD_D = (6, 8, 16, 30, 32, 44, 64, 66, 100, 127, 128, 136)
+# the streamed instance's widths: D % 4 != 0 (129, 130: the padded copy;
+# an odd number of 32-column chunks of s), a clamped chunk of o (192: two
+# of 128 columns), whole groups (256), and 12, 17 and 22 chunks of s
+F32_STREAMED_FWD_D = (129, 130, 136, 192, 256, 384, 520, 704)
 
 
 def _f32_model_views(shape, seed):
@@ -950,7 +955,8 @@ def test_f32_forwards_at_ragged_edges(cuda, T, kernel):
 
 @pytest.mark.parametrize("kernel", ["mhsa", "flash"])
 @pytest.mark.parametrize("T,D", [(200, 32), (129, 32), (193, 64),
-                                 (300, 128), (65, 32), (33, 128)])
+                                 (300, 128), (65, 32), (33, 128),
+                                 (300, 192), (200, 520), (33, 256)])
 def test_f32_forwards_guard_a_fully_masked_key_tile(cuda, T, D, kernel):
     """The key tile the f32 kernel takes first (the last one) has logits
     that all overflow to -inf (every q.k there is -1e40; each TF32 product
@@ -958,7 +964,9 @@ def test_f32_forwards_guard_a_fully_masked_key_tile(cuda, T, D, kernel):
     tiles before it: the running max stays at -inf through that tile
     without a NaN, and the rows equal the plain version's.  Where the head
     is one tile (mhsa_fwd's whole head at T=65 and 33) every key but the
-    first 8 is masked."""
+    first 8 is masked; past 128 columns (the streamed instance) each
+    consumer's part of s over its 32-column chunks is -inf there, and so
+    is their sum."""
     from vit_cifar_torch.ops.cuda.common import f32_forward_plan
 
     _, fwd_lse, plain = FORWARDS[kernel]
@@ -981,7 +989,9 @@ def test_f32_forwards_guard_a_fully_masked_key_tile(cuda, T, D, kernel):
 def test_f32_forwards_read_the_views_in_place(cuda, kernel, monkeypatch):
     """Where f32 tensor maps read the model's views (D % 4 == 0) no copy of
     q, k or v is made; where they cannot (D=30) the stated padded copy of
-    each, 3 a call; past 128 columns (the CUDA cores) none."""
+    each, 3 a call; past 128 columns (the streamed instance, whose split
+    pass reads any view whose d stride is 1 in place) none, at 130 columns
+    too."""
     from vit_cifar_torch.ops.cuda import common
 
     copies = []
@@ -990,7 +1000,8 @@ def test_f32_forwards_read_the_views_in_place(cuda, kernel, monkeypatch):
                         lambda t, meta=False: copies.append(meta)
                         or real(t, meta))
     fwd, _, plain = FORWARDS[kernel]
-    for D, want_copies in ((32, 0), (44, 0), (30, 3), (136, 0)):
+    for D, want_copies in ((32, 0), (44, 0), (30, 3), (136, 0), (192, 0),
+                           (130, 0)):
         q, k, v = _f32_model_views((2, 3, 65, D), seed=D)
         copies.clear()
         got = fwd(q, k, v, 0.1)
@@ -1003,14 +1014,17 @@ def test_f32_forwards_read_the_views_in_place(cuda, kernel, monkeypatch):
 @pytest.mark.parametrize("T,D,want", [
     (65, 8, "split"), (65, 32, "split"), (1025, 32, "split"),
     (65, 64, "split"), (257, 128, "split"), (33, 128, "split"),
-    (65, 129, "chunk"), (257, 256, "chunk")])
+    (65, 129, "stream"), (257, 256, "stream"), (257, 192, "stream"),
+    (33, 704, "stream")])
 def test_f32_forwards_launch_the_split_kernels_up_to_128_columns(
         cuda, T, D, want):
     """Up to 128 columns each f32 forward launches a TF32 instance
     (``fwd_split_kernel``: mhsa_fwd's whole-head one where the plan takes
     the whole head, the tiled one otherwise, and flash_fwd's tiled one),
-    past them the CUDA-core column-chunk kernels, by the profiler's kernel
-    names; one launch each by the wrappers' counters."""
+    past them the streamed TF32 instance of the FWD_F32_STREAMED row
+    (``fwd_split_stream_kernel``, after its split pass), never a CUDA-core
+    kernel, by the profiler's kernel names; one launch each by the
+    wrappers' counters."""
     from vit_cifar_torch.ops.cuda.common import f32_forward_plan
 
     q, k, v = _f32_model_views((2, 3, T, D), seed=D)
@@ -1020,9 +1034,17 @@ def test_f32_forwards_launch_the_split_kernels_up_to_128_columns(
             names = _kernel_names(lambda: fn(q, k, v, 0.1))
             assert fn.launches == before + 1, (kernel, fn.__name__)
             plan = f32_forward_plan(f"{kernel}_fwd", T, D)
-            if want == "chunk":
-                assert plan is None
-                hits = [n for n in names if "chunk_kernel" in n]
+            assert not any("chunk" in n for n in names), sorted(names)
+            if want == "stream":
+                # fwd_split_stream_kernel<keys, cols>, after its split
+                # pass
+                assert plan["grid"] == "streamed"
+                hits = [n for n in names if (m := re.search(
+                    r"fwd_split_stream_kernel<(\d+), ?(\d+)>", n))
+                    and (int(m.group(1)), int(m.group(2))) == (
+                        plan["keys"], plan["cols"])]
+                assert any("split_qkv_kernel" in n for n in names), \
+                    sorted(names)
             else:
                 # fwd_split_kernel<width, keys, cols, bf16x3, whole>
                 whole = plan["grid"] == "whole"
@@ -1041,7 +1063,7 @@ import torch.utils.checkpoint
 from vit_cifar_torch.ops.cuda.attention import fused_attention
 from vit_cifar_torch.ops.cuda.flash_attention import flash_attention
 fn = {"fused": fused_attention, "flash": flash_attention}[sys.argv[1]]
-B, T, H, D = 2, 65, 3, 32
+B, T, H, D = 2, 65, 3, int(sys.argv[2]) if len(sys.argv) > 2 else 32
 x = torch.randn((3, B, T, H * D), device="cuda", requires_grad=True)
 
 def attend(x):
@@ -1071,6 +1093,62 @@ def test_f32_forward_launches_first_on_autograds_thread(cuda, kernel):
     run = subprocess.run(
         [sys.executable, "-c", FIRST_FORWARD_ON_AUTOGRADS_THREAD, kernel],
         cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0 and run.stdout.strip() == "ok", (
+        run.stdout[-2000:], run.stderr[-2000:])
+
+
+def _streamed_f32_inputs(shape, seed, contiguous):
+    """f32 q, k, v: the model's views, or contiguous (B, H, T, D)."""
+    if not contiguous:
+        return _f32_model_views(shape, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda") for _ in range(3)]
+
+
+@pytest.mark.parametrize("kernel", ["mhsa", "flash"])
+@pytest.mark.parametrize("T", WGMMA_T)
+def test_f32_streamed_forwards_on_the_models_views(cuda, T, kernel):
+    """Past 128 columns (the streamed instance, s summed over 32-column
+    chunks that the two consumers share, q, K and V split once a call) both
+    f32 forwards, with and without lse, on the model's views at odd and
+    ragged T (the 32-key tiles' and 64-row items' ends, T=1025) and D
+    129-704: against the plain version within rtol 1e-5 / atol 1e-5, and
+    two calls equal bit for bit."""
+    for D in F32_STREAMED_FWD_D:
+        q, k, v = _f32_model_views((2, 3, T, D), seed=T + D)
+        _check_f32_forwards(kernel, q, k, v, 1.0 / math.sqrt(3 * D),
+                            f"T={T} D={D}", bits=True)
+
+
+@pytest.mark.parametrize("kernel", ["mhsa", "flash"])
+@pytest.mark.parametrize("T", F32_STREAMED_T)
+def test_f32_streamed_forwards_at_ragged_edges(cuda, T, kernel):
+    """Past 128 columns, where a 16-row fragment, a 32-key tile or a
+    64-row item ends, on contiguous inputs and on the model's views, at D
+    129-704: both forwards, with and without lse, against the plain
+    version, and two calls equal bit for bit."""
+    for D in F32_STREAMED_FWD_D:
+        for contiguous in (True, False):
+            q, k, v = _streamed_f32_inputs((2, 3, T, D), 11 * T + D,
+                                           contiguous)
+            _check_f32_forwards(kernel, q, k, v, 1.0 / math.sqrt(3 * D),
+                                f"T={T} D={D} contiguous={contiguous}",
+                                bits=True)
+
+
+@pytest.mark.parametrize("kernel", ["fused", "flash"])
+def test_f32_streamed_forward_launches_first_on_autograds_thread(cuda,
+                                                                  kernel):
+    """The same at head_dim 192 in f32: the streamed forward's (and its
+    split pass's) first launch in the process on autograd's device
+    thread, recomputed by activation checkpointing."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, "-c", FIRST_FORWARD_ON_AUTOGRADS_THREAD, kernel,
+         "192"], cwd=root, env=env, capture_output=True, text=True,
+        timeout=300)
     assert run.returncode == 0 and run.stdout.strip() == "ok", (
         run.stdout[-2000:], run.stderr[-2000:])
 

@@ -18,10 +18,15 @@ f64), l = l * corr + sum(p); each tile's p.V in a fresh sum, as six bf16
 products of both operands' three bf16 terms (x1 = rn(x), x2 = rn(x - x1),
 x3 = rn(x - x1 - x2); the row's ``bf16x3``) or three TF32 products, added
 into o in f32 as o = fma(o, corr, part); o = o * (1 / l) and lse = m *
-ln(2) + log(l).  The limit is the card tests' f32 forward limit, rtol 1e-5
-/ atol 1e-5; the model with one TF32 product in place of each split
-product misses it, so the split is what keeps the forward at f32
-accuracy.
+ln(2) + log(l).  Past 128 columns (the streamed instance, the table's
+``FWD_F32_STREAMED`` row) s is summed a 32-column chunk at a time, each
+chunk's three products rounded to f32 and added in f32, the two
+consumers each summing the chunks of its parity (their number rounded up
+to even, the last a chunk of zeros) and s = s_0 + s_1; p.V as above, by
+the row's key tile and route.  The limit is the card tests' f32 forward
+limit, rtol 1e-5 / atol 1e-5; the model with one TF32 product in place of
+each split product misses it, so the split is what keeps the forward at
+f32 accuracy.
 """
 
 import jax.numpy as jnp
@@ -34,8 +39,9 @@ from vit_cifar_torch.ops.cuda.attention import (
     fused_attention, fused_attention_lse, fused_attention_lse_reference,
     fused_attention_reference)
 from vit_cifar_torch.ops.cuda.common import (
-    FWD_F32_TILES, WHOLE_F32_KEYS, WIDEST_F32_FORWARD, f32_forward_plan,
-    padded_copy, readable, tma_plan, whole_head_holds)
+    F32_FWD_STREAMED, F32_SPLIT_COLS, F32_STREAM_COLS, FWD_F32_TILES,
+    WHOLE_F32_KEYS, f32_forward_plan, padded_copy, readable, tma_plan,
+    whole_head_holds)
 from vit_cifar_torch.ops.cuda.flash_attention import (
     flash_attention, flash_attention_lse, flash_attention_lse_reference,
     flash_attention_reference)
@@ -61,6 +67,13 @@ RAGGED_T = (1, 7, 63, 64, 65, 66, 127, 128, 129)
 # copy widens those on the card), one a ragged T in turn
 WIDTHS = (32, 17, 64, 44, 128, 100, 127, 33, 8)
 NAMES = ("flash_fwd", "mhsa_fwd")
+# past 128 columns, the streamed instance: (B, H, T, D) at 129 (D % 4 !=
+# 0: the padded copy on the card; 5 chunks of the sum, rounded up to 6),
+# 192 (two chunks of o of 128 columns, the second clamped), 256 (one
+# group), 520 (17 chunks, the last ragged) and 704 (22), each at a ragged
+# T
+STREAMED_CASES = [(2, 1, 63, 129), (1, 2, 130, 192), (1, 2, 97, 256),
+                  (1, 1, 65, 520), (1, 1, 33, 704)]
 
 
 def tf32_forward_model(q, k, v, scale: float, name: str,
@@ -77,9 +90,20 @@ def tf32_forward_model(q, k, v, scale: float, name: str,
     m = torch.full((B, H, T, 1), -torch.inf)
     l = torch.zeros((B, H, T, 1))
     o = torch.zeros((B, H, T, D))
+
+    def logits(kt):  # s over D: in one product, or chunk by chunk
+        if plan["grid"] != "streamed":
+            return products("bhid,bhjd->bhij", q, kt, three)
+        parts = [torch.zeros((B, H, T, kt.shape[2])) for _ in range(2)]
+        for i, c0 in enumerate(range(0, D, F32_STREAM_COLS)):
+            cut = slice(c0, c0 + F32_STREAM_COLS)
+            parts[i % 2] = parts[i % 2] + products(
+                "bhid,bhjd->bhij", q[..., cut], kt[..., cut], three)
+        return parts[0] + parts[1]
+
     for k0 in reversed(range(0, T, keys)):  # last to first
         t = slice(k0, k0 + keys)
-        s = products("bhid,bhjd->bhij", q, k[:, :, t], three)
+        s = logits(k[:, :, t])
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
         safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
         corr = torch.where(torch.isfinite(m), torch.exp2(m - safe), 0.0)
@@ -188,12 +212,17 @@ def test_f32_forward_plans_tile_as_the_dispatch_does():
     consumer 64 columns of o); p.V on V's three bf16 terms, so a depth of
     the key tile rounded up to 16; mhsa_fwd's whole head up to 72 keys at
     32 columns (T=65: one tile of 72, a depth of 80), 64 at 64 and 32 at
-    128; past 128 columns no f32 instance: the CUDA-core tile runs."""
-    assert WIDEST_F32_FORWARD == 128
+    128; past 128 columns the streamed row at every width, both forwards:
+    32-key tiles, 64 query rows and two chunks of o of 128 columns an
+    item, one a consumer, s summed over 32-column chunks that the two
+    consumers share (their number rounded up to even), q, K and V split
+    once a call, never a CUDA-core kernel."""
+    assert max(FWD_F32_TILES) == 128
     assert FWD_F32_TILES == {32: (64, 32, True), 64: (32, 64, True),
                              128: (32, 64, True)}
     assert {w: max(n) for w, n in WHOLE_F32_KEYS.items()} == {
         32: 72, 64: 64, 128: 32}
+    assert F32_FWD_STREAMED == (32, 128)
 
     def cut(name, T, D):
         plan = f32_forward_plan(name, T, D)
@@ -212,8 +241,21 @@ def test_f32_forward_plans_tile_as_the_dispatch_does():
     assert cut("flash_fwd", 257, 100) == (128, "tiled", 32, 64, 64, 32, 9,
                                           5)
     assert cut("mhsa_fwd", 32, 128) == (128, "whole", 32, 64, 64, 32, 1, 1)
-    assert f32_forward_plan("mhsa_fwd", 65, 129) is None
-    assert f32_forward_plan("flash_fwd", 1, 129) is None
+    # past 128 columns: the streamed row, the same for both forwards
+    for T, D, want in ((65, 129, (160, "streamed", 32, 128, 64, 32, 3, 2)),
+                       (1, 129, (160, "streamed", 32, 128, 64, 32, 1, 1)),
+                       (257, 192, (192, "streamed", 32, 128, 64, 32, 9, 5)),
+                       (512, 256, (256, "streamed", 32, 128, 64, 32, 16,
+                                   8)),
+                       (1024, 520, (544, "streamed", 32, 128, 64, 32, 32,
+                                    48))):
+        assert cut("flash_fwd", T, D) == cut("mhsa_fwd", T, D) == want
+    plan = f32_forward_plan("mhsa_fwd", 1024, 520)
+    assert (plan["chunks"], plan["sums"], plan["s_passes"]) == (5, 18, 3)
+    assert plan["bf16x3"] and plan["split_cols"] == 576
+    plan = f32_forward_plan("flash_fwd", 257, 192)
+    assert (plan["chunks"], plan["sums"], plan["s_passes"]) == (2, 6, 1)
+    assert not whole_head_holds(1, 129, torch.float32)
     # each whole-head row is the first of its width that holds its keys
     for width, keys in WHOLE_F32_KEYS.items():
         below = 0
@@ -229,10 +271,16 @@ def test_tma_plan_of_the_f32_views(dtype):
     """The f32 forwards read the model's views in place through f32 tensor
     maps (boxes of 32 columns, 128-byte swizzle, 4-byte strides) up to 128
     columns; a head of D % 4 != 0 goes through the padded copy (D % 8 !=
-    0 in bf16); past 128 columns the f32 forward maps nothing (CUDA
-    cores)."""
+    0 in bf16); past 128 columns the streamed instance's maps are over its
+    split pass's scratch: q's and K's TF32 halves, (W, B * H, T, 2) f32,
+    and V's three bf16 terms, (W, B * H, T, 3), W = D rounded up to 64,
+    boxes of 32 f32 columns (64 rows of q, a key tile of K) and of 64 bf16
+    columns (V's key tile), 128-byte swizzle; the views themselves as up
+    to 128 columns, except that the split pass reads any view whose d
+    stride is 1 in place, so nothing is copied at 130 columns."""
     B, T, H = 2, 65, 3
-    for D, f32_copies in ((32, ""), (44, ""), (30, "qkv"), (136, "")):
+    for D, f32_copies in ((32, ""), (44, ""), (30, "qkv"), (136, ""),
+                          (130, "")):
         x = torch.zeros((3, B, T, H * D), dtype=dtype)
         q, k, v = (t.view(B, T, H, D).transpose(1, 2) for t in x)
         plan = tma_plan("mhsa_fwd", q, k, v)
@@ -241,20 +289,35 @@ def test_tma_plan_of_the_f32_views(dtype):
             continue
         assert "".join(plan["copies"]) == f32_copies, D
         if D > 128:
-            assert plan["plan"] is None and plan["maps"] == {}
-            assert all(a is b for a, b in zip(readable(q, k, v), (q, k, v)))
-            continue
-        for key in "qkv":
-            tmap = plan["maps"][key]
-            assert tmap["swizzle"] == 128
-            assert tmap["box"][0] == 32
-            assert all(s % 16 == 0 for s in tmap["strides"])
-        if not f32_copies:
-            assert plan["maps"]["q"]["strides"] == (4 * D, 4 * H * D,
-                                                    4 * T * H * D)
+            assert plan["plan"]["grid"] == "streamed"
+            W = -(-D // F32_SPLIT_COLS) * F32_SPLIT_COLS
+            n = B * H * T * W
+            assert plan["maps"] == {
+                "q": {"extents": (W, B * H, T, 2),
+                      "strides": (4 * T * W, 4 * W, 4 * n),
+                      "box": (32, 1, 64, 1), "swizzle": 128},
+                "k": {"extents": (W, B * H, T, 2),
+                      "strides": (4 * T * W, 4 * W, 4 * n),
+                      "box": (32, 1, 32, 1), "swizzle": 128},
+                "v": {"extents": (W, B * H, T, 3),
+                      "strides": (2 * T * W, 2 * W, 2 * n),
+                      "box": (64, 1, 32, 1), "swizzle": 128}}, D
         else:
-            assert padded_copy(q).stride(2) == 32
-        assert tma_plan("mhsa_fwd", *readable(q, k, v))["copies"] == []
+            for key in "qkv":
+                tmap = plan["maps"][key]
+                assert tmap["swizzle"] == 128
+                assert tmap["box"][0] == 32
+                assert all(s % 16 == 0 for s in tmap["strides"])
+            if not f32_copies:
+                assert plan["maps"]["q"]["strides"] == (4 * D, 4 * H * D,
+                                                        4 * T * H * D)
+        if f32_copies:
+            assert padded_copy(q).stride(2) == -(-D // 8) * 8
+        else:
+            assert all(a is b for a, b in zip(
+                readable(q, k, v, plan=plan["plan"]), (q, k, v)))
+        assert tma_plan("mhsa_fwd", *readable(
+            q, k, v, plan=plan["plan"]))["copies"] == []
 
 
 @pytest.mark.parametrize("width", sorted(FWD_F32_TILES))
@@ -291,3 +354,39 @@ def test_cpu_tensors_take_the_plain_twins(wrapper, plain):
                     want if isinstance(want, tuple) else (want,)):
         assert torch.equal(a, w)
     assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("case", STREAMED_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_streamed_tf32_forward_model_matches_jax_in_f32(case, name):
+    """Past 128 columns (the streamed instance: s summed a 32-column chunk
+    at a time, the two consumers each summing the chunks of its parity and
+    adding the other's part, each chunk's three products added in f32; p.V
+    by the streamed row's key tile and route) the model against JAX's f32
+    forward (o and lse) within rtol 1e-5 / atol 1e-5, at 129, 192, 256,
+    520 and 704 columns and ragged T, for both forwards (``mhsa_fwd`` takes
+    the same tiled items there), and against the port's plain version."""
+    B, H, T, D = case
+    assert f32_forward_plan(name, T, D)["grid"] == "streamed"
+    args, want = _jax_case(B, H, T, D, 64, 64, seed=T + D, name=name)
+    out, lse = tf32_forward_model(*args, name)
+    assert out.shape == (B, T, H, D) and lse.shape == (B, H, T)
+    plain = flash_attention_lse_reference(*args)
+    for what, a, w, pl in zip(("out", "lse"), (out, lse), want, plain):
+        np.testing.assert_allclose(a.numpy(), w, **FWD_TOL,
+                                   err_msg=f"{what} {name} {case}")
+        np.testing.assert_allclose(a.numpy(), pl.numpy(), **FWD_TOL,
+                                   err_msg=f"{what} {name} {case} vs plain")
+
+
+@pytest.mark.parametrize("case", STREAMED_CASES[1:3],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_one_tf32_product_misses_the_f32_limit_past_128_columns(case):
+    """Past 128 columns too, one TF32 product in place of each split
+    product misses rtol 1e-5 / atol 1e-5 against JAX's f32 forward where
+    the streamed model's three products hold it."""
+    args, want = _jax_case(*case, 64, 64, seed=32, name="flash_fwd")
+    assert _misses(tf32_forward_model(*args, "flash_fwd"), want) == []
+    assert _misses(tf32_forward_model(*args, "flash_fwd", three=False),
+                   want) != []

@@ -891,7 +891,7 @@ def test_route_default_at_each_whole_head_boundary(dtype, T, D, want):
     assert route(T, D, "", dtype=dtype) == want
     plan = (forward_plan("mhsa_fwd", T, D) if dtype == torch.bfloat16
             else f32_forward_plan("mhsa_fwd", T, D))
-    assert (plan is not None and plan["grid"] == "whole") == (want == "fused")
+    assert (plan["grid"] == "whole") == (want == "fused")
     keys = WHOLE_KEYS if dtype == torch.bfloat16 else WHOLE_F32_KEYS
     width = min((w for w in keys if w >= D), default=None)
     assert (width is not None and -(-T // 8) * 8 <= max(keys[width])) == (
@@ -947,15 +947,15 @@ def test_route_runs_fused_as_asked_past_every_whole_head(T, D):
     """Where no whole-head instance holds the head in either dtype, the
     default takes the tiled kernels and ``"fused"`` still runs as asked,
     as JAX's ``fused_attention`` does at any T: the whole-head forward's
-    plan runs the tiled work items there (bf16; and f32 up to 128 columns,
-    past them the CUDA-core tile, no plan)."""
+    plan runs the tiled work items there (bf16; and f32, past 128 columns
+    the streamed items)."""
     for dtype in (torch.float32, torch.bfloat16):
         assert not whole_head_holds(T, D, dtype)
         assert route(T, D, None, dtype=dtype) == "flash"
         assert route(T, D, "fused", dtype=dtype) == "fused"
     assert forward_plan("mhsa_fwd", T, D)["grid"] in ("tiled", "streamed")
     plan = f32_forward_plan("mhsa_fwd", T, D)
-    assert plan is None if D > 128 else plan["grid"] == "tiled"
+    assert plan["grid"] == ("streamed" if D > 128 else "tiled")
 
 
 def test_pixel_token_attention_module_routes_to_flash_and_matches_einsum():

@@ -1,7 +1,7 @@
 """The wgmma forward's free choices, bf16 and f32 (TF32), measured on one
 CUDA card.
 
-    python3 tools/forward_choices.py [--only bf16|f32]
+    python3 tools/forward_choices.py [--only bf16|f32|f32s]
 
 builds ``csrc/flash_fwd.cu`` from copies of ``vit_cifar_torch/csrc`` under
 ``build/forward_choices/``, every build at once.  First the column-chunk
@@ -37,8 +37,19 @@ pixel ViT's (128, 12, 1025, 32) at 32 columns, (128, 8, 512, D) at 64
 and 128; then, with the repo's build, mhsa_fwd's whole head as one key
 tile against flash_fwd's tiled items at each width's last whole-head T
 (device ms under torch.profiler: a window of events follows the host
-there), at (128, 12, T, D).  Prints the card's name and power limit, a
-line a measurement, and one JSON object last.
+there), at (128, 12, T, D).
+
+The f32 streamed row past 128 columns (``FWD_F32_STREAMED``, ``--only
+f32s``): the row changed in one choice -- half, 1.5 and twice its key tile,
+and the other widths of o a consumer of 32, 64 and 128 columns -- built,
+checked within two units of 1e-5 (at the largest value) of the repo's
+build and timed against it in turns (a choice that spills registers is
+reported with its ptxas line and not run) on the model's f32 views at
+(128, 8, 512, 192), (128, 8, 512, 256), (16, 2, 1024, 520) and the
+wide-head model's (128, 2, 257, 192); then the repo's build's device ms
+by kernel at each shape (the split pass and the streamed kernel, by
+torch.profiler).  Prints the card's name and power limit, a line a
+measurement, and one JSON object last.
 """
 
 from __future__ import annotations
@@ -62,8 +73,9 @@ from vit_cifar_torch.ops.cuda.build import (CSRC_DIR, NVCC_FLAGS,  # noqa: E402
 from vit_cifar_torch.ops.cuda.attention import \
     fused_attention  # noqa: E402
 from vit_cifar_torch.ops.cuda.common import (  # noqa: E402
-    FWD_F32_TILES, PINGPONG, STREAMED, TILED_COLS, TILED_KEYS, WHOLE_F32_KEYS,
-    WIDEST_FORWARD, library, readable, tma_strides)
+    F32_FWD_STREAMED, FWD_F32_TILES, PINGPONG, STREAMED, TILED_COLS,
+    TILED_KEYS, WHOLE_F32_KEYS, WIDEST_FORWARD, library, readable,
+    tma_strides)
 from vit_cifar_torch.ops.cuda.flash_attention import \
     flash_attention  # noqa: E402
 
@@ -106,6 +118,32 @@ def build_f32(width: int, row: tuple) -> tuple[str, subprocess.Popen]:
         lambda text: re.sub(rf"^FWD_F32\({width}, \d+, \d+, [01]\)$",
                             f"FWD_F32({width}, {keys}, {cols}, "
                             f"{int(bf16x3)})", text, flags=re.M)))
+
+
+# the f32 streamed row's shapes: chip_smoke.py's wide f32 shapes and the
+# wide-head model's head at B=128
+F32S_SHAPES = ((128, 8, 512, 192), (128, 8, 512, 256), (16, 2, 1024, 520),
+               (128, 2, 257, 192))
+
+
+def f32s_choices() -> list[tuple[tuple, str]]:
+    """((keys, cols), what) of each choice of the f32 streamed row: half,
+    1.5 and twice its key tile, and the other widths of o a consumer."""
+    keys, cols = F32_FWD_STREAMED
+    choices = [((n, cols), f"key tile {n}")
+               for n in (keys // 2, keys * 3 // 2, 2 * keys)]
+    choices += [((keys, c), f"{c} columns of o a consumer")
+                for c in (32, 64, 128) if c != cols]
+    return choices
+
+
+def build_f32s(row: tuple) -> tuple[str, subprocess.Popen]:
+    """Starts nvcc on a copy whose FWD_F32_STREAMED row is ``row``."""
+    flags = ", ".join(str(x) for x in row)
+    return nvcc(copy_with_table(
+        "f32s_" + "_".join(str(x) for x in row),
+        lambda text: re.sub(r"^FWD_F32_STREAMED\(.*\)$",
+                            f"FWD_F32_STREAMED({flags})", text, flags=re.M)))
 
 
 def chunk_choices() -> list[tuple[int, tuple, str]]:
@@ -220,16 +258,22 @@ def launcher(lib: ctypes.CDLL):
     """``flash_fwd`` of ``lib`` on bf16 or f32 views that TMA reads in
     place."""
     lib.flash_fwd.restype = ctypes.c_int
+    lib.flash_fwd_scratch_floats.restype = ctypes.c_longlong
+    lib.flash_fwd_scratch_floats.argtypes = [ctypes.c_int] * 4
 
     def run(q, k, v, scale):
         q, k, v = readable(q, k, v)
         B, H, T, D = q.shape
         out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+        floats = (lib.flash_fwd_scratch_floats(B, H, T, D)
+                  if q.dtype == torch.float32 else 0)
+        scratch = torch.empty(max(floats, 1), device=q.device)
         strides = (ctypes.c_longlong * 9)(
             *tma_strides(q), *tma_strides(k), *tma_strides(v))
         err = lib.flash_fwd(
             *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)),
-            ctypes.c_void_p(None), strides,
+            ctypes.c_void_p(None), ctypes.c_void_p(scratch.data_ptr()),
+            strides,
             *(ctypes.c_int(n) for n in (B, H, T, D)), ctypes.c_float(scale),
             ctypes.c_int(1 if q.dtype == torch.bfloat16 else 0),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
@@ -300,6 +344,18 @@ def main() -> None:
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv \
         else None
     os.makedirs(WORK, exist_ok=True)
+    if only == "f32s":
+        f32s = f32s_choices()
+        f32s_jobs = [build_f32s(row) for row, _ in f32s]
+        try:
+            print(json.dumps({"card": card,
+                              **measure_f32s(card, f32s, f32s_jobs)}))
+        finally:  # no compiler left running
+            for _, proc in f32s_jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return
     f32 = f32_choices() if only != "bf16" else []
     f32_jobs = [build_f32(width, row) for width, row, _ in f32]
     choices, jobs = [], []
@@ -394,6 +450,106 @@ def measure_f32(card: str, choices, jobs) -> dict:
               f" (medians of {2 * ROUNDS} profiled windows of 20, in turns; "
               f"{card})", flush=True)
         del q, k, v
+    return result
+
+
+def kernel_device_ms(fn, n: int = 10) -> dict:
+    """Device ms a call of ``fn`` by kernel name (torch.profiler), over
+    ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for a in prof.key_averages():
+        if a.self_device_time_total > 0:
+            name = re.sub(r"\(.*", "", a.key.replace(
+                "(anonymous namespace)::", ""))[:90]
+            out[name] = out.get(name, 0.0) + a.self_device_time_total / 1e3 / n
+    return out
+
+
+def measure_f32s(card: str, choices, jobs) -> dict:
+    """Checks and times each choice of the f32 streamed row against the
+    repo's build at every shape of ``F32S_SHAPES``, then the repo's
+    build's device ms by kernel there."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {"row": list(F32_FWD_STREAMED), "f32s": [], "kernels": {}}
+    repo = launcher(library("flash_fwd"))
+    views = {}
+    for shape in F32S_SHAPES:
+        views[shape] = model_views(shape, gen, torch.float32)
+    for (row, what), (path, proc) in zip(choices, jobs):
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            first = next((line for line in report.splitlines()
+                          if "error" in line), report[-400:])
+            print(f"f32 streamed {row}: {what} does not build: "
+                  f"{first.strip()}", flush=True)
+            result["f32s"].append({"row": list(row), "choice": what,
+                                   "built": False})
+            continue
+        mangled = "23fwd_split_stream_kernelILi{}ELi{}E".format(*row)
+        ptxas = fwd_report(report, mangled)
+        if "wgmma.mma_async instructions are serialized" in report:
+            print(f"f32 streamed {row}: {what}: ptxas serialised its "
+                  f"wgmmas; not timed ({ptxas})", flush=True)
+            result["f32s"].append({"row": list(row), "choice": what,
+                                   "built": True, "serialised": True,
+                                   "ptxas": ptxas})
+            continue
+        if not re.search(r"\b0 bytes spill stores", ptxas):
+            # not a candidate (the table's rows do not spill), and one whose
+            # wgmma accumulators spill may not run right: not run
+            print(f"f32 streamed {row}: {what}: ptxas {ptxas}; spills, not "
+                  "timed", flush=True)
+            result["f32s"].append({"row": list(row), "choice": what,
+                                   "built": True, "spills": True,
+                                   "ptxas": ptxas})
+            continue
+        lib = launcher(ctypes.CDLL(path))
+        for shape in F32S_SHAPES:
+            q, k, v = views[shape]
+            scale = 1.0 / (shape[1] * shape[3]) ** 0.5
+            got, want = lib(q, k, v, scale), repo(q, k, v, scale)
+            diff = ((got - want).abs().max().item()
+                    / (want.abs().max().item() * 1e-5))
+            del got, want
+            if diff > 2:  # reported, not timed
+                print(f"flash_fwd {shape} f32 streamed: {what} {row} "
+                      f"DIFFERS from the repo's build by {diff:.2f} units "
+                      "of 1e-5", flush=True)
+                result["f32s"].append({"row": list(row), "choice": what,
+                                       "built": True, "shape": shape,
+                                       "diff": diff})
+                continue
+            t_repo, t_choice = in_turns(lambda: repo(q, k, v, scale),
+                                        lambda: lib(q, k, v, scale))
+            med = statistics.median(t_choice) / statistics.median(t_repo)
+            result["f32s"].append({
+                "row": list(row), "choice": what, "built": True,
+                "shape": shape, "ptxas": ptxas, "repo_ms": t_repo,
+                "choice_ms": t_choice, "choice_over_repo": med,
+                "diff": diff})
+            print(f"flash_fwd {shape} f32 streamed: {what} {row} (ptxas "
+                  f"{ptxas}) {statistics.median(t_choice):.4f} ms against "
+                  f"the repo's {statistics.median(t_repo):.4f} ms: {med:.3f} "
+                  f"(medians of {2 * ROUNDS} windows of {ITERS}); "
+                  f"{diff:.2f} units of 1e-5 from the repo's ({card})",
+                  flush=True)
+    for shape in F32S_SHAPES:
+        q, k, v = views[shape]
+        scale = 1.0 / (shape[1] * shape[3]) ** 0.5
+        by_kernel = kernel_device_ms(lambda: repo(q, k, v, scale))
+        result["kernels"][str(shape)] = by_kernel
+        print(f"flash_fwd {shape} f32, the repo's build, device ms a call "
+              "by kernel: " + "; ".join(f"{n} {t:.4f}"
+                                        for n, t in by_kernel.items())
+              + f" ({card})", flush=True)
     return result
 
 

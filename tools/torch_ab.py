@@ -39,12 +39,14 @@ differs.  Each run measures, in bf16:
   host microseconds a call at T=65), and the flagship and pixel training
   steps under ``--precision 32`` as above;
 - f32 past 128 columns (``f32wide``, only when asked for): the tiled
-  forwards with and without lse, the dq and dk/dv passes and the pair on
+  and the whole-head forwards with and without lse (both on the streamed
+  instance there), the dq and dk/dv passes and the pair on
   the model's f32 views at (128, 8, 512, 192), (128, 8, 512, 256),
   (16, 2, 1024, 520) and the wide-head model's (128, 2, 257, 192), each in
   turns with the library's f32 call (efficient attention with lse, SDPA,
-  SDPA's backward on the backend it takes) by CUDA events, and each call's
-  max error, the library's too, against the plain f32 version; and the
+  SDPA's backward on the backend it takes) by CUDA events, each call's
+  max error, the library's too, against the plain f32 version, and each
+  kernel's bound (``chip_smoke.bound``); and the
   wide-head model's training step under ``--precision 32`` (hidden 384 in
   2 heads at patch 16, T=257, 2 layers, B=128) as above.
 
@@ -224,13 +226,15 @@ def _f32_times(smoke, torch) -> dict:
 
 
 def _f32_wide_times(smoke, torch) -> dict:
-    """ms a call of the f32 tiled forwards with and without lse, of the f32
-    dq and dk/dv passes and of the pair on the model's f32 views at
-    ``F32_WIDE_SHAPES``, each in turns with the library's f32 call where
-    one computes the same (``chip_smoke.library_f32``; SDPA in f32 for the
-    inference forward), by CUDA events over windows of about 50 ms; and the
-    max error of each call, the library's too, against the plain f32
-    versions."""
+    """ms a call of the f32 tiled and whole-head forwards with and without
+    lse, of the f32 dq and dk/dv passes and of the pair on the model's f32
+    views at ``F32_WIDE_SHAPES``, each in turns with the library's f32 call
+    where one computes the same (``chip_smoke.library_f32``; SDPA in f32
+    for the inference forwards), by CUDA events over windows of about 50
+    ms; the max error of each call, the library's too, against the plain
+    f32 versions; and each kernel's bound."""
+    from vit_cifar_torch.ops.cuda.attention import (fused_attention,
+                                                    fused_attention_lse)
     from vit_cifar_torch.ops.cuda.flash_attention import (
         flash_attention, flash_attention_lse, flash_attention_lse_reference,
         flash_tiled_bwd_dkv, flash_tiled_bwd_dkv_reference,
@@ -260,6 +264,10 @@ def _f32_wide_times(smoke, torch) -> dict:
                     (flash_attention(q, k, v, scale),), (want_o,)),
                 "f32 flash_fwd_lse": smoke._max_err(
                     flash_attention_lse(q, k, v, scale), (want_o, want_lse)),
+                "f32 mhsa_fwd": smoke._max_err(
+                    (fused_attention(q, k, v, scale),), (want_o,)),
+                "f32 mhsa_fwd_lse": smoke._max_err(
+                    fused_attention_lse(q, k, v, scale), (want_o, want_lse)),
                 "f32 flash_bwd_dq_tiled": smoke._max_err(got[:1], want[:1]),
                 "f32 flash_bwd_dkv_tiled": smoke._max_err(got[1:], want[1:]),
                 "f32 pair": smoke._max_err(got, want),
@@ -271,6 +279,11 @@ def _f32_wide_times(smoke, torch) -> dict:
                                  sdpa),
                "f32 flash_fwd_lse": (
                    lambda: flash_attention_lse(q, k, v, scale),
+                   lib["fwd_lse"]),
+               "f32 mhsa_fwd": (lambda: fused_attention(q, k, v, scale),
+                                sdpa),
+               "f32 mhsa_fwd_lse": (
+                   lambda: fused_attention_lse(q, k, v, scale),
                    lib["fwd_lse"]),
                "f32 flash_bwd_dq_tiled": (lambda: flash_tiled_bwd_dq(*args),
                                           None),
@@ -287,6 +300,11 @@ def _f32_wide_times(smoke, torch) -> dict:
                 out[f"{name} {tag}"] = ms["kernel"]
                 out[f"{name} {tag} library"] = ms["library"]
         out.update({f"{name} {tag} err": e for name, e in errs.items()})
+        for name in fns:
+            if name != "f32 pair":
+                kernel = name.split()[1]
+                out[f"{name} {tag} bound"] = smoke.bound(
+                    kernel, shape, torch.float32)["bound_ms"]
         print(f"f32 past 128 columns {tag} {shape}: the library's pair on "
               f"SDPA's {lib['backend']} backend", file=sys.stderr)
         del q, k, v, o, lse, g, args, lib, fns

@@ -48,19 +48,23 @@
 //   logits (the last key tile, taken first); a warp whose 16 rows all lie
 //   past T computes no exps.
 //
-//   f32 (dtype 0) up to 128 columns: the same design on TF32 wgmma
-//   (wgmma_forward_tf32.cuh, fwd_split_kernel; the FWD_F32 rows of
-//   forward_tiles.cuh).  One TF32 product (10-bit mantissa) would miss the
-//   1e-5 the f32 path is held to: q and each K tile are split into TF32
-//   big + small by converter warps as they land, and s = q.k^T is three
-//   TF32 products (big.big + big.small + small.big); p.V, which TF32 wgmma
-//   cannot read MN-major, takes V's three bf16 terms (six bf16 products
-//   with the transpose bit) or its TF32 transpose, by the row; each key
-//   tile's p.V lands in a fresh accumulator and is added into o in f32.
-//   At the pixel shape it is bound by the products (two, three TF32 ones
-//   each).  Past 128 columns the CUDA-core column-chunk tile of
-//   fwd_f32_chunk.cuh, a dispatch by width: one block of 8 warps per 64
-//   query rows and 128-column chunk of o.
+//   f32 (dtype 0): the same design on TF32 wgmma
+//   (wgmma_forward_tf32.cuh).  One TF32 product (10-bit mantissa) would
+//   miss the 1e-5 the f32 path is held to: q and each K tile are split into
+//   TF32 big + small, and s = q.k^T is three TF32 products (big.big +
+//   big.small + small.big); p.V, which TF32 wgmma cannot read MN-major,
+//   takes V's three bf16 terms (six bf16 products with the transpose bit)
+//   or its TF32 transpose, by the row; each key tile's p.V lands in a fresh
+//   accumulator and is added into o in f32.  Up to 128 columns
+//   fwd_split_kernel (the FWD_F32 rows of forward_tiles.cuh): converter
+//   warps split q and each key tile as they land.  At the pixel shape it is
+//   bound by the products (two, three TF32 ones each).  Past 128 columns
+//   the streamed instance (fwd_split_stream_kernel, the FWD_F32_STREAMED
+//   row): 64 query rows and two chunks of o an item, one a consumer, s
+//   summed over 32-column chunks of q and K brought through the ring and
+//   computed once an item and key tile (the two consumers take alternate
+//   chunks and add each other's part), q, K and V split once a call by a
+//   split pass into a scratch that TMA reads.
 
 // Every instance keeps the TPU kernel's guard: a tile whose logits are all
 // -inf keeps m at -inf and must not turn it into NaN, so exp uses m_new = 0
@@ -75,7 +79,6 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
-#include "fwd_f32_chunk.cuh"
 #include "wgmma_attention.cuh"
 #include "wgmma_forward_tf32.cuh"
 
@@ -83,40 +86,15 @@ namespace {
 
 using namespace attn;
 
-// ---- f32 past kColChunk columns: one block per (b, h, query tile, column
-// chunk) -------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_chunk_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           float* __restrict__ out, float* __restrict__ lse,
-                           Qkv L, int H, int seq, int D, float scale) {
-  extern __shared__ float smem[];
-  const int tiles = (seq + kChunkTileQ - 1) / kChunkTileQ;
-  const int bh = blockIdx.x / tiles;
-  const int q0 = (blockIdx.x - bh * tiles) * kChunkTileQ;
-  fwd_f32_chunk_tile(q, k, v, out, lse, L, H, seq, D, scale, bh, q0,
-                     static_cast<int>(blockIdx.y), smem);
-}
-
-cudaError_t launch_f32_for_d(const void* q, const void* k, const void* v,
-                             void* out, void* lse, const Qkv& L, int B, int H,
-                             int seq, int D, float scale,
-                             cudaStream_t stream) {
-  if (attn_wg::f32_width(D) != 0) {
-    using attn_wg::View;
-    return attn_wg::launch_f32_tiled(View{q, L.sb[0], L.sh[0], L.st[0]},
-                                     View{k, L.sb[1], L.sh[1], L.st[1]},
-                                     View{v, L.sb[2], L.sh[2], L.st[2]}, out,
-                                     lse, B, H, seq, D, scale, stream);
-  }
-  const int tiles = (seq + kChunkTileQ - 1) / kChunkTileQ;
-  return launch_with_smem(
-      flash_fwd_chunk_kernel, dim3(B * H * tiles, col_chunks(D)), kThreads,
-      fwd_f32_chunk_smem_bytes(), stream, static_cast<const float*>(q),
-      static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), static_cast<float*>(lse), L, H, seq, D,
-      scale);
+// ---- f32: TF32 wgmma at every width ----------------------------------------
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       void* lse, void* scratch, const Qkv& L, int B, int H,
+                       int seq, int D, float scale, cudaStream_t stream) {
+  using attn_wg::View;
+  return attn_wg::launch_f32_tiled(View{q, L.sb[0], L.sh[0], L.st[0]},
+                                   View{k, L.sb[1], L.sh[1], L.st[1]},
+                                   View{v, L.sb[2], L.sh[2], L.st[2]}, out,
+                                   lse, scratch, B, H, seq, D, scale, stream);
 }
 
 // ---- bf16 ------------------------------------------------------------------
@@ -133,25 +111,35 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v: (B, H, T, D) views, their (b, h, t) strides in elements in
-// `strides` (q's three, then k's, then v's; d's stride is 1); the views the
-// wgmma instances read (bf16, and f32 up to the widest FWD_F32 row) meet
-// TMA's rules (16-byte aligned bases, strides multiples of 16 bytes), which
-// the wrapper sees to.  out: (B, T, H, D) contiguous, same
-// type; lse: (B, H, T) float32 contiguous, or null for the inference
-// variant.  Any D; dtype 0 is float32, 1 is bfloat16.  Returns the
-// cudaError_t of the launch (0 on success); the caller checks shapes.
+// `strides` (q's three, then k's, then v's; d's stride is 1); the views
+// meet TMA's rules (16-byte aligned bases, strides multiples of 16 bytes),
+// which the wrapper sees to, except in f32 past 128 columns, where the
+// split pass reads them with plain loads through any strides.  out:
+// (B, T, H, D) contiguous, same type;
+// lse: (B, H, T) float32 contiguous, or null for the inference variant;
+// scratch: flash_fwd_scratch_floats(B, H, T, D) floats in f32 where that
+// is not 0, else unused.  Any D; dtype 0 is float32, 1 is bfloat16.
+// Returns the cudaError_t of the launch (0 on success); the caller checks
+// shapes.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         void* out, void* lse, const long long* strides,
-                         int B, int H, int T, int D, float scale, int dtype,
-                         void* stream) {
+                         void* out, void* lse, void* scratch,
+                         const long long* strides, int B, int H, int T, int D,
+                         float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Qkv L = Qkv::from(strides);
   switch (dtype) {
     case 0:
-      return launch_f32_for_d(q, k, v, out, lse, L, B, H, T, D, scale, s);
+      return launch_f32(q, k, v, out, lse, scratch, L, B, H, T, D, scale, s);
     case 1:
       return launch_bf16(q, k, v, out, lse, L, B, H, T, D, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The f32 forward's scratch at (B, H, T, D), in floats (0: none): the split
+// pass's copies of q and K (TF32 halves) and V (bf16 terms) past 128
+// columns.
+extern "C" long long flash_fwd_scratch_floats(int B, int H, int T, int D) {
+  return attn_wg::f32_scratch_floats(B, H, T, D);
 }

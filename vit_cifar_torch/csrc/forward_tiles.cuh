@@ -4,7 +4,8 @@
 // those headers) expands and what the wrappers' plans
 // (ops/cuda/common.py::forward_plan, f32_forward_plan) and the CPU models
 // read, so they cannot disagree.  No include guard: each includer defines
-// all six macros.
+// the first six macros; FWD_F32_STREAMED, which only the f32 dispatch
+// expands, is empty unless the includer defines it, and undefined after.
 //
 // TILED(width, keys, pingpong): the tiled grid at a padded head width in
 //   one pass, the whole head's columns of o in a consumer -- the widest
@@ -75,6 +76,27 @@
 //   each width's last row the whole head read 1.45x (32 columns), 1.14x
 //   (64) and 1.00x (128) faster than the tiled items
 //   (tools/forward_choices.py --only f32, device ms at (128, 12, T, D)).
+// FWD_F32_STREAMED(keys, cols): every f32 head wider than the FWD_F32
+//   rows, at any width, both forwards (fwd_split_stream_kernel): a split
+//   pass writes q and K as TF32 big + small and V as its three bf16 terms
+//   into a scratch once a call, which TMA reads; a work item 64 query rows
+//   and a group of two chunks of `cols` columns of o, one a consumer; s =
+//   q.k^T summed over 32-column chunks of q and of a K tile of `keys` keys
+//   that come through the ring, each chunk's three TF32 products added in
+//   f32, the two consumers taking alternate chunks and adding each other's
+//   part through shared memory, so s is computed once an item and key
+//   tile; p.V at the consumer's columns on V's bf16 terms.  The row is the
+//   fastest of tools/forward_choices.py --only f32s's measurements at
+//   (128,8,512,192|256), (16,2,1024,520) and the wide-head model's
+//   (128,2,257,192) (H100, PERF.md §6): 16 keys read 1.26-1.69x, 48 and 64
+//   keys spill (not run); 64 columns of o a consumer 1.39-1.66x, 32
+//   columns 1.77-2.79x (s is computed once per two chunks: 128 columns
+//   halve it).  The 128 columns fit a consumer's 168 registers because the
+//   p.V of a tile is folded into o before the next softmax (the kernel
+//   says how).
+#ifndef FWD_F32_STREAMED
+#define FWD_F32_STREAMED(n, cols)
+#endif
 
 TILED(32, 128, 1)
 TILED(64, 96, 0)
@@ -106,6 +128,7 @@ WHOLE(128, 64)
 FWD_F32(32, 64, 32, 1)
 FWD_F32(64, 32, 64, 1)
 FWD_F32(128, 32, 64, 1)
+FWD_F32_STREAMED(32, 128)
 
 WHOLE_F32(32, 16)
 WHOLE_F32(32, 32)
@@ -116,3 +139,5 @@ WHOLE_F32(64, 32)
 WHOLE_F32(64, 64)
 WHOLE_F32(128, 16)
 WHOLE_F32(128, 32)
+
+#undef FWD_F32_STREAMED

@@ -41,19 +41,17 @@
 //   stream the sum over D (flash_fwd.cu says how), and no whole-head row
 //   holds such a head.
 //
-//   f32 (dtype 0) up to 128 columns: the same grids on TF32 wgmma
-//   (wgmma_forward_tf32.cuh, fwd_split_kernel): the whole head as one key
-//   tile where a consumer holds it (round_up(T, 8) keys up to 72 at 32
-//   columns, 64 at 64, 32 at 128: the WHOLE_F32 rows of forward_tiles.cuh;
-//   72 at T=65), else the tiled items of the FWD_F32 rows, as flash_fwd.cu
-//   launches them.  q and K are split into TF32 big + small and s = q.k^T
-//   is three TF32 products; p.V takes V's three bf16 terms (six bf16
-//   products with the transpose bit) or its TF32 transpose, by the row
-//   (flash_fwd.cu says why).  Past 128 columns one block a head walks K
-//   and V in tiles of 64 keys with the online softmax, every 64 query rows
-//   and 128-column chunk in turn (fwd_f32_chunk.cuh), on the CUDA cores: a
-//   dispatch by width.
-//
+//   f32 (dtype 0): the same grids on TF32 wgmma
+//   (wgmma_forward_tf32.cuh): the whole head as one key tile where a
+//   consumer holds it (round_up(T, 8) keys up to 72 at 32 columns, 64 at
+//   64, 32 at 128: the WHOLE_F32 rows of forward_tiles.cuh; 72 at T=65),
+//   else the tiled items of the FWD_F32 rows, and past 128 columns those
+//   of the streamed FWD_F32_STREAMED row, as flash_fwd.cu launches them.
+//   q and K are split into TF32 big + small and s = q.k^T is three TF32
+//   products; p.V takes V's three bf16 terms (six bf16 products with the
+//   transpose bit) or its TF32 transpose, by the row (flash_fwd.cu says
+//   why and how the streamed instance cuts a head).
+
 // The router (ops/attention.py::route) takes this forward by default where
 // a whole-head instance holds the head in the module's dtype (a WHOLE or
 // WHOLE_F32 row), the tiled forward elsewhere.
@@ -68,7 +66,6 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
-#include "fwd_f32_chunk.cuh"
 #include "wgmma_attention.cuh"
 #include "wgmma_forward_tf32.cuh"
 
@@ -76,35 +73,15 @@ namespace {
 
 using namespace attn;
 
-// ---- f32 past kColChunk columns: one block a head ------------------------
-__global__ void __launch_bounds__(kThreads)
-    mhsa_fwd_chunk_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ out,
-                          float* __restrict__ lse, Qkv L, int H, int seq,
-                          int D, float scale) {
-  extern __shared__ float smem[];
-  for (int q0 = 0; q0 < seq; q0 += kChunkTileQ)
-    for (int cc = 0; cc < col_chunks(D); ++cc)
-      fwd_f32_chunk_tile(q, k, v, out, lse, L, H, seq, D, scale,
-                         static_cast<int>(blockIdx.x), q0, cc, smem);
-}
-
+// ---- f32: TF32 wgmma at every width ----------------------------------------
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       void* lse, const Qkv& L, int B, int H, int seq, int D,
-                       float scale, cudaStream_t stream) {
-  if (attn_wg::f32_width(D) != 0) {
-    using attn_wg::View;
-    return attn_wg::launch_f32_whole_or_tiled(
-        View{q, L.sb[0], L.sh[0], L.st[0]}, View{k, L.sb[1], L.sh[1], L.st[1]},
-        View{v, L.sb[2], L.sh[2], L.st[2]}, out, lse, B, H, seq, D, scale,
-        stream);
-  }
-  return launch_with_smem(
-      mhsa_fwd_chunk_kernel, B * H, kThreads, fwd_f32_chunk_smem_bytes(),
-      stream, static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), L, H, seq, D, scale);
+                       void* lse, void* scratch, const Qkv& L, int B, int H,
+                       int seq, int D, float scale, cudaStream_t stream) {
+  using attn_wg::View;
+  return attn_wg::launch_f32_whole_or_tiled(
+      View{q, L.sb[0], L.sh[0], L.st[0]}, View{k, L.sb[1], L.sh[1], L.st[1]},
+      View{v, L.sb[2], L.sh[2], L.st[2]}, out, lse, scratch, B, H, seq, D,
+      scale, stream);
 }
 
 // ---- bf16 ------------------------------------------------------------------
@@ -121,25 +98,34 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v: (B, H, T, D) views, their (b, h, t) strides in elements in
-// `strides` (q's three, then k's, then v's; d's stride is 1); the views the
-// wgmma instances read (bf16, and f32 up to the widest FWD_F32 row) meet
-// TMA's rules (16-byte aligned bases, strides multiples of 16 bytes), which
-// the wrapper sees to.  out: (B, T, H, D) contiguous, same
-// type; lse: (B, H, T) float32 contiguous, or null for the inference
-// variant.  Any T and any D; dtype 0 is float32, 1 is bfloat16.  Returns
-// the cudaError_t of the launch (0 on success); the caller checks shapes.
+// `strides` (q's three, then k's, then v's; d's stride is 1); the views
+// meet TMA's rules (16-byte aligned bases, strides multiples of 16 bytes),
+// which the wrapper sees to, except in f32 past 128 columns, where the
+// split pass reads them with plain loads through any strides.  out:
+// (B, T, H, D) contiguous, same type;
+// lse: (B, H, T) float32 contiguous, or null for the inference variant;
+// scratch: mhsa_fwd_scratch_floats(B, H, T, D) floats in f32 where that is
+// not 0, else unused.  Any T and any D; dtype 0 is float32, 1 is bfloat16.
+// Returns the cudaError_t of the launch (0 on success); the caller checks
+// shapes.
 extern "C" int mhsa_fwd(const void* q, const void* k, const void* v,
-                        void* out, void* lse, const long long* strides, int B,
-                        int H, int T, int D, float scale, int dtype,
-                        void* stream) {
+                        void* out, void* lse, void* scratch,
+                        const long long* strides, int B, int H, int T, int D,
+                        float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Qkv L = Qkv::from(strides);
   switch (dtype) {
     case 0:
-      return launch_f32(q, k, v, out, lse, L, B, H, T, D, scale, s);
+      return launch_f32(q, k, v, out, lse, scratch, L, B, H, T, D, scale, s);
     case 1:
       return launch_bf16(q, k, v, out, lse, L, B, H, T, D, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The f32 forward's scratch at (B, H, T, D), in floats (0: none), as
+// flash_fwd_scratch_floats.
+extern "C" long long mhsa_fwd_scratch_floats(int B, int H, int T, int D) {
+  return attn_wg::f32_scratch_floats(B, H, T, D);
 }

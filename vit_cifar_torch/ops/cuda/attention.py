@@ -34,10 +34,10 @@ into TF32 big + small, s = q.k^T as three TF32 products, p.V on V's three
 bf16 terms (six bf16 products with the transpose bit) or its TF32
 transpose, each key tile's part of o added into it in f32, so that it keeps
 the f32 limit of 1e-5; the whole head as one key tile up to T=72 at
-head_dim 32 (64 at 64, 32 at 128), the tiled items beyond.  Past 128
-columns f32 runs on the CUDA cores, K and V walked in tiles of 64 keys
-(a dispatch by width).  A view TMA cannot read (``tma_plan``) is copied
-into a padded buffer first.
+head_dim 32 (64 at 64, 32 at 128), the tiled items beyond; past 128
+columns the tiled forward's streamed instance (``flash_attention.py``
+says how), so no forward runs on the CUDA cores.  A view TMA cannot read
+(``tma_plan``) is copied into a padded buffer first.
 
 =======================  ===================  ===============================
 wrapper                  kernel               plain version
@@ -108,8 +108,7 @@ def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Training forward: (B, H, T, D)^3 -> (out (B, T, H, D), lse (B, H, T)
     f32), the operator ``vit_cifar_torch::mhsa_fwd_lse``.  Launches counted
     in ``fused_attention_lse.launches``.  Both dtypes run on the tensor
-    cores, f32 up to 128 columns on TF32 with split products (see
-    above)."""
+    cores, f32 on TF32 with split products (see above)."""
     check_device(q)
     return registry.OPS.mhsa_fwd_lse(q, k, v, scale)
 
@@ -133,8 +132,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Where a gradient is needed: :class:`FusedAttentionFunction`.  Otherwise
     the operator ``vit_cifar_torch::mhsa_fwd``: the plain version for CPU
     tensors, the inference kernel for CUDA tensors, its launches counted in
-    ``fused_attention.launches`` (on the tensor cores; f32 past 128 columns
-    on the CUDA cores).
+    ``fused_attention.launches`` (on the tensor cores, f32 on TF32 wgmma).
     """
     check_device(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -14,8 +14,8 @@ import torch
 
 # Hopper's opt-in maximum of dynamic shared memory for one block.
 MAX_SMEM_BYTES = 232_448
-# Heads wider than this many columns are cut into column chunks of it by
-# every kernel (``kColChunk`` in ``csrc/attention_common.cuh``).
+# Heads wider than this many columns are cut into column chunks by the bf16
+# backward pair and by every f32 kernel (its streamed instances).
 COL_CHUNK = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # a launch's return code for a tensor map cuTensorMapEncodeTiled refused:
@@ -93,13 +93,16 @@ def streamed_row(D: int) -> tuple[int, int]:
                 STREAMED[max(STREAMED)])
 
 
-def _f32_forward_tiles() -> tuple[dict, dict]:
+def _f32_forward_tiles() -> tuple[dict, dict, tuple, int]:
     """The f32 forward's instances on TF32 wgmma
-    (``csrc/forward_tiles.cuh``'s ``FWD_F32`` and ``WHOLE_F32`` rows, which
-    the CUDA dispatch expands): by padded head width, ascending, the tiled
-    grid's (key tile, columns of o a consumer holds, whether p.V takes V's
-    three bf16 terms); and mhsa_fwd's whole-head key tiles by width,
-    ascending."""
+    (``csrc/forward_tiles.cuh``'s ``FWD_F32``, ``WHOLE_F32`` and
+    ``FWD_F32_STREAMED`` rows, which the CUDA dispatch expands): by padded
+    head width, ascending, the tiled grid's (key tile, columns of o a
+    consumer holds, whether p.V takes V's three bf16 terms); mhsa_fwd's
+    whole-head key tiles by width, ascending; the streamed row's (key tile,
+    columns of o a consumer), which every head past the widest ``FWD_F32``
+    row takes; and the columns of its split pass's rows (``kSplitCols`` of
+    ``csrc/wgmma_forward_tf32.cuh``)."""
     from .build import CSRC_DIR
 
     text = (CSRC_DIR / "forward_tiles.cuh").read_text()
@@ -109,12 +112,16 @@ def _f32_forward_tiles() -> tuple[dict, dict]:
     whole = {}
     for w, n in re.findall(r"^WHOLE_F32\((\d+), (\d+)\)$", text, re.M):
         whole.setdefault(int(w), []).append(int(n))
-    return rows, whole
+    streamed = tuple(map(int, re.findall(
+        r"^FWD_F32_STREAMED\((\d+), (\d+)\)$", text, re.M)[0]))
+    split_cols = int(re.findall(
+        r"^constexpr int kSplitCols = (\d+);$",
+        (CSRC_DIR / "wgmma_forward_tf32.cuh").read_text(), re.M)[0])
+    return rows, whole, streamed, split_cols
 
 
-FWD_F32_TILES, WHOLE_F32_KEYS = _f32_forward_tiles()
-# the widest f32 forward row on TF32 wgmma; past it the CUDA-core tile
-WIDEST_F32_FORWARD = max(FWD_F32_TILES)
+FWD_F32_TILES, WHOLE_F32_KEYS, F32_FWD_STREAMED, F32_SPLIT_COLS = \
+    _f32_forward_tiles()
 
 
 def _backward_tiles() -> tuple[dict, dict, dict, dict, dict, dict, dict]:
@@ -256,23 +263,42 @@ def forward_plan(name: str, T: int, D: int) -> dict:
             "items": -(-T // QUERY_TILE) * chunks}
 
 
-def f32_forward_plan(name: str, T: int, D: int) -> dict | None:
+def f32_forward_plan(name: str, T: int, D: int) -> dict:
     """How the f32 forward ``name`` (``mhsa_fwd`` or ``flash_fwd``) tiles a
-    (T, D) head on TF32 wgmma, from the table's ``FWD_F32`` and
-    ``WHOLE_F32`` rows (``_f32_forward_tiles``): the instance's width (the
-    first row of width >= D), the grid ("whole": mhsa_fwd's whole head as
-    one key tile, the first of its width's whole-head tiles that holds
-    round_up(T, 8) keys; else "tiled"), its key tile and key tiles a head,
-    the columns of o a consumer holds and whether the consumers split the
-    width ("split": a work item 64 query rows, both consumers on them; else
-    128 rows, 64 a consumer), the route of p.V ("bf16x3": V's three bf16
-    terms; else its TF32 transpose) and p.V's depth (the key tile, rounded
-    up to 16 for the bf16 terms' k16 steps: the rows of V's box), the
-    swizzle and columns of an f32 atom (128-byte rows of 32 columns), the
-    rows of the q, k and v boxes, and the work items a head.  None past
-    ``WIDEST_F32_FORWARD``, where the CUDA-core column-chunk tile runs."""
-    if D > WIDEST_F32_FORWARD:
-        return None
+    (T, D) head on TF32 wgmma, from the table's ``FWD_F32``, ``WHOLE_F32``
+    and ``FWD_F32_STREAMED`` rows (``_f32_forward_tiles``): the instance's
+    width (the first ``FWD_F32`` row of width >= D; past the widest D
+    rounded up to the streamed sums' 32-column chunks), the grid ("whole":
+    mhsa_fwd's whole head as one key tile, the first of its width's
+    whole-head tiles that holds round_up(T, 8) keys; "tiled"; past the
+    widest row "streamed", both forwards), its key tile and key tiles a
+    head, the columns of o a consumer holds and whether the consumers split
+    the width ("split": a work item 64 query rows, both consumers on them;
+    else 128 rows, 64 a consumer), the route of p.V ("bf16x3": V's three
+    bf16 terms; else its TF32 transpose) and p.V's depth (the key tile,
+    rounded up to 16 for the bf16 terms' k16 steps: the rows of V's box),
+    the swizzle and columns of an f32 atom (128-byte rows of 32 columns),
+    the rows of the q, k and v boxes, the chunks of o and the work items a
+    head (query tiles times groups of two chunks).  A streamed plan also
+    gives the 32-column chunks of s's sum, rounded up to even so that the
+    two consumers take alternate ones ("sums"), how many times s is
+    computed a query tile ("s_passes": once a group) and the columns of
+    the split pass's rows, which TMA reads ("split_cols": D rounded up to
+    ``F32_SPLIT_COLS``)."""
+    if D > max(FWD_F32_TILES):
+        keys, cols = F32_FWD_STREAMED
+        chunks = -(-D // cols)
+        sums = -(-D // F32_STREAM_COLS)
+        groups = -(-chunks // 2)
+        return {"width": -(-D // F32_STREAM_COLS) * F32_STREAM_COLS,
+                "grid": "streamed", "keys": keys,
+                "key_tiles": -(-T // keys), "cols": cols, "split": True,
+                "bf16x3": True, "depth": keys, "swizzle": 128,
+                "atom_cols": F32_STREAM_COLS,
+                "rows": {"q": 64, "k": keys, "v": keys}, "chunks": chunks,
+                "items": -(-T // 64) * groups, "sums": sums + sums % 2,
+                "s_passes": groups,
+                "split_cols": -(-D // F32_SPLIT_COLS) * F32_SPLIT_COLS}
     width = min(w for w in FWD_F32_TILES if w >= D)
     keys, cols, bf16x3 = FWD_F32_TILES[width]
     whole = None
@@ -289,7 +315,7 @@ def f32_forward_plan(name: str, T: int, D: int) -> dict | None:
             "split": split, "bf16x3": bf16x3, "depth": depth,
             "swizzle": 128, "atom_cols": 32,
             "rows": {"q": rows, "k": keys, "v": depth},
-            "items": -(-T // rows)}
+            "chunks": width // cols, "items": -(-T // rows)}
 
 
 def whole_head_holds(T: int, D: int, dtype: torch.dtype) -> bool:
@@ -298,8 +324,7 @@ def whole_head_holds(T: int, D: int, dtype: torch.dtype) -> bool:
     row in f32): the router's default rule (``ops/attention.py::route``)."""
     if dtype == torch.bfloat16:
         return forward_plan("mhsa_fwd", T, D)["grid"] == "whole"
-    plan = f32_forward_plan("mhsa_fwd", T, D)
-    return plan is not None and plan["grid"] == "whole"
+    return f32_forward_plan("mhsa_fwd", T, D)["grid"] == "whole"
 
 
 def tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -321,35 +346,56 @@ def tma_reads_in_place(t: torch.Tensor) -> bool:
             and not (sb % per16 or sh % per16 or st % per16))
 
 
+def forward_reads_in_place(t: torch.Tensor, plan: dict) -> bool:
+    """Whether the forward whose plan (``forward_plan``,
+    ``f32_forward_plan``) is ``plan`` reads the (B, H, T, D) view t where
+    it lies: the split pass of a streamed f32 plan reads any view whose d
+    stride is 1 through its strides; every other instance reads through
+    tensor maps (``tma_reads_in_place``)."""
+    if "split_cols" in plan:
+        return t.stride(-1) == 1
+    return tma_reads_in_place(t)
+
+
 def tma_plan(name: str, q: torch.Tensor, k: torch.Tensor,
              v: torch.Tensor) -> dict:
     """The tensor maps the forward ``name`` encodes over (D, H, T, B) for
     each of q, k, v ((B, H, T, D) views): extents, strides in bytes, box
     and swizzle (bf16: ``forward_plan``; f32: ``f32_forward_plan``), and
-    the views TMA cannot read in place -- a base not 16-byte aligned, a d
-    stride other than 1, or a b, h or t stride that is not a multiple of 16
-    bytes (8 bf16 or 4 f32 elements), which every layout of a head of D %
-    8 != 0 (bf16) or D % 4 != 0 (f32) columns whose rows follow each other
-    has.  Those go through ``padded_copy``.  Past ``WIDEST_F32_FORWARD``
-    an f32 forward runs on the CUDA cores: no maps ("plan" None), and only
-    a d stride other than 1 is copied."""
+    the views the forward cannot read in place (``forward_reads_in_place``)
+    -- for a tensor map a base not 16-byte aligned, a d stride other than
+    1, or a b, h or t stride that is not a multiple of 16 bytes (8 bf16 or
+    4 f32 elements), which every layout of a head of D % 8 != 0 (bf16) or D
+    % 4 != 0 (f32) columns whose rows follow each other has.  Those go
+    through ``padded_copy``.  The streamed f32 plan's maps are over its
+    split pass's scratch, (W, B * H, T, 2) f32 halves of q and K and (W,
+    B * H, T, 3) bf16 terms of V, W its "split_cols"."""
     B, H, T, D = q.shape
     f32 = q.dtype == torch.float32
     plan = f32_forward_plan(name, T, D) if f32 else forward_plan(name, T, D)
     out = {"plan": plan, "maps": {}, "copies": []}
     size = q.element_size()
     for key, t in zip("qkv", (q, k, v)):
-        if not (tma_reads_in_place(t) if plan else t.stride(-1) == 1):
+        if not forward_reads_in_place(t, plan):
             out["copies"].append(key)
             t = padded_copy(t, meta=True)
-        if plan is None:
-            continue
         sb, sh, st = tma_strides(t)
         out["maps"][key] = {
             "extents": (D, H, T, B),
             "strides": (size * sh, size * st, size * sb),
             "box": (plan["atom_cols"], 1, plan["rows"][key], 1),
             "swizzle": plan["swizzle"]}
+    if "split_cols" in plan:
+        W = plan["split_cols"]
+        n = B * H * T * W
+        atom = 32 if plan["cols"] == 32 else 64  # V's terms: bf16 atoms
+        for key, parts, elem in (("q", 2, 4), ("k", 2, 4), ("v", 3, 2)):
+            out["maps"][key] = {
+                "extents": (W, B * H, T, parts),
+                "strides": (elem * T * W, elem * W, elem * n),
+                "box": ((atom, 1, plan["keys"], 1) if key == "v"
+                        else (plan["atom_cols"], 1, plan["rows"][key], 1)),
+                "swizzle": 64 if key == "v" and atom == 32 else 128}
     return out
 
 
@@ -368,19 +414,14 @@ def padded_copy(t: torch.Tensor, meta: bool = False) -> torch.Tensor:
     return buf[..., :D]
 
 
-def readable(*views, tma: bool | None = None):
+def readable(*views, plan: dict | None = None):
     """(B, H, T, D) views as a kernel reads them: each in place where its
-    layout allows, else its ``padded_copy``.  The wgmma kernels (``tma``;
-    by default the forwards' bf16 instances, and their f32 ones up to
-    ``WIDEST_F32_FORWARD`` columns) read them through tensor maps
-    (``tma_reads_in_place``, as ``tma_plan`` reports for the forwards; the
-    backward pair's at every width); the CUDA-core f32 forward instances
-    take any strides with d's 1."""
-    if tma is None:
-        tma = (views[0].dtype == torch.bfloat16
-               or views[0].shape[-1] <= WIDEST_F32_FORWARD)
-    return tuple(t if (tma_reads_in_place(t) if tma else t.stride(-1) == 1)
-                 else padded_copy(t) for t in views)
+    layout allows, else its ``padded_copy`` -- through tensor maps
+    (``tma_reads_in_place``), or as the forward of ``plan`` reads them
+    (``forward_reads_in_place``, as ``tma_plan`` reports)."""
+    return tuple(t if (tma_reads_in_place(t) if plan is None else
+                       forward_reads_in_place(t, plan)) else padded_copy(t)
+                 for t in views)
 
 
 def launch_error(name: str, err: int) -> str:
@@ -400,20 +441,30 @@ _STRIDES = ctypes.c_longlong * 9
 def launch_forward(name: str, q, k, v, scale: float, with_lse: bool):
     """Launch forward kernel ``name`` (``mhsa_fwd`` or ``flash_fwd``) after
     its checks on the views q, k, v as given, through their strides
-    (``readable``: only a layout the kernel cannot read is copied): (out
-    (B, T, H, D), lse (B, H, T) f32 or None)."""
+    (``readable``: only a layout the kernel cannot read is copied), with
+    the scratch the f32 instance asks for (``<name>_scratch_floats``: the
+    split pass's past 128 columns): (out (B, T, H, D), lse (B, H, T) f32 or
+    None)."""
     check(q, k, v)
-    q, k, v = readable(q, k, v)
     B, H, T, D = q.shape
+    # every bf16 instance reads through tensor maps
+    plan = (f32_forward_plan(name, T, D) if q.dtype == torch.float32
+            else None)
+    q, k, v = readable(q, k, v, plan=plan)
+    lib = library(name)
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    floats = (getattr(lib, f"{name}_scratch_floats")(B, H, T, D)
+              if q.dtype == torch.float32 else 0)
+    scratch = (torch.empty(floats, dtype=torch.float32, device=q.device)
+               if floats else None)
     strides = _STRIDES(*tma_strides(q), *tma_strides(k), *tma_strides(v))
 
     def run() -> int:
-        return getattr(library(name), name)(
+        return getattr(lib, name)(
             *(ctypes.c_void_p(None if t is None else t.data_ptr())
-              for t in (q, k, v, out, lse)),
+              for t in (q, k, v, out, lse, scratch)),
             strides, *(ctypes.c_int(n) for n in (B, H, T, D)),
             ctypes.c_float(scale), ctypes.c_int(_DTYPE_CODES[q.dtype]),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
@@ -457,9 +508,8 @@ def launch_backward(name: str, q, k, v, o, do, lse, outs, scale: float,
     shape needs too much shared memory or the launch fails."""
     check_bwd(q, k, v, o, do, lse)
     # q, k, v, and o and do as (B, H, T, D) views; o is read by rows, any
-    # strides with d's 1.  Tensor maps read the rest, in either dtype at
-    # every width
-    q, k, v, dot = readable(q, k, v, do.transpose(1, 2), tma=True)
+    # strides with d's 1.  Tensor maps read the rest
+    q, k, v, dot = readable(q, k, v, do.transpose(1, 2))
     ot = o.transpose(1, 2)
     views = (q, k, v, ot if ot.stride(-1) == 1 else padded_copy(ot), dot)
     B, H, T, D = q.shape

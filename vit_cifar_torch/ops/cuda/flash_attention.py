@@ -45,18 +45,18 @@ launches in ``<wrapper>.launches``.
 Every kernel dispatches by dtype: bf16 runs on the tensor cores (wgmma
 up to the widths above; p, and in the backward ds, split into bf16 hi +
 lo so that the product that follows keeps f32 accuracy).  In f32 the
-forward up to ``WIDEST_F32_FORWARD`` (128) columns and the backward pair
-at every width run the same kernels' design on TF32 wgmma
-(``csrc/wgmma_forward_tf32.cuh``, ``csrc/wgmma_tf32.cuh``): one TF32
-product would miss the f32 limit of 1e-5, so the sums over D (s, dp) take
-operands split into TF32 big + small, three TF32 products each (big.big +
-big.small + small.big), and the sums over keys or queries (p.V and the
-gradient products) three bf16 terms of each operand, six bf16 products,
-or the tile's TF32 transpose, by the table's row; past
-``WIDEST_F32_BACKWARD`` (128) columns the pair's streamed instances sum s
-and dp over 32-column chunks brought through the ring, each chunk's part
-added in f32.  The f32 forward past 128 columns runs on the CUDA cores in
-full f32.  Every kernel reads its inputs through their
+forwards and the backward pair at every width run the same kernels' design
+on TF32 wgmma (``csrc/wgmma_forward_tf32.cuh``, ``csrc/wgmma_tf32.cuh``):
+one TF32 product would miss the f32 limit of 1e-5, so the sums over D (s,
+dp) take operands split into TF32 big + small, three TF32 products each
+(big.big + big.small + small.big), and the sums over keys or queries (p.V
+and the gradient products) three bf16 terms of each operand, six bf16
+products, or the tile's TF32 transpose, by the table's row; past
+``COL_CHUNK`` (128) columns their streamed instances sum s (and dp) over
+32-column chunks brought through the ring, each chunk's part added in
+f32, the forward's two consumers sharing s's sum and reading q, K and V
+from a split pass that splits them once a call.  Every kernel reads its
+inputs through their
 strides (``common.launch_forward``, ``common.launch_backward``: only a
 layout a tensor map cannot read, D % 8 != 0 in bf16, D % 4 != 0 in f32,
 takes one padded copy), and
@@ -215,8 +215,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Training forward: (B, H, T, D)^3 -> (out (B, T, H, D), lse (B, H, T)
     f32), the operator ``vit_cifar_torch::flash_fwd_lse``.  Launches
     counted in ``flash_attention_lse.launches``.  bf16 runs on the tensor
-    cores, f32 on TF32 wgmma up to 128 columns and on the CUDA cores past
-    them (a dispatch by dtype and width; see above)."""
+    cores, f32 on TF32 wgmma, past 128 columns its streamed instance (a
+    dispatch by dtype and width; see above)."""
     check_device(q)
     return registry.OPS.flash_fwd_lse(q, k, v, scale)
 
@@ -286,8 +286,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Where a gradient is needed: :class:`FlashAttentionFunction`.  Otherwise
     the operator ``vit_cifar_torch::flash_fwd``: the plain version for CPU
     tensors, the inference kernel for CUDA tensors, its launches counted in
-    ``flash_attention.launches`` (on the tensor cores; f32 past 128 columns
-    on the CUDA cores).
+    ``flash_attention.launches`` (on the tensor cores, f32 on TF32 wgmma).
     """
     check_device(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
